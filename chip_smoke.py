@@ -4,25 +4,52 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the CUDA pair sweep from ``mdtpu_torch/csrc`` (``nvcc -Xptxas -v``
-   summary: registers, shared memory, spills).
-2. Kernel phase: at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
+   builds the three CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
+   started together; ``-Xptxas -v`` summary: registers, shared memory,
+   spills).
+2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
    r_c 2.5: a 15^3 grid with capacity C = 37) and for pseudo-hard spheres
-   (rho 0.76, r_c 1.5), launches ``cell_sweep`` at f32 and f64 and holds it
-   against ``cell_sweep_plain`` on the same inputs: f64 to rtol 1e-12 on
-   energy and virial and 1e-10 on each particle's force relative to the
-   larger of its own magnitude and the RMS force; f32 to 1e-5 on both (the
-   two sum in different orders). Times both with CUDA events and works out
-   the bound from this run's inputs: each unordered pair inside the cutoff
-   once, each input and output moved once.
-3. Main path: ``mdtpu_torch.run_simulation`` at the bench configuration on
-   the card, 600 NVT (Bussi) steps then 500 NVE steps, thermo every 100 and
-   trajectory every 500 steps, then 500 NVE steps from the NVT end state with
-   the force-shifted potential; checks finite output, the NVT temperature,
-   NVE energy conservation (to 1e-4 per particle with the force shift), the
-   output files, and that every step went through the kernel (launch
-   count).
-4. Prints the ``kernels`` JSON line, then as the last line
+   (rho 0.76, r_c 1.5), each kernel against its plain version on the same
+   inputs:
+   * ``cell_sweep`` and ``plane_sweep`` at f32 and f64: f64 to rtol 1e-12 on
+     energy and virial and 1e-10 on each particle's force relative to the
+     larger of its own magnitude and the RMS force; f32 to 1e-5 on both (the
+     two sum in different orders). ``plane_sweep`` also against
+     ``cell_sweep``: at f64 to the same 1e-12 / 1e-10; at f32 both against
+     the f64 plain sweep on the same inputs (a pair that crosses the box edge
+     rounds its displacement differently from its two sides, so the two f32
+     sweeps differ by the rounding of absolute coordinates): the half
+     stencil's per-particle error at most twice the full stencil's, energy
+     and virial within 1e-5;
+   * ``cell_sweep_hilo`` at f32 on hi/lo words of an f64 state: against its
+     plain version to 1e-5, and against the f64 plain sweep on hi + lo, where
+     its per-particle error must be at least 5 times smaller than the plain
+     f32 sweep's on hi;
+   * ``plane_sweep`` at f32 against its plain version to 1e-5 on the grid
+     and capacity of the Brownian path below (pseudo-hard spheres, rho 0.5,
+     r_c 1.5, through ``PlaneEngine.create``).
+   Times each kernel and its plain version with CUDA events (the two sweeps
+   in turns, cell, plane, plane, cell, five times, and their medians) and
+   works out the bound from this run's inputs: each unordered pair inside the
+   cutoff once, each occupied slot's inputs read once, each output written
+   once; the stencil's own work beside it.
+3. Probe phase: the probe's path (``probe.run`` over its default variants),
+   then every variant of ``plane_probe`` against its plain version (NaN
+   positions equal, finite values to 1e-5 of the largest), timed.
+4. Paths, each with the kernels' launch counts set to 0 just before it and
+   read just after:
+   * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
+     500 NVE steps (the f32 NVE legs take the hi/lo sweep), thermo every 100
+     and trajectory every 500 steps, then 500 NVE steps from the NVT end
+     state with the force-shifted potential;
+   * B2: the same three legs through ``PlaneEngine`` with
+     ``compensated=False``;
+   * Brownian: 65,536 pseudo-hard spheres at rho 0.5, kT 1, dt 1e-5, 200
+     steps through ``PlaneEngine`` with ``log_times=True``.
+   Checks finite output, the NVT temperature, NVE energy conservation (to
+   1e-4 per particle with the force shift), the T column of the Brownian
+   rows, the output and snapshot files, and the launch counts.
+5. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a card, when the package is
@@ -34,6 +61,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -45,6 +73,11 @@ N_BENCH = 65536
 BENCH_GEOMETRY = ((15, 15, 15), 37)   # CellGridEngine.create at skin 0.3
 NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
+BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
+SOURCES = ("cell_sweep", "plane_sweep", "plane_probe")
+PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
+PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
+               "full_static:15", "nodiv:5", "reduce_only:15")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, no sparsity): HBM3
 # 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor
@@ -53,12 +86,18 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per pair, by hand count of csrc/cell_sweep.cu: the distance
 # and the engine-cutoff test (3 subtractions, 3 multiplies, 2 adds, 1
-# compare), sigma mixing and the potential's cutoff test, and, inside the
-# potential's cutoff, its arithmetic plus the energy, virial and force
-# accumulation.
+# compare; the hi/lo displacement takes a two_sum and 3 adds a component
+# instead of the subtraction), sigma mixing and the potential's cutoff test,
+# and, inside the potential's cutoff, its arithmetic plus the energy, virial
+# and force accumulation.
 OPS_DISTANCE = 9
+OPS_DISTANCE_HILO = 33
 OPS_ENGINE_PAIR = 4
 OPS_POTENTIAL_PAIR = {"LennardJones": 25, "PseudoHS": 33}
+# Operations per candidate pair of the probe (csrc/plane_probe.cu): distance
+# 8, compare 1, the block (full: divide, powers, u and f, 11; nodiv: 2),
+# 2 selects, energy add 1, 3 force multiply-adds 6.
+OPS_PROBE = {"full": 29, "full_static": 29, "nodiv": 20}
 
 
 def log(*args):
@@ -99,20 +138,27 @@ class PairCounter:
 
 
 def pair_counts(inputs, grid, cutoff, pot_cutoff):
-    """Ordered candidate pairs the full 27-cell stencil visits (from the
-    per-cell counts), and the unordered pairs inside the engine cutoff and
-    inside the potential's cutoff (from the masks of ``cell_sweep_plain``)."""
+    """Ordered candidate pairs the full 27-cell stencil and the half stencil
+    visit (from the per-cell counts), and the unordered pairs inside the
+    engine cutoff and inside the potential's cutoff (from the masks of
+    ``cell_sweep_plain``)."""
     from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
-    counts = inputs[2]
+    from mdtpu_torch.ops.plane_sweep import NEWTON_CELLS, SELF_COLUMN
+    slot_pos, slot_diam, counts, box = inputs
     cnt = counts.reshape(grid)
-    near = sum(torch.roll(cnt, off, dims=(0, 1, 2))
-               for off in itertools.product((-1, 0, 1), repeat=3))
-    cand = int((cnt * near).sum() - cnt.sum())
-    f64 = [t.double() if t.is_floating_point() else t for t in inputs]
+
+    def candidates(offsets):
+        near = sum(torch.roll(cnt, tuple(-o for o in off), dims=(0, 1, 2))
+                   for off in offsets)
+        return int((cnt * near).sum() - cnt.sum())
+
+    full = candidates(itertools.product((-1, 0, 1), repeat=3))
+    half = candidates(SELF_COLUMN + NEWTON_CELLS)
+    f64 = (slot_pos.double(), slot_diam.double(), counts, box.double())
     inside, inside_pot = (
         round(float(cell_sweep_plain(*f64, grid, cutoff, PairCounter(r))[0]))
         for r in (cutoff, pot_cutoff))
-    return cand, inside, inside_pot
+    return full, half, inside, inside_pot
 
 
 def force_error(f1, f0, n_particles):
@@ -127,9 +173,71 @@ def force_error(f1, f0, n_particles):
     return float((err / mag.clamp(min=rms)).max()), float(err.max()), rms
 
 
+def rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def bound(inputs, counts_, pot, dtype, hilo=False):
+    """The least time for the function on these inputs: bytes (each input
+    read once, each output written once) over HBM, operations (each
+    unordered pair inside the cutoff once) over the peak rate. The sweeps
+    read only the occupied slots (their loops stop at each cell's count), so
+    the inputs count those; the outputs cover every slot."""
+    _, _, inside, inside_pot = counts_
+    dist = OPS_DISTANCE_HILO if hilo else OPS_DISTANCE
+    ops = (inside * (dist + OPS_ENGINE_PAIR)
+           + inside_pot * OPS_POTENTIAL_PAIR[type(pot).__name__])
+    slot_pos, _, counts, _ = inputs
+    b = slot_pos.element_size()
+    n_slots, n_cells = slot_pos.shape[1], counts.shape[0]
+    occupied = int(counts.sum())
+    words = 7 if hilo else 4
+    nbytes = (words * occupied * b + n_cells * 8 + 3 * b     # inputs
+              + 3 * n_slots * b + 2 * n_cells * b)          # outputs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes, "ops": ops,
+            "bytes": nbytes}
+
+
+def stencil_work(counts_, pot, dtype, half):
+    """The design's own work: the stencil's candidate pairs, the pairs
+    inside the cutoffs evaluated once (half stencil, Newton cells) or from
+    both sides."""
+    full_cand, half_cand, inside, inside_pot = counts_
+    pot_ops = OPS_POTENTIAL_PAIR[type(pot).__name__]
+    cand = half_cand if half else full_cand
+    sides = 1 if half else 2
+    ops = (cand * OPS_DISTANCE + sides * inside * OPS_ENGINE_PAIR
+           + sides * inside_pot * pot_ops)
+    return {"stencil_candidates": cand, "stencil_ops": ops,
+            "stencil_ops_ms": ops / PEAK_OPS[dtype] * 1e3}
+
+
+def kernel_turns(args, rounds=5, reps=20):
+    """Times of ``cell_sweep`` and ``plane_sweep`` on the same inputs, taken
+    in turns (cell, plane, plane, cell) ``rounds`` times within this call:
+    two kernels are compared only so."""
+    from mdtpu_torch.ops.cell_sweep import cell_sweep
+    from mdtpu_torch.ops.plane_sweep import plane_sweep
+    kernels = {"cell_sweep": cell_sweep, "plane_sweep": plane_sweep}
+    turns = {name: [] for name in kernels}
+    for _ in range(rounds):
+        for name in ("cell_sweep", "plane_sweep", "plane_sweep",
+                     "cell_sweep"):
+            turns[name].append(cuda_time_ms(lambda: kernels[name](*args),
+                                            reps, 2))
+    return turns
+
+
 def kernel_phase(mt):
-    from mdtpu_torch.ops.cell_sweep import cell_sweep, cell_sweep_plain
     from mdtpu_torch.ops.cell_grid import CellGridEngine
+    from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
+                                            cell_sweep_hilo_plain,
+                                            cell_sweep_plain)
+    from mdtpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
     # Jitter in standard normals of the lattice spacing. At 0.03 the pseudo-
@@ -141,11 +249,22 @@ def kernel_phase(mt):
         ("pseudo_hs", mt.PseudoHS(), 0.76, 1.5, 0.03),
     ]
     results, failures = {}, []
+
+    def record(rec, ok, what):
+        rec["ok"] = ok
+        log(json.dumps(rec))
+        results[(rec["kernel_check"], rec["case"], rec["dtype"])] = rec
+        if not ok:
+            failures.append(what)
+
     for name, pot, rho, cutoff, jitter in cases:
-        for dtype in (torch.float32, torch.float64):
+        f64_state = None
+        for dtype in (torch.float64, torch.float32):
             state = lattice_fluid_state(N_BENCH, rho, 1.0, dtype=dtype,
                                         cutoff=cutoff, jitter=jitter,
                                         device="cuda")
+            if dtype == torch.float64:
+                f64_state = state
             eng = mt.select_engine(pot, cutoff, state)
             assert isinstance(eng, CellGridEngine), eng
             if name == "lj_bench":
@@ -157,101 +276,250 @@ def kernel_phase(mt):
             inputs = eng.slot_inputs(state.positions, state.unitcell,
                                      state.unitcell_inv, nb)
             args = (*inputs, eng.grid, eng.cutoff, pot)
-            e1, w1, f1 = cell_sweep(*args)
-            torch.cuda.synchronize()
-            e0, w0, f0 = cell_sweep_plain(*args)
-            torch.cuda.synchronize()
+            counts_ = pair_counts(inputs, eng.grid, eng.cutoff,
+                                  pot.max_cutoff(float(state.diameters.max())))
             f64 = dtype == torch.float64
             rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
-            worst, max_abs, rms = force_error(f1, f0, N_BENCH)
-            rel_e = abs(float(e1) - float(e0)) / abs(float(e0))
-            rel_w = abs(float(w1) - float(w0)) / abs(float(w0))
-            ok = (math.isfinite(float(e1)) and rel_e <= rtol_ew
-                  and rel_w <= rtol_ew and worst <= tol_f)
-            kernel_ms = cuda_time_ms(lambda: cell_sweep(*args), 20, 3)
-            plain_ms = cuda_time_ms(lambda: cell_sweep_plain(*args), 3, 1)
+            tag = str(dtype).split(".")[-1]
+            base = {"case": name, "dtype": tag, "grid": list(eng.grid),
+                    "capacity": eng.cell_capacity,
+                    "pairs_in_engine_cutoff": counts_[2],
+                    "pairs_in_potential_cutoff": counts_[3],
+                    "library_ms": None}
 
-            # The bound counts what the function needs: each unordered pair
-            # inside the cutoff once, each input read and each output
-            # written once. The full stencil's candidate pairs, each seen
-            # from both sides, are the design's work, printed beside it.
-            cand, inside, inside_pot = pair_counts(
-                inputs, eng.grid, eng.cutoff,
-                pot.max_cutoff(float(state.diameters.max())))
-            pot_ops = OPS_POTENTIAL_PAIR[type(pot).__name__]
-            ops = (inside * (OPS_DISTANCE + OPS_ENGINE_PAIR)
-                   + inside_pot * pot_ops)
-            design_ops = (cand * OPS_DISTANCE + 2 * inside * OPS_ENGINE_PAIR
-                          + 2 * inside_pot * pot_ops)
-            b = inputs[0].element_size()
-            n_slots, n_cells = inputs[0].shape[1], inputs[2].shape[0]
-            nbytes = (4 * n_slots * b + n_cells * 8 + 3 * b     # inputs
-                      + 3 * n_slots * b + 2 * n_cells * b)     # outputs
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dtype] * 1e3
-            rec = {
-                "kernel_check": name, "dtype": str(dtype).split(".")[-1],
-                "grid": list(eng.grid), "capacity": eng.cell_capacity,
-                "ok": ok, "rel_err_energy": rel_e, "rel_err_virial": rel_w,
-                "force_err_per_particle": worst, "max_abs_err": max_abs,
-                "rms_force": rms,
-                "max_force": float(f0.double().norm(dim=0).max()),
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-                "pairs_in_engine_cutoff": inside,
-                "pairs_in_potential_cutoff": inside_pot, "ops": ops,
-                "bytes": nbytes, "stencil_candidates": cand,
-                "stencil_ops": design_ops,
-                "stencil_ops_ms": design_ops / PEAK_OPS[dtype] * 1e3,
-                "library_ms": None,
-            }
-            log(json.dumps(rec))
-            results[(name, dtype)] = rec
-            if not ok:
-                failures.append(f"{name} {dtype}")
-            del state, nb, inputs, args, f0, f1
+            turns = kernel_turns(args)
+            out = {}
+            for kname, kernel, plain, half in (
+                    ("cell_sweep", cell_sweep, cell_sweep_plain, False),
+                    ("plane_sweep", plane_sweep, plane_sweep_plain, True)):
+                r1 = kernel(*args)
+                torch.cuda.synchronize()
+                r0 = plain(*args)
+                torch.cuda.synchronize()
+                out[kname] = r1
+                worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+                rec = {"kernel_check": kname, **base,
+                       "rel_err_energy": rel(r1[0], r0[0]),
+                       "rel_err_virial": rel(r1[1], r0[1]),
+                       "force_err_per_particle": worst,
+                       "max_abs_err": max_abs, "rms_force": rms,
+                       "max_force": float(r0[2].double().norm(dim=0).max()),
+                       "ms": statistics.median(turns[kname]),
+                       "ms_turns": turns[kname],
+                       "plain_ms": cuda_time_ms(lambda: plain(*args), 3, 1),
+                       **bound(inputs, counts_, pot, dtype),
+                       **stencil_work(counts_, pot, dtype, half)}
+                ok = (math.isfinite(float(r1[0]))
+                      and rec["rel_err_energy"] <= rtol_ew
+                      and rec["rel_err_virial"] <= rtol_ew
+                      and worst <= tol_f)
+                record(rec, ok, f"{kname} {name} {tag}")
+
+            # The half stencil against the full one on the same inputs.
+            (e1, w1, f1), (e2, w2, f2) = out["plane_sweep"], out["cell_sweep"]
+            pairs = zip(turns["plane_sweep"], turns["cell_sweep"])
+            rec = {"kernel_check": "plane_vs_cell", "case": name,
+                   "dtype": tag, "rel_err_energy": rel(e1, e2),
+                   "rel_err_virial": rel(w1, w2),
+                   "force_err_per_particle": force_error(f1, f2, N_BENCH)[0],
+                   "median_ms_ratio_plane_over_cell":
+                       statistics.median(turns["plane_sweep"])
+                       / statistics.median(turns["cell_sweep"]),
+                   "turns_plane_faster": sum(p < c for p, c in pairs),
+                   "turns": len(turns["plane_sweep"])}
+            if f64:
+                ok = (rec["rel_err_energy"] <= 1e-12
+                      and rec["rel_err_virial"] <= 1e-12
+                      and rec["force_err_per_particle"] <= 1e-10)
+            else:
+                e0, w0, f0 = cell_sweep_plain(
+                    inputs[0].double(), inputs[1].double(), inputs[2],
+                    inputs[3].double(), eng.grid, eng.cutoff, pot)
+                rec["plane_err_vs_f64"] = force_error(f1, f0, N_BENCH)[0]
+                rec["cell_err_vs_f64"] = force_error(f2, f0, N_BENCH)[0]
+                ok = (rec["rel_err_energy"] <= 1e-5
+                      and rec["rel_err_virial"] <= 1e-5
+                      and rec["plane_err_vs_f64"]
+                      <= 2 * rec["cell_err_vs_f64"])
+            record(rec, ok, f"plane_vs_cell {name} {tag}")
+
+            if not f64:
+                hilo_check(mt, eng, f64_state, pot, counts_, base, record)
+            del state, nb, inputs, args, out
             torch.cuda.empty_cache()
+    brownian_geometry_check(mt, record)
     return results, failures
 
 
-def main_path(mt, workdir):
-    from mdtpu_torch.ops.cell_sweep import cell_sweep
+def brownian_geometry_check(mt, record):
+    """``plane_sweep`` against its plain version at f32 on the grid and
+    capacity the Brownian path gives it (``PlaneEngine.create`` at rho 0.5,
+    r_c 1.5, the path's starting state)."""
+    from mdtpu_torch.ops.experimental import PlaneEngine
+    from mdtpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
+    state = brownian_state()
+    pot = mt.PseudoHS()
+    eng = PlaneEngine.create(pot, 1.5, 0.3, state.unitcell, N_BENCH)
+    nb = eng.allocate(state.positions, state.diameters, state.unitcell,
+                      state.unitcell_inv)
+    assert not bool(nb.overflow)
+    inputs = eng.slot_inputs(state.positions, state.unitcell,
+                             state.unitcell_inv, nb)
+    args = (*inputs, eng.grid, eng.cutoff, pot)
+    r1 = plane_sweep(*args)
+    torch.cuda.synchronize()
+    r0 = plane_sweep_plain(*args)
+    worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+    rec = {"kernel_check": "plane_sweep", "case": "brownian", "dtype":
+           "float32", "grid": list(eng.grid), "capacity": eng.cell_capacity,
+           "rel_err_energy": rel(r1[0], r0[0]),
+           "rel_err_virial": rel(r1[1], r0[1]),
+           "force_err_per_particle": worst, "max_abs_err": max_abs,
+           "rms_force": rms,
+           "ms": cuda_time_ms(lambda: plane_sweep(*args), 20, 3)}
+    ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
+          and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5)
+    record(rec, ok, "plane_sweep brownian float32")
+
+
+def hilo_check(mt, eng, state64, pot, counts_, base, record):
+    """The hi/lo sweep at f32 on the hi/lo words of an f64 state."""
+    from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
+                                            cell_sweep_hilo_plain,
+                                            cell_sweep_plain)
+    hi = state64.positions.float()
+    lo = (state64.positions - hi.double()).float()
+    cell = state64.unitcell.float()
+    cinv = state64.unitcell_inv.float()
+    nb = eng.allocate(hi, state64.diameters.float(), cell, cinv)
+    inputs = eng.slot_inputs_hilo(hi, lo, cell, cinv, nb)
+    args = (*inputs, eng.grid, eng.cutoff, pot)
+    r1 = cell_sweep_hilo(*args)
+    torch.cuda.synchronize()
+    r0 = cell_sweep_hilo_plain(*args)
+    slot_hi, slot_lo, diam, counts, box = inputs
+    r64 = cell_sweep_plain(slot_hi.double() + slot_lo.double(), diam.double(),
+                           counts, box.double(), eng.grid, eng.cutoff, pot)
+    rp = cell_sweep(slot_hi, diam, counts, box, eng.grid, eng.cutoff, pot)
+    torch.cuda.synchronize()
+    worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+    sweep_inputs = (slot_hi, diam, counts, box)
+    rec = {"kernel_check": "cell_sweep_hilo", **base,
+           "rel_err_energy": rel(r1[0], r0[0]),
+           "rel_err_virial": rel(r1[1], r0[1]),
+           "force_err_per_particle": worst, "max_abs_err": max_abs,
+           "rms_force": rms,
+           "hilo_err_vs_f64": force_error(r1[2], r64[2], N_BENCH)[0],
+           "plain_f32_err_vs_f64": force_error(rp[2], r64[2], N_BENCH)[0],
+           "ms": cuda_time_ms(lambda: cell_sweep_hilo(*args), 20, 3),
+           "plain_ms": cuda_time_ms(lambda: cell_sweep_hilo_plain(*args), 3,
+                                    1),
+           **bound(sweep_inputs, counts_, pot, torch.float32, hilo=True),
+           **stencil_work(counts_, pot, torch.float32, False)}
+    ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
+          and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5
+          and 5 * rec["hilo_err_vs_f64"] <= rec["plain_f32_err_vs_f64"])
+    record(rec, ok, f"cell_sweep_hilo {base['case']}")
+
+
+def probe_phase():
+    from mdtpu_torch.ops.experimental import probe
+
+    probe.probe_sweep.launches = 0
+    path = [probe.run(spec, reps=20) for spec in PROBE_PATH]
+    launches = probe.probe_sweep.launches
+
+    failures, records = [], {}
+    w = probe.random_input(0, device="cuda")
+    dense = w * (5.0 / 40.0)
+    in_bytes = 3 * probe.NX * probe.ROWS * probe.C3 * 4
+    out_bytes = probe.NX * probe.ROWS * probe.CAP * 4 + probe.NX * 4
+    for spec in PROBE_SPECS:
+        variant, chunk = probe.parse_variant(spec)
+        worst = 0.0
+        ok = True
+        for x in (w, dense):
+            got = probe.probe_sweep(x, variant, chunk)
+            want = probe.probe_sweep_plain(x, variant, chunk)
+            for g, h in zip(got, want):
+                nan_g, nan_h = torch.isnan(g), torch.isnan(h)
+                ok &= bool(torch.equal(nan_g, nan_h))
+                fin = ~nan_h
+                if bool(fin.any()):
+                    err = float((g[fin] - h[fin]).abs().max())
+                    scale = max(float(h[fin].abs().max()), 1e-30)
+                    worst = max(worst, err)
+                    ok &= err <= 1e-5 * scale
+        if variant == "reduce_only":
+            n_pairs = probe.NX * (probe.ROWS // chunk) * probe.N_OFF
+            ops = n_pairs * 23
+            nbytes = n_pairs * 6 * 4 + out_bytes
+        else:
+            n_pairs = (probe.NX * probe.ROWS * probe.CAP * probe.C3
+                       * probe.N_OFF)
+            ops = n_pairs * OPS_PROBE[variant]
+            nbytes = in_bytes + out_bytes
+        t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"kernel_check": "plane_probe", "variant": variant,
+               "chunk": chunk, "ok": ok, "max_abs_err": worst,
+               "nan_in_output": bool(torch.isnan(got[1]).any()),
+               "ms": cuda_time_ms(lambda: probe.probe_sweep(w, variant,
+                                                            chunk), 20, 3),
+               "plain_ms": cuda_time_ms(
+                   lambda: probe.probe_sweep_plain(w, variant, chunk), 2, 1),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "candidate_pairs": n_pairs, "ops": ops, "bytes": nbytes,
+               "library_ms": None}
+        log(json.dumps(rec))
+        records[spec] = rec
+        if not ok:
+            failures.append(f"plane_probe {spec}")
+    if launches < len(PROBE_PATH):
+        failures.append(f"probe path launched plane_probe {launches} times")
+    return records, launches, path, failures
+
+
+def md_path(mt, workdir, label, engine_for, compensated):
+    """600 NVT + 500 NVE + 500 force-shifted NVE steps at the bench
+    configuration; ``engine_for(state, potential)`` gives the engine."""
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
     state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
                                 cutoff=2.5, jitter=0.01, device="cuda")
     params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
                            potential=mt.LennardJones(r_cut=2.5))
-    nvt_dir, nve_dir, fs_dir = (os.path.join(workdir, d)
+    fs_params = dataclasses.replace(
+        params, potential=mt.LennardJones(r_cut=2.5, force_shift=True))
+    nvt_dir, nve_dir, fs_dir = (os.path.join(workdir, label, d)
                                 for d in ("nvt", "nve", "nve_fs"))
-    cell_sweep.launches = 0
+
+    def run(st, prm, ens, steps, out):
+        return mt.run_simulation(st, prm, ens, steps, THERMO_EVERY, out,
+                                 traj_frequency=TRAJ_EVERY,
+                                 engine=engine_for(st, prm.potential),
+                                 compensated=compensated)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mid = mt.run_simulation(state, params, mt.NVT(1.0, 0.4), NVT_STEPS,
-                            THERMO_EVERY, nvt_dir, traj_frequency=TRAJ_EVERY)
+    mid = run(state, params, mt.NVT(1.0, 0.4), NVT_STEPS, nvt_dir)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    end = mt.run_simulation(mid, params, mt.NVE(), NVE_STEPS, THERMO_EVERY,
-                            nve_dir, traj_frequency=TRAJ_EVERY)
+    end = run(mid, params, mt.NVE(), NVE_STEPS, nve_dir)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     # NVE again from the NVT end state with the force-shifted potential (V
     # and F continuous at r_c), whose total energy no cutoff crossing moves.
-    fs_params = dataclasses.replace(
-        params, potential=mt.LennardJones(r_cut=2.5, force_shift=True))
-    fs_end = mt.run_simulation(mid, fs_params, mt.NVE(), NVE_STEPS,
-                               THERMO_EVERY, fs_dir, traj_frequency=TRAJ_EVERY)
+    fs_end = run(mid, fs_params, mt.NVE(), NVE_STEPS, fs_dir)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = cell_sweep.launches
 
     failures = []
 
     def check(cond, what):
         if not cond:
-            failures.append(what)
+            failures.append(f"{label}: {what}")
 
     steps = NVT_STEPS + NVE_STEPS
     for st in (end, fs_end):
@@ -259,8 +527,6 @@ def main_path(mt, workdir):
         check(bool(torch.isfinite(st.positions).all())
               and bool(torch.isfinite(st.velocities).all()),
               "non-finite state")
-    check(launches >= steps + NVE_STEPS,
-          f"cell_sweep launched {launches} < {steps + NVE_STEPS} times")
     nvt_rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
     nve_rows = _rows(os.path.join(nve_dir, "thermo.txt"))
     fs_rows = _rows(os.path.join(fs_dir, "thermo.txt"))
@@ -288,9 +554,11 @@ def main_path(mt, workdir):
     check(fs_drift < 1e-4,
           f"NVE (shifted) energy per particle moved {fs_drift}")
     for path, frames in ((os.path.join(nvt_dir, "trajectory.xyz"),
-                          NVT_STEPS // TRAJ_EVERY + (NVT_STEPS % TRAJ_EVERY > 0)),
-                         (os.path.join(nve_dir, "trajectory.xyz"), 1),
-                         (os.path.join(fs_dir, "trajectory.xyz"), 1)):
+                          -(-NVT_STEPS // TRAJ_EVERY)),
+                         (os.path.join(nve_dir, "trajectory.xyz"),
+                          -(-NVE_STEPS // TRAJ_EVERY)),
+                         (os.path.join(fs_dir, "trajectory.xyz"),
+                          -(-NVE_STEPS // TRAJ_EVERY))):
         with open(path) as f:
             text = f.read()
         check(text.count("ITEM: TIMESTEP") == frames, f"frames in {path}")
@@ -299,19 +567,76 @@ def main_path(mt, workdir):
         with open(os.path.join(d, "final.xyz")) as f:
             check(sum(1 for _ in f) == N_BENCH + 2, f"final.xyz in {d}")
     rec = {
-        "main_path": "run_simulation NVT->NVE, N=65536 LJ rho 0.8 f32",
+        "path": label, "compensated": compensated,
         "steps": steps, "nvt_s": t1 - t0, "nve_s": t2 - t1,
         "steps_per_s": steps / (t2 - t0),
         "particle_steps_per_s": steps * N_BENCH / (t2 - t0),
-        "cell_sweep_launches": launches, "nvt_mean_T": mean_t,
+        "nvt_mean_T": mean_t,
         "nve_total_energy_per_particle": e_tot, "nve_energy_range": drift,
         "nve_shifted_s": t3 - t2,
         "nve_shifted_total_energy_per_particle": fs_tot,
         "nve_shifted_energy_range": fs_drift,
         "thermo_nvt": nvt_rows, "thermo_nve": nve_rows,
-        "card": torch.cuda.get_device_name(0),
     }
-    log(json.dumps(rec))
+    return rec, failures
+
+
+def brownian_state():
+    """The Brownian path's start: 65,536 particles at rho 0.5, f32. Jitter
+    0.05 of the spacing 1.26: a few hundred pairs start inside the
+    pseudo-hard-sphere range (1.02), the closest near 0.9, so the first moves
+    stay well below a cell (measured at 8,000 particles on the CPU: the
+    largest first move 0.04)."""
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    return lattice_fluid_state(N_BENCH, 0.5, 1.0, dtype=torch.float32,
+                               cutoff=1.5, jitter=0.05, device="cuda")
+
+
+def brownian_path(mt, workdir):
+    """Brownian dynamics through PlaneEngine with log-time snapshots."""
+    from mdtpu_torch.ops.experimental import PlaneEngine
+
+    state = brownian_state()
+    params = mt.Parameters(density=0.5, n_particles=N_BENCH, dt=1e-5,
+                           potential=mt.PseudoHS())
+    engine = PlaneEngine.create(params.potential, 1.5, 0.3, state.unitcell,
+                                N_BENCH)
+    out_dir = os.path.join(workdir, "brownian")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end = mt.run_simulation(state, params, mt.Brownian(1.0), BROWNIAN_STEPS,
+                            BROWNIAN_THERMO_EVERY, out_dir, engine=engine,
+                            log_times=True, traj_frequency=BROWNIAN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"brownian: {what}")
+
+    check(end.step == BROWNIAN_STEPS, "final step")
+    check(bool(torch.isfinite(end.positions).all()), "non-finite positions")
+    rows = _rows(os.path.join(out_dir, "thermo.txt"))
+    check(len(rows) == BROWNIAN_STEPS // BROWNIAN_THERMO_EVERY,
+          "thermo rows")
+    check(all(math.isfinite(v) for r in rows for v in r), "non-finite thermo")
+    check(all(r[2] == 1.0 for r in rows), "T column is not kT")
+    with open(os.path.join(out_dir, "new-log-times.txt")) as f:
+        times = [int(x) for x in f.read().split()[1:]]
+    want = sorted({0} | {s for s in times if s < BROWNIAN_STEPS})
+    snaps = sorted(int(name.split(".")[1]) for name in os.listdir(out_dir)
+                   if name.startswith("snapshot."))
+    check(snaps == want, f"snapshots {snaps} != {want}")
+    for s in snaps:
+        with open(os.path.join(out_dir, f"snapshot.{s}")) as f:
+            text = f.read()
+        check(text.count("\n") == 9 + N_BENCH
+              and text.startswith(f"ITEM: TIMESTEP\n{s}\n"),
+              f"snapshot.{s}")
+    rec = {"path": "brownian", "steps": BROWNIAN_STEPS, "seconds": seconds,
+           "steps_per_s": BROWNIAN_STEPS / seconds, "thermo": rows,
+           "snapshots": snaps}
     return rec, failures
 
 
@@ -321,38 +646,111 @@ def _rows(path):
                 if line.strip() and not line.startswith("#")]
 
 
+def run_paths(mt, workdir):
+    from mdtpu_torch.ops import cell_sweep as cs
+    from mdtpu_torch.ops import plane_sweep as ps
+    from mdtpu_torch.ops.experimental import PlaneEngine
+
+    counters = {"cell_sweep": cs.cell_sweep,
+                "cell_sweep_hilo": cs.cell_sweep_hilo,
+                "plane_sweep": ps.plane_sweep}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        rec, failures = fn()
+        rec["launches"] = {k: c.launches for k, c in counters.items()}
+        log(json.dumps(rec))
+        return rec, failures
+
+    b1, f1 = counted(lambda: md_path(
+        mt, workdir, "b1", lambda st, pot: None, True))
+    b2, f2 = counted(lambda: md_path(
+        mt, workdir, "b2",
+        lambda st, pot: PlaneEngine.create(pot, 2.5, 0.3, st.unitcell,
+                                           N_BENCH), False))
+    bd, f3 = counted(lambda: brownian_path(mt, workdir))
+    failures = f1 + f2 + f3
+    # NVT takes the plain sweep; each f32 NVE leg the hi/lo sweep (its
+    # initial forces, as the JAX package's, the plain one).
+    if b1["launches"]["cell_sweep"] < NVT_STEPS:
+        failures.append(f"b1: cell_sweep launches {b1['launches']}")
+    if b1["launches"]["cell_sweep_hilo"] < 2 * NVE_STEPS:
+        failures.append(f"b1: cell_sweep_hilo launches {b1['launches']}")
+    if b2["launches"]["plane_sweep"] < NVT_STEPS + 2 * NVE_STEPS:
+        failures.append(f"b2: plane_sweep launches {b2['launches']}")
+    if bd["launches"]["plane_sweep"] < BROWNIAN_STEPS:
+        failures.append(f"brownian: plane_sweep launches {bd['launches']}")
+    return {"b1": b1, "b2": b2, "brownian": bd}, failures
+
+
+def ptxas_summary(name, report):
+    for line in report.splitlines():
+        if any(k in line for k in ("registers", "spill", "Compiling entry",
+                                   "smem")):
+            log(f"  ptxas {name}: " + line.strip())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import mdtpu_torch as mt
-    from mdtpu_torch.ops import cell_sweep as sweep_mod
+    from mdtpu_torch.ops import _cuda_build
 
     log(nvidia_smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    report = sweep_mod.build_report()
-    log(f"built {sweep_mod.SOURCE.name} in {time.perf_counter() - t:.1f} s")
-    for line in report.splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry",
-                                   "smem")):
-            log("  ptxas: " + line.strip())
+    _cuda_build.build_all(SOURCES)
+    log(f"built {', '.join(s + '.cu' for s in SOURCES)} in "
+        f"{time.perf_counter() - t:.1f} s")
+    for name in SOURCES:
+        ptxas_summary(name, _cuda_build.build_report(name))
 
+    t = time.perf_counter()
     results, failures = kernel_phase(mt)
+    probes, probe_launches, probe_path, probe_failures = probe_phase()
+    failures += probe_failures
+    log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
-        main_rec, main_failures = main_path(mt, workdir)
-    failures += main_failures
-    bench = results[("lj_bench", torch.float32)]
-    kernels = {"kernels": [{
-        "name": "cell_sweep", "route": "cuda",
-        "source": "mdtpu_torch/csrc/cell_sweep.cu",
-        "replaces": "mdtpu/ops/experimental/pallas_cell.py:77",
-        "launches": main_rec["cell_sweep_launches"],
-        "max_abs_err": bench["max_abs_err"], "ms": bench["kernel_ms"],
-        "plain_ms": bench["plain_ms"], "bound_ms": bench["bound_ms"],
-        "bound_by": bench["bound_by"], "library_ms": None,
-    }]}
+        paths, path_failures = run_paths(mt, workdir)
+    failures += path_failures
+
+    def entry(name, source, replaces, launches, rec, extra=None):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                **(extra or {})}
+
+    by_path = {p: paths[p]["launches"] for p in paths}
+    # The probe's entry: its full variant at the default chunk, with the
+    # largest error over every variant's check.
+    probe_rec = dict(probes["full"], max_abs_err=max(
+        r["max_abs_err"] for r in probes.values()))
+    kernels = {"kernels": [
+        entry("cell_sweep", "mdtpu_torch/csrc/cell_sweep.cu",
+              "mdtpu/ops/experimental/pallas_cell.py:77",
+              paths["b1"]["launches"]["cell_sweep"],
+              results[("cell_sweep", "lj_bench", "float32")]),
+        entry("cell_sweep_hilo", "mdtpu_torch/csrc/cell_sweep.cu",
+              "mdtpu/ops/experimental/pallas_cell.py:77",
+              paths["b1"]["launches"]["cell_sweep_hilo"],
+              results[("cell_sweep_hilo", "lj_bench", "float32")]),
+        entry("plane_sweep", "mdtpu_torch/csrc/plane_sweep.cu",
+              "mdtpu/ops/experimental/pallas_plane.py:70",
+              paths["b2"]["launches"]["plane_sweep"],
+              results[("plane_sweep", "lj_bench", "float32")],
+              {"launches_brownian": by_path["brownian"]["plane_sweep"]}),
+        entry("plane_probe", "mdtpu_torch/csrc/plane_probe.cu",
+              "probe_kernel.py:29", probe_launches, probe_rec,
+              {"variant": "full:45"}),
+    ]}
+    for k in kernels["kernels"]:
+        if k["launches"] <= 0:
+            failures.append(f"{k['name']} never launched on its path")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

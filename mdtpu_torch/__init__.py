@@ -2,10 +2,12 @@
 
 Classical molecular dynamics of soft-sphere fluids in periodic boxes: NVT
 (Bussi) and NVE velocity Verlet, pair potentials (pseudo-hard-sphere,
-Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output. The pair
-forces of 3D orthorhombic systems come from a cell grid whose sweep is a
-hand-written CUDA kernel (``csrc/cell_sweep.cu``); small and other systems
-use the O(N^2) engine.
+Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output, and
+overdamped Brownian dynamics. The pair forces of 3D orthorhombic systems come
+from a cell grid whose sweeps are hand-written CUDA kernels (``csrc/*.cu``:
+the full stencil and its hi/lo variant, and the Newton half stencil behind
+``ops.experimental.PlaneEngine``); small and other systems use the O(N^2)
+engine.
 
 The package imports torch and numpy, never JAX or ``mdtpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -34,7 +34,8 @@ class SimulationState:
 
     Besides the reference's fields it carries the last step's forces and
     thermo outputs, the step counter, the random seed and the Kahan
-    compensation buffers, so NVE runs continue exactly."""
+    compensation buffers, so NVE runs continue exactly, and the Brownian
+    pressure accumulators."""
 
     positions: torch.Tensor       # (N, d)
     velocities: torch.Tensor      # (N, d)
@@ -51,6 +52,8 @@ class SimulationState:
     temperature: torch.Tensor     # () last kinetic temperature
     pos_comp: torch.Tensor        # (N, d) Kahan compensation (zeros if unused)
     vel_comp: torch.Tensor        # (N, d)
+    virial_accum: torch.Tensor    # () Brownian virial summed every 10 steps
+    nprom: torch.Tensor           # () int64 count of those samples
     nbrs: Any = None              # engine state (e.g. the cell binning)
     cutoff: float = 1.5           # engine cutoff
 
@@ -133,7 +136,7 @@ class NVE:
 
 @dataclass(frozen=True)
 class Brownian:
-    """Overdamped Brownian dynamics. Declared for API parity; the driver
-    does not run it yet."""
+    """Overdamped Brownian dynamics at temperature ``ktemp`` (Euler-Maruyama;
+    see :func:`mdtpu_torch.integrate.step.make_brownian_step`)."""
 
     ktemp: float

@@ -24,17 +24,20 @@ _POTENTIALS = {cls.__name__: cls
                for cls in (LennardJones, PseudoHS, LennardJonesXPLOR)}
 _STATE_FIELDS = {f.name for f in dataclasses.fields(SimulationState)}
 _SCALAR_FIELDS = {"seed": int, "step": int, "nf": float, "cutoff": float}
-_INT_FIELDS = {"images"}
+_INT_FIELDS = {"images", "nprom"}
 # Fields the JAX state carries that have no counterpart here: its PRNG key
 # (the seed replaces it), engine state (rebuilt from the positions) and the
-# slot-layout and Brownian fields.
-_JAX_ONLY = {"key", "nbrs", "virial_accum", "nprom", "ids"}
+# slot layout's particle ids.
+_JAX_ONLY = {"key", "nbrs", "ids"}
+# Fields that may be absent (or None): they then start at zero.
+_OPTIONAL = {"virial_accum", "nprom"}
 
 
 def state_from_numpy(arrays: dict, device=None) -> SimulationState:
     """A state from a dict of numpy arrays / Python values keyed by the
     field names of :class:`SimulationState`. ``seed`` defaults to 0 and
-    ``nbrs`` to None; the JAX-only fields (``key``, ``nbrs``, ...) are
+    ``nbrs`` to None, the Brownian accumulators ``virial_accum`` and
+    ``nprom`` to zero; the JAX-only fields (``key``, ``nbrs``, ``ids``) are
     ignored. The float fields keep the dtype of ``positions``."""
     device = resolve_device(device)
     unknown = set(arrays) - _STATE_FIELDS - _JAX_ONLY
@@ -43,7 +46,7 @@ def state_from_numpy(arrays: dict, device=None) -> SimulationState:
     dtype = torch.from_numpy(np.array(arrays["positions"])).dtype
     kw = {"seed": 0}
     for name, value in arrays.items():
-        if name in _JAX_ONLY:
+        if name in _JAX_ONLY or (name in _OPTIONAL and value is None):
             continue
         if name in _SCALAR_FIELDS:
             kw[name] = _SCALAR_FIELDS[name](np.asarray(value).item())
@@ -53,9 +56,11 @@ def state_from_numpy(arrays: dict, device=None) -> SimulationState:
         else:
             kw[name] = torch.as_tensor(np.array(value), dtype=dtype,
                                        device=device)
-    missing = _STATE_FIELDS - set(kw) - {"nbrs"}
+    missing = _STATE_FIELDS - set(kw) - {"nbrs"} - _OPTIONAL
     if missing:
         raise ValueError(f"missing state fields: {sorted(missing)}")
+    kw.setdefault("virial_accum", torch.zeros((), dtype=dtype, device=device))
+    kw.setdefault("nprom", torch.zeros((), dtype=torch.int64, device=device))
     return SimulationState(**kw)
 
 

@@ -3,7 +3,9 @@
 A copy of ``PythonTrajectoryWriter`` from ``mdtpu/io/native_writer.py``,
 without compression: frames are formatted and written by a worker thread, so
 the simulation loop does not wait on text formatting (about a second per 1e5
-atoms in Python). The binding to the native C++ writer comes later.
+atoms in Python). The same thread writes the log-time snapshots
+(``snapshot.{step}``, one frame per file). The binding to the native C++
+writer comes later.
 """
 
 from __future__ import annotations
@@ -31,17 +33,32 @@ class TrajectoryWriter:
             item = self._queue.get()
             if item is None:
                 return
+            path, frame = item
             try:
-                self._io.write(format_lammps_frame(*item).encode())
+                text = format_lammps_frame(*frame).encode()
+                if path is None:
+                    self._io.write(text)
+                else:
+                    with open(path, "wb") as f:
+                        f.write(text)
             except Exception as exc:  # surface at close(); keep draining
                 if self._error is None:
                     self._error = exc
 
-    def write_frame(self, step, unitcell, positions, images, diameters):
+    def _put(self, path, step, unitcell, positions, images, diameters):
         # Copy: the caller may reuse its buffers before the worker formats
         # them.
-        self._queue.put((step, np.array(unitcell), np.array(positions),
-                         np.array(images), np.array(diameters)))
+        self._queue.put((path, (step, np.array(unitcell), np.array(positions),
+                                np.array(images), np.array(diameters))))
+
+    def write_frame(self, step, unitcell, positions, images, diameters):
+        """Append one frame to the trajectory file."""
+        self._put(None, step, unitcell, positions, images, diameters)
+
+    def write_snapshot(self, path, step, unitcell, positions, images,
+                       diameters):
+        """Write one frame as the whole of the file ``path``."""
+        self._put(path, step, unitcell, positions, images, diameters)
 
     def close(self):
         self._queue.put(None)

@@ -6,6 +6,8 @@ Engines implement the protocol documented in :mod:`mdtpu_torch.ops.naive`:
   * NaivePairEngine — O(N^2) all pairs; small N, triclinic and 2D boxes.
   * CellGridEngine  — cell grid with the pair sweep as a CUDA kernel; 3D
     orthorhombic boxes at larger N.
+  * experimental.PlaneEngine — the cell grid with the Newton half-stencil
+    sweep; never picked by :func:`select_engine`.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ and gathers the forces back to particle order.
 Slot coordinates are stored as ``ref + MIC(pos - ref)``, so every slot sits
 within skin/2 of its home cell even after the particle crossed the box edge:
 the sweep's +-L image shift on wrapped neighbour cells then gives true
-displacements.
+displacements. With the positions' low words (``compute(..., pos_lo=...)``)
+the hi/lo sweep runs on the same layout (:meth:`slot_inputs_hilo`).
 
 Capacity overflow (more than C particles in a cell) sets ``overflow``; the
 overflowing particles go to a trash slot and get no forces, so the driver
@@ -30,8 +31,9 @@ import numpy as np
 import torch
 
 from mdtpu_torch.core.box import _mm, is_orthorhombic, minimum_image
-from mdtpu_torch.ops.cell_sweep import cell_sweep
+from mdtpu_torch.ops.cell_sweep import cell_sweep, cell_sweep_hilo
 from mdtpu_torch.potentials.base import check_engine_cutoff
+from mdtpu_torch.utils.math import two_sum
 
 
 def grid_for_box(unitcell, cutoff: float, skin: float):
@@ -152,13 +154,45 @@ class CellGridEngine:
         return (slot_pos[:, :n_slots].contiguous(), nbrs.sorted_diam,
                 nbrs.counts, torch.diagonal(cell).contiguous())
 
+    def slot_inputs_hilo(self, positions, pos_lo, cell, cell_inv,
+                         nbrs: CellGridState):
+        """The hi/lo sweep's inputs: (slot_hi, slot_lo, slot_diam, counts,
+        box lengths). ``pos_lo`` is the low word of each position (true =
+        positions + pos_lo; the driver passes ``-pos_comp``). The image
+        ``n`` that :func:`minimum_image` picks for ``positions - ref`` is
+        taken off through an error-free ``two_sum``: ``hi, r = two_sum(pos,
+        -n L)`` and ``lo = pos_lo + r``, so the pair stays exact where
+        ``ref + MIC(pos - ref)`` would round twice."""
+        n_slots = self.n_cells * self.cell_capacity
+        frac = _mm(positions - nbrs.ref_positions, cell_inv.T)
+        hi, r = two_sum(positions, -_mm(torch.round(frac), cell.T))
+        lo = pos_lo + r
+        out = []
+        for t in (hi, lo):
+            slots = torch.zeros((3, n_slots + 1), dtype=positions.dtype,
+                                device=positions.device)
+            slots[:, nbrs.addr] = t.T
+            out.append(slots[:, :n_slots].contiguous())
+        return (*out, nbrs.sorted_diam, nbrs.counts,
+                torch.diagonal(cell).contiguous())
+
+    def sweep(self, slot_pos, slot_diam, counts, box):
+        """The engine's pair sweep on slot inputs (the B1 kernel)."""
+        return cell_sweep(slot_pos, slot_diam, counts, box, self.grid,
+                          self.cutoff, self.potential)
+
     def compute(self, positions, diameters, cell, cell_inv,
-                nbrs: CellGridState):
-        slot_pos, slot_diam, counts, box = self.slot_inputs(
-            positions, cell, cell_inv, nbrs)
-        energy, virial, f_slots = cell_sweep(
-            slot_pos, slot_diam, counts, box, self.grid, self.cutoff,
-            self.potential)
+                nbrs: CellGridState, pos_lo=None):
+        """``(energy, virial, forces, nbrs)``. With ``pos_lo`` (float32, the
+        low words of the positions) the hi/lo sweep runs."""
+        if pos_lo is None:
+            energy, virial, f_slots = self.sweep(*self.slot_inputs(
+                positions, cell, cell_inv, nbrs))
+        else:
+            energy, virial, f_slots = cell_sweep_hilo(
+                *self.slot_inputs_hilo(positions, pos_lo, cell, cell_inv,
+                                       nbrs),
+                self.grid, self.cutoff, self.potential)
         # Back to particle order; the trash slot (overflow) reads zero.
         f_slots = torch.cat([f_slots, f_slots.new_zeros((3, 1))], dim=1)
         forces = f_slots[:, nbrs.addr].T.contiguous()

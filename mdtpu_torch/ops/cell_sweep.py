@@ -16,98 +16,57 @@ Inputs (the slot layout of :meth:`CellGridEngine.allocate`):
 Returns ``(energy, virial, slot_forces)`` with ``slot_forces`` (3, n_cells * C)
 (zero on vacant slots).
 
-:func:`cell_sweep` launches the kernel in ``csrc/cell_sweep.cu`` for CUDA
-tensors and takes :func:`cell_sweep_plain` only for CPU tensors. The kernel is
-compiled with ``nvcc`` for ``sm_90a`` into ``mdtpu_torch/_build`` at first use
-and bound with ctypes.
+:func:`cell_sweep_hilo` is the hi/lo (double-f32) variant of the JAX
+package's f32x2 mode: ``slot_pos`` is the hi word, ``slot_lo`` (3, n_cells *
+C) the lo word, and each displacement is formed error-free from the two
+(see ``csrc/cell_sweep.cu``). float32 only.
+
+:func:`cell_sweep` and :func:`cell_sweep_hilo` launch the kernels in
+``csrc/cell_sweep.cu`` for CUDA tensors and take the plain versions only for
+CPU tensors. The kernels are compiled with ``nvcc`` for ``sm_90a`` into
+``mdtpu_torch/_build`` at first use and bound with ctypes
+(:mod:`mdtpu_torch.ops._cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import itertools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from mdtpu_torch.ops import _cuda_build
 from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
+from mdtpu_torch.utils.math import two_sum
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "cell_sweep.cu"
-BUILD_DIR = _PKG / "_build"
-_LIB = BUILD_DIR / "libcell_sweep.so"
-_LOG = BUILD_DIR / "libcell_sweep.log"
+NAME = "cell_sweep"
 MAX_CAPACITY = 1024  # one thread per own slot, at most 1024 a block
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.isfile(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA pair sweep is built at "
-                           "first use and needs the CUDA toolkit")
-    return found
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# Pointers in, grid and capacity, cutoff and potential kind, four float and
+# three int potential parameters, pointers out, the stream.
+_SWEEP_ARGS = ((_P,) * 4 + (_I,) * 4 + (_D, _I) + (_D,) * 4 + (_I,) * 3
+               + (_P,) * 3 + (_P,))
+_SIGNATURES = (("mdtpu_cell_sweep_f32", _SWEEP_ARGS),
+               ("mdtpu_cell_sweep_f64", _SWEEP_ARGS),
+               ("mdtpu_cell_sweep_hilo_f32", (_P,) + _SWEEP_ARGS))
 
 
-def build() -> None:
-    """Compile ``csrc/cell_sweep.cu`` into ``_build/libcell_sweep.so`` unless
-    an up-to-date library is there; the compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills) goes to ``_build/libcell_sweep.log``."""
-    if _LIB.is_file() and _LIB.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libcell_sweep.{os.getpid()}.so"
-    # -fmad=false: no multiply-add contraction, so every product rounds as
-    # in the plain version and the two differ only in the order of the sums.
-    # A contracted r^2 or lam sr^(lam+2) - (lam-1) sr^(lam+1) shifts a
-    # pseudo-hard-sphere force by ~1e-5 of itself in float32.
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-fmad=false", "-lineinfo", "-Xptxas", "-v", "-shared",
-           "-Xcompiler",
-           "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    _LOG.write_text(proc.stderr + proc.stdout)
-    os.replace(tmp, _LIB)
-
-
-@functools.lru_cache(maxsize=1)
 def _library():
-    """The ctypes library, built and loaded once per process."""
-    build()
-    lib = ctypes.CDLL(str(_LIB))
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("mdtpu_cell_sweep_f32", "mdtpu_cell_sweep_f64"):
-        fn = getattr(lib, name)
-        fn.restype = i32
-        fn.argtypes = ([ptr] * 4 + [i32] * 4 + [f64, i32] + [f64] * 4
-                       + [i32] * 3 + [ptr] * 3 + [ptr])
-    lib.mdtpu_cell_sweep_error_string.restype = ctypes.c_char_p
-    lib.mdtpu_cell_sweep_error_string.argtypes = [i32]
-    return lib
+    return _cuda_build.load(NAME, _SIGNATURES)
 
 
 def build_report() -> str:
-    """Build (if needed) and load the kernel; return the compiler's report
-    of the build."""
-    _library()
-    return _LOG.read_text() if _LOG.is_file() else ""
+    """Build (if needed) the kernels; return the compiler's report."""
+    return _cuda_build.build_report(NAME)
 
 
 def kernel_params(potential):
     """(kind, four float parameters, three int parameters) of a potential the
-    kernel knows; ``NotImplementedError`` for any other."""
+    kernels know; ``NotImplementedError`` for any other."""
     kind = type(potential)
     mix = int(getattr(potential, "mixing", "lorentz") != "none")
     if kind is LennardJones:
@@ -123,11 +82,12 @@ def kernel_params(potential):
         return 2, (potential.epsilon, potential.sigma, potential.r_on,
                    potential.r_cut), (0, 0, mix)
     raise NotImplementedError(
-        f"the CUDA pair sweep has no functor for {kind.__name__}; user "
+        f"the CUDA pair sweeps have no functor for {kind.__name__}; user "
         f"potentials in the kernel are queue A9")
 
 
-def _check(slot_pos, slot_diam, counts, box, grid):
+def check_inputs(slot_pos, slot_diam, counts, box, grid, max_capacity):
+    """Validate the slot layout; returns ``(n_cells, capacity)``."""
     if len(grid) != 3 or min(grid) < 3:
         raise ValueError(f"the sweep needs a 3D grid with >= 3 cells per "
                          f"axis, got {tuple(grid)}")
@@ -137,8 +97,8 @@ def _check(slot_pos, slot_diam, counts, box, grid):
         raise ValueError(f"slot_pos must be (3, n_cells * C), got "
                          f"{tuple(slot_pos.shape)} for {n_cells} cells")
     cap = slot_pos.shape[1] // n_cells
-    if not 1 <= cap <= MAX_CAPACITY:
-        raise ValueError(f"cell capacity {cap} outside [1, {MAX_CAPACITY}]")
+    if not 1 <= cap <= max_capacity:
+        raise ValueError(f"cell capacity {cap} outside [1, {max_capacity}]")
     if tuple(slot_diam.shape) != (slot_pos.shape[1],):
         raise ValueError("slot_diam must be (n_cells * C,)")
     if tuple(counts.shape) != (n_cells,) or counts.dtype != torch.int64:
@@ -148,49 +108,175 @@ def _check(slot_pos, slot_diam, counts, box, grid):
     return n_cells, cap
 
 
-def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
-    """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
-    take :func:`cell_sweep_plain`. Each launch adds one to
-    ``cell_sweep.launches``."""
-    n_cells, cap = _check(slot_pos, slot_diam, counts, box, grid)
-    if slot_pos.device.type == "cpu":
-        return cell_sweep_plain(slot_pos, slot_diam, counts, box, grid,
-                                cutoff, potential)
-    if slot_pos.device.type != "cuda":
-        raise ValueError(f"unsupported device {slot_pos.device}")
-    dtype, device = slot_pos.dtype, slot_pos.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
-    for t in (slot_diam, box):
-        if t.dtype != dtype:
-            raise TypeError("slot_pos, slot_diam and box must share a dtype")
-    for t in (slot_pos, slot_diam, counts, box):
+def check_cuda(tensors, dtypes):
+    """Raise unless every tensor is a contiguous CUDA tensor on the first
+    one's device and the float tensors share one of ``dtypes``; returns
+    the device and the dtype."""
+    device, dtype = tensors[0].device, tensors[0].dtype
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if dtype not in dtypes:
+        raise TypeError(f"the kernel takes {dtypes}, got {dtype}")
+    for t in tensors:
+        if t.is_floating_point() and t.dtype != dtype:
+            raise TypeError("the float inputs must share one dtype")
         if t.device != device:
             raise ValueError("all sweep inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("sweep inputs must be contiguous")
-    kind, fp, ip = kernel_params(potential)
+    return device, dtype
+
+
+def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
+    """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
+    take :func:`cell_sweep_plain`. Each launch adds one to
+    ``cell_sweep.launches``."""
+    n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
+                                MAX_CAPACITY)
+    if slot_pos.device.type == "cpu":
+        return cell_sweep_plain(slot_pos, slot_diam, counts, box, grid,
+                                cutoff, potential)
+    device, dtype = check_cuda((slot_pos, slot_diam, counts, box),
+                               (torch.float32, torch.float64))
     lib = _library()
     fn = (lib.mdtpu_cell_sweep_f32 if dtype == torch.float32
           else lib.mdtpu_cell_sweep_f64)
+    out = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, box),
+                       grid, cap, cutoff, potential, n_cells, "cell_sweep")
+    cell_sweep.launches += 1
+    return out
+
+
+cell_sweep.launches = 0
+
+
+def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
+                    potential):
+    """The hi/lo pair sweep (float32). CUDA tensors launch the kernel (or
+    raise); CPU tensors take :func:`cell_sweep_hilo_plain`. Each launch adds
+    one to ``cell_sweep_hilo.launches``."""
+    n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
+                                MAX_CAPACITY)
+    if tuple(slot_lo.shape) != tuple(slot_pos.shape):
+        raise ValueError("slot_lo must have the shape of slot_pos")
+    if slot_pos.device.type == "cpu":
+        return cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts,
+                                     box, grid, cutoff, potential)
+    check_cuda((slot_pos, slot_lo, slot_diam, counts, box), (torch.float32,))
+    lib = _library()
+    out = launch_sweep(lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
+                       (slot_pos, slot_lo, slot_diam, counts, box), grid, cap,
+                       cutoff, potential, n_cells, "cell_sweep_hilo")
+    cell_sweep_hilo.launches += 1
+    return out
+
+
+cell_sweep_hilo.launches = 0
+
+
+def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
+                 n_cells, what, scratch=()):
+    """Launch a sweep entry point of the library of ``csrc/<name>.cu`` on
+    the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
+    p0..p3, i0..i2, force, e_part, w_part, scratch..., stream)``. Allocates
+    the outputs, raises on a launch error, and returns ``(energy, virial,
+    slot_forces)`` with the per-cell partials summed on the device."""
+    kind, fp, ip = kernel_params(potential)
+    slot_pos = inputs[0]
+    dtype, device = slot_pos.dtype, slot_pos.device
     force = torch.empty((3, slot_pos.shape[1]), dtype=dtype, device=device)
     e_part = torch.empty((n_cells,), dtype=dtype, device=device)
     w_part = torch.empty((n_cells,), dtype=dtype, device=device)
     nx, ny, nz = (int(g) for g in grid)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = fn(slot_pos.data_ptr(), slot_diam.data_ptr(), counts.data_ptr(),
-                box.data_ptr(), nx, ny, nz, cap, float(cutoff), kind,
-                *(float(v) for v in fp), *ip, force.data_ptr(),
-                e_part.data_ptr(), w_part.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.mdtpu_cell_sweep_error_string(rc).decode()
-        raise RuntimeError(f"cell_sweep launch failed ({rc}): {msg}")
-    cell_sweep.launches += 1
+        rc = fn(*(t.data_ptr() for t in inputs), nx, ny, nz, cap,
+                float(cutoff), kind, *(float(v) for v in fp), *ip,
+                force.data_ptr(), e_part.data_ptr(), w_part.data_ptr(),
+                *(t.data_ptr() for t in scratch), stream)
+    _cuda_build.check(lib, name, rc, what)
     return torch.sum(e_part), torch.sum(w_part), force
 
 
-cell_sweep.launches = 0
+def _neighbour_cells(grid, off, box, dtype, device):
+    """For stencil offset ``off``: the periodic index of each cell's
+    neighbour (n_cells,) and the +-L image shift of its coordinates, one
+    (n_cells,) tensor per axis."""
+    nx, ny, nz = (int(g) for g in grid)
+    c = torch.arange(nx * ny * nz, device=device)
+    home = (c // (ny * nz), (c // nz) % ny, c % nz)
+    idx, shift = [], []
+    for k, (h, n) in enumerate(zip(home, (nx, ny, nz))):
+        j = h + off[k]
+        shift.append(((j >= n).to(dtype) - (j < 0).to(dtype)) * box[k])
+        idx.append(torch.remainder(j, n))
+    return (idx[0] * ny + idx[1]) * nz + idx[2], shift
+
+
+class PairTiles:
+    """The plain sweeps' pair arithmetic: one (n_cells, C, C) tile of own
+    slots against one neighbour cell per stencil offset, loops bounded by the
+    per-cell counts through masks. With ``slot_lo`` the displacements are
+    the hi/lo ones of the kernel's HILO variant."""
+
+    def __init__(self, slot_pos, slot_diam, counts, box, grid, cutoff,
+                 potential, slot_lo=None):
+        self.n_cells = grid[0] * grid[1] * grid[2]
+        self.cap = slot_pos.shape[1] // self.n_cells
+        self.grid, self.box, self.potential = grid, box, potential
+        self.dtype, self.device = slot_pos.dtype, slot_pos.device
+        nc, cap = self.n_cells, self.cap
+        self.pos = slot_pos.reshape(3, nc, cap)
+        self.lo = None if slot_lo is None else slot_lo.reshape(3, nc, cap)
+        self.diam = slot_diam.reshape(nc, cap)
+        slot = torch.arange(cap, device=self.device)
+        self.occ = slot[None, :] < counts.clamp(max=cap)[:, None]
+        self.not_self = ~torch.eye(cap, dtype=torch.bool, device=self.device)
+        c_eng = rounded(cutoff, self.dtype)
+        self.cutoff2 = rounded(c_eng * c_eng, self.dtype)
+
+    def tile(self, off):
+        """``(nb, u, f_over_r, r2, d)`` for stencil offset ``off``: the
+        neighbour index per cell, and (n_cells, C, C) pair tiles of own slot
+        i against neighbour slot j (zero outside the masks)."""
+        nb, shift = _neighbour_cells(self.grid, off, self.box, self.dtype,
+                                     self.device)
+        d = []
+        for k in range(3):
+            if self.lo is None:
+                w = self.pos[k][nb] + shift[k][:, None]
+                d.append(self.pos[k][:, :, None] - w[:, None, :])
+            else:
+                w, r = two_sum(self.pos[k][nb], shift[k][:, None])
+                w_lo = self.lo[k][nb] + r
+                s, e = two_sum(self.pos[k][:, :, None], -w[:, None, :])
+                d.append(s + (e + (self.lo[k][:, :, None]
+                                   - w_lo[:, None, :])))
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        mask = (self.occ[:, :, None] & self.occ[nb][:, None, :]
+                & (r2 < self.cutoff2))
+        if off == (0, 0, 0):
+            mask = mask & self.not_self
+        r2s = torch.where(mask, r2, torch.ones_like(r2))
+        u, f = self.potential.evaluate_r2(r2s, self.diam[:, :, None],
+                                          self.diam[nb][:, None, :])
+        u = torch.where(mask, u, torch.zeros_like(u))
+        f = torch.where(mask, f, torch.zeros_like(f))
+        return nb, u, f, r2s, d
+
+
+def _full_stencil_plain(tiles):
+    zero = torch.zeros((), dtype=tiles.dtype, device=tiles.device)
+    energy, virial = zero, zero
+    force = torch.zeros((3, tiles.n_cells, tiles.cap), dtype=tiles.dtype,
+                        device=tiles.device)
+    for off in itertools.product((-1, 0, 1), repeat=3):
+        _, u, f, r2s, d = tiles.tile(off)
+        energy = energy + 0.5 * torch.sum(u)
+        virial = virial + 0.5 * torch.sum(f * r2s)
+        for k in range(3):
+            force[k] += torch.sum(f * d[k], dim=2)
+    return energy, virial, force.reshape(3, -1)
 
 
 def cell_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
@@ -199,43 +285,19 @@ def cell_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
     :func:`cell_sweep`: one (n_cells, C, C) pair tile per stencil offset,
     neighbour cells found by periodic index with the +-L image shift added,
     loops bounded by the per-cell counts through masks."""
-    n_cells, cap = _check(slot_pos, slot_diam, counts, box, grid)
-    nx, ny, nz = (int(g) for g in grid)
-    dtype, device = slot_pos.dtype, slot_pos.device
-    pos = slot_pos.reshape(3, n_cells, cap)
-    diam = slot_diam.reshape(n_cells, cap)
-    slot = torch.arange(cap, device=device)
-    occ = slot[None, :] < counts.clamp(max=cap)[:, None]       # (nc, C)
-    c = torch.arange(n_cells, device=device)
-    home = (c // (ny * nz), (c // nz) % ny, c % nz)
-    own = [pos[k][:, :, None] for k in range(3)]               # (nc, C, 1)
-    own_d = diam[:, :, None]
-    not_self = ~torch.eye(cap, dtype=torch.bool, device=device)
-    c_eng = rounded(cutoff, dtype)
-    cutoff2 = rounded(c_eng * c_eng, dtype)
+    check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
+    return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
+                                         grid, cutoff, potential))
 
-    energy = torch.zeros((), dtype=dtype, device=device)
-    virial = torch.zeros((), dtype=dtype, device=device)
-    force = torch.zeros((3, n_cells, cap), dtype=dtype, device=device)
-    for off in itertools.product((-1, 0, 1), repeat=3):
-        idx, shift = [], []
-        for k, (h, n) in enumerate(zip(home, (nx, ny, nz))):
-            j = h + off[k]
-            shift.append(((j >= n).to(dtype) - (j < 0).to(dtype)) * box[k])
-            idx.append(torch.remainder(j, n))
-        nb = (idx[0] * ny + idx[1]) * nz + idx[2]
-        w = [pos[k][nb] + shift[k][:, None] for k in range(3)]   # (nc, C)
-        d = [own[k] - w[k][:, None, :] for k in range(3)]        # (nc, C, C)
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        mask = occ[:, :, None] & occ[nb][:, None, :] & (r2 < cutoff2)
-        if off == (0, 0, 0):
-            mask = mask & not_self
-        r2s = torch.where(mask, r2, torch.ones_like(r2))
-        u, f = potential.evaluate_r2(r2s, own_d, diam[nb][:, None, :])
-        u = torch.where(mask, u, torch.zeros_like(u))
-        f = torch.where(mask, f, torch.zeros_like(f))
-        energy = energy + 0.5 * torch.sum(u)
-        virial = virial + 0.5 * torch.sum(f * r2s)
-        for k in range(3):
-            force[k] += torch.sum(f * d[k], dim=2)
-    return energy, virial, force.reshape(3, n_cells * cap)
+
+def cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts, box, grid,
+                          cutoff, potential):
+    """The hi/lo sweep in plain PyTorch, same arguments and results as
+    :func:`cell_sweep_hilo`: the image shift goes onto the hi word through
+    ``two_sum`` with its residual folded into the lo word, and each
+    displacement is ``s + (e + (lo_i - lo_j))`` with ``(s, e) =
+    two_sum(hi_i, -hi_j)``."""
+    check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
+    return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
+                                         grid, cutoff, potential,
+                                         slot_lo=slot_lo))

@@ -6,8 +6,9 @@ the *mixed* sigma so polydisperse systems stay continuous at the cutoff.
 Tail corrections carry the eps * sigma^3 prefactor and apply only with
 ``tail_correction``.
 
-The CUDA pair sweep evaluates the same expressions in the same order
-(``mdtpu_torch/csrc/cell_sweep.cu``, ``struct LJ``); keep the two in step.
+The CUDA pair sweeps evaluate the same expressions in the same order
+(``mdtpu_torch/csrc/pair_potentials.cuh``, ``struct LJ``); keep the two in
+step.
 """
 
 from __future__ import annotations

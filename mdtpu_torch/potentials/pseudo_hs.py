@@ -6,8 +6,8 @@ the potential and force vanish continuously at the cutoff. The cutoff scales
 with the mixed sigma unless ``sigma_scaled_cutoff=False``. Powers are built
 by :func:`mdtpu_torch.utils.math.ipow` in the JAX package's squaring order.
 
-The CUDA pair sweep evaluates the same expressions in the same order
-(``mdtpu_torch/csrc/cell_sweep.cu``, ``struct PseudoHS``).
+The CUDA pair sweeps evaluate the same expressions in the same order
+(``mdtpu_torch/csrc/pair_potentials.cuh``, ``struct PseudoHS``).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Counterpart of ``mdtpu/potentials/xplor.py``. The switch S(r) is 1 below
 r_on, a smooth rational on [r_on, r_cut) and 0 beyond; the pair force is
 exactly -d/dr [V(r) S(r)].
 
-The CUDA pair sweep evaluates the same expressions in the same order
-(``mdtpu_torch/csrc/cell_sweep.cu``, ``struct XPLOR``).
+The CUDA pair sweeps evaluate the same expressions in the same order
+(``mdtpu_torch/csrc/pair_potentials.cuh``, ``struct XPLOR``).
 """
 
 from __future__ import annotations

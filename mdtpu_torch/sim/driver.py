@@ -1,10 +1,10 @@
 """Simulation driver: ``run_simulation``.
 
-Counterpart of ``mdtpu/sim/driver.py`` for NVT and NVE on one device. The
-output schedule (thermo and trajectory events) is computed on the host up
-front; the state advances event by event through the velocity-Verlet step,
-and after each event's segment the driver reads two health flags (one
-host synchronisation per event):
+Counterpart of ``mdtpu/sim/driver.py`` for NVT, NVE and Brownian dynamics on
+one device. The output schedule (thermo, trajectory and log-time snapshot
+events) is computed on the host up front; the state advances event by event
+through the step, and after each event's segment the driver reads two
+health flags (one host synchronisation per event):
 
   * non-finite positions: the run diverged, raise;
   * engine capacity overflow: a cell held more particles than its slots, so
@@ -12,9 +12,10 @@ host synchronisation per event):
     with a grown engine (up to 8 times).
 
 Files match the JAX package's: ``thermo.txt`` rows ``"{s} {e:.6f} {t:.6f}
-{p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` (positions written as
-float32, as the JAX package ships them) and ``final.xyz``. Outputs for label
-``s`` are written after executing loop iteration ``s``, including s = 0.
+{p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` and ``snapshot.{s}``
+(positions written as float32, as the JAX package ships them),
+``new-log-times.txt`` and ``final.xyz``. Outputs for label ``s`` are written
+after executing loop iteration ``s``, including s = 0.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ import numpy as np
 import torch
 
 from mdtpu_torch.core.box import box_volume
-from mdtpu_torch.core.types import Brownian, Parameters, SimulationState, state_to
-from mdtpu_torch.integrate.step import make_md_step
+from mdtpu_torch.core.types import (NVE, Brownian, Parameters, SimulationState,
+                                    state_to)
+from mdtpu_torch.integrate.step import make_step
+from mdtpu_torch.io.logtimes import generate_log_times
 from mdtpu_torch.io.writer import TrajectoryWriter
 from mdtpu_torch.io.xyz import write_xyz
 from mdtpu_torch.utils.device import resolve_device
@@ -37,8 +40,13 @@ THERMO_HEADER = "# Step Energy Temperature Pressure\n"
 _MAX_GROWS = 8
 
 
-def _event_schedule(start_step, total_steps, frequency, traj_frequency):
-    """Thermo and trajectory steps in [start_step, start_step + total_steps)."""
+def _event_schedule(start_step, total_steps, frequency, traj_frequency,
+                    log_times, pathname):
+    """Thermo, trajectory and snapshot steps in [start_step, start_step +
+    total_steps). With ``log_times`` the snapshot steps are 0 and the
+    log-spaced times of :func:`generate_log_times` (saved to
+    ``new-log-times.txt`` in ``pathname``), on the schedule of a run that
+    started at step 0."""
     end_step = start_step + total_steps
     thermo_steps = set(range(start_step + (-start_step) % frequency,
                              end_step, frequency))
@@ -46,7 +54,11 @@ def _event_schedule(start_step, total_steps, frequency, traj_frequency):
         traj_frequency = frequency
     traj_steps = set(range(start_step + (-start_step) % traj_frequency,
                            end_step, traj_frequency))
-    return thermo_steps, traj_steps
+    snap_steps = set()
+    if log_times:
+        snaps = generate_log_times(save_dir=pathname, max_step=end_step)
+        snap_steps = {s for s in [0] + snaps if start_step <= s < end_step}
+    return thermo_steps, traj_steps, snap_steps
 
 
 def _segments(start_step, end_step, event_steps):
@@ -62,11 +74,44 @@ def _segments(start_step, end_step, event_steps):
     return segs
 
 
-def _thermo_values(e, t, virial, *, n, dim, volume, density, e_lrc, p_lrc):
-    """``(energy_per_particle, temperature, pressure)`` of one thermo row."""
+def _thermo_values(e, t, virial, virial_accum, nprom, *, ensemble, n, dim,
+                   volume, density, e_lrc, p_lrc):
+    """``(energy_per_particle, temperature, pressure)`` of one thermo row.
+    Brownian rows: energy per particle without the tail correction, the
+    virial averaged over its 10-step samples, and ``ktemp`` in the
+    temperature column."""
+    if isinstance(ensemble, Brownian):
+        ktemp = float(ensemble.ktemp)
+        pressure = (float(virial_accum) / (dim * max(int(nprom), 1) * volume)
+                    + density * ktemp)
+        return e / n, ktemp, pressure
     ener = (e + e_lrc) / n
     pressure = float(virial) / (dim * volume) + density * t + p_lrc
     return ener, t, pressure
+
+
+def _hilo_route(engine, state, ensemble, precision, compensated):
+    """Whether the hi/lo (f32x2) pair sweep runs: ``"auto"`` takes it for
+    float32 NVE on a cell-grid engine with ``compensated=True``, as the JAX
+    package's slot path does; ``"f32x2"`` forces it and raises where it
+    cannot run."""
+    from mdtpu_torch.ops.cell_grid import CellGridEngine
+
+    route = isinstance(engine, CellGridEngine) and compensated
+    if precision == "f32x2":
+        if not route:
+            raise ValueError(
+                "precision='f32x2' (the hi/lo pair sweep) requires a "
+                "CellGridEngine matching the state's dimension and "
+                f"compensated=True — got {type(engine).__name__}, "
+                f"dimension={state.dimension}, compensated={compensated}. "
+                "Use precision='auto' to apply it opportunistically.")
+        if state.dtype != torch.float32:
+            raise ValueError("precision='f32x2' takes a float32 state, got "
+                             f"{state.dtype}")
+        return True
+    return (precision == "auto" and route and isinstance(ensemble, NVE)
+            and state.dtype == torch.float32)
 
 
 def _capacity_overflow(state):
@@ -100,30 +145,34 @@ def run_simulation(
     traj_frequency: Optional[int] = None,
     device=None,
 ) -> SimulationState:
-    """Run ``total_steps`` of NVT or NVE dynamics, writing thermo rows every
-    ``frequency`` steps and trajectory frames every ``traj_frequency`` steps
-    (default: ``frequency``). Returns the final state.
+    """Run ``total_steps`` of NVT, NVE or Brownian dynamics, writing thermo
+    rows every ``frequency`` steps and trajectory frames every
+    ``traj_frequency`` steps (default: ``frequency``); with ``log_times``
+    also ``snapshot.{step}`` frames at log-spaced steps. Returns the final
+    state.
 
     ``device``: where the run happens, ``"cuda"`` by default; raises when no
     card is present unless the caller passes ``device="cpu"``.
 
-    ``precision``: ``"auto"`` and ``"plain"`` run the plain pair sweep. The
-    JAX package's ``"auto"`` runs the hi/lo (f32x2) sweep for f32 NVE on its
-    slot path; that sweep and ``"f32x2"`` are queue A7.
+    ``engine``: any engine of :mod:`mdtpu_torch.ops`, e.g. the Newton
+    half-stencil :class:`mdtpu_torch.ops.experimental.PlaneEngine`
+    (``select_engine`` does not pick it). The step is always in particle
+    order, so every engine runs with ``compensated`` either way.
 
-    Not ported yet: Brownian dynamics, ``compress``, ``log_times``,
-    ``checkpoint_every``, ``perf_log`` and resuming into a directory that
-    holds an earlier run's thermo file (queue A8)."""
+    ``precision``: ``"auto"`` runs the hi/lo (f32x2) pair sweep for float32
+    NVE on a cell-grid engine with ``compensated=True``, as the JAX package
+    does; ``"f32x2"`` forces it (``ValueError`` where it cannot run);
+    ``"plain"`` turns it off.
+
+    Not ported yet: ``compress``, ``checkpoint_every``, ``perf_log`` and
+    resuming into a directory that holds an earlier run's thermo file
+    (queue A8)."""
     from mdtpu_torch.ops import select_engine
 
     # Validate before any output file is touched.
-    if precision == "f32x2":
-        raise _not_ported("the hi/lo (f32x2) pair sweep", "A7")
-    if precision not in ("auto", "plain"):
+    if precision not in ("auto", "f32x2", "plain"):
         raise ValueError(f"precision must be auto/f32x2/plain, got {precision!r}")
-    if isinstance(ensemble, Brownian):
-        raise _not_ported("Brownian dynamics", "A8")
-    for flag, name in ((compress, "compress"), (log_times, "log_times"),
+    for flag, name in ((compress, "compress"),
                        (checkpoint_every is not None, "checkpoint_every"),
                        (perf_log, "perf_log")):
         if flag:
@@ -136,6 +185,8 @@ def run_simulation(
     state = state_to(state, device)
     if engine is None:
         engine = select_engine(params.potential, state.cutoff, state)
+    hilo = _hilo_route(engine, state, ensemble, precision, compensated)
+    is_brownian = isinstance(ensemble, Brownian)
 
     potential = params.potential
     volume = box_volume(state.unitcell)
@@ -147,15 +198,19 @@ def run_simulation(
     diameters_np = state.diameters.cpu().numpy()
     unitcell_np = state.unitcell.cpu().numpy()
 
-    # Engine state and initial forces (the reference's first half-kick uses
-    # zero forces); grow the engine until the initial binning fits.
+    # Engine state and, for MD, initial forces (the reference's first
+    # half-kick uses zero forces; a Brownian step computes its forces
+    # first); grow the engine until the initial binning fits.
     for _ in range(_MAX_GROWS + 1):
         nbrs = engine.allocate(state.positions, state.diameters,
                                state.unitcell, state.unitcell_inv)
-        e0, w0, f0, nbrs = engine.compute(state.positions, state.diameters,
-                                          state.unitcell, state.unitcell_inv,
-                                          nbrs)
-        state = state.replace(forces=f0, energy=e0, virial=w0, nbrs=nbrs)
+        if is_brownian:
+            state = state.replace(nbrs=nbrs)
+        else:
+            e0, w0, f0, nbrs = engine.compute(
+                state.positions, state.diameters, state.unitcell,
+                state.unitcell_inv, nbrs)
+            state = state.replace(forces=f0, energy=e0, virial=w0, nbrs=nbrs)
         if not bool(_capacity_overflow(state)):
             break
         engine = engine.with_grown_capacity()
@@ -172,12 +227,13 @@ def run_simulation(
 
     start_step = state.step
     end_step = start_step + total_steps
-    thermo_steps, traj_steps = _event_schedule(start_step, total_steps,
-                                               frequency, traj_frequency)
-    step_fn = make_md_step(params, ensemble, engine, compensated)
+    thermo_steps, traj_steps, snap_steps = _event_schedule(
+        start_step, total_steps, frequency, traj_frequency, log_times,
+        pathname)
+    step_fn = make_step(params, ensemble, engine, compensated, hilo=hilo)
     try:
         for label, n_adv in _segments(start_step, end_step,
-                                      thermo_steps | traj_steps):
+                                      thermo_steps | traj_steps | snap_steps):
             seg_start = state
             for attempt in range(_MAX_GROWS + 1):
                 s = seg_start
@@ -202,23 +258,38 @@ def run_simulation(
                     f"engine capacity overflow in the segment ending step "
                     f"{label}: restoring its start state and re-running with "
                     f"cell capacity {engine.cell_capacity}")
-                step_fn = make_md_step(params, ensemble, engine, compensated)
+                step_fn = make_step(params, ensemble, engine, compensated,
+                                    hilo=hilo)
                 seg_start = seg_start.replace(nbrs=engine.allocate(
                     seg_start.positions, seg_start.diameters,
                     seg_start.unitcell, seg_start.unitcell_inv))
             state = s
             if label in thermo_steps:
-                e, t, w = torch.stack([state.energy, state.temperature,
-                                       state.virial]).tolist()
-                ener, t, pressure = _thermo_values(e, t, w, **consts)
+                values = [state.energy, state.temperature, state.virial]
+                if is_brownian:
+                    values += [state.virial_accum,
+                               state.nprom.to(state.dtype)]
+                e, t, w, *accum = torch.stack(values).tolist()
+                w_acc, nprom = accum or (0.0, 0)
+                ener, t, pressure = _thermo_values(
+                    e, t, w, w_acc, nprom, ensemble=ensemble, **consts)
                 with open(thermo_file, "a") as f:
                     f.write(f"{label} {ener:.6f} {t:.6f} {pressure:.6f}\n")
-            if label in traj_steps:
-                writer.write_frame(
-                    label, unitcell_np,
-                    state.positions.to(torch.float32).cpu().numpy(),
-                    state.images.cpu().numpy().astype(np.int32),
-                    diameters_np)
+                if is_brownian:
+                    # The pressure average restarts after each thermo row.
+                    state = state.replace(
+                        virial_accum=torch.zeros_like(state.virial_accum),
+                        nprom=torch.zeros_like(state.nprom))
+            if label in traj_steps or label in snap_steps:
+                rows = (label, unitcell_np,
+                        state.positions.to(torch.float32).cpu().numpy(),
+                        state.images.cpu().numpy().astype(np.int32),
+                        diameters_np)
+                if label in traj_steps:
+                    writer.write_frame(*rows)
+                if label in snap_steps:
+                    writer.write_snapshot(
+                        os.path.join(pathname, f"snapshot.{label}"), *rows)
     finally:
         writer.close()
 

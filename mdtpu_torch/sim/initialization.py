@@ -98,6 +98,8 @@ def build_state_from_arrays(positions, diameters, unitcell, seed=0, *,
         vel_comp=torch.zeros_like(positions),
         nbrs=None,
         cutoff=float(cutoff),
+        virial_accum=zero,
+        nprom=torch.zeros((), dtype=torch.int64, device=device),
     )
 
 

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_torch_step.py
+    python3 profile_torch_step.py [--engine cellgrid|plane]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
 ``mdtpu_torch.run_simulation``, then times the bare step function
-(``make_md_step`` on the cell-grid engine) with the host clock and profiles
-50 steps with ``torch.profiler``. Prints one JSON line: ms per step, device
-busy time per step and the device's idle share over the profiled window,
-CUDA kernel launches and host synchronisations per step, and the kernels
-that take the most device time.
+(``make_md_step``) with the host clock and profiles 50 steps with
+``torch.profiler``. ``--engine cellgrid`` (the default) steps the cell-grid
+engine with Kahan compensation; ``--engine plane`` steps ``PlaneEngine``
+(the Newton half-stencil sweep) with ``compensated=False``, as the JAX
+package drives its B2 kernel. Prints one JSON line: ms per step, device busy
+time per step and the device's idle share over the profiled window, CUDA
+kernel launches and host synchronisations per step, and the kernels that
+take the most device time.
 """
 
+import argparse
 import json
 import subprocess
 import tempfile
@@ -25,11 +29,16 @@ PROFILED_STEPS = 50
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--engine", choices=("cellgrid", "plane"),
+                        default="cellgrid")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
 
     import mdtpu_torch as mt
     from mdtpu_torch.integrate.step import make_md_step
+    from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -41,10 +50,14 @@ def main():
                            potential=mt.LennardJones(r_cut=2.5))
     ensemble = mt.NVT(1.0, 0.4)
     engine = mt.select_engine(params.potential, 2.5, state)
+    compensated = args.engine == "cellgrid"
+    if args.engine == "plane":
+        engine = PlaneEngine.create(params.potential, 2.5, 0.3,
+                                    state.unitcell, N)
     with tempfile.TemporaryDirectory() as d:
         state = mt.run_simulation(state, params, ensemble, 300, 300, d,
-                                  engine=engine)
-    step = make_md_step(params, ensemble, engine)
+                                  engine=engine, compensated=compensated)
+    step = make_md_step(params, ensemble, engine, compensated)
 
     for _ in range(20):
         state = step(state)
@@ -84,7 +97,8 @@ def main():
     memcpy = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     print(json.dumps({
-        "card": card, "n": N, "grid": list(engine.grid),
+        "card": card, "engine": args.engine, "compensated": compensated,
+        "n": N, "grid": list(engine.grid),
         "capacity": engine.cell_capacity,
         "ms_per_step_host_clock": ms_per_step,
         "steps_per_s": 1e3 / ms_per_step,

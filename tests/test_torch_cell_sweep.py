@@ -21,6 +21,7 @@ from mdtpu_torch.ops import cell_sweep as sweep_mod
 from mdtpu_torch.ops.cell_grid import CellGridEngine
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
+from tests.test_torch_driver import one_torch_thread  # noqa: F401
 
 N, RHO, CUTOFF, SKIN = 500, 0.6, 1.5, 0.3
 CASES = {

@@ -37,6 +37,19 @@ KEY_SEED = 7
 _NUMBER = re.compile(r"^-?\d+(\.\d*)?([eE][-+]?\d+)?$")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run torch on one thread. The suite runs in
+    several worker processes at once, and torch's OpenMP threads, spinning
+    at every barrier on an oversubscribed machine, then slow its many small
+    tensor ops down by an order of magnitude. Modules that import this
+    fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _initial_arrays():
     rng = np.random.default_rng(2024)
     L = (N / RHO) ** (1.0 / 3.0)
@@ -49,7 +62,9 @@ def _initial_arrays():
     return pos, vel, np.eye(3) * L
 
 
-def _run_both(tmp_path, jax_ensemble, port_ensemble):
+def _run_both(tmp_path, jax_ensemble, port_ensemble, port_engine=None):
+    """Both packages' run_simulation from one state; ``port_engine(state)``
+    builds the port's engine (default: its select_engine)."""
     pos, vel, cell = _initial_arrays()
     jstate = j_build_state(pos, np.ones(N), cell, jax.random.PRNGKey(KEY_SEED),
                            velocities=vel, dtype=jnp.float64, cutoff=2.5)
@@ -66,8 +81,9 @@ def _run_both(tmp_path, jax_ensemble, port_ensemble):
     tstate = state_from_numpy(fields, device="cpu")
     tparams = params_from_fields(RHO, N, DT, potential_from_fields(
         "LennardJones", {"r_cut": 2.5}))
+    engine = None if port_engine is None else port_engine(tstate)
     tout = mdtpu_torch.run_simulation(tstate, tparams, port_ensemble, STEPS,
-                                      FREQ, tdir, device="cpu")
+                                      FREQ, tdir, engine=engine, device="cpu")
     return jout, tout, jdir, tdir
 
 
@@ -156,6 +172,17 @@ def test_state_round_trip_and_init_from_file(tmp_path):
     assert back["step"] == 3 and back["seed"] == 9 and back["cutoff"] == 2.5
     assert back["images"].dtype == np.int64
     np.testing.assert_array_equal(back["positions"], pos)
+    # The Brownian accumulators start at zero when absent and ride both ways,
+    # from the JAX state's own fields too.
+    assert back["virial_accum"] == 0.0 and back["nprom"] == 0
+    jfields = {**fields, "virial_accum": np.asarray(12.5),
+               "nprom": np.asarray(jstate.nprom) + 3}
+    back = state_to_numpy(state_from_numpy(jfields, device="cpu"))
+    assert back["virial_accum"] == 12.5 and back["virial_accum"].dtype \
+        == np.float64
+    assert back["nprom"] == 3 and back["nprom"].dtype == np.int64
+    again = state_to_numpy(state_from_numpy(back, device="cpu"))
+    assert again["virial_accum"] == 12.5 and again["nprom"] == 3
     with pytest.raises(ValueError, match="unknown state fields"):
         state_from_numpy({**fields, "bogus": 1}, device="cpu")
 

@@ -26,7 +26,9 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax_or_mdtpu():
     code = ("import sys, mdtpu_torch, mdtpu_torch.interop, "
-            "mdtpu_torch.ops.cell_grid\n"
+            "mdtpu_torch.ops.cell_grid, mdtpu_torch.ops.plane_sweep, "
+            "mdtpu_torch.ops.experimental, "
+            "mdtpu_torch.ops.experimental.probe\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -67,17 +69,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mdtpu_torch.initialize_state(params, str(tmp_path),
                                      positions=np.zeros((4, 3)))
-    # device="cpu" runs, and the not-yet-ported options raise by name.
+    # device="cpu" runs (Brownian too), options that cannot run raise
+    # before any file is written, and the not-yet-ported ones raise by name.
     out = mdtpu_torch.run_simulation(state, params, mdtpu_torch.NVE(), 2, 1,
                                      str(tmp_path / "cpu"), device="cpu")
     assert out.step == 2 and out.positions.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A7"):
+    out = mdtpu_torch.run_simulation(state, params, mdtpu_torch.Brownian(1.0),
+                                     2, 1, str(tmp_path / "bd"), device="cpu")
+    assert out.step == 2 and float(out.temperature) == 1.0
+    with pytest.raises(ValueError, match="f32x2"):
         mdtpu_torch.run_simulation(state, params, mdtpu_torch.NVE(), 2, 1,
                                    str(tmp_path / "x"), precision="f32x2",
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         mdtpu_torch.run_simulation(state, params, mdtpu_torch.Brownian(1.0),
-                                   2, 1, str(tmp_path / "x"), device="cpu")
+                                   2, 1, str(tmp_path / "x"), compress=True,
+                                   device="cpu")
+    assert not (tmp_path / "x").exists()
     with pytest.raises(NotImplementedError, match="A10"):
         mdtpu_torch.initialize_state(params, str(tmp_path), device="cpu")
 
