@@ -5,12 +5,13 @@
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
    builds the three CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
-   started together; ``-Xptxas -v`` summary: registers, shared memory,
-   spills).
+   started together; ``-Xptxas -v`` summary: registers and spills of every
+   entry of ``cell_sweep.cu``, the report lines of the other two).
 2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
-   r_c 2.5: a 15^3 grid with capacity C = 37) and for pseudo-hard spheres
-   (rho 0.76, r_c 1.5), each kernel against its plain version on the same
-   inputs:
+   r_c 2.5: a 15^3 grid with capacity C = 37) on the jittered lattice and on
+   the melted fluid (the lattice after 300 NVT steps), and for pseudo-hard
+   spheres (rho 0.76, r_c 1.5), each kernel against its plain version on the
+   same inputs:
    * ``cell_sweep`` and ``plane_sweep`` at f32 and f64: f64 to rtol 1e-12 on
      energy and virial and 1e-10 on each particle's force relative to the
      larger of its own magnitude and the RMS force; f32 to 1e-5 on both (the
@@ -25,14 +26,20 @@
      plain version to 1e-5, and against the f64 plain sweep on hi + lo, where
      its per-particle error must be at least 5 times smaller than the plain
      f32 sweep's on hi;
+   * ``cell_sweep`` and ``cell_sweep_hilo`` launched twice on the same inputs
+     give the same bits (forces, energy, virial);
    * ``plane_sweep`` at f32 against its plain version to 1e-5 on the grid
      and capacity of the Brownian path below (pseudo-hard spheres, rho 0.5,
      r_c 1.5, through ``PlaneEngine.create``).
-   Times each kernel and its plain version with CUDA events (the two sweeps
-   in turns, cell, plane, plane, cell, five times, and their medians) and
-   works out the bound from this run's inputs: each unordered pair inside the
-   cutoff once, each occupied slot's inputs read once, each output written
-   once; the stencil's own work beside it.
+   Times the three sweeps in turns within this call (cell, plane, hi/lo,
+   hi/lo, plane, cell, five times, and their medians): each wrapper call is
+   captured in a CUDA graph once and the graph replayed 20 times between two
+   CUDA events, so the time is the device's (the kernel and the wrapper's two
+   sums, without the host's time between launches, which at these kernel
+   times would be most of it). Prints the staging plan in use and the
+   resident blocks per SM, and works out the bound from this run's inputs:
+   each unordered pair inside the cutoff once, each occupied slot's inputs
+   read once, each output written once; the stencil's own work beside it.
 3. Probe phase: the probe's path (``probe.run`` over its default variants),
    then every variant of ``plane_probe`` against its plain version (NaN
    positions equal, finite values to 1e-5 of the largest), timed.
@@ -61,6 +68,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,16 +92,19 @@ PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
 # cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
-# Operations per pair, by hand count of csrc/cell_sweep.cu: the distance
-# and the engine-cutoff test (3 subtractions, 3 multiplies, 2 adds, 1
-# compare; the hi/lo displacement takes a two_sum and 3 adds a component
-# instead of the subtraction), sigma mixing and the potential's cutoff test,
-# and, inside the potential's cutoff, its arithmetic plus the energy, virial
-# and force accumulation.
+# Operations per pair, by hand count of csrc/cell_sweep.cu and
+# csrc/pair_potentials.cuh (a multiply-add counts 2): the distance and the
+# cutoff test (3 subtractions, 3 multiplies, 2 adds, 1 compare; the hi/lo
+# displacement takes a two_sum and 3 adds a component instead of the
+# subtraction); per pair inside the engine cutoff the test for the own
+# diameter and the potential's cutoff test (sigma mixing, sigma^2 and the
+# shift constants are per-thread set-up now); and, inside the potential's
+# cutoff, its arithmetic (LJ: a division and 10 more; pseudo-hard spheres: an
+# rsqrt and 18 more) plus the 11 of the energy, virial and force sums.
 OPS_DISTANCE = 9
 OPS_DISTANCE_HILO = 33
-OPS_ENGINE_PAIR = 4
-OPS_POTENTIAL_PAIR = {"LennardJones": 25, "PseudoHS": 33}
+OPS_ENGINE_PAIR = 2
+OPS_POTENTIAL_PAIR = {"LennardJones": 22, "PseudoHS": 30}
 # Operations per candidate pair of the probe (csrc/plane_probe.cu): distance
 # 8, compare 1, the block (full: divide, powers, u and f, 11; nodiv: 2),
 # 2 selects, energy add 1, 3 force multiply-adds 6.
@@ -123,6 +134,17 @@ def cuda_time_ms(fn, reps, warmup):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_of(fn):
+    """A CUDA graph of one call of ``fn`` (already called once, so nothing
+    is built or loaded during the capture)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 class PairCounter:
@@ -202,52 +224,97 @@ def bound(inputs, counts_, pot, dtype, hilo=False):
             "bytes": nbytes}
 
 
-def stencil_work(counts_, pot, dtype, half):
+def stencil_work(counts_, pot, dtype, half, hilo=False):
     """The design's own work: the stencil's candidate pairs, the pairs
     inside the cutoffs evaluated once (half stencil, Newton cells) or from
-    both sides."""
+    both sides. The full-stencil kernel filters every candidate with the
+    plain distance and computes the distance of a hit again (hi/lo: the
+    exact one) when it evaluates it."""
     full_cand, half_cand, inside, inside_pot = counts_
     pot_ops = OPS_POTENTIAL_PAIR[type(pot).__name__]
     cand = half_cand if half else full_cand
     sides = 1 if half else 2
-    ops = (cand * OPS_DISTANCE + sides * inside * OPS_ENGINE_PAIR
+    again = 0 if half else (OPS_DISTANCE_HILO if hilo else OPS_DISTANCE)
+    ops = (cand * OPS_DISTANCE + sides * inside * (again + OPS_ENGINE_PAIR)
            + sides * inside_pot * pot_ops)
     return {"stencil_candidates": cand, "stencil_ops": ops,
             "stencil_ops_ms": ops / PEAK_OPS[dtype] * 1e3}
 
 
-def kernel_turns(args, rounds=5, reps=20):
-    """Times of ``cell_sweep`` and ``plane_sweep`` on the same inputs, taken
-    in turns (cell, plane, plane, cell) ``rounds`` times within this call:
-    two kernels are compared only so."""
-    from mdtpu_torch.ops.cell_sweep import cell_sweep
-    from mdtpu_torch.ops.plane_sweep import plane_sweep
-    kernels = {"cell_sweep": cell_sweep, "plane_sweep": plane_sweep}
-    turns = {name: [] for name in kernels}
+def kernel_turns(calls, rounds=5, reps=20):
+    """Device times of the sweeps in ``calls`` (name -> a call of its
+    wrapper on the case's inputs), taken in turns (first .. last, last ..
+    first) ``rounds`` times within this call: two kernels are compared only
+    so. Each is a CUDA graph of one wrapper call, replayed ``reps`` times."""
+    graphs = {name: graph_of(fn) for name, fn in calls.items()}
+    turns = {name: [] for name in calls}
+    order = list(calls) + list(calls)[::-1]
     for _ in range(rounds):
-        for name in ("cell_sweep", "plane_sweep", "plane_sweep",
-                     "cell_sweep"):
-            turns[name].append(cuda_time_ms(lambda: kernels[name](*args),
-                                            reps, 2))
+        for name in order:
+            turns[name].append(cuda_time_ms(graphs[name].replay, reps, 2))
     return turns
+
+
+def repeats(kernel, args, first):
+    """A second launch on the same inputs against the first, bit for bit."""
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def melted_state(mt):
+    """The bench lattice after 300 NVT steps (f64, so that the f32 and the
+    hi/lo inputs are words of one state)."""
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float64,
+                                cutoff=2.5, jitter=0.01, device="cuda")
+    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    with tempfile.TemporaryDirectory() as d:
+        return mt.run_simulation(state, params, mt.NVT(1.0, 0.4), 300, 300, d)
+
+
+def as_dtype(state, dtype):
+    """The state with its floating-point tensors cast to ``dtype``."""
+    changes = {f.name: getattr(state, f.name).to(dtype)
+               for f in dataclasses.fields(state)
+               if isinstance(getattr(state, f.name), torch.Tensor)
+               and getattr(state, f.name).is_floating_point()}
+    return state.replace(nbrs=None, **changes)
+
+
+def hilo_args(eng, state64, pot):
+    """The hi/lo sweep's arguments: f32 hi/lo words of an f64 state."""
+    hi = state64.positions.float()
+    lo = (state64.positions - hi.double()).float()
+    cell = state64.unitcell.float()
+    cinv = state64.unitcell_inv.float()
+    nb = eng.allocate(hi, state64.diameters.float(), cell, cinv)
+    assert not bool(nb.overflow)
+    return (*eng.slot_inputs_hilo(hi, lo, cell, cinv, nb), eng.grid,
+            eng.cutoff, pot)
 
 
 def kernel_phase(mt):
     from mdtpu_torch.ops.cell_grid import CellGridEngine
-    from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
-                                            cell_sweep_hilo_plain,
-                                            cell_sweep_plain)
+    from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
+                                            cell_sweep_hilo, cell_sweep_plain,
+                                            stage_plan)
     from mdtpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
     # Jitter in standard normals of the lattice spacing. At 0.03 the pseudo-
     # hard-sphere lattice (spacing 1.096, potential cutoff 1.02) has
     # thousands of interacting pairs and none much closer than 0.9 sigma, so
-    # no single pair's r^-50 force dwarfs the rest.
+    # no single pair's r^-50 force dwarfs the rest. The lattice gives every
+    # particle the same number of pairs; the melted fluid (no jitter: made
+    # by 300 NVT steps) does not.
     cases = [
         ("lj_bench", mt.LennardJones(r_cut=2.5), 0.8, 2.5, 0.01),
+        ("lj_melted", mt.LennardJones(r_cut=2.5), 0.8, 2.5, None),
         ("pseudo_hs", mt.PseudoHS(), 0.76, 1.5, 0.03),
     ]
+    melted = melted_state(mt)
     results, failures = {}, []
 
     def record(rec, ok, what):
@@ -260,14 +327,17 @@ def kernel_phase(mt):
     for name, pot, rho, cutoff, jitter in cases:
         f64_state = None
         for dtype in (torch.float64, torch.float32):
-            state = lattice_fluid_state(N_BENCH, rho, 1.0, dtype=dtype,
-                                        cutoff=cutoff, jitter=jitter,
-                                        device="cuda")
+            if jitter is None:
+                state = as_dtype(melted, dtype)
+            else:
+                state = lattice_fluid_state(N_BENCH, rho, 1.0, dtype=dtype,
+                                            cutoff=cutoff, jitter=jitter,
+                                            device="cuda")
             if dtype == torch.float64:
                 f64_state = state
             eng = mt.select_engine(pot, cutoff, state)
             assert isinstance(eng, CellGridEngine), eng
-            if name == "lj_bench":
+            if name.startswith("lj_"):
                 assert (eng.grid, eng.cell_capacity) == BENCH_GEOMETRY, \
                     (eng.grid, eng.cell_capacity)
             nb = eng.allocate(state.positions, state.diameters,
@@ -286,8 +356,17 @@ def kernel_phase(mt):
                     "pairs_in_engine_cutoff": counts_[2],
                     "pairs_in_potential_cutoff": counts_[3],
                     "library_ms": None}
+            list_len, smem, threads = stage_plan(eng.cell_capacity, dtype)
+            plan = {"list_len": list_len, "smem_bytes": smem,
+                    "threads": threads, "blocks_per_sm": blocks_per_sm(
+                        eng.cell_capacity, dtype, False, pot)}
 
-            turns = kernel_turns(args)
+            calls = {"cell_sweep": lambda: cell_sweep(*args),
+                     "plane_sweep": lambda: plane_sweep(*args)}
+            if not f64:
+                h_args = hilo_args(eng, f64_state, pot)
+                calls["cell_sweep_hilo"] = lambda: cell_sweep_hilo(*h_args)
+            turns = kernel_turns(calls)
             out = {}
             for kname, kernel, plain, half in (
                     ("cell_sweep", cell_sweep, cell_sweep_plain, False),
@@ -313,6 +392,10 @@ def kernel_phase(mt):
                       and rec["rel_err_energy"] <= rtol_ew
                       and rec["rel_err_virial"] <= rtol_ew
                       and worst <= tol_f)
+                if kname == "cell_sweep":
+                    rec["stage_plan"] = plan
+                    rec["repeats_bit_for_bit"] = repeats(kernel, args, r1)
+                    ok = ok and rec["repeats_bit_for_bit"]
                 record(rec, ok, f"{kname} {name} {tag}")
 
             # The half stencil against the full one on the same inputs.
@@ -344,8 +427,9 @@ def kernel_phase(mt):
             record(rec, ok, f"plane_vs_cell {name} {tag}")
 
             if not f64:
-                hilo_check(mt, eng, f64_state, pot, counts_, base, record)
-            del state, nb, inputs, args, out
+                hilo_check(h_args, pot, counts_, base, record, turns)
+                del h_args
+            del state, nb, inputs, args, out, calls
             torch.cuda.empty_cache()
     brownian_geometry_check(mt, record)
     return results, failures
@@ -376,34 +460,33 @@ def brownian_geometry_check(mt, record):
            "rel_err_virial": rel(r1[1], r0[1]),
            "force_err_per_particle": worst, "max_abs_err": max_abs,
            "rms_force": rms,
-           "ms": cuda_time_ms(lambda: plane_sweep(*args), 20, 3)}
+           "ms": cuda_time_ms(graph_of(lambda: plane_sweep(*args)).replay,
+                              20, 3)}
     ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
           and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5)
     record(rec, ok, "plane_sweep brownian float32")
 
 
-def hilo_check(mt, eng, state64, pot, counts_, base, record):
+def hilo_check(args, pot, counts_, base, record, turns):
     """The hi/lo sweep at f32 on the hi/lo words of an f64 state."""
-    from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
+    from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
+                                            cell_sweep_hilo,
                                             cell_sweep_hilo_plain,
-                                            cell_sweep_plain)
-    hi = state64.positions.float()
-    lo = (state64.positions - hi.double()).float()
-    cell = state64.unitcell.float()
-    cinv = state64.unitcell_inv.float()
-    nb = eng.allocate(hi, state64.diameters.float(), cell, cinv)
-    inputs = eng.slot_inputs_hilo(hi, lo, cell, cinv, nb)
-    args = (*inputs, eng.grid, eng.cutoff, pot)
+                                            cell_sweep_plain, stage_plan)
     r1 = cell_sweep_hilo(*args)
     torch.cuda.synchronize()
     r0 = cell_sweep_hilo_plain(*args)
-    slot_hi, slot_lo, diam, counts, box = inputs
+    slot_hi, slot_lo, diam, counts, box, grid, cutoff, _ = args
     r64 = cell_sweep_plain(slot_hi.double() + slot_lo.double(), diam.double(),
-                           counts, box.double(), eng.grid, eng.cutoff, pot)
-    rp = cell_sweep(slot_hi, diam, counts, box, eng.grid, eng.cutoff, pot)
+                           counts, box.double(), grid, cutoff, pot)
+    rp = cell_sweep(slot_hi, diam, counts, box, grid, cutoff, pot)
     torch.cuda.synchronize()
     worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
     sweep_inputs = (slot_hi, diam, counts, box)
+    list_len, smem, threads = stage_plan(base["capacity"], torch.float32,
+                                         True)
+    ms, cell_ms = (statistics.median(turns[k])
+                   for k in ("cell_sweep_hilo", "cell_sweep"))
     rec = {"kernel_check": "cell_sweep_hilo", **base,
            "rel_err_energy": rel(r1[0], r0[0]),
            "rel_err_virial": rel(r1[1], r0[1]),
@@ -411,14 +494,20 @@ def hilo_check(mt, eng, state64, pot, counts_, base, record):
            "rms_force": rms,
            "hilo_err_vs_f64": force_error(r1[2], r64[2], N_BENCH)[0],
            "plain_f32_err_vs_f64": force_error(rp[2], r64[2], N_BENCH)[0],
-           "ms": cuda_time_ms(lambda: cell_sweep_hilo(*args), 20, 3),
+           "repeats_bit_for_bit": repeats(cell_sweep_hilo, args, r1),
+           "stage_plan": {"list_len": list_len, "smem_bytes": smem,
+                          "threads": threads, "blocks_per_sm": blocks_per_sm(
+                              base["capacity"], torch.float32, True, pot)},
+           "ms": ms, "ms_turns": turns["cell_sweep_hilo"],
+           "median_ms_ratio_hilo_over_cell": ms / cell_ms,
            "plain_ms": cuda_time_ms(lambda: cell_sweep_hilo_plain(*args), 3,
                                     1),
            **bound(sweep_inputs, counts_, pot, torch.float32, hilo=True),
-           **stencil_work(counts_, pot, torch.float32, False)}
+           **stencil_work(counts_, pot, torch.float32, False, hilo=True)}
     ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
           and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5
-          and 5 * rec["hilo_err_vs_f64"] <= rec["plain_f32_err_vs_f64"])
+          and 5 * rec["hilo_err_vs_f64"] <= rec["plain_f32_err_vs_f64"]
+          and rec["repeats_bit_for_bit"])
     record(rec, ok, f"cell_sweep_hilo {base['case']}")
 
 
@@ -685,9 +774,25 @@ def run_paths(mt, workdir):
 
 
 def ptxas_summary(name, report):
+    """The compiler's report: for ``cell_sweep`` one line per kernel entry
+    (type, potential, hi/lo, the block size it is compiled for, registers,
+    spill bytes); for the other sources its report lines."""
+    entry, spill = None, ""
     for line in report.splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry",
-                                   "smem")):
+        if "Compiling entry" in line:
+            m = re.search(r"cell_sweep_kernelI([fd])N5mdtpu\d+([A-Za-z]+)I"
+                          r"[fd]EELb([01])ELi(\d+)EE", line)
+            entry = m and ("f32" if m[1] == "f" else "f64", m[2],
+                           "hilo" if m[3] == "1" else "plain", m[4])
+            if entry is None:
+                log(f"  ptxas {name}: " + line.strip())
+        elif "spill" in line and entry:
+            spill = line.strip()
+        elif "registers" in line and entry:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            log(f"  ptxas {name}: {' '.join(entry[:3])} for blocks up to "
+                f"{entry[3]}: {regs} registers; {spill}")
+        elif any(k in line for k in ("registers", "spill", "smem")):
             log(f"  ptxas {name}: " + line.strip())
 
 

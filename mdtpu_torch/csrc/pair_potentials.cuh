@@ -22,6 +22,12 @@ constexpr double kPseudoHSB = 1.0204081632653061;
 constexpr int kErrCapacity = -1;   // cap outside what the kernel takes
 constexpr int kErrPotential = -2;  // unknown potential kind
 constexpr int kErrGrid = -3;       // fewer than 3 cells on an axis
+constexpr int kErrPlan = -4;       // staging plan and kernel layout disagree
+
+// Shared memory a block may use on sm_90 (227 KB); above 48 KB only as
+// dynamic shared memory after cudaFuncSetAttribute.
+constexpr size_t kMaxSharedBytes = 232448;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
 template <typename T>
 __device__ __forceinline__ T rsqrt_t(T x);
@@ -59,19 +65,57 @@ __device__ __forceinline__ T ipow(T x, int n) {
   return result;
 }
 
+// Each functor splits its arithmetic in two. setup(d_own) runs once per
+// thread and holds what does not depend on the pair: the squared cutoff, and
+// the terms that depend on the pair's sigma alone, worked out for the sigma a
+// pair of two particles of the own diameter has (0.5 * (d + d) == d exactly;
+// the fixed sigma without mixing). operator() takes that set-up and
+// recomputes the sigma terms only for a neighbour of another diameter. Both
+// routes go through the same expressions (sigma_terms), in the same order,
+// so hoisting changes no bit of the result.
+
 template <typename T>
 struct LJ {
   T eps, sigma, rc;
   int shift, force_shift, mix;
 
-  __device__ __forceinline__ void operator()(T r2, T si, T sj, T& u,
-                                             T& f_over_r) const {
-    const T sig = mix ? T(0.5) * (si + sj) : sigma;
-    if (!(r2 < rc * rc)) {
+  struct Setup {
+    T rc2, d_own, sig2, v_cut, f_cut;
+  };
+
+  __device__ __forceinline__ void sigma_terms(T sig, T& sig2, T& v_cut,
+                                              T& f_cut) const {
+    sig2 = sig * sig;
+    v_cut = T(0);
+    f_cut = T(0);
+    if (shift || force_shift) {
+      const T sr = sig / rc;
+      const T s2 = sr * sr;
+      const T src6 = s2 * s2 * s2;
+      const T src12 = src6 * src6;
+      v_cut = T(4) * eps * (src12 - src6);
+      if (force_shift) f_cut = T(24) * eps * (T(2) * src12 - src6) / rc;
+    }
+  }
+
+  __device__ __forceinline__ Setup setup(T d_own) const {
+    Setup s;
+    s.rc2 = rc * rc;
+    s.d_own = d_own;
+    sigma_terms(mix ? d_own : sigma, s.sig2, s.v_cut, s.f_cut);
+    return s;
+  }
+
+  __device__ __forceinline__ void operator()(const Setup& s, T r2, T si, T sj,
+                                             T& u, T& f_over_r) const {
+    if (!(r2 < s.rc2)) {
       u = T(0);
       f_over_r = T(0);
       return;
     }
+    T sig2 = s.sig2, v_cut = s.v_cut, f_cut = s.f_cut;
+    if (mix && sj != s.d_own)
+      sigma_terms(T(0.5) * (si + sj), sig2, v_cut, f_cut);
     T inv_r = T(0), inv_r2;
     if (force_shift) {
       inv_r = rsqrt_t<T>(r2);
@@ -79,19 +123,14 @@ struct LJ {
     } else {
       inv_r2 = T(1) / r2;
     }
-    const T sr2 = (sig * sig) * inv_r2;
+    const T sr2 = sig2 * inv_r2;
     const T sr6 = sr2 * sr2 * sr2;
     const T sr12 = sr6 * sr6;
     T v = T(4) * eps * (sr12 - sr6);
     T f = T(24) * eps * (T(2) * sr12 - sr6) * inv_r2;
     if (shift || force_shift) {
-      const T sr = sig / rc;
-      const T s2 = sr * sr;
-      const T src6 = s2 * s2 * s2;
-      const T src12 = src6 * src6;
-      v = v - T(4) * eps * (src12 - src6);
+      v = v - v_cut;
       if (force_shift) {
-        const T f_cut = T(24) * eps * (T(2) * src12 - src6) / rc;
         v = v + (r2 * inv_r - rc) * f_cut;
         f = f - f_cut * inv_r;
       }
@@ -105,11 +144,33 @@ template <typename T>
 struct PseudoHS {
   int lam, scaled, mix;
 
-  __device__ __forceinline__ void operator()(T r2, T si, T sj, T& u,
-                                             T& f_over_r) const {
-    const T sig = mix ? T(0.5) * (si + sj) : T(1);
+  struct Setup {
+    T d_own, sig, cut2, a_sig2;
+  };
+
+  __device__ __forceinline__ void sigma_terms(T sig, T& cut2,
+                                              T& a_sig2) const {
     const T cut = scaled ? T(kPseudoHSB) * sig : T(kPseudoHSB);
-    if (!(r2 < cut * cut)) {
+    cut2 = cut * cut;
+    a_sig2 = T(kPseudoHSA) / (sig * sig);
+  }
+
+  __device__ __forceinline__ Setup setup(T d_own) const {
+    Setup s;
+    s.d_own = d_own;
+    s.sig = mix ? d_own : T(1);
+    sigma_terms(s.sig, s.cut2, s.a_sig2);
+    return s;
+  }
+
+  __device__ __forceinline__ void operator()(const Setup& s, T r2, T si, T sj,
+                                             T& u, T& f_over_r) const {
+    T sig = s.sig, cut2 = s.cut2, a_sig2 = s.a_sig2;
+    if (mix && sj != s.d_own) {
+      sig = T(0.5) * (si + sj);
+      sigma_terms(sig, cut2, a_sig2);
+    }
+    if (!(r2 < cut2)) {
       u = T(0);
       f_over_r = T(0);
       return;
@@ -123,9 +184,8 @@ struct PseudoHS {
     const T sr_l = sr_lm2 * sr2;
     const T sr_lp1 = sr_l * sr;
     const T sr_lp2 = sr_l * sr2;
-    const T a = T(kPseudoHSA);
-    u = a * (sr_l - sr_lm1) + T(1);
-    f_over_r = (a / (sig * sig)) * (T(lam) * sr_lp2 - T(lam - 1) * sr_lp1);
+    u = T(kPseudoHSA) * (sr_l - sr_lm1) + T(1);
+    f_over_r = a_sig2 * (T(lam) * sr_lp2 - T(lam - 1) * sr_lp1);
   }
 };
 
@@ -134,31 +194,48 @@ struct XPLOR {
   T eps, sigma, ron, rc;
   int mix;
 
-  __device__ __forceinline__ void operator()(T r2, T si, T sj, T& u,
-                                             T& f_over_r) const {
-    const T sig = mix ? T(0.5) * (si + sj) : sigma;
-    const T rc2 = rc * rc;
-    const T ron2 = ron * ron;
+  struct Setup {
+    T d_own, rc2, ron2, denom, sig2;
+  };
+
+  __device__ __forceinline__ Setup setup(T d_own) const {
+    Setup s;
+    s.d_own = d_own;
+    s.rc2 = rc * rc;
+    s.ron2 = ron * ron;
+    const T d = s.rc2 - s.ron2;
+    s.denom = d * d * d;
+    const T sig = mix ? d_own : sigma;
+    s.sig2 = sig * sig;
+    return s;
+  }
+
+  __device__ __forceinline__ void operator()(const Setup& s, T r2, T si, T sj,
+                                             T& u, T& f_over_r) const {
+    const T rc2 = s.rc2, ron2 = s.ron2, denom = s.denom;
     if (!(r2 < rc2)) {
       u = T(0);
       f_over_r = T(0);
       return;
     }
+    T sig2 = s.sig2;
+    if (mix && sj != s.d_own) {
+      const T sig = T(0.5) * (si + sj);
+      sig2 = sig * sig;
+    }
     const T inv_r2 = T(1) / r2;
-    const T sr2 = (sig * sig) * inv_r2;
+    const T sr2 = sig2 * inv_r2;
     const T sr6 = sr2 * sr2 * sr2;
     const T sr12 = sr6 * sr6;
     const T v = T(4) * eps * (sr12 - sr6);
     const T f = T(24) * eps * (T(2) * sr12 - sr6) * inv_r2;
-    const T d = rc2 - ron2;
-    const T denom = d * d * d;
     const T a = rc2 - r2;
     const T b = rc2 + T(2) * r2 - T(3) * ron2;
     const bool below = r2 < ron2;
-    const T s = below ? T(1) : a * a * b / denom;
+    const T sw = below ? T(1) : a * a * b / denom;
     const T ds_over_r = below ? T(0) : T(4) * a * (a - b) / denom;
-    u = v * s;
-    f_over_r = s * f - v * ds_over_r;
+    u = v * sw;
+    f_over_r = sw * f - v * ds_over_r;
   }
 };
 
@@ -220,6 +297,7 @@ inline const char* error_string(int code) {
     case kErrCapacity: return "cell capacity outside what the kernel takes";
     case kErrPotential: return "potential kind unknown to the kernel";
     case kErrGrid: return "cell grid needs at least 3 cells on every axis";
+    case kErrPlan: return "staging plan does not match the kernel's layout";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

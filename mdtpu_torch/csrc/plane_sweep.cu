@@ -46,7 +46,6 @@ namespace {
 using namespace mdtpu;
 
 constexpr int kNewton = 12;  // HALF_OFFSETS x dz
-constexpr size_t kMaxSmem = 232448;  // bytes a block may use (227 KB)
 
 // Newton cell k: HALF_OFFSETS[k / 3] in-plane, dz = k % 3 - 1.
 __device__ __forceinline__ void newton_offset(int k, int& ox, int& oy,
@@ -106,6 +105,7 @@ __global__ void plane_sweep_kernel(const T* __restrict__ pos,
     zi = pos[2 * n_slots + own];
     di = diam[own];
   }
+  const auto pot_setup = pot.setup(di);  // what does not depend on the pair
   T fx = T(0), fy = T(0), fz = T(0), e = T(0), w = T(0);
 
   // 3 self-column cells, then the 12 Newton cells.
@@ -141,7 +141,7 @@ __global__ void plane_sweep_kernel(const T* __restrict__ pos,
           const T r2 = dx * dx + dy * dy + dz * dz;
           if (r2 < cutoff2) {
             T u, f;
-            pot(r2, di, sd[j], u, f);
+            pot(pot_setup, r2, di, sd[j], u, f);
             e += scale * u;
             w += scale * (f * r2);
             px = f * dx;
@@ -231,7 +231,7 @@ int sweep(const T* pos, const T* diam, const int64_t* counts, const T* box,
   int threads = 32;
   while (threads < cap) threads <<= 1;
   const size_t smem = smem_bytes<T>(cap, threads);
-  if (cap < 1 || threads > 1024 || smem > kMaxSmem) return kErrCapacity;
+  if (cap < 1 || threads > 1024 || smem > kMaxSharedBytes) return kErrCapacity;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const T rc_engine = T(cutoff);
   const T cutoff2 = rc_engine * rc_engine;

@@ -26,12 +26,26 @@ C) the lo word, and each displacement is formed error-free from the two
 CPU tensors. The kernels are compiled with ``nvcc`` for ``sm_90a`` into
 ``mdtpu_torch/_build`` at first use and bound with ctypes
 (:mod:`mdtpu_torch.ops._cuda_build`).
+
+The kernel (one block per cell) stages the occupied slots of the stencil's
+cells in shared memory as one candidate list, gives each particle of the
+cell several threads that share the list, and splits the inner loop in a
+filter (r^2 only, hits queued per thread) and a drain (the potential, on
+lanes that all hold a hit); see the note at the head of the source. What
+that needs from the host is here: :func:`stage_plan` sizes the block, the
+list and the shared memory from the capacity; :func:`hilo_filter_margin`
+derives how far the hi/lo filter, which sees the hi words only, must widen
+the cutoff, and :func:`hilo_filter_cutoff2` is the filter's squared cutoff
+as the kernel computes it. The CPU tests hold all three
+(``tests/test_torch_sweep_plan.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
+import math
 
 import torch
 
@@ -45,14 +59,33 @@ from mdtpu_torch.utils.math import two_sum
 NAME = "cell_sweep"
 MAX_CAPACITY = 1024  # one thread per own slot, at most 1024 a block
 
+# The kernel's staging plan (csrc/cell_sweep.cu keeps the same layout).
+MAX_SHARED_BYTES = 232448   # shared memory a block may use on sm_90 (227 KB)
+STAGE_CELLS = (27, 9, 3, 1)  # stencil cells staged together, most first
+LIST_FILL = 2.0 / 3.0       # share of the stencil's 27 C slots a stage holds
+THREADS_PER_SLOT = 2        # block size over the capacity, before rounding
+QUEUE_DEPTH = 32            # hits a thread queues between two drains
+FILTER_UNROLL = 8           # candidates filtered between two votes (kUnroll)
+_META_CELLS = 32            # per-cell records of the stencil (27 used), padded
+
+# The hi/lo filter's contract: every lo word is at most this many eps * L
+# (L the longest box length; eps * L bounds the ulp of any coordinate up to
+# L), and every coordinate, image shift included, at most 2 L in magnitude.
+HILO_LO_BOUND = 4.0
+
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # Pointers in, grid and capacity, cutoff and potential kind, four float and
-# three int potential parameters, pointers out, the stream.
+# three int potential parameters, pointers out, the staging plan
+# (list_len, queue_depth, smem_bytes, threads), the stream.
 _SWEEP_ARGS = ((_P,) * 4 + (_I,) * 4 + (_D, _I) + (_D,) * 4 + (_I,) * 3
-               + (_P,) * 3 + (_P,))
+               + (_P,) * 3 + (_I,) * 4 + (_P,))
+# The hi/lo entry takes the lo words after the hi words and the filter margin
+# after the plan.
 _SIGNATURES = (("mdtpu_cell_sweep_f32", _SWEEP_ARGS),
                ("mdtpu_cell_sweep_f64", _SWEEP_ARGS),
-               ("mdtpu_cell_sweep_hilo_f32", (_P,) + _SWEEP_ARGS))
+               ("mdtpu_cell_sweep_hilo_f32",
+                (_P,) + _SWEEP_ARGS[:-1] + (_D, _P)),
+               ("mdtpu_cell_sweep_occupancy", (_I,) * 11 + (_P,)))
 
 
 def _library():
@@ -84,6 +117,107 @@ def kernel_params(potential):
     raise NotImplementedError(
         f"the CUDA pair sweeps have no functor for {kind.__name__}; user "
         f"potentials in the kernel are queue A9")
+
+
+@functools.lru_cache(maxsize=None)
+def stage_plan(cap, dtype, hilo=False):
+    """``(list_len, smem_bytes, threads)`` for a launch at cell capacity
+    ``cap``.
+
+    ``threads``: ``THREADS_PER_SLOT`` threads per slot of a cell, rounded up
+    to a power of two (at least a warp, at most 1024). A cell holds about
+    half its capacity on average, so a block has several threads for each of
+    its particles, and they share the particle's candidates.
+
+    ``list_len``: how many candidates one stage holds in shared memory.
+    ``LIST_FILL`` of the stencil's 27 ``cap`` slots (the engine sizes ``cap``
+    at the mean occupancy plus 3.5 sigma, so the 27 cells around a block
+    hold about half of their slots), at least one full cell, at most what
+    fits in a block's shared memory beside the threads' hit queues and the
+    reduction scratch. A block whose neighbourhood holds more stages it in
+    3, 9 or 27 parts (:func:`stage_cells`). A staged candidate takes four
+    values (eight with the lo words), and the list is padded by two filter
+    chunks."""
+    if not 1 <= cap <= MAX_CAPACITY:
+        raise ValueError(f"cell capacity {cap} outside [1, {MAX_CAPACITY}]")
+    esize = torch.finfo(dtype).bits // 8
+    threads = min(1024, max(32, 1 << (THREADS_PER_SLOT * cap - 1).bit_length()))
+    fixed = ((5 * threads + 3 * _META_CELLS) * esize + 2 * _META_CELLS * 4
+             + QUEUE_DEPTH * threads * 2)
+    per_candidate = (8 if hilo else 4) * esize
+    fits = (MAX_SHARED_BYTES - fixed) // per_candidate - 2 * FILTER_UNROLL
+    list_len = min(max(cap, math.ceil(LIST_FILL * 27 * cap)), 27 * cap, fits)
+    if list_len < cap:
+        raise ValueError(f"no staging plan fits capacity {cap}")
+    smem = per_candidate * (list_len + 2 * FILTER_UNROLL) + fixed
+    return list_len, smem, threads
+
+
+def stage_cells(stencil_counts, list_len):
+    """How many of the 27 stencil cells a block stages together, given the
+    occupied slots of each (in stencil order) and the stage's length: the
+    most of 27, 9, 3, 1 whose every group of consecutive cells fits. What
+    the kernel works out per block."""
+    for cells in STAGE_CELLS:
+        if all(sum(stencil_counts[c:c + cells]) <= list_len
+               for c in range(0, 27, cells)):
+            return cells
+    raise ValueError("a single cell exceeds the stage's length")
+
+
+def blocks_per_sm(cap, dtype, hilo, potential) -> int:
+    """How many blocks of the kernel that a launch at capacity ``cap`` would
+    run are resident on one SM together (asks the CUDA runtime; needs a
+    card)."""
+    lib = _library()
+    kind, _, ip = kernel_params(potential)
+    list_len, smem, threads = stage_plan(cap, dtype, hilo)
+    out = ctypes.c_int(0)
+    rc = lib.mdtpu_cell_sweep_occupancy(
+        torch.finfo(dtype).bits // 8, int(hilo), cap, kind, *ip, list_len,
+        QUEUE_DEPTH, smem, threads, ctypes.addressof(out))
+    _cuda_build.check(lib, NAME, rc, "cell_sweep occupancy query")
+    return out.value
+
+
+def hilo_filter_margin(dtype) -> float:
+    """How far the hi/lo filter widens the cutoff radius, per unit of the
+    longest box length L. The filter takes the plain difference ``p`` of two
+    staged hi words where the sweep forms ``d = s + (e + (lo_i - lo_j))``
+    with ``s + e = hi_i - hi_j`` exactly. Per component ``|p - d|`` is at
+    most ``|e| + |lo_i| + |lo_j|`` plus the rounding of ``d`` itself, with
+    (eps = ulp(1), so eps * |x| bounds ulp(x)):
+      * ``|e| <= ulp(s) / 2 <= eps L`` for ``|s| <= 2 L``;
+      * ``|lo_i| <= HILO_LO_BOUND eps L``, the contract on the own lo word;
+      * ``|lo_j| <= (HILO_LO_BOUND + 1) eps L``: the staged neighbour's lo
+        word takes the residual of its image shift, at most ulp(2 L) / 2.
+    That is ``(2 HILO_LO_BOUND + 2) eps L`` a component (10 eps L; 12 are
+    taken), and sqrt(3) times it on the length of the displacement. The
+    relative rounding of ``d`` and of the two ``r2`` goes into the factors
+    of :func:`hilo_filter_cutoff2`."""
+    return 3.0 ** 0.5 * (2.0 * HILO_LO_BOUND + 4.0) * torch.finfo(dtype).eps
+
+
+def hilo_filter_cutoff2(cutoff, box, dtype=torch.float32):
+    """The squared cutoff of the hi/lo sweep's filter, a 0-dim tensor of
+    ``dtype``: ``(r_c (1 + 2 eps) + margin L)^2 (1 + 16 eps)`` with L the
+    longest box length and the margin of :func:`hilo_filter_margin`, in
+    ``dtype`` arithmetic, operation for operation what the kernel computes
+    from the box lengths on the device. Every pair whose hi/lo ``r2`` is
+    below the squared engine cutoff has its plain hi-word ``r2`` below this:
+    a computed ``r2 < r_c^2`` means a true length below ``r_c (1 + 2 eps)``;
+    the plain displacement is longer by at most ``margin L``; and its
+    computed ``r2`` exceeds the true square by less than 4 eps relative.
+    The remaining factor covers the rounding of these few operations."""
+    box = torch.as_tensor(box, dtype=dtype)
+    eps = torch.finfo(dtype).eps
+
+    def t(value):
+        return torch.tensor(value, dtype=dtype, device=box.device)
+
+    rc_wide = (t(cutoff) * (t(1.0) + t(2.0) * t(eps))
+               + t(hilo_filter_margin(dtype)) * box.max())
+    return rc_wide * rc_wide * (t(1.0) + t(16.0) * t(eps))
 
 
 def check_inputs(slot_pos, slot_diam, counts, box, grid, max_capacity):
@@ -142,7 +276,8 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
     fn = (lib.mdtpu_cell_sweep_f32 if dtype == torch.float32
           else lib.mdtpu_cell_sweep_f64)
     out = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, box),
-                       grid, cap, cutoff, potential, n_cells, "cell_sweep")
+                       grid, cap, cutoff, potential, n_cells, "cell_sweep",
+                       plan=_plan_args(cap, dtype, hilo=False))
     cell_sweep.launches += 1
     return out
 
@@ -166,7 +301,9 @@ def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
     lib = _library()
     out = launch_sweep(lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
                        (slot_pos, slot_lo, slot_diam, counts, box), grid, cap,
-                       cutoff, potential, n_cells, "cell_sweep_hilo")
+                       cutoff, potential, n_cells, "cell_sweep_hilo",
+                       plan=(*_plan_args(cap, torch.float32, hilo=True),
+                             hilo_filter_margin(torch.float32)))
     cell_sweep_hilo.launches += 1
     return out
 
@@ -174,13 +311,19 @@ def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
 cell_sweep_hilo.launches = 0
 
 
+def _plan_args(cap, dtype, hilo):
+    list_len, smem, threads = stage_plan(cap, dtype, hilo)
+    return list_len, QUEUE_DEPTH, smem, threads
+
+
 def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
-                 n_cells, what, scratch=()):
+                 n_cells, what, scratch=(), plan=()):
     """Launch a sweep entry point of the library of ``csrc/<name>.cu`` on
     the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
-    p0..p3, i0..i2, force, e_part, w_part, scratch..., stream)``. Allocates
-    the outputs, raises on a launch error, and returns ``(energy, virial,
-    slot_forces)`` with the per-cell partials summed on the device."""
+    p0..p3, i0..i2, force, e_part, w_part, scratch..., plan..., stream)``
+    (``scratch`` tensors, ``plan`` numbers). Allocates the outputs, raises
+    on a launch error, and returns ``(energy, virial, slot_forces)`` with
+    the per-cell partials summed on the device."""
     kind, fp, ip = kernel_params(potential)
     slot_pos = inputs[0]
     dtype, device = slot_pos.dtype, slot_pos.device
@@ -193,7 +336,7 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
         rc = fn(*(t.data_ptr() for t in inputs), nx, ny, nz, cap,
                 float(cutoff), kind, *(float(v) for v in fp), *ip,
                 force.data_ptr(), e_part.data_ptr(), w_part.data_ptr(),
-                *(t.data_ptr() for t in scratch), stream)
+                *(t.data_ptr() for t in scratch), *plan, stream)
     _cuda_build.check(lib, name, rc, what)
     return torch.sum(e_part), torch.sum(w_part), force
 

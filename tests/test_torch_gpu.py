@@ -1,7 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 pair sweep (full stencil, and its hi/lo variant), the Newton half-stencil
 sweep at f64 and f32 for the three potentials the kernels know, the probe of
-its inner loop, and a short run through ``PlaneEngine``.
+its inner loop, and a short run through ``PlaneEngine``. The full-stencil
+sweep also on slot inputs made by hand: every class of capacity (one warp,
+several, a staging plan of fewer than 27 cells), a grid that is not cubic,
+empty and full cells, counts above the capacity, a cluster in which every
+candidate is a hit, every flag of the potentials; and two launches repeat
+bit for bit.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -238,3 +243,191 @@ def test_plane_engine_nvt_run(cuda, tmp_path):
     rows = np.loadtxt(tmp_path / "thermo.txt")
     assert rows.shape == (3, 4) and np.isfinite(rows).all()
     assert bool(torch.isfinite(out.positions).all())
+
+
+# --------------------------------------------------------------------------
+# The full-stencil sweep on slot inputs made by hand.
+# --------------------------------------------------------------------------
+
+VACANT = 777.0   # what vacant slots hold: the sweeps must never read it
+
+
+def _sublattice_slots(grid, cap, counts, cutoff, seed, device,
+                      diam_spread=0.0):
+    """f64 slot inputs ``(slot_pos, slot_diam, counts, box)``: cell ``c``
+    holds ``min(counts[c], cap)`` particles on randomly chosen sites of its
+    own m^3 sublattice (m^3 >= cap, spacing >= 1), jittered so that no pair
+    comes much closer than 0.9."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    m = 1
+    while m ** 3 < cap:
+        m += 1
+    edge = max(cutoff + 0.05, float(m))
+    jitter = JITTER if m > 1 else 0.1
+    idx = np.arange(n_cells)
+    corner = np.stack([idx // (ny * nz), (idx // nz) % ny, idx % nz]) * edge
+    pos = np.full((3, n_cells, cap), VACANT)
+    for c in range(n_cells):
+        n = min(int(counts[c]), cap)
+        sites = rng.permutation(m ** 3)[:n]
+        ijk = np.stack([sites // (m * m), (sites // m) % m, sites % m])
+        pos[:, c, :n] = corner[:, c, None] + (
+            ijk + 0.5 + jitter * rng.standard_normal((3, n))) * (edge / m)
+    diam = 1.0 + diam_spread * rng.random(n_cells * cap)
+    box = np.array(grid, dtype=np.float64) * edge
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        pos.reshape(3, -1), diam, np.asarray(counts, dtype=np.int64), box))
+
+
+def _mixed_counts(n_cells, cap, seed):
+    """Random counts with an empty cell, a full one and one above ``cap``."""
+    counts = np.random.default_rng(seed).integers(0, cap + 1, n_cells)
+    counts[:3] = (cap, 0, cap + 5)
+    return counts
+
+
+def _check_full_stencil(kind, slots, grid, cutoff, pot):
+    """Kernel against plain version for ``kind`` in f64 / f32 / hilo, and a
+    second launch against the first, bit for bit."""
+    pos, diam, counts, box = slots
+    if kind == "hilo":
+        hi = pos.float()
+        args = (hi, (pos - hi.double()).float(), diam.float(), counts,
+                box.float(), grid, cutoff, pot)
+        kernel, plain = sweep_mod.cell_sweep_hilo, sweep_mod.cell_sweep_hilo_plain
+    else:
+        dtype = torch.float64 if kind == "f64" else torch.float32
+        args = (pos.to(dtype), diam.to(dtype), counts, box.to(dtype), grid,
+                cutoff, pot)
+        kernel, plain = sweep_mod.cell_sweep, sweep_mod.cell_sweep_plain
+    before = kernel.launches
+    out = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = plain(*args)
+    rtol_ew, tol_f = TOLERANCES[torch.float64 if kind == "f64"
+                                else torch.float32]
+    cap = pos.shape[1] // counts.shape[0]
+    occupied = (torch.arange(cap, device=pos.device)[None, :]
+                < counts.clamp(max=cap)[:, None]).reshape(-1)
+    n = max(int(occupied.sum()), 1)
+    # f32: the sums differ in order; hold them to the per-particle scale.
+    atol = 0.0 if kind == "f64" else 1e-5 * n
+    for got, want in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(float(got), float(want), rtol=rtol_ew,
+                                   atol=atol)
+    f1, f0 = out[2].double(), ref[2].double()
+    assert bool((f1[:, ~occupied] == 0).all())
+    err = (f1 - f0).norm(dim=0)
+    mag = f0.norm(dim=0)
+    rms = float(torch.sqrt((mag * mag).sum() / n))
+    assert float((err / mag.clamp(min=max(rms, 1e-300))).max()) <= tol_f
+    return out
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("cap", [1, 31, 32, 33, 64, 65, 200, 1024])
+def test_cell_sweep_capacities(cuda, cap, kind):
+    """Blocks of one warp and of several, up to 1024 threads, where the 27
+    cells no longer fit in one stage; with an empty cell, a full cell and a
+    count above the capacity."""
+    grid, cutoff = (3, 3, 3), 2.5
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    counts = _mixed_counts(27, cap, cap)
+    if cap == 1024:
+        list_len, _, threads = sweep_mod.stage_plan(cap, dtype, kind == "hilo")
+        assert threads == 1024
+        # On a 3 x 3 x 3 grid every block's stencil is the whole grid.
+        assert sweep_mod.stage_cells(list(np.minimum(counts, cap)),
+                                     list_len) < 27
+    slots = _sublattice_slots(grid, cap, counts, cutoff, cap, cuda)
+    _check_full_stencil(kind, slots, grid, cutoff, LennardJones(r_cut=cutoff))
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("cap,filled", [(33, 27), (33, 19)])
+def test_cell_sweep_stages_in_parts(cuda, cap, filled, kind):
+    """Neighbourhoods fuller than a stage's list go in three stages of 9
+    cells: with every cell at its capacity, and with 19 full and 8 empty
+    cells (stages of unequal length)."""
+    grid, cutoff = (3, 3, 3), 2.5
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    list_len = sweep_mod.stage_plan(cap, dtype, kind == "hilo")[0]
+    counts = np.zeros(27, dtype=np.int64)
+    counts[np.random.default_rng(filled).permutation(27)[:filled]] = cap
+    assert sweep_mod.stage_cells(list(counts), list_len) < 27
+    slots = _sublattice_slots(grid, cap, counts, cutoff, cap, cuda)
+    _check_full_stencil(kind, slots, grid, cutoff, LennardJones(r_cut=cutoff))
+
+
+FLAGGED = {
+    "lj_shift": (LennardJones(r_cut=2.5, shift=True), 2.5, 0.0),
+    "lj_force_shift": (LennardJones(r_cut=2.5, force_shift=True), 2.5, 0.0),
+    "lj_no_mixing": (LennardJones(sigma=0.9, r_cut=2.5, force_shift=True,
+                                  mixing="none"), 2.5, 0.2),
+    "lj_polydisperse": (LennardJones(r_cut=2.5, force_shift=True), 2.5, 0.2),
+    "pseudo_hs_no_mixing": (PseudoHS(mixing="none"), 1.5, 0.2),
+    "pseudo_hs_fixed_cutoff": (PseudoHS(sigma_scaled_cutoff=False), 1.5, 0.0),
+    "pseudo_hs_polydisperse": (PseudoHS(), 1.5, 0.05),
+    "xplor_no_mixing": (LennardJonesXPLOR(r_on=2.0, r_cut=2.5,
+                                          mixing="none"), 2.5, 0.2),
+    "xplor_polydisperse": (LennardJonesXPLOR(r_on=2.0, r_cut=2.5), 2.5, 0.2),
+}
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("name", sorted(FLAGGED))
+def test_cell_sweep_flags_on_a_noncubic_grid(cuda, name, kind):
+    """Every flag of the three potentials, with equal and with mixed
+    diameters (the per-thread set-up and the per-pair route), on a 3 x 4 x 5
+    grid with empty cells."""
+    pot, cutoff, diam_spread = FLAGGED[name]
+    grid, cap = (3, 4, 5), 20
+    slots = _sublattice_slots(grid, cap, _mixed_counts(60, cap, 7), cutoff,
+                              11, cuda, diam_spread=diam_spread)
+    _check_full_stencil(kind, slots, grid, cutoff, pot)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_cell_sweep_cluster_every_candidate_hits(cuda, kind):
+    """512 particles within one cutoff of each other around a corner shared
+    by 8 cells (64 in each, the capacity), the other 56 cells empty: every
+    candidate of every own slot is a hit, so each thread's queue fills and
+    drains many times."""
+    grid, cap, cutoff, edge, spacing = (4, 4, 4), 64, 6.0, 6.3, 0.4
+    rng = np.random.default_rng(3)
+    ijk = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij")
+                   ).reshape(3, -1)
+    points = (2 * edge + (ijk - 3.5 + JITTER * rng.standard_normal(ijk.shape))
+              * spacing)
+    far = np.linalg.norm(points[:, :, None] - points[:, None, :], axis=0).max()
+    assert far < cutoff
+    cid = np.floor(points / edge).astype(int)
+    cid = (cid[0] * 4 + cid[1]) * 4 + cid[2]
+    pos = np.full((3, 64, cap), VACANT)
+    counts = np.zeros(64, dtype=np.int64)
+    for p, c in zip(points.T, cid):
+        pos[:, c, counts[c]] = p
+        counts[c] += 1
+    assert counts.max() == cap and (counts > 0).sum() == 8
+    slots = tuple(torch.as_tensor(a, device=cuda) for a in (
+        pos.reshape(3, -1), np.ones(64 * cap), counts,
+        np.full(3, 4 * edge)))
+    pot = LennardJones(sigma=0.35, r_cut=cutoff, force_shift=True,
+                       mixing="none")
+    _check_full_stencil(kind, slots, grid, cutoff, pot)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("name", ["lj", "pseudo_hs"])
+def test_cell_sweep_repeats_bit_for_bit(cuda, name, kind):
+    """Two launches on the same engine inputs give the same bits: forces,
+    energy and virial."""
+    state, eng, nb = _inputs(cuda, name, torch.float64)
+    slots = eng.slot_inputs(state.positions, state.unitcell,
+                            state.unitcell_inv, nb)
+    _check_full_stencil(kind, slots, eng.grid, eng.cutoff, eng.potential)
