@@ -6,7 +6,8 @@
 1. Prints the card's name and power limit, the torch and CUDA versions, and
    builds the three CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
    started together; ``-Xptxas -v`` summary: registers and spills of every
-   entry of ``cell_sweep.cu``, the report lines of the other two).
+   entry of ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of
+   the probe).
 2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
    r_c 2.5: a 15^3 grid with capacity C = 37) on the jittered lattice and on
    the melted fluid (the lattice after 300 NVT steps), and for pseudo-hard
@@ -26,23 +27,27 @@
      plain version to 1e-5, and against the f64 plain sweep on hi + lo, where
      its per-particle error must be at least 5 times smaller than the plain
      f32 sweep's on hi;
-   * ``cell_sweep`` and ``cell_sweep_hilo`` launched twice on the same inputs
-     give the same bits (forces, energy, virial);
-   * ``plane_sweep`` at f32 against its plain version to 1e-5 on the grid
-     and capacity of the Brownian path below (pseudo-hard spheres, rho 0.5,
-     r_c 1.5, through ``PlaneEngine.create``).
+   * ``cell_sweep``, ``cell_sweep_hilo`` and ``plane_sweep`` launched twice
+     on the same inputs give the same bits (forces, energy, virial);
+   * ``plane_sweep`` at f32 and f64 against its plain version, at the same
+     tolerances, on the grid and capacity of the Brownian path below
+     (pseudo-hard spheres, rho 0.5, r_c 1.5, through ``PlaneEngine.create``).
    Times the three sweeps in turns within this call (cell, plane, hi/lo,
    hi/lo, plane, cell, five times, and their medians): each wrapper call is
    captured in a CUDA graph once and the graph replayed 20 times between two
    CUDA events, so the time is the device's (the kernel and the wrapper's two
    sums, without the host's time between launches, which at these kernel
-   times would be most of it). Prints the staging plan in use and the
-   resident blocks per SM, and works out the bound from this run's inputs:
+   times would be most of it). Prints each sweep's staging plan, its resident
+   blocks per SM and, for ``plane_sweep``, the registers of the kernel it
+   runs (from the compiler's report), and works out the bound from this
+   run's inputs:
    each unordered pair inside the cutoff once, each occupied slot's inputs
    read once, each output written once; the stencil's own work beside it.
 3. Probe phase: the probe's path (``probe.run`` over its default variants),
    then every variant of ``plane_probe`` against its plain version (NaN
-   positions equal, finite values to 1e-5 of the largest), timed.
+   positions equal, finite values to 1e-5 of the largest), timed by
+   CUDA-graph replay (a wrapper call takes the host ~0.1 ms, more than the
+   kernel); prints the ratio of ``full`` at chunk 45 to chunk 5.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -109,6 +114,8 @@ OPS_POTENTIAL_PAIR = {"LennardJones": 22, "PseudoHS": 30}
 # 8, compare 1, the block (full: divide, powers, u and f, 11; nodiv: 2),
 # 2 selects, energy add 1, 3 force multiply-adds 6.
 OPS_PROBE = {"full": 29, "full_static": 29, "nodiv": 20}
+# The kernels' potential functors (csrc/pair_potentials.cuh) by class.
+POT_FUNCTOR = {"LennardJones": "LJ", "PseudoHS": "PseudoHS"}
 
 
 def log(*args):
@@ -295,7 +302,21 @@ def hilo_args(eng, state64, pot):
             eng.cutoff, pot)
 
 
-def kernel_phase(mt):
+def plane_plan(cap, dtype, pot, registers):
+    """The half-stencil sweep's staging plan at capacity ``cap``, its
+    resident blocks per SM and the registers of the kernel it launches."""
+    from mdtpu_torch.ops import plane_sweep as ps
+    list_len, mask_words, smem, threads = ps.plane_stage_plan(cap, dtype)
+    key = ("f32" if dtype == torch.float32 else "f64",
+           POT_FUNCTOR[type(pot).__name__], 256 if threads <= 256 else 1024)
+    return {"list_len": list_len, "mask_words": mask_words,
+            "smem_bytes": smem, "threads": threads,
+            "blocks_per_sm": ps.blocks_per_sm(cap, dtype, pot),
+            "registers": registers[key][0],
+            "spill_store_bytes": registers[key][1]}
+
+
+def kernel_phase(mt, plane_registers):
     from mdtpu_torch.ops.cell_grid import CellGridEngine
     from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
                                             cell_sweep_hilo, cell_sweep_plain,
@@ -392,10 +413,10 @@ def kernel_phase(mt):
                       and rec["rel_err_energy"] <= rtol_ew
                       and rec["rel_err_virial"] <= rtol_ew
                       and worst <= tol_f)
-                if kname == "cell_sweep":
-                    rec["stage_plan"] = plan
-                    rec["repeats_bit_for_bit"] = repeats(kernel, args, r1)
-                    ok = ok and rec["repeats_bit_for_bit"]
+                rec["stage_plan"] = plan if not half else plane_plan(
+                    eng.cell_capacity, dtype, pot, plane_registers)
+                rec["repeats_bit_for_bit"] = repeats(kernel, args, r1)
+                ok = ok and rec["repeats_bit_for_bit"]
                 record(rec, ok, f"{kname} {name} {tag}")
 
             # The half stencil against the full one on the same inputs.
@@ -431,40 +452,49 @@ def kernel_phase(mt):
                 del h_args
             del state, nb, inputs, args, out, calls
             torch.cuda.empty_cache()
-    brownian_geometry_check(mt, record)
+    brownian_geometry_check(mt, record, plane_registers)
     return results, failures
 
 
-def brownian_geometry_check(mt, record):
-    """``plane_sweep`` against its plain version at f32 on the grid and
-    capacity the Brownian path gives it (``PlaneEngine.create`` at rho 0.5,
-    r_c 1.5, the path's starting state)."""
+def brownian_geometry_check(mt, record, plane_registers):
+    """``plane_sweep`` against its plain version at f32 and f64 on the grid
+    and capacity the Brownian path gives it (``PlaneEngine.create`` at rho
+    0.5, r_c 1.5, the path's starting state); two launches bit for bit."""
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
-    state = brownian_state()
     pot = mt.PseudoHS()
-    eng = PlaneEngine.create(pot, 1.5, 0.3, state.unitcell, N_BENCH)
-    nb = eng.allocate(state.positions, state.diameters, state.unitcell,
-                      state.unitcell_inv)
-    assert not bool(nb.overflow)
-    inputs = eng.slot_inputs(state.positions, state.unitcell,
-                             state.unitcell_inv, nb)
-    args = (*inputs, eng.grid, eng.cutoff, pot)
-    r1 = plane_sweep(*args)
-    torch.cuda.synchronize()
-    r0 = plane_sweep_plain(*args)
-    worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
-    rec = {"kernel_check": "plane_sweep", "case": "brownian", "dtype":
-           "float32", "grid": list(eng.grid), "capacity": eng.cell_capacity,
-           "rel_err_energy": rel(r1[0], r0[0]),
-           "rel_err_virial": rel(r1[1], r0[1]),
-           "force_err_per_particle": worst, "max_abs_err": max_abs,
-           "rms_force": rms,
-           "ms": cuda_time_ms(graph_of(lambda: plane_sweep(*args)).replay,
-                              20, 3)}
-    ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
-          and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5)
-    record(rec, ok, "plane_sweep brownian float32")
+    for dtype in (torch.float64, torch.float32):
+        state = as_dtype(brownian_state(), dtype)
+        eng = PlaneEngine.create(pot, 1.5, 0.3, state.unitcell, N_BENCH)
+        nb = eng.allocate(state.positions, state.diameters, state.unitcell,
+                          state.unitcell_inv)
+        assert not bool(nb.overflow)
+        inputs = eng.slot_inputs(state.positions, state.unitcell,
+                                 state.unitcell_inv, nb)
+        args = (*inputs, eng.grid, eng.cutoff, pot)
+        r1 = plane_sweep(*args)
+        torch.cuda.synchronize()
+        r0 = plane_sweep_plain(*args)
+        worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+        f64 = dtype == torch.float64
+        rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+        tag = str(dtype).split(".")[-1]
+        rec = {"kernel_check": "plane_sweep", "case": "brownian",
+               "dtype": tag, "grid": list(eng.grid),
+               "capacity": eng.cell_capacity,
+               "rel_err_energy": rel(r1[0], r0[0]),
+               "rel_err_virial": rel(r1[1], r0[1]),
+               "force_err_per_particle": worst, "max_abs_err": max_abs,
+               "rms_force": rms,
+               "repeats_bit_for_bit": repeats(plane_sweep, args, r1),
+               "stage_plan": plane_plan(eng.cell_capacity, dtype, pot,
+                                        plane_registers),
+               "ms": cuda_time_ms(
+                   graph_of(lambda: plane_sweep(*args)).replay, 20, 3)}
+        ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
+              and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
+              and rec["repeats_bit_for_bit"])
+        record(rec, ok, f"plane_sweep brownian {tag}")
 
 
 def hilo_check(args, pot, counts_, base, record, turns):
@@ -553,8 +583,9 @@ def probe_phase():
         rec = {"kernel_check": "plane_probe", "variant": variant,
                "chunk": chunk, "ok": ok, "max_abs_err": worst,
                "nan_in_output": bool(torch.isnan(got[1]).any()),
-               "ms": cuda_time_ms(lambda: probe.probe_sweep(w, variant,
-                                                            chunk), 20, 3),
+               "ms": cuda_time_ms(graph_of(
+                   lambda: probe.probe_sweep(w, variant, chunk)).replay,
+                   50, 3),
                "plain_ms": cuda_time_ms(
                    lambda: probe.probe_sweep_plain(w, variant, chunk), 2, 1),
                "bound_ms": max(t_ops, t_bytes),
@@ -565,6 +596,8 @@ def probe_phase():
         records[spec] = rec
         if not ok:
             failures.append(f"plane_probe {spec}")
+    log(json.dumps({"probe_full_chunk45_over_chunk5_ms":
+                    records["full"]["ms"] / records["full:5"]["ms"]}))
     if launches < len(PROBE_PATH):
         failures.append(f"probe path launched plane_probe {launches} times")
     return records, launches, path, failures
@@ -774,14 +807,16 @@ def run_paths(mt, workdir):
 
 
 def ptxas_summary(name, report):
-    """The compiler's report: for ``cell_sweep`` one line per kernel entry
-    (type, potential, hi/lo, the block size it is compiled for, registers,
-    spill bytes); for the other sources its report lines."""
-    entry, spill = None, ""
+    """The compiler's report: for the sweeps one line per kernel entry (type,
+    potential, hi/lo, the block size it is compiled for, registers, spill
+    bytes); for the probe its report lines. Returns ``{(type, potential
+    functor, block size[, "hilo"]): (registers, spill store bytes)}`` of the
+    sweep kernels."""
+    entry, spill, table = None, "", {}
     for line in report.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"cell_sweep_kernelI([fd])N5mdtpu\d+([A-Za-z]+)I"
-                          r"[fd]EELb([01])ELi(\d+)EE", line)
+            m = re.search(r"(?:cell|plane)_sweep_kernelI([fd])N5mdtpu\d+"
+                          r"([A-Za-z]+)I[fd]EE(?:Lb([01])E)?Li(\d+)EE", line)
             entry = m and ("f32" if m[1] == "f" else "f64", m[2],
                            "hilo" if m[3] == "1" else "plain", m[4])
             if entry is None:
@@ -789,11 +824,16 @@ def ptxas_summary(name, report):
         elif "spill" in line and entry:
             spill = line.strip()
         elif "registers" in line and entry:
-            regs = re.search(r"Used (\d+) registers", line)[1]
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            stores = int(re.search(r"(\d+) bytes spill stores", spill)[1])
+            key = (entry[0], entry[1], int(entry[3]))
+            table[key + ("hilo",) if entry[2] == "hilo" else key] = (regs,
+                                                                     stores)
             log(f"  ptxas {name}: {' '.join(entry[:3])} for blocks up to "
                 f"{entry[3]}: {regs} registers; {spill}")
         elif any(k in line for k in ("registers", "spill", "smem")):
             log(f"  ptxas {name}: " + line.strip())
+    return table
 
 
 def main():
@@ -810,11 +850,11 @@ def main():
     _cuda_build.build_all(SOURCES)
     log(f"built {', '.join(s + '.cu' for s in SOURCES)} in "
         f"{time.perf_counter() - t:.1f} s")
-    for name in SOURCES:
-        ptxas_summary(name, _cuda_build.build_report(name))
+    registers = {name: ptxas_summary(name, _cuda_build.build_report(name))
+                 for name in SOURCES}
 
     t = time.perf_counter()
-    results, failures = kernel_phase(mt)
+    results, failures = kernel_phase(mt, registers["plane_sweep"])
     probes, probe_launches, probe_path, probe_failures = probe_phase()
     failures += probe_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")

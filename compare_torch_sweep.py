@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the full-stencil pair sweeps of two trees of this repository against
-each other on one NVIDIA GPU: are the results equal bit for bit, and which is
-faster.
+"""Hold the CUDA kernels of two trees of this repository against each other on
+one NVIDIA GPU: are the results equal bit for bit, and which is faster.
 
     git archive <commit> | tar -x -C out_parent      # the other tree
     python3 compare_torch_sweep.py --parent out_parent
@@ -9,14 +8,19 @@ faster.
 Makes the inputs once with this tree's code: the bench geometry (N = 65,536
 Lennard-Jones, rho 0.8, r_c 2.5: 15^3 cells, C = 37) as the jittered lattice
 and as the melted fluid (the lattice after 300 NVT steps), at f64, f32 and as
-f32 hi/lo words, and pseudo-hard spheres (rho 0.76, r_c 1.5) on the lattice.
-Then each tree runs ``cell_sweep`` / ``cell_sweep_hilo`` on them in a process
-of its own, in the order parent, change, change, parent, so both are timed
-on the same card within one call (a CUDA graph of one wrapper call replayed
-20 times between two CUDA events, the median of 5 rounds: the device's time
-without the host's). Prints one JSON line per case: whether forces, energy and virial of
-the two trees are equal bit for bit, the largest force difference, both
-times and their ratio; then the card's name and power limit.
+f32 hi/lo words, pseudo-hard spheres (rho 0.76, r_c 1.5) on the lattice, and
+the Brownian grid (pseudo-hard spheres at rho 0.5 through
+``PlaneEngine.create``, f32). Then each tree runs ``cell_sweep`` and
+``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian grid:
+``plane_sweep``) on them, and the probe (``probe_sweep``: ``full`` at chunks
+45, 15 and 5, ``nodiv``, ``reduce_only``) on its own input, in a process of
+its own, in the order parent, change, change, parent, so both are timed on
+the same card within one call (a CUDA graph of one wrapper call replayed 20
+times between two CUDA events, the median of 5 rounds: the device's time
+without the host's). Prints one JSON line per case and kernel: whether
+forces (the probe: ``fx``), energy and virial of the two trees are equal bit
+for bit (NaN equal to NaN), the largest force difference, both times and
+their ratio; then the card's name and power limit.
 """
 
 import argparse
@@ -68,41 +72,82 @@ def make_inputs(path):
         cases[f"{name}_hilo"] = dict(common, kind="hilo",
                                      inputs=eng.slot_inputs_hilo(
                                          hi, lo, cell32, cinv32, nb32))
+    from mdtpu_torch.ops.experimental import PlaneEngine
+    bd = lattice_fluid_state(N, 0.5, 1.0, dtype=torch.float32, cutoff=1.5,
+                             jitter=0.05, device="cuda")
+    eng = PlaneEngine.create(hs, 1.5, 0.3, bd.unitcell, N)
+    nb = eng.allocate(bd.positions, bd.diameters, bd.unitcell,
+                      bd.unitcell_inv)
+    assert not bool(nb.overflow)
+    cases["brownian_grid_f32"] = {
+        "pot": "pseudo_hs", "grid": eng.grid, "cutoff": eng.cutoff,
+        "kind": "plane", "inputs": eng.slot_inputs(
+            bd.positions, bd.unitcell, bd.unitcell_inv, nb)}
     torch.save({k: dict(v, inputs=[t.cpu() for t in v["inputs"]])
                 for k, v in cases.items()}, path)
+
+
+PROBE_SPECS = ("full:45", "full:15", "full:5", "nodiv:45", "reduce_only:45")
+
+
+def replay_ms(fn):
+    """Device time of one call of ``fn`` (already called once): a CUDA graph
+    of the call replayed 20 times between two CUDA events, the median of 5
+    rounds."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    rounds = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        rounds.append(start.elapsed_time(stop) / 20)
+    return statistics.median(rounds)
 
 
 def worker(tree, inputs_path, out_path):
     sys.path.insert(0, tree)
     import mdtpu_torch as mt
     from mdtpu_torch.ops.cell_sweep import cell_sweep, cell_sweep_hilo
+    from mdtpu_torch.ops.experimental import probe
+    from mdtpu_torch.ops.plane_sweep import plane_sweep
 
     assert os.path.abspath(mt.__file__).startswith(os.path.abspath(tree))
     pots = {"lj": mt.LennardJones(r_cut=2.5), "pseudo_hs": mt.PseudoHS()}
+    kernels = {"plain": {"cell_sweep": cell_sweep, "plane_sweep": plane_sweep},
+               "hilo": {"cell_sweep_hilo": cell_sweep_hilo},
+               "plane": {"plane_sweep": plane_sweep}}
     out = {}
     for name, case in torch.load(inputs_path, weights_only=False).items():
-        fn = cell_sweep_hilo if case["kind"] == "hilo" else cell_sweep
         args = (*(t.cuda() for t in case["inputs"]), case["grid"],
                 case["cutoff"], pots[case["pot"]])
-        energy, virial, force = fn(*args)
-        torch.cuda.synchronize()
-        # Device time: one wrapper call captured in a CUDA graph, replayed.
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn(*args)
-        rounds = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                graph.replay()
-            stop.record()
-            torch.cuda.synchronize()
-            rounds.append(start.elapsed_time(stop) / 20)
-        out[name] = {"energy": energy.cpu(), "virial": virial.cpu(),
-                     "force": force.cpu(), "ms": statistics.median(rounds)}
+        for kernel, fn in kernels[case["kind"]].items():
+            energy, virial, force = fn(*args)
+            out[f"{name} {kernel}"] = {
+                "energy": energy.cpu(), "virial": virial.cpu(),
+                "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
+    w = probe.random_input(0, device="cuda")
+    for spec in PROBE_SPECS:
+        variant, chunk = probe.parse_variant(spec)
+        fx, energy = probe.probe_sweep(w, variant, chunk)
+        out[f"probe {spec}"] = {
+            "energy": energy.cpu(), "virial": torch.zeros(()),
+            "force": fx.cpu(),
+            "ms": replay_ms(lambda: probe.probe_sweep(w, variant, chunk))}
     torch.save(out, out_path)
+
+
+def same_bits(a, b):
+    """Equal bit for bit, a NaN equal to a NaN at the same place."""
+    return bool(torch.equal(torch.nan_to_num(a, nan=0.0),
+                            torch.nan_to_num(b, nan=0.0))
+                and torch.equal(torch.isnan(a), torch.isnan(b)))
 
 
 def main():
@@ -134,10 +179,13 @@ def main():
         c_ms = [r[name]["ms"] for r in change]
         print(json.dumps({
             "case": name,
-            "force_equal": bool(torch.equal(p["force"], c["force"])),
-            "energy_equal": bool(torch.equal(p["energy"], c["energy"])),
-            "virial_equal": bool(torch.equal(p["virial"], c["virial"])),
-            "max_abs_force_diff": float((p["force"] - c["force"]).abs().max()),
+            "force_equal": same_bits(p["force"], c["force"]),
+            "energy_equal": same_bits(p["energy"], c["energy"]),
+            "virial_equal": same_bits(p["virial"], c["virial"]),
+            "max_abs_force_diff": float(torch.nan_to_num(
+                p["force"] - c["force"], nan=0.0).abs().max()),
+            "max_abs_force": float(torch.nan_to_num(
+                p["force"], nan=0.0).abs().max()),
             "parent_ms": p_ms, "change_ms": c_ms,
             "parent_over_change": statistics.mean(p_ms)
             / statistics.mean(c_ms),

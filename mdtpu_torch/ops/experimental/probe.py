@@ -12,13 +12,16 @@ without its reductions). A variant name may carry the row chunk, as in
 takes :func:`probe_sweep_plain` only for CPU tensors. At offset 0 every own
 slot meets itself (r^2 = 0), so ``full`` and ``full_static`` give NaN in
 ``fx`` and the energy by construction, as the Pallas probe does.
+
+The row chunk belongs to the function (rows past the last whole chunk are
+not swept, ``reduce_only`` samples each chunk's first row), not to the
+kernel's launch: one block per (plane, row) whatever the chunk.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import time
 
 import torch
 
@@ -75,9 +78,9 @@ def probe_sweep(w, variant="full", chunk=CHUNK):
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     lib = _library()
-    n_chunks = ROWS // chunk
+    swept = ROWS // chunk * chunk
     fx = torch.zeros((NX, ROWS, CAP), dtype=torch.float32, device=w.device)
-    e_part = torch.empty((NX, n_chunks), dtype=torch.float32, device=w.device)
+    e_part = torch.empty((NX, swept), dtype=torch.float32, device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     with torch.cuda.device(w.device):
         rc = lib.mdtpu_plane_probe(w.data_ptr(), NX, ROWS, CAP, NZ, chunk,
@@ -139,23 +142,39 @@ def random_input(seed=0, device=None):
     return w.to("cuda" if device is None else device)
 
 
-def run(spec="full", reps=50, seed=0, device=None):
-    """Time one variant on the card, as ``probe_kernel.run`` does on the TPU:
-    prints and returns ``{"variant", "chunk", "ms_per_sweep"}``."""
-    variant, chunk = parse_variant(spec)
-    w = random_input(seed, device)
-    for _ in range(2):
-        probe_sweep(w, variant, chunk)
+def replay_ms(fn, reps=50, warmup=3):
+    """Device time of one call of ``fn`` in ms: the call is captured in a
+    CUDA graph once (after a first call, so nothing is built or loaded
+    during the capture) and the graph replayed ``reps`` times between two
+    CUDA events. Timing the calls themselves would read the host, which
+    takes ~0.1 ms a call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(warmup):
+        graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        probe_sweep(w, variant, chunk)
+        graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def run(spec="full", reps=50, seed=0, device=None):
+    """Time one variant on the card, as ``probe_kernel.run`` does on the TPU
+    (the device's time, by CUDA-graph replay): prints and returns
+    ``{"variant", "chunk", "ms_per_sweep"}``."""
+    variant, chunk = parse_variant(spec)
+    w = random_input(seed, device)
     out = {"variant": variant, "chunk": chunk,
-           "ms_per_sweep": start.elapsed_time(stop) / reps}
+           "ms_per_sweep": replay_ms(lambda: probe_sweep(w, variant, chunk),
+                                     reps)}
     print(json.dumps(out), flush=True)
     return out
 

@@ -6,7 +6,9 @@ sweep also on slot inputs made by hand: every class of capacity (one warp,
 several, a staging plan of fewer than 27 cells), a grid that is not cubic,
 empty and full cells, counts above the capacity, a cluster in which every
 candidate is a hit, every flag of the potentials; and two launches repeat
-bit for bit.
+bit for bit. The half-stencil sweep on the same hand-made inputs, its
+reaction buffer filled with NaN beforehand, and its capacity limit; the
+probe at chunks that do and do not divide its rows.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -149,13 +151,18 @@ def test_plane_sweep_matches_plain_and_full_stencil(cuda, name, dtype):
 
 
 def test_plane_sweep_capacity_limit(cuda):
-    """The shared-memory tile takes the bench capacity grown twice (37 -> 55
-    -> 81) at f64; a capacity whose tile does not fit raises and is not
-    counted as a launch."""
+    """The staging plan takes the bench capacity grown twice (37 -> 55 -> 81)
+    at f64 and capacities far beyond (200); the first capacity whose plan
+    does not fit in a block's shared memory raises and is not counted as a
+    launch."""
     n = 4000
     state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64, cutoff=2.5,
                                 jitter=JITTER, device=cuda)
-    for cap, fits in ((81, True), (200, False)):
+    limit = sweep_mod.MAX_SHARED_BYTES
+    refused = next(c for c in range(1, sweep_mod.MAX_CAPACITY + 1)
+                   if plane_mod.plane_stage_plan(c, torch.float64)[2] > limit)
+    assert refused > 200
+    for cap, fits in ((81, True), (200, True), (refused, False)):
         eng = PlaneEngine.create(LennardJones(r_cut=2.5), 2.5, 0.3,
                                  state.unitcell, n, cell_capacity=cap)
         nb = eng.allocate(state.positions, state.diameters, state.unitcell,
@@ -206,16 +213,26 @@ def test_cell_sweep_hilo_matches_plain(cuda, name):
     assert _force_ratio(f1, f64, n) * 5 < _force_ratio(f_plain, f64, n)
 
 
-@pytest.mark.parametrize("spec", ["full", "full_static:15", "nodiv:5",
-                                  "reduce_only"])
+@pytest.mark.parametrize("spec", [
+    "full", "full:15", "full:5", "full:40", "full_static:15", "nodiv:5",
+    "nodiv:40", "reduce_only", "reduce_only:15", "reduce_only:40"])
 def test_plane_probe_matches_plain(cuda, spec):
+    """Every variant, at chunks that divide the 225 rows (45, 15, 5) and one
+    that does not (40: rows 200.. are not swept and keep fx = 0); two
+    launches repeat bit for bit."""
     variant, chunk = probe_mod.parse_variant(spec)
     for scale in (40.0, 5.0):
         w = probe_mod.random_input(1, device=cuda) * (scale / 40.0)
         before = probe_mod.probe_sweep.launches
         fx1, e1 = probe_mod.probe_sweep(w, variant, chunk)
+        again = probe_mod.probe_sweep(w, variant, chunk)
         torch.cuda.synchronize()
-        assert probe_mod.probe_sweep.launches == before + 1
+        assert probe_mod.probe_sweep.launches == before + 2
+        for a, b in zip((fx1, e1), again):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+        swept = probe_mod.ROWS // chunk * chunk
+        assert not bool(fx1[:, swept:].any())
         fx0, e0 = probe_mod.probe_sweep_plain(w, variant, chunk)
         for got, want in ((fx1, fx0), (e1, e0)):
             got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -225,6 +242,17 @@ def test_plane_probe_matches_plain(cuda, spec):
                 floor = 1e-5 * max(np.abs(want[fin]).max(), 1e-30)
                 np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
                                            atol=floor)
+
+
+def test_plane_probe_fx_does_not_depend_on_the_chunk(cuda):
+    """The launch no longer follows the chunk: fx of the rows that two
+    chunks both sweep is the same bits."""
+    w = probe_mod.random_input(2, device=cuda) * (5.0 / 40.0)
+    fx45, _ = probe_mod.probe_sweep(w, "nodiv", 45)
+    for chunk in (5, 15, 40):
+        fx, _ = probe_mod.probe_sweep(w, "nodiv", chunk)
+        swept = probe_mod.ROWS // chunk * chunk
+        assert torch.equal(fx[:, :swept], fx45[:, :swept])
 
 
 def test_plane_engine_nvt_run(cuda, tmp_path):
@@ -392,12 +420,10 @@ def test_cell_sweep_flags_on_a_noncubic_grid(cuda, name, kind):
     _check_full_stencil(kind, slots, grid, cutoff, pot)
 
 
-@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
-def test_cell_sweep_cluster_every_candidate_hits(cuda, kind):
+def _cluster_slots(device):
     """512 particles within one cutoff of each other around a corner shared
-    by 8 cells (64 in each, the capacity), the other 56 cells empty: every
-    candidate of every own slot is a hit, so each thread's queue fills and
-    drains many times."""
+    by 8 cells of a 4 x 4 x 4 grid (64 in each, the capacity), the other 56
+    cells empty. Returns ``(slots, grid, cutoff, potential)``."""
     grid, cap, cutoff, edge, spacing = (4, 4, 4), 64, 6.0, 6.3, 0.4
     rng = np.random.default_rng(3)
     ijk = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij")
@@ -414,11 +440,19 @@ def test_cell_sweep_cluster_every_candidate_hits(cuda, kind):
         pos[:, c, counts[c]] = p
         counts[c] += 1
     assert counts.max() == cap and (counts > 0).sum() == 8
-    slots = tuple(torch.as_tensor(a, device=cuda) for a in (
+    slots = tuple(torch.as_tensor(a, device=device) for a in (
         pos.reshape(3, -1), np.ones(64 * cap), counts,
         np.full(3, 4 * edge)))
     pot = LennardJones(sigma=0.35, r_cut=cutoff, force_shift=True,
                        mixing="none")
+    return slots, grid, cutoff, pot
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_cell_sweep_cluster_every_candidate_hits(cuda, kind):
+    """Every candidate of every own slot of the cluster is a hit, so each
+    thread's queue fills and drains many times."""
+    slots, grid, cutoff, pot = _cluster_slots(cuda)
     _check_full_stencil(kind, slots, grid, cutoff, pot)
 
 
@@ -431,3 +465,127 @@ def test_cell_sweep_repeats_bit_for_bit(cuda, name, kind):
     slots = eng.slot_inputs(state.positions, state.unitcell,
                             state.unitcell_inv, nb)
     _check_full_stencil(kind, slots, eng.grid, eng.cutoff, eng.potential)
+
+
+# --------------------------------------------------------------------------
+# The half-stencil sweep on slot inputs made by hand.
+# --------------------------------------------------------------------------
+
+def _check_half_stencil(kind, slots, grid, cutoff, pot, monkeypatch=None):
+    """``plane_sweep`` against its plain version at f64 / f32; a second
+    launch against the first, bit for bit; vacant slots get zero force. With
+    ``monkeypatch`` the reaction buffer starts as NaN: the fold-back must
+    read nothing the sweep did not write."""
+    pos, diam, counts, box = slots
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    args = (pos.to(dtype), diam.to(dtype), counts, box.to(dtype), grid,
+            cutoff, pot)
+    kernel = plane_mod.plane_sweep
+    before = kernel.launches
+    out = kernel(*args)
+    if monkeypatch is not None:
+        monkeypatch.setattr(
+            plane_mod, "_react_buffer",
+            lambda n_slots, dt, dev: torch.full((12, 3, n_slots),
+                                                float("nan"), dtype=dt,
+                                                device=dev))
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = plane_mod.plane_sweep_plain(*args)
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    cap = pos.shape[1] // counts.shape[0]
+    occupied = (torch.arange(cap, device=pos.device)[None, :]
+                < counts.clamp(max=cap)[:, None]).reshape(-1)
+    n = max(int(occupied.sum()), 1)
+    atol = 0.0 if kind == "f64" else 1e-5 * n
+    for got, want in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(float(got), float(want), rtol=rtol_ew,
+                                   atol=atol)
+    f1, f0 = out[2].double(), ref[2].double()
+    assert bool(torch.isfinite(f1).all())
+    assert bool((f1[:, ~occupied] == 0).all())
+    err = (f1 - f0).norm(dim=0)
+    mag = f0.norm(dim=0)
+    rms = float(torch.sqrt((mag * mag).sum() / n))
+    assert float((err / mag.clamp(min=max(rms, 1e-300))).max()) <= tol_f
+
+
+@pytest.mark.parametrize("cap,kind", [
+    (c, k) for c in (1, 31, 32, 33, 64, 65) for k in ("f64", "f32")
+] + [(97, "f64"), (137, "f32")])
+def test_plane_sweep_capacities(cuda, cap, kind):
+    """Blocks of one warp and of several, masks of one word and of several,
+    up to the largest capacities the first design's tile took (97 at f64,
+    137 at f32); with an empty cell, a full cell and a count above the
+    capacity. A 3 x 3 x 3 grid: every pair once on 3-cell axes."""
+    grid, cutoff = (3, 3, 3), 2.5
+    slots = _sublattice_slots(grid, cap, _mixed_counts(27, cap, cap), cutoff,
+                              cap, cuda)
+    _check_half_stencil(kind, slots, grid, cutoff, LennardJones(r_cut=cutoff))
+
+
+def _list_counts(counts, grid, cell, cap):
+    """The clamped counts of the 15 list cells around ``cell``."""
+    nx, ny, nz = grid
+    home = (cell // (ny * nz), (cell // nz) % ny, cell % nz)
+    out = []
+    for off in plane_mod.LIST_CELLS:
+        j = [(h + o) % n for h, o, n in zip(home, off, grid)]
+        out.append(min(int(counts[(j[0] * ny + j[1]) * nz + j[2]]), cap))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+@pytest.mark.parametrize("cap,filled,cells", [(33, 27, 3), (33, 19, 3),
+                                              (600, 27, 1)])
+def test_plane_sweep_stages_in_parts(cuda, cap, filled, cells, kind):
+    """Neighbourhoods fuller than a stage's list go in five stages of 3
+    cells (every cell at its capacity; 19 full and 8 empty cells), or cell
+    by cell at a capacity whose list holds fewer than three cells."""
+    grid, cutoff = (3, 3, 3), 2.5
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    list_len, _, smem, _ = plane_mod.plane_stage_plan(cap, dtype)
+    assert smem <= sweep_mod.MAX_SHARED_BYTES
+    counts = np.zeros(27, dtype=np.int64)
+    counts[np.random.default_rng(filled).permutation(27)[:filled]] = cap
+    assert min(plane_mod.plane_stage_cells(
+        _list_counts(counts, grid, c, cap), list_len)
+        for c in range(27)) == cells
+    slots = _sublattice_slots(grid, cap, counts, cutoff, cap, cuda)
+    _check_half_stencil(kind, slots, grid, cutoff, LennardJones(r_cut=cutoff))
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+@pytest.mark.parametrize("name", sorted(FLAGGED))
+def test_plane_sweep_flags_on_a_noncubic_grid(cuda, name, kind, monkeypatch):
+    """Every flag of the three potentials, with equal and with mixed
+    diameters (the pair evaluated from the own side and again from the
+    candidate's must give the same force), on a 3 x 4 x 5 grid with empty
+    cells; the reaction buffer NaN before the second launch."""
+    pot, cutoff, diam_spread = FLAGGED[name]
+    grid, cap = (3, 4, 5), 20
+    slots = _sublattice_slots(grid, cap, _mixed_counts(60, cap, 7), cutoff,
+                              11, cuda, diam_spread=diam_spread)
+    _check_half_stencil(kind, slots, grid, cutoff, pot, monkeypatch)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_plane_sweep_cluster_every_candidate_hits(cuda, kind, monkeypatch):
+    """Every candidate is a hit: every queue fills and drains many times and
+    every mask bit of the occupied Newton cells is set."""
+    slots, grid, cutoff, pot = _cluster_slots(cuda)
+    _check_half_stencil(kind, slots, grid, cutoff, pot, monkeypatch)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+@pytest.mark.parametrize("name", ["lj", "pseudo_hs"])
+def test_plane_sweep_repeats_bit_for_bit(cuda, name, kind, monkeypatch):
+    """Two launches on the same engine inputs give the same bits, the second
+    over a reaction buffer of NaN."""
+    state, eng, nb = _inputs(cuda, name, torch.float64)
+    slots = eng.slot_inputs(state.positions, state.unitcell,
+                            state.unitcell_inv, nb)
+    _check_half_stencil(kind, slots, eng.grid, eng.cutoff, eng.potential,
+                        monkeypatch)
