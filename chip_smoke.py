@@ -31,9 +31,18 @@
      on the same inputs give the same bits (forces, energy, virial);
    * ``plane_sweep`` at f32 and f64 against its plain version, at the same
      tolerances, on the grid and capacity of the Brownian path below
-     (pseudo-hard spheres, rho 0.5, r_c 1.5, through ``PlaneEngine.create``).
-   Times the three sweeps in turns within this call (cell, plane, hi/lo,
-   hi/lo, plane, cell, five times, and their medians): each wrapper call is
+     (pseudo-hard spheres, rho 0.5, r_c 1.5, through ``PlaneEngine.create``);
+   * the lean variants (``observables=False``) of ``cell_sweep`` (f32, f64)
+     and ``cell_sweep_hilo`` on the Lennard-Jones cases: forces bit-equal to
+     the full variant's, against the plain lean version at the full
+     variant's force tolerance, two launches bit for bit;
+   * the packer's ``Overlap`` functor through ``cell_sweep`` (full and lean,
+     f32 and f64) on the packing path's start (65,536 uniform random
+     positions at rho 0.8, tol 1, the engine grown as the path grows it),
+     against the plain version at the same tolerances.
+   Times the sweeps in turns within this call (cell, plane, hi/lo and the
+   lean variants, there and back, five times, and their medians): each
+   wrapper call is
    captured in a CUDA graph once and the graph replayed 20 times between two
    CUDA events, so the time is the device's (the kernel and the wrapper's two
    sums, without the host's time between launches, which at these kernel
@@ -57,10 +66,21 @@
    * B2: the same three legs through ``PlaneEngine`` with
      ``compensated=False``;
    * Brownian: 65,536 pseudo-hard spheres at rho 0.5, kT 1, dt 1e-5, 200
-     steps through ``PlaneEngine`` with ``log_times=True``.
-   Checks finite output, the NVT temperature, NVE energy conservation (to
-   1e-4 per particle with the force shift), the T column of the Brownian
-   rows, the output and snapshot files, and the launch counts.
+     steps through ``PlaneEngine`` with ``log_times=True``;
+   * Brownian on the slot route: the same system through ``select_engine``'s
+     cell grid, 200 steps, thermo every 100, a frame at step 0;
+   * FIRE: the ``bench_fire.py`` system (65,536 LJ, rho 0.8, jitter 0.05)
+     through ``fire_minimize`` on the cell grid, 20 iterations, then 200 at
+     tol 0, timed;
+   * packing: ``initialize_state`` without positions (mode D) at 65,536
+     particles, rho 0.8.
+   B1, the slot Brownian path, FIRE and packing run in the slot layout (the
+   slot step's counter must show it for the dynamics). Checks finite output, the NVT
+   temperature, NVE energy conservation (to 1e-4 per particle with the force
+   shift), the T column of the Brownian rows, the output and snapshot files,
+   FIRE's energy after its first iterations below its start, the packer's
+   convergence and no pair closer than tol beyond f32 rounding, and the
+   launch counts.
 5. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,11 +125,21 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 # diameter and the potential's cutoff test (sigma mixing, sigma^2 and the
 # shift constants are per-thread set-up now); and, inside the potential's
 # cutoff, its arithmetic (LJ: a division and 10 more; pseudo-hard spheres: an
-# rsqrt and 18 more) plus the 11 of the energy, virial and force sums.
+# rsqrt and 18 more; overlap: a square root, a division and 5 more) plus the
+# 11 of the energy, virial and force sums. The lean variant does only the
+# force's share: LJ without its energy term (3), pseudo-hard spheres without
+# theirs (3), overlap without its square (1), and of the sums only the 6 of
+# the force.
 OPS_DISTANCE = 9
 OPS_DISTANCE_HILO = 33
 OPS_ENGINE_PAIR = 2
-OPS_POTENTIAL_PAIR = {"LennardJones": 22, "PseudoHS": 30}
+OPS_POTENTIAL_PAIR = {"LennardJones": 22, "PseudoHS": 30,
+                      "OverlapPotential": 18}
+OPS_POTENTIAL_PAIR_LEAN = {"LennardJones": 14, "PseudoHS": 22,
+                           "OverlapPotential": 12}
+N_FIRE_ITERS = 200
+N_FIRE_DESCENT = 20
+PACK_DENSITY = 0.8
 # Operations per candidate pair of the probe (csrc/plane_probe.cu): distance
 # 8, compare 1, the block (full: divide, powers, u and f, 11; nodiv: 2),
 # 2 selects, energy add 1, 3 force multiply-adds 6.
@@ -206,23 +236,26 @@ def rel(a, b):
     return abs(float(a) - float(b)) / abs(float(b))
 
 
-def bound(inputs, counts_, pot, dtype, hilo=False):
+def bound(inputs, counts_, pot, dtype, hilo=False, observables=True):
     """The least time for the function on these inputs: bytes (each input
     read once, each output written once) over HBM, operations (each
     unordered pair inside the cutoff once) over the peak rate. The sweeps
     read only the occupied slots (their loops stop at each cell's count), so
-    the inputs count those; the outputs cover every slot."""
+    the inputs count those; the outputs cover every slot. A lean sweep
+    (``observables=False``) counts only the force's work and output."""
     _, _, inside, inside_pot = counts_
     dist = OPS_DISTANCE_HILO if hilo else OPS_DISTANCE
-    ops = (inside * (dist + OPS_ENGINE_PAIR)
-           + inside_pot * OPS_POTENTIAL_PAIR[type(pot).__name__])
+    per_pot = (OPS_POTENTIAL_PAIR if observables
+               else OPS_POTENTIAL_PAIR_LEAN)[type(pot).__name__]
+    ops = inside * (dist + OPS_ENGINE_PAIR) + inside_pot * per_pot
     slot_pos, _, counts, _ = inputs
     b = slot_pos.element_size()
     n_slots, n_cells = slot_pos.shape[1], counts.shape[0]
     occupied = int(counts.sum())
     words = 7 if hilo else 4
     nbytes = (words * occupied * b + n_cells * 8 + 3 * b     # inputs
-              + 3 * n_slots * b + 2 * n_cells * b)          # outputs
+              + 3 * n_slots * b                             # forces
+              + (2 * n_cells * b if observables else 0))    # partials
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -319,8 +352,9 @@ def plane_plan(cap, dtype, pot, registers):
 def kernel_phase(mt, plane_registers):
     from mdtpu_torch.ops.cell_grid import CellGridEngine
     from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
-                                            cell_sweep_hilo, cell_sweep_plain,
-                                            stage_plan)
+                                            cell_sweep_hilo,
+                                            cell_sweep_hilo_plain,
+                                            cell_sweep_plain, stage_plan)
     from mdtpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
@@ -384,9 +418,16 @@ def kernel_phase(mt, plane_registers):
 
             calls = {"cell_sweep": lambda: cell_sweep(*args),
                      "plane_sweep": lambda: plane_sweep(*args)}
+            lj = name.startswith("lj_")
+            if lj:
+                calls["cell_sweep_lean"] = lambda: cell_sweep(
+                    *args, observables=False)
             if not f64:
                 h_args = hilo_args(eng, f64_state, pot)
                 calls["cell_sweep_hilo"] = lambda: cell_sweep_hilo(*h_args)
+                if lj:
+                    calls["cell_sweep_hilo_lean"] = lambda: cell_sweep_hilo(
+                        *h_args, observables=False)
             turns = kernel_turns(calls)
             out = {}
             for kname, kernel, plain, half in (
@@ -447,12 +488,22 @@ def kernel_phase(mt, plane_registers):
                       <= 2 * rec["cell_err_vs_f64"])
             record(rec, ok, f"plane_vs_cell {name} {tag}")
 
+            if lj:
+                lean_check("cell_sweep", cell_sweep, cell_sweep_plain, args,
+                           out["cell_sweep"], inputs, counts_, pot, base,
+                           record, turns)
             if not f64:
-                hilo_check(h_args, pot, counts_, base, record, turns)
+                h_full = hilo_check(h_args, pot, counts_, base, record, turns)
+                if lj:
+                    lean_check("cell_sweep_hilo", cell_sweep_hilo,
+                               cell_sweep_hilo_plain, h_args, h_full,
+                               (h_args[0], *h_args[2:5]), counts_, pot, base,
+                               record, turns, hilo=True)
                 del h_args
             del state, nb, inputs, args, out, calls
             torch.cuda.empty_cache()
     brownian_geometry_check(mt, record, plane_registers)
+    overlap_check(mt, record)
     return results, failures
 
 
@@ -539,6 +590,126 @@ def hilo_check(args, pot, counts_, base, record, turns):
           and 5 * rec["hilo_err_vs_f64"] <= rec["plain_f32_err_vs_f64"]
           and rec["repeats_bit_for_bit"])
     record(rec, ok, f"cell_sweep_hilo {base['case']}")
+    return r1
+
+
+def lean_check(name, kernel, plain, args, full, sweep_inputs, counts_, pot,
+               base, record, turns, hilo=False):
+    """The lean variant of ``kernel`` (``observables=False``) on the full
+    variant's inputs: forces bit-equal to the full variant's ``full``, zero
+    energy and virial, against the plain lean version at the full variant's
+    force tolerance, two launches bit for bit; timed in the turns."""
+    from mdtpu_torch.ops.cell_sweep import blocks_per_sm, stage_plan
+
+    def lean(*a):
+        return kernel(*a, observables=False)
+
+    r1 = lean(*args)
+    torch.cuda.synchronize()
+    r0 = plain(*args, observables=False)
+    torch.cuda.synchronize()
+    dtype = sweep_inputs[0].dtype
+    worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+    ms = statistics.median(turns[f"{name}_lean"])
+    list_len, smem, threads = stage_plan(base["capacity"], dtype, hilo)
+    rec = {"kernel_check": f"{name}_lean", **base,
+           "forces_bit_equal_to_full": torch.equal(r1[2], full[2]),
+           "energy_virial_zero": float(r1[0]) == 0.0 == float(r1[1]),
+           "force_err_per_particle": worst, "max_abs_err": max_abs,
+           "rms_force": rms, "repeats_bit_for_bit": repeats(lean, args, r1),
+           "stage_plan": {"list_len": list_len, "smem_bytes": smem,
+                          "threads": threads,
+                          "blocks_per_sm": blocks_per_sm(
+                              base["capacity"], dtype, hilo, pot,
+                              observables=False)},
+           "ms": ms, "ms_turns": turns[f"{name}_lean"],
+           "median_ms_ratio_lean_over_full":
+               ms / statistics.median(turns[name]),
+           "plain_ms": cuda_time_ms(lambda: plain(*args, observables=False),
+                                    3, 1),
+           **bound(sweep_inputs, counts_, pot, dtype, hilo=hilo,
+                   observables=False)}
+    tol_f = 1e-10 if dtype == torch.float64 else 1e-5
+    ok = (rec["forces_bit_equal_to_full"] and rec["energy_virial_zero"]
+          and worst <= tol_f and rec["repeats_bit_for_bit"])
+    record(rec, ok, f"{name}_lean {base['case']} {base['dtype']}")
+
+
+def pack_engine(mt, positions, cell):
+    """The packing path's engine for ``positions``: ``select_engine``'s cell
+    grid for the overlap potential, grown until the binning fits (as
+    ``slotify_grown`` grows it)."""
+    from mdtpu_torch.sim.pack import OverlapPotential
+    pot = OverlapPotential(tol=1.0)
+    eng = mt.select_engine(pot, 1.0, unitcell=cell.cpu().numpy(),
+                           n_particles=N_BENCH)
+    cinv = torch.linalg.inv(cell.double()).to(cell.dtype)
+    ones = torch.ones(N_BENCH, dtype=cell.dtype, device=cell.device)
+    while True:
+        nb = eng.allocate(positions, ones, cell, cinv)
+        if not bool(nb.overflow):
+            return eng, nb, cinv
+        eng = eng.with_grown_capacity()
+
+
+def overlap_check(mt, record):
+    """The ``Overlap`` functor through ``cell_sweep`` (full and lean, f64 and
+    f32) on the packing path's start: the uniform draws of ``initialize_state
+    (seed=0)`` at rho 0.8, on the engine the path grows to."""
+    from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
+                                            cell_sweep_plain, stage_plan)
+    from mdtpu_torch.sim import pack
+    for dtype in (torch.float64, torch.float32):
+        L = (N_BENCH / PACK_DENSITY) ** (1.0 / 3.0)
+        cell = torch.eye(3, dtype=dtype, device="cuda") * L
+        positions = pack.uniform_fractions(0, (N_BENCH, 3), dtype,
+                                           "cuda") * L
+        eng, nb, cinv = pack_engine(mt, positions, cell)
+        pot = eng.potential
+        inputs = eng.slot_inputs(positions, cell, cinv, nb)
+        args = (*inputs, eng.grid, eng.cutoff, pot)
+        counts_ = pair_counts(inputs, eng.grid, eng.cutoff, pot.max_cutoff())
+        turns = kernel_turns({
+            "cell_sweep": lambda: cell_sweep(*args),
+            "cell_sweep_lean": lambda: cell_sweep(*args, observables=False)})
+        r1 = cell_sweep(*args)
+        torch.cuda.synchronize()
+        r0 = cell_sweep_plain(*args)
+        torch.cuda.synchronize()
+        worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+        f64 = dtype == torch.float64
+        rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+        tag = str(dtype).split(".")[-1]
+        list_len, smem, threads = stage_plan(eng.cell_capacity, dtype)
+        base = {"case": "pack_start", "dtype": tag, "grid": list(eng.grid),
+                "capacity": eng.cell_capacity,
+                "pairs_in_engine_cutoff": counts_[2],
+                "pairs_in_potential_cutoff": counts_[3], "library_ms": None}
+        rec = {"kernel_check": "cell_sweep_overlap", **base,
+               "rel_err_energy": rel(r1[0], r0[0]),
+               "rel_err_virial": rel(r1[1], r0[1]),
+               "force_err_per_particle": worst, "max_abs_err": max_abs,
+               "rms_force": rms,
+               "repeats_bit_for_bit": repeats(cell_sweep, args, r1),
+               "stage_plan": {"list_len": list_len, "smem_bytes": smem,
+                              "threads": threads,
+                              "blocks_per_sm": blocks_per_sm(
+                                  eng.cell_capacity, dtype, False, pot)},
+               "ms": statistics.median(turns["cell_sweep"]),
+               "ms_turns": turns["cell_sweep"],
+               "plain_ms": cuda_time_ms(lambda: cell_sweep_plain(*args), 3,
+                                        1),
+               **bound(inputs, counts_, pot, dtype),
+               **stencil_work(counts_, pot, dtype, False)}
+        ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
+              and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
+              and rec["repeats_bit_for_bit"])
+        record(rec, ok, f"cell_sweep_overlap {tag}")
+        lean_check("cell_sweep", cell_sweep, cell_sweep_plain, args, r1,
+                   inputs, counts_, pot, {**base, "case": "pack_start_lean"},
+                   record, turns)
+        del positions, nb, inputs, args
+        torch.cuda.empty_cache()
 
 
 def probe_phase():
@@ -714,28 +885,32 @@ def brownian_state():
                                cutoff=1.5, jitter=0.05, device="cuda")
 
 
-def brownian_path(mt, workdir):
-    """Brownian dynamics through PlaneEngine with log-time snapshots."""
+def brownian_path(mt, workdir, slots=False):
+    """Brownian dynamics through PlaneEngine with log-time snapshots, or
+    (``slots``) through ``select_engine``'s cell grid, in the slot layout,
+    with a frame at step 0 only."""
     from mdtpu_torch.ops.experimental import PlaneEngine
 
     state = brownian_state()
     params = mt.Parameters(density=0.5, n_particles=N_BENCH, dt=1e-5,
                            potential=mt.PseudoHS())
-    engine = PlaneEngine.create(params.potential, 1.5, 0.3, state.unitcell,
-                                N_BENCH)
-    out_dir = os.path.join(workdir, "brownian")
+    label = "brownian_slot" if slots else "brownian"
+    engine = None if slots else PlaneEngine.create(
+        params.potential, 1.5, 0.3, state.unitcell, N_BENCH)
+    out_dir = os.path.join(workdir, label)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     end = mt.run_simulation(state, params, mt.Brownian(1.0), BROWNIAN_STEPS,
                             BROWNIAN_THERMO_EVERY, out_dir, engine=engine,
-                            log_times=True, traj_frequency=BROWNIAN_STEPS)
+                            log_times=not slots,
+                            traj_frequency=BROWNIAN_STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     failures = []
 
     def check(cond, what):
         if not cond:
-            failures.append(f"brownian: {what}")
+            failures.append(f"{label}: {what}")
 
     check(end.step == BROWNIAN_STEPS, "final step")
     check(bool(torch.isfinite(end.positions).all()), "non-finite positions")
@@ -744,6 +919,16 @@ def brownian_path(mt, workdir):
           "thermo rows")
     check(all(math.isfinite(v) for r in rows for v in r), "non-finite thermo")
     check(all(r[2] == 1.0 for r in rows), "T column is not kT")
+    rec = {"path": label, "steps": BROWNIAN_STEPS, "seconds": seconds,
+           "steps_per_s": BROWNIAN_STEPS / seconds, "thermo": rows}
+    if slots:
+        with open(os.path.join(out_dir, "trajectory.xyz")) as f:
+            text = f.read()
+        check(text.count("ITEM: TIMESTEP") == 1
+              and text.count("\n") == 9 + N_BENCH, "trajectory frame")
+        with open(os.path.join(out_dir, "final.xyz")) as f:
+            check(sum(1 for _ in f) == N_BENCH + 2, "final.xyz")
+        return rec, failures
     with open(os.path.join(out_dir, "new-log-times.txt")) as f:
         times = [int(x) for x in f.read().split()[1:]]
     want = sorted({0} | {s for s in times if s < BROWNIAN_STEPS})
@@ -756,10 +941,127 @@ def brownian_path(mt, workdir):
         check(text.count("\n") == 9 + N_BENCH
               and text.startswith(f"ITEM: TIMESTEP\n{s}\n"),
               f"snapshot.{s}")
-    rec = {"path": "brownian", "steps": BROWNIAN_STEPS, "seconds": seconds,
-           "steps_per_s": BROWNIAN_STEPS / seconds, "thermo": rows,
-           "snapshots": snaps}
+    rec["snapshots"] = snaps
     return rec, failures
+
+
+def fire_path(mt):
+    """FIRE on the bench_fire.py system at 65,536 particles through
+    ``fire_minimize`` on ``select_engine``'s cell grid (the slot FIRE): first
+    N_FIRE_DESCENT iterations, whose energy must lie below the start's, then
+    N_FIRE_ITERS at tol 0, timed. The reference's step limits (dt_max 0.1,
+    dmax 0.1) overshoot on this dense fluid after a few dozen iterations and
+    the energy climbs above the start's, in the JAX package too
+    (``tests/test_torch_fire.py`` holds the port's climb to the JAX
+    package's on this system at N = 500, and run as a script prints both to
+    200 iterations), so the long run is held to a finite state and its
+    iteration count only. The start's
+    energy comes from the plain sweep, which launches nothing."""
+    from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                cutoff=2.5, jitter=0.05, device="cuda")
+    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    engine = mt.select_engine(params.potential, 2.5, state)
+    nb = engine.allocate(state.positions, state.diameters, state.unitcell,
+                         state.unitcell_inv)
+    e0 = float(cell_sweep_plain(
+        *engine.slot_inputs(state.positions, state.unitcell,
+                            state.unitcell_inv, nb),
+        engine.grid, engine.cutoff, engine.potential)[0])
+
+    def run(iterations):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mt.fire_minimize(state, params, engine,
+                               max_steps=iterations, tol=0.0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (_, descent, _, n_descent), _ = run(N_FIRE_DESCENT)
+    (end, energy, _, n_steps), seconds = run(N_FIRE_ITERS)
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"fire: {what}")
+
+    descent, energy = float(descent), float(energy)
+    check(n_descent == N_FIRE_DESCENT and n_steps == N_FIRE_ITERS,
+          f"ran {n_descent} and {n_steps} iterations")
+    check(descent < e0, f"energy {descent} after {n_descent} iterations "
+          f"not below the start's {e0}")
+    check(bool(torch.isfinite(end.positions).all()) and math.isfinite(energy),
+          "non-finite state")
+    check(torch.equal(end.velocities, state.velocities),
+          "caller's velocities not restored")
+    return {"path": "fire", "iterations": n_steps, "seconds": seconds,
+            "iterations_per_s": n_steps / seconds, "energy_start": e0,
+            f"energy_after_{N_FIRE_DESCENT}": descent,
+            f"energy_after_{N_FIRE_ITERS}": energy,
+            "grid": list(engine.grid),
+            "capacity": engine.cell_capacity}, failures
+
+
+def pack_path(mt, workdir):
+    """``initialize_state`` without positions (mode D, packing) at 65,536
+    particles, rho 0.8. The packer's FIRE must converge (its result is
+    recorded on the way), and no pair of the packed positions may be closer
+    than tol by more than 4 eps L: the f32 positions are folded into the box
+    on the host, and the check takes their minimum image, each rounding a
+    coordinate by up to half an ulp of L, so a pair that FIRE left just at
+    tol can come out closer by a few ulps. Every pair's overlap is at most
+    the square root of the overlap energy (by the plain sweep, which
+    launches nothing)."""
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
+    params = mt.Parameters(density=PACK_DENSITY, n_particles=N_BENCH,
+                           dt=0.001, potential=mt.LennardJones(r_cut=2.5))
+    out_dir = os.path.join(workdir, "pack")
+    minimizations = []
+    fire_minimize = fire_mod.fire_minimize
+
+    def recorded(*args, **kwargs):
+        out = fire_minimize(*args, **kwargs)
+        minimizations.append((out[2], out[3]))
+        return out
+
+    fire_mod.fire_minimize = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = mt.initialize_state(params, out_dir, seed=0, cutoff=2.5,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fire_mod.fire_minimize = fire_minimize
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"pack: {what}")
+
+    pos = state.positions
+    L = float(state.unitcell[0, 0])
+    check(tuple(pos.shape) == (N_BENCH, 3)
+          and bool(torch.isfinite(pos).all()), "positions")
+    check(float(pos.min()) >= 0.0 and float(pos.max()) < L, "outside the box")
+    check(os.path.isfile(os.path.join(out_dir, "init.xyz")), "init.xyz")
+    check(len(minimizations) == 1 and minimizations[0][0],
+          f"FIRE did not converge: {minimizations}")
+    eng, nb, cinv = pack_engine(mt, pos, state.unitcell)
+    energy = float(cell_sweep_plain(
+        *eng.slot_inputs(pos, state.unitcell, cinv, nb), eng.grid,
+        eng.cutoff, eng.potential)[0])
+    overlap_limit = 4 * torch.finfo(torch.float32).eps * L
+    check(math.sqrt(energy) <= overlap_limit,
+          f"overlap energy {energy} after packing")
+    return {"path": "pack", "n": N_BENCH, "density": PACK_DENSITY,
+            "seconds": seconds, "fire_iterations": minimizations[0][1],
+            "overlap_energy": energy, "largest_overlap_at_most":
+            math.sqrt(energy), "overlap_limit": overlap_limit}, failures
 
 
 def _rows(path):
@@ -769,19 +1071,25 @@ def _rows(path):
 
 
 def run_paths(mt, workdir):
+    from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops.experimental import PlaneEngine
 
-    counters = {"cell_sweep": cs.cell_sweep,
-                "cell_sweep_hilo": cs.cell_sweep_hilo,
-                "plane_sweep": ps.plane_sweep}
-
     def counted(fn):
-        for c in counters.values():
-            c.launches = 0
+        """Run one path with every count set to 0 just before it; its
+        launches (each wrapper's total and lean) and slot steps after."""
+        cs.reset_launches()
+        ps.plane_sweep.launches = 0
+        slot_step.make_slot_step.steps = 0
         rec, failures = fn()
-        rec["launches"] = {k: c.launches for k, c in counters.items()}
+        rec["launches"] = {
+            "cell_sweep": cs.cell_sweep.launches,
+            "cell_sweep_lean": cs.cell_sweep.lean_launches,
+            "cell_sweep_hilo": cs.cell_sweep_hilo.launches,
+            "cell_sweep_hilo_lean": cs.cell_sweep_hilo.lean_launches,
+            "plane_sweep": ps.plane_sweep.launches}
+        rec["slot_steps"] = slot_step.make_slot_step.steps
         log(json.dumps(rec))
         return rec, failures
 
@@ -792,33 +1100,56 @@ def run_paths(mt, workdir):
         lambda st, pot: PlaneEngine.create(pot, 2.5, 0.3, st.unitcell,
                                            N_BENCH), False))
     bd, f3 = counted(lambda: brownian_path(mt, workdir))
-    failures = f1 + f2 + f3
+    bds, f4 = counted(lambda: brownian_path(mt, workdir, slots=True))
+    fire, f5 = counted(lambda: fire_path(mt))
+    pack, f6 = counted(lambda: pack_path(mt, workdir))
+    failures = f1 + f2 + f3 + f4 + f5 + f6
     # NVT takes the plain sweep; each f32 NVE leg the hi/lo sweep (its
-    # initial forces, as the JAX package's, the plain one).
+    # initial forces, as the JAX package's, the plain one). In the slot
+    # layout every step but the last of a segment takes the lean variant.
+    steps = NVT_STEPS + 2 * NVE_STEPS
     if b1["launches"]["cell_sweep"] < NVT_STEPS:
         failures.append(f"b1: cell_sweep launches {b1['launches']}")
     if b1["launches"]["cell_sweep_hilo"] < 2 * NVE_STEPS:
         failures.append(f"b1: cell_sweep_hilo launches {b1['launches']}")
-    if b2["launches"]["plane_sweep"] < NVT_STEPS + 2 * NVE_STEPS:
+    if min(b1["launches"]["cell_sweep_lean"],
+           b1["launches"]["cell_sweep_hilo_lean"]) < NVE_STEPS:
+        failures.append(f"b1: lean launches {b1['launches']}")
+    if b1["slot_steps"] != steps:
+        failures.append(f"b1: {b1['slot_steps']} slot steps, not {steps}")
+    if b2["launches"]["plane_sweep"] < steps:
         failures.append(f"b2: plane_sweep launches {b2['launches']}")
+    if b2["slot_steps"] or bd["slot_steps"]:
+        failures.append("b2/brownian: PlaneEngine took the slot step")
     if bd["launches"]["plane_sweep"] < BROWNIAN_STEPS:
         failures.append(f"brownian: plane_sweep launches {bd['launches']}")
-    return {"b1": b1, "b2": b2, "brownian": bd}, failures
+    if (bds["launches"]["cell_sweep"] < BROWNIAN_STEPS
+            or bds["slot_steps"] != BROWNIAN_STEPS):
+        failures.append(f"brownian_slot: launches {bds['launches']}, "
+                        f"slot steps {bds['slot_steps']}")
+    if fire["launches"]["cell_sweep_lean"] != N_FIRE_ITERS + N_FIRE_DESCENT:
+        failures.append(f"fire: launches {fire['launches']}")
+    if pack["launches"]["cell_sweep_lean"] < 1:
+        failures.append(f"pack: launches {pack['launches']}")
+    return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
+            "fire": fire, "pack": pack}, failures
 
 
 def ptxas_summary(name, report):
     """The compiler's report: for the sweeps one line per kernel entry (type,
-    potential, hi/lo, the block size it is compiled for, registers, spill
-    bytes); for the probe its report lines. Returns ``{(type, potential
-    functor, block size[, "hilo"]): (registers, spill store bytes)}`` of the
-    sweep kernels."""
+    potential, hi/lo, full or lean, the block size it is compiled for,
+    registers, spill bytes); for the probe its report lines. Returns
+    ``{(type, potential functor, block size[, "hilo"][, "lean"]):
+    (registers, spill store bytes)}`` of the sweep kernels."""
     entry, spill, table = None, "", {}
     for line in report.splitlines():
         if "Compiling entry" in line:
             m = re.search(r"(?:cell|plane)_sweep_kernelI([fd])N5mdtpu\d+"
-                          r"([A-Za-z]+)I[fd]EE(?:Lb([01])E)?Li(\d+)EE", line)
+                          r"([A-Za-z]+)I[fd]EE((?:Lb[01]E)*)Li(\d+)EE", line)
+            flags = m and re.findall(r"Lb([01])E", m[3])
             entry = m and ("f32" if m[1] == "f" else "f64", m[2],
-                           "hilo" if m[3] == "1" else "plain", m[4])
+                           "hilo" if flags[:1] == ["1"] else "plain",
+                           "lean" if flags[1:2] == ["0"] else "full", m[4])
             if entry is None:
                 log(f"  ptxas {name}: " + line.strip())
         elif "spill" in line and entry:
@@ -826,11 +1157,12 @@ def ptxas_summary(name, report):
         elif "registers" in line and entry:
             regs = int(re.search(r"Used (\d+) registers", line)[1])
             stores = int(re.search(r"(\d+) bytes spill stores", spill)[1])
-            key = (entry[0], entry[1], int(entry[3]))
-            table[key + ("hilo",) if entry[2] == "hilo" else key] = (regs,
-                                                                     stores)
-            log(f"  ptxas {name}: {' '.join(entry[:3])} for blocks up to "
-                f"{entry[3]}: {regs} registers; {spill}")
+            key = ((entry[0], entry[1], int(entry[4]))
+                   + (("hilo",) if entry[2] == "hilo" else ())
+                   + (("lean",) if entry[3] == "lean" else ()))
+            table[key] = (regs, stores)
+            log(f"  ptxas {name}: {' '.join(entry[:4])} for blocks up to "
+                f"{entry[4]}: {regs} registers; {spill}")
         elif any(k in line for k in ("registers", "spill", "smem")):
             log(f"  ptxas {name}: " + line.strip())
     return table
@@ -875,15 +1207,38 @@ def main():
     # largest error over every variant's check.
     probe_rec = dict(probes["full"], max_abs_err=max(
         r["max_abs_err"] for r in probes.values()))
+    b1 = by_path["b1"]
+    pallas_cell = "mdtpu/ops/experimental/pallas_cell.py:77"
+    overlap = results[("cell_sweep_overlap", "pack_start", "float32")]
+    overlap_lean = results[("cell_sweep_lean", "pack_start_lean", "float32")]
     kernels = {"kernels": [
-        entry("cell_sweep", "mdtpu_torch/csrc/cell_sweep.cu",
-              "mdtpu/ops/experimental/pallas_cell.py:77",
-              paths["b1"]["launches"]["cell_sweep"],
-              results[("cell_sweep", "lj_bench", "float32")]),
+        entry("cell_sweep", "mdtpu_torch/csrc/cell_sweep.cu", pallas_cell,
+              b1["cell_sweep"] - b1["cell_sweep_lean"],
+              results[("cell_sweep", "lj_bench", "float32")],
+              {"launches_brownian_slot": by_path["brownian_slot"][
+                  "cell_sweep"],
+               "launches_fire": by_path["fire"]["cell_sweep"]
+               - by_path["fire"]["cell_sweep_lean"]}),
         entry("cell_sweep_hilo", "mdtpu_torch/csrc/cell_sweep.cu",
-              "mdtpu/ops/experimental/pallas_cell.py:77",
-              paths["b1"]["launches"]["cell_sweep_hilo"],
+              pallas_cell,
+              b1["cell_sweep_hilo"] - b1["cell_sweep_hilo_lean"],
               results[("cell_sweep_hilo", "lj_bench", "float32")]),
+        entry("cell_sweep_lean", "mdtpu_torch/csrc/cell_sweep.cu",
+              pallas_cell, b1["cell_sweep_lean"],
+              results[("cell_sweep_lean", "lj_bench", "float32")],
+              {"launches_fire": by_path["fire"]["cell_sweep_lean"]}),
+        entry("cell_sweep_hilo_lean", "mdtpu_torch/csrc/cell_sweep.cu",
+              pallas_cell, b1["cell_sweep_hilo_lean"],
+              results[("cell_sweep_hilo_lean", "lj_bench", "float32")]),
+        entry("cell_sweep_overlap", "mdtpu_torch/csrc/cell_sweep.cu",
+              pallas_cell, by_path["pack"]["cell_sweep"]
+              - by_path["pack"]["cell_sweep_lean"], overlap,
+              {"potential": "OverlapPotential (Overlap functor)",
+               "launches_lean": by_path["pack"]["cell_sweep_lean"],
+               "lean_ms": overlap_lean["ms"],
+               "lean_plain_ms": overlap_lean["plain_ms"],
+               "lean_bound_ms": overlap_lean["bound_ms"],
+               "lean_bound_by": overlap_lean["bound_by"]}),
         entry("plane_sweep", "mdtpu_torch/csrc/plane_sweep.cu",
               "mdtpu/ops/experimental/pallas_plane.py:70",
               paths["b2"]["launches"]["plane_sweep"],

@@ -2,12 +2,13 @@
 
 Classical molecular dynamics of soft-sphere fluids in periodic boxes: NVT
 (Bussi) and NVE velocity Verlet, pair potentials (pseudo-hard-sphere,
-Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output, and
-overdamped Brownian dynamics. The pair forces of 3D orthorhombic systems come
-from a cell grid whose sweeps are hand-written CUDA kernels (``csrc/*.cu``:
-the full stencil and its hi/lo variant, and the Newton half stencil behind
-``ops.experimental.PlaneEngine``); small and other systems use the O(N^2)
-engine.
+Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output, overdamped
+Brownian dynamics, FIRE minimization and random packing. The pair forces of
+3D orthorhombic systems come from a cell grid whose sweeps are hand-written
+CUDA kernels (``csrc/*.cu``: the full stencil with its hi/lo and lean
+variants, and the Newton half stencil behind ``ops.experimental.PlaneEngine``);
+on the cell grid, dynamics and FIRE run in the slot layout
+(``integrate.slot_step``). Small and other systems use the O(N^2) engine.
 
 The package imports torch and numpy, never JAX or ``mdtpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -27,6 +28,7 @@ from mdtpu_torch.integrate.ramps import (
     initial_temperature_for_velocities,
 )
 from mdtpu_torch.integrate.thermostat import compute_kinetic, compute_temperature
+from mdtpu_torch.minimize import fire_minimize, minimize
 from mdtpu_torch.ops import NaivePairEngine, select_engine
 from mdtpu_torch.potentials.base import Potential, energy_lrc, evaluate, pressure_lrc
 from mdtpu_torch.potentials.lennard_jones import LennardJones
@@ -41,6 +43,7 @@ __all__ = [
     "Parameters", "SimulationState", "NVT", "NVE", "Brownian",
     "ConstantSchedule",
     "initialize_state", "initialize_velocities", "run_simulation",
+    "minimize", "fire_minimize",
     "PseudoHS", "LennardJones", "LennardJonesXPLOR",
     "LinearRamp", "ExponentialRamp", "initial_temperature_for_velocities",
     "Potential", "evaluate", "energy_lrc", "pressure_lrc",

@@ -35,7 +35,10 @@ class SimulationState:
     Besides the reference's fields it carries the last step's forces and
     thermo outputs, the step counter, the random seed and the Kahan
     compensation buffers, so NVE runs continue exactly, and the Brownian
-    pressure accumulators."""
+    pressure accumulators. The shapes below are those of particle order; in
+    the slot layout (``ids`` set) the per-particle fields are component-major
+    ``(d, n_slots)`` (diameters ``(n_slots,)``), and ``n_particles`` and
+    ``dimension`` hold for particle order only."""
 
     positions: torch.Tensor       # (N, d)
     velocities: torch.Tensor      # (N, d)
@@ -56,6 +59,10 @@ class SimulationState:
     nprom: torch.Tensor           # () int64 count of those samples
     nbrs: Any = None              # engine state (e.g. the cell binning)
     cutoff: float = 1.5           # engine cutoff
+    # Original particle index of each slot, only in the slot layout of
+    # mdtpu_torch.integrate.slot_step (int64 (n_slots,), -1 on vacant slots);
+    # None in particle order.
+    ids: Any = None
 
     @property
     def n_particles(self) -> int:

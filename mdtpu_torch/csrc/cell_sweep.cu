@@ -81,6 +81,14 @@
 // the host, which would have to wait for them); the drain forms the exact
 // displacement and applies the exact cutoff test.
 //
+// The lean variant (template flag OBS = false; the XLA sweep's
+// observables=False, mdtpu/ops/cell_grid.py:711-717) is the same kernel with
+// the energy and virial left out: no per-pair energy or virial sums, no
+// per-cell partials, no block reduction. The potential's energy term is then
+// dead code and the compiler drops it. The forces take the same operations
+// in the same order, so they are the full variant's bits. The slot loop runs
+// it on every step whose energy nobody reads, and FIRE inside its loop.
+//
 // What it leaves. Registers hold the float32 kernel to 6 blocks of 128
 // threads an SM and the float64 and hi/lo kernels to 4. A block's fixed
 // phases (counts, own slots, staging, the final sums) are latency that only
@@ -152,8 +160,9 @@ size_t shared_bytes(int list_len, int queue_depth, int threads) {
 // (clamped to cap here); box: (3,) box lengths. Slots [0, count) of each
 // cell are occupied. force: (3, n_cells * cap), every slot written (vacant
 // slots get 0). list_len >= cap candidates fit in a stage; queue_depth >=
-// kUnroll; blockDim.x is a power of two >= cap.
-template <typename T, typename Pot, bool HILO, int MAX_THREADS>
+// kUnroll; blockDim.x is a power of two >= cap. OBS = false: e_part and
+// w_part are not written.
+template <typename T, typename Pot, bool HILO, bool OBS, int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
     cell_sweep_kernel(const T* __restrict__ pos, const T* __restrict__ lo,
                       const T* __restrict__ diam,
@@ -377,8 +386,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
             if (k != self_k && r2 < cutoff2) {
               T u, f;
               pot(pot_setup, r2, di, dj, u, f);
-              e += T(0.5) * u;
-              w += T(0.5) * (f * r2);
+              if (OBS) {
+                e += T(0.5) * u;
+                w += T(0.5) * (f * r2);
+              }
               fx += f * dx;
               fy += f * dy;
               fz += f * dz;
@@ -419,8 +430,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
   part[tid] = fx;
   part[threads + tid] = fy;
   part[2 * threads + tid] = fz;
-  part[3 * threads + tid] = e;
-  part[4 * threads + tid] = w;
+  if (OBS) {
+    part[3 * threads + tid] = e;
+    part[4 * threads + tid] = w;
+  }
   __syncthreads();
   fx = fy = fz = e = w = T(0);
   if (tid < n_own) {
@@ -429,8 +442,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
       fx += part[t];
       fy += part[threads + t];
       fz += part[2 * threads + t];
-      e += part[3 * threads + t];
-      w += part[4 * threads + t];
+      if (OBS) {
+        e += part[3 * threads + t];
+        w += part[4 * threads + t];
+      }
     }
   }
   if (tid < cap) {
@@ -439,6 +454,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     force[n_slots + out] = fy;
     force[2 * n_slots + out] = fz;
   }
+  if (!OBS) return;
   __syncthreads();  // part becomes the reduction's scratch
 
   block_reduce2(e, w, part, part + threads);
@@ -466,13 +482,15 @@ int prepare_kernel(Kernel kernel, size_t smem) {
 
 // The plan (list_len, queue_depth, smem_bytes, threads) comes from
 // stage_plan in ops/cell_sweep.py and is held to this file's layout.
+// obs = false launches the lean variant: forces only, e_part and w_part
+// untouched (they may be null).
 template <typename T, bool HILO>
 int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
           const T* box, int nx, int ny, int nz, int cap, double cutoff,
           int kind, double p0, double p1, double p2, double p3, int i0,
           int i1, int i2, T* force, T* e_part, T* w_part, int list_len,
           int queue_depth, int smem_bytes, int threads, double filter_margin,
-          int* blocks_per_sm, void* stream_ptr) {
+          bool obs, int* blocks_per_sm, void* stream_ptr) {
   if (cap < 1 || cap > 1024) return kErrCapacity;
   if (nx < 3 || ny < 3 || nz < 3) return kErrGrid;
   const bool list_ok = list_len >= cap && list_len <= kStencil * cap;
@@ -489,8 +507,12 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
     using Pot = decltype(pot);
     // Registers: a block of up to 256 threads may take them all; a larger
     // one (up to 1024) is held to 64 a thread.
-    auto kernel = threads <= 256 ? cell_sweep_kernel<T, Pot, HILO, 256>
-                                 : cell_sweep_kernel<T, Pot, HILO, 1024>;
+    auto kernel = cell_sweep_kernel<T, Pot, HILO, true, 256>;
+    if (threads > 256)
+      kernel = obs ? cell_sweep_kernel<T, Pot, HILO, true, 1024>
+                   : cell_sweep_kernel<T, Pot, HILO, false, 1024>;
+    else if (!obs)
+      kernel = cell_sweep_kernel<T, Pot, HILO, false, 256>;
     const int rc = prepare_kernel(kernel, smem);
     if (rc != 0) return rc;
     if (blocks_per_sm != nullptr) {  // report the occupancy, launch nothing
@@ -508,17 +530,21 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
 
 extern "C" {
 
+// observables = 0 launches the lean variant (forces only; e_part and w_part
+// are not written and may be null).
 int mdtpu_cell_sweep_f32(const float* pos, const float* diam,
                          const int64_t* counts, const float* box, int nx,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, float* force, float* e_part,
                          float* w_part, int list_len, int queue_depth,
-                         int smem_bytes, int threads, void* stream) {
+                         int smem_bytes, int threads, int observables,
+                         void* stream) {
   return sweep<float, false>(pos, nullptr, diam, counts, box, nx, ny, nz, cap,
                              cutoff, kind, p0, p1, p2, p3, i0, i1, i2, force,
                              e_part, w_part, list_len, queue_depth,
-                             smem_bytes, threads, 0.0, nullptr, stream);
+                             smem_bytes, threads, 0.0, observables != 0,
+                             nullptr, stream);
 }
 
 int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
@@ -527,12 +553,13 @@ int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, double* force, double* e_part,
                          double* w_part, int list_len, int queue_depth,
-                         int smem_bytes, int threads, void* stream) {
+                         int smem_bytes, int threads, int observables,
+                         void* stream) {
   return sweep<double, false>(pos, nullptr, diam, counts, box, nx, ny, nz,
                               cap, cutoff, kind, p0, p1, p2, p3, i0, i1, i2,
                               force, e_part, w_part, list_len,
-                              queue_depth, smem_bytes, threads, 0.0, nullptr,
-                              stream);
+                              queue_depth, smem_bytes, threads, 0.0,
+                              observables != 0, nullptr, stream);
 }
 
 // The hi/lo sweep, float32 only (as the JAX package's f32x2 mode).
@@ -546,36 +573,39 @@ int mdtpu_cell_sweep_hilo_f32(const float* hi, const float* lo,
                               int i2, float* force, float* e_part,
                               float* w_part, int list_len,
                               int queue_depth, int smem_bytes, int threads,
-                              double filter_margin, void* stream) {
+                              double filter_margin, int observables,
+                              void* stream) {
   return sweep<float, true>(hi, lo, diam, counts, box, nx, ny, nz, cap,
                             cutoff, kind, p0, p1, p2, p3, i0, i1, i2, force,
                             e_part, w_part, list_len, queue_depth,
-                            smem_bytes, threads, filter_margin, nullptr,
-                            stream);
+                            smem_bytes, threads, filter_margin,
+                            observables != 0, nullptr, stream);
 }
 
 // Resident blocks per SM of the kernel that a launch with this plan would
-// run (dtype_bytes 4 or 8; hilo only at 4), into *blocks_per_sm.
+// run (dtype_bytes 4 or 8; hilo only at 4; observables 0 for the lean
+// variant), into *blocks_per_sm.
 int mdtpu_cell_sweep_occupancy(int dtype_bytes, int hilo, int cap, int kind,
                                int i0, int i1, int i2, int list_len,
                                int queue_depth, int smem_bytes, int threads,
-                               int* blocks_per_sm) {
+                               int observables, int* blocks_per_sm) {
+  const bool obs = observables != 0;
   if (dtype_bytes == 8)
     return sweep<double, false>(nullptr, nullptr, nullptr, nullptr, nullptr,
                                 3, 3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0,
                                 i0, i1, i2, nullptr, nullptr, nullptr,
                                 list_len, queue_depth, smem_bytes,
-                                threads, 0.0, blocks_per_sm, nullptr);
+                                threads, 0.0, obs, blocks_per_sm, nullptr);
   if (hilo)
     return sweep<float, true>(nullptr, nullptr, nullptr, nullptr, nullptr, 3,
                               3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0, i0,
                               i1, i2, nullptr, nullptr, nullptr,
                               list_len, queue_depth, smem_bytes,
-                              threads, 0.0, blocks_per_sm, nullptr);
+                              threads, 0.0, obs, blocks_per_sm, nullptr);
   return sweep<float, false>(nullptr, nullptr, nullptr, nullptr, nullptr, 3,
                              3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0, i0, i1,
                              i2, nullptr, nullptr, nullptr, list_len,
-                             queue_depth, smem_bytes, threads, 0.0,
+                             queue_depth, smem_bytes, threads, 0.0, obs,
                              blocks_per_sm, nullptr);
 }
 

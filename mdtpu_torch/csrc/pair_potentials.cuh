@@ -239,11 +239,35 @@ struct XPLOR {
   }
 };
 
+// The packer's harmonic contact repulsion (mdtpu_torch/potentials/overlap.py
+// OverlapPotential): u = (tol - r)^2 and f = 2 (tol - r) for r < tol, zero
+// beyond. Its PyTorch class computes it through the base class's
+// evaluate_r2: r = sqrt(r2), then f / r (f itself where r = 0).
+template <typename T>
+struct Overlap {
+  T tol;
+
+  struct Setup {};
+
+  __device__ __forceinline__ Setup setup(T) const { return Setup{}; }
+
+  __device__ __forceinline__ void operator()(const Setup&, T r2, T, T, T& u,
+                                             T& f_over_r) const {
+    const T r = sqrt(r2);
+    T overlap = tol - r;
+    if (!(overlap > T(0))) overlap = T(0);
+    u = overlap * overlap;
+    const T f = T(2) * overlap;
+    f_over_r = r > T(0) ? f / r : f;
+  }
+};
+
 // Calls launch(pot) with the functor that ``kind`` names: 0 LennardJones (p0
 // eps, p1 sigma, p2 r_cut; i0 shift, i1 force_shift, i2 mix), 1 PseudoHS (i0
 // lam, i1 sigma_scaled_cutoff, i2 mix), 2 LennardJonesXPLOR (p0 eps, p1
-// sigma, p2 r_on, p3 r_cut; i2 mix). Parameters are rounded to T, as the
-// PyTorch versions round them to the working dtype.
+// sigma, p2 r_on, p3 r_cut; i2 mix), 3 OverlapPotential (p0 tol).
+// Parameters are rounded to T, as the PyTorch versions round them to the
+// working dtype.
 template <typename T, typename Launch>
 int with_potential(int kind, double p0, double p1, double p2, double p3,
                    int i0, int i1, int i2, Launch&& launch) {
@@ -254,6 +278,8 @@ int with_potential(int kind, double p0, double p1, double p2, double p3,
       return launch(PseudoHS<T>{i0, i1, i2});
     case 2:
       return launch(XPLOR<T>{T(p0), T(p1), T(p2), T(p3), i2});
+    case 3:
+      return launch(Overlap<T>{T(p0)});
     default:
       return kErrPotential;
   }

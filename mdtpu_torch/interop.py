@@ -25,9 +25,9 @@ _POTENTIALS = {cls.__name__: cls
 _STATE_FIELDS = {f.name for f in dataclasses.fields(SimulationState)}
 _SCALAR_FIELDS = {"seed": int, "step": int, "nf": float, "cutoff": float}
 _INT_FIELDS = {"images", "nprom"}
-# Fields the JAX state carries that have no counterpart here: its PRNG key
-# (the seed replaces it), engine state (rebuilt from the positions) and the
-# slot layout's particle ids.
+# Fields that are not carried across: the JAX state's PRNG key (the seed
+# replaces it), engine state (rebuilt from the positions) and the slot
+# layout's particle ids (a state crosses in particle order).
 _JAX_ONLY = {"key", "nbrs", "ids"}
 # Fields that may be absent (or None): they then start at zero.
 _OPTIONAL = {"virial_accum", "nprom"}
@@ -56,7 +56,7 @@ def state_from_numpy(arrays: dict, device=None) -> SimulationState:
         else:
             kw[name] = torch.as_tensor(np.array(value), dtype=dtype,
                                        device=device)
-    missing = _STATE_FIELDS - set(kw) - {"nbrs"} - _OPTIONAL
+    missing = _STATE_FIELDS - set(kw) - _JAX_ONLY - _OPTIONAL
     if missing:
         raise ValueError(f"missing state fields: {sorted(missing)}")
     kw.setdefault("virial_accum", torch.zeros((), dtype=dtype, device=device))
@@ -65,11 +65,12 @@ def state_from_numpy(arrays: dict, device=None) -> SimulationState:
 
 
 def state_to_numpy(state: SimulationState) -> dict:
-    """The state's fields as numpy arrays and Python values (no ``nbrs``)."""
+    """The state's fields as numpy arrays and Python values (no ``nbrs``
+    or ``ids``: a particle-order state)."""
     out = {}
     for f in dataclasses.fields(state):
         value = getattr(state, f.name)
-        if f.name == "nbrs":
+        if f.name in ("nbrs", "ids"):
             continue
         out[f.name] = (value.detach().cpu().numpy()
                        if isinstance(value, torch.Tensor) else value)

@@ -24,7 +24,8 @@ _NAIVE_MAX_N = 2048
 
 
 def select_engine(potential, cutoff, state=None, *, unitcell=None,
-                  n_particles=None, skin=0.3, prefer=None):
+                  n_particles=None, skin=0.3, prefer=None,
+                  workload="dynamics"):
     """Pick the engine for the system.
 
     prefer: None (auto) | "naive" | "cellgrid".
@@ -32,7 +33,14 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
     fits at least 3 cells per axis. Triclinic and 2D boxes take the naive
     engine until the cell grid covers them (queue A9); there is no
     neighbour-list engine yet (queue A12).
+
+    workload: "dynamics" (default) or "minimize", as the JAX package's
+    argument. Both give ``CellGridEngine.create``'s geometry: the JAX
+    package's minimize-tuned geometry is a model of the TPU's lanes, and the
+    H100's is still to be measured.
     """
+    if workload not in ("dynamics", "minimize"):
+        raise ValueError(f"unknown workload {workload!r}")
     from mdtpu_torch.core.box import is_orthorhombic
     from mdtpu_torch.ops.cell_grid import CellGridEngine, grid_for_box
     from mdtpu_torch.potentials.base import check_engine_cutoff

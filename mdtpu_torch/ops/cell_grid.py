@@ -18,6 +18,10 @@ the hi/lo sweep runs on the same layout (:meth:`slot_inputs_hilo`).
 Capacity overflow (more than C particles in a cell) sets ``overflow``; the
 overflowing particles go to a trash slot and get no forces, so the driver
 reruns the segment with :meth:`CellGridEngine.with_grown_capacity`.
+
+The slot-space loop (:mod:`mdtpu_torch.integrate.slot_step`) keeps the whole
+state in slot order instead and calls :meth:`CellGridEngine.compute_slots`:
+the sweep on the slots as they are, with no scatter, gather or minimum image.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +54,16 @@ def grid_for_box(unitcell, cutoff: float, skin: float):
 
 @dataclass(frozen=True)
 class CellGridState:
-    addr: torch.Tensor           # (N,) int64 slot of each particle: cid*C + rank
+    """The binning. In the slot layout ``addr`` is None, ``ref_positions``
+    is ``(d, n_slots)`` in slot order and ``occupied`` marks the real slots:
+    those of cell ``c`` are ``c*C .. c*C + min(counts[c], C) - 1``."""
+
+    addr: Optional[torch.Tensor]  # (N,) int64 slot of each particle: cid*C + rank
     counts: torch.Tensor         # (n_cells,) int64 particles binned per cell
     sorted_diam: torch.Tensor    # (n_cells*C,) slot diameters (1 on vacant)
     ref_positions: torch.Tensor  # (N, d) positions at build time
     overflow: torch.Tensor       # () bool: some cell holds more than C
+    occupied: Optional[torch.Tensor] = None  # (n_cells*C,) bool, slot layout
 
 
 @dataclass(frozen=True)
@@ -64,6 +73,8 @@ class CellGridEngine:
     skin: float = 0.3
     grid: Tuple[int, int, int] = (3, 3, 3)
     cell_capacity: int = 16
+    # The driver and FIRE run this engine in the slot layout.
+    runs_in_slots: ClassVar[bool] = True
 
     @classmethod
     def create(cls, potential, cutoff, skin, unitcell, n_particles,
@@ -180,6 +191,28 @@ class CellGridEngine:
         """The engine's pair sweep on slot inputs (the B1 kernel)."""
         return cell_sweep(slot_pos, slot_diam, counts, box, self.grid,
                           self.cutoff, self.potential)
+
+    def compute_slots(self, positions, diameters, cell, cell_inv,
+                      nbrs: CellGridState, observables=True, pos_lo=None):
+        """``(energy, virial, forces, nbrs)`` of a slot-layout state:
+        positions ``(3, n_cells*C)`` already in cell-sorted slot order, within
+        skin/2 of their home cells (deferred wrap), so the B1 kernel runs on
+        them as they are: no scatter, no gather, no minimum image. Forces
+        come back in slot order. ``observables=False`` runs the lean sweep
+        (energy and virial zero). ``pos_lo``: the positions' lo words for the
+        hi/lo sweep, taken as given (deferred wrap keeps the image at 0
+        between rebuilds, so there is no image shift to fold in).
+        ``cell_inv`` is unused; it keeps the JAX package's signature."""
+        box = torch.diagonal(cell).contiguous()
+        if pos_lo is None:
+            energy, virial, forces = cell_sweep(
+                positions, diameters, nbrs.counts, box, self.grid,
+                self.cutoff, self.potential, observables)
+        else:
+            energy, virial, forces = cell_sweep_hilo(
+                positions, pos_lo, diameters, nbrs.counts, box, self.grid,
+                self.cutoff, self.potential, observables)
+        return energy, virial, forces, nbrs
 
     def compute(self, positions, diameters, cell, cell_inv,
                 nbrs: CellGridState, pos_lo=None):

@@ -21,6 +21,10 @@ package's f32x2 mode: ``slot_pos`` is the hi word, ``slot_lo`` (3, n_cells *
 C) the lo word, and each displacement is formed error-free from the two
 (see ``csrc/cell_sweep.cu``). float32 only.
 
+``observables=False`` runs the lean variant of either sweep (the XLA sweep's
+``observables`` flag, ``mdtpu/ops/cell_grid.py:711-717``): forces only, the
+energy and virial returned as zeros. Its forces are the full variant's bits.
+
 :func:`cell_sweep` and :func:`cell_sweep_hilo` launch the kernels in
 ``csrc/cell_sweep.cu`` for CUDA tensors and take the plain versions only for
 CPU tensors. The kernels are compiled with ``nvcc`` for ``sm_90a`` into
@@ -52,6 +56,7 @@ import torch
 from mdtpu_torch.ops import _cuda_build
 from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.potentials.lennard_jones import LennardJones
+from mdtpu_torch.potentials.overlap import OverlapPotential
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
 from mdtpu_torch.utils.math import two_sum
@@ -76,16 +81,17 @@ HILO_LO_BOUND = 4.0
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # Pointers in, grid and capacity, cutoff and potential kind, four float and
 # three int potential parameters, pointers out, the staging plan
-# (list_len, queue_depth, smem_bytes, threads), the stream.
+# (list_len, queue_depth, smem_bytes, threads), the observables flag, the
+# stream.
 _SWEEP_ARGS = ((_P,) * 4 + (_I,) * 4 + (_D, _I) + (_D,) * 4 + (_I,) * 3
-               + (_P,) * 3 + (_I,) * 4 + (_P,))
+               + (_P,) * 3 + (_I,) * 5 + (_P,))
 # The hi/lo entry takes the lo words after the hi words and the filter margin
 # after the plan.
 _SIGNATURES = (("mdtpu_cell_sweep_f32", _SWEEP_ARGS),
                ("mdtpu_cell_sweep_f64", _SWEEP_ARGS),
                ("mdtpu_cell_sweep_hilo_f32",
-                (_P,) + _SWEEP_ARGS[:-1] + (_D, _P)),
-               ("mdtpu_cell_sweep_occupancy", (_I,) * 11 + (_P,)))
+                (_P,) + _SWEEP_ARGS[:-2] + (_D, _I, _P)),
+               ("mdtpu_cell_sweep_occupancy", (_I,) * 12 + (_P,)))
 
 
 def _library():
@@ -114,6 +120,8 @@ def kernel_params(potential):
     if kind is LennardJonesXPLOR:
         return 2, (potential.epsilon, potential.sigma, potential.r_on,
                    potential.r_cut), (0, 0, mix)
+    if kind is OverlapPotential:
+        return 3, (potential.tol, 0.0, 0.0, 0.0), (0, 0, 0)
     raise NotImplementedError(
         f"the CUDA pair sweeps have no functor for {kind.__name__}; user "
         f"potentials in the kernel are queue A9")
@@ -165,7 +173,7 @@ def stage_cells(stencil_counts, list_len):
     raise ValueError("a single cell exceeds the stage's length")
 
 
-def blocks_per_sm(cap, dtype, hilo, potential) -> int:
+def blocks_per_sm(cap, dtype, hilo, potential, observables=True) -> int:
     """How many blocks of the kernel that a launch at capacity ``cap`` would
     run are resident on one SM together (asks the CUDA runtime; needs a
     card)."""
@@ -175,7 +183,7 @@ def blocks_per_sm(cap, dtype, hilo, potential) -> int:
     out = ctypes.c_int(0)
     rc = lib.mdtpu_cell_sweep_occupancy(
         torch.finfo(dtype).bits // 8, int(hilo), cap, kind, *ip, list_len,
-        QUEUE_DEPTH, smem, threads, ctypes.addressof(out))
+        QUEUE_DEPTH, smem, threads, int(observables), ctypes.addressof(out))
     _cuda_build.check(lib, NAME, rc, "cell_sweep occupancy query")
     return out.value
 
@@ -261,15 +269,17 @@ def check_cuda(tensors, dtypes):
     return device, dtype
 
 
-def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
+def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
+               observables=True):
     """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
     take :func:`cell_sweep_plain`. Each launch adds one to
-    ``cell_sweep.launches``."""
+    ``cell_sweep.launches``, and a launch of the lean variant
+    (``observables=False``) also to ``cell_sweep.lean_launches``."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     if slot_pos.device.type == "cpu":
         return cell_sweep_plain(slot_pos, slot_diam, counts, box, grid,
-                                cutoff, potential)
+                                cutoff, potential, observables)
     device, dtype = check_cuda((slot_pos, slot_diam, counts, box),
                                (torch.float32, torch.float64))
     lib = _library()
@@ -277,38 +287,53 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
           else lib.mdtpu_cell_sweep_f64)
     out = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, box),
                        grid, cap, cutoff, potential, n_cells, "cell_sweep",
-                       plan=_plan_args(cap, dtype, hilo=False))
-    cell_sweep.launches += 1
+                       plan=(*_plan_args(cap, dtype, hilo=False),
+                             int(observables)),
+                       observables=observables)
+    _count(cell_sweep, observables)
     return out
 
 
-cell_sweep.launches = 0
-
-
 def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
-                    potential):
+                    potential, observables=True):
     """The hi/lo pair sweep (float32). CUDA tensors launch the kernel (or
     raise); CPU tensors take :func:`cell_sweep_hilo_plain`. Each launch adds
-    one to ``cell_sweep_hilo.launches``."""
+    one to ``cell_sweep_hilo.launches``, and a launch of the lean variant
+    also to ``cell_sweep_hilo.lean_launches``."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     if tuple(slot_lo.shape) != tuple(slot_pos.shape):
         raise ValueError("slot_lo must have the shape of slot_pos")
     if slot_pos.device.type == "cpu":
         return cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts,
-                                     box, grid, cutoff, potential)
+                                     box, grid, cutoff, potential,
+                                     observables)
     check_cuda((slot_pos, slot_lo, slot_diam, counts, box), (torch.float32,))
     lib = _library()
     out = launch_sweep(lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
                        (slot_pos, slot_lo, slot_diam, counts, box), grid, cap,
                        cutoff, potential, n_cells, "cell_sweep_hilo",
                        plan=(*_plan_args(cap, torch.float32, hilo=True),
-                             hilo_filter_margin(torch.float32)))
-    cell_sweep_hilo.launches += 1
+                             hilo_filter_margin(torch.float32),
+                             int(observables)),
+                       observables=observables)
+    _count(cell_sweep_hilo, observables)
     return out
 
 
-cell_sweep_hilo.launches = 0
+def _count(wrapper, observables):
+    wrapper.launches += 1
+    if not observables:
+        wrapper.lean_launches += 1
+
+
+def reset_launches():
+    """Set both sweeps' launch counts to 0."""
+    for wrapper in (cell_sweep, cell_sweep_hilo):
+        wrapper.launches = wrapper.lean_launches = 0
+
+
+reset_launches()
 
 
 def _plan_args(cap, dtype, hilo):
@@ -317,27 +342,35 @@ def _plan_args(cap, dtype, hilo):
 
 
 def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
-                 n_cells, what, scratch=(), plan=()):
+                 n_cells, what, scratch=(), plan=(), observables=True):
     """Launch a sweep entry point of the library of ``csrc/<name>.cu`` on
     the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
     p0..p3, i0..i2, force, e_part, w_part, scratch..., plan..., stream)``
     (``scratch`` tensors, ``plan`` numbers). Allocates the outputs, raises
     on a launch error, and returns ``(energy, virial, slot_forces)`` with
-    the per-cell partials summed on the device."""
+    the per-cell partials summed on the device; ``observables=False`` (a
+    lean launch) passes no partials and returns zeros for both scalars."""
     kind, fp, ip = kernel_params(potential)
     slot_pos = inputs[0]
     dtype, device = slot_pos.dtype, slot_pos.device
     force = torch.empty((3, slot_pos.shape[1]), dtype=dtype, device=device)
-    e_part = torch.empty((n_cells,), dtype=dtype, device=device)
-    w_part = torch.empty((n_cells,), dtype=dtype, device=device)
+    if observables:
+        e_part = torch.empty((n_cells,), dtype=dtype, device=device)
+        w_part = torch.empty((n_cells,), dtype=dtype, device=device)
+        partials = (e_part.data_ptr(), w_part.data_ptr())
+    else:
+        partials = (None, None)
     nx, ny, nz = (int(g) for g in grid)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*(t.data_ptr() for t in inputs), nx, ny, nz, cap,
                 float(cutoff), kind, *(float(v) for v in fp), *ip,
-                force.data_ptr(), e_part.data_ptr(), w_part.data_ptr(),
+                force.data_ptr(), *partials,
                 *(t.data_ptr() for t in scratch), *plan, stream)
     _cuda_build.check(lib, name, rc, what)
+    if not observables:
+        zero = force.new_zeros(())
+        return zero, zero, force
     return torch.sum(e_part), torch.sum(w_part), force
 
 
@@ -408,33 +441,35 @@ class PairTiles:
         return nb, u, f, r2s, d
 
 
-def _full_stencil_plain(tiles):
+def _full_stencil_plain(tiles, observables=True):
     zero = torch.zeros((), dtype=tiles.dtype, device=tiles.device)
     energy, virial = zero, zero
     force = torch.zeros((3, tiles.n_cells, tiles.cap), dtype=tiles.dtype,
                         device=tiles.device)
     for off in itertools.product((-1, 0, 1), repeat=3):
         _, u, f, r2s, d = tiles.tile(off)
-        energy = energy + 0.5 * torch.sum(u)
-        virial = virial + 0.5 * torch.sum(f * r2s)
+        if observables:
+            energy = energy + 0.5 * torch.sum(u)
+            virial = virial + 0.5 * torch.sum(f * r2s)
         for k in range(3):
             force[k] += torch.sum(f * d[k], dim=2)
     return energy, virial, force.reshape(3, -1)
 
 
 def cell_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
-                     potential):
+                     potential, observables=True):
     """The sweep in plain PyTorch, same arguments and results as
     :func:`cell_sweep`: one (n_cells, C, C) pair tile per stencil offset,
     neighbour cells found by periodic index with the +-L image shift added,
     loops bounded by the per-cell counts through masks."""
     check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
     return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
-                                         grid, cutoff, potential))
+                                         grid, cutoff, potential),
+                               observables)
 
 
 def cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts, box, grid,
-                          cutoff, potential):
+                          cutoff, potential, observables=True):
     """The hi/lo sweep in plain PyTorch, same arguments and results as
     :func:`cell_sweep_hilo`: the image shift goes onto the hi word through
     ``two_sum`` with its residual folded into the lo word, and each
@@ -443,4 +478,4 @@ def cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts, box, grid,
     check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
     return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
                                          grid, cutoff, potential,
-                                         slot_lo=slot_lo))
+                                         slot_lo=slot_lo), observables)

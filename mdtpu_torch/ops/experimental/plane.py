@@ -23,6 +23,7 @@ routes that case to its XLA hi/lo sweep.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 from mdtpu_torch.ops.cell_grid import CellGridEngine
 from mdtpu_torch.ops.plane_sweep import plane_sweep
@@ -32,7 +33,10 @@ from mdtpu_torch.ops.plane_sweep import plane_sweep
 class PlaneEngine(CellGridEngine):
     """:class:`CellGridEngine` whose sweep is the Newton half stencil;
     ``create`` and ``with_grown_capacity`` are inherited and keep the
-    type."""
+    type. It keeps the particle-order step: the slot loop would call the
+    full-stencil sweep."""
+
+    runs_in_slots: ClassVar[bool] = False
 
     def sweep(self, slot_pos, slot_diam, counts, box):
         return plane_sweep(slot_pos, slot_diam, counts, box, self.grid,

@@ -2,14 +2,25 @@
 
 Counterpart of ``mdtpu/sim/driver.py`` for NVT, NVE and Brownian dynamics on
 one device. The output schedule (thermo, trajectory and log-time snapshot
-events) is computed on the host up front; the state advances event by event
-through the step, and after each event's segment the driver reads two
-health flags (one host synchronisation per event):
+events) is computed on the host up front; the state advances event by event,
+and after each event's segment the driver reads its health in one host
+synchronisation:
 
   * non-finite positions: the run diverged, raise;
   * engine capacity overflow: a cell held more particles than its slots, so
-    some particles got no forces. The segment is rerun from its start state
-    with a grown engine (up to 8 times).
+    some particles got no forces (in the slot layout, were dropped). The
+    segment is rerun from its start state with a grown engine (up to 8
+    times);
+  * in the slot layout, the count of occupied slots: a particle lost
+    without the overflow flag raises.
+
+Like the JAX package, a cell-grid engine with ``compensated=True`` runs the
+slot-space loop (:mod:`mdtpu_torch.integrate.slot_step`): the state is put
+in slot order once, advanced by ``make_slot_advance`` (no per-step scatter or
+gather, the rebuild check a host read a step, lean steps inside a segment),
+ordered by ``ids`` for frames and put back in particle order at the end. Other
+engines, ``PlaneEngine`` and ``compensated=False`` take the particle-order
+step.
 
 Files match the JAX package's: ``thermo.txt`` rows ``"{s} {e:.6f} {t:.6f}
 {p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` and ``snapshot.{s}``
@@ -30,6 +41,7 @@ import torch
 from mdtpu_torch.core.box import box_volume
 from mdtpu_torch.core.types import (NVE, Brownian, Parameters, SimulationState,
                                     state_to)
+from mdtpu_torch.integrate import slot_step as slots
 from mdtpu_torch.integrate.step import make_step
 from mdtpu_torch.io.logtimes import generate_log_times
 from mdtpu_torch.io.writer import TrajectoryWriter
@@ -90,6 +102,14 @@ def _thermo_values(e, t, virial, virial_accum, nprom, *, ensemble, n, dim,
     return ener, t, pressure
 
 
+def _slot_route(engine, state, compensated):
+    """Whether the run takes the slot-space loop: a cell-grid engine that
+    runs in slots (not ``PlaneEngine``), the state's dimension that of its
+    grid, and ``compensated=True``, as in the JAX package."""
+    return (getattr(engine, "runs_in_slots", False)
+            and state.dimension == len(engine.grid) and compensated)
+
+
 def _hilo_route(engine, state, ensemble, precision, compensated):
     """Whether the hi/lo (f32x2) pair sweep runs: ``"auto"`` takes it for
     float32 NVE on a cell-grid engine with ``compensated=True``, as the JAX
@@ -97,7 +117,8 @@ def _hilo_route(engine, state, ensemble, precision, compensated):
     cannot run."""
     from mdtpu_torch.ops.cell_grid import CellGridEngine
 
-    route = isinstance(engine, CellGridEngine) and compensated
+    route = (isinstance(engine, CellGridEngine) and compensated
+             and state.dimension == len(engine.grid))
     if precision == "f32x2":
         if not route:
             raise ValueError(
@@ -119,6 +140,33 @@ def _capacity_overflow(state):
     if flag is None:
         return torch.zeros((), dtype=torch.bool, device=state.device)
     return flag
+
+
+def _health(state, use_slot):
+    """``[diverged, overflow, occupied slots]`` as Python ints, in one host
+    read (the occupied count -1 in particle order)."""
+    occupied = (state.nbrs.occupied.sum() if use_slot
+                else torch.full((), -1, dtype=torch.int64,
+                                device=state.device))
+    return torch.stack([(~torch.all(torch.isfinite(state.positions))).long(),
+                        _capacity_overflow(state).long(),
+                        occupied]).tolist()
+
+
+def _frame_rows(state, use_slot, n, unitcell_np):
+    """A frame's ``(positions float32 (n, d), images int32 (n, d))`` in
+    particle order. Slot states are ordered by ``ids`` on the device and
+    their deferred-wrap drift folded on the host (``_host_wrap``), from the
+    float32 positions, as the JAX package does."""
+    if not use_slot:
+        return (state.positions.to(torch.float32).cpu().numpy(),
+                state.images.cpu().numpy().astype(np.int32))
+    key = torch.where(state.ids < 0, torch.iinfo(torch.int64).max, state.ids)
+    perm = torch.argsort(key)[:n]
+    pos = state.positions.to(torch.float32)[:, perm].T.cpu().numpy()
+    images = state.images[:, perm].T.cpu().numpy()
+    pos, images = slots._host_wrap(pos, images, unitcell_np)
+    return pos, images.astype(np.int32)
 
 
 def _not_ported(what, queue):
@@ -156,8 +204,9 @@ def run_simulation(
 
     ``engine``: any engine of :mod:`mdtpu_torch.ops`, e.g. the Newton
     half-stencil :class:`mdtpu_torch.ops.experimental.PlaneEngine`
-    (``select_engine`` does not pick it). The step is always in particle
-    order, so every engine runs with ``compensated`` either way.
+    (``select_engine`` does not pick it). A ``CellGridEngine`` with
+    ``compensated=True`` runs the slot-space loop; every other combination
+    the particle-order step.
 
     ``precision``: ``"auto"`` runs the hi/lo (f32x2) pair sweep for float32
     NVE on a cell-grid engine with ``compensated=True``, as the JAX package
@@ -186,6 +235,7 @@ def run_simulation(
     if engine is None:
         engine = select_engine(params.potential, state.cutoff, state)
     hilo = _hilo_route(engine, state, ensemble, precision, compensated)
+    use_slot = _slot_route(engine, state, compensated)
     is_brownian = isinstance(ensemble, Brownian)
 
     potential = params.potential
@@ -201,21 +251,50 @@ def run_simulation(
     # Engine state and, for MD, initial forces (the reference's first
     # half-kick uses zero forces; a Brownian step computes its forces
     # first); grow the engine until the initial binning fits.
-    for _ in range(_MAX_GROWS + 1):
-        nbrs = engine.allocate(state.positions, state.diameters,
-                               state.unitcell, state.unitcell_inv)
-        if is_brownian:
-            state = state.replace(nbrs=nbrs)
-        else:
-            e0, w0, f0, nbrs = engine.compute(
-                state.positions, state.diameters, state.unitcell,
-                state.unitcell_inv, nbrs)
-            state = state.replace(forces=f0, energy=e0, virial=w0, nbrs=nbrs)
-        if not bool(_capacity_overflow(state)):
-            break
-        engine = engine.with_grown_capacity()
+    if use_slot:
+        state, engine = slots.slotify_grown(state, engine)
+        state = slots.slot_forces(state, engine)
     else:
-        raise RuntimeError("cell capacity still overflowing after 8 grows")
+        for _ in range(_MAX_GROWS + 1):
+            nbrs = engine.allocate(state.positions, state.diameters,
+                                   state.unitcell, state.unitcell_inv)
+            if is_brownian:
+                state = state.replace(nbrs=nbrs)
+            else:
+                e0, w0, f0, nbrs = engine.compute(
+                    state.positions, state.diameters, state.unitcell,
+                    state.unitcell_inv, nbrs)
+                state = state.replace(forces=f0, energy=e0, virial=w0,
+                                      nbrs=nbrs)
+            if not bool(_capacity_overflow(state)):
+                break
+            engine = engine.with_grown_capacity()
+        else:
+            raise RuntimeError("cell capacity still overflowing after 8 grows")
+
+    def make_advance(engine):
+        """``advance(state, k)``: k steps of the run's route."""
+        if use_slot:
+            return slots.make_slot_advance(params, ensemble, engine,
+                                           compensated=compensated, hilo=hilo)
+        step_fn = make_step(params, ensemble, engine, compensated, hilo=hilo)
+
+        def advance(state, k):
+            for _ in range(k):
+                state = step_fn(state)
+            return state
+
+        return advance
+
+    def restore(seg_start, engine):
+        """The segment's start state for a grown engine."""
+        if use_slot:
+            state, engine = slots.slotify_grown(
+                slots.unslotify_state(seg_start), engine)
+            return slots.slot_forces(state, engine), engine
+        return seg_start.replace(nbrs=engine.allocate(
+            seg_start.positions, seg_start.diameters, seg_start.unitcell,
+            seg_start.unitcell_inv)), engine
 
     os.makedirs(pathname, exist_ok=True)
     trajectory_file = os.path.join(pathname, traj_name)
@@ -230,18 +309,14 @@ def run_simulation(
     thermo_steps, traj_steps, snap_steps = _event_schedule(
         start_step, total_steps, frequency, traj_frequency, log_times,
         pathname)
-    step_fn = make_step(params, ensemble, engine, compensated, hilo=hilo)
+    advance = make_advance(engine)
     try:
         for label, n_adv in _segments(start_step, end_step,
                                       thermo_steps | traj_steps | snap_steps):
             seg_start = state
             for attempt in range(_MAX_GROWS + 1):
-                s = seg_start
-                for _ in range(n_adv):
-                    s = step_fn(s)
-                diverged, overflow = torch.stack([
-                    ~torch.all(torch.isfinite(s.positions)),
-                    _capacity_overflow(s)]).tolist()
+                s = advance(seg_start, n_adv)
+                diverged, overflow, occupied = _health(s, use_slot)
                 if diverged:
                     raise RuntimeError(
                         f"simulation diverged (non-finite positions) at or "
@@ -253,16 +328,17 @@ def run_simulation(
                 if attempt == _MAX_GROWS:
                     raise RuntimeError(
                         "engine capacity still overflowing after 8 grows")
-                engine = engine.with_grown_capacity()
+                seg_start, engine = restore(seg_start,
+                                            engine.with_grown_capacity())
                 warnings.warn(
                     f"engine capacity overflow in the segment ending step "
                     f"{label}: restoring its start state and re-running with "
                     f"cell capacity {engine.cell_capacity}")
-                step_fn = make_step(params, ensemble, engine, compensated,
-                                    hilo=hilo)
-                seg_start = seg_start.replace(nbrs=engine.allocate(
-                    seg_start.positions, seg_start.diameters,
-                    seg_start.unitcell, seg_start.unitcell_inv))
+                advance = make_advance(engine)
+            if use_slot and occupied != n:
+                raise RuntimeError(
+                    f"slot state holds {occupied} of {n} particles at step "
+                    f"{label}: capacity overflow recovery failed")
             state = s
             if label in thermo_steps:
                 values = [state.energy, state.temperature, state.virial]
@@ -282,8 +358,7 @@ def run_simulation(
                         nprom=torch.zeros_like(state.nprom))
             if label in traj_steps or label in snap_steps:
                 rows = (label, unitcell_np,
-                        state.positions.to(torch.float32).cpu().numpy(),
-                        state.images.cpu().numpy().astype(np.int32),
+                        *_frame_rows(state, use_slot, n, unitcell_np),
                         diameters_np)
                 if label in traj_steps:
                     writer.write_frame(*rows)
@@ -293,6 +368,13 @@ def run_simulation(
     finally:
         writer.close()
 
+    if use_slot:
+        # Back to particle order (original order through ids) with
+        # particle-order engine state, as the other routes return it.
+        state = slots.unslotify_state(state)
+        state = state.replace(nbrs=engine.allocate(
+            state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv))
     write_xyz(os.path.join(pathname, "final.xyz"), end_step, state.unitcell,
               state.positions, state.diameters, mode="w")
     return state

@@ -2,9 +2,8 @@
 
 Counterpart of ``mdtpu/sim/initialization.py``: ``lattice_positions``,
 ``initialize_velocities``, ``build_state_from_arrays``,
-``lattice_fluid_state`` and ``initialize_state`` modes A (positions given)
-and B (``from_file``). Modes C and D pack random positions with FIRE, which
-is not ported yet (queue A10).
+``lattice_fluid_state`` and ``initialize_state`` in its four modes (C and D
+pack random positions with FIRE, :func:`mdtpu_torch.sim.pack.pack_positions`).
 
 Random numbers come from a CPU ``torch.Generator`` seeded by the caller, so
 a seed gives the same state on every device.
@@ -126,10 +125,12 @@ def initialize_state(
       A. user-provided ``positions`` (+ ``diameters``; box from the
          coordinates' bounding box if ``unitcell`` is absent);
       B. ``from_file``: read an Extended-XYZ snapshot;
-      C/D. random packing in a given or default box: not ported yet
-         (queue A10), raises ``NotImplementedError``.
+      C. user ``unitcell``: random packed positions, unit diameters;
+      D. the default cubic box with L = (N / rho)^(1/d): random packed.
 
-    ``random_init`` and ``pack_tol`` are accepted for signature parity.
+    Packing draws uniform positions and removes every contact closer than
+    ``pack_tol`` with FIRE (:func:`mdtpu_torch.sim.pack.pack_positions`,
+    seeded from ``seed``). ``random_init`` is accepted for signature parity.
     Velocities are left at zero; assign them with
     ``state.replace(velocities=initialize_velocities(...))``."""
     device = resolve_device(device)
@@ -146,10 +147,15 @@ def initialize_state(
     elif from_file:
         cell, positions, diameters = read_xyz(from_file, dimension)
     else:
-        raise NotImplementedError(
-            "random packed initialization (modes C and D) needs the FIRE "
-            "packer, which is not ported yet (queue A10); pass positions= "
-            "or from_file=")
+        from mdtpu_torch.sim.pack import pack_positions
+
+        n = params.n_particles
+        if unitcell is None:
+            unitcell = (n / float(params.density)) ** (1.0 / dimension)
+        cell = to_unitcell(unitcell, dimension, dtype)
+        positions = pack_positions(seed, cell, n, dimension, tol=pack_tol,
+                                   dtype=dtype, device=device)
+        diameters = np.ones(n)
     os.makedirs(pathname, exist_ok=True)
     state = build_state_from_arrays(positions, diameters, cell, seed,
                                     dtype=dtype, cutoff=cutoff, device=device)

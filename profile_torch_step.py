@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_torch_step.py [--engine cellgrid|plane]
+    python3 profile_torch_step.py [--engine cellgrid|plane|slot]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
-``mdtpu_torch.run_simulation``, then times the bare step function
-(``make_md_step``) with the host clock and profiles 50 steps with
-``torch.profiler``. ``--engine cellgrid`` (the default) steps the cell-grid
-engine with Kahan compensation; ``--engine plane`` steps ``PlaneEngine``
-(the Newton half-stencil sweep) with ``compensated=False``, as the JAX
-package drives its B2 kernel. Prints one JSON line: ms per step, device busy
-time per step and the device's idle share over the profiled window, CUDA
-kernel launches and host synchronisations per step, and the kernels that
-take the most device time.
+``mdtpu_torch.run_simulation``, then times the bare step function with the
+host clock and profiles 50 steps with ``torch.profiler``. ``--engine
+cellgrid`` (the default) steps the cell-grid engine in particle order
+(``make_md_step``) with Kahan compensation; ``--engine plane`` steps
+``PlaneEngine`` (the Newton half-stencil sweep) with ``compensated=False``,
+as the JAX package drives its B2 kernel; ``--engine slot`` steps the slot
+layout as ``run_simulation`` does on the cell grid: ``make_slot_advance``
+over one segment of the timed or profiled length (its lean inner steps, the
+rebuild check read every step, the rebuilds that come due, one full step at
+the end), and reports the rebuilds in each window. Prints one JSON line: ms
+per step, device busy time per step and the device's idle share over the
+profiled window, CUDA kernel launches and host synchronisations per step,
+and the kernels that take the most device time.
 """
 
 import argparse
@@ -30,13 +34,14 @@ PROFILED_STEPS = 50
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--engine", choices=("cellgrid", "plane"),
+    parser.add_argument("--engine", choices=("cellgrid", "plane", "slot"),
                         default="cellgrid")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
 
     import mdtpu_torch as mt
+    from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.integrate.step import make_md_step
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
@@ -50,22 +55,42 @@ def main():
                            potential=mt.LennardJones(r_cut=2.5))
     ensemble = mt.NVT(1.0, 0.4)
     engine = mt.select_engine(params.potential, 2.5, state)
-    compensated = args.engine == "cellgrid"
+    compensated = args.engine != "plane"
     if args.engine == "plane":
         engine = PlaneEngine.create(params.potential, 2.5, 0.3,
                                     state.unitcell, N)
     with tempfile.TemporaryDirectory() as d:
         state = mt.run_simulation(state, params, ensemble, 300, 300, d,
                                   engine=engine, compensated=compensated)
-    step = make_md_step(params, ensemble, engine, compensated)
+    rebuilds = []
+    if args.engine == "slot":
+        state = slot_step.slot_forces(slot_step.slotify(state, engine),
+                                      engine)
+        advance = slot_step.make_slot_advance(params, ensemble, engine)
+        rebin = slot_step._rebin
 
-    for _ in range(20):
-        state = step(state)
+        def counted_rebin(s, e):
+            rebuilds[-1] += 1
+            return rebin(s, e)
+
+        slot_step._rebin = counted_rebin
+
+        def run(s, k):
+            rebuilds.append(0)
+            return advance(s, k)
+    else:
+        step = make_md_step(params, ensemble, engine, compensated)
+
+        def run(s, k):
+            for _ in range(k):
+                s = step(s)
+            return s
+
+    state = run(state, 20)
     torch.cuda.synchronize()
     n_timed = 200
     t0 = time.perf_counter()
-    for _ in range(n_timed):
-        state = step(state)
+    state = run(state, n_timed)
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t0) / n_timed * 1e3
 
@@ -73,8 +98,7 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            state = step(state)
+        state = run(state, PROFILED_STEPS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -110,6 +134,8 @@ def main():
         "kernel_launches_per_step": launches / PROFILED_STEPS,
         "host_syncs_per_step": syncs / PROFILED_STEPS,
         "memcpy_calls_per_step": memcpy / PROFILED_STEPS,
+        # Slot layout: rebuilds in the timed and in the profiled window.
+        "rebuilds_timed_profiled": rebuilds[1:],
         "top_device_kernels": [
             {"name": e.key[:90], "calls_per_step": e.count / PROFILED_STEPS,
              "ms_per_step": dev_us(e) / 1e3 / PROFILED_STEPS} for e in top],

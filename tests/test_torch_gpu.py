@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 pair sweep (full stencil, and its hi/lo variant), the Newton half-stencil
 sweep at f64 and f32 for the three potentials the kernels know, the probe of
-its inner loop, and a short run through ``PlaneEngine``. The full-stencil
+its inner loop, and a short run through ``PlaneEngine``. The slot-space
+loop's kernels: the lean variants of the full-stencil sweep bit-equal to the
+full ones, the packer's ``Overlap`` functor, ``compute_slots`` on resorted
+slots, and the slot advance on the card against the CPU. The full-stencil
 sweep also on slot inputs made by hand: every class of capacity (one warp,
 several, a staging plan of fewer than 27 cells), a grid that is not cubic,
 empty and full cells, counts above the capacity, a cluster in which every
@@ -589,3 +592,168 @@ def test_plane_sweep_repeats_bit_for_bit(cuda, name, kind, monkeypatch):
                             state.unitcell_inv, nb)
     _check_half_stencil(kind, slots, eng.grid, eng.cutoff, eng.potential,
                         monkeypatch)
+
+
+# --------------------------------------------------------------------------
+# The slot-space loop's kernels: the lean variants, the Overlap functor,
+# compute_slots on resorted slots, and the slot advance against the CPU.
+# --------------------------------------------------------------------------
+
+
+def _melted_slots(cuda, dtype, n=20000, steps=100):
+    """A lattice melted by ``steps`` NVT steps on the card, in slot order
+    after one rebin with crossings (f64 melt, cast)."""
+    from mdtpu_torch.integrate import slot_step
+
+    pot = LennardJones(r_cut=2.5)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
+                                cutoff=2.5, jitter=JITTER, device=cuda)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    slots = slot_step.make_slot_advance(params, mdtpu_torch.NVT(1.0, 0.4),
+                                        eng)(slots, steps)
+    slots = slot_step._rebin(slots, eng)
+    assert not bool(slots.nbrs.overflow)
+    cast = {name: getattr(slots, name).to(dtype)
+            for name in ("positions", "diameters", "pos_comp", "unitcell")}
+    return slots.replace(**cast), eng
+
+
+@pytest.mark.parametrize("case", ["lattice", "melted"])
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_lean_sweeps_are_bit_equal_to_full(cuda, kind, case):
+    """The lean variant of both sweeps gives the full variant's forces bit
+    for bit, zero energy and virial, and repeats bit for bit."""
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    if case == "lattice":
+        state, eng, nb = _inputs(cuda, "lj", torch.float64)
+        slot_pos, slot_diam, counts, box = eng.slot_inputs(
+            state.positions, state.unitcell, state.unitcell_inv, nb)
+    else:
+        slots, eng = _melted_slots(cuda, torch.float64)
+        slot_pos, slot_diam, counts = (slots.positions, slots.diameters,
+                                       slots.nbrs.counts)
+        box = torch.diagonal(slots.unitcell).contiguous()
+    pot = eng.potential
+    hi = slot_pos.to(dtype)
+    args = (slot_diam.to(dtype), counts, box.to(dtype), eng.grid, eng.cutoff,
+            pot)
+    if kind == "hilo":
+        lo = (slot_pos - hi.double()).float()
+        kernel, first = sweep_mod.cell_sweep_hilo, (hi, lo)
+    else:
+        kernel, first = sweep_mod.cell_sweep, (hi,)
+    before = (kernel.launches, kernel.lean_launches)
+    full = kernel(*first, *args)
+    lean = kernel(*first, *args, observables=False)
+    again = kernel(*first, *args, observables=False)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.lean_launches) == (before[0] + 3,
+                                                       before[1] + 2)
+    assert torch.equal(lean[2], full[2]) and torch.equal(again[2], lean[2])
+    assert float(lean[0]) == float(lean[1]) == 0.0
+    plain = (sweep_mod.cell_sweep_hilo_plain if kind == "hilo"
+             else sweep_mod.cell_sweep_plain)(*first, *args,
+                                              observables=False)
+    tol = 1e-10 if kind == "f64" else 1e-5
+    assert _force_ratio(lean[2], plain[2], int(counts.sum())) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_overlap_functor_matches_plain(cuda, dtype):
+    """The packer's potential in the kernel (uniform random positions at rho
+    0.8, full of overlaps), both variants, against the plain version."""
+    from mdtpu_torch.sim.pack import OverlapPotential
+
+    n = 30000
+    L = (n / 0.8) ** (1 / 3)
+    g = torch.Generator().manual_seed(3)
+    pos = (torch.rand((n, 3), generator=g, dtype=torch.float64) * L).to(
+        dtype).to(cuda)
+    cell = (torch.eye(3, dtype=torch.float64) * L).to(dtype).to(cuda)
+    cinv = torch.linalg.inv(cell.double()).to(dtype)
+    pot = OverlapPotential(tol=1.0)
+    eng = CellGridEngine.create(pot, 1.0, 0.3, cell, n, cell_capacity=16)
+    nb = eng.allocate(pos, torch.ones(n, dtype=dtype, device=cuda), cell,
+                      cinv)
+    assert not bool(nb.overflow)
+    inputs = eng.slot_inputs(pos, cell, cinv, nb)
+    args = (*inputs, eng.grid, eng.cutoff, pot)
+    e1, w1, f1 = sweep_mod.cell_sweep(*args)
+    _, _, f_lean = sweep_mod.cell_sweep(*args, observables=False)
+    again = sweep_mod.cell_sweep(*args)
+    torch.cuda.synchronize()
+    e0, w0, f0 = sweep_mod.cell_sweep_plain(*args)
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    assert float(e0) > 1000.0
+    np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
+    np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
+    assert _force_ratio(f1, f0, n) <= tol_f
+    assert torch.equal(f_lean, f1)
+    assert all(torch.equal(a, b) for a, b in zip(again, (e1, w1, f1)))
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_compute_slots_on_resorted_slots_matches_plain(cuda, kind):
+    """compute_slots on a melted, rebinned slot state (deferred-wrap
+    positions, some outside the box) against cell_sweep_plain on the same
+    slots."""
+    slots, eng = _melted_slots(cuda, torch.float64)
+    from mdtpu_torch.integrate import slot_step
+
+    # Drift again without a rebin: positions up to skin/2 off, some past
+    # the box edge.
+    params = mdtpu_torch.Parameters(0.8, 20000, 0.002, eng.potential)
+    step = slot_step.make_slot_step(params, mdtpu_torch.NVE(), eng)
+    for _ in range(3):
+        slots = step(slots)
+    assert not bool(slot_step.slot_needs_rebin(slots, eng))
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    pos = slots.positions.to(dtype)
+    lo = (slots.positions - pos.double()).float() if kind == "hilo" else None
+    cell = slots.unitcell.to(dtype)
+    e1, w1, f1, _ = eng.compute_slots(pos, slots.diameters.to(dtype), cell,
+                                      cell, slots.nbrs, pos_lo=lo)
+    box = torch.diagonal(cell).contiguous()
+    common = (slots.diameters.to(dtype), slots.nbrs.counts, box, eng.grid,
+              eng.cutoff, eng.potential)
+    if kind == "hilo":
+        e0, w0, f0 = sweep_mod.cell_sweep_hilo_plain(pos, lo, *common)
+    else:
+        e0, w0, f0 = sweep_mod.cell_sweep_plain(pos, *common)
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
+    np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
+    assert _force_ratio(f1, f0, 20000) <= tol_f
+    assert float(f1[:, ~slots.nbrs.occupied].abs().max()) == 0.0
+
+
+def test_slot_advance_on_the_card_matches_the_cpu(cuda):
+    """make_slot_advance at N = 4096 f64 (LJ, small skin: several rebins),
+    on the card and on the CPU from one state: energy, temperature and
+    virial after every segment to rel 1e-10, positions to 1e-9."""
+    from mdtpu_torch.integrate import slot_step
+
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    runs = {}
+    for device in ("cpu", cuda):
+        state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
+                                    cutoff=2.5, jitter=JITTER, device=device)
+        eng = CellGridEngine.create(pot, 2.5, 0.04, state.unitcell, n)
+        slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+        advance = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng)
+        rows = []
+        for k in (1, 7, 7, 7):
+            slots = advance(slots, k)
+            rows.append([float(slots.energy), float(slots.temperature),
+                         float(slots.virial)])
+        runs[str(device)] = (rows, slot_step.unslotify_state(slots))
+    (rows_c, cpu), (rows_g, gpu) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(rows_g, rows_c, rtol=1e-10)
+    np.testing.assert_allclose(gpu.positions.cpu().numpy(),
+                               cpu.positions.numpy(), rtol=0, atol=1e-9)
+    assert torch.equal(gpu.images.cpu(), cpu.images)

@@ -39,7 +39,10 @@ def test_import_loads_no_jax_or_mdtpu():
 
 
 def test_no_source_file_imports_jax_or_mdtpu():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "compare_torch_host.py",
+                                 "compare_torch_sweep.py",
+                                 "profile_torch_step.py")]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -86,8 +89,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
                                    2, 1, str(tmp_path / "x"), compress=True,
                                    device="cpu")
     assert not (tmp_path / "x").exists()
-    with pytest.raises(NotImplementedError, match="A10"):
-        mdtpu_torch.initialize_state(params, str(tmp_path), device="cpu")
+    # Packing (initialize_state without positions) and the minimizers run
+    # on the card by default too.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mdtpu_torch.initialize_state(params, str(tmp_path / "pack"))
+    assert not (tmp_path / "pack").exists()
+    for fn in (mdtpu_torch.fire_minimize, mdtpu_torch.minimize):
+        args = (state, params, str(tmp_path / "min")) \
+            if fn is mdtpu_torch.minimize else (state, params, None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(*args)
 
 
 def test_exports_are_a_subset_of_mdtpu():
