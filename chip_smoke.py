@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the three CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
+   builds the four CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
    started together; ``-Xptxas -v`` summary: registers and spills of every
    entry of ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of
-   the probe).
+   the probe and the pair list).
 2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
    r_c 2.5: a 15^3 grid with capacity C = 37) on the jittered lattice and on
    the melted fluid (the lattice after 300 NVT steps), and for pseudo-hard
@@ -39,7 +39,17 @@
    * the packer's ``Overlap`` functor through ``cell_sweep`` (full and lean,
      f32 and f64) on the packing path's start (65,536 uniform random
      positions at rho 0.8, tol 1, the engine grown as the path grows it),
-     against the plain version at the same tolerances.
+     against the plain version at the same tolerances;
+   * 2D and tilted boxes: ``cell_sweep`` (f64, f32, full and lean) and
+     ``cell_sweep_hilo`` (full and lean) on ``bench_2d.py``'s 2D system
+     after 200 NVT steps, on the same in a box tilted by L/8, and on the
+     bench's LJ start in the tilted 3D box of the tilted path, at the same
+     tolerances, lean forces bit-equal, two launches bit for bit, timed in
+     turns;
+   * the pair list (``cell_pairs``, f64, f32 and hi/lo) entry for entry
+     against its plain version, and its reduction (``pair_reduce``, f64
+     and f32, full and lean) against its plain version and timed against
+     ``index_add_``, on config 4's density and diameters on a lattice.
    Times the sweeps in turns within this call (cell, plane, hi/lo and the
    lean variants, there and back, five times, and their medians): each
    wrapper call is
@@ -73,10 +83,22 @@
      through ``fire_minimize`` on the cell grid, 20 iterations, then 200 at
      tol 0, timed;
    * packing: ``initialize_state`` without positions (mode D) at 65,536
-     particles, rho 0.8.
+     particles, rho 0.8;
+   * 2D: ``bench_2d.py``'s configuration (65,536 polydisperse pseudo-hard
+     disks, rho 0.7, f32) through ``run_simulation`` on the slot route,
+     600 NVT(1.0, 0.1) then 200 NVE steps (hi/lo), one frame a leg;
+   * tilted: the bench's LJ fluid in the box [[L, L/8, L/12], [0, L, L/6],
+     [0, 0, L]], the same legs at NVT(1.0, 0.4);
+   * user potential: BASELINE config 4 at 65,536 (a user's non-additive
+     polydisperse potential, f64, rho 0.9) from an XYZ snapshot through
+     ``initialize_state(from_file=...)``, ``minimize`` (slot FIRE on the
+     pair list, 1000 iterations at dmax 0.01) and 300 NVT(0.5, 0.01) steps
+     at dt 1e-4.
    B1, the slot Brownian path, FIRE and packing run in the slot layout (the
-   slot step's counter must show it for the dynamics). Checks finite output, the NVT
-   temperature, NVE energy conservation (to 1e-4 per particle with the force
+   slot step's counter must show it for the dynamics), and so do the 2D,
+   tilted and user paths; built-in potentials never launch the pair list,
+   and the user potential never the sweep kernels. Checks finite output,
+   the NVT temperature, NVE energy conservation (to 1e-4 per particle with the force
    shift), the T column of the Brownian rows, the output and snapshot files,
    FIRE's energy after its first iterations below its start, the packer's
    convergence and no pair closer than tol beyond f32 rounding, and the
@@ -107,7 +129,7 @@ BENCH_GEOMETRY = ((15, 15, 15), 37)   # CellGridEngine.create at skin 0.3
 NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
-SOURCES = ("cell_sweep", "plane_sweep", "plane_probe")
+SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -132,6 +154,11 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 # the force.
 OPS_DISTANCE = 9
 OPS_DISTANCE_HILO = 33
+# In 2D: 2 subtractions, 2 multiplies, 1 add and the compare; hi/lo two
+# components of 9. The potential's force sums lose one component (2).
+OPS_DISTANCE_2D = 6
+OPS_DISTANCE_HILO_2D = 22
+OPS_FORCE_COMPONENT = 2
 OPS_ENGINE_PAIR = 2
 OPS_POTENTIAL_PAIR = {"LennardJones": 22, "PseudoHS": 30,
                       "OverlapPotential": 18}
@@ -146,6 +173,23 @@ PACK_DENSITY = 0.8
 OPS_PROBE = {"full": 29, "full_static": 29, "nodiv": 20}
 # The kernels' potential functors (csrc/pair_potentials.cuh) by class.
 POT_FUNCTOR = {"LennardJones": "LJ", "PseudoHS": "PseudoHS"}
+# The 2D path: bench_2d.py's configuration (65,536 polydisperse pseudo-hard
+# disks, rho 0.7, diameters 1 + 0.2 (U - 0.5), cutoff 1.021 * 1.1 + 0.2,
+# dt 0.001, NVT(1.0, 0.1), f32, a lattice jittered by 0.01), then NVE.
+RHO_2D, POLY_2D = 0.7, 0.2
+CUTOFF_2D = 1.021 * (1.0 + POLY_2D / 2) + 0.2
+# The tilted path: the bench's Lennard-Jones fluid in the box whose columns
+# carry tests/test_cell_grid.py:128-130's off-diagonals scaled to L.
+GEO_NVT_STEPS, GEO_NVE_STEPS = 600, 200
+# The user-potential path: BASELINE config 4 (examples/03_polydisperse_2d.py)
+# at 65,536: 2D, rho 0.9, diameters U(0.8, 1.2), cutoff 1.8, f64, an XYZ
+# start of uniform random positions, minimize, then NVT(0.5, 0.01) at
+# dt 1e-4. FIRE with the reference's step cap (dmax 0.1) climbs on this
+# start in both packages (the JAX package's at N = 1200: 1.14 a particle
+# after 1000 iterations, 57.9 after 3000), and NVT at dt 1e-4 then blows
+# up; with dmax 0.01 (0.25 a particle at 1000) it does not.
+RHO_USER, CUTOFF_USER, USER_DMAX = 0.9, 1.8, 0.01
+USER_FIRE_ITERS, USER_NVT_STEPS = 1000, 300
 
 
 def log(*args):
@@ -197,22 +241,23 @@ class PairCounter:
 
 
 def pair_counts(inputs, grid, cutoff, pot_cutoff):
-    """Ordered candidate pairs the full 27-cell stencil and the half stencil
-    visit (from the per-cell counts), and the unordered pairs inside the
-    engine cutoff and inside the potential's cutoff (from the masks of
-    ``cell_sweep_plain``)."""
+    """Ordered candidate pairs the full stencil (27 cells, 9 in 2D) and the
+    half stencil (3D only; None in 2D) visit (from the per-cell counts), and
+    the unordered pairs inside the engine cutoff and inside the potential's
+    cutoff (from the masks of ``cell_sweep_plain``)."""
     from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
     from mdtpu_torch.ops.plane_sweep import NEWTON_CELLS, SELF_COLUMN
     slot_pos, slot_diam, counts, box = inputs
+    dim = len(grid)
     cnt = counts.reshape(grid)
 
     def candidates(offsets):
-        near = sum(torch.roll(cnt, tuple(-o for o in off), dims=(0, 1, 2))
-                   for off in offsets)
+        near = sum(torch.roll(cnt, tuple(-o for o in off),
+                              dims=tuple(range(dim))) for off in offsets)
         return int((cnt * near).sum() - cnt.sum())
 
-    full = candidates(itertools.product((-1, 0, 1), repeat=3))
-    half = candidates(SELF_COLUMN + NEWTON_CELLS)
+    full = candidates(itertools.product((-1, 0, 1), repeat=dim))
+    half = candidates(SELF_COLUMN + NEWTON_CELLS) if dim == 3 else None
     f64 = (slot_pos.double(), slot_diam.double(), counts, box.double())
     inside, inside_pot = (
         round(float(cell_sweep_plain(*f64, grid, cutoff, PairCounter(r))[0]))
@@ -244,18 +289,20 @@ def bound(inputs, counts_, pot, dtype, hilo=False, observables=True):
     the inputs count those; the outputs cover every slot. A lean sweep
     (``observables=False``) counts only the force's work and output."""
     _, _, inside, inside_pot = counts_
-    dist = OPS_DISTANCE_HILO if hilo else OPS_DISTANCE
+    slot_pos, _, counts, _ = inputs
+    dim = slot_pos.shape[0]
+    dist = distance_ops(dim, hilo)
     per_pot = (OPS_POTENTIAL_PAIR if observables
                else OPS_POTENTIAL_PAIR_LEAN)[type(pot).__name__]
+    per_pot -= (3 - dim) * OPS_FORCE_COMPONENT
     ops = inside * (dist + OPS_ENGINE_PAIR) + inside_pot * per_pot
-    slot_pos, _, counts, _ = inputs
     b = slot_pos.element_size()
     n_slots, n_cells = slot_pos.shape[1], counts.shape[0]
     occupied = int(counts.sum())
-    words = 7 if hilo else 4
-    nbytes = (words * occupied * b + n_cells * 8 + 3 * b     # inputs
-              + 3 * n_slots * b                             # forces
-              + (2 * n_cells * b if observables else 0))    # partials
+    words = dim + 1 + (dim if hilo else 0)
+    nbytes = (words * occupied * b + n_cells * 8 + dim * dim * b  # inputs
+              + dim * n_slots * b                             # forces
+              + (2 * n_cells * b if observables else 0))      # partials
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -264,19 +311,27 @@ def bound(inputs, counts_, pot, dtype, hilo=False, observables=True):
             "bytes": nbytes}
 
 
-def stencil_work(counts_, pot, dtype, half, hilo=False):
+def distance_ops(dim, hilo=False):
+    """Operations of one pair's distance and cutoff test."""
+    if dim == 2:
+        return OPS_DISTANCE_HILO_2D if hilo else OPS_DISTANCE_2D
+    return OPS_DISTANCE_HILO if hilo else OPS_DISTANCE
+
+
+def stencil_work(counts_, pot, dtype, half, hilo=False, dim=3):
     """The design's own work: the stencil's candidate pairs, the pairs
     inside the cutoffs evaluated once (half stencil, Newton cells) or from
     both sides. The full-stencil kernel filters every candidate with the
     plain distance and computes the distance of a hit again (hi/lo: the
     exact one) when it evaluates it."""
     full_cand, half_cand, inside, inside_pot = counts_
-    pot_ops = OPS_POTENTIAL_PAIR[type(pot).__name__]
+    pot_ops = (OPS_POTENTIAL_PAIR[type(pot).__name__]
+               - (3 - dim) * OPS_FORCE_COMPONENT)
     cand = half_cand if half else full_cand
     sides = 1 if half else 2
-    again = 0 if half else (OPS_DISTANCE_HILO if hilo else OPS_DISTANCE)
-    ops = (cand * OPS_DISTANCE + sides * inside * (again + OPS_ENGINE_PAIR)
-           + sides * inside_pot * pot_ops)
+    again = 0 if half else distance_ops(dim, hilo)
+    ops = (cand * distance_ops(dim) + sides * inside
+           * (again + OPS_ENGINE_PAIR) + sides * inside_pot * pot_ops)
     return {"stencil_candidates": cand, "stencil_ops": ops,
             "stencil_ops_ms": ops / PEAK_OPS[dtype] * 1e3}
 
@@ -504,6 +559,14 @@ def kernel_phase(mt, plane_registers):
             torch.cuda.empty_cache()
     brownian_geometry_check(mt, record, plane_registers)
     overlap_check(mt, record)
+    geometry_check(mt, record, "bench_2d", melted_2d(mt), mt.PseudoHS(),
+                   CUTOFF_2D)
+    geometry_check(mt, record, "bench_2d_tilted", melted_2d(mt, tilt=True),
+                   mt.PseudoHS(), CUTOFF_2D)
+    geometry_check(mt, record, "bench_tilted",
+                   state_tilted(mt, torch.float64),
+                   mt.LennardJones(r_cut=2.5), 2.5)
+    pair_list_check(mt, record, *user_lattice(mt))
     return results, failures
 
 
@@ -558,6 +621,7 @@ def hilo_check(args, pot, counts_, base, record, turns):
     torch.cuda.synchronize()
     r0 = cell_sweep_hilo_plain(*args)
     slot_hi, slot_lo, diam, counts, box, grid, cutoff, _ = args
+    dim = len(grid)
     r64 = cell_sweep_plain(slot_hi.double() + slot_lo.double(), diam.double(),
                            counts, box.double(), grid, cutoff, pot)
     rp = cell_sweep(slot_hi, diam, counts, box, grid, cutoff, pot)
@@ -565,7 +629,7 @@ def hilo_check(args, pot, counts_, base, record, turns):
     worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
     sweep_inputs = (slot_hi, diam, counts, box)
     list_len, smem, threads = stage_plan(base["capacity"], torch.float32,
-                                         True)
+                                         True, dim)
     ms, cell_ms = (statistics.median(turns[k])
                    for k in ("cell_sweep_hilo", "cell_sweep"))
     rec = {"kernel_check": "cell_sweep_hilo", **base,
@@ -578,13 +642,15 @@ def hilo_check(args, pot, counts_, base, record, turns):
            "repeats_bit_for_bit": repeats(cell_sweep_hilo, args, r1),
            "stage_plan": {"list_len": list_len, "smem_bytes": smem,
                           "threads": threads, "blocks_per_sm": blocks_per_sm(
-                              base["capacity"], torch.float32, True, pot)},
+                              base["capacity"], torch.float32, True, pot,
+                              dim=dim)},
            "ms": ms, "ms_turns": turns["cell_sweep_hilo"],
            "median_ms_ratio_hilo_over_cell": ms / cell_ms,
            "plain_ms": cuda_time_ms(lambda: cell_sweep_hilo_plain(*args), 3,
                                     1),
            **bound(sweep_inputs, counts_, pot, torch.float32, hilo=True),
-           **stencil_work(counts_, pot, torch.float32, False, hilo=True)}
+           **stencil_work(counts_, pot, torch.float32, False, hilo=True,
+                          dim=dim)}
     ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= 1e-5
           and rec["rel_err_virial"] <= 1e-5 and worst <= 1e-5
           and 5 * rec["hilo_err_vs_f64"] <= rec["plain_f32_err_vs_f64"]
@@ -609,9 +675,10 @@ def lean_check(name, kernel, plain, args, full, sweep_inputs, counts_, pot,
     r0 = plain(*args, observables=False)
     torch.cuda.synchronize()
     dtype = sweep_inputs[0].dtype
+    dim = len(base["grid"])
     worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
     ms = statistics.median(turns[f"{name}_lean"])
-    list_len, smem, threads = stage_plan(base["capacity"], dtype, hilo)
+    list_len, smem, threads = stage_plan(base["capacity"], dtype, hilo, dim)
     rec = {"kernel_check": f"{name}_lean", **base,
            "forces_bit_equal_to_full": torch.equal(r1[2], full[2]),
            "energy_virial_zero": float(r1[0]) == 0.0 == float(r1[1]),
@@ -621,7 +688,7 @@ def lean_check(name, kernel, plain, args, full, sweep_inputs, counts_, pot,
                           "threads": threads,
                           "blocks_per_sm": blocks_per_sm(
                               base["capacity"], dtype, hilo, pot,
-                              observables=False)},
+                              observables=False, dim=dim)},
            "ms": ms, "ms_turns": turns[f"{name}_lean"],
            "median_ms_ratio_lean_over_full":
                ms / statistics.median(turns[name]),
@@ -709,6 +776,375 @@ def overlap_check(mt, record):
                    inputs, counts_, pot, {**base, "case": "pack_start_lean"},
                    record, turns)
         del positions, nb, inputs, args
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------- 2D and tilted boxes
+
+def user_potential(mt):
+    """The user potential of ``examples/03_polydisperse_2d.py`` written
+    against the port's ``Potential``, as a user writes one: pseudo-HS-style
+    repulsion with non-additive cross diameters sigma_ij = 0.5 (s_i + s_j)
+    (1 - 0.2 |s_i - s_j|), energy- and force-shifted at 1.25 sigma_ij. No
+    kernel has a functor for it: the cell grid takes the pair-list route."""
+    from mdtpu_torch.utils.math import ipow
+
+    @dataclasses.dataclass(frozen=True)
+    class NonAdditivePHS(mt.Potential):
+        lam: int = 12
+
+        def evaluate(self, r, sigma_i, sigma_j):
+            sigma = 0.5 * (sigma_i + sigma_j) * (1.0 - 0.2 * torch.abs(
+                sigma_i - sigma_j))
+            cutoff = 1.25 * sigma
+            inside = r < cutoff
+            r_safe = torch.where(inside, r, torch.ones_like(r))
+            sr = sigma / r_safe
+            u_raw = ipow(sr, self.lam)
+            f_raw = self.lam * u_raw / r_safe
+            u_c = ipow(torch.tensor(1 / 1.25, dtype=r.dtype,
+                                    device=r.device), self.lam)
+            f_c = self.lam * u_c / cutoff
+            u = u_raw - u_c + (r_safe - cutoff) * f_c
+            f = f_raw - f_c
+            zero = torch.zeros_like(u)
+            return (torch.where(inside, u, zero),
+                    torch.where(inside, f, zero))
+
+    return NonAdditivePHS()
+
+
+def _uniform(seed, shape, dtype=torch.float64):
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    return torch.rand(shape, generator=g, dtype=dtype)
+
+
+def tilted_cell(L):
+    """[[L, L/8, L/12], [0, L, L/6], [0, 0, L]]: tests/test_cell_grid.py's
+    off-diagonals scaled to L."""
+    return torch.tensor([[L, L / 8, L / 12], [0.0, L, L / 6],
+                         [0.0, 0.0, L]], dtype=torch.float64)
+
+
+def state_2d(mt, dtype, tilt=False):
+    """bench_2d.py's start at 65,536: a lattice jittered by 0.01 of the
+    spacing's normals, diameters 1 + 0.2 (U - 0.5), velocities at T = 1;
+    ``tilt``: the box's second column leans by L/8."""
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    L = float(torch.tensor((N_BENCH / RHO_2D) ** 0.5, dtype=torch.float32))
+    cell = torch.eye(2, dtype=torch.float64) * L
+    if tilt:
+        cell[0, 1] = L / 8
+    pos = lattice_positions(N_BENCH, cell, 2, dtype=torch.float64,
+                            jitter=0.01, seed=0, device="cuda")
+    diam = 1.0 + POLY_2D * (_uniform(3, (N_BENCH,)) - 0.5)
+    state = build_state_from_arrays(pos, diam, cell, 1, dtype=dtype,
+                                    cutoff=CUTOFF_2D, device="cuda")
+    return state.replace(velocities=initialize_velocities(
+        1.0, 2, N_BENCH, 2, dtype=dtype, device="cuda"))
+
+
+def melted_2d(mt, tilt=False):
+    """The 2D start after 200 NVT steps at f64 (the lattice start's disks
+    do not touch yet), as the 2D path's sweeps see it."""
+    params = mt.Parameters(density=RHO_2D, n_particles=N_BENCH, dt=0.001,
+                           potential=mt.PseudoHS())
+    with tempfile.TemporaryDirectory() as d:
+        return mt.run_simulation(state_2d(mt, torch.float64, tilt), params,
+                                 mt.NVT(1.0, 0.1), 200, 200, d)
+
+
+def state_tilted(mt, dtype):
+    """The bench's Lennard-Jones start (rho 0.8, a lattice jittered by 0.01,
+    T = 1) in the tilted box."""
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    cell = tilted_cell((N_BENCH / 0.8) ** (1.0 / 3.0))
+    pos = lattice_positions(N_BENCH, cell, 3, dtype=torch.float64,
+                            jitter=0.01, seed=0, device="cuda")
+    state = build_state_from_arrays(pos, torch.ones(N_BENCH), cell, 1,
+                                    dtype=dtype, cutoff=2.5, device="cuda")
+    return state.replace(velocities=initialize_velocities(
+        1.0, 2, N_BENCH, 3, dtype=dtype, device="cuda"))
+
+
+def user_start(mt, workdir):
+    """Config 4's start at 65,536: uniform random positions and diameters
+    U(0.8, 1.2) written as an XYZ snapshot, read back by
+    ``initialize_state(from_file=...)`` (f64)."""
+    from mdtpu_torch.io.xyz import write_xyz
+    L = (N_BENCH / RHO_USER) ** 0.5
+    pos = _uniform(5, (N_BENCH, 2)) * L
+    diam = 0.8 + 0.4 * _uniform(6, (N_BENCH,))
+    os.makedirs(workdir, exist_ok=True)
+    snap = os.path.join(workdir, "start.xyz")
+    write_xyz(snap, 0, torch.eye(2, dtype=torch.float64) * L, pos, diam,
+              mode="w")
+    params = mt.Parameters(density=RHO_USER, n_particles=N_BENCH, dt=1e-4,
+                           potential=user_potential(mt))
+    state = mt.initialize_state(params, workdir, from_file=snap,
+                                dimension=2, cutoff=CUTOFF_USER,
+                                dtype=torch.float64, device="cuda")
+    return state, params
+
+
+def user_lattice(mt):
+    """Config 4's density, diameters and potential on a lattice jittered by
+    0.05 (f64): the list kernels' check state, with the path's grid and
+    list size but forces of a fluid's size (the path's uniform random start
+    holds pairs at 1e-2 of a diameter, whose forces swamp every other)."""
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_positions)
+    L = (N_BENCH / RHO_USER) ** 0.5
+    cell = torch.eye(2, dtype=torch.float64) * L
+    pos = lattice_positions(N_BENCH, cell, 2, dtype=torch.float64,
+                            jitter=0.05, seed=4, device="cuda")
+    diam = 0.8 + 0.4 * _uniform(6, (N_BENCH,))
+    state = build_state_from_arrays(pos, diam, cell, 0, dtype=torch.float64,
+                                    cutoff=CUTOFF_USER, device="cuda")
+    return state, mt.Parameters(density=RHO_USER, n_particles=N_BENCH,
+                                dt=1e-4, potential=user_potential(mt))
+
+
+def geometry_check(mt, record, case, state64, pot, cutoff):
+    """``cell_sweep`` (f64, f32; full and lean) and ``cell_sweep_hilo``
+    (full and lean; on the hi/lo words of the f64 state) against their
+    plain versions on the path's start in a 2D or tilted box, two launches
+    bit for bit, the lean forces the full variant's bits; timed in turns."""
+    from mdtpu_torch.ops.cell_sweep import (blocks_per_sm, cell_sweep,
+                                            cell_sweep_hilo,
+                                            cell_sweep_hilo_plain,
+                                            cell_sweep_plain, stage_plan)
+    dim = state64.dimension
+    for dtype in (torch.float64, torch.float32):
+        state = as_dtype(state64, dtype)
+        eng = mt.select_engine(pot, cutoff, state)
+        nb = eng.allocate(state.positions, state.diameters, state.unitcell,
+                          state.unitcell_inv)
+        assert not bool(nb.overflow) and len(eng.grid) == dim
+        inputs = eng.slot_inputs(state.positions, state.unitcell,
+                                 state.unitcell_inv, nb)
+        args = (*inputs, eng.grid, eng.cutoff, pot)
+        counts_ = pair_counts(inputs, eng.grid, eng.cutoff,
+                              pot.max_cutoff(float(state.diameters.max())))
+        f64 = dtype == torch.float64
+        rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+        tag = str(dtype).split(".")[-1]
+        base = {"case": case, "dtype": tag, "grid": list(eng.grid),
+                "capacity": eng.cell_capacity,
+                "pairs_in_engine_cutoff": counts_[2],
+                "pairs_in_potential_cutoff": counts_[3], "library_ms": None}
+        calls = {"cell_sweep": lambda: cell_sweep(*args),
+                 "cell_sweep_lean": lambda: cell_sweep(*args,
+                                                       observables=False)}
+        if not f64:
+            h_args = hilo_args(eng, state64, pot)
+            calls["cell_sweep_hilo"] = lambda: cell_sweep_hilo(*h_args)
+            calls["cell_sweep_hilo_lean"] = lambda: cell_sweep_hilo(
+                *h_args, observables=False)
+        turns = kernel_turns(calls)
+        r1 = cell_sweep(*args)
+        torch.cuda.synchronize()
+        r0 = cell_sweep_plain(*args)
+        torch.cuda.synchronize()
+        worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+        list_len, smem, threads = stage_plan(eng.cell_capacity, dtype,
+                                             False, dim)
+        rec = {"kernel_check": "cell_sweep", **base,
+               "rel_err_energy": rel(r1[0], r0[0]),
+               "rel_err_virial": rel(r1[1], r0[1]),
+               "force_err_per_particle": worst, "max_abs_err": max_abs,
+               "rms_force": rms,
+               "repeats_bit_for_bit": repeats(cell_sweep, args, r1),
+               "stage_plan": {"list_len": list_len, "smem_bytes": smem,
+                              "threads": threads,
+                              "blocks_per_sm": blocks_per_sm(
+                                  eng.cell_capacity, dtype, False, pot,
+                                  dim=dim)},
+               "ms": statistics.median(turns["cell_sweep"]),
+               "ms_turns": turns["cell_sweep"],
+               "plain_ms": cuda_time_ms(lambda: cell_sweep_plain(*args), 3,
+                                        1),
+               **bound(inputs, counts_, pot, dtype),
+               **stencil_work(counts_, pot, dtype, False, dim=dim)}
+        ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
+              and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
+              and rec["repeats_bit_for_bit"])
+        record(rec, ok, f"cell_sweep {case} {tag}")
+        lean_check("cell_sweep", cell_sweep, cell_sweep_plain, args, r1,
+                   inputs, counts_, pot, base, record, turns)
+        if not f64:
+            h_full = hilo_check(h_args, pot, counts_, base, record, turns)
+            lean_check("cell_sweep_hilo", cell_sweep_hilo,
+                       cell_sweep_hilo_plain, h_args, h_full,
+                       (h_args[0], *h_args[2:5]), counts_, pot, base, record,
+                       turns, hilo=True)
+            del h_args
+        del state, nb, inputs, args, calls
+        torch.cuda.empty_cache()
+
+
+def list_bound(plist, inputs, counts_, observables=True):
+    """The list's and the reduction's least times on these inputs: bytes
+    (each input read once, each output written once) over HBM and
+    operations over the peak rate. The list reads the occupied slots and
+    writes every entry (neighbour int, d + 3 floats) and each slot's count;
+    its work is one distance per unordered pair inside the cutoff. The
+    reduction reads every entry's displacement, r^2, f (and u) and each
+    slot's segment, writes the forces and partials; 2 d + 4 operations an
+    entry (2 d without energy and virial)."""
+    slot_pos, _, counts, _ = inputs
+    dim, n_slots = slot_pos.shape
+    b = slot_pos.element_size()
+    entries = int(plist.total)
+    occupied = int(counts.sum())
+    out = {}
+    list_bytes = ((dim + 1) * occupied * b + counts.shape[0] * 8
+                  + dim * dim * b + entries * (4 + (dim + 3) * b)
+                  + 4 * n_slots)
+    list_ops = counts_[2] * distance_ops(dim)
+    red_bytes = (entries * (dim + 2 + int(observables)) * b + 12 * n_slots
+                 + dim * n_slots * b)
+    red_ops = entries * (2 * dim + (4 if observables else 0))
+    peak = PEAK_OPS[slot_pos.dtype]
+    for name, nbytes, ops in (("list", list_bytes, list_ops),
+                              ("reduce", red_bytes, red_ops)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "bytes": nbytes, "ops": ops}
+    return out
+
+
+def pair_list_check(mt, record, state64, params):
+    """The pair list (count and fill kernels) and the reduction kernel at
+    f64 and f32 on config 4's lattice (:func:`user_lattice`), and the
+    list's hi/lo variant at f32:
+    the list entry for entry against its plain version (the same entries in
+    the same order, the same bits: both compute each displacement and r^2
+    with the same operations), the reduction against its plain version
+    (f64: rtol 1e-12 energy and virial, 1e-10 per particle; f32: 1e-5), the
+    lean reduction's forces the full one's bits, two launches bit for bit.
+    Timed by graph replay, the reduction also against ``index_add_`` (one
+    PyTorch call computing the forces' segmented sum, as its yardstick)."""
+    from mdtpu_torch.ops import cell_pairs as cp
+    pot = params.potential
+    for dtype in (torch.float64, torch.float32):
+        state = as_dtype(state64, dtype)
+        eng = mt.select_engine(pot, CUTOFF_USER, state)
+        assert eng.uses_pair_list and len(eng.grid) == 2
+        # The uniform random start's fullest cells overflow the engine's
+        # first capacity; grow it as the path does (slotify_grown).
+        while True:
+            nb = eng.allocate(state.positions, state.diameters,
+                              state.unitcell, state.unitcell_inv)
+            if not bool(nb.overflow):
+                break
+            eng = eng.with_grown_capacity()
+        inputs = eng.slot_inputs(state.positions, state.unitcell,
+                                 state.unitcell_inv, nb)
+        cap = eng.pair_list_capacity
+        l1 = cp.pair_list(*inputs, eng.grid, eng.cutoff, cap)
+        torch.cuda.synchronize()
+        l0 = cp.pair_list_plain(*inputs, eng.grid, eng.cutoff, cap)
+        total = int(l0.total)
+        same = (int(l1.total) == total and not bool(l1.overflow)
+                and torch.equal(l1.count, l0.count)
+                and all(torch.equal(getattr(l1, k)[..., :total],
+                                    getattr(l0, k)[..., :total])
+                        for k in ("neighbour", "disp", "r2", "sigma_i",
+                                  "sigma_j")))
+        again = cp.pair_list(*inputs, eng.grid, eng.cutoff, cap)
+        rep_list = all(torch.equal(getattr(l1, k)[..., :total],
+                                   getattr(again, k)[..., :total])
+                       for k in ("neighbour", "disp", "r2"))
+        u, f = pot.evaluate_r2(l1.r2, l1.sigma_i, l1.sigma_j)
+        r1 = cp.pair_reduce(l1, f, u)
+        torch.cuda.synchronize()
+        r0 = cp.pair_reduce_plain(l1, f, u)
+        lean = cp.pair_reduce(l1, f)
+        worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
+        f64 = dtype == torch.float64
+        rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+        counts_ = pair_counts(inputs, eng.grid, eng.cutoff, eng.cutoff)
+        bounds = list_bound(l1, inputs, counts_)
+        own = torch.repeat_interleave(
+            torch.arange(inputs[0].shape[1], device="cuda"),
+            l1.count.long())
+        fd = f[:total] * l1.disp[:, :total]
+        force_lib = torch.zeros_like(r1[2])
+        g_list = graph_of(lambda: cp.pair_list(*inputs, eng.grid,
+                                               eng.cutoff, cap))
+        g_red = graph_of(lambda: cp.pair_reduce(l1, f, u))
+        g_lean = graph_of(lambda: cp.pair_reduce(l1, f))
+        tag = str(dtype).split(".")[-1]
+        base = {"case": "config4_lattice", "dtype": tag,
+                "grid": list(eng.grid), "capacity": eng.cell_capacity,
+                "list_capacity": cap, "entries": total,
+                "pairs_in_engine_cutoff": counts_[2]}
+        rec = {"kernel_check": "cell_pairs", **base,
+               "list_equal_to_plain": same, "repeats_bit_for_bit": rep_list,
+               "max_abs_err": 0.0 if same else float("inf"),
+               "ms": cuda_time_ms(g_list.replay, 20, 3),
+               "plain_ms": cuda_time_ms(lambda: cp.pair_list_plain(
+                   *inputs, eng.grid, eng.cutoff, cap), 3, 1),
+               "library_ms": None, **bounds["list"]}
+        record(rec, same and rep_list, f"cell_pairs {tag}")
+        rec = {"kernel_check": "pair_reduce", **base,
+               "rel_err_energy": rel(r1[0], r0[0]),
+               "rel_err_virial": rel(r1[1], r0[1]),
+               "force_err_per_particle": worst, "max_abs_err": max_abs,
+               "rms_force": rms,
+               "lean_forces_bit_equal": torch.equal(lean[2], r1[2]),
+               "repeats_bit_for_bit": repeats(
+                   lambda *a: cp.pair_reduce(l1, f, u), (), r1),
+               "ms": cuda_time_ms(g_red.replay, 20, 3),
+               "lean_ms": cuda_time_ms(g_lean.replay, 20, 3),
+               "plain_ms": cuda_time_ms(lambda: cp.pair_reduce_plain(
+                   l1, f, u), 3, 1),
+               "library_ms": cuda_time_ms(lambda: force_lib.index_add_(
+                   1, own, fd), 20, 3),
+               "library_call": "Tensor.index_add_ (forces only)",
+               **bounds["reduce"]}
+        ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
+              and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
+              and rec["lean_forces_bit_equal"] and rec["repeats_bit_for_bit"])
+        record(rec, ok, f"pair_reduce {tag}")
+        if not f64:
+            hi = state64.positions.float()
+            lo = (state64.positions - hi.double()).float()
+            cell = state64.unitcell.float()
+            cinv = state64.unitcell_inv.float()
+            nbh = eng.allocate(hi, state64.diameters.float(), cell, cinv)
+            assert not bool(nbh.overflow)
+            h = eng.slot_inputs_hilo(hi, lo, cell, cinv, nbh)
+            h1 = cp.pair_list(h[0], *h[2:], eng.grid, eng.cutoff, cap,
+                              slot_lo=h[1])
+            torch.cuda.synchronize()
+            h0 = cp.pair_list_plain(h[0], *h[2:], eng.grid, eng.cutoff, cap,
+                                    slot_lo=h[1])
+            total = int(h0.total)
+            same = (int(h1.total) == total
+                    and all(torch.equal(getattr(h1, k)[..., :total],
+                                        getattr(h0, k)[..., :total])
+                            for k in ("neighbour", "disp", "r2")))
+            g_hilo = graph_of(lambda: cp.pair_list(
+                h[0], *h[2:], eng.grid, eng.cutoff, cap, slot_lo=h[1]))
+            rec = {"kernel_check": "cell_pairs_hilo", **base,
+                   "entries": total, "list_equal_to_plain": same,
+                   "max_abs_err": 0.0 if same else float("inf"),
+                   "ms": cuda_time_ms(g_hilo.replay, 20, 3),
+                   "plain_ms": cuda_time_ms(lambda: cp.pair_list_plain(
+                       h[0], *h[2:], eng.grid, eng.cutoff, cap,
+                       slot_lo=h[1]), 3, 1),
+                   "library_ms": None}
+            record(rec, same, "cell_pairs_hilo")
+        del state, nb, inputs, l0, l1, again
         torch.cuda.empty_cache()
 
 
@@ -1064,6 +1500,134 @@ def pack_path(mt, workdir):
             math.sqrt(energy), "overlap_limit": overlap_limit}, failures
 
 
+def geo_path(mt, workdir, label, state, params, nvt):
+    """``run_simulation`` on ``select_engine``'s cell grid (the slot route)
+    from ``state``: GEO_NVT_STEPS of ``nvt``, then GEO_NVE_STEPS of NVE
+    (f32 NVE takes the hi/lo sweep), thermo every 100 steps, one trajectory
+    frame a leg."""
+    nvt_dir, nve_dir = (os.path.join(workdir, label, d)
+                        for d in ("nvt", "nve"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid = mt.run_simulation(state, params, nvt, GEO_NVT_STEPS, THERMO_EVERY,
+                            nvt_dir, traj_frequency=GEO_NVT_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    end = mt.run_simulation(mid, params, mt.NVE(), GEO_NVE_STEPS,
+                            THERMO_EVERY, nve_dir,
+                            traj_frequency=GEO_NVE_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"{label}: {what}")
+
+    steps = GEO_NVT_STEPS + GEO_NVE_STEPS
+    check(end.step == steps, f"final step {end.step} != {steps}")
+    check(bool(torch.isfinite(end.positions).all())
+          and bool(torch.isfinite(end.velocities).all()), "non-finite state")
+    nvt_rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
+    nve_rows = _rows(os.path.join(nve_dir, "thermo.txt"))
+    check(len(nvt_rows) == GEO_NVT_STEPS // THERMO_EVERY, "NVT thermo rows")
+    check(len(nve_rows) == GEO_NVE_STEPS // THERMO_EVERY, "NVE thermo rows")
+    check(all(math.isfinite(v) for r in nvt_rows + nve_rows for v in r),
+          "non-finite thermo")
+    # Past the lattice start's relaxation, as the bench path reads it.
+    t_nvt = [r[2] for r in nvt_rows[2:]]
+    mean_t = sum(t_nvt) / max(len(t_nvt), 1)
+    check(abs(mean_t - nvt.ktemp(0)) < 0.1, f"NVT mean temperature {mean_t}")
+    ke = end.nf / (2.0 * N_BENCH)
+    e_tot = [r[1] + ke * r[2] for r in nve_rows]
+    drift = max(e_tot) - min(e_tot)
+    check(drift < 5e-3, f"NVE total energy per particle moved {drift}")
+    for d, leg in ((nvt_dir, GEO_NVT_STEPS), (nve_dir, GEO_NVE_STEPS)):
+        with open(os.path.join(d, "trajectory.xyz")) as f:
+            text = f.read()
+        check(text.count("ITEM: TIMESTEP") == 1
+              and text.count("\n") == 9 + N_BENCH, f"frame in {d}")
+        with open(os.path.join(d, "final.xyz")) as f:
+            check(sum(1 for _ in f) == N_BENCH + 2, f"final.xyz in {d}")
+    return {"path": label, "dimension": end.dimension,
+            "cell": end.unitcell.tolist(), "steps": steps,
+            "nvt_s": t1 - t0, "nve_s": t2 - t1,
+            "steps_per_s": steps / (t2 - t0),
+            "particle_steps_per_s": steps * N_BENCH / (t2 - t0),
+            "nvt_mean_T": mean_t, "nve_energy_range": drift,
+            "thermo_nvt": nvt_rows, "thermo_nve": nve_rows}, failures
+
+
+def user_path(mt, workdir):
+    """BASELINE config 4 at 65,536 through the pair-list route: the XYZ
+    start, ``minimize`` (slot FIRE on the cell grid, tol 1e-4, at most
+    USER_FIRE_ITERS iterations at dmax USER_DMAX, timed), then NVT(0.5,
+    0.01) at dt 1e-4 for USER_NVT_STEPS steps (timed). The start's energy
+    comes from the plain list route, which launches nothing."""
+    from mdtpu_torch.ops import cell_pairs as cp
+    from mdtpu_torch.sim.initialization import initialize_velocities
+    out_dir = os.path.join(workdir, "user")
+    state, params = user_start(mt, out_dir)
+    eng = mt.select_engine(params.potential, CUTOFF_USER, state,
+                           workload="minimize")
+    nb = eng.allocate(state.positions, state.diameters, state.unitcell,
+                      state.unitcell_inv)
+    slot_inputs = eng.slot_inputs(state.positions, state.unitcell,
+                                  state.unitcell_inv, nb)
+    plist = cp.pair_list_plain(*slot_inputs, eng.grid, eng.cutoff,
+                               eng.pair_list_capacity)
+    u, f = params.potential.evaluate_r2(plist.r2, plist.sigma_i,
+                                        plist.sigma_j)
+    e0 = float(cp.pair_reduce_plain(plist, f, u)[0])
+    del plist, u, f, slot_inputs, nb
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, energy, converged, n_iter = mt.minimize(
+        state, params, out_dir, 2, tol=1e-4, max_steps=USER_FIRE_ITERS,
+        dmax=USER_DMAX)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = state.replace(velocities=initialize_velocities(
+        0.5, 1, N_BENCH, 2, dtype=torch.float64, device="cuda"))
+    nvt_dir = os.path.join(out_dir, "nvt")
+    end = mt.run_simulation(state, params, mt.NVT(0.5, 0.01), USER_NVT_STEPS,
+                            THERMO_EVERY, nvt_dir,
+                            traj_frequency=USER_NVT_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"user: {what}")
+
+    energy = float(energy)
+    check(math.isfinite(energy) and energy < e0,
+          f"energy {energy} after {n_iter} iterations, start {e0}")
+    check(os.path.isfile(os.path.join(out_dir, "minimized.xyz")),
+          "minimized.xyz")
+    check(end.step == USER_NVT_STEPS
+          and bool(torch.isfinite(end.positions).all()), "NVT state")
+    rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
+    check(len(rows) == USER_NVT_STEPS // THERMO_EVERY
+          and all(math.isfinite(v) for r in rows for v in r), "NVT rows")
+    # The Bussi thermostat at tau = 100 dt holds T near 0.5 once the
+    # minimized state no longer holds overlaps that heat it.
+    check(all(abs(r[2] - 0.5) < 0.25 for r in rows[1:]),
+          f"NVT temperatures {[r[2] for r in rows]}")
+    return {"path": "user", "potential": "NonAdditivePHS (pair-list route)",
+            "grid": list(eng.grid), "capacity": eng.cell_capacity,
+            "list_capacity": eng.pair_list_capacity,
+            "energy_start": e0, "energy_minimized": energy,
+            "energy_minimized_per_particle": energy / N_BENCH,
+            "fire_dmax": USER_DMAX,
+            "fire_converged": converged, "fire_iterations": n_iter,
+            "fire_s": t1 - t0, "iterations_per_s": n_iter / (t1 - t0),
+            "nvt_steps": USER_NVT_STEPS, "nvt_s": t2 - t1,
+            "steps_per_s": USER_NVT_STEPS / (t2 - t1), "thermo": rows}, \
+        failures
+
+
 def _rows(path):
     with open(path) as f:
         return [[float(x) for x in line.split()] for line in f
@@ -1072,6 +1636,7 @@ def _rows(path):
 
 def run_paths(mt, workdir):
     from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops.experimental import PlaneEngine
@@ -1080,6 +1645,7 @@ def run_paths(mt, workdir):
         """Run one path with every count set to 0 just before it; its
         launches (each wrapper's total and lean) and slot steps after."""
         cs.reset_launches()
+        cp.reset_launches()
         ps.plane_sweep.launches = 0
         slot_step.make_slot_step.steps = 0
         rec, failures = fn()
@@ -1088,7 +1654,10 @@ def run_paths(mt, workdir):
             "cell_sweep_lean": cs.cell_sweep.lean_launches,
             "cell_sweep_hilo": cs.cell_sweep_hilo.launches,
             "cell_sweep_hilo_lean": cs.cell_sweep_hilo.lean_launches,
-            "plane_sweep": ps.plane_sweep.launches}
+            "plane_sweep": ps.plane_sweep.launches,
+            "cell_pairs": cp.pair_list.launches,
+            "pair_reduce": cp.pair_reduce.launches,
+            "pair_reduce_lean": cp.pair_reduce.lean_launches}
         rec["slot_steps"] = slot_step.make_slot_step.steps
         log(json.dumps(rec))
         return rec, failures
@@ -1103,7 +1672,37 @@ def run_paths(mt, workdir):
     bds, f4 = counted(lambda: brownian_path(mt, workdir, slots=True))
     fire, f5 = counted(lambda: fire_path(mt))
     pack, f6 = counted(lambda: pack_path(mt, workdir))
-    failures = f1 + f2 + f3 + f4 + f5 + f6
+    lj = mt.LennardJones(r_cut=2.5)
+    b1_2d, f7 = counted(lambda: geo_path(
+        mt, workdir, "b1_2d", state_2d(mt, torch.float32),
+        mt.Parameters(density=RHO_2D, n_particles=N_BENCH, dt=0.001,
+                      potential=mt.PseudoHS()), mt.NVT(1.0, 0.1)))
+    b1_tilted, f8 = counted(lambda: geo_path(
+        mt, workdir, "b1_tilted", state_tilted(mt, torch.float32),
+        mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                      potential=lj), mt.NVT(1.0, 0.4)))
+    user, f9 = counted(lambda: user_path(mt, workdir))
+    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9
+    geo_steps = GEO_NVT_STEPS + GEO_NVE_STEPS
+    for rec in (b1_2d, b1_tilted):
+        n = rec["launches"]
+        if (n["cell_sweep"] < 1 or n["cell_sweep_lean"] < 1
+                or n["cell_sweep_hilo"] < 1 or n["cell_sweep_hilo_lean"] < 1
+                or rec["slot_steps"] != geo_steps):
+            failures.append(f"{rec['path']}: launches {n}, slot steps "
+                            f"{rec['slot_steps']}")
+    # Built-in potentials never take the pair list; the user potential
+    # never takes the sweep kernels.
+    for rec in (b1, b2, bd, bds, fire, pack, b1_2d, b1_tilted):
+        if rec["launches"]["cell_pairs"] or rec["launches"]["pair_reduce"]:
+            failures.append(f"{rec['path']}: took the pair list "
+                            f"{rec['launches']}")
+    n = user["launches"]
+    if (n["cell_pairs"] < user["fire_iterations"] + USER_NVT_STEPS
+            or n["pair_reduce"] != n["cell_pairs"]
+            or n["pair_reduce_lean"] < 1
+            or n["cell_sweep"] or n["cell_sweep_hilo"]):
+        failures.append(f"user: launches {n}")
     # NVT takes the plain sweep; each f32 NVE leg the hi/lo sweep (its
     # initial forces, as the JAX package's, the plain one). In the slot
     # layout every step but the last of a segment takes the lean variant.
@@ -1132,24 +1731,28 @@ def run_paths(mt, workdir):
     if pack["launches"]["cell_sweep_lean"] < 1:
         failures.append(f"pack: launches {pack['launches']}")
     return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
-            "fire": fire, "pack": pack}, failures
+            "fire": fire, "pack": pack, "b1_2d": b1_2d,
+            "b1_tilted": b1_tilted, "user": user}, failures
 
 
 def ptxas_summary(name, report):
-    """The compiler's report: for the sweeps one line per kernel entry (type,
-    potential, hi/lo, full or lean, the block size it is compiled for,
-    registers, spill bytes); for the probe its report lines. Returns
-    ``{(type, potential functor, block size[, "hilo"][, "lean"]):
-    (registers, spill store bytes)}`` of the sweep kernels."""
+    """The compiler's report: for the sweeps one line per kernel entry
+    (dimension, type, potential, hi/lo, full or lean, the block size it is
+    compiled for, registers, spill bytes); for the probe and the pair list
+    their report lines. Returns ``{(type, potential functor, block size[,
+    "hilo"][, "lean"][, "2d"]): (registers, spill store bytes)}`` of the
+    sweep kernels."""
     entry, spill, table = None, "", {}
     for line in report.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"(?:cell|plane)_sweep_kernelI([fd])N5mdtpu\d+"
-                          r"([A-Za-z]+)I[fd]EE((?:Lb[01]E)*)Li(\d+)EE", line)
-            flags = m and re.findall(r"Lb([01])E", m[3])
-            entry = m and ("f32" if m[1] == "f" else "f64", m[2],
+            m = re.search(r"(?:cell|plane)_sweep_kernelI([fd])(?:Li([23])E)?"
+                          r"N5mdtpu\d+([A-Za-z]+)I[fd]EE((?:Lb[01]E)*)"
+                          r"Li(\d+)EE", line)
+            flags = m and re.findall(r"Lb([01])E", m[4])
+            entry = m and ("f32" if m[1] == "f" else "f64", m[3],
                            "hilo" if flags[:1] == ["1"] else "plain",
-                           "lean" if flags[1:2] == ["0"] else "full", m[4])
+                           "lean" if flags[1:2] == ["0"] else "full", m[5],
+                           "2d" if m[2] == "2" else "3d")
             if entry is None:
                 log(f"  ptxas {name}: " + line.strip())
         elif "spill" in line and entry:
@@ -1159,10 +1762,11 @@ def ptxas_summary(name, report):
             stores = int(re.search(r"(\d+) bytes spill stores", spill)[1])
             key = ((entry[0], entry[1], int(entry[4]))
                    + (("hilo",) if entry[2] == "hilo" else ())
-                   + (("lean",) if entry[3] == "lean" else ()))
+                   + (("lean",) if entry[3] == "lean" else ())
+                   + (("2d",) if entry[5] == "2d" else ()))
             table[key] = (regs, stores)
-            log(f"  ptxas {name}: {' '.join(entry[:4])} for blocks up to "
-                f"{entry[4]}: {regs} registers; {spill}")
+            log(f"  ptxas {name}: {entry[5]} {' '.join(entry[:4])} for "
+                f"blocks up to {entry[4]}: {regs} registers; {spill}")
         elif any(k in line for k in ("registers", "spill", "smem")):
             log(f"  ptxas {name}: " + line.strip())
     return table
@@ -1248,6 +1852,46 @@ def main():
               "probe_kernel.py:29", probe_launches, probe_rec,
               {"variant": "full:45"}),
     ]}
+    # The 2D and tilted variants of B1 (template dimension; the cell matrix)
+    # cover the XLA sweep's 2D and triclinic cases (mdtpu/ops/cell_grid.py
+    # :556, :736-739), which reach no pl.pallas_call; each entry's launches
+    # are its path's. The tilted 2D box runs the 2D kernels: its check's
+    # numbers ride on the 2D entries.
+    for path, case, label in (("b1_2d", "bench_2d", "2d"),
+                              ("b1_tilted", "bench_tilted", "tilted")):
+        n = by_path[path]
+        for kname, launches in (
+                ("cell_sweep", n["cell_sweep"] - n["cell_sweep_lean"]),
+                ("cell_sweep_lean", n["cell_sweep_lean"]),
+                ("cell_sweep_hilo",
+                 n["cell_sweep_hilo"] - n["cell_sweep_hilo_lean"]),
+                ("cell_sweep_hilo_lean", n["cell_sweep_hilo_lean"])):
+            extra = {"covers": "mdtpu/ops/cell_grid.py:556 _ywindow_sweep"
+                     if label == "2d" else
+                     "mdtpu/ops/cell_grid.py:736-739 (triclinic shifts)"}
+            if label == "2d":
+                t = results[(kname, "bench_2d_tilted", "float32")]
+                extra.update(tilted_ms=t["ms"], tilted_plain_ms=t["plain_ms"],
+                             tilted_bound_ms=t["bound_ms"],
+                             tilted_max_abs_err=t["max_abs_err"])
+            kernels["kernels"].append(entry(
+                f"{kname}_{label}", "mdtpu_torch/csrc/cell_sweep.cu",
+                pallas_cell, launches, results[(kname, case, "float32")],
+                extra))
+    user = by_path["user"]
+    pairs_rec = results[("cell_pairs", "config4_lattice", "float64")]
+    reduce_rec = results[("pair_reduce", "config4_lattice", "float64")]
+    kernels["kernels"] += [
+        entry("cell_pairs", "mdtpu_torch/csrc/cell_pairs.cu", pallas_cell,
+              user["cell_pairs"], pairs_rec,
+              {"potential": "NonAdditivePHS (a user potential, float64)"}),
+        {**entry("pair_reduce", "mdtpu_torch/csrc/cell_pairs.cu",
+                 pallas_cell, user["pair_reduce"], reduce_rec,
+                 {"launches_lean": user["pair_reduce_lean"],
+                  "lean_ms": reduce_rec["lean_ms"],
+                  "library_call": reduce_rec["library_call"]}),
+         "library_ms": reduce_rec["library_ms"]},
+    ]
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             failures.append(f"{k['name']} never launched on its path")

@@ -83,8 +83,13 @@ def make_inputs(path):
         "pot": "pseudo_hs", "grid": eng.grid, "cutoff": eng.cutoff,
         "kind": "plane", "inputs": eng.slot_inputs(
             bd.positions, bd.unitcell, bd.unitcell_inv, nb)}
-    torch.save({k: dict(v, inputs=[t.cpu() for t in v["inputs"]])
-                for k, v in cases.items()}, path)
+    # The cases' boxes are orthorhombic: pass the box lengths, which every
+    # tree's wrappers take (the cell matrix only since the 2D and tilted
+    # sweeps).
+    torch.save({k: dict(v, inputs=[
+        torch.diagonal(t).contiguous().cpu() if t.dim() == 2
+        and t.shape[0] == t.shape[1] == 3 else t.cpu()
+        for t in v["inputs"]]) for k, v in cases.items()}, path)
 
 
 PROBE_SPECS = ("full:45", "full:15", "full:5", "nodiv:45", "reduce_only:45")

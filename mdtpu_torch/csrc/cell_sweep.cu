@@ -1,6 +1,6 @@
 // Cell-list pair sweep for NVIDIA Hopper (sm_90a): forces, energy and virial
 // of every pair within the cutoff, over particles sorted into the slots of a
-// periodic 3D orthorhombic cell grid.
+// periodic 2D or 3D cell grid in any box, orthorhombic or tilted.
 //
 // Replaces mdtpu/ops/experimental/pallas_cell.py::_pair_row_kernel, the
 // Pallas TPU kernel that runs the full 27-cell stencil per (x, y) column of
@@ -9,7 +9,17 @@
 // from both sides: no reaction write-back, no atomics. Energy and virial
 // take the factor 1/2. Each block writes its own cell's slots. No ghost
 // cells and no far-away pad coordinates: a neighbour cell is found by its
-// periodic index and the +-L image shift is added as it is staged.
+// periodic index and its image shift is added as it is staged.
+//
+// Dimension and box. The dimension D is a template parameter: 27 stencil
+// cells and three components in 3D, 9 and two in 2D (a 2D grid comes as
+// nx x ny x 1). The 2D sweep is the counterpart of the JAX package's XLA
+// y-window sweep (mdtpu/ops/cell_grid.py _ywindow_sweep :556, its hi/lo form
+// ywin_hilo :593); B1's Pallas kernel itself is 3D only. The box comes as
+// its D x D cell matrix: a neighbour across the grid's edge along axis a is
+// shifted by the cell vector w_a cell[:, a], the JAX sweeps' ghost shift
+// (:736-739), so an orthorhombic box is the diagonal case of one code path
+// (cell_stencil.cuh, shared with the pair-list builder cell_pairs.cu).
 //
 // What bounds it on the H100. The function needs ~16 bytes in and 12 out per
 // slot and ~40 operations per pair inside the cutoff: microseconds at the
@@ -31,7 +41,7 @@
 //   * Staged stencil. The occupied slots of the stencil cells go into shared
 //     memory once, as one compacted candidate list in stencil order ((ox, oy,
 //     oz) ascending, then slot ascending), image shift applied, 16 bytes a
-//     candidate at float32 (x, y, z, diameter). The threads share the
+//     candidate at float32 (x, y, z, diameter; 12 in 2D). The threads share the
 //     entries evenly (an entry's cell is found in the cells' offsets) and
 //     each loads several before it stores one, so a stage costs one or two
 //     round trips to device memory where there were 27. The list is padded
@@ -77,9 +87,10 @@
 // plain difference of the hi words against a cutoff widened to cover the lo
 // words and the rounding of absolute coordinates (hilo_filter_cutoff2 in
 // ops/cell_sweep.py derives the margin and mirrors the arithmetic below; the
-// box lengths live on the device, so the last step is taken here and not on
-// the host, which would have to wait for them); the drain forms the exact
-// displacement and applies the exact cutoff test.
+// cell matrix lives on the device, so the last step is taken here and not on
+// the host, which would have to wait for it); the drain forms the exact
+// displacement and applies the exact cutoff test. In a tilted box the shift
+// goes onto the hi word one cell vector at a time.
 //
 // The lean variant (template flag OBS = false; the XLA sweep's
 // observables=False, mdtpu/ops/cell_grid.py:711-717) is the same kernel with
@@ -98,88 +109,60 @@
 
 #include <math.h>
 
-#include "pair_potentials.cuh"
+#include "cell_stencil.cuh"
 
 namespace {
 
 using namespace mdtpu;
 
-constexpr int kStencil = 27;
-constexpr int kCentre = 13;   // offset (0, 0, 0) in (ox, oy, oz) order
 constexpr int kUnroll = 8;    // candidates filtered between two votes
 constexpr int kListPad = 2 * kUnroll;  // candidates at infinity after a list
-constexpr int kMeta = 32;      // per-stage cell records (27 used), padded
-constexpr int kStageBatch = 4; // candidates a thread loads before it stores
-
-// One candidate: (x, y, z, diameter), or the lo words (xl, yl, zl, 0).
-__device__ __forceinline__ void load_cand(const float* list, int k, float& x,
-                                          float& y, float& z, float& d) {
-  const float4 v = reinterpret_cast<const float4*>(list)[k];
-  x = v.x;
-  y = v.y;
-  z = v.z;
-  d = v.w;
-}
-
-__device__ __forceinline__ void load_cand(const double* list, int k,
-                                          double& x, double& y, double& z,
-                                          double& d) {
-  const double2 a = reinterpret_cast<const double2*>(list)[2 * k];
-  const double2 b = reinterpret_cast<const double2*>(list)[2 * k + 1];
-  x = a.x;
-  y = a.y;
-  z = b.x;
-  d = b.y;
-}
-
-__device__ __forceinline__ void store_cand(float* list, int k, float x,
-                                           float y, float z, float d) {
-  reinterpret_cast<float4*>(list)[k] = make_float4(x, y, z, d);
-}
-
-__device__ __forceinline__ void store_cand(double* list, int k, double x,
-                                           double y, double z, double d) {
-  reinterpret_cast<double2*>(list)[2 * k] = make_double2(x, y);
-  reinterpret_cast<double2*>(list)[2 * k + 1] = make_double2(z, d);
-}
 
 // Dynamic shared memory of one block; stage_plan (ops/cell_sweep.py) computes
-// the same number.
-template <typename T, bool HILO>
+// the same number. The layout is that of the 3D kernel in both dimensions
+// except the candidate records: (D + 1) words, and (4 or 2) lo words.
+template <typename T, int D, bool HILO>
 size_t shared_bytes(int list_len, int queue_depth, int threads) {
   const size_t list = (size_t)list_len + kListPad;
-  return ((HILO ? 8 : 4) * list + 5 * (size_t)threads + 3 * kMeta) *
-             sizeof(T) +
+  const size_t words =
+      Stencil<D>::kWords + (HILO ? Stencil<D>::kLoWords : 0);
+  return (words * list + 5 * (size_t)threads + 3 * kMeta) * sizeof(T) +
          2 * kMeta * sizeof(int) +
          (size_t)queue_depth * threads * sizeof(uint16_t);
 }
 
-// pos: (3, n_cells * cap) slot coordinates, component-major (the hi word
-// under HILO); lo: (3, n_cells * cap) lo words (HILO only, else unused);
+// pos: (D, n_cells * cap) slot coordinates, component-major (the hi word
+// under HILO); lo: (D, n_cells * cap) lo words (HILO only, else unused);
 // diam: (n_cells * cap,); counts: (n_cells,) occupied slots per cell
-// (clamped to cap here); box: (3,) box lengths. Slots [0, count) of each
-// cell are occupied. force: (3, n_cells * cap), every slot written (vacant
-// slots get 0). list_len >= cap candidates fit in a stage; queue_depth >=
-// kUnroll; blockDim.x is a power of two >= cap. OBS = false: e_part and
-// w_part are not written.
-template <typename T, typename Pot, bool HILO, bool OBS, int MAX_THREADS>
+// (clamped to cap here); cellm: (D, D) cell matrix, row-major (its columns
+// are the box vectors). Slots [0, count) of each cell are occupied. force:
+// (D, n_cells * cap), every slot written (vacant slots get 0). list_len >=
+// cap candidates fit in a stage; queue_depth >= kUnroll; blockDim.x is a
+// power of two >= cap. OBS = false: e_part and w_part are not written. The
+// grid is nx x ny x nz, nz = 1 in 2D.
+template <typename T, int D, typename Pot, bool HILO, bool OBS,
+          int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
     cell_sweep_kernel(const T* __restrict__ pos, const T* __restrict__ lo,
                       const T* __restrict__ diam,
                       const int64_t* __restrict__ counts,
-                      const T* __restrict__ box, int nx, int ny, int nz,
+                      const T* __restrict__ cellm, int nx, int ny, int nz,
                       int cap, int list_len, int queue_depth, T rc_engine,
                       T filter_margin, Pot pot, T* __restrict__ force,
                       T* __restrict__ e_part, T* __restrict__ w_part) {
+  constexpr int kStencil = Stencil<D>::kCells;
+  constexpr int kCentre = Stencil<D>::kCentre;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int threads = blockDim.x;
   const int list_cap = list_len + kListPad;
   T* cand = reinterpret_cast<T*>(smem_raw);
-  T* cand_lo = cand + 4 * list_cap;  // HILO only
-  // (5, threads): each thread's fx, fy, fz, e, w; then the reduction's scratch
-  T* part = cand_lo + (HILO ? 4 * list_cap : 0);
-  // Per stencil cell: its image shift (3, kMeta), the number of candidates
-  // before it (28 entries) and its index in the grid.
+  T* cand_lo = cand + Stencil<D>::kWords * list_cap;  // HILO only
+  // (5, threads): each thread's force components (rows 0 .. D-1), e (row
+  // 3), w (row 4); then the reduction's scratch
+  T* part = cand_lo + (HILO ? Stencil<D>::kLoWords * list_cap : 0);
+  // Per stencil cell: its summed image shift (D of 3 rows of kMeta), the
+  // number of candidates before it (kStencil + 1 entries) and its index in
+  // the grid.
   T* s_shift = part + 5 * threads;
   int* s_off = reinterpret_cast<int*>(s_shift + 3 * kMeta);
   int* s_nb = s_off + kMeta;
@@ -187,43 +170,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   const int64_t n_slots = (int64_t)nx * ny * nz * cap;
   const int cell = blockIdx.x;
-  const int cz = cell % nz;
-  const int cy = (cell / nz) % ny;
-  const int cx = cell / (ny * nz);
+  const GridCell g(cell, nx, ny, nz);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const T lx = box[0], ly = box[1], lz = box[2];
   const int64_t cnt_own = counts[cell];
 
-  // The stencil's cells in (ox, oy, oz) order, one per lane of warp 0: grid
-  // index, image shift, and the candidates before each (an inclusive scan
-  // of the counts).
-  if (warp == 0) {
-    int n = 0;
-    if (lane < kStencil) {
-      T shx, shy, shz;
-      const int jx = wrap_axis(cx + lane / 9 - 1, nx, lx, shx);
-      const int jy = wrap_axis(cy + (lane / 3) % 3 - 1, ny, ly, shy);
-      const int jz = wrap_axis(cz + lane % 3 - 1, nz, lz, shz);
-      const int nb = (jx * ny + jy) * nz + jz;
-      const int64_t cnt = counts[nb];
-      n = cnt < cap ? (int)cnt : cap;
-      if (n < 0) n = 0;
-      s_nb[lane] = nb;
-      s_shift[lane] = shx;
-      s_shift[kMeta + lane] = shy;
-      s_shift[2 * kMeta + lane] = shz;
-    }
-    int incl = n;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (lane < kStencil) s_off[lane + 1] = incl;
-    if (lane == 0) s_off[0] = 0;
-  }
+  if (warp == 0)
+    stencil_meta<D>(g, lane, counts, cellm, cap, s_shift, s_off, s_nb);
 
   const int n_own = cnt_own < cap ? (cnt_own > 0 ? (int)cnt_own : 0) : cap;
   // Thread tid works for own slot tid % n_own on sub-list tid / n_own of the
@@ -235,18 +189,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int slot = active ? tid - sub * n_own : 0;
   const int64_t own = (int64_t)cell * cap + slot;
 
-  T xi = T(0), yi = T(0), zi = T(0), di = T(0);
-  T xil = T(0), yil = T(0), zil = T(0);
+  T xi[D], xil[D], di = T(0);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    xi[a] = T(0);
+    xil[a] = T(0);
+  }
   if (active) {
-    xi = pos[own];
-    yi = pos[n_slots + own];
-    zi = pos[2 * n_slots + own];
-    di = diam[own];
-    if (HILO) {
-      xil = lo[own];
-      yil = lo[n_slots + own];
-      zil = lo[2 * n_slots + own];
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      xi[a] = pos[a * n_slots + own];
+      if (HILO) xil[a] = lo[a * n_slots + own];
     }
+    di = diam[own];
   }
   const auto pot_setup = pot.setup(di);
   const T cutoff2 = rc_engine * rc_engine;
@@ -257,100 +212,34 @@ __global__ void __launch_bounds__(MAX_THREADS)
   T filter2 = cutoff2 * (T(1) + T(8) * eps);
   if (HILO) {
     // As hilo_filter_cutoff2 (ops/cell_sweep.py), operation for operation.
-    const T lxy = lx > ly ? lx : ly;
-    const T lmax = lxy > lz ? lxy : lz;
+    const T lmax = box_extent<D>(cellm);
     const T rcw = rc_engine * (T(1) + T(2) * eps) + filter_margin * lmax;
     filter2 = rcw * rcw * (T(1) + T(16) * eps);
   }
   uint16_t* const q = queue + tid;
   const uint16_t* const q_full = q + (queue_depth - kUnroll) * threads;
   const bool warp_active = (warp << 5) < n_sub * n_own;
-  T fx = T(0), fy = T(0), fz = T(0), e = T(0), w = T(0);
+  T f[D], e = T(0), w = T(0);
+#pragma unroll
+  for (int a = 0; a < D; ++a) f[a] = T(0);
   __syncthreads();
 
-  // The most stencil cells whose occupied slots fit in one stage of
-  // list_len candidates, in this block's neighbourhood: all 27, else 9, 3
-  // or 1 at a time (one cell always fits). As stage_cells in
-  // ops/cell_sweep.py.
-  int cells_per_stage = kStencil;
-  while (cells_per_stage > 1) {
-    int longest = 0;
-    for (int c = 0; c < kStencil; c += cells_per_stage) {
-      const int n = s_off[c + cells_per_stage] - s_off[c];
-      longest = n > longest ? n : longest;
-    }
-    if (longest <= list_len) break;
-    cells_per_stage /= 3;
-  }
+  const int per_stage = cells_per_stage<D>(s_off, list_len);
 
   // An empty cell has nothing to stage for.
-  for (int c0 = 0; c0 < kStencil && n_own > 0; c0 += cells_per_stage) {
+  for (int c0 = 0; c0 < kStencil && n_own > 0; c0 += per_stage) {
     if (c0 > 0) __syncthreads();  // the previous stage is no longer read
     const int start = s_off[c0];
-    const int n_stage = s_off[c0 + cells_per_stage] - start;
+    const int n_stage = s_off[c0 + per_stage] - start;
     const int n_chunks = (n_stage + kUnroll - 1) / kUnroll;
-
-    // Stage: the threads share the list's entries evenly; each finds its
-    // entry's cell in the offsets, and loads kStageBatch entries before it
-    // stores the first, so the loads are in flight together.
-    for (int first = tid; first < n_stage; first += kStageBatch * threads) {
-      int c[kStageBatch];
-      T x[kStageBatch], y[kStageBatch], z[kStageBatch], d[kStageBatch];
-      T xl[kStageBatch], yl[kStageBatch], zl[kStageBatch];
-#pragma unroll
-      for (int b = 0; b < kStageBatch; ++b) {
-        const int k = first + b * threads;
-        c[b] = -1;
-        if (k < n_stage) {
-          // The last cell with s_off[cell] <= start + k.
-          int below = c0, above = c0 + cells_per_stage;
-          while (above - below > 1) {
-            const int mid = (below + above) >> 1;
-            if (s_off[mid] <= start + k) below = mid; else above = mid;
-          }
-          c[b] = below;
-          const int64_t src =
-              (int64_t)s_nb[below] * cap + (start + k - s_off[below]);
-          x[b] = pos[src];
-          y[b] = pos[n_slots + src];
-          z[b] = pos[2 * n_slots + src];
-          d[b] = diam[src];
-          if (HILO) {
-            xl[b] = lo[src];
-            yl[b] = lo[n_slots + src];
-            zl[b] = lo[2 * n_slots + src];
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kStageBatch; ++b) {
-        if (c[b] < 0) continue;
-        const int k = first + b * threads;
-        const T shx = s_shift[c[b]];
-        const T shy = s_shift[kMeta + c[b]];
-        const T shz = s_shift[2 * kMeta + c[b]];
-        if (HILO) {
-          T hx, hy, hz, rx, ry, rz;
-          two_sum(x[b], shx, hx, rx);
-          two_sum(y[b], shy, hy, ry);
-          two_sum(z[b], shz, hz, rz);
-          store_cand(cand, k, hx, hy, hz, d[b]);
-          store_cand(cand_lo, k, xl[b] + rx, yl[b] + ry, zl[b] + rz, T(0));
-        } else {
-          store_cand(cand, k, x[b] + shx, y[b] + shy, z[b] + shz, d[b]);
-        }
-      }
-    }
-    // Candidates at infinity fill the last chunk and make one more: the
-    // chunk that threads without work read.
-    if (tid < kListPad && n_stage + tid < (n_chunks + 1) * kUnroll)
-      store_cand(cand, n_stage + tid, T(INFINITY), T(0), T(0), T(0));
-    __syncthreads();
+    stage_candidates<D, HILO>(g, c0, per_stage, s_off, s_nb, s_shift, pos,
+                              lo, diam, cellm, n_slots, cap, kUnroll, cand,
+                              cand_lo);
 
     if (warp_active) {
       // The own slot's place in the list: it passes the filter (r2 = 0) and
       // is skipped when its turn comes in the drain.
-      const int self_k = kCentre >= c0 && kCentre < c0 + cells_per_stage
+      const int self_k = kCentre >= c0 && kCentre < c0 + per_stage
                              ? s_off[kCentre] - start + slot
                              : -1;
       // Sub-list sub takes chunks sub, sub + n_sub, ...: the hits are
@@ -365,34 +254,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
           // them.
           for (const uint16_t* qh = q; qh != q_end; qh += threads) {
             const int k = *qh;
-            T x, y, z, dj;
-            load_cand(cand, k, x, y, z, dj);
-            T dx, dy, dz;
-            if (HILO) {
-              T xl, yl, zl, pad, s, err;
-              load_cand(cand_lo, k, xl, yl, zl, pad);
-              two_sum(xi, -x, s, err);
-              dx = s + (err + (xil - xl));
-              two_sum(yi, -y, s, err);
-              dy = s + (err + (yil - yl));
-              two_sum(zi, -z, s, err);
-              dz = s + (err + (zil - zl));
-            } else {
-              dx = xi - x;
-              dy = yi - y;
-              dz = zi - z;
-            }
-            const T r2 = dx * dx + dy * dy + dz * dz;
+            T dr[D], dj;
+            const T r2 = displacement<D, HILO>(xi, xil, cand, cand_lo, k,
+                                               dr, dj);
             if (k != self_k && r2 < cutoff2) {
-              T u, f;
-              pot(pot_setup, r2, di, dj, u, f);
+              T u, fr;
+              pot(pot_setup, r2, di, dj, u, fr);
               if (OBS) {
                 e += T(0.5) * u;
-                w += T(0.5) * (f * r2);
+                w += T(0.5) * (fr * r2);
               }
-              fx += f * dx;
-              fy += f * dy;
-              fz += f * dz;
+#pragma unroll
+              for (int a = 0; a < D; ++a) f[a] += fr * dr[a];
             }
           }
           __syncwarp();
@@ -408,12 +281,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
         T r2v[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          T x, y, z, dj;
-          load_cand(cand, k0 + u, x, y, z, dj);
-          const T dx = xi - x;
-          const T dy = yi - y;
-          const T dz = zi - z;
-          r2v[u] = fma(dz, dz, fma(dy, dy, dx * dx));
+          T x[D], dj;
+          load_cand<D>(cand, k0 + u, x, dj);
+          T r2 = (xi[0] - x[0]) * (xi[0] - x[0]);
+#pragma unroll
+          for (int a = 1; a < D; ++a)
+            r2 = fma(xi[a] - x[a], xi[a] - x[a], r2);
+          r2v[u] = r2;
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -427,21 +301,21 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 
   // Each own slot adds up its sub-lists' sums, in list order.
-  part[tid] = fx;
-  part[threads + tid] = fy;
-  part[2 * threads + tid] = fz;
+#pragma unroll
+  for (int a = 0; a < D; ++a) part[a * threads + tid] = f[a];
   if (OBS) {
     part[3 * threads + tid] = e;
     part[4 * threads + tid] = w;
   }
   __syncthreads();
-  fx = fy = fz = e = w = T(0);
+#pragma unroll
+  for (int a = 0; a < D; ++a) f[a] = T(0);
+  e = w = T(0);
   if (tid < n_own) {
     for (int s = 0; s < n_sub; ++s) {
       const int t = s * n_own + tid;
-      fx += part[t];
-      fy += part[threads + t];
-      fz += part[2 * threads + t];
+#pragma unroll
+      for (int a = 0; a < D; ++a) f[a] += part[a * threads + t];
       if (OBS) {
         e += part[3 * threads + t];
         w += part[4 * threads + t];
@@ -450,9 +324,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
   if (tid < cap) {
     const int64_t out = (int64_t)cell * cap + tid;
-    force[out] = fx;
-    force[n_slots + out] = fy;
-    force[2 * n_slots + out] = fz;
+#pragma unroll
+    for (int a = 0; a < D; ++a) force[a * n_slots + out] = f[a];
   }
   if (!OBS) return;
   __syncthreads();  // part becomes the reduction's scratch
@@ -464,41 +337,26 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// All of the SM's shared memory for this kernel's blocks (the default
-// carve-out leaves most of it to L1 and holds fewer blocks), and the
-// dynamic-size opt-in above 48 KB.
-template <typename Kernel>
-int prepare_kernel(Kernel kernel, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && smem > kDefaultSharedBytes)
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  return (int)err;
-}
-
 // The plan (list_len, queue_depth, smem_bytes, threads) comes from
 // stage_plan in ops/cell_sweep.py and is held to this file's layout.
 // obs = false launches the lean variant: forces only, e_part and w_part
 // untouched (they may be null).
-template <typename T, bool HILO>
+template <typename T, int D, bool HILO>
 int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
-          const T* box, int nx, int ny, int nz, int cap, double cutoff,
+          const T* cellm, int nx, int ny, int nz, int cap, double cutoff,
           int kind, double p0, double p1, double p2, double p3, int i0,
           int i1, int i2, T* force, T* e_part, T* w_part, int list_len,
           int queue_depth, int smem_bytes, int threads, double filter_margin,
           bool obs, int* blocks_per_sm, void* stream_ptr) {
+  constexpr int kStencil = Stencil<D>::kCells;
   if (cap < 1 || cap > 1024) return kErrCapacity;
-  if (nx < 3 || ny < 3 || nz < 3) return kErrGrid;
+  if (nx < 3 || ny < 3 || (D == 3 ? nz < 3 : nz != 1)) return kErrGrid;
   const bool list_ok = list_len >= cap && list_len <= kStencil * cap;
   const bool block_ok = threads >= 32 && threads <= 1024 &&
                         (threads & (threads - 1)) == 0 && threads >= cap;
   if (!list_ok || !block_ok || queue_depth < kUnroll) return kErrPlan;
   const size_t smem =
-      shared_bytes<T, HILO>(list_len, queue_depth, threads);
+      shared_bytes<T, D, HILO>(list_len, queue_depth, threads);
   if (smem_bytes < 0 || (size_t)smem_bytes != smem) return kErrPlan;
   if (smem > kMaxSharedBytes) return kErrCapacity;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -507,12 +365,12 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
     using Pot = decltype(pot);
     // Registers: a block of up to 256 threads may take them all; a larger
     // one (up to 1024) is held to 64 a thread.
-    auto kernel = cell_sweep_kernel<T, Pot, HILO, true, 256>;
+    auto kernel = cell_sweep_kernel<T, D, Pot, HILO, true, 256>;
     if (threads > 256)
-      kernel = obs ? cell_sweep_kernel<T, Pot, HILO, true, 1024>
-                   : cell_sweep_kernel<T, Pot, HILO, false, 1024>;
+      kernel = obs ? cell_sweep_kernel<T, D, Pot, HILO, true, 1024>
+                   : cell_sweep_kernel<T, D, Pot, HILO, false, 1024>;
     else if (!obs)
-      kernel = cell_sweep_kernel<T, Pot, HILO, false, 256>;
+      kernel = cell_sweep_kernel<T, D, Pot, HILO, false, 256>;
     const int rc = prepare_kernel(kernel, smem);
     if (rc != 0) return rc;
     if (blocks_per_sm != nullptr) {  // report the occupancy, launch nothing
@@ -520,54 +378,74 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
           blocks_per_sm, kernel, threads, smem);
     }
     kernel<<<n_cells, threads, smem, stream>>>(
-        pos, lo, diam, counts, box, nx, ny, nz, cap, list_len, queue_depth,
+        pos, lo, diam, counts, cellm, nx, ny, nz, cap, list_len, queue_depth,
         T(cutoff), T(filter_margin), pot, force, e_part, w_part);
     return (int)cudaGetLastError();
   });
+}
+
+// The dimension from the grid: a 2D grid comes as nx x ny x 1.
+template <typename T, bool HILO>
+int sweep_dim(const T* pos, const T* lo, const T* diam,
+              const int64_t* counts, const T* cellm, int nx, int ny, int nz,
+              int cap, double cutoff, int kind, double p0, double p1,
+              double p2, double p3, int i0, int i1, int i2, T* force,
+              T* e_part, T* w_part, int list_len, int queue_depth,
+              int smem_bytes, int threads, double filter_margin, bool obs,
+              int* blocks_per_sm, void* stream) {
+  auto run = [&](auto dim) {
+    return sweep<T, decltype(dim)::value, HILO>(
+        pos, lo, diam, counts, cellm, nx, ny, nz, cap, cutoff, kind, p0, p1,
+        p2, p3, i0, i1, i2, force, e_part, w_part, list_len, queue_depth,
+        smem_bytes, threads, filter_margin, obs, blocks_per_sm, stream);
+  };
+  return nz == 1 ? run(std::integral_constant<int, 2>())
+                 : run(std::integral_constant<int, 3>());
 }
 
 }  // namespace
 
 extern "C" {
 
+// cellm: the (D, D) cell matrix, row-major; a 2D grid has nz = 1.
 // observables = 0 launches the lean variant (forces only; e_part and w_part
 // are not written and may be null).
 int mdtpu_cell_sweep_f32(const float* pos, const float* diam,
-                         const int64_t* counts, const float* box, int nx,
+                         const int64_t* counts, const float* cellm, int nx,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, float* force, float* e_part,
                          float* w_part, int list_len, int queue_depth,
                          int smem_bytes, int threads, int observables,
                          void* stream) {
-  return sweep<float, false>(pos, nullptr, diam, counts, box, nx, ny, nz, cap,
-                             cutoff, kind, p0, p1, p2, p3, i0, i1, i2, force,
-                             e_part, w_part, list_len, queue_depth,
-                             smem_bytes, threads, 0.0, observables != 0,
-                             nullptr, stream);
+  return sweep_dim<float, false>(pos, nullptr, diam, counts, cellm, nx, ny,
+                                 nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
+                                 i1, i2, force, e_part, w_part, list_len,
+                                 queue_depth, smem_bytes, threads, 0.0,
+                                 observables != 0, nullptr, stream);
 }
 
 int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
-                         const int64_t* counts, const double* box, int nx,
+                         const int64_t* counts, const double* cellm, int nx,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, double* force, double* e_part,
                          double* w_part, int list_len, int queue_depth,
                          int smem_bytes, int threads, int observables,
                          void* stream) {
-  return sweep<double, false>(pos, nullptr, diam, counts, box, nx, ny, nz,
-                              cap, cutoff, kind, p0, p1, p2, p3, i0, i1, i2,
-                              force, e_part, w_part, list_len,
-                              queue_depth, smem_bytes, threads, 0.0,
-                              observables != 0, nullptr, stream);
+  return sweep_dim<double, false>(pos, nullptr, diam, counts, cellm, nx, ny,
+                                  nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
+                                  i1, i2, force, e_part, w_part, list_len,
+                                  queue_depth, smem_bytes, threads, 0.0,
+                                  observables != 0, nullptr, stream);
 }
 
 // The hi/lo sweep, float32 only (as the JAX package's f32x2 mode).
 // filter_margin: how far the filter's cutoff radius is widened per unit of
-// the longest box length (hilo_filter_margin in ops/cell_sweep.py).
+// the box's extent (hilo_filter_margin in ops/cell_sweep.py).
 int mdtpu_cell_sweep_hilo_f32(const float* hi, const float* lo,
                               const float* diam, const int64_t* counts,
-                              const float* box, int nx, int ny, int nz,
+                              const float* cellm, int nx, int ny, int nz,
                               int cap, double cutoff, int kind, double p0,
                               double p1, double p2, double p3, int i0, int i1,
                               int i2, float* force, float* e_part,
@@ -575,38 +453,38 @@ int mdtpu_cell_sweep_hilo_f32(const float* hi, const float* lo,
                               int queue_depth, int smem_bytes, int threads,
                               double filter_margin, int observables,
                               void* stream) {
-  return sweep<float, true>(hi, lo, diam, counts, box, nx, ny, nz, cap,
-                            cutoff, kind, p0, p1, p2, p3, i0, i1, i2, force,
-                            e_part, w_part, list_len, queue_depth,
-                            smem_bytes, threads, filter_margin,
-                            observables != 0, nullptr, stream);
+  return sweep_dim<float, true>(hi, lo, diam, counts, cellm, nx, ny, nz, cap,
+                                cutoff, kind, p0, p1, p2, p3, i0, i1, i2,
+                                force, e_part, w_part, list_len, queue_depth,
+                                smem_bytes, threads, filter_margin,
+                                observables != 0, nullptr, stream);
 }
 
 // Resident blocks per SM of the kernel that a launch with this plan would
 // run (dtype_bytes 4 or 8; hilo only at 4; observables 0 for the lean
-// variant), into *blocks_per_sm.
+// variant; dim 2 or 3), into *blocks_per_sm.
 int mdtpu_cell_sweep_occupancy(int dtype_bytes, int hilo, int cap, int kind,
                                int i0, int i1, int i2, int list_len,
                                int queue_depth, int smem_bytes, int threads,
-                               int observables, int* blocks_per_sm) {
+                               int observables, int dim, int* blocks_per_sm) {
   const bool obs = observables != 0;
+  const int nz = dim == 2 ? 1 : 3;
   if (dtype_bytes == 8)
-    return sweep<double, false>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                3, 3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0,
-                                i0, i1, i2, nullptr, nullptr, nullptr,
-                                list_len, queue_depth, smem_bytes,
-                                threads, 0.0, obs, blocks_per_sm, nullptr);
+    return sweep_dim<double, false>(
+        nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
+        list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
+        nullptr);
   if (hilo)
-    return sweep<float, true>(nullptr, nullptr, nullptr, nullptr, nullptr, 3,
-                              3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0, i0,
-                              i1, i2, nullptr, nullptr, nullptr,
-                              list_len, queue_depth, smem_bytes,
-                              threads, 0.0, obs, blocks_per_sm, nullptr);
-  return sweep<float, false>(nullptr, nullptr, nullptr, nullptr, nullptr, 3,
-                             3, 3, cap, 1.0, kind, 1.0, 1.0, 1.0, 1.0, i0, i1,
-                             i2, nullptr, nullptr, nullptr, list_len,
-                             queue_depth, smem_bytes, threads, 0.0, obs,
-                             blocks_per_sm, nullptr);
+    return sweep_dim<float, true>(
+        nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
+        list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
+        nullptr);
+  return sweep_dim<float, false>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0, kind,
+      1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, list_len,
+      queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm, nullptr);
 }
 
 const char* mdtpu_cell_sweep_error_string(int code) {

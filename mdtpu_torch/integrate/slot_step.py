@@ -6,10 +6,11 @@ scatters the positions into the cell grid's slots, runs the pair sweep and
 gathers the forces back, every step. Here positions, velocities, forces and
 the rest stay in slot order for the whole run, so a step runs the B1 kernel
 (:meth:`CellGridEngine.compute_slots`) on them as they are, and the
-integrator works on ``(3, n_slots)`` rows, vacant slots included.
+integrator works on ``(d, n_slots)`` rows, vacant slots included (d = 2 or
+3; the box may be tilted).
 
 Layout contract:
-  * per-particle tensors are ``(3, n_slots)`` (diameters ``(n_slots,)``,
+  * per-particle tensors are ``(d, n_slots)`` (diameters ``(n_slots,)``,
     ``ids`` int64 ``(n_slots,)``), ``n_slots = n_cells * C``, in cell-sorted
     order; the occupied slots of cell ``c`` are ``c*C .. c*C + counts[c] -
     1``, contiguous from the cell's first slot, because the kernel stops at
@@ -24,8 +25,9 @@ Layout contract:
     the true degrees of freedom, so temperature and thermostat are unchanged;
   * the periodic wrap is deferred to rebuild time: between rebuilds positions
     drift unwrapped (at most skin/2), which is the kernel's contract (every
-    slot within skin/2 of its home cell, so the +-L image shift of a wrapped
-    neighbour cell gives true displacements). A rebuild folds the occupied
+    slot within skin/2 of its home cell, so the image shift of a wrapped
+    neighbour cell, the cell vectors of its wrap, gives true
+    displacements). A rebuild folds the occupied
     rows through the compensated add and adds the crossings to ``images``;
     outputs fold the rest on the host;
   * when a particle drifts past skin/2 the loop re-bins: a stable sort of the
@@ -52,7 +54,7 @@ from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationSta
 from mdtpu_torch.integrate import step as _step
 from mdtpu_torch.integrate.step import (_add, brownian_virial_sample,
                                         md_velocity_finish)
-from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState
+from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
 from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils.math import kahan_add
 
@@ -89,7 +91,7 @@ def _fold_into_box(state: SimulationState) -> SimulationState:
 
 
 def slotify(state: SimulationState, engine: CellGridEngine) -> SimulationState:
-    """Convert an ``(N, 3)`` particle-order state into slot order."""
+    """Convert an ``(N, d)`` particle-order state into slot order."""
     state = _fold_into_box(state)
     n = state.positions.shape[0]
     n_slots = engine.n_cells * engine.cell_capacity
@@ -294,12 +296,9 @@ def _rebin(state: SimulationState, engine: CellGridEngine) -> SimulationState:
     into the last cell), :func:`packed_resort`. The overflow flag is sticky."""
     cap = engine.cell_capacity
     n_cells = engine.n_cells
-    _, ny, nz = engine.grid
     state, frac = fold_wrap(state)
-    coords = [(f * g).long().clamp(0, g - 1)
-              for f, g in zip(frac, engine.grid)]
-    cid = (coords[0] * ny + coords[1]) * nz + coords[2]
-    cid = torch.where(state.nbrs.occupied, cid, n_cells)
+    cid = torch.where(state.nbrs.occupied, cell_ids(frac, engine.grid),
+                      n_cells)
     state, overflow = packed_resort(state, cid, n_cells, cap)
     return state.replace(nbrs=dataclasses.replace(
         state.nbrs, overflow=state.nbrs.overflow | overflow))
@@ -310,8 +309,11 @@ def slot_needs_rebin(state: SimulationState, engine: CellGridEngine):
     binning reference. Deferred wrap makes it a plain Cartesian distance."""
     d = state.positions - state.nbrs.ref_positions
     d = d * d
+    d2 = d[0]
+    for dk in d[1:]:
+        d2 = d2 + dk
     half_skin = 0.5 * engine.skin
-    return torch.any(d[0] + d[1] + d[2] > half_skin * half_skin)
+    return torch.any(d2 > half_skin * half_skin)
 
 
 def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,

@@ -3,9 +3,10 @@
 Engines implement the protocol documented in :mod:`mdtpu_torch.ops.naive`:
 ``allocate`` / ``compute`` / ``needs_rebuild``.
 
-  * NaivePairEngine — O(N^2) all pairs; small N, triclinic and 2D boxes.
-  * CellGridEngine  — cell grid with the pair sweep as a CUDA kernel; 3D
-    orthorhombic boxes at larger N.
+  * NaivePairEngine — O(N^2) all pairs; small N and boxes too small for a
+    cell grid.
+  * CellGridEngine  — cell grid with the pair sweep as a CUDA kernel; 2D and
+    3D boxes, orthorhombic or tilted, at larger N.
   * experimental.PlaneEngine — the cell grid with the Newton half-stencil
     sweep; never picked by :func:`select_engine`.
 """
@@ -29,9 +30,11 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
     """Pick the engine for the system.
 
     prefer: None (auto) | "naive" | "cellgrid".
-    Auto: naive for N <= 2048; the cell grid for a 3D orthorhombic box that
-    fits at least 3 cells per axis. Triclinic and 2D boxes take the naive
-    engine until the cell grid covers them (queue A9); there is no
+    The reference's decision (``mdtpu/ops/__init__.py:63-69``): the naive
+    engine whenever the box does not fit a cell grid (fewer than 3 cells
+    along some axis), whatever ``prefer`` says; otherwise the cell grid for
+    ``prefer="cellgrid"`` or for N > 2048, the naive engine for smaller N.
+    The grid takes 2D and 3D boxes, orthorhombic or tilted. There is no
     neighbour-list engine yet (queue A12).
 
     workload: "dynamics" (default) or "minimize", as the JAX package's
@@ -41,7 +44,6 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
     """
     if workload not in ("dynamics", "minimize"):
         raise ValueError(f"unknown workload {workload!r}")
-    from mdtpu_torch.core.box import is_orthorhombic
     from mdtpu_torch.ops.cell_grid import CellGridEngine, grid_for_box
     from mdtpu_torch.potentials.base import check_engine_cutoff
 
@@ -64,17 +66,15 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
     if prefer == "naive":
         return NaivePairEngine(potential=potential, cutoff=cutoff)
     grid_ok = (unitcell is not None
-               and np.asarray(unitcell).shape == (3, 3)
-               and is_orthorhombic(unitcell)
                and grid_for_box(np.asarray(unitcell), float(cutoff),
                                 float(skin)) is not None)
-    if prefer == "cellgrid" or (grid_ok and n_particles is not None
-                                and n_particles > _NAIVE_MAX_N):
-        return CellGridEngine.create(
-            potential, float(cutoff), float(skin), np.asarray(unitcell),
-            int(n_particles), max_sigma=max_sigma, diameters=diameters)
-    _warn_if_half_box_exceeded(unitcell, cutoff)
-    return NaivePairEngine(potential=potential, cutoff=cutoff)
+    if not grid_ok or (prefer is None and (n_particles is None
+                                           or n_particles <= _NAIVE_MAX_N)):
+        _warn_if_half_box_exceeded(unitcell, cutoff)
+        return NaivePairEngine(potential=potential, cutoff=cutoff)
+    return CellGridEngine.create(
+        potential, float(cutoff), float(skin), np.asarray(unitcell),
+        int(n_particles), max_sigma=max_sigma, diameters=diameters)
 
 
 def _warn_if_half_box_exceeded(unitcell, cutoff):

@@ -25,6 +25,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import ClassVar
 
+import numpy as np
+import torch
+
+from mdtpu_torch.core.box import is_orthorhombic
 from mdtpu_torch.ops.cell_grid import CellGridEngine
 from mdtpu_torch.ops.plane_sweep import plane_sweep
 
@@ -37,6 +41,19 @@ class PlaneEngine(CellGridEngine):
     full-stencil sweep."""
 
     runs_in_slots: ClassVar[bool] = False
+
+    @classmethod
+    def create(cls, potential, cutoff, skin, unitcell, n_particles, **kw):
+        """:meth:`CellGridEngine.create` for a 3D orthorhombic box, the only
+        box the half-stencil kernel takes; ``ValueError`` for any other."""
+        cell = (unitcell.detach().cpu().numpy()
+                if isinstance(unitcell, torch.Tensor)
+                else np.asarray(unitcell))
+        if cell.shape != (3, 3) or not is_orthorhombic(cell):
+            raise ValueError("PlaneEngine takes 3D orthorhombic boxes; use "
+                             "CellGridEngine for 2D and tilted ones")
+        return super().create(potential, cutoff, skin, unitcell, n_particles,
+                               **kw)
 
     def sweep(self, slot_pos, slot_diam, counts, box):
         return plane_sweep(slot_pos, slot_diam, counts, box, self.grid,

@@ -15,7 +15,9 @@ Newton half stencil. Each own cell meets
     ``-f d`` through a reaction partial that is folded back afterwards in a
     fixed order.
 
-Same arguments and results as :func:`mdtpu_torch.ops.cell_sweep.cell_sweep`.
+Same arguments and results as :func:`mdtpu_torch.ops.cell_sweep.cell_sweep`,
+on 3D orthorhombic boxes only (as its Pallas original): ``box`` is the three
+box lengths or the diagonal cell matrix, whose diagonal is taken.
 :func:`plane_sweep` launches the kernels in ``csrc/plane_sweep.cu`` for CUDA
 tensors and takes :func:`plane_sweep_plain` only for CPU tensors.
 
@@ -44,7 +46,7 @@ from mdtpu_torch.ops import _cuda_build
 from mdtpu_torch.ops.cell_sweep import (FILTER_UNROLL, MAX_CAPACITY,
                                         MAX_SHARED_BYTES, QUEUE_DEPTH, PairTiles,
                                         check_cuda, check_inputs,
-                                        kernel_params, launch_sweep)
+                                        functor_params, launch_sweep)
 
 NAME = "plane_sweep"
 HALF_OFFSETS = ((0, 1), (1, -1), (1, 0), (1, 1))
@@ -141,7 +143,7 @@ def blocks_per_sm(cap, dtype, potential) -> int:
     run are resident on one SM together (asks the CUDA runtime; needs a
     card)."""
     lib = _library()
-    kind, _, ip = kernel_params(potential)
+    kind, _, ip = functor_params(potential)
     out = ctypes.c_int(0)
     rc = lib.mdtpu_plane_sweep_occupancy(
         torch.finfo(dtype).bits // 8, cap, kind, *ip, *_plan_args(cap, dtype),
@@ -155,6 +157,7 @@ def plane_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
     CPU tensors take :func:`plane_sweep_plain`. Each launch adds one to
     ``plane_sweep.launches``. The kernel refuses (RuntimeError) a capacity
     whose staging plan does not fit in a block's shared memory."""
+    box = _box_lengths(box, grid)
     if slot_pos.device.type == "cpu":
         return plane_sweep_plain(slot_pos, slot_diam, counts, box, grid,
                                  cutoff, potential)
@@ -176,6 +179,15 @@ def plane_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
 plane_sweep.launches = 0
 
 
+def _box_lengths(box, grid):
+    """The (3,) box lengths of a 3D orthorhombic box given as lengths or as
+    its cell matrix (``PlaneEngine.create`` takes no other box)."""
+    if len(grid) != 3:
+        raise ValueError(f"the half-stencil sweep takes 3D grids, got "
+                         f"{tuple(grid)}")
+    return torch.diagonal(box).contiguous() if box.dim() == 2 else box
+
+
 def _react_buffer(n_slots, dtype, device):
     """The reaction partials (12, 3, n_slots), indexed by the slot they act
     on, uninitialised: the sweep writes and the fold-back reads those of
@@ -190,6 +202,7 @@ def plane_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
     as :func:`plane_sweep`: one (n_cells, C, C) pair tile per stencil cell;
     the Newton cells' reactions ``-sum_i f d`` are added to the neighbour
     cells' slots."""
+    box = _box_lengths(box, grid)
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     tiles = PairTiles(slot_pos, slot_diam, counts, box, grid, cutoff,

@@ -15,6 +15,22 @@ beyond its own cutoff, for arbitrarily large ``r``. Engines validate at
 creation that their cutoff covers :meth:`Potential.max_cutoff`
 (:func:`check_engine_cutoff`).
 
+WHAT RUNS ON THE CARD. The built-in potentials (LennardJones, PseudoHS,
+LennardJonesXPLOR and the packer's OverlapPotential) have functors in the
+CUDA pair sweeps (``csrc/pair_potentials.cuh``) that mirror their
+``evaluate_r2`` expression for expression. Any other potential, a user's
+subclass of :class:`Potential` included (the choice is by type: a subclass of
+a built-in is a user potential too), runs on the cell grid's pair-list
+route (:mod:`mdtpu_torch.ops.cell_pairs`): a CUDA kernel lists every pair
+within the engine cutoff with its r^2 and the two diameters, the
+potential's own ``evaluate_r2`` (``force_r2`` on steps whose energy nobody
+reads) runs in torch on that flat list, and a CUDA kernel sums the forces,
+energy and virial in a fixed order. So a user potential needs only torch
+operations that broadcast over 1-D tensors of r^2, sigma_i and sigma_j, in
+their dtype and on their device; it must keep the cutoff contract above
+(exact zeros beyond its range, including on padding entries at r^2 = the
+engine cutoff squared) and must not read values back to the host.
+
 Scalar parameters are rounded to the working dtype before use
 (:func:`rounded`), as the JAX package casts them with ``jnp.asarray(x,
 dtype)``; they then enter tensor arithmetic as Python scalars, which PyTorch

@@ -138,5 +138,7 @@ def test_cpu_wrapper_takes_the_plain_version():
     assert sweep_mod.cell_sweep.launches == before
     with pytest.raises(ValueError):
         sweep_mod.cell_sweep(*inputs, (2, 5, 5), eng.cutoff, pot)
-    with pytest.raises(NotImplementedError):
-        sweep_mod.kernel_params(object())
+    # A potential without a functor takes the pair-list route, by type.
+    assert sweep_mod.kernel_params(object()) is None
+    with pytest.raises(ValueError, match="pair list"):
+        sweep_mod.functor_params(object())

@@ -11,7 +11,12 @@ empty and full cells, counts above the capacity, a cluster in which every
 candidate is a hit, every flag of the potentials; and two launches repeat
 bit for bit. The half-stencil sweep on the same hand-made inputs, its
 reaction buffer filled with NaN beforehand, and its capacity limit; the
-probe at chunks that do and do not divide its rows.
+probe at chunks that do and do not divide its rows. 2D and tilted boxes:
+the full-stencil sweep (f64, f32, hi/lo; lean) on hand-made slots in a 2D,
+a tilted 2D and a tilted 3D box, 2D neighbourhoods staged in parts; the
+pair list and its reduction against their plain versions (the same entries
+in the same order, bit for bit), its overflow, and a run with a user
+potential on the card against the same run on the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -20,11 +25,14 @@ installed there):
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import mdtpu_torch
+from mdtpu_torch.ops import cell_pairs as pairs_mod
 from mdtpu_torch.ops import cell_sweep as sweep_mod
 from mdtpu_torch.ops import plane_sweep as plane_mod
 from mdtpu_torch.ops.cell_grid import CellGridEngine
@@ -34,6 +42,7 @@ from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
 from mdtpu_torch.sim.initialization import lattice_fluid_state
+from mdtpu_torch.utils.math import ipow
 
 pytestmark = pytest.mark.gpu
 
@@ -92,16 +101,30 @@ def test_kernel_matches_plain(cuda, name, dtype):
 
 
 def test_unknown_potential_raises_on_cuda(cuda):
+    """The sweep kernels have no functor for a user's class (even one
+    derived from a built-in): their wrappers raise ``ValueError``, and the
+    engine takes the pair-list route instead, with the CPU's result."""
     class Custom(LennardJones):
         pass
 
-    state = lattice_fluid_state(2000, 0.8, 1.0, cutoff=2.5, device=cuda)
+    state = lattice_fluid_state(2000, 0.8, 1.0, dtype=torch.float64,
+                                cutoff=2.5, device=cuda)
     eng = CellGridEngine.create(Custom(), 2.5, 0.3, state.unitcell, 2000)
+    assert eng.uses_pair_list
     nb = eng.allocate(state.positions, state.diameters, state.unitcell,
                       state.unitcell_inv)
-    with pytest.raises(NotImplementedError):
-        eng.compute(state.positions, state.diameters, state.unitcell,
-                    state.unitcell_inv, nb)
+    inputs = eng.slot_inputs(state.positions, state.unitcell,
+                             state.unitcell_inv, nb)
+    with pytest.raises(ValueError, match="pair list"):
+        sweep_mod.cell_sweep(*inputs, eng.grid, eng.cutoff, eng.potential)
+    before = pairs_mod.pair_list.launches
+    e1, w1, f1, _ = eng.compute(state.positions, state.diameters,
+                                state.unitcell, state.unitcell_inv, nb)
+    assert pairs_mod.pair_list.launches == before + 1
+    e0, w0, f0 = sweep_mod.cell_sweep_plain(*inputs, eng.grid, eng.cutoff,
+                                            LennardJones())
+    np.testing.assert_allclose(float(e1), float(e0), rtol=1e-12)
+    np.testing.assert_allclose(float(w1), float(w0), rtol=1e-12)
 
 
 def _force_ratio(f1, f0, n):
@@ -757,3 +780,199 @@ def test_slot_advance_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(gpu.positions.cpu().numpy(),
                                cpu.positions.numpy(), rtol=0, atol=1e-9)
     assert torch.equal(gpu.images.cpu(), cpu.images)
+
+
+# --------------------------------------------------------------------------
+# 2D and tilted boxes; the pair list.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NonAdditivePHS(mdtpu_torch.Potential):
+    """The user potential of ``examples/03_polydisperse_2d.py`` written
+    against the port's ``Potential``: non-additive cross diameters sigma_ij =
+    0.5 (s_i + s_j)(1 - 0.2 |s_i - s_j|), an r^-12 repulsion energy- and
+    force-shifted at 1.25 sigma_ij."""
+
+    lam: int = 12
+
+    def evaluate(self, r, sigma_i, sigma_j):
+        sigma = 0.5 * (sigma_i + sigma_j) * (1.0 - 0.2 * torch.abs(
+            sigma_i - sigma_j))
+        cutoff = 1.25 * sigma
+        inside = r < cutoff
+        r_safe = torch.where(inside, r, torch.ones_like(r))
+        sr = sigma / r_safe
+        u_raw = ipow(sr, self.lam)
+        f_raw = self.lam * u_raw / r_safe
+        u_c = ipow(torch.tensor(1 / 1.25, dtype=r.dtype, device=r.device),
+                   self.lam)
+        f_c = self.lam * u_c / cutoff
+        u = u_raw - u_c + (r_safe - cutoff) * f_c
+        f = f_raw - f_c
+        zero = torch.zeros_like(u)
+        return torch.where(inside, u, zero), torch.where(inside, f, zero)
+
+
+BOXES = {"2d": ((6, 5), 0.0), "2d_tilted": ((6, 5), 0.125),
+         "3d_tilted": ((4, 3, 5), 0.125)}
+
+
+def _slots_in_box(grid, cap, counts, cutoff, seed, device, tilt=0.0,
+                  diam_spread=0.0):
+    """f64 slot inputs ``(slot_pos, slot_diam, counts, cell)`` on a 2D or 3D
+    grid: cell ``c`` holds ``min(counts[c], cap)`` particles on random sites
+    of its own sublattice (m^d >= cap sites, spacing >= 1 in fractional
+    units of the edge), jittered; the box's later columns lean by ``tilt``
+    of their length along the earlier axes."""
+    rng = np.random.default_rng(seed)
+    dim = len(grid)
+    n_cells = int(np.prod(grid))
+    m = 1
+    while m ** dim < cap:
+        m += 1
+    edge = max(cutoff + 0.05, float(m))
+    lengths = np.array(grid, dtype=np.float64) * edge
+    cell = np.diag(lengths)
+    for a in range(1, dim):
+        for k in range(a):
+            cell[k, a] = tilt * lengths[a]
+    idx = np.arange(n_cells)
+    coords = np.stack(np.unravel_index(idx, grid))
+    frac = np.full((dim, n_cells, cap), VACANT)
+    for c in range(n_cells):
+        n = min(int(counts[c]), cap)
+        sites = np.stack(np.unravel_index(rng.permutation(m ** dim)[:n],
+                                          (m,) * dim))
+        frac[:, c, :n] = (coords[:, c, None] + (
+            sites + 0.5 + 0.03 * rng.standard_normal((dim, n))) / m) \
+            / np.array(grid)[:, None]
+    pos = np.where(frac == VACANT, VACANT,
+                   np.einsum("ka,acs->kcs", cell, frac))
+    diam = 1.0 + diam_spread * rng.random(n_cells * cap)
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        pos.reshape(dim, -1), diam, np.asarray(counts, dtype=np.int64), cell))
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("cap", [5, 33])
+@pytest.mark.parametrize("box", sorted(BOXES))
+def test_cell_sweep_2d_and_tilted_boxes(cuda, box, cap, kind):
+    """The full-stencil sweep in a 2D, a tilted 2D and a tilted 3D box, with
+    an empty, a full and an overfull cell; its lean variant's forces the
+    full variant's bits."""
+    grid, tilt = BOXES[box]
+    counts = _mixed_counts(int(np.prod(grid)), cap, cap + len(grid))
+    slots = _slots_in_box(grid, cap, counts, 2.5, cap, cuda, tilt, 0.2)
+    pot = LennardJones(r_cut=2.5, force_shift=True)
+    full = _check_full_stencil(kind, slots, grid, 2.5, pot)
+    pos, diam, counts_t, cell = slots
+    if kind == "hilo":
+        hi = pos.float()
+        lean = sweep_mod.cell_sweep_hilo(
+            hi, (pos - hi.double()).float(), diam.float(), counts_t,
+            cell.float(), grid, 2.5, pot, observables=False)
+    else:
+        dtype = torch.float64 if kind == "f64" else torch.float32
+        lean = sweep_mod.cell_sweep(pos.to(dtype), diam.to(dtype), counts_t,
+                                    cell.to(dtype), grid, 2.5, pot,
+                                    observables=False)
+    assert torch.equal(lean[2], full[2])
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_cell_sweep_2d_stages_in_parts(cuda, kind):
+    """A 2D neighbourhood of full cells is longer than a stage's list: the
+    kernel stages its 9 cells three at a time."""
+    grid, cap = (4, 3), 33
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    list_len = sweep_mod.stage_plan(cap, dtype, kind == "hilo", 2)[0]
+    counts = np.full(12, cap, dtype=np.int64)
+    assert sweep_mod.stage_cells([cap] * 9, list_len) == 3
+    slots = _slots_in_box(grid, cap, counts, 2.5, 3, cuda, 0.125)
+    _check_full_stencil(kind, slots, grid, 2.5, LennardJones(r_cut=2.5))
+
+
+def _list_entries(plist):
+    total = int(plist.total)
+    return [getattr(plist, k)[..., :total] for k in
+            ("neighbour", "disp", "r2", "sigma_i", "sigma_j")]
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+@pytest.mark.parametrize("box", ["2d_tilted", "3d_tilted"])
+def test_pair_list_and_reduction_match_plain(cuda, box, kind):
+    """The list's entries are its plain version's, in the same order and
+    the same bits; the reduction matches its plain version, its lean
+    forces are the full ones' bits, and both repeat bit for bit; a capacity
+    below the hits flags the overflow and keeps the first entries."""
+    grid, tilt = BOXES[box]
+    cap = 9
+    counts = _mixed_counts(int(np.prod(grid)), cap, 4)
+    pos, diam, counts_t, cell = _slots_in_box(grid, cap, counts, 2.0, 8,
+                                              cuda, tilt, 0.4)
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    hi = pos.to(dtype)
+    lo = (pos - hi.double()).float() if kind == "hilo" else None
+    args = (hi, diam.to(dtype), counts_t, cell.to(dtype), grid, 2.0)
+    plist = pairs_mod.pair_list(*args, 100000, slot_lo=lo)
+    again = pairs_mod.pair_list(*args, 100000, slot_lo=lo)
+    torch.cuda.synchronize()
+    plain = pairs_mod.pair_list_plain(*args, 100000, slot_lo=lo)
+    assert int(plist.total) == int(plain.total) > 100
+    assert not bool(plist.overflow) and torch.equal(plist.count, plain.count)
+    for got, want, rep in zip(_list_entries(plist), _list_entries(plain),
+                              _list_entries(again)):
+        assert torch.equal(got, want) and torch.equal(got, rep)
+    pot = NonAdditivePHS()
+    u, f = pot.evaluate_r2(plist.r2, plist.sigma_i, plist.sigma_j)
+    out = pairs_mod.pair_reduce(plist, f, u)
+    rep = pairs_mod.pair_reduce(plist, f, u)
+    lean = pairs_mod.pair_reduce(plist, f)
+    ref = pairs_mod.pair_reduce_plain(plist, f, u)
+    assert all(torch.equal(a, b) for a, b in zip(out, rep))
+    assert torch.equal(lean[2], out[2])
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    np.testing.assert_allclose(float(out[0]), float(ref[0]), rtol=rtol_ew)
+    np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=rtol_ew)
+    assert _force_ratio(out[2], ref[2], int(counts_t.clamp(max=cap).sum())) \
+        <= tol_f
+    short = pairs_mod.pair_list(*args, 50, slot_lo=lo)
+    assert bool(short.overflow) and int(short.total) == int(plist.total)
+    for got, want in zip(_list_entries(short), _list_entries(plist)):
+        assert torch.equal(got[..., :50], want[..., :50])
+
+
+def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
+    """A 2D polydisperse run with a user potential (the pair-list route in
+    the slot layout, f64, NVE) on the card and on the CPU from one state:
+    energy, temperature and virial after every segment to rel 1e-10."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_positions)
+
+    n, rho = 4096, 0.9
+    L = (n / rho) ** 0.5
+    cell = np.array([[L, L / 8], [0.0, L]])
+    pot = NonAdditivePHS()
+    params = mdtpu_torch.Parameters(rho, n, 1e-3, pot)
+    diam = 0.8 + 0.4 * torch.rand(n, generator=torch.Generator()
+                                  .manual_seed(1), dtype=torch.float64)
+    runs = {}
+    for device in ("cpu", cuda):
+        pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.02,
+                                seed=3, device=device)
+        state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
+                                        cutoff=1.8, device=device)
+        eng = CellGridEngine.create(pot, 1.8, 0.1, state.unitcell, n)
+        assert eng.uses_pair_list and len(eng.grid) == 2
+        slots, eng = slot_step.slotify_grown(state, eng)
+        slots = slot_step.slot_forces(slots, eng)
+        advance = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng)
+        rows = []
+        for k in (1, 7, 7, 7):
+            slots = advance(slots, k)
+            rows.append([float(slots.energy), float(slots.temperature),
+                         float(slots.virial)])
+        assert not bool(slots.nbrs.overflow)
+        runs[str(device)] = rows
+    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-10)

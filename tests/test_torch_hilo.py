@@ -87,7 +87,7 @@ def test_hilo_sweep_matches_jax_hilo_slot_sweep():
     far = np.asarray(far_ramp(n_slots, jnp.float32))
     hi_j = np.where(occ[None, :], hi.numpy(), far[None, :])
     lo_j = np.where(occ[None, :], lo.numpy(), 0.0).astype(np.float32)
-    cell = jnp.diag(jnp.asarray(box.numpy()))
+    cell = jnp.asarray(box.numpy())   # slot_inputs_hilo gives the cell
     jeng = JCellGrid(potential=JLJ(r_cut=2.5), cutoff=2.5, skin=0.3,
                      grid=eng.grid, cell_capacity=cap)
     e0, w0, f0, _ = jeng.compute_slots(jnp.asarray(hi_j),

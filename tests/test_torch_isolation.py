@@ -26,7 +26,8 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax_or_mdtpu():
     code = ("import sys, mdtpu_torch, mdtpu_torch.interop, "
-            "mdtpu_torch.ops.cell_grid, mdtpu_torch.ops.plane_sweep, "
+            "mdtpu_torch.ops.cell_grid, mdtpu_torch.ops.cell_pairs, "
+            "mdtpu_torch.ops.plane_sweep, "
             "mdtpu_torch.ops.experimental, "
             "mdtpu_torch.ops.experimental.probe\n"
             "print('\\n'.join(sorted(sys.modules)))")
