@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the four CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
+   builds the five CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
    started together; ``-Xptxas -v`` summary: registers and spills of every
    entry of ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of
-   the probe and the pair list).
+   the probe, the pair list and the RDF histogram).
 2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
    r_c 2.5: a 15^3 grid with capacity C = 37) on the jittered lattice and on
    the melted fluid (the lattice after 300 NVT steps), and for pseudo-hard
@@ -66,7 +66,13 @@
    then every variant of ``plane_probe`` against its plain version (NaN
    positions equal, finite values to 1e-5 of the largest), timed by
    CUDA-graph replay (a wrapper call takes the host ~0.1 ms, more than the
-   kernel); prints the ratio of ``full`` at chunk 45 to chunk 5.
+   kernel); prints the ratio of ``full`` at chunk 45 to chunk 5. RDF
+   phase: ``rdf_histogram`` against its plain version on the melted bench
+   fluid, the 2D start and the tilted start (65,536), f64 and f32, at r_max
+   3 (200 bins, ``validate.py``'s) and at half the narrowest width
+   (``sample_rdf``'s): the counts bin for bin (a difference only within
+   twice the pairs at a bin edge, counted in f64), two launches alike,
+   timed by graph replay against its bound.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -93,7 +99,19 @@
      polydisperse potential, f64, rho 0.9) from an XYZ snapshot through
      ``initialize_state(from_file=...)``, ``minimize`` (slot FIRE on the
      pair list, 1000 iterations at dmax 0.01) and 300 NVT(0.5, 0.01) steps
-     at dt 1e-4.
+     at dt 1e-4;
+   * resume: the bench on the slot route, 400 NVT steps with thermo every
+     100, frames every 200 (zstd where libzstd is found), a checkpoint
+     every 200 and the perf log; then a crash resume from
+     ``checkpoint.200.npz`` into the same directory: labels equal, rows and
+     frames below the checkpoint's step byte for byte, ``perf.txt``
+     appended to, the first resumed row's E/N within 1e-4; 200 NVE steps
+     from a state and from its saved and loaded copy, f32 and f64, bit for
+     bit; one 65,536-atom frame through the writer thread, plain and zstd,
+     timed in turns.
+   The B1 and B2 paths end with the observables of their final state:
+   ``sample_rdf`` through the RDF kernel (its first peak), the MSD from the
+   start, ``read_thermo`` of the NVE leg equal to the file's rows.
    B1, the slot Brownian path, FIRE and packing run in the slot layout (the
    slot step's counter must show it for the dynamics), and so do the 2D,
    tilted and user paths; built-in potentials never launch the pair list,
@@ -129,7 +147,8 @@ BENCH_GEOMETRY = ((15, 15, 15), 37)   # CellGridEngine.create at skin 0.3
 NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
-SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs")
+SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs",
+           "rdf_histogram")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -190,6 +209,21 @@ GEO_NVT_STEPS, GEO_NVE_STEPS = 600, 200
 # up; with dmax 0.01 (0.25 a particle at 1000) it does not.
 RHO_USER, CUTOFF_USER, USER_DMAX = 0.9, 1.8, 0.01
 USER_FIRE_ITERS, USER_NVT_STEPS = 1000, 300
+# The RDF histogram: validate.py's 200 bins at r_max 3 and sample_rdf's
+# half width. Operations per distance, by hand count of
+# csrc/rdf_histogram.cu: in 3D the displacement (3 subtractions), the
+# fractional components (3 x (3 multiplies, 2 adds)), their rint and
+# subtraction (6), the Cartesian components (15), r^2 (3 multiplies, 2
+# adds), the square root and the compare; in 2D 2 + 6 + 4 + 6 + 3 + 2. Per
+# pair inside r_max the bin: a division, a multiply, the conversion, the
+# clamp and the shared-memory add.
+RDF_BINS, RDF_R_MAX = 200, 3.0
+OPS_RDF_DISTANCE = {3: 46, 2: 23}
+OPS_RDF_HIT = 5
+# The resume path: the bench configuration, NVT with a checkpoint at 200;
+# then a continuation from a state and from its checkpoint.
+RESUME_STEPS, RESUME_AT, RESUME_THERMO, RESUME_TRAJ = 400, 200, 100, 200
+CONTINUE_STEPS = 200
 
 
 def log(*args):
@@ -1295,6 +1329,23 @@ def md_path(mt, workdir, label, engine_for, compensated):
     for d in (nvt_dir, nve_dir, fs_dir):
         with open(os.path.join(d, "final.xyz")) as f:
             check(sum(1 for _ in f) == N_BENCH + 2, f"final.xyz in {d}")
+    # Observables of the final state: g(r) through the RDF kernel (the
+    # liquid's first peak), the MSD from the lattice start (images 0), and
+    # read_thermo of the NVE leg's file.
+    from mdtpu_torch.observables import (mean_squared_displacement,
+                                         read_thermo, sample_rdf)
+    centers, g = sample_rdf(end)
+    peak = max(range(len(g)), key=lambda k: g[k])
+    rdf_peak = [float(centers[peak]), float(g[peak])]
+    check(0.95 < rdf_peak[0] < 1.25 and 1.5 < rdf_peak[1] < 5.0,
+          f"first RDF peak {rdf_peak}")
+    msd = mean_squared_displacement(end, state.positions)
+    check(math.isfinite(msd) and msd > 0.01, f"MSD {msd}")
+    cols = read_thermo(os.path.join(nve_dir, "thermo.txt"))
+    check([[float(cols[k][i]) for k in ("step", "energy", "temperature",
+                                        "pressure")]
+           for i in range(len(cols["step"]))] == nve_rows,
+          "read_thermo columns != the file's rows")
     rec = {
         "path": label, "compensated": compensated,
         "steps": steps, "nvt_s": t1 - t0, "nve_s": t2 - t1,
@@ -1306,6 +1357,7 @@ def md_path(mt, workdir, label, engine_for, compensated):
         "nve_shifted_total_energy_per_particle": fs_tot,
         "nve_shifted_energy_range": fs_drift,
         "thermo_nvt": nvt_rows, "thermo_nve": nve_rows,
+        "rdf_first_peak": rdf_peak, "msd_from_start": msd,
     }
     return rec, failures
 
@@ -1628,6 +1680,268 @@ def user_path(mt, workdir):
         failures
 
 
+def timed_once(fn):
+    """``fn()`` and its device time in ms (one call between two events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def near_edge_pairs(pos, cell, cell_inv, r_max, n_bins, tol):
+    """Ordered pairs inside ``r_max`` whose scaled distance r / r_max *
+    n_bins lies within ``tol`` of an integer, in float64 (row chunks): the
+    pairs a rounding of the last bit could move to the next bin."""
+    p, c, ci = pos.double(), cell.double(), cell_inv.double()
+    n = p.shape[0]
+    rows = max(1, (1 << 22) // n)
+    count = 0
+    for a in range(0, n, rows):
+        f = (p[a:a + rows, None, :] - p[None, :, :]) @ ci.T
+        f = f - torch.round(f)
+        r = torch.linalg.norm(f @ c.T, dim=-1)
+        x = r / r_max * n_bins
+        near = ((x - torch.round(x)).abs() < tol) & (r < r_max)
+        own = torch.arange(near.shape[0], device=p.device)
+        near[own, own + a] = False
+        count += int(near.sum())
+    return count
+
+
+def rdf_bound(n, dim, dtype, hits, n_bins):
+    """The least time of the histogram: each unordered pair's distance
+    once and each pair inside r_max binned once (operations), the
+    positions and the cell read once and the counts written once (bytes)."""
+    ops = n * (n - 1) // 2 * OPS_RDF_DISTANCE[dim] + hits * OPS_RDF_HIT
+    b = torch.finfo(dtype).bits // 8
+    nbytes = n * dim * b + 2 * dim * dim * b + n_bins * 8
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes, "ops_bound_ms": t_ops,
+            "bytes_bound_ms": t_bytes}
+
+
+def rdf_phase(mt):
+    """``rdf_histogram`` against its plain version on the bench fluid
+    (``melted_state``), the 2D start and the tilted start at 65,536, in f64
+    and f32, at r_max 3 and at half the narrowest width: the counts bin for
+    bin (or within twice the pairs at a bin edge, counted in f64 to 1e-12
+    or, at f32, 1e-6), two launches alike; timed by graph replay in turns,
+    the plain version once."""
+    from mdtpu_torch.observables import half_min_width
+    from mdtpu_torch.ops.rdf import rdf_histogram, rdf_histogram_plain
+
+    melted = melted_state(mt)
+    cases = (("bench_melted", lambda dt: as_dtype(melted, dt)),
+             ("bench_2d", lambda dt: state_2d(mt, dt)),
+             ("bench_tilted", lambda dt: state_tilted(mt, dt)))
+    results, failures = {}, []
+    for name, make in cases:
+        for dtype in (torch.float64, torch.float32):
+            st = make(dtype)
+            args = (st.positions.contiguous(), st.unitcell, st.unitcell_inv)
+            n, dim = st.positions.shape
+            tag = str(dtype).split(".")[-1]
+            for rname, r_max in (("r_max_3", RDF_R_MAX),
+                                 ("half_width", half_min_width(st.unitcell))):
+                first = rdf_histogram(*args, r_max, RDF_BINS)
+                again = rdf_histogram(*args, r_max, RDF_BINS)
+                plain, plain_ms = timed_once(
+                    lambda: rdf_histogram_plain(*args, r_max, RDF_BINS))
+                diff = (first - plain).abs()
+                excused = 0
+                if int(diff.sum()):
+                    excused = near_edge_pairs(
+                        *args, r_max, RDF_BINS,
+                        1e-12 if dtype == torch.float64 else 1e-6)
+                turns = kernel_turns({"rdf": lambda: rdf_histogram(
+                    *args, r_max, RDF_BINS)}, rounds=3, reps=5)["rdf"]
+                hits = int(first.sum()) // 2
+                rec = {"kernel_check": "rdf_histogram", "case": name,
+                       "dtype": tag, "r_max": r_max, "r_max_case": rname,
+                       "n": n, "dim": dim, "pairs_inside": hits,
+                       "bins_differing": int((diff > 0).sum()),
+                       "total_difference": int(diff.sum()),
+                       "pairs_excused": excused,
+                       "max_abs_err": float(diff.max()),
+                       "repeats_exactly": bool(torch.equal(first, again)),
+                       "ms": statistics.median(turns), "ms_turns": turns,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       **rdf_bound(n, dim, dtype, hits, RDF_BINS)}
+                ok = (int(diff.sum()) <= 2 * excused and hits > 0
+                      and rec["repeats_exactly"])
+                rec["ok"] = ok
+                log(json.dumps(rec))
+                results[(name, tag, rname)] = rec
+                if not ok:
+                    failures.append(f"rdf_histogram {name} {tag} {rname}")
+            del st, args
+            torch.cuda.empty_cache()
+    return results, failures
+
+
+def libzstd_found():
+    from mdtpu_torch.io.compress import require_libzstd
+    try:
+        require_libzstd()
+    except RuntimeError:
+        return False
+    return True
+
+
+def _traj_text(path):
+    """A trajectory's text, decompressed where it is a ``.zst``."""
+    if not path.endswith(".zst"):
+        with open(path) as f:
+            return f.read()
+    from mdtpu_torch.io.compress import decompressed_chunks
+    with open(path, "rb") as f:
+        return b"".join(decompressed_chunks(f)).decode()
+
+
+def _labels(text):
+    lines = text.splitlines()
+    return [int(b) for a, b in zip(lines, lines[1:])
+            if a.startswith("ITEM: TIMESTEP")]
+
+
+def writer_turns(state, workdir, compress):
+    """One 65,536-atom frame through the trajectory writer's thread, from
+    ``write_frame`` to ``close``, plain and (``compress``) zstd, in turns
+    (plain, zst, zst, plain); and the formatting alone on this thread."""
+    from mdtpu_torch.io.lammps import format_lammps_frame
+    from mdtpu_torch.io.writer import TrajectoryWriter
+    frame = (0, state.unitcell.cpu().numpy(),
+             state.positions.float().cpu().numpy(),
+             state.images.cpu().numpy().astype("int32"),
+             state.diameters.cpu().numpy())
+    t0 = time.perf_counter()
+    text = format_lammps_frame(*frame)
+    rec = {"format_s": time.perf_counter() - t0,
+           "frame_bytes": len(text.encode())}
+    kinds = ("plain", "zst", "zst", "plain") if compress else ("plain",) * 2
+    for kind in kinds:
+        path = os.path.join(workdir, f"frame.{kind}")
+        t0 = time.perf_counter()
+        w = TrajectoryWriter(path, compress=kind == "zst")
+        w.write_frame(*frame)
+        w.close()
+        rec.setdefault(f"{kind}_s", []).append(time.perf_counter() - t0)
+        rec[f"{kind}_file_bytes"] = os.path.getsize(path)
+    return rec
+
+
+def resume_path(mt, workdir):
+    """A crash resume at the bench configuration on the slot route (f32):
+    run A, 400 NVT steps (thermo every 100, frames every 200, a checkpoint
+    every 200, the perf log, zstd where libzstd is found); then resume from
+    ``checkpoint.200.npz`` into A's directory as a crash left it. Thermo
+    and frame labels equal A's, the rows and frames below the checkpoint's
+    step byte for byte, the perf log appended to, the first resumed row's
+    E/N within 1e-4 of A's (the slot route sums in slot order: a resume is
+    exact physics, not exact bits). Then 200 NVE steps from A's end state
+    and from that state saved and loaded, at f32 and f64: positions and
+    velocities bit for bit. And one frame through the writer, plain and
+    compressed."""
+    from mdtpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+
+    compress = libzstd_found()
+    start = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                cutoff=2.5, jitter=0.01, device="cuda")
+    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    run_dir = os.path.join(workdir, "resume")
+    traj = os.path.join(run_dir, "trajectory.xyz" + (".zst" if compress
+                                                     else ""))
+    thermo, perf = (os.path.join(run_dir, f)
+                    for f in ("thermo.txt", "perf.txt"))
+    kw = dict(traj_frequency=RESUME_TRAJ, perf_log=True, compress=compress)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_end = mt.run_simulation(start, params, mt.NVT(1.0, 0.4), RESUME_STEPS,
+                              RESUME_THERMO, run_dir,
+                              checkpoint_every=RESUME_AT, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with open(thermo) as f:
+        a_thermo = f.read().splitlines()
+    a_traj = _traj_text(traj)
+    with open(perf) as f:
+        a_perf = f.read().splitlines()
+    mid = load_checkpoint(os.path.join(run_dir, f"checkpoint.{RESUME_AT}.npz"),
+                          start)
+    b_end = mt.run_simulation(mid, params, mt.NVT(1.0, 0.4),
+                              RESUME_STEPS - mid.step, RESUME_THERMO, run_dir,
+                              **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with open(thermo) as f:
+        b_thermo = f.read().splitlines()
+    b_traj = _traj_text(traj)
+    with open(perf) as f:
+        b_perf = f.read().splitlines()
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"resume: {what}")
+
+    def label(line):
+        return int(line.split()[0])
+
+    check(mid.step == RESUME_AT + 1, f"checkpoint step {mid.step}")
+    check(b_end.step == RESUME_STEPS, f"final step {b_end.step}")
+    check([label(r) for r in b_thermo[1:]] == [label(r) for r in a_thermo[1:]]
+          == list(range(0, RESUME_STEPS, RESUME_THERMO)), "thermo labels")
+    kept = [r for r in a_thermo if r.startswith("#") or label(r) < mid.step]
+    check(b_thermo[:len(kept)] == kept, "rows below the checkpoint changed")
+    first = next(r for r in b_thermo[1:] if label(r) >= mid.step)
+    a_first = next(r for r in a_thermo[1:] if label(r) == label(first))
+    e_diff = abs(float(first.split()[1]) - float(a_first.split()[1]))
+    check(e_diff <= 1e-4, f"first resumed row's E/N moved {e_diff}")
+    check(_labels(b_traj) == _labels(a_traj)
+          == list(range(0, RESUME_STEPS, RESUME_TRAJ)), "frame labels")
+    cut = a_traj.find(f"ITEM: TIMESTEP\n{RESUME_AT + RESUME_TRAJ}\n")
+    a_kept = a_traj if cut < 0 else a_traj[:cut]
+    check(b_traj.startswith(a_kept), "frames below the checkpoint changed")
+    check(len(b_perf) > len(a_perf) and b_perf[:len(a_perf)] == a_perf,
+          "perf.txt not appended to")
+    check(bool(torch.isfinite(b_end.positions).all()), "non-finite state")
+
+    continuation = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split(".")[-1]
+        base = a_end if dtype == torch.float32 else as_dtype(a_end, dtype)
+        path = os.path.join(workdir, f"continue_{tag}.npz")
+        save_checkpoint(base, path)
+        back = load_checkpoint(path, base)
+        ends = [mt.run_simulation(s, params, mt.NVE(), CONTINUE_STEPS,
+                                  RESUME_THERMO,
+                                  os.path.join(workdir, f"cont_{tag}_{i}"))
+                for i, s in enumerate((base, back))]
+        same = all(torch.equal(getattr(ends[0], k), getattr(ends[1], k))
+                   for k in ("positions", "velocities"))
+        continuation[tag] = same
+        check(same, f"continuation from the checkpoint at {tag} not bit "
+              "for bit")
+    rec = {"path": "resume", "compress": compress,
+           "run_a_s": t1 - t0, "resume_s": t2 - t1,
+           "steps_per_s_a": RESUME_STEPS / (t1 - t0),
+           "thermo_a": a_thermo[1:], "thermo_resumed": b_thermo[1:],
+           "first_resumed_energy_diff": e_diff,
+           "perf_rows": len(b_perf) - 1,
+           "continuation_bit_for_bit": continuation,
+           "writer": writer_turns(a_end, workdir, compress)}
+    return rec, failures
+
+
 def _rows(path):
     with open(path) as f:
         return [[float(x) for x in line.split()] for line in f
@@ -1639,6 +1953,7 @@ def run_paths(mt, workdir):
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import plane_sweep as ps
+    from mdtpu_torch.ops import rdf
     from mdtpu_torch.ops.experimental import PlaneEngine
 
     def counted(fn):
@@ -1647,6 +1962,7 @@ def run_paths(mt, workdir):
         cs.reset_launches()
         cp.reset_launches()
         ps.plane_sweep.launches = 0
+        rdf.rdf_histogram.launches = 0
         slot_step.make_slot_step.steps = 0
         rec, failures = fn()
         rec["launches"] = {
@@ -1657,7 +1973,8 @@ def run_paths(mt, workdir):
             "plane_sweep": ps.plane_sweep.launches,
             "cell_pairs": cp.pair_list.launches,
             "pair_reduce": cp.pair_reduce.launches,
-            "pair_reduce_lean": cp.pair_reduce.lean_launches}
+            "pair_reduce_lean": cp.pair_reduce.lean_launches,
+            "rdf_histogram": rdf.rdf_histogram.launches}
         rec["slot_steps"] = slot_step.make_slot_step.steps
         log(json.dumps(rec))
         return rec, failures
@@ -1682,7 +1999,19 @@ def run_paths(mt, workdir):
         mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
                       potential=lj), mt.NVT(1.0, 0.4)))
     user, f9 = counted(lambda: user_path(mt, workdir))
-    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9
+    resume, f10 = counted(lambda: resume_path(mt, workdir))
+    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10
+    # The bench paths' observables launch the RDF kernel once each.
+    for rec in (b1, b2):
+        if rec["launches"]["rdf_histogram"] != 1:
+            failures.append(f"{rec['path']}: rdf_histogram launches "
+                            f"{rec['launches']}")
+    n = resume["launches"]
+    if (n["cell_sweep"] < RESUME_STEPS or n["cell_sweep_hilo"]
+            < 2 * CONTINUE_STEPS or resume["slot_steps"]
+            != 2 * RESUME_STEPS - RESUME_AT - 1 + 4 * CONTINUE_STEPS):
+        failures.append(f"resume: launches {n}, slot steps "
+                        f"{resume['slot_steps']}")
     geo_steps = GEO_NVT_STEPS + GEO_NVE_STEPS
     for rec in (b1_2d, b1_tilted):
         n = rec["launches"]
@@ -1732,7 +2061,8 @@ def run_paths(mt, workdir):
         failures.append(f"pack: launches {pack['launches']}")
     return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
             "fire": fire, "pack": pack, "b1_2d": b1_2d,
-            "b1_tilted": b1_tilted, "user": user}, failures
+            "b1_tilted": b1_tilted, "user": user,
+            "resume": resume}, failures
 
 
 def ptxas_summary(name, report):
@@ -1793,6 +2123,8 @@ def main():
     results, failures = kernel_phase(mt, registers["plane_sweep"])
     probes, probe_launches, probe_path, probe_failures = probe_phase()
     failures += probe_failures
+    rdf_results, rdf_failures = rdf_phase(mt)
+    failures += rdf_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -1892,6 +2224,21 @@ def main():
                   "library_call": reduce_rec["library_call"]}),
          "library_ms": reduce_rec["library_ms"]},
     ]
+    # The RDF histogram is XLA in the JAX package (no pl.pallas_call); its
+    # entry is the bench fluid at f32 and sample_rdf's half width, the call
+    # the bench paths make, with the f64 and r_max 3 numbers beside it.
+    rdf_main = rdf_results[("bench_melted", "float32", "half_width")]
+    rdf_extra = {"covers": "mdtpu/observables.py:21 rdf_histogram (XLA)",
+                 "launches_b2": by_path["b2"]["rdf_histogram"]}
+    for (case, tag, rname), r in rdf_results.items():
+        if case == "bench_melted" and (tag, rname) != ("float32",
+                                                        "half_width"):
+            rdf_extra[f"{tag}_{rname}"] = {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    kernels["kernels"].append(entry(
+        "rdf_histogram", "mdtpu_torch/csrc/rdf_histogram.cu",
+        "mdtpu/observables.py:21", by_path["b1"]["rdf_histogram"], rdf_main,
+        rdf_extra))
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             failures.append(f"{k['name']} never launched on its path")

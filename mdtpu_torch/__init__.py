@@ -2,8 +2,10 @@
 
 Classical molecular dynamics of soft-sphere fluids in periodic boxes: NVT
 (Bussi) and NVE velocity Verlet, pair potentials (pseudo-hard-sphere,
-Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output, overdamped
-Brownian dynamics, FIRE minimization and random packing. The pair forces of
+Lennard-Jones, LJ-XPLOR), thermo and LAMMPS trajectory output (zstd
+optional), full-state checkpoints and crash resume, overdamped Brownian
+dynamics, FIRE minimization and random packing; observables (g(r) through
+a CUDA histogram kernel, MSD) in ``mdtpu_torch.observables``. The pair forces of
 3D orthorhombic systems come from a cell grid whose sweeps are hand-written
 CUDA kernels (``csrc/*.cu``: the full stencil with its hi/lo and lean
 variants, and the Newton half stencil behind ``ops.experimental.PlaneEngine``);

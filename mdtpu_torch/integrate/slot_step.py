@@ -140,13 +140,28 @@ def slotify_grown(state: SimulationState, engine: CellGridEngine):
         f"cell capacity still overflowing after {MAX_GROWS} grows")
 
 
-def slot_forces(state: SimulationState, engine: CellGridEngine,
-                observables=True) -> SimulationState:
-    """Forces (and energy and virial) of a slot-layout state, at its
-    positions."""
+def _sweep_in(engine, x, diameters, cell, cell_inv, nbrs, observables,
+              force_dtype=None, pos_lo=None):
+    """``engine.compute_slots`` with the sweep's inputs cast to
+    ``force_dtype`` (up or down) where it differs from the positions', and
+    the energy, virial and forces cast back."""
+    dtype = x.dtype
+    if force_dtype is None or force_dtype == dtype:
+        return engine.compute_slots(x, diameters, cell, cell_inv, nbrs,
+                                    observables, pos_lo)
     e, w, f, nbrs = engine.compute_slots(
-        state.positions, state.diameters, state.unitcell, state.unitcell_inv,
-        state.nbrs, observables)
+        x.to(force_dtype), diameters.to(force_dtype), cell.to(force_dtype),
+        cell_inv.to(force_dtype), nbrs, observables)
+    return e.to(dtype), w.to(dtype), f.to(dtype), nbrs
+
+
+def slot_forces(state: SimulationState, engine: CellGridEngine,
+                observables=True, force_dtype=None) -> SimulationState:
+    """Forces (and energy and virial) of a slot-layout state, at its
+    positions; ``force_dtype`` as in :func:`make_slot_step`."""
+    e, w, f, nbrs = _sweep_in(engine, state.positions, state.diameters,
+                              state.unitcell, state.unitcell_inv, state.nbrs,
+                              observables, force_dtype)
     if not observables:
         e, w = state.energy, state.virial
     return state.replace(forces=f, energy=e, virial=w, nbrs=nbrs)
@@ -318,7 +333,7 @@ def slot_needs_rebin(state: SimulationState, engine: CellGridEngine):
 
 def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                    compensated: bool = True, observables: bool = True,
-                   hilo: bool = False):
+                   hilo: bool = False, force_dtype=None):
     """One fused step over a slot-layout state (see the module docstring).
 
     The step never rebins: :func:`make_slot_advance` decides when to, so
@@ -326,20 +341,24 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     lean step, whose sweep computes forces only (the same bits) and which
     carries the last energy and virial. Brownian steps always observe (the
     virial is sampled every 10 steps). ``hilo``: the hi/lo sweep on
-    ``(positions, -pos_comp)``; needs ``compensated``. Each call adds one to
+    ``(positions, -pos_comp)``; needs ``compensated``. ``force_dtype``: the
+    pair sweep runs in this dtype (up or down: positions, diameters and cell
+    cast for it, energy, virial and forces cast back) while the state keeps
+    its own; not with ``hilo``. Each call adds one to
     ``make_slot_step.steps``."""
     is_brownian = isinstance(ensemble, Brownian)
     if not is_brownian and not isinstance(ensemble, (NVT, NVE)):
         raise TypeError(f"unknown ensemble type: {type(ensemble).__name__}")
     obs = True if is_brownian else observables
-    if hilo and not compensated:
-        raise ValueError("the hi/lo pair sweep needs compensated=True: the "
-                         "Kahan compensation is its low word")
+    if hilo and (force_dtype is not None or not compensated):
+        raise ValueError("the hi/lo pair sweep needs compensated=True (the "
+                         "Kahan compensation is its low word) and no "
+                         "force_dtype (it is the precision mechanism)")
 
     def sweep(x, xc, state):
-        return engine.compute_slots(x, state.diameters, state.unitcell,
-                                    state.unitcell_inv, state.nbrs, obs,
-                                    -xc if hilo else None)
+        return _sweep_in(engine, x, state.diameters, state.unitcell,
+                         state.unitcell_inv, state.nbrs, obs, force_dtype,
+                         -xc if hilo else None)
 
     def brownian(state):
         dtype = state.dtype
@@ -398,19 +417,23 @@ make_slot_step.steps = 0
 
 def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
                       compensated: bool = True, lean: bool = True,
-                      hilo: bool = False):
+                      hilo: bool = False, force_dtype=None):
     """``advance(state, k) -> state`` after ``k`` slot steps.
 
     The rebuild happens at the start of exactly the steps whose state has
-    drifted past skin/2, as a check before every step would have it. With ``lean`` all but the last step are lean (forces only,
-    the same bits) and the last is full, so energy and virial are fresh at
-    every segment boundary. The rebuild decision is one host read a step:
-    it is read after each step and carried to the next, plus one read at
-    the start of the segment."""
+    drifted past skin/2, as a check before every step would have it. With
+    ``lean`` all but the last step are lean (forces only, the same bits)
+    and the last is full, so energy and virial are fresh at every segment
+    boundary. The rebuild decision is one host read a step: it is read
+    after each step and carried to the next, plus one read at the start of
+    the segment. ``hilo`` and ``force_dtype`` as in
+    :func:`make_slot_step`."""
     step = make_slot_step(params, ensemble, engine, compensated=compensated,
-                          observables=not lean, hilo=hilo)
+                          observables=not lean, hilo=hilo,
+                          force_dtype=force_dtype)
     last_step = make_slot_step(params, ensemble, engine,
-                               compensated=compensated, hilo=hilo)
+                               compensated=compensated, hilo=hilo,
+                               force_dtype=force_dtype)
 
     def needs(state):
         return bool(slot_needs_rebin(state, engine))

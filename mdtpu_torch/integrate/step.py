@@ -29,14 +29,21 @@ SQRT3 = math.sqrt(3.0)
 
 
 def engine_forces(engine, positions, diameters, cell, cell_inv, nbrs,
-                  pos_lo=None):
+                  pos_lo=None, force_dtype=None):
     """Evaluate forces, rebuilding the engine's neighbour state when stale.
 
     A rebuild decision that is a tensor is read on the host (one
     synchronisation per step). A rebuilt binning keeps an earlier
     overflow flag set, so the driver sees every overflow of a segment.
     ``pos_lo``: the positions' low words, for the hi/lo sweep of a cell-grid
-    engine."""
+    engine. ``force_dtype``: positions, diameters and cell are cast to it
+    first, so the whole evaluation (and the engine state) runs in that
+    dtype; the results come back in it."""
+    if force_dtype is not None and positions.dtype != force_dtype:
+        positions = positions.to(force_dtype)
+        diameters = diameters.to(force_dtype)
+        cell = cell.to(force_dtype)
+        cell_inv = cell_inv.to(force_dtype)
     if nbrs is None:
         nbrs = engine.allocate(positions, diameters, cell, cell_inv)
     else:
@@ -79,17 +86,22 @@ def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool):
 
 
 def make_md_step(params: Parameters, ensemble, engine,
-                 compensated: bool = True, hilo: bool = False):
+                 compensated: bool = True, hilo: bool = False,
+                 force_dtype=None):
     """Velocity-Verlet step with NVE/NVT ensemble logic. ``hilo``: the pair
     sweep takes each position as the pair (x, -pos_comp), the hi/lo
-    (f32x2) sweep of a cell-grid engine; needs ``compensated``."""
+    (f32x2) sweep of a cell-grid engine; needs ``compensated``.
+    ``force_dtype``: mixed precision, the pair sweep in this dtype (up or
+    down) while the state integrates in its own; energy, virial and forces
+    are cast back. Not with ``hilo``."""
     if isinstance(ensemble, Brownian):
         raise TypeError("use make_brownian_step for Brownian dynamics")
     if not isinstance(ensemble, (NVT, NVE)):
         raise TypeError(f"unknown ensemble type: {type(ensemble).__name__}")
-    if hilo and not compensated:
-        raise ValueError("the hi/lo pair sweep needs compensated=True: the "
-                         "Kahan compensation is its low word")
+    if hilo and (force_dtype is not None or not compensated):
+        raise ValueError("the hi/lo pair sweep needs compensated=True (the "
+                         "Kahan compensation is its low word) and no "
+                         "force_dtype (it is the precision mechanism)")
 
     def step(state: SimulationState) -> SimulationState:
         dt = float(params.dt)
@@ -109,7 +121,10 @@ def make_md_step(params: Parameters, ensemble, engine,
         # The compensation holds the negated low word (true = x - comp).
         energy, virial, forces, nbrs = engine_forces(
             engine, x, state.diameters, cell, cell_inv, state.nbrs,
-            pos_lo=-xc if hilo else None)
+            pos_lo=-xc if hilo else None, force_dtype=force_dtype)
+        if forces.dtype != x.dtype:
+            forces, energy, virial = (t.to(x.dtype)
+                                      for t in (forces, energy, virial))
 
         # Second half-kick.
         v, vc = _add(v, vc, forces * half, compensated)
@@ -186,10 +201,12 @@ def make_brownian_step(params: Parameters, ensemble: Brownian, engine,
 
 
 def make_step(params: Parameters, ensemble, engine, compensated: bool = True,
-              hilo: bool = False):
+              hilo: bool = False, force_dtype=None):
     """Dispatch on the ensemble: :func:`make_brownian_step` or
-    :func:`make_md_step`."""
+    :func:`make_md_step` (``force_dtype`` is the latter's, as in the JAX
+    package)."""
     if isinstance(ensemble, Brownian):
         return make_brownian_step(params, ensemble, engine, compensated,
                                   hilo=hilo)
-    return make_md_step(params, ensemble, engine, compensated, hilo=hilo)
+    return make_md_step(params, ensemble, engine, compensated, hilo=hilo,
+                        force_dtype=force_dtype)

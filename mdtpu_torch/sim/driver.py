@@ -23,10 +23,19 @@ engines, ``PlaneEngine`` and ``compensated=False`` take the particle-order
 step.
 
 Files match the JAX package's: ``thermo.txt`` rows ``"{s} {e:.6f} {t:.6f}
-{p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` and ``snapshot.{s}``
-(positions written as float32, as the JAX package ships them),
-``new-log-times.txt`` and ``final.xyz``. Outputs for label ``s`` are written
-after executing loop iteration ``s``, including s = 0.
+{p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` (``trajectory.xyz.zst``
+with ``compress``) and ``snapshot.{s}`` (positions written as float32, as
+the JAX package ships them), ``new-log-times.txt``, ``final.xyz``,
+``checkpoint.{s}.npz`` every ``checkpoint_every`` steps and ``perf.txt``
+with ``perf_log``. Outputs for label ``s`` are written after executing loop
+iteration ``s``, including s = 0; the checkpoint of label ``s`` holds the
+state after it, at step ``s + 1``.
+
+A fresh state (step 0) truncates the run's files. A resumed state (step >
+0, e.g. from a checkpoint) into a directory that holds an earlier run keeps
+the thermo rows and trajectory frames labelled below its step and appends
+after them, as the JAX package does: the rows at and past the step are a
+crashed run's tail, which the resumed run writes again.
 """
 
 from __future__ import annotations
@@ -43,34 +52,43 @@ from mdtpu_torch.core.types import (NVE, Brownian, Parameters, SimulationState,
                                     state_to)
 from mdtpu_torch.integrate import slot_step as slots
 from mdtpu_torch.integrate.step import make_step
+from mdtpu_torch.io.checkpoint import save_checkpoint
+from mdtpu_torch.io.compress import (ZstdWriter, decompressed_lines,
+                                     require_libzstd)
 from mdtpu_torch.io.logtimes import generate_log_times
 from mdtpu_torch.io.writer import TrajectoryWriter
 from mdtpu_torch.io.xyz import write_xyz
 from mdtpu_torch.utils.device import resolve_device
+from mdtpu_torch.utils.profiling import StepRateMeter
 
 THERMO_HEADER = "# Step Energy Temperature Pressure\n"
 _MAX_GROWS = 8
 
 
+def _cadence(start_step, end_step, every):
+    """The multiples of ``every`` in [start_step, end_step)."""
+    return set(range(start_step + (-start_step) % every, end_step, every))
+
+
 def _event_schedule(start_step, total_steps, frequency, traj_frequency,
-                    log_times, pathname):
-    """Thermo, trajectory and snapshot steps in [start_step, start_step +
-    total_steps). With ``log_times`` the snapshot steps are 0 and the
-    log-spaced times of :func:`generate_log_times` (saved to
+                    log_times, checkpoint_every, pathname):
+    """Thermo, trajectory, snapshot and checkpoint steps in [start_step,
+    start_step + total_steps). With ``log_times`` the snapshot steps are 0
+    and the log-spaced times of :func:`generate_log_times` (saved to
     ``new-log-times.txt`` in ``pathname``), on the schedule of a run that
-    started at step 0."""
+    started at step 0. Checkpoints are events of their own, not aligned to
+    the output cadence."""
     end_step = start_step + total_steps
-    thermo_steps = set(range(start_step + (-start_step) % frequency,
-                             end_step, frequency))
-    if traj_frequency is None:
-        traj_frequency = frequency
-    traj_steps = set(range(start_step + (-start_step) % traj_frequency,
-                           end_step, traj_frequency))
+    thermo_steps = _cadence(start_step, end_step, frequency)
+    traj_steps = _cadence(start_step, end_step, frequency
+                          if traj_frequency is None else traj_frequency)
     snap_steps = set()
     if log_times:
         snaps = generate_log_times(save_dir=pathname, max_step=end_step)
         snap_steps = {s for s in [0] + snaps if start_step <= s < end_step}
-    return thermo_steps, traj_steps, snap_steps
+    checkpoint_steps = (set() if checkpoint_every is None else
+                        _cadence(start_step, end_step, checkpoint_every))
+    return thermo_steps, traj_steps, snap_steps, checkpoint_steps
 
 
 def _segments(start_step, end_step, event_steps):
@@ -169,8 +187,117 @@ def _frame_rows(state, use_slot, n, unitcell_np):
     return pos, images.astype(np.int32)
 
 
-def _not_ported(what, queue):
-    return NotImplementedError(f"{what} is not ported yet (queue {queue})")
+def _filter_thermo_rows(thermo_file, state_step):
+    """Drop the thermo rows labelled ``>= state_step`` in place (a stale
+    rerun's, or the tail of the crashed run being resumed); header and
+    comment lines stay."""
+    try:
+        with open(thermo_file) as f:
+            lines = f.readlines()
+    except OSError:
+        return
+    kept, dropped = [], 0
+    for line in lines:
+        s = line.strip()
+        if s and not s.startswith("#"):
+            try:
+                if int(s.split()[0]) >= state_step:
+                    dropped += 1
+                    continue
+            except ValueError:
+                pass
+        kept.append(line)
+    if dropped:
+        with open(thermo_file, "w") as f:
+            f.writelines(kept)
+
+
+def _copy_frames_below(lines, write, state_step):
+    """Stream LAMMPS-dump lines to ``write``, keeping only the frames whose
+    TIMESTEP label is below ``state_step``. Returns the frames dropped."""
+    dropped = 0
+    frame, keep, expect_step = [], True, False
+
+    def flush():
+        nonlocal dropped
+        if frame:
+            if keep:
+                write("".join(frame))
+            else:
+                dropped += 1
+
+    for line in lines:
+        if line.startswith("ITEM: TIMESTEP"):
+            flush()
+            frame, keep, expect_step = [line], True, True
+            continue
+        if expect_step:
+            expect_step = False
+            try:
+                keep = int(line.split()[0]) < state_step
+            except (ValueError, IndexError):
+                keep = True
+        if frame:
+            frame.append(line)
+        else:
+            write(line)
+    flush()
+    return dropped
+
+
+def _filter_trajectory_frames(traj_path, state_step, compressed):
+    """Drop the trajectory frames labelled ``>= state_step`` in place, from
+    the plain file or the zstd stream (decompress, filter, compress). A
+    failed write leaves the file as it was and raises."""
+    tmp = traj_path + ".resume-tmp"
+    try:
+        if compressed:
+            with open(traj_path, "rb") as fin, open(tmp, "wb") as fout:
+                out = ZstdWriter(fout)
+                try:
+                    dropped = _copy_frames_below(
+                        decompressed_lines(fin),
+                        lambda text: out.write(text.encode()), state_step)
+                finally:
+                    out.close()
+        else:
+            with open(traj_path) as fin, open(tmp, "w") as fout:
+                dropped = _copy_frames_below(fin, fout.write, state_step)
+        if dropped:
+            os.replace(tmp, traj_path)
+        else:
+            os.remove(tmp)
+    except OSError:
+        if os.path.isfile(tmp):
+            os.remove(tmp)
+        raise
+
+
+def prepare_output_files(pathname, traj_name, thermo_name, state_step,
+                         compress):
+    """The run's thermo file and trajectory writer, reconciled with the
+    state about to run. A fresh state (step <= 0, or no thermo file yet)
+    truncates, a stale ``trajectory.xyz.zst`` included; a resumed state
+    keeps the rows and frames labelled below its step and appends after
+    them. Returns ``(thermo_file, writer)``."""
+    os.makedirs(pathname, exist_ok=True)
+    trajectory_file = os.path.join(pathname, traj_name)
+    thermo_file = os.path.join(pathname, thermo_name)
+    traj_path = trajectory_file + ".zst" if compress else trajectory_file
+    fresh = state_step <= 0 or not os.path.isfile(thermo_file)
+    if fresh:
+        for f in {trajectory_file, thermo_file, trajectory_file + ".zst"}:
+            if os.path.isfile(f):
+                os.remove(f)
+        with open(thermo_file, "w") as f:
+            f.write(THERMO_HEADER)
+    else:
+        _filter_thermo_rows(thermo_file, state_step)
+        if os.path.isfile(traj_path):
+            _filter_trajectory_frames(traj_path, state_step, compress)
+    append = not fresh and os.path.isfile(traj_path)
+    return thermo_file, TrajectoryWriter(traj_path, compress=compress,
+                                         append=append)
 
 
 def run_simulation(
@@ -213,23 +340,20 @@ def run_simulation(
     does; ``"f32x2"`` forces it (``ValueError`` where it cannot run);
     ``"plain"`` turns it off.
 
-    Not ported yet: ``compress``, ``checkpoint_every``, ``perf_log`` and
-    resuming into a directory that holds an earlier run's thermo file
-    (queue A8)."""
+    ``compress``: the trajectory goes to ``trajectory.xyz.zst`` through
+    libzstd (``RuntimeError`` before any file is touched where the system
+    has no libzstd). ``checkpoint_every``: ``checkpoint.{s}.npz`` of the
+    particle-order state every so many steps
+    (:func:`mdtpu_torch.io.checkpoint.load_checkpoint` reads it back).
+    ``perf_log``: steps per second of every segment in ``perf.txt``
+    (appended to on a resumed state)."""
     from mdtpu_torch.ops import select_engine
 
     # Validate before any output file is touched.
     if precision not in ("auto", "f32x2", "plain"):
         raise ValueError(f"precision must be auto/f32x2/plain, got {precision!r}")
-    for flag, name in ((compress, "compress"),
-                       (checkpoint_every is not None, "checkpoint_every"),
-                       (perf_log, "perf_log")):
-        if flag:
-            raise _not_ported(name, "A8")
-    thermo_file = os.path.join(pathname, thermo_name)
-    if state.step > 0 and os.path.isfile(thermo_file):
-        raise _not_ported("resuming into a directory with earlier output",
-                          "A8")
+    if compress:
+        require_libzstd()
     device = resolve_device(device)
     state = state_to(state, device)
     if engine is None:
@@ -296,23 +420,20 @@ def run_simulation(
             seg_start.positions, seg_start.diameters, seg_start.unitcell,
             seg_start.unitcell_inv)), engine
 
-    os.makedirs(pathname, exist_ok=True)
-    trajectory_file = os.path.join(pathname, traj_name)
-    if os.path.isfile(trajectory_file):
-        os.remove(trajectory_file)
-    with open(thermo_file, "w") as f:
-        f.write(THERMO_HEADER)
-    writer = TrajectoryWriter(trajectory_file)
-
     start_step = state.step
     end_step = start_step + total_steps
-    thermo_steps, traj_steps, snap_steps = _event_schedule(
+    thermo_file, writer = prepare_output_files(
+        pathname, traj_name, thermo_name, start_step, compress)
+    thermo_steps, traj_steps, snap_steps, checkpoint_steps = _event_schedule(
         start_step, total_steps, frequency, traj_frequency, log_times,
-        pathname)
+        checkpoint_every, pathname)
+    meter = (StepRateMeter(os.path.join(pathname, "perf.txt"),
+                           append=start_step > 0) if perf_log else None)
     advance = make_advance(engine)
     try:
-        for label, n_adv in _segments(start_step, end_step,
-                                      thermo_steps | traj_steps | snap_steps):
+        for label, n_adv in _segments(
+                start_step, end_step,
+                thermo_steps | traj_steps | snap_steps | checkpoint_steps):
             seg_start = state
             for attempt in range(_MAX_GROWS + 1):
                 s = advance(seg_start, n_adv)
@@ -365,6 +486,12 @@ def run_simulation(
                 if label in snap_steps:
                     writer.write_snapshot(
                         os.path.join(pathname, f"snapshot.{label}"), *rows)
+            if meter is not None:
+                meter.tick(label, n_adv)
+            if label in checkpoint_steps:
+                save_checkpoint(
+                    slots.unslotify_state(state) if use_slot else state,
+                    os.path.join(pathname, f"checkpoint.{label}.npz"))
     finally:
         writer.close()
 

@@ -16,7 +16,10 @@ the full-stencil sweep (f64, f32, hi/lo; lean) on hand-made slots in a 2D,
 a tilted 2D and a tilted 3D box, 2D neighbourhoods staged in parts; the
 pair list and its reduction against their plain versions (the same entries
 in the same order, bit for bit), its overflow, and a run with a user
-potential on the card against the same run on the CPU.
+potential on the card against the same run on the CPU. The RDF histogram
+kernel against its plain version (3D, tilted 3D, tilted 2D; f64 and f32;
+two launches alike), and 200 steps from a state and from its checkpoint,
+bit for bit.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -976,3 +979,74 @@ def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
         assert not bool(slots.nbrs.overflow)
         runs[str(device)] = rows
     np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-10)
+
+
+# --------------------------------------------------------------------------
+# The RDF histogram; checkpoints on the card.
+# --------------------------------------------------------------------------
+
+def _rdf_box(kind, n, rho=0.8):
+    dim = 2 if kind == "tilted2d" else 3
+    L = (n / rho) ** (1 / dim)
+    cell = np.eye(dim) * L
+    if kind != "cubic":
+        cell[0, 1] = L / 8
+        if dim == 3:
+            cell[0, 2], cell[1, 2] = L / 12, L / 6
+    return cell
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("box", ["cubic", "tilted3d", "tilted2d"])
+@pytest.mark.parametrize("n", [2, 129, 3000])
+def test_rdf_histogram_matches_plain(cuda, box, dtype, n):
+    """The kernel against its plain version on the card, bin for bin (the
+    two round every operation alike), at r_max 3 and at half the narrowest
+    width; two launches give the same counts; launches are counted."""
+    from mdtpu_torch.observables import half_min_width
+    from mdtpu_torch.ops import rdf
+
+    cell = _rdf_box(box, n)
+    rng = np.random.default_rng(n)
+    pos = torch.tensor(rng.random((n, cell.shape[0])) @ cell.T, dtype=dtype,
+                       device=cuda)
+    c = torch.tensor(cell, dtype=dtype, device=cuda)
+    ci = torch.tensor(np.linalg.inv(cell), dtype=dtype, device=cuda)
+    for r_max in (3.0, half_min_width(cell)):
+        before = rdf.rdf_histogram.launches
+        got = rdf.rdf_histogram(pos, c, ci, r_max, 200)
+        again = rdf.rdf_histogram(pos, c, ci, r_max, 200)
+        plain = rdf.rdf_histogram_plain(pos, c, ci, r_max, 200)
+        torch.cuda.synchronize()
+        assert rdf.rdf_histogram.launches == before + 2
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        assert torch.equal(got, plain) and torch.equal(got, again)
+        assert int(got.sum()) % 2 == 0
+
+
+def test_checkpoint_continuation_is_bit_exact_on_the_card(cuda, tmp_path):
+    """200 steps from a state and from that state saved and loaded give the
+    same positions and velocities bit for bit, on the slot route, at f32
+    and f64."""
+    from mdtpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    n = 4096
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, LennardJones(r_cut=2.5))
+    for dtype in (torch.float32, torch.float64):
+        state = lattice_fluid_state(n, 0.8, 1.0, dtype=dtype, cutoff=2.5,
+                                    device=cuda)
+        mid = mdtpu_torch.run_simulation(
+            state, params, mdtpu_torch.NVT(1.0, 0.4), 50, 50,
+            str(tmp_path / "a"))
+        path = str(tmp_path / f"mid_{dtype}.npz")
+        save_checkpoint(mid, path)
+        back = load_checkpoint(path, state)
+        assert back.positions.device.type == "cuda"
+        ends = [mdtpu_torch.run_simulation(s, params, mdtpu_torch.NVE(), 200,
+                                           100, str(tmp_path / d))
+                for s, d in ((mid, "b"), (back, "c"))]
+        assert ends[0].step == ends[1].step == 250
+        for name in ("positions", "velocities"):
+            assert torch.equal(getattr(ends[0], name),
+                               getattr(ends[1], name)), name

@@ -27,7 +27,9 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax_or_mdtpu():
     code = ("import sys, mdtpu_torch, mdtpu_torch.interop, "
             "mdtpu_torch.ops.cell_grid, mdtpu_torch.ops.cell_pairs, "
-            "mdtpu_torch.ops.plane_sweep, "
+            "mdtpu_torch.ops.plane_sweep, mdtpu_torch.ops.rdf, "
+            "mdtpu_torch.observables, mdtpu_torch.io.checkpoint, "
+            "mdtpu_torch.io.compress, mdtpu_torch.utils.profiling, "
             "mdtpu_torch.ops.experimental, "
             "mdtpu_torch.ops.experimental.probe\n"
             "print('\\n'.join(sorted(sys.modules)))")
@@ -43,7 +45,8 @@ def test_no_source_file_imports_jax_or_mdtpu():
     files = sorted(PKG.rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "compare_torch_host.py",
                                  "compare_torch_sweep.py",
-                                 "profile_torch_step.py")]
+                                 "profile_torch_step.py",
+                                 "validate_torch.py")]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -73,8 +76,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mdtpu_torch.initialize_state(params, str(tmp_path),
                                      positions=np.zeros((4, 3)))
-    # device="cpu" runs (Brownian too), options that cannot run raise
-    # before any file is written, and the not-yet-ported ones raise by name.
+    # device="cpu" runs (Brownian too, and compress), options that cannot
+    # run raise before any file is written, and what is not ported yet
+    # raises by name.
     out = mdtpu_torch.run_simulation(state, params, mdtpu_torch.NVE(), 2, 1,
                                      str(tmp_path / "cpu"), device="cpu")
     assert out.step == 2 and out.positions.device.type == "cpu"
@@ -85,11 +89,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
         mdtpu_torch.run_simulation(state, params, mdtpu_torch.NVE(), 2, 1,
                                    str(tmp_path / "x"), precision="f32x2",
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        mdtpu_torch.run_simulation(state, params, mdtpu_torch.Brownian(1.0),
-                                   2, 1, str(tmp_path / "x"), compress=True,
-                                   device="cpu")
     assert not (tmp_path / "x").exists()
+    with pytest.raises(NotImplementedError, match="A12"):
+        mdtpu_torch.select_engine(params.potential, 1.5, state,
+                                  prefer="neighbor")
+    mdtpu_torch.run_simulation(state, params, mdtpu_torch.Brownian(1.0), 2, 1,
+                               str(tmp_path / "zst"), compress=True,
+                               device="cpu")
+    assert (tmp_path / "zst" / "trajectory.xyz.zst").is_file()
+    assert not (tmp_path / "zst" / "trajectory.xyz").exists()
     # Packing (initialize_state without positions) and the minimizers run
     # on the card by default too.
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -17,7 +17,13 @@
     on both sides (a vector that depends on the step only: slot order then
     cannot matter) moving the lattice across cell and box edges: thermo rows
     (the pressure averages the virial sampled every 10 steps) to rel 1e-9,
-    final positions to 1e-9, through at least two rebins."""
+    final positions to 1e-9, through at least two rebins;
+  * ``force_dtype`` (the pair sweep in another dtype than the state's):
+    20 NVE steps of ``make_slot_advance`` (cell grid) and of
+    ``make_md_step`` (naive engine) against the JAX package's on the N =
+    1000 system, a float32 state with float64 forces and a float64 state
+    with float32 forces: positions to rel 1e-6 (of the box length), and
+    the ``ValueError`` of both packages with the hi/lo sweep."""
 
 import os
 
@@ -30,8 +36,12 @@ import torch
 import mdtpu_torch
 from mdtpu.core.types import Brownian as JBrownian
 from mdtpu.core.types import Parameters as JParameters
+from mdtpu.core.types import NVE as JNVE
 from mdtpu.integrate import slot_step as j_slot_step
+from mdtpu.integrate import step as j_step
 from mdtpu.ops.cell_grid import CellGridEngine as JCellGrid
+from mdtpu.ops.naive import NaivePairEngine as JNaive
+from mdtpu.potentials.lennard_jones import LennardJones as JLJ
 from mdtpu.potentials.pseudo_hs import PseudoHS as JPHS
 from mdtpu.sim import driver as j_driver
 from mdtpu.sim.initialization import build_state_from_arrays as j_build_state
@@ -39,6 +49,7 @@ from mdtpu_torch.integrate import slot_step
 from mdtpu_torch.integrate import step as tstep
 from mdtpu_torch.integrate.step import make_step
 from mdtpu_torch.ops.cell_grid import CellGridEngine
+from mdtpu_torch.ops.naive import NaivePairEngine
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.sim.initialization import build_state_from_arrays
@@ -57,14 +68,19 @@ def _lattice_state(n=4096, dtype=torch.float64):
                                    device="cpu")
 
 
-def _small_system(seed=11):
-    """N = 1000 jittered lattice at rho 0.8, LJ r_c 1.5, on a 5^3 grid."""
+def _small_arrays(seed):
     rng = np.random.default_rng(seed)
     L = (N_SMALL / RHO_SMALL) ** (1 / 3)
     idx = np.indices((10,) * 3).reshape(3, -1).T
     pos = (idx + 0.5) / 10 * L + 0.03 * rng.normal(size=(N_SMALL, 3))
     vel = rng.normal(size=(N_SMALL, 3))
     vel -= vel.mean(axis=0)
+    return pos, vel, L
+
+
+def _small_system(seed=11):
+    """N = 1000 jittered lattice at rho 0.8, LJ r_c 1.5, on a 5^3 grid."""
+    pos, vel, L = _small_arrays(seed)
     state = build_state_from_arrays(pos, np.ones(N_SMALL), np.eye(3) * L,
                                     velocities=vel, dtype=torch.float64,
                                     cutoff=1.5, device="cpu")
@@ -284,3 +300,98 @@ def test_brownian_slot_route_matches_jax(tmp_path, monkeypatch):
     assert int((tout.images != 0).sum()) > 0      # crossed the box edge
     _assert_same_numbers(os.path.join(tdir, "final.xyz"),
                          os.path.join(jdir, "final.xyz"), 1e-9)
+
+
+FORCE_DTYPE_CASES = {"f32_state_f64_forces": (torch.float32, torch.float64),
+                     "f64_state_f32_forces": (torch.float64, torch.float32)}
+_JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+
+
+def _force_dtype_states(dtype):
+    pos, vel, L = _small_arrays(seed=21)
+    cell = np.eye(3) * L
+    jstate = j_build_state(pos, np.ones(N_SMALL), cell, jax.random.PRNGKey(0),
+                           velocities=vel, dtype=_JAX_DTYPE[dtype],
+                           cutoff=1.5)
+    tstate = build_state_from_arrays(pos, np.ones(N_SMALL), cell,
+                                     velocities=vel, dtype=dtype, cutoff=1.5,
+                                     device="cpu")
+    return jstate, tstate, L
+
+
+@pytest.mark.parametrize("route", ["slot", "particle"])
+@pytest.mark.parametrize("case", list(FORCE_DTYPE_CASES))
+def test_force_dtype_matches_jax(route, case):
+    dtype, force_dtype = FORCE_DTYPE_CASES[case]
+    jfd = _JAX_DTYPE[force_dtype]
+    jstate, tstate, L = _force_dtype_states(dtype)
+    jparams = JParameters(density=RHO_SMALL, n_particles=N_SMALL, dt=0.002,
+                          potential=JLJ(r_cut=1.5))
+    tparams = mdtpu_torch.Parameters(RHO_SMALL, N_SMALL, 0.002,
+                                     LennardJones(r_cut=1.5))
+    steps = 20
+    if route == "slot":
+        jengine = JCellGrid.create(JLJ(r_cut=1.5), 1.5, 0.1,
+                                   np.eye(3) * L, N_SMALL)
+        js = j_slot_step.slot_forces(j_slot_step.slotify(jstate, jengine),
+                                     jengine, force_dtype=jfd)
+        jadv = jax.jit(j_slot_step.make_slot_advance(
+            jparams, JNVE(), jengine, force_dtype=jfd))
+        jout = j_slot_step.unslotify_state(jadv(js, steps))
+        engine = CellGridEngine(potential=tparams.potential, cutoff=1.5,
+                                skin=0.1, grid=jengine.grid,
+                                cell_capacity=jengine.cell_capacity)
+        ts = slot_step.slot_forces(slot_step.slotify(tstate, engine), engine,
+                                   force_dtype=force_dtype)
+        assert ts.forces.dtype == dtype
+        advance = slot_step.make_slot_advance(tparams, mdtpu_torch.NVE(),
+                                              engine, force_dtype=force_dtype)
+        tout = slot_step.unslotify_state(advance(ts, steps))
+    else:
+        jengine = JNaive(potential=JLJ(r_cut=1.5), cutoff=1.5)
+        e, w, f, nb = j_step.engine_forces(
+            jengine, jstate.positions, jstate.diameters, jstate.unitcell,
+            jstate.unitcell_inv, None, force_dtype=jfd)
+        jstate = jstate.replace(forces=f.astype(jstate.positions.dtype),
+                                nbrs=nb)
+        jstep = j_step.make_md_step(jparams, JNVE(), jengine,
+                                    force_dtype=jfd)
+        jout = jax.jit(lambda s: jax.lax.fori_loop(
+            0, steps, lambda i, x: jstep(x), s))(jstate)
+        engine = NaivePairEngine(potential=tparams.potential, cutoff=1.5)
+        e, w, f, nb = tstep.engine_forces(
+            engine, tstate.positions, tstate.diameters, tstate.unitcell,
+            tstate.unitcell_inv, None, force_dtype=force_dtype)
+        tout = tstate.replace(forces=f.to(dtype), nbrs=nb)
+        step = tstep.make_md_step(tparams, mdtpu_torch.NVE(), engine,
+                                  force_dtype=force_dtype)
+        for _ in range(steps):
+            tout = step(tout)
+        assert tout.energy.dtype == dtype
+    assert tout.step == int(jout.step) == steps
+    assert tout.positions.dtype == dtype and tout.forces.dtype == dtype
+    moved = np.abs(tout.positions.numpy() - tstate.positions.numpy()).max()
+    assert moved > 1e-3
+    np.testing.assert_allclose(tout.positions.numpy(),
+                               np.asarray(jout.positions), rtol=1e-6,
+                               atol=1e-6 * L)
+
+
+def test_force_dtype_with_hilo_raises_as_in_jax():
+    _, tstate, L = _force_dtype_states(torch.float32)
+    tparams = mdtpu_torch.Parameters(RHO_SMALL, N_SMALL, 0.002,
+                                     LennardJones(r_cut=1.5))
+    engine = CellGridEngine.create(tparams.potential, 1.5, 0.1,
+                                   tstate.unitcell, N_SMALL)
+    jengine = JCellGrid.create(JLJ(r_cut=1.5), 1.5, 0.1, np.eye(3) * L,
+                               N_SMALL)
+    jparams = JParameters(density=RHO_SMALL, n_particles=N_SMALL, dt=0.002,
+                          potential=JLJ(r_cut=1.5))
+    with pytest.raises(ValueError, match="hilo"):
+        j_slot_step.make_slot_advance(jparams, JNVE(), jengine,
+                                      force_dtype=jnp.float64, hilo=True)
+    for make in (slot_step.make_slot_advance, slot_step.make_slot_step,
+                 tstep.make_md_step):
+        with pytest.raises(ValueError, match="force_dtype"):
+            make(tparams, mdtpu_torch.NVE(), engine, hilo=True,
+                 force_dtype=torch.float64)
