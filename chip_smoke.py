@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the five CUDA sources of ``mdtpu_torch/csrc`` (one ``nvcc`` each,
-   started together; ``-Xptxas -v`` summary: registers and spills of every
-   entry of ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of
-   the probe, the pair list and the RDF histogram).
+   builds the six CUDA sources of ``mdtpu_torch/csrc`` and its host C++
+   frame formatter (one ``nvcc`` or ``g++`` each, started together;
+   ``-Xptxas -v`` summary: registers and spills of every entry of
+   ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of the probe,
+   the pair list, the RDF histogram and the neighbour list).
 2. Kernel phase, at the bench geometry (N = 65,536 Lennard-Jones, rho 0.8,
    r_c 2.5: a 15^3 grid with capacity C = 37) on the jittered lattice and on
    the melted fluid (the lattice after 300 NVT steps), and for pseudo-hard
@@ -72,7 +73,15 @@
    3 (200 bins, ``validate.py``'s) and at half the narrowest width
    (``sample_rdf``'s): the counts bin for bin (a difference only within
    twice the pairs at a bin edge, counted in f64), two launches alike,
-   timed by graph replay against its bound.
+   timed by graph replay against its bound. List phase: the neighbour
+   list's build (``nl_build``, K1) and force pass (``nl_forces``, K2)
+   against their plain versions on the bench's jittered lattice and melted
+   fluid at 65,536 and 262,144, f64 and f32: K1's rows equal as sets, its
+   counts and overflow flag equal, and both flags up with C a quarter and K
+   32; K2 on K1's list to f64 1e-12 / 1e-10, f32 1e-5; two launches of
+   each bit for bit; timed by graph replay in turns with B1 (full and lean)
+   on the same state, the whole ``allocate`` (binning and K1) and the plain
+   versions by events, against bounds from this run's list.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -108,14 +117,21 @@
      appended to, the first resumed row's E/N within 1e-4; 200 NVE steps
      from a state and from its saved and loaded copy, f32 and f64, bit for
      bit; one 65,536-atom frame through the writer thread, plain and zstd,
-     timed in turns.
+     timed in turns, and formatted by the native formatter and by
+     ``format_lammps_frame`` (bytes equal, both timed);
+   * the list: B1's three legs through ``select_engine(...,
+     prefer="neighbor")`` (the particle-order step, compensated): every
+     step through K2, rebuilds through K1 (counted), no sweep kernel; the
+     force-shifted NVE leg's energy per particle within 1e-4.
    The B1 and B2 paths end with the observables of their final state:
    ``sample_rdf`` through the RDF kernel (its first peak), the MSD from the
    start, ``read_thermo`` of the NVE leg equal to the file's rows.
    B1, the slot Brownian path, FIRE and packing run in the slot layout (the
    slot step's counter must show it for the dynamics), and so do the 2D,
    tilted and user paths; built-in potentials never launch the pair list,
-   and the user potential never the sweep kernels. Checks finite output,
+   and the user potential never the sweep kernels; only the list path takes
+   the list's kernels; every frame and snapshot of the Brownian path goes
+   through the native formatter. Checks finite output,
    the NVT temperature, NVE energy conservation (to 1e-4 per particle with the force
    shift), the T column of the Brownian rows, the output and snapshot files,
    FIRE's energy after its first iterations below its start, the packer's
@@ -148,7 +164,7 @@ NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
 SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs",
-           "rdf_histogram")
+           "rdf_histogram", "neighbor_list", "lammps_format")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -220,6 +236,14 @@ USER_FIRE_ITERS, USER_NVT_STEPS = 1000, 300
 RDF_BINS, RDF_R_MAX = 200, 3.0
 OPS_RDF_DISTANCE = {3: 46, 2: 23}
 OPS_RDF_HIT = 5
+# The neighbour list (csrc/neighbor_list.cu): the bench system and the same
+# system at 262,144. Operations per list candidate of K1 and per list entry
+# of K2, by hand count: per component a subtraction, the division by L, its
+# rint, the product with L and the subtraction (5), then 3 squares, 2 adds
+# and the compare. The potential's operations per pair inside its cutoff
+# are OPS_POTENTIAL_PAIR's (with the energy, virial and force sums).
+NL_SIZES = (N_BENCH, 262144)
+OPS_NL_DISTANCE = 21
 # The resume path: the bench configuration, NVT with a checkpoint at 200;
 # then a continuation from a state and from its checkpoint.
 RESUME_STEPS, RESUME_AT, RESUME_THERMO, RESUME_TRAJ = 400, 200, 100, 200
@@ -391,13 +415,13 @@ def repeats(kernel, args, first):
     return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def melted_state(mt):
-    """The bench lattice after 300 NVT steps (f64, so that the f32 and the
-    hi/lo inputs are words of one state)."""
+def melted_state(mt, n=N_BENCH):
+    """The bench lattice (``n`` particles) after 300 NVT steps (f64, so that
+    the f32 and the hi/lo inputs are words of one state)."""
     from mdtpu_torch.sim.initialization import lattice_fluid_state
-    state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float64,
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
                                 cutoff=2.5, jitter=0.01, device="cuda")
-    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+    params = mt.Parameters(density=0.8, n_particles=n, dt=0.002,
                            potential=mt.LennardJones(r_cut=2.5))
     with tempfile.TemporaryDirectory() as d:
         return mt.run_simulation(state, params, mt.NVT(1.0, 0.4), 300, 300, d)
@@ -1786,6 +1810,184 @@ def rdf_phase(mt):
     return results, failures
 
 
+def nl_bound(n, dim, dtype, *, candidates=0, occupied=0, n_cells=0, k=0,
+             entries=0, inside_pot=0, pot=None):
+    """The least time of K1 (``candidates`` > 0: each stencil candidate's
+    distance and test once; the positions, cells and buckets' occupied
+    entries read once, the whole (N, K) list and the counts written once)
+    or of K2 (each list entry's distance and test once, each unordered pair
+    inside the potential's cutoff evaluated once; the list's entries, counts,
+    positions and diameters read once, the forces written once)."""
+    b = torch.finfo(dtype).bits // 8
+    if candidates:
+        ops = candidates * OPS_NL_DISTANCE
+        nbytes = (n * dim * b + 4 * n + 4 * occupied + 8 * n_cells
+                  + 4 * n * k + 4 * n + 4)
+    else:
+        ops = (entries * OPS_NL_DISTANCE
+               + inside_pot * OPS_POTENTIAL_PAIR[type(pot).__name__])
+        nbytes = 4 * entries + 4 * n + n * (dim + 1) * b + n * dim * b
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes, "ops_bound_ms": t_ops,
+            "bytes_bound_ms": t_bytes}
+
+
+def stencil_candidates(counts, grid, cap):
+    """Candidates K1 visits: for every particle the occupied slots of its
+    3^d stencil cells (itself included)."""
+    dim = len(grid)
+    cnt = counts.clamp(max=cap).reshape(grid)
+    near = sum(torch.roll(cnt, tuple(-o for o in off),
+                          dims=tuple(range(dim)))
+               for off in itertools.product((-1, 0, 1), repeat=dim))
+    return int((cnt * near).sum())
+
+
+def list_phase(mt):
+    """K1 (``nl_build``) and K2 (``nl_forces``) against their plain versions
+    on the bench's jittered lattice and melted fluid at 65,536 and 262,144,
+    f64 and f32: K1's rows equal as sets, its counts and flag equal; again
+    with C and K small enough to overflow (both flags up, counts equal); K2
+    on K1's list within f64 1e-12 / 1e-10, f32 1e-5; two launches of each
+    bit for bit. Times by graph replay in turns with B1 (full and lean) on
+    the same state, the plain versions and the whole ``allocate`` (binning
+    and K1) by events; bounds from this run's list."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.ops.cell_sweep import cell_sweep
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+
+    pot = mt.LennardJones(r_cut=2.5)
+    results, failures = {}, []
+    for n in NL_SIZES:
+        melted = melted_state(mt, n)
+        for case in ("lattice", "melted"):
+            for dtype in (torch.float64, torch.float32):
+                tag = str(dtype).split(".")[-1]
+                st = (as_dtype(melted, dtype) if case == "melted" else
+                      lattice_fluid_state(n, 0.8, 1.0, dtype=dtype,
+                                          cutoff=2.5, jitter=0.01,
+                                          device="cuda"))
+                eng = mt.select_engine(pot, 2.5, st, prefer="neighbor")
+                assert isinstance(eng, nl.NeighborListEngine), eng
+                lengths = torch.diagonal(st.unitcell).contiguous()
+                pos = st.positions.contiguous()
+                cid, buf, counts = eng.bin(pos, st.unitcell_inv)
+                b_args = (pos, cid, buf, counts, lengths, eng.grid,
+                          eng.cutoff + eng.skin, eng.max_neighbors)
+                idx, count, over = nl.nl_build(*b_args)
+                torch.cuda.synchronize()
+                idx0, count0, over0 = nl.nl_build_plain(*b_args)
+                rows_differ = int((torch.sort(idx, 1).values
+                                   != torch.sort(idx0, 1).values)
+                                  .any(1).sum())
+                again = nl.nl_build(*b_args)
+                build_repeats = all(torch.equal(a, b) for a, b in
+                                    zip(again, (idx, count, over)))
+                small = dataclasses.replace(
+                    eng, cell_capacity=eng.cell_capacity // 4,
+                    max_neighbors=32)
+                s_cid, s_buf, s_counts = small.bin(pos, st.unitcell_inv)
+                s_args = (pos, s_cid, s_buf, s_counts, lengths, small.grid,
+                          small.cutoff + small.skin, small.max_neighbors)
+                _, s_count, s_over = nl.nl_build(*s_args)
+                _, s_count0, s_over0 = nl.nl_build_plain(*s_args)
+                f_args = (pos, st.diameters, idx, count, lengths,
+                          eng.cutoff, pot)
+                e1, w1, f1 = nl.nl_forces(*f_args)
+                torch.cuda.synchronize()
+                e0, w0, f0 = nl.nl_forces_plain(*f_args)
+                forces_repeat = all(torch.equal(a, b) for a, b in
+                                    zip(nl.nl_forces(*f_args), (e1, w1, f1)))
+                worst, max_abs, rms = force_error(f1.T, f0.T, n)
+                # B1 on the same state, in the same turns.
+                cg = mt.select_engine(pot, 2.5, st)
+                nb = cg.allocate(pos, st.diameters, st.unitcell,
+                                 st.unitcell_inv)
+                assert not bool(nb.overflow)
+                sw = (*cg.slot_inputs(pos, st.unitcell, st.unitcell_inv,
+                                      nb), cg.grid, cg.cutoff, pot)
+                turns = kernel_turns({
+                    "nl_build": lambda: nl.nl_build(*b_args),
+                    "nl_forces": lambda: nl.nl_forces(*f_args),
+                    "cell_sweep": lambda: cell_sweep(*sw),
+                    "cell_sweep_lean": lambda: cell_sweep(
+                        *sw, observables=False)})
+                inside_pot = round(float(nl.nl_forces_plain(
+                    pos.double(), st.diameters.double(), idx, count,
+                    lengths.double(), eng.cutoff, PairCounter(2.5))[0]))
+                entries = int(count.sum())
+                base = {"case": f"{case}_{n}", "n": n, "dtype": tag,
+                        "grid": list(eng.grid), "capacity":
+                        eng.cell_capacity, "max_neighbors":
+                        eng.max_neighbors, "list_entries": entries,
+                        "mean_list_length": entries / n,
+                        "pairs_in_potential_cutoff": inside_pot,
+                        "b1_ms": statistics.median(turns["cell_sweep"]),
+                        "b1_lean_ms": statistics.median(
+                            turns["cell_sweep_lean"]),
+                        "library_ms": None}
+                rec = {"kernel_check": "nl_build", **base,
+                       "rows_differing": rows_differ,
+                       "max_abs_err": float(rows_differ),
+                       "counts_equal": bool(torch.equal(count, count0)),
+                       "overflow": [bool(over), bool(over0)],
+                       "overflow_small": [bool(s_over), bool(s_over0)],
+                       "counts_equal_small": bool(torch.equal(s_count,
+                                                              s_count0)),
+                       "repeats_bit_for_bit": build_repeats,
+                       "ms": statistics.median(turns["nl_build"]),
+                       "ms_turns": turns["nl_build"],
+                       "plain_ms": cuda_time_ms(
+                           lambda: nl.nl_build_plain(*b_args), 2, 1),
+                       "allocate_ms": cuda_time_ms(
+                           lambda: eng.allocate(pos, st.diameters,
+                                                st.unitcell,
+                                                st.unitcell_inv), 5, 2),
+                       **nl_bound(n, 3, dtype, candidates=stencil_candidates(
+                           counts, eng.grid, eng.cell_capacity),
+                           occupied=int(counts.clamp(
+                               max=eng.cell_capacity).sum()),
+                           n_cells=counts.numel(), k=eng.max_neighbors)}
+                ok = (rows_differ == 0 and rec["counts_equal"]
+                      and rec["overflow"] == [False, False]
+                      and rec["overflow_small"] == [True, True]
+                      and rec["counts_equal_small"] and build_repeats)
+                rec["ok"] = ok
+                log(json.dumps(rec))
+                results[("nl_build", f"{case}_{n}", tag)] = rec
+                if not ok:
+                    failures.append(f"nl_build {case} {n} {tag}")
+                f64 = dtype == torch.float64
+                rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+                rec = {"kernel_check": "nl_forces", **base,
+                       "rel_err_energy": rel(e1, e0),
+                       "rel_err_virial": rel(w1, w0),
+                       "force_err_per_particle": worst,
+                       "max_abs_err": max_abs, "rms_force": rms,
+                       "repeats_bit_for_bit": forces_repeat,
+                       "ms": statistics.median(turns["nl_forces"]),
+                       "ms_turns": turns["nl_forces"],
+                       "plain_ms": cuda_time_ms(
+                           lambda: nl.nl_forces_plain(*f_args), 3, 1),
+                       **nl_bound(n, 3, dtype, entries=entries,
+                                  inside_pot=inside_pot, pot=pot)}
+                ok = (math.isfinite(float(e1))
+                      and rec["rel_err_energy"] <= rtol_ew
+                      and rec["rel_err_virial"] <= rtol_ew
+                      and worst <= tol_f and forces_repeat)
+                rec["ok"] = ok
+                log(json.dumps(rec))
+                results[("nl_forces", f"{case}_{n}", tag)] = rec
+                if not ok:
+                    failures.append(f"nl_forces {case} {n} {tag}")
+                del st, idx, idx0, f_args, b_args, sw, nb
+                torch.cuda.empty_cache()
+    return results, failures
+
+
 def libzstd_found():
     from mdtpu_torch.io.compress import require_libzstd
     try:
@@ -1814,8 +2016,10 @@ def _labels(text):
 def writer_turns(state, workdir, compress):
     """One 65,536-atom frame through the trajectory writer's thread, from
     ``write_frame`` to ``close``, plain and (``compress``) zstd, in turns
-    (plain, zst, zst, plain); and the formatting alone on this thread."""
+    (plain, zst, zst, plain); and the formatting alone on this thread, by
+    the native formatter and by ``format_lammps_frame``, byte for byte."""
     from mdtpu_torch.io.lammps import format_lammps_frame
+    from mdtpu_torch.io.native_writer import format_frame
     from mdtpu_torch.io.writer import TrajectoryWriter
     frame = (0, state.unitcell.cpu().numpy(),
              state.positions.float().cpu().numpy(),
@@ -1823,7 +2027,10 @@ def writer_turns(state, workdir, compress):
              state.diameters.cpu().numpy())
     t0 = time.perf_counter()
     text = format_lammps_frame(*frame)
-    rec = {"format_s": time.perf_counter() - t0,
+    t1 = time.perf_counter()
+    native = format_frame(*frame)
+    rec = {"format_s": t1 - t0, "native_format_s": time.perf_counter() - t1,
+           "native_equal": native == text.encode(),
            "frame_bytes": len(text.encode())}
     kinds = ("plain", "zst", "zst", "plain") if compress else ("plain",) * 2
     for kind in kinds:
@@ -1939,6 +2146,8 @@ def resume_path(mt, workdir):
            "perf_rows": len(b_perf) - 1,
            "continuation_bit_for_bit": continuation,
            "writer": writer_turns(a_end, workdir, compress)}
+    check(rec["writer"]["native_equal"],
+          "native frame differs from format_lammps_frame")
     return rec, failures
 
 
@@ -1950,8 +2159,10 @@ def _rows(path):
 
 def run_paths(mt, workdir):
     from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.io import native_writer
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
+    from mdtpu_torch.ops import neighbor_list as nl
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
     from mdtpu_torch.ops.experimental import PlaneEngine
@@ -1963,7 +2174,9 @@ def run_paths(mt, workdir):
         cp.reset_launches()
         ps.plane_sweep.launches = 0
         rdf.rdf_histogram.launches = 0
+        nl.reset_launches()
         slot_step.make_slot_step.steps = 0
+        frames = native_writer.format_frame.calls
         rec, failures = fn()
         rec["launches"] = {
             "cell_sweep": cs.cell_sweep.launches,
@@ -1974,8 +2187,11 @@ def run_paths(mt, workdir):
             "cell_pairs": cp.pair_list.launches,
             "pair_reduce": cp.pair_reduce.launches,
             "pair_reduce_lean": cp.pair_reduce.lean_launches,
-            "rdf_histogram": rdf.rdf_histogram.launches}
+            "rdf_histogram": rdf.rdf_histogram.launches,
+            "nl_build": nl.nl_build.launches,
+            "nl_forces": nl.nl_forces.launches}
         rec["slot_steps"] = slot_step.make_slot_step.steps
+        rec["native_frames"] = native_writer.format_frame.calls - frames
         log(json.dumps(rec))
         return rec, failures
 
@@ -2000,9 +2216,31 @@ def run_paths(mt, workdir):
                       potential=lj), mt.NVT(1.0, 0.4)))
     user, f9 = counted(lambda: user_path(mt, workdir))
     resume, f10 = counted(lambda: resume_path(mt, workdir))
-    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10
+    nlp, f11 = counted(lambda: md_path(
+        mt, workdir, "nl",
+        lambda st, pot: mt.select_engine(pot, 2.5, st, prefer="neighbor"),
+        True))
+    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10 + f11
+    # The list path: every step through K2, its rebuilds through K1 (one
+    # build at each leg's start besides), and no sweep kernel.
+    n = nlp["launches"]
+    nlp["rebuilds"] = n["nl_build"] - 3
+    log(json.dumps({"path": "nl", "rebuilds": nlp["rebuilds"]}))
+    if (n["nl_forces"] < NVT_STEPS + 2 * NVE_STEPS or n["nl_build"] < 4
+            or n["cell_sweep"] or n["cell_sweep_hilo"] or n["plane_sweep"]
+            or n["cell_pairs"] or nlp["slot_steps"]):
+        failures.append(f"nl: launches {n}, slot steps {nlp['slot_steps']}")
+    for rec in (b1, b2, bd, bds, fire, pack, b1_2d, b1_tilted, user, resume):
+        if rec["launches"]["nl_build"] or rec["launches"]["nl_forces"]:
+            failures.append(f"{rec['path']}: took the neighbour list "
+                            f"{rec['launches']}")
+    # Every frame and snapshot goes through the native formatter: the
+    # Brownian path's log-time snapshots and its frame at step 0.
+    if bd["native_frames"] != len(bd["snapshots"]) + 1:
+        failures.append(f"brownian: {bd['native_frames']} native frames for "
+                        f"{len(bd['snapshots'])} snapshots and one frame")
     # The bench paths' observables launch the RDF kernel once each.
-    for rec in (b1, b2):
+    for rec in (b1, b2, nlp):
         if rec["launches"]["rdf_histogram"] != 1:
             failures.append(f"{rec['path']}: rdf_histogram launches "
                             f"{rec['launches']}")
@@ -2062,7 +2300,7 @@ def run_paths(mt, workdir):
     return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
             "fire": fire, "pack": pack, "b1_2d": b1_2d,
             "b1_tilted": b1_tilted, "user": user,
-            "resume": resume}, failures
+            "resume": resume, "nl": nlp}, failures
 
 
 def ptxas_summary(name, report):
@@ -2114,8 +2352,8 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
     _cuda_build.build_all(SOURCES)
-    log(f"built {', '.join(s + '.cu' for s in SOURCES)} in "
-        f"{time.perf_counter() - t:.1f} s")
+    log(f"built {', '.join(_cuda_build.source(s).name for s in SOURCES)} "
+        f"in {time.perf_counter() - t:.1f} s")
     registers = {name: ptxas_summary(name, _cuda_build.build_report(name))
                  for name in SOURCES}
 
@@ -2125,6 +2363,8 @@ def main():
     failures += probe_failures
     rdf_results, rdf_failures = rdf_phase(mt)
     failures += rdf_failures
+    nl_results, nl_failures = list_phase(mt)
+    failures += nl_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -2239,6 +2479,27 @@ def main():
         "rdf_histogram", "mdtpu_torch/csrc/rdf_histogram.cu",
         "mdtpu/observables.py:21", by_path["b1"]["rdf_histogram"], rdf_main,
         rdf_extra))
+    # The neighbour list is XLA in the JAX package (no pl.pallas_call); each
+    # entry is the bench lattice at f32 with B1's times from the same turns,
+    # the other cases beside it, and its launches on the list path.
+    for kname, line in (("nl_build", "mdtpu/ops/neighbor_list.py:172"),
+                        ("nl_forces", "mdtpu/ops/neighbor_list.py:224")):
+        main_rec = nl_results[(kname, f"lattice_{N_BENCH}", "float32")]
+        extra = {"covers": f"{line} (XLA)",
+                 "b1_ms_same_turns": main_rec["b1_ms"],
+                 "b1_lean_ms_same_turns": main_rec["b1_lean_ms"],
+                 "rebuilds_on_path": paths["nl"]["rebuilds"]}
+        if kname == "nl_build":
+            extra["allocate_ms"] = main_rec["allocate_ms"]
+        for (k, case, tag), r in nl_results.items():
+            if k == kname and (case, tag) != (f"lattice_{N_BENCH}",
+                                              "float32"):
+                extra[f"{case}_{tag}"] = {key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "b1_ms", "b1_lean_ms")}
+        kernels["kernels"].append(entry(
+            kname, "mdtpu_torch/csrc/neighbor_list.cu", line,
+            by_path["nl"][kname], main_rec, extra))
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             failures.append(f"{k['name']} never launched on its path")

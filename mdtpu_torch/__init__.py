@@ -10,7 +10,10 @@ a CUDA histogram kernel, MSD) in ``mdtpu_torch.observables``. The pair forces of
 CUDA kernels (``csrc/*.cu``: the full stencil with its hi/lo and lean
 variants, and the Newton half stencil behind ``ops.experimental.PlaneEngine``);
 on the cell grid, dynamics and FIRE run in the slot layout
-(``integrate.slot_step``). Small and other systems use the O(N^2) engine.
+(``integrate.slot_step``). ``NeighborListEngine`` (``select_engine(...,
+prefer="neighbor")``) keeps padded Verlet lists, built and evaluated by
+CUDA kernels too. Small and other systems use the O(N^2) engine. Frames
+are formatted in host C++ (``io.native_writer``).
 
 The package imports torch and numpy, never JAX or ``mdtpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -31,7 +34,8 @@ from mdtpu_torch.integrate.ramps import (
 )
 from mdtpu_torch.integrate.thermostat import compute_kinetic, compute_temperature
 from mdtpu_torch.minimize import fire_minimize, minimize
-from mdtpu_torch.ops import NaivePairEngine, select_engine
+from mdtpu_torch.ops import (NaivePairEngine, NeighborListEngine,
+                             select_engine)
 from mdtpu_torch.potentials.base import Potential, energy_lrc, evaluate, pressure_lrc
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
@@ -50,5 +54,5 @@ __all__ = [
     "LinearRamp", "ExponentialRamp", "initial_temperature_for_velocities",
     "Potential", "evaluate", "energy_lrc", "pressure_lrc",
     "compute_kinetic", "compute_temperature",
-    "NaivePairEngine", "select_engine",
+    "NaivePairEngine", "NeighborListEngine", "select_engine",
 ]

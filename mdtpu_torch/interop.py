@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from mdtpu_torch.core.types import Parameters, SimulationState
+from mdtpu_torch.ops.neighbor_list import NeighborState
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
@@ -102,3 +103,20 @@ def params_from_fields(density, n_particles, dt, potential) -> Parameters:
     return Parameters(density=float(np.asarray(density)),
                       n_particles=int(n_particles),
                       dt=float(np.asarray(dt)), potential=potential)
+
+
+def neighbor_state_from_numpy(idx, ref_positions, overflow,
+                              device=None) -> NeighborState:
+    """The port's :class:`NeighborState` from the fields of the JAX
+    package's (``idx`` (N, K) with sentinel N, ``ref_positions``,
+    ``overflow``) as numpy arrays: ``idx`` becomes int32, the positions
+    keep their dtype, and each row's ``count`` is its entries below the
+    sentinel (the JAX rows hold their neighbours first)."""
+    device = resolve_device(device)
+    ref = torch.as_tensor(np.array(ref_positions), device=device)
+    idx = torch.as_tensor(np.array(idx), dtype=torch.int32, device=device)
+    count = (idx < ref.shape[0]).sum(dim=1).to(torch.int32)
+    return NeighborState(
+        idx=idx, ref_positions=ref,
+        overflow=torch.as_tensor(bool(np.asarray(overflow)), device=device),
+        count=count)

@@ -1,14 +1,16 @@
 """Background-thread trajectory writer.
 
-A copy of ``PythonTrajectoryWriter`` from ``mdtpu/io/native_writer.py``:
-frames are formatted and written by a worker thread, so the simulation loop
-does not wait on text formatting (about a second per 1e5 atoms in Python).
-With ``compress`` the thread feeds a zstd stream (:mod:`.compress`), so the
-file holds the compressed trajectory and no plain file is written; with
-``append`` the file is continued (a compressed one gets a frame of its
-own: zstd decodes concatenated frames). The same thread writes the
-log-time snapshots (``snapshot.{step}``, one plain frame per file). The
-binding to the native C++ writer comes later.
+The counterpart of the writers of ``mdtpu/io/native_writer.py``: frames are
+formatted and written by a worker thread, so the simulation loop does not
+wait on them. The thread formats each frame with the host C++ formatter
+(:func:`mdtpu_torch.io.native_writer.format_frame`; ``PERF.md`` has its
+time beside Python's ``format_lammps_frame``); ctypes releases the GIL
+during the call. With ``compress`` the thread feeds a zstd
+stream (:mod:`.compress`), so the file holds the compressed trajectory and
+no plain file is written; with ``append`` the file is continued (a
+compressed one gets a frame of its own: zstd decodes concatenated frames).
+The same thread writes the log-time snapshots (``snapshot.{step}``, one
+plain frame per file).
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import threading
 
 import numpy as np
 
+from mdtpu_torch.io import native_writer
 from mdtpu_torch.io.compress import ZstdWriter, require_libzstd
-from mdtpu_torch.io.lammps import format_lammps_frame
 
 
 class TrajectoryWriter:
@@ -28,9 +30,10 @@ class TrajectoryWriter:
     def __init__(self, path, compress=False, append=False):
         self._queue: "queue.Queue" = queue.Queue()
         self._error = None
+        # Before the file is opened (and truncated): a formatter that does
+        # not build, or a missing libzstd, leaves no empty file behind.
+        native_writer.library()
         if compress:
-            # Before the file is opened (and truncated): a missing libzstd
-            # leaves no empty file behind.
             require_libzstd()
         self._io = open(path, "ab" if append else "wb")
         self._zwriter = ZstdWriter(self._io) if compress else None
@@ -45,7 +48,7 @@ class TrajectoryWriter:
                 return
             path, frame = item
             try:
-                text = format_lammps_frame(*frame).encode()
+                text = native_writer.format_frame(*frame)
                 if path is None:
                     self._sink.write(text)
                 else:

@@ -7,6 +7,9 @@ Engines implement the protocol documented in :mod:`mdtpu_torch.ops.naive`:
     cell grid.
   * CellGridEngine  — cell grid with the pair sweep as a CUDA kernel; 2D and
     3D boxes, orthorhombic or tilted, at larger N.
+  * NeighborListEngine — padded (N, K) Verlet lists built from a cell grid,
+    both the build and the force pass CUDA kernels; orthorhombic 2D and 3D
+    boxes; picked only by ``prefer="neighbor"``.
   * experimental.PlaneEngine — the cell grid with the Newton half-stencil
     sweep; never picked by :func:`select_engine`.
 """
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from mdtpu_torch.ops.naive import NaivePairEngine
+from mdtpu_torch.ops.neighbor_list import NeighborListEngine
 
 # The O(N^2) engine is picked at and below this size.
 _NAIVE_MAX_N = 2048
@@ -29,13 +33,20 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
                   workload="dynamics"):
     """Pick the engine for the system.
 
-    prefer: None (auto) | "naive" | "cellgrid".
-    The reference's decision (``mdtpu/ops/__init__.py:63-69``): the naive
+    prefer: None (auto) | "naive" | "neighbor" | "cellgrid".
+    The reference's decision (``mdtpu/ops/__init__.py:63-79``): the naive
     engine whenever the box does not fit a cell grid (fewer than 3 cells
-    along some axis), whatever ``prefer`` says; otherwise the cell grid for
-    ``prefer="cellgrid"`` or for N > 2048, the naive engine for smaller N.
-    The grid takes 2D and 3D boxes, orthorhombic or tilted. There is no
-    neighbour-list engine yet (queue A12).
+    along some axis), whatever ``prefer`` says; otherwise
+    ``NeighborListEngine.create`` for ``prefer="neighbor"`` (``ValueError``
+    for a tilted box, as the JAX engine), the cell grid for
+    ``prefer="cellgrid"``, and without a preference the cell grid for
+    N > 2048 and the naive engine for smaller N. The grid takes 2D and 3D
+    boxes, orthorhombic or tilted.
+
+    Auto-selection never picks the list: the JAX package's CPU branch
+    (``mdtpu/ops/__init__.py:82-86``, the list for orthorhombic boxes on
+    the CPU) is a speed heuristic of the CPU, and whether the list should be
+    the card's default is for a measurement in a benchmark cell to decide.
 
     workload: "dynamics" (default) or "minimize", as the JAX package's
     argument. Both give ``CellGridEngine.create``'s geometry: the JAX
@@ -47,10 +58,7 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
     from mdtpu_torch.ops.cell_grid import CellGridEngine, grid_for_box
     from mdtpu_torch.potentials.base import check_engine_cutoff
 
-    if prefer not in (None, "naive", "cellgrid"):
-        if prefer == "neighbor":
-            raise NotImplementedError(
-                "the neighbour-list engine is not ported yet (queue A12)")
+    if prefer not in (None, "naive", "neighbor", "cellgrid"):
         raise ValueError(f"unknown engine preference {prefer!r}")
     max_sigma = 1.0
     diameters = None
@@ -72,6 +80,10 @@ def select_engine(potential, cutoff, state=None, *, unitcell=None,
                                            or n_particles <= _NAIVE_MAX_N)):
         _warn_if_half_box_exceeded(unitcell, cutoff)
         return NaivePairEngine(potential=potential, cutoff=cutoff)
+    if prefer == "neighbor":
+        return NeighborListEngine.create(
+            potential, float(cutoff), float(skin), np.asarray(unitcell),
+            int(n_particles), max_sigma=max_sigma)
     return CellGridEngine.create(
         potential, float(cutoff), float(skin), np.asarray(unitcell),
         int(n_particles), max_sigma=max_sigma, diameters=diameters)
@@ -92,4 +104,4 @@ def _warn_if_half_box_exceeded(unitcell, cutoff):
             "for this system (use a larger box for true periodic physics)")
 
 
-__all__ = ["NaivePairEngine", "select_engine"]
+__all__ = ["NaivePairEngine", "NeighborListEngine", "select_engine"]

@@ -1,9 +1,12 @@
-"""Build and load the package's CUDA sources.
+"""Build and load the package's native sources.
 
-Every ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into
-``_build/lib<name>.so`` at first use, with one set of flags, and loaded with
-ctypes. A library is rebuilt when its source is newer. The compiler's report
-(``-Xptxas -v``: registers, shared memory, spills) goes to
+Every ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a``, and every
+``csrc/<name>.cc`` (host C++) with ``g++``, into ``_build/lib<name>.so`` at
+first use, with one set of flags each, and loaded with ctypes. A library is
+rebuilt when its source is newer. Each build writes a file of its own and
+installs it by an atomic rename, so processes that build at once (test
+workers) never load a half-written library. The compiler's report (for
+``nvcc``, ``-Xptxas -v``: registers, shared memory, spills) goes to
 ``_build/lib<name>.log``.
 """
 
@@ -30,6 +33,10 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+# Host C++: -ffp-contract=off, so no multiply and add fuse and every product
+# and sum rounds as numpy's do (the trajectory formatter's unwrapped
+# coordinates are byte for byte Python's).
+HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 
 def nvcc() -> str:
@@ -44,8 +51,19 @@ def nvcc() -> str:
     return found
 
 
+def gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host C++ sources are built at "
+                           "first use and need a C++ compiler")
+    return found
+
+
 def source(name: str) -> Path:
-    return CSRC / f"{name}.cu"
+    """``csrc/<name>.cu``, or ``csrc/<name>.cc`` where there is no CUDA
+    source of that name."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.is_file() else CSRC / f"{name}.cc"
 
 
 def library_path(name: str) -> Path:
@@ -57,19 +75,25 @@ def log_path(name: str) -> Path:
 
 
 def build(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so`` unless a
-    library newer than the source and the shared headers is there."""
+    """Compile ``csrc/<name>.cu`` (``nvcc``) or ``csrc/<name>.cc`` (``g++``)
+    into ``_build/lib<name>.so`` unless a library newer than the source
+    (and, for CUDA, the shared headers) is there."""
     src, lib = source(name), library_path(name)
-    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    cuda = src.suffix == ".cu"
+    newest = max(p.stat().st_mtime for p in
+                 [src, *(CSRC.glob("*.cuh") if cuda else ())])
     if lib.is_file() and lib.stat().st_mtime >= newest:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = ([nvcc(), *NVCC_FLAGS] if cuda else [gxx(), *HOST_FLAGS]) + [
+        "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n"
-                           f"{proc.stderr}")
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(cmd[0]).name} failed on {src.name} "
+                           f"({proc.returncode}):\n{proc.stderr}"
+                           f"{proc.stdout}")
     log_path(name).write_text(proc.stderr + proc.stdout)
     os.replace(tmp, lib)
 
@@ -87,18 +111,20 @@ def build_all(names) -> None:
 @functools.lru_cache(maxsize=None)
 def load(name: str, signatures: tuple) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built and loaded once per process.
-    ``signatures``: ``((function, (argtypes...)), ...)``; every function
-    returns an int (0 or an error code), and the library exports
-    ``<name>_error_string(int)``."""
+    ``signatures``: ``((function, (argtypes...)[, restype]), ...)``; a
+    function returns an int (0 or an error code) unless its entry names
+    another type. A library that exports ``mdtpu_<name>_error_string(int)``
+    has it bound too."""
     build(name)
     lib = ctypes.CDLL(str(library_path(name)))
-    for fn_name, argtypes in signatures:
+    for fn_name, argtypes, *restype in signatures:
         fn = getattr(lib, fn_name)
-        fn.restype = ctypes.c_int
+        fn.restype = restype[0] if restype else ctypes.c_int
         fn.argtypes = list(argtypes)
-    err = getattr(lib, f"mdtpu_{name}_error_string")
-    err.restype = ctypes.c_char_p
-    err.argtypes = [ctypes.c_int]
+    err = getattr(lib, f"mdtpu_{name}_error_string", None)
+    if err is not None:
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
     return lib
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_torch_step.py [--engine cellgrid|plane|slot]
+    python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
@@ -10,7 +10,9 @@ host clock and profiles 50 steps with ``torch.profiler``. ``--engine
 cellgrid`` (the default) steps the cell-grid engine in particle order
 (``make_md_step``) with Kahan compensation; ``--engine plane`` steps
 ``PlaneEngine`` (the Newton half-stencil sweep) with ``compensated=False``,
-as the JAX package drives its B2 kernel; ``--engine slot`` steps the slot
+as the JAX package drives its B2 kernel; ``--engine neighbor`` steps
+``NeighborListEngine`` (``select_engine(..., prefer="neighbor")``) in
+particle order with Kahan compensation; ``--engine slot`` steps the slot
 layout as ``run_simulation`` does on the cell grid: ``make_slot_advance``
 over one segment of the timed or profiled length (its lean inner steps, the
 rebuild check read every step, the rebuilds that come due, one full step at
@@ -34,7 +36,8 @@ PROFILED_STEPS = 50
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--engine", choices=("cellgrid", "plane", "slot"),
+    parser.add_argument("--engine",
+                        choices=("cellgrid", "plane", "slot", "neighbor"),
                         default="cellgrid")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -54,7 +57,9 @@ def main():
     params = mt.Parameters(density=0.8, n_particles=N, dt=0.002,
                            potential=mt.LennardJones(r_cut=2.5))
     ensemble = mt.NVT(1.0, 0.4)
-    engine = mt.select_engine(params.potential, 2.5, state)
+    engine = mt.select_engine(
+        params.potential, 2.5, state,
+        prefer="neighbor" if args.engine == "neighbor" else None)
     compensated = args.engine != "plane"
     if args.engine == "plane":
         engine = PlaneEngine.create(params.potential, 2.5, 0.3,

@@ -19,7 +19,11 @@ in the same order, bit for bit), its overflow, and a run with a user
 potential on the card against the same run on the CPU. The RDF histogram
 kernel against its plain version (3D, tilted 3D, tilted 2D; f64 and f32;
 two launches alike), and 200 steps from a state and from its checkpoint,
-bit for bit.
+bit for bit. The neighbour list: its build (rows as sets, counts, the
+overflow flag of small capacities, two launches alike) and its force pass
+(f64 and f32, three potentials; two launches bit for bit; against the
+full-stencil sweep on the same state) against their plain versions, and a
+run on the list on the card against the same run on the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -1050,3 +1054,184 @@ def test_checkpoint_continuation_is_bit_exact_on_the_card(cuda, tmp_path):
         for name in ("positions", "velocities"):
             assert torch.equal(getattr(ends[0], name),
                                getattr(ends[1], name)), name
+
+
+# --------------------------------------------------------------------------
+# The neighbour list: its build (K1) and force pass (K2).
+# --------------------------------------------------------------------------
+
+def _nl_inputs(cuda, name, dtype, n=20000, **capacities):
+    """A jittered lattice of POTENTIALS[name] with diameters 1 + 0.1 U, its
+    neighbour-list engine and binning."""
+    from mdtpu_torch.ops.neighbor_list import NeighborListEngine
+    pot, cutoff, rho = POTENTIALS[name]
+    state = lattice_fluid_state(n, rho, 1.0, dtype=dtype, cutoff=cutoff,
+                                jitter=JITTER, device=cuda)
+    diam = (1.0 + 0.1 * torch.rand(n, generator=torch.Generator()
+                                   .manual_seed(0), dtype=dtype)).to(cuda)
+    eng = NeighborListEngine.create(pot, cutoff, 0.3, state.unitcell, n,
+                                    max_sigma=float(diam.max()),
+                                    **capacities)
+    cid, cell_buf, counts = eng.bin(state.positions, state.unitcell_inv)
+    build_args = (state.positions, cid, cell_buf, counts,
+                  torch.diagonal(state.unitcell).contiguous(), eng.grid,
+                  eng.cutoff + eng.skin, eng.max_neighbors)
+    return state, diam, eng, build_args
+
+
+def _sorted_rows(idx):
+    return torch.sort(idx, dim=1).values
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["lj", "pseudo_hs"])
+def test_nl_build_matches_plain(cuda, name, dtype):
+    from mdtpu_torch.ops import neighbor_list as nl
+    _, _, _, args = _nl_inputs(cuda, name, dtype)
+    before = nl.nl_build.launches
+    idx, count, over = nl.nl_build(*args)
+    torch.cuda.synchronize()
+    assert nl.nl_build.launches == before + 1
+    idx0, count0, over0 = nl.nl_build_plain(*args)
+    assert not bool(over) and not bool(over0)
+    assert torch.equal(count, count0) and int(count.min()) > 0
+    assert torch.equal(_sorted_rows(idx), _sorted_rows(idx0))
+    again = nl.nl_build(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, (idx, count, over)))
+
+
+@pytest.mark.parametrize("capacities", [
+    dict(cell_capacity=4), dict(max_neighbors=16)], ids=["cells", "rows"])
+def test_nl_build_flags_overflow(cuda, capacities):
+    from mdtpu_torch.ops import neighbor_list as nl
+    _, _, _, args = _nl_inputs(cuda, "lj", torch.float64, **capacities)
+    idx, count, over = nl.nl_build(*args)
+    idx0, count0, over0 = nl.nl_build_plain(*args)
+    assert bool(over) and bool(over0)
+    assert torch.equal(count, count0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", sorted(POTENTIALS))
+def test_nl_forces_match_plain_and_the_cell_sweep(cuda, name, dtype):
+    """K2 against its plain version on the kernel's list, two launches bit
+    for bit, and against the full-stencil sweep (B1) on the same state."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    state, diam, eng, _ = _nl_inputs(cuda, name, dtype)
+    args = (state.positions, diam, state.unitcell, state.unitcell_inv)
+    nbrs = eng.allocate(*args)
+    assert not bool(nbrs.overflow)
+    before = nl.nl_forces.launches
+    e1, w1, f1, _ = eng.compute(*args, nbrs)
+    torch.cuda.synchronize()
+    assert nl.nl_forces.launches == before + 1
+    lengths = torch.diagonal(state.unitcell).contiguous()
+    e0, w0, f0 = nl.nl_forces_plain(state.positions, diam, nbrs.idx,
+                                    nbrs.count, lengths, eng.cutoff,
+                                    eng.potential)
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    n = state.n_particles
+    np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
+    np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
+    assert _force_ratio(f1.T, f0.T, n) <= tol_f
+    e2, w2, f2, _ = eng.compute(*args, nbrs)
+    assert torch.equal(e1, e2) and torch.equal(w1, w2) and torch.equal(f1, f2)
+    cg = CellGridEngine.create(eng.potential, eng.cutoff, 0.3, state.unitcell,
+                               n, diameters=diam)
+    nb = cg.allocate(*args)
+    e3, w3, f3, _ = cg.compute(*args, nb)
+    np.testing.assert_allclose(float(e1), float(e3), rtol=rtol_ew)
+    np.testing.assert_allclose(float(w1), float(w3), rtol=rtol_ew)
+    if dtype == torch.float64:
+        assert _force_ratio(f1.T, f3.T, n) <= tol_f
+    else:
+        # B1 takes slot coordinates (reference plus minimum image), the list
+        # the minimum image of the plain difference: at f32 a pair across
+        # the box edge rounds differently in the two. Both are held to the
+        # f64 forces on the same positions, the list to twice B1's error.
+        ref = nl.nl_forces_plain(state.positions.double(), diam.double(),
+                                 nbrs.idx, nbrs.count, lengths.double(),
+                                 eng.cutoff, eng.potential)[2]
+        assert _force_ratio(f1.T, ref.T, n) <= 2 * _force_ratio(f3.T, ref.T,
+                                                                 n)
+
+
+def test_nl_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """40 NVE steps on the list (f64, LJ, N = 4096) through run_simulation on
+    the card and on the CPU from one state: the final energy, virial and
+    temperature to rel 1e-10, positions to 1e-9."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    n = 4096
+    params = mdtpu_torch.Parameters(0.8, n, 0.002,
+                                    LennardJones(r_cut=2.5))
+    ends = {}
+    for device in ("cpu", cuda):
+        state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
+                                    cutoff=2.5, jitter=0.02, device=device)
+        eng = mdtpu_torch.select_engine(params.potential, 2.5, state,
+                                        prefer="neighbor")
+        assert isinstance(eng, nl.NeighborListEngine)
+        before = nl.nl_forces.launches
+        out = mdtpu_torch.run_simulation(
+            state, params, mdtpu_torch.NVE(), 40, 10,
+            str(tmp_path / str(device).replace(":", "")), engine=eng,
+            device=device)
+        if device != "cpu":
+            assert nl.nl_forces.launches == before + 41
+        ends[str(device)] = ([float(out.energy), float(out.virial),
+                              float(out.temperature)],
+                             out.positions.cpu().numpy())
+    np.testing.assert_allclose(ends[str(cuda)][0], ends["cpu"][0],
+                               rtol=1e-10)
+    np.testing.assert_allclose(ends[str(cuda)][1], ends["cpu"][1], rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_nl_2d_matches_plain(cuda, dtype):
+    """The 2D kernels (a 3 x 3 stencil) on 8,192 polydisperse disks: K1's
+    rows as sets, K2 against its plain version (Lennard-Jones); a user
+    potential (no functor) evaluates on the tiles on the card as on the
+    CPU. (Pseudo-hard disks at this density interact in lone pairs near
+    the cutoff, where the force's two terms cancel: an ulp of the card's
+    rsqrtf there moves the force by ~7e-5 of itself at f32; the functor
+    itself is held in 3D above.)"""
+    from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.sim.initialization import lattice_positions
+    n, rho = 8192, 0.7
+    L = (n / rho) ** 0.5
+    cell = torch.tensor([[L, 0.0], [0.0, L]], dtype=dtype, device=cuda)
+    pos = lattice_positions(n, cell.cpu().numpy(), 2, dtype=dtype,
+                            jitter=0.03, seed=5, device=cuda)
+    diam = (0.9 + 0.2 * torch.rand(n, generator=torch.Generator()
+                                   .manual_seed(2), dtype=dtype)).to(cuda)
+    cell_inv = torch.linalg.inv(cell)
+    lengths = torch.diagonal(cell).contiguous()
+    for pot, cutoff in ((LennardJones(r_cut=2.5), 2.5),
+                        (NonAdditivePHS(), 1.8)):
+        eng = nl.NeighborListEngine.create(pot, cutoff, 0.3, cell, n,
+                                           max_sigma=float(diam.max()))
+        cid, cell_buf, counts = eng.bin(pos, cell_inv)
+        args = (pos, cid, cell_buf, counts, lengths, eng.grid,
+                eng.cutoff + eng.skin, eng.max_neighbors)
+        idx, count, over = nl.nl_build(*args)
+        idx0, count0, over0 = nl.nl_build_plain(*args)
+        assert not bool(over) and not bool(over0)
+        assert torch.equal(count, count0)
+        assert torch.equal(_sorted_rows(idx), _sorted_rows(idx0))
+        nbrs = nl.NeighborState(idx=idx, ref_positions=pos, overflow=over,
+                                count=count)
+        e1, w1, f1, _ = eng.compute(pos, diam, cell, cell_inv, nbrs)
+        e0, w0, f0, _ = eng.compute(pos.cpu(), diam.cpu(), cell.cpu(),
+                                    cell_inv.cpu(), nl.NeighborState(
+                                        idx=idx.cpu(),
+                                        ref_positions=pos.cpu(),
+                                        overflow=over.cpu(),
+                                        count=count.cpu()))
+        rtol_ew, tol_f = TOLERANCES[dtype]
+        np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
+        np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
+        assert _force_ratio(f1.T.cpu(), f0.T, n) <= tol_f

@@ -27,6 +27,7 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax_or_mdtpu():
     code = ("import sys, mdtpu_torch, mdtpu_torch.interop, "
             "mdtpu_torch.ops.cell_grid, mdtpu_torch.ops.cell_pairs, "
+            "mdtpu_torch.ops.neighbor_list, mdtpu_torch.io.native_writer, "
             "mdtpu_torch.ops.plane_sweep, mdtpu_torch.ops.rdf, "
             "mdtpu_torch.observables, mdtpu_torch.io.checkpoint, "
             "mdtpu_torch.io.compress, mdtpu_torch.utils.profiling, "
@@ -77,8 +78,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
         mdtpu_torch.initialize_state(params, str(tmp_path),
                                      positions=np.zeros((4, 3)))
     # device="cpu" runs (Brownian too, and compress), options that cannot
-    # run raise before any file is written, and what is not ported yet
-    # raises by name.
+    # run raise before any file is written, and prefer="neighbor" gives the
+    # neighbour-list engine where the box fits its grid.
     out = mdtpu_torch.run_simulation(state, params, mdtpu_torch.NVE(), 2, 1,
                                      str(tmp_path / "cpu"), device="cpu")
     assert out.step == 2 and out.positions.device.type == "cpu"
@@ -90,9 +91,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
                                    str(tmp_path / "x"), precision="f32x2",
                                    device="cpu")
     assert not (tmp_path / "x").exists()
-    with pytest.raises(NotImplementedError, match="A12"):
-        mdtpu_torch.select_engine(params.potential, 1.5, state,
-                                  prefer="neighbor")
+    engine = mdtpu_torch.select_engine(params.potential, 1.5,
+                                       unitcell=np.eye(3) * 8.0,
+                                       n_particles=256, prefer="neighbor")
+    assert isinstance(engine, mdtpu_torch.NeighborListEngine)
+    assert engine.grid == (4, 4, 4)
     mdtpu_torch.run_simulation(state, params, mdtpu_torch.Brownian(1.0), 2, 1,
                                str(tmp_path / "zst"), compress=True,
                                device="cpu")
