@@ -81,7 +81,17 @@
    32; K2 on K1's list to f64 1e-12 / 1e-10, f32 1e-5; two launches of
    each bit for bit; timed by graph replay in turns with B1 (full and lean)
    on the same state, the whole ``allocate`` (binning and K1) and the plain
-   versions by events, against bounds from this run's list.
+   versions by events, against bounds from this run's list. Slab phase:
+   B1's slab launch (``HaloSlotEngine`` on a ring of one: the box one slab
+   of a grid with a ghost x-plane on each side, the blocks over its
+   interior cells) on the bench's lattice at 65,536 and 262,144 and the
+   melted fluid, f64, f32 and hi/lo, full and lean: against its plain
+   version and against the periodic launch on the global slots (f64 1e-12
+   / 1e-10, f32 1e-5), lean forces bit-equal to full, two launches bit for
+   bit; timed by graph replay in turns with the periodic launches, the
+   plain versions by events, the bound from this run's pairs (the ghost
+   planes' reads included); the sharded ``compute_slots`` (exchange,
+   assembly, launch) by events beside the periodic engine's.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -122,7 +132,13 @@
    * the list: B1's three legs through ``select_engine(...,
      prefer="neighbor")`` (the particle-order step, compensated): every
      step through K2, rebuilds through K1 (counted), no sweep kernel; the
-     force-shifted NVE leg's energy per particle within 1e-4.
+     force-shifted NVE leg's energy per particle within 1e-4;
+   * sharded: a one-rank NCCL group formed here (a file store in the work
+     directory; a failure to form it fails the run), then the bench's 600
+     NVT + 500 NVE steps through ``run_simulation_sharded`` (every sweep a
+     slab launch, NVE on hi/lo), its first thermo rows against the B1
+     path's within 1e-4; then ``fire_minimize_sharded`` on
+     ``bench_fire.py``'s system, 20 iterations, below the start's energy.
    The B1 and B2 paths end with the observables of their final state:
    ``sample_rdf`` through the RDF kernel (its first peak), the MSD from the
    start, ``read_thermo`` of the NVE leg equal to the file's rows.
@@ -1988,6 +2004,177 @@ def list_phase(mt):
     return results, failures
 
 
+# ------------------------------------------------- the sharded slab launch
+
+SLAB_SIZES = (N_BENCH, 262144)
+SLAB_COVERS = "mdtpu/parallel/halo_slot.py:322 compute_slots (XLA)"
+
+
+def slab_bound(ext_inputs, interior, counts_, pot, dtype, hilo=False,
+               observables=True):
+    """B1's bound for the slab launch: its work on the slab's pairs and its
+    inputs read once, the two ghost planes' occupied slots included, with
+    the outputs (forces, partials) of the interior cells only."""
+    rec = bound(ext_inputs, counts_, pot, dtype, hilo, observables)
+    slot_pos, _, counts, _ = ext_inputs
+    b = slot_pos.element_size()
+    dim = slot_pos.shape[0]
+    cap = slot_pos.shape[1] // counts.shape[0]
+    ghost_cells = counts.shape[0] - interior[1]
+    nbytes = rec["bytes"] - (dim * ghost_cells * cap * b
+                             + (2 * ghost_cells * b if observables else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = rec["ops_bound_ms"]
+    rec.update(bytes=nbytes, bytes_bound_ms=t_bytes,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rec
+
+
+def slab_phase(mt):
+    """B1's slab launch (``HaloSlotEngine`` on a ring of one: the box is one
+    slab with a ghost plane on each side) on the bench's jittered lattice at
+    65,536 and 262,144 and on the melted fluid at 65,536, f64 and f32 (and
+    hi/lo words of the f64 state): against its plain version on the same
+    inputs and against the periodic launch on the global slots, f64 1e-12 /
+    1e-10, f32 and hi/lo 1e-5; lean forces bit-equal to full; two launches
+    bit for bit. Times (graph replay, in turns with the periodic launches
+    of the same state), plain versions by events, bounds from this run's
+    pairs; and ``compute_slots`` (the exchange and the extended grid's
+    assembly with the launch) by events beside the periodic engine's."""
+    from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
+                                            cell_sweep_hilo_plain,
+                                            cell_sweep_plain)
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.halo_slot import build_sharded_slot_state
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+
+    pot = mt.LennardJones(r_cut=2.5)
+    ring = ShardRing(device="cuda")
+    results, failures = {}, []
+    cases = [(f"lattice_{n}", n) for n in SLAB_SIZES] + [("melted", N_BENCH)]
+    for case, n in cases:
+        state = (melted_state(mt) if case == "melted" else
+                 lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
+                                     cutoff=2.5, jitter=0.01, device="cuda"))
+        halo = HaloSlotEngine.create(pot, 2.5, state.unitcell, n, ring)
+        single = halo.as_single_chip()
+        sh = build_sharded_slot_state(state.replace(nbrs=None), halo)
+        assert not bool(sh.nbrs.overflow)
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            f64 = dtype == torch.float64
+            hi = sh.positions.to(dtype)
+            cell = sh.unitcell.to(dtype).contiguous()
+            diam = sh.diameters.to(dtype)
+            counts = sh.nbrs.counts
+            pos, _, ediam, ecounts, grid, interior = halo.slab_inputs(
+                hi, diam, counts, cell)
+            slab = (pos, ediam, ecounts, cell, grid, 2.5, pot)
+            periodic = (hi, diam, counts, cell, halo.grid, 2.5, pot)
+            ext_inputs = (pos, ediam, ecounts, cell)
+            counts_ = pair_counts((hi.double(), diam.double(), counts,
+                                   cell.double()), halo.grid, 2.5, 2.5)
+            calls = {
+                "slab": lambda: cell_sweep(*slab, interior=interior),
+                "slab_lean": lambda: cell_sweep(*slab, observables=False,
+                                                interior=interior),
+                "b1": lambda: cell_sweep(*periodic),
+                "b1_lean": lambda: cell_sweep(*periodic, observables=False)}
+            variants = [("cell_sweep_slab", cell_sweep, cell_sweep_plain,
+                         slab, periodic, True, False),
+                        ("cell_sweep_slab_lean", cell_sweep, cell_sweep_plain,
+                         slab, periodic, False, False)]
+            if not f64:
+                lo = (sh.positions - hi.double()).float()
+                hpos, hlo, hdiam, hcounts, _, _ = halo.slab_inputs(
+                    hi, diam, counts, cell, lo)
+                h_slab = (hpos, hlo, hdiam, hcounts, cell, grid, 2.5, pot)
+                h_periodic = (hi, lo, diam, counts, cell, halo.grid, 2.5,
+                              pot)
+                calls.update({
+                    "slab_hilo": lambda: cell_sweep_hilo(
+                        *h_slab, interior=interior),
+                    "slab_hilo_lean": lambda: cell_sweep_hilo(
+                        *h_slab, observables=False, interior=interior),
+                    "b1_hilo": lambda: cell_sweep_hilo(*h_periodic),
+                    "b1_hilo_lean": lambda: cell_sweep_hilo(
+                        *h_periodic, observables=False)})
+                variants += [
+                    ("cell_sweep_slab_hilo", cell_sweep_hilo,
+                     cell_sweep_hilo_plain, h_slab, h_periodic, True, True),
+                    ("cell_sweep_slab_hilo_lean", cell_sweep_hilo,
+                     cell_sweep_hilo_plain, h_slab, h_periodic, False, True)]
+            turns = kernel_turns(calls)
+            full_forces = {}
+            for kname, kernel, plain, args, per_args, obs, hilo in variants:
+                r1 = kernel(*args, observables=obs, interior=interior)
+                torch.cuda.synchronize()
+                r0 = plain(*args, observables=obs, interior=interior)
+                rp = kernel(*per_args, observables=obs)
+                torch.cuda.synchronize()
+                worst, max_abs, rms = force_error(r1[2], r0[2], n)
+                rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+                key = kname.replace("cell_sweep_", "")
+                b1_key = key.replace("slab", "b1")
+                rec = {"kernel_check": kname, "case": case, "dtype": tag,
+                       "grid": list(halo.grid),
+                       "capacity": halo.cell_capacity,
+                       "extended_grid": list(grid), "interior": list(interior),
+                       "force_err_per_particle": worst,
+                       "max_abs_err": max_abs, "rms_force": rms,
+                       "force_err_vs_periodic": force_error(r1[2], rp[2],
+                                                            n)[0],
+                       "ms": statistics.median(turns[key]),
+                       "ms_turns": turns[key],
+                       "b1_ms_same_turns": statistics.median(turns[b1_key]),
+                       "plain_ms": cuda_time_ms(
+                           lambda: plain(*args, observables=obs,
+                                         interior=interior), 3, 1),
+                       "repeats_bit_for_bit": repeats(
+                           lambda *a: kernel(*a, observables=obs,
+                                             interior=interior), args, r1),
+                       "library_ms": None,
+                       **slab_bound(ext_inputs, interior, counts_, pot,
+                                    torch.float32 if hilo else dtype, hilo,
+                                    obs)}
+                ok = (rec["force_err_per_particle"] <= tol_f
+                      and rec["force_err_vs_periodic"] <= tol_f
+                      and rec["repeats_bit_for_bit"])
+                if obs:
+                    full_forces[hilo] = r1[2]
+                    for name, ref in (("plain", r0), ("periodic", rp)):
+                        rec[f"rel_err_energy_vs_{name}"] = rel(r1[0], ref[0])
+                        rec[f"rel_err_virial_vs_{name}"] = rel(r1[1], ref[1])
+                        ok = (ok and rec[f"rel_err_energy_vs_{name}"]
+                              <= rtol_ew
+                              and rec[f"rel_err_virial_vs_{name}"] <= rtol_ew)
+                else:
+                    rec["lean_bit_equal_full"] = bool(
+                        torch.equal(r1[2], full_forces[hilo]))
+                    ok = (ok and rec["lean_bit_equal_full"]
+                          and float(r1[0]) == float(r1[1]) == 0.0)
+                rec["ok"] = ok
+                log(json.dumps(rec))
+                results[(kname, case, tag)] = rec
+                if not ok:
+                    failures.append(f"{kname} {case} {tag}")
+            # The whole sharded sweep (exchange, extended grid, launch, sums)
+            # against the periodic engine's, by events.
+            step_calls = {
+                "slab_compute_slots": lambda: halo.compute_slots(
+                    hi, diam, cell, None, sh.nbrs),
+                "periodic_compute_slots": lambda: single.compute_slots(
+                    hi, diam, cell, None, sh.nbrs)}
+            for name, fn in step_calls.items():
+                results[(name, case, tag)] = {"ms": cuda_time_ms(fn, 20, 3)}
+            log(json.dumps({"slab_step": case, "dtype": tag, **{
+                k: results[(k, case, tag)]["ms"] for k in step_calls}}))
+        del state, sh
+        torch.cuda.empty_cache()
+    return results, failures
+
+
 def libzstd_found():
     from mdtpu_torch.io.compress import require_libzstd
     try:
@@ -2151,6 +2338,133 @@ def resume_path(mt, workdir):
     return rec, failures
 
 
+def nccl_group(workdir):
+    """A one-rank NCCL group over a file store in ``workdir``, its
+    communicator formed now (one all-reduce): a failure to form it is the
+    run's failure."""
+    import torch.distributed as dist
+    store = os.path.join(workdir, "nccl_store")
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    probe = torch.ones((), device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    if float(probe) != 1.0:
+        raise RuntimeError(f"NCCL all-reduce of one rank gave {probe}")
+    return dist
+
+
+def sharded_path(mt, workdir, b1_nvt_rows):
+    """``run_simulation_sharded`` on the one-rank NCCL group (the default
+    group): the bench, 600 NVT then 500 NVE steps (hi/lo), thermo every 100
+    and frames every 500; its first thermo rows against the B1 path's
+    (``run_simulation`` from the same start) within f32's tolerance."""
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+
+    state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                cutoff=2.5, jitter=0.01, device="cuda")
+    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    nvt_dir, nve_dir = (os.path.join(workdir, "sharded", d)
+                        for d in ("nvt", "nve"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid = mt.run_simulation_sharded(state, params, mt.NVT(1.0, 0.4),
+                                    NVT_STEPS, THERMO_EVERY, nvt_dir,
+                                    traj_frequency=TRAJ_EVERY)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    end = mt.run_simulation_sharded(mid, params, mt.NVE(), NVE_STEPS,
+                                    THERMO_EVERY, nve_dir,
+                                    traj_frequency=TRAJ_EVERY)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"sharded: {what}")
+
+    steps = NVT_STEPS + NVE_STEPS
+    check(end.step == steps, f"final step {end.step} != {steps}")
+    check(bool(torch.isfinite(end.positions).all()), "non-finite state")
+    nvt_rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
+    nve_rows = _rows(os.path.join(nve_dir, "thermo.txt"))
+    check(len(nvt_rows) == NVT_STEPS // THERMO_EVERY, "NVT thermo rows")
+    check(len(nve_rows) == NVE_STEPS // THERMO_EVERY, "NVE thermo rows")
+    t_nvt = [r[2] for r in nvt_rows[2:]]
+    mean_t = sum(t_nvt) / max(len(t_nvt), 1)
+    check(abs(mean_t - 1.0) < 0.1, f"NVT mean temperature {mean_t}")
+    ke = end.nf / (2.0 * N_BENCH)
+    e_tot = [r[1] + ke * r[2] for r in nve_rows]
+    drift = max(e_tot) - min(e_tot)
+    check(drift < 5e-3, f"NVE total energy per particle moved {drift}")
+    # The same start and the same Bussi draws as the B1 path: the rows part
+    # only by rounding (the sharded advance rebuilds on the JAX package's
+    # schedule), which the fluid's chaos grows.
+    first = [[rel(a, b) for a, b in zip(r[1:], q[1:])]
+             for r, q in zip(nvt_rows[:2], b1_nvt_rows[:2])]
+    check(all(r[0] == q[0] for r, q in zip(nvt_rows[:2], b1_nvt_rows[:2]))
+          and max(max(x) for x in first) <= 1e-4,
+          f"first rows {nvt_rows[:2]} against the B1 path's "
+          f"{b1_nvt_rows[:2]}")
+    for path, frames in ((os.path.join(nvt_dir, "trajectory.xyz"),
+                          -(-NVT_STEPS // TRAJ_EVERY)),
+                         (os.path.join(nve_dir, "trajectory.xyz"),
+                          -(-NVE_STEPS // TRAJ_EVERY))):
+        with open(path) as f:
+            text = f.read()
+        check(text.count("ITEM: TIMESTEP") == frames, f"frames in {path}")
+        check(text.count("\n") == frames * (9 + N_BENCH), f"rows in {path}")
+    return {"path": "sharded", "group": "nccl, 1 rank", "steps": steps,
+            "nvt_s": t1 - t0, "nve_s": t2 - t1,
+            "steps_per_s": steps / (t2 - t0),
+            "particle_steps_per_s": steps * N_BENCH / (t2 - t0),
+            "nvt_mean_T": mean_t, "nve_energy_range": drift,
+            "first_rows_rel_err_vs_b1": first,
+            "thermo_nvt": nvt_rows, "thermo_nve": nve_rows}, failures
+
+
+def sharded_fire_path(mt):
+    """``fire_minimize_sharded`` on the one-rank NCCL group: bench_fire.py's
+    system, N_FIRE_DESCENT iterations at tol 0, its energy below the
+    start's (from the plain sweep), the caller's velocities returned."""
+    from mdtpu_torch.minimize import fire_minimize_sharded
+    from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                cutoff=2.5, jitter=0.05, device="cuda")
+    params = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    engine = mt.select_engine(params.potential, 2.5, state)
+    nb = engine.allocate(state.positions, state.diameters, state.unitcell,
+                         state.unitcell_inv)
+    e0 = float(cell_sweep_plain(
+        *engine.slot_inputs(state.positions, state.unitcell,
+                            state.unitcell_inv, nb),
+        engine.grid, engine.cutoff, engine.potential)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end, energy, _, n_steps = fire_minimize_sharded(
+        state, params, max_steps=N_FIRE_DESCENT, tol=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    failures = []
+    energy = float(energy)
+    if n_steps != N_FIRE_DESCENT or not energy < e0:
+        failures.append(f"sharded fire: {n_steps} iterations, energy "
+                        f"{energy} against the start's {e0}")
+    if not (torch.equal(end.velocities, state.velocities)
+            and bool(torch.isfinite(end.positions).all())):
+        failures.append("sharded fire: velocities not restored or "
+                        "non-finite state")
+    return {"path": "sharded_fire", "iterations": n_steps,
+            "seconds": seconds, "iterations_per_s": n_steps / seconds,
+            "energy_start": e0, f"energy_after_{N_FIRE_DESCENT}": energy}, \
+        failures
+
+
 def _rows(path):
     with open(path) as f:
         return [[float(x) for x in line.split()] for line in f
@@ -2183,6 +2497,10 @@ def run_paths(mt, workdir):
             "cell_sweep_lean": cs.cell_sweep.lean_launches,
             "cell_sweep_hilo": cs.cell_sweep_hilo.launches,
             "cell_sweep_hilo_lean": cs.cell_sweep_hilo.lean_launches,
+            "cell_sweep_slab": cs.cell_sweep.slab_launches,
+            "cell_sweep_slab_lean": cs.cell_sweep.slab_lean_launches,
+            "cell_sweep_slab_hilo": cs.cell_sweep_hilo.slab_launches,
+            "cell_sweep_slab_hilo_lean": cs.cell_sweep_hilo.slab_lean_launches,
             "plane_sweep": ps.plane_sweep.launches,
             "cell_pairs": cp.pair_list.launches,
             "pair_reduce": cp.pair_reduce.launches,
@@ -2221,6 +2539,38 @@ def run_paths(mt, workdir):
         lambda st, pot: mt.select_engine(pot, 2.5, st, prefer="neighbor"),
         True))
     failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10 + f11
+    # The sharded driver and FIRE on a one-rank NCCL group (the default
+    # group while they run).
+    dist = nccl_group(workdir)
+    try:
+        sharded, f12 = counted(lambda: sharded_path(mt, workdir,
+                                                    b1["thermo_nvt"]))
+        sharded_fire, f13 = counted(lambda: sharded_fire_path(mt))
+    finally:
+        dist.destroy_process_group()
+    failures += f12 + f13
+    # Every sweep of the sharded paths is a slab launch: the plain sweep in
+    # NVT and FIRE, the hi/lo sweep in NVE, lean inside each segment.
+    n = sharded["launches"]
+    if (n["cell_sweep_slab"] < NVT_STEPS
+            or n["cell_sweep_slab_hilo"] < NVE_STEPS
+            or n["cell_sweep_slab_lean"] < NVT_STEPS // 2
+            or n["cell_sweep_slab_hilo_lean"] < NVE_STEPS // 2
+            or n["cell_sweep"] != n["cell_sweep_slab"]
+            or n["cell_sweep_hilo"] != n["cell_sweep_slab_hilo"]
+            or sharded["slot_steps"] != NVT_STEPS + NVE_STEPS):
+        failures.append(f"sharded: launches {n}, slot steps "
+                        f"{sharded['slot_steps']}")
+    n = sharded_fire["launches"]
+    if (n["cell_sweep_slab_lean"] != N_FIRE_DESCENT
+            or n["cell_sweep"] != n["cell_sweep_slab"]):
+        failures.append(f"sharded fire: launches {n}")
+    for rec in (b1, b2, bd, bds, fire, pack, b1_2d, b1_tilted, user, resume,
+                nlp):
+        if (rec["launches"]["cell_sweep_slab"]
+                or rec["launches"]["cell_sweep_slab_hilo"]):
+            failures.append(f"{rec['path']}: took the slab launch "
+                            f"{rec['launches']}")
     # The list path: every step through K2, its rebuilds through K1 (one
     # build at each leg's start besides), and no sweep kernel.
     n = nlp["launches"]
@@ -2300,7 +2650,8 @@ def run_paths(mt, workdir):
     return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
             "fire": fire, "pack": pack, "b1_2d": b1_2d,
             "b1_tilted": b1_tilted, "user": user,
-            "resume": resume, "nl": nlp}, failures
+            "resume": resume, "nl": nlp, "sharded": sharded,
+            "sharded_fire": sharded_fire}, failures
 
 
 def ptxas_summary(name, report):
@@ -2365,6 +2716,8 @@ def main():
     failures += rdf_failures
     nl_results, nl_failures = list_phase(mt)
     failures += nl_failures
+    slab_results, slab_failures = slab_phase(mt)
+    failures += slab_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -2500,6 +2853,36 @@ def main():
         kernels["kernels"].append(entry(
             kname, "mdtpu_torch/csrc/neighbor_list.cu", line,
             by_path["nl"][kname], main_rec, extra))
+    # B1's slab launch (the sharded engine's sweep; JAX's is XLA, no
+    # pl.pallas_call): the bench lattice at f32, its launches on the sharded
+    # path, the other cases beside it.
+    def slab_launches(n):
+        # Each variant's own launches: the full ones less the lean.
+        return {"cell_sweep_slab": n["cell_sweep_slab"]
+                - n["cell_sweep_slab_lean"],
+                "cell_sweep_slab_lean": n["cell_sweep_slab_lean"],
+                "cell_sweep_slab_hilo": n["cell_sweep_slab_hilo"]
+                - n["cell_sweep_slab_hilo_lean"],
+                "cell_sweep_slab_hilo_lean": n["cell_sweep_slab_hilo_lean"]}
+
+    sh_fire = slab_launches(by_path["sharded_fire"])
+    for kname, launches in slab_launches(by_path["sharded"]).items():
+        main_rec = slab_results[(kname, f"lattice_{N_BENCH}", "float32")]
+        extra = {"covers": SLAB_COVERS,
+                 "b1_ms_same_turns": main_rec["b1_ms_same_turns"],
+                 "launches_sharded_fire": sh_fire[kname]}
+        for (k, case, tag), r in slab_results.items():
+            if k == kname and (case, tag) != (f"lattice_{N_BENCH}",
+                                              "float32"):
+                extra[f"{case}_{tag}"] = {key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "b1_ms_same_turns")}
+        kernels["kernels"].append(entry(
+            kname, "mdtpu_torch/csrc/cell_sweep.cu", pallas_cell, launches,
+            main_rec, extra))
+    log(json.dumps({"compute_slots_ms": {
+        f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
+        slab_results.items() if k.endswith("compute_slots")}}))
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             failures.append(f"{k['name']} never launched on its path")

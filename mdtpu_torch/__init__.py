@@ -13,7 +13,9 @@ on the cell grid, dynamics and FIRE run in the slot layout
 (``integrate.slot_step``). ``NeighborListEngine`` (``select_engine(...,
 prefer="neighbor")``) keeps padded Verlet lists, built and evaluated by
 CUDA kernels too. Small and other systems use the O(N^2) engine. Frames
-are formatted in host C++ (``io.native_writer``).
+are formatted in host C++ (``io.native_writer``). ``run_simulation_sharded``
+and ``minimize.fire_minimize_sharded`` split the cell grid's slots over the
+ranks of a ``torch.distributed`` group (``mdtpu_torch.parallel``).
 
 The package imports torch and numpy, never JAX or ``mdtpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -36,6 +38,7 @@ from mdtpu_torch.integrate.thermostat import compute_kinetic, compute_temperatur
 from mdtpu_torch.minimize import fire_minimize, minimize
 from mdtpu_torch.ops import (NaivePairEngine, NeighborListEngine,
                              select_engine)
+from mdtpu_torch.parallel import run_simulation_sharded
 from mdtpu_torch.potentials.base import Potential, energy_lrc, evaluate, pressure_lrc
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
@@ -49,6 +52,7 @@ __all__ = [
     "Parameters", "SimulationState", "NVT", "NVE", "Brownian",
     "ConstantSchedule",
     "initialize_state", "initialize_velocities", "run_simulation",
+    "run_simulation_sharded",
     "minimize", "fire_minimize",
     "PseudoHS", "LennardJones", "LennardJonesXPLOR",
     "LinearRamp", "ExponentialRamp", "initial_temperature_for_velocities",

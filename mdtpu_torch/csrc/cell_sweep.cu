@@ -100,6 +100,15 @@
 // in the same order, so they are the full variant's bits. The slot loop runs
 // it on every step whose energy nobody reads, and FIRE inside its loop.
 //
+// The slab launch (mdtpu_torch/parallel/halo_slot.py, the sharded
+// engine's sweep; the JAX package's is XLA, halo_slot.py:322
+// compute_slots) is this kernel over a run of cells: a rank's slab with a
+// ghost x-plane on each side is a grid of mx + 2 planes, and the blocks go
+// to its interior cells only (first_cell, n_blocks), so no x-neighbour of a
+// launched cell wraps and the wrap logic serves y and z unchanged. Block b
+// works for cell first_cell + b and writes its outputs at b. A launch over
+// the whole grid (0, n_cells) is the single-device sweep, bit for bit.
+//
 // What it leaves. Registers hold the float32 kernel to 6 blocks of 128
 // threads an SM and the float64 and hi/lo kernels to 4. A block's fixed
 // phases (counts, own slots, staging, the final sums) are latency that only
@@ -139,7 +148,12 @@ size_t shared_bytes(int list_len, int queue_depth, int threads) {
 // (D, n_cells * cap), every slot written (vacant slots get 0). list_len >=
 // cap candidates fit in a stage; queue_depth >= kUnroll; blockDim.x is a
 // power of two >= cap. OBS = false: e_part and w_part are not written. The
-// grid is nx x ny x nz, nz = 1 in 2D.
+// grid is nx x ny x nz, nz = 1 in 2D. Block b works for cell first_cell + b
+// and writes its slots at b * cap of force ((D, gridDim.x * cap)) and its
+// partials at e_part[b], w_part[b]: a launch over every cell (first_cell 0)
+// writes the whole grid, a launch over a run of cells (the interior x-planes
+// of a slab with a ghost plane on each side, parallel/halo_slot.py) writes
+// that run only.
 template <typename T, int D, typename Pot, bool HILO, bool OBS,
           int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -147,7 +161,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const T* __restrict__ diam,
                       const int64_t* __restrict__ counts,
                       const T* __restrict__ cellm, int nx, int ny, int nz,
-                      int cap, int list_len, int queue_depth, T rc_engine,
+                      int first_cell, int cap, int list_len, int queue_depth,
+                      T rc_engine,
                       T filter_margin, Pot pot, T* __restrict__ force,
                       T* __restrict__ e_part, T* __restrict__ w_part) {
   constexpr int kStencil = Stencil<D>::kCells;
@@ -169,7 +184,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
   uint16_t* queue = reinterpret_cast<uint16_t*>(s_nb + kMeta);
 
   const int64_t n_slots = (int64_t)nx * ny * nz * cap;
-  const int cell = blockIdx.x;
+  const int64_t n_out = (int64_t)gridDim.x * cap;
+  const int cell = first_cell + blockIdx.x;
   const GridCell g(cell, nx, ny, nz);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -323,31 +339,33 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
   }
   if (tid < cap) {
-    const int64_t out = (int64_t)cell * cap + tid;
+    const int64_t out = (int64_t)blockIdx.x * cap + tid;
 #pragma unroll
-    for (int a = 0; a < D; ++a) force[a * n_slots + out] = f[a];
+    for (int a = 0; a < D; ++a) force[a * n_out + out] = f[a];
   }
   if (!OBS) return;
   __syncthreads();  // part becomes the reduction's scratch
 
   block_reduce2(e, w, part, part + threads);
   if (tid == 0) {
-    e_part[cell] = part[0];
-    w_part[cell] = part[threads];
+    e_part[blockIdx.x] = part[0];
+    w_part[blockIdx.x] = part[threads];
   }
 }
 
 // The plan (list_len, queue_depth, smem_bytes, threads) comes from
 // stage_plan in ops/cell_sweep.py and is held to this file's layout.
 // obs = false launches the lean variant: forces only, e_part and w_part
-// untouched (they may be null).
+// untouched (they may be null). The launch covers cells [first_cell,
+// first_cell + n_blocks) of the grid.
 template <typename T, int D, bool HILO>
 int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
           const T* cellm, int nx, int ny, int nz, int cap, double cutoff,
           int kind, double p0, double p1, double p2, double p3, int i0,
-          int i1, int i2, T* force, T* e_part, T* w_part, int list_len,
-          int queue_depth, int smem_bytes, int threads, double filter_margin,
-          bool obs, int* blocks_per_sm, void* stream_ptr) {
+          int i1, int i2, T* force, T* e_part, T* w_part, int first_cell,
+          int n_blocks, int list_len, int queue_depth, int smem_bytes,
+          int threads, double filter_margin, bool obs, int* blocks_per_sm,
+          void* stream_ptr) {
   constexpr int kStencil = Stencil<D>::kCells;
   if (cap < 1 || cap > 1024) return kErrCapacity;
   if (nx < 3 || ny < 3 || (D == 3 ? nz < 3 : nz != 1)) return kErrGrid;
@@ -359,8 +377,10 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
       shared_bytes<T, D, HILO>(list_len, queue_depth, threads);
   if (smem_bytes < 0 || (size_t)smem_bytes != smem) return kErrPlan;
   if (smem > kMaxSharedBytes) return kErrCapacity;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_cells = nx * ny * nz;
+  if (first_cell < 0 || n_blocks < 1 || first_cell + n_blocks > n_cells)
+    return kErrRange;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return with_potential<T>(kind, p0, p1, p2, p3, i0, i1, i2, [&](auto pot) {
     using Pot = decltype(pot);
     // Registers: a block of up to 256 threads may take them all; a larger
@@ -377,9 +397,10 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
       return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks_per_sm, kernel, threads, smem);
     }
-    kernel<<<n_cells, threads, smem, stream>>>(
-        pos, lo, diam, counts, cellm, nx, ny, nz, cap, list_len, queue_depth,
-        T(cutoff), T(filter_margin), pot, force, e_part, w_part);
+    kernel<<<n_blocks, threads, smem, stream>>>(
+        pos, lo, diam, counts, cellm, nx, ny, nz, first_cell, cap, list_len,
+        queue_depth, T(cutoff), T(filter_margin), pot, force, e_part,
+        w_part);
     return (int)cudaGetLastError();
   });
 }
@@ -390,14 +411,16 @@ int sweep_dim(const T* pos, const T* lo, const T* diam,
               const int64_t* counts, const T* cellm, int nx, int ny, int nz,
               int cap, double cutoff, int kind, double p0, double p1,
               double p2, double p3, int i0, int i1, int i2, T* force,
-              T* e_part, T* w_part, int list_len, int queue_depth,
-              int smem_bytes, int threads, double filter_margin, bool obs,
-              int* blocks_per_sm, void* stream) {
+              T* e_part, T* w_part, int first_cell, int n_blocks,
+              int list_len, int queue_depth, int smem_bytes, int threads,
+              double filter_margin, bool obs, int* blocks_per_sm,
+              void* stream) {
   auto run = [&](auto dim) {
     return sweep<T, decltype(dim)::value, HILO>(
         pos, lo, diam, counts, cellm, nx, ny, nz, cap, cutoff, kind, p0, p1,
-        p2, p3, i0, i1, i2, force, e_part, w_part, list_len, queue_depth,
-        smem_bytes, threads, filter_margin, obs, blocks_per_sm, stream);
+        p2, p3, i0, i1, i2, force, e_part, w_part, first_cell, n_blocks,
+        list_len, queue_depth, smem_bytes, threads, filter_margin, obs,
+        blocks_per_sm, stream);
   };
   return nz == 1 ? run(std::integral_constant<int, 2>())
                  : run(std::integral_constant<int, 3>());
@@ -408,6 +431,9 @@ int sweep_dim(const T* pos, const T* lo, const T* diam,
 extern "C" {
 
 // cellm: the (D, D) cell matrix, row-major; a 2D grid has nz = 1.
+// The launch covers cells [first_cell, first_cell + n_blocks) of the grid
+// (0 and nx * ny * nz for the whole grid); force is (D, n_blocks * cap) and
+// e_part, w_part (n_blocks,), in the order of those cells.
 // observables = 0 launches the lean variant (forces only; e_part and w_part
 // are not written and may be null).
 int mdtpu_cell_sweep_f32(const float* pos, const float* diam,
@@ -415,14 +441,15 @@ int mdtpu_cell_sweep_f32(const float* pos, const float* diam,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, float* force, float* e_part,
-                         float* w_part, int list_len, int queue_depth,
-                         int smem_bytes, int threads, int observables,
-                         void* stream) {
+                         float* w_part, int first_cell, int n_blocks,
+                         int list_len, int queue_depth, int smem_bytes,
+                         int threads, int observables, void* stream) {
   return sweep_dim<float, false>(pos, nullptr, diam, counts, cellm, nx, ny,
                                  nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
-                                 i1, i2, force, e_part, w_part, list_len,
-                                 queue_depth, smem_bytes, threads, 0.0,
-                                 observables != 0, nullptr, stream);
+                                 i1, i2, force, e_part, w_part, first_cell,
+                                 n_blocks, list_len, queue_depth, smem_bytes,
+                                 threads, 0.0, observables != 0, nullptr,
+                                 stream);
 }
 
 int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
@@ -430,14 +457,15 @@ int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, double* force, double* e_part,
-                         double* w_part, int list_len, int queue_depth,
-                         int smem_bytes, int threads, int observables,
-                         void* stream) {
+                         double* w_part, int first_cell, int n_blocks,
+                         int list_len, int queue_depth, int smem_bytes,
+                         int threads, int observables, void* stream) {
   return sweep_dim<double, false>(pos, nullptr, diam, counts, cellm, nx, ny,
                                   nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
-                                  i1, i2, force, e_part, w_part, list_len,
-                                  queue_depth, smem_bytes, threads, 0.0,
-                                  observables != 0, nullptr, stream);
+                                  i1, i2, force, e_part, w_part, first_cell,
+                                  n_blocks, list_len, queue_depth, smem_bytes,
+                                  threads, 0.0, observables != 0, nullptr,
+                                  stream);
 }
 
 // The hi/lo sweep, float32 only (as the JAX package's f32x2 mode).
@@ -449,15 +477,16 @@ int mdtpu_cell_sweep_hilo_f32(const float* hi, const float* lo,
                               int cap, double cutoff, int kind, double p0,
                               double p1, double p2, double p3, int i0, int i1,
                               int i2, float* force, float* e_part,
-                              float* w_part, int list_len,
-                              int queue_depth, int smem_bytes, int threads,
-                              double filter_margin, int observables,
-                              void* stream) {
+                              float* w_part, int first_cell, int n_blocks,
+                              int list_len, int queue_depth, int smem_bytes,
+                              int threads, double filter_margin,
+                              int observables, void* stream) {
   return sweep_dim<float, true>(hi, lo, diam, counts, cellm, nx, ny, nz, cap,
                                 cutoff, kind, p0, p1, p2, p3, i0, i1, i2,
-                                force, e_part, w_part, list_len, queue_depth,
-                                smem_bytes, threads, filter_margin,
-                                observables != 0, nullptr, stream);
+                                force, e_part, w_part, first_cell, n_blocks,
+                                list_len, queue_depth, smem_bytes, threads,
+                                filter_margin, observables != 0, nullptr,
+                                stream);
 }
 
 // Resident blocks per SM of the kernel that a launch with this plan would
@@ -469,22 +498,24 @@ int mdtpu_cell_sweep_occupancy(int dtype_bytes, int hilo, int cap, int kind,
                                int observables, int dim, int* blocks_per_sm) {
   const bool obs = observables != 0;
   const int nz = dim == 2 ? 1 : 3;
+  const int n_cells = 9 * nz;
   if (dtype_bytes == 8)
     return sweep_dim<double, false>(
         nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
-        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
-        list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
-        nullptr);
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0,
+        n_cells, list_len, queue_depth, smem_bytes, threads, 0.0, obs,
+        blocks_per_sm, nullptr);
   if (hilo)
     return sweep_dim<float, true>(
         nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
-        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
-        list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
-        nullptr);
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0,
+        n_cells, list_len, queue_depth, smem_bytes, threads, 0.0, obs,
+        blocks_per_sm, nullptr);
   return sweep_dim<float, false>(
       nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0, kind,
-      1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, list_len,
-      queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm, nullptr);
+      1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0, n_cells,
+      list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
+      nullptr);
 }
 
 const char* mdtpu_cell_sweep_error_string(int code) {

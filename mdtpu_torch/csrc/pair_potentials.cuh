@@ -23,6 +23,7 @@ constexpr int kErrCapacity = -1;   // cap outside what the kernel takes
 constexpr int kErrPotential = -2;  // unknown potential kind
 constexpr int kErrGrid = -3;       // fewer than 3 cells on an axis
 constexpr int kErrPlan = -4;       // staging plan and kernel layout disagree
+constexpr int kErrRange = -5;      // launched cells outside the grid
 
 // Shared memory a block may use on sm_90 (227 KB); above 48 KB only as
 // dynamic shared memory after cudaFuncSetAttribute.
@@ -324,6 +325,7 @@ inline const char* error_string(int code) {
     case kErrPotential: return "potential kind unknown to the kernel";
     case kErrGrid: return "cell grid needs at least 3 cells on every axis";
     case kErrPlan: return "staging plan does not match the kernel's layout";
+    case kErrRange: return "the launched run of cells lies outside the grid";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -273,16 +273,24 @@ def unpack_state_rows(state: SimulationState, floats, ints, occupied,
         images=ints[0:d], ids=ints[d], nbrs=nbrs)
 
 
-def packed_resort(state: SimulationState, cid, n_cells: int, cap: int):
+def packed_resort(state: SimulationState, cid, n_cells: int, cap: int,
+                  extra_rows=None, extra_cid=None):
     """Re-sort all slot rows by target cell ``cid`` (``n_cells`` for vacant
     rows): a stable sort of the keys carrying the source index, per-cell run
     starts by binary search, then slot ``c*cap + k`` takes source row
     ``order[starts[c] + k]`` for ``k < counts[c]``. Vacant slots read an
     appended fill column (zeros, diameter 1, id -1). Every cell's occupied
     slots are contiguous from its first, and ``counts`` comes from the run
-    starts. Returns ``(state, overflow)``: overflow is a cell whose run is
-    longer than ``cap`` (its rows past ``cap`` are dropped)."""
+    starts. ``extra_rows``: more rows, ``(floats, ints)`` as
+    :func:`pack_state_rows` packs them (the migration buffers a shard
+    received), sorted in after the state's own with their cells
+    ``extra_cid``. Returns ``(state, overflow)``: overflow is a cell whose
+    run is longer than ``cap`` (its rows past ``cap`` are dropped)."""
     floats, ints = pack_state_rows(state)
+    if extra_rows is not None:
+        floats = torch.cat([floats, extra_rows[0]], dim=1)
+        ints = torch.cat([ints, extra_rows[1]], dim=1)
+        cid = torch.cat([cid, extra_cid])
     m = floats.shape[1]
     device = cid.device
     cid_sorted, order = torch.sort(cid, stable=True)
@@ -331,9 +339,24 @@ def slot_needs_rebin(state: SimulationState, engine: CellGridEngine):
     return torch.any(d2 > half_skin * half_skin)
 
 
+def _engine_rebin(state, engine):
+    """The rebuild: an engine's own ``slot_rebin`` where it has one (the
+    sharded :class:`mdtpu_torch.parallel.HaloSlotEngine`, which migrates
+    rows between ranks first), else :func:`_rebin`."""
+    fn = getattr(engine, "slot_rebin", None)
+    return fn(state) if fn is not None else _rebin(state, engine)
+
+
+def _engine_needs_rebin(state, engine, ring=None):
+    """:func:`slot_needs_rebin`, on a shard ring true where any rank's is:
+    every rank then takes the same branch."""
+    local = slot_needs_rebin(state, engine)
+    return local if ring is None else ring.any(local)
+
+
 def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                    compensated: bool = True, observables: bool = True,
-                   hilo: bool = False, force_dtype=None):
+                   hilo: bool = False, force_dtype=None, ring=None):
     """One fused step over a slot-layout state (see the module docstring).
 
     The step never rebins: :func:`make_slot_advance` decides when to, so
@@ -344,12 +367,16 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     ``(positions, -pos_comp)``; needs ``compensated``. ``force_dtype``: the
     pair sweep runs in this dtype (up or down: positions, diameters and cell
     cast for it, energy, virial and forces cast back) while the state keeps
-    its own; not with ``hilo``. Each call adds one to
+    its own; not with ``hilo``. ``ring``: the shard ring of a sharded
+    state (:class:`mdtpu_torch.parallel.HaloSlotEngine`, whose sweep does
+    its own exchange): the kinetic energy is summed over it, and each rank
+    draws Brownian noise of its own. Each call adds one to
     ``make_slot_step.steps``."""
     is_brownian = isinstance(ensemble, Brownian)
     if not is_brownian and not isinstance(ensemble, (NVT, NVE)):
         raise TypeError(f"unknown ensemble type: {type(ensemble).__name__}")
     obs = True if is_brownian else observables
+    noise_rank = () if ring is None else (ring.rank,)
     if hilo and (force_dtype is not None or not compensated):
         raise ValueError("the hi/lo pair sweep needs compensated=True (the "
                          "Kahan compensation is its low word) and no "
@@ -371,7 +398,8 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
         noise = torch.where(
             state.nbrs.occupied[None, :],
             _step.brownian_noise(state.seed, state.step,
-                                 state.positions.shape, dtype, state.device),
+                                 state.positions.shape, dtype, state.device,
+                                 *noise_rank),
             0.0)
         # Deferred wrap: positions drift unwrapped until the next rebin.
         x, xc = _add(state.positions, state.pos_comp,
@@ -397,7 +425,7 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
         v, vc = _add(v, vc, forces * half, compensated)
         # Vacant slots hold zero velocity, so the kinetic sum is exact.
         v, vc, temperature = md_velocity_finish(ensemble, v, vc, state, dt,
-                                                compensated)
+                                                compensated, ring)
         return state.replace(
             positions=x, velocities=v, forces=forces, step=state.step + 1,
             energy=energy, virial=virial, temperature=temperature,
@@ -417,7 +445,7 @@ make_slot_step.steps = 0
 
 def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
                       compensated: bool = True, lean: bool = True,
-                      hilo: bool = False, force_dtype=None):
+                      hilo: bool = False, force_dtype=None, ring=None):
     """``advance(state, k) -> state`` after ``k`` slot steps.
 
     The rebuild happens at the start of exactly the steps whose state has
@@ -427,16 +455,42 @@ def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
     boundary. The rebuild decision is one host read a step: it is read
     after each step and carried to the next, plus one read at the start of
     the segment. ``hilo`` and ``force_dtype`` as in
-    :func:`make_slot_step`."""
+    :func:`make_slot_step`.
+
+    An engine whose rebuild moves rows between ranks
+    (``rebin_unconditional``, the sharded
+    :class:`mdtpu_torch.parallel.HaloSlotEngine`) takes the JAX package's
+    schedule for it: a rebuild at the start of the segment, after every
+    step that any rank flagged, and before the segment's last step, so the
+    slot order and sums follow the reference's. ``ring``: the shard ring
+    (:func:`make_slot_step`); every flag read on the host is then the
+    ring's."""
     step = make_slot_step(params, ensemble, engine, compensated=compensated,
                           observables=not lean, hilo=hilo,
-                          force_dtype=force_dtype)
+                          force_dtype=force_dtype, ring=ring)
     last_step = make_slot_step(params, ensemble, engine,
                                compensated=compensated, hilo=hilo,
-                               force_dtype=force_dtype)
+                               force_dtype=force_dtype, ring=ring)
 
     def needs(state):
-        return bool(slot_needs_rebin(state, engine))
+        return bool(_engine_needs_rebin(state, engine, ring))
+
+    if getattr(engine, "rebin_unconditional", False):
+        def advance_sharded(state: SimulationState, k: int):
+            n_lean = k - 1 if lean else k
+            i = 0
+            while i < n_lean:
+                state = _engine_rebin(state, engine)
+                while True:
+                    state = step(state)
+                    i += 1
+                    if i >= n_lean or needs(state):
+                        break
+            if lean and k > 0:
+                state = last_step(_engine_rebin(state, engine))
+            return state
+
+        return advance_sharded
 
     def advance(state: SimulationState, k: int) -> SimulationState:
         if k <= 0:

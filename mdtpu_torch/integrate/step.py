@@ -64,15 +64,18 @@ def _add(x, comp, dx, compensated: bool):
     return x + dx, comp
 
 
-def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool):
+def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
+                       ring=None):
     """Post-kick ensemble logic: Bussi rescale and temperature for NVT (one
     kinetic reduction serves both, T_after = scale^2 * 2K/nf), plain
-    temperature for NVE. Returns ``(v, vc, temperature)``."""
+    temperature for NVE. Returns ``(v, vc, temperature)``. ``ring``: a
+    shard ring, over which the kinetic energy is summed (one all-reduce a
+    step); Bussi's draws are the same on every rank."""
     if isinstance(ensemble, NVT):
         ktemp_t = ensemble.ktemp(state.step + 1)
         r1, r2 = thermostat.bussi_noise(state.seed, state.step, state.nf,
                                         v.dtype, v.device)
-        kinetic = thermostat.compute_kinetic(v)
+        kinetic = thermostat.compute_kinetic(v, ring)
         scale = thermostat.bussi_scale_from_kinetic(
             kinetic, ktemp_t, state.nf, dt, ensemble.tau, r1, r2)
         v = v * scale
@@ -81,7 +84,7 @@ def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool):
             # Rescaling invalidates the velocity compensation buffer.
             vc = vc.new_zeros(vc.shape)
     else:
-        temperature = thermostat.compute_temperature(v, state.nf)
+        temperature = thermostat.compute_temperature(v, state.nf, ring)
     return v, vc, temperature
 
 
@@ -138,12 +141,13 @@ def make_md_step(params: Parameters, ensemble, engine,
     return step
 
 
-def brownian_noise(seed: int, step: int, shape, dtype, device):
+def brownian_noise(seed: int, step: int, shape, dtype, device, rank=None):
     """The reference's variance-matched uniform noise, xi on [-sqrt(3),
     sqrt(3)], drawn on ``device`` from a generator seeded from ``(seed,
-    step)``: the one seam where Brownian random numbers enter (tests replace
-    it to replay the JAX package's draws)."""
-    g = thermostat.step_generator(seed, step, device)
+    step)``, and on a shard ring also from the rank (each rank draws for its
+    own slots): the one seam where Brownian random numbers enter (tests
+    replace it to replay the JAX package's draws)."""
+    g = thermostat.step_generator(seed, step, device, rank)
     u = torch.rand(shape, generator=g, device=device, dtype=dtype)
     return (2.0 * u - 1.0) * SQRT3
 

@@ -17,21 +17,35 @@ import math
 import torch
 
 
-def compute_kinetic(velocities):
-    """Total kinetic energy 0.5 * sum v^2 (unit masses), a 0-d tensor."""
-    return 0.5 * torch.sum(velocities * velocities)
+def compute_kinetic(velocities, ring=None):
+    """Total kinetic energy 0.5 * sum v^2 (unit masses), a 0-d tensor.
+    With a shard ring (:class:`mdtpu_torch.parallel.mesh.ShardRing`) each
+    rank's partial sum is summed over the ring, as the JAX package psums it
+    over its mesh axis."""
+    kinetic = 0.5 * torch.sum(velocities * velocities)
+    return kinetic if ring is None else ring.sum(kinetic)
 
 
-def compute_temperature(velocities, nf):
+def compute_temperature(velocities, nf, ring=None):
     """Instantaneous kinetic temperature 2K/nf."""
-    return 2.0 * compute_kinetic(velocities) / nf
+    return 2.0 * compute_kinetic(velocities, ring) / nf
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+# Mixes a shard's rank into a step's seed (the 64-bit golden ratio).
+_RANK_MIX = 0x9E3779B97F4A7C15
+
+
+def step_generator(seed: int, step: int, device, rank=None) -> torch.Generator:
     """A generator on ``device`` seeded from ``(seed, step)``: each step's
-    draws depend on nothing else, so runs replay and resume exactly."""
+    draws depend on nothing else, so runs replay and resume exactly. With
+    ``rank`` (a shard's place in its ring) the seed is mixed with it, so
+    each rank draws its own numbers, as the JAX package folds the axis
+    index into a step's key."""
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    value = ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    if rank is not None:
+        value ^= (_RANK_MIX * (int(rank) + 1)) & 0xFFFFFFFFFFFFFFFF
+    g.manual_seed(value)
     return g
 
 

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import os
 
-from mdtpu_torch.minimize.fire import fire_minimize, fire_minimize_slots
+from mdtpu_torch.minimize.fire import (fire_minimize, fire_minimize_sharded,
+                                      fire_minimize_slots)
 
 
 def minimize(state, params, pathname, dimension=None, *, engine=None,
@@ -36,4 +37,5 @@ def minimize(state, params, pathname, dimension=None, *, engine=None,
     return state, energy, converged, n_steps
 
 
-__all__ = ["minimize", "fire_minimize", "fire_minimize_slots"]
+__all__ = ["minimize", "fire_minimize", "fire_minimize_sharded",
+           "fire_minimize_slots"]

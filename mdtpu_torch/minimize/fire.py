@@ -93,22 +93,28 @@ class _Scalars(NamedTuple):
     steps_since_neg: torch.Tensor
 
 
+def _identity(x):
+    return x
+
+
 def _fire_update(v, forces, sc: _Scalars, *, alpha0, f_inc, f_dec, n_min,
-                 dt_initial, dt_max, dmax, disp_dim):
+                 dt_initial, dt_max, dmax, disp_dim, gmax=_identity,
+                 gsum=_identity):
     """One FIRE update on the device, shared by both layouts: the inertia
     mix, the dt / alpha adaptation and the capped displacement. ``v`` is the
     velocity after the kick; ``disp_dim`` the axis of a particle's
-    components (-1 in particle order, 0 in slots). Returns ``(v, disp,
-    scalars)``."""
-    vmax = torch.max(torch.abs(v))
-    fmax = torch.max(torch.abs(forces))
+    components (-1 in particle order, 0 in slots). ``gmax`` and ``gsum``
+    take a rank's maximum and sum to the global ones (a shard ring's
+    all-reduces). Returns ``(v, disp, scalars)``."""
+    vmax = gmax(torch.max(torch.abs(v)))
+    fmax = gmax(torch.max(torch.abs(forces)))
     vmax_s = torch.where(vmax > 0, vmax, torch.ones_like(vmax))
     fmax_s = torch.where(fmax > 0, fmax, torch.ones_like(fmax))
     # Only the sign of P = sum(v . F) matters: computed on max-normalised
     # copies.
-    power = torch.sum((v / vmax_s) * (forces / fmax_s))
-    vn = torch.sqrt(torch.sum((v / vmax_s) ** 2))
-    fn = torch.sqrt(torch.sum((forces / fmax_s) ** 2))
+    power = gsum(torch.sum((v / vmax_s) * (forces / fmax_s)))
+    vn = torch.sqrt(gsum(torch.sum((v / vmax_s) ** 2)))
+    fn = torch.sqrt(gsum(torch.sum((forces / fmax_s) ** 2)))
     do_mix = (vmax > 0) & (fmax > 0)
     scale = sc.alpha * (vmax_s / fmax_s) * (
         vn / torch.where(fn > 0, fn, torch.ones_like(fn)))
@@ -187,7 +193,7 @@ def _fire_once(state: SimulationState, params: Parameters, engine, *,
 
 def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
                    dt_max=0.1, alpha0=0.1, f_inc=1.2, f_dec=0.2, n_min=5,
-                   dmax=0.1):
+                   dmax=0.1, ring=None):
     """``run(slot_state) -> (slot_state, f_rms, converged, n_steps,
     overflow)``: the whole minimization over a slot-layout state, whose
     ``velocities`` carry FIRE's own velocity (vacant slots hold zeros and
@@ -199,13 +205,29 @@ def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
     the loop come from the lean sweep; one full sweep at exit refreshes
     energy and virial. ``overflow`` is sticky: a True run must be retried
     from the original state at a grown capacity (an overflowed rebin drops
-    rows)."""
+    rows).
+
+    ``ring``: the shard ring of a sharded state (the engine a
+    :class:`mdtpu_torch.parallel.HaloSlotEngine`, whose rebuild migrates
+    rows): the RMS force, the power and the norms are summed over it, the
+    maxima taken over it, and every flag read on the host is the ring's,
+    so all ranks run the same iterations."""
+    gsum = _identity if ring is None else ring.sum
+    gmax = _identity if ring is None else ring.max
     update = dict(alpha0=alpha0, f_inc=f_inc, f_dec=f_dec, n_min=n_min,
                   dt_initial=dt_initial, dt_max=dt_max, dmax=dmax,
-                  disp_dim=0)
+                  disp_dim=0, gmax=gmax, gsum=gsum)
 
     def f_rms_of(forces, ndof):
-        return _safe_norm(forces) / ndof ** 0.5
+        m = gmax(torch.max(torch.abs(forces)))
+        m_safe = torch.where(m > 0, m, torch.ones_like(m))
+        norm = torch.sqrt(gsum(torch.sum((forces / m_safe) ** 2))) * m
+        return norm / ndof ** 0.5
+
+    def flags(*values):
+        local = torch.stack([torch.as_tensor(v, device=values[0].device)
+                             for v in values])
+        return (local if ring is None else ring.any(local)).tolist()
 
     def run(state):
         ndof = float(state.nf)
@@ -215,11 +237,10 @@ def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
         f_rms = f_rms_of(state.forces, ndof)
         sc = _initial_scalars(state.dtype, state.device, dt_initial, alpha0)
         step = 0
-        going, ovf = torch.stack([f_rms >= tol,
-                                  state.nbrs.overflow]).tolist()
+        going, ovf = flags(f_rms >= tol, state.nbrs.overflow)
         while step < max_steps and going and not ovf:
-            state = slots._rebin(state, engine)
-            ovf = bool(state.nbrs.overflow)
+            state = slots._engine_rebin(state, engine)
+            ovf, = flags(state.nbrs.overflow)
             rebuild = False
             while step < max_steps and going and not rebuild and not ovf:
                 v, disp, sc = _fire_update(
@@ -231,9 +252,9 @@ def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
                                   velocities=v), engine, observables=False)
                 f_rms = f_rms_of(state.forces, ndof)
                 step += 1
-                going, rebuild, ovf = torch.stack([
+                going, rebuild, ovf = flags(
                     f_rms >= tol, slots.slot_needs_rebin(state, engine),
-                    state.nbrs.overflow]).tolist()
+                    state.nbrs.overflow)
         state = slots.slot_forces(state, engine)
         return state, f_rms, bool(f_rms < tol) and not ovf, step, ovf
 
@@ -266,3 +287,36 @@ def _fire_slots_with_retries(state, params, engine, **hyper):
     raise RuntimeError(
         "engine capacity still overflowing after 8 grows during FIRE "
         "minimization: forces would be silently truncated")
+
+
+def fire_minimize_sharded(state: SimulationState, params: Parameters,
+                          engine=None, group=None, *, device=None, **hyper):
+    """FIRE over the ranks of a shard ring, the counterpart of the JAX
+    package's ``fire_minimize_sharded``: ``state`` is an ``(N, d)``
+    particle-order state (the same on every rank), ``engine`` a
+    :class:`mdtpu_torch.parallel.HaloSlotEngine` (default: one made over
+    the ring of ``group`` and ``device``, as ``run_simulation_sharded``
+    makes it). The slot FIRE of :func:`make_slot_fire` runs on each rank's
+    slab with the ring's reductions. Returns ``(state, energy, converged,
+    n_steps)`` in particle order on every rank, with the caller's
+    velocities; on a capacity or migration overflow the run is retried from
+    the start on a grown engine."""
+    from mdtpu_torch.core.types import state_to
+    from mdtpu_torch.parallel.driver import build_grown, sharded_engine
+    from mdtpu_torch.parallel.halo_slot import unshard_slot_state
+
+    engine = sharded_engine(state, params.potential, engine, group, device)
+    ring = engine.ring
+    start = state_to(state.replace(nbrs=None, ids=None), ring.device)
+    velocities0 = start.velocities
+    for _ in range(slots.MAX_GROWS):
+        sh, engine = build_grown(start, engine)
+        sh, _, converged, n_steps, ovf = make_slot_fire(
+            engine, ring=ring, **hyper)(sh)
+        if not ovf:
+            out = unshard_slot_state(sh, ring).replace(velocities=velocities0)
+            return out, out.energy, converged, n_steps
+        engine = engine.with_grown_capacity()
+    raise RuntimeError(
+        "engine capacity still overflowing after 8 grows during sharded "
+        "FIRE minimization: forces would be silently truncated")

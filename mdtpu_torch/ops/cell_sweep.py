@@ -93,11 +93,11 @@ HILO_LO_BOUND = 4.0
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # Pointers in (the fourth the cell matrix), grid (nz = 1 in 2D) and
 # capacity, cutoff and potential kind, four float and
-# three int potential parameters, pointers out, the staging plan
-# (list_len, queue_depth, smem_bytes, threads), the observables flag, the
-# stream.
+# three int potential parameters, pointers out, the launched cells
+# (first_cell, n_blocks), the staging plan (list_len, queue_depth,
+# smem_bytes, threads), the observables flag, the stream.
 _SWEEP_ARGS = ((_P,) * 4 + (_I,) * 4 + (_D, _I) + (_D,) * 4 + (_I,) * 3
-               + (_P,) * 3 + (_I,) * 5 + (_P,))
+               + (_P,) * 3 + (_I,) * 7 + (_P,))
 # The hi/lo entry takes the lo words after the hi words and the filter margin
 # after the plan.
 _SIGNATURES = (("mdtpu_cell_sweep_f32", _SWEEP_ARGS),
@@ -343,17 +343,39 @@ def check_cuda(tensors, dtypes):
     return device, dtype
 
 
+def check_interior(interior, n_cells):
+    """``(first_cell, n_blocks)`` of a launch: the whole grid for None,
+    else a non-empty run of cells inside it."""
+    if interior is None:
+        return 0, n_cells
+    first, count = (int(v) for v in interior)
+    if first < 0 or count < 1 or first + count > n_cells:
+        raise ValueError(f"interior cells [{first}, {first + count}) outside "
+                         f"the grid's {n_cells}")
+    return first, count
+
+
 def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
-               observables=True):
+               observables=True, interior=None):
     """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
     take :func:`cell_sweep_plain`. Each launch adds one to
     ``cell_sweep.launches``, and a launch of the lean variant
-    (``observables=False``) also to ``cell_sweep.lean_launches``."""
+    (``observables=False``) also to ``cell_sweep.lean_launches``.
+
+    ``interior=(first_cell, n_cells_out)``: the sweep of those cells only
+    (one block each), every cell of the grid still read as a neighbour. The
+    forces come back for their slots, ``(d, n_cells_out * C)``, and energy
+    and virial sum their pairs (each halved, as always). The slab of
+    :class:`mdtpu_torch.parallel.HaloSlotEngine` is such a run: the
+    interior x-planes of a grid with a ghost plane on each side. Such a
+    launch also adds one to ``cell_sweep.slab_launches`` (and a lean one to
+    ``cell_sweep.slab_lean_launches``)."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
+    first, n_out = check_interior(interior, n_cells)
     if slot_pos.device.type == "cpu":
         return cell_sweep_plain(slot_pos, slot_diam, counts, box, grid,
-                                cutoff, potential, observables)
+                                cutoff, potential, observables, interior)
     cell = as_cell(box, len(grid)).contiguous()
     device, dtype = check_cuda((slot_pos, slot_diam, counts, cell),
                                (torch.float32, torch.float64))
@@ -361,52 +383,61 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
     fn = (lib.mdtpu_cell_sweep_f32 if dtype == torch.float32
           else lib.mdtpu_cell_sweep_f64)
     out = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, cell),
-                       grid, cap, cutoff, potential, n_cells, "cell_sweep",
-                       plan=(*_plan_args(cap, dtype, False, len(grid)),
+                       grid, cap, cutoff, potential, n_out, "cell_sweep",
+                       plan=(first, n_out,
+                             *_plan_args(cap, dtype, False, len(grid)),
                              int(observables)),
                        observables=observables)
-    _count(cell_sweep, observables)
+    _count(cell_sweep, observables, interior)
     return out
 
 
 def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
-                    potential, observables=True):
+                    potential, observables=True, interior=None):
     """The hi/lo pair sweep (float32). CUDA tensors launch the kernel (or
     raise); CPU tensors take :func:`cell_sweep_hilo_plain`. Each launch adds
     one to ``cell_sweep_hilo.launches``, and a launch of the lean variant
-    also to ``cell_sweep_hilo.lean_launches``."""
+    also to ``cell_sweep_hilo.lean_launches``. ``interior`` as in
+    :func:`cell_sweep` (counted in ``cell_sweep_hilo.slab_launches``)."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
+    first, n_out = check_interior(interior, n_cells)
     if tuple(slot_lo.shape) != tuple(slot_pos.shape):
         raise ValueError("slot_lo must have the shape of slot_pos")
     if slot_pos.device.type == "cpu":
         return cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts,
                                      box, grid, cutoff, potential,
-                                     observables)
+                                     observables, interior)
     cell = as_cell(box, len(grid)).contiguous()
     check_cuda((slot_pos, slot_lo, slot_diam, counts, cell), (torch.float32,))
     lib = _library()
     out = launch_sweep(lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
                        (slot_pos, slot_lo, slot_diam, counts, cell), grid,
-                       cap, cutoff, potential, n_cells, "cell_sweep_hilo",
-                       plan=(*_plan_args(cap, torch.float32, True, len(grid)),
+                       cap, cutoff, potential, n_out, "cell_sweep_hilo",
+                       plan=(first, n_out,
+                             *_plan_args(cap, torch.float32, True, len(grid)),
                              hilo_filter_margin(torch.float32),
                              int(observables)),
                        observables=observables)
-    _count(cell_sweep_hilo, observables)
+    _count(cell_sweep_hilo, observables, interior)
     return out
 
 
-def _count(wrapper, observables):
+def _count(wrapper, observables, interior=None):
     wrapper.launches += 1
     if not observables:
         wrapper.lean_launches += 1
+    if interior is not None:
+        wrapper.slab_launches += 1
+        if not observables:
+            wrapper.slab_lean_launches += 1
 
 
 def reset_launches():
     """Set both sweeps' launch counts to 0."""
     for wrapper in (cell_sweep, cell_sweep_hilo):
         wrapper.launches = wrapper.lean_launches = 0
+        wrapper.slab_launches = wrapper.slab_lean_launches = 0
 
 
 reset_launches()
@@ -423,14 +454,16 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
     the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
     p0..p3, i0..i2, force, e_part, w_part, scratch..., plan..., stream)``
     (``scratch`` tensors, ``plan`` numbers; a 2D grid goes as nx x ny x 1).
-    Allocates the outputs, raises on a launch error, and returns ``(energy,
+    Allocates the outputs for ``n_cells`` cells (the grid's, or the run a
+    launch covers), raises on a launch error, and returns ``(energy,
     virial, slot_forces)`` with the per-cell partials summed on the device;
     ``observables=False`` (a lean launch) passes no partials and returns
     zeros for both scalars."""
     kind, fp, ip = functor_params(potential)
     slot_pos = inputs[0]
     dtype, device = slot_pos.dtype, slot_pos.device
-    force = torch.empty(tuple(slot_pos.shape), dtype=dtype, device=device)
+    force = torch.empty((slot_pos.shape[0], n_cells * cap), dtype=dtype,
+                        device=device)
     if observables:
         e_part = torch.empty((n_cells,), dtype=dtype, device=device)
         w_part = torch.empty((n_cells,), dtype=dtype, device=device)
@@ -451,13 +484,15 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
     return torch.sum(e_part), torch.sum(w_part), force
 
 
-def _neighbour_cells(grid, off, cell, device):
+def _neighbour_cells(grid, off, cell, device, cells=None):
     """For stencil offset ``off``: the periodic index of each cell's
     neighbour (n_cells,), and the image shift of its coordinates as terms:
     ``terms[k][a]`` (n_cells,) is ``w_a cell[k, a]``, ``w_a`` in {-1, 0, +1}
-    the neighbour's wrap along grid axis ``a``."""
+    the neighbour's wrap along grid axis ``a``. ``cells``: the run of cells
+    (a ``range``) to do it for, all by default."""
     dim = len(grid)
-    c = torch.arange(math.prod(grid), device=device)
+    cells = range(math.prod(grid)) if cells is None else cells
+    c = torch.arange(cells.start, cells.stop, device=device)
     idx, wraps, stride = 0, [], 1
     for a in reversed(range(dim)):
         n = int(grid[a])
@@ -485,10 +520,11 @@ class PairTiles:
     per-cell counts through masks. With ``slot_lo`` the displacements are
     the hi/lo ones of the kernel's HILO variant: the image shift goes onto
     the hi word one cell vector at a time through ``two_sum``, its residuals
-    into the lo word."""
+    into the lo word. ``interior=(first_cell, n)``: the own cells are that
+    run only (the tiles are (n, C, C)); every cell is still a neighbour."""
 
     def __init__(self, slot_pos, slot_diam, counts, box, grid, cutoff,
-                 potential, slot_lo=None):
+                 potential, slot_lo=None, interior=None):
         self.dim = len(grid)
         self.n_cells = math.prod(grid)
         self.cap = slot_pos.shape[1] // self.n_cells
@@ -496,11 +532,19 @@ class PairTiles:
         self.cell = as_cell(box, self.dim)
         self.dtype, self.device = slot_pos.dtype, slot_pos.device
         nc, cap, dim = self.n_cells, self.cap, self.dim
+        first, n_own = check_interior(interior, nc)
+        self.cells = range(first, first + n_own)
+        self.n_own = n_own
+        own = slice(first, first + n_own)
         self.pos = slot_pos.reshape(dim, nc, cap)
         self.lo = None if slot_lo is None else slot_lo.reshape(dim, nc, cap)
         self.diam = slot_diam.reshape(nc, cap)
+        self.own_pos = self.pos[:, own]
+        self.own_lo = None if self.lo is None else self.lo[:, own]
+        self.own_diam = self.diam[own]
         slot = torch.arange(cap, device=self.device)
         self.occ = slot[None, :] < counts.clamp(max=cap)[:, None]
+        self.own_occ = self.occ[own]
         self.not_self = ~torch.eye(cap, dtype=torch.bool, device=self.device)
         c_eng = rounded(cutoff, self.dtype)
         self.cutoff2 = rounded(c_eng * c_eng, self.dtype)
@@ -515,24 +559,25 @@ class PairTiles:
         index per cell, the displacement components and r^2 of own slot i
         against neighbour slot j as (n_cells, C, C) tiles, and the pairs
         inside the engine cutoff (both occupied, not the self pair)."""
-        nb, terms = _neighbour_cells(self.grid, off, self.cell, self.device)
+        nb, terms = _neighbour_cells(self.grid, off, self.cell, self.device,
+                                     self.cells)
         d = []
         for k in range(self.dim):
             if self.lo is None:
                 w = self.pos[k][nb] + _summed_shift(terms[k])[:, None]
-                d.append(self.pos[k][:, :, None] - w[:, None, :])
+                d.append(self.own_pos[k][:, :, None] - w[:, None, :])
             else:
                 w, w_lo = self.pos[k][nb], self.lo[k][nb]
                 for a in range(self.dim):
                     w, r = two_sum(w, terms[k][a][:, None])
                     w_lo = w_lo + r
-                s, e = two_sum(self.pos[k][:, :, None], -w[:, None, :])
-                d.append(s + (e + (self.lo[k][:, :, None]
+                s, e = two_sum(self.own_pos[k][:, :, None], -w[:, None, :])
+                d.append(s + (e + (self.own_lo[k][:, :, None]
                                    - w_lo[:, None, :])))
         r2 = d[0] * d[0]
         for dk in d[1:]:
             r2 = r2 + dk * dk
-        mask = (self.occ[:, :, None] & self.occ[nb][:, None, :]
+        mask = (self.own_occ[:, :, None] & self.occ[nb][:, None, :]
                 & (r2 < self.cutoff2))
         if not any(off):
             mask = mask & self.not_self
@@ -544,7 +589,7 @@ class PairTiles:
         i against neighbour slot j (zero outside the masks)."""
         nb, d, r2, mask = self.pairs(off)
         r2s = torch.where(mask, r2, torch.ones_like(r2))
-        u, f = self.potential.evaluate_r2(r2s, self.diam[:, :, None],
+        u, f = self.potential.evaluate_r2(r2s, self.own_diam[:, :, None],
                                           self.diam[nb][:, None, :])
         u = torch.where(mask, u, torch.zeros_like(u))
         f = torch.where(mask, f, torch.zeros_like(f))
@@ -554,7 +599,7 @@ class PairTiles:
 def _full_stencil_plain(tiles, observables=True):
     zero = torch.zeros((), dtype=tiles.dtype, device=tiles.device)
     energy, virial = zero, zero
-    force = torch.zeros((tiles.dim, tiles.n_cells, tiles.cap),
+    force = torch.zeros((tiles.dim, tiles.n_own, tiles.cap),
                         dtype=tiles.dtype, device=tiles.device)
     for off in tiles.offsets():
         _, u, f, r2s, d = tiles.tile(off)
@@ -567,7 +612,7 @@ def _full_stencil_plain(tiles, observables=True):
 
 
 def cell_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
-                     potential, observables=True):
+                     potential, observables=True, interior=None):
     """The sweep in plain PyTorch, same arguments and results as
     :func:`cell_sweep`: one (n_cells, C, C) pair tile per stencil offset,
     neighbour cells found by periodic index with their image shift (the
@@ -575,12 +620,13 @@ def cell_sweep_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
     counts through masks."""
     check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
     return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
-                                         grid, cutoff, potential),
-                               observables)
+                                         grid, cutoff, potential,
+                                         interior=interior), observables)
 
 
 def cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts, box, grid,
-                          cutoff, potential, observables=True):
+                          cutoff, potential, observables=True,
+                          interior=None):
     """The hi/lo sweep in plain PyTorch, same arguments and results as
     :func:`cell_sweep_hilo`: the image shift goes onto the hi word through
     ``two_sum``, one cell vector at a time, with the residuals folded into
@@ -589,4 +635,5 @@ def cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts, box, grid,
     check_inputs(slot_pos, slot_diam, counts, box, grid, MAX_CAPACITY)
     return _full_stencil_plain(PairTiles(slot_pos, slot_diam, counts, box,
                                          grid, cutoff, potential,
-                                         slot_lo=slot_lo), observables)
+                                         slot_lo=slot_lo, interior=interior),
+                               observables)

@@ -75,9 +75,9 @@ def _event_schedule(start_step, total_steps, frequency, traj_frequency,
     """Thermo, trajectory, snapshot and checkpoint steps in [start_step,
     start_step + total_steps). With ``log_times`` the snapshot steps are 0
     and the log-spaced times of :func:`generate_log_times` (saved to
-    ``new-log-times.txt`` in ``pathname``), on the schedule of a run that
-    started at step 0. Checkpoints are events of their own, not aligned to
-    the output cadence."""
+    ``new-log-times.txt`` in ``pathname``, unless it is None), on the
+    schedule of a run that started at step 0. Checkpoints are events of
+    their own, not aligned to the output cadence."""
     end_step = start_step + total_steps
     thermo_steps = _cadence(start_step, end_step, frequency)
     traj_steps = _cadence(start_step, end_step, frequency
@@ -424,11 +424,57 @@ def run_simulation(
     end_step = start_step + total_steps
     thermo_file, writer = prepare_output_files(
         pathname, traj_name, thermo_name, start_step, compress)
-    thermo_steps, traj_steps, snap_steps, checkpoint_steps = _event_schedule(
-        start_step, total_steps, frequency, traj_frequency, log_times,
-        checkpoint_every, pathname)
-    meter = (StepRateMeter(os.path.join(pathname, "perf.txt"),
-                           append=start_step > 0) if perf_log else None)
+    state, engine = _drive_events(
+        state, engine, make_advance=make_advance, restore=restore,
+        health=lambda s: _health(s, use_slot),
+        frame_rows=lambda s: _frame_rows(s, use_slot, n, unitcell_np),
+        particle_state=slots.unslotify_state if use_slot else (lambda s: s),
+        use_slot=use_slot, is_brownian=is_brownian, ensemble=ensemble,
+        consts=consts, unitcell_np=unitcell_np, diameters_np=diameters_np,
+        schedule=_event_schedule(start_step, total_steps, frequency,
+                                 traj_frequency, log_times, checkpoint_every,
+                                 pathname),
+        start_step=start_step, end_step=end_step, pathname=pathname,
+        thermo_file=thermo_file, writer=writer,
+        meter=(StepRateMeter(os.path.join(pathname, "perf.txt"),
+                             append=start_step > 0) if perf_log else None))
+
+    if use_slot:
+        # Back to particle order (original order through ids) with
+        # particle-order engine state, as the other routes return it.
+        state = slots.unslotify_state(state)
+        state = state.replace(nbrs=engine.allocate(
+            state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv))
+    write_xyz(os.path.join(pathname, "final.xyz"), end_step, state.unitcell,
+              state.positions, state.diameters, mode="w")
+    return state
+
+
+def _drive_events(state, engine, *, make_advance, restore, health,
+                  frame_rows, particle_state, use_slot, is_brownian,
+                  ensemble, consts, unitcell_np, diameters_np, schedule,
+                  start_step, end_step, pathname, thermo_file, writer, meter):
+    """The event loop shared by :func:`run_simulation` and
+    :func:`mdtpu_torch.parallel.run_simulation_sharded`, as the JAX
+    package's ``_drive_events``: advance from event to event of
+    ``schedule`` (thermo, trajectory, snapshot and checkpoint steps), read
+    the segment's health, rerun it from its start on a grown engine after
+    a capacity overflow, and write the event's outputs.
+
+    The route enters through callbacks: ``make_advance(engine)`` gives
+    ``advance(state, k)``; ``restore(seg_start, engine)`` the segment's
+    start for a grown engine, ``(state, engine)``; ``health(state)`` the
+    ``[diverged, overflow, occupied slots]`` ints every rank agrees on;
+    ``frame_rows(state)`` a frame's particle-order rows and
+    ``particle_state(state)`` the particle-order state of a checkpoint
+    (both collective on a shard ring: every rank calls them). Files are
+    written where ``thermo_file`` is not None (one rank of a ring), and the
+    writer and ``meter`` may be None on the others. Returns ``(state,
+    engine)``."""
+    thermo_steps, traj_steps, snap_steps, checkpoint_steps = schedule
+    n = consts["n"]
+    writes = thermo_file is not None
     advance = make_advance(engine)
     try:
         for label, n_adv in _segments(
@@ -437,7 +483,7 @@ def run_simulation(
             seg_start = state
             for attempt in range(_MAX_GROWS + 1):
                 s = advance(seg_start, n_adv)
-                diverged, overflow, occupied = _health(s, use_slot)
+                diverged, overflow, occupied = health(s)
                 if diverged:
                     raise RuntimeError(
                         f"simulation diverged (non-finite positions) at or "
@@ -470,38 +516,30 @@ def run_simulation(
                 w_acc, nprom = accum or (0.0, 0)
                 ener, t, pressure = _thermo_values(
                     e, t, w, w_acc, nprom, ensemble=ensemble, **consts)
-                with open(thermo_file, "a") as f:
-                    f.write(f"{label} {ener:.6f} {t:.6f} {pressure:.6f}\n")
+                if writes:
+                    with open(thermo_file, "a") as f:
+                        f.write(f"{label} {ener:.6f} {t:.6f} "
+                                f"{pressure:.6f}\n")
                 if is_brownian:
                     # The pressure average restarts after each thermo row.
                     state = state.replace(
                         virial_accum=torch.zeros_like(state.virial_accum),
                         nprom=torch.zeros_like(state.nprom))
             if label in traj_steps or label in snap_steps:
-                rows = (label, unitcell_np,
-                        *_frame_rows(state, use_slot, n, unitcell_np),
-                        diameters_np)
-                if label in traj_steps:
+                rows = (label, unitcell_np, *frame_rows(state), diameters_np)
+                if writes and label in traj_steps:
                     writer.write_frame(*rows)
-                if label in snap_steps:
+                if writes and label in snap_steps:
                     writer.write_snapshot(
                         os.path.join(pathname, f"snapshot.{label}"), *rows)
             if meter is not None:
                 meter.tick(label, n_adv)
             if label in checkpoint_steps:
-                save_checkpoint(
-                    slots.unslotify_state(state) if use_slot else state,
-                    os.path.join(pathname, f"checkpoint.{label}.npz"))
+                particles = particle_state(state)
+                if writes:
+                    save_checkpoint(particles, os.path.join(
+                        pathname, f"checkpoint.{label}.npz"))
     finally:
-        writer.close()
-
-    if use_slot:
-        # Back to particle order (original order through ids) with
-        # particle-order engine state, as the other routes return it.
-        state = slots.unslotify_state(state)
-        state = state.replace(nbrs=engine.allocate(
-            state.positions, state.diameters, state.unitcell,
-            state.unitcell_inv))
-    write_xyz(os.path.join(pathname, "final.xyz"), end_step, state.unitcell,
-              state.positions, state.diameters, mode="w")
-    return state
+        if writer is not None:
+            writer.close()
+    return state, engine

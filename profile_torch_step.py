@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor]
+    python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor|sharded]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
@@ -16,10 +16,16 @@ particle order with Kahan compensation; ``--engine slot`` steps the slot
 layout as ``run_simulation`` does on the cell grid: ``make_slot_advance``
 over one segment of the timed or profiled length (its lean inner steps, the
 rebuild check read every step, the rebuilds that come due, one full step at
-the end), and reports the rebuilds in each window. Prints one JSON line: ms
-per step, device busy time per step and the device's idle share over the
-profiled window, CUDA kernel launches and host synchronisations per step,
-and the kernels that take the most device time.
+the end), and reports the rebuilds in each window; ``--engine sharded``
+steps the same through ``HaloSlotEngine`` on a one-rank NCCL group (a file
+store in a temporary directory): the slab's ghost exchange and launch, the
+all-reduced flags and sums, a rebuild (with its migration) at the start of
+each window and before its last step. Prints one JSON line: ms per step,
+device busy time per step and the device's idle share over the profiled
+window, CUDA kernel launches and host synchronisations per step, and the
+kernels that take the most device time; for ``sharded`` a second line with
+the host ms of the step's own parts alone (the rebuild flag's all-reduce
+and read, a scalar all-reduce, the ghost exchange and assembly).
 """
 
 import argparse
@@ -37,7 +43,8 @@ PROFILED_STEPS = 50
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--engine",
-                        choices=("cellgrid", "plane", "slot", "neighbor"),
+                        choices=("cellgrid", "plane", "slot", "neighbor",
+                                 "sharded"),
                         default="cellgrid")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -68,7 +75,31 @@ def main():
         state = mt.run_simulation(state, params, ensemble, 300, 300, d,
                                   engine=engine, compensated=compensated)
     rebuilds = []
-    if args.engine == "slot":
+    if args.engine == "sharded":
+        import torch.distributed as dist
+        from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+        from mdtpu_torch.parallel.halo_slot import (
+            build_sharded_slot_state, make_sharded_slot_advance)
+        store = tempfile.mkdtemp()
+        dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        engine = HaloSlotEngine.create(params.potential, 2.5,
+                                       state.unitcell, N, ShardRing())
+        state = build_sharded_slot_state(state.replace(nbrs=None), engine)
+        advance = make_sharded_slot_advance(params, ensemble, engine)
+        engine_rebin = slot_step._engine_rebin
+
+        def counted_engine_rebin(s, e):
+            rebuilds[-1] += 1
+            return engine_rebin(s, e)
+
+        slot_step._engine_rebin = counted_engine_rebin
+
+        def run(s, k):
+            rebuilds.append(0)
+            return advance(s, k)
+    elif args.engine == "slot":
         state = slot_step.slot_forces(slot_step.slotify(state, engine),
                                       engine)
         advance = slot_step.make_slot_advance(params, ensemble, engine)
@@ -139,12 +170,45 @@ def main():
         "kernel_launches_per_step": launches / PROFILED_STEPS,
         "host_syncs_per_step": syncs / PROFILED_STEPS,
         "memcpy_calls_per_step": memcpy / PROFILED_STEPS,
-        # Slot layout: rebuilds in the timed and in the profiled window.
+        # Slot layouts: rebuilds in the timed and in the profiled window.
         "rebuilds_timed_profiled": rebuilds[1:],
         "top_device_kernels": [
             {"name": e.key[:90], "calls_per_step": e.count / PROFILED_STEPS,
              "ms_per_step": dev_us(e) / 1e3 / PROFILED_STEPS} for e in top],
     }))
+    if args.engine == "sharded":
+        print(json.dumps({"card": card, "engine": "sharded",
+                          **sharded_parts(engine, state)}))
+        torch.distributed.destroy_process_group()
+
+
+def sharded_parts(engine, state, reps=200):
+    """Host ms of the sharded step's own parts, each alone and synced: one
+    rebuild-flag decision (``any`` over the ring and its host read, as the
+    advance makes it every step), one all-reduce of a scalar sum (the
+    kinetic energy of an NVT step) and the slab's ghost exchange and
+    assembly (``slab_inputs``)."""
+    ring = engine.ring
+    flag = torch.zeros((), dtype=torch.bool, device=ring.device)
+    value = torch.ones((), dtype=state.dtype, device=ring.device)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return {
+        "rebuild_flag_any_and_read_ms": host_ms(lambda: bool(ring.any(flag))),
+        "scalar_sum_ms": host_ms(lambda: ring.sum(value)),
+        "slab_inputs_ms": host_ms(lambda: engine.slab_inputs(
+            state.positions, state.diameters, state.nbrs.counts,
+            state.unitcell.contiguous())),
+        "local_flag_read_ms": host_ms(lambda: bool(flag.any())),
+    }
 
 
 if __name__ == "__main__":

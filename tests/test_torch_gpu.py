@@ -23,7 +23,11 @@ bit for bit. The neighbour list: its build (rows as sets, counts, the
 overflow flag of small capacities, two launches alike) and its force pass
 (f64 and f32, three potentials; two launches bit for bit; against the
 full-stencil sweep on the same state) against their plain versions, and a
-run on the list on the card against the same run on the CPU.
+run on the list on the card against the same run on the CPU. The slab
+launch of the sharded engine (B1 over the interior cells of a ghost-extended
+grid): against its plain version and the periodic launch (f64, f32, hi/lo),
+lean bit-equal and repeats, a run of cells outside the grid refused, and
+``run_simulation_sharded`` on a ring of one on the card against the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -1235,3 +1239,123 @@ def test_nl_2d_matches_plain(cuda, dtype):
         np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
         np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
         assert _force_ratio(f1.T.cpu(), f0.T, n) <= tol_f
+
+
+# --------------------------------------------------------------------------
+# The slab launch of the sharded engine (a ring of one on the card).
+# --------------------------------------------------------------------------
+
+def _slab(cuda, kind, n=20000, tilted=False):
+    """A ring of one's slab inputs of the melted lattice, and the periodic
+    slot state they come from (f64 melt, cast; hi/lo words of it)."""
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.halo_slot import build_sharded_slot_state
+    from mdtpu_torch.integrate import slot_step
+
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    slots, eng = _melted_slots(cuda, torch.float64)
+    state = slot_step.unslotify_state(slots)
+    halo = HaloSlotEngine(potential=eng.potential, cutoff=eng.cutoff,
+                          skin=eng.skin, grid=eng.grid,
+                          cell_capacity=eng.cell_capacity,
+                          ring=ShardRing(device=cuda))
+    sh = build_sharded_slot_state(state, halo)
+    hi = sh.positions.to(dtype)
+    lo = (sh.positions - hi.double()).float() if kind == "hilo" else None
+    pos, slab_lo, diam, counts, grid, interior = halo.slab_inputs(
+        hi, sh.diameters.to(dtype), sh.nbrs.counts,
+        sh.unitcell.to(dtype).contiguous(), lo)
+    first = (pos,) if lo is None else (pos, slab_lo)
+    periodic = (hi,) if lo is None else (hi, lo)
+    args = (diam, counts, sh.unitcell.to(dtype).contiguous(), grid,
+            halo.cutoff, halo.potential)
+    per_args = (sh.diameters.to(dtype), sh.nbrs.counts,
+                sh.unitcell.to(dtype).contiguous(), halo.grid, halo.cutoff,
+                halo.potential)
+    return first, args, interior, periodic, per_args, int(counts.sum())
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_slab_launch_matches_plain_and_periodic(cuda, kind):
+    """B1 over the interior cells of the ghost-extended grid: against its
+    plain version on the same inputs and against the periodic launch on the
+    global slots (a ring of one's slab is the whole box), at the sweep's
+    tolerances; the output covers the interior slots only."""
+    first, args, interior, periodic, per_args, n = _slab(cuda, kind)
+    kernel = (sweep_mod.cell_sweep_hilo if kind == "hilo"
+              else sweep_mod.cell_sweep)
+    plain = (sweep_mod.cell_sweep_hilo_plain if kind == "hilo"
+             else sweep_mod.cell_sweep_plain)
+    before = kernel.slab_launches
+    got = kernel(*first, *args, interior=interior)
+    assert kernel.slab_launches == before + 1
+    ref = plain(*first, *args, interior=interior)
+    per = kernel(*periodic, *per_args)
+    torch.cuda.synchronize()
+    assert got[2].shape == per[2].shape
+    rtol, ftol = TOLERANCES[torch.float64 if kind == "f64"
+                            else torch.float32]
+    for r in (ref, per):
+        np.testing.assert_allclose(float(got[0]), float(r[0]), rtol=rtol)
+        np.testing.assert_allclose(float(got[1]), float(r[1]), rtol=rtol)
+        assert _force_ratio(got[2], r[2], n) <= ftol
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_slab_lean_is_bit_equal_and_repeats(cuda, kind):
+    first, args, interior, _, _, _ = _slab(cuda, kind)
+    kernel = (sweep_mod.cell_sweep_hilo if kind == "hilo"
+              else sweep_mod.cell_sweep)
+    full = kernel(*first, *args, interior=interior)
+    again = kernel(*first, *args, interior=interior)
+    lean = kernel(*first, *args, observables=False, interior=interior)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    assert torch.equal(lean[2], full[2])
+    assert float(lean[0]) == float(lean[1]) == 0.0
+
+
+def test_slab_launch_rejects_a_run_outside_the_grid(cuda):
+    first, args, interior, _, _, _ = _slab(cuda, "f32")
+    first_cell, count = interior
+    for bad in ((-1, count), (first_cell, 0),
+                (first_cell, count + 2 * first_cell)):
+        with pytest.raises(ValueError, match="interior cells"):
+            sweep_mod.cell_sweep(*first, *args, interior=bad)
+
+
+def test_sharded_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """run_simulation_sharded on a ring of one at N = 4096 f64 (two NVE
+    legs: the card's random streams are not the CPU's), on the card and on
+    the CPU from one state: thermo rows to rel 1e-9 (one flip of the last
+    printed digit), positions to 1e-9; every step's sweep is a slab launch
+    on the card."""
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    out = {}
+    for device in ("cpu", cuda):
+        state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float64,
+                                    cutoff=2.5, jitter=JITTER, device=device)
+        eng = HaloSlotEngine.create(pot, 2.5, state.unitcell, n,
+                                    ShardRing(device=device))
+        sweep_mod.reset_launches()
+        mid = mdtpu_torch.run_simulation_sharded(
+            state, params, mdtpu_torch.NVE(), 30, 10,
+            str(tmp_path / f"{device}_nvt"), engine=eng, device=device)
+        end = mdtpu_torch.run_simulation_sharded(
+            mid, params, mdtpu_torch.NVE(), 30, 10,
+            str(tmp_path / f"{device}_nve"), engine=eng, device=device)
+        launches = sweep_mod.cell_sweep.slab_launches
+        rows = np.concatenate([np.loadtxt(tmp_path / f"{device}_{leg}"
+                                          / "thermo.txt")
+                               for leg in ("nvt", "nve")])
+        out[str(device)] = (rows, end.positions.cpu().numpy(), launches)
+    (rows_c, pos_c, _), (rows_g, pos_g, launches) = (out["cpu"],
+                                                      out[str(cuda)])
+    assert launches >= 60
+    assert np.all(np.abs(rows_g - rows_c)
+                  <= np.maximum(1e-9 * np.abs(rows_c), 1.000001e-6))
+    np.testing.assert_allclose(pos_g, pos_c, rtol=0, atol=1e-9)

@@ -32,7 +32,9 @@ def test_import_loads_no_jax_or_mdtpu():
             "mdtpu_torch.observables, mdtpu_torch.io.checkpoint, "
             "mdtpu_torch.io.compress, mdtpu_torch.utils.profiling, "
             "mdtpu_torch.ops.experimental, "
-            "mdtpu_torch.ops.experimental.probe\n"
+            "mdtpu_torch.ops.experimental.probe, mdtpu_torch.parallel, "
+            "mdtpu_torch.parallel.halo_slot, mdtpu_torch.parallel.mesh, "
+            "mdtpu_torch.parallel.driver, mdtpu_torch.parallel.geometry\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -119,3 +121,49 @@ def test_exports_are_a_subset_of_mdtpu():
     assert set(mdtpu_torch.__all__) <= set(mdtpu.__all__)
     for name in mdtpu_torch.__all__:
         assert hasattr(mdtpu_torch, name)
+
+
+def test_sharded_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path, monkeypatch):
+    """``run_simulation_sharded`` and ``fire_minimize_sharded`` (and the
+    ring they build) take the card by default and raise without one, before
+    any file is written; the sharded surface is the JAX package's."""
+    import importlib
+
+    import mdtpu
+    import mdtpu.parallel
+    from mdtpu_torch.minimize import fire_minimize_sharded
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+
+    assert "run_simulation_sharded" in mdtpu.__all__
+    assert "run_simulation_sharded" in mdtpu_torch.__all__
+    assert {"run_simulation_sharded", "HaloSlotEngine"} <= (
+        set(mdtpu_torch.parallel.__all__) & set(mdtpu.parallel.__all__))
+    # (mdtpu.minimize is also the name of a function of the package.)
+    for pkg in ("mdtpu.minimize", "mdtpu_torch.minimize"):
+        assert hasattr(importlib.import_module(pkg), "fire_minimize_sharded")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    state = mdtpu_torch.sim.initialization.lattice_fluid_state(
+        1200, 0.4, 1.0, dtype=torch.float64, cutoff=1.5, device="cpu")
+    params = mdtpu_torch.Parameters(0.4, 1200, 0.002,
+                                    mdtpu_torch.LennardJones(r_cut=1.5))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mdtpu_torch.run_simulation_sharded(state, params, mdtpu_torch.NVE(),
+                                           2, 1, str(tmp_path / "sh"))
+    assert not (tmp_path / "sh").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fire_minimize_sharded(state, params, max_steps=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardRing()
+    out = mdtpu_torch.run_simulation_sharded(
+        state, params, mdtpu_torch.NVE(), 2, 1, str(tmp_path / "cpu"),
+        device="cpu")
+    assert out.step == 2 and out.positions.device.type == "cpu"
+    with pytest.raises(TypeError, match="HaloSlotEngine"):
+        mdtpu_torch.run_simulation_sharded(
+            state, params, mdtpu_torch.NVE(), 2, 1, str(tmp_path / "x"),
+            engine=mdtpu_torch.select_engine(params.potential, 1.5, state),
+            device="cpu")
+    assert isinstance(HaloSlotEngine.create(
+        params.potential, 1.5, state.unitcell, 1200,
+        ShardRing(device="cpu")), HaloSlotEngine)
