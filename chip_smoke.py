@@ -91,7 +91,15 @@
    bit; timed by graph replay in turns with the periodic launches, the
    plain versions by events, the bound from this run's pairs (the ghost
    planes' reads included); the sharded ``compute_slots`` (exchange,
-   assembly, launch) by events beside the periodic engine's.
+   assembly, launch) by events beside the periodic engine's. List slab
+   phase: the pair list's slab launch (the sharded engine's sweep for a
+   user potential, on a ring of one) on config 4's lattice (f64, f32) and
+   the bench's 3D lattice (f32, hi/lo): its entries, counts and starts
+   equal to its plain version's and repeating bit for bit, the sweep on it
+   against the plain reduction (f64 1e-12 / 1e-10, f32 1e-5) and bit for
+   bit against the periodic list route; timed in turns with the periodic
+   list by graph replay, against its bound (the ghost planes' reads
+   included).
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -138,7 +146,13 @@
      NVT + 500 NVE steps through ``run_simulation_sharded`` (every sweep a
      slab launch, NVE on hi/lo), its first thermo rows against the B1
      path's within 1e-4; then ``fire_minimize_sharded`` on
-     ``bench_fire.py``'s system, 20 iterations, below the start's energy.
+     ``bench_fire.py``'s system, 20 iterations, below the start's energy;
+     then BASELINE config 4 at 65,536 (the user potential, every sweep the
+     pair list's slab launch): ``fire_minimize_sharded`` from the user
+     path's XYZ start, 1000 iterations at dmax 0.01, finite and below the
+     start's energy, and ``run_simulation_sharded`` NVT(0.5, 0.01) for 300
+     steps from the user path's minimized state and velocities, its rows
+     at steps 0 and 100 within 1e-8 of that path's.
    The B1 and B2 paths end with the observables of their final state:
    ``sample_rdf`` through the RDF kernel (its first peak), the MSD from the
    start, ``read_thermo`` of the NVE leg equal to the file's rows.
@@ -1066,20 +1080,22 @@ def list_bound(plist, inputs, counts_, observables=True):
     """The list's and the reduction's least times on these inputs: bytes
     (each input read once, each output written once) over HBM and
     operations over the peak rate. The list reads the occupied slots and
-    writes every entry (neighbour int, d + 3 floats) and each slot's count;
-    its work is one distance per unordered pair inside the cutoff. The
-    reduction reads every entry's displacement, r^2, f (and u) and each
+    writes every entry (neighbour int, d + 3 floats) and each own slot's
+    count and start (the slots of ``plist.count``: a slab launch's interior
+    only); its work is one distance per unordered pair inside the cutoff.
+    The reduction reads every entry's displacement, r^2, f (and u) and each
     slot's segment, writes the forces and partials; 2 d + 4 operations an
     entry (2 d without energy and virial)."""
     slot_pos, _, counts, _ = inputs
-    dim, n_slots = slot_pos.shape
+    dim = slot_pos.shape[0]
+    n_slots = plist.count.shape[0]
     b = slot_pos.element_size()
     entries = int(plist.total)
     occupied = int(counts.sum())
     out = {}
     list_bytes = ((dim + 1) * occupied * b + counts.shape[0] * 8
                   + dim * dim * b + entries * (4 + (dim + 3) * b)
-                  + 4 * n_slots)
+                  + 12 * n_slots)
     list_ops = counts_[2] * distance_ops(dim)
     red_bytes = (entries * (dim + 2 + int(observables)) * b + 12 * n_slots
                  + dim * n_slots * b)
@@ -1154,6 +1170,17 @@ def pair_list_check(mt, record, state64, params):
         force_lib = torch.zeros_like(r1[2])
         g_list = graph_of(lambda: cp.pair_list(*inputs, eng.grid,
                                                eng.cutoff, cap))
+        # The engines' way: the buffers kept across calls, padded only
+        # where an earlier call's hits may lie; the same list as a fresh
+        # one, padding included.
+        ws = cp.PairListWorkspace()
+        g_kept = graph_of(lambda: cp.pair_list(*inputs, eng.grid,
+                                               eng.cutoff, cap,
+                                               workspace=ws))
+        g_kept.replay()
+        torch.cuda.synchronize()
+        kept_same = all(torch.equal(ws.buffers[k], getattr(l1, k)) for k in
+                        ("neighbour", "disp", "r2", "sigma_i", "sigma_j"))
         g_red = graph_of(lambda: cp.pair_reduce(l1, f, u))
         g_lean = graph_of(lambda: cp.pair_reduce(l1, f))
         tag = str(dtype).split(".")[-1]
@@ -1163,12 +1190,14 @@ def pair_list_check(mt, record, state64, params):
                 "pairs_in_engine_cutoff": counts_[2]}
         rec = {"kernel_check": "cell_pairs", **base,
                "list_equal_to_plain": same, "repeats_bit_for_bit": rep_list,
+               "kept_buffers_equal": kept_same,
                "max_abs_err": 0.0 if same else float("inf"),
                "ms": cuda_time_ms(g_list.replay, 20, 3),
+               "kept_buffers_ms": cuda_time_ms(g_kept.replay, 20, 3),
                "plain_ms": cuda_time_ms(lambda: cp.pair_list_plain(
                    *inputs, eng.grid, eng.cutoff, cap), 3, 1),
                "library_ms": None, **bounds["list"]}
-        record(rec, same and rep_list, f"cell_pairs {tag}")
+        record(rec, same and rep_list and kept_same, f"cell_pairs {tag}")
         rec = {"kernel_check": "pair_reduce", **base,
                "rel_err_energy": rel(r1[0], r0[0]),
                "rel_err_virial": rel(r1[1], r0[1]),
@@ -1650,12 +1679,15 @@ def geo_path(mt, workdir, label, state, params, nvt):
             "thermo_nvt": nvt_rows, "thermo_nve": nve_rows}, failures
 
 
-def user_path(mt, workdir):
+def user_path(mt, workdir, kept):
     """BASELINE config 4 at 65,536 through the pair-list route: the XYZ
     start, ``minimize`` (slot FIRE on the cell grid, tol 1e-4, at most
     USER_FIRE_ITERS iterations at dmax USER_DMAX, timed), then NVT(0.5,
     0.01) at dt 1e-4 for USER_NVT_STEPS steps (timed). The start's energy
-    comes from the plain list route, which launches nothing."""
+    comes from the plain list route, which launches nothing. ``kept``
+    receives the start's energy, the NVT leg's start (the minimized state
+    with its velocities), the parameters and the NVT rows, for the sharded
+    user path."""
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.sim.initialization import initialize_velocities
     out_dir = os.path.join(workdir, "user")
@@ -1681,6 +1713,7 @@ def user_path(mt, workdir):
     t1 = time.perf_counter()
     state = state.replace(velocities=initialize_velocities(
         0.5, 1, N_BENCH, 2, dtype=torch.float64, device="cuda"))
+    kept.update(energy_start=e0, nvt_start=state, params=params)
     nvt_dir = os.path.join(out_dir, "nvt")
     end = mt.run_simulation(state, params, mt.NVT(0.5, 0.01), USER_NVT_STEPS,
                             THERMO_EVERY, nvt_dir,
@@ -1701,6 +1734,7 @@ def user_path(mt, workdir):
     check(end.step == USER_NVT_STEPS
           and bool(torch.isfinite(end.positions).all()), "NVT state")
     rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
+    kept["rows"] = rows
     check(len(rows) == USER_NVT_STEPS // THERMO_EVERY
           and all(math.isfinite(v) for r in rows for v in r), "NVT rows")
     # The Bussi thermostat at tau = 100 dt holds T near 0.5 once the
@@ -2175,6 +2209,127 @@ def slab_phase(mt):
     return results, failures
 
 
+LIST_SLAB_COVERS = ("mdtpu/parallel/halo_slot.py:464,588 make_pair_block in "
+                    "the slab sweep (XLA)")
+
+
+def list_slab_phase(mt):
+    """The pair list's slab launch (``HaloSlotEngine`` on a ring of one: the
+    box one slab of a ghost-extended grid, the list over its interior
+    cells) with the user potential, on config 4's lattice (2D, 65,536,
+    128^2 x C 13; f64 and f32) and on the bench's 3D lattice (65,536,
+    15^3 x C 37; f32 and hi/lo): the list against its plain version on the
+    same inputs (every entry, count and start, bit for bit), two launches
+    alike; the sweep on it (the user's potential, the reduction) against
+    the plain reduction of the plain list (f64 1e-12 / 1e-10, f32 1e-5) and
+    bit for bit against the periodic list route on the global slots. Timed
+    by graph replay in turns with the periodic list, the plain list by
+    events; the bound from this run's list, the ghost planes' reads
+    included, the per-slot outputs of the interior only."""
+    from mdtpu_torch.ops import cell_pairs as cp
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.halo_slot import build_sharded_slot_state
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+
+    ring = ShardRing(device="cuda")
+    pot = user_potential(mt)
+    results, failures = {}, []
+    lattice_2d, _ = user_lattice(mt)
+    cases = [("config4_lattice", lattice_2d, CUTOFF_USER,
+              (torch.float64, torch.float32), False),
+             ("user_3d_lattice",
+              lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float64,
+                                  cutoff=2.5, jitter=0.01, device="cuda"),
+              2.5, (torch.float32,), True)]
+    for case, state, cutoff, dtypes, with_hilo in cases:
+        halo = HaloSlotEngine.create(pot, cutoff, state.unitcell, N_BENCH,
+                                     ring, diameters=state.diameters)
+        sh = build_sharded_slot_state(state.replace(nbrs=None), halo)
+        assert halo.uses_pair_list and not bool(sh.nbrs.overflow)
+        cap = halo.pair_list_capacity
+        kinds = [(d, False) for d in dtypes] + ([(torch.float32, True)]
+                                                if with_hilo else [])
+        for dtype, hilo in kinds:
+            tag = "hilo" if hilo else str(dtype).split(".")[-1]
+            hi = sh.positions.to(dtype)
+            lo = (sh.positions - hi.double()).float() if hilo else None
+            cell = sh.unitcell.to(dtype).contiguous()
+            diam = sh.diameters.to(dtype)
+            pos_e, lo_e, diam_e, counts_e, grid_e, interior = \
+                halo.slab_inputs(hi, diam, sh.nbrs.counts, cell, lo)
+            slab = (pos_e, diam_e, counts_e, cell, grid_e, cutoff)
+            per = (hi, diam, sh.nbrs.counts, cell, halo.grid, cutoff)
+
+            def slab_list():
+                return cp.pair_list(*slab, cap, slot_lo=lo_e,
+                                    interior=interior)
+
+            l1 = slab_list()
+            again = slab_list()
+            torch.cuda.synchronize()
+            l0 = cp.pair_list_plain(*slab, cap, slot_lo=lo_e,
+                                    interior=interior)
+            total = int(l0.total)
+            fields = ("neighbour", "disp", "r2", "sigma_i", "sigma_j")
+            same = (int(l1.total) == total and not bool(l1.overflow)
+                    and torch.equal(l1.count, l0.count)
+                    and torch.equal(l1.start, l0.start)
+                    and all(torch.equal(getattr(l1, k), getattr(l0, k))
+                            for k in fields))
+            rep = all(torch.equal(getattr(l1, k), getattr(again, k))
+                      for k in fields + ("count", "start"))
+            s1 = cp.pair_sweep(*slab, pot, cap, True, lo_e,
+                               interior=interior)
+            sp = cp.pair_sweep(*per, pot, cap, True, lo)
+            torch.cuda.synchronize()
+            bit_equal = all(torch.equal(a, b) for a, b in zip(s1[:3],
+                                                               sp[:3]))
+            u0, f0 = pot.evaluate_r2(l0.r2, l0.sigma_i, l0.sigma_j)
+            r0 = cp.pair_reduce_plain(l0, f0, u0)
+            worst, max_abs, rms = force_error(s1[2], r0[2], N_BENCH)
+            f64 = dtype == torch.float64
+            rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
+            turns = kernel_turns({
+                "slab": slab_list,
+                "periodic": lambda: cp.pair_list(*per, cap, slot_lo=lo)})
+            counts_ = pair_counts((hi.double(), diam.double(),
+                                   sh.nbrs.counts, cell.double()), halo.grid,
+                                  cutoff, cutoff)
+            rec = {"kernel_check": "cell_pairs_slab", "case": case,
+                   "dtype": tag, "grid": list(halo.grid),
+                   "capacity": halo.cell_capacity, "list_capacity": cap,
+                   "extended_grid": list(grid_e), "interior": list(interior),
+                   "entries": total, "list_equal_to_plain": same,
+                   "repeats_bit_for_bit": rep,
+                   "sweep_bit_equal_to_periodic": bit_equal,
+                   "rel_err_energy": rel(s1[0], r0[0]),
+                   "rel_err_virial": rel(s1[1], r0[1]),
+                   "force_err_per_particle": worst,
+                   "max_abs_err": 0.0 if same else float("inf"),
+                   "sweep_max_abs_err": max_abs, "rms_force": rms,
+                   "ms": statistics.median(turns["slab"]),
+                   "ms_turns": turns["slab"],
+                   "periodic_ms_same_turns": statistics.median(
+                       turns["periodic"]),
+                   "plain_ms": cuda_time_ms(lambda: cp.pair_list_plain(
+                       *slab, cap, slot_lo=lo_e, interior=interior), 3, 1),
+                   "library_ms": None,
+                   **list_bound(l1, (pos_e, diam_e, counts_e, cell),
+                                counts_)["list"]}
+            ok = (same and rep and bit_equal and math.isfinite(float(s1[0]))
+                  and rec["rel_err_energy"] <= rtol_ew
+                  and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f)
+            rec["ok"] = ok
+            log(json.dumps(rec))
+            results[(case, tag)] = rec
+            if not ok:
+                failures.append(f"cell_pairs_slab {case} {tag}")
+            del l0, l1, again, s1, sp, r0
+        del sh, halo
+        torch.cuda.empty_cache()
+    return results, failures
+
+
 def libzstd_found():
     from mdtpu_torch.io.compress import require_libzstd
     try:
@@ -2465,6 +2620,65 @@ def sharded_fire_path(mt):
         failures
 
 
+def sharded_user_path(mt, workdir, kept):
+    """Config 4 at 65,536 on the one-rank NCCL group, through the pair
+    list's slab launch: ``fire_minimize_sharded`` from the user path's XYZ
+    start (USER_FIRE_ITERS iterations at dmax USER_DMAX, tol 1e-4, timed),
+    its energy finite and below the start's (FIRE is chaotic, ROADMAP C7
+    and C8, so its end state is not held to the single-device FIRE's); then
+    ``run_simulation_sharded`` NVT(0.5, 0.01) for USER_NVT_STEPS steps from
+    the single-device path's NVT start (the same velocities and seed,
+    timed), its rows at steps 0 and 100 within 1e-8 of that path's (at dt
+    1e-4, 100 steps are too short for chaos to grow rounding that far)."""
+    from mdtpu_torch.minimize import fire_minimize_sharded
+    out_dir = os.path.join(workdir, "user_sharded")
+    state, params = user_start(mt, out_dir)
+    e0 = kept["energy_start"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end, energy, converged, n_iter = fire_minimize_sharded(
+        state, params, tol=1e-4, max_steps=USER_FIRE_ITERS, dmax=USER_DMAX)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nvt_dir = os.path.join(out_dir, "nvt")
+    final = mt.run_simulation_sharded(
+        kept["nvt_start"], kept["params"], mt.NVT(0.5, 0.01), USER_NVT_STEPS,
+        THERMO_EVERY, nvt_dir, traj_frequency=USER_NVT_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"sharded user: {what}")
+
+    energy = float(energy)
+    check(math.isfinite(energy) and energy < e0,
+          f"FIRE energy {energy} after {n_iter} iterations, start {e0}")
+    check(torch.equal(end.velocities, state.velocities)
+          and bool(torch.isfinite(end.positions).all()),
+          "FIRE: velocities not restored or non-finite state")
+    check(final.step == USER_NVT_STEPS
+          and bool(torch.isfinite(final.positions).all()), "NVT state")
+    rows = _rows(os.path.join(nvt_dir, "thermo.txt"))
+    ref = kept["rows"]
+    first = [[rel(a, b) for a, b in zip(r[1:], q[1:])]
+             for r, q in zip(rows[:2], ref[:2])]
+    check(len(rows) == USER_NVT_STEPS // THERMO_EVERY
+          and [r[0] for r in rows[:2]] == [q[0] for q in ref[:2]] == [0, 100]
+          and max(max(x) for x in first) <= 1e-8,
+          f"rows {rows[:2]} against the single-device path's {ref[:2]}")
+    return {"path": "sharded_user", "group": "nccl, 1 rank",
+            "potential": "NonAdditivePHS (the pair list's slab launch)",
+            "energy_start": e0, "energy_minimized": energy,
+            "fire_converged": converged, "fire_iterations": n_iter,
+            "fire_s": t1 - t0, "iterations_per_s": n_iter / (t1 - t0),
+            "nvt_steps": USER_NVT_STEPS, "nvt_s": t2 - t1,
+            "steps_per_s": USER_NVT_STEPS / (t2 - t1),
+            "rows_rel_err_vs_single_device": first, "thermo": rows}, \
+        failures
+
+
 def _rows(path):
     with open(path) as f:
         return [[float(x) for x in line.split()] for line in f
@@ -2503,6 +2717,7 @@ def run_paths(mt, workdir):
             "cell_sweep_slab_hilo_lean": cs.cell_sweep_hilo.slab_lean_launches,
             "plane_sweep": ps.plane_sweep.launches,
             "cell_pairs": cp.pair_list.launches,
+            "cell_pairs_slab": cp.pair_list.slab_launches,
             "pair_reduce": cp.pair_reduce.launches,
             "pair_reduce_lean": cp.pair_reduce.lean_launches,
             "rdf_histogram": rdf.rdf_histogram.launches,
@@ -2532,7 +2747,8 @@ def run_paths(mt, workdir):
         mt, workdir, "b1_tilted", state_tilted(mt, torch.float32),
         mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
                       potential=lj), mt.NVT(1.0, 0.4)))
-    user, f9 = counted(lambda: user_path(mt, workdir))
+    kept = {}
+    user, f9 = counted(lambda: user_path(mt, workdir, kept))
     resume, f10 = counted(lambda: resume_path(mt, workdir))
     nlp, f11 = counted(lambda: md_path(
         mt, workdir, "nl",
@@ -2546,9 +2762,22 @@ def run_paths(mt, workdir):
         sharded, f12 = counted(lambda: sharded_path(mt, workdir,
                                                     b1["thermo_nvt"]))
         sharded_fire, f13 = counted(lambda: sharded_fire_path(mt))
+        sharded_user, f14 = counted(lambda: sharded_user_path(mt, workdir,
+                                                              kept))
     finally:
         dist.destroy_process_group()
-    failures += f12 + f13
+    failures += f12 + f13 + f14
+    # The sharded user path takes the pair list's slab launch for every
+    # sweep (FIRE's and the NVT leg's), and no sweep kernel.
+    n = sharded_user["launches"]
+    if (n["cell_pairs"] < sharded_user["fire_iterations"] + USER_NVT_STEPS
+            or n["cell_pairs_slab"] != n["cell_pairs"]
+            or n["pair_reduce"] != n["cell_pairs"]
+            or n["pair_reduce_lean"] < 1
+            or n["cell_sweep"] or n["cell_sweep_hilo"]
+            or sharded_user["slot_steps"] != USER_NVT_STEPS):
+        failures.append(f"sharded user: launches {n}, slot steps "
+                        f"{sharded_user['slot_steps']}")
     # Every sweep of the sharded paths is a slab launch: the plain sweep in
     # NVT and FIRE, the hi/lo sweep in NVE, lean inside each segment.
     n = sharded["launches"]
@@ -2568,7 +2797,8 @@ def run_paths(mt, workdir):
     for rec in (b1, b2, bd, bds, fire, pack, b1_2d, b1_tilted, user, resume,
                 nlp):
         if (rec["launches"]["cell_sweep_slab"]
-                or rec["launches"]["cell_sweep_slab_hilo"]):
+                or rec["launches"]["cell_sweep_slab_hilo"]
+                or rec["launches"]["cell_pairs_slab"]):
             failures.append(f"{rec['path']}: took the slab launch "
                             f"{rec['launches']}")
     # The list path: every step through K2, its rebuilds through K1 (one
@@ -2651,7 +2881,8 @@ def run_paths(mt, workdir):
             "fire": fire, "pack": pack, "b1_2d": b1_2d,
             "b1_tilted": b1_tilted, "user": user,
             "resume": resume, "nl": nlp, "sharded": sharded,
-            "sharded_fire": sharded_fire}, failures
+            "sharded_fire": sharded_fire, "sharded_user": sharded_user}, \
+        failures
 
 
 def ptxas_summary(name, report):
@@ -2718,6 +2949,8 @@ def main():
     failures += nl_failures
     slab_results, slab_failures = slab_phase(mt)
     failures += slab_failures
+    list_slab_results, list_slab_failures = list_slab_phase(mt)
+    failures += list_slab_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -2880,6 +3113,24 @@ def main():
         kernels["kernels"].append(entry(
             kname, "mdtpu_torch/csrc/cell_sweep.cu", pallas_cell, launches,
             main_rec, extra))
+    # The pair list's slab launch (the sharded engine's sweep for a
+    # potential without a functor; JAX's is XLA, no pl.pallas_call): config
+    # 4 at f64, its launches on the sharded user path, the other cases
+    # beside it.
+    main_rec = list_slab_results[("config4_lattice", "float64")]
+    extra = {"covers": LIST_SLAB_COVERS,
+             "potential": "NonAdditivePHS (a user potential, float64)",
+             "periodic_ms_same_turns": main_rec["periodic_ms_same_turns"],
+             "launches_sharded_fire_and_nvt": by_path["sharded_user"][
+                 "cell_pairs_slab"]}
+    for (case, tag), r in list_slab_results.items():
+        if (case, tag) != ("config4_lattice", "float64"):
+            extra[f"{case}_{tag}"] = {key: r[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "periodic_ms_same_turns")}
+    kernels["kernels"].append(entry(
+        "cell_pairs_slab", "mdtpu_torch/csrc/cell_pairs.cu", pallas_cell,
+        by_path["sharded_user"]["cell_pairs_slab"], main_rec, extra))
     log(json.dumps({"compute_slots_ms": {
         f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
         slab_results.items() if k.endswith("compute_slots")}}))

@@ -10,17 +10,24 @@ Lennard-Jones, rho 0.8, r_c 2.5: 15^3 cells, C = 37) as the jittered lattice
 and as the melted fluid (the lattice after 300 NVT steps), at f64, f32 and as
 f32 hi/lo words, pseudo-hard spheres (rho 0.76, r_c 1.5) on the lattice, and
 the Brownian grid (pseudo-hard spheres at rho 0.5 through
-``PlaneEngine.create``, f32). Then each tree runs ``cell_sweep`` and
-``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian grid:
-``plane_sweep``) on them, and the probe (``probe_sweep``: ``full`` at chunks
-45, 15 and 5, ``nodiv``, ``reduce_only``) on its own input, in a process of
-its own, in the order parent, change, change, parent, so both are timed on
-the same card within one call (a CUDA graph of one wrapper call replayed 20
-times between two CUDA events, the median of 5 rounds: the device's time
-without the host's). Prints one JSON line per case and kernel: whether
-forces (the probe: ``fx``), energy and virial of the two trees are equal bit
-for bit (NaN equal to NaN), the largest force difference, both times and
-their ratio; then the card's name and power limit.
+``PlaneEngine.create``, f32); for the pair list, BASELINE config 4 (2D,
+65,536, rho 0.9, diameters U(0.8, 1.2), r_c 1.8: 128^2 cells, C = 13) on a
+lattice jittered by 0.05 at f64, f32 and hi/lo, and the bench's 3D lattice
+with a user potential at f32 and hi/lo. Then each tree runs ``cell_sweep``
+and ``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian
+grid: ``plane_sweep``; the list cases: ``pair_list`` and ``pair_sweep`` with
+the user potential of ``examples/03_polydisperse_2d.py``) on them, and the
+probe (``probe_sweep``: ``full`` at chunks 45, 15 and 5, ``nodiv``,
+``reduce_only``) on its own input, in a process of its own, in the order
+parent, change, change, parent, so both are timed on the same card within
+one call (a CUDA graph of one wrapper call replayed 20 times between two
+CUDA events, the median of 5 rounds: the device's time without the
+host's). Prints one JSON line per case and kernel: whether forces (the
+probe: ``fx``), energy and virial of the two trees are equal bit for bit
+(NaN equal to NaN), the largest force difference, both times and their
+ratio (for ``pair_list``: whether every buffer of the list, the per-slot
+counts and starts and the total are equal bit for bit, padding included);
+then the card's name and power limit.
 """
 
 import argparse
@@ -83,6 +90,48 @@ def make_inputs(path):
         "pot": "pseudo_hs", "grid": eng.grid, "cutoff": eng.cutoff,
         "kind": "plane", "inputs": eng.slot_inputs(
             bd.positions, bd.unitcell, bd.unitcell_inv, nb)}
+    # The pair list: config 4 on a lattice (chip_smoke.py's user_lattice)
+    # and the bench's 3D lattice, with the user potential (the list depends
+    # on the cutoff and the diameters only).
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_positions)
+    L = (N / 0.9) ** 0.5
+    cell2 = torch.eye(2, dtype=torch.float64) * L
+    pos2 = lattice_positions(N, cell2, 2, dtype=torch.float64, jitter=0.05,
+                             seed=4, device="cuda")
+    diam2 = 0.8 + 0.4 * torch.rand(N, generator=torch.Generator()
+                                   .manual_seed(6), dtype=torch.float64)
+    config4 = build_state_from_arrays(pos2, diam2, cell2, 0,
+                                      dtype=torch.float64, cutoff=1.8,
+                                      device="cuda")
+    user = user_potential(mt)
+    for name, state, cutoff, kinds in (
+            ("config4", config4, 1.8, ("f64", "f32", "hilo")),
+            ("user_3d_lattice", lattice, 2.5, ("f32", "hilo"))):
+        eng = mt.select_engine(user, cutoff, state)
+        assert eng.uses_pair_list
+        pos = state.positions
+        hi = pos.float()
+        lo = (pos - hi.double()).float()
+        cell32, cinv32 = state.unitcell.float(), state.unitcell_inv.float()
+        common = {"pot": "user", "grid": eng.grid, "cutoff": eng.cutoff,
+                  "capacity": eng.pair_list_capacity}
+        for kind in kinds:
+            if kind == "f64":
+                nb = eng.allocate(pos, state.diameters, state.unitcell,
+                                  state.unitcell_inv)
+                inputs = eng.slot_inputs(pos, state.unitcell,
+                                         state.unitcell_inv, nb)
+            else:
+                nb = eng.allocate(hi, state.diameters.float(), cell32,
+                                  cinv32)
+                inputs = (eng.slot_inputs(hi, cell32, cinv32, nb)
+                          if kind == "f32" else
+                          eng.slot_inputs_hilo(hi, lo, cell32, cinv32, nb))
+            assert not bool(nb.overflow)
+            cases[f"{name}_{kind}"] = dict(
+                common, kind="list_hilo" if kind == "hilo" else "list",
+                inputs=inputs)
     # The cases' boxes are orthorhombic: pass the box lengths, which every
     # tree's wrappers take (the cell matrix only since the 2D and tilted
     # sweeps).
@@ -93,6 +142,33 @@ def make_inputs(path):
 
 
 PROBE_SPECS = ("full:45", "full:15", "full:5", "nodiv:45", "reduce_only:45")
+LIST_FIELDS = ("neighbour", "disp", "r2", "sigma_i", "sigma_j", "count",
+               "start", "total")
+
+
+def user_potential(mt):
+    """The user potential of ``examples/03_polydisperse_2d.py`` against the
+    ``Potential`` of the tree ``mt`` comes from (no kernel has a functor for
+    it: the cell grid takes the pair list)."""
+    from mdtpu_torch.utils.math import ipow
+
+    class NonAdditivePHS(mt.Potential):
+        def evaluate(self, r, sigma_i, sigma_j):
+            sigma = 0.5 * (sigma_i + sigma_j) * (1.0 - 0.2 * torch.abs(
+                sigma_i - sigma_j))
+            cutoff = 1.25 * sigma
+            inside = r < cutoff
+            r_safe = torch.where(inside, r, torch.ones_like(r))
+            u_raw = ipow(sigma / r_safe, 12)
+            f_raw = 12 * u_raw / r_safe
+            u_c = 0.8 ** 12   # a number, not a tensor: capturable
+            f_c = 12 * u_c / cutoff
+            zero = torch.zeros_like(r)
+            return (torch.where(inside, u_raw - u_c + (r_safe - cutoff) * f_c,
+                                zero),
+                    torch.where(inside, f_raw - f_c, zero))
+
+    return NonAdditivePHS()
 
 
 def replay_ms(fn):
@@ -119,17 +195,23 @@ def replay_ms(fn):
 def worker(tree, inputs_path, out_path):
     sys.path.insert(0, tree)
     import mdtpu_torch as mt
+    from mdtpu_torch.ops.cell_pairs import pair_list, pair_sweep
     from mdtpu_torch.ops.cell_sweep import cell_sweep, cell_sweep_hilo
     from mdtpu_torch.ops.experimental import probe
     from mdtpu_torch.ops.plane_sweep import plane_sweep
 
     assert os.path.abspath(mt.__file__).startswith(os.path.abspath(tree))
-    pots = {"lj": mt.LennardJones(r_cut=2.5), "pseudo_hs": mt.PseudoHS()}
+    pots = {"lj": mt.LennardJones(r_cut=2.5), "pseudo_hs": mt.PseudoHS(),
+            "user": user_potential(mt)}
     kernels = {"plain": {"cell_sweep": cell_sweep, "plane_sweep": plane_sweep},
                "hilo": {"cell_sweep_hilo": cell_sweep_hilo},
                "plane": {"plane_sweep": plane_sweep}}
     out = {}
     for name, case in torch.load(inputs_path, weights_only=False).items():
+        if case["kind"] in ("list", "list_hilo"):
+            out.update(list_runs(name, case, pots["user"], pair_list,
+                                 pair_sweep))
+            continue
         args = (*(t.cuda() for t in case["inputs"]), case["grid"],
                 case["cutoff"], pots[case["pot"]])
         for kernel, fn in kernels[case["kind"]].items():
@@ -148,8 +230,30 @@ def worker(tree, inputs_path, out_path):
     torch.save(out, out_path)
 
 
+def list_runs(name, case, pot, pair_list, pair_sweep):
+    """``pair_list`` (every buffer, the per-slot counts and starts, the
+    total) and ``pair_sweep`` with the user potential on a list case."""
+    t = [x.cuda() for x in case["inputs"]]
+    lo = t.pop(1) if case["kind"] == "list_hilo" else None
+    args = (*t, case["grid"], case["cutoff"])
+    cap = case["capacity"]
+    plist = pair_list(*args, cap, slot_lo=lo)
+    energy, virial, force, _ = pair_sweep(*args, pot, cap, slot_lo=lo)
+    return {
+        f"{name} pair_list": {
+            "list": {k: getattr(plist, k).cpu() for k in LIST_FIELDS},
+            "ms": replay_ms(lambda: pair_list(*args, cap, slot_lo=lo))},
+        f"{name} pair_sweep": {
+            "energy": energy.cpu(), "virial": virial.cpu(),
+            "force": force.cpu(),
+            "ms": replay_ms(lambda: pair_sweep(*args, pot, cap,
+                                               slot_lo=lo))}}
+
+
 def same_bits(a, b):
     """Equal bit for bit, a NaN equal to a NaN at the same place."""
+    if not a.is_floating_point():
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
     return bool(torch.equal(torch.nan_to_num(a, nan=0.0),
                             torch.nan_to_num(b, nan=0.0))
                 and torch.equal(torch.isnan(a), torch.isnan(b)))
@@ -182,6 +286,18 @@ def main():
         p, c = parent[0][name], change[0][name]
         p_ms = [r[name]["ms"] for r in parent]
         c_ms = [r[name]["ms"] for r in change]
+        times = {"parent_ms": p_ms, "change_ms": c_ms,
+                 "parent_over_change": statistics.mean(p_ms)
+                 / statistics.mean(c_ms),
+                 "change_faster_in_every_run": max(c_ms) < min(p_ms)}
+        if "list" in p:
+            unequal = [k for k in LIST_FIELDS
+                       if not same_bits(p["list"][k], c["list"][k])]
+            print(json.dumps({"case": name, "list_equal": not unequal,
+                              "unequal": unequal,
+                              "entries": int(c["list"]["total"]), **times}),
+                  flush=True)
+            continue
         print(json.dumps({
             "case": name,
             "force_equal": same_bits(p["force"], c["force"]),
@@ -190,11 +306,7 @@ def main():
             "max_abs_force_diff": float(torch.nan_to_num(
                 p["force"] - c["force"], nan=0.0).abs().max()),
             "max_abs_force": float(torch.nan_to_num(
-                p["force"], nan=0.0).abs().max()),
-            "parent_ms": p_ms, "change_ms": c_ms,
-            "parent_over_change": statistics.mean(p_ms)
-            / statistics.mean(c_ms),
-            "change_faster_in_every_run": max(c_ms) < min(p_ms)}),
+                p["force"], nan=0.0).abs().max()), **times}),
             flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -29,22 +29,23 @@ The sweep is the B1 kernel for a potential it has a functor for, and the
 pair-list route (:mod:`mdtpu_torch.ops.cell_pairs`) for any other, chosen by
 the potential's type (:attr:`CellGridEngine.uses_pair_list`). The list's
 buffer holds ``pair_capacity`` entries, sized by :meth:`CellGridEngine.create`
-and grown with the cell capacity; a longer list sets the engine state's
-``overflow`` flag as a full cell does.
+and grown with the cell capacity, and is kept across calls; a longer list
+sets the engine state's ``overflow`` flag as a full cell does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mdtpu_torch.core.box import _mm, minimum_image
-from mdtpu_torch.ops.cell_pairs import list_capacity, pair_sweep
+from mdtpu_torch.ops.cell_pairs import (PairListWorkspace, list_capacity,
+                                        pair_sweep)
 from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
                                         kernel_params)
 from mdtpu_torch.potentials.base import check_engine_cutoff
@@ -98,6 +99,10 @@ class CellGridEngine:
     # Entries of the pair list (the route of a potential without a kernel
     # functor); 0: room for 8 hits a slot.
     pair_capacity: int = 0
+    # The list's buffers, kept across calls (and by a grown copy, which
+    # takes new ones at its new capacity).
+    pair_workspace: Any = field(default_factory=PairListWorkspace,
+                                compare=False, repr=False)
     # The driver and FIRE run this engine in the slot layout.
     runs_in_slots: ClassVar[bool] = True
 
@@ -244,7 +249,8 @@ class CellGridEngine:
         """The pair-list route; its overflow joins the engine state's."""
         energy, virial, force, over = pair_sweep(
             slot_pos, slot_diam, counts, cell, self.grid, self.cutoff,
-            self.potential, self.pair_list_capacity, observables, slot_lo)
+            self.potential, self.pair_list_capacity, observables, slot_lo,
+            workspace=self.pair_workspace)
         return energy, virial, force, dataclasses.replace(
             nbrs, overflow=nbrs.overflow | over)
 

@@ -24,15 +24,19 @@ from both sides, so the forces of the local slots are complete with no
 reactions to return, and energy and virial (half-sums per side) need one
 all-reduce, on full steps only.
 
+A potential without a kernel functor takes the pair-list route on the same
+extended grid: the list kernel (``csrc/cell_pairs.cu``) over the interior
+cells, the user's ``evaluate_r2`` (``force_r2`` on lean steps) in torch on
+the list, and the list's reduction; the list's overflow joins the state's
+overflow flag, which the driver all-reduces, so every rank grows the engine
+(its ``pair_capacity`` too) and reruns alike.
+
 Each rebuild (:meth:`HaloSlotEngine.slot_rebin`) first migrates the rows
 whose x-plane left the slab to the neighbouring rank, in fixed-size buffers
 of ``migration_capacity`` columns, on the device: a rebuild comes at least
 every skin/2 of drift, so a row never goes further than a neighbour.
 Overflow of the buffer raises the state's overflow flag (the driver
 restores the segment and grows the engine).
-
-The pair-list route (potentials without a kernel functor) has no slab
-launch yet.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ import torch
 from mdtpu_torch.core.types import SimulationState
 from mdtpu_torch.integrate import slot_step as slots
 from mdtpu_torch.ops.cell_grid import CellGridEngine
+from mdtpu_torch.ops.cell_pairs import (PairListWorkspace, list_capacity,
+                                        pair_sweep)
 from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
                                         kernel_params)
 from mdtpu_torch.parallel.geometry import sharded_geometry
@@ -70,7 +76,12 @@ class HaloSlotEngine:
     # Rows migrated per direction per rebuild at most (fixed-size buffers);
     # more raise the overflow flag.
     migration_capacity: int = 512
+    # Entries of a slab's pair list (potentials without a kernel functor);
+    # 0: room for 8 hits a slot.
+    pair_capacity: int = 0
     ring: Any = field(default=None, compare=False, repr=False)
+    pair_workspace: Any = field(default_factory=PairListWorkspace,
+                                compare=False, repr=False)
     # The rebuild exchanges rows, so every rank rebuilds at the same steps:
     # the slot advance takes the JAX package's schedule for it.
     rebin_unconditional: ClassVar[bool] = True
@@ -81,14 +92,12 @@ class HaloSlotEngine:
                max_sigma=1.0):
         """The engine for ``ring`` (:class:`mdtpu_torch.parallel.mesh
         .ShardRing`): the geometry of
-        :func:`mdtpu_torch.parallel.geometry.sharded_geometry` and a
-        migration buffer of a quarter of a slab's particles (at least 128
-        columns), as the JAX package sizes it."""
-        if kernel_params(potential) is None:
-            raise NotImplementedError(
-                f"HaloSlotEngine runs B1 over the slab, which has no functor "
-                f"for {type(potential).__name__}: the pair-list route "
-                f"(mdtpu_torch.ops.cell_pairs) has no sharded launch yet")
+        :func:`mdtpu_torch.parallel.geometry.sharded_geometry`, a migration
+        buffer of a quarter of a slab's particles (at least 128 columns), as
+        the JAX package sizes it, and for a potential without a kernel
+        functor a pair list with room for a slab's hits
+        (:func:`~mdtpu_torch.ops.cell_pairs.list_capacity` of ``n / P``
+        particles in ``V / P``)."""
         if isinstance(unitcell, torch.Tensor):
             unitcell = unitcell.detach().cpu().numpy()
         if diameters is not None:
@@ -99,16 +108,37 @@ class HaloSlotEngine:
         grid, cap, skin = sharded_geometry(cutoff, unitcell, n_particles,
                                            ring.size, min_skin, cell_capacity)
         k = max(128, -(-int(n_particles / ring.size * 0.25) // 128) * 128)
+        pair_capacity = 0
+        if kernel_params(potential) is None:
+            volume = abs(float(np.linalg.det(np.asarray(unitcell,
+                                                        np.float64))))
+            pair_capacity = list_capacity(n_particles / ring.size,
+                                          volume / ring.size, float(cutoff),
+                                          len(grid))
         return cls(potential=potential, cutoff=float(cutoff), skin=skin,
                    grid=grid, cell_capacity=cap, migration_capacity=k,
-                   ring=ring)
+                   pair_capacity=pair_capacity, ring=ring)
 
     def with_grown_capacity(self):
-        """1.4 times the cell capacity (plus 4) and twice the migration
-        buffer: both overflows raise the same flag."""
+        """1.4 times the cell capacity (plus 4), twice the migration buffer
+        and, on the pair-list route, 1.4 times the list's room (plus 1024):
+        the three overflows raise the same flag."""
         return dataclasses.replace(
             self, cell_capacity=int(self.cell_capacity * 1.4 + 4),
-            migration_capacity=self.migration_capacity * 2)
+            migration_capacity=self.migration_capacity * 2,
+            pair_capacity=(int(self.pair_capacity * 1.4) + 1024
+                           if self.pair_capacity else 0))
+
+    @property
+    def uses_pair_list(self) -> bool:
+        """Whether the slab's sweep goes through the pair list: the
+        potential has no functor in the sweep kernels (a choice by type)."""
+        return kernel_params(self.potential) is None
+
+    @property
+    def pair_list_capacity(self) -> int:
+        """Entries of a slab's pair list."""
+        return self.pair_capacity or 8 * self.local_slots
 
     @property
     def n_shards(self) -> int:
@@ -137,7 +167,9 @@ class HaloSlotEngine:
         to."""
         return CellGridEngine(potential=self.potential, cutoff=self.cutoff,
                               skin=self.skin, grid=self.grid,
-                              cell_capacity=self.cell_capacity)
+                              cell_capacity=self.cell_capacity,
+                              pair_capacity=self.pair_capacity
+                              * self.n_shards)
 
     # ------------------------------------------------------------- rebuild
     def _local_cid(self, x_plane, frac_in):
@@ -301,14 +333,23 @@ class HaloSlotEngine:
                       observables=True, pos_lo=None):
         """``(energy, virial, forces, nbrs)`` of this rank's slab: the ghost
         exchange (:meth:`slab_inputs`) and B1's launch over the interior
-        cells of the ghost-extended grid. Energy and virial are summed over
-        the ring on full steps (``observables``); lean steps return zeros.
-        ``pos_lo``: the lo words, for the hi/lo sweep. ``cell_inv`` is
-        unused; it keeps the single-device signature."""
+        cells of the ghost-extended grid, or for a potential without a
+        functor the pair list over them, the potential on the list and the
+        list's reduction (its overflow joins ``nbrs.overflow``). Energy and
+        virial are summed over the ring on full steps (``observables``);
+        lean steps return zeros. ``pos_lo``: the lo words, for the hi/lo
+        sweep. ``cell_inv`` is unused; it keeps the single-device
+        signature."""
         cell = cell.contiguous()
         pos, lo, diam, counts, grid, interior = self.slab_inputs(
             positions, diameters, nbrs.counts, cell, pos_lo)
-        if lo is not None:
+        if self.uses_pair_list:
+            energy, virial, forces, over = pair_sweep(
+                pos, diam, counts, cell, grid, self.cutoff, self.potential,
+                self.pair_list_capacity, observables, lo, interior=interior,
+                workspace=self.pair_workspace)
+            nbrs = dataclasses.replace(nbrs, overflow=nbrs.overflow | over)
+        elif lo is not None:
             energy, virial, forces = cell_sweep_hilo(
                 pos, lo, diam, counts, cell, grid, self.cutoff,
                 self.potential, observables, interior=interior)

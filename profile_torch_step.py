@@ -2,6 +2,7 @@
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
     python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor|sharded]
+                                  [--potential lj|user]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
@@ -26,6 +27,10 @@ window, CUDA kernel launches and host synchronisations per step, and the
 kernels that take the most device time; for ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
+``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
+instead, as ``chip_smoke.py`` builds it (2D, N = 65,536, rho 0.9, diameters
+U(0.8, 1.2), a user potential without a kernel functor, so every sweep is
+the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice.
 """
 
 import argparse
@@ -46,7 +51,10 @@ def main():
                         choices=("cellgrid", "plane", "slot", "neighbor",
                                  "sharded"),
                         default="cellgrid")
+    parser.add_argument("--potential", choices=("lj", "user"), default="lj")
     args = parser.parse_args()
+    if args.potential == "user" and args.engine not in ("slot", "sharded"):
+        parser.error("--potential user takes --engine slot or sharded")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
 
@@ -59,13 +67,24 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    state = lattice_fluid_state(N, 0.8, 1.0, dtype=torch.float32,
-                                cutoff=2.5, jitter=0.01, device="cuda")
-    params = mt.Parameters(density=0.8, n_particles=N, dt=0.002,
-                           potential=mt.LennardJones(r_cut=2.5))
-    ensemble = mt.NVT(1.0, 0.4)
+    if args.potential == "user":
+        from chip_smoke import CUTOFF_USER, user_lattice
+        from mdtpu_torch.sim.initialization import initialize_velocities
+        cutoff = CUTOFF_USER
+        state, params = user_lattice(mt)
+        state = state.replace(velocities=initialize_velocities(
+            0.5, 1, N, 2, dtype=torch.float64, device="cuda"))
+        ensemble = mt.NVT(0.5, 0.01)
+    else:
+        cutoff = 2.5
+        state = lattice_fluid_state(N, 0.8, 1.0, dtype=torch.float32,
+                                    cutoff=cutoff, jitter=0.01,
+                                    device="cuda")
+        params = mt.Parameters(density=0.8, n_particles=N, dt=0.002,
+                               potential=mt.LennardJones(r_cut=cutoff))
+        ensemble = mt.NVT(1.0, 0.4)
     engine = mt.select_engine(
-        params.potential, 2.5, state,
+        params.potential, cutoff, state,
         prefer="neighbor" if args.engine == "neighbor" else None)
     compensated = args.engine != "plane"
     if args.engine == "plane":
@@ -84,8 +103,9 @@ def main():
         dist.init_process_group("nccl", init_method=f"file://{store}/store",
                                 world_size=1, rank=0,
                                 device_id=torch.device("cuda", 0))
-        engine = HaloSlotEngine.create(params.potential, 2.5,
-                                       state.unitcell, N, ShardRing())
+        engine = HaloSlotEngine.create(params.potential, cutoff,
+                                       state.unitcell, N, ShardRing(),
+                                       diameters=state.diameters)
         state = build_sharded_slot_state(state.replace(nbrs=None), engine)
         advance = make_sharded_slot_advance(params, ensemble, engine)
         engine_rebin = slot_step._engine_rebin
@@ -157,7 +177,8 @@ def main():
     memcpy = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     print(json.dumps({
-        "card": card, "engine": args.engine, "compensated": compensated,
+        "card": card, "engine": args.engine, "potential": args.potential,
+        "compensated": compensated,
         "n": N, "grid": list(engine.grid),
         "capacity": engine.cell_capacity,
         "ms_per_step_host_clock": ms_per_step,

@@ -403,14 +403,38 @@ def _sweep_shared_bytes(list_len, threads, esize, words):
             + QUEUE_DEPTH * threads * 2)
 
 
+def _list_shared_bytes(list_len, cap, esize, dim, hilo, cells, out_len):
+    """``ListLayout`` of csrc/cell_pairs.cu for a block of ``cells`` own
+    cells buffering ``out_len`` hits, each region rounded up to 16 bytes:
+    the list (d + 1 words a candidate, and the lo words: 4 in 3D, 2 in
+    2D), the own slots' d + 1 words (2 d + 1 under hi/lo), d x 32
+    shifts, an 8-byte position per own slot and one more (at least 32),
+    33 + 2 x 32 ints of window records, an int slot id per staged
+    candidate, cells + 1 own offsets, and the buffered hits (an int and
+    d + 3 words each)."""
+    def r16(n):
+        return -(-n // 16) * 16
+
+    n = list_len
+    lo_words = (4 if dim == 3 else 2) if hilo else 0
+    own = (2 * dim + 1) if hilo else dim + 1
+    slots = cells * cap
+    return (r16((dim + 1) * n * esize) + r16(lo_words * n * esize)
+            + r16(own * slots * esize) + r16(32 * dim * esize)
+            + r16(8 * max(slots + 1, 32)) + r16(4 * 33) + 2 * r16(128)
+            + r16(4 * n) + r16(4 * (cells + 1)) + r16(4 * out_len)
+            + r16((dim + 3) * out_len * esize))
+
+
 @pytest.mark.parametrize("kind", ["f32", "f64", "hilo"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_stage_plans_in_2d_and_3d(dim, kind):
     """The sweep's and the list's staging plans at every capacity: the
     kernels' own byte counts (a 2D candidate takes 3 values, 5 with its lo
     words; 4 and 8 in 3D), within a block's shared memory, a stage of at
-    least one cell and at most the stencil, and a whole typical
-    neighbourhood in one stage."""
+    least one cell and at most the stencil (the list's: the whole stencil
+    where it fits, else the most that fit), and a whole typical
+    neighbourhood in one stage; the list's blocks fill an SM's warps."""
     dtype = torch.float64 if kind == "f64" else torch.float32
     hilo = kind == "hilo"
     esize = torch.finfo(dtype).bits // 8
@@ -425,11 +449,38 @@ def test_stage_plans_in_2d_and_3d(dim, kind):
         assert threads >= cap and threads & (threads - 1) == 0
         assert stage_cells([cap // 2] * cells, list_len) == cells or \
             list_len < cells * (cap // 2)
-        p_len, p_smem, p_threads = cell_pairs.pairs_stage_plan(
-            cap, dtype, hilo, dim)
-        assert p_smem == (words * (p_len + 2) + 96) * esize + 64 * 4
-        assert p_smem <= MAX_SHARED_BYTES and cap <= p_len <= cells * cap
-        assert p_threads >= max(cap, 32)
+        p_len, p_out, p_smem, p_threads, p_cells = \
+            cell_pairs.pairs_stage_plan(cap, dtype, hilo, dim)
+        assert p_smem == _list_shared_bytes(p_len, cap, esize, dim, hilo,
+                                            p_cells, p_out)
+        # A block takes up to 4 cells of a 2D row (a window of 3 x 6
+        # cells), one in 3D (3 x 9); a stage holds at least one window row,
+        # the whole window where it fits, else the most that fits.
+        rows, window = cells // 3, p_cells + 2
+        assert 1 <= p_cells <= (4 if dim == 2 else 1)
+        assert p_smem <= MAX_SHARED_BYTES
+        assert window * cap <= p_len <= rows * window * cap
+        assert p_len == rows * window * cap or _list_shared_bytes(
+            p_len + 1, cap, esize, dim, hilo, p_cells, 0) > MAX_SHARED_BYTES
+        # One or two warps for a small stencil, whichever keeps more warps
+        # on an SM; else a power of two of warps, enough that the blocks one
+        # SM's shared memory holds bring it its 64 warps, at most 8.
+        assert 32 <= p_threads <= 256 and p_threads & (p_threads - 1) == 0
+        base = p_smem - _list_shared_bytes(0, 0, esize, dim, hilo, 0, p_out) \
+            + _list_shared_bytes(0, 0, esize, dim, hilo, 0, 0)
+        blocks = min(32, 233472 // (base + 1024))
+        if cells * cap <= 256:
+            warps = {t: min(32, 1024 // t, blocks) * t // 32 for t in (32, 64)}
+            assert p_threads == (64 if warps[64] > warps[32] else 32)
+        else:
+            assert blocks * p_threads >= 2048 or p_threads == 256
+        # The buffered hits fill what the blocks an SM holds at 64 registers
+        # a thread leave of its shared memory, at most 4096.
+        per_block = min(233472 // min(32, 1024 // p_threads) - 1024, 232448)
+        assert 0 <= p_out <= 4096
+        assert p_out == 0 or p_smem <= per_block
+        assert p_out == 4096 or _list_shared_bytes(
+            p_len, cap, esize, dim, hilo, p_cells, p_out + 1) > per_block - 32
     # bench_2d.py's geometry (C = 9): the whole 2D stencil in one stage.
     assert stage_cells([9] * 9, stage_plan(9, dtype, hilo, 2)[0]) in (9, 3)
     assert stage_cells([5] * 9, stage_plan(9, dtype, hilo, 2)[0]) == 9

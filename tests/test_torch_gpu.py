@@ -28,6 +28,12 @@ launch of the sharded engine (B1 over the interior cells of a ghost-extended
 grid): against its plain version and the periodic launch (f64, f32, hi/lo),
 lean bit-equal and repeats, a run of cells outside the grid refused, and
 ``run_simulation_sharded`` on a ring of one on the card against the CPU.
+The pair list's slab launch (a user potential on the sharded engine):
+against its plain version and the periodic list (the same pairs, the
+forces, energy and virial bit for bit), the list's buffers kept across calls
+(padded as a fresh list, also under CUDA-graph replay and at a grown
+capacity), and a sharded run with the user potential on the card against
+the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -1352,6 +1358,196 @@ def test_sharded_run_on_the_card_matches_the_cpu(cuda, tmp_path):
         rows = np.concatenate([np.loadtxt(tmp_path / f"{device}_{leg}"
                                           / "thermo.txt")
                                for leg in ("nvt", "nve")])
+        out[str(device)] = (rows, end.positions.cpu().numpy(), launches)
+    (rows_c, pos_c, _), (rows_g, pos_g, launches) = (out["cpu"],
+                                                      out[str(cuda)])
+    assert launches >= 60
+    assert np.all(np.abs(rows_g - rows_c)
+                  <= np.maximum(1e-9 * np.abs(rows_c), 1.000001e-6))
+    np.testing.assert_allclose(pos_g, pos_c, rtol=0, atol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# The pair list's slab launch: a user potential on the sharded engine.
+# --------------------------------------------------------------------------
+
+def _user_slab(cuda, kind, n=4096):
+    """A ring of one's slab inputs of config 4's density and diameters (2D,
+    rho 0.9, U(0.8, 1.2), cutoff 1.8) on a lattice jittered by 0.05, and the
+    periodic slot inputs they come from: ``(engine, slab args, slab lo
+    words, interior, periodic args, periodic lo words)``, each args tuple
+    ``(slot_pos, slot_diam, counts, cell, grid, cutoff)``."""
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.halo_slot import build_sharded_slot_state
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_positions)
+
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    L = (n / 0.9) ** 0.5
+    cell = torch.eye(2, dtype=torch.float64) * L
+    pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.05,
+                            seed=4, device=cuda)
+    diam = 0.8 + 0.4 * torch.rand(n, generator=torch.Generator()
+                                  .manual_seed(6), dtype=torch.float64)
+    state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
+                                    cutoff=1.8, device=cuda)
+    halo = HaloSlotEngine.create(NonAdditivePHS(), 1.8, cell, n,
+                                 ShardRing(device=cuda), diameters=diam)
+    assert halo.uses_pair_list and halo.pair_capacity > 0
+    sh = build_sharded_slot_state(state, halo)
+    hi = sh.positions.to(dtype)
+    lo = (sh.positions - hi.double()).float() if kind == "hilo" else None
+    cellm = sh.unitcell.to(dtype).contiguous()
+    d = sh.diameters.to(dtype)
+    pos_e, lo_e, diam_e, counts_e, grid_e, interior = halo.slab_inputs(
+        hi, d, sh.nbrs.counts, cellm, lo)
+    return (halo, (pos_e, diam_e, counts_e, cellm, grid_e, halo.cutoff),
+            lo_e, interior, (hi, d, sh.nbrs.counts, cellm, halo.grid,
+                             halo.cutoff), lo)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_pair_list_slab_launch_matches_plain_and_the_periodic_list(cuda,
+                                                                   kind):
+    """The list over the interior cells of the ghost-extended grid: its
+    entries and counts are its plain version's, bit for bit, and repeat;
+    against the periodic list of the same state (a ring of one's slab is
+    the whole box) the same pairs in the same order (displacements, r^2 and
+    diameters equal; the neighbours are slots of the extended grid), and
+    the sweep on it gives the periodic list route's forces, energy and
+    virial bit for bit."""
+    halo, slab, slab_lo, interior, per, per_lo = _user_slab(cuda, kind)
+    cap = halo.pair_list_capacity
+    before = pairs_mod.pair_list.slab_launches
+    got = pairs_mod.pair_list(*slab, cap, slot_lo=slab_lo,
+                              interior=interior)
+    assert pairs_mod.pair_list.slab_launches == before + 1
+    again = pairs_mod.pair_list(*slab, cap, slot_lo=slab_lo,
+                                interior=interior)
+    per_list = pairs_mod.pair_list(*per, cap, slot_lo=per_lo)
+    torch.cuda.synchronize()
+    plain = pairs_mod.pair_list_plain(*slab, cap, slot_lo=slab_lo,
+                                      interior=interior)
+    assert got.count.shape == (interior[1] * halo.cell_capacity,)
+    assert int(got.total) == int(plain.total) == int(per_list.total) > 1000
+    assert not bool(got.overflow)
+    assert torch.equal(got.count, plain.count)
+    assert torch.equal(got.count, per_list.count)
+    for a, b, c in zip(_list_entries(got), _list_entries(plain),
+                       _list_entries(again)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(_list_entries(got)[1:], _list_entries(per_list)[1:]):
+        assert torch.equal(a, b)
+    pot = halo.potential
+    for obs in (True, False):
+        slab_out = pairs_mod.pair_sweep(*slab, pot, cap, obs, slab_lo,
+                                        interior=interior)
+        per_out = pairs_mod.pair_sweep(*per, pot, cap, obs, per_lo)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(slab_out[:3],
+                                                     per_out[:3]))
+
+
+def test_pair_list_workspace_pads_only_what_is_stale(cuda):
+    """A list kept in a workspace across calls (the engines' way) holds, in
+    all its capacity, what a fresh list holds: as its hits fall and rise
+    (the positions scaled by a few percent about the origin), under
+    CUDA-graph replay with the inputs changed in place between replays, and
+    at a grown capacity (new buffers, padded whole)."""
+    halo, _, _, _, per, _ = _user_slab(cuda, "f64")
+    pos, diam, counts, cell, grid, cutoff = per
+    cap = halo.pair_list_capacity
+    ws = pairs_mod.PairListWorkspace()
+
+    def same(kept, fresh):
+        assert torch.equal(kept.count, fresh.count)
+        assert int(kept.total) == int(fresh.total)
+        for k in ("neighbour", "disp", "r2", "sigma_i", "sigma_j"):
+            assert torch.equal(getattr(kept, k), getattr(fresh, k)), k
+        assert int(ws.last_total) == int(fresh.total)
+
+    totals = []
+    x = pos.clone()
+    for scale in (1.0, 1.03, 1.01, 1.05, 1.0):
+        x.copy_(pos * scale)
+        kept = pairs_mod.pair_list(x, diam, counts, cell, grid, cutoff, cap,
+                                   workspace=ws)
+        assert kept.r2.data_ptr() == ws.buffers["r2"].data_ptr()
+        fresh = pairs_mod.pair_list(x, diam, counts, cell, grid, cutoff,
+                                    cap)
+        torch.cuda.synchronize()
+        same(kept, fresh)
+        totals.append(int(fresh.total))
+    # The totals fell and rose: stale hits were padded over, and new ones
+    # written past the old end.
+    steps = list(zip(totals, totals[1:]))
+    assert any(b < a for a, b in steps) and any(b > a for a, b in steps)
+
+    def call():
+        return pairs_mod.pair_list(x, diam, counts, cell, grid, cutoff, cap,
+                                   workspace=ws)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for scale in (1.02, 1.0, 1.04):
+        x.copy_(pos * scale)
+        graph.replay()
+        fresh = pairs_mod.pair_list(x, diam, counts, cell, grid, cutoff,
+                                    cap)
+        torch.cuda.synchronize()
+        same(captured, fresh)
+    grown = cap + 4099
+    kept = pairs_mod.pair_list(pos, diam, counts, cell, grid, cutoff, grown,
+                               workspace=ws)
+    fresh = pairs_mod.pair_list(pos, diam, counts, cell, grid, cutoff, grown)
+    torch.cuda.synchronize()
+    assert kept.capacity == grown
+    same(kept, fresh)
+
+
+def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """run_simulation_sharded with a user potential (the pair list's slab
+    launch) on a ring of one at N = 4096, 2D f64 (config 4's density and
+    diameters), two NVE legs, on the card and on the CPU from one state:
+    thermo rows to rel 1e-9 (one flip of the last printed digit), positions
+    to 1e-9; every step's list is a slab launch on the card."""
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+
+    n, rho = 4096, 0.9
+    pot = NonAdditivePHS()
+    params = mdtpu_torch.Parameters(rho, n, 1e-3, pot)
+    L = (n / rho) ** 0.5
+    cell = torch.eye(2, dtype=torch.float64) * L
+    diam = 0.8 + 0.4 * torch.rand(n, generator=torch.Generator()
+                                  .manual_seed(6), dtype=torch.float64)
+    vel = initialize_velocities(0.5, 7, n, 2, dtype=torch.float64,
+                                device="cpu")
+    out = {}
+    for device in ("cpu", cuda):
+        pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.05,
+                                seed=4, device=device)
+        state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
+                                        cutoff=1.8, device=device)
+        state = state.replace(velocities=vel.to(device))
+        eng = HaloSlotEngine.create(pot, 1.8, cell, n,
+                                    ShardRing(device=device), diameters=diam)
+        pairs_mod.reset_launches()
+        mid = mdtpu_torch.run_simulation_sharded(
+            state, params, mdtpu_torch.NVE(), 30, 10,
+            str(tmp_path / f"{device}_a"), engine=eng, device=device)
+        end = mdtpu_torch.run_simulation_sharded(
+            mid, params, mdtpu_torch.NVE(), 30, 10,
+            str(tmp_path / f"{device}_b"), engine=eng, device=device)
+        launches = pairs_mod.pair_list.slab_launches
+        rows = np.concatenate([np.loadtxt(tmp_path / f"{device}_{leg}"
+                                          / "thermo.txt")
+                               for leg in ("a", "b")])
         out[str(device)] = (rows, end.positions.cpu().numpy(), launches)
     (rows_c, pos_c, _), (rows_g, pos_g, launches) = (out["cpu"],
                                                       out[str(cuda)])

@@ -20,7 +20,16 @@ geometry:
     against 2 d D t, as JAX ``test_sharded_brownian_msd_matches_diffusion``),
     each rank's draws those of the ``brownian_noise`` seam for ``(seed,
     step, rank)``, and the two ranks' draws different;
-  * the ring of one: the driver run and FIRE in this process, against the
+  * a user potential (``examples/03_polydisperse_2d.py``'s, through the
+    pair list's slab launch) on ``tests/test_torch_halo_slot.py``'s 2D
+    polydisperse system: 40 NVE steps through ``run_simulation_sharded``
+    (rows and frames as above, final positions to 1e-9) and
+    ``fire_minimize_sharded`` at 12 iterations (energy rel 1e-9) against
+    JAX's, also from a list of one entry (FIRE grows and restarts); a list
+    of one entry through the driver: it warns, grows (the list 1.4 times
+    plus 1024 a grow) and ends with the rows of a run at the list's own
+    size;
+  * the ring of one: the driver runs and FIRE in this process, against the
     same JAX runs.
 
 The spawning and the children's bounds are
@@ -42,10 +51,13 @@ from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
 from mdtpu_torch.parallel.geometry import sharded_geometry
 from mdtpu_torch.sim.initialization import build_state_from_arrays
 from tests.test_torch_halo_slot import (CUTOFF, DT, KEY_SEED, MIGRATION, N,
-                                        RHO, WORLD, fluid_arrays, port_engine,
-                                        port_state, spawn_ranks)
+                                        RHO, USER_CUTOFF, USER_DT, USER_RHO,
+                                        WORLD, fluid_arrays, port_engine,
+                                        port_state, spawn_ranks, user_arrays,
+                                        user_engine, user_port_state)
 
 STEPS, FREQ, CHECKPOINT = 40, 10, 20
+USER_FIRE_ITERS = 12
 RESUME_STEPS = 19
 FIRE_ITERS = (12, 50)
 FIRE_RHO, FIRE_CUTOFF = 0.8, 2.5
@@ -185,11 +197,66 @@ def brownian_case(ring, workdir):
                                                ring.rank).numpy()}
 
 
+def user_driver_case(ring, workdir):
+    """40 NVE steps of the 2D user system through
+    ``run_simulation_sharded`` (the pair list's slab launch)."""
+    pos, vel, diam, cell = user_arrays()
+    eng = user_engine(ring, cell)
+    params = mt.Parameters(USER_RHO[2], N, USER_DT, eng.potential)
+    final = mt.run_simulation_sharded(
+        user_port_state(pos, vel, diam, cell), params, mt.NVE(), STEPS, FREQ,
+        rank_dir(workdir, "user", ring.rank), engine=eng)
+    return {"positions": final.positions.numpy(),
+            "energy": float(final.energy)}
+
+
+def user_recover_case(ring, workdir):
+    """The 2D user system through the driver with a list of one entry, and
+    with the list's own size."""
+    pos, vel, diam, cell = user_arrays()
+    caught = []
+    for name, pair_capacity in (("user_tight", 1), ("user_roomy", None)):
+        eng = user_engine(ring, cell, pair_capacity=pair_capacity)
+        params = mt.Parameters(USER_RHO[2], N, USER_DT, eng.potential)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            mt.run_simulation_sharded(
+                user_port_state(pos, vel, diam, cell), params, mt.NVE(),
+                RECOVER_STEPS, FREQ, rank_dir(workdir, name, ring.rank),
+                engine=eng)
+        caught.append([str(x.message) for x in w
+                       if "capacity overflow" in str(x.message)])
+    return {"warnings": caught}
+
+
+def user_fire_case(ring):
+    """``fire_minimize_sharded`` on the 2D user system (tol 0), with the
+    list's own size and with a list of one entry (FIRE restarts on a grown
+    engine until the list fits)."""
+    pos, vel, diam, cell = user_arrays()
+    st = user_port_state(pos, vel, diam, cell)
+    out = {}
+    for name, pair_capacity in (("", None), ("tight_", 1)):
+        eng = user_engine(ring, cell, pair_capacity=pair_capacity)
+        params = mt.Parameters(USER_RHO[2], N, USER_DT, eng.potential)
+        end, energy, converged, n_steps = fire_minimize_sharded(
+            st, params, eng, max_steps=USER_FIRE_ITERS, tol=0.0)
+        out.update({f"{name}energy": float(energy),
+                    f"{name}n_steps": n_steps,
+                    f"{name}converged": converged,
+                    f"{name}velocities_kept": bool(torch.equal(
+                        end.velocities, st.velocities))})
+    return out
+
+
 def run_cases(ring, workdir):
     return {"driver": driver_case(ring, workdir),
             "recover": recover_case(ring, workdir),
             "fire": fire_case(ring, FIRE_ITERS),
-            "brownian": brownian_case(ring, workdir)}
+            "brownian": brownian_case(ring, workdir),
+            "user_driver": user_driver_case(ring, workdir),
+            "user_recover": user_recover_case(ring, workdir),
+            "user_fire": user_fire_case(ring)}
 
 
 # ------------------------------------------------------ the parent's side
@@ -240,6 +307,22 @@ def jax_runs(workdir):
         end, energy, _, n_steps = jfire(fst, fparams, feng, mesh,
                                         max_steps=its, tol=0.0)
         res["fire"][its] = {"energy": float(energy), "n_steps": n_steps}
+
+    # The user potential: the driver and FIRE.
+    from tests.test_torch_halo_slot import jax_user_engine
+    upos, uvel, udiam, ucell = user_arrays()
+    ueng = jax_user_engine(ucell)
+    uparams = JParameters(density=USER_RHO[2], n_particles=N, dt=USER_DT,
+                          potential=ueng.potential)
+    ustate = jax_state(upos, uvel, ucell, diam=udiam, cutoff=USER_CUTOFF[2])
+    user_dir = os.path.join(workdir, "jax_user")
+    ufinal = jrun(ustate, uparams, JNVE(), STEPS, FREQ, user_dir, mesh=mesh,
+                  engine=ueng)
+    _, uenergy, _, un = jfire(ustate, uparams, ueng, mesh,
+                              max_steps=USER_FIRE_ITERS, tol=0.0)
+    res["user"] = {"dir": user_dir, "positions": np.asarray(ufinal.positions),
+                   "energy": float(ufinal.energy),
+                   "fire_energy": float(uenergy), "fire_steps": un}
     return res
 
 
@@ -260,7 +343,9 @@ def runs(tmp_path_factory):
         one_dir = os.path.join(workdir, "one")
         ring = ShardRing(device="cpu")
         one = {"driver": driver_case(ring, one_dir),
-               "fire": fire_case(ring, FIRE_ITERS[:1])}
+               "fire": fire_case(ring, FIRE_ITERS[:1]),
+               "user_driver": user_driver_case(ring, one_dir),
+               "user_fire": user_fire_case(ring)}
     finally:
         ranks = wait()
     return {"ranks": ranks, "one": one, "jax": jax_out,
@@ -368,3 +453,42 @@ def test_sharded_brownian_diffuses_with_per_rank_draws(runs):
         assert rec["n_calls"] == BD_STEPS
         np.testing.assert_array_equal(rec["first_draws"], rec["seam_again"])
     assert not np.array_equal(a["first_draws"], b["first_draws"])
+
+
+@pytest.mark.parametrize("ring", RINGS)
+def test_user_run_simulation_sharded_matches_jax(runs, ring):
+    got = _ring_out(runs, ring)["user_driver"]
+    ref = runs["jax"]["user"]
+    np.testing.assert_allclose(got["positions"], ref["positions"], rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(got["energy"], ref["energy"], rtol=1e-10)
+    out = os.path.join(runs["dirs"][ring], "user")
+    for name in ("thermo.txt", "trajectory.xyz", "final.xyz"):
+        _assert_same_files(os.path.join(out, name),
+                           os.path.join(ref["dir"], name))
+    rows = np.loadtxt(os.path.join(out, "thermo.txt"))
+    assert rows[:, 0].tolist() == list(range(0, STEPS, FREQ))
+
+
+@pytest.mark.parametrize("ring", RINGS)
+def test_user_fire_minimize_sharded_matches_jax(runs, ring):
+    got = _ring_out(runs, ring)["user_fire"]
+    ref = runs["jax"]["user"]
+    # A list of one entry: FIRE grows the engine and restarts, and ends
+    # where the run at the list's own size ends.
+    for name in ("", "tight_"):
+        assert got[f"{name}n_steps"] == ref["fire_steps"] == USER_FIRE_ITERS
+        np.testing.assert_allclose(got[f"{name}energy"], ref["fire_energy"],
+                                   rtol=1e-9)
+        assert got[f"{name}velocities_kept"]
+        assert not got[f"{name}converged"]
+
+
+def test_pair_list_overflow_recovers_in_the_driver(runs):
+    for rank in runs["ranks"]:
+        tight, roomy = rank["user_recover"]["warnings"]
+        assert tight and not roomy
+    out = runs["dirs"]["two_ranks"]
+    for name in ("thermo.txt", "trajectory.xyz", "final.xyz"):
+        _assert_same_files(os.path.join(out, "user_tight", name),
+                           os.path.join(out, "user_roomy", name))
