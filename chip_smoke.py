@@ -76,12 +76,18 @@
    timed by graph replay against its bound. List phase: the neighbour
    list's build (``nl_build``, K1) and force pass (``nl_forces``, K2)
    against their plain versions on the bench's jittered lattice and melted
-   fluid at 65,536 and 262,144, f64 and f32: K1's rows equal as sets, its
-   counts and overflow flag equal, and both flags up with C a quarter and K
-   32; K2 on K1's list to f64 1e-12 / 1e-10, f32 1e-5; two launches of
+   fluid at 65,536 and 262,144 and the lattice with its particles shuffled
+   at 65,536, f64 and f32: K1's rows bit for bit the
+   stencil-order plain build's (padding included) and equal as sets to the
+   default plain build's, its counts and overflow flag equal; with C a
+   quarter and K 32 both flags up and the rows and counts equal; with C
+   grown twice (the stencil staged 9 cells at a time) the rows equal; K2
+   on K1's list, its rows in cell order, to f64 1e-12 / 1e-10, f32 1e-5,
+   its forces bit-equal to the particle-order launch's; two launches of
    each bit for bit; timed by graph replay in turns with B1 (full and lean)
-   on the same state, the whole ``allocate`` (binning and K1) and the plain
-   versions by events, against bounds from this run's list. Slab phase:
+   on the same state and K2 in particle order, the whole ``allocate``
+   (binning and K1) and the plain versions by events, against bounds from
+   this run's list. Slab phase:
    B1's slab launch (``HaloSlotEngine`` on a ring of one: the box one slab
    of a grid with a ghost x-plane on each side, the blocks over its
    interior cells) on the bench's lattice at 65,536 and 262,144 and the
@@ -1863,11 +1869,14 @@ def rdf_phase(mt):
 def nl_bound(n, dim, dtype, *, candidates=0, occupied=0, n_cells=0, k=0,
              entries=0, inside_pot=0, pot=None):
     """The least time of K1 (``candidates`` > 0: each stencil candidate's
-    distance and test once; the positions, cells and buckets' occupied
-    entries read once, the whole (N, K) list and the counts written once)
-    or of K2 (each list entry's distance and test once, each unordered pair
-    inside the potential's cutoff evaluated once; the list's entries, counts,
-    positions and diameters read once, the forces written once)."""
+    distance and test once; the positions, the particles' cells, the cells'
+    counts and the buckets' occupied entries read once, the whole (N, K)
+    list and the counts written once) or of K2 (each list entry's distance
+    and test once, each unordered pair inside the potential's cutoff
+    evaluated once; the list's entries, counts, positions and diameters
+    read once, the forces written once). The bytes count only what the
+    function needs: not the binning's ``order`` and starts, which only
+    schedule the kernels' work."""
     b = torch.finfo(dtype).bits // 8
     if candidates:
         ops = candidates * OPS_NL_DISTANCE
@@ -1893,18 +1902,30 @@ def stencil_candidates(counts, grid, cap):
     near = sum(torch.roll(cnt, tuple(-o for o in off),
                           dims=tuple(range(dim)))
                for off in itertools.product((-1, 0, 1), repeat=dim))
-    return int((cnt * near).sum())
+    return int((counts.reshape(grid) * near).sum())
+
+
+def same(a, b):
+    """Two results (tuples of tensors) equal bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def list_phase(mt):
     """K1 (``nl_build``) and K2 (``nl_forces``) against their plain versions
     on the bench's jittered lattice and melted fluid at 65,536 and 262,144,
-    f64 and f32: K1's rows equal as sets, its counts and flag equal; again
-    with C and K small enough to overflow (both flags up, counts equal); K2
-    on K1's list within f64 1e-12 / 1e-10, f32 1e-5; two launches of each
-    bit for bit. Times by graph replay in turns with B1 (full and lean) on
-    the same state, the plain versions and the whole ``allocate`` (binning
-    and K1) by events; bounds from this run's list."""
+    and the lattice with its particles shuffled (a random order of the same
+    positions, as a packing leaves them) at 65,536, f64 and f32. K1, given
+    the binning's ``order`` and starts: its rows bit for bit the
+    stencil-order plain build's (padding included) and equal as sets to
+    the default plain build's, its counts and flag equal; again with C a
+    quarter and K 32 (both flags up, rows, counts equal) and with C grown
+    twice (a stage of 9 stencil cells, rows equal). K2 on K1's list, its
+    rows in the state's cell order, within f64 1e-12 / 1e-10, f32 1e-5, and
+    its forces bit-equal to the particle-order launch's; two launches of
+    each bit for bit. Times by graph replay in turns with B1 (full and lean)
+    on the same state and K2 in particle order, the plain versions and the
+    whole ``allocate`` (binning and K1) by events; bounds from this run's
+    list."""
     from mdtpu_torch.ops import neighbor_list as nl
     from mdtpu_torch.ops.cell_sweep import cell_sweep
     from mdtpu_torch.sim.initialization import lattice_fluid_state
@@ -1913,44 +1934,60 @@ def list_phase(mt):
     results, failures = {}, []
     for n in NL_SIZES:
         melted = melted_state(mt, n)
-        for case in ("lattice", "melted"):
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(9))
+        for case in ("lattice", "melted", "shuffled")[:3 if n == N_BENCH
+                                                      else 2]:
             for dtype in (torch.float64, torch.float32):
                 tag = str(dtype).split(".")[-1]
                 st = (as_dtype(melted, dtype) if case == "melted" else
                       lattice_fluid_state(n, 0.8, 1.0, dtype=dtype,
                                           cutoff=2.5, jitter=0.01,
                                           device="cuda"))
+                if case == "shuffled":
+                    st = st.replace(positions=st.positions[
+                        perm.to(st.positions.device)])
                 eng = mt.select_engine(pot, 2.5, st, prefer="neighbor")
                 assert isinstance(eng, nl.NeighborListEngine), eng
                 lengths = torch.diagonal(st.unitcell).contiguous()
                 pos = st.positions.contiguous()
-                cid, buf, counts = eng.bin(pos, st.unitcell_inv)
-                b_args = (pos, cid, buf, counts, lengths, eng.grid,
-                          eng.cutoff + eng.skin, eng.max_neighbors)
-                idx, count, over = nl.nl_build(*b_args)
+
+                def build_args(e):
+                    cid, buf, counts, order, starts = e.bin_sorted(
+                        pos, st.unitcell_inv)
+                    return ((pos, cid, buf, counts, lengths, e.grid,
+                             e.cutoff + e.skin, e.max_neighbors),
+                            {"order": order, "starts": starts})
+
+                b_args, b_kw = build_args(eng)
+                counts = b_args[3]
+                idx, count, over = nl.nl_build(*b_args, **b_kw)
                 torch.cuda.synchronize()
+                ordered = nl.nl_build_plain(*b_args, stencil_order=True)
                 idx0, count0, over0 = nl.nl_build_plain(*b_args)
-                rows_differ = int((torch.sort(idx, 1).values
+                rows_differ = int((idx != ordered[0]).any(1).sum())
+                sets_differ = int((torch.sort(idx, 1).values
                                    != torch.sort(idx0, 1).values)
                                   .any(1).sum())
-                again = nl.nl_build(*b_args)
-                build_repeats = all(torch.equal(a, b) for a, b in
-                                    zip(again, (idx, count, over)))
-                small = dataclasses.replace(
+                build_repeats = same(nl.nl_build(*b_args, **b_kw),
+                                     (idx, count, over))
+                small_args, small_kw = build_args(dataclasses.replace(
                     eng, cell_capacity=eng.cell_capacity // 4,
-                    max_neighbors=32)
-                s_cid, s_buf, s_counts = small.bin(pos, st.unitcell_inv)
-                s_args = (pos, s_cid, s_buf, s_counts, lengths, small.grid,
-                          small.cutoff + small.skin, small.max_neighbors)
-                _, s_count, s_over = nl.nl_build(*s_args)
-                _, s_count0, s_over0 = nl.nl_build_plain(*s_args)
+                    max_neighbors=32))
+                small = nl.nl_build(*small_args, **small_kw)
+                small0 = nl.nl_build_plain(*small_args, stencil_order=True)
+                grown = eng.with_grown_capacity().with_grown_capacity()
+                g_args, g_kw = build_args(grown)
+                g_out = nl.nl_build(*g_args, **g_kw)
+                g_want = nl.nl_build_plain(*g_args, stencil_order=True)
+                order = b_kw["order"]
                 f_args = (pos, st.diameters, idx, count, lengths,
                           eng.cutoff, pot)
-                e1, w1, f1 = nl.nl_forces(*f_args)
+                e1, w1, f1 = nl.nl_forces(*f_args, order=order)
                 torch.cuda.synchronize()
                 e0, w0, f0 = nl.nl_forces_plain(*f_args)
-                forces_repeat = all(torch.equal(a, b) for a, b in
-                                    zip(nl.nl_forces(*f_args), (e1, w1, f1)))
+                forces_repeat = same(nl.nl_forces(*f_args, order=order),
+                                     (e1, w1, f1))
+                unordered = nl.nl_forces(*f_args)
                 worst, max_abs, rms = force_error(f1.T, f0.T, n)
                 # B1 on the same state, in the same turns.
                 cg = mt.select_engine(pot, 2.5, st)
@@ -1960,8 +1997,11 @@ def list_phase(mt):
                 sw = (*cg.slot_inputs(pos, st.unitcell, st.unitcell_inv,
                                       nb), cg.grid, cg.cutoff, pot)
                 turns = kernel_turns({
-                    "nl_build": lambda: nl.nl_build(*b_args),
-                    "nl_forces": lambda: nl.nl_forces(*f_args),
+                    "nl_build": lambda: nl.nl_build(*b_args, **b_kw),
+                    "nl_build_grown": lambda: nl.nl_build(*g_args, **g_kw),
+                    "nl_forces": lambda: nl.nl_forces(*f_args, order=order),
+                    "nl_forces_particle_order": lambda: nl.nl_forces(
+                        *f_args),
                     "cell_sweep": lambda: cell_sweep(*sw),
                     "cell_sweep_lean": lambda: cell_sweep(
                         *sw, observables=False)})
@@ -1980,13 +2020,26 @@ def list_phase(mt):
                             turns["cell_sweep_lean"]),
                         "library_ms": None}
                 rec = {"kernel_check": "nl_build", **base,
-                       "rows_differing": rows_differ,
-                       "max_abs_err": float(rows_differ),
-                       "counts_equal": bool(torch.equal(count, count0)),
-                       "overflow": [bool(over), bool(over0)],
-                       "overflow_small": [bool(s_over), bool(s_over0)],
-                       "counts_equal_small": bool(torch.equal(s_count,
-                                                              s_count0)),
+                       "stage_cells": nl.build_plan(eng.cell_capacity, 3,
+                                                    dtype),
+                       "rows_differing_stencil_order": rows_differ,
+                       "rows_differing_as_sets": sets_differ,
+                       "max_abs_err": float(rows_differ + sets_differ),
+                       "counts_equal": bool(torch.equal(count, count0)
+                                            and torch.equal(count,
+                                                            ordered[1])),
+                       "overflow": [bool(over), bool(over0),
+                                    bool(ordered[2])],
+                       "overflow_small": [bool(small[2]), bool(small0[2])],
+                       "small_equal_stencil_order": same(small, small0),
+                       "counts_equal_small": bool(torch.equal(
+                           small[1], nl.nl_build_plain(*small_args)[1])),
+                       "grown_capacity": grown.cell_capacity,
+                       "grown_stage_cells": nl.build_plan(
+                           grown.cell_capacity, 3, dtype),
+                       "grown_equal_stencil_order": same(g_out, g_want),
+                       "grown_ms": statistics.median(
+                           turns["nl_build_grown"]),
                        "repeats_bit_for_bit": build_repeats,
                        "ms": statistics.median(turns["nl_build"]),
                        "ms_turns": turns["nl_build"],
@@ -2001,10 +2054,15 @@ def list_phase(mt):
                            occupied=int(counts.clamp(
                                max=eng.cell_capacity).sum()),
                            n_cells=counts.numel(), k=eng.max_neighbors)}
-                ok = (rows_differ == 0 and rec["counts_equal"]
-                      and rec["overflow"] == [False, False]
+                ok = (rows_differ == 0 and sets_differ == 0
+                      and rec["counts_equal"]
+                      and rec["overflow"] == [False] * 3
                       and rec["overflow_small"] == [True, True]
-                      and rec["counts_equal_small"] and build_repeats)
+                      and rec["small_equal_stencil_order"]
+                      and rec["counts_equal_small"]
+                      and rec["grown_stage_cells"] < rec["stage_cells"]
+                      and rec["grown_equal_stencil_order"]
+                      and not bool(g_out[2]) and build_repeats)
                 rec["ok"] = ok
                 log(json.dumps(rec))
                 results[("nl_build", f"{case}_{n}", tag)] = rec
@@ -2013,11 +2071,18 @@ def list_phase(mt):
                 f64 = dtype == torch.float64
                 rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
                 rec = {"kernel_check": "nl_forces", **base,
+                       "lanes": nl.LANES,
                        "rel_err_energy": rel(e1, e0),
                        "rel_err_virial": rel(w1, w0),
                        "force_err_per_particle": worst,
                        "max_abs_err": max_abs, "rms_force": rms,
                        "repeats_bit_for_bit": forces_repeat,
+                       "forces_equal_particle_order": bool(torch.equal(
+                           unordered[2], f1)),
+                       "rel_err_energy_particle_order": rel(unordered[0],
+                                                            e1),
+                       "particle_order_ms": statistics.median(
+                           turns["nl_forces_particle_order"]),
                        "ms": statistics.median(turns["nl_forces"]),
                        "ms_turns": turns["nl_forces"],
                        "plain_ms": cuda_time_ms(
@@ -2027,13 +2092,16 @@ def list_phase(mt):
                 ok = (math.isfinite(float(e1))
                       and rec["rel_err_energy"] <= rtol_ew
                       and rec["rel_err_virial"] <= rtol_ew
-                      and worst <= tol_f and forces_repeat)
+                      and worst <= tol_f and forces_repeat
+                      and rec["forces_equal_particle_order"]
+                      and rec["rel_err_energy_particle_order"] <= rtol_ew)
                 rec["ok"] = ok
                 log(json.dumps(rec))
                 results[("nl_forces", f"{case}_{n}", tag)] = rec
                 if not ok:
                     failures.append(f"nl_forces {case} {n} {tag}")
-                del st, idx, idx0, f_args, b_args, sw, nb
+                del st, idx, idx0, ordered, small, small0, g_out, g_want
+                del f_args, b_args, g_args, small_args, sw, nb, unordered
                 torch.cuda.empty_cache()
     return results, failures
 
@@ -3075,14 +3143,19 @@ def main():
                  "b1_ms_same_turns": main_rec["b1_ms"],
                  "b1_lean_ms_same_turns": main_rec["b1_lean_ms"],
                  "rebuilds_on_path": paths["nl"]["rebuilds"]}
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "b1_ms", "b1_lean_ms")
         if kname == "nl_build":
-            extra["allocate_ms"] = main_rec["allocate_ms"]
+            own = ("allocate_ms", "stage_cells", "grown_capacity",
+                   "grown_stage_cells", "grown_ms")
+        else:
+            own = ("lanes", "particle_order_ms")
+        extra.update({key: main_rec[key] for key in own})
         for (k, case, tag), r in nl_results.items():
             if k == kname and (case, tag) != (f"lattice_{N_BENCH}",
                                               "float32"):
-                extra[f"{case}_{tag}"] = {key: r[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                    "b1_ms", "b1_lean_ms")}
+                extra[f"{case}_{tag}"] = {key: r[key] for key in
+                                          keys + own}
         kernels["kernels"].append(entry(
             kname, "mdtpu_torch/csrc/neighbor_list.cu", line,
             by_path["nl"][kname], main_rec, extra))

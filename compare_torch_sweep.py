@@ -13,10 +13,18 @@ the Brownian grid (pseudo-hard spheres at rho 0.5 through
 ``PlaneEngine.create``, f32); for the pair list, BASELINE config 4 (2D,
 65,536, rho 0.9, diameters U(0.8, 1.2), r_c 1.8: 128^2 cells, C = 13) on a
 lattice jittered by 0.05 at f64, f32 and hi/lo, and the bench's 3D lattice
-with a user potential at f32 and hi/lo. Then each tree runs ``cell_sweep``
+with a user potential at f32 and hi/lo; for the neighbour list, the bench's
+lattice, melted fluid and the lattice with its particles shuffled (a random
+order of the same positions) at f64 and f32 (15^3 cells, C = 57, K = 128)
+and the lattice at 262,144 f32, binned and listed once by this tree's
+engine.
+Then each tree runs ``cell_sweep``
 and ``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian
 grid: ``plane_sweep``; the list cases: ``pair_list`` and ``pair_sweep`` with
-the user potential of ``examples/03_polydisperse_2d.py``) on them, and the
+the user potential of ``examples/03_polydisperse_2d.py``; the neighbour-list
+cases: ``nl_build`` (K1) and ``nl_forces`` (K2) with Lennard-Jones on the
+same list, each given the particles' order by cell where the tree's wrapper
+takes it) on them, and the
 probe (``probe_sweep``: ``full`` at chunks 45, 15 and 5, ``nodiv``,
 ``reduce_only``) on its own input, in a process of its own, in the order
 parent, change, change, parent, so both are timed on the same card within
@@ -25,12 +33,15 @@ CUDA events, the median of 5 rounds: the device's time without the
 host's). Prints one JSON line per case and kernel: whether forces (the
 probe: ``fx``), energy and virial of the two trees are equal bit for bit
 (NaN equal to NaN), the largest force difference, both times and their
-ratio (for ``pair_list``: whether every buffer of the list, the per-slot
-counts and starts and the total are equal bit for bit, padding included);
-then the card's name and power limit.
+ratio, and the relative differences of energy and virial (for
+``pair_list``: whether every buffer of the list, the per-slot counts and
+starts and the total are equal bit for bit, padding included; for
+``nl_build``: whether the rows, padding included, the counts and the flag
+are); then the card's name and power limit.
 """
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -41,6 +52,8 @@ import tempfile
 import torch
 
 N = 65536
+NL_CASES = (("lattice", N, ("f64", "f32")), ("melted", N, ("f64", "f32")),
+            ("shuffled", N, ("f64", "f32")), ("lattice", 262144, ("f32",)))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -132,6 +145,35 @@ def make_inputs(path):
             cases[f"{name}_{kind}"] = dict(
                 common, kind="list_hilo" if kind == "hilo" else "list",
                 inputs=inputs)
+    # The neighbour list: the bench's lattice and melted fluid, and the
+    # lattice at 262,144; the list K2 runs on is this tree's K1's.
+    big = lattice_fluid_state(262144, 0.8, 1.0, dtype=torch.float64,
+                              cutoff=2.5, jitter=0.01, device="cuda")
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(9))
+    states = {("lattice", N): lattice, ("melted", N): melted,
+              ("shuffled", N): lattice.replace(
+                  positions=lattice.positions[perm.cuda()].contiguous()),
+              ("lattice", 262144): big}
+    for kind, n, tags in NL_CASES:
+        state = states[kind, n]
+        for tag in tags:
+            dtype = torch.float64 if tag == "f64" else torch.float32
+            pos = state.positions.to(dtype).contiguous()
+            cell = state.unitcell.to(dtype)
+            cell_inv = state.unitcell_inv.to(dtype)
+            eng = mt.select_engine(lj, 2.5, state, prefer="neighbor")
+            cid, buf, counts, order, starts = eng.bin_sorted(pos, cell_inv)
+            nb = eng.allocate(pos, state.diameters.to(dtype), cell,
+                              cell_inv)
+            assert not bool(nb.overflow)
+            cases[f"nl_{kind}_{n}_{tag}"] = {
+                "kind": "nl", "grid": eng.grid, "cutoff": eng.cutoff,
+                "r_list": eng.cutoff + eng.skin,
+                "max_neighbors": eng.max_neighbors,
+                "inputs": [pos, cid, buf, counts,
+                           torch.diagonal(cell).contiguous(), order, starts,
+                           state.diameters.to(dtype), nb.idx, nb.count]}
+    del big, states
     # The cases' boxes are orthorhombic: pass the box lengths, which every
     # tree's wrappers take (the cell matrix only since the 2D and tilted
     # sweeps).
@@ -212,6 +254,9 @@ def worker(tree, inputs_path, out_path):
             out.update(list_runs(name, case, pots["user"], pair_list,
                                  pair_sweep))
             continue
+        if case["kind"] == "nl":
+            out.update(nl_runs(name, case, pots["lj"]))
+            continue
         args = (*(t.cuda() for t in case["inputs"]), case["grid"],
                 case["cutoff"], pots[case["pot"]])
         for kernel, fn in kernels[case["kind"]].items():
@@ -242,12 +287,50 @@ def list_runs(name, case, pot, pair_list, pair_sweep):
     return {
         f"{name} pair_list": {
             "list": {k: getattr(plist, k).cpu() for k in LIST_FIELDS},
+            "entries": int(plist.total),
             "ms": replay_ms(lambda: pair_list(*args, cap, slot_lo=lo))},
         f"{name} pair_sweep": {
             "energy": energy.cpu(), "virial": virial.cpu(),
             "force": force.cpu(),
             "ms": replay_ms(lambda: pair_sweep(*args, pot, cap,
                                                slot_lo=lo))}}
+
+
+def nl_runs(name, case, pot):
+    """``nl_build`` (the rows, padding included, the counts and the flag)
+    and ``nl_forces`` on the case's list, each given the particles' order
+    by cell (and the build the cells' starts) where the tree's wrapper
+    takes it."""
+    from mdtpu_torch.ops import neighbor_list as nl
+
+    pos, cid, buf, counts, lengths, order, starts, diam, idx, count = (
+        t.cuda() for t in case["inputs"])
+    b_args = (pos, cid, buf, counts, lengths, case["grid"], case["r_list"],
+              case["max_neighbors"])
+    b_kw = ({"order": order, "starts": starts} if "order" in
+            inspect.signature(nl.nl_build).parameters else {})
+    f_args = (pos, diam, idx, count, lengths, case["cutoff"], pot)
+    f_kw = ({"order": order} if "order" in
+            inspect.signature(nl.nl_forces).parameters else {})
+    built = nl.nl_build(*b_args, **b_kw)
+    energy, virial, force = nl.nl_forces(*f_args, **f_kw)
+    return {
+        f"{name} nl_build": {
+            "list": {k: v.cpu() for k, v in
+                     zip(("idx", "count", "overflow"), built)},
+            "entries": int(built[1].sum()),
+            "ms": replay_ms(lambda: nl.nl_build(*b_args, **b_kw))},
+        f"{name} nl_forces": {
+            "energy": energy.cpu(), "virial": virial.cpu(),
+            "force": force.cpu(),
+            "ms": replay_ms(lambda: nl.nl_forces(*f_args, **f_kw))}}
+
+
+def rel_diff(a, b):
+    """The largest difference of ``a`` and ``b`` over the largest of ``b``
+    (NaN as 0)."""
+    a, b = (torch.nan_to_num(t.double(), nan=0.0) for t in (a, b))
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
 
 
 def same_bits(a, b):
@@ -291,11 +374,11 @@ def main():
                  / statistics.mean(c_ms),
                  "change_faster_in_every_run": max(c_ms) < min(p_ms)}
         if "list" in p:
-            unequal = [k for k in LIST_FIELDS
+            unequal = [k for k in p["list"]
                        if not same_bits(p["list"][k], c["list"][k])]
             print(json.dumps({"case": name, "list_equal": not unequal,
                               "unequal": unequal,
-                              "entries": int(c["list"]["total"]), **times}),
+                              "entries": c["entries"], **times}),
                   flush=True)
             continue
         print(json.dumps({
@@ -303,6 +386,8 @@ def main():
             "force_equal": same_bits(p["force"], c["force"]),
             "energy_equal": same_bits(p["energy"], c["energy"]),
             "virial_equal": same_bits(p["virial"], c["virial"]),
+            "rel_energy_diff": rel_diff(c["energy"], p["energy"]),
+            "rel_virial_diff": rel_diff(c["virial"], p["virial"]),
             "max_abs_force_diff": float(torch.nan_to_num(
                 p["force"] - c["force"], nan=0.0).abs().max()),
             "max_abs_force": float(torch.nan_to_num(

@@ -10,10 +10,12 @@ Counterpart of ``mdtpu/ops/neighbor_list.py`` (``estimate_capacities``,
   by ``scatter_add_``, an ``(n_cells, C)`` bucket with sentinel N, ranks at
   or past C dropped), then :func:`nl_build` lists for every particle the
   particles of the 3^d stencil cells within ``cutoff + skin`` into a padded
-  ``(N, K)`` index array (sentinel N) and a per-row count.
+  ``(N, K)`` index array (sentinel N) and a per-row count. The argsort
+  (``order``, the particles sorted by cell) is kept in the state.
   *Forces* (:meth:`NeighborListEngine.compute`, every step): for every row,
   the pairs inside the cutoff, computed from both sides (energy and virial
-  halved), forces summed per row: no scatter.
+  halved), forces summed per row: no scatter. The kernel takes the rows in
+  the state's ``order``, so the rows of a block are neighbours in space.
 
 Both are hand-written CUDA kernels (``csrc/neighbor_list.cu``): K1
 :func:`nl_build` and K2 :func:`nl_forces`. CUDA tensors launch them (or
@@ -25,13 +27,14 @@ potential without a kernel functor
 type) takes :func:`nl_forces_plain` on every device: it is the potential's
 own ``evaluate_r2`` on the gathered tiles.
 
-Rows: K1 keeps each row's first K hits in stencil order, the JAX build and
-:func:`nl_build_plain` the K closest, sorted by r^2. Without overflow they
-hold the same neighbours (rows equal as sets) and the forces differ only in
-the order of their sums. Under overflow (a cell holds more than C, or a row
-more than K hits) the kept subsets may differ, but no result is taken from
-an overflowed list: the flag is sticky, and the driver and FIRE rerun on
-:meth:`NeighborListEngine.with_grown_capacity`.
+Rows: K1 keeps each row's first K hits in stencil order (then slot order),
+the JAX build and :func:`nl_build_plain` the K closest, sorted by r^2;
+``nl_build_plain(..., stencil_order=True)`` keeps K1's. Without overflow
+they hold the same neighbours (rows equal as sets) and the forces differ
+only in the order of their sums. Under overflow (a cell holds more than C,
+or a row more than K hits) the kept subsets may differ, but no result is
+taken from an overflowed list: the flag is sticky, and the driver and FIRE
+rerun on :meth:`NeighborListEngine.with_grown_capacity`.
 
 The minimum image is the orthorhombic one, ``d - L rint(d / L)`` per
 component; :meth:`NeighborListEngine.create` refuses a tilted box.
@@ -44,7 +47,7 @@ import dataclasses
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,19 +60,21 @@ from mdtpu_torch.ops.cell_sweep import (check_cuda, functor_params,
 from mdtpu_torch.potentials.base import check_engine_cutoff, rounded
 
 NAME = "neighbor_list"
-THREADS = 256                # kThreads of the kernels: 8 particles a block
+THREADS = 256                # kThreads of K2: THREADS / LANES rows a block
+LANES = 4                    # kLanes of K2: lanes a row
+BUILD_STAGE_BYTES = 48 * 1024  # K1's budget for a stage of the stencil
 PLAIN_CHUNK = 1 << 22        # candidate entries of one plain build chunk
 
 _UNIT_BALL_VOLUME = {1: 2.0, 2: math.pi, 3: 4.0 * math.pi / 3.0}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# positions, cid, cell_buf, counts, lengths, n, dim, nx, ny, nz, cap, K,
-# r_list^2, idx, count, overflow, stream
-_BUILD_ARGS = (_P,) * 5 + (_I,) * 7 + (_D,) + (_P,) * 4
-# positions, diameters, idx, count, lengths, n, dim, K, cutoff, potential
-# kind, four float and three int parameters, force, energy and virial
-# partials, stream
-_FORCES_ARGS = ((_P,) * 5 + (_I,) * 3 + (_D, _I) + (_D,) * 4 + (_I,) * 3
+# positions, order, starts, cell_buf, counts, lengths, n, dim, nx, ny, nz,
+# cap, K, r_list^2, stage cells, idx, count, overflow, stream
+_BUILD_ARGS = (_P,) * 6 + (_I,) * 7 + (_D, _I) + (_P,) * 4
+# positions, diameters, idx, count, order, lengths, n, dim, K, cutoff,
+# potential kind, four float and three int parameters, force, energy and
+# virial partials, stream
+_FORCES_ARGS = ((_P,) * 6 + (_I,) * 3 + (_D, _I) + (_D,) * 4 + (_I,) * 3
                 + (_P,) * 4)
 _SIGNATURES = (("mdtpu_nl_build_f32", _BUILD_ARGS),
                ("mdtpu_nl_build_f64", _BUILD_ARGS),
@@ -111,6 +116,9 @@ class NeighborState:
     ref_positions: torch.Tensor  # (N, d) positions at build time
     overflow: torch.Tensor       # () bool: capacities exceeded at build
     count: torch.Tensor          # (N,) int32 entries of each row (<= K)
+    # (N,) int32 the particles sorted by cell at build time (K2 takes its
+    # rows in this order); None: particle order.
+    order: Optional[torch.Tensor] = None
 
 
 def _check_build(positions, cid, cell_buf, counts, lengths, grid):
@@ -127,29 +135,61 @@ def _check_build(positions, cid, cell_buf, counts, lengths, grid):
         raise ValueError("cid must be (N,) and lengths (d,)")
 
 
+def build_plan(cap, dim, dtype):
+    """K1's stage: the stencil cells a stage of shared memory holds, all
+    3^d where ``3^d C`` candidates (an id and d coordinates each) fit
+    :data:`BUILD_STAGE_BYTES`, else 3^(d-1), 3 or 1 (a smaller stage is
+    refilled for each part of the stencil). One cell's stage may pass the
+    budget up to the block's shared memory, which bounds C: at most 14,464
+    (f32) or 8,265 (f64) in 3D, 19,285 or 11,571 in 2D; past it
+    :func:`nl_build` raises ``RuntimeError``."""
+    record = 4 + dim * torch.finfo(dtype).bits // 8
+    cells = 3 ** dim
+    while cells > 1 and cells * cap * record > BUILD_STAGE_BYTES:
+        cells //= 3
+    return cells
+
+
+def sort_by_cell(cid, counts):
+    """``(order (N,) int32, starts (n_cells,) int64)``: the particles
+    sorted by cell (a stable argsort of ``cid``) and where each cell's run
+    of them begins."""
+    order = torch.argsort(cid, stable=True).to(torch.int32)
+    return order, torch.cumsum(counts, 0) - counts
+
+
 def nl_build(positions, cid, cell_buf, counts, lengths, grid, r_list,
-             max_neighbors):
+             max_neighbors, *, order=None, starts=None):
     """The list: ``(idx (N, K) int32, count (N,) int32, overflow () bool)``
     from ``positions`` (N, d), each particle's cell ``cid`` (N,), the bucket
     ``cell_buf`` (n_cells, C) int32 of particle ids by cell (sentinel N),
     ``counts`` (n_cells,) int64 of particles binned per cell (may exceed C),
     the box ``lengths`` (d,), the ``grid``, the list radius ``r_list`` (the
     test is ``r^2 < r_list * r_list``, the product in float64 rounded to the
-    dtype, as the JAX build compares) and K. CUDA tensors launch K1 (or
-    raise); CPU tensors take :func:`nl_build_plain`. Each launch adds one to
-    ``nl_build.launches``."""
+    dtype, as the JAX build compares) and K. ``order`` (N,) int32 and
+    ``starts`` (n_cells,) int64, the particles sorted by cell and where each
+    cell's run begins (:func:`sort_by_cell`, which derives them where they
+    are not given), tell K1's blocks their own particles. CUDA tensors
+    launch K1 (or raise); CPU tensors take :func:`nl_build_plain`. Each
+    launch adds one to ``nl_build.launches``."""
     _check_build(positions, cid, cell_buf, counts, lengths, grid)
     if positions.device.type == "cpu":
         return nl_build_plain(positions, cid, cell_buf, counts, lengths,
                               grid, r_list, max_neighbors)
-    cid = cid.to(torch.int32)
-    _, dtype = check_cuda((positions, cid, cell_buf, counts, lengths),
-                          (torch.float32, torch.float64))
-    if cell_buf.dtype != torch.int32:
-        raise TypeError("cell_buf must be int32")
+    if order is None or starts is None:
+        order, starts = sort_by_cell(cid, counts)
+    _, dtype = check_cuda((positions, order, starts, cell_buf, counts,
+                           lengths), (torch.float32, torch.float64))
+    if cell_buf.dtype != torch.int32 or order.dtype != torch.int32:
+        raise TypeError("cell_buf and order must be int32")
     n, dim = positions.shape
+    if tuple(order.shape) != (n,) or starts.shape != counts.shape \
+            or starts.dtype != torch.int64:
+        raise ValueError("order must be (N,) and starts int64 (n_cells,)")
     device = positions.device
     k_max = int(max_neighbors)
+    cap = int(cell_buf.shape[1])
+    stage_cells = build_plan(cap, dim, dtype)
     idx = torch.empty((n, k_max), dtype=torch.int32, device=device)
     count = torch.empty(n, dtype=torch.int32, device=device)
     flag = torch.zeros(1, dtype=torch.int32, device=device)
@@ -159,10 +199,11 @@ def nl_build(positions, cid, cell_buf, counts, lengths, grid, r_list,
     nx, ny, nz = (*(int(g) for g in grid), 1)[:3]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = fn(positions.data_ptr(), cid.data_ptr(), cell_buf.data_ptr(),
-                counts.data_ptr(), lengths.data_ptr(), n, dim, nx, ny, nz,
-                int(cell_buf.shape[1]), k_max, float(r_list) * float(r_list),
-                idx.data_ptr(), count.data_ptr(), flag.data_ptr(), stream)
+        rc = fn(positions.data_ptr(), order.data_ptr(), starts.data_ptr(),
+                cell_buf.data_ptr(), counts.data_ptr(), lengths.data_ptr(),
+                n, dim, nx, ny, nz, cap, k_max,
+                float(r_list) * float(r_list), stage_cells, idx.data_ptr(),
+                count.data_ptr(), flag.data_ptr(), stream)
     _cuda_build.check(lib, NAME, rc, "nl_build")
     nl_build.launches += 1
     return idx, count, flag[0] != 0
@@ -176,12 +217,15 @@ def _stencil(dim, device):
 
 
 def nl_build_plain(positions, cid, cell_buf, counts, lengths, grid, r_list,
-                   max_neighbors):
+                   max_neighbors, stencil_order=False):
     """:func:`nl_build` in plain PyTorch, the JAX build's algorithm: each
     row's candidates (the stencil cells' buckets), their minimum-image r^2,
     the hits (not self, below ``r_list^2``) scored -r^2 and the K best kept
     by ``torch.topk``, so a row holds its K closest neighbours sorted by
-    r^2. Rows are taken in chunks of about ``PLAIN_CHUNK`` candidates."""
+    r^2. With ``stencil_order`` a row keeps K1's entries instead: its first
+    K hits in stencil order, then slot order (a stable compaction of the
+    same hits). Rows are taken in chunks of about ``PLAIN_CHUNK``
+    candidates."""
     _check_build(positions, cid, cell_buf, counts, lengths, grid)
     n, dim = positions.shape
     device, dtype = positions.device, positions.dtype
@@ -215,10 +259,15 @@ def nl_build_plain(positions, cid, cell_buf, counts, lengths, grid, r_list,
             dk = dk - lengths[k] * torch.round(dk / lengths[k])
             r2 = r2 + dk * dk
         valid = (cand < n) & (cand != own[:, None]) & (r2 < threshold)
-        score = torch.where(valid, -r2, torch.full_like(r2, -math.inf))
-        vals, ti = torch.topk(score, kk, dim=1)
+        if stencil_order:
+            ti = torch.argsort(~valid, dim=1, stable=True)[:, :kk]
+            kept = torch.take_along_dim(valid, ti, dim=1)
+        else:
+            score = torch.where(valid, -r2, torch.full_like(r2, -math.inf))
+            vals, ti = torch.topk(score, kk, dim=1)
+            kept = torch.isfinite(vals)
         sel = torch.take_along_dim(cand, ti, dim=1)
-        idx[r0:r1, :kk] = torch.where(torch.isfinite(vals), sel,
+        idx[r0:r1, :kk] = torch.where(kept, sel,
                                       torch.full_like(sel, n)).to(torch.int32)
         hits = valid.sum(dim=1)
         count[r0:r1] = hits.clamp(max=k_max).to(torch.int32)
@@ -226,13 +275,16 @@ def nl_build_plain(positions, cid, cell_buf, counts, lengths, grid, r_list,
     return idx, count, torch.any(counts > cap) | over_k
 
 
-def nl_forces(positions, diameters, idx, count, lengths, cutoff, potential):
+def nl_forces(positions, diameters, idx, count, lengths, cutoff, potential,
+              order=None):
     """``(energy, virial, forces (N, d))`` of the pairs of the list within
     ``cutoff`` (``r^2 < c^2``, the product in the dtype), each pair in both
-    rows, energy and virial halved. CUDA tensors launch K2 (or raise; the
-    potential must have a kernel functor); CPU tensors take
-    :func:`nl_forces_plain`. Each launch adds one to
-    ``nl_forces.launches``."""
+    rows, energy and virial halved. ``order`` (N,) int32, a permutation of
+    the rows (the state's particles sorted by cell), is the order in which
+    K2's workers take them (None: particle order); it changes no row's sum.
+    CUDA tensors launch K2 (or raise; the potential must have a kernel
+    functor); CPU tensors take :func:`nl_forces_plain`. Each launch adds one
+    to ``nl_forces.launches``."""
     n, dim = positions.shape
     if idx.dim() != 2 or idx.shape[0] != n or tuple(count.shape) != (n,):
         raise ValueError("idx must be (N, K) and count (N,)")
@@ -240,13 +292,17 @@ def nl_forces(positions, diameters, idx, count, lengths, cutoff, potential):
         return nl_forces_plain(positions, diameters, idx, count, lengths,
                                cutoff, potential)
     kind, fp, ip = functor_params(potential)
-    _, dtype = check_cuda((positions, diameters, idx, count, lengths),
+    _, dtype = check_cuda((positions, diameters, idx, count, lengths)
+                          + (() if order is None else (order,)),
                           (torch.float32, torch.float64))
     if idx.dtype != torch.int32 or count.dtype != torch.int32:
         raise TypeError("idx and count must be int32")
+    if order is not None and (order.dtype != torch.int32
+                              or tuple(order.shape) != (n,)):
+        raise ValueError("order must be int32 of shape (N,)")
     device = positions.device
     force = torch.empty((n, dim), dtype=dtype, device=device)
-    blocks = -(-n // (THREADS // 32))
+    blocks = -(-n // (THREADS // LANES))
     partials = torch.empty((2, blocks), dtype=dtype, device=device)
     lib = _library()
     fn = lib.mdtpu_nl_forces_f32 if dtype == torch.float32 \
@@ -254,8 +310,9 @@ def nl_forces(positions, diameters, idx, count, lengths, cutoff, potential):
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(positions.data_ptr(), diameters.data_ptr(), idx.data_ptr(),
-                count.data_ptr(), lengths.data_ptr(), n, dim,
-                int(idx.shape[1]), float(cutoff), kind,
+                count.data_ptr(), 0 if order is None else order.data_ptr(),
+                lengths.data_ptr(), n, dim, int(idx.shape[1]), float(cutoff),
+                kind,
                 *(float(v) for v in fp), *ip, force.data_ptr(),
                 partials[0].data_ptr(), partials[1].data_ptr(), stream)
     _cuda_build.check(lib, NAME, rc, "nl_forces")
@@ -345,7 +402,8 @@ class NeighborListEngine:
 
     def with_grown_capacity(self):
         """C -> int(1.5 C + 4), K -> int(1.5 K + 4) rounded up to a
-        multiple of 8, as the JAX engine grows."""
+        multiple of 8, as the JAX engine grows (K1 takes C up to the
+        bound :func:`build_plan` states)."""
         return dataclasses.replace(
             self, cell_capacity=int(self.cell_capacity * 1.5 + 4),
             max_neighbors=((int(self.max_neighbors * 1.5 + 4) + 7) // 8) * 8)
@@ -363,6 +421,12 @@ class NeighborListEngine:
         coordinates (wrapped, clipped into the grid), the particle ids of
         every cell in id order (sentinel N, ranks at or past C dropped),
         and the particles binned per cell."""
+        return self.bin_sorted(positions, cell_inv)[:3]
+
+    def bin_sorted(self, positions, cell_inv):
+        """:meth:`bin`'s ``(cid, cell_buf, counts)`` and the sort it makes
+        on the way (:func:`sort_by_cell`): ``order`` (N,) int32, the
+        particles sorted by cell, and ``starts`` (n_cells,) int64."""
         n = positions.shape[0]
         device = positions.device
         n_cells = math.prod(self.grid)
@@ -370,27 +434,28 @@ class NeighborListEngine:
         frac = _mm(positions, cell_inv.T)
         frac = frac - torch.floor(frac)
         cid = cell_ids([frac[:, k] for k in range(frac.shape[1])], self.grid)
-        order = torch.argsort(cid, stable=True)
-        cid_sorted = cid[order]
         counts = torch.zeros(n_cells, dtype=torch.int64, device=device)
         counts.scatter_add_(0, cid, torch.ones_like(cid))
-        starts = torch.cumsum(counts, 0) - counts
+        order, starts = sort_by_cell(cid, counts)
+        cid_sorted = cid[order]
         rank = torch.arange(n, device=device) - starts[cid_sorted]
         addr = torch.where(rank < cap, cid_sorted * cap + rank,
                            torch.full_like(rank, n_cells * cap))
         buf = torch.full((n_cells * cap + 1,), n, dtype=torch.int32,
                          device=device)
-        buf[addr] = order.to(torch.int32)
-        return cid, buf[:-1].reshape(n_cells, cap), counts
+        buf[addr] = order
+        return cid, buf[:-1].reshape(n_cells, cap), counts, order, starts
 
     def allocate(self, positions, diameters, cell, cell_inv):
-        cid, cell_buf, counts = self.bin(positions, cell_inv)
+        cid, cell_buf, counts, order, starts = self.bin_sorted(positions,
+                                                               cell_inv)
         idx, count, overflow = nl_build(
             positions.contiguous(), cid, cell_buf, counts,
             torch.diagonal(cell).contiguous(), self.grid,
-            self.cutoff + self.skin, self.max_neighbors)
+            self.cutoff + self.skin, self.max_neighbors, order=order,
+            starts=starts)
         return NeighborState(idx=idx, ref_positions=positions,
-                             overflow=overflow, count=count)
+                             overflow=overflow, count=count, order=order)
 
     # ---------------------------------------------------------------- rebuild
     def needs_rebuild(self, positions, nbrs: NeighborState, cell, cell_inv):
@@ -412,7 +477,7 @@ class NeighborListEngine:
         args = (positions.contiguous(), diameters.contiguous(), nbrs.idx,
                 nbrs.count, lengths, self.cutoff, self.potential)
         if self.uses_kernel:
-            energy, virial, forces = nl_forces(*args)
+            energy, virial, forces = nl_forces(*args, order=nbrs.order)
         else:
             energy, virial, forces = nl_forces_plain(*args)
         return energy, virial, forces, nbrs

@@ -20,10 +20,13 @@ potential on the card against the same run on the CPU. The RDF histogram
 kernel against its plain version (3D, tilted 3D, tilted 2D; f64 and f32;
 two launches alike), and 200 steps from a state and from its checkpoint,
 bit for bit. The neighbour list: its build (rows as sets, counts, the
-overflow flag of small capacities, two launches alike) and its force pass
-(f64 and f32, three potentials; two launches bit for bit; against the
-full-stencil sweep on the same state) against their plain versions, and a
-run on the list on the card against the same run on the CPU. The slab
+overflow flag of small capacities, two launches alike; its rows bit for bit
+the stencil-order plain build's in 2D and 3D, with and without the cells'
+order and starts, under overflow and with the stencil staged in parts) and
+its force pass (f64 and f32, three potentials; two launches bit for bit;
+rows in cell order against particle order; against the full-stencil sweep
+on the same state) against their plain versions, and a run on the list on
+the card against the same run on the CPU. The slab
 launch of the sharded engine (B1 over the interior cells of a ghost-extended
 grid): against its plain version and the periodic launch (f64, f32, hi/lo),
 lean bit-equal and repeats, a run of cells outside the grid refused, and
@@ -1245,6 +1248,114 @@ def test_nl_2d_matches_plain(cuda, dtype):
         np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
         np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
         assert _force_ratio(f1.T.cpu(), f0.T, n) <= tol_f
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_nl_build_rows_are_the_stencil_order_plain_rows(cuda, dim, dtype):
+    """K1's rows bit for bit the stencil-order plain build's (padding
+    included), with its counts and flag, given ``order`` and the starts and
+    without them (the wrapper derives them); also with C a quarter (cells
+    overflow, dropped particles keep their rows) and K 16 (rows cut)."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    n = 20000 if dim == 3 else 8192
+    state = lattice_fluid_state(n, 0.8, 1.0, dimension=dim, dtype=dtype,
+                                cutoff=2.5, jitter=JITTER, device=cuda)
+    base = nl.NeighborListEngine.create(LennardJones(r_cut=2.5), 2.5, 0.3,
+                                        state.unitcell, n)
+    lengths = torch.diagonal(state.unitcell).contiguous()
+    for eng in (base, dataclasses.replace(
+            base, cell_capacity=base.cell_capacity // 4),
+            dataclasses.replace(base, max_neighbors=16)):
+        cid, buf, counts, order, starts = eng.bin_sorted(
+            state.positions, state.unitcell_inv)
+        args = (state.positions, cid, buf, counts, lengths, eng.grid,
+                eng.cutoff + eng.skin, eng.max_neighbors)
+        got = nl.nl_build(*args, order=order, starts=starts)
+        want = nl.nl_build_plain(*args, stencil_order=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool(got[2]) == (eng is not base)
+        derived = nl.nl_build(*args)
+        assert all(torch.equal(a, b) for a, b in zip(derived, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_nl_build_stages_a_grown_stencil_in_parts(cuda, dtype):
+    """C grown twice (137 at this density) puts 27 C candidates past the
+    first stage's budget: K1 stages the stencil 9 cells at a time, its rows
+    still the stencil-order plain build's and equal as sets to the first
+    capacity's."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    state, _, eng, _ = _nl_inputs(cuda, "lj", dtype)
+    grown = eng.with_grown_capacity().with_grown_capacity()
+    assert nl.build_plan(eng.cell_capacity, 3, dtype) == 27
+    assert nl.build_plan(grown.cell_capacity, 3, dtype) == 9
+    lengths = torch.diagonal(state.unitcell).contiguous()
+    rows = []
+    for e in (eng, grown):
+        cid, buf, counts, order, starts = e.bin_sorted(state.positions,
+                                                       state.unitcell_inv)
+        args = (state.positions, cid, buf, counts, lengths, e.grid,
+                e.cutoff + e.skin, e.max_neighbors)
+        got = nl.nl_build(*args, order=order, starts=starts)
+        want = nl.nl_build_plain(*args, stencil_order=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert not bool(got[2])
+        rows.append(got)
+    k = eng.max_neighbors
+    assert torch.equal(rows[0][1], rows[1][1])
+    assert torch.equal(_sorted_rows(rows[0][0]),
+                       _sorted_rows(rows[1][0][:, :k]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_nl_build_dense_cells_in_batches_and_parts(cuda, dtype):
+    """A 3 x 3 x 3 grid over 20,000 particles (486-1,000 a cell, C
+    1,000): K1 takes a cell's particles in batches of 64 and stages the
+    stencil 3 cells (f32) or 1 cell (f64) at a time, restaging for every
+    batch; its rows are still the stencil-order plain build's, bit for
+    bit."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    state, _, eng, _ = _nl_inputs(cuda, "lj", dtype)
+    dense = dataclasses.replace(eng, grid=(3, 3, 3), cell_capacity=1000)
+    assert nl.build_plan(dense.cell_capacity, 3, dtype) in (1, 3)
+    cid, buf, counts, order, starts = dense.bin_sorted(state.positions,
+                                                       state.unitcell_inv)
+    assert int(counts.min()) > 64 and int(counts.max()) <= 1000
+    args = (state.positions, cid, buf, counts,
+            torch.diagonal(state.unitcell).contiguous(), dense.grid,
+            dense.cutoff + dense.skin, dense.max_neighbors)
+    got = nl.nl_build(*args, order=order, starts=starts)
+    want = nl.nl_build_plain(*args, stencil_order=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", sorted(POTENTIALS))
+def test_nl_forces_with_order_match_without(cuda, name, dtype):
+    """K2 with the rows in cell order (the state's ``order``) against K2 in
+    particle order: the same forces bit for bit (a row's sum does not depend
+    on where its worker lies), energy and virial within the tolerances."""
+    from mdtpu_torch.ops import neighbor_list as nl
+    state, diam, eng, _ = _nl_inputs(cuda, name, dtype)
+    nbrs = eng.allocate(state.positions, diam, state.unitcell,
+                        state.unitcell_inv)
+    assert nbrs.order is not None and not bool(nbrs.overflow)
+    args = (state.positions, diam, nbrs.idx, nbrs.count,
+            torch.diagonal(state.unitcell).contiguous(), eng.cutoff,
+            eng.potential)
+    e1, w1, f1 = nl.nl_forces(*args, order=nbrs.order)
+    e0, w0, f0 = nl.nl_forces(*args)
+    assert torch.equal(f1, f0)
+    rtol_ew, _ = TOLERANCES[dtype]
+    np.testing.assert_allclose(float(e1), float(e0), rtol=rtol_ew)
+    np.testing.assert_allclose(float(w1), float(w0), rtol=rtol_ew)
+    again = nl.nl_forces(*args, order=nbrs.order)
+    assert all(torch.equal(a, b) for a, b in zip(again, (e1, w1, f1)))
 
 
 # --------------------------------------------------------------------------

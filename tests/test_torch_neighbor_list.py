@@ -6,6 +6,9 @@ JAX package's ``NeighborListEngine`` on the CPU, at f64:
   * ``allocate``: every row the same set of neighbours as the JAX ``idx``,
     the counts, and the overflow flag of a forced overflow;
   * ``needs_rebuild`` on displaced positions;
+  * the plain build in K1's order (``stencil_order=True``) against the JAX
+    rows and the default build as sets, under overflow too; ``allocate``'s
+    ``order``; K1's staging plan (``build_plan``);
   * ``compute`` on the JAX list (through ``interop``): LJ, pseudo-hard
     spheres and a user potential (the torch route), energy and virial to
     rtol 1e-12, forces to 1e-10;
@@ -38,8 +41,11 @@ from mdtpu.sim.driver import run_simulation as j_run_simulation
 from mdtpu.sim.initialization import build_state_from_arrays as j_build_state
 from mdtpu_torch.integrate import thermostat as tthermo
 from mdtpu_torch.interop import neighbor_state_from_numpy
-from mdtpu_torch.ops.neighbor_list import (NeighborListEngine,
-                                           NeighborState, estimate_capacities,
+from mdtpu_torch.ops import neighbor_list as nl_ops
+from mdtpu_torch.ops.neighbor_list import (BUILD_STAGE_BYTES,
+                                           NeighborListEngine,
+                                           NeighborState, build_plan,
+                                           estimate_capacities,
                                            nl_build_plain)
 from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
@@ -240,6 +246,148 @@ def test_plain_build_keeps_the_closest_in_order(jax_systems):
                                       engine.max_neighbors)
     np.testing.assert_array_equal(idx.numpy(), js["idx"])
     assert not bool(over)
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_stencil_order_plain_build_matches_jax_as_sets(jax_systems, name):
+    """The plain build in K1's order (first K hits in stencil order, then
+    slot order) holds the JAX rows and the default plain build's as sets,
+    with the same counts; each row's hits come first."""
+    js = jax_systems[name]
+    engine = _port_engine(name, js)
+    pos, _, cell, cell_inv = _port_args(js)
+    args = (pos, *engine.bin(pos, cell_inv), torch.diagonal(cell),
+            engine.grid, engine.cutoff + engine.skin, engine.max_neighbors)
+    idx, count, over = nl_build_plain(*args, stencil_order=True)
+    idx0, count0, over0 = nl_build_plain(*args)
+    assert not bool(over) and not bool(over0)
+    assert _row_sets(idx, N) == _row_sets(js["idx"], N) == _row_sets(idx0, N)
+    assert torch.equal(count, count0)
+    k = torch.arange(idx.shape[1])
+    assert torch.equal(idx < N, k < count[:, None])
+    assert not torch.equal(idx, idx0)   # the orders differ
+
+
+@pytest.mark.parametrize("capacities", [(4, 64), (64, 16)],
+                         ids=["cells", "rows"])
+def test_stencil_order_plain_build_overflow_counts(jax_systems, capacities):
+    """Under overflow both plain builds raise the flag and count each row's
+    hits (at most K) alike; the JAX list's counts are the same."""
+    js = jax_systems["lj"]
+    cap, k_max = capacities
+    engine = dataclasses.replace(_port_engine("lj", js), cell_capacity=cap,
+                                 max_neighbors=k_max)
+    pos, _, cell, cell_inv = _port_args(js)
+    args = (pos, *engine.bin(pos, cell_inv), torch.diagonal(cell),
+            engine.grid, engine.cutoff + engine.skin, engine.max_neighbors)
+    idx, count, over = nl_build_plain(*args, stencil_order=True)
+    idx0, count0, over0 = nl_build_plain(*args)
+    jn, _ = _jax_build_and_compute(
+        js["engine"].replace(cell_capacity=cap, max_neighbors=k_max),
+        js["pos"], js["diam"], js["cell"])
+    assert bool(over) and bool(over0) and bool(jn.overflow)
+    assert torch.equal(count, count0)
+    np.testing.assert_array_equal(count.numpy(),
+                                  (np.asarray(jn.idx) < N).sum(axis=1))
+    assert int(count.max()) == k_max if cap == 64 else int(count.max()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_allocate_order_sorts_the_particles_by_cell(jax_systems, name):
+    js = jax_systems[name]
+    engine = _port_engine(name, js)
+    pos, diam, cell, cell_inv = _port_args(js)
+    nbrs = engine.allocate(pos, diam, cell, cell_inv)
+    order = nbrs.order
+    assert order.dtype == torch.int32 and order.shape == (N,)
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(N, dtype=torch.int32))
+    cid = engine.bin(pos, cell_inv)[0]
+    assert bool((cid[order.long()].diff() >= 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_compute_with_and_without_order(jax_systems, name, monkeypatch):
+    """``compute`` with the state's ``order`` and with ``order=None`` agree
+    to 1e-12, and both hold the JAX ``compute``. On the CPU the force pass
+    is the plain version, which takes the rows in particle order either
+    way, so the agreement says nothing of K2 (the card's tests hold K2 in
+    cell order against particle order); what this holds is that
+    ``compute`` hands the state's order, or None, to ``nl_forces`` where
+    the potential has a kernel, and bypasses it where it has none."""
+    js = jax_systems[name]
+    engine = _port_engine(name, js)
+    args = _port_args(js)
+    nbrs = engine.allocate(*args)
+    assert nbrs.order is not None
+    seen = []
+    forces_pass = nl_ops.nl_forces
+
+    def recording(*a, order=None):
+        seen.append(order)
+        return forces_pass(*a, order=order)
+
+    monkeypatch.setattr(nl_ops, "nl_forces", recording)
+    e1, w1, f1, _ = engine.compute(*args, nbrs)
+    e0, w0, f0, _ = engine.compute(*args, dataclasses.replace(nbrs,
+                                                              order=None))
+    if engine.uses_kernel:
+        assert len(seen) == 2 and seen[0] is nbrs.order and seen[1] is None
+    else:
+        assert seen == []
+    for a, b in ((e1, e0), (w1, w0), (f1, f0)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(f0.abs().max()))
+    np.testing.assert_allclose(float(e1), js["energy"], rtol=1e-12)
+    np.testing.assert_allclose(f1.numpy(), js["forces"], rtol=1e-10,
+                               atol=1e-10 * np.abs(js["forces"]).max())
+
+
+def test_build_plan_stages_the_bench_stencil_at_once():
+    """K1's stage at the bench (65,536 LJ at rho 0.8, 15^3 cells, C 57):
+    the whole stencil at f32 and f64; with C grown twice (137), 9-cell
+    stages."""
+    box = np.eye(3) * (65536 / 0.8) ** (1.0 / 3.0)
+    eng = NeighborListEngine.create(LennardJones(r_cut=2.5), 2.5, 0.3, box,
+                                    65536)
+    assert (eng.grid, eng.cell_capacity) == ((15, 15, 15), 57)
+    grown = eng.with_grown_capacity().with_grown_capacity()
+    assert grown.cell_capacity == 137
+    for dtype in (torch.float32, torch.float64):
+        assert build_plan(eng.cell_capacity, 3, dtype) == 27
+        assert build_plan(grown.cell_capacity, 3, dtype) == 9
+
+
+# csrc/neighbor_list.cu, kMaxDynamicShared: a block's dynamic shared memory.
+MAX_DYNAMIC_SHARED = 227 * 1024 - 1024
+
+
+@pytest.mark.parametrize("cap, dim, dtype, cells", [
+    (9, 2, torch.float32, 9), (137, 3, torch.float64, 9),
+    (500, 3, torch.float32, 3), (2000, 2, torch.float64, 1),
+    (8000, 3, torch.float64, 1)],
+    ids=["2d-whole", "3d-nine", "3d-three", "2d-one", "3d-one-largest"])
+def test_build_plan_fits_shared_memory(cap, dim, dtype, cells):
+    """The plan takes the largest stage (3^d, 3^(d-1), 3 or 1 cells) within
+    the budget; a single cell may pass the budget but fits the block's
+    shared memory up to C 8,265 at f64 3D."""
+    assert build_plan(cap, dim, dtype) == cells
+    stage = cells * cap * (4 + dim * torch.finfo(dtype).bits // 8)
+    assert stage <= BUILD_STAGE_BYTES or cells == 1
+    assert cells == 3 ** dim or 3 * stage > BUILD_STAGE_BYTES
+    assert stage <= MAX_DYNAMIC_SHARED
+
+
+def test_neighbor_state_from_numpy_has_no_order(jax_systems):
+    """A state made from the JAX fields has no ``order`` (particle order),
+    and ``compute`` takes it."""
+    js = jax_systems["lj"]
+    nbrs = neighbor_state_from_numpy(js["idx"], js["ref"], js["overflow"],
+                                     device="cpu")
+    assert nbrs.order is None
+    e, _, f, _ = _port_engine("lj", js).compute(*_port_args(js), nbrs)
+    np.testing.assert_allclose(float(e), js["energy"], rtol=1e-12)
+    assert f.shape == js["forces"].shape
 
 
 def test_select_engine_prefer_neighbor_matches_jax():
