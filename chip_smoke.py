@@ -50,7 +50,9 @@
    * the pair list (``cell_pairs``, f64, f32 and hi/lo) entry for entry
      against its plain version, and its reduction (``pair_reduce``, f64
      and f32, full and lean) against its plain version and timed against
-     ``index_add_``, on config 4's density and diameters on a lattice.
+     ``index_add_``, the full one's kernels a call counted by the profiler
+     (one), each against its own bound, on config 4's density and
+     diameters on a lattice.
    Times the sweeps in turns within this call (cell, plane, hi/lo and the
    lean variants, there and back, five times, and their medians): each
    wrapper call is
@@ -71,9 +73,16 @@
    phase: ``rdf_histogram`` against its plain version on the melted bench
    fluid, the 2D start and the tilted start (65,536), f64 and f32, at r_max
    3 (200 bins, ``validate.py``'s) and at half the narrowest width
-   (``sample_rdf``'s): the counts bin for bin (a difference only within
-   twice the pairs at a bin edge, counted in f64), two launches alike,
-   timed by graph replay against its bound. List phase: the neighbour
+   (``sample_rdf``'s), and on the bench lattice at 262,144 at r_max 3: the
+   counts bin for bin (a difference only within twice the pairs at a bin
+   edge, counted in f64), two launches alike, the plan's route (cell or
+   tile) and zero pattern; where the cell route is taken the tile route
+   forced on the same inputs gives the same counts; timed by graph replay
+   (the launch on the plan, binning included; the binning alone and the
+   tile route beside the cell route), the whole call by events, against
+   both bounds (the pairs inside r_max, and every unordered pair); also
+   ``validate_torch.py``'s triple point shape (4,096 at rho 0.84) at
+   r_max 3. List phase: the neighbour
    list's build (``nl_build``, K1) and force pass (``nl_forces``, K2)
    against their plain versions on the bench's jittered lattice and melted
    fluid at 65,536 and 262,144 and the lattice with its particles shuffled
@@ -159,9 +168,11 @@
      start's energy, and ``run_simulation_sharded`` NVT(0.5, 0.01) for 300
      steps from the user path's minimized state and velocities, its rows
      at steps 0 and 100 within 1e-8 of that path's.
-   The B1 and B2 paths end with the observables of their final state:
-   ``sample_rdf`` through the RDF kernel (its first peak), the MSD from the
-   start, ``read_thermo`` of the NVE leg equal to the file's rows.
+   The B1, B2 and list paths end with the observables of their final
+   state: ``sample_rdf`` through the RDF kernel at the half width (the
+   tile route) and at r_max 3 (the cell route), the first peak of each,
+   the MSD from the start, ``read_thermo`` of the NVE leg equal to the
+   file's rows.
    B1, the slot Brownian path, FIRE and packing run in the slot layout (the
    slot step's counter must show it for the dynamics), and so do the 2D,
    tilted and user paths; built-in potentials never launch the pair list,
@@ -262,15 +273,22 @@ GEO_NVT_STEPS, GEO_NVE_STEPS = 600, 200
 RHO_USER, CUTOFF_USER, USER_DMAX = 0.9, 1.8, 0.01
 USER_FIRE_ITERS, USER_NVT_STEPS = 1000, 300
 # The RDF histogram: validate.py's 200 bins at r_max 3 and sample_rdf's
-# half width. Operations per distance, by hand count of
-# csrc/rdf_histogram.cu: in 3D the displacement (3 subtractions), the
+# half width. Operations per distance, by hand count of the function
+# (mdtpu/observables.py:21): in 3D the displacement (3 subtractions), the
 # fractional components (3 x (3 multiplies, 2 adds)), their rint and
 # subtraction (6), the Cartesian components (15), r^2 (3 multiplies, 2
-# adds), the square root and the compare; in 2D 2 + 6 + 4 + 6 + 3 + 2. Per
-# pair inside r_max the bin: a division, a multiply, the conversion, the
-# clamp and the shared-memory add.
+# adds), the square root and the compare: 46; in 2D 2 + 6 + 4 + 6 + 3 + 2
+# = 23. A product with a zero entry of the cell or its inverse is no work
+# (csrc/rdf_histogram.cu drops it with its add): upper triangular 3D 46 -
+# 2 x (3 multiplies + 3 adds) = 34, 2D 23 - 2 x 2 = 19; diagonal 3D 46 -
+# 2 x (6 + 6) = 22, 2D 23 - 2 x (2 + 2) = 15. Per pair inside r_max the
+# bin: a division, a multiply, the conversion, the clamp and the
+# shared-memory add. The bound counts each unordered pair inside r_max
+# once (its distance and its bin), as B1's and K2's count the pairs inside
+# their cutoff; the first design's bound, every unordered pair's distance
+# by the general count, is printed beside it as all_pairs_ms.
 RDF_BINS, RDF_R_MAX = 200, 3.0
-OPS_RDF_DISTANCE = {3: 46, 2: 23}
+OPS_RDF_DISTANCE = {3: (46, 34, 22), 2: (23, 19, 15)}  # by zero pattern
 OPS_RDF_HIT = 5
 # The neighbour list (csrc/neighbor_list.cu): the bench system and the same
 # system at 262,144. Operations per list candidate of K1 and per list entry
@@ -309,6 +327,25 @@ def cuda_time_ms(fn, reps, warmup):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def profiled_kernels(fn, tries=3):
+    """The names of the kernels one call of ``fn`` launches, by
+    ``torch.profiler`` (copies and fills by the runtime left out). A
+    profile that recorded nothing on the device is taken again, up to
+    ``tries`` times (the profiler has missed a whole call's events)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if names:
+            break
+    return names
 
 
 def graph_of(fn):
@@ -1089,9 +1126,10 @@ def list_bound(plist, inputs, counts_, observables=True):
     writes every entry (neighbour int, d + 3 floats) and each own slot's
     count and start (the slots of ``plist.count``: a slab launch's interior
     only); its work is one distance per unordered pair inside the cutoff.
-    The reduction reads every entry's displacement, r^2, f (and u) and each
-    slot's segment, writes the forces and partials; 2 d + 4 operations an
-    entry (2 d without energy and virial)."""
+    The full reduction reads every entry's displacement, f, r^2 and u and
+    each slot's segment, writes the forces (and two values); 2 d + 4
+    operations an entry. The lean one (``observables=False``) reads only
+    the displacement and f: d + 1 values and 2 d operations an entry."""
     slot_pos, _, counts, _ = inputs
     dim = slot_pos.shape[0]
     n_slots = plist.count.shape[0]
@@ -1103,8 +1141,8 @@ def list_bound(plist, inputs, counts_, observables=True):
                   + dim * dim * b + entries * (4 + (dim + 3) * b)
                   + 12 * n_slots)
     list_ops = counts_[2] * distance_ops(dim)
-    red_bytes = (entries * (dim + 2 + int(observables)) * b + 12 * n_slots
-                 + dim * n_slots * b)
+    red_bytes = (entries * (dim + 1 + 2 * int(observables)) * b
+                 + 12 * n_slots + dim * n_slots * b)
     red_ops = entries * (2 * dim + (4 if observables else 0))
     peak = PEAK_OPS[slot_pos.dtype]
     for name, nbytes, ops in (("list", list_bytes, list_ops),
@@ -1169,6 +1207,8 @@ def pair_list_check(mt, record, state64, params):
         rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
         counts_ = pair_counts(inputs, eng.grid, eng.cutoff, eng.cutoff)
         bounds = list_bound(l1, inputs, counts_)
+        lean_bound = list_bound(l1, inputs, counts_, observables=False)
+        reduce_kernels = profiled_kernels(lambda: cp.pair_reduce(l1, f, u))
         own = torch.repeat_interleave(
             torch.arange(inputs[0].shape[1], device="cuda"),
             l1.count.long())
@@ -1219,10 +1259,14 @@ def pair_list_check(mt, record, state64, params):
                "library_ms": cuda_time_ms(lambda: force_lib.index_add_(
                    1, own, fd), 20, 3),
                "library_call": "Tensor.index_add_ (forces only)",
+               "kernels_a_call": len(reduce_kernels),
+               "lean_bound_ms": lean_bound["reduce"]["bound_ms"],
+               "lean_bound_by": lean_bound["reduce"]["bound_by"],
                **bounds["reduce"]}
         ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
               and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
-              and rec["lean_forces_bit_equal"] and rec["repeats_bit_for_bit"])
+              and rec["lean_forces_bit_equal"] and rec["repeats_bit_for_bit"]
+              and len(reduce_kernels) == 1)
         record(rec, ok, f"pair_reduce {tag}")
         if not f64:
             hi = state64.positions.float()
@@ -1404,16 +1448,19 @@ def md_path(mt, workdir, label, engine_for, compensated):
     for d in (nvt_dir, nve_dir, fs_dir):
         with open(os.path.join(d, "final.xyz")) as f:
             check(sum(1 for _ in f) == N_BENCH + 2, f"final.xyz in {d}")
-    # Observables of the final state: g(r) through the RDF kernel (the
-    # liquid's first peak), the MSD from the lattice start (images 0), and
-    # read_thermo of the NVE leg's file.
+    # Observables of the final state: g(r) through the RDF kernel at
+    # sample_rdf's half width (the tile route) and at validate.py's r_max 3
+    # (the cell route), the liquid's first peak in both; the MSD from the
+    # lattice start (images 0), and read_thermo of the NVE leg's file.
     from mdtpu_torch.observables import (mean_squared_displacement,
                                          read_thermo, sample_rdf)
-    centers, g = sample_rdf(end)
-    peak = max(range(len(g)), key=lambda k: g[k])
-    rdf_peak = [float(centers[peak]), float(g[peak])]
-    check(0.95 < rdf_peak[0] < 1.25 and 1.5 < rdf_peak[1] < 5.0,
-          f"first RDF peak {rdf_peak}")
+    rdf_peak = []
+    for r_max in (None, RDF_R_MAX):
+        centers, g = sample_rdf(end, r_max=r_max)
+        peak = max(range(len(g)), key=lambda k: g[k])
+        rdf_peak.append([float(centers[peak]), float(g[peak])])
+        check(0.95 < rdf_peak[-1][0] < 1.25 and 1.5 < rdf_peak[-1][1] < 5.0,
+              f"first RDF peak {rdf_peak[-1]} (r_max {r_max})")
     msd = mean_squared_displacement(end, state.positions)
     check(math.isfinite(msd) and msd > 0.01, f"MSD {msd}")
     cols = read_thermo(os.path.join(nve_dir, "thermo.txt"))
@@ -1792,11 +1839,15 @@ def near_edge_pairs(pos, cell, cell_inv, r_max, n_bins, tol):
     return count
 
 
-def rdf_bound(n, dim, dtype, hits, n_bins):
-    """The least time of the histogram: each unordered pair's distance
-    once and each pair inside r_max binned once (operations), the
-    positions and the cell read once and the counts written once (bytes)."""
-    ops = n * (n - 1) // 2 * OPS_RDF_DISTANCE[dim] + hits * OPS_RDF_HIT
+def rdf_bound(n, dim, dtype, hits, n_bins, pattern):
+    """The least time of the histogram: each unordered pair inside r_max
+    once, its distance by the box's zero pattern and its bin (operations),
+    the positions and the cell read once and the counts written once
+    (bytes); ``all_pairs_ms``: the first design's bound, every unordered
+    pair's distance by the general count."""
+    ops = hits * (OPS_RDF_DISTANCE[dim][pattern] + OPS_RDF_HIT)
+    all_ops = (n * (n - 1) // 2 * OPS_RDF_DISTANCE[dim][0]
+               + hits * OPS_RDF_HIT)
     b = torch.finfo(dtype).bits // 8
     nbytes = n * dim * b + 2 * dim * dim * b + n_bins * 8
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -1804,64 +1855,116 @@ def rdf_bound(n, dim, dtype, hits, n_bins):
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes, "ops_bound_ms": t_ops,
-            "bytes_bound_ms": t_bytes}
+            "bytes_bound_ms": t_bytes,
+            "all_pairs_ms": max(all_ops / PEAK_OPS[dtype] * 1e3, t_bytes)}
+
+
+def call_ms(fn, reps=5):
+    """The median time of ``reps`` whole calls of ``fn``, each between two
+    CUDA events (the host's work inside the call included)."""
+    times = []
+    for _ in range(reps):
+        times.append(timed_once(fn)[1])
+    return statistics.median(times)
 
 
 def rdf_phase(mt):
     """``rdf_histogram`` against its plain version on the bench fluid
     (``melted_state``), the 2D start and the tilted start at 65,536, in f64
-    and f32, at r_max 3 and at half the narrowest width: the counts bin for
-    bin (or within twice the pairs at a bin edge, counted in f64 to 1e-12
-    or, at f32, 1e-6), two launches alike; timed by graph replay in turns,
-    the plain version once."""
+    and f32, at r_max 3 and at half the narrowest width, and on the bench
+    lattice at 262,144 at r_max 3: the counts bin for bin (or within twice
+    the pairs at a bin edge, counted in f64 to 1e-12 or, at f32, 1e-6),
+    two launches alike; also ``validate_torch.py``'s triple point shape
+    (4,096 at rho 0.84) at r_max 3. Records the plan (route, zero pattern,
+    grid) and times by graph replay in turns the launch on the plan (the
+    cell route's binning included), and where the cell route is taken its
+    binning alone and the tile route forced on the same inputs; the whole
+    call (plan and its host reads included; for the cell route also the
+    forced tile route's) and the plain version by events."""
     from mdtpu_torch.observables import half_min_width
-    from mdtpu_torch.ops.rdf import rdf_histogram, rdf_histogram_plain
+    from mdtpu_torch.ops import rdf
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
 
     melted = melted_state(mt)
-    cases = (("bench_melted", lambda dt: as_dtype(melted, dt)),
-             ("bench_2d", lambda dt: state_2d(mt, dt)),
-             ("bench_tilted", lambda dt: state_tilted(mt, dt)))
+    big = lattice_fluid_state(4 * N_BENCH, 0.8, 1.0, dtype=torch.float64,
+                              cutoff=2.5, jitter=0.05, device="cuda")
+    triple = lattice_fluid_state(4096, 0.84, 0.75, dtype=torch.float64,
+                                 cutoff=2.5, jitter=0.05, device="cuda")
+    cases = (("bench_melted", lambda dt: as_dtype(melted, dt), True),
+             ("bench_2d", lambda dt: state_2d(mt, dt), True),
+             ("bench_tilted", lambda dt: state_tilted(mt, dt), True),
+             ("lattice_262144", lambda dt: as_dtype(big, dt), False),
+             ("triple_4096", lambda dt: as_dtype(triple, dt), False))
     results, failures = {}, []
-    for name, make in cases:
+    for name, make, with_half in cases:
         for dtype in (torch.float64, torch.float32):
             st = make(dtype)
             args = (st.positions.contiguous(), st.unitcell, st.unitcell_inv)
+            pos = args[0]
             n, dim = st.positions.shape
             tag = str(dtype).split(".")[-1]
-            for rname, r_max in (("r_max_3", RDF_R_MAX),
-                                 ("half_width", half_min_width(st.unitcell))):
-                first = rdf_histogram(*args, r_max, RDF_BINS)
-                again = rdf_histogram(*args, r_max, RDF_BINS)
+            radii = [("r_max_3", RDF_R_MAX)] + [
+                ("half_width", half_min_width(st.unitcell))] * with_half
+            for rname, r_max in radii:
+                plan = rdf.rdf_plan(*args, r_max, RDF_BINS)
+                first = rdf.rdf_histogram(*args, r_max, RDF_BINS)
+                again = rdf.rdf_histogram(*args, r_max, RDF_BINS)
                 plain, plain_ms = timed_once(
-                    lambda: rdf_histogram_plain(*args, r_max, RDF_BINS))
+                    lambda: rdf.rdf_histogram_plain(*args, r_max, RDF_BINS))
                 diff = (first - plain).abs()
                 excused = 0
                 if int(diff.sum()):
                     excused = near_edge_pairs(
                         *args, r_max, RDF_BINS,
                         1e-12 if dtype == torch.float64 else 1e-6)
-                turns = kernel_turns({"rdf": lambda: rdf_histogram(
-                    *args, r_max, RDF_BINS)}, rounds=3, reps=5)["rdf"]
+                calls = {"rdf": lambda: rdf.rdf_launch(plan, pos)}
+                tile_same = None
+                if plan.route == rdf.CELL:
+                    # The binning alone (the cell route's torch part).
+                    calls["binning"] = lambda: torch.index_select(
+                        pos, 0, rdf.bin_by_cell(plan.frac, plan.grid)[1])
+                    tile = rdf.rdf_plan(*args, r_max, RDF_BINS,
+                                        route=rdf.TILE)
+                    calls["tile"] = lambda: rdf.rdf_launch(tile, pos)
+                    tile_same = bool(torch.equal(calls["tile"](), first))
+                reps = 20 if plan.route == rdf.CELL else 3
+                turns = kernel_turns(calls, rounds=3, reps=reps)
                 hits = int(first.sum()) // 2
                 rec = {"kernel_check": "rdf_histogram", "case": name,
                        "dtype": tag, "r_max": r_max, "r_max_case": rname,
-                       "n": n, "dim": dim, "pairs_inside": hits,
+                       "n": n, "dim": dim, "route": plan.route,
+                       "pattern": ("general", "upper", "diagonal")[
+                           plan.pattern], "grid": plan.grid,
+                       "pairs_inside": hits,
                        "bins_differing": int((diff > 0).sum()),
                        "total_difference": int(diff.sum()),
                        "pairs_excused": excused,
                        "max_abs_err": float(diff.max()),
                        "repeats_exactly": bool(torch.equal(first, again)),
-                       "ms": statistics.median(turns), "ms_turns": turns,
+                       "tile_route_equal": tile_same,
+                       "ms": statistics.median(turns["rdf"]),
+                       "ms_turns": turns["rdf"],
+                       "tile_route_ms": (statistics.median(turns["tile"])
+                                         if "tile" in turns else None),
+                       "binning_ms": (statistics.median(turns["binning"])
+                                      if "binning" in turns else None),
+                       "call_ms": call_ms(lambda: rdf.rdf_histogram(
+                           *args, r_max, RDF_BINS)),
+                       "tile_route_call_ms": (call_ms(
+                           lambda: rdf.rdf_launch(rdf.rdf_plan(
+                               *args, r_max, RDF_BINS, route=rdf.TILE),
+                               pos)) if "tile" in turns else None),
                        "plain_ms": plain_ms, "library_ms": None,
-                       **rdf_bound(n, dim, dtype, hits, RDF_BINS)}
+                       **rdf_bound(n, dim, dtype, hits, RDF_BINS,
+                                   plan.pattern)}
                 ok = (int(diff.sum()) <= 2 * excused and hits > 0
-                      and rec["repeats_exactly"])
+                      and rec["repeats_exactly"] and tile_same is not False)
                 rec["ok"] = ok
                 log(json.dumps(rec))
                 results[(name, tag, rname)] = rec
                 if not ok:
                     failures.append(f"rdf_histogram {name} {tag} {rname}")
-            del st, args
+            del st, args, pos
             torch.cuda.empty_cache()
     return results, failures
 
@@ -2769,7 +2872,7 @@ def run_paths(mt, workdir):
         cs.reset_launches()
         cp.reset_launches()
         ps.plane_sweep.launches = 0
-        rdf.rdf_histogram.launches = 0
+        rdf.rdf_histogram.launches = rdf.rdf_histogram.cell_launches = 0
         nl.reset_launches()
         slot_step.make_slot_step.steps = 0
         frames = native_writer.format_frame.calls
@@ -2789,6 +2892,7 @@ def run_paths(mt, workdir):
             "pair_reduce": cp.pair_reduce.launches,
             "pair_reduce_lean": cp.pair_reduce.lean_launches,
             "rdf_histogram": rdf.rdf_histogram.launches,
+            "rdf_histogram_cell": rdf.rdf_histogram.cell_launches,
             "nl_build": nl.nl_build.launches,
             "nl_forces": nl.nl_forces.launches}
         rec["slot_steps"] = slot_step.make_slot_step.steps
@@ -2887,9 +2991,11 @@ def run_paths(mt, workdir):
     if bd["native_frames"] != len(bd["snapshots"]) + 1:
         failures.append(f"brownian: {bd['native_frames']} native frames for "
                         f"{len(bd['snapshots'])} snapshots and one frame")
-    # The bench paths' observables launch the RDF kernel once each.
+    # The bench paths' observables launch the RDF kernel twice each: the
+    # half width on the tile route, r_max 3 on the cell route.
     for rec in (b1, b2, nlp):
-        if rec["launches"]["rdf_histogram"] != 1:
+        if (rec["launches"]["rdf_histogram"] != 2
+                or rec["launches"]["rdf_histogram_cell"] != 1):
             failures.append(f"{rec['path']}: rdf_histogram launches "
                             f"{rec['launches']}")
     n = resume["launches"]
@@ -3115,24 +3221,40 @@ def main():
                  pallas_cell, user["pair_reduce"], reduce_rec,
                  {"launches_lean": user["pair_reduce_lean"],
                   "lean_ms": reduce_rec["lean_ms"],
+                  "lean_bound_ms": reduce_rec["lean_bound_ms"],
+                  "lean_bound_by": reduce_rec["lean_bound_by"],
+                  "kernels_a_call": reduce_rec["kernels_a_call"],
                   "library_call": reduce_rec["library_call"]}),
          "library_ms": reduce_rec["library_ms"]},
     ]
-    # The RDF histogram is XLA in the JAX package (no pl.pallas_call); its
-    # entry is the bench fluid at f32 and sample_rdf's half width, the call
-    # the bench paths make, with the f64 and r_max 3 numbers beside it.
-    rdf_main = rdf_results[("bench_melted", "float32", "half_width")]
-    rdf_extra = {"covers": "mdtpu/observables.py:21 rdf_histogram (XLA)",
-                 "launches_b2": by_path["b2"]["rdf_histogram"]}
-    for (case, tag, rname), r in rdf_results.items():
-        if case == "bench_melted" and (tag, rname) != ("float32",
-                                                        "half_width"):
-            rdf_extra[f"{tag}_{rname}"] = {k: r[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-    kernels["kernels"].append(entry(
-        "rdf_histogram", "mdtpu_torch/csrc/rdf_histogram.cu",
-        "mdtpu/observables.py:21", by_path["b1"]["rdf_histogram"], rdf_main,
-        rdf_extra))
+    # The RDF histogram is XLA in the JAX package (no pl.pallas_call). Its
+    # two routes are two kernels of one source: the tile route's entry is
+    # the bench fluid at f32 and sample_rdf's half width, the cell route's
+    # at validate.py's r_max 3, the calls the bench paths make, each with
+    # its route's other cases beside it.
+    b1_rdf = by_path["b1"]
+    for kname, rname, launches in (
+            ("rdf_histogram", "half_width",
+             b1_rdf["rdf_histogram"] - b1_rdf["rdf_histogram_cell"]),
+            ("rdf_histogram_cell", "r_max_3",
+             b1_rdf["rdf_histogram_cell"])):
+        route = "cell" if kname.endswith("cell") else "tile"
+        main_rec = rdf_results[("bench_melted", "float32", rname)]
+        extra = {"covers": "mdtpu/observables.py:21 rdf_histogram (XLA)",
+                 "kernel": f"rdf_{route}_kernel",
+                 "all_pairs_ms": main_rec["all_pairs_ms"],
+                 "call_ms": main_rec["call_ms"],
+                 "launches_b2": by_path["b2"]["rdf_histogram"]
+                 - by_path["b2"]["rdf_histogram_cell"] if route == "tile"
+                 else by_path["b2"]["rdf_histogram_cell"]}
+        for (case, tag, rn), r in rdf_results.items():
+            if r["route"] == route and r is not main_rec:
+                extra[f"{case}_{tag}_{rn}"] = {k: r[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "all_pairs_ms", "max_abs_err", "pattern")}
+        kernels["kernels"].append(entry(
+            kname, "mdtpu_torch/csrc/rdf_histogram.cu",
+            "mdtpu/observables.py:21", launches, main_rec, extra))
     # The neighbour list is XLA in the JAX package (no pl.pallas_call); each
     # entry is the bench lattice at f32 with B1's times from the same turns,
     # the other cases beside it, and its launches on the list path.

@@ -17,14 +17,21 @@ with a user potential at f32 and hi/lo; for the neighbour list, the bench's
 lattice, melted fluid and the lattice with its particles shuffled (a random
 order of the same positions) at f64 and f32 (15^3 cells, C = 57, K = 128)
 and the lattice at 262,144 f32, binned and listed once by this tree's
-engine.
+engine; for the RDF histogram (200 bins), the melted fluid at f64 and f32
+and the bench's start in the tilted box [[L, L/8, L/12], [0, L, L/6], [0,
+0, L]] at f32, each at r_max 3 and at half the narrowest width, the
+lattice at 262,144 at r_max 3 (f64, f32), and ``validate_torch.py``'s
+triple point shape (4,096 at rho 0.84, a lattice jittered by 0.05, f32)
+at r_max 3; for the list's reduction, config 4's list (f64, f32) with the
+user potential's values on it.
 Then each tree runs ``cell_sweep``
 and ``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian
 grid: ``plane_sweep``; the list cases: ``pair_list`` and ``pair_sweep`` with
 the user potential of ``examples/03_polydisperse_2d.py``; the neighbour-list
 cases: ``nl_build`` (K1) and ``nl_forces`` (K2) with Lennard-Jones on the
 same list, each given the particles' order by cell where the tree's wrapper
-takes it) on them, and the
+takes it; the RDF cases: ``rdf_histogram``; the reduction cases:
+``pair_reduce``, full and lean) on them, and the
 probe (``probe_sweep``: ``full`` at chunks 45, 15 and 5, ``nodiv``,
 ``reduce_only``) on its own input, in a process of its own, in the order
 parent, change, change, parent, so both are timed on the same card within
@@ -37,7 +44,12 @@ ratio, and the relative differences of energy and virial (for
 ``pair_list``: whether every buffer of the list, the per-slot counts and
 starts and the total are equal bit for bit, padding included; for
 ``nl_build``: whether the rows, padding included, the counts and the flag
-are); then the card's name and power limit.
+are; for ``rdf_histogram``: whether the counts are equal, the device
+time by graph replay of what can be captured (the old tree's whole call;
+this tree's launch on its plan, the cell route's binning included) and
+the whole call's time between two CUDA events, host included, the median
+of 5; for ``pair_reduce``: the kernels a full call launches, by the
+profiler); then the card's name and power limit.
 """
 
 import argparse
@@ -173,6 +185,46 @@ def make_inputs(path):
                 "inputs": [pos, cid, buf, counts,
                            torch.diagonal(cell).contiguous(), order, starts,
                            state.diameters.to(dtype), nb.idx, nb.count]}
+    # The RDF histogram: the melted fluid, the tilted start, the lattice at
+    # 262,144 and the triple point's shape.
+    L = (N / 0.8) ** (1 / 3)
+    tcell = torch.tensor([[L, L / 8, L / 12], [0.0, L, L / 6],
+                          [0.0, 0.0, L]], dtype=torch.float64)
+    tilted = build_state_from_arrays(
+        lattice_positions(N, tcell, 3, dtype=torch.float64, jitter=0.01,
+                          seed=0, device="cuda"), torch.ones(N), tcell, 1,
+        dtype=torch.float64, cutoff=2.5, device="cuda")
+    triple = lattice_fluid_state(4096, 0.84, 0.75, dtype=torch.float64,
+                                 cutoff=2.5, jitter=0.05, device="cuda")
+    for name, state, tags, with_half in (
+            ("melted", melted, ("f64", "f32"), True),
+            ("tilted", tilted, ("f32",), True),
+            ("lattice_262144", big, ("f64", "f32"), False),
+            ("triple_4096", triple, ("f32",), False)):
+        # Half the narrowest perpendicular width (sample_rdf's default).
+        half = 0.5 / float(torch.linalg.norm(
+            torch.linalg.inv(state.unitcell), dim=1).max())
+        radii = [("r_max_3", 3.0)] + [("half_width", half)] * with_half
+        for tag in tags:
+            dtype = torch.float64 if tag == "f64" else torch.float32
+            for r_name, r_max in radii:
+                cases[f"rdf_{name}_{tag}_{r_name}"] = {
+                    "kind": "rdf", "r_max": r_max,
+                    "inputs": [state.positions.to(dtype).contiguous()],
+                    "cell": [state.unitcell.to(dtype).cpu(),
+                             state.unitcell_inv.to(dtype).cpu()]}
+    # The reduction: config 4's list at f64 and f32 (this tree's), the
+    # user potential's values on it.
+    from mdtpu_torch.ops.cell_pairs import pair_list
+    for tag in ("f64", "f32"):
+        case = cases[f"config4_{tag}"]
+        plist = pair_list(*case["inputs"], case["grid"], case["cutoff"],
+                          case["capacity"])
+        u, f = user.evaluate_r2(plist.r2, plist.sigma_i, plist.sigma_j)
+        cases[f"reduce_config4_{tag}"] = {
+            "kind": "reduce", "inputs": [], "plist": {
+                k: getattr(plist, k).cpu() for k in LIST_FIELDS + (
+                    "overflow",)}, "u": u.cpu(), "f": f.cpu()}
     del big, states
     # The cases' boxes are orthorhombic: pass the box lengths, which every
     # tree's wrappers take (the cell matrix only since the 2D and tilted
@@ -257,6 +309,12 @@ def worker(tree, inputs_path, out_path):
         if case["kind"] == "nl":
             out.update(nl_runs(name, case, pots["lj"]))
             continue
+        if case["kind"] == "rdf":
+            out.update(rdf_runs(name, case))
+            continue
+        if case["kind"] == "reduce":
+            out.update(reduce_runs(name, case))
+            continue
         args = (*(t.cuda() for t in case["inputs"]), case["grid"],
                 case["cutoff"], pots[case["pot"]])
         for kernel, fn in kernels[case["kind"]].items():
@@ -326,6 +384,74 @@ def nl_runs(name, case, pot):
             "ms": replay_ms(lambda: nl.nl_forces(*f_args, **f_kw))}}
 
 
+def call_ms(fn, reps=5):
+    """The median time of ``reps`` whole calls of ``fn`` between two CUDA
+    events each (the host's work inside the call included)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def rdf_runs(name, case):
+    """``rdf_histogram``: the counts, the device time of what a CUDA graph
+    can hold (the whole call on a tree without ``rdf_plan``, else the
+    launch on the plan) and the whole call's time."""
+    from mdtpu_torch.ops import rdf
+
+    pos = case["inputs"][0].cuda()
+    cell, inv = (t.cuda() for t in case["cell"])
+    args = (pos, cell, inv, case["r_max"], 200)
+    counts = rdf.rdf_histogram(*args)
+    if hasattr(rdf, "rdf_plan"):
+        plan = rdf.rdf_plan(*args)
+        device = (lambda: rdf.rdf_launch(plan, pos))
+    else:
+        device = (lambda: rdf.rdf_histogram(*args))
+    return {f"{name} rdf_histogram": {
+        "counts": counts.cpu(), "ms": replay_ms(device),
+        "call_ms": call_ms(lambda: rdf.rdf_histogram(*args))}}
+
+
+def reduce_runs(name, case):
+    """``pair_reduce`` full and lean on a list: energy, virial, forces,
+    device times by graph replay, and the kernels of one full call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdtpu_torch.ops.cell_pairs import PairList, pair_reduce
+
+    plist = PairList(**{k: v.cuda() for k, v in case["plist"].items()})
+    u, f = case["u"].cuda(), case["f"].cuda()
+    energy, virial, force = pair_reduce(plist, f, u)
+    lean = pair_reduce(plist, f)[2]
+    for _ in range(3):   # a profile that saw nothing on the device: again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pair_reduce(plist, f, u)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
+    return {
+        f"{name} pair_reduce": {
+            "energy": energy.cpu(), "virial": virial.cpu(),
+            "force": force.cpu(), "kernels_a_call": len(kernels),
+            "ms": replay_ms(lambda: pair_reduce(plist, f, u))},
+        f"{name} pair_reduce_lean": {
+            "energy": torch.zeros(()), "virial": torch.zeros(()),
+            "force": lean.cpu(),
+            "ms": replay_ms(lambda: pair_reduce(plist, f))}}
+
+
 def rel_diff(a, b):
     """The largest difference of ``a`` and ``b`` over the largest of ``b``
     (NaN as 0)."""
@@ -373,6 +499,15 @@ def main():
                  "parent_over_change": statistics.mean(p_ms)
                  / statistics.mean(c_ms),
                  "change_faster_in_every_run": max(c_ms) < min(p_ms)}
+        if "counts" in p:
+            print(json.dumps({
+                "case": name, "counts_equal": same_bits(p["counts"],
+                                                        c["counts"]),
+                "pairs_inside": int(c["counts"].sum()) // 2,
+                "parent_call_ms": [r[name]["call_ms"] for r in parent],
+                "change_call_ms": [r[name]["call_ms"] for r in change],
+                **times}), flush=True)
+            continue
         if "list" in p:
             unequal = [k for k in p["list"]
                        if not same_bits(p["list"][k], c["list"][k])]
@@ -381,8 +516,11 @@ def main():
                               "entries": c["entries"], **times}),
                   flush=True)
             continue
+        kernels = {f"{k}_kernels_a_call": r["kernels_a_call"]
+                   for k, r in (("parent", p), ("change", c))
+                   if "kernels_a_call" in r}
         print(json.dumps({
-            "case": name,
+            "case": name, **kernels,
             "force_equal": same_bits(p["force"], c["force"]),
             "energy_equal": same_bits(p["energy"], c["energy"]),
             "virial_equal": same_bits(p["virial"], c["virial"]),

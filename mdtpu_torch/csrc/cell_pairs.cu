@@ -73,15 +73,25 @@
 //
 // pair_reduce_kernel: one thread per slot sums f * disp over its segment in
 // list order (the force), and u and f * r^2; the block then reduces the
-// last two in a fixed tree into one partial per block, which the wrapper
-// sums. No atomics anywhere, so the result repeats bit for bit.
+// last two in a fixed tree into one partial per block. The full variant
+// also finishes the sum in the same launch: each block stores its partials
+// and takes an integer ticket; the block that draws the last one sums every
+// block's partials in block order (thread t the blocks t, t + threads, ...,
+// then the same fixed tree), halves them and writes energy and virial, and
+// puts the ticket back to 0 for the next call or graph replay. The ticket
+// is one integer of device memory per card (a module global), so two full
+// reductions must not run at once on two streams of one card. The sum's
+// order depends on the block count alone, and the forces never wait on the
+// ticket: the result repeats bit for bit, with one launch a call (the
+// wrapper's torch sums of the partials took four more).
 //
 // What bounds them on the H100. The list kernel: the stencil's candidates
 // times ~10 operations each (a distance and a compare), and the list it
 // writes, (d + 3) words and an int a hit: at the user-potential path (2D,
 // 65,536 particles, ~9 hits each at rho 0.9 and r_c 1.8, f64) ~0.6 M hits,
 // ~26 MB written, so bytes (8 us). The reduction reads the list once more
-// and the potential's two values: bytes.
+// and the potential's two values: bytes. Its partials add two values a
+// block of 256 slots, which the last block reads once more.
 
 #include <math.h>
 
@@ -562,8 +572,41 @@ __global__ void __launch_bounds__(1024)
   if (blockIdx.x == 0 && tid == 0 && last_total) *last_total = total;
 }
 
+// The full reduction's ticket: blocks that have stored their partials, on
+// this card (0 between calls).
+__device__ unsigned int g_reduce_ticket = 0;
+
+// The block's sums of a and b in a fixed order (a tree of shuffles within
+// each warp, then the warps' sums by the same tree in warp 0), in thread
+// 0; a block of whole warps, at most 32.
+template <typename T>
+__device__ __forceinline__ void block_sum2(T& a, T& b, T (&warp_a)[32],
+                                           T (&warp_b)[32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+  if (lane == 0) {
+    warp_a[warp] = a;
+    warp_b[warp] = b;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const int warps = blockDim.x >> 5;
+  a = lane < warps ? warp_a[lane] : T(0);
+  b = lane < warps ? warp_b[lane] : T(0);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+}
+
 // One thread per slot: its force, and its share of sum u and sum f r^2;
-// then a fixed-order block reduction of the two (OBS only).
+// then a fixed-order block sum of the two, and in the block that finishes
+// last the sum over blocks (OBS only).
 template <typename T, int D, bool OBS>
 __global__ void pair_reduce_kernel(const int64_t* __restrict__ seg_start,
                                    const int* __restrict__ seg_count,
@@ -573,9 +616,10 @@ __global__ void pair_reduce_kernel(const int64_t* __restrict__ seg_start,
                                    const T* __restrict__ disp,
                                    const T* __restrict__ r2,
                                    T* __restrict__ force,
-                                   T* __restrict__ e_part,
-                                   T* __restrict__ w_part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                                   T* e_part, T* w_part,
+                                   T* __restrict__ ew) {
+  __shared__ T warp_e[32], warp_w[32];
+  __shared__ bool last;
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   T fs[D], e = T(0), w = T(0);
 #pragma unroll
@@ -597,11 +641,27 @@ __global__ void pair_reduce_kernel(const int64_t* __restrict__ seg_start,
     for (int a = 0; a < D; ++a) force[a * n_slots + s] = fs[a];
   }
   if (!OBS) return;
-  T* red = reinterpret_cast<T*>(smem_raw);
-  block_reduce2(e, w, red, red + blockDim.x);
+  block_sum2(e, w, warp_e, warp_w);
   if (threadIdx.x == 0) {
-    e_part[blockIdx.x] = red[0];
-    w_part[blockIdx.x] = red[blockDim.x];
+    e_part[blockIdx.x] = e;
+    w_part[blockIdx.x] = w;
+    __threadfence();  // the partials are visible before the ticket
+    last = atomicAdd(&g_reduce_ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  e = T(0);
+  w = T(0);
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
+    e += __ldcg(e_part + b);  // from L2: other SMs wrote them
+    w += __ldcg(w_part + b);
+  }
+  block_sum2(e, w, warp_e, warp_w);
+  if (threadIdx.x == 0) {
+    ew[0] = T(0.5) * e;
+    ew[1] = T(0.5) * w;
+    g_reduce_ticket = 0;
   }
 }
 
@@ -683,15 +743,14 @@ template <typename T>
 int reduce(const int64_t* seg_start, const int* seg_count,
            long long capacity, long long n_slots, int dim, const T* u,
            const T* f, const T* disp, const T* r2, T* force, T* e_part,
-           T* w_part, void* stream_ptr) {
+           T* w_part, T* ew, void* stream_ptr) {
   if (dim != 2 && dim != 3) return kErrGrid;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int blocks = (int)((n_slots + kReduceThreads - 1) / kReduceThreads);
-  const size_t smem = u ? 2 * kReduceThreads * sizeof(T) : 0;
   auto launch = [&](auto kernel) {
-    kernel<<<blocks, kReduceThreads, smem, stream>>>(
+    kernel<<<blocks, kReduceThreads, 0, stream>>>(
         seg_start, seg_count, (int64_t)capacity, (int64_t)n_slots, u, f,
-        disp, r2, force, e_part, w_part);
+        disp, r2, force, e_part, w_part, ew);
     return (int)cudaGetLastError();
   };
   if (dim == 2)
@@ -763,14 +822,16 @@ int mdtpu_cell_pairs_hilo_f32(
       sig_j_out, list_len, out_len, smem_bytes, threads, fill, stream);
 }
 
-// u = null: the lean reduction (forces only; e_part and w_part unused).
+// u = null: the lean reduction (forces only; e_part, w_part and ew
+// unused). Otherwise e_part and w_part hold one partial per block of
+// kReduceThreads slots, and ew (2,) receives 0.5 sum u and 0.5 sum f r^2.
 int mdtpu_pair_reduce_f32(const int64_t* seg_start, const int* seg_count,
                           long long capacity, long long n_slots, int dim,
                           const float* u, const float* f, const float* disp,
                           const float* r2, float* force, float* e_part,
-                          float* w_part, void* stream) {
+                          float* w_part, float* ew, void* stream) {
   return reduce<float>(seg_start, seg_count, capacity, n_slots, dim, u, f,
-                       disp, r2, force, e_part, w_part, stream);
+                       disp, r2, force, e_part, w_part, ew, stream);
 }
 
 int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
@@ -778,9 +839,9 @@ int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
                           const double* u, const double* f,
                           const double* disp, const double* r2,
                           double* force, double* e_part, double* w_part,
-                          void* stream) {
+                          double* ew, void* stream) {
   return reduce<double>(seg_start, seg_count, capacity, n_slots, dim, u, f,
-                        disp, r2, force, e_part, w_part, stream);
+                        disp, r2, force, e_part, w_part, ew, stream);
 }
 
 const char* mdtpu_cell_pairs_error_string(int code) {

@@ -24,7 +24,9 @@ function is made of three parts:
   (c) :func:`pair_reduce`, a kernel of the same source: per own slot a
       fixed-order sum over its segment gives the force, and a fixed-order
       block reduction gives 0.5 sum u and 0.5 sum f r^2 (partials per block,
-      summed on the device). No atomics: the result repeats bit for bit.
+      summed in block order by the block that finishes last, in the same
+      launch). No floating-point atomics: the result repeats bit for
+      bit.
 
 The list lives in buffers of ``capacity`` entries that the engine sizes
 (:attr:`CellGridEngine.pair_list_capacity`) and keeps across calls in a
@@ -93,8 +95,8 @@ _LIST_ARGS = ((_P,) * 4 + (_I,) * 8 + (_D,) + (_P,) * 6 + (_L,) + (_P,) * 5
               + (_I,) * 5 + (_P,))
 # Per-slot starts and counts, the capacity and slot count, the dimension,
 # u (or null), f, the displacements and r^2, the force, the energy and
-# virial partials, the stream.
-_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 7 + (_P,)
+# virial partials, energy and virial (2,), the stream.
+_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 8 + (_P,)
 _SIGNATURES = (("mdtpu_cell_pairs_f32", _LIST_ARGS),
                ("mdtpu_cell_pairs_f64", _LIST_ARGS),
                ("mdtpu_cell_pairs_hilo_f32", (_P,) + _LIST_ARGS),
@@ -409,9 +411,13 @@ def pair_reduce(plist, f_over_r, u=None):
     values on it: per slot the sum of ``f_over_r * disp`` over its segment
     in list order, ``0.5 sum u`` and ``0.5 sum f_over_r r2`` (``u=None``: a
     lean reduction, energy and virial zero). CUDA tensors launch the
-    kernel (or raise); CPU tensors take :func:`pair_reduce_plain`. Each
-    launch adds one to ``pair_reduce.launches``, a lean one also to
-    ``pair_reduce.lean_launches``."""
+    kernel (or raise), one launch a call: energy and virial are views of
+    the kernel's own ``(2,)`` output. CPU tensors take
+    :func:`pair_reduce_plain`. Each launch adds one to
+    ``pair_reduce.launches``, a lean one also to
+    ``pair_reduce.lean_launches``. The full kernel finds its last block
+    with one counter per card, so two full reductions must not run at once
+    on two streams of one card."""
     if plist.r2.device.type == "cpu":
         return pair_reduce_plain(plist, f_over_r, u)
     dim, capacity = plist.disp.shape
@@ -427,23 +433,26 @@ def pair_reduce(plist, f_over_r, u=None):
     device = plist.r2.device
     force = torch.empty((dim, n_slots), dtype=dtype, device=device)
     blocks = -(-n_slots // REDUCE_THREADS)
-    partials = (torch.empty((2, blocks), dtype=dtype, device=device)
-                if u is not None else None)
+    # The partials (energy's, then the virial's, one a block), then energy
+    # and virial: one allocation, no launch.
+    out = (torch.empty(2 * blocks + 2, dtype=dtype, device=device)
+           if u is not None else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(plist.start.data_ptr(), plist.count.data_ptr(),
                 int(capacity), int(n_slots), dim,
                 None if u is None else u.data_ptr(), f_over_r.data_ptr(),
                 plist.disp.data_ptr(), plist.r2.data_ptr(), force.data_ptr(),
-                *((None, None) if partials is None else
-                  (partials[0].data_ptr(), partials[1].data_ptr())), stream)
+                *((None, None, None) if out is None else
+                  (out.data_ptr(), out[blocks:].data_ptr(),
+                   out[2 * blocks:].data_ptr())), stream)
     _cuda_build.check(lib, NAME, rc, "pair_reduce")
     pair_reduce.launches += 1
     if u is None:
         pair_reduce.lean_launches += 1
         zero = force.new_zeros(())
         return zero, zero, force
-    return 0.5 * partials[0].sum(), 0.5 * partials[1].sum(), force
+    return out[2 * blocks], out[2 * blocks + 1], force
 
 
 def pair_reduce_plain(plist, f_over_r, u=None):

@@ -17,9 +17,12 @@ a tilted 2D and a tilted 3D box, 2D neighbourhoods staged in parts; the
 pair list and its reduction against their plain versions (the same entries
 in the same order, bit for bit), its overflow, and a run with a user
 potential on the card against the same run on the CPU. The RDF histogram
-kernel against its plain version (3D, tilted 3D, tilted 2D; f64 and f32;
-two launches alike), and 200 steps from a state and from its checkpoint,
-bit for bit. The neighbour list: its build (rows as sets, counts, the
+kernel against its plain version (3D, tilted 3D, tilted 2D, rotated 3D
+and 2D; f64 and f32; positions displaced by box vectors; the cell route
+at r_max 3 and the tile route at half the width, each asserted, and the
+tile route forced at r_max 3; two launches alike), the full reduction in
+one launch, and 200 steps from a state and from its checkpoint, bit for
+bit. The neighbour list: its build (rows as sets, counts, the
 overflow flag of small capacities, two launches alike; its rows bit for bit
 the stencil-order plain build's in 2D and 3D, with and without the cells'
 order and starts, under overflow and with the stencil staged in parts) and
@@ -962,6 +965,58 @@ def test_pair_list_and_reduction_match_plain(cuda, box, kind):
         assert torch.equal(got[..., :50], want[..., :50])
 
 
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_pair_reduce_full_is_one_launch(cuda, kind):
+    """The full reduction is one kernel a call (the profiler's kernels of a
+    call: one, the reduction's): energy and virial against the plain
+    version, forces bit-equal to the lean variant's, repeats and CUDA-graph
+    replays bit for bit (the last block's ticket is back at 0 after every
+    call)."""
+    grid, tilt = BOXES["3d_tilted"]
+    cap = 9
+    counts = _mixed_counts(int(np.prod(grid)), cap, 5)
+    pos, diam, counts_t, cell = _slots_in_box(grid, cap, counts, 2.0, 9,
+                                              cuda, tilt, 0.4)
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    args = (pos.to(dtype), diam.to(dtype), counts_t, cell.to(dtype), grid,
+            2.0)
+    plist = pairs_mod.pair_list(*args, 100000)
+    u, f = NonAdditivePHS().evaluate_r2(plist.r2, plist.sigma_i,
+                                        plist.sigma_j)
+    first = pairs_mod.pair_reduce(plist, f, u)
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):   # a profile that saw nothing on the device: again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = pairs_mod.pair_reduce(plist, f, u)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "pair_reduce" in kernels[0], kernels
+    lean = pairs_mod.pair_reduce(plist, f)
+    ref = pairs_mod.pair_reduce_plain(plist, f, u)
+    rtol_ew, tol_f = TOLERANCES[dtype]
+    np.testing.assert_allclose(float(out[0]), float(ref[0]), rtol=rtol_ew)
+    np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=rtol_ew)
+    assert _force_ratio(out[2], ref[2], int(counts_t.clamp(max=cap).sum())) \
+        <= tol_f
+    assert torch.equal(lean[2], out[2])
+    assert out[0].shape == out[1].shape == ()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pairs_mod.pair_reduce(plist, f, u)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, first))
+    again = pairs_mod.pair_reduce(plist, f, u)
+    assert all(torch.equal(a, b) for a, b in zip(out, first))
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
 def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
     """A 2D polydisperse run with a user potential (the pair-list route in
     the slot layout, f64, NVE) on the card and on the CPU from one state:
@@ -1032,14 +1087,83 @@ def test_rdf_histogram_matches_plain(cuda, box, dtype, n):
     ci = torch.tensor(np.linalg.inv(cell), dtype=dtype, device=cuda)
     for r_max in (3.0, half_min_width(cell)):
         before = rdf.rdf_histogram.launches
+        cells = rdf.rdf_histogram.cell_launches
+        route = rdf.rdf_plan(pos, c, ci, r_max, 200).route
         got = rdf.rdf_histogram(pos, c, ci, r_max, 200)
         again = rdf.rdf_histogram(pos, c, ci, r_max, 200)
         plain = rdf.rdf_histogram_plain(pos, c, ci, r_max, 200)
         torch.cuda.synchronize()
         assert rdf.rdf_histogram.launches == before + 2
+        assert rdf.rdf_histogram.cell_launches == cells + 2 * (
+            route == rdf.CELL)
+        assert route == rdf.TILE or r_max == 3.0
         assert got.device.type == "cuda" and got.dtype == torch.int64
         assert torch.equal(got, plain) and torch.equal(got, again)
         assert int(got.sum()) % 2 == 0
+
+
+def _rotated(cell):
+    """The cell turned by a fixed rotation: no entry of it or its inverse
+    is zero (the general pattern)."""
+    dim = cell.shape[0]
+    if dim == 2:
+        c, s = np.cos(0.3), np.sin(0.3)
+        rot = np.array([[c, -s], [s, c]])
+    else:
+        rot, _ = np.linalg.qr(np.random.default_rng(11).normal(size=(3, 3)))
+    return rot @ cell
+
+
+@pytest.mark.parametrize("displaced", [0, 4, 2 ** 20],
+                         ids=["inside", "displaced", "far"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("box", ["cubic", "tilted3d", "tilted2d",
+                                 "general3d", "general2d"])
+def test_rdf_histogram_routes_match_plain(cuda, box, dtype, displaced):
+    """Both routes against the plain version bin for bin, at N = 20,000:
+    r_max 3 takes the cell route (asserted) and half the narrowest width
+    the tile route (asserted); at r_max 3 the tile route, forced, gives the
+    same counts. The boxes: cubic (the diagonal pattern), tilted (upper
+    triangular), rotated (general), in 3D and 2D; displaced: every
+    particle moved by whole box vectors, up to 4 each way; far: moved by
+    2^20 box vectors more, where float32 takes the tile route (its margin
+    leaves no cell) and float64 still the cell route. Two launches give
+    the same counts."""
+    from mdtpu_torch.observables import half_min_width
+    from mdtpu_torch.ops import rdf
+
+    n = 20000
+    kind = {"general3d": "cubic", "general2d": "tilted2d"}.get(box, box)
+    cell = _rdf_box(kind, n)
+    if box.startswith("general"):
+        cell = _rotated(cell)
+    rng = np.random.default_rng(7)
+    pos = rng.random((n, cell.shape[0])) @ cell.T
+    if displaced:
+        pos = pos + rng.integers(-4, 5, size=pos.shape) @ cell.T
+    if displaced > 4:
+        pos = pos + displaced * cell.sum(axis=1)
+    far32 = displaced > 4 and dtype == torch.float32
+    pos = torch.tensor(pos, dtype=dtype, device=cuda)
+    c = torch.tensor(cell, dtype=dtype, device=cuda)
+    ci = torch.tensor(np.linalg.inv(cell), dtype=dtype, device=cuda)
+    pattern = {"cubic": rdf.DIAGONAL, "tilted3d": rdf.UPPER,
+               "tilted2d": rdf.UPPER}.get(box, rdf.GENERAL)
+    for r_max, route in ((3.0, rdf.TILE if far32 else rdf.CELL),
+                         (half_min_width(cell), rdf.TILE)):
+        plan = rdf.rdf_plan(pos, c, ci, r_max, 200)
+        assert (plan.route, plan.pattern) == (route, pattern)
+        got = rdf.rdf_histogram(pos, c, ci, r_max, 200)
+        again = rdf.rdf_launch(plan, pos)
+        plain = rdf.rdf_histogram_plain(pos, c, ci, r_max, 200)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain) and torch.equal(got, again)
+        assert int(got.sum()) > 0
+        if r_max == 3.0 and not far32:
+            tile = rdf.rdf_launch(
+                rdf.rdf_plan(pos, c, ci, r_max, 200, route=rdf.TILE), pos)
+            assert torch.equal(tile, plain)
 
 
 def test_checkpoint_continuation_is_bit_exact_on_the_card(cuda, tmp_path):

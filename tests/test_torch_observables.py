@@ -11,11 +11,24 @@ inputs (CPU):
     case XLA contracts a product on the CPU; the total difference is then
     at most twice their number;
   * the row chunks do not change the counts;
-  * the kernel's schedule (row tiles, column spans, the diagonal tile from
-    j > i), emulated in Python: every unordered pair exactly once;
+  * the kernel's tile schedule (row tiles, column spans, only the blocks
+    with work, the diagonal tile from j > i), emulated in Python: every
+    unordered pair exactly once;
+  * the host's planning, on which the kernel relies (not a copy of the
+    kernel): the bin edges and ``r^2`` threshold against the formula in
+    numpy and in torch in the dtype, at and one ulp either side of every
+    edge; a plain pass over exactly the pairs that the cell route's grid
+    and half stencil visit gives the JAX package's counts (the same
+    near-edge allowance) in the three boxes and with the positions
+    displaced by several box lengths, each pair visited once; the route
+    (tile below 3 cells an axis, or where the stencil covers much of the
+    box) and the zero pattern of a diagonal, a triangular and a general
+    cell;
   * ``rdf_normalize`` and ``sample_rdf`` at rel 1e-12, the mean-squared
     displacement at rel 1e-12, ``read_thermo`` equal;
   * ``validate_torch.py``'s oracles equal ``validate.py``'s."""
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,20 +119,23 @@ def test_rdf_checks_its_inputs():
         rdf.rdf_histogram(pos, eye, eye, 1.0, rdf.MAX_BINS + 1)
 
 
-def _kernel_pairs(n, rows=128, span=16):
-    """The (i, j) pairs ``csrc/rdf_histogram.cu`` evaluates, by its
-    schedule: block (x, y) owns row tile x and walks the column tiles
-    max(x, y span) .. min(tiles, (y + 1) span) - 1; the diagonal tile from
-    j > i."""
-    tiles = -(-n // rows)
+def _kernel_pairs(n, width=256, span=8):
+    """The (i, j) pairs ``csrc/rdf_histogram.cu``'s tile route evaluates,
+    by its schedule: tiles of ``width`` rows (and columns); span y holds
+    the row tiles 0 .. min(tiles, (y + 1) span) - 1, block by block in that
+    order, and block (x, y) walks the column tiles max(x, y span) ..
+    min(tiles, (y + 1) span) - 1, the diagonal tile from j > i."""
+    tiles = -(-n // width)
+    blocks = []
+    for y in range(-(-tiles // span)):
+        blocks += [(x, y) for x in range(min(tiles, (y + 1) * span))]
     pairs = []
-    for x in range(tiles):
-        for y in range(-(-tiles // span)):
-            for tile in range(max(x, y * span), min(tiles, (y + 1) * span)):
-                for i in range(x * rows, min(n, (x + 1) * rows)):
-                    start = i + 1 if tile == x else tile * rows
-                    pairs += [(i, j) for j in
-                              range(start, min(n, (tile + 1) * rows))]
+    for x, y in blocks:
+        for tile in range(max(x, y * span), min(tiles, (y + 1) * span)):
+            for i in range(x * width, min(n, (x + 1) * width)):
+                start = i + 1 if tile == x else tile * width
+                pairs += [(i, j) for j in
+                          range(start, min(n, (tile + 1) * width))]
     return pairs
 
 
@@ -129,6 +145,203 @@ def test_kernel_schedule_visits_each_pair_once(n, rows, span):
     pairs = _kernel_pairs(n, rows, span)
     assert len(pairs) == len(set(pairs)) == n * (n - 1) // 2
     assert all(i < j for i, j in pairs)
+
+
+def _ulp_neighbours(x):
+    lo = np.nextafter(x, x.dtype.type(-np.inf))
+    hi = np.nextafter(x, x.dtype.type(np.inf))
+    return np.concatenate([lo, x, hi])
+
+
+def _numpy_bins(r2, r_max, n_bins):
+    """The plain version's bin in numpy, in r2's dtype (n_bins: outside)."""
+    dt = r2.dtype.type
+    r = np.sqrt(r2)
+    inside = r < dt(r_max)
+    with np.errstate(invalid="ignore", over="ignore"):
+        b = np.minimum((r / dt(r_max) * dt(n_bins)).astype(np.int64),
+                       n_bins - 1)
+    return np.where(inside, b, n_bins)
+
+
+def _edge_rule(r2, edges):
+    """The kernel's reading of the edges: outside (n_bins) where r2 >= t,
+    else the largest b with edges[b] <= r2."""
+    n_bins = edges.shape[0] - 1
+    b = np.searchsorted(edges[:n_bins], r2, side="right") - 1
+    return np.where(r2 < edges[n_bins], b, n_bins)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("r_max,n_bins", [(3.0, 200), (21.72, 200),
+                                          (2.5, 7), (1.0, 12288)])
+def test_bin_edges_match_the_formula(dtype, r_max, n_bins):
+    """The host's edges and threshold t against the plain version's formula
+    in numpy in the dtype (correctly rounded, as the card's arithmetic; the
+    CPU build of torch takes a vectorized square root that can be 1 ulp
+    off): at every edge and one ulp either side, and over the squares of a
+    grid of distances; each edge the least r^2 of its bin."""
+    edges = rdf.bin_edges(dtype, r_max, n_bins)
+    assert edges.dtype == dtype and edges.shape == (n_bins + 1,)
+    assert edges[0] == 0 and np.all(np.diff(edges) >= 0)
+    r = np.linspace(0, 1.2 * r_max, 20001).astype(dtype)
+    for r2 in (_ulp_neighbours(edges[1:]), r * r):
+        want = _numpy_bins(r2, r_max, n_bins)
+        np.testing.assert_array_equal(_edge_rule(r2, edges), want)
+    below = np.nextafter(edges[1:], dtype(0))
+    b = np.arange(1, n_bins + 1)
+    assert np.all(_numpy_bins(edges[1:], r_max, n_bins) >= b)
+    assert np.all(_numpy_bins(below, r_max, n_bins) < b)
+    t = edges[n_bins]
+    assert np.sqrt(t) >= dtype(r_max) > np.sqrt(np.nextafter(t, dtype(0)))
+
+
+def _rotation(dim):
+    """A rotation that leaves no entry of a cell matrix zero."""
+    if dim == 2:
+        c, s = np.cos(0.3), np.sin(0.3)
+        return np.array([[c, -s], [s, c]])
+    q, _ = np.linalg.qr(np.random.default_rng(11).normal(size=(3, 3)))
+    return q
+
+
+def _cell_route_pairs(frac, grid, cid):
+    """The unordered pairs the cell route visits: the own cell (j after i
+    in the binning's order) and the cells whose offset lies
+    lexicographically ahead in {-1, 0, 1}^d, from each cell; each visit
+    once, as a set of (i, j), i < j."""
+    dim = len(grid)
+    coords = np.stack(np.unravel_index(cid, grid), axis=1)
+    offsets = [o for o in itertools.product((-1, 0, 1), repeat=dim)
+               if o > (0,) * dim]
+    by_cell = {}
+    order = np.argsort(cid, kind="stable")
+    for p in order:
+        by_cell.setdefault(tuple(coords[p]), []).append(int(p))
+    visits = []
+    for c, own in by_cell.items():
+        for k, i in enumerate(own):
+            visits += [(i, j) for j in own[k + 1:]]
+            for o in offsets:
+                nb = tuple((a + b) % g for a, b, g in zip(c, o, grid))
+                visits += [(i, j) for j in by_cell.get(nb, [])]
+    pairs = {(min(i, j), max(i, j)) for i, j in visits}
+    assert len(pairs) == len(visits)   # each pair visited once
+    return np.array(sorted(pairs))
+
+
+def _plain_pair_bins(pos, cell, inv, pairs, r_max, n_bins):
+    """The plain version's arithmetic (the JAX expression order) on a list
+    of pairs, in numpy in the dtype; the bins (n_bins: outside) and the
+    squared distances."""
+    dim = pos.shape[1]
+    i, j = pairs[:, 0], pairs[:, 1]
+    d = [pos[i, k] - pos[j, k] for k in range(dim)]
+
+    def row(m, a, v):
+        out = m[a, 0] * v[0]
+        for k in range(1, dim):
+            out = out + m[a, k] * v[k]
+        return out
+
+    frac = [f - np.round(f) for f in (row(inv, k, d) for k in range(dim))]
+    r2 = None
+    for a in range(dim):
+        x = row(cell, a, frac)
+        r2 = x * x if r2 is None else r2 + x * x
+    return _numpy_bins(r2, r_max, n_bins), r2
+
+
+@pytest.mark.parametrize("displaced", [False, True],
+                         ids=["inside", "displaced"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("box", BOXES)
+def test_cell_route_pairs_give_the_jax_counts(box, dtype, displaced):
+    """A plain pass over exactly the pairs that the cell route's plan
+    visits (its grid, the binning of ``bin_by_cell``, the half stencil)
+    gives the JAX package's dense histogram, bin for bin up to the
+    near-edge allowance; the kernel's edge rule bins those pairs as the
+    plain formula does. Displaced: every particle moved by whole box
+    vectors (up to 4 each way), which the margin covers."""
+    jdt, ndt = DTYPES[dtype]
+    cell = _box(box)
+    dim = cell.shape[0]
+    pos = _positions(cell, seed=5)
+    if displaced:
+        shift = np.random.default_rng(6).integers(-4, 5, size=pos.shape)
+        pos = pos + shift @ cell.T
+    pos = pos.astype(ndt)
+    cell_n, inv_n = cell.astype(ndt), np.linalg.inv(cell).astype(ndt)
+    r_max, n_bins = (3.0 if dim == 2 else 2.0), 60
+    t_pos, t_cell, t_inv = (torch.from_numpy(a) for a in (pos, cell_n,
+                                                          inv_n))
+    plan = rdf.rdf_plan(t_pos, t_cell, t_inv, r_max, n_bins,
+                        route=rdf.CELL)
+    assert plan.route == rdf.CELL and min(plan.grid) >= 4
+    cid = rdf.bin_by_cell(plan.frac, plan.grid)[0].numpy()
+    pairs = _cell_route_pairs(plan.frac.numpy(), plan.grid, cid)
+    assert len(pairs) < N_RDF * (N_RDF - 1) // 4
+    bins, r2 = _plain_pair_bins(pos, cell_n, inv_n, pairs, r_max, n_bins)
+    np.testing.assert_array_equal(
+        _edge_rule(r2, rdf.bin_edges(ndt, r_max, n_bins)), bins)
+    got = 2 * np.bincount(bins, minlength=n_bins + 1)[:n_bins]
+    ref = np.asarray(jobs.rdf_histogram(
+        jnp.asarray(pos, jdt), jnp.asarray(cell_n, jdt),
+        jnp.asarray(inv_n, jdt), r_max, n_bins))
+    diff = int(np.abs(got - ref).sum())
+    if diff:
+        excused = _near_edges(pos.astype(np.float64), cell, r_max, n_bins)
+        assert diff <= 2 * excused, (diff, excused)
+    assert int(got.sum()) == int(ref.sum()) > 0
+
+
+def test_plan_routes():
+    """The tile route below 3 cells an axis (half the width), where the
+    stencil covers more than CELL_SHARE_MAX of the box (4 cells an axis),
+    and for positions so far out that the float32 margin leaves fewer than
+    3 (float64's still leaves 14); the cell route at r_max 3 in the bench
+    box; CELL refused where it cannot be taken."""
+    L = (65536 / 0.8) ** (1 / 3)
+    cell = torch.eye(3, dtype=torch.float32) * L
+    inv = torch.eye(3, dtype=torch.float32) / L
+    pos = torch.rand((65536, 3), generator=torch.Generator().manual_seed(0)
+                     ) * L
+    plan = rdf.rdf_plan(pos, cell, inv, 3.0)
+    assert plan.route == rdf.CELL and plan.grid == (14, 14, 14)
+    assert plan.pattern == rdf.DIAGONAL
+    for r_max in (L / 2, L / 3, L / 4.05):
+        assert rdf.rdf_plan(pos, cell, inv, r_max).route == rdf.TILE
+    assert rdf.rdf_plan(pos, cell, inv, L / 4.05, route=rdf.CELL).grid == (
+        4, 4, 4)
+    with pytest.raises(ValueError, match="3 cells"):
+        rdf.rdf_plan(pos, cell, inv, L / 2, route=rdf.CELL)
+    far = pos + 1e6 * L
+    assert rdf.rdf_plan(far, cell, inv, 3.0).route == rdf.TILE
+    assert rdf.rdf_plan(far.double(), cell.double(), inv.double(),
+                        3.0).route == rdf.CELL
+    assert rdf.rdf_plan(pos, cell, inv, 3.0, route=rdf.TILE).route == \
+        rdf.TILE
+    assert rdf.cell_grid_for(cell.numpy(), inv.numpy(), 3.0, np.float32,
+                             1.0, 100) == (4, 4, 4)   # at most N cells
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_zero_pattern(dtype):
+    """Diagonal for an orthorhombic cell, upper triangular for the tilted
+    boxes (their numpy inverses keep the zeros), general for a rotated
+    cell, in the dtype."""
+    for box, want in (("cubic", rdf.DIAGONAL), ("tilted3d", rdf.UPPER),
+                      ("tilted2d", rdf.UPPER)):
+        cell = _box(box)
+        inv = np.linalg.inv(cell)
+        assert rdf.zero_pattern(cell.astype(dtype), inv.astype(dtype)) == \
+            want
+        rot = _rotation(cell.shape[0]) @ cell
+        assert rdf.zero_pattern(rot.astype(dtype),
+                                np.linalg.inv(rot).astype(dtype)) == \
+            rdf.GENERAL
 
 
 def _states(dim=3, seed=4, dtype=torch.float64):

@@ -16,7 +16,9 @@
    fitted B2 against the quadrature;
 4. the near-triple-point liquid (rho* = 0.84, T* = 0.75, r_c = 2.5): the
    first RDF peak (ten frames 200 steps apart, binned by the port's
-   ``rdf_histogram``), temperature, energy and pressure windows.
+   ``rdf_histogram``; on the card its route and each frame's time, host
+   included, are printed beside), temperature, energy and pressure
+   windows.
 
 The quadratures, the fit, the block SEM, the vendored values, the windows
 and the budgets are ``validate.py``'s, copied (that script imports JAX).
@@ -226,14 +228,30 @@ class Runner:
         counts = torch.zeros(200, dtype=torch.int64, device=self.device)
         frames = 0
         every = self.steps(200)
+        rdf_ms = []   # each frame's histogram, host included (the card)
         for _ in range(10):
             state = mt.run_simulation(state, params, mt.NVT(temp, 0.2), every,
                                       every, os.path.join(self.out,
                                                           "triple_frames"),
                                       engine=engine, device=self.device)
-            counts += rdf_histogram(state.positions, state.unitcell,
-                                    state.unitcell_inv, 3.0, 200)
+            args = (state.positions, state.unitcell, state.unitcell_inv, 3.0,
+                    200)
+            if state.positions.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                counts += rdf_histogram(*args)
+                stop.record()
+                torch.cuda.synchronize()
+                rdf_ms.append(start.elapsed_time(stop))
+            else:
+                counts += rdf_histogram(*args)
             frames += 1
+        rdf_route = None
+        if state.positions.device.type == "cuda":
+            from mdtpu_torch.ops.rdf import rdf_plan
+            rdf_route = rdf_plan(*args).route
         volume = float(abs(np.linalg.det(
             state.unitcell.cpu().numpy().astype(np.float64))))
         centers, g = rdf_normalize(counts, n, volume, 3.0,
@@ -258,6 +276,8 @@ class Runner:
         return {
             "config": f"LJ N={n} rho={rho} kT={temp} rc=2.5 (tail-corrected)",
             "rdf_peak_r": round(peak_r, 3), "rdf_peak_g": round(peak_g, 2),
+            "rdf_route": rdf_route,
+            "rdf_ms_median": float(np.median(rdf_ms)) if rdf_ms else None,
             "mean_T": round(mean_t, 4), "mean_P": round(mean_p, 3),
             "mean_E_per_N": round(mean_e, 3),
             "anchor_checks": {}, "plausibility_checks": plaus,
