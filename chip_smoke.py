@@ -168,6 +168,25 @@
      start's energy, and ``run_simulation_sharded`` NVT(0.5, 0.01) for 300
      steps from the user path's minimized state and velocities, its rows
      at steps 0 and 100 within 1e-8 of that path's.
+   * reference: checks that catch an error common to a kernel and its
+     plain version, on wrapped positions at 65,536 and f64: the virial
+     pressure against -dU/dV (a central difference in the box scale, eps
+     1e-5, rel 1e-6) and |sum F| / (N rms |F|) < 1e-10 through B1 (the
+     melted bench fluid, force-shifted LJ), B1 in the tilted box, B1 in 2D
+     (the 2D path's melted start), B2, K2 and the pair list (config 4's
+     potential on its lattice); the RDF's counts at r_max 3 (cell and tile
+     routes) sum to twice the pairs inside r_max counted by the plain
+     sweep;
+   * examples (on the one-rank NCCL group): each of ``examples_torch/01``
+     -``05``'s ``main`` as a user runs it (published N and step counts;
+     the naive engine for 01-04, the slab launch for 05), then at 65,536
+     through the same ``main`` (01, 02, 04 on B1 in slots, 03 on the pair
+     list, 05 the slab launch) with the cuts of ``EXAMPLE_CUTS`` and FIRE
+     capped at 1000 iterations (03 at dmax 0.01), all printed; each run's
+     files, trajectory frames and thermo rows (all finite) as the schedule
+     gives them, each NVT leg's second-half mean T within 5% of its target
+     (a ramp's at the rows' steps), 01's NVE energy range printed, each
+     leg's steps/s, engine and launches.
    The B1, B2 and list paths end with the observables of their final
    state: ``sample_rdf`` through the RDF kernel at the half width (the
    tile route) and at r_max 3 (the cell route), the first peak of each,
@@ -205,6 +224,7 @@ import time
 
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 N_BENCH = 65536
 BENCH_GEOMETRY = ((15, 15, 15), 37)   # CellGridEngine.create at skin 0.3
 NVT_STEPS, NVE_STEPS = 600, 500
@@ -912,37 +932,27 @@ def overlap_check(mt, record):
 
 # ----------------------------------------------------- 2D and tilted boxes
 
+def load_example(name):
+    """``examples_torch/{name}.py`` of this checkout, loaded by path."""
+    import importlib.util
+    key = f"examples_torch_{name}"
+    if key in sys.modules:
+        return sys.modules[key]
+    spec = importlib.util.spec_from_file_location(
+        key, os.path.join(REPO, "examples_torch", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def user_potential(mt):
-    """The user potential of ``examples/03_polydisperse_2d.py`` written
-    against the port's ``Potential``, as a user writes one: pseudo-HS-style
+    """The user potential of BASELINE config 4, ``examples_torch/
+    03_polydisperse_2d.py``'s, as a user writes one: pseudo-HS-style
     repulsion with non-additive cross diameters sigma_ij = 0.5 (s_i + s_j)
     (1 - 0.2 |s_i - s_j|), energy- and force-shifted at 1.25 sigma_ij. No
     kernel has a functor for it: the cell grid takes the pair-list route."""
-    from mdtpu_torch.utils.math import ipow
-
-    @dataclasses.dataclass(frozen=True)
-    class NonAdditivePHS(mt.Potential):
-        lam: int = 12
-
-        def evaluate(self, r, sigma_i, sigma_j):
-            sigma = 0.5 * (sigma_i + sigma_j) * (1.0 - 0.2 * torch.abs(
-                sigma_i - sigma_j))
-            cutoff = 1.25 * sigma
-            inside = r < cutoff
-            r_safe = torch.where(inside, r, torch.ones_like(r))
-            sr = sigma / r_safe
-            u_raw = ipow(sr, self.lam)
-            f_raw = self.lam * u_raw / r_safe
-            u_c = ipow(torch.tensor(1 / 1.25, dtype=r.dtype,
-                                    device=r.device), self.lam)
-            f_c = self.lam * u_c / cutoff
-            u = u_raw - u_c + (r_safe - cutoff) * f_c
-            f = f_raw - f_c
-            zero = torch.zeros_like(u)
-            return (torch.where(inside, u, zero),
-                    torch.where(inside, f, zero))
-
-    return NonAdditivePHS()
+    return load_example("03_polydisperse_2d").NonAdditivePHS()
 
 
 def _uniform(seed, shape, dtype=torch.float64):
@@ -2856,45 +2866,462 @@ def _rows(path):
                 if line.strip() and not line.startswith("#")]
 
 
-def run_paths(mt, workdir):
+# ------------------------------------------------------------ the examples
+
+# The port's examples (examples_torch/), each ``main`` run twice: as a user
+# runs it (its published N and step counts; select_engine gives the naive
+# engine for 01-04 at these N, as in the JAX package, and 05 the slab launch
+# on the one-rank NCCL group), then at N_BENCH through the same ``main``, so
+# 01, 02 and 04 take the cell grid (B1, in slots), 03 the pair list and 05
+# the slab launch, with the step counts cut as EXAMPLE_CUTS says. FIRE at
+# N_BENCH stops after EXAMPLE_FIRE_CAP iterations, and 03's takes dmax 0.01
+# (ROADMAP C8: at the example's 0.1 FIRE climbs on this start).
+EXAMPLE_NAMES = ("01_pseudohs_nvt_nve", "02_brownian", "03_polydisperse_2d",
+                 "04_quench_fire", "05_sharded_multichip")
+EXAMPLE_CUTS = {"01_pseudohs_nvt_nve": {"nvt_steps": 2000,
+                                        "nve_steps": 2000},
+                "02_brownian": {"steps": 2000},
+                "03_polydisperse_2d": {"steps": 3000},
+                "04_quench_fire": {},
+                "05_sharded_multichip": {"steps": 1000}}
+EXAMPLE_FIRE_CAP = 1000
+EXAMPLE_DMAX = {"03_polydisperse_2d": USER_DMAX}
+# An NVT leg's second-half mean temperature against the mean of its
+# targets (a ramp's too, at the rows' steps).
+EXAMPLE_T_TOL = 0.05
+
+
+def _frames(path):
+    """Frames of a LAMMPS trajectory, zstd-compressed or not."""
+    if path.endswith(".zst"):
+        from mdtpu_torch.io.compress import decompress_zstd
+        path = decompress_zstd(path)
+    with open(path) as f:
+        return f.read().count("ITEM: TIMESTEP")
+
+
+def _engine_of(mt, call, state, params):
+    """The engine a leg takes, as its entry point picks it."""
+    if call == "run_simulation_sharded":
+        name = "HaloSlotEngine"
+        from mdtpu_torch.ops.cell_sweep import kernel_params
+        uses_list = kernel_params(params.potential) is None
+    else:
+        eng = mt.select_engine(params.potential, state.cutoff, state,
+                               workload="minimize" if call == "minimize"
+                               else "dynamics")
+        name = type(eng).__name__
+        uses_list = getattr(eng, "uses_pair_list", False)
+    return name + (" (pair list)" if uses_list else "")
+
+
+def _timed_entry_points(mt, mod, legs, fire_kw):
+    """Replace the example's entry points by wrappers that time each call
+    (synchronised), record its engine and kernel launches into ``legs``
+    and, for ``minimize``, add ``fire_kw``. Returns the originals."""
+    import inspect
+    originals = {}
+    for attr in ("run_simulation", "minimize", "run_simulation_sharded"):
+        if not hasattr(mod, attr):
+            continue
+        fn = originals[attr] = getattr(mod, attr)
+
+        def run(*args, _fn=fn, _attr=attr, **kwargs):
+            if _attr == "minimize":
+                kwargs.update(fire_kw)
+            a = inspect.signature(_fn).bind(*args, **kwargs).arguments
+            leg = {"call": _attr, "engine": _engine_of(mt, _attr, a["state"],
+                                                        a["params"])}
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            leg["s"] = time.perf_counter() - t
+            after = launch_counts()
+            leg["launches"] = {k: after[k] - before[k] for k in after
+                               if after[k] != before[k]}
+            if _attr == "minimize":
+                leg.update(fire_kw, iterations=int(out[3]),
+                           converged=bool(out[2]),
+                           energy_per_particle=float(out[1])
+                           / a["state"].n_particles,
+                           iterations_per_s=int(out[3]) / leg["s"])
+            else:
+                first = a["state"].step
+                leg.update(ensemble=a["ensemble"], steps=a["total_steps"],
+                           pathname=a["pathname"],
+                           compress=a.get("compress", False),
+                           rows=len(range(first + (-first) % a["frequency"],
+                                          first + a["total_steps"],
+                                          a["frequency"])),
+                           steps_per_s=a["total_steps"] / leg["s"])
+            legs.append(leg)
+            return out
+
+        setattr(mod, attr, run)
+    return originals
+
+
+def _example_files(name, out):
+    """The files a run must leave besides each leg's thermo and trajectory
+    (held by the legs' checks), as its JAX twin's test asserts and the
+    example writes."""
+    names = {"01_pseudohs_nvt_nve": ("final.xyz", "../{}_nve/final.xyz"),
+             "02_brownian": ("final.xyz", "snapshot.0",
+                             "new-log-times.txt"),
+             "03_polydisperse_2d": ("start.xyz", "minimized.xyz",
+                                    "final.xyz"),
+             "04_quench_fire": ("minimized.xyz", "final.xyz"),
+             "05_sharded_multichip": ("final.xyz",)}[name]
+    return [os.path.normpath(os.path.join(
+        out, f.format(os.path.basename(out)))) for f in names]
+
+
+def example_run(mt, name, size, workdir):
+    """One example's ``main`` at ``size`` ("published" or "large"),
+    checked: the files and frame counts, every thermo row finite, each NVT
+    leg's second-half mean T within EXAMPLE_T_TOL of its targets; 01's NVE
+    energy range printed. Returns ``(record, failures)``."""
+    import inspect
+    mod = load_example(name)
+    defaults = {k: v.default for k, v in
+                inspect.signature(mod.main).parameters.items()}
+    kw = {k: defaults[k] for k in defaults if k not in ("out", "device")}
+    fire_kw = {}
+    if size == "large":
+        kw.update(EXAMPLE_CUTS[name], n_particles=N_BENCH)
+        fire_kw = {"max_steps": EXAMPLE_FIRE_CAP}
+        if name in EXAMPLE_DMAX:
+            fire_kw["dmax"] = EXAMPLE_DMAX[name]
+    out = os.path.join(workdir, "examples", f"{name}_{size}")
+    legs, failures = [], []
+    originals = _timed_entry_points(mt, mod, legs, fire_kw)
+    t = time.perf_counter()
+    try:
+        mod.main(out=out, **kw)
+    except Exception as exc:  # a failed example fails the run
+        failures.append(f"{name} {size}: {type(exc).__name__}: {exc}")
+    finally:
+        for attr, fn in originals.items():
+            setattr(mod, attr, fn)
+    seconds = time.perf_counter() - t
+
+    def check(cond, what):
+        if not cond:
+            failures.append(f"{name} {size}: {what}")
+
+    if not failures:
+        for path in _example_files(name, out):
+            check(os.path.isfile(path), f"no {path}")
+    for leg in legs:
+        ens = leg.pop("ensemble", None)
+        if ens is None:
+            continue
+        leg["ensemble"] = type(ens).__name__
+        path = leg.pop("pathname")
+        traj = os.path.join(path, "trajectory.xyz"
+                            + (".zst" if leg.pop("compress") else ""))
+        frames = _frames(traj) if os.path.isfile(traj) else None
+        check(frames == leg["rows"], f"{traj}: {frames} frames, not "
+              f"{leg['rows']}")
+        path = os.path.join(path, "thermo.txt")
+        rows = _rows(path) if os.path.isfile(path) else []
+        check(len(rows) == leg["rows"] and all(
+            math.isfinite(v) for r in rows for v in r),
+            f"{path}: {len(rows)} rows, not {leg['rows']} finite rows")
+        if not rows:
+            continue
+        if isinstance(ens, mt.NVT):
+            half = rows[len(rows) // 2:]
+            mean_t = sum(r[2] for r in half) / len(half)
+            target = sum(float(ens.ktemp(int(r[0]) + 1)) for r in half) \
+                / len(half)
+            leg.update(second_half_mean_t=mean_t, target_t=target)
+            check(abs(mean_t / target - 1.0) < EXAMPLE_T_TOL,
+                  f"NVT second-half mean T {mean_t} against {target}")
+        elif isinstance(ens, mt.NVE):
+            n = kw["n_particles"]
+            total = [r[1] + 1.5 * r[2] * (n - 1) / n for r in rows]
+            leg.update(nve_energy_per_particle_range=max(total) - min(total),
+                       nve_energy_per_particle=[min(total), max(total)])
+    launches = {}
+    for leg in legs:
+        for k, v in leg["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec = {"example": name, "size": size, "n_particles": kw["n_particles"],
+           "cuts": EXAMPLE_CUTS[name] if size == "large" else {},
+           "fire": fire_kw, "s": seconds, "legs": legs,
+           "launches": launches}
+    log(json.dumps({"example_run": rec}))
+    return rec, failures
+
+
+# The kernel each example's run at N_BENCH must launch (at the published N
+# only 05 launches one, the slab sweep).
+EXAMPLE_KERNELS = {"01_pseudohs_nvt_nve": ("cell_sweep", "cell_sweep_hilo"),
+                   "02_brownian": ("cell_sweep",),
+                   "03_polydisperse_2d": ("cell_pairs", "pair_reduce"),
+                   "04_quench_fire": ("cell_sweep",),
+                   "05_sharded_multichip": ("cell_sweep_slab",)}
+
+
+def examples_phase(mt, workdir):
+    """Every example at both sizes (see EXAMPLE_NAMES), on the one-rank
+    NCCL group formed by the caller (example 05's default group). A failed
+    example, file or check is a failure; so is a run at N_BENCH that did
+    not launch its kernels, or one at the published N of 01-04 that
+    launched any or took another engine than the naive one."""
+    runs, failures = [], []
+    t = time.perf_counter()
+    for size in ("published", "large"):
+        for name in EXAMPLE_NAMES:
+            rec, fails = example_run(mt, name, size, workdir)
+            runs.append(rec)
+            failures += fails
+            n = rec["launches"]
+            if size == "large" or name.startswith("05"):
+                missing = [k for k in EXAMPLE_KERNELS[name]
+                           if n.get(k, 0) <= 0]
+                if missing:
+                    failures.append(f"{name} {size}: no {missing} launch "
+                                    f"({n})")
+            else:
+                engines = {leg["engine"] for leg in rec["legs"]}
+                if n or engines != {"NaivePairEngine"}:
+                    failures.append(f"{name} {size}: engines {engines}, "
+                                    f"launches {n}")
+    return {"path": "examples", "s": time.perf_counter() - t,
+            "runs": [{k: r[k] for k in ("example", "size", "s")}
+                     for r in runs]}, failures
+
+
+# ------------------------------------------------------ the reference checks
+
+REF_EPS = 1e-5
+
+
+def wrapped(state):
+    """The state with its positions folded into the box (the engines'
+    contract: a cell engine takes positions inside the box)."""
+    cell = state.unitcell
+    frac = state.positions @ state.unitcell_inv.T
+    return state.replace(positions=(frac - torch.floor(frac)) @ cell.T)
+
+
+def _energy_virial_forces(engine, state, scale):
+    """The engine's energy, virial and forces on ``state`` with positions
+    and cell scaled by ``scale`` (fractional coordinates fixed)."""
+    from mdtpu_torch.sim.initialization import build_state_from_arrays
+    s = build_state_from_arrays(state.positions * scale, state.diameters,
+                                state.unitcell.cpu().numpy() * scale,
+                                dtype=torch.float64, cutoff=engine.cutoff,
+                                device="cuda")
+    args = (s.positions, s.diameters, s.unitcell, s.unitcell_inv)
+    e, w, f, nb = engine.compute(*args, engine.allocate(*args))
+    if bool(getattr(nb, "overflow", False)):
+        return None
+    return float(e), float(w), f
+
+
+def _scaled_evaluations(engine, state):
+    """:func:`_energy_virial_forces` at the scales 1 and 1 +- REF_EPS with
+    one engine, grown until none of the three overflows. Returns the
+    engine and the three results."""
+    for _ in range(8):
+        got = [_energy_virial_forces(engine, state, x)
+               for x in (1.0, 1.0 + REF_EPS, 1.0 - REF_EPS)]
+        if all(g is not None for g in got):
+            return engine, got
+        engine = engine.with_grown_capacity()
+    raise RuntimeError(f"{type(engine).__name__} still overflowing")
+
+
+def reference_phase(mt):
+    """Checks that catch an error common to a kernel and its plain version,
+    at 65,536 and f64 on wrapped positions: the virial pressure W/(d V)
+    against -dU/dV by a central difference in the box scale (eps REF_EPS,
+    rel 1e-6) and |sum F| / (N rms |F|) < 1e-10, through B1 (the melted
+    bench fluid, force-shifted LJ), B1 in the tilted box, B1 in 2D (the 2D
+    path's melted start), B2 (``PlaneEngine``), K2 (the neighbour list) and
+    the pair list (config 4's potential on its lattice); and the RDF's
+    normalisation: its counts (cell route and tile route, r_max 3) sum to
+    twice the pairs inside r_max counted by the plain sweep, within twice
+    the pairs whose r^2 lies within 1e-12 of r_max^2."""
+    from mdtpu_torch.ops import rdf
+    from mdtpu_torch.ops.cell_grid import CellGridEngine
+    from mdtpu_torch.ops.cell_sweep import cell_sweep_plain
+    from mdtpu_torch.ops.experimental import PlaneEngine
+
+    melted = wrapped(melted_state(mt))
+    lj = mt.LennardJones(r_cut=2.5, force_shift=True)
+    user_state, user_params = user_lattice(mt)
+
+    def cell_grid(pot, cutoff):
+        return lambda s: CellGridEngine.create(
+            pot, cutoff, 0.3, s.unitcell, s.n_particles,
+            diameters=s.diameters)
+
+    cases = (
+        ("b1", melted, cell_grid(lj, 2.5), "cell_sweep"),
+        ("b1_tilted", wrapped(state_tilted(mt, torch.float64)),
+         cell_grid(lj, 2.5), "cell_sweep"),
+        ("b1_2d", wrapped(melted_2d(mt)),
+         cell_grid(mt.PseudoHS(), CUTOFF_2D), "cell_sweep"),
+        ("b2", melted, lambda s: PlaneEngine.create(
+            lj, 2.5, 0.3, s.unitcell, s.n_particles), "plane_sweep"),
+        ("k2", melted, lambda s: mt.select_engine(lj, 2.5, s,
+                                                  prefer="neighbor"),
+         "nl_forces"),
+        ("pair_list", wrapped(user_state),
+         cell_grid(user_params.potential, CUTOFF_USER), "cell_pairs"))
+    results, failures = {}, []
+    t = time.perf_counter()
+    for name, state, make, kernel in cases:
+        before = launch_counts()[kernel]
+        engine, ((e, w, f), (up, _, _), (down, _, _)) = _scaled_evaluations(
+            make(state), state)
+        launches = launch_counts()[kernel] - before
+        d = state.dimension
+        vol = abs(float(torch.linalg.det(state.unitcell.cpu())))
+        p_virial = w / (d * vol)
+        p_deriv = -(up - down) / (vol * ((1 + REF_EPS) ** d
+                                         - (1 - REF_EPS) ** d))
+        f = f.reshape(state.n_particles, d)
+        rms = float(torch.sqrt((f * f).sum(dim=1).mean()))
+        momentum = (float(f.sum(dim=0).norm()) / (state.n_particles * rms)
+                    if rms > 0 else math.inf)
+        rec = {"engine": type(engine).__name__, "kernel": kernel,
+               "launches": launches, "energy_per_particle":
+               e / state.n_particles, "p_virial": p_virial,
+               "p_dudv": p_deriv, "rel_err": rel(p_virial, p_deriv),
+               "net_force_over_n_rms": momentum}
+        results[name] = rec
+        log(json.dumps({"reference": name, **rec}))
+        if not (abs(p_virial - p_deriv) <= 1e-6 * abs(p_deriv) + 1e-9):
+            failures.append(f"reference {name}: virial {p_virial} against "
+                            f"-dU/dV {p_deriv}")
+        if not momentum < 1e-10:
+            failures.append(f"reference {name}: |sum F| / (N rms) "
+                            f"{momentum}")
+        if launches <= 0:
+            failures.append(f"reference {name}: {kernel} not launched")
+    # The RDF's normalisation on the melted fluid at r_max 3.
+    engine = CellGridEngine.create(lj, RDF_R_MAX, 0.0, melted.unitcell,
+                                   melted.n_particles)
+    while True:
+        nb = engine.allocate(melted.positions, melted.diameters,
+                             melted.unitcell, melted.unitcell_inv)
+        if not bool(nb.overflow):
+            break
+        engine = engine.with_grown_capacity()
+    inputs = engine.slot_inputs(melted.positions, melted.unitcell,
+                                melted.unitcell_inv, nb)
+
+    def pairs_within(r):
+        return round(float(cell_sweep_plain(*inputs, engine.grid, RDF_R_MAX,
+                                            PairCounter(r))[0]))
+
+    inside = pairs_within(RDF_R_MAX)
+    edge = (pairs_within(RDF_R_MAX * (1 + 1e-12))
+            - pairs_within(RDF_R_MAX * (1 - 1e-12)))
+    args = (melted.positions, melted.unitcell, melted.unitcell_inv)
+    for route in ("cell", "tile"):
+        plan = rdf.rdf_plan(*args, RDF_R_MAX, RDF_BINS, route=route)
+        total = int(rdf.rdf_launch(plan, melted.positions).sum())
+        rec = {"route": plan.route, "counts_sum": total,
+               "pairs_inside_plain": inside, "pairs_at_edge": edge}
+        results[f"rdf_{route}"] = rec
+        log(json.dumps({"reference": f"rdf_{route}", **rec}))
+        if abs(total - 2 * inside) > 2 * edge:
+            failures.append(f"reference rdf {route}: counts sum {total}, "
+                            f"twice the pairs inside {2 * inside}")
+    return {"path": "reference", "s": time.perf_counter() - t,
+            "cases": results}, failures
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counts and the slot step's count to
+    0."""
     from mdtpu_torch.integrate import slot_step
-    from mdtpu_torch.io import native_writer
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
+    cs.reset_launches()
+    cp.reset_launches()
+    ps.plane_sweep.launches = 0
+    rdf.rdf_histogram.launches = rdf.rdf_histogram.cell_launches = 0
+    nl.reset_launches()
+    slot_step.make_slot_step.steps = 0
+
+
+def launch_counts():
+    """Each wrapper's launches (total and lean, periodic and slab) since
+    the last :func:`reset_counts`."""
+    from mdtpu_torch.ops import cell_pairs as cp
+    from mdtpu_torch.ops import cell_sweep as cs
+    from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.ops import plane_sweep as ps
+    from mdtpu_torch.ops import rdf
+    return {
+        "cell_sweep": cs.cell_sweep.launches,
+        "cell_sweep_lean": cs.cell_sweep.lean_launches,
+        "cell_sweep_hilo": cs.cell_sweep_hilo.launches,
+        "cell_sweep_hilo_lean": cs.cell_sweep_hilo.lean_launches,
+        "cell_sweep_slab": cs.cell_sweep.slab_launches,
+        "cell_sweep_slab_lean": cs.cell_sweep.slab_lean_launches,
+        "cell_sweep_slab_hilo": cs.cell_sweep_hilo.slab_launches,
+        "cell_sweep_slab_hilo_lean": cs.cell_sweep_hilo.slab_lean_launches,
+        "plane_sweep": ps.plane_sweep.launches,
+        "cell_pairs": cp.pair_list.launches,
+        "cell_pairs_slab": cp.pair_list.slab_launches,
+        "pair_reduce": cp.pair_reduce.launches,
+        "pair_reduce_lean": cp.pair_reduce.lean_launches,
+        "rdf_histogram": rdf.rdf_histogram.launches,
+        "rdf_histogram_cell": rdf.rdf_histogram.cell_launches,
+        "nl_build": nl.nl_build.launches,
+        "nl_forces": nl.nl_forces.launches}
+
+
+def own_launches(n):
+    """Each kernel entry's own launches from :func:`launch_counts`: a
+    wrapper's total less its lean and slab launches."""
+    return {
+        "cell_sweep": n["cell_sweep"] - n["cell_sweep_lean"]
+        - n["cell_sweep_slab"] + n["cell_sweep_slab_lean"],
+        "cell_sweep_lean": n["cell_sweep_lean"] - n["cell_sweep_slab_lean"],
+        "cell_sweep_hilo": n["cell_sweep_hilo"] - n["cell_sweep_hilo_lean"]
+        - n["cell_sweep_slab_hilo"] + n["cell_sweep_slab_hilo_lean"],
+        "cell_sweep_hilo_lean": n["cell_sweep_hilo_lean"]
+        - n["cell_sweep_slab_hilo_lean"],
+        "cell_sweep_slab": n["cell_sweep_slab"] - n["cell_sweep_slab_lean"],
+        "cell_sweep_slab_lean": n["cell_sweep_slab_lean"],
+        "cell_sweep_slab_hilo": n["cell_sweep_slab_hilo"]
+        - n["cell_sweep_slab_hilo_lean"],
+        "cell_sweep_slab_hilo_lean": n["cell_sweep_slab_hilo_lean"],
+        "plane_sweep": n["plane_sweep"],
+        "cell_pairs": n["cell_pairs"] - n["cell_pairs_slab"],
+        "cell_pairs_slab": n["cell_pairs_slab"],
+        "pair_reduce": n["pair_reduce"],
+        "rdf_histogram": n["rdf_histogram"] - n["rdf_histogram_cell"],
+        "rdf_histogram_cell": n["rdf_histogram_cell"],
+        "nl_build": n["nl_build"], "nl_forces": n["nl_forces"]}
+
+
+def run_paths(mt, workdir):
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.io import native_writer
     from mdtpu_torch.ops.experimental import PlaneEngine
 
     def counted(fn):
         """Run one path with every count set to 0 just before it; its
         launches (each wrapper's total and lean) and slot steps after."""
-        cs.reset_launches()
-        cp.reset_launches()
-        ps.plane_sweep.launches = 0
-        rdf.rdf_histogram.launches = rdf.rdf_histogram.cell_launches = 0
-        nl.reset_launches()
-        slot_step.make_slot_step.steps = 0
+        reset_counts()
         frames = native_writer.format_frame.calls
         rec, failures = fn()
-        rec["launches"] = {
-            "cell_sweep": cs.cell_sweep.launches,
-            "cell_sweep_lean": cs.cell_sweep.lean_launches,
-            "cell_sweep_hilo": cs.cell_sweep_hilo.launches,
-            "cell_sweep_hilo_lean": cs.cell_sweep_hilo.lean_launches,
-            "cell_sweep_slab": cs.cell_sweep.slab_launches,
-            "cell_sweep_slab_lean": cs.cell_sweep.slab_lean_launches,
-            "cell_sweep_slab_hilo": cs.cell_sweep_hilo.slab_launches,
-            "cell_sweep_slab_hilo_lean": cs.cell_sweep_hilo.slab_lean_launches,
-            "plane_sweep": ps.plane_sweep.launches,
-            "cell_pairs": cp.pair_list.launches,
-            "cell_pairs_slab": cp.pair_list.slab_launches,
-            "pair_reduce": cp.pair_reduce.launches,
-            "pair_reduce_lean": cp.pair_reduce.lean_launches,
-            "rdf_histogram": rdf.rdf_histogram.launches,
-            "rdf_histogram_cell": rdf.rdf_histogram.cell_launches,
-            "nl_build": nl.nl_build.launches,
-            "nl_forces": nl.nl_forces.launches}
+        rec["launches"] = launch_counts()
         rec["slot_steps"] = slot_step.make_slot_step.steps
         rec["native_frames"] = native_writer.format_frame.calls - frames
         log(json.dumps(rec))
@@ -2926,9 +3353,11 @@ def run_paths(mt, workdir):
         mt, workdir, "nl",
         lambda st, pot: mt.select_engine(pot, 2.5, st, prefer="neighbor"),
         True))
-    failures = f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10 + f11
+    reference, f_ref = counted(lambda: reference_phase(mt))
+    failures = (f1 + f2 + f3 + f4 + f5 + f6 + f7 + f8 + f9 + f10 + f11
+                + f_ref)
     # The sharded driver and FIRE on a one-rank NCCL group (the default
-    # group while they run).
+    # group while they run), then the examples (05 runs on that group).
     dist = nccl_group(workdir)
     try:
         sharded, f12 = counted(lambda: sharded_path(mt, workdir,
@@ -2936,9 +3365,10 @@ def run_paths(mt, workdir):
         sharded_fire, f13 = counted(lambda: sharded_fire_path(mt))
         sharded_user, f14 = counted(lambda: sharded_user_path(mt, workdir,
                                                               kept))
+        examples, f_ex = counted(lambda: examples_phase(mt, workdir))
     finally:
         dist.destroy_process_group()
-    failures += f12 + f13 + f14
+    failures += f12 + f13 + f14 + f_ex
     # The sharded user path takes the pair list's slab launch for every
     # sweep (FIRE's and the NVT leg's), and no sweep kernel.
     n = sharded_user["launches"]
@@ -3055,8 +3485,8 @@ def run_paths(mt, workdir):
             "fire": fire, "pack": pack, "b1_2d": b1_2d,
             "b1_tilted": b1_tilted, "user": user,
             "resume": resume, "nl": nlp, "sharded": sharded,
-            "sharded_fire": sharded_fire, "sharded_user": sharded_user}, \
-        failures
+            "sharded_fire": sharded_fire, "sharded_user": sharded_user,
+            "reference": reference, "examples": examples}, failures
 
 
 def ptxas_summary(name, report):
@@ -3284,17 +3714,10 @@ def main():
     # B1's slab launch (the sharded engine's sweep; JAX's is XLA, no
     # pl.pallas_call): the bench lattice at f32, its launches on the sharded
     # path, the other cases beside it.
-    def slab_launches(n):
-        # Each variant's own launches: the full ones less the lean.
-        return {"cell_sweep_slab": n["cell_sweep_slab"]
-                - n["cell_sweep_slab_lean"],
-                "cell_sweep_slab_lean": n["cell_sweep_slab_lean"],
-                "cell_sweep_slab_hilo": n["cell_sweep_slab_hilo"]
-                - n["cell_sweep_slab_hilo_lean"],
-                "cell_sweep_slab_hilo_lean": n["cell_sweep_slab_hilo_lean"]}
-
-    sh_fire = slab_launches(by_path["sharded_fire"])
-    for kname, launches in slab_launches(by_path["sharded"]).items():
+    sh_own = own_launches(by_path["sharded"])
+    sh_fire = own_launches(by_path["sharded_fire"])
+    for kname in ("cell_sweep_slab", "cell_sweep_slab_lean",
+                  "cell_sweep_slab_hilo", "cell_sweep_slab_hilo_lean"):
         main_rec = slab_results[(kname, f"lattice_{N_BENCH}", "float32")]
         extra = {"covers": SLAB_COVERS,
                  "b1_ms_same_turns": main_rec["b1_ms_same_turns"],
@@ -3306,8 +3729,8 @@ def main():
                     "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                     "b1_ms_same_turns")}
         kernels["kernels"].append(entry(
-            kname, "mdtpu_torch/csrc/cell_sweep.cu", pallas_cell, launches,
-            main_rec, extra))
+            kname, "mdtpu_torch/csrc/cell_sweep.cu", pallas_cell,
+            sh_own[kname], main_rec, extra))
     # The pair list's slab launch (the sharded engine's sweep for a
     # potential without a functor; JAX's is XLA, no pl.pallas_call): config
     # 4 at f64, its launches on the sharded user path, the other cases
@@ -3329,6 +3752,13 @@ def main():
     log(json.dumps({"compute_slots_ms": {
         f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
         slab_results.items() if k.endswith("compute_slots")}}))
+    # Each kernel's launches in the examples and reference phases (the 2D
+    # and tilted entries share their wrapper's counts with the 3D ones).
+    for phase in ("examples", "reference"):
+        own = own_launches(by_path[phase])
+        for k in kernels["kernels"]:
+            if k["name"] in own:
+                k[f"launches_{phase}"] = own[k["name"]]
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             failures.append(f"{k['name']} never launched on its path")

@@ -49,6 +49,8 @@ installed there):
 """
 
 import dataclasses
+import os
+import runpy
 
 import numpy as np
 import pytest
@@ -65,7 +67,6 @@ from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
 from mdtpu_torch.sim.initialization import lattice_fluid_state
-from mdtpu_torch.utils.math import ipow
 
 pytestmark = pytest.mark.gpu
 
@@ -809,31 +810,12 @@ def test_slot_advance_on_the_card_matches_the_cpu(cuda):
 # 2D and tilted boxes; the pair list.
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class NonAdditivePHS(mdtpu_torch.Potential):
-    """The user potential of ``examples/03_polydisperse_2d.py`` written
-    against the port's ``Potential``: non-additive cross diameters sigma_ij =
-    0.5 (s_i + s_j)(1 - 0.2 |s_i - s_j|), an r^-12 repulsion energy- and
-    force-shifted at 1.25 sigma_ij."""
-
-    lam: int = 12
-
-    def evaluate(self, r, sigma_i, sigma_j):
-        sigma = 0.5 * (sigma_i + sigma_j) * (1.0 - 0.2 * torch.abs(
-            sigma_i - sigma_j))
-        cutoff = 1.25 * sigma
-        inside = r < cutoff
-        r_safe = torch.where(inside, r, torch.ones_like(r))
-        sr = sigma / r_safe
-        u_raw = ipow(sr, self.lam)
-        f_raw = self.lam * u_raw / r_safe
-        u_c = ipow(torch.tensor(1 / 1.25, dtype=r.dtype, device=r.device),
-                   self.lam)
-        f_c = self.lam * u_c / cutoff
-        u = u_raw - u_c + (r_safe - cutoff) * f_c
-        f = f_raw - f_c
-        zero = torch.zeros_like(u)
-        return torch.where(inside, u, zero), torch.where(inside, f, zero)
+# The user potential of BASELINE config 4: examples_torch/03_polydisperse_2d.py's,
+# loaded by path (this module runs with --noconftest, where a package named
+# ``tests`` installed elsewhere can shadow this directory).
+NonAdditivePHS = runpy.run_path(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "examples_torch", "03_polydisperse_2d.py"))["NonAdditivePHS"]
 
 
 BOXES = {"2d": ((6, 5), 0.0), "2d_tilted": ((6, 5), 0.125),

@@ -49,7 +49,9 @@ def test_no_source_file_imports_jax_or_mdtpu():
         REPO / name for name in ("chip_smoke.py", "compare_torch_host.py",
                                  "compare_torch_sweep.py",
                                  "profile_torch_step.py",
-                                 "validate_torch.py")]
+                                 "validate_torch.py",
+                                 "tests/torch_examples.py")] + sorted(
+        (REPO / "examples_torch").glob("*.py"))
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -62,6 +64,26 @@ def test_no_source_file_imports_jax_or_mdtpu():
                 continue
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_examples_and_spawned_ranks_load_no_jax_or_mdtpu():
+    """Loading each of ``examples_torch/`` and importing what a spawned
+    rank of the CPU tests imports (``tests.test_torch_halo_slot`` and the
+    examples' rank target) loads neither JAX nor the JAX package."""
+    code = ("import sys, tests.test_torch_halo_slot\n"
+            "from tests.torch_examples import EXAMPLES, load_example\n"
+            "import os\n"
+            "names = sorted(f[:-3] for f in os.listdir(EXAMPLES)"
+            " if f.endswith('.py'))\n"
+            "assert len(names) == 5, names\n"
+            "[load_example(n) for n in names]\n"
+            "print('\\n'.join(sorted(sys.modules)))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert "examples_torch_03_polydisperse_2d" in out
+    assert [m for m in out if _forbidden(m)] == []
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
