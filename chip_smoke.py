@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the six CUDA sources of ``mdtpu_torch/csrc`` and its host C++
+   builds the seven CUDA sources of ``mdtpu_torch/csrc`` and its host C++
    frame formatter (one ``nvcc`` or ``g++`` each, started together;
    ``-Xptxas -v`` summary: registers and spills of every entry of
    ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of the probe,
@@ -114,7 +114,16 @@
    against the plain reduction (f64 1e-12 / 1e-10, f32 1e-5) and bit for
    bit against the periodic list route; timed in turns with the periodic
    list by graph replay, against its bound (the ghost planes' reads
-   included).
+   included). Draws phase: the slot advance's kernels of
+   ``csrc/philox_draws.cu`` against their plain versions at the bench's
+   shapes: Philox-4x32-10's three known answers and 65,536 random counters
+   word for word; ``bussi_draw`` at the bench's nf - 1 (f64 r1 and r2 to
+   rel 1e-12, the card's libm not being the CPU's; f32 to one rounding of
+   that), ``uniform_noise`` on the bench's and the Brownian path's slots
+   (f32 and f64, two ranks) bit for bit, ``rebuild_flag`` on drifts below
+   and past skin/2 (f32, f64); two launches of each bit for bit; each timed
+   by CUDA-graph replay beside its plain version, one PyTorch call and its
+   bound.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -203,7 +212,23 @@
    FIRE's energy after its first iterations below its start, the packer's
    convergence and no pair closer than tol beyond f32 rounding, and the
    launch counts.
-5. Prints the ``kernels`` JSON line, then as the last line
+   Each NVT step of the B1 path draws through ``bussi_draw`` and each of
+   its slot steps tests ``rebuild_flag``; each Brownian step in slots draws
+   through ``uniform_noise``. On the card the slot route runs captured:
+   each step one CUDA-graph launch, the rebuild in a conditional node; the
+   counts a capture recorded are added at every replay.
+5. Graph phase: the bench (600 NVT + 500 NVE on hi/lo), Brownian in slots
+   (200 steps) and the 2D path (600 NVT + 200 NVE) through
+   ``run_simulation``, each from one start on the eager slot route
+   (``make_slot_advance(..., graph=False)``, the flag read on the host once
+   a step) and on the captured one: positions, velocities, forces, images,
+   every thermo row and the rebuild steps equal bit for bit, steps/s of
+   both; then one segment of the bench's slot advance on each route, in
+   turns (eager, captured, captured, eager), through
+   ``profile_torch_step.measure``: host ms, the host's time to issue a
+   step, device busy ms and the idle share, kernel and graph launches, and
+   host reads a step (none inside a captured segment, or the run fails).
+6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a card, when the package is
@@ -231,7 +256,7 @@ NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
 SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs",
-           "rdf_histogram", "neighbor_list", "lammps_format")
+           "rdf_histogram", "neighbor_list", "philox_draws", "lammps_format")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -3071,7 +3096,7 @@ def examples_phase(mt, workdir):
     NCCL group formed by the caller (example 05's default group). A failed
     example, file or check is a failure; so is a run at N_BENCH that did
     not launch its kernels, or one at the published N of 01-04 that
-    launched any or took another engine than the naive one."""
+    launched a pair kernel or took another engine than the naive one."""
     runs, failures = [], []
     t = time.perf_counter()
     for size in ("published", "large"):
@@ -3087,8 +3112,11 @@ def examples_phase(mt, workdir):
                     failures.append(f"{name} {size}: no {missing} launch "
                                     f"({n})")
             else:
+                # The naive engine launches no pair kernel; its steps draw
+                # through the draws' kernels.
                 engines = {leg["engine"] for leg in rec["legs"]}
-                if n or engines != {"NaivePairEngine"}:
+                pair = {k: v for k, v in n.items() if k not in DRAWS_REPLACE}
+                if pair or engines != {"NaivePairEngine"}:
                     failures.append(f"{name} {size}: engines {engines}, "
                                     f"launches {n}")
     return {"path": "examples", "s": time.perf_counter() - t,
@@ -3240,6 +3268,333 @@ def reference_phase(mt):
             "cases": results}, failures
 
 
+# The graph phase: the slot advance on the device. Random123's known
+# answers for Philox-4x32-10: (counter, key, words).
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+DRAWS_SOURCE = "mdtpu_torch/csrc/philox_draws.cu"
+DRAWS_REPLACE = {
+    "bussi_draw": "mdtpu/integrate/thermostat.py:43",
+    "uniform_noise": "mdtpu/integrate/step.py:110",
+    "rebuild_flag": "mdtpu/integrate/slot_step.py:460",
+}
+DRAWS_COVER = {
+    "bussi_draw": "mdtpu/integrate/thermostat.py:43-50 sum_noises, :59-61 "
+                  "(XLA jax.random.normal, jax.random.gamma)",
+    "uniform_noise": "mdtpu/integrate/step.py:110-119 brownian_noise (XLA "
+                     "jax.random.uniform)",
+    "rebuild_flag": "mdtpu/integrate/slot_step.py:460 slot_needs_rebin "
+                    "(XLA)",
+}
+# Integer operations of one Philox-4x32-10 block: ten rounds of two 32x32
+# products (hi and lo words: 4), four xors and two key adds.
+OPS_PHILOX_BLOCK = 100
+# Floating-point operations of one Box-Muller normal (the uniforms' scaling,
+# the log, the square root, the cosine; each transcendental counted 20) and
+# of one Marsaglia-Tsang test beyond it.
+OPS_BOX_MULLER = 70
+OPS_GAMMA_TEST = 35
+
+
+def _slot_shape(mt, state, cutoff):
+    """``(d, n_slots)`` of ``state`` on ``select_engine``'s cell grid."""
+    eng = mt.select_engine(mt.PseudoHS() if cutoff < 2 else
+                           mt.LennardJones(r_cut=cutoff), cutoff, state)
+    return (state.dimension, eng.n_cells * eng.cell_capacity)
+
+
+def draws_check(mt):
+    """``bussi_draw``, ``uniform_noise`` and ``rebuild_flag`` on the card
+    against their plain versions at the bench's shapes (Philox's words and
+    the noise bit for bit, r1 and r2 to rel 1e-12 in float64 and one
+    float32 rounding of that in float32, the flag equal on drifts below and
+    past skin/2), two launches bit for bit, the generator's three known
+    answers; each timed by CUDA-graph replay (the kernel), its plain
+    version on the card by events, one PyTorch call beside it, and its
+    bound from this run's inputs."""
+    from mdtpu_torch.ops import philox_draws as draws
+
+    failures, results = [], {}
+    ctr = torch.tensor([k[0] for k in PHILOX_KAT], device="cuda")
+    key = torch.tensor([k[1] for k in PHILOX_KAT], device="cuda")
+    words = draws.philox_words(ctr, key).cpu().tolist()
+    if words != [list(k[2]) for k in PHILOX_KAT]:
+        failures.append(f"philox known answers: {words}")
+    g = torch.Generator().manual_seed(9)
+    ctr = torch.randint(0, 2 ** 32, (1 << 16, 4), generator=g)
+    key = torch.randint(0, 2 ** 32, (1 << 16, 2), generator=g)
+    if not torch.equal(draws.philox_words(ctr.cuda(), key.cuda()).cpu(),
+                       draws.philox_words(ctr, key)):
+        failures.append("philox words differ from the plain version")
+
+    # Bussi: the bench's nf - 1; four steps, both dtypes.
+    dof = 3.0 * (N_BENCH - 1) - 1.0
+    steps = (0, 1, 123456, 2 ** 33 + 5)
+    errs = []
+    for dtype in (torch.float64, torch.float32):
+        rtol = 1e-12 if dtype == torch.float64 else 1.2e-7
+        for s in steps:
+            step = torch.tensor(s, device="cuda")
+            got = draws.bussi_draw(0, step, dof, dtype)
+            again = draws.bussi_draw(0, step, dof, dtype)
+            want = draws.bussi_draw(0, torch.tensor(s), dof, dtype)
+            err = (got.cpu().double() - want.double()).abs()
+            errs.append(float(err.max()))
+            if (not torch.equal(got, again)
+                    or bool((err > rtol * want.double().abs()).any())):
+                failures.append(f"bussi_draw {dtype} step {s}: {got} vs "
+                                f"{want}")
+    step = torch.tensor(steps[2], device="cuda")
+    # This run's work: the attempts the gamma draw took at that step.
+    r1, r2 = draws.bussi_draw_plain(0, torch.tensor(steps[2]), dof)
+    attempts = _gamma_attempts(draws, 0, steps[2], dof)
+    ops = (1 + 2 * attempts) * OPS_PHILOX_BLOCK + (1 + attempts) * \
+        OPS_BOX_MULLER + attempts * OPS_GAMMA_TEST
+    b = max(16 / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float64]) * 1e3
+    alpha = torch.full((), 0.5 * dof, dtype=torch.float32, device="cuda")
+    results["bussi_draw"] = {
+        "max_abs_err": max(errs), "attempts": attempts,
+        "ms": _replay_ms(lambda: draws.bussi_draw(0, step, dof,
+                                                   torch.float32)),
+        "plain_ms": call_ms(lambda: draws.bussi_draw_plain(0, step, dof)),
+        "bound_ms": b, "bound_by": "bytes" if b == 16 / HBM_BYTES_PER_S
+        * 1e3 else "operations",
+        "library_ms": _replay_ms(lambda: (
+            torch._standard_gamma(alpha), torch.randn((), device="cuda"))),
+        "library_call": "torch._standard_gamma + torch.randn",
+        "r1_r2_step_123456": [float(r1), float(r2)]}
+
+    # Brownian noise: the bench's slot shape and the Brownian path's.
+    shapes = {"bench": (3, 15 ** 3 * 37),
+              "brownian_slot": _slot_shape(mt, brownian_state(), 1.5)}
+    errs = []
+    for dtype in (torch.float32, torch.float64):
+        for name, shape in shapes.items():
+            for rank in (None, 5):
+                got = draws.uniform_noise(3, step, shape, dtype, rank)
+                again = draws.uniform_noise(3, step, shape, dtype, rank)
+                want = draws.uniform_noise(3, torch.tensor(steps[2]), shape,
+                                           dtype, rank)
+                errs.append(float((got.cpu() - want).abs().max()))
+                if not (torch.equal(got.cpu(), want)
+                        and torch.equal(got, again)):
+                    failures.append(f"uniform_noise {name} {dtype} rank "
+                                    f"{rank} differs")
+    shape = shapes["bench"]
+    n = shape[0] * shape[1]
+    nbytes, ops = 4 * n, -(-n // 4) * (OPS_PHILOX_BLOCK + 4 * 3)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b = max(b_bytes, ops / PEAK_OPS[torch.float32] * 1e3)
+    results["uniform_noise"] = {
+        "max_abs_err": max(errs), "shape": list(shape),
+        "ms": _replay_ms(lambda: draws.uniform_noise(3, step, shape,
+                                                      torch.float32)),
+        "plain_ms": call_ms(lambda: draws.uniform_noise_plain(
+            3, step, shape, torch.float32)),
+        "bound_ms": b, "bound_by": "bytes" if b == b_bytes
+        else "operations",
+        "library_ms": _replay_ms(lambda: torch.rand(shape, device="cuda")),
+        "library_call": "torch.rand",
+        "brownian_slot_shape": list(shapes["brownian_slot"])}
+
+    # The rebuild flag: drifts below skin/2, then one slot past it.
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ref = torch.rand(shape, device="cuda", generator=g) * 40.0
+    drift = (torch.rand(shape, device="cuda", generator=g) - 0.5) * 0.08
+    out = torch.zeros((), dtype=torch.bool, device="cuda")
+    for dtype in (torch.float32, torch.float64):
+        for slot in (None, 0, shape[1] // 2, shape[1] - 1):
+            pos = (ref + drift).to(dtype)
+            if slot is not None:
+                pos[2, slot] += 0.25
+            r = ref.to(dtype)
+            want = draws.rebuild_flag(pos.cpu(), r.cpu(), 0.3)
+            got = draws.rebuild_flag(pos, r, 0.3, out=out)
+            again = draws.rebuild_flag(pos, r, 0.3)
+            if not (bool(got) == bool(want) == bool(again)
+                    == (slot is not None)):
+                failures.append(f"rebuild_flag {dtype} slot {slot}")
+    pos, r = (ref + drift).contiguous(), ref.contiguous()
+    d2 = ((pos - r) ** 2).sum(0) > 0.15 ** 2
+    b = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+    results["rebuild_flag"] = {
+        "max_abs_err": 0.0,
+        "ms": _replay_ms(lambda: draws.rebuild_flag(pos, r, 0.3, out=out)),
+        "plain_ms": call_ms(lambda: draws.rebuild_flag_plain(pos, r, 0.3)),
+        "bound_ms": b, "bound_by": "bytes",
+        "library_ms": _replay_ms(lambda: torch.any(d2)),
+        "library_call": "torch.any of the drift test's mask"}
+    for name, rec in results.items():
+        log(json.dumps({"draws": name, **rec}))
+    return results, failures
+
+
+def _gamma_attempts(draws, seed, step, dof):
+    """The Marsaglia-Tsang attempts the draw at ``step`` took."""
+    k0, k1 = draws.seed_key(seed)
+    s = torch.tensor(step)
+    lo, hi = s & draws.MASK, (s >> 32) & draws.MASK
+    a = 0.5 * dof
+    d = (a + 1.0 if a < 1.0 else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    for t in range(draws.GAMMA_ATTEMPTS):
+        wn = draws.philox4x32_10(torch.tensor(1 + 2 * t), lo, hi, 0, k0, k1)
+        wu = draws.philox4x32_10(torch.tensor(2 + 2 * t), lo, hi, 0, k0, k1)
+        x = float(draws._box_muller(*wn))
+        v = (1.0 + c * x) ** 3
+        u = 1.0 - float(draws._u53(wu[0], wu[1]))
+        if v > 0 and math.log(u) < 0.5 * x * x + d - d * v + d * math.log(v):
+            return t + 1
+    return draws.GAMMA_ATTEMPTS
+
+
+def _replay_ms(fn, reps=200):
+    """Device ms of one call of ``fn`` by CUDA-graph replay (the median of
+    five runs of ``reps`` replays)."""
+    graph = graph_of(fn)
+    return statistics.median(cuda_time_ms(graph.replay, reps, 2)
+                             for _ in range(5))
+
+
+def _recording_advance(graph):
+    """A stand-in for ``slot_step.make_slot_advance`` with ``graph`` set,
+    and the advances it made."""
+    from mdtpu_torch.integrate import slot_step
+    real, made = slot_step.make_slot_advance, []
+
+    def make(*args, **kwargs):
+        advance = real(*args, graph=graph, **kwargs)
+        made.append(advance)
+        return advance
+
+    return real, make, made
+
+
+def routes_run(graph, fn):
+    """``fn()`` with every slot advance the driver makes on route
+    ``graph`` (False: eager; None: captured); returns ``(fn's result, the
+    rebuild steps of its advances, seconds)``."""
+    from mdtpu_torch.integrate import slot_step
+    real, make, made = _recording_advance(graph)
+    slot_step.make_slot_advance = make
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        slot_step.make_slot_advance = real
+    if any(a.graph is not bool(graph is None) for a in made):
+        raise RuntimeError("an advance took the other route")
+    return out, [s for a in made for s in a.rebuild_steps()], seconds
+
+
+def graph_paths(mt, workdir):
+    """The bench (600 NVT + 500 NVE on hi/lo), Brownian in slots (200
+    steps) and the 2D path (600 NVT + 200 NVE), each from one start on the
+    eager route and on the captured one (the default): positions,
+    velocities, every thermo row and the rebuild steps equal bit for bit;
+    steps/s of both. Then one segment of the bench's slot advance on each
+    route through ``profile_torch_step.measure``: host ms, device busy ms,
+    the idle share, launches, graph launches and host reads a step."""
+    from mdtpu_torch.integrate import slot_step
+    from profile_torch_step import measure
+
+    lj = mt.LennardJones(r_cut=2.5)
+    bench = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                          potential=lj)
+    bd = mt.Parameters(density=0.5, n_particles=N_BENCH, dt=1e-5,
+                       potential=mt.PseudoHS())
+    p2d = mt.Parameters(density=RHO_2D, n_particles=N_BENCH, dt=0.001,
+                        potential=mt.PseudoHS())
+
+    def legs(start, params, nvt, n_nvt, n_nve, label):
+        def run():
+            out = os.path.join(workdir, label)
+            mid = mt.run_simulation(start(), params, nvt, n_nvt,
+                                    THERMO_EVERY, os.path.join(out, "nvt"),
+                                    traj_frequency=TRAJ_EVERY)
+            if not n_nve:
+                return mid, [os.path.join(out, "nvt")]
+            end = mt.run_simulation(mid, params, mt.NVE(), n_nve,
+                                    THERMO_EVERY, os.path.join(out, "nve"),
+                                    traj_frequency=TRAJ_EVERY)
+            return end, [os.path.join(out, "nvt"), os.path.join(out, "nve")]
+        return run
+
+    cases = {
+        "bench": (lambda: lattice_start(), bench, mt.NVT(1.0, 0.4),
+                  NVT_STEPS, NVE_STEPS),
+        "brownian_slot": (brownian_state, bd, mt.Brownian(1.0),
+                          BROWNIAN_STEPS, 0),
+        "2d": (lambda: state_2d(mt, torch.float32), p2d, mt.NVT(1.0, 0.1),
+               GEO_NVT_STEPS, GEO_NVE_STEPS),
+    }
+    failures, rec = [], {}
+    for name, (start, params, nvt, n_nvt, n_nve) in cases.items():
+        runs = {}
+        for route, graph in (("eager", False), ("graph", None)):
+            (end, dirs), rebuilds, seconds = routes_run(
+                graph, legs(start, params, nvt, n_nvt, n_nve,
+                            f"graph_{name}_{route}"))
+            thermo = []
+            for d in dirs:
+                with open(os.path.join(d, "thermo.txt")) as f:
+                    thermo.append(f.read())
+            runs[route] = (end, thermo, rebuilds,
+                           (n_nvt + n_nve) / seconds)
+        (e_end, e_rows, e_reb, e_rate), (g_end, g_rows, g_reb, g_rate) = (
+            runs["eager"], runs["graph"])
+        same = {f: torch.equal(getattr(e_end, f), getattr(g_end, f))
+                for f in ("positions", "velocities", "images", "forces")}
+        if not (all(same.values()) and e_rows == g_rows and e_reb == g_reb
+                and e_end.step == g_end.step == n_nvt + n_nve):
+            failures.append(f"graph {name}: the routes differ: {same}, "
+                            f"rows equal {e_rows == g_rows}, rebuilds "
+                            f"{len(e_reb)} vs {len(g_reb)}")
+        if not e_reb:
+            failures.append(f"graph {name}: no rebuild in the run")
+        rec[name] = {"steps": n_nvt + n_nve, "rebuilds": len(g_reb),
+                     "steps_per_s_eager": e_rate,
+                     "steps_per_s_graph": g_rate}
+        log(json.dumps({"graph_path": name, **rec[name]}))
+
+    # One segment of the bench's slot advance on each route, from the
+    # melted bench fluid in slots, in turns (eager, graph, graph, eager).
+    st = as_dtype(melted_state(mt), torch.float32)
+    eng = mt.select_engine(lj, 2.5, st)
+    slots = slot_step.slot_forces(slot_step.slotify(st, eng), eng)
+    profiles = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        advance = slot_step.make_slot_advance(
+            bench, mt.NVT(1.0, 0.4), eng,
+            graph=False if route == "eager" else None)
+        _, metrics = measure(advance, slots)
+        metrics.pop("top_device_kernels")
+        profiles[route].append(metrics)
+    for route, ms in profiles.items():
+        log(json.dumps({"graph_segment_profile": route, "turns": ms}))
+    if any(m["host_syncs_per_step"] for m in profiles["graph"]):
+        failures.append("graph: host reads inside a captured segment "
+                        f"{profiles['graph']}")
+    rec["segment_profile"] = profiles
+    return rec, failures
+
+
+def lattice_start():
+    """The bench's lattice start (jitter 0.01, f32) on the card."""
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    return lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                               cutoff=2.5, jitter=0.01, device="cuda")
+
+
 def reset_counts():
     """Every kernel wrapper's launch counts and the slot step's count to
     0."""
@@ -3247,10 +3602,12 @@ def reset_counts():
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.ops import philox_draws as draws
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
     cs.reset_launches()
     cp.reset_launches()
+    draws.reset_launches()
     ps.plane_sweep.launches = 0
     rdf.rdf_histogram.launches = rdf.rdf_histogram.cell_launches = 0
     nl.reset_launches()
@@ -3263,6 +3620,7 @@ def launch_counts():
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.ops import philox_draws as draws
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
     return {
@@ -3282,7 +3640,10 @@ def launch_counts():
         "rdf_histogram": rdf.rdf_histogram.launches,
         "rdf_histogram_cell": rdf.rdf_histogram.cell_launches,
         "nl_build": nl.nl_build.launches,
-        "nl_forces": nl.nl_forces.launches}
+        "nl_forces": nl.nl_forces.launches,
+        "bussi_draw": draws.bussi_draw.launches,
+        "uniform_noise": draws.uniform_noise.launches,
+        "rebuild_flag": draws.rebuild_flag.launches}
 
 
 def own_launches(n):
@@ -3307,7 +3668,9 @@ def own_launches(n):
         "pair_reduce": n["pair_reduce"],
         "rdf_histogram": n["rdf_histogram"] - n["rdf_histogram_cell"],
         "rdf_histogram_cell": n["rdf_histogram_cell"],
-        "nl_build": n["nl_build"], "nl_forces": n["nl_forces"]}
+        "nl_build": n["nl_build"], "nl_forces": n["nl_forces"],
+        "bussi_draw": n["bussi_draw"], "uniform_noise": n["uniform_noise"],
+        "rebuild_flag": n["rebuild_flag"]}
 
 
 def run_paths(mt, workdir):
@@ -3477,6 +3840,14 @@ def run_paths(mt, workdir):
             or bds["slot_steps"] != BROWNIAN_STEPS):
         failures.append(f"brownian_slot: launches {bds['launches']}, "
                         f"slot steps {bds['slot_steps']}")
+    # Every NVT step draws through bussi_draw, every Brownian step in slots
+    # through uniform_noise; every slot step tests the rebuild flag.
+    if (b1["launches"]["bussi_draw"] < NVT_STEPS
+            or b1["launches"]["rebuild_flag"] < NVT_STEPS + 2 * NVE_STEPS
+            or bds["launches"]["uniform_noise"] < BROWNIAN_STEPS
+            or bds["launches"]["rebuild_flag"] < BROWNIAN_STEPS):
+        failures.append(f"b1/brownian_slot: draw launches {b1['launches']} "
+                        f"{bds['launches']}")
     if fire["launches"]["cell_sweep_lean"] != N_FIRE_ITERS + N_FIRE_DESCENT:
         failures.append(f"fire: launches {fire['launches']}")
     if pack["launches"]["cell_sweep_lean"] < 1:
@@ -3555,10 +3926,15 @@ def main():
     failures += slab_failures
     list_slab_results, list_slab_failures = list_slab_phase(mt)
     failures += list_slab_failures
+    draws_results, draws_failures = draws_check(mt)
+    failures += draws_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
-    failures += path_failures
+        failures += path_failures
+        t = time.perf_counter()
+        failures += graph_paths(mt, workdir)[1]
+        log(f"graph phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3749,6 +4125,21 @@ def main():
     kernels["kernels"].append(entry(
         "cell_pairs_slab", "mdtpu_torch/csrc/cell_pairs.cu", pallas_cell,
         by_path["sharded_user"]["cell_pairs_slab"], main_rec, extra))
+    # The slot advance's draws and rebuild test (XLA in the JAX package, no
+    # pl.pallas_call): Bussi's and the flag's launches on the B1 path, the
+    # noise's on the Brownian slot path.
+    for kname, path in (("bussi_draw", "b1"), ("uniform_noise",
+                                               "brownian_slot"),
+                        ("rebuild_flag", "b1")):
+        rec = draws_results[kname]
+        kernels["kernels"].append({
+            **entry(kname, DRAWS_SOURCE, DRAWS_REPLACE[kname],
+                    by_path[path][kname], rec,
+                    {k: v for k, v in rec.items() if k not in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}),
+            "library_ms": rec["library_ms"],
+            "covers": DRAWS_COVER[kname]})
     log(json.dumps({"compute_slots_ms": {
         f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
         slab_results.items() if k.endswith("compute_slots")}}))

@@ -9,10 +9,11 @@ steps/s, both trees within one call.
 Each tree runs, in the order parent, change, change, parent, and each in
 processes of its own started in that tree (so each builds and loads its own
 kernels): its ``profile_torch_step.py --engine cellgrid`` (the cell grid in
-particle order) and ``--engine plane`` (``PlaneEngine``), then the ``b2``
-path (600 NVT + 500 NVE + 500 force-shifted NVE at the bench configuration
-on ``PlaneEngine``) and the Brownian path on ``PlaneEngine`` of its
-``chip_smoke.py``. The host's clock moves with the machine and with what
+particle order), ``--engine plane`` (``PlaneEngine``) and ``--engine slot``
+(the slot advance ``run_simulation`` runs on the cell grid), then the
+``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
+bench configuration, in slots and on ``PlaneEngine``) and the Brownian
+paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. The host's clock moves with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
 ms, launches and host reads per step, and each path's steps/s; then the
@@ -29,27 +30,36 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_KEYS = ("ms_per_step_host_clock", "device_busy_ms_per_step",
                 "device_idle_share_profiled", "kernel_launches_per_step",
-                "host_syncs_per_step")
+                "host_syncs_per_step", "graph_launches_per_step")
+ENGINES = ("cellgrid", "plane", "slot")
 
 
 def paths_worker(tree):
-    """Run the tree's ``b2`` and Brownian paths; print their steps/s."""
+    """Run the tree's ``b1``, ``b2`` and Brownian paths; print their
+    steps/s."""
     sys.path.insert(0, tree)
     import chip_smoke
     import mdtpu_torch as mt
     from mdtpu_torch.ops.experimental import PlaneEngine
 
-    out = {}
+    out, failures = {}, []
     with tempfile.TemporaryDirectory() as workdir:
-        b2, failures = chip_smoke.md_path(
-            mt, workdir, "b2",
-            lambda st, pot: PlaneEngine.create(pot, 2.5, 0.3, st.unitcell,
-                                               chip_smoke.N_BENCH), False)
-        bd, more = chip_smoke.brownian_path(mt, workdir)
-    if failures + more:
-        raise SystemExit(f"paths failed in {tree}: {failures + more}")
-    out["b2_steps_per_s"] = b2["steps_per_s"]
-    out["brownian_steps_per_s"] = bd["steps_per_s"]
+        for label, run in (
+                ("b1", lambda: chip_smoke.md_path(
+                    mt, workdir, "b1", lambda st, pot: None, True)),
+                ("b2", lambda: chip_smoke.md_path(
+                    mt, workdir, "b2",
+                    lambda st, pot: PlaneEngine.create(
+                        pot, 2.5, 0.3, st.unitcell, chip_smoke.N_BENCH),
+                    False)),
+                ("brownian", lambda: chip_smoke.brownian_path(mt, workdir)),
+                ("brownian_slot", lambda: chip_smoke.brownian_path(
+                    mt, workdir, slots=True))):
+            rec, more = run()
+            failures += more
+            out[f"{label}_steps_per_s"] = rec["steps_per_s"]
+    if failures:
+        raise SystemExit(f"paths failed in {tree}: {failures}")
     print(json.dumps(out))
 
 
@@ -76,10 +86,10 @@ def main():
     for run, label in enumerate(("parent", "change", "change", "parent")):
         tree = trees[label]
         rec = {"tree": label, "run": run}
-        for engine in ("cellgrid", "plane"):
+        for engine in ENGINES:
             prof = last_json([sys.executable, "profile_torch_step.py",
                               "--engine", engine], tree)
-            rec[engine] = {k: prof[k] for k in PROFILE_KEYS}
+            rec[engine] = {k: prof.get(k) for k in PROFILE_KEYS}
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
                               "--paths-worker", tree], tree))
         print(json.dumps(rec), flush=True)

@@ -4,9 +4,9 @@ Counterpart of ``mdtpu/core/types.py``. The state is a plain dataclass of
 tensors on one device, structure-of-arrays ``(N, d)``; updates build a new
 state with :func:`dataclasses.replace`. Where the JAX state carries a PRNG
 key, this state carries an integer ``seed``: each step's random draws come
-from a generator seeded from ``(seed, step)`` (see
-:func:`mdtpu_torch.integrate.thermostat.bussi_noise`), so runs stay
-deterministic and resumable.
+from a Philox counter of ``(seed, step)`` (see
+:mod:`mdtpu_torch.ops.philox_draws`), so runs stay deterministic and
+resumable.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ class SimulationState:
     unitcell: torch.Tensor        # (d, d), columns are box vectors
     unitcell_inv: torch.Tensor    # (d, d)
     seed: int                     # base seed; combined with the step
-    step: int                     # current step index
+    step: Any                     # current step index: a host int (a 0-d
+    #                               int64 device tensor inside the slot
+    #                               advance's buffers)
     nf: float                     # degrees of freedom d*(N-1)
     energy: torch.Tensor          # () last potential energy (total)
     virial: torch.Tensor          # () last virial sum_{i<j} f_ij * r_ij

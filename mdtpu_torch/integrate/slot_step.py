@@ -33,8 +33,9 @@ Layout contract:
   * when a particle drifts past skin/2 the loop re-bins: a stable sort of the
     cell keys, per-cell run starts by binary search, and one gather of all
     float rows and one of the integer rows (:func:`packed_resort`).
-    :func:`make_slot_advance` checks for a rebuild once a step, with one
-    host read.
+    :func:`make_slot_advance` checks for a rebuild once a step, on the
+    device (:class:`SlotAdvance`: on the card a conditional node of the
+    step's CUDA graph).
 
 Slot order within a cell follows the previous slot order (the sort is
 stable), so a run repeats bit for bit; parity with the JAX package is held
@@ -54,8 +55,10 @@ from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationSta
 from mdtpu_torch.integrate import step as _step
 from mdtpu_torch.integrate.step import (_add, brownian_virial_sample,
                                         md_velocity_finish)
+from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
 from mdtpu_torch.potentials.base import rounded
+from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.math import kahan_add
 
 
@@ -329,14 +332,10 @@ def _rebin(state: SimulationState, engine: CellGridEngine) -> SimulationState:
 
 def slot_needs_rebin(state: SimulationState, engine: CellGridEngine):
     """True (a 0-d bool tensor) when a particle drifted past skin/2 from its
-    binning reference. Deferred wrap makes it a plain Cartesian distance."""
-    d = state.positions - state.nbrs.ref_positions
-    d = d * d
-    d2 = d[0]
-    for dk in d[1:]:
-        d2 = d2 + dk
-    half_skin = 0.5 * engine.skin
-    return torch.any(d2 > half_skin * half_skin)
+    binning reference. Deferred wrap makes it a plain Cartesian distance.
+    On the card one kernel pass (:func:`philox_draws.rebuild_flag`)."""
+    return philox_draws.rebuild_flag(state.positions,
+                                     state.nbrs.ref_positions, engine.skin)
 
 
 def _engine_rebin(state, engine):
@@ -371,7 +370,12 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     state (:class:`mdtpu_torch.parallel.HaloSlotEngine`, whose sweep does
     its own exchange): the kinetic energy is summed over it, and each rank
     draws Brownian noise of its own. Each call adds one to
-    ``make_slot_step.steps``."""
+    ``make_slot_step.steps``.
+
+    ``step(state, ktemp=None)``: ``state.step`` is a host int or a 0-d
+    int64 device tensor (the advance's counter), which the step draws from
+    and returns plus one; ``ktemp`` is NVT's target for this step as a 0-d
+    tensor (None: evaluated on the host from an int step)."""
     is_brownian = isinstance(ensemble, Brownian)
     if not is_brownian and not isinstance(ensemble, (NVT, NVE)):
         raise TypeError(f"unknown ensemble type: {type(ensemble).__name__}")
@@ -387,7 +391,7 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                          state.unitcell_inv, state.nbrs, obs, force_dtype,
                          -xc if hilo else None)
 
-    def brownian(state):
+    def brownian(state, ktemp=None):
         dtype = state.dtype
         dt = rounded(params.dt, dtype)
         ktemp = rounded(ensemble.ktemp, dtype)
@@ -412,7 +416,7 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                                    device=state.device),
             pos_comp=xc, nbrs=nbrs, virial_accum=virial_accum, nprom=nprom)
 
-    def md(state):
+    def md(state, ktemp):
         dt = float(params.dt)
         half = 0.5 * dt
         v, vc = _add(state.velocities, state.vel_comp, state.forces * half,
@@ -425,7 +429,7 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
         v, vc = _add(v, vc, forces * half, compensated)
         # Vacant slots hold zero velocity, so the kinetic sum is exact.
         v, vc, temperature = md_velocity_finish(ensemble, v, vc, state, dt,
-                                                compensated, ring)
+                                                compensated, ring, ktemp)
         return state.replace(
             positions=x, velocities=v, forces=forces, step=state.step + 1,
             energy=energy, virial=virial, temperature=temperature,
@@ -433,38 +437,270 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
 
     advance_one = brownian if is_brownian else md
 
-    def step(state: SimulationState) -> SimulationState:
+    def step(state: SimulationState, ktemp=None) -> SimulationState:
         make_slot_step.steps += 1
-        return advance_one(state)
+        return advance_one(state, ktemp)
 
     return step
 
 
 make_slot_step.steps = 0
+counters.register(make_slot_step, "steps")
+
+
+
+
+# The tensors of a slot state and of its binning that a step or a rebuild
+# may replace: the advance's buffers hold one copy of each.
+_STATE_TENSORS = ("positions", "velocities", "forces", "images", "diameters",
+                  "unitcell", "unitcell_inv", "step", "energy", "virial",
+                  "temperature", "pos_comp", "vel_comp", "virial_accum",
+                  "nprom", "ids")
+_NBRS_TENSORS = ("counts", "sorted_diam", "ref_positions", "overflow",
+                 "occupied")
+# Rebuild steps an advance logs (later ones overwrite the last entry).
+REBUILD_LOG = 4096
+
+
+def _copy_into(dst: SimulationState, src: SimulationState, skip=()):
+    """Write ``src``'s tensors into ``dst``'s (the buffers), in place;
+    a tensor that is the buffer itself is left alone."""
+    for owner_d, owner_s, names in ((dst, src, _STATE_TENSORS),
+                                    (dst.nbrs, src.nbrs, _NBRS_TENSORS)):
+        for name in names:
+            d, t = getattr(owner_d, name), getattr(owner_s, name)
+            if name not in skip and t is not d:
+                d.copy_(t)
+
+
+def _clone(state: SimulationState, step=None) -> SimulationState:
+    """A copy of ``state`` whose tensors are its own (aliases split);
+    ``step``: the step field to put in."""
+    nbrs = dataclasses.replace(state.nbrs, **{
+        n: getattr(state.nbrs, n).clone() for n in _NBRS_TENSORS})
+    return state.replace(nbrs=nbrs, step=state.step if step is None else step,
+                         **{n: getattr(state, n).clone()
+                            for n in _STATE_TENSORS if n != "step"})
+
+
+def device_if(flag, body, pool=None):
+    """Run ``body()`` where the 0-d bool tensor ``flag`` is set: the slot
+    advance's rebuild decision. Under a CUDA-graph capture ``body`` is
+    captured into an IF node of the graph (its allocations from ``pool``,
+    a ``torch.cuda.MemPool`` kept with the graph), and the card decides at
+    every replay; eagerly the flag is read on the host, the segment's one
+    host read a step (free on the CPU)."""
+    if flag.is_cuda and torch.cuda.is_current_stream_capturing():
+        with philox_draws.graph_if(flag, pool):
+            body()
+    elif bool(flag):
+        body()
+
+
+class SlotAdvance:
+    """``advance(state, k) -> state`` after ``k`` slot steps on one device,
+    as the JAX package's ``make_slot_advance`` runs a segment: the step
+    counter, the rebuild decision and every draw stay on the device.
+
+    The state is copied into buffers that the advance keeps (its tensors
+    and its binning's, the step as a 0-d int64 counter), and each step
+    reads them and writes its results back in place: a rebuild where the
+    flag is set (:func:`device_if` around :func:`_rebin`), the step
+    (``ktemp`` of NVT from a device table that the host fills for the
+    segment in one copy, indexed by the counter), then the flag for the
+    next step (:func:`philox_draws.rebuild_flag`). The state returned is a
+    copy of the buffers, its step the host int ``state.step + k``.
+
+    ``graph``: on the card each step variant (lean, and the segment's full
+    last step) is captured once into a CUDA graph with the rebuild in a
+    conditional node, and a segment of ``k`` steps is ``k`` graph launches
+    and no host read. Eagerly the same code runs step by step, the flag
+    read on the host. The launch counters count each replay
+    (:mod:`mdtpu_torch.utils.counters`). A capture or a launch that fails
+    raises; nothing falls back to the eager loop."""
+
+    def __init__(self, step, last_step, engine, ensemble, lean, graph):
+        self.step_fn, self.last_fn = step, last_step
+        self.engine, self.lean, self.graph = engine, lean, graph
+        self.schedule = (ensemble.ktemp if isinstance(ensemble, NVT)
+                         else None)
+        self.bufs = self.table = None
+        self.graphs = {}
+        self._pool = None
+
+    # -- buffers and segment inputs --------------------------------------
+
+    def _layout(self, state):
+        return (state.seed, state.nf, state.cutoff,
+                tuple((t.shape, t.dtype, t.device) for t in
+                      [getattr(state, n) for n in _STATE_TENSORS
+                       if n != "step"]
+                      + [getattr(state.nbrs, n) for n in _NBRS_TENSORS]))
+
+    def _load(self, state):
+        """Put ``state`` into the buffers (made anew, and the graphs
+        dropped, where its layout, seed or nf changed)."""
+        if self.bufs is None or self._layout(self.bufs) != self._layout(
+                state):
+            device = state.device
+            self.graphs = {}
+            self.bufs = _clone(state, torch.full(
+                (), state.step, dtype=torch.int64, device=device))
+            self.base = torch.zeros((), dtype=torch.int64, device=device)
+            self.flag = torch.zeros((), dtype=torch.bool, device=device)
+            self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
+            self.rebuilt_at = torch.zeros(REBUILD_LOG, dtype=torch.int64,
+                                          device=device)
+        else:
+            _copy_into(self.bufs, state, skip=("step",))
+            self.bufs.step.fill_(state.step)
+        self.base.fill_(state.step)
+
+    def _fill_table(self, base, k):
+        """NVT's ``ktemp(step + 1)`` for the segment's steps, evaluated on
+        the host in float64 as the schedule gives it, rounded to the
+        state's dtype and sent in one copy."""
+        if self.schedule is None:
+            return
+        b = self.bufs
+        if self.table is None or self.table.numel() < k:
+            self.graphs = {}
+            self.table = torch.empty(max(k, 1024), dtype=b.dtype,
+                                     device=b.device)
+        values = torch.tensor([float(self.schedule(s + 1))
+                               for s in range(base, base + k)],
+                              dtype=torch.float64).to(b.dtype)
+        if b.device.type == "cuda":
+            self.table[:k].copy_(values.pin_memory(), non_blocking=True)
+        else:
+            self.table[:k].copy_(values)
+
+    def _ktemp(self, b):
+        if self.table is None:
+            return None
+        return self.table.index_select(0, (b.step - self.base).reshape(1))[0]
+
+    # -- one step on the buffers -----------------------------------------
+
+    def _rebuild(self):
+        b = self.bufs
+        _copy_into(b, _rebin(b, self.engine))
+        slot = self.rebuilds.clamp(max=REBUILD_LOG - 1).reshape(1)
+        self.rebuilt_at.index_copy_(0, slot, b.step.reshape(1))
+        self.rebuilds.add_(1)
+
+    def _one(self, step_fn):
+        b = self.bufs
+        device_if(self.flag, self._rebuild, self._pool)
+        _copy_into(b, step_fn(b, self._ktemp(b)))
+        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                  self.engine.skin, out=self.flag)
+
+    # -- graphs ----------------------------------------------------------
+
+    def _captured(self, name, step_fn):
+        """``(graph, counts)`` of one step variant: captured on first use
+        after a warm-up of the step and the rebuild on copies of the
+        buffers (libraries built, plans made), the counters put back, and
+        the counts one replay adds."""
+        if name in self.graphs:
+            return self.graphs[name]
+        before = counters.snapshot()
+        b = _clone(self.bufs, self.bufs.step.clone())
+        flag = torch.empty_like(self.flag)
+        side = torch.cuda.Stream(b.device)
+        side.wait_stream(torch.cuda.current_stream(b.device))
+        with torch.cuda.stream(side):
+            _copy_into(b, _rebin(b, self.engine))
+            _copy_into(b, step_fn(b, self._ktemp(b)))
+            philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                      self.engine.skin, out=flag)
+        torch.cuda.current_stream(b.device).wait_stream(side)
+        del b
+        warm = counters.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        pool = self._pool = torch.cuda.MemPool()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._one(step_fn)
+        finally:
+            self._pool = None
+        delta = counters.difference(counters.snapshot(), warm)
+        counters.restore(before)
+        self.graphs[name] = (graph, delta, pool)
+        return self.graphs[name]
+
+    def _run(self, name, step_fn, times):
+        if times <= 0:
+            return
+        if not self.graph:
+            for _ in range(times):
+                self._one(step_fn)
+            return
+        graph, delta, _ = self._captured(name, step_fn)
+        for _ in range(times):
+            graph.replay()
+        counters.add(delta, times)
+
+    def rebuild_steps(self):
+        """The steps at whose start this advance rebuilt, in order (the
+        first :data:`REBUILD_LOG`; a host read)."""
+        n = int(self.rebuilds)
+        return self.rebuilt_at[:min(n, REBUILD_LOG)].tolist()
+
+    def __call__(self, state: SimulationState, k: int) -> SimulationState:
+        if k <= 0:
+            return state
+        if self.graph is None:
+            self.graph = (state.device.type == "cuda"
+                          and not self.engine.uses_pair_list)
+        elif self.graph and (state.device.type != "cuda"
+                             or self.engine.uses_pair_list):
+            raise ValueError("graph=True takes a CUDA state and a potential "
+                             "with a kernel functor")
+        base = state.step
+        self._load(state)
+        self._fill_table(base, k)
+        b = self.bufs
+        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                  self.engine.skin, out=self.flag)
+        if self.lean:
+            self._run("lean", self.step_fn, k - 1)
+            self._run("last", self.last_fn, 1)
+        else:
+            self._run("full", self.last_fn, k)
+        return _clone(b, base + k)
 
 
 def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
                       compensated: bool = True, lean: bool = True,
-                      hilo: bool = False, force_dtype=None, ring=None):
+                      hilo: bool = False, force_dtype=None, ring=None,
+                      graph=None):
     """``advance(state, k) -> state`` after ``k`` slot steps.
 
     The rebuild happens at the start of exactly the steps whose state has
     drifted past skin/2, as a check before every step would have it. With
     ``lean`` all but the last step are lean (forces only, the same bits)
     and the last is full, so energy and virial are fresh at every segment
-    boundary. The rebuild decision is one host read a step: it is read
-    after each step and carried to the next, plus one read at the start of
-    the segment. ``hilo`` and ``force_dtype`` as in
-    :func:`make_slot_step`.
+    boundary. ``hilo`` and ``force_dtype`` as in :func:`make_slot_step`.
+
+    On one device this is a :class:`SlotAdvance`: the step counter, NVT's
+    target temperature, every draw and the rebuild decision on the device.
+    ``graph``: None captures the steps into CUDA graphs on the card (one
+    graph launch a step, no host read inside a segment) and runs them
+    eagerly on the CPU and for a potential without a kernel functor (the
+    pair list's route: a user's ``evaluate_r2`` may do host work); False
+    runs eagerly on the card too (the flag read on the host once a step);
+    True asks for the graphs.
 
     An engine whose rebuild moves rows between ranks
     (``rebin_unconditional``, the sharded
     :class:`mdtpu_torch.parallel.HaloSlotEngine`) takes the JAX package's
-    schedule for it: a rebuild at the start of the segment, after every
-    step that any rank flagged, and before the segment's last step, so the
-    slot order and sums follow the reference's. ``ring``: the shard ring
-    (:func:`make_slot_step`); every flag read on the host is then the
-    ring's."""
+    schedule for it, eagerly with a host step: a rebuild at the start of
+    the segment, after every step that any rank flagged, and before the
+    segment's last step, so the slot order and sums follow the reference's.
+    ``ring``: the shard ring (:func:`make_slot_step`); every flag read on
+    the host is then the ring's."""
     step = make_slot_step(params, ensemble, engine, compensated=compensated,
                           observables=not lean, hilo=hilo,
                           force_dtype=force_dtype, ring=ring)
@@ -472,39 +708,24 @@ def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
                                compensated=compensated, hilo=hilo,
                                force_dtype=force_dtype, ring=ring)
 
+    if not getattr(engine, "rebin_unconditional", False):
+        return SlotAdvance(step, last_step, engine, ensemble, lean, graph)
+
     def needs(state):
         return bool(_engine_needs_rebin(state, engine, ring))
 
-    if getattr(engine, "rebin_unconditional", False):
-        def advance_sharded(state: SimulationState, k: int):
-            n_lean = k - 1 if lean else k
-            i = 0
-            while i < n_lean:
-                state = _engine_rebin(state, engine)
-                while True:
-                    state = step(state)
-                    i += 1
-                    if i >= n_lean or needs(state):
-                        break
-            if lean and k > 0:
-                state = last_step(_engine_rebin(state, engine))
-            return state
-
-        return advance_sharded
-
-    def advance(state: SimulationState, k: int) -> SimulationState:
-        if k <= 0:
-            return state
-        rebuild = needs(state)
-        for _ in range(k - 1 if lean else k):
-            if rebuild:
-                state = _rebin(state, engine)
-            state = step(state)
-            rebuild = needs(state)
-        if lean:
-            if rebuild:
-                state = _rebin(state, engine)
-            state = last_step(state)
+    def advance_sharded(state: SimulationState, k: int):
+        n_lean = k - 1 if lean else k
+        i = 0
+        while i < n_lean:
+            state = _engine_rebin(state, engine)
+            while True:
+                state = step(state)
+                i += 1
+                if i >= n_lean or needs(state):
+                    break
+        if lean and k > 0:
+            state = last_step(_engine_rebin(state, engine))
         return state
 
-    return advance
+    return advance_sharded

@@ -22,6 +22,7 @@ import torch
 from mdtpu_torch.core.box import wrap_positions, wrap_positions_compensated
 from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationState
 from mdtpu_torch.integrate import thermostat
+from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils.math import kahan_add
 
@@ -65,19 +66,24 @@ def _add(x, comp, dx, compensated: bool):
 
 
 def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
-                       ring=None):
+                       ring=None, ktemp=None):
     """Post-kick ensemble logic: Bussi rescale and temperature for NVT (one
     kinetic reduction serves both, T_after = scale^2 * 2K/nf), plain
     temperature for NVE. Returns ``(v, vc, temperature)``. ``ring``: a
     shard ring, over which the kinetic energy is summed (one all-reduce a
-    step); Bussi's draws are the same on every rank."""
+    step); Bussi's draws are the same on every rank. ``state.step`` is a
+    host int or a 0-d int64 device tensor; ``ktemp``: NVT's target for
+    this step, ``ensemble.ktemp(step + 1)`` (a 0-d tensor, as the slot
+    advance reads it from its device table; evaluated here from a host
+    step where it is None)."""
     if isinstance(ensemble, NVT):
-        ktemp_t = ensemble.ktemp(state.step + 1)
+        if ktemp is None:
+            ktemp = ensemble.ktemp(state.step + 1)
         r1, r2 = thermostat.bussi_noise(state.seed, state.step, state.nf,
                                         v.dtype, v.device)
         kinetic = thermostat.compute_kinetic(v, ring)
         scale = thermostat.bussi_scale_from_kinetic(
-            kinetic, ktemp_t, state.nf, dt, ensemble.tau, r1, r2)
+            kinetic, ktemp, state.nf, dt, ensemble.tau, r1, r2)
         v = v * scale
         temperature = scale * scale * 2.0 * kinetic / state.nf
         if compensated:
@@ -141,24 +147,29 @@ def make_md_step(params: Parameters, ensemble, engine,
     return step
 
 
-def brownian_noise(seed: int, step: int, shape, dtype, device, rank=None):
+def brownian_noise(seed: int, step, shape, dtype, device, rank=None):
     """The reference's variance-matched uniform noise, xi on [-sqrt(3),
-    sqrt(3)], drawn on ``device`` from a generator seeded from ``(seed,
-    step)``, and on a shard ring also from the rank (each rank draws for its
-    own slots): the one seam where Brownian random numbers enter (tests
-    replace it to replay the JAX package's draws)."""
-    g = thermostat.step_generator(seed, step, device, rank)
-    u = torch.rand(shape, generator=g, device=device, dtype=dtype)
-    return (2.0 * u - 1.0) * SQRT3
+    sqrt(3)], of ``shape`` on ``device``, a function of ``(seed, step)``
+    and on a shard ring also of the rank (each rank draws for its own
+    slots): the one seam where Brownian random numbers enter (tests replace
+    it to replay the JAX package's draws). ``step``: a host int or a 0-d
+    int64 device tensor. On the card a kernel draws it
+    (:func:`mdtpu_torch.ops.philox_draws.uniform_noise`), on the CPU its
+    plain version, with the same bits."""
+    return philox_draws.uniform_noise(
+        seed, philox_draws.step_tensor(step, device), shape, dtype, rank)
 
 
 def brownian_virial_sample(state, virial):
     """Virial sampled every 10 steps for the averaged Brownian pressure;
-    returns the updated ``(virial_accum, nprom)``."""
+    returns the updated ``(virial_accum, nprom)``. The cadence is decided
+    on the device (``state.step`` may be a device tensor)."""
+    take = state.step % 10 == 0
+    if not isinstance(take, torch.Tensor):
+        take = torch.full((), take, dtype=torch.bool, device=virial.device)
     accum, nprom = state.virial_accum, state.nprom
-    if state.step % 10 == 0:
-        return accum + virial.to(accum.dtype), nprom + 1
-    return accum, nprom
+    return (accum + torch.where(take, virial.to(accum.dtype), 0.0),
+            nprom + take.to(nprom.dtype))
 
 
 def make_brownian_step(params: Parameters, ensemble: Brownian, engine,

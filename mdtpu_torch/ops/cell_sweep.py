@@ -70,6 +70,7 @@ from mdtpu_torch.potentials.lennard_jones import LennardJones
 from mdtpu_torch.potentials.overlap import OverlapPotential
 from mdtpu_torch.potentials.pseudo_hs import PseudoHS
 from mdtpu_torch.potentials.xplor import LennardJonesXPLOR
+from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.math import two_sum
 
 NAME = "cell_sweep"
@@ -441,6 +442,9 @@ def reset_launches():
 
 
 reset_launches()
+for _wrapper in (cell_sweep, cell_sweep_hilo):
+    counters.register(_wrapper, "launches", "lean_launches", "slab_launches",
+                      "slab_lean_launches")
 
 
 def _plan_args(cap, dtype, hilo, dim):

@@ -1,0 +1,346 @@
+"""The slot step's random draws and rebuild test as kernels that read the
+step from the device, and the conditional node a captured step rebins
+through.
+
+The JAX package draws Bussi's two numbers and the Brownian noise from
+``fold_in(key, step)`` inside its device loop. Here the draws come from
+Philox-4x32-10 (``csrc/philox.cuh``): a pure function of a counter
+``(block, step lo, step hi, stream)`` and the seed's two words, so a
+step's numbers depend on ``(seed, step)`` alone and a kernel can take the
+step from a device tensor that a replayed CUDA graph advances. CUDA tensors
+launch ``csrc/philox_draws.cu``; CPU tensors take the plain versions here,
+which do the same integer arithmetic in int64 (the Philox words and the
+noise are the kernels' bits; ``bussi_draw``'s floats differ only by the
+libm's last bits).
+
+Wrappers and counters: :func:`bussi_draw` (``bussi_draw.launches``),
+:func:`uniform_noise` (``uniform_noise.launches``), :func:`rebuild_flag`
+(``rebuild_flag.launches``); :func:`graph_if` opens an IF node in the graph
+being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
+``begin_capture_to_if_node``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import math
+
+import torch
+
+from mdtpu_torch.ops import _cuda_build
+from mdtpu_torch.utils import counters
+
+NAME = "philox_draws"
+MASK = 0xFFFFFFFF
+M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
+W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
+GAMMA_ATTEMPTS = 32                    # kGammaAttempts of the kernel
+BUSSI_STREAM = 0
+BROWNIAN_STREAM = 1                    # | rank << 8
+TWO_PI = 2.0 * math.pi
+SQRT3 = math.sqrt(3.0)
+
+_P, _I, _U, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                      ctypes.c_longlong, ctypes.c_double)
+_SIGNATURES = (
+    ("mdtpu_bussi_draw_f32", (_P, _U, _U, _D, _P, _P)),
+    ("mdtpu_bussi_draw_f64", (_P, _U, _U, _D, _P, _P)),
+    ("mdtpu_uniform_noise_f32", (_P, _U, _U, _U, _L, _P, _P)),
+    ("mdtpu_uniform_noise_f64", (_P, _U, _U, _U, _L, _P, _P)),
+    ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _P)),
+    ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _P)),
+    ("mdtpu_philox_words", (_P, _P, _P, _L, _P)),
+    ("mdtpu_graph_if_begin", (_P, _P, _P)),
+    ("mdtpu_graph_if_end", (_P,)),
+)
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _library():
+    return _cuda_build.load(NAME, _SIGNATURES)
+
+
+def _launch(fn_name, dtype, args, what, device):
+    lib = _library()
+    fn = getattr(lib, f"{fn_name}_{_SUFFIX[dtype]}" if dtype else fn_name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    _cuda_build.check(lib, NAME, rc, what)
+
+
+def seed_key(seed: int):
+    """The Philox key: the seed's low and high 32-bit words."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return s & MASK, s >> 32
+
+
+def step_tensor(step, device):
+    """``step`` as a 0-d int64 tensor on ``device``: a tensor is taken as
+    it is; a host int is filled in on the device (a fill, no copy from the
+    host)."""
+    if isinstance(step, torch.Tensor):
+        if step.dtype != torch.int64 or step.dim() != 0:
+            raise ValueError("the step must be a 0-d int64 tensor")
+        return step
+    return torch.full((), int(step), dtype=torch.int64, device=device)
+
+
+def _check_dtype(dtype):
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the draws take float32 or float64, got {dtype}")
+
+
+# --------------------------------------------------------- Philox-4x32-10
+
+
+def _mulhilo(m: int, c):
+    """``(hi, lo)`` words of the 64-bit product ``m c`` (``m`` < 2^32 an
+    int, ``c`` int64 words), in int64 through 16-bit halves of ``c``."""
+    a = m * (c & 0xFFFF)          # < 2^48
+    b = m * (c >> 16)             # < 2^48
+    return (b + (a >> 16)) >> 16, (a + ((b & 0xFFFF) << 16)) & MASK
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 on int64 tensors (or ints) holding 32-bit words,
+    broadcast together; the key ``(k0, k1)`` two ints or int64 tensors.
+    Returns the four output words as int64 tensors."""
+    c0, c1, c2, c3 = (c if isinstance(c, torch.Tensor)
+                      else torch.tensor(c, dtype=torch.int64)
+                      for c in (c0, c1, c2, c3))
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + W0) & MASK, (k1 + W1) & MASK
+        hi0, lo0 = _mulhilo(M0, c0)
+        hi1, lo1 = _mulhilo(M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_words(counters_, keys):
+    """Philox-4x32-10 of ``counters_`` ``(n, 4)`` under ``keys`` ``(n, 2)``
+    (int64 tensors of 32-bit words): ``(n, 4)`` int64 words. CUDA tensors
+    launch the kernel's generator (``mdtpu_philox_words``, for the
+    known-answer checks); CPU tensors take :func:`philox4x32_10`."""
+    if counters_.device.type == "cpu":
+        return torch.stack(philox4x32_10(*counters_.unbind(1),
+                                         *keys.unbind(1)), 1)
+    c32 = (counters_ & MASK).to(torch.int32).contiguous()
+    k32 = (keys & MASK).to(torch.int32).contiguous()
+    out = torch.empty_like(c32)
+    _launch("mdtpu_philox_words", None,
+            (c32.data_ptr(), k32.data_ptr(), out.data_ptr(), out.shape[0]),
+            "philox_words", counters_.device)
+    return out.to(torch.int64) & MASK
+
+
+def _step_words(step):
+    return step & MASK, (step >> 32) & MASK
+
+
+def _u53(a, b):
+    """Doubles in [0, 1) from 53 bits of two words, exactly."""
+    return (((a >> 5) << 26) + (b >> 6)).to(torch.float64) * 2.0 ** -53
+
+
+def _box_muller(w0, w1, w2, w3):
+    u1 = 1.0 - _u53(w0, w1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * _u53(w2, w3))
+
+
+# ------------------------------------------------------------------ Bussi
+
+
+def bussi_draw_plain(seed: int, step, dof: float):
+    """Bussi's ``(r1, r2)`` as float64 tensors of ``step``'s shape (any
+    shape of int64 steps): r1 ~ N(0, 1), r2 = 2 Gamma(dof / 2), chi-squared
+    with ``dof`` = nf - 1 degrees of freedom (0 where ``dof`` <= 0). The
+    kernel's algorithm (``csrc/philox_draws.cu``), its attempts evaluated
+    all at once and the first accepted one taken."""
+    k0, k1 = seed_key(seed)
+    lo, hi = _step_words(step)
+    blocks = torch.arange(1 + 2 * GAMMA_ATTEMPTS, dtype=torch.int64,
+                          device=step.device).reshape(-1, *[1] * step.dim())
+    w = philox4x32_10(blocks, lo, hi, BUSSI_STREAM, k0, k1)
+    r1 = _box_muller(*(x[0] for x in w))
+    dof = float(dof)
+    if not dof > 0.0:
+        return r1, torch.zeros_like(r1)
+    a = 0.5 * dof
+    boost = a < 1.0
+    d = (a + 1.0 if boost else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    x = _box_muller(*(y[1::2] for y in w))
+    u = 1.0 - _u53(w[0][2::2], w[1][2::2])
+    ub = 1.0 - _u53(w[2][2::2], w[3][2::2])
+    cx = 1.0 + c * x
+    v = cx * cx * cx
+    ok = (v > 0.0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                      + d * torch.log(v))
+    first = torch.argmax(ok.to(torch.int8), dim=0, keepdim=True)
+    accepted = torch.any(ok, dim=0)
+    g = torch.where(accepted, torch.gather(d * v, 0, first)[0], d)
+    if boost:
+        ub = torch.where(accepted, torch.gather(ub, 0, first)[0], 1.0)
+        g = g * torch.pow(ub, 1.0 / a)
+    return r1, 2.0 * g
+
+
+def bussi_draw(seed: int, step, dof: float, dtype):
+    """Bussi's ``(r1, r2)`` of one step as a ``(2,)`` tensor of ``dtype``
+    on the step's device (``step`` a 0-d int64 tensor). A CUDA step
+    launches the kernel (one thread; adds one to ``bussi_draw.launches``);
+    a CPU step takes :func:`bussi_draw_plain`."""
+    _check_dtype(dtype)
+    step = step_tensor(step, None)
+    if step.device.type == "cpu":
+        return torch.stack(bussi_draw_plain(seed, step, dof)).to(dtype)
+    if step.device.type != "cuda":
+        raise ValueError(f"unsupported device {step.device}")
+    out = torch.empty(2, dtype=dtype, device=step.device)
+    k0, k1 = seed_key(seed)
+    _launch("mdtpu_bussi_draw", dtype,
+            (step.data_ptr(), k0, k1, float(dof), out.data_ptr()),
+            "bussi_draw", step.device)
+    bussi_draw.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- Brownian
+
+
+def noise_stream(rank=None) -> int:
+    """The counter's stream word of the Brownian noise: 1, with a shard's
+    rank in the bits above 8."""
+    return BROWNIAN_STREAM | (int(rank or 0) << 8)
+
+
+def uniform_noise_plain(seed: int, step, shape, dtype, rank=None):
+    """The variance-matched uniforms ``(2u - 1) sqrt(3)`` of ``shape``,
+    bit for bit the kernel's: element ``e`` of the flattened array from
+    Philox block ``e // 4`` (float32, the word's top 24 bits) or ``e // 2``
+    (float64, 53 bits of two words)."""
+    _check_dtype(dtype)
+    n = math.prod(shape)
+    per = 4 if dtype == torch.float32 else 2
+    k0, k1 = seed_key(seed)
+    lo, hi = _step_words(step)
+    blocks = torch.arange(-(-n // per), dtype=torch.int64, device=step.device)
+    w = philox4x32_10(blocks, lo, hi, noise_stream(rank), k0, k1)
+    if per == 4:
+        u = (torch.stack(w, 1).reshape(-1)[:n] >> 8).to(dtype) * 2.0 ** -24
+    else:
+        u = torch.stack([_u53(w[0], w[1]), _u53(w[2], w[3])],
+                        1).reshape(-1)[:n]
+    return ((2.0 * u - 1.0) * SQRT3).reshape(tuple(shape))
+
+
+def uniform_noise(seed: int, step, shape, dtype, rank=None):
+    """The Brownian noise of one step: :func:`uniform_noise_plain`'s values
+    on the step's device (``step`` a 0-d int64 tensor). A CUDA step
+    launches the kernel (adds one to ``uniform_noise.launches``); a CPU
+    step takes the plain version."""
+    _check_dtype(dtype)
+    step = step_tensor(step, None)
+    if step.device.type == "cpu":
+        return uniform_noise_plain(seed, step, shape, dtype, rank)
+    if step.device.type != "cuda":
+        raise ValueError(f"unsupported device {step.device}")
+    out = torch.empty(tuple(shape), dtype=dtype, device=step.device)
+    k0, k1 = seed_key(seed)
+    _launch("mdtpu_uniform_noise", dtype,
+            (step.data_ptr(), k0, k1, noise_stream(rank), out.numel(),
+             out.data_ptr()), "uniform_noise", step.device)
+    uniform_noise.launches += 1
+    return out
+
+
+# ---------------------------------------------------------- rebuild test
+
+
+def rebuild_flag_plain(positions, ref_positions, skin):
+    """True (a 0-d bool tensor) where a slot drifted past skin/2 from its
+    reference: ``sum_k (x_k - ref_k)^2 > (skin/2)^2`` in component order,
+    the threshold rounded to the positions' dtype."""
+    d = positions - ref_positions
+    d = d * d
+    d2 = d[0]
+    for dk in d[1:]:
+        d2 = d2 + dk
+    half_skin = 0.5 * skin
+    return torch.any(d2 > half_skin * half_skin)
+
+
+def rebuild_flag(positions, ref_positions, skin, out=None):
+    """:func:`rebuild_flag_plain` of ``(d, S)`` positions, written into
+    ``out`` (a 0-d bool tensor) where given. CUDA tensors launch the kernel
+    (adds one to ``rebuild_flag.launches``); CPU tensors take the plain
+    version."""
+    if positions.shape != ref_positions.shape or positions.dim() != 2:
+        raise ValueError("positions and ref_positions must be one (d, S) "
+                         "shape")
+    if positions.device.type == "cpu":
+        flag = rebuild_flag_plain(positions, ref_positions, skin)
+        return flag if out is None else out.copy_(flag)
+    _check_dtype(positions.dtype)
+    if (positions.device.type != "cuda" or ref_positions.dtype
+            != positions.dtype or not positions.is_contiguous()
+            or not ref_positions.is_contiguous()):
+        raise ValueError("rebuild_flag takes contiguous CUDA tensors of one "
+                         "dtype")
+    if out is None:
+        out = torch.empty((), dtype=torch.bool, device=positions.device)
+    half_skin = 0.5 * skin
+    _launch("mdtpu_rebuild_flag", positions.dtype,
+            (positions.data_ptr(), ref_positions.data_ptr(),
+             positions.shape[0], positions.shape[1], half_skin * half_skin,
+             out.data_ptr()), "rebuild_flag", positions.device)
+    rebuild_flag.launches += 1
+    return out
+
+
+def reset_launches():
+    """Set the three wrappers' launch counts to 0."""
+    for wrapper in (bussi_draw, uniform_noise, rebuild_flag):
+        wrapper.launches = 0
+
+
+reset_launches()
+for _wrapper in (bussi_draw, uniform_noise, rebuild_flag):
+    counters.register(_wrapper, "launches")
+
+
+# ------------------------------------------------- the conditional node
+
+_BODY_STREAMS = {}
+
+
+@contextlib.contextmanager
+def graph_if(flag, pool):
+    """Inside a CUDA-graph capture on the current stream: what the body of
+    this context enqueues runs at each replay only where the 0-d bool
+    ``flag`` is set at that point of the replay (an IF node; the flag is
+    read on the device). The body is captured on a stream of its own, and
+    its allocations come from ``pool``, a ``torch.cuda.MemPool`` of its own
+    (the graph's pool routes only the capturing stream's allocations; the
+    caller keeps ``pool`` as long as the graph). Raises where the stream is
+    not capturing or the runtime refuses the node."""
+    device = flag.device
+    lib = _library()
+    parent = torch.cuda.current_stream(device)
+    body = _BODY_STREAMS.get(device)
+    if body is None:
+        body = _BODY_STREAMS[device] = torch.cuda.Stream(device)
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_begin(
+            parent.cuda_stream, flag.data_ptr(), body.cuda_stream),
+            "graph_if")
+    try:
+        with torch.cuda.stream(body), torch.cuda.use_mem_pool(pool, device):
+            yield
+    finally:
+        with torch.cuda.device(device):
+            _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_end(
+                body.cuda_stream), "graph_if")

@@ -17,7 +17,9 @@ synchronisation:
 Like the JAX package, a cell-grid engine with ``compensated=True`` runs the
 slot-space loop (:mod:`mdtpu_torch.integrate.slot_step`): the state is put
 in slot order once, advanced by ``make_slot_advance`` (no per-step scatter or
-gather, the rebuild check a host read a step, lean steps inside a segment),
+gather, lean steps inside a segment; on the card each step one CUDA-graph
+launch, the step counter, NVT's target, the draws and the rebuild decision
+on the device, so a segment reads nothing back before its health read),
 ordered by ``ids`` for frames and put back in particle order at the end. Other
 engines, ``PlaneEngine`` and ``compensated=False`` take the particle-order
 step.

@@ -2,7 +2,7 @@
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
     python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor|sharded]
-                                  [--potential lj|user]
+                                  [--potential lj|user] [--eager]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
@@ -16,15 +16,20 @@ as the JAX package drives its B2 kernel; ``--engine neighbor`` steps
 particle order with Kahan compensation; ``--engine slot`` steps the slot
 layout as ``run_simulation`` does on the cell grid: ``make_slot_advance``
 over one segment of the timed or profiled length (its lean inner steps, the
-rebuild check read every step, the rebuilds that come due, one full step at
-the end), and reports the rebuilds in each window; ``--engine sharded``
+rebuilds that come due, one full step at the end; each step one CUDA-graph
+launch with the rebuild decided on the device, or with ``--eager`` the same
+steps launched one by one with the rebuild flag read on the host every
+step), and reports the rebuilds in each window; ``--engine sharded``
 steps the same through ``HaloSlotEngine`` on a one-rank NCCL group (a file
 store in a temporary directory): the slab's ghost exchange and launch, the
 all-reduced flags and sums, a rebuild (with its migration) at the start of
 each window and before its last step. Prints one JSON line: ms per step,
 device busy time per step and the device's idle share over the profiled
-window, CUDA kernel launches and host synchronisations per step, and the
-kernels that take the most device time; for ``sharded`` a second line with
+window, CUDA kernel launches, CUDA-graph launches and host synchronisations
+per step (stream and event synchronisations: each read of a tensor on the
+host is one; the window's own closing ``torch.cuda.synchronize`` is counted
+apart), the host's own time to issue a window's steps, and the kernels that
+take the most device time; for ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
 ``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
@@ -52,7 +57,11 @@ def main():
                                  "sharded"),
                         default="cellgrid")
     parser.add_argument("--potential", choices=("lj", "user"), default="lj")
+    parser.add_argument("--eager", action="store_true",
+                        help="slot: launch each step's kernels one by one")
     args = parser.parse_args()
+    if args.eager and args.engine != "slot":
+        parser.error("--eager takes --engine slot")
     if args.potential == "user" and args.engine not in ("slot", "sharded"):
         parser.error("--potential user takes --engine slot or sharded")
     if not torch.cuda.is_available():
@@ -122,18 +131,15 @@ def main():
     elif args.engine == "slot":
         state = slot_step.slot_forces(slot_step.slotify(state, engine),
                                       engine)
-        advance = slot_step.make_slot_advance(params, ensemble, engine)
-        rebin = slot_step._rebin
+        advance = slot_step.make_slot_advance(
+            params, ensemble, engine, graph=False if args.eager else None)
 
-        def counted_rebin(s, e):
-            rebuilds[-1] += 1
-            return rebin(s, e)
-
-        slot_step._rebin = counted_rebin
+        totals = []   # the advance's rebuild count after each window
 
         def run(s, k):
-            rebuilds.append(0)
-            return advance(s, k)
+            s = advance(s, k)
+            totals.append(advance.rebuilds.clone())
+            return s
     else:
         step = make_md_step(params, ensemble, engine, compensated)
 
@@ -142,19 +148,48 @@ def main():
                 s = step(s)
             return s
 
+    state, metrics = measure(run, state)
+    if args.engine == "slot":
+        totals = [int(t) for t in totals]
+        rebuilds = [0] + [b - a for a, b in zip(totals, totals[1:])]
+    print(json.dumps({
+        "card": card, "engine": args.engine, "potential": args.potential,
+        "route": ("eager" if args.eager else "graph")
+        if args.engine == "slot" else "eager",
+        "compensated": compensated,
+        "n": N, "grid": list(engine.grid),
+        "capacity": engine.cell_capacity, **metrics,
+        # Slot layouts: rebuilds in the timed and in the profiled window.
+        "rebuilds_timed_profiled": rebuilds[1:],
+    }))
+    if args.engine == "sharded":
+        print(json.dumps({"card": card, "engine": "sharded",
+                          **sharded_parts(engine, state)}))
+        torch.distributed.destroy_process_group()
+
+
+def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
+    """``(state, metrics)`` of ``run(state, k)`` (k steps, one segment):
+    after a warm-up of 20, the host clock over ``n_timed`` steps, with the
+    time the host takes to issue them (before the closing synchronize)
+    apart; then ``torch.profiler`` over
+    ``n_profiled`` steps: device busy time and idle share, launches of
+    kernels and of CUDA graphs, host synchronisations (each read of a
+    tensor on the host is one), copy calls, and the kernels that take the
+    most device time, each a step."""
     state = run(state, 20)
     torch.cuda.synchronize()
-    n_timed = 200
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     state = run(state, n_timed)
+    issue_ms = (time.perf_counter() - t_start) / n_timed * 1e3
     torch.cuda.synchronize()
-    ms_per_step = (time.perf_counter() - t0) / n_timed * 1e3
+    ms_per_step = (time.perf_counter() - t_start) / n_timed * 1e3
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        state = run(state, PROFILED_STEPS)
+        state = run(state, n_profiled)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -168,39 +203,35 @@ def main():
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in avgs if e.device_type == cuda and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in avgs if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cuLaunchKernelEx"))
-    syncs = sum(e.count for e in avgs if e.key in (
-        "cudaStreamSynchronize", "cudaDeviceSynchronize",
-        "cudaEventSynchronize"))
+
+    def calls(*names):
+        return sum(e.count for e in avgs if e.key in names)
+
+    launches = calls("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx")
+    syncs = calls("cudaStreamSynchronize", "cudaEventSynchronize")
     memcpy = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    print(json.dumps({
-        "card": card, "engine": args.engine, "potential": args.potential,
-        "compensated": compensated,
-        "n": N, "grid": list(engine.grid),
-        "capacity": engine.cell_capacity,
+    return state, {
         "ms_per_step_host_clock": ms_per_step,
         "steps_per_s": 1e3 / ms_per_step,
-        "profiled_steps": PROFILED_STEPS,
-        "profiled_wall_ms_per_step": wall_ms / PROFILED_STEPS,
-        "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
-        # Both from the profiled window, whose host side the profiler slows.
+        "issue_ms_per_step": issue_ms,
+        "profiled_steps": n_profiled,
+        "profiled_wall_ms_per_step": wall_ms / n_profiled,
+        "device_busy_ms_per_step": busy_ms / n_profiled,
+        # From the profiled window, whose host side the profiler slows.
         "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
-        "kernel_launches_per_step": launches / PROFILED_STEPS,
-        "host_syncs_per_step": syncs / PROFILED_STEPS,
-        "memcpy_calls_per_step": memcpy / PROFILED_STEPS,
-        # Slot layouts: rebuilds in the timed and in the profiled window.
-        "rebuilds_timed_profiled": rebuilds[1:],
+        # The profiled busy time against the timed window's wall time.
+        "device_idle_share_timed": 1.0 - busy_ms / n_profiled / ms_per_step,
+        "kernel_launches_per_step": launches / n_profiled,
+        "graph_launches_per_step": calls("cudaGraphLaunch") / n_profiled,
+        "host_syncs_per_step": syncs / n_profiled,
+        "device_syncs_in_window": calls("cudaDeviceSynchronize"),
+        "memcpy_calls_per_step": memcpy / n_profiled,
         "top_device_kernels": [
-            {"name": e.key[:90], "calls_per_step": e.count / PROFILED_STEPS,
-             "ms_per_step": dev_us(e) / 1e3 / PROFILED_STEPS} for e in top],
-    }))
-    if args.engine == "sharded":
-        print(json.dumps({"card": card, "engine": "sharded",
-                          **sharded_parts(engine, state)}))
-        torch.distributed.destroy_process_group()
+            {"name": e.key[:90], "calls_per_step": e.count / n_profiled,
+             "ms_per_step": dev_us(e) / 1e3 / n_profiled} for e in top],
+    }
 
 
 def sharded_parts(engine, state, reps=200):

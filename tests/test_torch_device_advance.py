@@ -1,0 +1,146 @@
+"""The single-device slot advance keeps its segment on the device.
+
+One segment of ``make_slot_advance`` runs on the CPU with every way Python
+code reads a tensor back to the host (``Tensor.__bool__``, ``__int__``,
+``__float__``, ``__index__``, ``.item()``, ``.tolist()``, ``.numpy()``,
+``.cpu()``) patched to raise, except the one read in :func:`device_if`'s
+eager branch; the segment completes and reaches that read once a step. The
+card captures this same code into CUDA graphs, so it reads nothing back
+there. Also: NVT's target temperature comes from the advance's device
+table, step for step what the schedule gives; the counter is the state's
+step; the advance leaves its input state as it was; and the graph option's
+checks.
+"""
+
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mdtpu_torch as mt
+from mdtpu_torch.integrate import slot_step
+from mdtpu_torch.integrate import thermostat as tthermo
+from mdtpu_torch.integrate.ramps import LinearRamp
+from mdtpu_torch.ops.cell_grid import CellGridEngine
+from mdtpu_torch.sim.initialization import lattice_fluid_state
+from tests.test_torch_driver import one_torch_thread  # noqa: F401
+
+N = 1000
+READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist",
+         "numpy", "cpu")
+
+
+def _slots(ensemble, dtype=torch.float64):
+    """A slot state of N particles on a lattice (a 3^3 grid for LJ) and its engine."""
+    if isinstance(ensemble, mt.Brownian):
+        pot, rho, cutoff = mt.PseudoHS(), 0.5, 1.5
+    else:
+        pot, rho, cutoff = mt.LennardJones(r_cut=2.5), 0.8, 2.5
+    state = lattice_fluid_state(N, rho, 1.2, dtype=dtype, cutoff=cutoff,
+                                jitter=0.05, device="cpu")
+    eng = CellGridEngine.create(pot, cutoff, 0.3, state.unitcell, N)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    params = mt.Parameters(rho, N, 1e-5 if isinstance(
+        ensemble, mt.Brownian) else 0.004, pot)
+    return slots, eng, params
+
+
+CASES = {
+    "nvt_ramp": (mt.NVT(LinearRamp(1.2, 0.8, 30), 0.4), torch.float64, False),
+    "nve_hilo": (mt.NVE(), torch.float32, True),
+    "brownian": (mt.Brownian(1.0), torch.float64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_segment_reads_nothing_but_the_rebuild_flag(case, monkeypatch):
+    ensemble, dtype, hilo = CASES[case]
+    slots, eng, params = _slots(ensemble, dtype)
+    advance = slot_step.make_slot_advance(params, ensemble, eng, hilo=hilo)
+    k = 25
+    rebins = []
+    rebin = slot_step._rebin
+    monkeypatch.setattr(slot_step, "_rebin",
+                        lambda s, e: rebins.append(1) or rebin(s, e))
+    steps_before = slot_step.make_slot_step.steps
+    reads = []
+    with monkeypatch.context() as m:
+        allowed = []
+
+        def read_guard(name, original):
+            def read(self, *args, **kwargs):
+                if (name == "__bool__" and sys._getframe(1).f_code
+                        is slot_step.device_if.__code__):
+                    allowed.append(1)
+                    return original(self, *args, **kwargs)
+                reads.append(name)
+                raise AssertionError(f"host read Tensor.{name}")
+            return read
+
+        for name in READS:
+            m.setattr(torch.Tensor, name,
+                      read_guard(name, getattr(torch.Tensor, name)))
+        out = advance(slots, k)
+    assert reads == []
+    assert len(allowed) == k                  # device_if: once a step
+    assert out.step == slots.step + k and isinstance(out.step, int)
+    assert slot_step.make_slot_step.steps - steps_before == k
+    assert len(rebins) == len(advance.rebuild_steps())
+    assert bool(torch.all(torch.isfinite(out.positions)))
+
+
+def test_ramp_target_comes_from_the_device_table(monkeypatch):
+    """Each NVT step's ktemp, read from the advance's table by the step
+    counter, is the schedule's value at step + 1 in the state's dtype."""
+    ramp = LinearRamp(1.5, 0.5, 40)
+    ensemble = mt.NVT(ramp, 0.4)
+    slots, eng, params = _slots(ensemble, torch.float32)
+    seen = []
+    scale = tthermo.bussi_scale_from_kinetic
+
+    def recorded(kinetic, ktemp, *args):
+        seen.append(ktemp.clone())
+        return scale(kinetic, ktemp, *args)
+
+    monkeypatch.setattr(tthermo, "bussi_scale_from_kinetic", recorded)
+    advance = slot_step.make_slot_advance(params, ensemble, eng)
+    state = slots.replace(step=7)
+    for k in (1, 12, 30):
+        state = advance(state, k)
+    assert state.step == 7 + 43
+    assert all(t.dtype == torch.float32 and t.dim() == 0 for t in seen)
+    np.testing.assert_array_equal(
+        np.array([float(t) for t in seen], np.float32),
+        np.array([ramp(s + 1) for s in range(7, 50)], np.float32))
+
+
+def test_advance_leaves_its_input_alone():
+    """Two segments from one start give the same state (the driver reruns a
+    segment from its start after an overflow), and the returned state's
+    tensors are not the advance's buffers."""
+    ensemble = mt.NVT(1.0, 0.4)
+    slots, eng, params = _slots(ensemble)
+    start = {n: getattr(slots, n).clone() for n in ("positions",
+                                                     "velocities")}
+    advance = slot_step.make_slot_advance(params, ensemble, eng)
+    a = advance(slots, 15)
+    b = advance(slots, 15)
+    for name, t in start.items():
+        assert torch.equal(getattr(slots, name), t)
+    for name in ("positions", "velocities", "ids"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+        assert getattr(a, name) is not getattr(advance.bufs, name)
+    c = advance(a, 0)
+    assert c is a
+
+
+def test_graph_option_checks():
+    ensemble = mt.NVE()
+    slots, eng, params = _slots(ensemble)
+    advance = slot_step.make_slot_advance(params, ensemble, eng, graph=True)
+    with pytest.raises(ValueError, match="graph=True"):
+        advance(slots, 3)
+    eager = slot_step.make_slot_advance(params, ensemble, eng)
+    eager(slots, 2)
+    assert eager.graph is False

@@ -1772,3 +1772,178 @@ def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert np.all(np.abs(rows_g - rows_c)
                   <= np.maximum(1e-9 * np.abs(rows_c), 1.000001e-6))
     np.testing.assert_allclose(pos_g, pos_c, rtol=0, atol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# The slot advance on the device: the Philox draws, the rebuild flag, and
+# the captured advance against the eager one.
+# --------------------------------------------------------------------------
+
+# Random123's known answers for Philox-4x32-10: (counter, key, words).
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+def test_philox_known_answers_and_words_on_the_card(cuda):
+    from mdtpu_torch.ops import philox_draws as draws
+    ctr = torch.tensor([k[0] for k in PHILOX_KAT], device=cuda)
+    key = torch.tensor([k[1] for k in PHILOX_KAT], device=cuda)
+    assert draws.philox_words(ctr, key).cpu().tolist() == [
+        list(k[2]) for k in PHILOX_KAT]
+    rng = np.random.default_rng(3)
+    ctr = torch.from_numpy(rng.integers(0, 2 ** 32, (4096, 4)))
+    key = torch.from_numpy(rng.integers(0, 2 ** 32, (4096, 2)))
+    assert torch.equal(draws.philox_words(ctr.to(cuda), key.to(cuda)).cpu(),
+                       draws.philox_words(ctr, key))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("dof", [0.0, 1.0, 3.0, 196604.0])
+def test_bussi_draw_matches_plain(cuda, dof, dtype):
+    """r1 and r2 against the plain version to rel 1e-12 in float64 (the
+    card's libm is not the CPU's), one float32 rounding of that in
+    float32; two launches bit for bit."""
+    from mdtpu_torch.ops import philox_draws as draws
+    rtol = 1e-12 if dtype == torch.float64 else 1.2e-7
+    for seed, step in ((7, 0), (7, 1), (7, 123456), (2 ** 40 + 3, 2 ** 33 + 5)):
+        got = draws.bussi_draw(seed, torch.tensor(step, device=cuda), dof,
+                               dtype)
+        again = draws.bussi_draw(seed, torch.tensor(step, device=cuda), dof,
+                                 dtype)
+        want = draws.bussi_draw(seed, torch.tensor(step), dof, dtype)
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", [(3, 124875), (2, 7), (3, 1)])
+def test_uniform_noise_matches_plain_bit_for_bit(cuda, shape, dtype):
+    from mdtpu_torch.ops import philox_draws as draws
+    for rank in (None, 3):
+        got = draws.uniform_noise(11, torch.tensor(41, device=cuda), shape,
+                                  dtype, rank)
+        want = draws.uniform_noise(11, torch.tensor(41), shape, dtype, rank)
+        assert got.shape == shape and got.dtype == dtype
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rebuild_flag_matches_plain(cuda, dim, dtype):
+    """The flag against the drift test on drifts below skin/2 and with one
+    slot past it (each slot of a few), written into a given tensor."""
+    from mdtpu_torch.ops import philox_draws as draws
+    g = torch.Generator().manual_seed(dim)
+    ref = torch.rand((dim, 20000), generator=g, dtype=torch.float64) * 30
+    drift = (torch.rand((dim, 20000), generator=g, dtype=torch.float64)
+             - 0.5) * 0.08
+    out = torch.zeros((), dtype=torch.bool, device=cuda)
+    for slot in (None, 0, 12345, 19999):
+        pos = ref + drift
+        if slot is not None:
+            pos[dim - 1, slot] += 0.25
+        pos, r = pos.to(dtype), ref.to(dtype)
+        want = draws.rebuild_flag(pos, r, 0.3)
+        got = draws.rebuild_flag(pos.to(cuda), r.to(cuda), 0.3, out=out)
+        assert got is out and bool(got) == bool(want) == (slot is not None)
+
+
+def _graph_and_eager(state, params, ensemble, engine, segments, hilo=False):
+    """The slot advance eagerly and captured from one slot state: per route
+    the final state, the thermo numbers after every segment, the rebuild
+    steps and the launch counts."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.utils import counters
+    out = {}
+    for graph in (False, None):
+        advance = slot_step.make_slot_advance(params, ensemble, engine,
+                                              hilo=hilo, graph=graph)
+        before = counters.snapshot()
+        s, rows = state, []
+        for k in segments:
+            s = advance(s, k)
+            rows.append(torch.stack([s.energy, s.temperature, s.virial,
+                                     s.virial_accum]).cpu())
+        counts = {(getattr(o, "__name__", o), n): v for (o, n), v in
+                  counters.difference(counters.snapshot(), before).items()}
+        out[graph] = (s, torch.stack(rows), advance.rebuild_steps(), counts)
+    return out
+
+
+def _assert_routes_equal(out, n_steps):
+    (se, rows_e, reb_e, n_e), (sg, rows_g, reb_g, n_g) = out[False], out[None]
+    assert sg.step == se.step
+    for name in ("positions", "velocities", "forces", "pos_comp", "vel_comp",
+                 "images", "ids"):
+        assert torch.equal(getattr(sg, name), getattr(se, name)), name
+    assert torch.equal(rows_g, rows_e)
+    assert reb_g == reb_e and len(reb_e) >= 1
+    assert n_g == n_e
+    assert n_e[("make_slot_step", "steps")] == n_steps
+    assert n_e[("rebuild_flag", "launches")] >= n_steps
+    assert n_e.get(("cell_sweep", "launches"), 0) + n_e.get(
+        ("cell_sweep_hilo", "launches"), 0) == n_steps
+
+
+def test_captured_slot_advance_equals_eager_nvt_then_hilo_nve(cuda):
+    """NVT on a ramp (the device's ktemp table), then NVE on the hi/lo
+    sweep, 4096 LJ at f32: captured and eager bit for bit, with the same
+    rebuilds and the same counts of every kernel launch."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate.ramps import LinearRamp
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                                jitter=JITTER, device=cuda)
+    eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    nvt = _graph_and_eager(slots, params,
+                           mdtpu_torch.NVT(LinearRamp(1.4, 0.9, 120), 0.4),
+                           eng, (1, 60, 60, 29))
+    _assert_routes_equal(nvt, 150)
+    nve = _graph_and_eager(nvt[None][0], params, mdtpu_torch.NVE(), eng,
+                           (1, 40, 40), hilo=True)
+    _assert_routes_equal(nve, 81)
+
+
+def test_captured_slot_advance_equals_eager_brownian_and_2d(cuda):
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    n = 4096
+    state = lattice_fluid_state(n, 0.5, 1.0, dtype=torch.float32, cutoff=1.5,
+                                jitter=0.05, device=cuda)
+    params = mdtpu_torch.Parameters(0.5, n, 1e-5, PseudoHS())
+    # A short skin: rebuilds within the segments.
+    eng = CellGridEngine.create(PseudoHS(), 1.5, 0.1, state.unitcell, n)
+    slots = slot_step.slotify(state, eng)
+    _assert_routes_equal(_graph_and_eager(slots, params,
+                                          mdtpu_torch.Brownian(1.0), eng,
+                                          (1, 45, 45)), 91)
+    L = (n / 0.7) ** 0.5
+    cell = np.array([[L, L / 8], [0.0, L]])
+    pos = lattice_positions(n, cell, 2, dtype=torch.float32, jitter=0.01,
+                            device=cuda)
+    state = build_state_from_arrays(pos, np.ones(n), cell, 5,
+                                    dtype=torch.float32, cutoff=1.5,
+                                    device=cuda)
+    state = state.replace(velocities=initialize_velocities(
+        1.0, 1, n, 2, dtype=torch.float32, device=cuda))
+    params = mdtpu_torch.Parameters(0.7, n, 0.002, PseudoHS())
+    eng = CellGridEngine.create(PseudoHS(), 1.5, 0.3, state.unitcell, n)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    _assert_routes_equal(_graph_and_eager(slots, params,
+                                          mdtpu_torch.NVT(1.0, 0.1), eng,
+                                          (1, 60, 60)), 121)

@@ -1,0 +1,169 @@
+"""The slot step's draws on the CPU: Philox-4x32-10's known answers, the
+plain Bussi draw's moments (r1 ~ N(0, 1); r2 chi-squared with nf - 1
+degrees of freedom, as the JAX package's 2 Gamma((nf - 1)/2)), the plain
+Brownian noise (on [-sqrt 3, sqrt 3], unit variance), draws that repeat for
+one (seed, step) and differ across steps, seeds and ranks, the plain
+rebuild flag against numpy, and the launch counters' arithmetic. The
+kernels themselves are held to these plain versions on the card
+(``tests/test_torch_gpu.py``)."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mdtpu_torch.integrate import step as tstep
+from mdtpu_torch.integrate import thermostat as tthermo
+from mdtpu_torch.ops import philox_draws as draws
+from mdtpu_torch.utils import counters
+
+# Random123's known answers for Philox-4x32-10: (counter, key, words).
+KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+N_STEPS = 20000
+
+
+def _philox_numpy(ctr, key):
+    """Philox-4x32-10 in Python integers: Random123's rounds."""
+    c, (k0, k1) = list(ctr), key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) \
+                & 0xFFFFFFFF
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & 0xFFFFFFFF,
+             (p0 >> 32) ^ c[3] ^ k1, p0 & 0xFFFFFFFF]
+    return tuple(c)
+
+
+@pytest.mark.parametrize("ctr,key,words", KAT)
+def test_philox_known_answers(ctr, key, words):
+    got = draws.philox_words(torch.tensor([ctr]), torch.tensor([key]))
+    assert tuple(got[0].tolist()) == words
+    assert _philox_numpy(ctr, key) == words
+
+
+def test_philox_words_match_python_integers():
+    rng = np.random.default_rng(1)
+    ctr = rng.integers(0, 2 ** 32, (200, 4))
+    key = rng.integers(0, 2 ** 32, (200, 2))
+    got = draws.philox_words(torch.from_numpy(ctr), torch.from_numpy(key))
+    assert [tuple(r) for r in got.tolist()] == [
+        _philox_numpy(tuple(int(v) for v in c), tuple(int(v) for v in k))
+        for c, k in zip(ctr, key)]
+
+
+@pytest.mark.parametrize("dof", [1.0, 3.0, 196604.0])
+def test_bussi_draw_moments(dof):
+    """Over 20,000 steps: r1's mean 0 and variance 1, r2's mean nf - 1 and
+    variance 2(nf - 1), each within five standard errors."""
+    r1, r2 = draws.bussi_draw_plain(3, torch.arange(N_STEPS), dof)
+    r1, r2 = r1.numpy(), r2.numpy()
+    n = N_STEPS
+    assert abs(r1.mean()) < 5 / math.sqrt(n)
+    assert abs(r1.var() - 1.0) < 5 * math.sqrt(2 / n)
+    assert abs(r2.mean() - dof) < 5 * math.sqrt(2 * dof / n)
+    var_se = math.sqrt((8 * dof ** 2 + 48 * dof) / n)
+    assert abs(r2.var() - 2 * dof) < 5 * var_se
+    assert np.all(r2 > 0)
+
+
+def test_bussi_draw_without_freedom_is_zero():
+    r1, r2 = draws.bussi_draw_plain(3, torch.arange(10), 0.0)
+    assert torch.all(r2 == 0) and torch.all(torch.isfinite(r1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_uniform_noise_range_and_variance(dtype):
+    xi = draws.uniform_noise_plain(11, torch.tensor(4), (3, 100001), dtype)
+    assert xi.shape == (3, 100001) and xi.dtype == dtype
+    assert float(xi.abs().max()) <= math.sqrt(3.0)
+    # Standard errors at 3e5 draws: mean 1.8e-3, variance 1.6e-3.
+    assert abs(float(xi.double().mean())) < 1e-2
+    assert abs(float(xi.double().var()) - 1.0) < 1e-2
+
+
+def test_draws_repeat_and_differ_across_steps_seeds_and_ranks():
+    def noise(seed, step, rank=None):
+        return tstep.brownian_noise(seed, step, (3, 999), torch.float64,
+                                    "cpu", rank)
+
+    a = noise(5, 17)
+    assert torch.equal(a, noise(5, torch.tensor(17)))
+    for other in (noise(5, 18), noise(6, 17), noise(5, 17, 1),
+                  noise(5, 17 + 2 ** 32)):
+        assert abs(float((a * other).mean())) < 0.1
+    assert torch.equal(noise(5, 17, 1), noise(5, 17, 1))
+    assert not torch.equal(noise(5, 17, 1), noise(5, 17, 2))
+    b = tthermo.bussi_noise(5, 17, 3 * 99.0, torch.float64, "cpu")
+    c = tthermo.bussi_noise(5, torch.tensor(17), 3 * 99.0, torch.float64,
+                            "cpu")
+    assert [float(x) for x in b] == [float(x) for x in c]
+    for d in (tthermo.bussi_noise(5, 18, 3 * 99.0, torch.float64, "cpu"),
+              tthermo.bussi_noise(6, 17, 3 * 99.0, torch.float64, "cpu")):
+        assert float(d[0]) != float(b[0]) and float(d[1]) != float(b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rebuild_flag_plain_matches_numpy(dtype):
+    """The drift test in the positions' dtype, threshold (skin/2)^2 rounded
+    to it, at drifts just below and just above."""
+    rng = np.random.default_rng(2)
+    ref = rng.uniform(0, 20, (3, 5000)).astype(np.float64)
+    skin = 0.3
+    for scale in (0.999, 1.001):
+        drift = np.zeros_like(ref)
+        drift[1, 77] = 0.5 * skin * scale
+        pos, r = (torch.from_numpy(ref + drift).to(dtype),
+                  torch.from_numpy(ref).to(dtype))
+        npd = {torch.float64: np.float64, torch.float32: np.float32}[dtype]
+        d = (pos.numpy() - r.numpy()).astype(npd)
+        d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+        want = bool(np.any(d2 > npd(0.5 * skin * 0.5 * skin)))
+        out = torch.ones((), dtype=torch.bool)
+        assert bool(draws.rebuild_flag(pos, r, skin)) == want == (scale > 1)
+        assert draws.rebuild_flag(pos, r, skin, out=out) is out
+        assert bool(out) == want
+
+
+def test_wrappers_on_the_cpu_take_the_plain_versions():
+    before = counters.snapshot()
+    r = draws.bussi_draw(1, torch.tensor(3), 10.0, torch.float32)
+    assert r.shape == (2,) and r.dtype == torch.float32
+    assert torch.equal(r, torch.stack(
+        draws.bussi_draw_plain(1, torch.tensor(3), 10.0)).float())
+    draws.uniform_noise(1, torch.tensor(3), (2, 5), torch.float32)
+    draws.rebuild_flag(torch.zeros(2, 5), torch.zeros(2, 5), 0.3)
+    assert counters.snapshot() == before
+    with pytest.raises(ValueError):
+        draws.step_tensor(torch.tensor([1, 2]), "cpu")
+    with pytest.raises(TypeError):
+        draws.uniform_noise(1, torch.tensor(3), (2, 5), torch.float16)
+
+
+def test_counters_snapshot_difference_add_restore():
+    def wrapper():
+        pass
+
+    wrapper.launches = 2
+    counters.register(wrapper, "launches")
+    try:
+        before = counters.snapshot()
+        wrapper.launches += 3
+        delta = counters.difference(counters.snapshot(), before)
+        assert delta == {(wrapper, "launches"): 3}
+        counters.restore(before)
+        assert wrapper.launches == 2
+        counters.add(delta, 4)
+        assert wrapper.launches == 14
+    finally:
+        counters.unregister(wrapper, "launches")

@@ -269,7 +269,7 @@ def test_brownian_slot_route_matches_jax(tmp_path, monkeypatch):
                                    BD_FREQ, jdir, engine=jengine)
 
     def t_noise(seed, step, shape, dtype, device):
-        vec = torch.tensor(_drift(step), dtype=dtype, device=device)
+        vec = torch.tensor(_drift(int(step)), dtype=dtype, device=device)
         return vec[:, None].expand(shape)
 
     monkeypatch.setattr(tstep, "brownian_noise", t_noise)
