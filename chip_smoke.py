@@ -120,10 +120,20 @@
    word for word; ``bussi_draw`` at the bench's nf - 1 (f64 r1 and r2 to
    rel 1e-12, the card's libm not being the CPU's; f32 to one rounding of
    that), ``uniform_noise`` on the bench's and the Brownian path's slots
-   (f32 and f64, two ranks) bit for bit, ``rebuild_flag`` on drifts below
-   and past skin/2 (f32, f64); two launches of each bit for bit; each timed
-   by CUDA-graph replay beside its plain version, one PyTorch call and its
-   bound.
+   (f32 and f64, two ranks) bit for bit, ``rebuild_flag`` on the same two
+   shapes (rows 1 and 2 start off 16-byte alignment) with every slot below
+   skin/2 and with one slot one ulp of the threshold short of it or past
+   it (f32, f64); ``velocity_finish`` given the kinetic energy bit for bit
+   the torch composition on the card (its draws from ``bussi_draw``) at
+   f32 and f64, NVT at a fixed target and on a ramp's device table, and
+   NVE, at five steps and four energies; summing the bench's slot
+   velocities itself bit for bit its plain version (the kernel's sum
+   order) and within rel 2e-13 (f64) / 2e-6 (f32) of the composition on
+   ``torch.sum``; two launches of each bit for bit; each timed by a CUDA
+   graph of 100 calls back to back (replayed 20 times, divided by the
+   calls), beside the launch floor (an empty kernel timed the same way),
+   its plain version, one PyTorch call, the composition the tail replaced,
+   and its bound.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -212,22 +222,27 @@
    FIRE's energy after its first iterations below its start, the packer's
    convergence and no pair closer than tol beyond f32 rounding, and the
    launch counts.
-   Each NVT step of the B1 path draws through ``bussi_draw`` and each of
-   its slot steps tests ``rebuild_flag``; each Brownian step in slots draws
-   through ``uniform_noise``. On the card the slot route runs captured:
-   each step one CUDA-graph launch, the rebuild in a conditional node; the
-   counts a capture recorded are added at every replay.
+   Each MD step of the B1 path finishes through ``velocity_finish`` (the
+   NVT steps draw there; ``bussi_draw`` is not launched) and tests
+   ``rebuild_flag`` once; each Brownian step in slots draws through
+   ``uniform_noise``. On the card the slot route runs captured: each step
+   one CUDA-graph launch, the drift test setting the handle of the
+   conditional node that holds the rebuild; the counts a capture recorded
+   are added at every replay.
 5. Graph phase: the bench (600 NVT + 500 NVE on hi/lo), Brownian in slots
    (200 steps) and the 2D path (600 NVT + 200 NVE) through
    ``run_simulation``, each from one start on the eager slot route
    (``make_slot_advance(..., graph=False)``, the flag read on the host once
    a step) and on the captured one: positions, velocities, forces, images,
    every thermo row and the rebuild steps equal bit for bit, steps/s of
-   both; then one segment of the bench's slot advance on each route, in
-   turns (eager, captured, captured, eager), through
-   ``profile_torch_step.measure``: host ms, the host's time to issue a
-   step, device busy ms and the idle share, kernel and graph launches, and
-   host reads a step (none inside a captured segment, or the run fails).
+   both; then one NVT and one NVE (hi/lo) segment of the bench's slot
+   advance on each route, in turns (eager, captured, captured, eager),
+   through ``profile_torch_step.measure``: host ms, the host's time to
+   issue a step, device busy ms and the idle share, kernel and graph
+   launches, and host reads a step (none inside a captured segment, or the
+   run fails), and each captured step's nodes read from its graph: one
+   node for the drift test, one for the velocity finish, one conditional
+   node and no memset, or the run fails.
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3280,13 +3295,16 @@ PHILOX_KAT = [
 ]
 DRAWS_SOURCE = "mdtpu_torch/csrc/philox_draws.cu"
 DRAWS_REPLACE = {
-    "bussi_draw": "mdtpu/integrate/thermostat.py:43",
+    "velocity_finish": "mdtpu/integrate/thermostat.py:52",
     "uniform_noise": "mdtpu/integrate/step.py:110",
     "rebuild_flag": "mdtpu/integrate/slot_step.py:460",
 }
 DRAWS_COVER = {
-    "bussi_draw": "mdtpu/integrate/thermostat.py:43-50 sum_noises, :59-61 "
-                  "(XLA jax.random.normal, jax.random.gamma)",
+    "velocity_finish": "mdtpu/integrate/thermostat.py:52-67 "
+                       "bussi_scale_from_kinetic with :31 compute_kinetic "
+                       "and :37-40 compute_temperature (one XLA fusion; "
+                       "its draws :43-50 sum_noises, :59-61, XLA "
+                       "jax.random.normal, jax.random.gamma)",
     "uniform_noise": "mdtpu/integrate/step.py:110-119 brownian_noise (XLA "
                      "jax.random.uniform)",
     "rebuild_flag": "mdtpu/integrate/slot_step.py:460 slot_needs_rebin "
@@ -3300,6 +3318,18 @@ OPS_PHILOX_BLOCK = 100
 # of one Marsaglia-Tsang test beyond it.
 OPS_BOX_MULLER = 70
 OPS_GAMMA_TEST = 35
+# The many-call timing of the small kernels: a CUDA graph of this many calls
+# back to back, so one replay's host cost is spread over them.
+MANY_CALLS = 100
+# The velocity finish's checks: NVT at a fixed target and on a ramp (a
+# device table read at the step), NVE; kinetic energies around the bench's
+# (3 N T / 2 at T 1); steps; the bench's nf, dt and tau.
+FINISH_STEPS = (0, 1, 599, 123456, 2 ** 33 + 5)
+FINISH_KINETIC = (98302.5, 97000.25, 101234.125, 0.5)
+# The in-kernel sum against torch.sum: float64 to rel 1e-13, float32 to
+# 1e-6 (the kernel adds the exact squares in float64; torch.sum adds
+# float32 in float32); scale and temperature inherit it.
+FINISH_SUM_RTOL = {torch.float64: 1e-13, torch.float32: 1e-6}
 
 
 def _slot_shape(mt, state, cutoff):
@@ -3309,15 +3339,160 @@ def _slot_shape(mt, state, cutoff):
     return (state.dimension, eng.n_cells * eng.cell_capacity)
 
 
+def many_ms(fn, calls=MANY_CALLS, replays=20, rounds=5):
+    """Device ms of one call of ``fn``: a CUDA graph of ``calls`` calls
+    back to back (after one call outside it), replayed ``replays`` times
+    between two CUDA events and divided by calls x replays; the median of
+    ``rounds``. A graph of one call would time the host's replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return statistics.median(cuda_time_ms(graph.replay, replays, 2) / calls
+                             for _ in range(rounds))
+
+
+def launch_floor_ms():
+    """The card's launch floor: :func:`many_ms` of a kernel that does
+    nothing (``philox_draws.empty``)."""
+    from mdtpu_torch.ops import philox_draws as draws
+    return many_ms(lambda: draws.empty("cuda"))
+
+
+def _finish_target(kind, dtype):
+    """NVT's target as the step gives it to ``velocity_finish``: a host
+    number (``fixed``), a ramp's device table read at the step (``ramp``:
+    base 0 for small steps), or None (``nve``)."""
+    from mdtpu_torch.integrate import velocity_finish as vf
+    if kind == "fixed":
+        return lambda step: 1.0
+    if kind == "nve":
+        return lambda step: None
+    table = torch.linspace(1.4, 0.9, 600, dtype=torch.float64).to(
+        dtype).cuda()
+
+    def ramp(step):
+        base = min(step, 599)
+        return vf.TargetTable(table, torch.tensor(step - base, device="cuda"))
+    return ramp
+
+
+def finish_check(mt, failures):
+    """``velocity_finish`` on the card: given the kinetic energy, bit for
+    bit the torch composition on the card (``velocity_finish_plain``, its
+    draws from ``bussi_draw``) at f32 and f64, NVT at a fixed target and on
+    a ramp, and NVE; summing the bench's slot velocities itself, bit for
+    bit the plain version with the kernel's sum order (``kinetic_plain``)
+    and within ``FINISH_SUM_RTOL`` of the composition on ``torch.sum``; two
+    launches bit for bit. Timed by :func:`many_ms` (the summing NVT variant
+    on the ramp, the step's call; the other variants beside it), the
+    composition it replaced by events and in a graph of many calls, and
+    bounds from this run's inputs."""
+    from mdtpu_torch.integrate import thermostat
+    from mdtpu_torch.integrate import velocity_finish as vf
+    from mdtpu_torch.ops import philox_draws as draws
+
+    nf = 3.0 * (N_BENCH - 1)
+    dt, tau, seed = 0.002, 0.4, 7
+    errs, sum_errs, order_errs = [], [], []
+    for dtype in (torch.float32, torch.float64):
+        for kind in ("fixed", "ramp", "nve"):
+            target = _finish_target(kind, dtype)
+            for s in FINISH_STEPS:
+                step = torch.tensor(s, device="cuda")
+                for k in FINISH_KINETIC:
+                    kin = torch.tensor(k, dtype=dtype, device="cuda")
+                    got = torch.stack(vf.velocity_finish(
+                        None, kin, seed, step, nf, dt, tau, target(s)))
+                    again = torch.stack(vf.velocity_finish(
+                        None, kin, seed, s, nf, dt, tau, target(s)))
+                    want = torch.stack(vf.velocity_finish_plain(
+                        None, kin, seed, step, nf, dt, tau, target(s)))
+                    errs.append(float((got - want).abs().max()))
+                    if not (torch.equal(got, want) and torch.equal(got,
+                                                                   again)):
+                        failures.append(
+                            f"velocity_finish {dtype} {kind} step {s} K {k}:"
+                            f" {got.tolist()} vs {want.tolist()}")
+    # Summing the bench's slot velocities (f32: the B1 path's call).
+    shape = (3, 15 ** 3 * 37)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    v64 = torch.randn(shape, device="cuda", dtype=torch.float64,
+                      generator=g)
+    v64[:, ::7] = 0.0   # vacant slots
+    for dtype in (torch.float32, torch.float64):
+        v = v64.to(dtype)
+        for kind in ("ramp", "nve"):
+            target = _finish_target(kind, dtype)(599)
+            step = torch.tensor(599, device="cuda")
+            got = torch.stack(vf.velocity_finish(v, None, seed, step, nf, dt,
+                                                 tau, target))
+            again = torch.stack(vf.velocity_finish(v, None, seed, step, nf,
+                                                   dt, tau, target))
+            want = torch.stack(vf.velocity_finish_plain(
+                v, None, seed, step, nf, dt, tau, target))
+            summed = torch.stack(vf.velocity_finish_plain(
+                None, thermostat.compute_kinetic(v), seed, step, nf, dt, tau,
+                target))
+            err = float(((got - summed) / summed).abs().max())
+            sum_errs.append(err)
+            order_errs.append(float((got - want).abs().max()))
+            if not (torch.equal(got, want) and torch.equal(got, again)
+                    and err <= 2 * FINISH_SUM_RTOL[dtype]):
+                failures.append(f"velocity_finish summing {dtype} {kind}: "
+                                f"{got.tolist()} vs {want.tolist()} (kernel "
+                                f"order), {summed.tolist()} (torch.sum)")
+
+    v = v64.float()
+    step = torch.tensor(599, device="cuda")
+    ramp = _finish_target("ramp", torch.float32)(599)
+    kin = thermostat.compute_kinetic(v)
+    n = v.numel()
+    b_bytes = (4 * n + 8) / HBM_BYTES_PER_S * 1e3
+    b_ops = 2 * n / PEAK_OPS[torch.float64] * 1e3
+    floor = launch_floor_ms()
+    rec = {
+        "max_abs_err": max(errs),
+        "summing_max_abs_err_vs_plain": max(order_errs),
+        "summing_rel_err_vs_torch_sum": max(sum_errs),
+        "shape": list(shape), "blocks": vf.finish_blocks(n),
+        "ms": many_ms(lambda: vf.velocity_finish(
+            v, None, seed, step, nf, dt, tau, ramp)),
+        "given_kinetic_ms": many_ms(lambda: vf.velocity_finish(
+            None, kin, seed, step, nf, dt, tau, ramp)),
+        "nve_ms": many_ms(lambda: vf.velocity_finish(
+            v, None, seed, step, nf, dt, tau, None)),
+        "plain_ms": call_ms(lambda: vf.velocity_finish_plain(
+            v, None, seed, step, nf, dt, tau, ramp)),
+        # What it replaced on the step: the torch composition on torch.sum
+        # and bussi_draw, in a graph of many calls.
+        "composition_ms": many_ms(lambda: vf.velocity_finish_plain(
+            None, thermostat.compute_kinetic(v), seed, step, nf, dt, tau,
+            ramp)),
+        "composition_nve_ms": many_ms(
+            lambda: thermostat.compute_temperature(v, nf)),
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "launch_floor_ms": floor,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call draws and rescales"}
+    rec["bound_meetable_ms"] = max(rec["bound_ms"], floor)
+    return rec
+
+
 def draws_check(mt):
-    """``bussi_draw``, ``uniform_noise`` and ``rebuild_flag`` on the card
-    against their plain versions at the bench's shapes (Philox's words and
-    the noise bit for bit, r1 and r2 to rel 1e-12 in float64 and one
-    float32 rounding of that in float32, the flag equal on drifts below and
-    past skin/2), two launches bit for bit, the generator's three known
-    answers; each timed by CUDA-graph replay (the kernel), its plain
-    version on the card by events, one PyTorch call beside it, and its
-    bound from this run's inputs."""
+    """The slot step's kernels of ``csrc/philox_draws.cu`` on the card
+    against their plain versions at the bench's shapes: Philox's words and
+    the noise bit for bit, ``bussi_draw``'s r1 and r2 to rel 1e-12 in
+    float64 and one float32 rounding of that in float32, the rebuild flag
+    equal at drifts just below and just past skin/2, ``velocity_finish`` as
+    :func:`finish_check` holds it; two launches bit for bit, the
+    generator's three known answers. Each timed by :func:`many_ms` (a graph
+    of ``MANY_CALLS`` calls), beside the launch floor (an empty kernel the
+    same way), its plain version on the card by events, one PyTorch call
+    and its bound from this run's inputs."""
     from mdtpu_torch.ops import philox_draws as draws
 
     failures, results = [], {}
@@ -3332,6 +3507,8 @@ def draws_check(mt):
     if not torch.equal(draws.philox_words(ctr.cuda(), key.cuda()).cpu(),
                        draws.philox_words(ctr, key)):
         failures.append("philox words differ from the plain version")
+    floor = launch_floor_ms()
+    results["launch_floor"] = {"ms": floor, "calls_a_graph": MANY_CALLS}
 
     # Bussi: the bench's nf - 1; four steps, both dtypes.
     dof = 3.0 * (N_BENCH - 1) - 1.0
@@ -3360,12 +3537,11 @@ def draws_check(mt):
     alpha = torch.full((), 0.5 * dof, dtype=torch.float32, device="cuda")
     results["bussi_draw"] = {
         "max_abs_err": max(errs), "attempts": attempts,
-        "ms": _replay_ms(lambda: draws.bussi_draw(0, step, dof,
-                                                   torch.float32)),
+        "ms": many_ms(lambda: draws.bussi_draw(0, step, dof, torch.float32)),
         "plain_ms": call_ms(lambda: draws.bussi_draw_plain(0, step, dof)),
         "bound_ms": b, "bound_by": "bytes" if b == 16 / HBM_BYTES_PER_S
-        * 1e3 else "operations",
-        "library_ms": _replay_ms(lambda: (
+        * 1e3 else "operations", "bound_meetable_ms": max(b, floor),
+        "library_ms": many_ms(lambda: (
             torch._standard_gamma(alpha), torch.randn((), device="cuda"))),
         "library_call": "torch._standard_gamma + torch.randn",
         "r1_r2_step_123456": [float(r1), float(r2)]}
@@ -3393,43 +3569,67 @@ def draws_check(mt):
     b = max(b_bytes, ops / PEAK_OPS[torch.float32] * 1e3)
     results["uniform_noise"] = {
         "max_abs_err": max(errs), "shape": list(shape),
-        "ms": _replay_ms(lambda: draws.uniform_noise(3, step, shape,
-                                                      torch.float32)),
+        "ms": many_ms(lambda: draws.uniform_noise(3, step, shape,
+                                                  torch.float32)),
         "plain_ms": call_ms(lambda: draws.uniform_noise_plain(
             3, step, shape, torch.float32)),
         "bound_ms": b, "bound_by": "bytes" if b == b_bytes
         else "operations",
-        "library_ms": _replay_ms(lambda: torch.rand(shape, device="cuda")),
+        "library_ms": many_ms(lambda: torch.rand(shape, device="cuda")),
         "library_call": "torch.rand",
         "brownian_slot_shape": list(shapes["brownian_slot"])}
 
-    # The rebuild flag: drifts below skin/2, then one slot past it.
+    # The rebuild flag: drifts below skin/2, then one slot just below and
+    # just past it (the threshold's own dtype), on the bench's slots and
+    # the Brownian path's (rows that start off 16-byte alignment).
+    skin = 0.3
+    for name, shp in shapes.items():
+        g = torch.Generator(device="cuda").manual_seed(4)
+        ref = torch.rand(shp, device="cuda", generator=g) * 40.0
+        drift = (torch.rand(shp, device="cuda", generator=g) - 0.5) * 0.08
+        out = torch.zeros((), dtype=torch.bool, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            for slot, row, past in ((None, 0, 0.0), (0, 2, 1.0),
+                                    (shp[1] // 2, 1, 1.0),
+                                    (shp[1] - 1, 2, 1.0),
+                                    (shp[1] - 3, 1, 1.0),
+                                    (shp[1] // 3, 0, -1.0),
+                                    (shp[1] - 2, 2, -1.0)):
+                pos = (ref + drift).to(dtype)
+                r = ref.to(dtype)
+                if slot is not None:
+                    # A drift along one axis just past (or just short of)
+                    # skin/2: the threshold's ulp either side.
+                    half = torch.tensor(0.5 * skin, dtype=dtype)
+                    edge = torch.nextafter(half, torch.tensor(
+                        2.0 if past > 0 else 0.0, dtype=dtype))
+                    pos[:, slot] = r[:, slot]
+                    pos[row, slot] = r[row, slot] + edge.cuda()
+                want = draws.rebuild_flag(pos.cpu(), r.cpu(), skin)
+                got = draws.rebuild_flag(pos, r, skin, out=out)
+                again = draws.rebuild_flag(pos, r, skin)
+                if not (bool(got) == bool(want) == bool(again)):
+                    failures.append(f"rebuild_flag {name} {dtype} slot "
+                                    f"{slot} row {row} past {past}")
+    # Timed on the bench's slots, f32, below skin/2.
+    shape = shapes["bench"]
     g = torch.Generator(device="cuda").manual_seed(4)
     ref = torch.rand(shape, device="cuda", generator=g) * 40.0
     drift = (torch.rand(shape, device="cuda", generator=g) - 0.5) * 0.08
-    out = torch.zeros((), dtype=torch.bool, device="cuda")
-    for dtype in (torch.float32, torch.float64):
-        for slot in (None, 0, shape[1] // 2, shape[1] - 1):
-            pos = (ref + drift).to(dtype)
-            if slot is not None:
-                pos[2, slot] += 0.25
-            r = ref.to(dtype)
-            want = draws.rebuild_flag(pos.cpu(), r.cpu(), 0.3)
-            got = draws.rebuild_flag(pos, r, 0.3, out=out)
-            again = draws.rebuild_flag(pos, r, 0.3)
-            if not (bool(got) == bool(want) == bool(again)
-                    == (slot is not None)):
-                failures.append(f"rebuild_flag {dtype} slot {slot}")
     pos, r = (ref + drift).contiguous(), ref.contiguous()
+    n = shape[0] * shape[1]
     d2 = ((pos - r) ** 2).sum(0) > 0.15 ** 2
     b = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+    out = torch.zeros((), dtype=torch.bool, device="cuda")
     results["rebuild_flag"] = {
         "max_abs_err": 0.0,
-        "ms": _replay_ms(lambda: draws.rebuild_flag(pos, r, 0.3, out=out)),
-        "plain_ms": call_ms(lambda: draws.rebuild_flag_plain(pos, r, 0.3)),
-        "bound_ms": b, "bound_by": "bytes",
-        "library_ms": _replay_ms(lambda: torch.any(d2)),
+        "ms": many_ms(lambda: draws.rebuild_flag(pos, r, skin, out=out)),
+        "plain_ms": call_ms(lambda: draws.rebuild_flag_plain(pos, r, skin)),
+        "bound_ms": b, "bound_by": "bytes", "bound_meetable_ms": max(b,
+                                                                     floor),
+        "library_ms": many_ms(lambda: torch.any(d2)),
         "library_call": "torch.any of the drift test's mask"}
+    results["velocity_finish"] = finish_check(mt, failures)
     for name, rec in results.items():
         log(json.dumps({"draws": name, **rec}))
     return results, failures
@@ -3452,14 +3652,6 @@ def _gamma_attempts(draws, seed, step, dof):
         if v > 0 and math.log(u) < 0.5 * x * x + d - d * v + d * math.log(v):
             return t + 1
     return draws.GAMMA_ATTEMPTS
-
-
-def _replay_ms(fn, reps=200):
-    """Device ms of one call of ``fn`` by CUDA-graph replay (the median of
-    five runs of ``reps`` replays)."""
-    graph = graph_of(fn)
-    return statistics.median(cuda_time_ms(graph.replay, reps, 2)
-                             for _ in range(5))
 
 
 def _recording_advance(graph):
@@ -3501,9 +3693,11 @@ def graph_paths(mt, workdir):
     steps) and the 2D path (600 NVT + 200 NVE), each from one start on the
     eager route and on the captured one (the default): positions,
     velocities, every thermo row and the rebuild steps equal bit for bit;
-    steps/s of both. Then one segment of the bench's slot advance on each
-    route through ``profile_torch_step.measure``: host ms, device busy ms,
-    the idle share, launches, graph launches and host reads a step."""
+    steps/s of both. Then one NVT and one NVE segment of the bench's slot
+    advance on each route through ``profile_torch_step.measure``: host ms,
+    device busy ms, the idle share, launches, graph launches and host reads
+    a step, and the nodes of each captured step (one for the drift test,
+    one for the velocity finish, no memset)."""
     from mdtpu_torch.integrate import slot_step
     from profile_torch_step import measure
 
@@ -3566,25 +3760,47 @@ def graph_paths(mt, workdir):
                      "steps_per_s_graph": g_rate}
         log(json.dumps({"graph_path": name, **rec[name]}))
 
-    # One segment of the bench's slot advance on each route, from the
-    # melted bench fluid in slots, in turns (eager, graph, graph, eager).
+    # One segment of the bench's slot advance on each route, NVT and then
+    # NVE (hi/lo, as run_simulation takes float32 NVE), from the melted
+    # bench fluid in slots, in turns (eager, graph, graph, eager), with the
+    # nodes of each captured step variant read from its graph.
     st = as_dtype(melted_state(mt), torch.float32)
     eng = mt.select_engine(lj, 2.5, st)
     slots = slot_step.slot_forces(slot_step.slotify(st, eng), eng)
-    profiles = {"eager": [], "graph": []}
-    for route in ("eager", "graph", "graph", "eager"):
-        advance = slot_step.make_slot_advance(
-            bench, mt.NVT(1.0, 0.4), eng,
-            graph=False if route == "eager" else None)
-        _, metrics = measure(advance, slots)
-        metrics.pop("top_device_kernels")
-        profiles[route].append(metrics)
-    for route, ms in profiles.items():
-        log(json.dumps({"graph_segment_profile": route, "turns": ms}))
-    if any(m["host_syncs_per_step"] for m in profiles["graph"]):
-        failures.append("graph: host reads inside a captured segment "
-                        f"{profiles['graph']}")
-    rec["segment_profile"] = profiles
+    rec["segment_profile"] = {}
+    for ens_name, ensemble, hilo in (("nvt", mt.NVT(1.0, 0.4), False),
+                                     ("nve", mt.NVE(), True)):
+        profiles = {"eager": [], "graph": []}
+        census = None
+        for route in ("eager", "graph", "graph", "eager"):
+            advance = slot_step.make_slot_advance(
+                bench, ensemble, eng, hilo=hilo,
+                graph=False if route == "eager" else None)
+            _, metrics = measure(advance, slots)
+            metrics.pop("top_device_kernels")
+            profiles[route].append(metrics)
+            if route == "graph":
+                census = advance.census
+        for route, ms in profiles.items():
+            log(json.dumps({"graph_segment_profile": route,
+                            "ensemble": ens_name, "turns": ms}))
+        log(json.dumps({"graph_step_nodes": ens_name, **census}))
+        if any(m["host_syncs_per_step"] for m in profiles["graph"]):
+            failures.append(f"graph {ens_name}: host reads inside a "
+                            f"captured segment {profiles['graph']}")
+        # One node each for the drift test (no memset, no kernel copying
+        # the flag into the handle) and the velocity finish; the rebuild
+        # in one conditional node.
+        for variant, nodes in census.items():
+            if (nodes["rebuild_flag"], nodes["velocity_finish"],
+                    nodes["bussi_draw"], nodes["memsets"],
+                    nodes["conditionals"], nodes["if_dependencies"],
+                    nodes["if_root_kernels"], nodes["unreadable"]) != (
+                        1, 1, 0, 0, 1, 1, 1, 0):
+                failures.append(f"graph {ens_name} {variant} step nodes: "
+                                f"{nodes}")
+        rec["segment_profile"][ens_name] = {"profiles": profiles,
+                                            "nodes": census}
     return rec, failures
 
 
@@ -3599,12 +3815,14 @@ def reset_counts():
     """Every kernel wrapper's launch counts and the slot step's count to
     0."""
     from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
     from mdtpu_torch.ops import philox_draws as draws
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
+    vf.velocity_finish.launches = 0
     cs.reset_launches()
     cp.reset_launches()
     draws.reset_launches()
@@ -3617,6 +3835,7 @@ def reset_counts():
 def launch_counts():
     """Each wrapper's launches (total and lean, periodic and slab) since
     the last :func:`reset_counts`."""
+    from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
@@ -3642,6 +3861,7 @@ def launch_counts():
         "nl_build": nl.nl_build.launches,
         "nl_forces": nl.nl_forces.launches,
         "bussi_draw": draws.bussi_draw.launches,
+        "velocity_finish": vf.velocity_finish.launches,
         "uniform_noise": draws.uniform_noise.launches,
         "rebuild_flag": draws.rebuild_flag.launches}
 
@@ -3669,7 +3889,9 @@ def own_launches(n):
         "rdf_histogram": n["rdf_histogram"] - n["rdf_histogram_cell"],
         "rdf_histogram_cell": n["rdf_histogram_cell"],
         "nl_build": n["nl_build"], "nl_forces": n["nl_forces"],
-        "bussi_draw": n["bussi_draw"], "uniform_noise": n["uniform_noise"],
+        "bussi_draw": n["bussi_draw"],
+        "velocity_finish": n["velocity_finish"],
+        "uniform_noise": n["uniform_noise"],
         "rebuild_flag": n["rebuild_flag"]}
 
 
@@ -3840,9 +4062,11 @@ def run_paths(mt, workdir):
             or bds["slot_steps"] != BROWNIAN_STEPS):
         failures.append(f"brownian_slot: launches {bds['launches']}, "
                         f"slot steps {bds['slot_steps']}")
-    # Every NVT step draws through bussi_draw, every Brownian step in slots
-    # through uniform_noise; every slot step tests the rebuild flag.
-    if (b1["launches"]["bussi_draw"] < NVT_STEPS
+    # Every MD step finishes through velocity_finish (its NVT steps draw
+    # there, none through bussi_draw), every Brownian step in slots draws
+    # through uniform_noise; every slot step tests the rebuild flag once.
+    if (b1["launches"]["velocity_finish"] < NVT_STEPS + 2 * NVE_STEPS
+            or b1["launches"]["bussi_draw"]
             or b1["launches"]["rebuild_flag"] < NVT_STEPS + 2 * NVE_STEPS
             or bds["launches"]["uniform_noise"] < BROWNIAN_STEPS
             or bds["launches"]["rebuild_flag"] < BROWNIAN_STEPS):
@@ -3933,7 +4157,8 @@ def main():
         paths, path_failures = run_paths(mt, workdir)
         failures += path_failures
         t = time.perf_counter()
-        failures += graph_paths(mt, workdir)[1]
+        graph_rec, graph_failures = graph_paths(mt, workdir)
+        failures += graph_failures
         log(f"graph phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
@@ -4125,21 +4350,38 @@ def main():
     kernels["kernels"].append(entry(
         "cell_pairs_slab", "mdtpu_torch/csrc/cell_pairs.cu", pallas_cell,
         by_path["sharded_user"]["cell_pairs_slab"], main_rec, extra))
-    # The slot advance's draws and rebuild test (XLA in the JAX package, no
-    # pl.pallas_call): Bussi's and the flag's launches on the B1 path, the
-    # noise's on the Brownian slot path.
-    for kname, path in (("bussi_draw", "b1"), ("uniform_noise",
-                                               "brownian_slot"),
+    # The slot advance's tail, noise and rebuild test (XLA in the JAX
+    # package, no pl.pallas_call): the tail's and the test's launches on the
+    # B1 path, the noise's on the Brownian slot path; each with the launch
+    # floor, and the tail's and the test's nodes in a captured bench step.
+    # bussi_draw, which the step no longer launches (velocity_finish draws
+    # in it), rides on the tail's entry.
+    nodes = graph_rec["segment_profile"]["nvt"]["nodes"]["lean"]
+    floor = draws_results["launch_floor"]["ms"]
+    for kname, path in (("velocity_finish", "b1"),
+                        ("uniform_noise", "brownian_slot"),
                         ("rebuild_flag", "b1")):
         rec = draws_results[kname]
+        extra = {k: v for k, v in rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        extra["launch_floor_ms"] = floor
+        if kname != "uniform_noise":
+            extra["nodes_in_captured_nvt_step"] = nodes[kname]
+        if kname == "velocity_finish":
+            extra["draw_kernel"] = dict(
+                draws_results["bussi_draw"], name="bussi_draw",
+                launches=by_path["b1"]["bussi_draw"],
+                replaces="mdtpu/integrate/thermostat.py:43")
         kernels["kernels"].append({
             **entry(kname, DRAWS_SOURCE, DRAWS_REPLACE[kname],
-                    by_path[path][kname], rec,
-                    {k: v for k, v in rec.items() if k not in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}),
+                    by_path[path][kname], rec, extra),
             "library_ms": rec["library_ms"],
             "covers": DRAWS_COVER[kname]})
+    log(json.dumps({"launch_floor_ms": floor, "calls_a_graph": MANY_CALLS,
+                    "graph_step_nodes": {
+                        e: r["nodes"] for e, r in
+                        graph_rec["segment_profile"].items()}}))
     log(json.dumps({"compute_slots_ms": {
         f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
         slab_results.items() if k.endswith("compute_slots")}}))

@@ -8,16 +8,20 @@ steps/s, both trees within one call.
 
 Each tree runs, in the order parent, change, change, parent, and each in
 processes of its own started in that tree (so each builds and loads its own
-kernels): its ``profile_torch_step.py --engine cellgrid`` (the cell grid in
-particle order), ``--engine plane`` (``PlaneEngine``) and ``--engine slot``
-(the slot advance ``run_simulation`` runs on the cell grid), then the
+kernels): this tree's ``profile_torch_step.py --tree <tree>`` (one script,
+so both trees are measured alike) with ``--engine cellgrid`` (the cell
+grid in particle order), ``--engine plane`` (``PlaneEngine``), ``--engine
+slot`` (the slot advance ``run_simulation`` runs on the cell grid, captured;
+an NVT and an NVE segment) and ``--engine slot --eager`` (the same launched
+step by step), then the
 ``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
 bench configuration, in slots and on ``PlaneEngine``) and the Brownian
 paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. The host's clock moves with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
-ms, launches and host reads per step, and each path's steps/s; then the
-card's name and power limit.
+ms, idle share, launches, host reads and the kernels and memsets the device
+ran per step (the NVE segment's under ``nve``), and each path's steps/s;
+then the card's name and power limit.
 """
 
 import argparse
@@ -29,9 +33,14 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_KEYS = ("ms_per_step_host_clock", "device_busy_ms_per_step",
-                "device_idle_share_profiled", "kernel_launches_per_step",
-                "host_syncs_per_step", "graph_launches_per_step")
-ENGINES = ("cellgrid", "plane", "slot")
+                "device_idle_share_profiled", "device_idle_share_timed",
+                "kernel_launches_per_step", "host_syncs_per_step",
+                "graph_launches_per_step", "device_kernels_per_step",
+                "device_memsets_per_step", "device_copies_per_step")
+ENGINES = {"cellgrid": ("--engine", "cellgrid"),
+           "plane": ("--engine", "plane"),
+           "slot": ("--engine", "slot"),
+           "slot_eager": ("--engine", "slot", "--eager")}
 
 
 def paths_worker(tree):
@@ -86,10 +95,14 @@ def main():
     for run, label in enumerate(("parent", "change", "change", "parent")):
         tree = trees[label]
         rec = {"tree": label, "run": run}
-        for engine in ENGINES:
-            prof = last_json([sys.executable, "profile_torch_step.py",
-                              "--engine", engine], tree)
+        for engine, flags in ENGINES.items():
+            prof = last_json([sys.executable,
+                              os.path.join(HERE, "profile_torch_step.py"),
+                              "--tree", tree, *flags], tree)
             rec[engine] = {k: prof.get(k) for k in PROFILE_KEYS}
+            if "nve" in prof:
+                rec[engine]["nve"] = {k: prof["nve"].get(k)
+                                      for k in PROFILE_KEYS}
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
                               "--paths-worker", tree], tree))
         print(json.dumps(rec), flush=True)

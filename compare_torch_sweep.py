@@ -50,6 +50,17 @@ this tree's launch on its plan, the cell route's binning included) and
 the whole call's time between two CUDA events, host included, the median
 of 5; for ``pair_reduce``: the kernels a full call launches, by the
 profiler); then the card's name and power limit.
+
+``--only draws`` compares the slot step's small kernels alone, each timed
+by a CUDA graph of 100 calls back to back (replayed 20 times, over the
+calls; the median of 5 rounds), where a graph of one call would time the
+host's replay: ``bussi_draw`` (f32, the bench's nf - 1), ``uniform_noise``
+and ``rebuild_flag`` on the bench's slots (3, 124,875) f32, and the
+velocity finish's tail as each tree's step runs it (``md_velocity_finish``
+on those slots: NVT with its target read from a device table at the step,
+and NVE; its kernels a call by the profiler), with the scale and the
+temperature; and, where the tree has ``philox_draws.empty``, the launch
+floor (an empty kernel timed the same way).
 """
 
 import argparse
@@ -60,6 +71,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+from types import SimpleNamespace
 
 import torch
 
@@ -235,6 +247,17 @@ def make_inputs(path):
         for t in v["inputs"]]) for k, v in cases.items()}, path)
 
 
+def make_draw_inputs(path):
+    """The draws' inputs: reference positions, a drift below skin/2 and
+    velocities on the bench's slots (3, 15^3 x 37), f32."""
+    g = torch.Generator().manual_seed(4)
+    shape = (3, 15 ** 3 * 37)
+    ref = torch.rand(shape, generator=g) * 40.0
+    drift = (torch.rand(shape, generator=g) - 0.5) * 0.08
+    v = torch.randn(shape, generator=g)
+    torch.save({"bench": {"kind": "draws", "inputs": [ref, drift, v]}}, path)
+
+
 PROBE_SPECS = ("full:45", "full:15", "full:5", "nodiv:45", "reduce_only:45")
 LIST_FIELDS = ("neighbour", "disp", "r2", "sigma_i", "sigma_j", "count",
                "start", "total")
@@ -286,6 +309,105 @@ def replay_ms(fn):
     return statistics.median(rounds)
 
 
+def many_ms(fn, calls=100):
+    """Device time of one call of ``fn`` (already called once): a CUDA
+    graph of ``calls`` calls replayed 20 times between two CUDA events,
+    over the calls; the median of 5 rounds."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    rounds = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        rounds.append(start.elapsed_time(stop) / 20 / calls)
+    return statistics.median(rounds)
+
+
+def kernels_of(fn):
+    """The kernels one call of ``fn`` runs on the device, by the profiler
+    (copies and memsets apart); a profile that saw nothing is taken
+    again."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return {"kernels": sum(not n.startswith(("Memcpy", "Memset"))
+                           for n in names),
+            "memsets": sum(n.startswith("Memset") for n in names)}
+
+
+def draw_runs(name, case):
+    """The slot step's small kernels and its velocity finish as this tree
+    has them, on the case's inputs."""
+    import mdtpu_torch as mt
+    from mdtpu_torch.integrate import step as tstep
+    from mdtpu_torch.ops import philox_draws as draws
+
+    ref, drift, v = (t.cuda() for t in case["inputs"])
+    pos = ref + drift
+    shape = tuple(v.shape)
+    step = torch.tensor(123456, device="cuda")
+    dof = 3.0 * (N - 1) - 1.0
+    out = {}
+
+    def record(kernel, fn, values):
+        out[f"{name} {kernel}"] = {"values": values, "ms": many_ms(fn),
+                                   **kernels_of(fn)}
+
+    record("bussi_draw",
+           lambda: draws.bussi_draw(0, step, dof, torch.float32),
+           draws.bussi_draw(0, step, dof, torch.float32).cpu())
+    record("uniform_noise",
+           lambda: draws.uniform_noise(3, step, shape, torch.float32),
+           draws.uniform_noise(3, step, shape, torch.float32).cpu())
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    record("rebuild_flag",
+           lambda: draws.rebuild_flag(pos, ref, 0.3, out=flag),
+           draws.rebuild_flag(pos, ref, 0.3, out=flag).cpu().reshape(1))
+    # The tail as the tree's slot step calls it: NVT's target from the
+    # advance's device table at the step (a TargetTable where the tree has
+    # one, else the 0-d target its advance read by index_select).
+    state = SimpleNamespace(step=step, seed=7, nf=3.0 * (N - 1))
+    vc = torch.zeros_like(v)
+    table = torch.linspace(1.4, 0.9, 1024, device="cuda")
+    base = torch.tensor(123000, device="cuda")
+    try:
+        from mdtpu_torch.integrate.velocity_finish import TargetTable
+
+        def target():
+            return TargetTable(table, base)
+    except ImportError:
+        def target():
+            return table.index_select(0, (step - base).reshape(1))[0]
+    for label, ens in (("nvt_tail", mt.NVT(1.0, 0.4)), ("nve_tail",
+                                                        mt.NVE())):
+        def tail(ens=ens):
+            return tstep.md_velocity_finish(
+                ens, v, vc, state, 0.002, True,
+                ktemp=target() if isinstance(ens, mt.NVT) else None)
+        vv, _, temp = tail()
+        scale = (vv.double().norm() / v.double().norm()).reshape(1)
+        record(label, tail, torch.cat([scale, temp.double().reshape(1)])
+               .cpu())
+    if hasattr(draws, "empty"):
+        out["launch_floor"] = {"ms": many_ms(lambda: draws.empty("cuda"))}
+    return out
+
+
 def worker(tree, inputs_path, out_path):
     sys.path.insert(0, tree)
     import mdtpu_torch as mt
@@ -301,7 +423,11 @@ def worker(tree, inputs_path, out_path):
                "hilo": {"cell_sweep_hilo": cell_sweep_hilo},
                "plane": {"plane_sweep": plane_sweep}}
     out = {}
-    for name, case in torch.load(inputs_path, weights_only=False).items():
+    cases = torch.load(inputs_path, weights_only=False)
+    for name, case in cases.items():
+        if case["kind"] == "draws":
+            out.update(draw_runs(name, case))
+            continue
         if case["kind"] in ("list", "list_hilo"):
             out.update(list_runs(name, case, pots["user"], pair_list,
                                  pair_sweep))
@@ -322,6 +448,9 @@ def worker(tree, inputs_path, out_path):
             out[f"{name} {kernel}"] = {
                 "energy": energy.cpu(), "virial": virial.cpu(),
                 "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
+    if all(c["kind"] == "draws" for c in cases.values()):
+        torch.save(out, out_path)
+        return
     w = probe.random_input(0, device="cuda")
     for spec in PROBE_SPECS:
         variant, chunk = probe.parse_variant(spec)
@@ -472,6 +601,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="directory of the other tree")
     parser.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
+    parser.add_argument("--only", choices=("draws",),
+                        help="compare the slot step's small kernels alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_torch_sweep: no CUDA device")
@@ -482,7 +613,7 @@ def main():
     sys.path.insert(0, HERE)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
-        make_inputs(inputs)
+        (make_draw_inputs if args.only == "draws" else make_inputs)(inputs)
         runs = []
         for i, tree in enumerate((args.parent, HERE, HERE, args.parent)):
             out = os.path.join(tmp, f"out{i}.pt")
@@ -491,7 +622,12 @@ def main():
                            check=True)
             runs.append(torch.load(out, weights_only=False))
     parent, change = (runs[0], runs[3]), (runs[1], runs[2])
+    if "launch_floor" in runs[1]:
+        print(json.dumps({"case": "launch_floor", "change_ms": [
+            r["launch_floor"]["ms"] for r in change]}), flush=True)
     for name in runs[0]:
+        if name == "launch_floor":
+            continue
         p, c = parent[0][name], change[0][name]
         p_ms = [r[name]["ms"] for r in parent]
         c_ms = [r[name]["ms"] for r in change]
@@ -499,6 +635,16 @@ def main():
                  "parent_over_change": statistics.mean(p_ms)
                  / statistics.mean(c_ms),
                  "change_faster_in_every_run": max(c_ms) < min(p_ms)}
+        if "values" in p:
+            print(json.dumps({
+                "case": name,
+                "values_equal": same_bits(p["values"], c["values"]),
+                **({"parent_values": p["values"].tolist(),
+                    "change_values": c["values"].tolist()}
+                   if p["values"].numel() <= 8 else {}),
+                **{f"{t}_{k}": r[k] for t, r in (("parent", p), ("change", c))
+                   for k in ("kernels", "memsets")}, **times}), flush=True)
+            continue
         if "counts" in p:
             print(json.dumps({
                 "case": name, "counts_equal": same_bits(p["counts"],

@@ -1,28 +1,59 @@
-// The slot step's random draws and its rebuild test, as kernels that read
-// the step from device memory, for NVIDIA Hopper (sm_90a); and the
-// conditional node through which a captured slot step rebins.
+// The slot step's random draws, its rebuild test and the velocity finish's
+// scalar tail, as kernels that read the step from device memory, for NVIDIA
+// Hopper (sm_90a); and the conditional node through which a captured slot
+// step rebins.
 //
 // The JAX package runs a whole segment of the slot loop as one device
 // program (mdtpu/integrate/slot_step.py:610-691 make_slot_advance): the
-// step counter, the draws and the rebuild decision never leave the device.
-// These kernels let the port do the same inside a CUDA graph that is
-// replayed once a step (mdtpu_torch/integrate/slot_step.py SlotAdvance):
+// step counter, the draws and the rebuild decision never leave the device,
+// and XLA fuses each step's scalar chains into its other work. These
+// kernels let the port do the same inside a CUDA graph that is replayed
+// once a step (mdtpu_torch/integrate/slot_step.py SlotAdvance), where every
+// launch is a graph node of its own and costs about as much as the small
+// work it does:
 //
-//   * bussi_draw ports mdtpu/integrate/thermostat.py:43-50 sum_noises and
-//     :59-61 (XLA's jax.random.normal and jax.random.gamma; no
-//     pl.pallas_call): Bussi's r1 ~ N(0, 1) and r2 = 2 Gamma((nf - 1)/2),
-//     chi-squared with nf - 1 degrees of freedom (0 where nf - 1 <= 0).
-//     One thread, in float64, cast to the state's dtype: r1 by Box-Muller
-//     (cos branch) from block 0; the gamma variate by Marsaglia and Tsang
-//     (2000), attempt t taking its normal from block 1 + 2t and its
-//     acceptance uniform from words 0-1 of block 2 + 2t; for a < 1 the
+//   * velocity_finish ports mdtpu/integrate/thermostat.py:52-67
+//     bussi_scale_from_kinetic with :31 compute_kinetic and :37-40
+//     compute_temperature (one XLA fusion there): from the velocities (or
+//     the kinetic energy already summed, the sharded route's) and the step
+//     counter, Bussi's rescale factor and the temperature after it (NVT),
+//     or the temperature alone (NVE), as the 0-d tensors a step needs. One
+//     launch where the torch composition took ~22 (the draw, the sum, each
+//     scalar operation, the target read from its table). The sum: each
+//     thread adds the squares of its values (grid-stride, in float64) in
+//     order, each block reduces its threads in a fixed tree of shuffles and
+//     stores one partial, and the block that draws the last integer ticket
+//     sums the partials in block order by the same tree and puts the ticket
+//     back to 0 (cell_pairs.cu's pair_reduce_kernel pattern: one partial
+//     array and one ticket per card, so two launches must not run at once on
+//     two streams). The grid depends on the count of values alone, so the
+//     sum repeats bit for bit (velocity_finish.kinetic_plain emulates it).
+//     A thread issues its loads eight at a time before it adds them. One
+//     more block, block 0, draws meanwhile, off the sum's path: warp 1 r1,
+//     warp 0 the 32 gamma attempts, one a lane, the first accepting one
+//     taken by a ballot (the attempt and the bits the sequential loop of
+//     bussi_draw takes, on a chain of one attempt). Then one thread of the
+//     last block follows the torch
+//     composition operation for operation (thermostat.py bussi_scale_from
+//     _kinetic, step.py md_velocity_finish, as PyTorch's CUDA kernels
+//     evaluate them: a tensor divided by a Python number is a product with
+//     its reciprocal, a Python number divided by a tensor the tensor's
+//     reciprocal times it, a Python number rounded to the tensor's dtype
+//     first), so given the same kinetic energy it equals the composition on
+//     the card bit for bit. Bound: the read of the velocities (bytes), and
+//     below a few microseconds the launch itself.
+//   * bussi_draw: the same draws by one thread in sequence (r1 by
+//     Box-Muller, cos branch, from block 0; the gamma variate by Marsaglia
+//     and Tsang (2000), attempt t taking its normal from block 1 + 2t and
+//     its acceptance uniform from words 0-1 of block 2 + 2t; for a < 1 the
 //     variate of a + 1 times u^(1/a), u from words 2-3 of the accepting
-//     block. At most kGammaAttempts attempts (each accepts with
-//     probability above 0.95; none accepting leaves d, the same in the
-//     plain version). Counter (block, step lo, step hi, 0), key the seed's
-//     two words. Bound: latency (one thread, a few hundred dependent
-//     operations); it replaces 196,604 normals and a sum a step at 65,536
-//     particles.
+//     block; at most kGammaAttempts attempts, none accepting leaving d).
+//     Ports thermostat.py:43-50 sum_noises and :59-61 (XLA's
+//     jax.random.normal and jax.random.gamma). No step launches it since
+//     velocity_finish draws in the step; thermostat.bussi_noise does, and
+//     the card's checks hold velocity_finish against the composition fed
+//     with its draws. Counter (block, step lo, step hi, 0), key the seed's
+//     two words.
 //   * uniform_noise ports mdtpu/integrate/step.py:110-119 brownian_noise
 //     (XLA's jax.random.uniform): the (d, S) variance-matched uniforms
 //     (2u - 1) sqrt(3), element e of the flattened array from block
@@ -33,25 +64,38 @@
 //     bit. Bound: the write of (d, S) values; a thread makes one block of
 //     words and stores it as one 16-byte vector.
 //   * rebuild_flag ports mdtpu/integrate/slot_step.py:460 slot_needs_rebin
-//     (the drift test): one pass over positions and ref_positions (d, S),
-//     d2 = sum_k (x_k - ref_k)^2 in component order, flag = any(d2 > (T)
-//     thr), written as one byte (a bool tensor, which the conditional node
-//     reads). Bound: the two (d, S) reads. A block ORs its threads' tests
-//     (__syncthreads_or) and one thread stores; the flag is zeroed by a
-//     memset first.
+//     (the drift test): d2 = sum_k (x_k - ref_k)^2 in component order over
+//     positions and ref_positions (d, S), flag = any(d2 > (T) thr). Bound:
+//     the two (d, S) reads. A thread takes 16 bytes of every row (4 float
+//     or 2 double slots; a row whose start is not 16-byte aligned, as S
+//     odd makes rows 1 and 2, is read as two aligned vectors and shifted),
+//     all its loads out before it tests, grid-stride over few blocks (one
+//     a multiprocessor at the bench's slots); a block ORs its threads' tests
+//     (__syncthreads_or) into one word, and the block that draws the last
+//     ticket writes the flag byte, puts the word and the ticket back to 0
+//     and, inside a captured step, sets the IF node's handle itself. One
+//     node a step, where a memset, the test and a kernel copying the byte
+//     into the handle took three.
 //   * philox_words: the generator's words for given counters and keys,
-//     for the known-answer checks on the card.
-//   * graph_if_begin / graph_if_end: an IF conditional node (CUDA 12.4+)
-//     in the graph being captured on a stream, for torch versions without
-//     CUDAGraph.begin_capture_to_if_node. A one-thread kernel node sets
-//     the node's handle from the flag byte at each replay; the caller then
-//     captures the body on a second stream into the node's child graph and
-//     ends that capture. The decision stays on the device.
+//     for the known-answer checks on the card. empty: a kernel that does
+//     nothing, whose time in a graph of many is the card's launch floor.
+//   * graph_if_handle / graph_if_begin / graph_if_end: an IF conditional
+//     node (CUDA 12.4+) in the graph being captured on a stream, for torch
+//     versions without CUDAGraph.begin_capture_to_if_node. The handle comes
+//     first, so the rebuild test captured next can set it; the caller then
+//     adds the node, captures the body on a second stream into the node's
+//     child graph and ends that capture. The decision stays on the device.
+//     capture_census counts the nodes of the graph being captured, by type
+//     and for this file's rebuild test and velocity finish.
 //
 // Built with -fmad=false, so every product and sum rounds as in the plain
-// PyTorch versions (mdtpu_torch/ops/philox_draws.py).
+// PyTorch versions (mdtpu_torch/ops/philox_draws.py,
+// mdtpu_torch/integrate/velocity_finish.py).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 #include "philox.cuh"
 
@@ -64,11 +108,17 @@ using mdtpu::philox::u53;
 
 constexpr int kErrArgs = -1;
 constexpr int kErrNotCapturing = -2;
-constexpr int kGammaAttempts = 32;
+constexpr int kGammaAttempts = 32;   // one a lane of a warp in velocity_finish
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
+constexpr int kTestMaxBlocks = 264;  // two a streaming multiprocessor
+constexpr int kFinishMaxBlocks = 256;
+constexpr int kFinishPerBlock = 2048;  // values a block sums below the cap
+constexpr int kFinishBatch = 8;       // loads a thread issues before adding
+constexpr int kDrawThreads = 64;     // the draw's two warps
 constexpr double kTwoPi = 6.283185307179586;  // 2 * math.pi
 constexpr double kSqrt3 = 1.7320508075688772;  // math.sqrt(3)
+constexpr unsigned kAll = 0xffffffffu;
 
 // A standard normal from one block of words: sqrt(-2 log u1) cos(2 pi u2),
 // u1 in (0, 1] from words 0-1, u2 in [0, 1) from words 2-3.
@@ -78,6 +128,33 @@ __device__ double box_muller(uint4 w) {
   return sqrt(-2.0 * log(u1)) * cos(kTwoPi * u2);
 }
 
+// Marsaglia and Tsang's constants for Gamma(dof / 2): a, d, c, and whether
+// a < 1 takes the variate of a + 1 times u^(1/a).
+struct GammaSetup {
+  double a, d, c;
+  bool boost;
+  __device__ explicit GammaSetup(double dof) {
+    a = 0.5 * dof;
+    boost = a < 1.0;
+    d = (boost ? a + 1.0 : a) - 1.0 / 3.0;
+    c = 1.0 / sqrt(9.0 * d);
+  }
+};
+
+// Attempt t of step s: whether it accepts, its variate d v and the boost's
+// uniform from words 2-3 of its uniform block.
+__device__ bool gamma_attempt(int t, int64_t s, uint2 key,
+                              const GammaSetup& p, double& g, double& ub) {
+  const double x = box_muller(philox4x32_10(counter(1 + 2 * t, s, 0), key));
+  const uint4 w = philox4x32_10(counter(2 + 2 * t, s, 0), key);
+  const double cx = 1.0 + p.c * x;
+  const double v = cx * cx * cx;
+  const double u = 1.0 - u53(w.x, w.y);
+  g = p.d * v;
+  ub = 1.0 - u53(w.z, w.w);
+  return v > 0.0 && log(u) < 0.5 * x * x + p.d - p.d * v + p.d * log(v);
+}
+
 template <typename T>
 __global__ void bussi_draw_kernel(const int64_t* step, uint2 key, double dof,
                                   T* out) {
@@ -85,25 +162,17 @@ __global__ void bussi_draw_kernel(const int64_t* step, uint2 key, double dof,
   const double r1 = box_muller(philox4x32_10(counter(0, s, 0), key));
   double r2 = 0.0;
   if (dof > 0.0) {
-    const double a = 0.5 * dof;
-    const bool boost = a < 1.0;
-    const double d = (boost ? a + 1.0 : a) - 1.0 / 3.0;
-    const double c = 1.0 / sqrt(9.0 * d);
-    double g = d, ub = 1.0;
+    const GammaSetup p(dof);
+    double g = p.d, ub = 1.0;
     for (int t = 0; t < kGammaAttempts; ++t) {
-      const double x =
-          box_muller(philox4x32_10(counter(1 + 2 * t, s, 0), key));
-      const uint4 w = philox4x32_10(counter(2 + 2 * t, s, 0), key);
-      const double cx = 1.0 + c * x;
-      const double v = cx * cx * cx;
-      const double u = 1.0 - u53(w.x, w.y);
-      if (v > 0.0 && log(u) < 0.5 * x * x + d - d * v + d * log(v)) {
-        g = d * v;
-        ub = 1.0 - u53(w.z, w.w);
+      double gt, ubt;
+      if (gamma_attempt(t, s, key, p, gt, ubt)) {
+        g = gt;
+        ub = ubt;
         break;
       }
     }
-    if (boost) g = g * pow(ub, 1.0 / a);
+    if (p.boost) g = g * pow(ub, 1.0 / p.a);
     r2 = 2.0 * g;
   }
   out[0] = static_cast<T>(r1);
@@ -153,21 +222,268 @@ __global__ void uniform_noise_f64_kernel(const int64_t* step, uint2 key,
   }
 }
 
+// ------------------------------------------------------------ rebuild test
+
+// 16 bytes of a row from p on: kWidth values. off is p's place, in values,
+// in its aligned 16-byte chunk (the same for a whole row, since a thread
+// starts at a multiple of kWidth); where it is not 0 the two chunks it
+// straddles (both hold values of the row) are read and shifted. Both loads
+// are issued whatever off is (the second at the first chunk again where
+// off is 0), so a thread's loads of every row go out before any is used.
 template <typename T>
-__global__ void rebuild_flag_kernel(const T* pos, const T* ref, int dim,
-                                    int64_t n, T thr, bool* flag) {
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int kWidth = 4;
+  __device__ static void load(const float* p, int off, float (&x)[4]) {
+    const float4* q = reinterpret_cast<const float4*>(p - off);
+    const float4 a = __ldg(q);
+    const float4 b = __ldg(q + (off != 0));
+    const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    switch (off) {
+      case 0: x[0] = w[0]; x[1] = w[1]; x[2] = w[2]; x[3] = w[3]; break;
+      case 1: x[0] = w[1]; x[1] = w[2]; x[2] = w[3]; x[3] = w[4]; break;
+      case 2: x[0] = w[2]; x[1] = w[3]; x[2] = w[4]; x[3] = w[5]; break;
+      default: x[0] = w[3]; x[1] = w[4]; x[2] = w[5]; x[3] = w[6]; break;
+    }
+  }
+};
+
+template <>
+struct Chunk<double> {
+  static constexpr int kWidth = 2;
+  __device__ static void load(const double* p, int off, double (&x)[2]) {
+    const double2* q = reinterpret_cast<const double2*>(p - off);
+    const double2 a = __ldg(q);
+    const double2 b = __ldg(q + (off != 0));
+    x[0] = off ? a.y : a.x;
+    x[1] = off ? b.x : a.y;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ int chunk_offset(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T)) %
+               Chunk<T>::kWidth);
+}
+
+// Blocks that tested past the threshold (nonzero) and blocks done with
+// the test, on this card (both 0 between launches).
+__device__ unsigned int g_test_any = 0;
+__device__ unsigned int g_test_ticket = 0;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    rebuild_flag_kernel(const T* __restrict__ pos, const T* __restrict__ ref,
+                        int64_t n, T thr, bool* flag,
+                        cudaGraphConditionalHandle handle, int set_handle) {
+  constexpr int V = Chunk<T>::kWidth;
+  const int64_t groups = n / V;
+  const int64_t first = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int off_p[D], off_r[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    off_p[k] = chunk_offset(pos + k * n);
+    off_r[k] = chunk_offset(ref + k * n);
+  }
   bool any = false;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  for (int64_t g = first; g < groups; g += stride) {
+    const int64_t i0 = g * V;
+    T x[D][V], r[D][V];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      Chunk<T>::load(pos + k * n + i0, off_p[k], x[k]);
+      Chunk<T>::load(ref + k * n + i0, off_r[k], r[k]);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      T dk = x[0][j] - r[0][j];
+      T d2 = dk * dk;
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        dk = x[k][j] - r[k][j];
+        d2 = d2 + dk * dk;
+      }
+      any = any || d2 > thr;
+    }
+  }
+  // The last n % V slots, a thread each.
+  for (int64_t i = groups * V + first; i < n; i += stride) {
     T dk = pos[i] - ref[i];
     T d2 = dk * dk;
-    for (int k = 1; k < dim; ++k) {
+#pragma unroll
+    for (int k = 1; k < D; ++k) {
       dk = pos[k * n + i] - ref[k * n + i];
       d2 = d2 + dk * dk;
     }
     any = any || d2 > thr;
   }
-  if (__syncthreads_or(any) && threadIdx.x == 0) *flag = true;
+  any = __syncthreads_or(any);
+  if (threadIdx.x != 0) return;
+  if (any) atomicOr(&g_test_any, 1u);
+  __threadfence();  // the OR is visible before the ticket
+  if (atomicAdd(&g_test_ticket, 1u) != gridDim.x - 1) return;
+  __threadfence();
+  const bool hit = atomicExch(&g_test_any, 0u) != 0u;
+  g_test_ticket = 0;
+  *flag = hit;
+  if (set_handle) cudaGraphSetConditional(handle, hit ? 1u : 0u);
+}
+
+// --------------------------------------------------------- velocity finish
+
+// The summing variant's block partials, its ticket, and the draws block 0
+// hands to the block that finishes (r1, r2), on this card.
+__device__ unsigned int g_finish_ticket = 0;
+__device__ double g_finish_partial[kFinishMaxBlocks];
+__device__ double g_finish_draws[2];
+
+// The block's sum of a in a fixed order, in thread 0: a tree of shuffles
+// within each warp, then the warps' sums by the same tree in warp 0 (the
+// lanes past the warps adding 0). Every thread of the block calls it.
+__device__ double block_sum(double a, double (&warp_sums)[kThreads / 32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(kAll, a, off);
+  if (lane == 0) warp_sums[warp] = a;
+  __syncthreads();
+  if (warp != 0) return a;
+  a = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(kAll, a, off);
+  return a;
+}
+
+// Warps 0 and 1 of a block (all their lanes): Bussi's r1 (warp 1) and r2
+// (warp 0: attempt t on lane t, the first accepting one by a ballot),
+// each stored to g_finish_draws by one lane and fenced.
+__device__ void bussi_draws_two_warps(int64_t s, uint2 key, double dof) {
+  static_assert(kGammaAttempts == 32, "one gamma attempt a lane");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 1) {
+    if (lane == 0) {
+      g_finish_draws[0] =
+          box_muller(philox4x32_10(counter(0, s, 0), key));
+      __threadfence();
+    }
+    return;
+  }
+  double r2 = 0.0;
+  if (dof > 0.0) {
+    const GammaSetup p(dof);
+    double g, ub;
+    const bool ok = gamma_attempt(lane, s, key, p, g, ub);
+    const unsigned hits = __ballot_sync(kAll, ok);
+    const int at = hits ? __ffs(hits) - 1 : 0;
+    g = __shfl_sync(kAll, g, at);
+    ub = __shfl_sync(kAll, ub, at);
+    if (!hits) {
+      g = p.d;
+      ub = 1.0;
+    }
+    if (p.boost) g = g * pow(ub, 1.0 / p.a);
+    r2 = 2.0 * g;
+  }
+  if (lane == 0) {
+    g_finish_draws[1] = r2;
+    __threadfence();
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T sqrt_t(T x);
+template <>
+__device__ __forceinline__ float sqrt_t<float>(float x) { return sqrtf(x); }
+template <>
+__device__ __forceinline__ double sqrt_t<double>(double x) { return sqrt(x); }
+
+// out = (scale, temperature). NVT: Bussi's factor and the temperature
+// after it; NVE: (1, the temperature). SUM: the kinetic energy from the n
+// values of v, summed by finish_blocks(n) blocks of kThreads (with NVT one
+// more block, block 0, draws meanwhile: the summing block b is block b + 1);
+// else from *kinetic (one block of kDrawThreads, which draws first). KT:
+// NVT's target is ktemp[step - *base] (ktemp[0] without a base) and numer
+// is 1 - term1; else numer is (1 - term1) times the target, a host number.
+template <typename T, bool NVT, bool SUM, bool KT>
+__global__ void __launch_bounds__(kThreads)
+    velocity_finish_kernel(const T* __restrict__ v, int64_t n,
+                           const T* kinetic, const int64_t* step_ptr,
+                           int64_t step_value, const T* ktemp,
+                           const int64_t* base, double numer, double term1,
+                           double nf, uint2 key, T* out) {
+  __shared__ double warp_sums[kThreads / 32];
+  __shared__ bool last;
+  const int64_t s = step_ptr ? *step_ptr : step_value;
+  const bool draws = NVT && blockIdx.x == 0;
+  if (draws && threadIdx.x < kDrawThreads)
+    bussi_draws_two_warps(s, key, nf - 1.0);
+  T k;
+  if (SUM) {
+    const int sum_blocks = NVT ? gridDim.x - 1 : gridDim.x;
+    double acc = 0.0;
+    if (!draws) {
+      // Thread t of summing block b adds v[b T + t + j G T] for j = 0, 1,
+      // ... in order, kFinishBatch loads out before their adds (a value
+      // past n adds 0).
+      const int64_t stride = (int64_t)sum_blocks * blockDim.x;
+      for (int64_t i0 = (blockIdx.x - (NVT ? 1 : 0)) * (int64_t)blockDim.x +
+                        threadIdx.x;
+           i0 < n; i0 += kFinishBatch * stride) {
+        double x[kFinishBatch];
+#pragma unroll
+        for (int j = 0; j < kFinishBatch; ++j) {
+          const int64_t i = i0 + j * stride;
+          x[j] = i < n ? static_cast<double>(v[i]) : 0.0;
+        }
+#pragma unroll
+        for (int j = 0; j < kFinishBatch; ++j) acc = acc + x[j] * x[j];
+      }
+    }
+    acc = block_sum(acc, warp_sums);
+    if (threadIdx.x == 0) {
+      if (!draws) g_finish_partial[blockIdx.x - (NVT ? 1 : 0)] = acc;
+      __threadfence();  // the partial (or the draws) before the ticket
+      last = atomicAdd(&g_finish_ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    acc = (int)threadIdx.x < sum_blocks
+              ? __ldcg(g_finish_partial + threadIdx.x) : 0.0;
+    acc = block_sum(acc, warp_sums);
+    if (threadIdx.x != 0) return;
+    g_finish_ticket = 0;
+    k = static_cast<T>(0.5 * acc);
+  } else {
+    __syncthreads();  // the draws of this block's two warps
+    if (threadIdx.x != 0) return;
+    k = *kinetic;
+  }
+  // The torch composition, operation for operation.
+  const T inv_nf = T(1) / static_cast<T>(nf);
+  const T current = (k * T(2)) * inv_nf;
+  if (!NVT) {
+    out[0] = T(1);
+    out[1] = current;
+    return;
+  }
+  const T r1 = static_cast<T>(__ldcg(g_finish_draws));
+  const T r2 = static_cast<T>(__ldcg(g_finish_draws + 1));
+  const T den = current * static_cast<T>(nf);
+  T c2;
+  if (KT) {
+    const T target = ktemp[base ? s - *base : 0];
+    c2 = (target * static_cast<T>(numer)) / den;
+  } else {
+    c2 = (T(1) / den) * static_cast<T>(numer);
+  }
+  const T term2 = c2 * (r2 + r1 * r1);
+  const T term3 = (r1 * T(2)) * sqrt_t(c2 * static_cast<T>(term1));
+  const T scale = sqrt_t((term2 + static_cast<T>(term1)) + term3);
+  out[0] = scale;
+  out[1] = (((scale * scale) * T(2)) * k) * inv_nf;
 }
 
 __global__ void philox_words_kernel(const uint4* ctr, const uint2* key,
@@ -177,14 +493,17 @@ __global__ void philox_words_kernel(const uint4* ctr, const uint2* key,
     out[i] = philox4x32_10(ctr[i], key[i]);
 }
 
-__global__ void set_if_kernel(cudaGraphConditionalHandle handle,
-                              const bool* flag) {
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+__global__ void empty_kernel() {}
+
+int grid_for(int64_t items, int cap = kMaxBlocks) {
+  const int64_t blocks = (items + kThreads - 1) / kThreads;
+  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
-int grid_for(int64_t items) {
-  const int64_t blocks = (items + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1) : kMaxBlocks);
+int finish_blocks(int64_t n) {
+  const int64_t blocks = (n + kFinishPerBlock - 1) / kFinishPerBlock;
+  return (int)(blocks < kFinishMaxBlocks ? (blocks > 0 ? blocks : 1)
+                                         : kFinishMaxBlocks);
 }
 
 template <typename T>
@@ -198,15 +517,87 @@ int bussi_draw(const int64_t* step, unsigned k0, unsigned k1, double dof,
 
 template <typename T>
 int rebuild_flag(const T* pos, const T* ref, int dim, long long n,
-                 double thr, bool* flag, void* stream) {
-  if (!pos || !ref || !flag || dim < 1 || dim > 3 || n < 0) return kErrArgs;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(flag, 0, 1, s);
-  if (rc) return (int)rc;
-  if (n == 0) return 0;
-  rebuild_flag_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-      pos, ref, dim, (int64_t)n, static_cast<T>(thr), flag);
+                 double thr, bool* flag, unsigned long long handle,
+                 int set_handle, void* stream) {
+  if (!pos || !ref || !flag || dim < 2 || dim > 3 || n < 0 ||
+      reinterpret_cast<uintptr_t>(pos) % sizeof(T) ||
+      reinterpret_cast<uintptr_t>(ref) % sizeof(T))
+    return kErrArgs;
+  const int grid = grid_for(n / Chunk<T>::kWidth, kTestMaxBlocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaGraphConditionalHandle h =
+      static_cast<cudaGraphConditionalHandle>(handle);
+  const T t = static_cast<T>(thr);
+  if (dim == 2)
+    rebuild_flag_kernel<T, 2><<<grid, kThreads, 0, s>>>(pos, ref, (int64_t)n,
+                                                         t, flag, h,
+                                                         set_handle);
+  else
+    rebuild_flag_kernel<T, 3><<<grid, kThreads, 0, s>>>(pos, ref, (int64_t)n,
+                                                         t, flag, h,
+                                                         set_handle);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool NVT, bool SUM>
+void launch_finish(bool kt, dim3 grid, dim3 block, cudaStream_t s,
+                   const T* v, int64_t n, const T* kinetic,
+                   const int64_t* step, int64_t step_value, const T* ktemp,
+                   const int64_t* base, double numer, double term1,
+                   double nf, uint2 key, T* out) {
+  if (kt)
+    velocity_finish_kernel<T, NVT, SUM, true><<<grid, block, 0, s>>>(
+        v, n, kinetic, step, step_value, ktemp, base, numer, term1, nf, key,
+        out);
+  else
+    velocity_finish_kernel<T, NVT, SUM, false><<<grid, block, 0, s>>>(
+        v, n, kinetic, step, step_value, ktemp, base, numer, term1, nf, key,
+        out);
+}
+
+template <typename T>
+int velocity_finish(const T* v, long long n, const T* kinetic,
+                    const int64_t* step, long long step_value,
+                    const T* ktemp, const int64_t* base, double numer,
+                    double term1, double nf, unsigned k0, unsigned k1,
+                    int nvt, T* out, void* stream) {
+  const bool sum = v != nullptr;
+  if (!out || n < 0 || (!sum && !kinetic) || !(nf > 0.0) ||
+      (base && !ktemp))
+    return kErrArgs;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(sum ? finish_blocks(n) + (nvt ? 1 : 0) : 1);
+  const dim3 block(sum ? kThreads : kDrawThreads);
+  const uint2 key = make_uint2(k0, k1);
+  const bool kt = ktemp != nullptr;
+  if (nvt && sum)
+    launch_finish<T, true, true>(kt, grid, block, s, v, n, kinetic, step,
+                                 step_value, ktemp, base, numer, term1, nf,
+                                 key, out);
+  else if (nvt)
+    launch_finish<T, true, false>(kt, grid, block, s, v, n, kinetic, step,
+                                  step_value, ktemp, base, numer, term1, nf,
+                                  key, out);
+  else if (sum)
+    launch_finish<T, false, true>(false, grid, block, s, v, n, kinetic,
+                                  step, step_value, ktemp, base, numer,
+                                  term1, nf, key, out);
+  else
+    launch_finish<T, false, false>(false, grid, block, s, v, n, kinetic,
+                                   step, step_value, ktemp, base, numer,
+                                   term1, nf, key, out);
+  return (int)cudaGetLastError();
+}
+
+// The graph being captured on s and its current dependencies; 0, a CUDA
+// error, or kErrNotCapturing.
+int capturing_graph(cudaStream_t s, cudaGraph_t* graph,
+                    const cudaGraphNode_t** deps, size_t* n_deps) {
+  cudaStreamCaptureStatus status;
+  const cudaError_t rc =
+      cudaStreamGetCaptureInfo(s, &status, nullptr, graph, deps, n_deps);
+  if (rc) return (int)rc;
+  return status == cudaStreamCaptureStatusActive ? 0 : kErrNotCapturing;
 }
 
 }  // namespace
@@ -250,17 +641,52 @@ int mdtpu_uniform_noise_f64(const int64_t* step, unsigned k0, unsigned k1,
   return (int)cudaGetLastError();
 }
 
-// pos, ref: (dim, n) row-major on the device; flag: one bool on the device.
+// pos, ref: (dim, n) row-major on the device, dim 2 or 3; flag: one bool on the
+// device, written by every launch; handle: an IF node's (set_handle 1),
+// set from the same test, inside the graph that holds the node.
 int mdtpu_rebuild_flag_f32(const float* pos, const float* ref, int dim,
                            long long n, double thr, bool* flag,
+                           unsigned long long handle, int set_handle,
                            void* stream) {
-  return rebuild_flag<float>(pos, ref, dim, n, thr, flag, stream);
+  return rebuild_flag<float>(pos, ref, dim, n, thr, flag, handle, set_handle,
+                             stream);
 }
 
 int mdtpu_rebuild_flag_f64(const double* pos, const double* ref, int dim,
                            long long n, double thr, bool* flag,
+                           unsigned long long handle, int set_handle,
                            void* stream) {
-  return rebuild_flag<double>(pos, ref, dim, n, thr, flag, stream);
+  return rebuild_flag<double>(pos, ref, dim, n, thr, flag, handle,
+                              set_handle, stream);
+}
+
+// v: n velocities on the device (the kinetic sum in the kernel), or null
+// and kinetic one value on the device; step: one int64 on the device, or
+// null and step_value; ktemp: NVT's target table on the device, read at
+// step - *base (base null: ktemp[0]), or null and numer = (1 - term1) *
+// the target (else numer = 1 - term1); term1 = exp(-dt / tau); nvt 0: the
+// temperature alone. out: (2,) on the device, scale then temperature.
+int mdtpu_velocity_finish_f32(const float* v, long long n,
+                              const float* kinetic, const int64_t* step,
+                              long long step_value, const float* ktemp,
+                              const int64_t* base, double numer,
+                              double term1, double nf, unsigned k0,
+                              unsigned k1, int nvt, float* out,
+                              void* stream) {
+  return velocity_finish<float>(v, n, kinetic, step, step_value, ktemp, base,
+                                numer, term1, nf, k0, k1, nvt, out, stream);
+}
+
+int mdtpu_velocity_finish_f64(const double* v, long long n,
+                              const double* kinetic, const int64_t* step,
+                              long long step_value, const double* ktemp,
+                              const int64_t* base, double numer,
+                              double term1, double nf, unsigned k0,
+                              unsigned k1, int nvt, double* out,
+                              void* stream) {
+  return velocity_finish<double>(v, n, kinetic, step, step_value, ktemp,
+                                 base, numer, term1, nf, k0, k1, nvt, out,
+                                 stream);
 }
 
 // The generator's own words, for its known-answer checks: ctr (n, 4) and
@@ -276,34 +702,47 @@ int mdtpu_philox_words(const void* ctr, const void* key, void* out,
   return (int)cudaGetLastError();
 }
 
-// stream: capturing; flag: one bool on the device; body_stream: idle. On
-// success body_stream captures into the IF node's body until
-// mdtpu_graph_if_end.
-int mdtpu_graph_if_begin(void* stream, const bool* flag, void* body_stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaStreamCaptureStatus status;
+// A kernel that does nothing (one block of one warp): the launch floor.
+int mdtpu_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
+// stream: capturing. A conditional handle of the graph being captured,
+// for the kernel captured next that sets it and the IF node
+// mdtpu_graph_if_begin adds.
+int mdtpu_graph_if_handle(void* stream, unsigned long long* handle) {
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
   size_t n_deps;
-  cudaError_t rc =
-      cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
+  const int err = capturing_graph(static_cast<cudaStream_t>(stream), &graph,
+                                  &deps, &n_deps);
+  if (err) return err;
+  cudaGraphConditionalHandle h;
+  const cudaError_t rc = cudaGraphConditionalHandleCreate(&h, graph, 0, 0);
   if (rc) return (int)rc;
-  if (status != cudaStreamCaptureStatusActive) return kErrNotCapturing;
-  cudaGraphConditionalHandle handle;
-  rc = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
-  if (rc) return (int)rc;
-  set_if_kernel<<<1, 1, 0, s>>>(handle, flag);
-  rc = cudaGetLastError();
-  if (rc) return (int)rc;
-  rc = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
-  if (rc) return (int)rc;
+  *handle = static_cast<unsigned long long>(h);
+  return 0;
+}
+
+// stream: capturing; handle: from mdtpu_graph_if_handle; body_stream:
+// idle. On success body_stream captures into the IF node's body until
+// mdtpu_graph_if_end.
+int mdtpu_graph_if_begin(void* stream, unsigned long long handle,
+                         void* body_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  const int err = capturing_graph(s, &graph, &deps, &n_deps);
+  if (err) return err;
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
-  params.conditional.handle = handle;
+  params.conditional.handle = static_cast<cudaGraphConditionalHandle>(handle);
   params.conditional.type = cudaGraphCondTypeIf;
   params.conditional.size = 1;
   cudaGraphNode_t node;
-  rc = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
+  cudaError_t rc = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
   if (rc) return (int)rc;
   rc = cudaStreamUpdateCaptureDependencies(s, &node, 1,
                                            cudaStreamSetCaptureDependencies);
@@ -317,6 +756,92 @@ int mdtpu_graph_if_end(void* body_stream) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream),
                                    &body);
+}
+
+// stream: capturing. out[10]: the top-level nodes of the graph being
+// captured: all, kernels, copies, memsets, conditionals, others; of the
+// conditional nodes' dependencies, how many there are and how many are
+// kernel nodes that depend on nothing (-1 where the edges could not be
+// read); the nodes whose type could not be read; and the error code of
+// the Graphviz dump. Types come from the driver (this library's runtime
+// does not name a conditional node's type), edges from the runtime.
+// dot_path: where not null, the graph with its conditional bodies in
+// Graphviz form, kernel names included (cudaGraphDebugDotPrint: the driver
+// names every kernel, this library's and others'). A node or a dump it
+// cannot read is counted, never an error.
+int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
+  typedef CUresult (*TypeFn)(CUgraphNode, CUgraphNodeType*);
+  void* type_fn = nullptr;
+  cudaError_t rc = cudaGetDriverEntryPoint("cuGraphNodeGetType", &type_fn,
+                                           cudaEnableDefault);
+  if (rc) return (int)rc;
+  if (!type_fn) return kErrArgs;
+  const TypeFn node_type = reinterpret_cast<TypeFn>(type_fn);
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  const int err = capturing_graph(static_cast<cudaStream_t>(stream), &graph,
+                                  &deps, &n_deps);
+  if (err) return err;
+  size_t n = 0;
+  rc = cudaGraphGetNodes(graph, nullptr, &n);
+  if (rc) return (int)rc;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n) {
+    rc = cudaGraphGetNodes(graph, nodes.data(), &n);
+    if (rc) return (int)rc;
+  }
+  for (int i = 0; i < 10; ++i) out[i] = 0;
+  out[0] = (long long)n;
+  std::vector<int> kind(n, -1);
+  for (size_t i = 0; i < n; ++i) {
+    CUgraphNodeType type;
+    if (node_type(nodes[i], &type) != CUDA_SUCCESS) {
+      ++out[8];
+      continue;
+    }
+    kind[i] = (int)type;
+    switch (type) {
+      case CU_GRAPH_NODE_TYPE_KERNEL: ++out[1]; break;
+      case CU_GRAPH_NODE_TYPE_MEMCPY: ++out[2]; break;
+      case CU_GRAPH_NODE_TYPE_MEMSET: ++out[3]; break;
+      case CU_GRAPH_NODE_TYPE_CONDITIONAL: ++out[4]; break;
+      default: ++out[5]; break;
+    }
+  }
+  size_t ne = 0;
+  std::vector<cudaGraphNode_t> from, to;
+  rc = cudaGraphGetEdges(graph, nullptr, nullptr, &ne);
+  if (!rc && ne) {
+    from.resize(ne);
+    to.resize(ne);
+    rc = cudaGraphGetEdges(graph, from.data(), to.data(), &ne);
+  }
+  if (rc) {
+    cudaGetLastError();
+    out[6] = out[7] = -1;
+  } else {
+    auto index = [&](cudaGraphNode_t x) {
+      for (size_t i = 0; i < n; ++i)
+        if (nodes[i] == x) return (long long)i;
+      return -1LL;
+    };
+    for (size_t e = 0; e < ne; ++e) {
+      const long long t = index(to[e]), f = index(from[e]);
+      if (t < 0 || kind[t] != CU_GRAPH_NODE_TYPE_CONDITIONAL) continue;
+      ++out[6];
+      if (f < 0 || kind[f] != CU_GRAPH_NODE_TYPE_KERNEL) continue;
+      bool root = true;
+      for (size_t e2 = 0; e2 < ne; ++e2) root = root && to[e2] != from[e];
+      if (root) ++out[7];
+    }
+  }
+  if (dot_path) {
+    out[9] = cudaGraphDebugDotPrint(graph, dot_path,
+                                    cudaGraphDebugDotFlagsKernelNodeParams);
+    if (out[9]) cudaGetLastError();
+  }
+  return 0;
 }
 
 const char* mdtpu_philox_draws_error_string(int code) {

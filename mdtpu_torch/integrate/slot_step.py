@@ -55,6 +55,7 @@ from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationSta
 from mdtpu_torch.integrate import step as _step
 from mdtpu_torch.integrate.step import (_add, brownian_virial_sample,
                                         md_velocity_finish)
+from mdtpu_torch.integrate.velocity_finish import TargetTable
 from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
 from mdtpu_torch.potentials.base import rounded
@@ -483,17 +484,20 @@ def _clone(state: SimulationState, step=None) -> SimulationState:
                             for n in _STATE_TENSORS if n != "step"})
 
 
-def device_if(flag, body, pool=None):
-    """Run ``body()`` where the 0-d bool tensor ``flag`` is set: the slot
-    advance's rebuild decision. Under a CUDA-graph capture ``body`` is
-    captured into an IF node of the graph (its allocations from ``pool``,
-    a ``torch.cuda.MemPool`` kept with the graph), and the card decides at
-    every replay; eagerly the flag is read on the host, the segment's one
-    host read a step (free on the CPU)."""
+def device_if(flag, test, body, pool=None):
+    """Run ``body()`` where ``test(handle)`` sets the 0-d bool tensor
+    ``flag``: the slot advance's rebuild decision. Under a CUDA-graph
+    capture the test is captured with an IF node's handle, which its kernel
+    sets, and ``body`` into that node (its allocations from ``pool``, a
+    ``torch.cuda.MemPool`` kept with the graph): the card decides at every
+    replay. Eagerly ``test(None)`` runs and the flag is read on the host,
+    the segment's one host read a step (free on the CPU)."""
     if flag.is_cuda and torch.cuda.is_current_stream_capturing():
-        with philox_draws.graph_if(flag, pool):
+        with philox_draws.graph_if(test, flag.device, pool):
             body()
-    elif bool(flag):
+        return
+    test(None)
+    if bool(flag):
         body()
 
 
@@ -504,20 +508,23 @@ class SlotAdvance:
 
     The state is copied into buffers that the advance keeps (its tensors
     and its binning's, the step as a 0-d int64 counter), and each step
-    reads them and writes its results back in place: a rebuild where the
-    flag is set (:func:`device_if` around :func:`_rebin`), the step
-    (``ktemp`` of NVT from a device table that the host fills for the
-    segment in one copy, indexed by the counter), then the flag for the
-    next step (:func:`philox_draws.rebuild_flag`). The state returned is a
-    copy of the buffers, its step the host int ``state.step + k``.
+    reads them and writes its results back in place: the drift test
+    (:func:`philox_draws.rebuild_flag`) and a rebuild where it is set
+    (:func:`device_if` around :func:`_rebin`), then the step (NVT's target
+    from a device table that the host fills for the segment in one copy,
+    read at the counter by the velocity finish's kernel). The state
+    returned is a copy of the buffers, its step the host int ``state.step
+    + k``.
 
     ``graph``: on the card each step variant (lean, and the segment's full
     last step) is captured once into a CUDA graph with the rebuild in a
-    conditional node, and a segment of ``k`` steps is ``k`` graph launches
-    and no host read. Eagerly the same code runs step by step, the flag
-    read on the host. The launch counters count each replay
-    (:mod:`mdtpu_torch.utils.counters`). A capture or a launch that fails
-    raises; nothing falls back to the eager loop."""
+    conditional node whose handle the test's kernel sets, and a segment of
+    ``k`` steps is ``k`` graph launches and no host read; ``census[name]``
+    holds each variant's nodes, read from the graph at its capture
+    (:func:`philox_draws.capture_census`). Eagerly the same code runs step
+    by step, the flag read on the host. The launch counters count each
+    replay (:mod:`mdtpu_torch.utils.counters`). A capture or a launch that
+    fails raises; nothing falls back to the eager loop."""
 
     def __init__(self, step, last_step, engine, ensemble, lean, graph):
         self.step_fn, self.last_fn = step, last_step
@@ -525,7 +532,7 @@ class SlotAdvance:
         self.schedule = (ensemble.ktemp if isinstance(ensemble, NVT)
                          else None)
         self.bufs = self.table = None
-        self.graphs = {}
+        self.graphs, self.census = {}, {}
         self._pool = None
 
     # -- buffers and segment inputs --------------------------------------
@@ -575,10 +582,9 @@ class SlotAdvance:
         else:
             self.table[:k].copy_(values)
 
-    def _ktemp(self, b):
-        if self.table is None:
-            return None
-        return self.table.index_select(0, (b.step - self.base).reshape(1))[0]
+    def _target(self):
+        return None if self.table is None else TargetTable(self.table,
+                                                           self.base)
 
     # -- one step on the buffers -----------------------------------------
 
@@ -589,12 +595,16 @@ class SlotAdvance:
         self.rebuilt_at.index_copy_(0, slot, b.step.reshape(1))
         self.rebuilds.add_(1)
 
+    def _test(self, handle):
+        b = self.bufs
+        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                  self.engine.skin, out=self.flag,
+                                  handle=handle)
+
     def _one(self, step_fn):
         b = self.bufs
-        device_if(self.flag, self._rebuild, self._pool)
-        _copy_into(b, step_fn(b, self._ktemp(b)))
-        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
-                                  self.engine.skin, out=self.flag)
+        device_if(self.flag, self._test, self._rebuild, self._pool)
+        _copy_into(b, step_fn(b, self._target()))
 
     # -- graphs ----------------------------------------------------------
 
@@ -611,10 +621,10 @@ class SlotAdvance:
         side = torch.cuda.Stream(b.device)
         side.wait_stream(torch.cuda.current_stream(b.device))
         with torch.cuda.stream(side):
-            _copy_into(b, _rebin(b, self.engine))
-            _copy_into(b, step_fn(b, self._ktemp(b)))
             philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
                                       self.engine.skin, out=flag)
+            _copy_into(b, _rebin(b, self.engine))
+            _copy_into(b, step_fn(b, self._target()))
         torch.cuda.current_stream(b.device).wait_stream(side)
         del b
         warm = counters.snapshot()
@@ -623,6 +633,8 @@ class SlotAdvance:
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._one(step_fn)
+                self.census[name] = philox_draws.capture_census(
+                    self.bufs.device)
         finally:
             self._pool = None
         delta = counters.difference(counters.snapshot(), warm)
@@ -662,8 +674,6 @@ class SlotAdvance:
         self._load(state)
         self._fill_table(base, k)
         b = self.bufs
-        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
-                                  self.engine.skin, out=self.flag)
         if self.lean:
             self._run("lean", self.step_fn, k - 1)
             self._run("last", self.last_fn, 1)

@@ -22,6 +22,7 @@ import torch
 from mdtpu_torch.core.box import wrap_positions, wrap_positions_compensated
 from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationState
 from mdtpu_torch.integrate import thermostat
+from mdtpu_torch.integrate.velocity_finish import velocity_finish
 from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils.math import kahan_add
@@ -73,24 +74,28 @@ def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
     shard ring, over which the kinetic energy is summed (one all-reduce a
     step); Bussi's draws are the same on every rank. ``state.step`` is a
     host int or a 0-d int64 device tensor; ``ktemp``: NVT's target for
-    this step, ``ensemble.ktemp(step + 1)`` (a 0-d tensor, as the slot
-    advance reads it from its device table; evaluated here from a host
-    step where it is None)."""
-    if isinstance(ensemble, NVT):
-        if ktemp is None:
-            ktemp = ensemble.ktemp(state.step + 1)
-        r1, r2 = thermostat.bussi_noise(state.seed, state.step, state.nf,
-                                        v.dtype, v.device)
-        kinetic = thermostat.compute_kinetic(v, ring)
-        scale = thermostat.bussi_scale_from_kinetic(
-            kinetic, ktemp, state.nf, dt, ensemble.tau, r1, r2)
+    this step, ``ensemble.ktemp(step + 1)`` (a 0-d tensor or a
+    :class:`~mdtpu_torch.integrate.velocity_finish.TargetTable`, as the
+    slot advance reads it from its device table; evaluated here from a host
+    step where it is None).
+
+    The scalar tail is :func:`~mdtpu_torch.integrate.velocity_finish.
+    velocity_finish`: on the card one kernel, which also sums the kinetic
+    energy off a ring; on the CPU the torch composition on
+    ``thermostat.compute_kinetic``."""
+    nvt = isinstance(ensemble, NVT)
+    if nvt and ktemp is None:
+        ktemp = ensemble.ktemp(state.step + 1)
+    kinetic = None if v.is_cuda and ring is None else \
+        thermostat.compute_kinetic(v, ring)
+    scale, temperature = velocity_finish(
+        v if kinetic is None else None, kinetic, state.seed, state.step,
+        state.nf, dt, ensemble.tau if nvt else None, ktemp if nvt else None)
+    if nvt:
         v = v * scale
-        temperature = scale * scale * 2.0 * kinetic / state.nf
         if compensated:
             # Rescaling invalidates the velocity compensation buffer.
             vc = vc.new_zeros(vc.shape)
-    else:
-        temperature = thermostat.compute_temperature(v, state.nf, ring)
     return v, vc, temperature
 
 

@@ -13,11 +13,15 @@ which do the same integer arithmetic in int64 (the Philox words and the
 noise are the kernels' bits; ``bussi_draw``'s floats differ only by the
 libm's last bits).
 
-Wrappers and counters: :func:`bussi_draw` (``bussi_draw.launches``),
+Wrappers and counters: :func:`bussi_draw` (``bussi_draw.launches``; the
+step draws inside :func:`mdtpu_torch.integrate.velocity_finish.
+velocity_finish` instead, the same library's kernel),
 :func:`uniform_noise` (``uniform_noise.launches``), :func:`rebuild_flag`
 (``rebuild_flag.launches``); :func:`graph_if` opens an IF node in the graph
 being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
-``begin_capture_to_if_node``.
+``begin_capture_to_if_node``, whose handle the rebuild test sets;
+:func:`capture_census` counts the nodes of the graph being captured;
+:func:`empty` launches a kernel that does nothing (the launch floor).
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import os
+import re
+import tempfile
 
 import torch
 
@@ -41,19 +48,34 @@ BROWNIAN_STREAM = 1                    # | rank << 8
 TWO_PI = 2.0 * math.pi
 SQRT3 = math.sqrt(3.0)
 
-_P, _I, _U, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                      ctypes.c_longlong, ctypes.c_double)
+_P, _I, _U, _L, _D, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_longlong, ctypes.c_double,
+                          ctypes.c_ulonglong)
 _SIGNATURES = (
     ("mdtpu_bussi_draw_f32", (_P, _U, _U, _D, _P, _P)),
     ("mdtpu_bussi_draw_f64", (_P, _U, _U, _D, _P, _P)),
     ("mdtpu_uniform_noise_f32", (_P, _U, _U, _U, _L, _P, _P)),
     ("mdtpu_uniform_noise_f64", (_P, _U, _U, _U, _L, _P, _P)),
-    ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _P)),
-    ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _P)),
+    ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
+    ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
+    ("mdtpu_velocity_finish_f32", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
+                                   _U, _U, _I, _P, _P)),
+    ("mdtpu_velocity_finish_f64", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
+                                   _U, _U, _I, _P, _P)),
     ("mdtpu_philox_words", (_P, _P, _P, _L, _P)),
-    ("mdtpu_graph_if_begin", (_P, _P, _P)),
+    ("mdtpu_empty", (_P,)),
+    ("mdtpu_graph_if_handle", (_P, _P)),
+    ("mdtpu_graph_if_begin", (_P, _Q, _P)),
     ("mdtpu_graph_if_end", (_P,)),
+    ("mdtpu_capture_census", (_P, ctypes.c_char_p, _P)),
 )
+CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
+          "if_dependencies", "if_root_kernels", "unreadable", "dot_error")
+# Kernels the census names, by the text of their names in the graph's dump.
+NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
+                 "velocity_finish": "velocity_finish_kernel",
+                 "bussi_draw": "bussi_draw_kernel"}
+_DOT_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -61,7 +83,10 @@ def _library():
     return _cuda_build.load(NAME, _SIGNATURES)
 
 
-def _launch(fn_name, dtype, args, what, device):
+def launch(fn_name, dtype, args, what, device):
+    """Call ``fn_name`` (``_f32``/``_f64`` by ``dtype`` where given) of the
+    library with ``args`` and the current stream of ``device``; raises on
+    an error code."""
     lib = _library()
     fn = getattr(lib, f"{fn_name}_{_SUFFIX[dtype]}" if dtype else fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -130,7 +155,7 @@ def philox_words(counters_, keys):
     c32 = (counters_ & MASK).to(torch.int32).contiguous()
     k32 = (keys & MASK).to(torch.int32).contiguous()
     out = torch.empty_like(c32)
-    _launch("mdtpu_philox_words", None,
+    launch("mdtpu_philox_words", None,
             (c32.data_ptr(), k32.data_ptr(), out.data_ptr(), out.shape[0]),
             "philox_words", counters_.device)
     return out.to(torch.int64) & MASK
@@ -201,7 +226,7 @@ def bussi_draw(seed: int, step, dof: float, dtype):
         raise ValueError(f"unsupported device {step.device}")
     out = torch.empty(2, dtype=dtype, device=step.device)
     k0, k1 = seed_key(seed)
-    _launch("mdtpu_bussi_draw", dtype,
+    launch("mdtpu_bussi_draw", dtype,
             (step.data_ptr(), k0, k1, float(dof), out.data_ptr()),
             "bussi_draw", step.device)
     bussi_draw.launches += 1
@@ -250,7 +275,7 @@ def uniform_noise(seed: int, step, shape, dtype, rank=None):
         raise ValueError(f"unsupported device {step.device}")
     out = torch.empty(tuple(shape), dtype=dtype, device=step.device)
     k0, k1 = seed_key(seed)
-    _launch("mdtpu_uniform_noise", dtype,
+    launch("mdtpu_uniform_noise", dtype,
             (step.data_ptr(), k0, k1, noise_stream(rank), out.numel(),
              out.data_ptr()), "uniform_noise", step.device)
     uniform_noise.launches += 1
@@ -273,15 +298,18 @@ def rebuild_flag_plain(positions, ref_positions, skin):
     return torch.any(d2 > half_skin * half_skin)
 
 
-def rebuild_flag(positions, ref_positions, skin, out=None):
+def rebuild_flag(positions, ref_positions, skin, out=None, handle=None):
     """:func:`rebuild_flag_plain` of ``(d, S)`` positions, written into
     ``out`` (a 0-d bool tensor) where given. CUDA tensors launch the kernel
-    (adds one to ``rebuild_flag.launches``); CPU tensors take the plain
-    version."""
+    (one launch, no memset; adds one to ``rebuild_flag.launches``), which
+    also sets ``handle``, an IF node's handle from :func:`graph_if`, inside
+    the graph being captured; CPU tensors take the plain version."""
     if positions.shape != ref_positions.shape or positions.dim() != 2:
         raise ValueError("positions and ref_positions must be one (d, S) "
                          "shape")
     if positions.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("a graph's handle takes CUDA tensors")
         flag = rebuild_flag_plain(positions, ref_positions, skin)
         return flag if out is None else out.copy_(flag)
     _check_dtype(positions.dtype)
@@ -293,12 +321,19 @@ def rebuild_flag(positions, ref_positions, skin, out=None):
     if out is None:
         out = torch.empty((), dtype=torch.bool, device=positions.device)
     half_skin = 0.5 * skin
-    _launch("mdtpu_rebuild_flag", positions.dtype,
-            (positions.data_ptr(), ref_positions.data_ptr(),
-             positions.shape[0], positions.shape[1], half_skin * half_skin,
-             out.data_ptr()), "rebuild_flag", positions.device)
+    launch("mdtpu_rebuild_flag", positions.dtype,
+           (positions.data_ptr(), ref_positions.data_ptr(),
+            positions.shape[0], positions.shape[1], half_skin * half_skin,
+            out.data_ptr(), handle or 0, int(handle is not None)),
+           "rebuild_flag", positions.device)
     rebuild_flag.launches += 1
     return out
+
+
+def empty(device="cuda"):
+    """Launch a kernel that does nothing on ``device``'s current stream:
+    its time in a graph of many launches is the card's launch floor."""
+    launch("mdtpu_empty", None, (), "empty", torch.device(device))
 
 
 def reset_launches():
@@ -318,25 +353,30 @@ _BODY_STREAMS = {}
 
 
 @contextlib.contextmanager
-def graph_if(flag, pool):
-    """Inside a CUDA-graph capture on the current stream: what the body of
-    this context enqueues runs at each replay only where the 0-d bool
-    ``flag`` is set at that point of the replay (an IF node; the flag is
-    read on the device). The body is captured on a stream of its own, and
-    its allocations come from ``pool``, a ``torch.cuda.MemPool`` of its own
-    (the graph's pool routes only the capturing stream's allocations; the
-    caller keeps ``pool`` as long as the graph). Raises where the stream is
-    not capturing or the runtime refuses the node."""
-    device = flag.device
+def graph_if(test, device, pool):
+    """Inside a CUDA-graph capture on ``device``'s current stream: what the
+    body of this context enqueues runs at each replay only where the test
+    set the IF node's handle at that point of the replay (the decision is
+    made on the device). ``test(handle)`` launches the kernel that sets
+    ``handle``, captured just before the node (:func:`rebuild_flag`). The
+    body is captured on a stream of its own, and its allocations come from
+    ``pool``, a ``torch.cuda.MemPool`` of its own (the graph's pool routes
+    only the capturing stream's allocations; the caller keeps ``pool`` as
+    long as the graph). Raises where the stream is not capturing or the
+    runtime refuses the node."""
     lib = _library()
     parent = torch.cuda.current_stream(device)
     body = _BODY_STREAMS.get(device)
     if body is None:
         body = _BODY_STREAMS[device] = torch.cuda.Stream(device)
+    handle = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_handle(
+            parent.cuda_stream, ctypes.byref(handle)), "graph_if")
+    test(handle.value)
     with torch.cuda.device(device):
         _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_begin(
-            parent.cuda_stream, flag.data_ptr(), body.cuda_stream),
-            "graph_if")
+            parent.cuda_stream, handle.value, body.cuda_stream), "graph_if")
     try:
         with torch.cuda.stream(body), torch.cuda.use_mem_pool(pool, device):
             yield
@@ -344,3 +384,35 @@ def graph_if(flag, pool):
         with torch.cuda.device(device):
             _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_end(
                 body.cuda_stream), "graph_if")
+
+
+def capture_census(device):
+    """The nodes of the graph being captured on ``device``'s current stream
+    so far, by :data:`CENSUS`: all top-level nodes, kernels, copies,
+    memsets, conditional nodes, others; the conditional nodes'
+    dependencies and how many of those are kernels that depend on nothing
+    (the drift test at a step's start; -1 where the edges could not be
+    read); nodes whose type could not be read; the dump's error code. Then,
+    from the graph's Graphviz dump (its conditional bodies included), the
+    kernel nodes of each of :data:`NAMED_KERNELS` and ``dot_nodes``, every
+    node of the dump. Raises only where the stream is not capturing."""
+    lib = _library()
+    out = (ctypes.c_longlong * len(CENSUS))()
+    fd, path = tempfile.mkstemp(suffix=".dot")
+    os.close(fd)
+    try:
+        with torch.cuda.device(device):
+            _cuda_build.check(lib, NAME, lib.mdtpu_capture_census(
+                torch.cuda.current_stream(device).cuda_stream,
+                path.encode(), out), "capture_census")
+        with open(path) as f:
+            dot = f.read()
+    finally:
+        os.unlink(path)
+    census = dict(zip(CENSUS, out))
+    starts = [m.start() for m in _DOT_NODE.finditer(dot)] + [len(dot)]
+    nodes = [dot[a:b] for a, b in zip(starts, starts[1:])]
+    census["dot_nodes"] = len(nodes)
+    for name, text in NAMED_KERNELS.items():
+        census[name] = sum(text in node for node in nodes)
+    return census

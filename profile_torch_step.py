@@ -3,6 +3,7 @@
 
     python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor|sharded]
                                   [--potential lj|user] [--eager]
+                                  [--tree DIR]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
 f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
@@ -19,7 +20,10 @@ over one segment of the timed or profiled length (its lean inner steps, the
 rebuilds that come due, one full step at the end; each step one CUDA-graph
 launch with the rebuild decided on the device, or with ``--eager`` the same
 steps launched one by one with the rebuild flag read on the host every
-step), and reports the rebuilds in each window; ``--engine sharded``
+step), and reports the rebuilds in each window, then does the same for an
+NVE segment from the NVT end (on the hi/lo sweep, as ``run_simulation``
+takes float32 NVE; its numbers under ``"nve"``), each captured route with
+the nodes of its step graphs (``SlotAdvance.census``); ``--engine sharded``
 steps the same through ``HaloSlotEngine`` on a one-rank NCCL group (a file
 store in a temporary directory): the slab's ghost exchange and launch, the
 all-reduced flags and sums, a rebuild (with its migration) at the start of
@@ -28,19 +32,25 @@ device busy time per step and the device's idle share over the profiled
 window, CUDA kernel launches, CUDA-graph launches and host synchronisations
 per step (stream and event synchronisations: each read of a tensor on the
 host is one; the window's own closing ``torch.cuda.synchronize`` is counted
-apart), the host's own time to issue a window's steps, and the kernels that
-take the most device time; for ``sharded`` a second line with
+apart), the kernels, memsets and copies the device ran per step (under
+graph replay, the step graph's nodes of those kinds), the host's own time
+to issue a window's steps, and the kernels that take the most device
+time; for ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
 ``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
 instead, as ``chip_smoke.py`` builds it (2D, N = 65,536, rho 0.9, diameters
 U(0.8, 1.2), a user potential without a kernel functor, so every sweep is
-the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice.
+the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice. ``--tree
+DIR`` profiles the package of another checkout (``compare_torch_host.py``
+times two trees with this one script).
 """
 
 import argparse
 import json
+import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -59,6 +69,7 @@ def main():
     parser.add_argument("--potential", choices=("lj", "user"), default="lj")
     parser.add_argument("--eager", action="store_true",
                         help="slot: launch each step's kernels one by one")
+    parser.add_argument("--tree", help="the checkout whose package to time")
     args = parser.parse_args()
     if args.eager and args.engine != "slot":
         parser.error("--eager takes --engine slot")
@@ -66,9 +77,14 @@ def main():
         parser.error("--potential user takes --engine slot or sharded")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     import mdtpu_torch as mt
     from mdtpu_torch.integrate import slot_step
+    if args.tree and not mt.__file__.startswith(os.path.abspath(args.tree)):
+        raise SystemExit(f"profile_torch_step: {mt.__file__} is not in "
+                         f"{args.tree}")
     from mdtpu_torch.integrate.step import make_md_step
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
@@ -133,13 +149,7 @@ def main():
                                       engine)
         advance = slot_step.make_slot_advance(
             params, ensemble, engine, graph=False if args.eager else None)
-
-        totals = []   # the advance's rebuild count after each window
-
-        def run(s, k):
-            s = advance(s, k)
-            totals.append(advance.rebuilds.clone())
-            return s
+        run, totals = slot_run(advance)
     else:
         step = make_md_step(params, ensemble, engine, compensated)
 
@@ -149,9 +159,19 @@ def main():
             return s
 
     state, metrics = measure(run, state)
+    extra = {}
     if args.engine == "slot":
-        totals = [int(t) for t in totals]
-        rebuilds = [0] + [b - a for a, b in zip(totals, totals[1:])]
+        rebuilds = window_rebuilds(totals)
+        metrics["step_graph_nodes"] = getattr(advance, "census", None)
+        if args.potential == "lj":
+            nve = slot_step.make_slot_advance(
+                params, mt.NVE(), engine, hilo=True,
+                graph=False if args.eager else None)
+            run, totals = slot_run(nve)
+            _, extra["nve"] = measure(run, state)
+            extra["nve"]["rebuilds_timed_profiled"] = window_rebuilds(
+                totals)[1:]
+            extra["nve"]["step_graph_nodes"] = getattr(nve, "census", None)
     print(json.dumps({
         "card": card, "engine": args.engine, "potential": args.potential,
         "route": ("eager" if args.eager else "graph")
@@ -160,12 +180,32 @@ def main():
         "n": N, "grid": list(engine.grid),
         "capacity": engine.cell_capacity, **metrics,
         # Slot layouts: rebuilds in the timed and in the profiled window.
-        "rebuilds_timed_profiled": rebuilds[1:],
+        "rebuilds_timed_profiled": rebuilds[1:], **extra,
+        "package": os.path.dirname(os.path.abspath(mt.__file__)),
     }))
     if args.engine == "sharded":
         print(json.dumps({"card": card, "engine": "sharded",
                           **sharded_parts(engine, state)}))
         torch.distributed.destroy_process_group()
+
+
+def slot_run(advance):
+    """``(run, totals)``: ``run(s, k)`` advances one segment and appends
+    the advance's rebuild count after it to ``totals``."""
+    totals = []
+
+    def run(s, k):
+        s = advance(s, k)
+        totals.append(advance.rebuilds.clone())
+        return s
+
+    return run, totals
+
+
+def window_rebuilds(totals):
+    """Rebuilds in each window from the counts after each."""
+    totals = [int(t) for t in totals]
+    return [0] + [b - a for a, b in zip(totals, totals[1:])]
 
 
 def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
@@ -212,6 +252,11 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
     syncs = calls("cudaStreamSynchronize", "cudaEventSynchronize")
     memcpy = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    # What the device ran, by kind (under graph replay, the step graph's
+    # nodes of those kinds; a node that runs in no time is not seen).
+    dev_memset = sum(e.count for e in kernels if e.key.startswith("Memset"))
+    dev_memcpy = sum(e.count for e in kernels if e.key.startswith("Memcpy"))
+    dev_kernels = sum(e.count for e in kernels) - dev_memset - dev_memcpy
     return state, {
         "ms_per_step_host_clock": ms_per_step,
         "steps_per_s": 1e3 / ms_per_step,
@@ -228,6 +273,9 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
         "host_syncs_per_step": syncs / n_profiled,
         "device_syncs_in_window": calls("cudaDeviceSynchronize"),
         "memcpy_calls_per_step": memcpy / n_profiled,
+        "device_kernels_per_step": dev_kernels / n_profiled,
+        "device_memsets_per_step": dev_memset / n_profiled,
+        "device_copies_per_step": dev_memcpy / n_profiled,
         "top_device_kernels": [
             {"name": e.key[:90], "calls_per_step": e.count / n_profiled,
              "ms_per_step": dev_us(e) / 1e3 / n_profiled} for e in top],

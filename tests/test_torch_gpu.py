@@ -39,7 +39,12 @@ against its plain version and the periodic list (the same pairs, the
 forces, energy and virial bit for bit), the list's buffers kept across calls
 (padded as a fresh list, also under CUDA-graph replay and at a grown
 capacity), and a sharded run with the user potential on the card against
-the CPU.
+the CPU. The slot step's small kernels: Philox's words, Bussi's draw, the
+Brownian noise and the rebuild test (at the threshold's ulp, on rows off
+16-byte alignment) against their plain versions; the velocity finish's
+tail against the torch composition on the card (bit for bit given the
+kinetic energy) and summing the velocities itself; the captured and eager
+slot routes bit for bit, and a captured step's nodes read from its graph.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -1891,6 +1896,9 @@ def _assert_routes_equal(out, n_steps):
     assert n_g == n_e
     assert n_e[("make_slot_step", "steps")] == n_steps
     assert n_e[("rebuild_flag", "launches")] >= n_steps
+    # An MD step finishes through velocity_finish and draws in it.
+    assert n_e.get(("velocity_finish", "launches"), 0) in (0, n_steps)
+    assert ("bussi_draw", "launches") not in n_e
     assert n_e.get(("cell_sweep", "launches"), 0) + n_e.get(
         ("cell_sweep_hilo", "launches"), 0) == n_steps
 
@@ -1947,3 +1955,135 @@ def test_captured_slot_advance_equals_eager_brownian_and_2d(cuda):
     _assert_routes_equal(_graph_and_eager(slots, params,
                                           mdtpu_torch.NVT(1.0, 0.1), eng,
                                           (1, 60, 60)), 121)
+
+
+# The velocity finish's tail: NVT at a fixed target, on a ramp's device
+# table read at the step, and NVE.
+FINISH_KINDS = ("fixed", "ramp", "nve")
+
+
+def _finish_target(kind, dtype, device):
+    from mdtpu_torch.integrate import velocity_finish as vf
+    table = torch.linspace(1.4, 0.9, 64, dtype=torch.float64).to(dtype)
+    table = table.to(device)
+    return {"fixed": lambda s: 1.0, "nve": lambda s: None,
+            "ramp": lambda s: vf.TargetTable(
+                table, torch.tensor(s - s % 64, device=device))}[kind]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", FINISH_KINDS)
+def test_velocity_finish_given_kinetic_equals_the_composition(cuda, kind,
+                                                              dtype):
+    """Given the kinetic energy, the kernel's scale and temperature equal
+    the torch composition on the card (its draws from bussi_draw) bit for
+    bit, from a device step and from a host step; two launches alike."""
+    from mdtpu_torch.integrate import velocity_finish as vf
+    target = _finish_target(kind, dtype, cuda)
+    nf = 3.0 * 65535
+    for s in (0, 5, 600, 2 ** 33 + 5):
+        for k in (98302.5, 1234.75, 0.5):
+            kin = torch.tensor(k, dtype=dtype, device=cuda)
+            step = torch.tensor(s, device=cuda)
+            got = torch.stack(vf.velocity_finish(None, kin, 7, step, nf,
+                                                 0.002, 0.4, target(s)))
+            again = torch.stack(vf.velocity_finish(None, kin, 7, s, nf,
+                                                   0.002, 0.4, target(s)))
+            want = torch.stack(vf.velocity_finish_plain(
+                None, kin, 7, step, nf, 0.002, 0.4, target(s)))
+            assert got.dtype == dtype
+            assert torch.equal(got, want), (s, k, got, want)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 4095, 3 * 124875, 3 * 262144 + 7])
+def test_velocity_finish_summing_matches_plain(cuda, n, dtype):
+    """Summing the velocities itself: bit for bit its plain version (the
+    kernel's sum order, kinetic_plain), and against the composition on
+    torch.sum to rel 2e-13 (f64) and 2e-6 (f32: torch sums float32 in
+    float32, the kernel the exact squares in float64)."""
+    from mdtpu_torch.integrate import thermostat
+    from mdtpu_torch.integrate import velocity_finish as vf
+    g = torch.Generator().manual_seed(n)
+    v = torch.randn(n, generator=g, dtype=torch.float64).to(dtype).to(cuda)
+    rtol = 2e-13 if dtype == torch.float64 else 2e-6
+    for kind in ("ramp", "nve"):
+        target = _finish_target(kind, dtype, cuda)(70)
+        step = torch.tensor(70, device=cuda)
+        got = torch.stack(vf.velocity_finish(v, None, 3, step, 3.0 * n, 0.002,
+                                             0.4, target))
+        again = torch.stack(vf.velocity_finish(v, None, 3, step, 3.0 * n,
+                                               0.002, 0.4, target))
+        want = torch.stack(vf.velocity_finish_plain(v, None, 3, step,
+                                                    3.0 * n, 0.002, 0.4,
+                                                    target))
+        summed = torch.stack(vf.velocity_finish_plain(
+            None, thermostat.compute_kinetic(v), 3, step, 3.0 * n, 0.002,
+            0.4, target))
+        assert torch.equal(got, want) and torch.equal(got, again)
+        np.testing.assert_allclose(got.cpu().double().numpy(),
+                                   summed.cpu().double().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("slots", [124875, 3037, 6, 1])
+def test_rebuild_flag_at_the_threshold(cuda, slots, dtype):
+    """One slot one ulp of skin/2 short of the threshold and one past it,
+    on each row (rows 1 and 2 start off 16-byte alignment where the slot
+    count is odd) and at the first, middle and last slots: the kernel's
+    flag is its plain version's, and it repeats with no memset between."""
+    from mdtpu_torch.ops import philox_draws as draws
+    g = torch.Generator().manual_seed(slots)
+    ref = (torch.rand((3, slots), generator=g, dtype=torch.float64)
+           * 30).to(dtype)
+    half = torch.tensor(0.15, dtype=dtype)
+    out = torch.zeros((), dtype=torch.bool, device=cuda)
+    for slot in sorted({0, slots // 2, slots - 1}):
+        for row in range(3):
+            for toward in (0.0, 1.0):
+                pos = ref.clone()
+                pos[row, slot] += torch.nextafter(
+                    half, torch.tensor(toward, dtype=dtype))
+                plain = draws.rebuild_flag(pos, ref, 0.3)
+                got = draws.rebuild_flag(pos.to(cuda), ref.to(cuda), 0.3,
+                                         out=out)
+                assert bool(plain) == bool(got)
+                assert bool(draws.rebuild_flag(pos.to(cuda), ref.to(cuda),
+                                               0.3)) == bool(got)
+
+
+@pytest.mark.parametrize("ensemble", ["nvt", "nve"])
+def test_captured_slot_step_nodes(cuda, ensemble):
+    """A captured bench-shaped slot step (4096 LJ, f32) holds one node for
+    the drift test, one for the velocity finish and one conditional node,
+    and no memset, read from its graph; its replays count one launch of
+    each a step."""
+    from mdtpu_torch.integrate import slot_step
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                                jitter=JITTER, device=cuda)
+    eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    ens = mdtpu_torch.NVT(1.0, 0.4) if ensemble == "nvt" else \
+        mdtpu_torch.NVE()
+    advance = slot_step.make_slot_advance(params, ens, eng,
+                                          hilo=ensemble == "nve")
+    out = _graph_and_eager(slots, params, ens, eng, (1, 20))
+    for route in (False, None):
+        assert out[route][3][("velocity_finish", "launches")] == 21
+        assert out[route][3][("rebuild_flag", "launches")] == 21
+    advance(slots, 5)
+    assert advance.graph and sorted(advance.census) == ["last", "lean"]
+    for nodes in advance.census.values():
+        assert nodes["rebuild_flag"] == 1 and nodes["velocity_finish"] == 1
+        assert nodes["bussi_draw"] == 0 and nodes["unreadable"] == 0
+        assert nodes["memsets"] == 0 and nodes["conditionals"] == 1
+        # The IF node's one dependency: the drift test, at the step's start.
+        assert nodes["if_dependencies"] == nodes["if_root_kernels"] == 1
+        assert nodes["kernels"] < nodes["nodes"] <= nodes["dot_nodes"]
