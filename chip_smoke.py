@@ -133,7 +133,11 @@
    graph of 100 calls back to back (replayed 20 times, divided by the
    calls), beside the launch floor (an empty kernel timed the same way),
    its plain version, one PyTorch call, the composition the tail replaced,
-   and its bound.
+   and its bound. The velocity finish (NVT summing with the device table's
+   and a host target, given K with each, NVE) and the noise (both shapes,
+   f32 and f64) are timed both ways, as programmatic dependents (how they
+   launch) and in plain stream order, in turns, and so is the floor (with
+   the attribute the empty kernel waits for the one before).
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -242,7 +246,9 @@
    launches, and host reads a step (none inside a captured segment, or the
    run fails), and each captured step's nodes read from its graph: one
    node for the drift test, one for the velocity finish, one conditional
-   node and no memset, or the run fails.
+   node and no memset, or the run fails. Every captured step of the three
+   paths enters its velocity finish (MD) or its noise (Brownian) by one
+   programmatic edge, its graph's only one, or the run fails.
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -250,6 +256,7 @@ Exits non-zero, printing no result, without a card, when the package is
 missing, or when any build, launch or check fails.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -3354,11 +3361,34 @@ def many_ms(fn, calls=MANY_CALLS, replays=20, rounds=5):
                              for _ in range(rounds))
 
 
-def launch_floor_ms():
+def launch_floor_ms(programmatic=False):
     """The card's launch floor: :func:`many_ms` of a kernel that does
-    nothing (``philox_draws.empty``)."""
+    nothing (``philox_draws.empty``); ``programmatic``: each launched as a
+    programmatic dependent of the one before, which it waits for."""
     from mdtpu_torch.ops import philox_draws as draws
-    return many_ms(lambda: draws.empty("cuda"))
+    return many_ms(lambda: draws.empty("cuda", programmatic))
+
+
+def launch_ways_ms(fn):
+    """:func:`many_ms` of ``fn`` with the velocity finish and the noise
+    launched as programmatic dependents (the package's way) and in plain
+    stream order (inside ``philox_draws.plain_launch``), in turns
+    (programmatic, plain, plain, programmatic): the mean of each way."""
+    from mdtpu_torch.ops import philox_draws as draws
+    times = {True: [], False: []}
+    for way in (True, False, False, True):
+        with contextlib.nullcontext() if way else draws.plain_launch():
+            times[way].append(many_ms(fn))
+    return statistics.mean(times[True]), statistics.mean(times[False])
+
+
+def floor_ways_ms():
+    """The launch floor both ways, in turns as :func:`launch_ways_ms`:
+    ``(programmatic, plain)``."""
+    times = {True: [], False: []}
+    for way in (True, False, False, True):
+        times[way].append(launch_floor_ms(way))
+    return statistics.mean(times[True]), statistics.mean(times[False])
 
 
 def _finish_target(kind, dtype):
@@ -3452,18 +3482,25 @@ def finish_check(mt, failures):
     n = v.numel()
     b_bytes = (4 * n + 8) / HBM_BYTES_PER_S * 1e3
     b_ops = 2 * n / PEAK_OPS[torch.float64] * 1e3
-    floor = launch_floor_ms()
+    floor_pdl, floor = floor_ways_ms()
+    # Each variant launched both ways, in turns: NVT summing with the
+    # target from the device table (the step's call) and from the host,
+    # given K (the sharded route's) with each target, NVE summing.
+    ways = {}
+    for label, kv, target in (
+            ("", (v, None), ramp), ("host_target_", (v, None), 1.0),
+            ("given_kinetic_", (None, kin), ramp),
+            ("given_kinetic_host_target_", (None, kin), 1.0),
+            ("nve_", (v, None), None)):
+        pdl, plain = launch_ways_ms(
+            lambda kv=kv, target=target: vf.velocity_finish(
+                *kv, seed, step, nf, dt, tau, target))
+        ways[f"{label}ms"], ways[f"{label}plain_launch_ms"] = pdl, plain
     rec = {
         "max_abs_err": max(errs),
         "summing_max_abs_err_vs_plain": max(order_errs),
         "summing_rel_err_vs_torch_sum": max(sum_errs),
-        "shape": list(shape), "blocks": vf.finish_blocks(n),
-        "ms": many_ms(lambda: vf.velocity_finish(
-            v, None, seed, step, nf, dt, tau, ramp)),
-        "given_kinetic_ms": many_ms(lambda: vf.velocity_finish(
-            None, kin, seed, step, nf, dt, tau, ramp)),
-        "nve_ms": many_ms(lambda: vf.velocity_finish(
-            v, None, seed, step, nf, dt, tau, None)),
+        "shape": list(shape), "blocks": vf.finish_blocks(n), **ways,
         "plain_ms": call_ms(lambda: vf.velocity_finish_plain(
             v, None, seed, step, nf, dt, tau, ramp)),
         # What it replaced on the step: the torch composition on torch.sum
@@ -3476,9 +3513,13 @@ def finish_check(mt, failures):
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "launch_floor_ms": floor,
+        "launch_floor_programmatic_ms": floor_pdl,
         "library_ms": None,
         "library_call": "none: no single PyTorch call draws and rescales"}
-    rec["bound_meetable_ms"] = max(rec["bound_ms"], floor)
+    # The least time the card meets launched the way each time beside it
+    # was: as a programmatic dependent (``ms``) or in plain stream order.
+    rec["bound_meetable_ms"] = max(rec["bound_ms"], floor_pdl)
+    rec["bound_meetable_plain_launch_ms"] = max(rec["bound_ms"], floor)
     return rec
 
 
@@ -3507,8 +3548,9 @@ def draws_check(mt):
     if not torch.equal(draws.philox_words(ctr.cuda(), key.cuda()).cpu(),
                        draws.philox_words(ctr, key)):
         failures.append("philox words differ from the plain version")
-    floor = launch_floor_ms()
-    results["launch_floor"] = {"ms": floor, "calls_a_graph": MANY_CALLS}
+    floor_pdl, floor = floor_ways_ms()
+    results["launch_floor"] = {"ms": floor, "programmatic_ms": floor_pdl,
+                               "calls_a_graph": MANY_CALLS}
 
     # Bussi: the bench's nf - 1; four steps, both dtypes.
     dof = 3.0 * (N_BENCH - 1) - 1.0
@@ -3567,14 +3609,26 @@ def draws_check(mt):
     nbytes, ops = 4 * n, -(-n // 4) * (OPS_PHILOX_BLOCK + 4 * 3)
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b = max(b_bytes, ops / PEAK_OPS[torch.float32] * 1e3)
+    # Both ways, in turns, on both shapes and dtypes: [programmatic, plain].
+    noise_ways = {
+        f"{name}_{str(dtype)[6:]}": list(launch_ways_ms(
+            lambda shp=shp, dtype=dtype: draws.uniform_noise(
+                3, step, shp, dtype)))
+        for name, shp in shapes.items()
+        for dtype in (torch.float32, torch.float64)}
+    pdl_ms, plain_launch_ms = noise_ways["bench_float32"]
     results["uniform_noise"] = {
         "max_abs_err": max(errs), "shape": list(shape),
-        "ms": many_ms(lambda: draws.uniform_noise(3, step, shape,
-                                                  torch.float32)),
+        "ms": pdl_ms, "plain_launch_ms": plain_launch_ms,
+        "ways_ms": noise_ways,
         "plain_ms": call_ms(lambda: draws.uniform_noise_plain(
             3, step, shape, torch.float32)),
         "bound_ms": b, "bound_by": "bytes" if b == b_bytes
         else "operations",
+        # Meetable launched as ``ms`` was (a programmatic dependent), and
+        # as ``plain_launch_ms`` was.
+        "bound_meetable_ms": max(b, floor_pdl),
+        "bound_meetable_plain_launch_ms": max(b, floor),
         "library_ms": many_ms(lambda: torch.rand(shape, device="cuda")),
         "library_call": "torch.rand",
         "brownian_slot_shape": list(shapes["brownian_slot"])}
@@ -3668,10 +3722,11 @@ def _recording_advance(graph):
     return real, make, made
 
 
-def routes_run(graph, fn):
+def routes_run(graph, fn, census=None):
     """``fn()`` with every slot advance the driver makes on route
     ``graph`` (False: eager; None: captured); returns ``(fn's result, the
-    rebuild steps of its advances, seconds)``."""
+    rebuild steps of its advances, seconds)``. ``census``: a list to which
+    each captured advance's step graphs' nodes are added."""
     from mdtpu_torch.integrate import slot_step
     real, make, made = _recording_advance(graph)
     slot_step.make_slot_advance = make
@@ -3685,6 +3740,8 @@ def routes_run(graph, fn):
         slot_step.make_slot_advance = real
     if any(a.graph is not bool(graph is None) for a in made):
         raise RuntimeError("an advance took the other route")
+    if census is not None:
+        census += [a.census for a in made]
     return out, [s for a in made for s in a.rebuild_steps()], seconds
 
 
@@ -3733,11 +3790,12 @@ def graph_paths(mt, workdir):
     }
     failures, rec = [], {}
     for name, (start, params, nvt, n_nvt, n_nve) in cases.items():
-        runs = {}
+        runs, census = {}, []
         for route, graph in (("eager", False), ("graph", None)):
             (end, dirs), rebuilds, seconds = routes_run(
                 graph, legs(start, params, nvt, n_nvt, n_nve,
-                            f"graph_{name}_{route}"))
+                            f"graph_{name}_{route}"),
+                census if graph is None else None)
             thermo = []
             for d in dirs:
                 with open(os.path.join(d, "thermo.txt")) as f:
@@ -3755,9 +3813,20 @@ def graph_paths(mt, workdir):
                             f"{len(e_reb)} vs {len(g_reb)}")
         if not e_reb:
             failures.append(f"graph {name}: no rebuild in the run")
+        # Each captured step takes its velocity finish (MD) or its noise
+        # (Brownian) by a programmatic edge from the kernel before it.
+        into = ("programmatic_into_uniform_noise" if name == "brownian_slot"
+                else "programmatic_into_velocity_finish")
+        edges = [{v: (nodes[into], nodes["programmatic_edges"],
+                      nodes["edges_error"]) for v, nodes in c.items()}
+                 for c in census]
+        if not census or any(e != (1, 1, 0) for c in edges
+                             for e in c.values()):
+            failures.append(f"graph {name}: programmatic edges {edges}")
         rec[name] = {"steps": n_nvt + n_nve, "rebuilds": len(g_reb),
                      "steps_per_s_eager": e_rate,
-                     "steps_per_s_graph": g_rate}
+                     "steps_per_s_graph": g_rate,
+                     "programmatic_edges": edges}
         log(json.dumps({"graph_path": name, **rec[name]}))
 
     # One segment of the bench's slot advance on each route, NVT and then
@@ -3795,8 +3864,9 @@ def graph_paths(mt, workdir):
             if (nodes["rebuild_flag"], nodes["velocity_finish"],
                     nodes["bussi_draw"], nodes["memsets"],
                     nodes["conditionals"], nodes["if_dependencies"],
-                    nodes["if_root_kernels"], nodes["unreadable"]) != (
-                        1, 1, 0, 0, 1, 1, 1, 0):
+                    nodes["if_root_kernels"], nodes["unreadable"],
+                    nodes["programmatic_into_velocity_finish"],
+                    nodes["edges_error"]) != (1, 1, 0, 0, 1, 1, 1, 0, 1, 0):
                 failures.append(f"graph {ens_name} {variant} step nodes: "
                                 f"{nodes}")
         rec["segment_profile"][ens_name] = {"profiles": profiles,
@@ -4366,6 +4436,8 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
         extra["launch_floor_ms"] = floor
+        extra["launch_floor_programmatic_ms"] = draws_results[
+            "launch_floor"]["programmatic_ms"]
         if kname != "uniform_noise":
             extra["nodes_in_captured_nvt_step"] = nodes[kname]
         if kname == "velocity_finish":

@@ -12,16 +12,21 @@ kernels): this tree's ``profile_torch_step.py --tree <tree>`` (one script,
 so both trees are measured alike) with ``--engine cellgrid`` (the cell
 grid in particle order), ``--engine plane`` (``PlaneEngine``), ``--engine
 slot`` (the slot advance ``run_simulation`` runs on the cell grid, captured;
-an NVT and an NVE segment) and ``--engine slot --eager`` (the same launched
-step by step), then the
+an NVT and an NVE segment), the same with ``--plain-launch`` (the small
+kernels in plain stream order where the tree launches them as
+programmatic dependents), ``--engine slot --eager`` (the same launched
+step by step) and ``--engine slot --brownian`` (the Brownian slot step,
+both ways), then the
 ``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
 bench configuration, in slots and on ``PlaneEngine``) and the Brownian
 paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. The host's clock moves with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
 ms, idle share, launches, host reads and the kernels and memsets the device
-ran per step (the NVE segment's under ``nve``), and each path's steps/s;
-then the card's name and power limit.
+ran per step (the NVE segment's under ``nve``), the velocity finish's
+and the noise's device time in the step and the gap before each, how the
+small kernels launched, a captured lean step's nodes and programmatic
+edges, and each path's steps/s; then the card's name and power limit.
 """
 
 import argparse
@@ -37,10 +42,17 @@ PROFILE_KEYS = ("ms_per_step_host_clock", "device_busy_ms_per_step",
                 "kernel_launches_per_step", "host_syncs_per_step",
                 "graph_launches_per_step", "device_kernels_per_step",
                 "device_memsets_per_step", "device_copies_per_step")
+GAP_KEYS = ("velocity_finish_us", "velocity_finish_gap_us",
+            "velocity_finish_after_us", "uniform_noise_us",
+            "uniform_noise_gap_us", "uniform_noise_after_us")
 ENGINES = {"cellgrid": ("--engine", "cellgrid"),
            "plane": ("--engine", "plane"),
            "slot": ("--engine", "slot"),
-           "slot_eager": ("--engine", "slot", "--eager")}
+           "slot_plain_launch": ("--engine", "slot", "--plain-launch"),
+           "slot_eager": ("--engine", "slot", "--eager"),
+           "slot_brownian": ("--engine", "slot", "--brownian"),
+           "slot_brownian_plain_launch": ("--engine", "slot", "--brownian",
+                                          "--plain-launch")}
 
 
 def paths_worker(tree):
@@ -72,6 +84,21 @@ def paths_worker(tree):
     print(json.dumps(out))
 
 
+def step_record(prof, launch=None):
+    """A profile's numbers of :data:`PROFILE_KEYS` and of the velocity
+    finish's and the noise's time and gap in the step, how the small
+    kernels launched (``launch``: the run's, for a segment's profile), and
+    where the step was captured, the nodes and programmatic edges of its
+    lean step's graph."""
+    rec = {k: prof[k] for k in PROFILE_KEYS + GAP_KEYS if k in prof}
+    rec["launch"] = launch or prof.get("launch", "plain")
+    lean = (prof.get("step_graph_nodes") or {}).get("lean")
+    if lean:
+        rec["lean_step_nodes"] = lean["nodes"]
+        rec["lean_step_programmatic_edges"] = lean.get("programmatic_edges")
+    return rec
+
+
 def last_json(cmd, cwd):
     done = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
     if done.returncode:
@@ -99,10 +126,10 @@ def main():
             prof = last_json([sys.executable,
                               os.path.join(HERE, "profile_torch_step.py"),
                               "--tree", tree, *flags], tree)
-            rec[engine] = {k: prof.get(k) for k in PROFILE_KEYS}
+            rec[engine] = step_record(prof)
             if "nve" in prof:
-                rec[engine]["nve"] = {k: prof["nve"].get(k)
-                                      for k in PROFILE_KEYS}
+                rec[engine]["nve"] = step_record(prof["nve"],
+                                                 prof.get("launch"))
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
                               "--paths-worker", tree], tree))
         print(json.dumps(rec), flush=True)

@@ -55,15 +55,25 @@ profiler); then the card's name and power limit.
 by a CUDA graph of 100 calls back to back (replayed 20 times, over the
 calls; the median of 5 rounds), where a graph of one call would time the
 host's replay: ``bussi_draw`` (f32, the bench's nf - 1), ``uniform_noise``
-and ``rebuild_flag`` on the bench's slots (3, 124,875) f32, and the
-velocity finish's tail as each tree's step runs it (``md_velocity_finish``
-on those slots: NVT with its target read from a device table at the step,
-and NVE; its kernels a call by the profiler), with the scale and the
-temperature; and, where the tree has ``philox_draws.empty``, the launch
-floor (an empty kernel timed the same way).
+on the bench's slots (3, 124,875) and the Brownian slot path's (3,
+263,424), f32 and f64, ``rebuild_flag`` on the bench's slots f32,
+``velocity_finish`` called directly on those slots (NVT summing with the
+target from a device table and from the host, given the kinetic energy
+with each, NVE summing), and the velocity finish's tail as each tree's
+step runs it (``md_velocity_finish`` on those slots: NVT with its target
+read from a device table at the step, and NVE; its kernels a call by the
+profiler), with their values; and, where the tree has
+``philox_draws.empty``, the launch floor (an empty kernel timed the same
+way), where it takes ``programmatic`` also as a programmatic dependent.
+Where the tree launches the finish and the noise as programmatic
+dependents (it has ``philox_draws.plain_launch``), each is also timed in
+plain stream order (`` plain launch``). It first prints which
+trees were compared (the parent's directory and each tree's last line of
+``CHANGES.md``), last the card's name and power limit.
 """
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -350,11 +360,19 @@ def kernels_of(fn):
             "memsets": sum(n.startswith("Memset") for n in names)}
 
 
+# The Brownian slot path's slots (the Brownian system at rho 0.5 on
+# select_engine's cell grid, as chip_smoke.py builds it).
+BROWNIAN_SLOTS = (3, 263424)
+
+
 def draw_runs(name, case):
     """The slot step's small kernels and its velocity finish as this tree
-    has them, on the case's inputs."""
+    has them, on the case's inputs; where the tree launches the finish and
+    the noise as programmatic dependents, each also in plain stream order
+    (`` plain launch``)."""
     import mdtpu_torch as mt
     from mdtpu_torch.integrate import step as tstep
+    from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.ops import philox_draws as draws
 
     ref, drift, v = (t.cuda() for t in case["inputs"])
@@ -363,28 +381,59 @@ def draw_runs(name, case):
     step = torch.tensor(123456, device="cuda")
     dof = 3.0 * (N - 1) - 1.0
     out = {}
+    ways = {"": contextlib.nullcontext}
+    if hasattr(draws, "plain_launch"):
+        ways[" plain launch"] = draws.plain_launch
 
-    def record(kernel, fn, values):
-        out[f"{name} {kernel}"] = {"values": values, "ms": many_ms(fn),
-                                   **kernels_of(fn)}
+    def record(kernel, fn, value_fn, both_ways=False):
+        """Times ``fn`` the tree's way and, where ``both_ways``, in each of
+        ``ways``."""
+        for label, way in ways.items():
+            if label and not both_ways:
+                continue
+            with way():
+                values = value_fn()
+                out[f"{name} {kernel}{label}"] = {
+                    "values": values, "ms": many_ms(fn), **kernels_of(fn)}
 
     record("bussi_draw",
            lambda: draws.bussi_draw(0, step, dof, torch.float32),
-           draws.bussi_draw(0, step, dof, torch.float32).cpu())
-    record("uniform_noise",
-           lambda: draws.uniform_noise(3, step, shape, torch.float32),
-           draws.uniform_noise(3, step, shape, torch.float32).cpu())
+           lambda: draws.bussi_draw(0, step, dof, torch.float32).cpu())
+    for sname, shp in (("", shape), (" brownian_slot", BROWNIAN_SLOTS)):
+        for dname, dtype in (("", torch.float32), (" f64", torch.float64)):
+            record(f"uniform_noise{sname}{dname}",
+                   lambda shp=shp, dtype=dtype: draws.uniform_noise(
+                       3, step, shp, dtype),
+                   lambda shp=shp, dtype=dtype: draws.uniform_noise(
+                       3, step, shp, dtype).cpu(), True)
     flag = torch.ones((), dtype=torch.bool, device="cuda")
     record("rebuild_flag",
            lambda: draws.rebuild_flag(pos, ref, 0.3, out=flag),
-           draws.rebuild_flag(pos, ref, 0.3, out=flag).cpu().reshape(1))
+           lambda: draws.rebuild_flag(pos, ref, 0.3, out=flag).cpu()
+           .reshape(1))
+    # The velocity finish's variants called directly: NVT summing with
+    # the target from a device table and from the host, given K (the
+    # sharded route's call) with each, NVE summing.
+    table = torch.linspace(1.4, 0.9, 1024, device="cuda")
+    base = torch.tensor(123000, device="cuda")
+    kin = (0.5 * (v.double() ** 2).sum()).float()
+    for label, kv, target in (
+            ("nvt table", (v, None), lambda: vf.TargetTable(table, base)),
+            ("nvt host", (v, None), lambda: 1.0),
+            ("given_k table", (None, kin),
+             lambda: vf.TargetTable(table, base)),
+            ("given_k host", (None, kin), lambda: 1.0),
+            ("nve", (v, None), lambda: None)):
+        def finish(kv=kv, target=target):
+            return vf.velocity_finish(*kv, 7, step, 3.0 * (N - 1), 0.002,
+                                      0.4, target())
+        record(f"velocity_finish {label}", finish,
+               lambda finish=finish: torch.stack(finish()).cpu(), True)
     # The tail as the tree's slot step calls it: NVT's target from the
     # advance's device table at the step (a TargetTable where the tree has
     # one, else the 0-d target its advance read by index_select).
     state = SimpleNamespace(step=step, seed=7, nf=3.0 * (N - 1))
     vc = torch.zeros_like(v)
-    table = torch.linspace(1.4, 0.9, 1024, device="cuda")
-    base = torch.tensor(123000, device="cuda")
     try:
         from mdtpu_torch.integrate.velocity_finish import TargetTable
 
@@ -399,12 +448,17 @@ def draw_runs(name, case):
             return tstep.md_velocity_finish(
                 ens, v, vc, state, 0.002, True,
                 ktemp=target() if isinstance(ens, mt.NVT) else None)
-        vv, _, temp = tail()
-        scale = (vv.double().norm() / v.double().norm()).reshape(1)
-        record(label, tail, torch.cat([scale, temp.double().reshape(1)])
-               .cpu())
+
+        def values(tail=tail):
+            vv, _, temp = tail()
+            scale = (vv.double().norm() / v.double().norm()).reshape(1)
+            return torch.cat([scale, temp.double().reshape(1)]).cpu()
+        record(label, tail, values, True)
     if hasattr(draws, "empty"):
         out["launch_floor"] = {"ms": many_ms(lambda: draws.empty("cuda"))}
+        if "programmatic" in inspect.signature(draws.empty).parameters:
+            out["launch_floor programmatic"] = {"ms": many_ms(
+                lambda: draws.empty("cuda", True))}
     return out
 
 
@@ -581,6 +635,17 @@ def reduce_runs(name, case):
             "ms": replay_ms(lambda: pair_reduce(plist, f))}}
 
 
+def last_change(tree):
+    """The last line of ``tree``'s ``CHANGES.md`` (its first 160
+    characters): which state of the repository the tree is."""
+    try:
+        with open(os.path.join(tree, "CHANGES.md")) as f:
+            lines = [x for x in f.read().splitlines() if x.strip()]
+    except OSError:
+        return None
+    return lines[-1][:160] if lines else None
+
+
 def rel_diff(a, b):
     """The largest difference of ``a`` and ``b`` over the largest of ``b``
     (NaN as 0)."""
@@ -622,11 +687,23 @@ def main():
                            check=True)
             runs.append(torch.load(out, weights_only=False))
     parent, change = (runs[0], runs[3]), (runs[1], runs[2])
-    if "launch_floor" in runs[1]:
-        print(json.dumps({"case": "launch_floor", "change_ms": [
-            r["launch_floor"]["ms"] for r in change]}), flush=True)
+    print(json.dumps({"parent_tree": os.path.abspath(args.parent),
+                      "parent_last_change": last_change(args.parent),
+                      "change_last_change": last_change(HERE)}), flush=True)
+    # What only this tree has (the floor, the plain launch of the same
+    # kernels): its times alone.
+    for name in runs[1]:
+        if name not in runs[0] or name.startswith("launch_floor"):
+            base = name.removesuffix(" plain launch")
+            same = ({"values_equal_to_the_trees_way": same_bits(
+                runs[1][name]["values"], runs[1][base]["values"])}
+                if base != name and "values" in runs[1][name] else {})
+            print(json.dumps({"case": name, **same, "change_ms": [
+                r[name]["ms"] for r in change], **({"parent_ms": [
+                    r[name]["ms"] for r in parent]}
+                    if name in runs[0] else {})}), flush=True)
     for name in runs[0]:
-        if name == "launch_floor":
+        if name.startswith("launch_floor") or name not in runs[1]:
             continue
         p, c = parent[0][name], change[0][name]
         p_ms = [r[name]["ms"] for r in parent]

@@ -18,30 +18,58 @@
 //     the kinetic energy already summed, the sharded route's) and the step
 //     counter, Bussi's rescale factor and the temperature after it (NVT),
 //     or the temperature alone (NVE), as the 0-d tensors a step needs. One
-//     launch where the torch composition took ~22 (the draw, the sum, each
-//     scalar operation, the target read from its table). The sum: each
-//     thread adds the squares of its values (grid-stride, in float64) in
-//     order, each block reduces its threads in a fixed tree of shuffles and
-//     stores one partial, and the block that draws the last integer ticket
-//     sums the partials in block order by the same tree and puts the ticket
-//     back to 0 (cell_pairs.cu's pair_reduce_kernel pattern: one partial
-//     array and one ticket per card, so two launches must not run at once on
-//     two streams). The grid depends on the count of values alone, so the
-//     sum repeats bit for bit (velocity_finish.kinetic_plain emulates it).
-//     A thread issues its loads eight at a time before it adds them. One
-//     more block, block 0, draws meanwhile, off the sum's path: warp 1 r1,
-//     warp 0 the 32 gamma attempts, one a lane, the first accepting one
-//     taken by a ballot (the attempt and the bits the sequential loop of
-//     bussi_draw takes, on a chain of one attempt). Then one thread of the
-//     last block follows the torch
-//     composition operation for operation (thermostat.py bussi_scale_from
-//     _kinetic, step.py md_velocity_finish, as PyTorch's CUDA kernels
-//     evaluate them: a tensor divided by a Python number is a product with
-//     its reciprocal, a Python number divided by a tensor the tensor's
-//     reciprocal times it, a Python number rounded to the tensor's dtype
-//     first), so given the same kinetic energy it equals the composition on
-//     the card bit for bit. Bound: the read of the velocities (bytes), and
-//     below a few microseconds the launch itself.
+//     launch where the torch composition took ~22. The sum: each thread
+//     adds the squares of its values (grid-stride, in float64, eight loads
+//     out before their adds) in order, each block reduces its threads in a
+//     fixed tree of shuffles and stores one partial, and the block that
+//     draws the last integer ticket sums the partials in block order by the
+//     same tree and puts the ticket back to 0 (one partial array and one
+//     ticket per card, so two launches must not run at once on two
+//     streams). The grid depends on the count of values alone, so the sum
+//     repeats bit for bit (velocity_finish.kinetic_plain emulates it). One
+//     more block, block 0, draws: warp 1 r1, warp 0 the 32 gamma attempts,
+//     one a lane, the first accepting one taken by a ballot (the attempt
+//     and the bits the sequential loop of bussi_draw takes). The last block
+//     follows the torch composition operation for operation (thermostat.py
+//     bussi_scale_from_kinetic, step.py md_velocity_finish, as PyTorch's
+//     CUDA kernels evaluate them: a tensor divided by a Python number is a
+//     product with its reciprocal, a Python number divided by a tensor the
+//     tensor's reciprocal times it, a Python number rounded to the tensor's
+//     dtype first), so given the same K it equals the composition on the
+//     card bit for bit.
+//     Bound: the read of the velocities (bytes, 0.45 us at the bench's
+//     slots), far below the launch floor (~1 us a graph node), so what
+//     bounds it is latency: a chain of dependent round trips to memory
+//     and float64 arithmetic after the launch. The design takes each link
+//     off the path it can:
+//       - It launches as a programmatic dependent of the kernel before it
+//         (the step's Kahan half-kick, which writes v): the launch and
+//         everything before griddepcontrol.wait overlap that kernel's
+//         tail. Summing, nothing is read before the wait: the draw block
+//         reads the step and draws after it, beside the sum, off the
+//         sum's path. Given K (one block, nothing to overlap the draws
+//         with after the wait), the step is read and the draws are made
+//         (into shared memory) before the wait; *kinetic, the target and
+//         every global write come after it. The given-K callers' step: the
+//         sharded route's, a host step (a number); particle order's,
+//         state.step + 1 from the step before; no kernel just before
+//         writes it.
+//       - The draw block computes, after the wait, every operand of the
+//         composition that does not depend on K in its own operations and
+//         dtype (r2 + r1 r1, r1 2, and the target times numer: *base and
+//         the table entry, two dependent loads, are read here, off the
+//         sum's path), and hands the three over in one store.
+//       - A block publishes its partial (or the handover) by one
+//         acquire-release fetch-add on the ticket, with no fence of its
+//         own; the last block issues its partials' loads and the
+//         handover's together, so one round trip to memory follows the
+//         sum. It puts the ticket back after the wait, so two instances that
+//         overlap never share it; nothing relies on blocks being resident
+//         at once.
+//       - Given K (one block), the draws stay in shared memory: no global
+//         store, fence or reload.
+//     Measured and dropped: the partials combined through clusters of 8
+//     blocks in distributed shared memory, one ticket a cluster (slower).
 //   * bussi_draw: the same draws by one thread in sequence (r1 by
 //     Box-Muller, cos branch, from block 0; the gamma variate by Marsaglia
 //     and Tsang (2000), attempt t taking its normal from block 1 + 2t and
@@ -61,8 +89,19 @@
 //     bits of two words), counter (block, step lo, step hi, 1 | rank << 8).
 //     The arithmetic is integer and exactly rounded (2u - 1 is exact, one
 //     rounding in the product), so it equals its plain version bit for
-//     bit. Bound: the write of (d, S) values; a thread makes one block of
-//     words and stores it as one 16-byte vector.
+//     bit. Bound: the write of (d, S) values (bytes, 0.45 us at the
+//     bench's slots), below the launch floor: what bounds it is the launch,
+//     the dependent read of the step and the stores' drain. It launches as
+//     a programmatic dependent: a thread reads the step (or takes a host
+//     step as a number) and makes its Philox words before the wait and
+//     stores them as 16-byte vectors after it (the output may be memory
+//     the graph's pool handed back after the kernel before read it). Its
+//     callers' step: the Brownian slot step's, the advance's buffer
+//     (written at the end of the step before); particle order's,
+//     state.step + 1 from the step before, or a host step; never written
+//     by the kernel just before. A thread makes one block of words (two
+//     over half the grid were measured and dropped: slower inside the
+//     Brownian slot step).
 //   * rebuild_flag ports mdtpu/integrate/slot_step.py:460 slot_needs_rebin
 //     (the drift test): d2 = sum_k (x_k - ref_k)^2 in component order over
 //     positions and ref_positions (d, S), flag = any(d2 > (T) thr). Bound:
@@ -78,7 +117,8 @@
 //     into the handle took three.
 //   * philox_words: the generator's words for given counters and keys,
 //     for the known-answer checks on the card. empty: a kernel that does
-//     nothing, whose time in a graph of many is the card's launch floor.
+//     nothing (launched as a programmatic dependent, it only waits), whose
+//     time in a graph of many is the card's launch floor.
 //   * graph_if_handle / graph_if_begin / graph_if_end: an IF conditional
 //     node (CUDA 12.4+) in the graph being captured on a stream, for torch
 //     versions without CUDAGraph.begin_capture_to_if_node. The handle comes
@@ -86,13 +126,14 @@
 //     adds the node, captures the body on a second stream into the node's
 //     child graph and ends that capture. The decision stays on the device.
 //     capture_census counts the nodes of the graph being captured, by type
-//     and for this file's rebuild test and velocity finish.
+//     and for this file's kernels, and its programmatic edges.
 //
 // Built with -fmad=false, so every product and sum rounds as in the plain
 // PyTorch versions (mdtpu_torch/ops/philox_draws.py,
 // mdtpu_torch/integrate/velocity_finish.py).
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <cuda/atomic>
 #include <stdint.h>
 
 #include <vector>
@@ -179,15 +220,24 @@ __global__ void bussi_draw_kernel(const int64_t* step, uint2 key, double dof,
   out[1] = static_cast<T>(r2);
 }
 
-__global__ void uniform_noise_f32_kernel(const int64_t* step, uint2 key,
-                                         uint32_t stream, int64_t n,
-                                         float* out) {
-  const int64_t s = *step;
-  const float sqrt3 = static_cast<float>(kSqrt3);
-  const int64_t blocks = (n + 3) / 4;
-  for (int64_t b = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       b < blocks; b += (int64_t)gridDim.x * blockDim.x) {
-    const uint4 w = philox4x32_10(counter((uint32_t)b, s, stream), key);
+// Waits until the grids this one depends on programmatically have ended
+// and their writes are visible (Hopper's griddepcontrol.wait; at once for
+// a grid launched without the attribute). Nothing before it may read what
+// the kernel launched just before writes, or write global memory.
+__device__ __forceinline__ void wait_for_dependencies() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Element e of the noise from Philox block e / 4 (float32: the word's top
+// 24 bits) or e / 2 (float64: 53 bits of two words).
+template <typename T>
+struct Noise;
+
+template <>
+struct Noise<float> {
+  static constexpr int kPer = 4;
+  __device__ static void store(uint4 w, int64_t b, int64_t n, float* out) {
+    const float sqrt3 = static_cast<float>(kSqrt3);
     const float v0 = (2.0f * u24(w.x) - 1.0f) * sqrt3;
     const float v1 = (2.0f * u24(w.y) - 1.0f) * sqrt3;
     const float v2 = (2.0f * u24(w.z) - 1.0f) * sqrt3;
@@ -201,16 +251,12 @@ __global__ void uniform_noise_f32_kernel(const int64_t* step, uint2 key,
       if (e + 2 < n) out[e + 2] = v2;
     }
   }
-}
+};
 
-__global__ void uniform_noise_f64_kernel(const int64_t* step, uint2 key,
-                                         uint32_t stream, int64_t n,
-                                         double* out) {
-  const int64_t s = *step;
-  const int64_t blocks = (n + 1) / 2;
-  for (int64_t b = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       b < blocks; b += (int64_t)gridDim.x * blockDim.x) {
-    const uint4 w = philox4x32_10(counter((uint32_t)b, s, stream), key);
+template <>
+struct Noise<double> {
+  static constexpr int kPer = 2;
+  __device__ static void store(uint4 w, int64_t b, int64_t n, double* out) {
     const double v0 = (2.0 * u53(w.x, w.y) - 1.0) * kSqrt3;
     const double v1 = (2.0 * u53(w.z, w.w) - 1.0) * kSqrt3;
     const int64_t e = 2 * b;
@@ -219,6 +265,28 @@ __global__ void uniform_noise_f64_kernel(const int64_t* step, uint2 key,
     } else {
       out[e] = v0;
     }
+  }
+};
+
+// One Philox block a thread (grid-stride), stored as one 16-byte vector.
+// The step and the first words come before the wait, the stores after it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    uniform_noise_kernel(const int64_t* step, int64_t step_value, uint2 key,
+                         uint32_t stream, int64_t n, T* out) {
+  const int64_t blocks = (n + Noise<T>::kPer - 1) / Noise<T>::kPer;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t b = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (b >= blocks) return;
+  const int64_t s = step ? *step : step_value;
+  bool waited = false;
+  for (; b < blocks; b += stride) {
+    const uint4 w = philox4x32_10(counter((uint32_t)b, s, stream), key);
+    if (!waited) {
+      wait_for_dependencies();
+      waited = true;
+    }
+    Noise<T>::store(w, b, n, out);
   }
 }
 
@@ -334,11 +402,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // --------------------------------------------------------- velocity finish
 
-// The summing variant's block partials, its ticket, and the draws block 0
-// hands to the block that finishes (r1, r2), on this card.
+// The summing variant's block partials and its ticket, and the operands of
+// the composition that do not depend on the kinetic energy, which the draw
+// block hands to the block that finishes; on this card.
 __device__ unsigned int g_finish_ticket = 0;
 __device__ double g_finish_partial[kFinishMaxBlocks];
-__device__ double g_finish_draws[2];
+__device__ double g_finish_handover[3];
+
+__host__ __device__ inline int finish_blocks(int64_t n) {
+  const int64_t blocks = (n + kFinishPerBlock - 1) / kFinishPerBlock;
+  return (int)(blocks < kFinishMaxBlocks ? (blocks > 0 ? blocks : 1)
+                                         : kFinishMaxBlocks);
+}
 
 // The block's sum of a in a fixed order, in thread 0: a tree of shuffles
 // within each warp, then the warps' sums by the same tree in warp 0 (the
@@ -357,17 +432,14 @@ __device__ double block_sum(double a, double (&warp_sums)[kThreads / 32]) {
 }
 
 // Warps 0 and 1 of a block (all their lanes): Bussi's r1 (warp 1) and r2
-// (warp 0: attempt t on lane t, the first accepting one by a ballot),
-// each stored to g_finish_draws by one lane and fenced.
-__device__ void bussi_draws_two_warps(int64_t s, uint2 key, double dof) {
+// (warp 0: attempt t on lane t, the first accepting one by a ballot) into
+// drawn[0] and drawn[1] in shared memory, for the block's next barrier.
+__device__ void bussi_draws_two_warps(int64_t s, uint2 key, double dof,
+                                      double* drawn) {
   static_assert(kGammaAttempts == 32, "one gamma attempt a lane");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (warp == 1) {
-    if (lane == 0) {
-      g_finish_draws[0] =
-          box_muller(philox4x32_10(counter(0, s, 0), key));
-      __threadfence();
-    }
+    if (lane == 0) drawn[0] = box_muller(philox4x32_10(counter(0, s, 0), key));
     return;
   }
   double r2 = 0.0;
@@ -386,10 +458,7 @@ __device__ void bussi_draws_two_warps(int64_t s, uint2 key, double dof) {
     if (p.boost) g = g * pow(ub, 1.0 / p.a);
     r2 = 2.0 * g;
   }
-  if (lane == 0) {
-    g_finish_draws[1] = r2;
-    __threadfence();
-  }
+  if (lane == 0) drawn[1] = r2;
 }
 
 template <typename T>
@@ -399,13 +468,65 @@ __device__ __forceinline__ float sqrt_t<float>(float x) { return sqrtf(x); }
 template <>
 __device__ __forceinline__ double sqrt_t<double>(double x) { return sqrt(x); }
 
+// The operands of the composition that do not depend on K, in its own
+// operations and dtype: a = r2 + r1 r1, b = r1 2, and c = target numer (KT:
+// the target from the table) or numer.
+template <typename T>
+struct Handover {
+  T a, b, c;
+};
+
+template <typename T, bool KT>
+__device__ Handover<T> handover(const double* drawn, int64_t s,
+                                const T* ktemp, const int64_t* base,
+                                double numer) {
+  const T r1 = static_cast<T>(drawn[0]);
+  const T r2 = static_cast<T>(drawn[1]);
+  Handover<T> h;
+  h.a = r2 + r1 * r1;
+  h.b = r1 * T(2);
+  if constexpr (KT)
+    h.c = ktemp[base ? s - *base : 0] * static_cast<T>(numer);
+  else
+    h.c = static_cast<T>(numer);
+  return h;
+}
+
+template <typename T>
+__device__ void store_handover(const Handover<T>& h) {
+  g_finish_handover[0] = h.a;
+  g_finish_handover[1] = h.b;
+  g_finish_handover[2] = h.c;
+}
+
+// The rest of the torch composition, operation for operation, from K.
+template <typename T, bool NVT, bool KT>
+__device__ void finish(T k, const Handover<T>& h, double term1, double nf,
+                       T* out) {
+  const T inv_nf = T(1) / static_cast<T>(nf);
+  const T current = (k * T(2)) * inv_nf;
+  if (!NVT) {
+    out[0] = T(1);
+    out[1] = current;
+    return;
+  }
+  const T den = current * static_cast<T>(nf);
+  const T c2 = KT ? h.c / den : (T(1) / den) * h.c;
+  const T term2 = c2 * h.a;
+  const T term3 = h.b * sqrt_t(c2 * static_cast<T>(term1));
+  const T scale = sqrt_t((term2 + static_cast<T>(term1)) + term3);
+  out[0] = scale;
+  out[1] = (((scale * scale) * T(2)) * k) * inv_nf;
+}
+
 // out = (scale, temperature). NVT: Bussi's factor and the temperature
 // after it; NVE: (1, the temperature). SUM: the kinetic energy from the n
 // values of v, summed by finish_blocks(n) blocks of kThreads (with NVT one
-// more block, block 0, draws meanwhile: the summing block b is block b + 1);
-// else from *kinetic (one block of kDrawThreads, which draws first). KT:
-// NVT's target is ktemp[step - *base] (ktemp[0] without a base) and numer
-// is 1 - term1; else numer is (1 - term1) times the target, a host number.
+// more block, block 0, draws meanwhile: the summing block b is block
+// b + 1); else from *kinetic (one block of kDrawThreads, which draws
+// first). KT: NVT's target is ktemp[step - *base] (ktemp[0] without a base)
+// and numer is 1 - term1; else numer is (1 - term1) times the target, a
+// host number.
 template <typename T, bool NVT, bool SUM, bool KT>
 __global__ void __launch_bounds__(kThreads)
     velocity_finish_kernel(const T* __restrict__ v, int64_t n,
@@ -414,76 +535,85 @@ __global__ void __launch_bounds__(kThreads)
                            const int64_t* base, double numer, double term1,
                            double nf, uint2 key, T* out) {
   __shared__ double warp_sums[kThreads / 32];
+  __shared__ double drawn[2];
   __shared__ bool last;
-  const int64_t s = step_ptr ? *step_ptr : step_value;
   const bool draws = NVT && blockIdx.x == 0;
-  if (draws && threadIdx.x < kDrawThreads)
-    bussi_draws_two_warps(s, key, nf - 1.0);
-  T k;
-  if (SUM) {
-    const int sum_blocks = NVT ? gridDim.x - 1 : gridDim.x;
-    double acc = 0.0;
-    if (!draws) {
-      // Thread t of summing block b adds v[b T + t + j G T] for j = 0, 1,
-      // ... in order, kFinishBatch loads out before their adds (a value
-      // past n adds 0).
-      const int64_t stride = (int64_t)sum_blocks * blockDim.x;
-      for (int64_t i0 = (blockIdx.x - (NVT ? 1 : 0)) * (int64_t)blockDim.x +
-                        threadIdx.x;
-           i0 < n; i0 += kFinishBatch * stride) {
-        double x[kFinishBatch];
-#pragma unroll
-        for (int j = 0; j < kFinishBatch; ++j) {
-          const int64_t i = i0 + j * stride;
-          x[j] = i < n ? static_cast<double>(v[i]) : 0.0;
-        }
-#pragma unroll
-        for (int j = 0; j < kFinishBatch; ++j) acc = acc + x[j] * x[j];
-      }
-    }
-    acc = block_sum(acc, warp_sums);
-    if (threadIdx.x == 0) {
-      if (!draws) g_finish_partial[blockIdx.x - (NVT ? 1 : 0)] = acc;
-      __threadfence();  // the partial (or the draws) before the ticket
-      last = atomicAdd(&g_finish_ticket, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    acc = (int)threadIdx.x < sum_blocks
-              ? __ldcg(g_finish_partial + threadIdx.x) : 0.0;
-    acc = block_sum(acc, warp_sums);
-    if (threadIdx.x != 0) return;
-    g_finish_ticket = 0;
-    k = static_cast<T>(0.5 * acc);
-  } else {
-    __syncthreads();  // the draws of this block's two warps
-    if (threadIdx.x != 0) return;
-    k = *kinetic;
+  // Given K, the step and the draws come before the wait (the caller's
+  // kernel just before must not write the step); summing, after it, beside
+  // the sum.
+  int64_t s = 0;
+  if (!SUM && draws) {
+    s = step_ptr ? *step_ptr : step_value;
+    bussi_draws_two_warps(s, key, nf - 1.0, drawn);
   }
-  // The torch composition, operation for operation.
-  const T inv_nf = T(1) / static_cast<T>(nf);
-  const T current = (k * T(2)) * inv_nf;
-  if (!NVT) {
-    out[0] = T(1);
-    out[1] = current;
+  wait_for_dependencies();
+  if (!SUM) {
+    if (NVT) __syncthreads();  // drawn
+    if (threadIdx.x != 0) return;
+    const T k = *kinetic;
+    Handover<T> h{};
+    if (NVT) h = handover<T, KT>(drawn, s, ktemp, base, numer);
+    finish<T, NVT, KT>(k, h, term1, nf, out);
     return;
   }
-  const T r1 = static_cast<T>(__ldcg(g_finish_draws));
-  const T r2 = static_cast<T>(__ldcg(g_finish_draws + 1));
-  const T den = current * static_cast<T>(nf);
-  T c2;
-  if (KT) {
-    const T target = ktemp[base ? s - *base : 0];
-    c2 = (target * static_cast<T>(numer)) / den;
-  } else {
-    c2 = (T(1) / den) * static_cast<T>(numer);
+  const int sum_blocks = finish_blocks(n);
+  const int b = (int)blockIdx.x - (NVT ? 1 : 0);
+  const bool sums = !draws && b < sum_blocks;
+  Handover<T> h{};
+  double acc = 0.0;
+  if (draws) {
+    if (threadIdx.x < kDrawThreads) {
+      s = step_ptr ? *step_ptr : step_value;
+      bussi_draws_two_warps(s, key, nf - 1.0, drawn);
+    }
+    __syncthreads();  // drawn
+    if (threadIdx.x == 0) h = handover<T, KT>(drawn, s, ktemp, base, numer);
+  } else if (sums) {
+    // Thread t of summing block b adds v[b T + t + j G T] for j = 0, 1,
+    // ... in order, kFinishBatch loads out before their adds (a value
+    // past n adds 0).
+    const int64_t stride = (int64_t)sum_blocks * blockDim.x;
+    for (int64_t i0 = b * (int64_t)blockDim.x + threadIdx.x; i0 < n;
+         i0 += kFinishBatch * stride) {
+      double x[kFinishBatch];
+#pragma unroll
+      for (int j = 0; j < kFinishBatch; ++j) {
+        const int64_t i = i0 + j * stride;
+        x[j] = i < n ? static_cast<double>(v[i]) : 0.0;
+      }
+#pragma unroll
+      for (int j = 0; j < kFinishBatch; ++j) acc = acc + x[j] * x[j];
+    }
   }
-  const T term2 = c2 * (r2 + r1 * r1);
-  const T term3 = (r1 * T(2)) * sqrt_t(c2 * static_cast<T>(term1));
-  const T scale = sqrt_t((term2 + static_cast<T>(term1)) + term3);
-  out[0] = scale;
-  out[1] = (((scale * scale) * T(2)) * k) * inv_nf;
+  if (sums) acc = block_sum(acc, warp_sums);
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(
+      g_finish_ticket);
+  if (threadIdx.x == 0) {
+    if (draws)
+      store_handover(h);
+    else if (sums)
+      g_finish_partial[b] = acc;
+    // Release the partial (or the handover); acquire every other's.
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // One round trip: the partials, and in thread 0 the handover.
+  acc = (int)threadIdx.x < sum_blocks
+            ? __ldcg(g_finish_partial + threadIdx.x) : 0.0;
+  double ha = 0.0, hb = 0.0, hc = 0.0;
+  if (NVT && threadIdx.x == 0) {
+    ha = __ldcg(g_finish_handover);
+    hb = __ldcg(g_finish_handover + 1);
+    hc = __ldcg(g_finish_handover + 2);
+  }
+  acc = block_sum(acc, warp_sums);
+  if (threadIdx.x != 0) return;
+  ticket.store(0u, cuda::memory_order_relaxed);
+  finish<T, NVT, KT>(static_cast<T>(0.5 * acc),
+                     Handover<T>{static_cast<T>(ha), static_cast<T>(hb),
+                                 static_cast<T>(hc)},
+                     term1, nf, out);
 }
 
 __global__ void philox_words_kernel(const uint4* ctr, const uint2* key,
@@ -493,17 +623,49 @@ __global__ void philox_words_kernel(const uint4* ctr, const uint2* key,
     out[i] = philox4x32_10(ctr[i], key[i]);
 }
 
-__global__ void empty_kernel() {}
+// The empty kernel: nothing, or with the attribute only the wait a
+// programmatic dependent makes before it may touch memory.
+template <bool WAIT>
+__global__ void empty_kernel() {
+  if (WAIT) wait_for_dependencies();
+}
 
 int grid_for(int64_t items, int cap = kMaxBlocks) {
   const int64_t blocks = (items + kThreads - 1) / kThreads;
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
-int finish_blocks(int64_t n) {
-  const int64_t blocks = (n + kFinishPerBlock - 1) / kFinishPerBlock;
-  return (int)(blocks < kFinishMaxBlocks ? (blocks > 0 ? blocks : 1)
-                                         : kFinishMaxBlocks);
+// Launch options (the wrappers' flag): kProgrammatic launches the kernel
+// as a programmatic dependent of the kernel before it on the stream (the
+// wrappers always do; plain stream order is for measurements).
+constexpr int kProgrammatic = 1;
+
+// A launch on s with cudaLaunchAttributeProgrammaticStreamSerialization
+// where programmatic (built in place: cfg points at attr).
+struct LaunchConfig {
+  cudaLaunchAttribute attr = {};
+  cudaLaunchConfig_t cfg = {};
+  LaunchConfig(dim3 grid, dim3 block, cudaStream_t s, bool programmatic) {
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cfg.attrs = &attr;
+    cfg.numAttrs = programmatic ? 1 : 0;
+  }
+  LaunchConfig(const LaunchConfig&) = delete;
+};
+
+// kernel(args...) by cudaLaunchKernelEx: the runtime's error where it
+// refuses the launch or its attribute; nothing is retried without it.
+template <typename... Params, typename... Args>
+int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block,
+              cudaStream_t s, bool programmatic, Args... args) {
+  const LaunchConfig c(grid, block, s, programmatic);
+  const cudaError_t rc = cudaLaunchKernelEx(&c.cfg, kernel, args...);
+  return rc ? (int)rc : (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -513,6 +675,21 @@ int bussi_draw(const int64_t* step, unsigned k0, unsigned k1, double dof,
   bussi_draw_kernel<T><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       step, make_uint2(k0, k1), dof, out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int uniform_noise(const int64_t* step, long long step_value, unsigned k0,
+                  unsigned k1, unsigned stream_word, long long n, T* out,
+                  int options, void* stream) {
+  const long long blocks = (n + Noise<T>::kPer - 1) / Noise<T>::kPer;
+  if (!out || n < 0 || blocks > 0xFFFFFFFFLL ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return kErrArgs;
+  if (n == 0) return 0;
+  return launch_ex(uniform_noise_kernel<T>, dim3(grid_for(blocks)),
+                   dim3(kThreads), static_cast<cudaStream_t>(stream),
+                   (options & kProgrammatic) != 0, step, (int64_t)step_value,
+                   make_uint2(k0, k1), stream_word, (int64_t)n, out);
 }
 
 template <typename T>
@@ -540,19 +717,18 @@ int rebuild_flag(const T* pos, const T* ref, int dim, long long n,
 }
 
 template <typename T, bool NVT, bool SUM>
-void launch_finish(bool kt, dim3 grid, dim3 block, cudaStream_t s,
-                   const T* v, int64_t n, const T* kinetic,
-                   const int64_t* step, int64_t step_value, const T* ktemp,
-                   const int64_t* base, double numer, double term1,
-                   double nf, uint2 key, T* out) {
+int launch_finish(bool kt, dim3 grid, dim3 block, cudaStream_t s, bool pdl,
+                  const T* v, int64_t n, const T* kinetic,
+                  const int64_t* step, int64_t step_value, const T* ktemp,
+                  const int64_t* base, double numer, double term1,
+                  double nf, uint2 key, T* out) {
   if (kt)
-    velocity_finish_kernel<T, NVT, SUM, true><<<grid, block, 0, s>>>(
-        v, n, kinetic, step, step_value, ktemp, base, numer, term1, nf, key,
-        out);
-  else
-    velocity_finish_kernel<T, NVT, SUM, false><<<grid, block, 0, s>>>(
-        v, n, kinetic, step, step_value, ktemp, base, numer, term1, nf, key,
-        out);
+    return launch_ex(velocity_finish_kernel<T, NVT, SUM, true>, grid, block,
+                     s, pdl, v, n, kinetic, step, step_value, ktemp, base,
+                     numer, term1, nf, key, out);
+  return launch_ex(velocity_finish_kernel<T, NVT, SUM, false>, grid, block, s,
+                   pdl, v, n, kinetic, step, step_value, ktemp, base, numer,
+                   term1, nf, key, out);
 }
 
 template <typename T>
@@ -560,33 +736,54 @@ int velocity_finish(const T* v, long long n, const T* kinetic,
                     const int64_t* step, long long step_value,
                     const T* ktemp, const int64_t* base, double numer,
                     double term1, double nf, unsigned k0, unsigned k1,
-                    int nvt, T* out, void* stream) {
+                    int nvt, int options, T* out, void* stream) {
   const bool sum = v != nullptr;
   if (!out || n < 0 || (!sum && !kinetic) || !(nf > 0.0) ||
       (base && !ktemp))
     return kErrArgs;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pdl = options & kProgrammatic;
   const dim3 grid(sum ? finish_blocks(n) + (nvt ? 1 : 0) : 1);
   const dim3 block(sum ? kThreads : kDrawThreads);
   const uint2 key = make_uint2(k0, k1);
   const bool kt = ktemp != nullptr;
   if (nvt && sum)
-    launch_finish<T, true, true>(kt, grid, block, s, v, n, kinetic, step,
-                                 step_value, ktemp, base, numer, term1, nf,
-                                 key, out);
-  else if (nvt)
-    launch_finish<T, true, false>(kt, grid, block, s, v, n, kinetic, step,
-                                  step_value, ktemp, base, numer, term1, nf,
-                                  key, out);
-  else if (sum)
-    launch_finish<T, false, true>(false, grid, block, s, v, n, kinetic,
-                                  step, step_value, ktemp, base, numer,
-                                  term1, nf, key, out);
-  else
-    launch_finish<T, false, false>(false, grid, block, s, v, n, kinetic,
-                                   step, step_value, ktemp, base, numer,
-                                   term1, nf, key, out);
-  return (int)cudaGetLastError();
+    return launch_finish<T, true, true>(kt, grid, block, s, pdl, v, n,
+                                        kinetic, step, step_value, ktemp,
+                                        base, numer, term1, nf, key, out);
+  if (nvt)
+    return launch_finish<T, true, false>(kt, grid, block, s, pdl, v, n,
+                                         kinetic, step, step_value, ktemp,
+                                         base, numer, term1, nf, key, out);
+  if (sum)
+    return launch_finish<T, false, true>(false, grid, block, s, pdl, v, n,
+                                         kinetic, step, step_value, ktemp,
+                                         base, numer, term1, nf, key, out);
+  return launch_finish<T, false, false>(false, grid, block, s, pdl, v, n,
+                                        kinetic, step, step_value, ktemp,
+                                        base, numer, term1, nf, key, out);
+}
+
+constexpr int kCensusSize = 14;
+
+// Whether func is one of this file's velocity finish (noise) kernels.
+template <typename T>
+bool finish_kernel(const void* func) {
+  const void* kernels[] = {
+      (const void*)velocity_finish_kernel<T, true, true, true>,
+      (const void*)velocity_finish_kernel<T, true, true, false>,
+      (const void*)velocity_finish_kernel<T, true, false, true>,
+      (const void*)velocity_finish_kernel<T, true, false, false>,
+      (const void*)velocity_finish_kernel<T, false, true, false>,
+      (const void*)velocity_finish_kernel<T, false, false, false>};
+  for (const void* k : kernels)
+    if (k == func) return true;
+  return false;
+}
+
+template <typename T>
+bool noise_kernel(const void* func) {
+  return func == (const void*)uniform_noise_kernel<T>;
 }
 
 // The graph being captured on s and its current dependencies; 0, a CUDA
@@ -616,29 +813,23 @@ int mdtpu_bussi_draw_f64(const int64_t* step, unsigned k0, unsigned k1,
   return bussi_draw<double>(step, k0, k1, dof, out, stream);
 }
 
-// out: n values on the device, 16-byte aligned; stream_word: 1 | rank << 8.
-int mdtpu_uniform_noise_f32(const int64_t* step, unsigned k0, unsigned k1,
-                            unsigned stream_word, long long n, float* out,
+// step: one int64 on the device, or null and step_value; out: n values on
+// the device, 16-byte aligned; stream_word: 1 | rank << 8; options:
+// kProgrammatic or 0.
+int mdtpu_uniform_noise_f32(const int64_t* step, long long step_value,
+                            unsigned k0, unsigned k1, unsigned stream_word,
+                            long long n, float* out, int options,
                             void* stream) {
-  if (!step || !out || n < 0 || (n + 3) / 4 > 0xFFFFFFFFLL) return kErrArgs;
-  if (n == 0) return 0;
-  const int64_t blocks = (n + 3) / 4;
-  uniform_noise_f32_kernel<<<grid_for(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      step, make_uint2(k0, k1), stream_word, (int64_t)n, out);
-  return (int)cudaGetLastError();
+  return uniform_noise<float>(step, step_value, k0, k1, stream_word, n, out,
+                              options, stream);
 }
 
-int mdtpu_uniform_noise_f64(const int64_t* step, unsigned k0, unsigned k1,
-                            unsigned stream_word, long long n, double* out,
+int mdtpu_uniform_noise_f64(const int64_t* step, long long step_value,
+                            unsigned k0, unsigned k1, unsigned stream_word,
+                            long long n, double* out, int options,
                             void* stream) {
-  if (!step || !out || n < 0 || (n + 1) / 2 > 0xFFFFFFFFLL) return kErrArgs;
-  if (n == 0) return 0;
-  const int64_t blocks = (n + 1) / 2;
-  uniform_noise_f64_kernel<<<grid_for(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      step, make_uint2(k0, k1), stream_word, (int64_t)n, out);
-  return (int)cudaGetLastError();
+  return uniform_noise<double>(step, step_value, k0, k1, stream_word, n, out,
+                               options, stream);
 }
 
 // pos, ref: (dim, n) row-major on the device, dim 2 or 3; flag: one bool on the
@@ -665,16 +856,18 @@ int mdtpu_rebuild_flag_f64(const double* pos, const double* ref, int dim,
 // null and step_value; ktemp: NVT's target table on the device, read at
 // step - *base (base null: ktemp[0]), or null and numer = (1 - term1) *
 // the target (else numer = 1 - term1); term1 = exp(-dt / tau); nvt 0: the
-// temperature alone. out: (2,) on the device, scale then temperature.
+// temperature alone; options: kProgrammatic or 0. out: (2,) on the
+// device, scale then temperature.
 int mdtpu_velocity_finish_f32(const float* v, long long n,
                               const float* kinetic, const int64_t* step,
                               long long step_value, const float* ktemp,
                               const int64_t* base, double numer,
                               double term1, double nf, unsigned k0,
-                              unsigned k1, int nvt, float* out,
+                              unsigned k1, int nvt, int options, float* out,
                               void* stream) {
   return velocity_finish<float>(v, n, kinetic, step, step_value, ktemp, base,
-                                numer, term1, nf, k0, k1, nvt, out, stream);
+                                numer, term1, nf, k0, k1, nvt, options, out,
+                                stream);
 }
 
 int mdtpu_velocity_finish_f64(const double* v, long long n,
@@ -682,11 +875,11 @@ int mdtpu_velocity_finish_f64(const double* v, long long n,
                               long long step_value, const double* ktemp,
                               const int64_t* base, double numer,
                               double term1, double nf, unsigned k0,
-                              unsigned k1, int nvt, double* out,
+                              unsigned k1, int nvt, int options, double* out,
                               void* stream) {
   return velocity_finish<double>(v, n, kinetic, step, step_value, ktemp,
-                                 base, numer, term1, nf, k0, k1, nvt, out,
-                                 stream);
+                                 base, numer, term1, nf, k0, k1, nvt, options,
+                                 out, stream);
 }
 
 // The generator's own words, for its known-answer checks: ctr (n, 4) and
@@ -703,9 +896,17 @@ int mdtpu_philox_words(const void* ctr, const void* key, void* out,
 }
 
 // A kernel that does nothing (one block of one warp): the launch floor.
-int mdtpu_empty(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return (int)cudaGetLastError();
+// options kProgrammatic: launched as a programmatic dependent, it waits for
+// the kernel before it and does nothing else.
+int mdtpu_empty(int options, void* stream) {
+  const bool pdl = options & kProgrammatic;
+  const LaunchConfig c(dim3(1), dim3(32), static_cast<cudaStream_t>(stream),
+                       pdl);
+  const cudaError_t rc = cudaLaunchKernelExC(
+      &c.cfg,
+      pdl ? (const void*)empty_kernel<true> : (const void*)empty_kernel<false>,
+      nullptr);
+  return rc ? (int)rc : (int)cudaGetLastError();
 }
 
 // stream: capturing. A conditional handle of the graph being captured,
@@ -758,17 +959,22 @@ int mdtpu_graph_if_end(void* body_stream) {
                                    &body);
 }
 
-// stream: capturing. out[10]: the top-level nodes of the graph being
-// captured: all, kernels, copies, memsets, conditionals, others; of the
-// conditional nodes' dependencies, how many there are and how many are
-// kernel nodes that depend on nothing (-1 where the edges could not be
-// read); the nodes whose type could not be read; and the error code of
-// the Graphviz dump. Types come from the driver (this library's runtime
-// does not name a conditional node's type), edges from the runtime.
-// dot_path: where not null, the graph with its conditional bodies in
-// Graphviz form, kernel names included (cudaGraphDebugDotPrint: the driver
-// names every kernel, this library's and others'). A node or a dump it
-// cannot read is counted, never an error.
+// stream: capturing. out[kCensusSize]: the top-level nodes of the graph
+// being captured: all, kernels, copies, memsets, conditionals, others; of
+// the conditional nodes' dependencies, how many there are and how many are
+// kernel nodes that depend on nothing; the nodes whose type could not be
+// read; the error code of the Graphviz dump; the programmatic edges, and
+// how many of them enter this file's velocity finish and its noise; the
+// error code of the edges' read (where not 0 the edge counts are -1).
+// Types come from the driver (this library's runtime does not name a
+// conditional node's type), edges and their data from the runtime
+// (cudaGraphGetEdges_v2: the first version refuses a graph whose edges
+// carry data, as programmatic ones do), a kernel node's function from the
+// runtime (it resolves this library's kernels). dot_path: where not null,
+// the graph with its conditional bodies in Graphviz form, kernel names
+// included (cudaGraphDebugDotPrint: the driver names every kernel, this
+// library's and others'). A node, an edge or a dump it cannot read is
+// counted, never an error.
 int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
   typedef CUresult (*TypeFn)(CUgraphNode, CUgraphNodeType*);
   void* type_fn = nullptr;
@@ -791,7 +997,7 @@ int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
     rc = cudaGraphGetNodes(graph, nodes.data(), &n);
     if (rc) return (int)rc;
   }
-  for (int i = 0; i < 10; ++i) out[i] = 0;
+  for (int i = 0; i < kCensusSize; ++i) out[i] = 0;
   out[0] = (long long)n;
   std::vector<int> kind(n, -1);
   for (size_t i = 0; i < n; ++i) {
@@ -811,15 +1017,19 @@ int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
   }
   size_t ne = 0;
   std::vector<cudaGraphNode_t> from, to;
-  rc = cudaGraphGetEdges(graph, nullptr, nullptr, &ne);
+  std::vector<cudaGraphEdgeData> data;
+  rc = cudaGraphGetEdges_v2(graph, nullptr, nullptr, nullptr, &ne);
   if (!rc && ne) {
     from.resize(ne);
     to.resize(ne);
-    rc = cudaGraphGetEdges(graph, from.data(), to.data(), &ne);
+    data.resize(ne);
+    rc = cudaGraphGetEdges_v2(graph, from.data(), to.data(), data.data(),
+                              &ne);
   }
   if (rc) {
     cudaGetLastError();
-    out[6] = out[7] = -1;
+    out[6] = out[7] = out[10] = out[11] = out[12] = -1;
+    out[13] = (long long)rc;
   } else {
     auto index = [&](cudaGraphNode_t x) {
       for (size_t i = 0; i < n; ++i)
@@ -828,6 +1038,19 @@ int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
     };
     for (size_t e = 0; e < ne; ++e) {
       const long long t = index(to[e]), f = index(from[e]);
+      if (data[e].type == cudaGraphDependencyTypeProgrammatic) {
+        ++out[10];
+        cudaKernelNodeParams p;
+        if (cudaGraphKernelNodeGetParams(to[e], &p) != cudaSuccess) {
+          cudaGetLastError();
+        } else if (finish_kernel<float>(p.func) ||
+                   finish_kernel<double>(p.func)) {
+          ++out[11];
+        } else if (noise_kernel<float>(p.func) ||
+                   noise_kernel<double>(p.func)) {
+          ++out[12];
+        }
+      }
       if (t < 0 || kind[t] != CU_GRAPH_NODE_TYPE_CONDITIONAL) continue;
       ++out[6];
       if (f < 0 || kind[f] != CU_GRAPH_NODE_TYPE_KERNEL) continue;

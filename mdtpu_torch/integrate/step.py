@@ -161,8 +161,8 @@ def brownian_noise(seed: int, step, shape, dtype, device, rank=None):
     int64 device tensor. On the card a kernel draws it
     (:func:`mdtpu_torch.ops.philox_draws.uniform_noise`), on the CPU its
     plain version, with the same bits."""
-    return philox_draws.uniform_noise(
-        seed, philox_draws.step_tensor(step, device), shape, dtype, rank)
+    return philox_draws.uniform_noise(seed, step, shape, dtype, rank,
+                                      device=device)
 
 
 def brownian_virial_sample(state, virial):

@@ -123,8 +123,11 @@ def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
     summed over a shard ring). ``step``: a host int or a 0-d int64 tensor;
     ``ktemp``: NVT's target (a host float, a 0-d tensor or a
     :class:`TargetTable`), None for NVE. CUDA tensors launch the kernel
-    (adds one to ``velocity_finish.launches``); CPU tensors take the plain
-    version."""
+    (adds one to ``velocity_finish.launches``) as a programmatic dependent
+    of the kernel before it: given ``kinetic``, it reads the step and draws
+    before it waits for that kernel, which must not write a step tensor
+    (the rule of ``philox_draws.launch_options``); summing, it reads
+    everything after the wait. CPU tensors take the plain version."""
     ref = kinetic if kinetic is not None else velocities
     if ref.device.type == "cpu":
         return velocity_finish_plain(velocities, kinetic, seed, step, nf, dt,
@@ -165,7 +168,9 @@ def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
         (ptr(velocities), 0 if velocities is None else velocities.numel(),
          ptr(kinetic), step.data_ptr() if tensor_step else None,
          0 if tensor_step else int(step), ptr(table), ptr(base), numer,
-         term_1, float(nf), k0, k1, int(nvt), out.data_ptr()),
+         term_1, float(nf), k0, k1, int(nvt),
+         philox_draws.launch_options(),
+         out.data_ptr()),
         "velocity_finish", device)
     velocity_finish.launches += 1
     return out[0], out[1]

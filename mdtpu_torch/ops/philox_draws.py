@@ -20,8 +20,11 @@ velocity_finish` instead, the same library's kernel),
 (``rebuild_flag.launches``); :func:`graph_if` opens an IF node in the graph
 being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
 ``begin_capture_to_if_node``, whose handle the rebuild test sets;
-:func:`capture_census` counts the nodes of the graph being captured;
-:func:`empty` launches a kernel that does nothing (the launch floor).
+:func:`capture_census` counts the nodes of the graph being captured and
+its programmatic edges; :func:`empty` launches a kernel that does nothing
+(the launch floor). The noise and the velocity finish launch as
+programmatic dependents (:func:`launch_options`): under capture each takes
+a programmatic edge from the kernel node before it.
 """
 
 from __future__ import annotations
@@ -54,27 +57,32 @@ _P, _I, _U, _L, _D, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 _SIGNATURES = (
     ("mdtpu_bussi_draw_f32", (_P, _U, _U, _D, _P, _P)),
     ("mdtpu_bussi_draw_f64", (_P, _U, _U, _D, _P, _P)),
-    ("mdtpu_uniform_noise_f32", (_P, _U, _U, _U, _L, _P, _P)),
-    ("mdtpu_uniform_noise_f64", (_P, _U, _U, _U, _L, _P, _P)),
+    ("mdtpu_uniform_noise_f32", (_P, _L, _U, _U, _U, _L, _P, _I, _P)),
+    ("mdtpu_uniform_noise_f64", (_P, _L, _U, _U, _U, _L, _P, _I, _P)),
     ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
     ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
     ("mdtpu_velocity_finish_f32", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
-                                   _U, _U, _I, _P, _P)),
+                                   _U, _U, _I, _I, _P, _P)),
     ("mdtpu_velocity_finish_f64", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
-                                   _U, _U, _I, _P, _P)),
+                                   _U, _U, _I, _I, _P, _P)),
     ("mdtpu_philox_words", (_P, _P, _P, _L, _P)),
-    ("mdtpu_empty", (_P,)),
+    ("mdtpu_empty", (_I, _P)),
     ("mdtpu_graph_if_handle", (_P, _P)),
     ("mdtpu_graph_if_begin", (_P, _Q, _P)),
     ("mdtpu_graph_if_end", (_P,)),
     ("mdtpu_capture_census", (_P, ctypes.c_char_p, _P)),
 )
 CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
-          "if_dependencies", "if_root_kernels", "unreadable", "dot_error")
+          "if_dependencies", "if_root_kernels", "unreadable", "dot_error",
+          "programmatic_edges", "programmatic_into_velocity_finish",
+          "programmatic_into_uniform_noise", "edges_error")
 # Kernels the census names, by the text of their names in the graph's dump.
 NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
                  "velocity_finish": "velocity_finish_kernel",
+                 "uniform_noise": "uniform_noise_kernel",
                  "bussi_draw": "bussi_draw_kernel"}
+_OPT_PROGRAMMATIC = 1
+_plain_order = False      # True only inside plain_launch()
 _DOT_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -93,6 +101,34 @@ def launch(fn_name, dtype, args, what, device):
     with torch.cuda.device(device):
         rc = fn(*args, stream)
     _cuda_build.check(lib, NAME, rc, what)
+
+
+def launch_options() -> int:
+    """The options word of a launch of the velocity finish or the noise:
+    as a programmatic dependent of the kernel before it on the stream
+    (Hopper's programmatic dependent launch; a runtime that refuses the
+    attribute raises, nothing is retried without it), or in plain stream
+    order inside :func:`plain_launch`.
+
+    The rule a caller keeps: such a kernel may read its step tensor before
+    it waits for the kernel before it. The noise and the finish given the
+    kinetic energy do (the finish that sums reads it after the wait), so
+    the kernel launched just before either must not write that step
+    tensor. Every other input is read, and every output written, after
+    the wait."""
+    return 0 if _plain_order else _OPT_PROGRAMMATIC
+
+
+@contextlib.contextmanager
+def plain_launch():
+    """For measurements: the velocity finish and the noise launched, or
+    captured, inside this context go in plain stream order."""
+    global _plain_order
+    saved, _plain_order = _plain_order, True
+    try:
+        yield
+    finally:
+        _plain_order = saved
 
 
 def seed_key(seed: int):
@@ -262,22 +298,35 @@ def uniform_noise_plain(seed: int, step, shape, dtype, rank=None):
     return ((2.0 * u - 1.0) * SQRT3).reshape(tuple(shape))
 
 
-def uniform_noise(seed: int, step, shape, dtype, rank=None):
+def uniform_noise(seed: int, step, shape, dtype, rank=None, device=None):
     """The Brownian noise of one step: :func:`uniform_noise_plain`'s values
-    on the step's device (``step`` a 0-d int64 tensor). A CUDA step
-    launches the kernel (adds one to ``uniform_noise.launches``); a CPU
-    step takes the plain version."""
+    on the step's device (``step`` a 0-d int64 tensor, or a host int and
+    ``device``). CUDA launches the kernel (adds one to
+    ``uniform_noise.launches``), as a programmatic dependent of the kernel
+    before it, which must not write the step tensor (the rule of
+    :func:`launch_options`); a host int step goes to the kernel as a
+    number. The CPU takes the plain version."""
     _check_dtype(dtype)
-    step = step_tensor(step, None)
+    if not isinstance(step, torch.Tensor) and device is not None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            return _noise_launch(seed, None, int(step), shape, dtype, rank,
+                                 device)
+    step = step_tensor(step, device)
     if step.device.type == "cpu":
         return uniform_noise_plain(seed, step, shape, dtype, rank)
     if step.device.type != "cuda":
         raise ValueError(f"unsupported device {step.device}")
-    out = torch.empty(tuple(shape), dtype=dtype, device=step.device)
+    return _noise_launch(seed, step, 0, shape, dtype, rank, step.device)
+
+
+def _noise_launch(seed, step, step_value, shape, dtype, rank, device):
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
     k0, k1 = seed_key(seed)
     launch("mdtpu_uniform_noise", dtype,
-            (step.data_ptr(), k0, k1, noise_stream(rank), out.numel(),
-             out.data_ptr()), "uniform_noise", step.device)
+           (None if step is None else step.data_ptr(), step_value, k0, k1,
+            noise_stream(rank), out.numel(), out.data_ptr(),
+            launch_options()), "uniform_noise", device)
     uniform_noise.launches += 1
     return out
 
@@ -330,10 +379,13 @@ def rebuild_flag(positions, ref_positions, skin, out=None, handle=None):
     return out
 
 
-def empty(device="cuda"):
+def empty(device="cuda", programmatic=False):
     """Launch a kernel that does nothing on ``device``'s current stream:
-    its time in a graph of many launches is the card's launch floor."""
-    launch("mdtpu_empty", None, (), "empty", torch.device(device))
+    its time in a graph of many launches is the card's launch floor.
+    ``programmatic``: launched as a programmatic dependent of the kernel
+    before it, which it waits for (and does nothing else)."""
+    launch("mdtpu_empty", None, (_OPT_PROGRAMMATIC if programmatic else 0,),
+           "empty", torch.device(device))
 
 
 def reset_launches():
@@ -391,11 +443,14 @@ def capture_census(device):
     so far, by :data:`CENSUS`: all top-level nodes, kernels, copies,
     memsets, conditional nodes, others; the conditional nodes'
     dependencies and how many of those are kernels that depend on nothing
-    (the drift test at a step's start; -1 where the edges could not be
-    read); nodes whose type could not be read; the dump's error code. Then,
-    from the graph's Graphviz dump (its conditional bodies included), the
-    kernel nodes of each of :data:`NAMED_KERNELS` and ``dot_nodes``, every
-    node of the dump. Raises only where the stream is not capturing."""
+    (the drift test at a step's start); nodes whose type could not be read;
+    the dump's error code; the programmatic edges (a kernel launched as a
+    programmatic dependent of the kernel before it) and how many of them
+    enter a velocity finish and a noise node; the error code of the edges'
+    read (where not 0, every edge count is -1). Then, from the graph's
+    Graphviz dump (its conditional bodies included), the kernel nodes of
+    each of :data:`NAMED_KERNELS` and ``dot_nodes``, every node of the
+    dump. Raises only where the stream is not capturing."""
     lib = _library()
     out = (ctypes.c_longlong * len(CENSUS))()
     fd, path = tempfile.mkstemp(suffix=".dot")

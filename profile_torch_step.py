@@ -2,7 +2,8 @@
 """Where the time of one step goes in the PyTorch/CUDA port, on one GPU.
 
     python3 profile_torch_step.py [--engine cellgrid|plane|slot|neighbor|sharded]
-                                  [--potential lj|user] [--eager]
+                                  [--potential lj|user] [--brownian] [--eager]
+                                  [--plain-launch]
                                   [--tree DIR]
 
 Builds the bench configuration (N = 65,536 Lennard-Jones, rho 0.8, r_c 2.5,
@@ -38,15 +39,29 @@ to issue a window's steps, and the kernels that take the most device
 time; for ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
+``--brownian`` (with ``slot``) steps ``chip_smoke.py``'s Brownian system
+instead (65,536 pseudo-hard spheres at rho 0.5, f32, Brownian(1.0), dt
+1e-5, from its jittered lattice, no melt) and no NVE segment.
 ``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
 instead, as ``chip_smoke.py`` builds it (2D, N = 65,536, rho 0.9, diameters
 U(0.8, 1.2), a user potential without a kernel functor, so every sweep is
 the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice. ``--tree
 DIR`` profiles the package of another checkout (``compare_torch_host.py``
-times two trees with this one script).
+times two trees with this one script). ``--plain-launch`` launches the
+velocity finish and the Brownian noise in plain stream order, where the
+package launches them as programmatic dependents of the kernel before
+them (inside ``philox_draws.plain_launch``); the JSON line says which
+(``launch``), with the card's name and power limit and the package's
+directory. For the velocity finish and the noise the profile also
+gives their device time in the step, the gap before each on the device's
+timeline (from the end of the node before it to its start: a programmatic
+dependent may start before that node ends) and the time from the end of
+that node to the end of each (gap and device time: what the node adds to
+the step).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -67,24 +82,43 @@ def main():
                                  "sharded"),
                         default="cellgrid")
     parser.add_argument("--potential", choices=("lj", "user"), default="lj")
+    parser.add_argument("--brownian", action="store_true",
+                        help="slot: the Brownian system")
     parser.add_argument("--eager", action="store_true",
                         help="slot: launch each step's kernels one by one")
     parser.add_argument("--tree", help="the checkout whose package to time")
+    parser.add_argument("--plain-launch", action="store_true",
+                        help="launch the small kernels in plain stream "
+                             "order")
     args = parser.parse_args()
     if args.eager and args.engine != "slot":
         parser.error("--eager takes --engine slot")
     if args.potential == "user" and args.engine not in ("slot", "sharded"):
         parser.error("--potential user takes --engine slot or sharded")
+    if args.brownian and (args.engine != "slot" or args.potential != "lj"):
+        parser.error("--brownian takes --engine slot and the LJ potential")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
 
     import mdtpu_torch as mt
-    from mdtpu_torch.integrate import slot_step
     if args.tree and not mt.__file__.startswith(os.path.abspath(args.tree)):
         raise SystemExit(f"profile_torch_step: {mt.__file__} is not in "
                          f"{args.tree}")
+    from mdtpu_torch.ops import philox_draws
+    programmatic = hasattr(philox_draws, "plain_launch")
+    plain = args.plain_launch and programmatic
+    with philox_draws.plain_launch() if plain else contextlib.nullcontext():
+        profile(args, programmatic and not plain)
+
+
+def profile(args, programmatic):
+    """Builds, times and profiles the step ``args`` names and prints its
+    JSON line; ``programmatic``: whether the small kernels launch as
+    programmatic dependents."""
+    import mdtpu_torch as mt
+    from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.integrate.step import make_md_step
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
@@ -100,6 +134,13 @@ def main():
         state = state.replace(velocities=initialize_velocities(
             0.5, 1, N, 2, dtype=torch.float64, device="cuda"))
         ensemble = mt.NVT(0.5, 0.01)
+    elif args.brownian:
+        from chip_smoke import brownian_state
+        cutoff = 1.5
+        state = brownian_state()
+        params = mt.Parameters(density=0.5, n_particles=N, dt=1e-5,
+                               potential=mt.PseudoHS())
+        ensemble = mt.Brownian(1.0)
     else:
         cutoff = 2.5
         state = lattice_fluid_state(N, 0.8, 1.0, dtype=torch.float32,
@@ -115,9 +156,10 @@ def main():
     if args.engine == "plane":
         engine = PlaneEngine.create(params.potential, 2.5, 0.3,
                                     state.unitcell, N)
-    with tempfile.TemporaryDirectory() as d:
-        state = mt.run_simulation(state, params, ensemble, 300, 300, d,
-                                  engine=engine, compensated=compensated)
+    if not args.brownian:
+        with tempfile.TemporaryDirectory() as d:
+            state = mt.run_simulation(state, params, ensemble, 300, 300, d,
+                                      engine=engine, compensated=compensated)
     rebuilds = []
     if args.engine == "sharded":
         import torch.distributed as dist
@@ -163,7 +205,7 @@ def main():
     if args.engine == "slot":
         rebuilds = window_rebuilds(totals)
         metrics["step_graph_nodes"] = getattr(advance, "census", None)
-        if args.potential == "lj":
+        if args.potential == "lj" and not args.brownian:
             nve = slot_step.make_slot_advance(
                 params, mt.NVE(), engine, hilo=True,
                 graph=False if args.eager else None)
@@ -174,6 +216,8 @@ def main():
             extra["nve"]["step_graph_nodes"] = getattr(nve, "census", None)
     print(json.dumps({
         "card": card, "engine": args.engine, "potential": args.potential,
+        "ensemble": type(ensemble).__name__,
+        "launch": "programmatic" if programmatic else "plain",
         "route": ("eager" if args.eager else "graph")
         if args.engine == "slot" else "eager",
         "compensated": compensated,
@@ -252,6 +296,7 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
     syncs = calls("cudaStreamSynchronize", "cudaEventSynchronize")
     memcpy = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    gaps = kernel_gaps(prof, GAP_KERNELS)
     # What the device ran, by kind (under graph replay, the step graph's
     # nodes of those kinds; a node that runs in no time is not seen).
     dev_memset = sum(e.count for e in kernels if e.key.startswith("Memset"))
@@ -276,10 +321,39 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
         "device_kernels_per_step": dev_kernels / n_profiled,
         "device_memsets_per_step": dev_memset / n_profiled,
         "device_copies_per_step": dev_memcpy / n_profiled,
+        **gaps,
         "top_device_kernels": [
             {"name": e.key[:90], "calls_per_step": e.count / n_profiled,
              "ms_per_step": dev_us(e) / 1e3 / n_profiled} for e in top],
     }
+
+
+# The kernels whose gap from the node before them the profile reports.
+GAP_KERNELS = {"velocity_finish": "velocity_finish_kernel",
+               "uniform_noise": "uniform_noise"}
+
+
+def kernel_gaps(prof, names):
+    """For each of ``names`` (a label and the text of its kernel's name)
+    that ran: its mean device time in us, the mean gap in us from the end
+    of the device activity that started just before it (a kernel, copy or
+    memset) to its start, on the device's timeline (a negative gap is an
+    overlap), and their sum, from that end to its own."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    out = {}
+    for label, text in names.items():
+        gaps, times = [], []
+        for before, e in zip(events, events[1:]):
+            if text in e.name:
+                gaps.append(e.time_range.start - before.time_range.end)
+                times.append(e.time_range.end - e.time_range.start)
+        if times:
+            out[f"{label}_us"] = sum(times) / len(times)
+            out[f"{label}_gap_us"] = sum(gaps) / len(gaps)
+            out[f"{label}_after_us"] = (sum(times) + sum(gaps)) / len(times)
+    return out
 
 
 def sharded_parts(engine, state, reps=200):

@@ -45,6 +45,11 @@ Brownian noise and the rebuild test (at the threshold's ulp, on rows off
 tail against the torch composition on the card (bit for bit given the
 kinetic energy) and summing the velocities itself; the captured and eager
 slot routes bit for bit, and a captured step's nodes read from its graph.
+The finish and the noise launch as programmatic dependents: 100 finishes
+overlapping in one graph each equal to the call alone, the programmatic
+edge into a captured step's finish (NVT, NVE) or noise (Brownian), the
+noise in memory the kernel before it reads, the same bits from the plain
+launch, and the summing finish's step written by the kernel just before.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -53,6 +58,7 @@ installed there):
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import contextlib
 import dataclasses
 import os
 import runpy
@@ -2087,3 +2093,194 @@ def test_captured_slot_step_nodes(cuda, ensemble):
         # The IF node's one dependency: the drift test, at the step's start.
         assert nodes["if_dependencies"] == nodes["if_root_kernels"] == 1
         assert nodes["kernels"] < nodes["nodes"] <= nodes["dot_nodes"]
+
+
+@pytest.mark.parametrize("kind", ["ramp", "nve", "given_kinetic"])
+def test_velocity_finish_instances_overlapping_in_a_graph(cuda, kind):
+    """100 finishes back to back in one captured graph, each on velocities
+    of its own and launched as a programmatic dependent of the one before
+    (so they overlap): each equals the same call launched alone, bit for
+    bit. Overlapping instances never share the ticket or the handover."""
+    from mdtpu_torch.integrate import thermostat
+    from mdtpu_torch.integrate import velocity_finish as vf
+    from mdtpu_torch.ops import philox_draws as draws
+    assert draws.launch_options() == 1
+    n = 124875
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vs = [torch.randn((3, n), generator=g, device=cuda) for _ in range(100)]
+    kins = [thermostat.compute_kinetic(v) for v in vs]
+    target = _finish_target("nve" if kind == "nve" else "ramp",
+                            torch.float32, cuda)(70)
+    step = torch.tensor(70, device=cuda)
+
+    def call(i):
+        given = kind == "given_kinetic"
+        return vf.velocity_finish(None if given else vs[i],
+                                  kins[i] if given else None, 5, step,
+                                  3.0 * n, 0.002, 0.4, target)
+
+    alone = []
+    for i in range(len(vs)):
+        alone.append(torch.stack(call(i)))
+        torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call(i) for i in range(len(vs))]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, out in enumerate(outs):
+            assert torch.equal(torch.stack(out), alone[i]), i
+
+
+def test_captured_steps_take_programmatic_edges(cuda):
+    """A captured NVT and NVE slot step (4096 LJ, f32) enters its velocity
+    finish by a programmatic edge, and a Brownian slot step its noise, each
+    the graph's only one, read from the graph's edges; a step's nodes are
+    those of the same step captured with the plain launch."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.ops import philox_draws as draws
+    n = 4096
+    lj = LennardJones(r_cut=2.5)
+    md = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                             jitter=JITTER, device=cuda)
+    md_eng = CellGridEngine.create(lj, 2.5, 0.3, md.unitcell, n)
+    md_slots = slot_step.slot_forces(slot_step.slotify(md, md_eng), md_eng)
+    bd = lattice_fluid_state(n, 0.5, 1.0, dtype=torch.float32, cutoff=1.5,
+                             jitter=0.05, device=cuda)
+    bd_eng = CellGridEngine.create(PseudoHS(), 1.5, 0.3, bd.unitcell, n)
+    bd_slots = slot_step.slotify(bd, bd_eng)
+    cases = {
+        "nvt": (mdtpu_torch.Parameters(0.8, n, 0.002, lj),
+                mdtpu_torch.NVT(1.0, 0.4), md_eng, md_slots, False,
+                "programmatic_into_velocity_finish"),
+        "nve": (mdtpu_torch.Parameters(0.8, n, 0.002, lj),
+                mdtpu_torch.NVE(), md_eng, md_slots, True,
+                "programmatic_into_velocity_finish"),
+        "brownian": (mdtpu_torch.Parameters(0.5, n, 1e-5, PseudoHS()),
+                     mdtpu_torch.Brownian(1.0), bd_eng, bd_slots, False,
+                     "programmatic_into_uniform_noise"),
+    }
+    for name, (params, ens, eng, slots, hilo, into) in cases.items():
+        census = {}
+        for programmatic in (True, False):
+            with (contextlib.nullcontext() if programmatic
+                  else draws.plain_launch()):
+                advance = slot_step.make_slot_advance(params, ens, eng,
+                                                      hilo=hilo)
+                advance(slots, 5)
+            assert advance.graph and sorted(advance.census) == ["last",
+                                                                "lean"]
+            census[programmatic] = advance.census
+        for variant, nodes in census[True].items():
+            plain = census[False][variant]
+            assert nodes["edges_error"] == plain["edges_error"] == 0
+            assert nodes[into] == nodes["programmatic_edges"] == 1, (
+                name, variant, nodes)
+            assert plain["programmatic_edges"] == 0
+            for key in ("nodes", "kernels", "copies", "memsets",
+                        "conditionals", "if_dependencies", "dot_nodes"):
+                assert nodes[key] == plain[key], (name, variant, key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_uniform_noise_in_memory_its_predecessor_reads(cuda, dtype):
+    """In a captured graph the noise's output takes the memory of a tensor
+    that the kernel just before it reads (the graph's pool hands it back
+    once that kernel is enqueued): that kernel's result is unchanged and
+    the noise is its plain version's, at every replay."""
+    from mdtpu_torch.ops import philox_draws as draws
+    shape = (3, 124875)
+    src = torch.randn(shape, generator=torch.Generator(device=cuda)
+                      .manual_seed(8), device=cuda).to(dtype)
+    step = torch.tensor(41, device=cuda)
+    draws.uniform_noise(11, step, shape, dtype)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a = src * 3.0                   # written by the kernel before
+        read = a * a + 1.0              # the kernel just before the noise
+        freed = a.data_ptr()
+        del a
+        noise = draws.uniform_noise(11, step, shape, dtype)
+    assert noise.data_ptr() == freed
+    want_read = src * 3.0
+    want_read = want_read * want_read + 1.0
+    want_noise = draws.uniform_noise(11, torch.tensor(41), shape, dtype)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(read, want_read)
+        assert torch.equal(noise.cpu(), want_noise)
+
+
+def test_other_launches_give_the_same_bits(cuda):
+    """The plain launch gives the bits of the launch as a programmatic
+    dependent: the finish summing (NVT on a table and at a host target,
+    NVE; three value counts), given K, and the noise (both dtypes, a
+    rank)."""
+    from mdtpu_torch.integrate import velocity_finish as vf
+    from mdtpu_torch.ops import philox_draws as draws
+    g = torch.Generator(device=cuda).manual_seed(2)
+    step = torch.tensor(70, device=cuda)
+
+    def run():
+        out = []
+        for n in (3 * 124875, 4095, 3 * 262144 + 7):
+            v = torch.randn(n, generator=g, device=cuda)
+            kin = (0.5 * (v.double() ** 2).sum()).float()
+            for kind in FINISH_KINDS:
+                target = _finish_target(kind, torch.float32, cuda)(70)
+                out.append(torch.stack(vf.velocity_finish(
+                    v, None, 5, step, 3.0 * n, 0.002, 0.4, target)))
+                out.append(torch.stack(vf.velocity_finish(
+                    None, kin, 5, step, 3.0 * n, 0.002, 0.4, target)))
+        for shape in ((3, 124875), (3, 263424), (2, 7)):
+            for dtype in (torch.float32, torch.float64):
+                out.append(draws.uniform_noise(11, step, shape, dtype, 3))
+        return out
+
+    g.manual_seed(2)
+    want = run()
+    with draws.plain_launch():
+        g.manual_seed(2)
+        got = run()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["ramp", "fixed", "nve"])
+def test_velocity_finish_summing_reads_a_step_written_just_before(cuda,
+                                                                    kind):
+    """The finish that sums reads its step after it waits for the kernel
+    before it: in one captured graph, 50 times over, a kernel adds one to
+    the step tensor and the finish (a programmatic dependent of that
+    kernel) follows; each finish equals the call alone at its step, bit
+    for bit, at every replay."""
+    from mdtpu_torch.integrate import velocity_finish as vf
+    n = 124875
+    v = torch.randn((3, n), generator=torch.Generator(device=cuda)
+                    .manual_seed(4), device=cuda)
+    targets = [_finish_target(kind, torch.float32, cuda)(61 + i)
+               for i in range(50)]
+    step = torch.tensor(60, device=cuda)
+
+    def call(s, i):
+        return torch.stack(vf.velocity_finish(v, None, 5, s, 3.0 * n, 0.002,
+                                              0.4, targets[i]))
+
+    alone = [call(torch.tensor(61 + i, device=cuda), i) for i in range(50)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = []
+        for i in range(50):
+            step.add_(1)
+            outs.append(call(step, i))
+    for _ in range(3):
+        step.fill_(60)
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, out in enumerate(outs):
+            assert torch.equal(out, alone[i]), i

@@ -167,3 +167,33 @@ def test_counters_snapshot_difference_add_restore():
         assert wrapper.launches == 14
     finally:
         counters.unregister(wrapper, "launches")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_noise_of_a_host_step_is_the_tensor_steps(dtype):
+    """A host int step (the kernel takes it as a number on the card, with
+    no fill before it) gives the noise of the same step as a tensor, through
+    the wrapper and through ``brownian_noise``, with and without a rank."""
+    for rank in (None, 2):
+        want = draws.uniform_noise_plain(5, torch.tensor(37), (3, 11), dtype,
+                                         rank)
+        got = draws.uniform_noise(5, 37, (3, 11), dtype, rank, device="cpu")
+        seam = tstep.brownian_noise(5, 37, (3, 11), dtype, "cpu", rank)
+        assert torch.equal(got, want) and torch.equal(seam, want)
+
+
+def test_launch_options_word():
+    """The options word of the finish's and the noise's launches: 1 (as
+    programmatic dependents) but inside ``plain_launch``, where it is 0;
+    the context restores it on exit, also after an error and when nested."""
+    assert draws.launch_options() == 1
+    with draws.plain_launch():
+        assert draws.launch_options() == 0
+        with draws.plain_launch():
+            assert draws.launch_options() == 0
+        assert draws.launch_options() == 0
+    assert draws.launch_options() == 1
+    with pytest.raises(RuntimeError):
+        with draws.plain_launch():
+            raise RuntimeError
+    assert draws.launch_options() == 1
