@@ -137,7 +137,14 @@
    and a host target, given K with each, NVE) and the noise (both shapes,
    f32 and f64) are timed both ways, as programmatic dependents (how they
    launch) and in plain stream order, in turns, and so is the floor (with
-   the attribute the empty kernel waits for the one before).
+   the attribute the empty kernel waits for the one before). Verlet
+   phase: the slot step's Verlet chain (``csrc/verlet_update.cu``:
+   kick-drift, with and without the hi/lo low word, kick, rescale) at the
+   bench's slots against the torch composition on the card bit for bit
+   (f32 and f64, compensated and not, in place and into new tensors, the
+   step counter advanced), each timed by a graph of 100 in-place calls
+   beside the composition timed the same way, the launch floor and its
+   bound (the bytes it moves).
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -229,7 +236,10 @@
    Each MD step of the B1 path finishes through ``velocity_finish`` (the
    NVT steps draw there; ``bussi_draw`` is not launched) and tests
    ``rebuild_flag`` once; each Brownian step in slots draws through
-   ``uniform_noise``. On the card the slot route runs captured: each step
+   ``uniform_noise``; each MD slot step runs its Verlet chain through
+   ``verlet_update``: kick-drift and kick once a step, the rescale once an
+   NVT step (none on the Brownian, B2 and list paths). On the card the slot
+   route runs captured: each step
    one CUDA-graph launch, the drift test setting the handle of the
    conditional node that holds the rebuild; the counts a capture recorded
    are added at every replay.
@@ -246,7 +256,9 @@
    launches, and host reads a step (none inside a captured segment, or the
    run fails), and each captured step's nodes read from its graph: one
    node for the drift test, one for the velocity finish, one conditional
-   node and no memset, or the run fails. Every captured step of the three
+   node, one for each of the Verlet chain's launches (3 NVT, 2 NVE) and no
+   memset, the lean step at most 8 nodes (NVT) or 7 (NVE) and no copy, or
+   the run fails. Every captured step of the three
    paths enters its velocity finish (MD) or its noise (Brownian) by one
    programmatic edge, its graph's only one, or the run fails.
 6. Prints the ``kernels`` JSON line, then as the last line
@@ -278,7 +290,8 @@ NVT_STEPS, NVE_STEPS = 600, 500
 THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
 SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs",
-           "rdf_histogram", "neighbor_list", "philox_draws", "lammps_format")
+           "rdf_histogram", "neighbor_list", "philox_draws", "verlet_update",
+           "lammps_format")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -1220,9 +1233,12 @@ def pair_list_check(mt, record, state64, params):
     the same order, the same bits: both compute each displacement and r^2
     with the same operations), the reduction against its plain version
     (f64: rtol 1e-12 energy and virial, 1e-10 per particle; f32: 1e-5), the
-    lean reduction's forces the full one's bits, two launches bit for bit.
-    Timed by graph replay, the reduction also against ``index_add_`` (one
-    PyTorch call computing the forces' segmented sum, as its yardstick)."""
+    lean reduction's forces the full one's bits and the plain version's
+    in list order (on the CPU), two launches bit for bit.
+    Timed by graph replay; the reduction (small beside a replay's host
+    cost) by a graph of ``MANY_CALLS`` calls, as ``index_add_`` beside it
+    (one PyTorch call computing the forces' segmented sum, as its
+    yardstick)."""
     from mdtpu_torch.ops import cell_pairs as cp
     pot = params.potential
     for dtype in (torch.float64, torch.float32):
@@ -1259,6 +1275,11 @@ def pair_list_check(mt, record, state64, params):
         torch.cuda.synchronize()
         r0 = cp.pair_reduce_plain(l1, f, u)
         lean = cp.pair_reduce(l1, f)
+        # The plain version on the CPU adds in list order, as each thread
+        # of the kernel does: the forces' bits.
+        cpu = cp.PairList(**{fl.name: getattr(l1, fl.name).cpu()
+                             for fl in dataclasses.fields(cp.PairList)})
+        in_order = cp.pair_reduce_plain(cpu, f.cpu(), u.cpu())[2]
         worst, max_abs, rms = force_error(r1[2], r0[2], N_BENCH)
         f64 = dtype == torch.float64
         rtol_ew, tol_f = (1e-12, 1e-10) if f64 else (1e-5, 1e-5)
@@ -1307,14 +1328,19 @@ def pair_list_check(mt, record, state64, params):
                "force_err_per_particle": worst, "max_abs_err": max_abs,
                "rms_force": rms,
                "lean_forces_bit_equal": torch.equal(lean[2], r1[2]),
+               "forces_bit_equal_to_plain_in_list_order": torch.equal(
+                   r1[2].cpu(), in_order),
                "repeats_bit_for_bit": repeats(
                    lambda *a: cp.pair_reduce(l1, f, u), (), r1),
-               "ms": cuda_time_ms(g_red.replay, 20, 3),
-               "lean_ms": cuda_time_ms(g_lean.replay, 20, 3),
+               "ms": many_ms(lambda: cp.pair_reduce(l1, f, u)),
+               "lean_ms": many_ms(lambda: cp.pair_reduce(l1, f)),
+               "replay_ms": cuda_time_ms(g_red.replay, 20, 3),
+               "lean_replay_ms": cuda_time_ms(g_lean.replay, 20, 3),
+               "staged": cp.staged_reduce(cap, l1.count.shape[0]),
                "plain_ms": cuda_time_ms(lambda: cp.pair_reduce_plain(
                    l1, f, u), 3, 1),
-               "library_ms": cuda_time_ms(lambda: force_lib.index_add_(
-                   1, own, fd), 20, 3),
+               "library_ms": many_ms(lambda: force_lib.index_add_(
+                   1, own, fd)),
                "library_call": "Tensor.index_add_ (forces only)",
                "kernels_a_call": len(reduce_kernels),
                "lean_bound_ms": lean_bound["reduce"]["bound_ms"],
@@ -1323,6 +1349,7 @@ def pair_list_check(mt, record, state64, params):
         ok = (math.isfinite(float(r1[0])) and rec["rel_err_energy"] <= rtol_ew
               and rec["rel_err_virial"] <= rtol_ew and worst <= tol_f
               and rec["lean_forces_bit_equal"] and rec["repeats_bit_for_bit"]
+              and rec["forces_bit_equal_to_plain_in_list_order"]
               and len(reduce_kernels) == 1)
         record(rec, ok, f"pair_reduce {tag}")
         if not f64:
@@ -3689,6 +3716,101 @@ def draws_check(mt):
     return results, failures
 
 
+VERLET_SOURCE = "mdtpu_torch/csrc/verlet_update.cu"
+VERLET_REPLACES = "mdtpu/integrate/slot_step.py:579"
+VERLET_COVERS = ("mdtpu/integrate/slot_step.py:579-605 make_slot_step's "
+                 "Verlet update with mdtpu/integrate/step.py:78-100 "
+                 "md_velocity_finish's rescale (XLA, fused into the "
+                 "segment's while_loop; no pl.pallas_call)")
+# Arrays each variant reads and writes at the bench's compensated step
+# (kick-drift: f, v, vc, x, xc in, v, vc, x, xc out; with the hi/lo low
+# word one more out; kick: f, v, vc in, v, vc out; rescale: v in, v, vc
+# out).
+VERLET_ARRAYS = {"kick_drift": 9, "kick_drift_hilo": 10, "kick": 5,
+                 "rescale": 3}
+
+
+def verlet_check(mt):
+    """The Verlet update's three variants (``integrate/verlet_update.py``)
+    on the card at the bench's slots (3, 124,875): each against its plain
+    version on the card's tensors (the torch composition the step ran),
+    bit for bit, at f32 and f64, compensated and not, kick-drift also with
+    the hi/lo low word, in place and into new tensors, the step counter
+    advanced; two launches alike. Each timed by :func:`many_ms` (a graph of
+    ``MANY_CALLS`` in-place calls), its plain version the same way, beside
+    the launch floor; its bound the bytes it must move."""
+    from mdtpu_torch.integrate import verlet_update as vu
+    shape = (3, BENCH_GEOMETRY[1] * math.prod(BENCH_GEOMETRY[0]))
+    half, dt = 0.001, 0.002
+    failures, results = [], {}
+
+    def rows(dtype):
+        g = torch.Generator(device="cuda").manual_seed(12)
+        f = torch.randn(shape, device="cuda", generator=g) * 30.0
+        v = torch.randn(shape, device="cuda", generator=g)
+        vc = torch.randn(shape, device="cuda", generator=g) * 1e-8
+        x = torch.rand(shape, device="cuda", generator=g) * 40.0
+        xc = torch.randn(shape, device="cuda", generator=g) * 1e-7
+        return [t.to(dtype) for t in (f, v, vc, x, xc)]
+
+    same = True
+    for dtype in (torch.float32, torch.float64):
+        for comp in (True, False):
+            f, v, vc, x, xc = rows(dtype)
+            scale = torch.tensor(1.0123, dtype=dtype, device="cuda")
+            want = vu.kick_drift_plain(f, v, vc, x, xc, half, dt, comp, comp)
+            lo = torch.empty_like(xc) if comp else None
+            got = vu.kick_drift(f, v, vc, x, xc, half, dt, comp, lo=lo)
+            again = vu.kick_drift(f, v, vc, x, xc, half, dt, comp)
+            same &= all(torch.equal(a, b) and torch.equal(a, c)
+                        for a, b, c in zip(got, want, again))
+            same &= lo is None or torch.equal(lo, want[4])
+            step = torch.tensor(599, device="cuda")
+            v, vc = got[0], got[1].clone()
+            kv, kvc = vu.kick_plain(f, v, vc, half, comp)
+            vu.kick(f, v, vc, half, comp, step)
+            same &= torch.equal(v, kv) and torch.equal(vc, kvc)
+            rv, rvc = vu.rescale_plain(v, vc, scale, comp)
+            vu.rescale(v, vc, scale, comp, step)
+            same &= torch.equal(v, rv) and torch.equal(vc, rvc)
+            same &= int(step) == 601
+    if not same:
+        failures.append("verlet_update differs from its plain version")
+    floor = launch_floor_ms()
+    f, v, vc, x, xc = rows(torch.float32)
+    one = torch.tensor(1.0, device="cuda")
+    lo = torch.empty_like(xc)
+    n = v.numel()
+    calls = {
+        "kick_drift": (
+            lambda: vu.kick_drift(f, v, vc, x, xc, half, dt, True,
+                                  out=(v, vc, x, xc)),
+            lambda: vu.kick_drift_plain(f, v, vc, x, xc, half, dt, True)),
+        "kick_drift_hilo": (
+            lambda: vu.kick_drift(f, v, vc, x, xc, half, dt, True,
+                                  out=(v, vc, x, xc), lo=lo),
+            lambda: vu.kick_drift_plain(f, v, vc, x, xc, half, dt, True,
+                                        True)),
+        "kick": (lambda: vu.kick(f, v, vc, half, True),
+                 lambda: vu.kick_plain(f, v, vc, half, True)),
+        "rescale": (lambda: vu.rescale(v, vc, one, True),
+                    lambda: vu.rescale_plain(v, vc, one, True)),
+    }
+    for name, (kernel, plain) in calls.items():
+        b = VERLET_ARRAYS[name] * 4 * n / HBM_BYTES_PER_S * 1e3
+        results[name] = {
+            "max_abs_err": 0.0 if same else float("inf"),
+            "ms": many_ms(kernel), "plain_ms": many_ms(plain),
+            "plain_timing": "a graph of the composition's calls, as ms",
+            "bound_ms": b, "bound_by": "bytes",
+            "bound_meetable_ms": max(b, floor), "launch_floor_ms": floor,
+            "library_ms": None,
+            "library_call": "none, no single PyTorch call",
+            "shape": list(shape), "dtype": "float32"}
+        log(json.dumps({"verlet_update": name, **results[name]}))
+    return results, failures
+
+
 def _gamma_attempts(draws, seed, step, dof):
     """The Marsaglia-Tsang attempts the draw at ``step`` took."""
     k0, k1 = draws.seed_key(seed)
@@ -3860,15 +3982,24 @@ def graph_paths(mt, workdir):
         # One node each for the drift test (no memset, no kernel copying
         # the flag into the handle) and the velocity finish; the rebuild
         # in one conditional node.
+        # The Verlet chain: kick-drift, kick and NVT's rescale, one node
+        # each; the lean step at most 8 nodes (NVT) or 7 (NVE), none of
+        # them a copy into the buffers.
+        chain = 3 if ens_name == "nvt" else 2
         for variant, nodes in census.items():
             if (nodes["rebuild_flag"], nodes["velocity_finish"],
                     nodes["bussi_draw"], nodes["memsets"],
                     nodes["conditionals"], nodes["if_dependencies"],
                     nodes["if_root_kernels"], nodes["unreadable"],
                     nodes["programmatic_into_velocity_finish"],
-                    nodes["edges_error"]) != (1, 1, 0, 0, 1, 1, 1, 0, 1, 0):
+                    nodes["edges_error"], nodes["verlet_update"]) != (
+                        1, 1, 0, 0, 1, 1, 1, 0, 1, 0, chain):
                 failures.append(f"graph {ens_name} {variant} step nodes: "
                                 f"{nodes}")
+        lean = census["lean"]
+        if lean["copies"] or lean["nodes"] > chain + 5:
+            failures.append(f"graph {ens_name} lean step: {lean['nodes']} "
+                            f"nodes, {lean['copies']} copies")
         rec["segment_profile"][ens_name] = {"profiles": profiles,
                                             "nodes": census}
     return rec, failures
@@ -3886,6 +4017,7 @@ def reset_counts():
     0."""
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.integrate import velocity_finish as vf
+    from mdtpu_torch.integrate import verlet_update as vu
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
@@ -3893,6 +4025,7 @@ def reset_counts():
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
     vf.velocity_finish.launches = 0
+    vu.reset_launches()
     cs.reset_launches()
     cp.reset_launches()
     draws.reset_launches()
@@ -3906,6 +4039,7 @@ def launch_counts():
     """Each wrapper's launches (total and lean, periodic and slab) since
     the last :func:`reset_counts`."""
     from mdtpu_torch.integrate import velocity_finish as vf
+    from mdtpu_torch.integrate import verlet_update as vu
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
@@ -3933,7 +4067,10 @@ def launch_counts():
         "bussi_draw": draws.bussi_draw.launches,
         "velocity_finish": vf.velocity_finish.launches,
         "uniform_noise": draws.uniform_noise.launches,
-        "rebuild_flag": draws.rebuild_flag.launches}
+        "rebuild_flag": draws.rebuild_flag.launches,
+        "verlet_kick_drift": vu.kick_drift.launches,
+        "verlet_kick": vu.kick.launches,
+        "verlet_rescale": vu.rescale.launches}
 
 
 def own_launches(n):
@@ -3962,7 +4099,10 @@ def own_launches(n):
         "bussi_draw": n["bussi_draw"],
         "velocity_finish": n["velocity_finish"],
         "uniform_noise": n["uniform_noise"],
-        "rebuild_flag": n["rebuild_flag"]}
+        "rebuild_flag": n["rebuild_flag"],
+        "verlet_kick_drift": n["verlet_kick_drift"],
+        "verlet_kick": n["verlet_kick"],
+        "verlet_rescale": n["verlet_rescale"]}
 
 
 def run_paths(mt, workdir):
@@ -4142,6 +4282,19 @@ def run_paths(mt, workdir):
             or bds["launches"]["rebuild_flag"] < BROWNIAN_STEPS):
         failures.append(f"b1/brownian_slot: draw launches {b1['launches']} "
                         f"{bds['launches']}")
+    # Every MD slot step runs the Verlet chain as the kernel's launches:
+    # kick-drift and kick once a step, the rescale once an NVT step; the
+    # Brownian slot step and the particle-order paths none.
+    n = b1["launches"]
+    if (n["verlet_kick_drift"] != steps or n["verlet_kick"] != steps
+            or n["verlet_rescale"] != NVT_STEPS):
+        failures.append(f"b1: verlet_update launches {n}")
+    for rec in (b2, bd, bds, nlp):
+        if (rec["launches"]["verlet_kick_drift"]
+                or rec["launches"]["verlet_kick"]
+                or rec["launches"]["verlet_rescale"]):
+            failures.append(f"{rec['path']}: launched verlet_update "
+                            f"{rec['launches']}")
     if fire["launches"]["cell_sweep_lean"] != N_FIRE_ITERS + N_FIRE_DESCENT:
         failures.append(f"fire: launches {fire['launches']}")
     if pack["launches"]["cell_sweep_lean"] < 1:
@@ -4222,6 +4375,8 @@ def main():
     failures += list_slab_failures
     draws_results, draws_failures = draws_check(mt)
     failures += draws_failures
+    verlet_results, verlet_failures = verlet_check(mt)
+    failures += verlet_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -4314,6 +4469,7 @@ def main():
     user = by_path["user"]
     pairs_rec = results[("cell_pairs", "config4_lattice", "float64")]
     reduce_rec = results[("pair_reduce", "config4_lattice", "float64")]
+    reduce_f32 = results[("pair_reduce", "config4_lattice", "float32")]
     kernels["kernels"] += [
         entry("cell_pairs", "mdtpu_torch/csrc/cell_pairs.cu", pallas_cell,
               user["cell_pairs"], pairs_rec,
@@ -4325,7 +4481,14 @@ def main():
                   "lean_bound_ms": reduce_rec["lean_bound_ms"],
                   "lean_bound_by": reduce_rec["lean_bound_by"],
                   "kernels_a_call": reduce_rec["kernels_a_call"],
-                  "library_call": reduce_rec["library_call"]}),
+                  "library_call": reduce_rec["library_call"],
+                  "replay_ms": reduce_rec["replay_ms"],
+                  "lean_replay_ms": reduce_rec["lean_replay_ms"],
+                  "staged": reduce_rec["staged"],
+                  "f32": {k: reduce_f32[k] for k in (
+                      "ms", "lean_ms", "replay_ms", "lean_replay_ms",
+                      "bound_ms", "lean_bound_ms", "library_ms",
+                      "max_abs_err")}}),
          "library_ms": reduce_rec["library_ms"]},
     ]
     # The RDF histogram is XLA in the JAX package (no pl.pallas_call). Its
@@ -4450,6 +4613,25 @@ def main():
                     by_path[path][kname], rec, extra),
             "library_ms": rec["library_ms"],
             "covers": DRAWS_COVER[kname]})
+    # The slot step's Verlet chain (XLA in the JAX package, no
+    # pl.pallas_call): one kernel's three variants, each with its launches
+    # on the B1 path and its nodes in a captured bench step (the hi/lo
+    # kick-drift rides on the kick-drift's entry).
+    for kname, label in (("kick_drift", "verlet_kick_drift"),
+                         ("kick", "verlet_kick"),
+                         ("rescale", "verlet_rescale")):
+        rec = verlet_results[kname]
+        extra = {k: v for k, v in rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        extra["covers"] = VERLET_COVERS
+        extra["kernel"] = "verlet_update_kernel"
+        if kname == "kick_drift":
+            extra["hilo"] = {k: verlet_results["kick_drift_hilo"][k]
+                             for k in ("ms", "plain_ms", "bound_ms")}
+        kernels["kernels"].append(entry(label, VERLET_SOURCE,
+                                        VERLET_REPLACES, by_path["b1"][label],
+                                        rec, extra))
     log(json.dumps({"launch_floor_ms": floor, "calls_a_graph": MANY_CALLS,
                     "graph_step_nodes": {
                         e: r["nodes"] for e, r in

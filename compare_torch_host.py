@@ -19,7 +19,9 @@ step by step) and ``--engine slot --brownian`` (the Brownian slot step,
 both ways), then the
 ``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
 bench configuration, in slots and on ``PlaneEngine``) and the Brownian
-paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. The host's clock moves with the machine and with what
+paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. ``--only
+slot``: the slot step captured and eager and the ``b1`` path alone (~5
+min). The host's clock moves with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
 ms, idle share, launches, host reads and the kernels and memsets the device
@@ -55,9 +57,13 @@ ENGINES = {"cellgrid": ("--engine", "cellgrid"),
                                           "--plain-launch")}
 
 
-def paths_worker(tree):
-    """Run the tree's ``b1``, ``b2`` and Brownian paths; print their
-    steps/s."""
+SLOT_ENGINES = ("slot", "slot_eager")
+PATHS = ("b1", "b2", "brownian", "brownian_slot")
+
+
+def paths_worker(tree, only=PATHS):
+    """Run the tree's ``b1``, ``b2`` and Brownian paths (those of
+    ``only``); print their steps/s."""
     sys.path.insert(0, tree)
     import chip_smoke
     import mdtpu_torch as mt
@@ -76,6 +82,8 @@ def paths_worker(tree):
                 ("brownian", lambda: chip_smoke.brownian_path(mt, workdir)),
                 ("brownian_slot", lambda: chip_smoke.brownian_path(
                     mt, workdir, slots=True))):
+            if label not in only:
+                continue
             rec, more = run()
             failures += more
             out[f"{label}_steps_per_s"] = rec["steps_per_s"]
@@ -110,9 +118,13 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="directory of the other tree")
     parser.add_argument("--paths-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--paths", default=",".join(PATHS),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--only", choices=("slot",),
+                        help="the slot step and the b1 path alone")
     args = parser.parse_args()
     if args.paths_worker:
-        return paths_worker(args.paths_worker)
+        return paths_worker(args.paths_worker, args.paths.split(","))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("compare_torch_host: no CUDA device")
@@ -123,6 +135,8 @@ def main():
         tree = trees[label]
         rec = {"tree": label, "run": run}
         for engine, flags in ENGINES.items():
+            if args.only and engine not in SLOT_ENGINES:
+                continue
             prof = last_json([sys.executable,
                               os.path.join(HERE, "profile_torch_step.py"),
                               "--tree", tree, *flags], tree)
@@ -131,7 +145,9 @@ def main():
                 rec[engine]["nve"] = step_record(prof["nve"],
                                                  prof.get("launch"))
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
-                              "--paths-worker", tree], tree))
+                              "--paths-worker", tree, "--paths",
+                              "b1" if args.only else ",".join(PATHS)],
+                             tree))
         print(json.dumps(rec), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -22,8 +22,8 @@ and the bench's start in the tilted box [[L, L/8, L/12], [0, L, L/6], [0,
 0, L]] at f32, each at r_max 3 and at half the narrowest width, the
 lattice at 262,144 at r_max 3 (f64, f32), and ``validate_torch.py``'s
 triple point shape (4,096 at rho 0.84, a lattice jittered by 0.05, f32)
-at r_max 3; for the list's reduction, config 4's list (f64, f32) with the
-user potential's values on it.
+at r_max 3; for the list's reduction, config 4's list (f64, f32) and the
+3D lattice's (f32) with the user potential's values on them.
 Then each tree runs ``cell_sweep``
 and ``plane_sweep`` (the hi/lo words: ``cell_sweep_hilo``; the Brownian
 grid: ``plane_sweep``; the list cases: ``pair_list`` and ``pair_sweep`` with
@@ -49,7 +49,26 @@ time by graph replay of what can be captured (the old tree's whole call;
 this tree's launch on its plan, the cell route's binning included) and
 the whole call's time between two CUDA events, host included, the median
 of 5; for ``pair_reduce``: the kernels a full call launches, by the
-profiler); then the card's name and power limit.
+profiler, and each call's device time also by a graph of 100 calls,
+``many_ms``, the host's replay spread over them); then the card's name and
+power limit.
+
+``--only slot`` holds the slot advance of the two trees to each other
+bit for bit on the bench's shapes (65,536 at f32, from this tree's start:
+the bench's lattice, its cubic box and the tilted one [[L, L/8, L/12],
+[0, L, L/6], [0, 0, L]], and ``bench_2d.py``'s disks): NVT(1.0, 0.4) then
+NVE on the hi/lo sweep (the 2D path's NVE on the plain one), each leg in
+segments of one step (25 of them, each step full) then of 50 (lean steps
+inside); after every segment energy, virial, temperature and the step,
+and the bits of positions, their compensation, velocities, theirs,
+forces and images (an int64 sum of each array's words, and the arrays
+themselves at the end), and the rebuild steps. Each tree steps on its
+default route (captured on the card), in the order parent, change,
+change, parent; it prints one line per case with whether every number is
+equal and the seconds each run took.
+
+``--only reduce`` compares the list's reduction alone, on its three
+lists (~2 min).
 
 ``--only draws`` compares the slot step's small kernels alone, each timed
 by a CUDA graph of 100 calls back to back (replayed 20 times, over the
@@ -235,18 +254,7 @@ def make_inputs(path):
                     "inputs": [state.positions.to(dtype).contiguous()],
                     "cell": [state.unitcell.to(dtype).cpu(),
                              state.unitcell_inv.to(dtype).cpu()]}
-    # The reduction: config 4's list at f64 and f32 (this tree's), the
-    # user potential's values on it.
-    from mdtpu_torch.ops.cell_pairs import pair_list
-    for tag in ("f64", "f32"):
-        case = cases[f"config4_{tag}"]
-        plist = pair_list(*case["inputs"], case["grid"], case["cutoff"],
-                          case["capacity"])
-        u, f = user.evaluate_r2(plist.r2, plist.sigma_i, plist.sigma_j)
-        cases[f"reduce_config4_{tag}"] = {
-            "kind": "reduce", "inputs": [], "plist": {
-                k: getattr(plist, k).cpu() for k in LIST_FIELDS + (
-                    "overflow",)}, "u": u.cpu(), "f": f.cpu()}
+    cases.update(reduce_cases(cases, user))
     del big, states
     # The cases' boxes are orthorhombic: pass the box lengths, which every
     # tree's wrappers take (the cell matrix only since the 2D and tilted
@@ -255,6 +263,57 @@ def make_inputs(path):
         torch.diagonal(t).contiguous().cpu() if t.dim() == 2
         and t.shape[0] == t.shape[1] == 3 else t.cpu()
         for t in v["inputs"]]) for k, v in cases.items()}, path)
+
+
+def reduce_cases(cases, user):
+    """The reduction's cases: config 4's list at f64 and f32 and the 3D
+    lattice's at f32 (this tree's), the user potential's values on them."""
+    from mdtpu_torch.ops.cell_pairs import pair_list
+    out = {}
+    for name in ("config4_f64", "config4_f32", "user_3d_lattice_f32"):
+        case = cases[name]
+        plist = pair_list(*case["inputs"], case["grid"], case["cutoff"],
+                          case["capacity"])
+        u, f = user.evaluate_r2(plist.r2, plist.sigma_i, plist.sigma_j)
+        out[f"reduce_{name}"] = {
+            "kind": "reduce", "inputs": [], "plist": {
+                k: getattr(plist, k).cpu() for k in LIST_FIELDS + (
+                    "overflow",)}, "u": u.cpu(), "f": f.cpu()}
+    return out
+
+
+def make_reduce_inputs(path):
+    """The reduction's cases alone (:func:`reduce_cases`)."""
+    import mdtpu_torch as mt
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_fluid_state,
+                                                lattice_positions)
+    L = (N / 0.9) ** 0.5
+    cell2 = torch.eye(2, dtype=torch.float64) * L
+    pos2 = lattice_positions(N, cell2, 2, dtype=torch.float64, jitter=0.05,
+                             seed=4, device="cuda")
+    diam2 = 0.8 + 0.4 * torch.rand(N, generator=torch.Generator()
+                                   .manual_seed(6), dtype=torch.float64)
+    config4 = build_state_from_arrays(pos2, diam2, cell2, 0,
+                                      dtype=torch.float64, cutoff=1.8,
+                                      device="cuda")
+    lattice = lattice_fluid_state(N, 0.8, 1.0, dtype=torch.float64,
+                                  cutoff=2.5, jitter=0.01, device="cuda")
+    user = user_potential(mt)
+    cases = {}
+    for name, state, cutoff, dtype in (
+            ("config4_f64", config4, 1.8, torch.float64),
+            ("config4_f32", config4, 1.8, torch.float32),
+            ("user_3d_lattice_f32", lattice, 2.5, torch.float32)):
+        eng = mt.select_engine(user, cutoff, state)
+        pos, cell = state.positions.to(dtype), state.unitcell.to(dtype)
+        cinv = state.unitcell_inv.to(dtype)
+        nb = eng.allocate(pos, state.diameters.to(dtype), cell, cinv)
+        assert not bool(nb.overflow)
+        cases[name] = {"grid": eng.grid, "cutoff": eng.cutoff,
+                       "capacity": eng.pair_list_capacity,
+                       "inputs": eng.slot_inputs(pos, cell, cinv, nb)}
+    torch.save(reduce_cases(cases, user), path)
 
 
 def make_draw_inputs(path):
@@ -462,6 +521,91 @@ def draw_runs(name, case):
     return out
 
 
+# The slot cases: (name, start, NVT steps, NVE steps, NVE on hi/lo).
+SLOT_CASES = (("bench", "cubic", 75, 75, True),
+              ("tilted", "tilted", 75, 75, True),
+              ("2d", "2d", 75, 75, False))
+SLOT_FIELDS = ("positions", "pos_comp", "velocities", "vel_comp", "forces",
+               "images")
+
+
+def make_slot_inputs(path):
+    """The slot cases' starts in particle order (f32): positions,
+    velocities, diameters and the cell matrix."""
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    cases = {}
+    for name, kind, *_ in SLOT_CASES:
+        dim = 2 if kind == "2d" else 3
+        rho = 0.7 if kind == "2d" else 0.8
+        L = (N / rho) ** (1.0 / dim)
+        cell = torch.eye(dim, dtype=torch.float64) * L
+        if kind == "tilted":
+            cell[0, 1], cell[0, 2], cell[1, 2] = L / 8, L / 12, L / 6
+        pos = lattice_positions(N, cell, dim, dtype=torch.float64,
+                                jitter=0.01, seed=0, device="cuda")
+        state = build_state_from_arrays(pos, torch.ones(N), cell, 1,
+                                        dtype=torch.float32,
+                                        cutoff=1.5 if dim == 2 else 2.5,
+                                        device="cuda")
+        vel = initialize_velocities(1.0, 2, N, dim, dtype=torch.float32,
+                                    device="cuda")
+        cases[name] = {"kind": "slot", "positions": state.positions.cpu(),
+                       "velocities": vel.cpu(), "cell": cell}
+    torch.save(cases, path)
+
+
+def _words(t):
+    """An int64 sum of the array's words: equal arrays give equal sums."""
+    t = t.contiguous()
+    w = t.view(torch.int32) if t.element_size() == 4 else t.view(
+        torch.int64)
+    return int(w.sum(dtype=torch.int64))
+
+
+def slot_runs(name, case):
+    """The slot advance of the tree on one case: after every segment its
+    numbers and its arrays' word sums; the final arrays; the rebuilds."""
+    import time
+
+    import mdtpu_torch as mt
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.sim.initialization import build_state_from_arrays
+
+    _, kind, n_nvt, n_nve, hilo = next(c for c in SLOT_CASES
+                                       if c[0] == name)
+    dim = case["cell"].shape[0]
+    cutoff = 1.5 if dim == 2 else 2.5
+    pot = mt.PseudoHS() if dim == 2 else mt.LennardJones(r_cut=2.5)
+    state = build_state_from_arrays(
+        case["positions"].cuda(), torch.ones(N), case["cell"], 1,
+        dtype=torch.float32, cutoff=cutoff, device="cuda")
+    state = state.replace(velocities=case["velocities"].cuda())
+    eng = mt.select_engine(pot, cutoff, state)
+    params = mt.Parameters(0.7 if dim == 2 else 0.8, N,
+                           0.001 if dim == 2 else 0.002, pot)
+    s = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    rows, words, rebuilds = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ens, steps, h in ((mt.NVT(1.0, 0.4), n_nvt, False),
+                          (mt.NVE(), n_nve, hilo)):
+        advance = slot_step.make_slot_advance(params, ens, eng, hilo=h)
+        segments = [1] * 25 + [50] * ((steps - 25) // 50)
+        for k in segments:
+            s = advance(s, k)
+            rows.append([float(s.energy), float(s.virial),
+                         float(s.temperature), int(s.step)])
+            words.append([_words(getattr(s, f)) for f in SLOT_FIELDS])
+        rebuilds.append(advance.rebuild_steps())
+    torch.cuda.synchronize()
+    return {f"{name} slot_advance": {
+        "rows": rows, "words": words, "rebuilds": rebuilds,
+        "arrays": {f: getattr(s, f).cpu() for f in SLOT_FIELDS},
+        "seconds": time.perf_counter() - t0}}
+
+
 def worker(tree, inputs_path, out_path):
     sys.path.insert(0, tree)
     import mdtpu_torch as mt
@@ -479,6 +623,9 @@ def worker(tree, inputs_path, out_path):
     out = {}
     cases = torch.load(inputs_path, weights_only=False)
     for name, case in cases.items():
+        if case["kind"] == "slot":
+            out.update(slot_runs(name, case))
+            continue
         if case["kind"] == "draws":
             out.update(draw_runs(name, case))
             continue
@@ -502,7 +649,8 @@ def worker(tree, inputs_path, out_path):
             out[f"{name} {kernel}"] = {
                 "energy": energy.cpu(), "virial": virial.cpu(),
                 "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
-    if all(c["kind"] == "draws" for c in cases.values()):
+    if all(c["kind"] in ("draws", "slot", "reduce")
+           for c in cases.values()):
         torch.save(out, out_path)
         return
     w = probe.random_input(0, device="cuda")
@@ -628,11 +776,13 @@ def reduce_runs(name, case):
         f"{name} pair_reduce": {
             "energy": energy.cpu(), "virial": virial.cpu(),
             "force": force.cpu(), "kernels_a_call": len(kernels),
-            "ms": replay_ms(lambda: pair_reduce(plist, f, u))},
+            "ms": replay_ms(lambda: pair_reduce(plist, f, u)),
+            "many_ms": many_ms(lambda: pair_reduce(plist, f, u))},
         f"{name} pair_reduce_lean": {
             "energy": torch.zeros(()), "virial": torch.zeros(()),
             "force": lean.cpu(),
-            "ms": replay_ms(lambda: pair_reduce(plist, f))}}
+            "ms": replay_ms(lambda: pair_reduce(plist, f)),
+            "many_ms": many_ms(lambda: pair_reduce(plist, f))}}
 
 
 def last_change(tree):
@@ -666,8 +816,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="directory of the other tree")
     parser.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
-    parser.add_argument("--only", choices=("draws",),
-                        help="compare the slot step's small kernels alone")
+    parser.add_argument("--only", choices=("draws", "slot", "reduce"),
+                        help="compare the slot step's small kernels alone, "
+                        "the slot advance's bits alone, or the list's "
+                        "reduction alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_torch_sweep: no CUDA device")
@@ -678,7 +830,8 @@ def main():
     sys.path.insert(0, HERE)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
-        (make_draw_inputs if args.only == "draws" else make_inputs)(inputs)
+        {"draws": make_draw_inputs, "slot": make_slot_inputs,
+         "reduce": make_reduce_inputs}.get(args.only, make_inputs)(inputs)
         runs = []
         for i, tree in enumerate((args.parent, HERE, HERE, args.parent)):
             out = os.path.join(tmp, f"out{i}.pt")
@@ -706,6 +859,20 @@ def main():
         if name.startswith("launch_floor") or name not in runs[1]:
             continue
         p, c = parent[0][name], change[0][name]
+        if "rows" in p:
+            equal = {k: all(r[name][k] == p[k] for r in runs)
+                     for k in ("rows", "words", "rebuilds")}
+            equal["arrays"] = all(same_bits(r[name]["arrays"][f],
+                                            p["arrays"][f])
+                                  for r in runs for f in SLOT_FIELDS)
+            print(json.dumps({
+                "case": name, "equal": all(equal.values()), **equal,
+                "segments": len(p["rows"]), "steps": p["rows"][-1][3],
+                "rebuilds": [len(b) for b in p["rebuilds"]],
+                "parent_seconds": [r[name]["seconds"] for r in parent],
+                "change_seconds": [r[name]["seconds"] for r in change]}),
+                flush=True)
+            continue
         p_ms = [r[name]["ms"] for r in parent]
         c_ms = [r[name]["ms"] for r in change]
         times = {"parent_ms": p_ms, "change_ms": c_ms,
@@ -742,6 +909,10 @@ def main():
         kernels = {f"{k}_kernels_a_call": r["kernels_a_call"]
                    for k, r in (("parent", p), ("change", c))
                    if "kernels_a_call" in r}
+        if "many_ms" in p:
+            kernels.update(
+                parent_many_ms=[r[name]["many_ms"] for r in parent],
+                change_many_ms=[r[name]["many_ms"] for r in change])
         print(json.dumps({
             "case": name, **kernels,
             "force_equal": same_bits(p["force"], c["force"]),

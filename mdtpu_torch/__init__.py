@@ -10,7 +10,8 @@ a CUDA histogram kernel, MSD) in ``mdtpu_torch.observables``. The pair forces of
 CUDA kernels (``csrc/*.cu``: the full stencil with its hi/lo and lean
 variants, and the Newton half stencil behind ``ops.experimental.PlaneEngine``);
 on the cell grid, dynamics and FIRE run in the slot layout
-(``integrate.slot_step``). ``NeighborListEngine`` (``select_engine(...,
+(``integrate.slot_step``; its velocity-Verlet chain one kernel,
+``integrate.verlet_update``). ``NeighborListEngine`` (``select_engine(...,
 prefer="neighbor")``) keeps padded Verlet lists, built and evaluated by
 CUDA kernels too. Small and other systems use the O(N^2) engine. Frames
 are formatted in host C++ (``io.native_writer``). ``run_simulation_sharded``

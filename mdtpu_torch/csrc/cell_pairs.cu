@@ -73,7 +73,25 @@
 //
 // pair_reduce_kernel: one thread per slot sums f * disp over its segment in
 // list order (the force), and u and f * r^2; the block then reduces the
-// last two in a fixed tree into one partial per block. The full variant
+// last two in a fixed tree into one partial per block. Redesigned for the
+// H100 in two ways, which the wrapper picks by the list's entries a slot
+// (its capacity over the slots, a host number). The first design had each
+// thread walk its own segment in device memory: where segments are long
+// (the 3D lattice's ~27 entries), a warp's load touches 32 scattered
+// segments (32 lines of f, D times that of disp) and the warp runs as long
+// as its longest one. The segments are contiguous and in slot order, so a
+// block's 256 slots own one run of the list: the staged kernel copies it
+// chunk by chunk into shared memory with cp.async (two 12 KB buffers in
+// turn, the next chunk's copies in flight while the threads sum the staged
+// one; no register holds a copy), each word of an entry read as a
+// coalesced run of consecutive entries, and each thread adds its own
+// entries from there in list order. Where segments are short (BASELINE
+// config 4's ~3 entries), a warp's 32 segments fall on a few lines that
+// L1 keeps for the next entries, and staging (and the shared memory it
+// takes from L1) measured slower than the walk (PERF.md section 6): that
+// list keeps the walk, in a kernel with no shared memory for the run.
+// Both add the same entries in the same order, so the bits do not change.
+// The full variant
 // also finishes the sum in the same launch: each block stores its partials
 // and takes an integer ticket; the block that draws the last one sums every
 // block's partials in block order (thread t the blocks t, t + threads, ...,
@@ -93,6 +111,7 @@
 // and the potential's two values: bytes. Its partials add two values a
 // block of 256 slots, which the last block reads once more.
 
+#include <cuda_pipeline.h>
 #include <math.h>
 
 #include "cell_stencil.cuh"
@@ -604,37 +623,152 @@ __device__ __forceinline__ void block_sum2(T& a, T& b, T (&warp_a)[32],
   }
 }
 
+constexpr int kReduceThreads = 256;  // REDUCE_THREADS in ops/cell_pairs.py
+// The staged reduction's two buffers; with kReduceBlocksPerSM blocks of
+// 256 an SM, 24 KB each.
+constexpr int kReduceStageBytes = 24576;
+constexpr int kReduceBlocksPerSM = 8;
+// The full variant's block sums need more registers: 6 blocks an SM keep
+// it from spilling.
+constexpr int kReduceBlocksPerSMFull = 6;
+
+// A staged block's chunk of the list: the words of an entry (f, the D
+// displacement components, and with OBS u and r^2) for kChunk entries, in
+// each of two buffers.
+template <typename T, int D, bool OBS>
+struct ReduceStage {
+  static constexpr int kWords = D + 1 + (OBS ? 2 : 0);
+  static constexpr int kChunk = kReduceStageBytes / 2 /
+                                (kWords * (int)sizeof(T)) / kReduceThreads *
+                                kReduceThreads;
+  static constexpr int kPerThread = kChunk / kReduceThreads;
+  static_assert(kChunk >= kReduceThreads, "a chunk holds an entry a thread");
+};
+
+// The staged sums of one block: its slots own one run of the list, [start
+// of its first slot, end of its last), clipped to the capacity. The block
+// copies it chunk by chunk into shared memory with cp.async (each word of
+// an entry a coalesced run of consecutive entries, no register held for
+// it; two buffers in turn, the next chunk's copies in flight while the
+// threads sum the staged one), and each thread adds its own entries
+// [m0, m1) from there in list order. Returns false where this thread's
+// segment lies outside the run (starts that are not the counts' running
+// sum): it walks it in device memory instead.
+template <typename T, int D, bool OBS>
+__device__ __forceinline__ bool staged_sums(
+    const int64_t* __restrict__ seg_start, const int* __restrict__ seg_count,
+    int64_t capacity, int64_t n_slots, const T* __restrict__ u,
+    const T* __restrict__ f, const T* __restrict__ disp,
+    const T* __restrict__ r2, int64_t m0, int64_t m1, T (&fs)[D], T& e,
+    T& w) {
+  using S = ReduceStage<T, D, OBS>;
+  __shared__ T stage[2][S::kWords][S::kChunk];
+  const int tid = threadIdx.x;
+  const int64_t s0 = (int64_t)blockIdx.x * kReduceThreads;
+  const int64_t s_last =
+      (s0 + kReduceThreads < n_slots ? s0 + kReduceThreads : n_slots) - 1;
+  auto clip = [capacity](int64_t m) { return m < capacity ? m : capacity; };
+  const int64_t run0 = clip(seg_start[s0]);
+  const int64_t run1 = clip(seg_start[s_last] + seg_count[s_last]);
+  const bool inside = m1 <= m0 || (m0 >= run0 && m1 <= run1);
+  // Word k of the entries: f, disp[0..D), u, r^2.
+  auto source = [&](int k) {
+    return k == 0 ? f : (k <= D ? disp + (k - 1) * capacity
+                                : (k == D + 1 ? u : r2));
+  };
+  // Copies of chunk c (entries from run0 + c kChunk) into buffer c % 2:
+  // one commit group a chunk, empty where the thread has no entry.
+  auto issue = [&](int64_t c) {
+    const int64_t c0 = run0 + c * S::kChunk;
+#pragma unroll
+    for (int j = 0; j < S::kPerThread; ++j) {
+      const int i = j * kReduceThreads + tid;
+      if (c0 + i < run1) {
+#pragma unroll
+        for (int k = 0; k < S::kWords; ++k)
+          __pipeline_memcpy_async(&stage[c & 1][k][i], source(k) + c0 + i,
+                                  sizeof(T));
+      }
+    }
+    __pipeline_commit();
+  };
+  const int64_t chunks =
+      run1 > run0 ? (run1 - run0 + S::kChunk - 1) / S::kChunk : 0;
+  if (chunks > 0) issue(0);
+  if (chunks > 1) issue(1);
+  for (int64_t c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
+    __syncthreads();
+    const int64_t c0 = run0 + c * S::kChunk;
+    const int64_t c1 = c0 + S::kChunk < run1 ? c0 + S::kChunk : run1;
+    if (inside) {
+      const T(&buf)[S::kWords][S::kChunk] = stage[c & 1];
+      const int64_t a1 = m1 < c1 ? m1 : c1;
+      for (int64_t m = m0 > c0 ? m0 : c0; m < a1; ++m) {
+        const int i = (int)(m - c0);
+        const T fr = buf[0][i];
+#pragma unroll
+        for (int a = 0; a < D; ++a) fs[a] += fr * buf[1 + a][i];
+        if constexpr (OBS) {
+          e += buf[D + 1][i];
+          w += fr * buf[D + 2][i];
+        }
+      }
+    }
+    __syncthreads();
+    if (c + 2 < chunks) issue(c + 2);
+  }
+  return inside;
+}
+
 // One thread per slot: its force, and its share of sum u and sum f r^2;
 // then a fixed-order block sum of the two, and in the block that finishes
-// last the sum over blocks (OBS only).
-template <typename T, int D, bool OBS>
-__global__ void pair_reduce_kernel(const int64_t* __restrict__ seg_start,
-                                   const int* __restrict__ seg_count,
-                                   int64_t capacity, int64_t n_slots,
-                                   const T* __restrict__ u,
-                                   const T* __restrict__ f,
-                                   const T* __restrict__ disp,
-                                   const T* __restrict__ r2,
-                                   T* __restrict__ force,
-                                   T* e_part, T* w_part,
-                                   T* __restrict__ ew) {
+// last the sum over blocks (OBS only). STAGED: the block's run of the
+// list goes through shared memory (staged_sums), for lists of long
+// segments, where the walk's loads scatter; else, and for a segment
+// outside its block's run, each thread walks its own entries in device
+// memory (short segments: a warp's loads of its 32 segments fall on a few
+// lines, which L1 keeps for the next entries). Both add the same entries
+// in the same order.
+template <typename T, int D, bool OBS, bool STAGED>
+__global__ void __launch_bounds__(kReduceThreads,
+                                  OBS ? kReduceBlocksPerSMFull
+                                      : kReduceBlocksPerSM)
+    pair_reduce_kernel(const int64_t* __restrict__ seg_start,
+                       const int* __restrict__ seg_count, int64_t capacity,
+                       int64_t n_slots, const T* __restrict__ u,
+                       const T* __restrict__ f, const T* __restrict__ disp,
+                       const T* __restrict__ r2, T* __restrict__ force,
+                       T* e_part, T* w_part, T* __restrict__ ew) {
   __shared__ T warp_e[32], warp_w[32];
   __shared__ bool last;
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t s = (int64_t)blockIdx.x * kReduceThreads + threadIdx.x;
+  int64_t m0 = 0, m1 = 0;
+  if (s < n_slots) {
+    m0 = seg_start[s];
+    m1 = m0 + seg_count[s];
+    m1 = m1 < capacity ? m1 : capacity;
+  }
   T fs[D], e = T(0), w = T(0);
 #pragma unroll
   for (int a = 0; a < D; ++a) fs[a] = T(0);
+  bool walk = true;
+  if constexpr (STAGED)
+    walk = !staged_sums<T, D, OBS>(seg_start, seg_count, capacity, n_slots,
+                                   u, f, disp, r2, m0, m1, fs, e, w);
   if (s < n_slots) {
-    const int64_t m0 = seg_start[s];
-    int64_t m1 = m0 + seg_count[s];
-    m1 = m1 < capacity ? m1 : capacity;
-    for (int64_t m = m0; m < m1; ++m) {
-      const T fr = f[m];
+    if (walk) {
+      for (int64_t m = m0; m < m1; ++m) {
+        const T fr = f[m];
 #pragma unroll
-      for (int a = 0; a < D; ++a) fs[a] += fr * disp[a * capacity + m];
-      if (OBS) {
-        e += u[m];
-        w += fr * r2[m];
+        for (int a = 0; a < D; ++a) fs[a] += fr * disp[a * capacity + m];
+        if (OBS) {
+          e += u[m];
+          w += fr * r2[m];
+        }
       }
     }
 #pragma unroll
@@ -737,9 +871,7 @@ int pairs_dim(const T* pos, const T* lo, const T* diam,
                  : run(std::integral_constant<int, 3>());
 }
 
-constexpr int kReduceThreads = 256;  // REDUCE_THREADS in ops/cell_pairs.py
-
-template <typename T>
+template <typename T, bool STAGED>
 int reduce(const int64_t* seg_start, const int* seg_count,
            long long capacity, long long n_slots, int dim, const T* u,
            const T* f, const T* disp, const T* r2, T* force, T* e_part,
@@ -754,10 +886,23 @@ int reduce(const int64_t* seg_start, const int* seg_count,
     return (int)cudaGetLastError();
   };
   if (dim == 2)
-    return u ? launch(pair_reduce_kernel<T, 2, true>)
-             : launch(pair_reduce_kernel<T, 2, false>);
-  return u ? launch(pair_reduce_kernel<T, 3, true>)
-           : launch(pair_reduce_kernel<T, 3, false>);
+    return u ? launch(pair_reduce_kernel<T, 2, true, STAGED>)
+             : launch(pair_reduce_kernel<T, 2, false, STAGED>);
+  return u ? launch(pair_reduce_kernel<T, 3, true, STAGED>)
+           : launch(pair_reduce_kernel<T, 3, false, STAGED>);
+}
+
+template <typename T>
+int reduce_by(int staged, const int64_t* seg_start, const int* seg_count,
+              long long capacity, long long n_slots, int dim, const T* u,
+              const T* f, const T* disp, const T* r2, T* force, T* e_part,
+              T* w_part, T* ew, void* stream) {
+  return staged ? reduce<T, true>(seg_start, seg_count, capacity, n_slots,
+                                  dim, u, f, disp, r2, force, e_part, w_part,
+                                  ew, stream)
+                : reduce<T, false>(seg_start, seg_count, capacity, n_slots,
+                                   dim, u, f, disp, r2, force, e_part, w_part,
+                                   ew, stream);
 }
 
 }  // namespace
@@ -825,13 +970,17 @@ int mdtpu_cell_pairs_hilo_f32(
 // u = null: the lean reduction (forces only; e_part, w_part and ew
 // unused). Otherwise e_part and w_part hold one partial per block of
 // kReduceThreads slots, and ew (2,) receives 0.5 sum u and 0.5 sum f r^2.
+// staged: each block's run of the list through shared memory (lists of
+// long segments), else each thread walks its segment.
 int mdtpu_pair_reduce_f32(const int64_t* seg_start, const int* seg_count,
                           long long capacity, long long n_slots, int dim,
                           const float* u, const float* f, const float* disp,
                           const float* r2, float* force, float* e_part,
-                          float* w_part, float* ew, void* stream) {
-  return reduce<float>(seg_start, seg_count, capacity, n_slots, dim, u, f,
-                       disp, r2, force, e_part, w_part, ew, stream);
+                          float* w_part, float* ew, int staged,
+                          void* stream) {
+  return reduce_by<float>(staged, seg_start, seg_count, capacity, n_slots,
+                          dim, u, f, disp, r2, force, e_part, w_part, ew,
+                          stream);
 }
 
 int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
@@ -839,9 +988,10 @@ int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
                           const double* u, const double* f,
                           const double* disp, const double* r2,
                           double* force, double* e_part, double* w_part,
-                          double* ew, void* stream) {
-  return reduce<double>(seg_start, seg_count, capacity, n_slots, dim, u, f,
-                        disp, r2, force, e_part, w_part, ew, stream);
+                          double* ew, int staged, void* stream) {
+  return reduce_by<double>(staged, seg_start, seg_count, capacity, n_slots,
+                           dim, u, f, disp, r2, force, e_part, w_part, ew,
+                           stream);
 }
 
 const char* mdtpu_cell_pairs_error_string(int code) {

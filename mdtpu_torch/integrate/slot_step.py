@@ -53,9 +53,11 @@ import torch
 from mdtpu_torch.core.box import _mm
 from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationState
 from mdtpu_torch.integrate import step as _step
+from mdtpu_torch.integrate import verlet_update
 from mdtpu_torch.integrate.step import (_add, brownian_virial_sample,
-                                        md_velocity_finish)
-from mdtpu_torch.integrate.velocity_finish import TargetTable
+                                        finish_scalars)
+from mdtpu_torch.integrate.velocity_finish import (TargetTable, finish_buffer,
+                                                   finish_pair)
 from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
 from mdtpu_torch.potentials.base import rounded
@@ -145,18 +147,22 @@ def slotify_grown(state: SimulationState, engine: CellGridEngine):
 
 
 def _sweep_in(engine, x, diameters, cell, cell_inv, nbrs, observables,
-              force_dtype=None, pos_lo=None):
+              force_dtype=None, pos_lo=None, out=None):
     """``engine.compute_slots`` with the sweep's inputs cast to
     ``force_dtype`` (up or down) where it differs from the positions', and
-    the energy, virial and forces cast back."""
+    the forces (into ``out`` where given) and, on a full sweep, energy and
+    virial cast back."""
     dtype = x.dtype
     if force_dtype is None or force_dtype == dtype:
         return engine.compute_slots(x, diameters, cell, cell_inv, nbrs,
-                                    observables, pos_lo)
+                                    observables, pos_lo, out=out)
     e, w, f, nbrs = engine.compute_slots(
         x.to(force_dtype), diameters.to(force_dtype), cell.to(force_dtype),
         cell_inv.to(force_dtype), nbrs, observables)
-    return e.to(dtype), w.to(dtype), f.to(dtype), nbrs
+    f = f.to(dtype) if out is None else out.copy_(f)
+    if observables:
+        e, w = e.to(dtype), w.to(dtype)
+    return e, w, f, nbrs
 
 
 def slot_forces(state: SimulationState, engine: CellGridEngine,
@@ -356,7 +362,8 @@ def _engine_needs_rebin(state, engine, ring=None):
 
 def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                    compensated: bool = True, observables: bool = True,
-                   hilo: bool = False, force_dtype=None, ring=None):
+                   hilo: bool = False, force_dtype=None, ring=None,
+                   in_place: bool = False):
     """One fused step over a slot-layout state (see the module docstring).
 
     The step never rebins: :func:`make_slot_advance` decides when to, so
@@ -372,6 +379,18 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     its own exchange): the kinetic energy is summed over it, and each rank
     draws Brownian noise of its own. Each call adds one to
     ``make_slot_step.steps``.
+
+    An MD step runs its velocity-Verlet chain through
+    :mod:`mdtpu_torch.integrate.verlet_update`: on the card three launches
+    of one kernel (kick-drift, kick, and NVT's rescale) around the sweep
+    and the velocity finish, on the CPU their plain versions, the torch
+    composition. ``in_place``: the step writes its results into the
+    state's own tensors (the slot advance's buffers: positions,
+    velocities, compensations, forces, the step counter, and the
+    temperature, which must be a
+    :func:`~mdtpu_torch.integrate.velocity_finish.finish_buffer`) and
+    returns a state of the same tensors; else it returns new tensors and
+    leaves the state as it was.
 
     ``step(state, ktemp=None)``: ``state.step`` is a host int or a 0-d
     int64 device tensor (the advance's counter), which the step draws from
@@ -420,19 +439,40 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     def md(state, ktemp):
         dt = float(params.dt)
         half = 0.5 * dt
-        v, vc = _add(state.velocities, state.vel_comp, state.forces * half,
-                     compensated)
+        nvt = isinstance(ensemble, NVT)
         # Deferred wrap: positions drift unwrapped until the next rebin.
-        x, xc = _add(state.positions, state.pos_comp, v * dt, compensated)
-        energy, virial, forces, nbrs = sweep(x, xc, state)
+        lo = torch.empty_like(state.pos_comp) if hilo else None
+        v, vc, x, xc = verlet_update.kick_drift(
+            state.forces, state.velocities, state.vel_comp, state.positions,
+            state.pos_comp, half, dt, compensated, lo=lo,
+            out=(state.velocities, state.vel_comp, state.positions,
+                 state.pos_comp) if in_place else None)
+        energy, virial, forces, nbrs = _sweep_in(
+            engine, x, state.diameters, state.unitcell, state.unitcell_inv,
+            state.nbrs, obs, force_dtype, lo,
+            out=state.forces if in_place else None)
         if not obs:
             energy, virial = state.energy, state.virial
-        v, vc = _add(v, vc, forces * half, compensated)
+        # The chain's last launch advances a device counter: the velocity
+        # finish between the kick and the rescale reads this step's.
+        step, counter = state.step, ()
+        if isinstance(step, torch.Tensor):
+            counter = (step, step if in_place else torch.empty_like(step))
+            step = counter[1]
+        else:
+            step = step + 1
+        verlet_update.kick(forces, v, vc, half, compensated,
+                           *(() if nvt else counter))
         # Vacant slots hold zero velocity, so the kinetic sum is exact.
-        v, vc, temperature = md_velocity_finish(ensemble, v, vc, state, dt,
-                                                compensated, ring, ktemp)
+        scale, temperature = finish_scalars(
+            ensemble, v, state, dt, ring, ktemp,
+            out=finish_pair(state.temperature) if in_place else None)
+        if in_place:
+            temperature = state.temperature
+        if nvt:
+            verlet_update.rescale(v, vc, scale, compensated, *counter)
         return state.replace(
-            positions=x, velocities=v, forces=forces, step=state.step + 1,
+            positions=x, velocities=v, forces=forces, step=step,
             energy=energy, virial=virial, temperature=temperature,
             pos_comp=xc, vel_comp=vc, nbrs=nbrs)
 
@@ -475,12 +515,15 @@ def _copy_into(dst: SimulationState, src: SimulationState, skip=()):
 
 
 def _clone(state: SimulationState, step=None) -> SimulationState:
-    """A copy of ``state`` whose tensors are its own (aliases split);
-    ``step``: the step field to put in."""
+    """A copy of ``state`` whose tensors are its own (aliases split), its
+    temperature a :func:`~mdtpu_torch.integrate.velocity_finish.
+    finish_buffer`; ``step``: the step field to put in."""
     nbrs = dataclasses.replace(state.nbrs, **{
         n: getattr(state.nbrs, n).clone() for n in _NBRS_TENSORS})
     return state.replace(nbrs=nbrs, step=state.step if step is None else step,
-                         **{n: getattr(state, n).clone()
+                         **{n: (finish_buffer(getattr(state, n))
+                                if n == "temperature"
+                                else getattr(state, n).clone())
                             for n in _STATE_TENSORS if n != "step"})
 
 
@@ -508,7 +551,10 @@ class SlotAdvance:
 
     The state is copied into buffers that the advance keeps (its tensors
     and its binning's, the step as a 0-d int64 counter), and each step
-    reads them and writes its results back in place: the drift test
+    reads them and writes its results back in place (an MD step's
+    Verlet chain, sweep and velocity finish write straight into them,
+    ``make_slot_step(..., in_place=True)``; a Brownian step's results are
+    copied in): the drift test
     (:func:`philox_draws.rebuild_flag`) and a rebuild where it is set
     (:func:`device_if` around :func:`_rebin`), then the step (NVT's target
     from a device table that the host fills for the segment in one copy,
@@ -711,14 +757,20 @@ def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
     segment's last step, so the slot order and sums follow the reference's.
     ``ring``: the shard ring (:func:`make_slot_step`); every flag read on
     the host is then the ring's."""
+    # The one-device advance's steps write into its buffers; the sharded
+    # schedule's states alias their positions and references after a
+    # rebin, so its steps return new tensors.
+    in_place = not getattr(engine, "rebin_unconditional", False)
     step = make_slot_step(params, ensemble, engine, compensated=compensated,
                           observables=not lean, hilo=hilo,
-                          force_dtype=force_dtype, ring=ring)
+                          force_dtype=force_dtype, ring=ring,
+                          in_place=in_place)
     last_step = make_slot_step(params, ensemble, engine,
                                compensated=compensated, hilo=hilo,
-                               force_dtype=force_dtype, ring=ring)
+                               force_dtype=force_dtype, ring=ring,
+                               in_place=in_place)
 
-    if not getattr(engine, "rebin_unconditional", False):
+    if in_place:
         return SlotAdvance(step, last_step, engine, ensemble, lean, graph)
 
     def needs(state):

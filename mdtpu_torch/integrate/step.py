@@ -66,18 +66,19 @@ def _add(x, comp, dx, compensated: bool):
     return x + dx, comp
 
 
-def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
-                       ring=None, ktemp=None):
-    """Post-kick ensemble logic: Bussi rescale and temperature for NVT (one
-    kinetic reduction serves both, T_after = scale^2 * 2K/nf), plain
-    temperature for NVE. Returns ``(v, vc, temperature)``. ``ring``: a
-    shard ring, over which the kinetic energy is summed (one all-reduce a
-    step); Bussi's draws are the same on every rank. ``state.step`` is a
-    host int or a 0-d int64 device tensor; ``ktemp``: NVT's target for
-    this step, ``ensemble.ktemp(step + 1)`` (a 0-d tensor or a
+def finish_scalars(ensemble, v, state, dt, ring=None, ktemp=None,
+                   out=None):
+    """``(scale, temperature)`` of the post-kick ensemble logic as 0-d
+    tensors: Bussi's factor and the temperature after it for NVT (one
+    kinetic reduction serves both, T_after = scale^2 * 2K/nf), ``(1, the
+    temperature)`` for NVE. ``ring``: a shard ring, over which the kinetic
+    energy is summed (one all-reduce a step); Bussi's draws are the same on
+    every rank. ``state.step`` is a host int or a 0-d int64 device tensor;
+    ``ktemp``: NVT's target for this step, ``ensemble.ktemp(step + 1)`` (a
+    0-d tensor or a
     :class:`~mdtpu_torch.integrate.velocity_finish.TargetTable`, as the
     slot advance reads it from its device table; evaluated here from a host
-    step where it is None).
+    step where it is None). ``out``: a ``(2,)`` tensor that receives both.
 
     The scalar tail is :func:`~mdtpu_torch.integrate.velocity_finish.
     velocity_finish`: on the card one kernel, which also sums the kinetic
@@ -88,10 +89,19 @@ def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
         ktemp = ensemble.ktemp(state.step + 1)
     kinetic = None if v.is_cuda and ring is None else \
         thermostat.compute_kinetic(v, ring)
-    scale, temperature = velocity_finish(
+    return velocity_finish(
         v if kinetic is None else None, kinetic, state.seed, state.step,
-        state.nf, dt, ensemble.tau if nvt else None, ktemp if nvt else None)
-    if nvt:
+        state.nf, dt, ensemble.tau if nvt else None, ktemp if nvt else None,
+        out)
+
+
+def md_velocity_finish(ensemble, v, vc, state, dt, compensated: bool,
+                       ring=None, ktemp=None):
+    """Post-kick ensemble logic: :func:`finish_scalars`, then for NVT the
+    velocities times the scale and the compensation zeroed. Returns ``(v,
+    vc, temperature)``."""
+    scale, temperature = finish_scalars(ensemble, v, state, dt, ring, ktemp)
+    if isinstance(ensemble, NVT):
         v = v * scale
         if compensated:
             # Rescaling invalidates the velocity compensation buffer.

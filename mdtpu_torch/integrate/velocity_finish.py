@@ -116,9 +116,12 @@ def velocity_finish_plain(velocities, kinetic, seed, step, nf, dt, tau,
     return scale, scale * scale * 2.0 * kinetic / nf
 
 
-def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
+def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp,
+                    out=None):
     """``(scale, temperature)`` of one step as 0-d tensors of the state's
-    dtype: :func:`velocity_finish_plain`'s function. Give ``velocities``
+    dtype: :func:`velocity_finish_plain`'s function, written into ``out``
+    (a ``(2,)`` tensor of that dtype, e.g. :func:`finish_pair`) where
+    given, else into a new one. Give ``velocities``
     (any shape; the kernel sums them) or ``kinetic`` (a 0-d tensor, e.g.
     summed over a shard ring). ``step``: a host int or a 0-d int64 tensor;
     ``ktemp``: NVT's target (a host float, a 0-d tensor or a
@@ -129,9 +132,18 @@ def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
     (the rule of ``philox_draws.launch_options``); summing, it reads
     everything after the wait. CPU tensors take the plain version."""
     ref = kinetic if kinetic is not None else velocities
+    if out is not None and (out.shape != (2,) or out.dtype != ref.dtype
+                            or out.device != ref.device
+                            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous (2,) tensor of the "
+                         "velocities' dtype and device")
     if ref.device.type == "cpu":
-        return velocity_finish_plain(velocities, kinetic, seed, step, nf, dt,
-                                     tau, ktemp)
+        scale, temperature = velocity_finish_plain(
+            velocities, kinetic, seed, step, nf, dt, tau, ktemp)
+        if out is None:
+            return scale, temperature
+        out[0], out[1] = scale, temperature
+        return out[0], out[1]
     if ref.device.type != "cuda":
         raise ValueError(f"unsupported device {ref.device}")
     dtype, device = ref.dtype, ref.device
@@ -156,7 +168,8 @@ def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
             or step.device != device):
         raise ValueError("the step must be a 0-d int64 tensor on the "
                          "velocities' device")
-    out = torch.empty(2, dtype=dtype, device=device)
+    if out is None:
+        out = torch.empty(2, dtype=dtype, device=device)
     k0, k1 = philox_draws.seed_key(seed)
 
     def ptr(t):
@@ -178,3 +191,22 @@ def velocity_finish(velocities, kinetic, seed, step, nf, dt, tau, ktemp):
 
 velocity_finish.launches = 0
 counters.register(velocity_finish, "launches")
+
+
+def finish_buffer(temperature):
+    """A copy of the 0-d ``temperature`` that is the second value of a
+    ``(2,)`` tensor of its own: a buffer the finish can write ``(scale,
+    temperature)`` around (:func:`finish_pair`), so that the temperature
+    lands in it with no copy. The first value is scratch."""
+    return temperature.reshape(1).repeat(2)[1]
+
+
+def finish_pair(temperature):
+    """The ``(2,)`` view ``(scale, temperature)`` around a temperature
+    buffer made by :func:`finish_buffer`."""
+    offset = temperature.storage_offset()
+    if (temperature.dim() != 0 or offset < 1
+            or temperature.untyped_storage().nbytes()
+            < (offset + 1) * temperature.element_size()):
+        raise ValueError("the temperature is not a finish_buffer")
+    return temperature.as_strided((2,), (1,), offset - 1)

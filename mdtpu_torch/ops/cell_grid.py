@@ -255,28 +255,41 @@ class CellGridEngine:
             nbrs, overflow=nbrs.overflow | over)
 
     def compute_slots(self, positions, diameters, cell, cell_inv,
-                      nbrs: CellGridState, observables=True, pos_lo=None):
+                      nbrs: CellGridState, observables=True, pos_lo=None,
+                      out=None):
         """``(energy, virial, forces, nbrs)`` of a slot-layout state:
         positions ``(d, n_cells*C)`` already in cell-sorted slot order,
         within skin/2 of their home cells (deferred wrap), so the sweep runs
         on them as they are: no scatter, no gather, no minimum image. Forces
-        come back in slot order. ``observables=False`` runs the lean sweep
-        (energy and virial zero). ``pos_lo``: the positions' lo words for the
-        hi/lo sweep, taken as given (deferred wrap keeps the image at 0
-        between rebuilds, so there is no image shift to fold in).
-        ``cell_inv`` is unused; it keeps the JAX package's signature."""
+        come back in slot order, written into ``out`` where given (the
+        sweep kernels write them there; a plain sweep's are copied in).
+        ``observables=False`` runs the
+        lean sweep (energy and virial zero). ``pos_lo``: the positions' lo
+        words for the hi/lo sweep, taken as given (deferred wrap keeps the
+        image at 0 between rebuilds, so there is no image shift to fold
+        in). ``cell_inv`` is unused; it keeps the JAX package's
+        signature."""
         cell = cell.contiguous()
         if self.uses_pair_list:
-            return self._pair_sweep(positions, diameters, nbrs.counts, cell,
-                                    nbrs, observables, pos_lo)
-        if pos_lo is None:
-            energy, virial, forces = cell_sweep(
-                positions, diameters, nbrs.counts, cell, self.grid,
-                self.cutoff, self.potential, observables)
+            energy, virial, forces, nbrs = self._pair_sweep(
+                positions, diameters, nbrs.counts, cell, nbrs, observables,
+                pos_lo)
         else:
-            energy, virial, forces = cell_sweep_hilo(
-                positions, pos_lo, diameters, nbrs.counts, cell, self.grid,
-                self.cutoff, self.potential, observables)
+            # The kernels write into ``out``; a plain sweep's new forces
+            # are copied in below.
+            into = {"out": out} if out is not None and positions.is_cuda \
+                else {}
+            if pos_lo is None:
+                energy, virial, forces = cell_sweep(
+                    positions, diameters, nbrs.counts, cell, self.grid,
+                    self.cutoff, self.potential, observables, **into)
+            else:
+                energy, virial, forces = cell_sweep_hilo(
+                    positions, pos_lo, diameters, nbrs.counts, cell,
+                    self.grid, self.cutoff, self.potential, observables,
+                    **into)
+        if out is not None and forces is not out:
+            forces = out.copy_(forces)
         return energy, virial, forces, nbrs
 
     def compute(self, positions, diameters, cell, cell_inv,

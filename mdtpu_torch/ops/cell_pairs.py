@@ -57,10 +57,14 @@ from mdtpu_torch.ops import _cuda_build
 from mdtpu_torch.ops.cell_sweep import (MAX_CAPACITY, MAX_SHARED_BYTES,
                                         PairTiles, as_cell, check_cuda,
                                         check_inputs, check_interior,
-                                        stencil_cells)
+                                        lean_zero, stencil_cells)
 
 NAME = "cell_pairs"
 REDUCE_THREADS = 256      # threads of a reduction block
+# A list whose capacity gives more entries a slot than this is reduced by
+# the staged kernel (each block's run through shared memory); a list of
+# shorter segments by the walk (measured on the card, PERF.md section 6).
+STAGED_ENTRIES_PER_SLOT = 8
 SM_SHARED_BYTES = 233472  # shared memory of one SM on sm_90 (228 KB)
 BLOCK_RESERVED_BYTES = 1024  # shared memory the runtime keeps per block
 WARPS_PER_SM = 64
@@ -95,8 +99,8 @@ _LIST_ARGS = ((_P,) * 4 + (_I,) * 8 + (_D,) + (_P,) * 6 + (_L,) + (_P,) * 5
               + (_I,) * 5 + (_P,))
 # Per-slot starts and counts, the capacity and slot count, the dimension,
 # u (or null), f, the displacements and r^2, the force, the energy and
-# virial partials, energy and virial (2,), the stream.
-_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 8 + (_P,)
+# virial partials, energy and virial (2,), staged or not, the stream.
+_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 8 + (_I, _P)
 _SIGNATURES = (("mdtpu_cell_pairs_f32", _LIST_ARGS),
                ("mdtpu_cell_pairs_f64", _LIST_ARGS),
                ("mdtpu_cell_pairs_hilo_f32", (_P,) + _LIST_ARGS),
@@ -410,10 +414,12 @@ def pair_reduce(plist, f_over_r, u=None):
     """``(energy, virial, slot_forces)`` from the list and the potential's
     values on it: per slot the sum of ``f_over_r * disp`` over its segment
     in list order, ``0.5 sum u`` and ``0.5 sum f_over_r r2`` (``u=None``: a
-    lean reduction, energy and virial zero). CUDA tensors launch the
+    lean reduction, energy and virial one zero made once,
+    :func:`~mdtpu_torch.ops.cell_sweep.lean_zero`). CUDA tensors launch the
     kernel (or raise), one launch a call: energy and virial are views of
-    the kernel's own ``(2,)`` output. CPU tensors take
-    :func:`pair_reduce_plain`. Each launch adds one to
+    the kernel's own ``(2,)`` output; a list of long segments takes its
+    staged variant (:func:`staged_reduce`), with the same bits. CPU tensors
+    take :func:`pair_reduce_plain`. Each launch adds one to
     ``pair_reduce.launches``, a lean one also to
     ``pair_reduce.lean_launches``. The full kernel finds its last block
     with one counter per card, so two full reductions must not run at once
@@ -445,14 +451,22 @@ def pair_reduce(plist, f_over_r, u=None):
                 plist.disp.data_ptr(), plist.r2.data_ptr(), force.data_ptr(),
                 *((None, None, None) if out is None else
                   (out.data_ptr(), out[blocks:].data_ptr(),
-                   out[2 * blocks:].data_ptr())), stream)
+                   out[2 * blocks:].data_ptr())),
+                int(staged_reduce(capacity, n_slots)), stream)
     _cuda_build.check(lib, NAME, rc, "pair_reduce")
     pair_reduce.launches += 1
     if u is None:
         pair_reduce.lean_launches += 1
-        zero = force.new_zeros(())
+        zero = lean_zero(dtype, device)
         return zero, zero, force
     return out[2 * blocks], out[2 * blocks + 1], force
+
+
+def staged_reduce(capacity, n_slots):
+    """Whether :func:`pair_reduce` takes the staged kernel for a list of
+    ``capacity`` entries over ``n_slots`` slots: more than
+    :data:`STAGED_ENTRIES_PER_SLOT` entries a slot."""
+    return capacity > STAGED_ENTRIES_PER_SLOT * n_slots
 
 
 def pair_reduce_plain(plist, f_over_r, u=None):

@@ -357,11 +357,15 @@ def check_interior(interior, n_cells):
 
 
 def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
-               observables=True, interior=None):
+               observables=True, interior=None, out=None):
     """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
     take :func:`cell_sweep_plain`. Each launch adds one to
     ``cell_sweep.launches``, and a launch of the lean variant
-    (``observables=False``) also to ``cell_sweep.lean_launches``.
+    (``observables=False``) also to ``cell_sweep.lean_launches``. The lean
+    variant's energy and virial are one zero made once (:func:`lean_zero`).
+    ``out``: a contiguous tensor of the forces' shape and dtype that the
+    kernel writes them into (the slot advance's buffer), returned as the
+    forces.
 
     ``interior=(first_cell, n_cells_out)``: the sweep of those cells only
     (one block each), every cell of the grid still read as a neighbour. The
@@ -375,53 +379,77 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
                                 MAX_CAPACITY)
     first, n_out = check_interior(interior, n_cells)
     if slot_pos.device.type == "cpu":
-        return cell_sweep_plain(slot_pos, slot_diam, counts, box, grid,
-                                cutoff, potential, observables, interior)
+        return _into(out, cell_sweep_plain(slot_pos, slot_diam, counts, box,
+                                           grid, cutoff, potential,
+                                           observables, interior))
     cell = as_cell(box, len(grid)).contiguous()
     device, dtype = check_cuda((slot_pos, slot_diam, counts, cell),
                                (torch.float32, torch.float64))
     lib = _library()
     fn = (lib.mdtpu_cell_sweep_f32 if dtype == torch.float32
           else lib.mdtpu_cell_sweep_f64)
-    out = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, cell),
-                       grid, cap, cutoff, potential, n_out, "cell_sweep",
-                       plan=(first, n_out,
-                             *_plan_args(cap, dtype, False, len(grid)),
-                             int(observables)),
-                       observables=observables)
+    result = launch_sweep(lib, NAME, fn, (slot_pos, slot_diam, counts, cell),
+                          grid, cap, cutoff, potential, n_out, "cell_sweep",
+                          plan=(first, n_out,
+                                *_plan_args(cap, dtype, False, len(grid)),
+                                int(observables)),
+                          observables=observables, out=out)
     _count(cell_sweep, observables, interior)
-    return out
+    return result
 
 
 def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
-                    potential, observables=True, interior=None):
+                    potential, observables=True, interior=None, out=None):
     """The hi/lo pair sweep (float32). CUDA tensors launch the kernel (or
     raise); CPU tensors take :func:`cell_sweep_hilo_plain`. Each launch adds
     one to ``cell_sweep_hilo.launches``, and a launch of the lean variant
-    also to ``cell_sweep_hilo.lean_launches``. ``interior`` as in
-    :func:`cell_sweep` (counted in ``cell_sweep_hilo.slab_launches``)."""
+    also to ``cell_sweep_hilo.lean_launches``. ``interior`` and ``out`` as
+    in :func:`cell_sweep` (counted in ``cell_sweep_hilo.slab_launches``)."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     first, n_out = check_interior(interior, n_cells)
     if tuple(slot_lo.shape) != tuple(slot_pos.shape):
         raise ValueError("slot_lo must have the shape of slot_pos")
     if slot_pos.device.type == "cpu":
-        return cell_sweep_hilo_plain(slot_pos, slot_lo, slot_diam, counts,
-                                     box, grid, cutoff, potential,
-                                     observables, interior)
+        return _into(out, cell_sweep_hilo_plain(
+            slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
+            potential, observables, interior))
     cell = as_cell(box, len(grid)).contiguous()
     check_cuda((slot_pos, slot_lo, slot_diam, counts, cell), (torch.float32,))
     lib = _library()
-    out = launch_sweep(lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
-                       (slot_pos, slot_lo, slot_diam, counts, cell), grid,
-                       cap, cutoff, potential, n_out, "cell_sweep_hilo",
-                       plan=(first, n_out,
-                             *_plan_args(cap, torch.float32, True, len(grid)),
-                             hilo_filter_margin(torch.float32),
-                             int(observables)),
-                       observables=observables)
+    result = launch_sweep(
+        lib, NAME, lib.mdtpu_cell_sweep_hilo_f32,
+        (slot_pos, slot_lo, slot_diam, counts, cell), grid, cap, cutoff,
+        potential, n_out, "cell_sweep_hilo",
+        plan=(first, n_out, *_plan_args(cap, torch.float32, True, len(grid)),
+              hilo_filter_margin(torch.float32), int(observables)),
+        observables=observables, out=out)
     _count(cell_sweep_hilo, observables, interior)
-    return out
+    return result
+
+
+def _into(out, result):
+    """A plain sweep's ``(energy, virial, forces)`` with the forces copied
+    into ``out`` where given."""
+    energy, virial, force = result
+    return energy, virial, force if out is None else out.copy_(force)
+
+
+_ZEROS = {}
+
+
+def lean_zero(dtype, device):
+    """The 0-d zero a lean launch returns as its energy and virial: made
+    once per dtype and card, outside any CUDA-graph capture (a zero made
+    during one is the graph's alone and is not kept), so a lean launch
+    adds no fill to a step. Callers read it and never write it."""
+    key = (dtype, torch.device(device))
+    zero = _ZEROS.get(key)
+    if zero is None:
+        zero = torch.zeros((), dtype=dtype, device=device)
+        if not (zero.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _ZEROS[key] = zero
+    return zero
 
 
 def _count(wrapper, observables, interior=None):
@@ -453,7 +481,8 @@ def _plan_args(cap, dtype, hilo, dim):
 
 
 def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
-                 n_cells, what, scratch=(), plan=(), observables=True):
+                 n_cells, what, scratch=(), plan=(), observables=True,
+                 out=None):
     """Launch a sweep entry point of the library of ``csrc/<name>.cu`` on
     the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
     p0..p3, i0..i2, force, e_part, w_part, scratch..., plan..., stream)``
@@ -462,12 +491,20 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
     launch covers), raises on a launch error, and returns ``(energy,
     virial, slot_forces)`` with the per-cell partials summed on the device;
     ``observables=False`` (a lean launch) passes no partials and returns
-    zeros for both scalars."""
+    :func:`lean_zero` for both scalars. ``out``: the forces' tensor, where
+    the caller gives one."""
     kind, fp, ip = functor_params(potential)
     slot_pos = inputs[0]
     dtype, device = slot_pos.dtype, slot_pos.device
-    force = torch.empty((slot_pos.shape[0], n_cells * cap), dtype=dtype,
-                        device=device)
+    shape = (slot_pos.shape[0], n_cells * cap)
+    if out is None:
+        force = torch.empty(shape, dtype=dtype, device=device)
+    elif (tuple(out.shape) != shape or out.dtype != dtype
+          or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} tensor of the "
+                         f"positions' dtype and device")
+    else:
+        force = out
     if observables:
         e_part = torch.empty((n_cells,), dtype=dtype, device=device)
         w_part = torch.empty((n_cells,), dtype=dtype, device=device)
@@ -483,7 +520,7 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
                 *(t.data_ptr() for t in scratch), *plan, stream)
     _cuda_build.check(lib, name, rc, what)
     if not observables:
-        zero = force.new_zeros(())
+        zero = lean_zero(dtype, device)
         return zero, zero, force
     return torch.sum(e_part), torch.sum(w_part), force
 

@@ -330,7 +330,7 @@ class HaloSlotEngine:
                 (self.plane_cells, self.local_cells))
 
     def compute_slots(self, positions, diameters, cell, cell_inv, nbrs,
-                      observables=True, pos_lo=None):
+                      observables=True, pos_lo=None, out=None):
         """``(energy, virial, forces, nbrs)`` of this rank's slab: the ghost
         exchange (:meth:`slab_inputs`) and B1's launch over the interior
         cells of the ghost-extended grid, or for a potential without a
@@ -338,8 +338,8 @@ class HaloSlotEngine:
         list's reduction (its overflow joins ``nbrs.overflow``). Energy and
         virial are summed over the ring on full steps (``observables``);
         lean steps return zeros. ``pos_lo``: the lo words, for the hi/lo
-        sweep. ``cell_inv`` is unused; it keeps the single-device
-        signature."""
+        sweep. ``out``: a tensor the forces are copied into. ``cell_inv``
+        is unused; it keeps the single-device signature."""
         cell = cell.contiguous()
         pos, lo, diam, counts, grid, interior = self.slab_inputs(
             positions, diameters, nbrs.counts, cell, pos_lo)
@@ -360,6 +360,8 @@ class HaloSlotEngine:
         if observables:
             energy, virial = self.ring.sum(
                 torch.stack([energy, virial])).unbind()
+        if out is not None:
+            forces = out.copy_(forces)
         return energy, virial, forces, nbrs
 
 

@@ -50,6 +50,16 @@ overlapping in one graph each equal to the call alone, the programmatic
 edge into a captured step's finish (NVT, NVE) or noise (Brownian), the
 noise in memory the kernel before it reads, the same bits from the plain
 launch, and the summing finish's step written by the kernel just before.
+The slot step's Verlet chain (``integrate/verlet_update.py``): each
+variant bit for bit the torch composition on the card (f32, f64,
+compensated and not, 16-byte and unaligned rows, in place and into new
+tensors, the step counter), its bad inputs refused; the captured slot
+advance writing its buffers in place against the composition it replaced,
+run eagerly (bench NVT then hi/lo NVE, 2D, tilted: every segment's numbers
+and arrays bit for bit), the tilted box captured against eager, and a
+captured lean step's nodes (7 NVT, 6 NVE, no copy). The list's reduction,
+staged and walked, against its plain version in list order on config 4's
+list and a 3D list (forces bit for bit, a captured call replayed).
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -2093,6 +2103,13 @@ def test_captured_slot_step_nodes(cuda, ensemble):
         # The IF node's one dependency: the drift test, at the step's start.
         assert nodes["if_dependencies"] == nodes["if_root_kernels"] == 1
         assert nodes["kernels"] < nodes["nodes"] <= nodes["dot_nodes"]
+        # The Verlet chain: kick-drift, kick and (NVT) the rescale.
+        assert nodes["verlet_update"] == (3 if ensemble == "nvt" else 2)
+    # The lean step: the drift test, the IF node, the chain, the sweep and
+    # the finish, nothing copied into the buffers.
+    lean = advance.census["lean"]
+    assert lean["copies"] == 0
+    assert lean["nodes"] == (7 if ensemble == "nvt" else 6), lean
 
 
 @pytest.mark.parametrize("kind", ["ramp", "nve", "given_kinetic"])
@@ -2284,3 +2301,290 @@ def test_velocity_finish_summing_reads_a_step_written_just_before(cuda,
         torch.cuda.synchronize()
         for i, out in enumerate(outs):
             assert torch.equal(out, alone[i]), i
+
+
+# --------------------------------------------------------------------------
+# The slot step's Verlet chain (integrate/verlet_update.py) and the list's
+# staged reduction.
+# --------------------------------------------------------------------------
+
+def _verlet_rows(shape, dtype, device, seed, offset=False):
+    """f, v, vc, x, xc (``shape``) and a scale on ``device``: forces of
+    order 30, velocities of 1, positions up to 20, compensations of a
+    Kahan add's size. ``offset``: v, vc, x and xc are rows of one packed
+    tensor, none 16-byte aligned (a rebin's unpacked rows)."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn(shape, generator=g, dtype=torch.float64) * 30.0
+    v = torch.randn(shape, generator=g, dtype=torch.float64)
+    vc = torch.randn(shape, generator=g, dtype=torch.float64) * 1e-8
+    x = torch.rand(shape, generator=g, dtype=torch.float64) * 20.0
+    xc = torch.randn(shape, generator=g, dtype=torch.float64) * 1e-7
+    rows = [t.to(dtype).to(device) for t in (f, v, vc, x, xc)]
+    if offset:
+        n = rows[0].numel()
+        packed = torch.zeros(4 * n + 1, dtype=dtype, device=device)
+        views = [packed[1 + i * n:1 + (i + 1) * n].view(shape)
+                 for i in range(4)]
+        for view, row in zip(views, rows[1:]):
+            view.copy_(row)
+        rows[1:] = views
+        assert views[0].data_ptr() % 16
+    return rows, torch.tensor(1.0123, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("layout", ["bench", "offset", "odd"])
+@pytest.mark.parametrize("compensated", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_verlet_update_matches_plain_bit_for_bit(cuda, dtype, compensated,
+                                                 layout):
+    """Each variant against its plain version on the card's tensors (the
+    torch composition on the card), bit for bit: kick-drift into new
+    tensors (its inputs untouched) and in place, with the hi/lo low word;
+    the kick and the rescale in place, the step counter advanced in place
+    and into another tensor; one launch each. The bench's slots (16-byte
+    loads), rows off alignment, and a shape of 14 values."""
+    from mdtpu_torch.integrate import verlet_update as vu
+    shape = {"bench": (3, 124875), "offset": (3, 124875),
+             "odd": (2, 7)}[layout]
+    (f, v, vc, x, xc), scale = _verlet_rows(shape, dtype, cuda, 3,
+                                            layout == "offset")
+    half, dt = 0.001, 0.002
+    keep = [t.clone() for t in (v, vc, x, xc)]
+    want = vu.kick_drift_plain(f, v, vc, x, xc, half, dt, compensated,
+                               compensated)
+    lo = torch.empty_like(xc) if compensated else None
+    n0 = vu.kick_drift.launches
+    got = vu.kick_drift(f, v, vc, x, xc, half, dt, compensated, lo=lo)
+    torch.cuda.synchronize()
+    assert vu.kick_drift.launches == n0 + 1
+    for a, b in zip(got, want[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip((v, vc, x, xc), keep):
+        assert torch.equal(a, b)
+    if compensated:
+        assert torch.equal(lo, want[4])
+    else:
+        assert got[1] is vc and got[3] is xc
+    vu.kick_drift(f, v, vc, x, xc, half, dt, compensated,
+                  out=(v, vc, x, xc))
+    for a, b in zip((v, vc, x, xc), want[:4]):
+        assert torch.equal(a, b)
+    step = torch.tensor(2 ** 33 + 5, device=cuda)
+    kv, kvc = vu.kick_plain(f * 0.5, v, vc, half, compensated)
+    vu.kick(f * 0.5, v, vc, half, compensated, step)
+    assert torch.equal(v, kv) and torch.equal(vc, kvc)
+    assert int(step) == 2 ** 33 + 6
+    rv, rvc = vu.rescale_plain(v, vc, scale, compensated)
+    after = torch.empty_like(step)
+    n1 = vu.rescale.launches
+    vu.rescale(v, vc, scale, compensated, step, after)
+    torch.cuda.synchronize()
+    assert vu.rescale.launches == n1 + 1
+    assert torch.equal(v, rv) and torch.equal(vc, rvc)
+    assert int(step) == 2 ** 33 + 6 and int(after) == 2 ** 33 + 7
+
+
+def test_verlet_update_refuses_what_it_does_not_take(cuda):
+    from mdtpu_torch.integrate import verlet_update as vu
+    (f, v, vc, x, xc), scale = _verlet_rows((3, 100), torch.float32, cuda, 1)
+    with pytest.raises(ValueError):   # not contiguous
+        vu.kick(f.t().contiguous().t(), v, vc, 0.001, True)
+    with pytest.raises(ValueError):   # shapes differ
+        vu.kick(f[:, :50], v, vc, 0.001, True)
+    with pytest.raises(ValueError):   # a scale of another dtype
+        vu.rescale(v, vc, scale.double(), True)
+    with pytest.raises(ValueError):   # a step that is not int64
+        vu.kick(f, v, vc, 0.001, True, torch.tensor(3, device=cuda,
+                                                    dtype=torch.int32))
+    with pytest.raises(TypeError):
+        vu.kick(f.half(), v.half(), vc.half(), 0.001, True)
+
+
+def _old_slot_step(params, ensemble, engine, observables, hilo):
+    """The slot MD step as the port ran it before the Verlet chain was one
+    kernel: torch operations on new tensors (copied into the advance's
+    buffers by the advance)."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate import step as tstep
+
+    def step(state, ktemp=None):
+        slot_step.make_slot_step.steps += 1
+        dt = float(params.dt)
+        half = 0.5 * dt
+        v, vc = tstep._add(state.velocities, state.vel_comp,
+                           state.forces * half, True)
+        x, xc = tstep._add(state.positions, state.pos_comp, v * dt, True)
+        energy, virial, forces, nbrs = slot_step._sweep_in(
+            engine, x, state.diameters, state.unitcell, state.unitcell_inv,
+            state.nbrs, observables, None, -xc if hilo else None)
+        if not observables:
+            energy, virial = state.energy, state.virial
+        v, vc = tstep._add(v, vc, forces * half, True)
+        v, vc, temperature = tstep.md_velocity_finish(
+            ensemble, v, vc, state, dt, True, None, ktemp)
+        return state.replace(
+            positions=x, velocities=v, forces=forces, step=state.step + 1,
+            energy=energy, virial=virial, temperature=temperature,
+            pos_comp=xc, vel_comp=vc, nbrs=nbrs)
+
+    return step
+
+
+def _slot_case(case, cuda):
+    """``(slots, engine, params)``: 4096 LJ at f32 (the bench's density and
+    cutoff) on a lattice, in the tilted box [[L, L/8, L/12], [0, L, L/6],
+    [0, 0, L]] too, or pseudo-hard disks in a 2D box leaning by L/8."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    n = 4096
+    if case == "2d":
+        L = (n / 0.7) ** 0.5
+        cell = np.array([[L, L / 8], [0.0, L]])
+        pot, cutoff, dt, rho = PseudoHS(), 1.5, 0.002, 0.7
+    else:
+        L = (n / 0.8) ** (1.0 / 3.0)
+        cell = (np.array([[L, L / 8, L / 12], [0.0, L, L / 6],
+                          [0.0, 0.0, L]]) if case == "tilted"
+                else np.eye(3) * L)
+        pot, cutoff, dt, rho = LennardJones(r_cut=2.5), 2.5, 0.002, 0.8
+    dim = cell.shape[0]
+    pos = lattice_positions(n, cell, dim, dtype=torch.float32, jitter=0.01,
+                            device=cuda)
+    state = build_state_from_arrays(pos, np.ones(n), cell, 5,
+                                    dtype=torch.float32, cutoff=cutoff,
+                                    device=cuda)
+    state = state.replace(velocities=initialize_velocities(
+        1.0, 1, n, dim, dtype=torch.float32, device=cuda))
+    eng = CellGridEngine.create(pot, cutoff, 0.3, state.unitcell, n)
+    params = mdtpu_torch.Parameters(rho, n, dt, pot)
+    return slot_step.slot_forces(slot_step.slotify(state, eng), eng), eng, \
+        params
+
+
+@pytest.mark.parametrize("case", ["bench", "2d", "tilted"])
+def test_in_place_steps_give_the_old_composition_bits(cuda, case):
+    """The slot advance through the Verlet kernel, the sweep and the finish
+    writing the buffers (captured) against the composition the step ran
+    before (eager, torch's kernels, results copied into the buffers): NVT
+    on a ramp then NVE (the bench on the hi/lo sweep), segments of one step
+    and of several; after every segment the thermo numbers and every
+    array bit for bit, the same rebuild steps."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate.ramps import LinearRamp
+    slots, eng, params = _slot_case(case, cuda)
+    segments = (1,) * 6 + (30, 30)
+    start = slots
+    for ens, hilo in ((mdtpu_torch.NVT(LinearRamp(1.4, 0.9, 80), 0.4),
+                       False), (mdtpu_torch.NVE(), case == "bench")):
+        new = slot_step.make_slot_advance(params, ens, eng, hilo=hilo)
+        old = slot_step.SlotAdvance(
+            _old_slot_step(params, ens, eng, False, hilo),
+            _old_slot_step(params, ens, eng, True, hilo), eng, ens, True,
+            False)
+        ends = []
+        for advance in (new, old):
+            s, rows, arrays = start, [], []
+            for k in segments:
+                s = advance(s, k)
+                rows.append(torch.stack([s.energy, s.virial, s.temperature]))
+                arrays.append([getattr(s, f) for f in (
+                    "positions", "pos_comp", "velocities", "vel_comp",
+                    "forces", "images", "ids")])
+            ends.append((s, torch.stack(rows), arrays,
+                         advance.rebuild_steps()))
+        (sn, rn, an, bn), (so, ro, ao, bo) = ends
+        assert torch.equal(rn, ro) and bn == bo and sn.step == so.step
+        for i, (a, b) in enumerate(zip(an, ao)):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), i
+        assert new.graph and not old.graph
+        start = sn
+
+
+def test_captured_slot_advance_equals_eager_tilted(cuda):
+    """The tilted bench box: NVT then hi/lo NVE, captured and eager bit for
+    bit at every step (segments of one step, then lean ones), with the same
+    rebuilds and counts."""
+    from mdtpu_torch.integrate import slot_step
+    slots, eng, params = _slot_case("tilted", cuda)
+    nvt = _graph_and_eager(slots, params, mdtpu_torch.NVT(1.0, 0.4), eng,
+                           (1,) * 5 + (60, 60))
+    _assert_routes_equal(nvt, 125)
+    nve = _graph_and_eager(nvt[None][0], params, mdtpu_torch.NVE(), eng,
+                           (1,) * 5 + (40,), hilo=True)
+    _assert_routes_equal(nve, 45)
+    assert slot_step.make_slot_step.steps >= 340
+
+
+def _config4_list(cuda, case):
+    """``(plist, u, f)``: the pair list of BASELINE config 4 (2D, 65,536,
+    rho 0.9, diameters U(0.8, 1.2), r_c 1.8, f64, a lattice jittered by
+    0.05: ~4 entries a slot) or of a 3D lattice (20,000 at rho 0.8, the
+    bench's r_c 2.5, f32: ~36), with the user potential's values on it."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_positions)
+    pot = NonAdditivePHS()
+    g = torch.Generator().manual_seed(6)
+    if case == "config4":
+        n, dim, rho, cutoff, dtype = 65536, 2, 0.9, 1.8, torch.float64
+    else:
+        n, dim, rho, cutoff, dtype = 20000, 3, 0.8, 2.5, torch.float32
+    L = (n / rho) ** (1.0 / dim)
+    cell = np.eye(dim) * L
+    pos = lattice_positions(n, cell, dim, dtype=torch.float64, jitter=0.05,
+                            seed=4, device=cuda)
+    diam = 0.8 + 0.4 * torch.rand(n, generator=g, dtype=torch.float64)
+    state = build_state_from_arrays(pos, diam, cell, 0, dtype=dtype,
+                                    cutoff=cutoff, device=cuda)
+    eng = CellGridEngine.create(pot, cutoff, 0.3, state.unitcell, n,
+                                diameters=state.diameters)
+    slots = slot_step.slotify(state, eng)
+    plist = pairs_mod.pair_list(slots.positions, slots.diameters,
+                                slots.nbrs.counts, slots.unitcell, eng.grid,
+                                eng.cutoff, eng.pair_list_capacity)
+    assert not bool(plist.overflow)
+    u, f = pot.evaluate_r2(plist.r2, plist.sigma_i, plist.sigma_j)
+    return plist, u, f
+
+
+@pytest.mark.parametrize("way", ["chosen", "staged", "walk"])
+@pytest.mark.parametrize("case", ["config4", "3d"])
+def test_pair_reduce_forces_are_the_plain_versions_bits(cuda, case, way,
+                                                        monkeypatch):
+    """The reduction's forces, full and lean, equal the plain version's in
+    list order (index_add_ on the CPU) bit for bit, by the kernel the
+    wrapper picks (the walk at config 4's short segments, the staged one
+    at the 3D list's long ones) and by each forced; energy and virial to
+    the sums' rounding; two calls alike."""
+    plist, u, f = _config4_list(cuda, case)
+    picked = pairs_mod.staged_reduce(plist.capacity, plist.count.shape[0])
+    assert picked == (case == "3d")
+    if way != "chosen":
+        monkeypatch.setattr(pairs_mod, "staged_reduce",
+                            lambda *a: way == "staged")
+    out = pairs_mod.pair_reduce(plist, f, u)
+    lean = pairs_mod.pair_reduce(plist, f)
+    again = pairs_mod.pair_reduce(plist, f, u)
+    cpu = pairs_mod.PairList(**{k: getattr(plist, k).cpu() for k in (
+        "start", "total", "overflow", "count", "neighbour", "disp", "r2",
+        "sigma_i", "sigma_j")})
+    ref = pairs_mod.pair_reduce_plain(cpu, f.cpu(), u.cpu())
+    assert torch.equal(out[2].cpu(), ref[2])
+    assert torch.equal(lean[2], out[2])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert float(lean[0]) == float(lean[1]) == 0.0
+    # Captured on the capturing stream: a replay writes the outputs anew.
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pairs_mod.pair_reduce(plist, f, u)
+    for t in captured:
+        t.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, out))
+    rtol = TOLERANCES[out[2].dtype][0]
+    np.testing.assert_allclose(float(out[0]), float(ref[0]), rtol=rtol)
+    np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=rtol)
