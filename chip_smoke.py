@@ -144,7 +144,15 @@
    (f32 and f64, compensated and not, in place and into new tensors, the
    step counter advanced), each timed by a graph of 100 in-place calls
    beside the composition timed the same way, the launch floor and its
-   bound (the bytes it moves).
+   bound (the bytes it moves). Brownian update phase: the Brownian slot
+   step's update (``csrc/verlet_update.cu`` ``brownian_update_kernel``,
+   the noise drawn inside) at the Brownian slot path's slots (3, 263,424)
+   and the bench's (3, 124,875), f32 and f64, compensated and not,
+   against the torch composition on the card fed by the ``uniform_noise``
+   kernel bit for bit (into new tensors and in place, the step counter,
+   the virial's sample, the temperature), each timed by a graph of 100
+   in-place calls beside the composition timed the same way, the launch
+   floor and its bound (the bytes it moves).
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -235,8 +243,10 @@
    launch counts.
    Each MD step of the B1 path finishes through ``velocity_finish`` (the
    NVT steps draw there; ``bussi_draw`` is not launched) and tests
-   ``rebuild_flag`` once; each Brownian step in slots draws through
-   ``uniform_noise``; each MD slot step runs its Verlet chain through
+   ``rebuild_flag`` once; each Brownian step in slots runs its update,
+   the noise drawn inside, as one ``brownian_update`` launch (no
+   ``uniform_noise``; the Brownian steps on ``PlaneEngine`` draw through
+   ``uniform_noise``); each MD slot step runs its Verlet chain through
    ``verlet_update``: kick-drift and kick once a step, the rescale once an
    NVT step (none on the Brownian, B2 and list paths). On the card the slot
    route runs captured: each step
@@ -257,10 +267,14 @@
    run fails), and each captured step's nodes read from its graph: one
    node for the drift test, one for the velocity finish, one conditional
    node, one for each of the Verlet chain's launches (3 NVT, 2 NVE) and no
-   memset, the lean step at most 8 nodes (NVT) or 7 (NVE) and no copy, or
-   the run fails. Every captured step of the three
-   paths enters its velocity finish (MD) or its noise (Brownian) by one
-   programmatic edge, its graph's only one, or the run fails.
+   memset, the lean step at most 8 nodes (NVT) or 7 (NVE) and no copy,
+   the full last step the lean step's nodes and no copy (B1 sums its
+   energy and virial into the buffers in its last block), or the run
+   fails. Every captured step of the three paths enters its velocity
+   finish (MD) or its update (Brownian, which draws the noise) by one
+   programmatic edge, its graph's only one, and a captured Brownian step
+   holds at most 5 nodes (the drift test, the IF node, B1, the update),
+   no copy and no memset, or the run fails.
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3811,6 +3825,107 @@ def verlet_check(mt):
     return results, failures
 
 
+BROWNIAN_REPLACES = "mdtpu/integrate/slot_step.py:557"
+BROWNIAN_COVERS = ("mdtpu/integrate/slot_step.py:557-577 make_slot_step's "
+                   "Brownian update with mdtpu/integrate/step.py:110 "
+                   "brownian_noise and :122 brownian_virial_sample (XLA, "
+                   "fused into the segment's while_loop; no pl.pallas_call)")
+# Rows of d * S values the update moves: f, x, xc read, x, xc written.
+BROWNIAN_ROWS = 5
+# Operations a value: the drift and noise products, their sum, the Kahan
+# add's four, the noise's scaling (2u - 1, times sqrt 3); and a Philox
+# block a 16-byte group.
+OPS_BROWNIAN_VALUE = 10
+
+
+def brownian_update_check(mt):
+    """The Brownian slot step's update (``integrate/verlet_update.py``
+    ``brownian_update``) on the card at the Brownian slot path's slots
+    (3, 263,424) and the bench's (3, 124,875), f32 and f64, compensated
+    and not: against its plain version on the card's tensors (the torch
+    composition, its noise from the ``uniform_noise`` kernel) bit for bit,
+    into new tensors and in place, the step counter, the virial's sample
+    and the temperature; two launches alike. Each timed by
+    :func:`many_ms` (a graph of ``MANY_CALLS`` in-place calls) beside the
+    launch floor as a programmatic dependent, the composition it replaced
+    timed the same way, and its bound from this run's inputs: the bytes
+    it must move."""
+    import types
+
+    from mdtpu_torch.integrate import verlet_update as vu
+    shapes = {"brownian_slot": _slot_shape(mt, brownian_state(), 1.5),
+              "bench": (3, BENCH_GEOMETRY[1] * math.prod(
+                  BENCH_GEOMETRY[0]))}
+    failures, results = [], {}
+
+    def state_of(shape, dtype, step):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        occ = torch.rand(shape[1], device="cuda", generator=g) < 0.25
+        f = torch.randn(shape, device="cuda", generator=g) * 30.0 * occ
+        x = torch.rand(shape, device="cuda", generator=g) * 80.0 * occ
+        xc = torch.randn(shape, device="cuda", generator=g) * 1e-7 * occ
+        return types.SimpleNamespace(
+            positions=x.to(dtype), pos_comp=xc.to(dtype), seed=3,
+            nbrs=types.SimpleNamespace(occupied=occ), dtype=dtype,
+            step=torch.tensor(step, device="cuda"), device=x.device,
+            virial_accum=torch.tensor(2.5, dtype=dtype, device="cuda"),
+            nprom=torch.tensor(4, device="cuda"),
+            temperature=torch.tensor(0.0, dtype=dtype, device="cuda")), \
+            f.to(dtype), torch.tensor(-1234.5, dtype=dtype, device="cuda")
+
+    same = True
+    for name, shape in shapes.items():
+        for dtype in (torch.float32, torch.float64):
+            coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+            for comp, step in ((True, 123450), (False, 123457)):
+                st, f, w = state_of(shape, dtype, step)
+                want = vu.brownian_update_plain(f, w, st, *coeffs, comp)
+                got = vu.brownian_update(f, w, st, *coeffs, comp)
+                again = vu.brownian_update(f, w, st, *coeffs, comp)
+                same &= all(torch.equal(a, b) and torch.equal(a, c) for
+                            a, b, c in zip(got[:2] + got[3:], want,
+                                           again[:2] + again[3:]))
+                same &= int(got[2]) == step + 1 == int(again[2])
+                vu.brownian_update(f, w, st, *coeffs, comp, in_place=True)
+                same &= all(torch.equal(a, b) for a, b in zip(
+                    (st.positions, st.pos_comp, st.virial_accum, st.nprom,
+                     st.temperature), want))
+                same &= int(st.step) == step + 1
+    if not same:
+        failures.append("brownian_update differs from its plain version")
+    floor = launch_floor_ms(True)
+    for name, shape in shapes.items():
+        for dtype in (torch.float32, torch.float64):
+            coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+            st, f, w = state_of(shape, dtype, 123450)
+            n = shape[0] * shape[1]
+            size = torch.tensor([], dtype=dtype).element_size()
+            nbytes = BROWNIAN_ROWS * size * n + shape[1]
+            ops = (-(-n // (16 // size)) * OPS_PHILOX_BLOCK
+                   + n * OPS_BROWNIAN_VALUE)
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b = max(b_bytes, ops / PEAK_OPS[dtype] * 1e3)
+            key = f"{name}_{str(dtype)[6:]}"
+            results[key] = {
+                "max_abs_err": 0.0 if same else float("inf"),
+                "ms": many_ms(lambda: vu.brownian_update(
+                    f, w, st, *coeffs, True, in_place=True)),
+                "plain_ms": many_ms(lambda: vu.brownian_update_plain(
+                    f, w, st, *coeffs, True)),
+                "plain_timing": "a graph of the composition's calls (the "
+                                "noise kernel and the torch operations), "
+                                "as ms",
+                "bound_ms": b, "bound_by": "bytes" if b == b_bytes
+                else "operations", "bound_bytes": nbytes,
+                "bound_meetable_ms": max(b, floor),
+                "launch_floor_programmatic_ms": floor,
+                "library_ms": None,
+                "library_call": "none, no single PyTorch call",
+                "shape": list(shape)}
+            log(json.dumps({"brownian_update": key, **results[key]}))
+    return results, failures
+
+
 def _gamma_attempts(draws, seed, step, dof):
     """The Marsaglia-Tsang attempts the draw at ``step`` took."""
     k0, k1 = draws.seed_key(seed)
@@ -3935,9 +4050,11 @@ def graph_paths(mt, workdir):
                             f"{len(e_reb)} vs {len(g_reb)}")
         if not e_reb:
             failures.append(f"graph {name}: no rebuild in the run")
-        # Each captured step takes its velocity finish (MD) or its noise
-        # (Brownian) by a programmatic edge from the kernel before it.
-        into = ("programmatic_into_uniform_noise" if name == "brownian_slot"
+        # Each captured step takes its velocity finish (MD) or its update
+        # (Brownian, which draws the noise) by a programmatic edge from the
+        # kernel before it.
+        into = ("programmatic_into_brownian_update"
+                if name == "brownian_slot"
                 else "programmatic_into_velocity_finish")
         edges = [{v: (nodes[into], nodes["programmatic_edges"],
                       nodes["edges_error"]) for v, nodes in c.items()}
@@ -3945,10 +4062,21 @@ def graph_paths(mt, workdir):
         if not census or any(e != (1, 1, 0) for c in edges
                              for e in c.values()):
             failures.append(f"graph {name}: programmatic edges {edges}")
+        # A captured Brownian step: the drift test, the IF node, B1 (its
+        # energy and virial summed in its last block) and the update, no
+        # copy, no memset, no noise kernel.
+        if name == "brownian_slot" and any(
+                nodes["nodes"] > 5 or nodes["copies"] or nodes["memsets"]
+                or nodes["brownian_update"] != 1 or nodes["uniform_noise"]
+                for c in census for nodes in c.values()):
+            failures.append(f"graph {name}: step nodes {census}")
         rec[name] = {"steps": n_nvt + n_nve, "rebuilds": len(g_reb),
                      "steps_per_s_eager": e_rate,
                      "steps_per_s_graph": g_rate,
-                     "programmatic_edges": edges}
+                     "programmatic_edges": edges,
+                     "step_nodes": [{v: {k: nodes[k] for k in (
+                         "nodes", "kernels", "copies", "memsets")}
+                         for v, nodes in c.items()} for c in census]}
         log(json.dumps({"graph_path": name, **rec[name]}))
 
     # One segment of the bench's slot advance on each route, NVT and then
@@ -3996,10 +4124,16 @@ def graph_paths(mt, workdir):
                         1, 1, 0, 0, 1, 1, 1, 0, 1, 0, chain):
                 failures.append(f"graph {ens_name} {variant} step nodes: "
                                 f"{nodes}")
-        lean = census["lean"]
+        # The full last step: the same nodes as the lean one (its sweep
+        # sums energy and virial into the buffers in its last block), no
+        # copy.
+        lean, last = census["lean"], census["last"]
         if lean["copies"] or lean["nodes"] > chain + 5:
             failures.append(f"graph {ens_name} lean step: {lean['nodes']} "
                             f"nodes, {lean['copies']} copies")
+        if last["copies"] or last["nodes"] != lean["nodes"]:
+            failures.append(f"graph {ens_name} last step: {last['nodes']} "
+                            f"nodes, {last['copies']} copies")
         rec["segment_profile"][ens_name] = {"profiles": profiles,
                                             "nodes": census}
     return rec, failures
@@ -4070,7 +4204,8 @@ def launch_counts():
         "rebuild_flag": draws.rebuild_flag.launches,
         "verlet_kick_drift": vu.kick_drift.launches,
         "verlet_kick": vu.kick.launches,
-        "verlet_rescale": vu.rescale.launches}
+        "verlet_rescale": vu.rescale.launches,
+        "brownian_update": vu.brownian_update.launches}
 
 
 def own_launches(n):
@@ -4102,7 +4237,8 @@ def own_launches(n):
         "rebuild_flag": n["rebuild_flag"],
         "verlet_kick_drift": n["verlet_kick_drift"],
         "verlet_kick": n["verlet_kick"],
-        "verlet_rescale": n["verlet_rescale"]}
+        "verlet_rescale": n["verlet_rescale"],
+        "brownian_update": n["brownian_update"]}
 
 
 def run_paths(mt, workdir):
@@ -4274,14 +4410,22 @@ def run_paths(mt, workdir):
                         f"slot steps {bds['slot_steps']}")
     # Every MD step finishes through velocity_finish (its NVT steps draw
     # there, none through bussi_draw), every Brownian step in slots draws
-    # through uniform_noise; every slot step tests the rebuild flag once.
+    # in its update (brownian_update, no uniform_noise), every Brownian
+    # step on PlaneEngine through uniform_noise; every slot step tests the
+    # rebuild flag once.
     if (b1["launches"]["velocity_finish"] < NVT_STEPS + 2 * NVE_STEPS
             or b1["launches"]["bussi_draw"]
             or b1["launches"]["rebuild_flag"] < NVT_STEPS + 2 * NVE_STEPS
-            or bds["launches"]["uniform_noise"] < BROWNIAN_STEPS
+            or bds["launches"]["brownian_update"] != BROWNIAN_STEPS
+            or bds["launches"]["uniform_noise"]
+            or bd["launches"]["uniform_noise"] < BROWNIAN_STEPS
             or bds["launches"]["rebuild_flag"] < BROWNIAN_STEPS):
-        failures.append(f"b1/brownian_slot: draw launches {b1['launches']} "
-                        f"{bds['launches']}")
+        failures.append(f"b1/brownian: draw launches {b1['launches']} "
+                        f"{bds['launches']} {bd['launches']}")
+    for rec in (b1, b2, bd, nlp):
+        if rec["launches"]["brownian_update"]:
+            failures.append(f"{rec['path']}: launched brownian_update "
+                            f"{rec['launches']}")
     # Every MD slot step runs the Verlet chain as the kernel's launches:
     # kick-drift and kick once a step, the rescale once an NVT step; the
     # Brownian slot step and the particle-order paths none.
@@ -4377,6 +4521,8 @@ def main():
     failures += draws_failures
     verlet_results, verlet_failures = verlet_check(mt)
     failures += verlet_failures
+    brownian_results, brownian_failures = brownian_update_check(mt)
+    failures += brownian_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -4410,7 +4556,9 @@ def main():
               {"launches_brownian_slot": by_path["brownian_slot"][
                   "cell_sweep"],
                "launches_fire": by_path["fire"]["cell_sweep"]
-               - by_path["fire"]["cell_sweep_lean"]}),
+               - by_path["fire"]["cell_sweep_lean"],
+               "energy_virial": "summed in the kernel's last block (one "
+                                "launch a call)"}),
         entry("cell_sweep_hilo", "mdtpu_torch/csrc/cell_sweep.cu",
               pallas_cell,
               b1["cell_sweep_hilo"] - b1["cell_sweep_hilo_lean"],
@@ -4592,7 +4740,7 @@ def main():
     nodes = graph_rec["segment_profile"]["nvt"]["nodes"]["lean"]
     floor = draws_results["launch_floor"]["ms"]
     for kname, path in (("velocity_finish", "b1"),
-                        ("uniform_noise", "brownian_slot"),
+                        ("uniform_noise", "brownian"),
                         ("rebuild_flag", "b1")):
         rec = draws_results[kname]
         extra = {k: v for k, v in rec.items() if k not in (
@@ -4603,6 +4751,8 @@ def main():
             "launch_floor"]["programmatic_ms"]
         if kname != "uniform_noise":
             extra["nodes_in_captured_nvt_step"] = nodes[kname]
+        else:
+            extra["launches_brownian_slot"] = by_path["brownian_slot"][kname]
         if kname == "velocity_finish":
             extra["draw_kernel"] = dict(
                 draws_results["bussi_draw"], name="bussi_draw",
@@ -4632,6 +4782,25 @@ def main():
         kernels["kernels"].append(entry(label, VERLET_SOURCE,
                                         VERLET_REPLACES, by_path["b1"][label],
                                         rec, extra))
+    # The Brownian slot step's update (XLA in the JAX package, no
+    # pl.pallas_call): the Brownian slot path's slots at f32, the other
+    # shapes and dtypes beside it, its launches on that path and its nodes
+    # in a captured Brownian step.
+    main_rec = brownian_results["brownian_slot_float32"]
+    extra = {k: v for k, v in main_rec.items() if k not in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    extra.update(covers=BROWNIAN_COVERS, kernel="brownian_update_kernel",
+                 launches_b1=by_path["b1"]["brownian_update"],
+                 nodes_in_captured_brownian_step=graph_rec[
+                     "brownian_slot"]["step_nodes"])
+    for key, r in brownian_results.items():
+        if r is not main_rec:
+            extra[key] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "shape")}
+    kernels["kernels"].append(entry(
+        "brownian_update", VERLET_SOURCE, BROWNIAN_REPLACES,
+        by_path["brownian_slot"]["brownian_update"], main_rec, extra))
     log(json.dumps({"launch_floor_ms": floor, "calls_a_graph": MANY_CALLS,
                     "graph_step_nodes": {
                         e: r["nodes"] for e, r in

@@ -16,19 +16,23 @@ an NVT and an NVE segment), the same with ``--plain-launch`` (the small
 kernels in plain stream order where the tree launches them as
 programmatic dependents), ``--engine slot --eager`` (the same launched
 step by step) and ``--engine slot --brownian`` (the Brownian slot step,
-both ways), then the
+captured and, ``--eager``, launched step by step, and with
+``--plain-launch``), then the
 ``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
 bench configuration, in slots and on ``PlaneEngine``) and the Brownian
 paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. ``--only
-slot``: the slot step captured and eager and the ``b1`` path alone (~5
-min). The host's clock moves with the machine and with what
+slot``: the slot step captured and eager, the Brownian slot step, and the
+``b1`` and Brownian-in-slots paths alone (~6 min). The host's clock moves
+with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
 ms, idle share, launches, host reads and the kernels and memsets the device
-ran per step (the NVE segment's under ``nve``), the velocity finish's
-and the noise's device time in the step and the gap before each, how the
-small kernels launched, a captured lean step's nodes and programmatic
-edges, and each path's steps/s; then the card's name and power limit.
+ran per step (the NVE segment's under ``nve``), the velocity finish's,
+the noise's and the Brownian update's device time in the step and the gap
+before each, how the small kernels launched, each captured step
+variant's nodes, copies and programmatic edges (lean, and the segment's
+full last step), and each path's steps/s; then the card's name and power
+limit.
 """
 
 import argparse
@@ -44,20 +48,23 @@ PROFILE_KEYS = ("ms_per_step_host_clock", "device_busy_ms_per_step",
                 "kernel_launches_per_step", "host_syncs_per_step",
                 "graph_launches_per_step", "device_kernels_per_step",
                 "device_memsets_per_step", "device_copies_per_step")
-GAP_KEYS = ("velocity_finish_us", "velocity_finish_gap_us",
-            "velocity_finish_after_us", "uniform_noise_us",
-            "uniform_noise_gap_us", "uniform_noise_after_us")
+GAP_KEYS = tuple(f"{k}{s}" for k in ("velocity_finish", "uniform_noise",
+                                      "brownian_update")
+                 for s in ("_us", "_gap_us", "_after_us"))
 ENGINES = {"cellgrid": ("--engine", "cellgrid"),
            "plane": ("--engine", "plane"),
            "slot": ("--engine", "slot"),
            "slot_plain_launch": ("--engine", "slot", "--plain-launch"),
            "slot_eager": ("--engine", "slot", "--eager"),
            "slot_brownian": ("--engine", "slot", "--brownian"),
+           "slot_brownian_eager": ("--engine", "slot", "--brownian",
+                                   "--eager"),
            "slot_brownian_plain_launch": ("--engine", "slot", "--brownian",
                                           "--plain-launch")}
 
 
-SLOT_ENGINES = ("slot", "slot_eager")
+SLOT_ENGINES = ("slot", "slot_eager", "slot_brownian",
+                "slot_brownian_eager")
 PATHS = ("b1", "b2", "brownian", "brownian_slot")
 
 
@@ -100,10 +107,11 @@ def step_record(prof, launch=None):
     lean step's graph."""
     rec = {k: prof[k] for k in PROFILE_KEYS + GAP_KEYS if k in prof}
     rec["launch"] = launch or prof.get("launch", "plain")
-    lean = (prof.get("step_graph_nodes") or {}).get("lean")
-    if lean:
-        rec["lean_step_nodes"] = lean["nodes"]
-        rec["lean_step_programmatic_edges"] = lean.get("programmatic_edges")
+    for variant, nodes in (prof.get("step_graph_nodes") or {}).items():
+        rec[f"{variant}_step_nodes"] = nodes["nodes"]
+        rec[f"{variant}_step_copies"] = nodes["copies"]
+        rec[f"{variant}_step_programmatic_edges"] = nodes.get(
+            "programmatic_edges")
     return rec
 
 
@@ -121,7 +129,8 @@ def main():
     parser.add_argument("--paths", default=",".join(PATHS),
                         help=argparse.SUPPRESS)
     parser.add_argument("--only", choices=("slot",),
-                        help="the slot step and the b1 path alone")
+                        help="the slot steps and the b1 and Brownian slot "
+                        "paths alone")
     args = parser.parse_args()
     if args.paths_worker:
         return paths_worker(args.paths_worker, args.paths.split(","))
@@ -146,7 +155,8 @@ def main():
                                                  prof.get("launch"))
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
                               "--paths-worker", tree, "--paths",
-                              "b1" if args.only else ",".join(PATHS)],
+                              "b1,brownian_slot" if args.only
+                              else ",".join(PATHS)],
                              tree))
         print(json.dumps(rec), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

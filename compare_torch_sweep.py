@@ -53,19 +53,24 @@ profiler, and each call's device time also by a graph of 100 calls,
 ``many_ms``, the host's replay spread over them); then the card's name and
 power limit.
 
-``--only slot`` holds the slot advance of the two trees to each other
-bit for bit on the bench's shapes (65,536 at f32, from this tree's start:
-the bench's lattice, its cubic box and the tilted one [[L, L/8, L/12],
-[0, L, L/6], [0, 0, L]], and ``bench_2d.py``'s disks): NVT(1.0, 0.4) then
-NVE on the hi/lo sweep (the 2D path's NVE on the plain one), each leg in
-segments of one step (25 of them, each step full) then of 50 (lean steps
-inside); after every segment energy, virial, temperature and the step,
-and the bits of positions, their compensation, velocities, theirs,
-forces and images (an int64 sum of each array's words, and the arrays
-themselves at the end), and the rebuild steps. Each tree steps on its
-default route (captured on the card), in the order parent, change,
-change, parent; it prints one line per case with whether every number is
-equal and the seconds each run took.
+``--only slot`` holds the slot advance of the two trees to each other on
+the bench's shapes (65,536 at f32, from this tree's start: the bench's
+lattice, its cubic box and the tilted one [[L, L/8, L/12], [0, L, L/6],
+[0, 0, L]], ``bench_2d.py``'s disks, and ``chip_smoke.py``'s Brownian
+system, pseudo-hard spheres at rho 0.5 jittered by 0.05): NVT(1.0, 0.4)
+then NVE on the hi/lo sweep (the 2D path's NVE on the plain one), or 225
+Brownian(1.0) steps at dt 1e-5, each leg in segments of one step (25 of
+them, each step full) then of 50 (lean steps inside); after every segment
+energy, virial, temperature, the step and the Brownian accumulators, and
+the bits of positions, their compensation, velocities, theirs, forces and
+images (an int64 sum of each array's words, and the arrays themselves at
+the end), and the rebuild steps. Each tree steps on its default route
+(captured on the card), in the order parent, change, change, parent; it
+prints one line per case: whether the arrays, the rebuild steps and the
+temperature, step and sample count are equal bit for bit, whether energy,
+virial and the virial's accumulator (sums whose order a tree may change)
+agree within rel 1e-6, whether every row is equal bit for bit and repeats
+within each tree, and the seconds each run took.
 
 ``--only reduce`` compares the list's reduction alone, on its three
 lists (~2 min).
@@ -521,10 +526,17 @@ def draw_runs(name, case):
     return out
 
 
-# The slot cases: (name, start, NVT steps, NVE steps, NVE on hi/lo).
+# The slot cases: (name, start, NVT steps, NVE steps, NVE on hi/lo); the
+# Brownian case's first number is its Brownian steps.
 SLOT_CASES = (("bench", "cubic", 75, 75, True),
               ("tilted", "tilted", 75, 75, True),
-              ("2d", "2d", 75, 75, False))
+              ("2d", "2d", 75, 75, False),
+              ("brownian", "brownian", 225, 0, False))
+# Row columns: energy, virial, temperature, step, virial_accum, nprom. A
+# sum's columns may differ between trees by its order (rel
+# SLOT_SUM_RTOL); the others are held bit for bit.
+SLOT_SUM_COLUMNS = (0, 1, 4)
+SLOT_SUM_RTOL = 1e-6
 SLOT_FIELDS = ("positions", "pos_comp", "velocities", "vel_comp", "forces",
                "images")
 
@@ -538,17 +550,18 @@ def make_slot_inputs(path):
     cases = {}
     for name, kind, *_ in SLOT_CASES:
         dim = 2 if kind == "2d" else 3
-        rho = 0.7 if kind == "2d" else 0.8
+        rho = {"2d": 0.7, "brownian": 0.5}.get(kind, 0.8)
         L = (N / rho) ** (1.0 / dim)
         cell = torch.eye(dim, dtype=torch.float64) * L
         if kind == "tilted":
             cell[0, 1], cell[0, 2], cell[1, 2] = L / 8, L / 12, L / 6
         pos = lattice_positions(N, cell, dim, dtype=torch.float64,
-                                jitter=0.01, seed=0, device="cuda")
-        state = build_state_from_arrays(pos, torch.ones(N), cell, 1,
-                                        dtype=torch.float32,
-                                        cutoff=1.5 if dim == 2 else 2.5,
-                                        device="cuda")
+                                jitter=0.05 if kind == "brownian" else 0.01,
+                                seed=0, device="cuda")
+        state = build_state_from_arrays(
+            pos, torch.ones(N), cell, 1, dtype=torch.float32,
+            cutoff=1.5 if kind in ("2d", "brownian") else 2.5,
+            device="cuda")
         vel = initialize_velocities(1.0, 2, N, dim, dtype=torch.float32,
                                     device="cuda")
         cases[name] = {"kind": "slot", "positions": state.positions.cpu(),
@@ -573,30 +586,36 @@ def slot_runs(name, case):
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.sim.initialization import build_state_from_arrays
 
-    _, kind, n_nvt, n_nve, hilo = next(c for c in SLOT_CASES
-                                       if c[0] == name)
+    _, kind, n_first, n_nve, hilo = next(c for c in SLOT_CASES
+                                         if c[0] == name)
     dim = case["cell"].shape[0]
-    cutoff = 1.5 if dim == 2 else 2.5
-    pot = mt.PseudoHS() if dim == 2 else mt.LennardJones(r_cut=2.5)
+    brownian = kind == "brownian"
+    cutoff = 2.5 if kind in ("cubic", "tilted") else 1.5
+    pot = mt.LennardJones(r_cut=2.5) if cutoff == 2.5 else mt.PseudoHS()
     state = build_state_from_arrays(
         case["positions"].cuda(), torch.ones(N), case["cell"], 1,
         dtype=torch.float32, cutoff=cutoff, device="cuda")
-    state = state.replace(velocities=case["velocities"].cuda())
+    if not brownian:
+        state = state.replace(velocities=case["velocities"].cuda())
     eng = mt.select_engine(pot, cutoff, state)
-    params = mt.Parameters(0.7 if dim == 2 else 0.8, N,
-                           0.001 if dim == 2 else 0.002, pot)
-    s = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    params = mt.Parameters(*{"2d": (0.7, N, 0.001), "brownian": (
+        0.5, N, 1e-5)}.get(kind, (0.8, N, 0.002)), pot)
+    s = slot_step.slotify(state, eng)
+    if not brownian:
+        s = slot_step.slot_forces(s, eng)
     rows, words, rebuilds = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for ens, steps, h in ((mt.NVT(1.0, 0.4), n_nvt, False),
-                          (mt.NVE(), n_nve, hilo)):
+    legs = (((mt.Brownian(1.0), n_first, False),) if brownian else
+            ((mt.NVT(1.0, 0.4), n_first, False), (mt.NVE(), n_nve, hilo)))
+    for ens, steps, h in legs:
         advance = slot_step.make_slot_advance(params, ens, eng, hilo=h)
         segments = [1] * 25 + [50] * ((steps - 25) // 50)
         for k in segments:
             s = advance(s, k)
             rows.append([float(s.energy), float(s.virial),
-                         float(s.temperature), int(s.step)])
+                         float(s.temperature), int(s.step),
+                         float(s.virial_accum), int(s.nprom)])
             words.append([_words(getattr(s, f)) for f in SLOT_FIELDS])
         rebuilds.append(advance.rebuild_steps())
     torch.cuda.synchronize()
@@ -860,13 +879,29 @@ def main():
             continue
         p, c = parent[0][name], change[0][name]
         if "rows" in p:
+            exact = [i for i in range(len(p["rows"][0]))
+                     if i not in SLOT_SUM_COLUMNS]
             equal = {k: all(r[name][k] == p[k] for r in runs)
-                     for k in ("rows", "words", "rebuilds")}
+                     for k in ("words", "rebuilds")}
+            equal["exact_columns"] = all(
+                [row[i] for i in exact] == [prow[i] for i in exact]
+                for r in runs for row, prow in zip(r[name]["rows"],
+                                                   p["rows"]))
             equal["arrays"] = all(same_bits(r[name]["arrays"][f],
                                             p["arrays"][f])
                                   for r in runs for f in SLOT_FIELDS)
+            sum_rel = max(abs(row[i] - prow[i]) / max(abs(prow[i]), 1e-300)
+                          for r in change for row, prow in
+                          zip(r[name]["rows"], p["rows"])
+                          for i in SLOT_SUM_COLUMNS)
+            equal["sum_columns_within_rtol"] = sum_rel <= SLOT_SUM_RTOL
             print(json.dumps({
                 "case": name, "equal": all(equal.values()), **equal,
+                "rows_bits_equal": all(r[name]["rows"] == p["rows"]
+                                       for r in runs),
+                "rows_repeat": all(r[name]["rows"] == rr[name]["rows"]
+                                   for r, rr in (parent, change)),
+                "sum_columns_max_rel_diff": sum_rel,
                 "segments": len(p["rows"]), "steps": p["rows"][-1][3],
                 "rebuilds": [len(b) for b in p["rebuilds"]],
                 "parent_seconds": [r[name]["seconds"] for r in parent],

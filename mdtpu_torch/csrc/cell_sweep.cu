@@ -72,10 +72,27 @@
 //     (Pot::setup in pair_potentials.cuh).
 //   * Deterministic: queues are thread-private and keep list order, the
 //     split into sub-lists depends only on the counts, sub-lists are added
-//     in order, and the block reduces energy and virial in a fixed tree. The
-//     caller sums the per-block partials. With one thread per particle
-//     (n_sub = 1) the sums are those of the first design, bit for bit; with
-//     more they differ from it by rounding.
+//     in order, and the block reduces energy and virial in a fixed tree
+//     into its partials. With one thread per particle (n_sub = 1) the sums
+//     are those of the first design, bit for bit; with more they differ
+//     from it by rounding.
+//   * The sum over blocks in the kernel (where the caller gives e_out and
+//     w_out), in two levels, so that no block walks every partial (a block
+//     has as few as 32 threads, and a grid as many as 35,000 cells: one
+//     block's pass over them took ~0.1 ms on an H100): each block stores its
+//     partials and takes its group's ticket (a group: 4 x threads
+//     consecutive blocks); the group's last block sums the group's
+//     partials (thread t blocks t, t + threads, ..., all loads out before
+//     the adds, then a tree of shuffles within each warp and one over the
+//     warps) into the group's sums and takes the ticket of groups; the
+//     last group's block sums the groups' sums the same way (eight loads a
+//     thread in flight) and writes e_out and w_out. In float64 at either
+//     dtype, rounded once; the order depends on the grid and the block
+//     alone, so every call gives the same bits. Each ticket is put back to
+//     0 by the block that drew its last. One full sweep is one launch, with
+//     its energy and virial on the device, where two torch.sum launches
+//     followed it. One set of tickets and group sums per card: two full
+//     sweeps must not run at once on two streams.
 //
 // The HILO variant is the hi/lo (double-f32) sweep of the JAX package's slot
 // path (mdtpu/ops/cell_grid.py make_pair_block :254-259, ghost_z_window_hilo
@@ -124,6 +141,47 @@ namespace {
 
 using namespace mdtpu;
 
+// The full variant's sum over blocks in two levels: a group is
+// kGroupPerThread x threads consecutive blocks; each group's last block
+// sums the group's partials (kGroupPerThread loads a thread, all out
+// before the adds) into g_group_sum, and the last group's last block sums
+// the groups' (kGroupBatch loads a thread in flight). Per card, 0 between
+// launches: each group's ticket (blocks of the group that stored their
+// partials) and the ticket of groups summed.
+constexpr int kGroupPerThread = 4;
+constexpr int kGroupBatch = 8;
+constexpr int kMaxGroups = 1 << 16;
+__device__ unsigned int g_group_ticket[kMaxGroups] = {};
+__device__ double g_group_sum[2 * kMaxGroups];
+__device__ unsigned int g_sweep_ticket = 0;
+
+// The sum of a and b over a block of whole warps in a fixed order (a tree
+// of shuffles within each warp, then the warps' sums by the same tree in
+// warp 0), in thread 0; red: 64 values of shared scratch.
+__device__ __forceinline__ void block_sum2(double& a, double& b,
+                                           double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+  if (lane == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const int warps = blockDim.x >> 5;
+  a = lane < warps ? red[lane] : 0.0;
+  b = lane < warps ? red[32 + lane] : 0.0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+}
+
 constexpr int kUnroll = 8;    // candidates filtered between two votes
 constexpr int kListPad = 2 * kUnroll;  // candidates at infinity after a list
 
@@ -153,7 +211,8 @@ size_t shared_bytes(int list_len, int queue_depth, int threads) {
 // partials at e_part[b], w_part[b]: a launch over every cell (first_cell 0)
 // writes the whole grid, a launch over a run of cells (the interior x-planes
 // of a slab with a ghost plane on each side, parallel/halo_slot.py) writes
-// that run only.
+// that run only. e_out, w_out (OBS; or null): the partials' sum, one value
+// each, written by the block that finishes last.
 template <typename T, int D, typename Pot, bool HILO, bool OBS,
           int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -164,7 +223,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       int first_cell, int cap, int list_len, int queue_depth,
                       T rc_engine,
                       T filter_margin, Pot pot, T* __restrict__ force,
-                      T* __restrict__ e_part, T* __restrict__ w_part) {
+                      T* e_part, T* w_part, T* __restrict__ e_out,
+                      T* __restrict__ w_out) {
   constexpr int kStencil = Stencil<D>::kCells;
   constexpr int kCentre = Stencil<D>::kCentre;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -347,9 +407,78 @@ __global__ void __launch_bounds__(MAX_THREADS)
   __syncthreads();  // part becomes the reduction's scratch
 
   block_reduce2(e, w, part, part + threads);
+  bool last = false;
+  // The partials' sum in two levels (see the head of this file): the
+  // blocks of group k are [k G, k G + G), G = kGroupPerThread threads.
+  const int nb = gridDim.x;
+  const int group_blocks = kGroupPerThread * threads;
+  const int group = blockIdx.x / group_blocks;
+  const int first_block = group * group_blocks;
+  const int end_block = min(first_block + group_blocks, nb);
+  const int n_groups = (nb + group_blocks - 1) / group_blocks;
   if (tid == 0) {
     e_part[blockIdx.x] = part[0];
     w_part[blockIdx.x] = part[threads];
+    if (e_out) {
+      __threadfence();  // the partials are visible before the ticket
+      last = atomicAdd(&g_group_ticket[group], 1u) ==
+             (unsigned)(end_block - first_block - 1);
+    }
+  }
+  if (!__syncthreads_or(last)) return;
+  // The group's last block: every partial of the group is stored. part
+  // (5 threads values of T, at least 160 floats) holds the 64 doubles of
+  // the sums' scratch.
+  __threadfence();
+  double* red = reinterpret_cast<double*>(
+      (reinterpret_cast<uintptr_t>(part) + 7) & ~uintptr_t(7));
+  double es = 0.0, ws = 0.0;
+  {
+    T eb[kGroupPerThread], wb[kGroupPerThread];
+#pragma unroll
+    for (int k = 0; k < kGroupPerThread; ++k) {
+      const int b = first_block + k * threads + tid;
+      eb[k] = b < end_block ? __ldcg(e_part + b) : T(0);  // from L2
+      wb[k] = b < end_block ? __ldcg(w_part + b) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kGroupPerThread; ++k) {
+      es += (double)eb[k];
+      ws += (double)wb[k];
+    }
+  }
+  block_sum2(es, ws, red);
+  last = false;
+  if (tid == 0) {
+    g_group_ticket[group] = 0;
+    g_group_sum[2 * group] = es;
+    g_group_sum[2 * group + 1] = ws;
+    __threadfence();  // the group's sums are visible before the ticket
+    last = atomicAdd(&g_sweep_ticket, 1u) == (unsigned)(n_groups - 1);
+  }
+  if (!__syncthreads_or(last)) return;
+  // The last group's last block: every group's sums are stored.
+  __threadfence();
+  es = ws = 0.0;
+  for (int g0 = tid; g0 < n_groups; g0 += kGroupBatch * threads) {
+    double eb[kGroupBatch], wb[kGroupBatch];
+#pragma unroll
+    for (int k = 0; k < kGroupBatch; ++k) {
+      const int h = g0 + k * threads;
+      eb[k] = h < n_groups ? __ldcg(g_group_sum + 2 * h) : 0.0;
+      wb[k] = h < n_groups ? __ldcg(g_group_sum + 2 * h + 1) : 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < kGroupBatch; ++k) {
+      es += eb[k];
+      ws += wb[k];
+    }
+  }
+  block_sum2(es, ws, red);
+  if (tid == 0) {
+    *e_out = (T)es;
+    *w_out = (T)ws;
+    g_sweep_ticket = 0;
   }
 }
 
@@ -362,9 +491,10 @@ template <typename T, int D, bool HILO>
 int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
           const T* cellm, int nx, int ny, int nz, int cap, double cutoff,
           int kind, double p0, double p1, double p2, double p3, int i0,
-          int i1, int i2, T* force, T* e_part, T* w_part, int first_cell,
-          int n_blocks, int list_len, int queue_depth, int smem_bytes,
-          int threads, double filter_margin, bool obs, int* blocks_per_sm,
+          int i1, int i2, T* force, T* e_part, T* w_part, T* e_out,
+          T* w_out, int first_cell, int n_blocks, int list_len,
+          int queue_depth, int smem_bytes, int threads,
+          double filter_margin, bool obs, int* blocks_per_sm,
           void* stream_ptr) {
   constexpr int kStencil = Stencil<D>::kCells;
   if (cap < 1 || cap > 1024) return kErrCapacity;
@@ -380,6 +510,10 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
   const int n_cells = nx * ny * nz;
   if (first_cell < 0 || n_blocks < 1 || first_cell + n_blocks > n_cells)
     return kErrRange;
+  if (!e_out != !w_out || (e_out && !obs)) return kErrPlan;
+  // The fold's groups: more than kMaxGroups only past 8 million cells.
+  if (e_out && (n_blocks - 1) / (kGroupPerThread * threads) >= kMaxGroups)
+    return kErrFold;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return with_potential<T>(kind, p0, p1, p2, p3, i0, i1, i2, [&](auto pot) {
     using Pot = decltype(pot);
@@ -400,7 +534,7 @@ int sweep(const T* pos, const T* lo, const T* diam, const int64_t* counts,
     kernel<<<n_blocks, threads, smem, stream>>>(
         pos, lo, diam, counts, cellm, nx, ny, nz, first_cell, cap, list_len,
         queue_depth, T(cutoff), T(filter_margin), pot, force, e_part,
-        w_part);
+        w_part, e_out, w_out);
     return (int)cudaGetLastError();
   });
 }
@@ -411,14 +545,15 @@ int sweep_dim(const T* pos, const T* lo, const T* diam,
               const int64_t* counts, const T* cellm, int nx, int ny, int nz,
               int cap, double cutoff, int kind, double p0, double p1,
               double p2, double p3, int i0, int i1, int i2, T* force,
-              T* e_part, T* w_part, int first_cell, int n_blocks,
-              int list_len, int queue_depth, int smem_bytes, int threads,
-              double filter_margin, bool obs, int* blocks_per_sm,
-              void* stream) {
+              T* e_part, T* w_part, T* e_out, T* w_out, int first_cell,
+              int n_blocks, int list_len, int queue_depth, int smem_bytes,
+              int threads, double filter_margin, bool obs,
+              int* blocks_per_sm, void* stream) {
   auto run = [&](auto dim) {
     return sweep<T, decltype(dim)::value, HILO>(
         pos, lo, diam, counts, cellm, nx, ny, nz, cap, cutoff, kind, p0, p1,
-        p2, p3, i0, i1, i2, force, e_part, w_part, first_cell, n_blocks,
+        p2, p3, i0, i1, i2, force, e_part, w_part, e_out, w_out, first_cell,
+        n_blocks,
         list_len, queue_depth, smem_bytes, threads, filter_margin, obs,
         blocks_per_sm, stream);
   };
@@ -435,21 +570,23 @@ extern "C" {
 // (0 and nx * ny * nz for the whole grid); force is (D, n_blocks * cap) and
 // e_part, w_part (n_blocks,), in the order of those cells.
 // observables = 0 launches the lean variant (forces only; e_part and w_part
-// are not written and may be null).
+// are not written and may be null). e_out, w_out (full only; or null): the
+// energy and the virial, the partials summed by the kernel's last block.
 int mdtpu_cell_sweep_f32(const float* pos, const float* diam,
                          const int64_t* counts, const float* cellm, int nx,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, float* force, float* e_part,
-                         float* w_part, int first_cell, int n_blocks,
-                         int list_len, int queue_depth, int smem_bytes,
-                         int threads, int observables, void* stream) {
+                         float* w_part, float* e_out, float* w_out,
+                         int first_cell, int n_blocks, int list_len,
+                         int queue_depth, int smem_bytes, int threads,
+                         int observables, void* stream) {
   return sweep_dim<float, false>(pos, nullptr, diam, counts, cellm, nx, ny,
                                  nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
-                                 i1, i2, force, e_part, w_part, first_cell,
-                                 n_blocks, list_len, queue_depth, smem_bytes,
-                                 threads, 0.0, observables != 0, nullptr,
-                                 stream);
+                                 i1, i2, force, e_part, w_part, e_out, w_out,
+                                 first_cell, n_blocks, list_len, queue_depth,
+                                 smem_bytes, threads, 0.0, observables != 0,
+                                 nullptr, stream);
 }
 
 int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
@@ -457,15 +594,16 @@ int mdtpu_cell_sweep_f64(const double* pos, const double* diam,
                          int ny, int nz, int cap, double cutoff, int kind,
                          double p0, double p1, double p2, double p3, int i0,
                          int i1, int i2, double* force, double* e_part,
-                         double* w_part, int first_cell, int n_blocks,
-                         int list_len, int queue_depth, int smem_bytes,
-                         int threads, int observables, void* stream) {
+                         double* w_part, double* e_out, double* w_out,
+                         int first_cell, int n_blocks, int list_len,
+                         int queue_depth, int smem_bytes, int threads,
+                         int observables, void* stream) {
   return sweep_dim<double, false>(pos, nullptr, diam, counts, cellm, nx, ny,
                                   nz, cap, cutoff, kind, p0, p1, p2, p3, i0,
-                                  i1, i2, force, e_part, w_part, first_cell,
-                                  n_blocks, list_len, queue_depth, smem_bytes,
-                                  threads, 0.0, observables != 0, nullptr,
-                                  stream);
+                                  i1, i2, force, e_part, w_part, e_out,
+                                  w_out, first_cell, n_blocks, list_len,
+                                  queue_depth, smem_bytes, threads, 0.0,
+                                  observables != 0, nullptr, stream);
 }
 
 // The hi/lo sweep, float32 only (as the JAX package's f32x2 mode).
@@ -477,16 +615,17 @@ int mdtpu_cell_sweep_hilo_f32(const float* hi, const float* lo,
                               int cap, double cutoff, int kind, double p0,
                               double p1, double p2, double p3, int i0, int i1,
                               int i2, float* force, float* e_part,
-                              float* w_part, int first_cell, int n_blocks,
-                              int list_len, int queue_depth, int smem_bytes,
-                              int threads, double filter_margin,
-                              int observables, void* stream) {
+                              float* w_part, float* e_out, float* w_out,
+                              int first_cell, int n_blocks, int list_len,
+                              int queue_depth, int smem_bytes, int threads,
+                              double filter_margin, int observables,
+                              void* stream) {
   return sweep_dim<float, true>(hi, lo, diam, counts, cellm, nx, ny, nz, cap,
                                 cutoff, kind, p0, p1, p2, p3, i0, i1, i2,
-                                force, e_part, w_part, first_cell, n_blocks,
-                                list_len, queue_depth, smem_bytes, threads,
-                                filter_margin, observables != 0, nullptr,
-                                stream);
+                                force, e_part, w_part, e_out, w_out,
+                                first_cell, n_blocks, list_len, queue_depth,
+                                smem_bytes, threads, filter_margin,
+                                observables != 0, nullptr, stream);
 }
 
 // Resident blocks per SM of the kernel that a launch with this plan would
@@ -502,20 +641,20 @@ int mdtpu_cell_sweep_occupancy(int dtype_bytes, int hilo, int cap, int kind,
   if (dtype_bytes == 8)
     return sweep_dim<double, false>(
         nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
-        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0,
-        n_cells, list_len, queue_depth, smem_bytes, threads, 0.0, obs,
-        blocks_per_sm, nullptr);
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
+        nullptr, nullptr, 0, n_cells, list_len, queue_depth, smem_bytes,
+        threads, 0.0, obs, blocks_per_sm, nullptr);
   if (hilo)
     return sweep_dim<float, true>(
         nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0,
-        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0,
-        n_cells, list_len, queue_depth, smem_bytes, threads, 0.0, obs,
-        blocks_per_sm, nullptr);
+        kind, 1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr,
+        nullptr, nullptr, 0, n_cells, list_len, queue_depth, smem_bytes,
+        threads, 0.0, obs, blocks_per_sm, nullptr);
   return sweep_dim<float, false>(
       nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, nz, cap, 1.0, kind,
-      1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, 0, n_cells,
-      list_len, queue_depth, smem_bytes, threads, 0.0, obs, blocks_per_sm,
-      nullptr);
+      1.0, 1.0, 1.0, 1.0, i0, i1, i2, nullptr, nullptr, nullptr, nullptr,
+      nullptr, 0, n_cells, list_len, queue_depth, smem_bytes, threads, 0.0,
+      obs, blocks_per_sm, nullptr);
 }
 
 const char* mdtpu_cell_sweep_error_string(int code) {

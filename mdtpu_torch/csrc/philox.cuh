@@ -65,5 +65,26 @@ __host__ __device__ inline double u53(uint32_t a, uint32_t b) {
          0x1p-53;
 }
 
+// The Brownian noise's variance-matched uniforms (2u - 1) sqrt(3) of one
+// block's words (mdtpu/integrate/step.py brownian_noise): four float32
+// values, each from its word's top 24 bits, or two float64, each from 53
+// bits of two words. 2u - 1 is exact; the product rounds once. Shared by
+// the noise kernel (philox_draws.cu) and the Brownian update
+// (verlet_update.cu), so both give element e the same bits.
+constexpr double kSqrt3 = 1.7320508075688772;  // math.sqrt(3)
+
+__host__ __device__ inline void noise_values(uint4 w, float (&v)[4]) {
+  const float sqrt3 = static_cast<float>(kSqrt3);
+  v[0] = (2.0f * u24(w.x) - 1.0f) * sqrt3;
+  v[1] = (2.0f * u24(w.y) - 1.0f) * sqrt3;
+  v[2] = (2.0f * u24(w.z) - 1.0f) * sqrt3;
+  v[3] = (2.0f * u24(w.w) - 1.0f) * sqrt3;
+}
+
+__host__ __device__ inline void noise_values(uint4 w, double (&v)[2]) {
+  v[0] = (2.0 * u53(w.x, w.y) - 1.0) * kSqrt3;
+  v[1] = (2.0 * u53(w.z, w.w) - 1.0) * kSqrt3;
+}
+
 }  // namespace philox
 }  // namespace mdtpu

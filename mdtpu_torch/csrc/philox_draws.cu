@@ -96,12 +96,13 @@
 //     step as a number) and makes its Philox words before the wait and
 //     stores them as 16-byte vectors after it (the output may be memory
 //     the graph's pool handed back after the kernel before read it). Its
-//     callers' step: the Brownian slot step's, the advance's buffer
-//     (written at the end of the step before); particle order's,
+//     callers' step: particle order's (PlaneEngine's Brownian step),
 //     state.step + 1 from the step before, or a host step; never written
-//     by the kernel just before. A thread makes one block of words (two
-//     over half the grid were measured and dropped: slower inside the
-//     Brownian slot step).
+//     by the kernel just before. The Brownian slot step draws the same
+//     values inside its update instead (verlet_update.cu
+//     brownian_update_kernel; the values by philox.cuh noise_values). A
+//     thread makes one block of words (two over half the grid were
+//     measured and dropped: slower inside the Brownian slot step).
 //   * rebuild_flag ports mdtpu/integrate/slot_step.py:460 slot_needs_rebin
 //     (the drift test): d2 = sum_k (x_k - ref_k)^2 in component order over
 //     positions and ref_positions (d, S), flag = any(d2 > (T) thr). Bound:
@@ -143,6 +144,7 @@
 namespace {
 
 using mdtpu::philox::counter;
+using mdtpu::philox::noise_values;
 using mdtpu::philox::philox4x32_10;
 using mdtpu::philox::u24;
 using mdtpu::philox::u53;
@@ -158,7 +160,6 @@ constexpr int kFinishPerBlock = 2048;  // values a block sums below the cap
 constexpr int kFinishBatch = 8;       // loads a thread issues before adding
 constexpr int kDrawThreads = 64;     // the draw's two warps
 constexpr double kTwoPi = 6.283185307179586;  // 2 * math.pi
-constexpr double kSqrt3 = 1.7320508075688772;  // math.sqrt(3)
 constexpr unsigned kAll = 0xffffffffu;
 
 // A standard normal from one block of words: sqrt(-2 log u1) cos(2 pi u2),
@@ -237,18 +238,15 @@ template <>
 struct Noise<float> {
   static constexpr int kPer = 4;
   __device__ static void store(uint4 w, int64_t b, int64_t n, float* out) {
-    const float sqrt3 = static_cast<float>(kSqrt3);
-    const float v0 = (2.0f * u24(w.x) - 1.0f) * sqrt3;
-    const float v1 = (2.0f * u24(w.y) - 1.0f) * sqrt3;
-    const float v2 = (2.0f * u24(w.z) - 1.0f) * sqrt3;
-    const float v3 = (2.0f * u24(w.w) - 1.0f) * sqrt3;
+    float v[4];
+    noise_values(w, v);
     const int64_t e = 4 * b;
     if (e + 3 < n) {
-      reinterpret_cast<float4*>(out)[b] = make_float4(v0, v1, v2, v3);
+      reinterpret_cast<float4*>(out)[b] = make_float4(v[0], v[1], v[2], v[3]);
     } else {
-      out[e] = v0;
-      if (e + 1 < n) out[e + 1] = v1;
-      if (e + 2 < n) out[e + 2] = v2;
+      out[e] = v[0];
+      if (e + 1 < n) out[e + 1] = v[1];
+      if (e + 2 < n) out[e + 2] = v[2];
     }
   }
 };
@@ -257,13 +255,13 @@ template <>
 struct Noise<double> {
   static constexpr int kPer = 2;
   __device__ static void store(uint4 w, int64_t b, int64_t n, double* out) {
-    const double v0 = (2.0 * u53(w.x, w.y) - 1.0) * kSqrt3;
-    const double v1 = (2.0 * u53(w.z, w.w) - 1.0) * kSqrt3;
+    double v[2];
+    noise_values(w, v);
     const int64_t e = 2 * b;
     if (e + 1 < n) {
-      reinterpret_cast<double2*>(out)[b] = make_double2(v0, v1);
+      reinterpret_cast<double2*>(out)[b] = make_double2(v[0], v[1]);
     } else {
-      out[e] = v0;
+      out[e] = v[0];
     }
   }
 };

@@ -40,15 +40,59 @@
 // Each thread moves 16 bytes of each array a load (float4, double2) where
 // every pointer is 16-byte aligned (the advance's buffers are), else one
 // value; no value is read twice and nothing is staged.
+//
+// Beside it, the Brownian slot step's update as one kernel,
+// brownian_update_kernel. It replaces no Pallas kernel either: the JAX
+// package's Brownian slot step (mdtpu/integrate/slot_step.py:557-577, with
+// brownian_noise and brownian_virial_sample at mdtpu/integrate/step.py:110
+// and :122) draws the noise, masks it to the occupied slots, moves the
+// positions by dx = F dt/kT + xi sqrt(2 dt) through the Kahan add, samples
+// the virial every 10 steps and advances the step, all fused by XLA into
+// the segment's loop. The port's step ran the noise kernel and about ten
+// torch operations, then copied nine results into the advance's buffers
+// (33 nodes a captured step, PERF.md section 5). Here, in one launch:
+//
+//   * per value e of the (d, S) rows, slot s = e mod S: xi, the Philox-4x32
+//     -10 draw the noise kernel gives element e (philox_draws.cu
+//     uniform_noise_kernel; block e / 4 at float32, e / 2 at float64, the
+//     values by philox.cuh noise_values), 0 where slot s is vacant; then
+//     x, xc <- kahan(x, xc, f * drift + xi * sigma) (a plain add where not
+//     compensated). drift = dt/kT and sigma = sqrt(2 dt) come rounded to
+//     the state's dtype as the torch composition rounds them
+//     (integrate/slot_step.py), and -fmad=false keeps every product and
+//     sum a rounding of its own: the composition's bits.
+//   * once a step, the scalar tail: virial_accum += virial where step % 10
+//     == 0, nprom += that, the temperature buffer <- kT, step <- step + 1.
+//     Every thread draws with the step, so only the block that draws the
+//     last ticket writes it (after every block has read it; the ticket is
+//     put back to 0, one per card: two updates must not run at once on two
+//     streams).
+//
+// Each thread takes one Philox block: 16 bytes of every row (a float4 or a
+// double2), so its draws, loads and stores line up. It launches as a
+// programmatic dependent of the kernel before it (the pair sweep, which
+// writes the forces and the virial and reads the positions): the step, the
+// draws, the occupancy and the positions are read before
+// griddepcontrol.wait, the forces and the virial after it, and every store
+// comes after it. Bound: bytes, f, x, xc read and x, xc written (5 rows of
+// d * S values) and the occupancy: 16.1 MB at the Brownian slot path's
+// (3, 263,424) float32 slots, 4.8 us at 3.35 TB/s.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <vector>
+
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kErrArgs = -1;
+constexpr int kErrNotCapturing = -2;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;
+constexpr int kProgrammatic = 1;  // the options word's flag (philox_draws)
 
 enum Variant { kKickDrift = 0, kKick = 1, kRescale = 2 };
 
@@ -240,6 +284,208 @@ int verlet_update(int variant, int compensated, long long n, const T* f,
   }
 }
 
+// ------------------------------------------------------ Brownian update
+
+template <typename T>
+struct BrownianArgs {
+  const T* f;
+  const T* x;
+  const T* xc;
+  const bool* occupied;
+  const T* virial;
+  const T* accum;
+  const int64_t* nprom;
+  T* x_out;
+  T* xc_out;
+  T* accum_out;
+  int64_t* nprom_out;
+  T* temperature;
+  const int64_t* step_in;  // or null: step_value
+  int64_t* step_out;       // or null
+  int64_t step_value;
+};
+
+// Blocks of the Brownian update done with the step, on this card (0
+// between launches).
+__device__ unsigned int g_brownian_ticket = 0;
+
+// Waits until the grid this one depends on programmatically has ended and
+// its writes are visible (at once for a plain launch).
+__device__ __forceinline__ void wait_for_dependencies() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// P values of p from value e0: one 16-byte load where VEC and the group is
+// whole, else one value each (those past n left alone).
+template <typename T, int P, bool VEC>
+__device__ __forceinline__ void load_group(const T* p, int64_t g, int64_t e0,
+                                           int64_t n, T (&r)[P]) {
+  if (VEC && e0 + P <= n) {
+    load<T, P>(p, g, r);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) r[k] = e0 + k < n ? p[e0 + k] : T(0);
+}
+
+template <typename T, int P, bool VEC>
+__device__ __forceinline__ void store_group(T* p, int64_t g, int64_t e0,
+                                            int64_t n, const T (&r)[P]) {
+  if (VEC && e0 + P <= n) {
+    store<T, P>(p, g, r);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    if (e0 + k < n) p[e0 + k] = r[k];
+}
+
+// n = d * S values, S slots; thread group g (grid-stride) takes values
+// [P g, P g + P), Philox block g. VEC: every row pointer 16-byte aligned.
+template <typename T, bool COMP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    brownian_update_kernel(BrownianArgs<T> a, int64_t n, int64_t slots,
+                           T drift, T sigma, T ktemp, uint2 key,
+                           uint32_t stream) {
+  constexpr int P = int(16 / sizeof(T));  // values of one Philox block
+  const int64_t groups = (n + P - 1) / P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t s = a.step_in ? *a.step_in : a.step_value;
+  bool waited = false;
+  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t e0 = g * P;
+    T xi[P], x[P], xc[P], f[P];
+    mdtpu::philox::noise_values(
+        mdtpu::philox::philox4x32_10(
+            mdtpu::philox::counter((uint32_t)g, s, stream), key),
+        xi);
+    int64_t slot = e0 % slots;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (!a.occupied[slot]) xi[k] = T(0);
+      slot = slot + 1 == slots ? 0 : slot + 1;
+    }
+    load_group<T, P, VEC>(a.x, g, e0, n, x);
+    if (COMP) load_group<T, P, VEC>(a.xc, g, e0, n, xc);
+    if (!waited) {
+      wait_for_dependencies();
+      waited = true;
+    }
+    load_group<T, P, VEC>(a.f, g, e0, n, f);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const T dx = f[k] * drift + xi[k] * sigma;
+      if (COMP)
+        kahan(x[k], xc[k], dx);
+      else
+        x[k] = x[k] + dx;
+    }
+    store_group<T, P, VEC>(a.x_out, g, e0, n, x);
+    if (COMP) store_group<T, P, VEC>(a.xc_out, g, e0, n, xc);
+  }
+  if (!waited) wait_for_dependencies();
+  // Every thread of the block has read the step; the last block to say so
+  // writes the step's scalars.
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(
+      g_brownian_ticket);
+  if (ticket.fetch_add(1u, cuda::memory_order_acq_rel) != gridDim.x - 1)
+    return;
+  // brownian_virial_sample: accum + where(take, virial, 0), nprom + take.
+  const bool take = s % 10 == 0;
+  *a.accum_out = *a.accum + (take ? *a.virial : T(0));
+  *a.nprom_out = *a.nprom + (take ? 1 : 0);
+  *a.temperature = ktemp;
+  if (a.step_out) *a.step_out = s + 1;
+  ticket.store(0u, cuda::memory_order_relaxed);
+}
+
+// kernel(args...) by cudaLaunchKernelEx, as a programmatic dependent of
+// the kernel before it on s where programmatic.
+template <typename... Params, typename... Args>
+int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block,
+              cudaStream_t s, bool programmatic, Args... args) {
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = programmatic ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return rc ? (int)rc : (int)cudaGetLastError();
+}
+
+template <typename T, bool COMP>
+int launch_brownian(const BrownianArgs<T>& a, int64_t n, int64_t slots,
+                    T drift, T sigma, T ktemp, uint2 key, uint32_t stream_word,
+                    bool pdl, cudaStream_t s) {
+  const void* ptrs[] = {a.f, a.x, a.xc, a.x_out, a.xc_out};
+  bool vec = true;
+  for (const void* p : ptrs) vec = vec && (!p || aligned(p));
+  constexpr int64_t P = 16 / sizeof(T);
+  int64_t blocks = ((n + P - 1) / P + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+  auto kernel = vec ? brownian_update_kernel<T, COMP, true>
+                    : brownian_update_kernel<T, COMP, false>;
+  return launch_ex(kernel, dim3((unsigned)blocks), dim3(kThreads), s, pdl, a,
+                   n, slots, drift, sigma, ktemp, key, stream_word);
+}
+
+template <typename T>
+int brownian_update(int compensated, long long n, long long slots, const T* f,
+                    const T* x, const T* xc, const bool* occupied,
+                    const T* virial, const T* accum, const int64_t* nprom,
+                    T* x_out, T* xc_out, T* accum_out, int64_t* nprom_out,
+                    T* temperature, const int64_t* step_in, int64_t* step_out,
+                    long long step_value, double drift, double sigma,
+                    double ktemp, unsigned k0, unsigned k1,
+                    unsigned stream_word, int options, void* stream) {
+  const bool comp = compensated != 0;
+  constexpr long long P = 16 / sizeof(T);
+  const bool ok = n >= 0 && slots >= 1 && n % slots == 0 &&
+                  (n + P - 1) / P <= 0xFFFFFFFFLL && f && x && x_out &&
+                  occupied && virial && accum && nprom && accum_out &&
+                  nprom_out && temperature && (!comp || (xc && xc_out)) &&
+                  (!step_out || step_in);
+  if (!ok) return kErrArgs;
+  const BrownianArgs<T> a{f,         x,          xc,        occupied,
+                          virial,    accum,      nprom,     x_out,
+                          xc_out,    accum_out,  nprom_out, temperature,
+                          step_in,   step_out,   (int64_t)step_value};
+  // The scalars rounded to T once (the caller rounded them already).
+  const T dr = static_cast<T>(drift), sg = static_cast<T>(sigma),
+          kt = static_cast<T>(ktemp);
+  const uint2 key = make_uint2(k0, k1);
+  const bool pdl = (options & kProgrammatic) != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return comp ? launch_brownian<T, true>(a, n, slots, dr, sg, kt, key,
+                                         stream_word, pdl, s)
+              : launch_brownian<T, false>(a, n, slots, dr, sg, kt, key,
+                                          stream_word, pdl, s);
+}
+
+// Whether func is one of this file's Brownian update kernels.
+bool brownian_kernel(const void* func) {
+  const void* kernels[] = {
+      (const void*)brownian_update_kernel<float, true, true>,
+      (const void*)brownian_update_kernel<float, true, false>,
+      (const void*)brownian_update_kernel<float, false, true>,
+      (const void*)brownian_update_kernel<float, false, false>,
+      (const void*)brownian_update_kernel<double, true, true>,
+      (const void*)brownian_update_kernel<double, true, false>,
+      (const void*)brownian_update_kernel<double, false, true>,
+      (const void*)brownian_update_kernel<double, false, false>};
+  for (const void* k : kernels)
+    if (k == func) return true;
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
@@ -275,8 +521,88 @@ int mdtpu_verlet_update_f64(int variant, int compensated, long long n,
                                step_in, step_out, half, dt, stream);
 }
 
+// The Brownian slot step's update over n = d * S values of (d, S) rows,
+// contiguous: f, x, xc (xc, xc_out only where compensated); occupied (S,)
+// bools; virial, accum: one value of T, nprom one int64, all on the
+// device. Outputs x_out, xc_out (each may be its input), accum_out,
+// nprom_out (may be accum, nprom), temperature (kT). step_in: an int64 on
+// the device, or null and step_value the step; step_out: step + 1 (may be
+// step_in), or null. drift = dt/kT, sigma = sqrt(2 dt), ktemp: rounded to
+// T already. k0, k1: the seed's key words; stream_word: the noise's
+// counter word (1 | rank << 8). options: kProgrammatic or 0.
+int mdtpu_brownian_update_f32(
+    int compensated, long long n, long long slots, const float* f,
+    const float* x, const float* xc, const bool* occupied,
+    const float* virial, const float* accum, const int64_t* nprom,
+    float* x_out, float* xc_out, float* accum_out, int64_t* nprom_out,
+    float* temperature, const int64_t* step_in, int64_t* step_out,
+    long long step_value, double drift, double sigma, double ktemp,
+    unsigned k0, unsigned k1, unsigned stream_word, int options,
+    void* stream) {
+  return brownian_update<float>(
+      compensated, n, slots, f, x, xc, occupied, virial, accum, nprom, x_out,
+      xc_out, accum_out, nprom_out, temperature, step_in, step_out,
+      step_value, drift, sigma, ktemp, k0, k1, stream_word, options, stream);
+}
+
+int mdtpu_brownian_update_f64(
+    int compensated, long long n, long long slots, const double* f,
+    const double* x, const double* xc, const bool* occupied,
+    const double* virial, const double* accum, const int64_t* nprom,
+    double* x_out, double* xc_out, double* accum_out, int64_t* nprom_out,
+    double* temperature, const int64_t* step_in, int64_t* step_out,
+    long long step_value, double drift, double sigma, double ktemp,
+    unsigned k0, unsigned k1, unsigned stream_word, int options,
+    void* stream) {
+  return brownian_update<double>(
+      compensated, n, slots, f, x, xc, occupied, virial, accum, nprom, x_out,
+      xc_out, accum_out, nprom_out, temperature, step_in, step_out,
+      step_value, drift, sigma, ktemp, k0, k1, stream_word, options, stream);
+}
+
+// The programmatic edges of the graph being captured on stream that enter
+// a Brownian update node, into out[0], and the error code of the edges'
+// read into out[1] (out[0] -1 where it is not 0). Only this library's
+// runtime knows its kernels' addresses, so the count is made here.
+int mdtpu_verlet_update_census(void* stream, long long* out) {
+  out[0] = out[1] = 0;
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t rc = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream),
+                                            &status, nullptr, &graph);
+  if (rc) return (int)rc;
+  if (status != cudaStreamCaptureStatusActive) return kErrNotCapturing;
+  size_t ne = 0;
+  std::vector<cudaGraphNode_t> from, to;
+  std::vector<cudaGraphEdgeData> data;
+  rc = cudaGraphGetEdges_v2(graph, nullptr, nullptr, nullptr, &ne);
+  if (!rc && ne) {
+    from.resize(ne);
+    to.resize(ne);
+    data.resize(ne);
+    rc = cudaGraphGetEdges_v2(graph, from.data(), to.data(), data.data(),
+                              &ne);
+  }
+  if (rc) {
+    cudaGetLastError();
+    out[0] = -1;
+    out[1] = (long long)rc;
+    return 0;
+  }
+  for (size_t e = 0; e < ne; ++e) {
+    if (data[e].type != cudaGraphDependencyTypeProgrammatic) continue;
+    cudaKernelNodeParams p;
+    if (cudaGraphKernelNodeGetParams(to[e], &p) != cudaSuccess)
+      cudaGetLastError();
+    else if (brownian_kernel(p.func))
+      ++out[0];
+  }
+  return 0;
+}
+
 const char* mdtpu_verlet_update_error_string(int code) {
   if (code == kErrArgs) return "arguments outside what the kernel takes";
+  if (code == kErrNotCapturing) return "the stream is not capturing a graph";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

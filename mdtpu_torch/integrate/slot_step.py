@@ -45,22 +45,18 @@ in particle order through ``ids``.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
 from mdtpu_torch.core.box import _mm
 from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationState
-from mdtpu_torch.integrate import step as _step
 from mdtpu_torch.integrate import verlet_update
-from mdtpu_torch.integrate.step import (_add, brownian_virial_sample,
-                                        finish_scalars)
+from mdtpu_torch.integrate.step import finish_scalars
 from mdtpu_torch.integrate.velocity_finish import (TargetTable, finish_buffer,
                                                    finish_pair)
 from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
-from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.math import kahan_add
 
@@ -147,21 +143,23 @@ def slotify_grown(state: SimulationState, engine: CellGridEngine):
 
 
 def _sweep_in(engine, x, diameters, cell, cell_inv, nbrs, observables,
-              force_dtype=None, pos_lo=None, out=None):
+              force_dtype=None, pos_lo=None, out=None, scalars_out=None):
     """``engine.compute_slots`` with the sweep's inputs cast to
     ``force_dtype`` (up or down) where it differs from the positions', and
     the forces (into ``out`` where given) and, on a full sweep, energy and
-    virial cast back."""
+    virial (into ``scalars_out`` where given) cast back."""
     dtype = x.dtype
+    into = {} if scalars_out is None else {"scalars_out": scalars_out}
     if force_dtype is None or force_dtype == dtype:
         return engine.compute_slots(x, diameters, cell, cell_inv, nbrs,
-                                    observables, pos_lo, out=out)
+                                    observables, pos_lo, out=out, **into)
     e, w, f, nbrs = engine.compute_slots(
         x.to(force_dtype), diameters.to(force_dtype), cell.to(force_dtype),
         cell_inv.to(force_dtype), nbrs, observables)
     f = f.to(dtype) if out is None else out.copy_(f)
     if observables:
-        e, w = e.to(dtype), w.to(dtype)
+        e, w = ((e.to(dtype), w.to(dtype)) if scalars_out is None else
+                (d.copy_(t) for d, t in zip(scalars_out, (e, w))))
     return e, w, f, nbrs
 
 
@@ -384,10 +382,14 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     :mod:`mdtpu_torch.integrate.verlet_update`: on the card three launches
     of one kernel (kick-drift, kick, and NVT's rescale) around the sweep
     and the velocity finish, on the CPU their plain versions, the torch
-    composition. ``in_place``: the step writes its results into the
-    state's own tensors (the slot advance's buffers: positions,
-    velocities, compensations, forces, the step counter, and the
-    temperature, which must be a
+    composition. A Brownian step runs the sweep and
+    :func:`~mdtpu_torch.integrate.verlet_update.brownian_update`: on the
+    card one launch that draws the noise and moves the positions, on the
+    CPU its plain version. ``in_place``: the step writes its results into
+    the state's own tensors (the slot advance's buffers: positions,
+    velocities, compensations, forces, a full sweep's energy and virial,
+    the Brownian accumulators, the step counter, and the temperature,
+    which must be a
     :func:`~mdtpu_torch.integrate.velocity_finish.finish_buffer`) and
     returns a state of the same tensors; else it returns new tensors and
     leaves the state as it was.
@@ -400,41 +402,40 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
     if not is_brownian and not isinstance(ensemble, (NVT, NVE)):
         raise TypeError(f"unknown ensemble type: {type(ensemble).__name__}")
     obs = True if is_brownian else observables
-    noise_rank = () if ring is None else (ring.rank,)
+    noise_rank = None if ring is None else ring.rank
     if hilo and (force_dtype is not None or not compensated):
         raise ValueError("the hi/lo pair sweep needs compensated=True (the "
                          "Kahan compensation is its low word) and no "
                          "force_dtype (it is the precision mechanism)")
 
-    def sweep(x, xc, state):
-        return _sweep_in(engine, x, state.diameters, state.unitcell,
-                         state.unitcell_inv, state.nbrs, obs, force_dtype,
-                         -xc if hilo else None)
+    def sweep(x, lo, state):
+        """The sweep at ``x`` (``lo``: the hi/lo sweep's low words), into
+        the state's forces, energy and virial where ``in_place`` (a full
+        sweep's scalars; a lean one's are the state's own)."""
+        energy, virial, forces, nbrs = _sweep_in(
+            engine, x, state.diameters, state.unitcell, state.unitcell_inv,
+            state.nbrs, obs, force_dtype, lo,
+            out=state.forces if in_place else None,
+            scalars_out=(state.energy, state.virial) if in_place and obs
+            else None)
+        if not obs:
+            energy, virial = state.energy, state.virial
+        return energy, virial, forces, nbrs
 
     def brownian(state, ktemp=None):
-        dtype = state.dtype
-        dt = rounded(params.dt, dtype)
-        ktemp = rounded(ensemble.ktemp, dtype)
-        drift = rounded(dt / ktemp, dtype)
-        sigma = rounded(math.sqrt(rounded(2.0 * dt, dtype)), dtype)
-        energy, virial, forces, nbrs = sweep(state.positions, state.pos_comp,
-                                             state)
-        noise = torch.where(
-            state.nbrs.occupied[None, :],
-            _step.brownian_noise(state.seed, state.step,
-                                 state.positions.shape, dtype, state.device,
-                                 *noise_rank),
-            0.0)
+        drift, sigma, ktemp = verlet_update.brownian_coefficients(
+            params.dt, ensemble.ktemp, state.dtype)
+        energy, virial, forces, nbrs = sweep(
+            state.positions, -state.pos_comp if hilo else None, state)
         # Deferred wrap: positions drift unwrapped until the next rebin.
-        x, xc = _add(state.positions, state.pos_comp,
-                     forces * drift + noise * sigma, compensated)
-        virial_accum, nprom = brownian_virial_sample(state, virial)
+        x, xc, step, virial_accum, nprom, temperature = \
+            verlet_update.brownian_update(forces, virial, state, drift, sigma,
+                                          ktemp, compensated, noise_rank,
+                                          in_place)
         return state.replace(
-            positions=x, forces=forces, step=state.step + 1, energy=energy,
-            virial=virial,
-            temperature=torch.full((), ktemp, dtype=dtype,
-                                   device=state.device),
-            pos_comp=xc, nbrs=nbrs, virial_accum=virial_accum, nprom=nprom)
+            positions=x, forces=forces, step=step, energy=energy,
+            virial=virial, temperature=temperature, pos_comp=xc, nbrs=nbrs,
+            virial_accum=virial_accum, nprom=nprom)
 
     def md(state, ktemp):
         dt = float(params.dt)
@@ -447,12 +448,7 @@ def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
             state.pos_comp, half, dt, compensated, lo=lo,
             out=(state.velocities, state.vel_comp, state.positions,
                  state.pos_comp) if in_place else None)
-        energy, virial, forces, nbrs = _sweep_in(
-            engine, x, state.diameters, state.unitcell, state.unitcell_inv,
-            state.nbrs, obs, force_dtype, lo,
-            out=state.forces if in_place else None)
-        if not obs:
-            energy, virial = state.energy, state.virial
+        energy, virial, forces, nbrs = sweep(x, lo, state)
         # The chain's last launch advances a device counter: the velocity
         # finish between the kick and the rescale reads this step's.
         step, counter = state.step, ()
@@ -552,9 +548,9 @@ class SlotAdvance:
     The state is copied into buffers that the advance keeps (its tensors
     and its binning's, the step as a 0-d int64 counter), and each step
     reads them and writes its results back in place (an MD step's
-    Verlet chain, sweep and velocity finish write straight into them,
-    ``make_slot_step(..., in_place=True)``; a Brownian step's results are
-    copied in): the drift test
+    Verlet chain, sweep and velocity finish, and a Brownian step's sweep
+    and update, write straight into them, ``make_slot_step(...,
+    in_place=True)``, so a step copies nothing): the drift test
     (:func:`philox_draws.rebuild_flag`) and a rebuild where it is set
     (:func:`device_if` around :func:`_rebin`), then the step (NVT's target
     from a device table that the host fills for the segment in one copy,
@@ -567,10 +563,12 @@ class SlotAdvance:
     conditional node whose handle the test's kernel sets, and a segment of
     ``k`` steps is ``k`` graph launches and no host read; ``census[name]``
     holds each variant's nodes, read from the graph at its capture
-    (:func:`philox_draws.capture_census`). Eagerly the same code runs step
-    by step, the flag read on the host. The launch counters count each
-    replay (:mod:`mdtpu_torch.utils.counters`). A capture or a launch that
-    fails raises; nothing falls back to the eager loop."""
+    (:func:`philox_draws.capture_census`, and the programmatic edges into
+    the Brownian update, :func:`verlet_update.capture_census`). Eagerly
+    the same code runs step by step, the flag read on the host. The launch
+    counters count each replay (:mod:`mdtpu_torch.utils.counters`). A
+    capture or a launch that fails raises; nothing falls back to the eager
+    loop."""
 
     def __init__(self, step, last_step, engine, ensemble, lean, graph):
         self.step_fn, self.last_fn = step, last_step
@@ -679,8 +677,9 @@ class SlotAdvance:
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._one(step_fn)
-                self.census[name] = philox_draws.capture_census(
-                    self.bufs.device)
+                self.census[name] = {
+                    **philox_draws.capture_census(self.bufs.device),
+                    **verlet_update.capture_census(self.bufs.device)}
         finally:
             self._pool = None
         delta = counters.difference(counters.snapshot(), warm)

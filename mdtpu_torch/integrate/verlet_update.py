@@ -21,32 +21,49 @@ the velocity finish between them reads the step's own counter.
 :func:`kick_drift` writes into ``out`` (the inputs themselves for an update
 in place, as the slot advance's buffers take it) or into new tensors.
 
+The Brownian slot step's update (``mdtpu/integrate/slot_step.py:557-577``,
+also fused by XLA) is :func:`brownian_update`, ``brownian_update_kernel``
+of the same source: the noise drawn inside (Philox, the bits of
+:func:`mdtpu_torch.ops.philox_draws.uniform_noise`), masked to the occupied
+slots, ``x, xc <- kahan(x, xc, f drift + xi sigma)``, and the step's
+scalars (the virial sampled every 10 steps, the temperature, the step
+counter), in one launch.
+
 CUDA tensors launch the kernel (or raise); each launch adds one to the
 wrapper's ``launches``. CPU tensors take the plain versions
-(:func:`kick_drift_plain`, :func:`kick_plain`, :func:`rescale_plain`):
-the torch composition the slot step ran before, on
-:func:`mdtpu_torch.utils.math.kahan_add`. The kernel rounds each operation
-as that composition does on the card, so the two agree bit for bit.
+(:func:`kick_drift_plain`, :func:`kick_plain`, :func:`rescale_plain`,
+:func:`brownian_update_plain`): the torch composition the slot step ran
+before, on :func:`mdtpu_torch.utils.math.kahan_add`. The kernel rounds each
+operation as that composition does on the card, so the two agree bit for
+bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from mdtpu_torch.ops import _cuda_build
+from mdtpu_torch.integrate import step as _step
+from mdtpu_torch.ops import _cuda_build, philox_draws
+from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.math import kahan_add
 
 NAME = "verlet_update"
 KICK_DRIFT, KICK, RESCALE = 0, 1, 2   # the kernel's variants
 
-_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_double
+_P, _I, _L, _D, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_double, ctypes.c_uint)
 _ARGS = (_I, _I, _L) + (_P,) * 13 + (_D, _D, _P)
+_BROWNIAN_ARGS = (_I, _L, _L) + (_P,) * 14 + (_L, _D, _D, _D, _U, _U, _U,
+                                             _I, _P)
 _SIGNATURES = (("mdtpu_verlet_update_f32", _ARGS),
-               ("mdtpu_verlet_update_f64", _ARGS))
+               ("mdtpu_verlet_update_f64", _ARGS),
+               ("mdtpu_brownian_update_f32", _BROWNIAN_ARGS),
+               ("mdtpu_brownian_update_f64", _BROWNIAN_ARGS),
+               ("mdtpu_verlet_update_census", (_P, _P)))
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -207,12 +224,161 @@ def rescale(v, vc, scale, compensated, step=None, step_out=None):
     rescale.launches += 1
 
 
+# ------------------------------------------------------------- Brownian
+
+
+def brownian_coefficients(dt, ktemp, dtype):
+    """``(drift, sigma, ktemp)`` of the Brownian move ``dx = F drift + xi
+    sigma`` as Python numbers rounded to ``dtype`` as the JAX package casts
+    them: ``dt`` and ``ktemp`` rounded first, then ``dt / ktemp`` and
+    ``sqrt(2 dt)`` each rounded once more."""
+    dt = rounded(dt, dtype)
+    ktemp = rounded(ktemp, dtype)
+    return (rounded(dt / ktemp, dtype),
+            rounded(math.sqrt(rounded(2.0 * dt, dtype)), dtype), ktemp)
+
+
+def brownian_update_plain(forces, virial, state, drift, sigma, ktemp,
+                          compensated, rank=None):
+    """``(positions, pos_comp, virial_accum, nprom, temperature)`` after the
+    Brownian slot step's update, as torch operations: the noise of
+    :func:`mdtpu_torch.integrate.step.brownian_noise` (called through the
+    module, the seam tests replace) at ``state.step``, 0 on vacant slots,
+    the move ``forces drift + noise sigma`` through the Kahan add (deferred
+    wrap: no fold), the virial sampled where ``step % 10 == 0`` and the
+    temperature ``ktemp``. ``drift``, ``sigma`` and ``ktemp``: Python
+    numbers already rounded to the state's dtype; ``rank``: a shard's rank
+    (its own noise) or None."""
+    dtype = state.dtype
+    noise = torch.where(
+        state.nbrs.occupied[None, :],
+        _step.brownian_noise(state.seed, state.step, state.positions.shape,
+                             dtype, state.device,
+                             *(() if rank is None else (rank,))),
+        0.0)
+    x, xc = _add(state.positions, state.pos_comp,
+                 forces * drift + noise * sigma, compensated)
+    virial_accum, nprom = _step.brownian_virial_sample(state, virial)
+    temperature = torch.full((), ktemp, dtype=dtype, device=state.device)
+    return x, xc, virial_accum, nprom, temperature
+
+
+def _check_scalar(t, dtype, device, what):
+    if (t.dim() != 0 or t.dtype != dtype or t.device != device):
+        raise ValueError(f"{what} must be a 0-d {dtype} tensor on "
+                         f"{device}")
+
+
+def brownian_update(forces, virial, state, drift, sigma, ktemp, compensated,
+                    rank=None, in_place=False):
+    """The Brownian slot step's update of ``state`` (a slot-layout state)
+    given the sweep's ``forces`` and ``virial``: :func:`brownian_update_
+    plain`'s results and the step plus one, as ``(positions, pos_comp,
+    step, virial_accum, nprom, temperature)``. ``in_place``: written into
+    the state's own tensors (the slot advance's buffers: the positions, the
+    compensation, the accumulators, the temperature and the step counter, a
+    0-d int64 tensor) and those returned; else new tensors (``pos_comp``
+    the state's own where not ``compensated``; a host-int step comes back
+    plus one).
+
+    On the card one launch (``brownian_update.launches``) that draws the
+    noise inside, bit for bit :func:`mdtpu_torch.ops.philox_draws.
+    uniform_noise`'s, as a programmatic dependent of the kernel before it,
+    which must not write the step, the occupancy or the positions
+    (:func:`~mdtpu_torch.ops.philox_draws.launch_options`: the pair sweep
+    writes the forces and the virial, read after the wait). On the CPU the
+    plain version."""
+    step = state.step
+    counter = isinstance(step, torch.Tensor)
+    if in_place and not counter:
+        raise ValueError("an update in place takes a device step counter")
+    if state.positions.device.type == "cpu":
+        got = brownian_update_plain(forces, virial, state, drift, sigma,
+                                    ktemp, compensated, rank)
+        if not in_place:
+            return (*got[:2], step + 1, *got[2:])
+        mine = (state.positions, state.pos_comp, state.virial_accum,
+                state.nprom, state.temperature)
+        for dst, src in zip(mine, got):
+            if dst is not src:
+                dst.copy_(src)
+        step.add_(1)
+        return (*mine[:2], step, *mine[2:])
+    x, xc = state.positions, state.pos_comp
+    dtype, device = x.dtype, x.device
+    _check((forces, x, xc))
+    occupied = state.nbrs.occupied
+    if (occupied.dtype != torch.bool or occupied.dim() != 1
+            or occupied.numel() != x.shape[1] or occupied.device != device
+            or not occupied.is_contiguous()):
+        raise ValueError("occupied must be a contiguous (S,) bool tensor on "
+                         "the positions' device")
+    for t, what in ((virial, "the virial"),
+                    (state.virial_accum, "virial_accum"),
+                    (state.temperature, "the temperature")):
+        _check_scalar(t, dtype, device, what)
+    _check_scalar(state.nprom, torch.int64, device, "nprom")
+    if counter:
+        _check_scalar(step, torch.int64, device, "the step")
+    if in_place:
+        outs = (x, xc, state.virial_accum, state.nprom, state.temperature)
+        step_out = step
+    else:
+        outs = (torch.empty_like(x),
+                torch.empty_like(xc) if compensated else xc,
+                torch.empty_like(state.virial_accum),
+                torch.empty_like(state.nprom),
+                torch.empty((), dtype=dtype, device=device))
+        step_out = torch.empty_like(step) if counter else None
+    k0, k1 = philox_draws.seed_key(state.seed)
+    lib = _library()
+    fn = getattr(lib, f"mdtpu_brownian_update_{_SUFFIX[dtype]}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(int(compensated), x.numel(), x.shape[1], forces.data_ptr(),
+                x.data_ptr(), xc.data_ptr(), occupied.data_ptr(),
+                virial.data_ptr(), state.virial_accum.data_ptr(),
+                state.nprom.data_ptr(), outs[0].data_ptr(),
+                outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
+                outs[4].data_ptr(), ptr(step if counter else None),
+                ptr(step_out), 0 if counter else int(step), float(drift),
+                float(sigma), float(ktemp), k0, k1,
+                philox_draws.noise_stream(rank),
+                philox_draws.launch_options(), stream)
+    _cuda_build.check(lib, NAME, rc, "brownian_update")
+    brownian_update.launches += 1
+    return (*outs[:2], step_out if counter else step + 1, *outs[2:])
+
+
+def capture_census(device):
+    """``{"programmatic_into_brownian_update": n, "brownian_edges_error":
+    rc}``: the programmatic edges of the graph being captured on
+    ``device``'s current stream that enter a Brownian update node (-1 where
+    the edges could not be read, ``rc`` the error). Raises where the stream
+    is not capturing."""
+    lib = _library()
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, lib.mdtpu_verlet_update_census(
+            torch.cuda.current_stream(device).cuda_stream, out),
+            "verlet_update_census")
+    return {"programmatic_into_brownian_update": out[0],
+            "brownian_edges_error": out[1]}
+
+
+WRAPPERS = (kick_drift, kick, rescale, brownian_update)
+
+
 def reset_launches():
-    """Set the three wrappers' launch counts to 0."""
-    for wrapper in (kick_drift, kick, rescale):
+    """Set the four wrappers' launch counts to 0."""
+    for wrapper in WRAPPERS:
         wrapper.launches = 0
 
 
 reset_launches()
-for _wrapper in (kick_drift, kick, rescale):
+for _wrapper in WRAPPERS:
     counters.register(_wrapper, "launches")

@@ -256,14 +256,16 @@ class CellGridEngine:
 
     def compute_slots(self, positions, diameters, cell, cell_inv,
                       nbrs: CellGridState, observables=True, pos_lo=None,
-                      out=None):
+                      out=None, scalars_out=None):
         """``(energy, virial, forces, nbrs)`` of a slot-layout state:
         positions ``(d, n_cells*C)`` already in cell-sorted slot order,
         within skin/2 of their home cells (deferred wrap), so the sweep runs
         on them as they are: no scatter, no gather, no minimum image. Forces
         come back in slot order, written into ``out`` where given (the
-        sweep kernels write them there; a plain sweep's are copied in).
-        ``observables=False`` runs the
+        sweep kernels write them there; a plain sweep's are copied in), and
+        on a full sweep energy and virial into ``scalars_out``, a pair of
+        0-d tensors, where given (B1 sums them in its last block on the
+        card; the pair list's are copied in). ``observables=False`` runs the
         lean sweep (energy and virial zero). ``pos_lo``: the positions' lo
         words for the hi/lo sweep, taken as given (deferred wrap keeps the
         image at 0 between rebuilds, so there is no image shift to fold
@@ -275,10 +277,10 @@ class CellGridEngine:
                 positions, diameters, nbrs.counts, cell, nbrs, observables,
                 pos_lo)
         else:
-            # The kernels write into ``out``; a plain sweep's new forces
-            # are copied in below.
-            into = {"out": out} if out is not None and positions.is_cuda \
-                else {}
+            # The kernels write into ``out`` and ``scalars_out``; a plain
+            # sweep's new results are copied in below.
+            into = ({"out": out, "scalars_out": scalars_out}
+                    if positions.is_cuda else {})
             if pos_lo is None:
                 energy, virial, forces = cell_sweep(
                     positions, diameters, nbrs.counts, cell, self.grid,
@@ -290,6 +292,9 @@ class CellGridEngine:
                     **into)
         if out is not None and forces is not out:
             forces = out.copy_(forces)
+        if scalars_out is not None and energy is not scalars_out[0]:
+            energy, virial = (d.copy_(t) for d, t in
+                              zip(scalars_out, (energy, virial)))
         return energy, virial, forces, nbrs
 
     def compute(self, positions, diameters, cell, cell_inv,

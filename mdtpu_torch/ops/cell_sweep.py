@@ -35,6 +35,9 @@ takes the pair-list route of :mod:`mdtpu_torch.ops.cell_pairs`, chosen by
 ``observables=False`` runs the lean variant of either sweep (the XLA sweep's
 ``observables`` flag, ``mdtpu/ops/cell_grid.py:711-717``): forces only, the
 energy and virial returned as zeros. Its forces are the full variant's bits.
+On the card the full variant sums its per-block energy and virial in its
+last block (a fixed order, in float64, rounded once), so a full call is one
+launch; ``scalars_out`` gives the two 0-d tensors it writes them into.
 
 :func:`cell_sweep` and :func:`cell_sweep_hilo` launch the kernels in
 ``csrc/cell_sweep.cu`` for CUDA tensors and take the plain versions only for
@@ -94,11 +97,12 @@ HILO_LO_BOUND = 4.0
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # Pointers in (the fourth the cell matrix), grid (nz = 1 in 2D) and
 # capacity, cutoff and potential kind, four float and
-# three int potential parameters, pointers out, the launched cells
-# (first_cell, n_blocks), the staging plan (list_len, queue_depth,
-# smem_bytes, threads), the observables flag, the stream.
+# three int potential parameters, pointers out (forces, the partials,
+# energy and virial), the launched cells (first_cell, n_blocks), the staging
+# plan (list_len, queue_depth, smem_bytes, threads), the observables flag,
+# the stream.
 _SWEEP_ARGS = ((_P,) * 4 + (_I,) * 4 + (_D, _I) + (_D,) * 4 + (_I,) * 3
-               + (_P,) * 3 + (_I,) * 7 + (_P,))
+               + (_P,) * 5 + (_I,) * 7 + (_P,))
 # The hi/lo entry takes the lo words after the hi words and the filter margin
 # after the plan.
 _SIGNATURES = (("mdtpu_cell_sweep_f32", _SWEEP_ARGS),
@@ -357,7 +361,7 @@ def check_interior(interior, n_cells):
 
 
 def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
-               observables=True, interior=None, out=None):
+               observables=True, interior=None, out=None, scalars_out=None):
     """The pair sweep. CUDA tensors launch the kernel (or raise); CPU tensors
     take :func:`cell_sweep_plain`. Each launch adds one to
     ``cell_sweep.launches``, and a launch of the lean variant
@@ -365,7 +369,11 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
     variant's energy and virial are one zero made once (:func:`lean_zero`).
     ``out``: a contiguous tensor of the forces' shape and dtype that the
     kernel writes them into (the slot advance's buffer), returned as the
-    forces.
+    forces. On the card the full variant sums energy and virial in its last
+    block (one launch, no sum after it); ``scalars_out``: the ``(energy,
+    virial)`` 0-d tensors of the positions' dtype it writes them into,
+    returned as they are (a full sweep only; on the CPU the plain version's
+    are copied in).
 
     ``interior=(first_cell, n_cells_out)``: the sweep of those cells only
     (one block each), every cell of the grid still read as a neighbour. The
@@ -378,10 +386,11 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     first, n_out = check_interior(interior, n_cells)
+    _check_scalars_out(scalars_out, observables)
     if slot_pos.device.type == "cpu":
-        return _into(out, cell_sweep_plain(slot_pos, slot_diam, counts, box,
-                                           grid, cutoff, potential,
-                                           observables, interior))
+        return _into(out, scalars_out, cell_sweep_plain(
+            slot_pos, slot_diam, counts, box, grid, cutoff, potential,
+            observables, interior))
     cell = as_cell(box, len(grid)).contiguous()
     device, dtype = check_cuda((slot_pos, slot_diam, counts, cell),
                                (torch.float32, torch.float64))
@@ -393,25 +402,29 @@ def cell_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
                           plan=(first, n_out,
                                 *_plan_args(cap, dtype, False, len(grid)),
                                 int(observables)),
-                          observables=observables, out=out)
+                          observables=observables, out=out, folds=True,
+                          scalars_out=scalars_out)
     _count(cell_sweep, observables, interior)
     return result
 
 
 def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
-                    potential, observables=True, interior=None, out=None):
+                    potential, observables=True, interior=None, out=None,
+                    scalars_out=None):
     """The hi/lo pair sweep (float32). CUDA tensors launch the kernel (or
     raise); CPU tensors take :func:`cell_sweep_hilo_plain`. Each launch adds
     one to ``cell_sweep_hilo.launches``, and a launch of the lean variant
-    also to ``cell_sweep_hilo.lean_launches``. ``interior`` and ``out`` as
-    in :func:`cell_sweep` (counted in ``cell_sweep_hilo.slab_launches``)."""
+    also to ``cell_sweep_hilo.lean_launches``. ``interior``, ``out`` and
+    ``scalars_out`` as in :func:`cell_sweep` (counted in
+    ``cell_sweep_hilo.slab_launches``)."""
     n_cells, cap = check_inputs(slot_pos, slot_diam, counts, box, grid,
                                 MAX_CAPACITY)
     first, n_out = check_interior(interior, n_cells)
+    _check_scalars_out(scalars_out, observables)
     if tuple(slot_lo.shape) != tuple(slot_pos.shape):
         raise ValueError("slot_lo must have the shape of slot_pos")
     if slot_pos.device.type == "cpu":
-        return _into(out, cell_sweep_hilo_plain(
+        return _into(out, scalars_out, cell_sweep_hilo_plain(
             slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
             potential, observables, interior))
     cell = as_cell(box, len(grid)).contiguous()
@@ -423,15 +436,24 @@ def cell_sweep_hilo(slot_pos, slot_lo, slot_diam, counts, box, grid, cutoff,
         potential, n_out, "cell_sweep_hilo",
         plan=(first, n_out, *_plan_args(cap, torch.float32, True, len(grid)),
               hilo_filter_margin(torch.float32), int(observables)),
-        observables=observables, out=out)
+        observables=observables, out=out, folds=True,
+        scalars_out=scalars_out)
     _count(cell_sweep_hilo, observables, interior)
     return result
 
 
-def _into(out, result):
+def _check_scalars_out(scalars_out, observables):
+    if scalars_out is not None and not observables:
+        raise ValueError("a lean sweep writes no energy and virial")
+
+
+def _into(out, scalars_out, result):
     """A plain sweep's ``(energy, virial, forces)`` with the forces copied
-    into ``out`` where given."""
+    into ``out`` and energy and virial into ``scalars_out`` where given."""
     energy, virial, force = result
+    if scalars_out is not None:
+        energy, virial = (dst.copy_(src) for dst, src in
+                          zip(scalars_out, (energy, virial)))
     return energy, virial, force if out is None else out.copy_(force)
 
 
@@ -482,7 +504,7 @@ def _plan_args(cap, dtype, hilo, dim):
 
 def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
                  n_cells, what, scratch=(), plan=(), observables=True,
-                 out=None):
+                 out=None, folds=False, scalars_out=None):
     """Launch a sweep entry point of the library of ``csrc/<name>.cu`` on
     the current stream: ``fn(inputs..., nx, ny, nz, cap, cutoff, kind,
     p0..p3, i0..i2, force, e_part, w_part, scratch..., plan..., stream)``
@@ -492,7 +514,11 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
     virial, slot_forces)`` with the per-cell partials summed on the device;
     ``observables=False`` (a lean launch) passes no partials and returns
     :func:`lean_zero` for both scalars. ``out``: the forces' tensor, where
-    the caller gives one."""
+    the caller gives one. ``folds``: the entry point takes two more
+    pointers after the partials, the energy and the virial, which its last
+    block sums them into (null on a lean launch); else the partials are
+    summed by ``torch.sum``. ``scalars_out`` (``folds`` only): the
+    ``(energy, virial)`` 0-d tensors to write (new ones where None)."""
     kind, fp, ip = functor_params(potential)
     slot_pos = inputs[0]
     dtype, device = slot_pos.dtype, slot_pos.device
@@ -509,8 +535,18 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
         e_part = torch.empty((n_cells,), dtype=dtype, device=device)
         w_part = torch.empty((n_cells,), dtype=dtype, device=device)
         partials = (e_part.data_ptr(), w_part.data_ptr())
+        if folds:
+            if scalars_out is None:
+                scalars_out = (torch.empty((), dtype=dtype, device=device),
+                               torch.empty((), dtype=dtype, device=device))
+            for t in scalars_out:
+                if t.dim() != 0 or t.dtype != dtype or t.device != device:
+                    raise ValueError("energy and virial outputs must be 0-d "
+                                     "tensors of the positions' dtype and "
+                                     "device")
+            partials += tuple(t.data_ptr() for t in scalars_out)
     else:
-        partials = (None, None)
+        partials = (None, None) + ((None, None) if folds else ())
     nx, ny, nz = (*(int(g) for g in grid), 1)[:3]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -522,7 +558,9 @@ def launch_sweep(lib, name, fn, inputs, grid, cap, cutoff, potential,
     if not observables:
         zero = lean_zero(dtype, device)
         return zero, zero, force
-    return torch.sum(e_part), torch.sum(w_part), force
+    if not folds:
+        return torch.sum(e_part), torch.sum(w_part), force
+    return scalars_out[0], scalars_out[1], force
 
 
 def _neighbour_cells(grid, off, cell, device, cells=None):

@@ -80,6 +80,7 @@ CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
 NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
                  "velocity_finish": "velocity_finish_kernel",
                  "verlet_update": "verlet_update_kernel",
+                 "brownian_update": "brownian_update_kernel",
                  "uniform_noise": "uniform_noise_kernel",
                  "bussi_draw": "bussi_draw_kernel"}
 _OPT_PROGRAMMATIC = 1

@@ -52,8 +52,8 @@ velocity finish and the Brownian noise in plain stream order, where the
 package launches them as programmatic dependents of the kernel before
 them (inside ``philox_draws.plain_launch``); the JSON line says which
 (``launch``), with the card's name and power limit and the package's
-directory. For the velocity finish and the noise the profile also
-gives their device time in the step, the gap before each on the device's
+directory. For the velocity finish, the noise and the Brownian update
+the profile also gives their device time in the step, the gap before each on the device's
 timeline (from the end of the node before it to its start: a programmatic
 dependent may start before that node ends) and the time from the end of
 that node to the end of each (gap and device time: what the node adds to
@@ -330,7 +330,8 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
 
 # The kernels whose gap from the node before them the profile reports.
 GAP_KERNELS = {"velocity_finish": "velocity_finish_kernel",
-               "uniform_noise": "uniform_noise"}
+               "uniform_noise": "uniform_noise",
+               "brownian_update": "brownian_update_kernel"}
 
 
 def kernel_gaps(prof, names):

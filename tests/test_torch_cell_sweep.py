@@ -142,3 +142,45 @@ def test_cpu_wrapper_takes_the_plain_version():
     assert sweep_mod.kernel_params(object()) is None
     with pytest.raises(ValueError, match="pair list"):
         sweep_mod.functor_params(object())
+
+
+@pytest.mark.parametrize("route", ["cell_sweep", "cell_sweep_hilo",
+                                   "compute_slots"])
+def test_scalar_outputs_on_the_plain_route(route):
+    """Energy and virial written into given 0-d tensors (the slot advance's
+    buffers; on the card the kernel's last block sums them there): the
+    tensors themselves come back, holding the bits of a call without them;
+    a lean sweep refuses them."""
+    hilo = route == "cell_sweep_hilo"
+    dtype = torch.float32 if hilo else torch.float64
+    pos, diam, cell, cinv = (torch.from_numpy(a) for a in _system(
+        6, True, 0.1, np.float32 if hilo else np.float64))
+    pot = LennardJones(r_cut=1.5)
+    eng = CellGridEngine.create(pot, CUTOFF, SKIN, cell, N)
+    nb = eng.allocate(pos, diam, cell, cinv)
+    slot_pos, slot_diam, counts, cell_m = eng.slot_inputs(pos, cell, cinv,
+                                                          nb)
+    lo = torch.zeros_like(slot_pos)
+    scalars = (torch.full((), 7.0, dtype=dtype),
+               torch.full((), 7.0, dtype=dtype))
+    if route == "compute_slots":
+        def run(**kw):
+            e, w, f, _ = eng.compute_slots(slot_pos, slot_diam, cell_m, cinv,
+                                           nb, **kw)
+            return e, w, f
+    else:
+        args = (((slot_pos, lo) if hilo else (slot_pos,))
+                + (slot_diam, counts, cell_m, eng.grid, eng.cutoff, pot))
+        fn = getattr(sweep_mod, route)
+
+        def run(**kw):
+            return fn(*args, **kw)
+    want = run()
+    got = run(scalars_out=scalars)
+    assert got[0] is scalars[0] and got[1] is scalars[1]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert float(want[0]) != 0.0 and float(want[1]) != 0.0
+    if route != "compute_slots":
+        with pytest.raises(ValueError, match="lean"):
+            run(observables=False, scalars_out=scalars)

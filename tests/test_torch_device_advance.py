@@ -6,10 +6,12 @@ code reads a tensor back to the host (``Tensor.__bool__``, ``__int__``,
 ``.cpu()``) patched to raise, except the one read in :func:`device_if`'s
 eager branch; the segment completes and reaches that read once a step. The
 card captures this same code into CUDA graphs, so it reads nothing back
-there. Also: NVT's target temperature comes from the advance's device
-table, step for step what the schedule gives; the counter is the state's
-step; the advance leaves its input state as it was; and the graph option's
-checks.
+there. Also: every step variant writes its results into the advance's
+buffers (MD and Brownian, lean and full: a step's state holds the buffers'
+own tensors, so nothing is copied in after it); NVT's target temperature
+comes from the advance's device table, step for step what the schedule
+gives; the counter is the state's step; the advance leaves its input state
+as it was; and the graph option's checks.
 """
 
 import sys
@@ -50,6 +52,7 @@ CASES = {
     "nvt_ramp": (mt.NVT(LinearRamp(1.2, 0.8, 30), 0.4), torch.float64, False),
     "nve_hilo": (mt.NVE(), torch.float32, True),
     "brownian": (mt.Brownian(1.0), torch.float64, False),
+    "brownian_hilo": (mt.Brownian(1.0), torch.float32, True),
 }
 
 
@@ -88,6 +91,30 @@ def test_segment_reads_nothing_but_the_rebuild_flag(case, monkeypatch):
     assert slot_step.make_slot_step.steps - steps_before == k
     assert len(rebins) == len(advance.rebuild_steps())
     assert bool(torch.all(torch.isfinite(out.positions)))
+
+
+@pytest.mark.parametrize("variant", ["lean", "last"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_steps_write_the_buffers_in_place(case, variant):
+    """A step on the advance's buffers returns a state of the buffers' own
+    tensors, its binning's included: the step wrote every result in place
+    and ``_copy_into`` has nothing to copy. Two steps advance the counter
+    by two."""
+    ensemble, dtype, hilo = CASES[case]
+    slots, eng, params = _slots(ensemble, dtype)
+    advance = slot_step.make_slot_advance(params, ensemble, eng, hilo=hilo)
+    advance._load(slots)
+    advance._fill_table(slots.step, 2)
+    b = advance.bufs
+    fn = advance.step_fn if variant == "lean" else advance.last_fn
+    for _ in range(2):
+        out = fn(b, advance._target())
+        for name in slot_step._STATE_TENSORS:
+            assert getattr(out, name) is getattr(b, name), name
+        for name in slot_step._NBRS_TENSORS:
+            assert getattr(out.nbrs, name) is getattr(b.nbrs, name), name
+    assert int(b.step) == slots.step + 2
+    assert bool(torch.all(torch.isfinite(b.positions)))
 
 
 def test_ramp_target_comes_from_the_device_table(monkeypatch):

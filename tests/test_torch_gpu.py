@@ -47,7 +47,7 @@ kinetic energy) and summing the velocities itself; the captured and eager
 slot routes bit for bit, and a captured step's nodes read from its graph.
 The finish and the noise launch as programmatic dependents: 100 finishes
 overlapping in one graph each equal to the call alone, the programmatic
-edge into a captured step's finish (NVT, NVE) or noise (Brownian), the
+edge into a captured step's finish (NVT, NVE) or update (Brownian), the
 noise in memory the kernel before it reads, the same bits from the plain
 launch, and the summing finish's step written by the kernel just before.
 The slot step's Verlet chain (``integrate/verlet_update.py``): each
@@ -57,7 +57,17 @@ tensors, the step counter), its bad inputs refused; the captured slot
 advance writing its buffers in place against the composition it replaced,
 run eagerly (bench NVT then hi/lo NVE, 2D, tilted: every segment's numbers
 and arrays bit for bit), the tilted box captured against eager, and a
-captured lean step's nodes (7 NVT, 6 NVE, no copy). The list's reduction,
+captured lean step's nodes (7 NVT, 6 NVE, no copy; the full last step
+the same). The Brownian slot step's update (``brownian_update``): bit for
+bit the torch composition on the card fed by the noise kernel (f32, f64,
+compensated and not, 2D, unaligned rows, a device counter past 2^32 and a
+host step, a rank, in place and into new tensors), its bad inputs refused,
+a captured Brownian step's nodes (at most 5, no copy, no memset, one
+programmatic edge into the update), captured against eager at f64 and on
+the hi/lo sweep. B1's energy and virial summed in its last block: against
+``torch.sum`` of the same launch's partials (melted bench fluid, a slab, a
+tilted 2D box; f64, f32, hi/lo), two launches alike, and a captured full
+sweep writing its NaN-filled scalars. The list's reduction,
 staged and walked, against its plain version in list order on config 4's
 list and a 3D list (forces bit for bit, a captured call replayed).
 
@@ -1912,9 +1922,12 @@ def _assert_routes_equal(out, n_steps):
     assert n_g == n_e
     assert n_e[("make_slot_step", "steps")] == n_steps
     assert n_e[("rebuild_flag", "launches")] >= n_steps
-    # An MD step finishes through velocity_finish and draws in it.
+    # An MD step finishes through velocity_finish and draws in it; a
+    # Brownian step draws in its update.
     assert n_e.get(("velocity_finish", "launches"), 0) in (0, n_steps)
+    assert n_e.get(("brownian_update", "launches"), 0) in (0, n_steps)
     assert ("bussi_draw", "launches") not in n_e
+    assert ("uniform_noise", "launches") not in n_e
     assert n_e.get(("cell_sweep", "launches"), 0) + n_e.get(
         ("cell_sweep_hilo", "launches"), 0) == n_steps
 
@@ -2106,10 +2119,13 @@ def test_captured_slot_step_nodes(cuda, ensemble):
         # The Verlet chain: kick-drift, kick and (NVT) the rescale.
         assert nodes["verlet_update"] == (3 if ensemble == "nvt" else 2)
     # The lean step: the drift test, the IF node, the chain, the sweep and
-    # the finish, nothing copied into the buffers.
-    lean = advance.census["lean"]
+    # the finish, nothing copied into the buffers. The full last step has
+    # the same nodes: its sweep sums energy and virial in its last block,
+    # into the buffers.
+    lean, last = advance.census["lean"], advance.census["last"]
     assert lean["copies"] == 0
     assert lean["nodes"] == (7 if ensemble == "nvt" else 6), lean
+    assert last["copies"] == 0 and last["nodes"] == lean["nodes"], last
 
 
 @pytest.mark.parametrize("kind", ["ramp", "nve", "given_kinetic"])
@@ -2152,8 +2168,8 @@ def test_velocity_finish_instances_overlapping_in_a_graph(cuda, kind):
 
 def test_captured_steps_take_programmatic_edges(cuda):
     """A captured NVT and NVE slot step (4096 LJ, f32) enters its velocity
-    finish by a programmatic edge, and a Brownian slot step its noise, each
-    the graph's only one, read from the graph's edges; a step's nodes are
+    finish by a programmatic edge, and a Brownian slot step its update
+    (which draws the noise), each the graph's only one, read from the graph's edges; a step's nodes are
     those of the same step captured with the plain launch."""
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.ops import philox_draws as draws
@@ -2176,7 +2192,7 @@ def test_captured_steps_take_programmatic_edges(cuda):
                 "programmatic_into_velocity_finish"),
         "brownian": (mdtpu_torch.Parameters(0.5, n, 1e-5, PseudoHS()),
                      mdtpu_torch.Brownian(1.0), bd_eng, bd_slots, False,
-                     "programmatic_into_uniform_noise"),
+                     "programmatic_into_brownian_update"),
     }
     for name, (params, ens, eng, slots, hilo, into) in cases.items():
         census = {}
@@ -2588,3 +2604,287 @@ def test_pair_reduce_forces_are_the_plain_versions_bits(cuda, case, way,
     rtol = TOLERANCES[out[2].dtype][0]
     np.testing.assert_allclose(float(out[0]), float(ref[0]), rtol=rtol)
     np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=rtol)
+
+
+# ------------------------------------------- the Brownian update, B1's fold
+
+BROWNIAN_LAYOUTS = {"slots": (3, 263424), "bench": (3, 124875),
+                    "2d": (2, 4097), "offset": (3, 124875)}
+
+
+def _brownian_state(shape, dtype, device, seed, step, offset=False):
+    """A slot state as far as the Brownian update reads it, on ``device``:
+    one slot in five vacant (zero rows there), forces of order 30,
+    positions up to 20, compensations of a Kahan add's size, the virial,
+    the accumulators and the temperature buffer, ``step`` a device
+    counter. ``offset``: the positions and their compensation are rows of
+    one packed tensor, not 16-byte aligned. Returns ``(state, forces,
+    virial)``."""
+    import types
+
+    from mdtpu_torch.integrate import velocity_finish as vf
+    g = torch.Generator().manual_seed(seed)
+    occ = torch.rand(shape[1], generator=g) < 0.8
+    f = torch.randn(shape, generator=g, dtype=torch.float64) * 30.0 * occ
+    x = torch.rand(shape, generator=g, dtype=torch.float64) * 20.0 * occ
+    xc = torch.randn(shape, generator=g, dtype=torch.float64) * 1e-7 * occ
+    f, x, xc = (t.to(dtype).to(device) for t in (f, x, xc))
+    if offset:
+        n = x.numel()
+        packed = torch.zeros(2 * n + 1, dtype=dtype, device=device)
+        views = [packed[1 + i * n:1 + (i + 1) * n].view(shape)
+                 for i in range(2)]
+        views[0].copy_(x)
+        views[1].copy_(xc)
+        x, xc = views
+        assert x.data_ptr() % 16
+    state = types.SimpleNamespace(
+        positions=x, pos_comp=xc, seed=11,
+        nbrs=types.SimpleNamespace(occupied=occ.to(device)),
+        step=torch.tensor(step, device=device), dtype=dtype, device=device,
+        virial_accum=torch.tensor(-3.25, dtype=dtype, device=device),
+        nprom=torch.tensor(7, device=device),
+        temperature=vf.finish_buffer(torch.tensor(0.5, dtype=dtype,
+                                                  device=device)))
+    return state, f, torch.tensor(123.456, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("layout", sorted(BROWNIAN_LAYOUTS))
+@pytest.mark.parametrize("compensated", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_brownian_update_matches_plain_bit_for_bit(cuda, dtype, compensated,
+                                                   layout):
+    """The kernel against its plain version on the card's tensors, the
+    noise drawn there by the ``uniform_noise`` kernel: positions,
+    compensation, accumulators, temperature and step bit for bit, into new
+    tensors (the state untouched) and in place, at a device counter past
+    2^32 and at a host step, for a shard's rank; two launches alike; one
+    launch each. The Brownian slot path's slots and the bench's (16-byte
+    rows), a 2D shape and rows off alignment; a step that samples the
+    virial (``slots``, ``2d``) and one that does not."""
+    from mdtpu_torch.integrate import verlet_update as vu
+    shape = BROWNIAN_LAYOUTS[layout]
+    step = 2 ** 33 + (20 if layout in ("slots", "2d") else 23)
+    state, f, virial = _brownian_state(shape, dtype, cuda, 5, step,
+                                       layout == "offset")
+    coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+    keep = [t.clone() for t in (state.positions, state.pos_comp,
+                                state.virial_accum, state.nprom, state.step)]
+    want = vu.brownian_update_plain(f, virial, state, *coeffs, compensated)
+    n0 = vu.brownian_update.launches
+    got = vu.brownian_update(f, virial, state, *coeffs, compensated)
+    again = vu.brownian_update(f, virial, state, *coeffs, compensated)
+    torch.cuda.synchronize()
+    assert vu.brownian_update.launches == n0 + 2
+    for a, b, c in zip(got[:2] + got[3:], want, again[:2] + again[3:]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[2]) == step + 1 and int(again[2]) == step + 1
+    for a, b in zip((state.positions, state.pos_comp, state.virial_accum,
+                     state.nprom, state.step), keep):
+        assert torch.equal(a, b)
+    if not compensated:
+        assert got[1] is state.pos_comp
+    assert int(got[4]) == 7 + (step % 10 == 0)
+    ranked = vu.brownian_update(f, virial, state, *coeffs, compensated, 3)
+    want3 = vu.brownian_update_plain(f, virial, state, *coeffs, compensated,
+                                     3)
+    assert torch.equal(ranked[0], want3[0])
+    assert not torch.equal(ranked[0], got[0])
+    state.step = step
+    by_host = vu.brownian_update(f, virial, state, *coeffs, compensated)
+    assert by_host[2] == step + 1
+    for a, b in zip(by_host[:2] + by_host[3:], want):
+        assert torch.equal(a, b)
+    state.step = keep[4]
+    mine = (state.positions, state.pos_comp, state.step,
+            state.virial_accum, state.nprom, state.temperature)
+    done = vu.brownian_update(f, virial, state, *coeffs, compensated,
+                              in_place=True)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(done, mine))
+    assert int(state.step) == step + 1
+    for a, b in zip(done[:2] + done[3:], want):
+        assert torch.equal(a, b)
+
+
+def test_brownian_update_refuses_what_it_does_not_take(cuda):
+    from mdtpu_torch.integrate import verlet_update as vu
+    state, f, virial = _brownian_state((3, 100), torch.float32, cuda, 1, 4)
+    coeffs = vu.brownian_coefficients(1e-5, 1.0, torch.float32)
+    with pytest.raises(ValueError):   # a virial of another dtype
+        vu.brownian_update(f, virial.double(), state, *coeffs, True)
+    with pytest.raises(ValueError):   # forces of another shape
+        vu.brownian_update(f[:, :50], virial, state, *coeffs, True)
+    state.nbrs.occupied = state.nbrs.occupied.to(torch.uint8)
+    with pytest.raises(ValueError):   # an occupancy that is not bool
+        vu.brownian_update(f, virial, state, *coeffs, True)
+
+
+def _brownian_slots(cuda, n=4096, skin=0.3, dtype=torch.float32):
+    from mdtpu_torch.integrate import slot_step
+    state = lattice_fluid_state(n, 0.5, 1.0, dtype=dtype, cutoff=1.5,
+                                jitter=0.05, device=cuda)
+    params = mdtpu_torch.Parameters(0.5, n, 1e-5, PseudoHS())
+    eng = CellGridEngine.create(PseudoHS(), 1.5, skin, state.unitcell, n)
+    return slot_step.slotify(state, eng), eng, params
+
+
+def test_captured_brownian_slot_step_nodes(cuda):
+    """A captured Brownian slot step (4096 pseudo-hard spheres, f32) holds
+    the drift test, the IF node, B1 (its energy and virial summed in its
+    last block) and the update, entered by the graph's one programmatic
+    edge: at most 5 nodes, no copy, no memset, no noise kernel; its
+    replays count one update a step."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate import verlet_update as vu
+    slots, eng, params = _brownian_slots(cuda)
+    advance = slot_step.make_slot_advance(params, mdtpu_torch.Brownian(1.0),
+                                          eng)
+    n0 = vu.brownian_update.launches
+    advance(slots, 6)
+    assert vu.brownian_update.launches == n0 + 6
+    assert advance.graph and sorted(advance.census) == ["last", "lean"]
+    for nodes in advance.census.values():
+        assert nodes["nodes"] <= 5 and nodes["copies"] == 0, nodes
+        assert nodes["memsets"] == 0 and nodes["conditionals"] == 1
+        assert nodes["rebuild_flag"] == 1 and nodes["brownian_update"] == 1
+        assert nodes["uniform_noise"] == 0 and nodes["verlet_update"] == 0
+        assert nodes["if_dependencies"] == nodes["if_root_kernels"] == 1
+        assert nodes["programmatic_into_brownian_update"] == 1
+        assert nodes["programmatic_edges"] == 1
+        assert nodes["brownian_edges_error"] == nodes["edges_error"] == 0
+
+
+def test_captured_brownian_advance_equals_eager_f64_and_hilo(cuda):
+    """The Brownian slot advance captured and eager, bit for bit with the
+    same rebuilds and counts: f64, and f32 on the hi/lo sweep."""
+    from mdtpu_torch.integrate import slot_step
+    for dtype, hilo in ((torch.float64, False), (torch.float32, True)):
+        slots, eng, params = _brownian_slots(cuda, skin=0.1, dtype=dtype)
+        out = {}
+        for graph in (False, None):
+            advance = slot_step.make_slot_advance(
+                params, mdtpu_torch.Brownian(1.0), eng, hilo=hilo,
+                graph=graph)
+            s, rows = slots, []
+            for k in (1, 1, 30, 29):
+                s = advance(s, k)
+                rows.append(torch.stack([s.energy, s.virial, s.temperature,
+                                         s.virial_accum]).cpu())
+            out[graph] = (s, torch.stack(rows), advance.rebuild_steps())
+        (se, re, be), (sg, rg, bg) = out[False], out[None]
+        assert torch.equal(re, rg) and be == bg and len(be) >= 1
+        for name in ("positions", "pos_comp", "forces", "images", "ids",
+                     "nprom"):
+            assert torch.equal(getattr(se, name), getattr(sg, name)), name
+
+
+def _folded_and_summed(kind, first, args, interior=None):
+    """One launch of B1's full variant with its partials kept: ``(folded,
+    summed, forces)``, the energy and the virial its last block summed and
+    ``torch.sum`` of its partials. The entry point takes the two 0-d
+    outputs right after the partials, where ``launch_sweep`` puts its
+    scratch tensors."""
+    import math
+    hilo = kind == "hilo"
+    lib = sweep_mod._library()
+    slot_pos = first[0]
+    diam, counts, box, grid, cutoff, pot = args
+    dtype = slot_pos.dtype
+    cell = sweep_mod.as_cell(box, len(grid)).contiguous()
+    n_cells = math.prod(grid)
+    cap = slot_pos.shape[1] // n_cells
+    start, n_out = sweep_mod.check_interior(interior, n_cells)
+    folded = tuple(torch.full((), float("nan"), dtype=dtype,
+                              device=slot_pos.device) for _ in range(2))
+    fn = (lib.mdtpu_cell_sweep_hilo_f32 if hilo else
+          lib.mdtpu_cell_sweep_f32 if dtype == torch.float32
+          else lib.mdtpu_cell_sweep_f64)
+    plan = (start, n_out, *sweep_mod._plan_args(cap, dtype, hilo, len(grid)),
+            *((sweep_mod.hilo_filter_margin(torch.float32),) if hilo
+              else ()), 1)
+    e, w, force = sweep_mod.launch_sweep(
+        lib, sweep_mod.NAME, fn, (*first, diam, counts, cell), grid, cap,
+        cutoff, pot, n_out, "cell_sweep", scratch=folded, plan=plan)
+    torch.cuda.synchronize()
+    return folded, (e, w), force
+
+
+@pytest.mark.parametrize("case", ["melted", "slab", "2d"])
+@pytest.mark.parametrize("kind", ["f64", "f32", "hilo"])
+def test_cell_sweep_folds_energy_and_virial(cuda, kind, case):
+    """B1's full variant sums its partials in its last block: against
+    ``torch.sum`` of the same launch's partials at rel 1e-6 (f32, summed
+    in float64 and rounded once) and 1e-12 (f64); two launches bit for
+    bit; the wrapper's one launch gives those scalars and the forces of
+    the launch with the sum after it. The melted bench fluid, a ring of
+    one's slab launch, and a 2D tilted box."""
+    if case == "slab":
+        first, args, interior, *_ = _slab(cuda, kind)
+    elif case == "melted":
+        dtype = torch.float64 if kind == "f64" else torch.float32
+        slots, eng = _melted_slots(cuda, dtype)
+        first = (slots.positions,) + ((-slots.pos_comp,) if kind == "hilo"
+                                      else ())
+        args = (slots.diameters, slots.nbrs.counts, slots.unitcell,
+                eng.grid, eng.cutoff, eng.potential)
+        interior = None
+    else:
+        grid, tilt = BOXES["2d_tilted"]
+        cap = 33
+        counts = _mixed_counts(int(np.prod(grid)), cap, cap + 2)
+        pos, diam, counts_t, cell = _slots_in_box(grid, cap, counts, 2.5, 4,
+                                                  cuda, tilt, 0.2)
+        dtype = torch.float64 if kind == "f64" else torch.float32
+        hi = pos.to(dtype)
+        first = (hi,) + (((pos - hi.double()).float(),) if kind == "hilo"
+                         else ())
+        args = (diam.to(dtype), counts_t, cell.to(dtype), grid, 2.5,
+                LennardJones(r_cut=2.5, force_shift=True))
+        interior = None
+    folded, summed, force = _folded_and_summed(kind, first, args, interior)
+    again, _, force2 = _folded_and_summed(kind, first, args, interior)
+    rtol = 1e-12 if kind == "f64" else 1e-6
+    for f, s in zip(folded, summed):
+        assert bool(torch.isfinite(f))
+        np.testing.assert_allclose(float(f), float(s), rtol=rtol)
+    assert all(torch.equal(a, b) for a, b in zip(folded, again))
+    assert torch.equal(force, force2)
+    kernel = (sweep_mod.cell_sweep_hilo if kind == "hilo"
+              else sweep_mod.cell_sweep)
+    n0 = kernel.launches
+    got = kernel(*first, *args, interior=interior)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    assert torch.equal(got[0], folded[0]) and torch.equal(got[1], folded[1])
+    assert torch.equal(got[2], force)
+
+
+@pytest.mark.parametrize("kind", ["f32", "hilo"])
+def test_captured_full_sweep_writes_its_scalars(cuda, kind):
+    """A full sweep captured into a graph with its forces and scalars in
+    given tensors: after they are NaN-filled, a replay writes the eager
+    call's values into them (the launch is on the capturing stream)."""
+    slots, eng = _melted_slots(cuda, torch.float32)
+    first = (slots.positions,) + ((-slots.pos_comp,) if kind == "hilo"
+                                  else ())
+    args = (slots.diameters, slots.nbrs.counts, slots.unitcell, eng.grid,
+            eng.cutoff, eng.potential)
+    kernel = (sweep_mod.cell_sweep_hilo if kind == "hilo"
+              else sweep_mod.cell_sweep)
+    want = kernel(*first, *args)
+    force = torch.empty_like(want[2])
+    scalars = (torch.empty_like(want[0]), torch.empty_like(want[1]))
+    kernel(*first, *args, out=force, scalars_out=scalars)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kernel(*first, *args, out=force, scalars_out=scalars)
+    assert got[0] is scalars[0] and got[1] is scalars[1] and got[2] is force
+    for _ in range(2):
+        for t in (force, *scalars):
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

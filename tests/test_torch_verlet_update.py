@@ -18,7 +18,10 @@ verlet_update``) on the CPU, where its wrappers take their plain versions:
     short segments of the bench's shape (NVT on a ramp, NVE on the hi/lo
     sweep, f64 NVT, a 2D box, uncompensated, ``force_dtype``), with
     rebuilds: every segment's thermo numbers and the final state bit for
-    bit.
+    bit; and the Brownian slot step the same way (its sweep and
+    ``brownian_update`` writing the buffers, against the noise, the Kahan
+    add and the virial sample as torch operations on new tensors: f32,
+    hi/lo, a 2D box, f64 uncompensated), the accumulators too.
 
 The kernel itself is held to the plain versions on the card
 (``tests/test_torch_gpu.py``)."""
@@ -197,6 +200,38 @@ def _old_slot_step(params, ensemble, engine, compensated, observables, hilo,
     return step
 
 
+def _old_brownian_step(params, ensemble, engine, compensated, observables,
+                       hilo, force_dtype):
+    """The Brownian slot step as the port ran it before its update was one
+    kernel: the noise through the seam, masked, the move, the Kahan add and
+    the virial sample as torch operations on new tensors."""
+
+    def step(state, ktemp=None):
+        slot_step.make_slot_step.steps += 1
+        dtype = state.dtype
+        drift, sigma, kt = vu.brownian_coefficients(params.dt,
+                                                    ensemble.ktemp, dtype)
+        energy, virial, forces, nbrs = slot_step._sweep_in(
+            engine, state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv, state.nbrs, True, force_dtype,
+            -state.pos_comp if hilo else None)
+        noise = torch.where(
+            state.nbrs.occupied[None, :],
+            tstep.brownian_noise(state.seed, state.step,
+                                 state.positions.shape, dtype, state.device),
+            0.0)
+        x, xc = tstep._add(state.positions, state.pos_comp,
+                           forces * drift + noise * sigma, compensated)
+        virial_accum, nprom = tstep.brownian_virial_sample(state, virial)
+        return state.replace(
+            positions=x, forces=forces, step=state.step + 1, energy=energy,
+            virial=virial,
+            temperature=torch.full((), kt, dtype=dtype, device=state.device),
+            pos_comp=xc, nbrs=nbrs, virial_accum=virial_accum, nprom=nprom)
+
+    return step
+
+
 def _start(case):
     """A slot state of ``case`` with its engine: 1,000 LJ particles (r_c
     1.5, a short skin so that the segments rebuild), or a tilted 2D box of
@@ -234,6 +269,11 @@ ROUTES = {
     "nvt_2d": ("2d", mt.NVT(1.0, 0.1), True, False, None),
     "nve_uncompensated": ("f32", mt.NVE(), False, False, None),
     "nvt_force_f64": ("f32", mt.NVT(1.2, 0.4), True, False, torch.float64),
+    "brownian": ("f32", mt.Brownian(1.4), True, False, None),
+    "brownian_hilo": ("f32", mt.Brownian(1.4), True, True, None),
+    "brownian_2d": ("2d", mt.Brownian(1.0), True, False, None),
+    "brownian_f64_uncompensated": ("f64", mt.Brownian(1.2), False, False,
+                                   None),
 }
 
 
@@ -241,17 +281,24 @@ ROUTES = {
 def test_in_place_route_equals_the_old_composition(route):
     """``make_slot_advance``'s in-place steps against a slot advance of the
     old composition's steps, from one start over segments (1, 9, 9, 6):
-    each segment's energy, virial, temperature and step, the rebuild steps
-    and the final state's arrays bit for bit."""
+    each segment's energy, virial, temperature, Brownian accumulators and
+    step, the rebuild steps and the final state's arrays bit for bit."""
     case, ens, compensated, hilo, force_dtype = ROUTES[route]
     slots, eng, params = _start(case)
+    if isinstance(ens, mt.Brownian):
+        # An overdamped step of the MD step's dt would throw the lattice
+        # apart.
+        params = mt.Parameters(params.density, params.n_particles,
+                               params.dt / 40, params.potential)
     new = slot_step.make_slot_advance(params, ens, eng,
                                       compensated=compensated, hilo=hilo,
                                       force_dtype=force_dtype)
     kw = dict(compensated=compensated, hilo=hilo, force_dtype=force_dtype)
+    old_step = (_old_brownian_step if isinstance(ens, mt.Brownian)
+                else _old_slot_step)
     old = slot_step.SlotAdvance(
-        _old_slot_step(params, ens, eng, observables=False, **kw),
-        _old_slot_step(params, ens, eng, observables=True, **kw),
+        old_step(params, ens, eng, observables=False, **kw),
+        old_step(params, ens, eng, observables=True, **kw),
         eng, ens, True, False)
     runs = {}
     for name, advance in (("new", new), ("old", old)):
@@ -260,11 +307,17 @@ def test_in_place_route_equals_the_old_composition(route):
             step = s.step
             s = advance(s, k)
             assert s.step == step + k
-            rows.append(torch.stack([s.energy, s.virial, s.temperature]))
+            rows.append(torch.stack([s.energy, s.virial, s.temperature,
+                                     s.virial_accum,
+                                     s.nprom.to(s.virial_accum.dtype)]))
         runs[name] = (s, torch.stack(rows), advance.rebuild_steps())
     (sn, rn, bn), (so, ro, bo) = runs["new"], runs["old"]
     assert bn == bo and len(bn) >= 1, (bn, bo)
     assert torch.equal(rn, ro)
     for field in ("positions", "velocities", "forces", "pos_comp",
-                  "vel_comp", "images", "ids", "temperature", "energy"):
+                  "vel_comp", "images", "ids", "temperature", "energy",
+                  "virial_accum", "nprom"):
         assert torch.equal(getattr(sn, field), getattr(so, field)), field
+    assert bool(torch.isfinite(sn.positions).all())
+    if isinstance(ens, mt.Brownian):
+        assert int(sn.nprom) == 3        # steps 0, 10 and 20 sampled
