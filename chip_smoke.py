@@ -152,7 +152,19 @@
    kernel bit for bit (into new tensors and in place, the step counter,
    the virial's sample, the temperature), each timed by a graph of 100
    in-place calls beside the composition timed the same way, the launch
-   floor and its bound (the bytes it moves).
+   floor and its bound (the bytes it moves). Particle phase: the
+   particle-order step's kernels at 65,536 (``verlet_update.cu``
+   ``kick_drift_wrap_kernel`` and ``brownian_rows_kernel``,
+   ``philox_draws.cu`` ``rebuild_rows_kernel``) against their plain
+   versions on the card bit for bit, two launches alike: kick-drift-wrap
+   on the bench's lattice (f32, f64, compensated and not, the hi/lo low
+   word, into new tensors and in place), in the tilted box and the 2D
+   start; the Brownian move on the Brownian start (f32, f64, a device
+   counter and a host step); the drift test by the cell (cubic, tilted)
+   and by the box lengths on displacements of 0.98-1.02 skin/2, a row at
+   a time and all at once; each timed by a graph of 100 in-place calls
+   beside its plain version timed the same way, the launch floor and its
+   bound.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -245,11 +257,17 @@
    NVT steps draw there; ``bussi_draw`` is not launched) and tests
    ``rebuild_flag`` once; each Brownian step in slots runs its update,
    the noise drawn inside, as one ``brownian_update`` launch (no
-   ``uniform_noise``; the Brownian steps on ``PlaneEngine`` draw through
-   ``uniform_noise``); each MD slot step runs its Verlet chain through
+   ``uniform_noise``, which no step launches since the particle-order
+   Brownian step draws inside its move too; its record rides on
+   ``brownian_rows``' entry); each MD slot step runs its Verlet chain through
    ``verlet_update``: kick-drift and kick once a step, the rescale once an
-   NVT step (none on the Brownian, B2 and list paths). On the card the slot
-   route runs captured: each step
+   NVT step (none on the Brownian path in slots). Each particle-order step
+   (the B2, list and Brownian paths) runs captured, one graph launch a
+   step (``ParticleAdvance.graph_steps``): an MD step ``kick_drift_wrap``,
+   ``rebuild_flag_rows``, the kick and NVT's rescale; a Brownian step
+   ``rebuild_flag_rows`` and ``brownian_rows`` (no ``uniform_noise``); so
+   do the examples' steps at their published sizes (the naive engine, no
+   drift test). On the card the slot route runs captured: each step
    one CUDA-graph launch, the drift test setting the handle of the
    conditional node that holds the rebuild; the counts a capture recorded
    are added at every replay.
@@ -275,6 +293,18 @@
    programmatic edge, its graph's only one, and a captured Brownian step
    holds at most 5 nodes (the drift test, the IF node, B1, the update),
    no copy and no memset, or the run fails.
+   Particle-order phase: ``PlaneEngine`` (300 NVT steps uncompensated,
+   then 200 NVE on the hi/lo sweep), the list (300 NVT, 200 NVE), Brownian
+   on ``PlaneEngine`` (200 steps) and the cell grid with
+   ``compensated=False`` (300 NVT), each through ``run_simulation`` from
+   one start on the eager particle advance (``graph=False``) and the
+   captured one: positions, velocities, images, forces, energy, virial,
+   every thermo row and the rebuild steps bit for bit, steps/s of both;
+   each captured step's nodes (one drift test, one IF node, one
+   kick-drift-wrap or Brownian move, no noise kernel); then one segment of
+   each route and ensemble profiled on each advance (host ms, busy ms,
+   idle share, launches, graph launches and host reads a step: none in a
+   captured segment, or the run fails).
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3154,19 +3184,39 @@ EXAMPLE_KERNELS = {"01_pseudohs_nvt_nve": ("cell_sweep", "cell_sweep_hilo"),
                    "05_sharded_multichip": ("cell_sweep_slab",)}
 
 
+# The kernels of the particle-order step besides the draws' (the naive
+# engine's steps at the examples' published sizes launch these).
+PARTICLE_CHAIN = ("verlet_kick", "verlet_rescale", "kick_drift_wrap",
+                  "brownian_rows", "rebuild_flag_rows")
+
+
 def examples_phase(mt, workdir):
     """Every example at both sizes (see EXAMPLE_NAMES), on the one-rank
     NCCL group formed by the caller (example 05's default group). A failed
     example, file or check is a failure; so is a run at N_BENCH that did
     not launch its kernels, or one at the published N of 01-04 that
     launched a pair kernel or took another engine than the naive one."""
+    from mdtpu_torch.integrate.step import ParticleAdvance
     runs, failures = [], []
     t = time.perf_counter()
     for size in ("published", "large"):
         for name in EXAMPLE_NAMES:
+            before = (ParticleAdvance.steps, ParticleAdvance.graph_steps)
             rec, fails = example_run(mt, name, size, workdir)
             runs.append(rec)
             failures += fails
+            # Particle-order steps (01, 02, 04 and 03's user potential at
+            # their published sizes, on the naive engine) run captured,
+            # one graph launch a step, but for the user potential's (no
+            # kernel functor: eager by design).
+            steps = ParticleAdvance.steps - before[0]
+            graph = ParticleAdvance.graph_steps - before[1]
+            rec["particle_steps"], rec["particle_graph_steps"] = steps, graph
+            want = 0 if name.startswith("03") else steps
+            if graph != want or (size == "published"
+                                 and not name.startswith("05") and not steps):
+                failures.append(f"{name} {size}: {graph} of {steps} "
+                                f"particle-order steps captured, not {want}")
             n = rec["launches"]
             if size == "large" or name.startswith("05"):
                 missing = [k for k in EXAMPLE_KERNELS[name]
@@ -3175,15 +3225,19 @@ def examples_phase(mt, workdir):
                     failures.append(f"{name} {size}: no {missing} launch "
                                     f"({n})")
             else:
-                # The naive engine launches no pair kernel; its steps draw
-                # through the draws' kernels.
+                # The naive engine launches no pair kernel; its steps run
+                # the particle-order chain and draw through the draws'
+                # kernels.
                 engines = {leg["engine"] for leg in rec["legs"]}
-                pair = {k: v for k, v in n.items() if k not in DRAWS_REPLACE}
+                pair = {k: v for k, v in n.items() if k not in DRAWS_REPLACE
+                        and k not in PARTICLE_CHAIN}
                 if pair or engines != {"NaivePairEngine"}:
                     failures.append(f"{name} {size}: engines {engines}, "
                                     f"launches {n}")
     return {"path": "examples", "s": time.perf_counter() - t,
-            "runs": [{k: r[k] for k in ("example", "size", "s")}
+            "runs": [{k: r[k] for k in ("example", "size", "s",
+                                         "particle_steps",
+                                         "particle_graph_steps")}
                      for r in runs]}, failures
 
 
@@ -3926,6 +3980,389 @@ def brownian_update_check(mt):
     return results, failures
 
 
+PARTICLE_REPLACES = {
+    "kick_drift_wrap": "mdtpu/integrate/step.py:160",
+    "brownian_rows": "mdtpu/integrate/step.py:233",
+    "rebuild_flag_rows": "mdtpu/integrate/step.py:52",
+}
+PARTICLE_COVERS = {
+    "kick_drift_wrap": "mdtpu/integrate/step.py:160-169 make_md_step's "
+                       "half-kick, drift and wrap with mdtpu/core/box.py"
+                       ":66-103 wrap_positions[_compensated] (XLA, fused "
+                       "into the segment's fori_loop; no pl.pallas_call)",
+    "brownian_rows": "mdtpu/integrate/step.py:233-246 make_brownian_step's "
+                     "noise, move, wrap and virial sample (XLA, fused "
+                     "into the segment's fori_loop; no pl.pallas_call)",
+    "rebuild_flag_rows": "mdtpu/integrate/step.py:52-68 engine_forces' "
+                         "drift test and lax.cond with mdtpu/ops/"
+                         "cell_grid.py:522 and mdtpu/ops/neighbor_list.py"
+                         ":212 needs_rebuild (XLA)",
+}
+# Operations a particle-row value, by hand count of csrc/verlet_update.cu
+# (d = 3): the kick and the drift (two products, two Kahan adds of four),
+# the wrap's fractional product row (2d - 1), floor, the crossing's
+# product row (2d - 1) and its Kahan add (4), the image add: 28. The
+# Brownian move: the drift and noise products and their sum, the Kahan
+# add, the noise's scaling, the wrap: 25, and a Philox block for each
+# block a particle's values touch. The drift test: a subtraction, the
+# minimum image (cell: two product rows of 2d - 1 and a rint and
+# subtraction; lengths: a division, rint, product, subtraction), a square
+# and an add: 15 (cell), 7 (lengths).
+OPS_KDW_VALUE, OPS_BROWNIAN_ROW_VALUE = 28, 25
+OPS_FLAG_ROW_VALUE = {"cell": 15, "lengths": 7}
+
+
+def _particle_rows(state, dtype):
+    """f, v, vc, x, xc, images, cell, cell_inv of a particle-order state
+    on the card, cast to ``dtype``: forces, velocities and compensations
+    drawn from a seed, and the positions shifted by up to 0.75 along each
+    axis, so the wrap folds those it takes across a face."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = state.positions.shape
+    f = torch.randn(shape, device="cuda", generator=g) * 30.0
+    v = torch.randn(shape, device="cuda", generator=g) * 3.0
+    vc = torch.randn(shape, device="cuda", generator=g) * 1e-8
+    xc = torch.randn(shape, device="cuda", generator=g) * 1e-7
+    shift = (torch.rand(shape, device="cuda", generator=g) - 0.5) * 1.5
+    x = state.positions.double() + shift
+    return ([t.to(dtype) for t in (f, v, vc, x, xc)]
+            + [state.images.clone(), state.unitcell.to(dtype),
+               state.unitcell_inv.to(dtype)])
+
+
+def particle_check(mt):
+    """The particle-order step's kernels (``verlet_update.kick_drift_wrap``
+    and ``brownian_rows``, ``philox_draws.rebuild_flag_rows``) on the card
+    at 65,536 particles against their plain versions on the card's
+    tensors (the torch compositions), bit for bit, and two launches alike:
+    the bench's lattice (cubic, f32 and f64, compensated and not, the
+    hi/lo low word, into new tensors and in place), the tilted box and the
+    2D start (f32); the Brownian move on the Brownian path's start (f32,
+    f64; a device counter and a host step); the drift test by the cell
+    (cubic, tilted) and by the box lengths on displacements around skin/2,
+    a row at a time and all at once. Each timed by :func:`many_ms` (a
+    graph of ``MANY_CALLS`` in-place calls) beside its plain version timed
+    the same way, the launch floor, and its bound from this run's inputs
+    (the bytes it must move, or its operations)."""
+    import types
+
+    from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.ops import philox_draws as draws
+    failures, results, same = [], {}, True
+    bench, half, dt = lattice_start(), 0.005, 0.01
+    starts = {"bench": bench, "tilted": state_tilted(mt, torch.float32),
+              "2d": state_2d(mt, torch.float32)}
+
+    def kdw_same(rows, comp):
+        f, v, vc, x, xc, img, c, ci = rows
+        want = vu.kick_drift_wrap_plain(f, v, vc, x, xc, img, c, ci, half,
+                                        dt, comp, comp)
+        lo = torch.empty_like(xc) if comp else None
+        got = vu.kick_drift_wrap(f, v, vc, x, xc, img, c, ci, half, dt, comp,
+                                 lo=lo)
+        again = vu.kick_drift_wrap(f, v, vc, x, xc, img, c, ci, half, dt,
+                                   comp)
+        ok = all(torch.equal(a, b) and torch.equal(a, r)
+                 for a, b, r in zip(got, want[:5], again))
+        ok &= lo is None or torch.equal(lo, want[5])
+        ok &= not torch.equal(want[4], img)          # some were folded
+        vu.kick_drift_wrap(f, v, vc, x, xc, img, c, ci, half, dt, comp,
+                           out=(v, vc, x, xc, img))
+        return ok and all(torch.equal(a, b) for a, b in zip(
+            (v, vc, x, xc, img), want[:5]))
+
+    for name, st in starts.items():
+        for dtype in ((torch.float32, torch.float64) if name == "bench"
+                      else (torch.float32,)):
+            for comp in (True, False):
+                same &= kdw_same(_particle_rows(st, dtype), comp)
+    if not same:
+        failures.append("kick_drift_wrap differs from its plain version")
+
+    bst = brownian_state()
+    b_same = True
+    for dtype in (torch.float32, torch.float64):
+        coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+        f, _, _, x, xc, img, c, ci = _particle_rows(bst, dtype)
+        for comp, step in ((True, torch.tensor(123450, device="cuda")),
+                           (False, 123457)):
+            st = types.SimpleNamespace(
+                positions=x.clone(), pos_comp=xc.clone(), images=img.clone(),
+                unitcell=c, unitcell_inv=ci, seed=3, step=step, dtype=dtype,
+                device=x.device,
+                virial_accum=torch.tensor(2.5, dtype=dtype, device="cuda"),
+                nprom=torch.tensor(4, device="cuda"),
+                temperature=torch.tensor(0.0, dtype=dtype, device="cuda"))
+            w = torch.tensor(-1234.5, dtype=dtype, device="cuda")
+            want = vu.brownian_rows_plain(f, w, st, *coeffs, comp)
+            got = vu.brownian_rows(f, w, st, *coeffs, comp)
+            again = vu.brownian_rows(f, w, st, *coeffs, comp)
+            b_same &= all(torch.equal(a, b) and torch.equal(a, r) for a, b, r
+                          in zip(got[:3] + got[4:], want,
+                                 again[:3] + again[4:]))
+            b_same &= int(got[3]) == int(step) + 1 == int(again[3])
+    if not b_same:
+        failures.append("brownian_rows differs from its plain version")
+
+    # The drift test: displacements of length 0.98-1.02 skin/2 from
+    # references at the box's faces too, each row alone (256 of them) and
+    # all rows at once with none past it and with one.
+    flag_same, skin, forms = True, 0.3, {}
+    for name, st in (("cell", bench), ("cell_tilted", starts["tilted"]),
+                     ("lengths", bench)):
+        g = torch.Generator(device="cuda").manual_seed(23)
+        ref = st.positions.contiguous()
+        u = torch.randn(ref.shape, device="cuda", generator=g)
+        u = u / u.norm(dim=1, keepdim=True)
+        ratio = 0.98 + 0.04 * torch.rand((ref.shape[0], 1), device="cuda",
+                                         generator=g)
+        pos = ref + u * ratio * 0.5 * skin
+        box = (dict(lengths=torch.diagonal(st.unitcell).contiguous())
+               if name == "lengths" else
+               dict(cell=st.unitcell, cell_inv=st.unitcell_inv))
+        plain_box = (box.get("cell"), box.get("cell_inv"), box.get("lengths"))
+        for i in range(0, ref.shape[0], ref.shape[0] // 256):
+            a = draws.rebuild_flag_rows(pos[i:i + 1], ref[i:i + 1], skin,
+                                        **box)
+            b = draws.rebuild_flag_rows_plain(pos[i:i + 1], ref[i:i + 1],
+                                              skin, *plain_box)
+            flag_same &= bool(a) == bool(b)
+        inside = (ref + (pos - ref) * 0.5).contiguous()
+        moved = inside.clone()
+        moved[7] = ref[7] + 0.2
+        for rows, want in ((inside, False), (moved, True)):
+            a = draws.rebuild_flag_rows(rows, ref, skin, **box)
+            again = draws.rebuild_flag_rows(rows, ref, skin, **box)
+            b = draws.rebuild_flag_rows_plain(rows, ref, skin, *plain_box)
+            flag_same &= bool(a) == bool(b) == bool(again) == want
+        forms[name] = (inside, ref, box, plain_box)
+    if not flag_same:
+        failures.append("rebuild_flag_rows differs from its plain version")
+
+    floor = launch_floor_ms()
+    n = N_BENCH * 3
+
+    def entry(kernel, plain, nbytes, ops, dtype, extra):
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b = max(b_bytes, ops / PEAK_OPS[dtype] * 1e3)
+        return {"ms": many_ms(kernel), "plain_ms": many_ms(plain),
+                "plain_timing": "a graph of the composition's calls, as ms",
+                "bound_ms": b, "bound_by": "bytes" if b == b_bytes
+                else "operations", "bound_bytes": nbytes,
+                "bound_meetable_ms": max(b, floor), "launch_floor_ms": floor,
+                "library_ms": None,
+                "library_call": "none, no single PyTorch call", **extra}
+
+    ok = {"kick_drift_wrap": same, "brownian_rows": b_same,
+          "rebuild_flag_rows": flag_same}
+    for dtype, hilo in ((torch.float32, False), (torch.float32, True),
+                        (torch.float64, False)):
+        f, v, vc, x, xc, img, c, ci = _particle_rows(bench, dtype)
+        size = torch.tensor([], dtype=dtype).element_size()
+        lo = torch.empty_like(xc) if hilo else None
+        key = "kick_drift_wrap" + ("_hilo" if hilo else "") + (
+            "" if dtype == torch.float32 else "_f64")
+        results[key] = entry(
+            lambda: vu.kick_drift_wrap(f, v, vc, x, xc, img, c, ci, half,
+                                       dt, True, out=(v, vc, x, xc, img),
+                                       lo=lo),
+            lambda: vu.kick_drift_wrap_plain(f, v, vc, x, xc, img, c, ci,
+                                             half, dt, True, hilo),
+            (9 + hilo) * size * n + 2 * 8 * n, OPS_KDW_VALUE * n, dtype,
+            {"shape": [N_BENCH, 3], "dtype": str(dtype)[6:]})
+    for dtype in (torch.float32, torch.float64):
+        coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+        f, _, _, x, xc, img, c, ci = _particle_rows(bst, dtype)
+        st = types.SimpleNamespace(
+            positions=x, pos_comp=xc, images=img, unitcell=c,
+            unitcell_inv=ci, seed=3,
+            step=torch.tensor(123450, device="cuda"), dtype=dtype,
+            device=x.device,
+            virial_accum=torch.tensor(2.5, dtype=dtype, device="cuda"),
+            nprom=torch.tensor(4, device="cuda"),
+            temperature=torch.tensor(0.0, dtype=dtype, device="cuda"))
+        w = torch.tensor(-1234.5, dtype=dtype, device="cuda")
+        size = torch.tensor([], dtype=dtype).element_size()
+        per = 16 // size
+        blocks = sum(-(-(3 * i + 3) // per) - (3 * i) // per
+                     for i in range(per))       # a period of `per` rows
+        key = "brownian_rows" + ("" if dtype == torch.float32 else "_f64")
+        results[key] = entry(
+            lambda: vu.brownian_rows(f, w, st, *coeffs, True, in_place=True),
+            lambda: vu.brownian_rows_plain(f, w, st, *coeffs, True),
+            5 * size * n + 2 * 8 * n,
+            OPS_BROWNIAN_ROW_VALUE * n
+            + N_BENCH // per * blocks * OPS_PHILOX_BLOCK, dtype,
+            {"shape": [N_BENCH, 3], "dtype": str(dtype)[6:],
+             "philox_blocks": N_BENCH // per * blocks,
+             "plain_timing": "a graph of the composition's calls (the "
+                             "noise kernel and the torch operations), "
+                             "as ms"})
+    for name, (inside, ref, box, plain_box) in forms.items():
+        out = torch.empty((), dtype=torch.bool, device="cuda")
+        kind = "lengths" if name == "lengths" else "cell"
+        results[f"rebuild_flag_rows_{name}"] = entry(
+            lambda: draws.rebuild_flag_rows(inside, ref, skin, out=out,
+                                            **box),
+            lambda: draws.rebuild_flag_rows_plain(inside, ref, skin,
+                                                  *plain_box),
+            2 * 4 * n, OPS_FLAG_ROW_VALUE[kind] * n, torch.float32,
+            {"shape": [N_BENCH, 3], "dtype": "float32", "form": name})
+    for key, rec in results.items():
+        base = next(k for k in ok if key.startswith(k))
+        rec["max_abs_err"] = 0.0 if ok[base] else float("inf")
+        log(json.dumps({"particle_kernel": key, **rec}))
+    return results, failures
+
+
+PARTICLE_ROUTES = {
+    # name: (start, params kind, engine, [(ensemble, steps, compensated)])
+    "b2": ("bench", "plane", [("nvt", 300, False), ("nve", 200, True)]),
+    "nl": ("bench", "neighbor", [("nvt", 300, True), ("nve", 200, True)]),
+    "brownian": ("brownian", "plane", [("brownian", 200, True)]),
+    "cellgrid_uncompensated": ("bench", "cellgrid", [("nvt", 300, False)]),
+}
+
+
+def particle_paths(mt, workdir):
+    """The particle-order route at 65,536 through ``run_simulation``, each
+    case from one start on the eager advance (``graph=False``, the flag
+    read on the host) and the captured one (the default): ``PlaneEngine``
+    (NVT uncompensated as the B2 path runs it, then NVE compensated on the
+    hi/lo sweep), the list (NVT, NVE), Brownian on ``PlaneEngine`` and the
+    cell grid with ``compensated=False``: positions, velocities, images,
+    forces, energy, virial, every thermo row and the rebuild steps bit for
+    bit, steps/s of both. Then one segment of each route and ensemble on
+    each advance through ``profile_torch_step.measure`` (host ms, device
+    busy ms and idle share, launches, graph launches and host reads a
+    step: none inside a captured segment, or the run fails), and the nodes
+    of each captured step, read from its graph."""
+    from mdtpu_torch.integrate import step as step_mod
+    from mdtpu_torch.ops.cell_grid import CellGridEngine
+    from mdtpu_torch.ops.experimental import PlaneEngine
+    from profile_torch_step import measure
+
+    lj = mt.LennardJones(r_cut=2.5)
+    params = {"bench": mt.Parameters(density=0.8, n_particles=N_BENCH,
+                                     dt=0.002, potential=lj),
+              "brownian": mt.Parameters(density=0.5, n_particles=N_BENCH,
+                                        dt=1e-5, potential=mt.PseudoHS())}
+    starts = {"bench": lattice_start, "brownian": brownian_state}
+    ensembles = {"nvt": mt.NVT(1.0, 0.4), "nve": mt.NVE(),
+                 "brownian": mt.Brownian(1.0)}
+
+    def engine_of(kind, st, pot, cutoff):
+        if kind == "plane":
+            return PlaneEngine.create(pot, cutoff, 0.3, st.unitcell, N_BENCH)
+        if kind == "neighbor":
+            return mt.select_engine(pot, cutoff, st, prefer="neighbor")
+        return CellGridEngine.create(pot, cutoff, 0.3, st.unitcell, N_BENCH)
+
+    failures, rec = [], {}
+    for name, (start, kind, legs) in PARTICLE_ROUTES.items():
+        prm = params[start]
+        cutoff = 2.5 if start == "bench" else 1.5
+        runs, census = {}, []
+        for route, graph in (("eager", False), ("graph", None)):
+            real, make, made = _recording_advance(
+                graph, step_mod, "make_particle_advance")
+            step_mod.make_particle_advance = make
+            try:
+                st, rows = starts[start](), []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, (ens, steps, comp) in enumerate(legs):
+                    out = os.path.join(workdir, f"particle_{name}_{route}_{i}")
+                    st = mt.run_simulation(
+                        st, prm, ensembles[ens], steps, THERMO_EVERY, out,
+                        engine=engine_of(kind, st, prm.potential, cutoff),
+                        compensated=comp, traj_frequency=steps)
+                    with open(os.path.join(out, "thermo.txt")) as f:
+                        rows.append(f.read())
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                step_mod.make_particle_advance = real
+            if any(a.graph is not bool(graph is None) for a in made):
+                failures.append(f"particle {name}: an advance took the "
+                                f"other route")
+            if graph is None:
+                census += [a.census for a in made]
+            runs[route] = (st, rows, [s for a in made
+                                      for s in a.rebuild_steps()],
+                           sum(s for _, s, _ in legs) / seconds)
+        (e_end, e_rows, e_reb, e_rate), (g_end, g_rows, g_reb, g_rate) = (
+            runs["eager"], runs["graph"])
+        same = {f: torch.equal(getattr(e_end, f), getattr(g_end, f))
+                for f in ("positions", "velocities", "images", "forces",
+                          "energy", "virial", "pos_comp")}
+        if not (all(same.values()) and e_rows == g_rows and e_reb == g_reb):
+            failures.append(f"particle {name}: the routes differ: {same}, "
+                            f"rows equal {e_rows == g_rows}, rebuilds "
+                            f"{e_reb} vs {g_reb}")
+        if not e_reb:
+            failures.append(f"particle {name}: no rebuild in the run")
+        moves = "brownian_rows" if start == "brownian" else "kick_drift_wrap"
+        for c in census:
+            nodes = c["step"]
+            if (nodes["conditionals"], nodes["rebuild_rows"],
+                    nodes[moves], nodes["rebuild_flag"],
+                    nodes["uniform_noise"], nodes["unreadable"]) != (
+                        1, 1, 1, 0, 0, 0):
+                failures.append(f"particle {name}: step nodes {nodes}")
+        rec[name] = {"steps": sum(s for _, s, _ in legs),
+                     "rebuilds": len(g_reb), "rebuild_steps": g_reb,
+                     "steps_per_s_eager": e_rate,
+                     "steps_per_s_graph": g_rate,
+                     "step_nodes": [{k: c["step"][k] for k in (
+                         "nodes", "kernels", "copies", "memsets",
+                         "conditionals")} for c in census]}
+        log(json.dumps({"particle_path": name, **rec[name]}))
+
+    # One segment of each route on each advance, in turns (graph, eager),
+    # from the melted bench fluid (the Brownian start as it is).
+    melted = as_dtype(melted_state(mt), torch.float32)
+    rec["segment_profile"] = {}
+    for name, (start, kind, legs) in PARTICLE_ROUTES.items():
+        prm = params[start]
+        cutoff = 2.5 if start == "bench" else 1.5
+        for ens, _, comp in legs:
+            st = melted if start == "bench" else brownian_state()
+            eng = engine_of(kind, st, prm.potential, cutoff)
+            nbrs = eng.allocate(st.positions, st.diameters, st.unitcell,
+                                st.unitcell_inv)
+            if ens != "brownian":
+                e, w, f, nbrs = eng.compute(st.positions, st.diameters,
+                                            st.unitcell, st.unitcell_inv,
+                                            nbrs)
+                st = st.replace(forces=f, energy=e, virial=w)
+            st = st.replace(nbrs=nbrs)
+            hilo = (kind != "neighbor" and ens == "nve" and comp)
+            profiles, nodes = {}, None
+            for route in ("graph", "eager"):
+                advance = step_mod.make_particle_advance(
+                    prm, ensembles[ens], eng, comp, hilo=hilo,
+                    graph=None if route == "graph" else False)
+                _, metrics = measure(advance, st, n_timed=100,
+                                     n_profiled=30)
+                metrics.pop("top_device_kernels")
+                metrics["rebuilds"] = int(advance.rebuilds)
+                profiles[route] = metrics
+                if route == "graph":
+                    nodes = advance.census.get("step")
+            key = f"{name}_{ens}" + ("_hilo" if hilo else "")
+            log(json.dumps({"particle_segment_profile": key,
+                            "nodes": nodes, **profiles}))
+            if (profiles["graph"]["host_syncs_per_step"]
+                    or profiles["graph"]["graph_launches_per_step"] != 1.0):
+                failures.append(f"particle {key}: host reads or graph "
+                                f"launches inside a captured segment "
+                                f"{profiles['graph']}")
+            rec["segment_profile"][key] = {"profiles": profiles,
+                                           "nodes": nodes}
+    return rec, failures
+
+
 def _gamma_attempts(draws, seed, step, dof):
     """The Marsaglia-Tsang attempts the draw at ``step`` took."""
     k0, k1 = draws.seed_key(seed)
@@ -3945,11 +4382,12 @@ def _gamma_attempts(draws, seed, step, dof):
     return draws.GAMMA_ATTEMPTS
 
 
-def _recording_advance(graph):
-    """A stand-in for ``slot_step.make_slot_advance`` with ``graph`` set,
-    and the advances it made."""
-    from mdtpu_torch.integrate import slot_step
-    real, made = slot_step.make_slot_advance, []
+def _recording_advance(graph, owner=None, name="make_slot_advance"):
+    """A stand-in for ``owner.name`` (``slot_step.make_slot_advance`` by
+    default) with ``graph`` set, and the advances it made."""
+    if owner is None:
+        from mdtpu_torch.integrate import slot_step as owner
+    real, made = getattr(owner, name), []
 
     def make(*args, **kwargs):
         advance = real(*args, graph=graph, **kwargs)
@@ -4147,9 +4585,10 @@ def lattice_start():
 
 
 def reset_counts():
-    """Every kernel wrapper's launch counts and the slot step's count to
-    0."""
+    """Every kernel wrapper's launch counts and the slot step's and the
+    particle advance's step counts to 0."""
     from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate import step as step_mod
     from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.integrate import verlet_update as vu
     from mdtpu_torch.ops import cell_pairs as cp
@@ -4158,6 +4597,8 @@ def reset_counts():
     from mdtpu_torch.ops import philox_draws as draws
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
+    from mdtpu_torch.utils import counters
+    counters.settle()
     vf.velocity_finish.launches = 0
     vu.reset_launches()
     cs.reset_launches()
@@ -4167,11 +4608,13 @@ def reset_counts():
     rdf.rdf_histogram.launches = rdf.rdf_histogram.cell_launches = 0
     nl.reset_launches()
     slot_step.make_slot_step.steps = 0
+    step_mod.ParticleAdvance.steps = step_mod.ParticleAdvance.graph_steps = 0
 
 
 def launch_counts():
     """Each wrapper's launches (total and lean, periodic and slab) since
-    the last :func:`reset_counts`."""
+    the last :func:`reset_counts` (those of captured rebuilds settled
+    first: one host read)."""
     from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.integrate import verlet_update as vu
     from mdtpu_torch.ops import cell_pairs as cp
@@ -4180,6 +4623,8 @@ def launch_counts():
     from mdtpu_torch.ops import philox_draws as draws
     from mdtpu_torch.ops import plane_sweep as ps
     from mdtpu_torch.ops import rdf
+    from mdtpu_torch.utils import counters
+    counters.settle()
     return {
         "cell_sweep": cs.cell_sweep.launches,
         "cell_sweep_lean": cs.cell_sweep.lean_launches,
@@ -4205,7 +4650,10 @@ def launch_counts():
         "verlet_kick_drift": vu.kick_drift.launches,
         "verlet_kick": vu.kick.launches,
         "verlet_rescale": vu.rescale.launches,
-        "brownian_update": vu.brownian_update.launches}
+        "brownian_update": vu.brownian_update.launches,
+        "kick_drift_wrap": vu.kick_drift_wrap.launches,
+        "brownian_rows": vu.brownian_rows.launches,
+        "rebuild_flag_rows": draws.rebuild_flag_rows.launches}
 
 
 def own_launches(n):
@@ -4238,11 +4686,15 @@ def own_launches(n):
         "verlet_kick_drift": n["verlet_kick_drift"],
         "verlet_kick": n["verlet_kick"],
         "verlet_rescale": n["verlet_rescale"],
-        "brownian_update": n["brownian_update"]}
+        "brownian_update": n["brownian_update"],
+        "kick_drift_wrap": n["kick_drift_wrap"],
+        "brownian_rows": n["brownian_rows"],
+        "rebuild_flag_rows": n["rebuild_flag_rows"]}
 
 
 def run_paths(mt, workdir):
     from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.integrate import step as step_mod
     from mdtpu_torch.io import native_writer
     from mdtpu_torch.ops.experimental import PlaneEngine
 
@@ -4254,6 +4706,8 @@ def run_paths(mt, workdir):
         rec, failures = fn()
         rec["launches"] = launch_counts()
         rec["slot_steps"] = slot_step.make_slot_step.steps
+        rec["particle_steps"] = step_mod.ParticleAdvance.steps
+        rec["particle_graph_steps"] = step_mod.ParticleAdvance.graph_steps
         rec["native_frames"] = native_writer.format_frame.calls - frames
         log(json.dumps(rec))
         return rec, failures
@@ -4418,7 +4872,6 @@ def run_paths(mt, workdir):
             or b1["launches"]["rebuild_flag"] < NVT_STEPS + 2 * NVE_STEPS
             or bds["launches"]["brownian_update"] != BROWNIAN_STEPS
             or bds["launches"]["uniform_noise"]
-            or bd["launches"]["uniform_noise"] < BROWNIAN_STEPS
             or bds["launches"]["rebuild_flag"] < BROWNIAN_STEPS):
         failures.append(f"b1/brownian: draw launches {b1['launches']} "
                         f"{bds['launches']} {bd['launches']}")
@@ -4428,17 +4881,44 @@ def run_paths(mt, workdir):
                             f"{rec['launches']}")
     # Every MD slot step runs the Verlet chain as the kernel's launches:
     # kick-drift and kick once a step, the rescale once an NVT step; the
-    # Brownian slot step and the particle-order paths none.
+    # Brownian slot step none; no slot path the particle rows' kernels.
     n = b1["launches"]
     if (n["verlet_kick_drift"] != steps or n["verlet_kick"] != steps
             or n["verlet_rescale"] != NVT_STEPS):
         failures.append(f"b1: verlet_update launches {n}")
     for rec in (b2, bd, bds, nlp):
-        if (rec["launches"]["verlet_kick_drift"]
-                or rec["launches"]["verlet_kick"]
-                or rec["launches"]["verlet_rescale"]):
-            failures.append(f"{rec['path']}: launched verlet_update "
+        if rec["launches"]["verlet_kick_drift"]:
+            failures.append(f"{rec['path']}: launched the slot kick-drift "
                             f"{rec['launches']}")
+    for rec in (b1, bds, b1_2d, b1_tilted, fire, resume):
+        n = rec["launches"]
+        if (n["kick_drift_wrap"] or n["brownian_rows"]
+                or n["rebuild_flag_rows"] or rec["particle_steps"]):
+            failures.append(f"{rec['path']}: took the particle-order step "
+                            f"{n}")
+    # Every particle-order step (B2, the list, Brownian on PlaneEngine)
+    # runs through the particle rows' kernels, one CUDA-graph launch a
+    # step: an MD step kick-drift-wrap, the drift test, the kick and NVT's
+    # rescale; a Brownian step the drift test and the move with its noise
+    # drawn inside (no noise kernel, no slot chain).
+    for rec in (b2, nlp):
+        n = rec["launches"]
+        if (n["kick_drift_wrap"] != steps or n["verlet_kick"] != steps
+                or n["verlet_rescale"] != NVT_STEPS
+                or n["rebuild_flag_rows"] != steps or n["brownian_rows"]
+                or n["velocity_finish"] != steps):
+            failures.append(f"{rec['path']}: particle-order launches {n}")
+    n = bd["launches"]
+    if (n["brownian_rows"] != BROWNIAN_STEPS or n["uniform_noise"]
+            or n["rebuild_flag_rows"] != BROWNIAN_STEPS
+            or n["kick_drift_wrap"] or n["verlet_kick"]):
+        failures.append(f"brownian: particle-order launches {n}")
+    for rec, want in ((b2, steps), (nlp, steps), (bd, BROWNIAN_STEPS)):
+        if not (rec["particle_steps"] == rec["particle_graph_steps"]
+                == want):
+            failures.append(f"{rec['path']}: {rec['particle_graph_steps']} "
+                            f"of {rec['particle_steps']} particle-order "
+                            f"steps captured, not {want}")
     if fire["launches"]["cell_sweep_lean"] != N_FIRE_ITERS + N_FIRE_DESCENT:
         failures.append(f"fire: launches {fire['launches']}")
     if pack["launches"]["cell_sweep_lean"] < 1:
@@ -4523,6 +5003,8 @@ def main():
     failures += verlet_failures
     brownian_results, brownian_failures = brownian_update_check(mt)
     failures += brownian_failures
+    particle_results, particle_failures = particle_check(mt)
+    failures += particle_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -4531,6 +5013,10 @@ def main():
         graph_rec, graph_failures = graph_paths(mt, workdir)
         failures += graph_failures
         log(f"graph phase: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        particle_rec, particle_path_failures = particle_paths(mt, workdir)
+        failures += particle_path_failures
+        log(f"particle-order phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -4740,7 +5226,6 @@ def main():
     nodes = graph_rec["segment_profile"]["nvt"]["nodes"]["lean"]
     floor = draws_results["launch_floor"]["ms"]
     for kname, path in (("velocity_finish", "b1"),
-                        ("uniform_noise", "brownian"),
                         ("rebuild_flag", "b1")):
         rec = draws_results[kname]
         extra = {k: v for k, v in rec.items() if k not in (
@@ -4749,10 +5234,7 @@ def main():
         extra["launch_floor_ms"] = floor
         extra["launch_floor_programmatic_ms"] = draws_results[
             "launch_floor"]["programmatic_ms"]
-        if kname != "uniform_noise":
-            extra["nodes_in_captured_nvt_step"] = nodes[kname]
-        else:
-            extra["launches_brownian_slot"] = by_path["brownian_slot"][kname]
+        extra["nodes_in_captured_nvt_step"] = nodes[kname]
         if kname == "velocity_finish":
             extra["draw_kernel"] = dict(
                 draws_results["bussi_draw"], name="bussi_draw",
@@ -4801,6 +5283,53 @@ def main():
     kernels["kernels"].append(entry(
         "brownian_update", VERLET_SOURCE, BROWNIAN_REPLACES,
         by_path["brownian_slot"]["brownian_update"], main_rec, extra))
+    # The particle-order step's kernels (XLA in the JAX package, no
+    # pl.pallas_call): the bench's 65,536 particles at f32 (the Brownian
+    # path's start for the move), the other cases beside it, the launches
+    # on the B2 path (the move's on the Brownian path), the list path's
+    # and the nodes of the captured steps beside.
+    for kname, main_key, path in (
+            ("kick_drift_wrap", "kick_drift_wrap", "b2"),
+            ("brownian_rows", "brownian_rows", "brownian"),
+            ("rebuild_flag_rows", "rebuild_flag_rows_cell", "b2")):
+        main_rec = particle_results[main_key]
+        extra = {k: v for k, v in main_rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        if kname == "brownian_rows":
+            # The noise kernel, which no step launches since the Brownian
+            # moves draw inside (the plain versions' noise on the card),
+            # rides on the move's entry, as bussi_draw on the finish's.
+            extra["noise_kernel"] = {
+                **draws_results["uniform_noise"], "name": "uniform_noise",
+                "launches": by_path["brownian"]["uniform_noise"],
+                "source": DRAWS_SOURCE,
+                "replaces": DRAWS_REPLACE["uniform_noise"],
+                "covers": DRAWS_COVER["uniform_noise"]}
+        extra.update(covers=PARTICLE_COVERS[kname],
+                     kernel=f"{kname.replace('_flag', '')}_kernel",
+                     launches_nl=by_path["nl"][kname],
+                     launches_brownian=by_path["brownian"][kname],
+                     nodes_in_captured_steps={
+                         k: r["step_nodes"] for k, r in particle_rec.items()
+                         if k != "segment_profile"})
+        for key, r in particle_results.items():
+            if key.startswith(kname) and r is not main_rec:
+                extra[key] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "shape", "dtype")}
+        kernels["kernels"].append(entry(
+            kname, DRAWS_SOURCE if kname == "rebuild_flag_rows"
+            else VERLET_SOURCE, PARTICLE_REPLACES[kname],
+            by_path[path][kname], main_rec, extra))
+    log(json.dumps({"particle_segment_profile": {
+        k: {route: {m: p[m] for m in (
+            "ms_per_step_host_clock", "device_busy_ms_per_step",
+            "device_idle_share_timed", "kernel_launches_per_step",
+            "graph_launches_per_step", "host_syncs_per_step")}
+            for route, p in r["profiles"].items()}
+        for k, r in particle_rec["segment_profile"].items()},
+        "particle_step_nodes": {k: r["nodes"] for k, r in
+                                particle_rec["segment_profile"].items()}}))
     log(json.dumps({"launch_floor_ms": floor, "calls_a_graph": MANY_CALLS,
                     "graph_step_nodes": {
                         e: r["nodes"] for e, r in

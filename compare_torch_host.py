@@ -10,7 +10,11 @@ Each tree runs, in the order parent, change, change, parent, and each in
 processes of its own started in that tree (so each builds and loads its own
 kernels): this tree's ``profile_torch_step.py --tree <tree>`` (one script,
 so both trees are measured alike) with ``--engine cellgrid`` (the cell
-grid in particle order), ``--engine plane`` (``PlaneEngine``), ``--engine
+grid in particle order), ``--engine plane`` (``PlaneEngine``) and
+``--engine neighbor`` (the list), each on the particle advance captured
+and, ``--eager``, launched step by step (a tree without the advance steps
+its ``make_step`` loop both times), ``--engine plane --brownian`` (the
+Brownian step on ``PlaneEngine``, both ways), ``--engine
 slot`` (the slot advance ``run_simulation`` runs on the cell grid, captured;
 an NVT and an NVE segment), the same with ``--plain-launch`` (the small
 kernels in plain stream order where the tree launches them as
@@ -18,11 +22,14 @@ programmatic dependents), ``--engine slot --eager`` (the same launched
 step by step) and ``--engine slot --brownian`` (the Brownian slot step,
 captured and, ``--eager``, launched step by step, and with
 ``--plain-launch``), then the
-``b1`` and ``b2`` paths (600 NVT + 500 NVE + 500 force-shifted NVE at the
-bench configuration, in slots and on ``PlaneEngine``) and the Brownian
-paths on ``PlaneEngine`` and in slots of its ``chip_smoke.py``. ``--only
-slot``: the slot step captured and eager, the Brownian slot step, and the
-``b1`` and Brownian-in-slots paths alone (~6 min). The host's clock moves
+``b1``, ``b2`` and ``nl`` paths (600 NVT + 500 NVE + 500 force-shifted
+NVE at the bench configuration, in slots, on ``PlaneEngine`` and on the
+list) and the Brownian paths on ``PlaneEngine`` and in slots of its
+``chip_smoke.py``. ``--only slot``: the slot step captured and eager, the
+Brownian slot step, and the ``b1`` and Brownian-in-slots paths alone (~6
+min); ``--only particle``: the particle-order steps (cell grid,
+``PlaneEngine``, list, Brownian on ``PlaneEngine``; captured and eager)
+and the ``b2``, ``nl`` and Brownian paths alone. The host's clock moves
 with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
@@ -52,7 +59,14 @@ GAP_KEYS = tuple(f"{k}{s}" for k in ("velocity_finish", "uniform_noise",
                                       "brownian_update")
                  for s in ("_us", "_gap_us", "_after_us"))
 ENGINES = {"cellgrid": ("--engine", "cellgrid"),
+           "cellgrid_eager": ("--engine", "cellgrid", "--eager"),
            "plane": ("--engine", "plane"),
+           "plane_eager": ("--engine", "plane", "--eager"),
+           "neighbor": ("--engine", "neighbor"),
+           "neighbor_eager": ("--engine", "neighbor", "--eager"),
+           "plane_brownian": ("--engine", "plane", "--brownian"),
+           "plane_brownian_eager": ("--engine", "plane", "--brownian",
+                                    "--eager"),
            "slot": ("--engine", "slot"),
            "slot_plain_launch": ("--engine", "slot", "--plain-launch"),
            "slot_eager": ("--engine", "slot", "--eager"),
@@ -63,9 +77,12 @@ ENGINES = {"cellgrid": ("--engine", "cellgrid"),
                                           "--plain-launch")}
 
 
-SLOT_ENGINES = ("slot", "slot_eager", "slot_brownian",
-                "slot_brownian_eager")
-PATHS = ("b1", "b2", "brownian", "brownian_slot")
+ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
+                   "slot_brownian_eager"), ("b1", "brownian_slot")),
+        "particle": (("cellgrid", "cellgrid_eager", "plane", "plane_eager",
+                      "neighbor", "neighbor_eager", "plane_brownian",
+                      "plane_brownian_eager"), ("b2", "nl", "brownian"))}
+PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot")
 
 
 def paths_worker(tree, only=PATHS):
@@ -86,6 +103,11 @@ def paths_worker(tree, only=PATHS):
                     lambda st, pot: PlaneEngine.create(
                         pot, 2.5, 0.3, st.unitcell, chip_smoke.N_BENCH),
                     False)),
+                ("nl", lambda: chip_smoke.md_path(
+                    mt, workdir, "nl",
+                    lambda st, pot: mt.select_engine(pot, 2.5, st,
+                                                     prefer="neighbor"),
+                    True)),
                 ("brownian", lambda: chip_smoke.brownian_path(mt, workdir)),
                 ("brownian_slot", lambda: chip_smoke.brownian_path(
                     mt, workdir, slots=True))):
@@ -128,9 +150,10 @@ def main():
     parser.add_argument("--paths-worker", help=argparse.SUPPRESS)
     parser.add_argument("--paths", default=",".join(PATHS),
                         help=argparse.SUPPRESS)
-    parser.add_argument("--only", choices=("slot",),
-                        help="the slot steps and the b1 and Brownian slot "
-                        "paths alone")
+    parser.add_argument("--only", choices=sorted(ONLY),
+                        help="slot: the slot steps and the b1 and Brownian "
+                        "slot paths alone; particle: the particle-order "
+                        "steps and the b2, list and Brownian paths alone")
     args = parser.parse_args()
     if args.paths_worker:
         return paths_worker(args.paths_worker, args.paths.split(","))
@@ -144,7 +167,7 @@ def main():
         tree = trees[label]
         rec = {"tree": label, "run": run}
         for engine, flags in ENGINES.items():
-            if args.only and engine not in SLOT_ENGINES:
+            if args.only and engine not in ONLY[args.only][0]:
                 continue
             prof = last_json([sys.executable,
                               os.path.join(HERE, "profile_torch_step.py"),
@@ -155,8 +178,8 @@ def main():
                                                  prof.get("launch"))
         rec.update(last_json([sys.executable, os.path.abspath(__file__),
                               "--paths-worker", tree, "--paths",
-                              "b1,brownian_slot" if args.only
-                              else ",".join(PATHS)],
+                              ",".join(ONLY[args.only][1] if args.only
+                                       else PATHS)],
                              tree))
         print(json.dumps(rec), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -116,6 +116,17 @@
 //     and, inside a captured step, sets the IF node's handle itself. One
 //     node a step, where a memset, the test and a kernel copying the byte
 //     into the handle took three.
+//   * rebuild_rows ports the particle-order drift test the JAX package's
+//     step makes inside its fori_loop (mdtpu/integrate/step.py:52-68,
+//     mdtpu/ops/cell_grid.py needs_rebuild with core/box.py minimum_image,
+//     mdtpu/ops/neighbor_list.py needs_rebuild): the displacement of each
+//     (N, d) particle row from its reference, minimum-imaged by the cell
+//     matrix (the cell grid, PlaneEngine) or by the box lengths (the
+//     list), d2 in component order, flag = any(d2 > thr); a thread a
+//     particle, the block's OR, the ticket, the flag byte and the IF
+//     node's handle as rebuild_flag. Bound: the two (N, d) reads (1.6 MB
+//     at the bench's 65,536 float32 particles, 0.47 us), below the launch
+//     floor.
 //   * philox_words: the generator's words for given counters and keys,
 //     for the known-answer checks on the card. empty: a kernel that does
 //     nothing (launched as a programmatic dependent, it only waits), whose
@@ -394,6 +405,79 @@ __global__ void __launch_bounds__(kThreads)
   __threadfence();
   const bool hit = atomicExch(&g_test_any, 0u) != 0u;
   g_test_ticket = 0;
+  *flag = hit;
+  if (set_handle) cudaGraphSetConditional(handle, hit ? 1u : 0u);
+}
+
+// The drift test of (n, D) particle rows, a particle a thread
+// (grid-stride): dr = pos - ref, minimum-imaged, d2 = sum_k dr_k^2 in
+// component order, flag = any(d2 > thr). CELL: by the cell matrix, as
+// core/box.py minimum_image (frac_k = sum_j dr_j ci[k][j], frac -= rint(frac),
+// dr_k = sum_j frac_j c[k][j], j ascending, each product rounded), the cell
+// grid's and PlaneEngine's; else by the box lengths L (m: unused), dr_k -=
+// L_k rint(dr_k / L_k) with a true division, the neighbour list's. The
+// block's OR, the ticket, the flag and the handle as rebuild_flag_kernel.
+__device__ unsigned int g_rows_any = 0;
+__device__ unsigned int g_rows_ticket = 0;
+
+template <typename T, int D, bool CELL>
+__global__ void __launch_bounds__(kThreads)
+    rebuild_rows_kernel(const T* __restrict__ pos, const T* __restrict__ ref,
+                        const T* __restrict__ m, const T* __restrict__ mi,
+                        int64_t n, T thr, bool* flag,
+                        cudaGraphConditionalHandle handle, int set_handle) {
+  T c[D][D], ci[D][D];
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      c[k][j] = CELL ? m[k * D + j] : T(0);
+      ci[k][j] = CELL ? mi[k * D + j] : T(0);
+    }
+  T len[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) len[k] = CELL ? T(0) : mi[k];
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  bool any = false;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    T dr[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) dr[k] = pos[i * D + k] - ref[i * D + k];
+    if (CELL) {
+      T frac[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        T s = dr[0] * ci[k][0];
+#pragma unroll
+        for (int j = 1; j < D; ++j) s = s + dr[j] * ci[k][j];
+        frac[k] = s - rint(s);
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        T s = frac[0] * c[k][0];
+#pragma unroll
+        for (int j = 1; j < D; ++j) s = s + frac[j] * c[k][j];
+        dr[k] = s;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        dr[k] = dr[k] - len[k] * rint(dr[k] / len[k]);
+    }
+    T d2 = dr[0] * dr[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) d2 = d2 + dr[k] * dr[k];
+    any = any || d2 > thr;
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x != 0) return;
+  if (any) atomicOr(&g_rows_any, 1u);
+  __threadfence();  // the OR is visible before the ticket
+  if (atomicAdd(&g_rows_ticket, 1u) != gridDim.x - 1) return;
+  __threadfence();
+  const bool hit = atomicExch(&g_rows_any, 0u) != 0u;
+  g_rows_ticket = 0;
   *flag = hit;
   if (set_handle) cudaGraphSetConditional(handle, hit ? 1u : 0u);
 }
@@ -714,6 +798,40 @@ int rebuild_flag(const T* pos, const T* ref, int dim, long long n,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_rebuild_rows(bool cell, int grid, cudaStream_t s, const T* pos,
+                        const T* ref, const T* m, const T* mi, int64_t n,
+                        T thr, bool* flag, cudaGraphConditionalHandle h,
+                        int set_handle) {
+  if (cell)
+    rebuild_rows_kernel<T, D, true><<<grid, kThreads, 0, s>>>(
+        pos, ref, m, mi, n, thr, flag, h, set_handle);
+  else
+    rebuild_rows_kernel<T, D, false><<<grid, kThreads, 0, s>>>(
+        pos, ref, m, mi, n, thr, flag, h, set_handle);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int rebuild_rows(const T* pos, const T* ref, const T* m, const T* mi,
+                 int dim, long long n, double thr, bool* flag,
+                 unsigned long long handle, int set_handle, void* stream) {
+  const bool cell = m != nullptr;
+  if (!pos || !ref || !mi || !flag || dim < 2 || dim > 3 || n < 0)
+    return kErrArgs;
+  const int grid = grid_for(n, kTestMaxBlocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaGraphConditionalHandle h =
+      static_cast<cudaGraphConditionalHandle>(handle);
+  const T t = static_cast<T>(thr);
+  return dim == 2 ? launch_rebuild_rows<T, 2>(cell, grid, s, pos, ref, m, mi,
+                                              (int64_t)n, t, flag, h,
+                                              set_handle)
+                  : launch_rebuild_rows<T, 3>(cell, grid, s, pos, ref, m, mi,
+                                              (int64_t)n, t, flag, h,
+                                              set_handle);
+}
+
 template <typename T, bool NVT, bool SUM>
 int launch_finish(bool kt, dim3 grid, dim3 block, cudaStream_t s, bool pdl,
                   const T* v, int64_t n, const T* kinetic,
@@ -846,6 +964,27 @@ int mdtpu_rebuild_flag_f64(const double* pos, const double* ref, int dim,
                            unsigned long long handle, int set_handle,
                            void* stream) {
   return rebuild_flag<double>(pos, ref, dim, n, thr, flag, handle,
+                              set_handle, stream);
+}
+
+// pos, ref: (n, dim) row-major on the device, dim 2 or 3; m: the
+// (dim, dim) cell and mi its inverse, row-major (the minimum image by the
+// cell), or m null and mi the (dim,) box lengths; flag, handle and
+// set_handle as mdtpu_rebuild_flag_f32's.
+int mdtpu_rebuild_rows_f32(const float* pos, const float* ref, const float* m,
+                           const float* mi, int dim, long long n, double thr,
+                           bool* flag, unsigned long long handle,
+                           int set_handle, void* stream) {
+  return rebuild_rows<float>(pos, ref, m, mi, dim, n, thr, flag, handle,
+                             set_handle, stream);
+}
+
+int mdtpu_rebuild_rows_f64(const double* pos, const double* ref,
+                           const double* m, const double* mi, int dim,
+                           long long n, double thr, bool* flag,
+                           unsigned long long handle, int set_handle,
+                           void* stream) {
+  return rebuild_rows<double>(pos, ref, m, mi, dim, n, thr, flag, handle,
                               set_handle, stream);
 }
 

@@ -77,6 +77,43 @@
 // comes after it. Bound: bytes, f, x, xc read and x, xc written (5 rows of
 // d * S values) and the occupancy: 16.1 MB at the Brownian slot path's
 // (3, 263,424) float32 slots, 4.8 us at 3.35 TB/s.
+//
+// The particle-order step (integrate/step.py make_md_step and
+// make_brownian_step on (N, d) rows: PlaneEngine, the neighbour list, the
+// naive engine and any run with compensated=False) takes two more kernels.
+// They replace no Pallas kernel: the JAX package's particle-order step
+// (mdtpu/integrate/step.py:160-169 make_md_step, :233-242
+// make_brownian_step) runs inside the segment's fori_loop, where XLA fuses
+// the half-kick, the drift and the periodic wrap (core/box.py:63-83), and
+// the Brownian noise and move, into the step. The port ran them as about
+// 36 torch launches a step (the wrap's _mm products, floor, the Kahan add,
+// the images' cast and add). Here:
+//
+//   * kick_drift_wrap_kernel: a thread a particle, since the wrap needs
+//     its d components: the half-kick and the drift (Kahan adds, or plain
+//     adds where not compensated), then wrap_positions_compensated
+//     (frac_k = sum_j x_j cell_inv[k][j] in j order, each product rounded,
+//     n = floor(frac), x, xc <- kahan(x, xc, -(sum_j n_j cell[k][j])),
+//     images += n) or wrap_positions (x_k = sum_j (frac_j - n_j)
+//     cell[k][j]), and for the hi/lo sweep lo = -xc after the wrap. Any
+//     cell, tilted included, read from the device. The kick after the
+//     sweep and NVT's rescale are the slot chain's kick and rescale, which
+//     take any contiguous shape.
+//   * brownian_rows_kernel: the Brownian move of a particle, its noise
+//     drawn inside with the bits of uniform_noise_kernel for element e = i
+//     d + k of the row-major (N, d) array (at d = 3 a particle's values
+//     straddle one or two Philox blocks; both are drawn where they do),
+//     dx = f drift + xi sigma through the Kahan add, the wrap as above, and
+//     the step's scalars written by the last block, as
+//     brownian_update_kernel writes them.
+// Each rounds every operation as the torch composition does (-fmad=false),
+// so each gives its bits. Bound: bytes, each array read and written once:
+// kick_drift_wrap reads f, v, vc, x, xc and images and writes v, vc, x, xc
+// and images (10.2 MB at the bench's 65,536 float32 particles, 3.0 us at
+// 3.35 TB/s; with lo 11.0 MB, 3.3 us); brownian_rows reads f, x, xc and
+// images and writes x, xc and images (7.1 MB, 2.1 us). Both launch in
+// plain stream order; a thread's loads of a row are three neighbouring
+// values, so a warp's loads of an array cover one contiguous run.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -470,6 +507,325 @@ int brownian_update(int compensated, long long n, long long slots, const T* f,
                                           stream_word, pdl, s);
 }
 
+// ------------------------------------------------ particle rows (N, D)
+
+// The periodic wrap of one particle's position (integrate/step.py with
+// core/box.py wrap_positions_compensated and wrap_positions), as the torch
+// composition computes it: frac_k = sum_j x_j ci[k][j] (j ascending, each
+// product rounded; core/box.py _mm of cell_inv.T), n = floor(frac), and
+// where COMP delta_k = -(sum_j n_j c[k][j]) through the Kahan add, else
+// x_k = sum_j (frac_j - n_j) c[k][j]; images += n. c, ci: the cell and its
+// inverse, row-major.
+template <typename T, int D, bool COMP>
+__device__ __forceinline__ void wrap(T (&x)[D], T (&xc)[D], int64_t (&img)[D],
+                                     const T (&c)[D][D], const T (&ci)[D][D]) {
+  T frac[D], n[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    T s = x[0] * ci[k][0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) s = s + x[j] * ci[k][j];
+    frac[k] = s;
+    n[k] = floor(s);
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (COMP) {
+      T s = n[0] * c[k][0];
+#pragma unroll
+      for (int j = 1; j < D; ++j) s = s + n[j] * c[k][j];
+      kahan(x[k], xc[k], -s);
+    } else {
+      T s = (frac[0] - n[0]) * c[k][0];
+#pragma unroll
+      for (int j = 1; j < D; ++j) s = s + (frac[j] - n[j]) * c[k][j];
+      x[k] = s;
+    }
+    img[k] = img[k] + (int64_t)n[k];
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void load_cell(const T* cell, const T* cell_inv,
+                                          T (&c)[D][D], T (&ci)[D][D]) {
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      c[k][j] = cell[k * D + j];
+      ci[k][j] = cell_inv[k * D + j];
+    }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* p, int64_t i, T (&r)[D]) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) r[k] = p[i * D + k];
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* p, int64_t i, const T (&r)[D]) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) p[i * D + k] = r[k];
+}
+
+template <typename T>
+struct RowsArgs {
+  const T* f;
+  const T* v;
+  const T* vc;
+  const T* x;
+  const T* xc;
+  const int64_t* img;
+  const T* cell;
+  const T* cell_inv;
+  T* v_out;
+  T* vc_out;
+  T* x_out;
+  T* xc_out;
+  int64_t* img_out;
+  T* lo_out;
+};
+
+// Kick, drift and wrap of n particles, a thread each (grid-stride): the
+// wrap needs all D components of a particle. v, vc <- kahan(v, vc, f
+// half); x, xc <- kahan(x, xc, v dt); the wrap; where LO, lo = -xc after
+// it. Not COMP: plain adds, vc and xc neither read nor written. Each
+// thread reads and writes its own particle only, so the outputs may be
+// the inputs.
+template <typename T, int D, bool COMP, bool LO>
+__global__ void __launch_bounds__(kThreads)
+    kick_drift_wrap_kernel(RowsArgs<T> a, int64_t n, T half, T dt) {
+  T c[D][D], ci[D][D];
+  load_cell<T, D>(a.cell, a.cell_inv, c, ci);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    T f[D], v[D], vc[D], x[D], xc[D];
+    int64_t img[D];
+    load_row<T, D>(a.f, i, f);
+    load_row<T, D>(a.v, i, v);
+    load_row<T, D>(a.x, i, x);
+    load_row<int64_t, D>(a.img, i, img);
+    if (COMP) {
+      load_row<T, D>(a.vc, i, vc);
+      load_row<T, D>(a.xc, i, xc);
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const T dv = f[k] * half;
+      if (COMP)
+        kahan(v[k], vc[k], dv);
+      else
+        v[k] = v[k] + dv;
+      const T dx = v[k] * dt;
+      if (COMP)
+        kahan(x[k], xc[k], dx);
+      else
+        x[k] = x[k] + dx;
+    }
+    wrap<T, D, COMP>(x, xc, img, c, ci);
+    store_row<T, D>(a.v_out, i, v);
+    store_row<T, D>(a.x_out, i, x);
+    store_row<int64_t, D>(a.img_out, i, img);
+    if (COMP) {
+      store_row<T, D>(a.vc_out, i, vc);
+      store_row<T, D>(a.xc_out, i, xc);
+    }
+    if (LO) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) xc[k] = -xc[k];
+      store_row<T, D>(a.lo_out, i, xc);
+    }
+  }
+}
+
+template <typename T, int D, bool COMP, bool LO>
+int launch_rows(const RowsArgs<T>& a, int64_t n, T half, T dt,
+                cudaStream_t s) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+  kick_drift_wrap_kernel<T, D, COMP, LO>
+      <<<(int)blocks, kThreads, 0, s>>>(a, n, half, dt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_rows_dim(const RowsArgs<T>& a, bool comp, int64_t n, T half, T dt,
+                    cudaStream_t s) {
+  if (!comp) return launch_rows<T, D, false, false>(a, n, half, dt, s);
+  return a.lo_out ? launch_rows<T, D, true, true>(a, n, half, dt, s)
+                  : launch_rows<T, D, true, false>(a, n, half, dt, s);
+}
+
+template <typename T>
+int kick_drift_wrap(int compensated, int dim, long long n, const T* f,
+                    const T* v, const T* vc, const T* x, const T* xc,
+                    const int64_t* img, const T* cell, const T* cell_inv,
+                    T* v_out, T* vc_out, T* x_out, T* xc_out,
+                    int64_t* img_out, T* lo_out, double half, double dt,
+                    void* stream) {
+  const bool comp = compensated != 0;
+  const bool ok = n >= 0 && (dim == 2 || dim == 3) && f && v && x && img &&
+                  cell && cell_inv && v_out && x_out && img_out &&
+                  (!comp || (vc && xc && vc_out && xc_out)) &&
+                  (!lo_out || comp);
+  if (!ok) return kErrArgs;
+  const RowsArgs<T> a{f,     v,     vc,     x,      xc,      img,     cell,
+                      cell_inv, v_out, vc_out, x_out, xc_out, img_out, lo_out};
+  // The scalars rounded to T once, as torch rounds a Python number.
+  const T h = static_cast<T>(half), d = static_cast<T>(dt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dim == 2 ? launch_rows_dim<T, 2>(a, comp, n, h, d, s)
+                  : launch_rows_dim<T, 3>(a, comp, n, h, d, s);
+}
+
+template <typename T>
+struct BrownianRowsArgs {
+  const T* f;
+  const T* x;
+  const T* xc;
+  const int64_t* img;
+  const T* cell;
+  const T* cell_inv;
+  const T* virial;
+  const T* accum;
+  const int64_t* nprom;
+  T* x_out;
+  T* xc_out;
+  int64_t* img_out;
+  T* accum_out;
+  int64_t* nprom_out;
+  T* temperature;
+  const int64_t* step_in;  // or null: step_value
+  int64_t* step_out;       // or null
+  int64_t step_value;
+};
+
+// Blocks of the particle-row Brownian move done with the step, on this
+// card (0 between launches).
+__device__ unsigned int g_brownian_rows_ticket = 0;
+
+// The Brownian move of n particles, a thread each (grid-stride): value e
+// = i D + k of the row-major (n, D) positions takes xi, the noise kernel's
+// element e (Philox block e / P, P = 4 float32 or 2 float64 values a
+// block; a particle's D values straddle one or two blocks), then x, xc <-
+// kahan(x, xc, f drift + xi sigma) (plain where not COMP) and the wrap.
+// The last block to finish writes the step's scalars, as
+// brownian_update_kernel does.
+template <typename T, int D, bool COMP>
+__global__ void __launch_bounds__(kThreads)
+    brownian_rows_kernel(BrownianRowsArgs<T> a, int64_t n, T drift, T sigma,
+                         T ktemp, uint2 key, uint32_t stream) {
+  constexpr int P = int(16 / sizeof(T));
+  T c[D][D], ci[D][D];
+  load_cell<T, D>(a.cell, a.cell_inv, c, ci);
+  const int64_t s = a.step_in ? *a.step_in : a.step_value;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int64_t e0 = i * D;
+    const int64_t b0 = e0 / P, b1 = (e0 + D - 1) / P;
+    T w0[P], w1[P] = {};
+    mdtpu::philox::noise_values(
+        mdtpu::philox::philox4x32_10(
+            mdtpu::philox::counter((uint32_t)b0, s, stream), key),
+        w0);
+    if (b1 != b0)
+      mdtpu::philox::noise_values(
+          mdtpu::philox::philox4x32_10(
+              mdtpu::philox::counter((uint32_t)b1, s, stream), key),
+          w1);
+    T f[D], x[D], xc[D];
+    int64_t img[D];
+    load_row<T, D>(a.f, i, f);
+    load_row<T, D>(a.x, i, x);
+    load_row<int64_t, D>(a.img, i, img);
+    if (COMP) load_row<T, D>(a.xc, i, xc);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const int64_t w = e0 + k - b0 * P;
+      T xi = w0[0];
+#pragma unroll
+      for (int q = 1; q < P; ++q) xi = w == q ? w0[q] : xi;
+#pragma unroll
+      for (int q = 0; q < P; ++q) xi = w == P + q ? w1[q] : xi;
+      const T dx = f[k] * drift + xi * sigma;
+      if (COMP)
+        kahan(x[k], xc[k], dx);
+      else
+        x[k] = x[k] + dx;
+    }
+    wrap<T, D, COMP>(x, xc, img, c, ci);
+    store_row<T, D>(a.x_out, i, x);
+    store_row<int64_t, D>(a.img_out, i, img);
+    if (COMP) store_row<T, D>(a.xc_out, i, xc);
+  }
+  // Every thread of the block has read the step; the last block to say so
+  // writes the step's scalars.
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(
+      g_brownian_rows_ticket);
+  if (ticket.fetch_add(1u, cuda::memory_order_acq_rel) != gridDim.x - 1)
+    return;
+  // brownian_virial_sample: accum + where(take, virial, 0), nprom + take.
+  const bool take = s % 10 == 0;
+  *a.accum_out = *a.accum + (take ? *a.virial : T(0));
+  *a.nprom_out = *a.nprom + (take ? 1 : 0);
+  *a.temperature = ktemp;
+  if (a.step_out) *a.step_out = s + 1;
+  ticket.store(0u, cuda::memory_order_relaxed);
+}
+
+template <typename T, int D>
+int launch_brownian_rows(const BrownianRowsArgs<T>& a, bool comp, int64_t n,
+                         T drift, T sigma, T ktemp, uint2 key,
+                         uint32_t stream_word, cudaStream_t s) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+  if (comp)
+    brownian_rows_kernel<T, D, true><<<(int)blocks, kThreads, 0, s>>>(
+        a, n, drift, sigma, ktemp, key, stream_word);
+  else
+    brownian_rows_kernel<T, D, false><<<(int)blocks, kThreads, 0, s>>>(
+        a, n, drift, sigma, ktemp, key, stream_word);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int brownian_rows(int compensated, int dim, long long n, const T* f,
+                  const T* x, const T* xc, const int64_t* img, const T* cell,
+                  const T* cell_inv, const T* virial, const T* accum,
+                  const int64_t* nprom, T* x_out, T* xc_out,
+                  int64_t* img_out, T* accum_out, int64_t* nprom_out,
+                  T* temperature, const int64_t* step_in, int64_t* step_out,
+                  long long step_value, double drift, double sigma,
+                  double ktemp, unsigned k0, unsigned k1,
+                  unsigned stream_word, void* stream) {
+  const bool comp = compensated != 0;
+  constexpr long long P = 16 / sizeof(T);
+  const bool ok = n >= 0 && (dim == 2 || dim == 3) &&
+                  (n * dim + P - 1) / P <= 0xFFFFFFFFLL && f && x && img &&
+                  cell && cell_inv && virial && accum && nprom && x_out &&
+                  img_out && accum_out && nprom_out && temperature &&
+                  (!comp || (xc && xc_out)) && (!step_out || step_in);
+  if (!ok) return kErrArgs;
+  const BrownianRowsArgs<T> a{f,         x,        xc,          img,
+                              cell,      cell_inv, virial,      accum,
+                              nprom,     x_out,    xc_out,      img_out,
+                              accum_out, nprom_out, temperature, step_in,
+                              step_out,  (int64_t)step_value};
+  const T dr = static_cast<T>(drift), sg = static_cast<T>(sigma),
+          kt = static_cast<T>(ktemp);
+  const uint2 key = make_uint2(k0, k1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dim == 2 ? launch_brownian_rows<T, 2>(a, comp, n, dr, sg, kt, key,
+                                               stream_word, s)
+                  : launch_brownian_rows<T, 3>(a, comp, n, dr, sg, kt, key,
+                                               stream_word, s);
+}
+
 // Whether func is one of this file's Brownian update kernels.
 bool brownian_kernel(const void* func) {
   const void* kernels[] = {
@@ -598,6 +954,80 @@ int mdtpu_verlet_update_census(void* stream, long long* out) {
       ++out[0];
   }
   return 0;
+}
+
+// Kick, drift and wrap of n particles of (n, dim) rows, row-major and
+// contiguous: f, v, vc, x, xc (vc, xc, vc_out, xc_out only where
+// compensated), img (int64); cell, cell_inv: (dim, dim) row-major on the
+// device. Outputs v_out, vc_out, x_out, xc_out, img_out (each may be its
+// input) and lo_out (compensated: -xc after the wrap, or null). half, dt:
+// dt / 2 and dt.
+int mdtpu_kick_drift_wrap_f32(int compensated, int dim, long long n,
+                              const float* f, const float* v, const float* vc,
+                              const float* x, const float* xc,
+                              const int64_t* img, const float* cell,
+                              const float* cell_inv, float* v_out,
+                              float* vc_out, float* x_out, float* xc_out,
+                              int64_t* img_out, float* lo_out, double half,
+                              double dt, void* stream) {
+  return kick_drift_wrap<float>(compensated, dim, n, f, v, vc, x, xc, img,
+                                cell, cell_inv, v_out, vc_out, x_out, xc_out,
+                                img_out, lo_out, half, dt, stream);
+}
+
+int mdtpu_kick_drift_wrap_f64(int compensated, int dim, long long n,
+                              const double* f, const double* v,
+                              const double* vc, const double* x,
+                              const double* xc, const int64_t* img,
+                              const double* cell, const double* cell_inv,
+                              double* v_out, double* vc_out, double* x_out,
+                              double* xc_out, int64_t* img_out,
+                              double* lo_out, double half, double dt,
+                              void* stream) {
+  return kick_drift_wrap<double>(compensated, dim, n, f, v, vc, x, xc, img,
+                                 cell, cell_inv, v_out, vc_out, x_out,
+                                 xc_out, img_out, lo_out, half, dt, stream);
+}
+
+// The Brownian move of n particles of (n, dim) rows, row-major and
+// contiguous: f, x, xc (xc, xc_out only where compensated), img (int64);
+// cell, cell_inv (dim, dim) row-major; virial, accum one value of T,
+// nprom one int64, all on the device. Outputs x_out, xc_out, img_out (each
+// may be its input), accum_out, nprom_out (may be accum, nprom),
+// temperature (kT). step_in: an int64 on the device, or null and
+// step_value the step; step_out: step + 1 (may be step_in), or null.
+// drift, sigma, ktemp: rounded to T already; k0, k1 the seed's key words;
+// stream_word the noise's counter word.
+int mdtpu_brownian_rows_f32(
+    int compensated, int dim, long long n, const float* f, const float* x,
+    const float* xc, const int64_t* img, const float* cell,
+    const float* cell_inv, const float* virial, const float* accum,
+    const int64_t* nprom, float* x_out, float* xc_out, int64_t* img_out,
+    float* accum_out, int64_t* nprom_out, float* temperature,
+    const int64_t* step_in, int64_t* step_out, long long step_value,
+    double drift, double sigma, double ktemp, unsigned k0, unsigned k1,
+    unsigned stream_word, void* stream) {
+  return brownian_rows<float>(compensated, dim, n, f, x, xc, img, cell,
+                              cell_inv, virial, accum, nprom, x_out, xc_out,
+                              img_out, accum_out, nprom_out, temperature,
+                              step_in, step_out, step_value, drift, sigma,
+                              ktemp, k0, k1, stream_word, stream);
+}
+
+int mdtpu_brownian_rows_f64(
+    int compensated, int dim, long long n, const double* f, const double* x,
+    const double* xc, const int64_t* img, const double* cell,
+    const double* cell_inv, const double* virial, const double* accum,
+    const int64_t* nprom, double* x_out, double* xc_out, int64_t* img_out,
+    double* accum_out, int64_t* nprom_out, double* temperature,
+    const int64_t* step_in, int64_t* step_out, long long step_value,
+    double drift, double sigma, double ktemp, unsigned k0, unsigned k1,
+    unsigned stream_word, void* stream) {
+  return brownian_rows<double>(compensated, dim, n, f, x, xc, img, cell,
+                               cell_inv, virial, accum, nprom, x_out, xc_out,
+                               img_out, accum_out, nprom_out, temperature,
+                               step_in, step_out, step_value, drift, sigma,
+                               ktemp, k0, k1, stream_word, stream);
 }
 
 const char* mdtpu_verlet_update_error_string(int code) {

@@ -52,9 +52,12 @@ import torch
 from mdtpu_torch.core.box import _mm
 from mdtpu_torch.core.types import NVE, NVT, Brownian, Parameters, SimulationState
 from mdtpu_torch.integrate import verlet_update
+from mdtpu_torch.integrate.device_advance import (STATE_TENSORS,
+                                                  DeviceAdvance, clone,
+                                                  copy_into)
+from mdtpu_torch.integrate.device_advance import device_if  # noqa: F401
 from mdtpu_torch.integrate.step import finish_scalars
-from mdtpu_torch.integrate.velocity_finish import (TargetTable, finish_buffer,
-                                                   finish_pair)
+from mdtpu_torch.integrate.velocity_finish import finish_pair
 from mdtpu_torch.ops import philox_draws
 from mdtpu_torch.ops.cell_grid import CellGridEngine, CellGridState, cell_ids
 from mdtpu_torch.utils import counters
@@ -489,232 +492,51 @@ counters.register(make_slot_step, "steps")
 
 # The tensors of a slot state and of its binning that a step or a rebuild
 # may replace: the advance's buffers hold one copy of each.
-_STATE_TENSORS = ("positions", "velocities", "forces", "images", "diameters",
-                  "unitcell", "unitcell_inv", "step", "energy", "virial",
-                  "temperature", "pos_comp", "vel_comp", "virial_accum",
-                  "nprom", "ids")
+_STATE_TENSORS = STATE_TENSORS
 _NBRS_TENSORS = ("counts", "sorted_diam", "ref_positions", "overflow",
                  "occupied")
-# Rebuild steps an advance logs (later ones overwrite the last entry).
-REBUILD_LOG = 4096
 
 
-def _copy_into(dst: SimulationState, src: SimulationState, skip=()):
-    """Write ``src``'s tensors into ``dst``'s (the buffers), in place;
-    a tensor that is the buffer itself is left alone."""
-    for owner_d, owner_s, names in ((dst, src, _STATE_TENSORS),
-                                    (dst.nbrs, src.nbrs, _NBRS_TENSORS)):
-        for name in names:
-            d, t = getattr(owner_d, name), getattr(owner_s, name)
-            if name not in skip and t is not d:
-                d.copy_(t)
-
-
-def _clone(state: SimulationState, step=None) -> SimulationState:
-    """A copy of ``state`` whose tensors are its own (aliases split), its
-    temperature a :func:`~mdtpu_torch.integrate.velocity_finish.
-    finish_buffer`; ``step``: the step field to put in."""
-    nbrs = dataclasses.replace(state.nbrs, **{
-        n: getattr(state.nbrs, n).clone() for n in _NBRS_TENSORS})
-    return state.replace(nbrs=nbrs, step=state.step if step is None else step,
-                         **{n: (finish_buffer(getattr(state, n))
-                                if n == "temperature"
-                                else getattr(state, n).clone())
-                            for n in _STATE_TENSORS if n != "step"})
-
-
-def device_if(flag, test, body, pool=None):
-    """Run ``body()`` where ``test(handle)`` sets the 0-d bool tensor
-    ``flag``: the slot advance's rebuild decision. Under a CUDA-graph
-    capture the test is captured with an IF node's handle, which its kernel
-    sets, and ``body`` into that node (its allocations from ``pool``, a
-    ``torch.cuda.MemPool`` kept with the graph): the card decides at every
-    replay. Eagerly ``test(None)`` runs and the flag is read on the host,
-    the segment's one host read a step (free on the CPU)."""
-    if flag.is_cuda and torch.cuda.is_current_stream_capturing():
-        with philox_draws.graph_if(test, flag.device, pool):
-            body()
-        return
-    test(None)
-    if bool(flag):
-        body()
-
-
-class SlotAdvance:
+class SlotAdvance(DeviceAdvance):
     """``advance(state, k) -> state`` after ``k`` slot steps on one device,
     as the JAX package's ``make_slot_advance`` runs a segment: the step
-    counter, the rebuild decision and every draw stay on the device.
+    counter, the rebuild decision and every draw stay on the device
+    (:class:`~mdtpu_torch.integrate.device_advance.DeviceAdvance`).
 
-    The state is copied into buffers that the advance keeps (its tensors
-    and its binning's, the step as a 0-d int64 counter), and each step
-    reads them and writes its results back in place (an MD step's
-    Verlet chain, sweep and velocity finish, and a Brownian step's sweep
-    and update, write straight into them, ``make_slot_step(...,
+    Each step reads the buffers and writes its results back in place (an
+    MD step's Verlet chain, sweep and velocity finish, and a Brownian
+    step's sweep and update, write straight into them, ``make_slot_step(...,
     in_place=True)``, so a step copies nothing): the drift test
     (:func:`philox_draws.rebuild_flag`) and a rebuild where it is set
     (:func:`device_if` around :func:`_rebin`), then the step (NVT's target
-    from a device table that the host fills for the segment in one copy,
-    read at the counter by the velocity finish's kernel). The state
-    returned is a copy of the buffers, its step the host int ``state.step
-    + k``.
+    from the device table, read at the counter by the velocity finish's
+    kernel).
 
     ``graph``: on the card each step variant (lean, and the segment's full
-    last step) is captured once into a CUDA graph with the rebuild in a
-    conditional node whose handle the test's kernel sets, and a segment of
-    ``k`` steps is ``k`` graph launches and no host read; ``census[name]``
-    holds each variant's nodes, read from the graph at its capture
-    (:func:`philox_draws.capture_census`, and the programmatic edges into
-    the Brownian update, :func:`verlet_update.capture_census`). Eagerly
-    the same code runs step by step, the flag read on the host. The launch
-    counters count each replay (:mod:`mdtpu_torch.utils.counters`). A
-    capture or a launch that fails raises; nothing falls back to the eager
-    loop."""
+    last step) is captured once into a CUDA graph; ``census[name]`` holds
+    each variant's nodes. Eagerly the same code runs step by step, the flag
+    read on the host."""
 
     def __init__(self, step, last_step, engine, ensemble, lean, graph):
+        super().__init__(engine, ensemble, graph)
         self.step_fn, self.last_fn = step, last_step
-        self.engine, self.lean, self.graph = engine, lean, graph
-        self.schedule = (ensemble.ktemp if isinstance(ensemble, NVT)
-                         else None)
-        self.bufs = self.table = None
-        self.graphs, self.census = {}, {}
-        self._pool = None
+        self.lean = lean
 
-    # -- buffers and segment inputs --------------------------------------
-
-    def _layout(self, state):
-        return (state.seed, state.nf, state.cutoff,
-                tuple((t.shape, t.dtype, t.device) for t in
-                      [getattr(state, n) for n in _STATE_TENSORS
-                       if n != "step"]
-                      + [getattr(state.nbrs, n) for n in _NBRS_TENSORS]))
-
-    def _load(self, state):
-        """Put ``state`` into the buffers (made anew, and the graphs
-        dropped, where its layout, seed or nf changed)."""
-        if self.bufs is None or self._layout(self.bufs) != self._layout(
-                state):
-            device = state.device
-            self.graphs = {}
-            self.bufs = _clone(state, torch.full(
-                (), state.step, dtype=torch.int64, device=device))
-            self.base = torch.zeros((), dtype=torch.int64, device=device)
-            self.flag = torch.zeros((), dtype=torch.bool, device=device)
-            self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
-            self.rebuilt_at = torch.zeros(REBUILD_LOG, dtype=torch.int64,
-                                          device=device)
-        else:
-            _copy_into(self.bufs, state, skip=("step",))
-            self.bufs.step.fill_(state.step)
-        self.base.fill_(state.step)
-
-    def _fill_table(self, base, k):
-        """NVT's ``ktemp(step + 1)`` for the segment's steps, evaluated on
-        the host in float64 as the schedule gives it, rounded to the
-        state's dtype and sent in one copy."""
-        if self.schedule is None:
-            return
-        b = self.bufs
-        if self.table is None or self.table.numel() < k:
-            self.graphs = {}
-            self.table = torch.empty(max(k, 1024), dtype=b.dtype,
-                                     device=b.device)
-        values = torch.tensor([float(self.schedule(s + 1))
-                               for s in range(base, base + k)],
-                              dtype=torch.float64).to(b.dtype)
-        if b.device.type == "cuda":
-            self.table[:k].copy_(values.pin_memory(), non_blocking=True)
-        else:
-            self.table[:k].copy_(values)
-
-    def _target(self):
-        return None if self.table is None else TargetTable(self.table,
-                                                           self.base)
-
-    # -- one step on the buffers -----------------------------------------
-
-    def _rebuild(self):
-        b = self.bufs
-        _copy_into(b, _rebin(b, self.engine))
-        slot = self.rebuilds.clamp(max=REBUILD_LOG - 1).reshape(1)
-        self.rebuilt_at.index_copy_(0, slot, b.step.reshape(1))
-        self.rebuilds.add_(1)
-
-    def _test(self, handle):
-        b = self.bufs
+    def _test(self, b, flag, handle):
         philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
-                                  self.engine.skin, out=self.flag,
-                                  handle=handle)
+                                  self.engine.skin, out=flag, handle=handle)
 
-    def _one(self, step_fn):
-        b = self.bufs
-        device_if(self.flag, self._test, self._rebuild, self._pool)
-        _copy_into(b, step_fn(b, self._target()))
+    def _rebuilt(self, b):
+        return _rebin(b, self.engine)
 
-    # -- graphs ----------------------------------------------------------
-
-    def _captured(self, name, step_fn):
-        """``(graph, counts)`` of one step variant: captured on first use
-        after a warm-up of the step and the rebuild on copies of the
-        buffers (libraries built, plans made), the counters put back, and
-        the counts one replay adds."""
-        if name in self.graphs:
-            return self.graphs[name]
-        before = counters.snapshot()
-        b = _clone(self.bufs, self.bufs.step.clone())
-        flag = torch.empty_like(self.flag)
-        side = torch.cuda.Stream(b.device)
-        side.wait_stream(torch.cuda.current_stream(b.device))
-        with torch.cuda.stream(side):
-            philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
-                                      self.engine.skin, out=flag)
-            _copy_into(b, _rebin(b, self.engine))
-            _copy_into(b, step_fn(b, self._target()))
-        torch.cuda.current_stream(b.device).wait_stream(side)
-        del b
-        warm = counters.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        pool = self._pool = torch.cuda.MemPool()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._one(step_fn)
-                self.census[name] = {
-                    **philox_draws.capture_census(self.bufs.device),
-                    **verlet_update.capture_census(self.bufs.device)}
-        finally:
-            self._pool = None
-        delta = counters.difference(counters.snapshot(), warm)
-        counters.restore(before)
-        self.graphs[name] = (graph, delta, pool)
-        return self.graphs[name]
-
-    def _run(self, name, step_fn, times):
-        if times <= 0:
-            return
-        if not self.graph:
-            for _ in range(times):
-                self._one(step_fn)
-            return
-        graph, delta, _ = self._captured(name, step_fn)
-        for _ in range(times):
-            graph.replay()
-        counters.add(delta, times)
-
-    def rebuild_steps(self):
-        """The steps at whose start this advance rebuilt, in order (the
-        first :data:`REBUILD_LOG`; a host read)."""
-        n = int(self.rebuilds)
-        return self.rebuilt_at[:min(n, REBUILD_LOG)].tolist()
+    def _step(self, b, step_fn, refresh):
+        refresh()
+        copy_into(b, step_fn(b, self._target()))
 
     def __call__(self, state: SimulationState, k: int) -> SimulationState:
         if k <= 0:
             return state
-        if self.graph is None:
-            self.graph = (state.device.type == "cuda"
-                          and not self.engine.uses_pair_list)
-        elif self.graph and (state.device.type != "cuda"
-                             or self.engine.uses_pair_list):
-            raise ValueError("graph=True takes a CUDA state and a potential "
-                             "with a kernel functor")
+        self._resolve_graph(state, self.engine.uses_pair_list)
         base = state.step
         self._load(state)
         self._fill_table(base, k)
@@ -724,7 +546,7 @@ class SlotAdvance:
             self._run("last", self.last_fn, 1)
         else:
             self._run("full", self.last_fn, k)
-        return _clone(b, base + k)
+        return clone(b, base + k)
 
 
 def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,

@@ -48,6 +48,7 @@ from mdtpu_torch.ops.cell_pairs import (PairListWorkspace, list_capacity,
                                         pair_sweep)
 from mdtpu_torch.ops.cell_sweep import (cell_sweep, cell_sweep_hilo,
                                         kernel_params)
+from mdtpu_torch.ops.philox_draws import rebuild_flag_rows
 from mdtpu_torch.potentials.base import check_engine_cutoff
 from mdtpu_torch.utils.math import two_sum
 
@@ -194,11 +195,17 @@ class CellGridEngine:
                              ref_positions=positions, overflow=overflow)
 
     # ---------------------------------------------------------------- rebuild
-    def needs_rebuild(self, positions, nbrs: CellGridState, cell, cell_inv):
-        disp = minimum_image(positions - nbrs.ref_positions, cell, cell_inv)
-        half_skin = 0.5 * self.skin
-        return torch.any(torch.sum(disp * disp, dim=-1)
-                         > half_skin * half_skin)
+    def needs_rebuild(self, positions, nbrs: CellGridState, cell, cell_inv,
+                      out=None, handle=None):
+        """Whether a particle moved more than skin/2 since the build (a 0-d
+        bool tensor; the displacement minimum-imaged by the cell), written
+        into ``out`` where given: on the card one launch of
+        :func:`~mdtpu_torch.ops.philox_draws.rebuild_flag_rows`, which also
+        sets ``handle``, an IF node's, inside a captured step; on the CPU
+        its plain version."""
+        return rebuild_flag_rows(positions, nbrs.ref_positions, self.skin,
+                                 cell=cell, cell_inv=cell_inv, out=out,
+                                 handle=handle)
 
     # ---------------------------------------------------------------- forces
     def slot_inputs(self, positions, cell, cell_inv, nbrs: CellGridState):

@@ -57,7 +57,9 @@ from mdtpu_torch.ops import _cuda_build
 from mdtpu_torch.ops.cell_grid import cell_ids, grid_for_box
 from mdtpu_torch.ops.cell_sweep import (check_cuda, functor_params,
                                         kernel_params)
+from mdtpu_torch.ops.philox_draws import rebuild_flag_rows
 from mdtpu_torch.potentials.base import check_engine_cutoff, rounded
+from mdtpu_torch.utils import counters
 
 NAME = "neighbor_list"
 THREADS = 256                # kThreads of K2: THREADS / LANES rows a block
@@ -361,6 +363,9 @@ def reset_launches():
 
 
 reset_launches()
+# A captured particle-order step launches both.
+counters.register(nl_build, "launches")
+counters.register(nl_forces, "launches")
 
 
 @dataclass(frozen=True)
@@ -458,15 +463,18 @@ class NeighborListEngine:
                              overflow=overflow, count=count, order=order)
 
     # ---------------------------------------------------------------- rebuild
-    def needs_rebuild(self, positions, nbrs: NeighborState, cell, cell_inv):
-        """Whether a particle moved more than skin/2 since the build (the
-        displacement minimum-imaged: positions are wrapped)."""
-        lengths = torch.diagonal(cell)
-        disp = positions - nbrs.ref_positions
-        disp = disp - lengths * torch.round(disp / lengths)
-        half_skin = 0.5 * self.skin
-        d2 = torch.sum(disp * disp, dim=-1)
-        return torch.any(d2 > rounded(half_skin * half_skin, d2.dtype))
+    def needs_rebuild(self, positions, nbrs: NeighborState, cell, cell_inv,
+                      out=None, handle=None):
+        """Whether a particle moved more than skin/2 since the build (a 0-d
+        bool tensor; the displacement minimum-imaged by the box lengths:
+        positions are wrapped), written into ``out`` where given: on the
+        card one launch of
+        :func:`~mdtpu_torch.ops.philox_draws.rebuild_flag_rows`, which also
+        sets ``handle``, an IF node's, inside a captured step; on the CPU
+        its plain version."""
+        return rebuild_flag_rows(positions, nbrs.ref_positions, self.skin,
+                                 lengths=torch.diagonal(cell), out=out,
+                                 handle=handle)
 
     # ---------------------------------------------------------------- forces
     def compute(self, positions, diameters, cell, cell_inv,

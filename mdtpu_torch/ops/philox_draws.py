@@ -17,7 +17,10 @@ Wrappers and counters: :func:`bussi_draw` (``bussi_draw.launches``; the
 step draws inside :func:`mdtpu_torch.integrate.velocity_finish.
 velocity_finish` instead, the same library's kernel),
 :func:`uniform_noise` (``uniform_noise.launches``), :func:`rebuild_flag`
-(``rebuild_flag.launches``); :func:`graph_if` opens an IF node in the graph
+(``rebuild_flag.launches``) and its form for ``(N, d)`` particle rows with
+the minimum image, :func:`rebuild_flag_rows`
+(``rebuild_flag_rows.launches``; the engines' ``needs_rebuild``);
+:func:`graph_if` opens an IF node in the graph
 being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
 ``begin_capture_to_if_node``, whose handle the rebuild test sets;
 :func:`capture_census` counts the nodes of the graph being captured and
@@ -38,7 +41,9 @@ import tempfile
 
 import torch
 
+from mdtpu_torch.core.box import minimum_image
 from mdtpu_torch.ops import _cuda_build
+from mdtpu_torch.potentials.base import rounded
 from mdtpu_torch.utils import counters
 
 NAME = "philox_draws"
@@ -61,6 +66,8 @@ _SIGNATURES = (
     ("mdtpu_uniform_noise_f64", (_P, _L, _U, _U, _U, _L, _P, _I, _P)),
     ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
     ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
+    ("mdtpu_rebuild_rows_f32", (_P, _P, _P, _P, _I, _L, _D, _P, _Q, _I, _P)),
+    ("mdtpu_rebuild_rows_f64", (_P, _P, _P, _P, _I, _L, _D, _P, _Q, _I, _P)),
     ("mdtpu_velocity_finish_f32", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
                                    _U, _U, _I, _I, _P, _P)),
     ("mdtpu_velocity_finish_f64", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
@@ -82,7 +89,10 @@ NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
                  "verlet_update": "verlet_update_kernel",
                  "brownian_update": "brownian_update_kernel",
                  "uniform_noise": "uniform_noise_kernel",
-                 "bussi_draw": "bussi_draw_kernel"}
+                 "bussi_draw": "bussi_draw_kernel",
+                 "rebuild_rows": "rebuild_rows_kernel",
+                 "kick_drift_wrap": "kick_drift_wrap_kernel",
+                 "brownian_rows": "brownian_rows_kernel"}
 _OPT_PROGRAMMATIC = 1
 _plain_order = False      # True only inside plain_launch()
 _DOT_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
@@ -381,6 +391,76 @@ def rebuild_flag(positions, ref_positions, skin, out=None, handle=None):
     return out
 
 
+def rebuild_flag_rows_plain(positions, ref_positions, skin, cell=None,
+                            cell_inv=None, lengths=None):
+    """True (a 0-d bool tensor) where a particle of the ``(N, d)`` rows
+    drifted past skin/2 from its reference, the displacement
+    minimum-imaged by the cell matrix (``cell`` and ``cell_inv``:
+    :func:`~mdtpu_torch.core.box.minimum_image`, the cell grid's test) or
+    by the box ``lengths`` (``d - L round(d / L)``, the neighbour list's);
+    ``sum_k d_k^2`` in component order (what ``torch.sum`` over the last
+    axis gives on the CPU), the threshold rounded to the positions'
+    dtype."""
+    disp = positions - ref_positions
+    if lengths is None:
+        disp = minimum_image(disp, cell, cell_inv)
+    else:
+        disp = disp - lengths * torch.round(disp / lengths)
+    sq = disp * disp
+    d2 = sq[:, 0]
+    for k in range(1, sq.shape[1]):
+        d2 = d2 + sq[:, k]
+    half_skin = 0.5 * skin
+    return torch.any(d2 > rounded(half_skin * half_skin, d2.dtype))
+
+
+def rebuild_flag_rows(positions, ref_positions, skin, *, cell=None,
+                      cell_inv=None, lengths=None, out=None, handle=None):
+    """:func:`rebuild_flag_rows_plain` of ``(N, d)`` particle rows (give
+    ``cell`` and ``cell_inv``, or ``lengths``), written into ``out`` (a 0-d
+    bool tensor) where given. CUDA tensors launch the kernel (one launch,
+    no memset; adds one to ``rebuild_flag_rows.launches``), which also sets
+    ``handle``, an IF node's handle from :func:`graph_if`, inside the graph
+    being captured; CPU tensors take the plain version."""
+    if (positions.shape != ref_positions.shape or positions.dim() != 2
+            or positions.shape[1] not in (2, 3)):
+        raise ValueError("positions and ref_positions must be one (N, d) "
+                         "shape, d 2 or 3")
+    if (lengths is None) == (cell is None or cell_inv is None):
+        raise ValueError("give the cell and its inverse, or the lengths")
+    if positions.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("a graph's handle takes CUDA tensors")
+        flag = rebuild_flag_rows_plain(positions, ref_positions, skin, cell,
+                                       cell_inv, lengths)
+        return flag if out is None else out.copy_(flag)
+    _check_dtype(positions.dtype)
+    d = positions.shape[1]
+    boxes = (cell, cell_inv) if lengths is None else (lengths,)
+    shapes = ((d, d), (d, d)) if lengths is None else ((d,),)
+    if (positions.device.type != "cuda" or ref_positions.dtype
+            != positions.dtype or not positions.is_contiguous()
+            or not ref_positions.is_contiguous()
+            or any(t.shape != shape or t.dtype != positions.dtype
+                   or t.device != positions.device
+                   for t, shape in zip(boxes, shapes))):
+        raise ValueError("rebuild_flag_rows takes contiguous CUDA tensors "
+                         "of one dtype and device, the box (d, d) or (d,)")
+    boxes = tuple(t.contiguous() for t in boxes)
+    if out is None:
+        out = torch.empty((), dtype=torch.bool, device=positions.device)
+    half_skin = 0.5 * skin
+    m, mi = boxes if lengths is None else (None, boxes[0])
+    launch("mdtpu_rebuild_rows", positions.dtype,
+           (positions.data_ptr(), ref_positions.data_ptr(),
+            None if m is None else m.data_ptr(), mi.data_ptr(), d,
+            positions.shape[0], half_skin * half_skin, out.data_ptr(),
+            handle or 0, int(handle is not None)),
+           "rebuild_flag_rows", positions.device)
+    rebuild_flag_rows.launches += 1
+    return out
+
+
 def empty(device="cuda", programmatic=False):
     """Launch a kernel that does nothing on ``device``'s current stream:
     its time in a graph of many launches is the card's launch floor.
@@ -390,14 +470,17 @@ def empty(device="cuda", programmatic=False):
            "empty", torch.device(device))
 
 
+WRAPPERS = (bussi_draw, uniform_noise, rebuild_flag, rebuild_flag_rows)
+
+
 def reset_launches():
-    """Set the three wrappers' launch counts to 0."""
-    for wrapper in (bussi_draw, uniform_noise, rebuild_flag):
+    """Set the four wrappers' launch counts to 0."""
+    for wrapper in WRAPPERS:
         wrapper.launches = 0
 
 
 reset_launches()
-for _wrapper in (bussi_draw, uniform_noise, rebuild_flag):
+for _wrapper in WRAPPERS:
     counters.register(_wrapper, "launches")
 
 

@@ -47,6 +47,7 @@ from mdtpu_torch.ops.cell_sweep import (FILTER_UNROLL, MAX_CAPACITY,
                                         MAX_SHARED_BYTES, QUEUE_DEPTH, PairTiles,
                                         check_cuda, check_inputs,
                                         functor_params, launch_sweep)
+from mdtpu_torch.utils import counters
 
 NAME = "plane_sweep"
 HALF_OFFSETS = ((0, 1), (1, -1), (1, 0), (1, 1))
@@ -177,6 +178,8 @@ def plane_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential):
 
 
 plane_sweep.launches = 0
+# A captured particle-order step on PlaneEngine launches it.
+counters.register(plane_sweep, "launches")
 
 
 def _box_lengths(box, grid):

@@ -22,7 +22,10 @@ launch, the step counter, NVT's target, the draws and the rebuild decision
 on the device, so a segment reads nothing back before its health read),
 ordered by ``ids`` for frames and put back in particle order at the end. Other
 engines, ``PlaneEngine`` and ``compensated=False`` take the particle-order
-step.
+step, advanced by ``make_particle_advance`` (the same on the device: on the
+card each step one CUDA-graph launch with the rebuild decided by the
+engine's drift test's kernel; for a potential without a kernel functor the
+steps one by one, the flag read on the host).
 
 Files match the JAX package's: ``thermo.txt`` rows ``"{s} {e:.6f} {t:.6f}
 {p:.6f}"``, LAMMPS dump frames in ``trajectory.xyz`` (``trajectory.xyz.zst``
@@ -53,7 +56,7 @@ from mdtpu_torch.core.box import box_volume
 from mdtpu_torch.core.types import (NVE, Brownian, Parameters, SimulationState,
                                     state_to)
 from mdtpu_torch.integrate import slot_step as slots
-from mdtpu_torch.integrate.step import make_step
+from mdtpu_torch.integrate import step as particle
 from mdtpu_torch.io.checkpoint import save_checkpoint
 from mdtpu_torch.io.compress import (ZstdWriter, decompressed_lines,
                                      require_libzstd)
@@ -403,14 +406,8 @@ def run_simulation(
         if use_slot:
             return slots.make_slot_advance(params, ensemble, engine,
                                            compensated=compensated, hilo=hilo)
-        step_fn = make_step(params, ensemble, engine, compensated, hilo=hilo)
-
-        def advance(state, k):
-            for _ in range(k):
-                state = step_fn(state)
-            return state
-
-        return advance
+        return particle.make_particle_advance(
+            params, ensemble, engine, compensated=compensated, hilo=hilo)
 
     def restore(seg_start, engine):
         """The segment's start state for a grown engine."""

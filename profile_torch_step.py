@@ -11,11 +11,18 @@ f32, NVT(1.0, 0.4), dt 0.002), melts it for 300 steps through
 ``mdtpu_torch.run_simulation``, then times the bare step function with the
 host clock and profiles 50 steps with ``torch.profiler``. ``--engine
 cellgrid`` (the default) steps the cell-grid engine in particle order
-(``make_md_step``) with Kahan compensation; ``--engine plane`` steps
-``PlaneEngine`` (the Newton half-stencil sweep) with ``compensated=False``,
-as the JAX package drives its B2 kernel; ``--engine neighbor`` steps
-``NeighborListEngine`` (``select_engine(..., prefer="neighbor")``) in
-particle order with Kahan compensation; ``--engine slot`` steps the slot
+with Kahan compensation; ``--engine plane`` steps ``PlaneEngine`` (the
+Newton half-stencil sweep) with ``compensated=False``, as the JAX package
+drives its B2 kernel; ``--engine neighbor`` steps ``NeighborListEngine``
+(``select_engine(..., prefer="neighbor")``) in particle order with Kahan
+compensation. These three step as ``run_simulation`` does in particle
+order: ``make_particle_advance`` over one segment of the timed or
+profiled length, each step one CUDA-graph launch with the rebuild decided
+on the device (its nodes under ``step_graph_nodes``), or with ``--eager``
+the same steps launched one by one with the rebuild flag read on the host
+every step; a tree whose package has no particle advance steps its
+``make_step`` in a Python loop (its rebuilds not counted). ``--engine
+slot`` steps the slot
 layout as ``run_simulation`` does on the cell grid: ``make_slot_advance``
 over one segment of the timed or profiled length (its lean inner steps, the
 rebuilds that come due, one full step at the end; each step one CUDA-graph
@@ -39,9 +46,11 @@ to issue a window's steps, and the kernels that take the most device
 time; for ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
-``--brownian`` (with ``slot``) steps ``chip_smoke.py``'s Brownian system
-instead (65,536 pseudo-hard spheres at rho 0.5, f32, Brownian(1.0), dt
-1e-5, from its jittered lattice, no melt) and no NVE segment.
+``--brownian`` (with ``slot`` or ``plane``, the latter compensated as
+``chip_smoke.py``'s Brownian path runs it) steps ``chip_smoke.py``'s
+Brownian system instead (65,536 pseudo-hard spheres at rho 0.5, f32,
+Brownian(1.0), dt 1e-5, from its jittered lattice, no melt) and no NVE
+segment.
 ``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
 instead, as ``chip_smoke.py`` builds it (2D, N = 65,536, rho 0.9, diameters
 U(0.8, 1.2), a user potential without a kernel functor, so every sweep is
@@ -83,20 +92,22 @@ def main():
                         default="cellgrid")
     parser.add_argument("--potential", choices=("lj", "user"), default="lj")
     parser.add_argument("--brownian", action="store_true",
-                        help="slot: the Brownian system")
+                        help="slot, plane: the Brownian system")
     parser.add_argument("--eager", action="store_true",
-                        help="slot: launch each step's kernels one by one")
+                        help="launch each step's kernels one by one")
     parser.add_argument("--tree", help="the checkout whose package to time")
     parser.add_argument("--plain-launch", action="store_true",
                         help="launch the small kernels in plain stream "
                              "order")
     args = parser.parse_args()
-    if args.eager and args.engine != "slot":
-        parser.error("--eager takes --engine slot")
+    if args.eager and args.engine == "sharded":
+        parser.error("--eager takes the one-device engines")
     if args.potential == "user" and args.engine not in ("slot", "sharded"):
         parser.error("--potential user takes --engine slot or sharded")
-    if args.brownian and (args.engine != "slot" or args.potential != "lj"):
-        parser.error("--brownian takes --engine slot and the LJ potential")
+    if args.brownian and (args.engine not in ("slot", "plane")
+                          or args.potential != "lj"):
+        parser.error("--brownian takes --engine slot or plane and the LJ "
+                     "potential")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
     if args.tree:
@@ -119,7 +130,7 @@ def profile(args, programmatic):
     programmatic dependents."""
     import mdtpu_torch as mt
     from mdtpu_torch.integrate import slot_step
-    from mdtpu_torch.integrate.step import make_md_step
+    from mdtpu_torch.integrate import step as step_mod
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
@@ -152,9 +163,9 @@ def profile(args, programmatic):
     engine = mt.select_engine(
         params.potential, cutoff, state,
         prefer="neighbor" if args.engine == "neighbor" else None)
-    compensated = args.engine != "plane"
+    compensated = args.engine != "plane" or args.brownian
     if args.engine == "plane":
-        engine = PlaneEngine.create(params.potential, 2.5, 0.3,
+        engine = PlaneEngine.create(params.potential, cutoff, 0.3,
                                     state.unitcell, N)
     if not args.brownian:
         with tempfile.TemporaryDirectory() as d:
@@ -193,19 +204,20 @@ def profile(args, programmatic):
             params, ensemble, engine, graph=False if args.eager else None)
         run, totals = slot_run(advance)
     else:
-        step = make_md_step(params, ensemble, engine, compensated)
-
-        def run(s, k):
-            for _ in range(k):
-                s = step(s)
-            return s
+        state = state.replace(nbrs=engine.allocate(
+            state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv))
+        advance = particle_advance(step_mod, params, ensemble, engine,
+                                   compensated, args.eager)
+        run, totals = slot_run(advance)
 
     state, metrics = measure(run, state)
     extra = {}
-    if args.engine == "slot":
+    if args.engine != "sharded":
         rebuilds = window_rebuilds(totals)
         metrics["step_graph_nodes"] = getattr(advance, "census", None)
-        if args.potential == "lj" and not args.brownian:
+        if (args.engine == "slot" and args.potential == "lj"
+                and not args.brownian):
             nve = slot_step.make_slot_advance(
                 params, mt.NVE(), engine, hilo=True,
                 graph=False if args.eager else None)
@@ -218,8 +230,9 @@ def profile(args, programmatic):
         "card": card, "engine": args.engine, "potential": args.potential,
         "ensemble": type(ensemble).__name__,
         "launch": "programmatic" if programmatic else "plain",
-        "route": ("eager" if args.eager else "graph")
-        if args.engine == "slot" else "eager",
+        "route": ("eager" if args.eager or not getattr(advance, "graph",
+                                                        False)
+                  else "graph") if args.engine != "sharded" else "eager",
         "compensated": compensated,
         "n": N, "grid": list(engine.grid),
         "capacity": engine.cell_capacity, **metrics,
@@ -231,6 +244,27 @@ def profile(args, programmatic):
         print(json.dumps({"card": card, "engine": "sharded",
                           **sharded_parts(engine, state)}))
         torch.distributed.destroy_process_group()
+
+
+def particle_advance(step_mod, params, ensemble, engine, compensated,
+                     eager):
+    """The particle-order advance of the package profiled: its
+    ``make_particle_advance`` (captured unless ``eager``); in a tree whose
+    package has none, its ``make_md_step`` in a Python loop, the rebuild
+    read on the host every step (``rebuilds`` stays 0: not counted)."""
+    make = getattr(step_mod, "make_particle_advance", None)
+    if make is not None:
+        return make(params, ensemble, engine, compensated,
+                    graph=False if eager else None)
+    step = step_mod.make_step(params, ensemble, engine, compensated)
+
+    def loop(s, k):
+        for _ in range(k):
+            s = step(s)
+        return s
+
+    loop.rebuilds = torch.zeros((), dtype=torch.int64)
+    return loop
 
 
 def slot_run(advance):

@@ -2888,3 +2888,297 @@ def test_captured_full_sweep_writes_its_scalars(cuda, kind):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ------------------------------------------------ the particle-order step
+
+def _particle_cell(name, L):
+    if name == "2d":
+        return np.eye(2) * L
+    if name == "tilted":
+        return np.array([[L, L / 8, L / 12], [0.0, L, L / 6], [0.0, 0.0, L]])
+    return np.eye(3) * L
+
+
+def _particle_rows(name, dtype, device, n=20001, seed=5):
+    """f, v, vc, x, xc (n, d) of ``dtype`` and images (n, d) int64 on the
+    card, the cell and its inverse: positions at fractional coordinates in
+    [-0.05, 1.05) of a box of side 40, so the wrap folds some."""
+    g = torch.Generator().manual_seed(seed)
+    cell = _particle_cell(name, 40.0)
+    d = cell.shape[0]
+    frac = torch.rand((n, d), generator=g, dtype=torch.float64) * 1.1 - 0.05
+    x = frac @ torch.as_tensor(cell).T
+    f = torch.randn((n, d), generator=g, dtype=torch.float64) * 30.0
+    v = torch.randn((n, d), generator=g, dtype=torch.float64) * 3.0
+    vc = torch.randn((n, d), generator=g, dtype=torch.float64) * 1e-8
+    xc = torch.randn((n, d), generator=g, dtype=torch.float64) * 1e-7
+    images = torch.randint(-3, 4, (n, d), generator=g)
+    c = torch.as_tensor(cell)
+    rows = [t.to(dtype).to(device) for t in (f, v, vc, x, xc)]
+    return rows, images.to(device), c.to(dtype).to(device), \
+        torch.linalg.inv(c).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("cell", ["cubic", "2d", "tilted"])
+@pytest.mark.parametrize("compensated", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_kick_drift_wrap_matches_plain_bit_for_bit(cuda, dtype, compensated,
+                                                   cell):
+    """The particle rows' kick-drift-wrap against its plain version on the
+    card's tensors (the torch composition with the wrap), bit for bit:
+    into new tensors (inputs untouched), twice alike, and in place, with
+    the hi/lo low word; one launch each."""
+    from mdtpu_torch.integrate import verlet_update as vu
+    (f, v, vc, x, xc), images, c, ci = _particle_rows(cell, dtype, cuda)
+    half, dt = 0.005, 0.01
+    keep = [t.clone() for t in (v, vc, x, xc, images)]
+    want = vu.kick_drift_wrap_plain(f, v, vc, x, xc, images, c, ci, half, dt,
+                                    compensated, compensated)
+    assert not torch.equal(want[4], images)        # some were folded
+    lo = torch.empty_like(xc) if compensated else None
+    n0 = vu.kick_drift_wrap.launches
+    got = vu.kick_drift_wrap(f, v, vc, x, xc, images, c, ci, half, dt,
+                             compensated, lo=lo)
+    again = vu.kick_drift_wrap(f, v, vc, x, xc, images, c, ci, half, dt,
+                               compensated)
+    torch.cuda.synchronize()
+    assert vu.kick_drift_wrap.launches == n0 + 2
+    for a, b, r in zip(got, want[:5], again):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    for a, b in zip((v, vc, x, xc, images), keep):
+        assert torch.equal(a, b)
+    if compensated:
+        assert torch.equal(lo, want[5])
+    else:
+        assert got[1] is vc and got[3] is xc
+    vu.kick_drift_wrap(f, v, vc, x, xc, images, c, ci, half, dt, compensated,
+                       out=(v, vc, x, xc, images))
+    for a, b in zip((v, vc, x, xc, images), want[:5]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["cubic", "2d", "tilted"])
+@pytest.mark.parametrize("compensated", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_brownian_rows_matches_plain_bit_for_bit(cuda, dtype, compensated,
+                                                 cell):
+    """The particle rows' Brownian move against its plain version on the
+    card (the torch composition, its noise from the ``uniform_noise``
+    kernel), bit for bit: a device counter past 2^32 and a host step, into
+    new tensors (twice alike) and in place; the virial's sample, the
+    temperature and the step."""
+    import types
+
+    from mdtpu_torch.integrate import verlet_update as vu
+    (f, _, _, x, xc), images, c, ci = _particle_rows(cell, dtype, cuda,
+                                                     seed=6)
+    coeffs = vu.brownian_coefficients(1e-3, 1.3, dtype)
+
+    def state_of(step):
+        return types.SimpleNamespace(
+            positions=x.clone(), pos_comp=xc.clone(), images=images.clone(),
+            unitcell=c, unitcell_inv=ci, seed=3, step=step, dtype=dtype,
+            device=x.device,
+            virial_accum=torch.tensor(2.5, dtype=dtype, device=cuda),
+            nprom=torch.tensor(4, device=cuda),
+            temperature=torch.tensor(0.0, dtype=dtype, device=cuda))
+
+    w = torch.tensor(-1234.5, dtype=dtype, device=cuda)
+    for step in (torch.tensor(2 ** 33 + 10, device=cuda), 123457):
+        st = state_of(step)
+        want = vu.brownian_rows_plain(f, w, st, *coeffs, compensated)
+        got = vu.brownian_rows(f, w, st, *coeffs, compensated)
+        again = vu.brownian_rows(f, w, st, *coeffs, compensated)
+        torch.cuda.synchronize()
+        for a, b, r in zip(got[:3] + got[4:], want, again[:3] + again[4:]):
+            assert torch.equal(a, b) and torch.equal(a, r)
+        assert int(got[3]) == int(step) + 1 == int(again[3])
+        assert not torch.equal(want[2], images)
+    st = state_of(torch.tensor(2 ** 33 + 8, device=cuda))
+    want = vu.brownian_rows_plain(f, w, st, *coeffs, compensated)
+    vu.brownian_rows(f, w, st, *coeffs, compensated, in_place=True)
+    for a, b in zip((st.positions, st.pos_comp, st.images, st.virial_accum,
+                     st.nprom, st.temperature), want):
+        assert torch.equal(a, b)
+    assert int(st.step) == 2 ** 33 + 9
+    assert int(st.nprom) == 5            # 2^33 + 8 is a multiple of 10
+
+
+@pytest.mark.parametrize("form", ["cell_cubic", "cell_tilted", "lengths_3d",
+                                  "lengths_2d"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rebuild_flag_rows_matches_plain(cuda, dtype, form):
+    """The particle rows' drift test against its plain version on the
+    card: row by row on displacements within 2% of skin/2 and at the
+    threshold's ulp (across the box's faces too), and on all rows at once
+    with none past it and with one; the flag written into ``out``."""
+    from mdtpu_torch.ops import philox_draws as draws
+    name = {"cell_tilted": "tilted", "lengths_2d": "2d"}.get(form, "cubic")
+    cell = torch.as_tensor(_particle_cell(name, 12.0), dtype=dtype)
+    d, skin, n = cell.shape[0], 0.3, 4096
+    g = torch.Generator().manual_seed(9)
+    frac = torch.rand((n, d), generator=g, dtype=torch.float64)
+    frac[::2, 0] = 0.001
+    ref = frac.to(dtype) @ cell.T
+    u = torch.randn((n, d), generator=g, dtype=torch.float64)
+    u = u / u.norm(dim=1, keepdim=True)
+    ratio = 0.98 + 0.04 * torch.rand((n, 1), generator=g,
+                                     dtype=torch.float64)
+    disp = (u * ratio * 0.5 * skin).to(dtype)
+    pos = ref + disp
+    pos = pos - torch.floor(pos @ torch.linalg.inv(cell).T) @ cell.T
+    box = (dict(cell=cell.to(cuda), cell_inv=torch.linalg.inv(cell).to(
+        cuda)) if form.startswith("cell")
+        else dict(lengths=torch.diagonal(cell).contiguous().to(cuda)))
+    pos, ref = pos.to(cuda).contiguous(), ref.to(cuda).contiguous()
+    disp = disp.to(cuda)
+    flags = []
+    out = torch.empty((), dtype=torch.bool, device=cuda)
+    for i in range(0, n, 16):
+        p, r = pos[i:i + 1], ref[i:i + 1]
+        mine = draws.rebuild_flag_rows(p, r, skin, out=out, **box)
+        plain = draws.rebuild_flag_rows_plain(p, r, skin, box.get("cell"),
+                                              box.get("cell_inv"),
+                                              box.get("lengths"))
+        assert mine is out and bool(mine) == bool(plain), i
+        flags.append(bool(mine))
+    assert 0 < sum(flags) < len(flags)
+    # All rows inside skin/2 but one: the flag follows that one.
+    inside = ref + disp * 0.5
+    assert not bool(draws.rebuild_flag_rows(inside, ref, skin, **box))
+    moved = inside.clone()
+    moved[n - 7] = ref[n - 7] + 0.2
+    for rows in (inside, moved):
+        a = draws.rebuild_flag_rows(rows, ref, skin, **box)
+        b = draws.rebuild_flag_rows_plain(rows, ref, skin, box.get("cell"),
+                                          box.get("cell_inv"),
+                                          box.get("lengths"))
+        assert bool(a) == bool(b)
+    assert bool(draws.rebuild_flag_rows(moved, ref, skin, **box))
+
+
+def _particle_case(name, device):
+    """A particle-order start on the card (20,000 particles, Brownian
+    8,000, the naive engine 2,000): its state
+    with engine state and forces, engine, params, ensemble, compensated,
+    hilo."""
+    from mdtpu_torch.ops.naive import NaivePairEngine
+    brown = name.startswith("brownian")
+    # The Brownian lattice's spacing at 8,000 (1.26) keeps every start
+    # pair past 0.9, so the first moves stay small.
+    n = 8000 if brown else 20000
+    dtype = torch.float64 if name.endswith("f64") else torch.float32
+    # A Brownian run moves less: a smaller skin rebuilds within 50 steps.
+    if brown:
+        pot, cutoff, rho, dt, skin = PseudoHS(), 1.5, 0.5, 1e-5, 0.1
+    else:
+        pot, cutoff, rho, dt, skin = LennardJones(r_cut=2.5), 2.5, 0.8, \
+            0.004, 0.3
+    st = lattice_fluid_state(n, rho, 1.2, dtype=dtype, cutoff=cutoff,
+                             jitter=0.05, device=device)
+    if name.startswith("neighbor"):
+        eng = mdtpu_torch.NeighborListEngine.create(pot, cutoff, skin,
+                                                    st.unitcell, n)
+    elif name.startswith("naive"):
+        n = 2000
+        st = lattice_fluid_state(n, rho, 1.2, dtype=dtype, cutoff=cutoff,
+                                 jitter=0.05, device=device)
+        eng = NaivePairEngine(pot, cutoff)
+    elif name.startswith("cellgrid"):
+        eng = CellGridEngine.create(pot, cutoff, skin, st.unitcell, n)
+    else:
+        eng = PlaneEngine.create(pot, cutoff, skin, st.unitcell, n)
+    ens = (mdtpu_torch.Brownian(1.0) if brown else mdtpu_torch.NVE()
+           if "nve" in name else mdtpu_torch.NVT(1.2, 0.4))
+    compensated = not (name.startswith("cellgrid") or name == "plane_nvt")
+    hilo = "hilo" in name
+    params = mdtpu_torch.Parameters(rho, n, dt, pot)
+    nbrs = eng.allocate(st.positions, st.diameters, st.unitcell,
+                        st.unitcell_inv)
+    if not brown:
+        e, w, f, nbrs = eng.compute(st.positions, st.diameters, st.unitcell,
+                                    st.unitcell_inv, nbrs)
+        st = st.replace(forces=f, energy=e, virial=w)
+    return st.replace(nbrs=nbrs), eng, params, ens, compensated, hilo
+
+
+PARTICLE_CASES = ("plane_nvt", "plane_nve_hilo", "neighbor_nvt",
+                  "neighbor_nve_f64", "naive_nvt", "cellgrid_nvt",
+                  "brownian_plane", "brownian_cellgrid_f64")
+
+
+@pytest.mark.parametrize("case", PARTICLE_CASES)
+def test_captured_particle_advance_equals_eager(cuda, case):
+    """The particle-order advance captured (one graph launch a step) and
+    eager (the flag read on the host), 50 steps in segments with at least
+    one rebuild: positions, velocities, forces, images, energy, virial,
+    every segment's numbers and the rebuild steps bit for bit; the
+    captured step's nodes (the drift test and the IF node where the engine
+    tests; no memset) and its launches counted at every replay."""
+    from mdtpu_torch.integrate import step as tstep
+    from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.ops import neighbor_list as nl
+    from mdtpu_torch.utils import counters
+    st, eng, params, ens, comp, hilo = _particle_case(case, cuda)
+    out = {}
+    for graph in (False, None):
+        advance = tstep.make_particle_advance(params, ens, eng, comp,
+                                              hilo=hilo, graph=graph)
+        counters.settle()
+        moves0 = vu.kick_drift_wrap.launches + vu.brownian_rows.launches
+        builds0 = nl.nl_build.launches
+        s, rows = st, []
+        for k in (1, 9, 25, 15):
+            s = advance(s, k)
+            rows.append(torch.stack([s.energy, s.virial, s.temperature,
+                                     s.virial_accum]).cpu())
+        counters.settle()
+        moves = vu.kick_drift_wrap.launches + vu.brownian_rows.launches
+        assert moves - moves0 == 50
+        assert advance.graph is (graph is None)
+        # A captured rebuild's launches count where its branch was taken.
+        assert nl.nl_build.launches - builds0 == (
+            len(advance.rebuild_steps()) if case.startswith("neighbor")
+            else 0)
+        out[graph] = (s, torch.stack(rows), advance.rebuild_steps(),
+                      advance.census)
+    (se, re, be, _), (sg, rg, bg, census) = out[False], out[None]
+    assert torch.equal(re, rg) and be == bg
+    if not case.startswith("naive"):
+        assert len(be) >= 1
+    for name in ("positions", "velocities", "forces", "images", "pos_comp",
+                 "vel_comp", "nprom"):
+        assert torch.equal(getattr(se, name), getattr(sg, name)), name
+    nodes = census["step"]
+    tests = 0 if case.startswith("naive") else 1
+    assert nodes["conditionals"] == nodes["rebuild_rows"] == tests, nodes
+    assert nodes["rebuild_flag"] == 0 and nodes["unreadable"] == 0, nodes
+    moves = (nodes["brownian_rows"] if case.startswith("brownian")
+             else nodes["kick_drift_wrap"])
+    assert moves == 1 and nodes["uniform_noise"] == 0, nodes
+
+
+def test_captured_steps_keep_the_reference_of_the_last_build(cuda):
+    """After captured in-place steps, the buffers' reference positions are
+    a tensor of their own: a step that does not rebuild leaves them as
+    they were and moves the positions."""
+    from mdtpu_torch.integrate import step as tstep
+    st, eng, params, ens, comp, hilo = _particle_case("neighbor_nvt", cuda)
+    advance = tstep.make_particle_advance(params, ens, eng, comp)
+    s = advance(st, 20)
+    b = advance.bufs
+    assert advance.graph and len(advance.rebuild_steps()) >= 1
+    assert b.nbrs.ref_positions.data_ptr() != b.positions.data_ptr()
+    for _ in range(10):
+        ref, pos = b.nbrs.ref_positions.clone(), b.positions.clone()
+        count = int(advance.rebuilds)
+        s = advance(s, 1)
+        if int(advance.rebuilds) == count:
+            assert torch.equal(b.nbrs.ref_positions, ref)
+            assert not torch.equal(b.positions, pos)
+            return
+    pytest.fail("every step rebuilt")
