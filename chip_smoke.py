@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the seven CUDA sources of ``mdtpu_torch/csrc`` and its host C++
+   builds the nine CUDA sources of ``mdtpu_torch/csrc`` and its host C++
    frame formatter (one ``nvcc`` or ``g++`` each, started together;
    ``-Xptxas -v`` summary: registers and spills of every entry of
    ``cell_sweep.cu`` and ``plane_sweep.cu``, the report lines of the probe,
@@ -280,7 +280,9 @@
    both; then one NVT and one NVE (hi/lo) segment of the bench's slot
    advance on each route, in turns (eager, captured, captured, eager),
    through ``profile_torch_step.measure``: host ms, the host's time to
-   issue a step, device busy ms and the idle share, kernel and graph
+   issue a step, device busy ms and the idle share (on a captured route,
+   whose kernels run inside a WHILE node that the profiler does not see,
+   null: there the device's span by CUDA events), kernel and graph
    launches, and host reads a step (none inside a captured segment, or the
    run fails), and each captured step's nodes read from its graph: one
    node for the drift test, one for the velocity finish, one conditional
@@ -304,7 +306,31 @@
    kick-drift-wrap or Brownian move, no noise kernel); then one segment of
    each route and ensemble profiled on each advance (host ms, busy ms,
    idle share, launches, graph launches and host reads a step: none in a
-   captured segment, or the run fails).
+   captured segment, or the run fails). Each captured segment is one
+   graph launch a step variant (a WHILE node loops the
+   step while the step counter is below the segment's end, ``step_below``
+   setting its handle; the rebuild's IF node nested in its body): the
+   captured routes above are held to the eager ones, the segment
+   profiles to one graph launch a variant (two in slots: the lean steps
+   and the full last step; one in particle order) and no host read.
+   FIRE phase: FIRE's kernels (``fire_reduce`` in one pass and in two
+   launches, ``fire_move``, ``fire_test``; ``csrc/fire_update.cu``)
+   against their plain versions at f32 and f64, in slots (3, 124,875) and
+   in particle rows (65,536, 3), to rel 1e-12 / 2e-6, flags and counters
+   equal, each twice bit for bit, timed by a graph of ``MANY_CALLS``
+   calls beside the launch floor; ``step_below`` against its plain
+   version. FIRE graph phase: FIRE captured (one graph launch a
+   minimization) against FIRE eager from one start at 65,536:
+   ``bench_fire.py``'s system in slots (20, then 200 iterations at tol 0,
+   one capture), the packer's start (converging at tol 1e-10),
+   ``PlaneEngine`` and the list in particle order (200 iterations):
+   positions, FIRE's velocities, forces, energy, virial, n_steps,
+   converged and the rebuild steps bit for bit; a census of each captured
+   minimization printed (graph launches and host reads by the profiler:
+   one launch, one read at the end; the WHILE body's nodes, one IF node
+   in it; the rebuilds), or the run fails. FIRE's kernels must carry the
+   FIRE, packing, sharded FIRE and user paths' updates (one launch each
+   an iteration; the sharded FIRE's reduction and test split three ways).
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -335,7 +361,7 @@ THERMO_EVERY, TRAJ_EVERY = 100, 500
 BROWNIAN_STEPS, BROWNIAN_THERMO_EVERY = 200, 100
 SOURCES = ("cell_sweep", "plane_sweep", "plane_probe", "cell_pairs",
            "rdf_histogram", "neighbor_list", "philox_draws", "verlet_update",
-           "lammps_format")
+           "fire_update", "lammps_format")
 PROBE_PATH = ("full_static", "full_static:15", "full:5")  # probe_kernel.py
 PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
                "full_static:15", "nodiv:5", "reduce_only:15")
@@ -3184,10 +3210,12 @@ EXAMPLE_KERNELS = {"01_pseudohs_nvt_nve": ("cell_sweep", "cell_sweep_hilo"),
                    "05_sharded_multichip": ("cell_sweep_slab",)}
 
 
-# The kernels of the particle-order step besides the draws' (the naive
-# engine's steps at the examples' published sizes launch these).
+# The kernels of the particle-order step and of FIRE besides the draws'
+# (the naive engine's steps and minimizations at the examples' published
+# sizes launch these; a captured segment's loop test too).
 PARTICLE_CHAIN = ("verlet_kick", "verlet_rescale", "kick_drift_wrap",
-                  "brownian_rows", "rebuild_flag_rows")
+                  "brownian_rows", "rebuild_flag_rows", "step_below",
+                  "fire_reduce", "fire_move", "fire_test")
 
 
 def examples_phase(mt, workdir):
@@ -4344,7 +4372,8 @@ def particle_paths(mt, workdir):
                     prm, ensembles[ens], eng, comp, hilo=hilo,
                     graph=None if route == "graph" else False)
                 _, metrics = measure(advance, st, n_timed=100,
-                                     n_profiled=30)
+                                     n_profiled=30,
+                                     looped=lambda: bool(advance.graph))
                 metrics.pop("top_device_kernels")
                 metrics["rebuilds"] = int(advance.rebuilds)
                 profiles[route] = metrics
@@ -4353,8 +4382,10 @@ def particle_paths(mt, workdir):
             key = f"{name}_{ens}" + ("_hilo" if hilo else "")
             log(json.dumps({"particle_segment_profile": key,
                             "nodes": nodes, **profiles}))
-            if (profiles["graph"]["host_syncs_per_step"]
-                    or profiles["graph"]["graph_launches_per_step"] != 1.0):
+            graph_launches = (profiles["graph"]["graph_launches_per_step"]
+                              * profiles["graph"]["profiled_steps"])
+            if profiles["graph"]["host_syncs_per_step"] or round(
+                    graph_launches) != 1:
                 failures.append(f"particle {key}: host reads or graph "
                                 f"launches inside a captured segment "
                                 f"{profiles['graph']}")
@@ -4427,8 +4458,9 @@ def graph_paths(mt, workdir):
     velocities, every thermo row and the rebuild steps equal bit for bit;
     steps/s of both. Then one NVT and one NVE segment of the bench's slot
     advance on each route through ``profile_torch_step.measure``: host ms,
-    device busy ms, the idle share, launches, graph launches and host reads
-    a step, and the nodes of each captured step (one for the drift test,
+    device busy ms and the idle share (captured: the device's span by CUDA
+    events instead), launches, graph launches and host reads a step, and
+    the nodes of each captured step (one for the drift test,
     one for the velocity finish, no memset)."""
     from mdtpu_torch.integrate import slot_step
     from profile_torch_step import measure
@@ -4533,7 +4565,8 @@ def graph_paths(mt, workdir):
             advance = slot_step.make_slot_advance(
                 bench, ensemble, eng, hilo=hilo,
                 graph=False if route == "eager" else None)
-            _, metrics = measure(advance, slots)
+            _, metrics = measure(advance, slots,
+                                 looped=lambda: bool(advance.graph))
             metrics.pop("top_device_kernels")
             profiles[route].append(metrics)
             if route == "graph":
@@ -4542,9 +4575,14 @@ def graph_paths(mt, workdir):
             log(json.dumps({"graph_segment_profile": route,
                             "ensemble": ens_name, "turns": ms}))
         log(json.dumps({"graph_step_nodes": ens_name, **census}))
-        if any(m["host_syncs_per_step"] for m in profiles["graph"]):
-            failures.append(f"graph {ens_name}: host reads inside a "
-                            f"captured segment {profiles['graph']}")
+        # A captured segment is one graph launch a step variant (the lean
+        # steps' WHILE node, the full last step's).
+        if any(m["host_syncs_per_step"] or round(
+                m["graph_launches_per_step"] * m["profiled_steps"]) != 2
+               for m in profiles["graph"]):
+            failures.append(f"graph {ens_name}: host reads or graph "
+                            f"launches inside a captured segment "
+                            f"{profiles['graph']}")
         # One node each for the drift test (no memset, no kernel copying
         # the flag into the handle) and the velocity finish; the rebuild
         # in one conditional node.
@@ -4584,6 +4622,413 @@ def lattice_start():
                                cutoff=2.5, jitter=0.01, device="cuda")
 
 
+FIRE_SOURCE = "mdtpu_torch/csrc/fire_update.cu"
+FIRE_REPLACES = {"fire_reduce": "mdtpu/minimize/fire.py:323",
+                 "fire_move": "mdtpu/minimize/fire.py:355",
+                 "fire_test": "mdtpu/minimize/fire.py:299"}
+FIRE_COVERS = {
+    "fire_reduce": ("mdtpu/minimize/fire.py:325-353 fire_step's kick, "
+                    "maxima, max-scaled sums and scalar tail (:179-204 in "
+                    "particle order; XLA inside the while_loop, no "
+                    "pl.pallas_call)"),
+    "fire_move": ("mdtpu/minimize/fire.py:355-367 the mix, the capped "
+                  "displacement and the move (:209-217 in particle order, "
+                  "with the wrap; XLA)"),
+    "fire_test": ("mdtpu/minimize/fire.py:299-302 g_f_rms and the "
+                  "while_loop's cond (:386-410, :171-172; XLA)")}
+FIRE_TOL = {torch.float64: 1e-12, torch.float32: 2e-6}
+# The kernel check's cases: the power positive, negative, positive past
+# n_min with ~1e25 forces and dt clamped at dt_max, v = F = 0, and the
+# sticky overflow flag set.
+FIRE_CASES = ("positive", "negative", "grow", "rest", "overflow")
+# Arrays of the (d, S) or (N, d) shape each kernel reads or writes once:
+# fire_reduce reads v and F; fire_move reads x, v and F and writes x and v
+# (rows also read and write the int64 images); fire_test reads F.
+FIRE_ARRAYS = {"fire_reduce": 2, "fire_move": 5, "fire_test": 1}
+# Operations a value: the kick (2), two abs and maxima (4), two divisions,
+# three products and three sums (8) in fire_reduce; the kick and the mix
+# (6), disp (1), the norm's max, division, square and sum (4), the cap's
+# product and the add (2) in fire_move; abs, max, division, square and sum
+# in fire_test (5).
+OPS_FIRE_VALUE = {"fire_reduce": 14, "fire_move": 13, "fire_test": 5}
+# The fire graph phase: name: (engine kind, system, [(max_steps, tol)]).
+FIRE_SYSTEMS = {
+    "bench_fire": ("slots", "lattice", [(N_FIRE_DESCENT, 0.0),
+                                        (N_FIRE_ITERS, 0.0)]),
+    "pack": ("slots", "pack", [(2000, 1e-10)]),
+    "plane": ("plane", "lattice", [(N_FIRE_ITERS, 0.0)]),
+    "list": ("neighbor", "lattice", [(N_FIRE_ITERS, 0.0)]),
+}
+
+
+def fire_bound(name, shape, dtype, images=False):
+    """The least time of one call of FIRE kernel ``name`` on values of
+    ``shape`` in ``dtype``: its arrays read and written once (the images
+    too where it wraps), or its operations at the card's rate."""
+    n = math.prod(shape)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = FIRE_ARRAYS[name] * n * size + (2 * n * 8 if images else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_FIRE_VALUE[name] * n / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fire_check(mt):
+    """FIRE's three kernels (``minimize/fire_update.py``) against their
+    plain versions on the card, at f32 and f64, in slots (the bench_fire
+    cell grid's (3, 124,875)) and in particle rows ((65,536, 3), with the
+    wrap), in each case of :data:`FIRE_CASES` (every branch of the tail,
+    the one-pass rescaling of ~1e25 forces, the overflow guard): from one
+    set of FIRE buffers, ``fire_reduce`` in one pass and split as the shard
+    ring launches it (every scalar and the reductions to rel 1e-12 at f64,
+    2e-6 at f32, do_mix, positive and the step counters equal),
+    ``fire_move`` on the plain reduction's scalars (positions and
+    velocities to the same relative tolerance of their largest value, the
+    images equal), ``fire_test`` in one pass and split (f_rms to the same,
+    the step, the flags and converged equal); each kernel twice on the
+    same inputs bit for bit. Each timed by :func:`many_ms` (a graph of
+    ``MANY_CALLS`` in-place calls, the positive case), its plain version
+    the same way, beside the launch floor and its bound."""
+    from mdtpu_torch.minimize import fire_update as fu
+    hyper = fu.FireHyper()
+    slots_shape = (3, BENCH_GEOMETRY[1] * math.prod(BENCH_GEOMETRY[0]))
+    rows_shape = (N_BENCH, 3)
+    failures, results, errors = [], {}, {}
+    ring = (fu.MAXIMA, fu.SUMS, fu.TAIL)
+
+    def inputs(shape, dtype, rows, case="positive"):
+        g = torch.Generator(device="cuda").manual_seed(21)
+        f = torch.randn(shape, device="cuda", generator=g) * 30.0
+        v = torch.randn(shape, device="cuda", generator=g)
+        x = torch.rand(shape, device="cuda", generator=g) * 40.0
+        if case == "grow":
+            f = f * (1e25 / 30.0)
+        # v + dt F against F: positive, negative (v' = -r - 0.02 F).
+        v = -v - 0.05 * f if case == "negative" else v + 0.01 * f
+        if case == "rest":
+            v, f = torch.zeros_like(v), torch.zeros_like(f)
+        cell = torch.eye(3, device="cuda", dtype=dtype) * 40.3
+        img = torch.zeros(shape, dtype=torch.int64, device="cuda")
+        scal, ints, red, work, flags = fu.buffers(dtype, "cuda",
+                                                  math.prod(shape))
+        # grow: the steps since a negative power past n_min, dt * f_inc
+        # past dt_max.
+        scal[fu.DT] = 0.09 if case == "grow" else 0.03
+        scal[fu.ALPHA], scal[fu.TOL] = 0.07, 1e-3
+        ints[fu.SSN], ints[fu.MAX_STEPS] = (7 if case == "grow" else 2), 10
+        box = dict(images=img, cell=cell,
+                   cell_inv=torch.linalg.inv(cell)) if rows else {}
+        over = torch.tensor(case == "overflow", device="cuda")
+        return ([t.to(dtype) for t in (f, v, x)], box,
+                (scal, ints, red, work, flags), over)
+
+    def copies(bufs):
+        return tuple(t.clone() for t in bufs)
+
+    def rel_err(a, b):
+        """Arrays: the largest difference over the largest value."""
+        a, b = a.double(), b.double()
+        scale = max(float(b.abs().max()), 1e-300)
+        return float((a - b).abs().max()) / scale
+
+    def rel_each(a, b):
+        """Scalars: the largest difference, each over its own value."""
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / b.abs().clamp(min=1e-300)).max())
+
+    for layout, shape in (("slots", slots_shape), ("rows", rows_shape)):
+        rows = layout == "rows"
+        for dtype, case in itertools.product(
+                (torch.float32, torch.float64), FIRE_CASES):
+            tol = FIRE_TOL[dtype]
+            key = f"{layout}_{str(dtype)[6:]}_{case}"
+            (f, v, x), box, bufs, over = inputs(shape, dtype, rows, case)
+            errs, same = {}, True
+            # fire_reduce, in one pass and split, against the plain.
+            p = copies(bufs)
+            fu.fire_reduce_plain(v, f, p[0], p[1], p[2][:fu.RED], hyper,
+                                 over)
+            for label, modes in (("reduce", (fu.ONE_PASS,)),
+                                 ("reduce_ring", ring)):
+                k = copies(bufs)
+                for mode in modes:
+                    fu.fire_reduce(v, f, k[0], k[1], k[2][:fu.RED], k[3],
+                                   hyper, over, mode=mode)
+                errs[label] = max(rel_each(k[0], p[0]),
+                                  rel_each(k[2][:fu.RED], p[2][:fu.RED]))
+                same &= torch.equal(k[1], p[1])
+            again = copies(bufs)
+            fu.fire_reduce(v, f, again[0], again[1], again[2][:fu.RED],
+                           again[3], hyper, over)
+            k1 = copies(bufs)
+            fu.fire_reduce(v, f, k1[0], k1[1], k1[2][:fu.RED], k1[3], hyper,
+                           over)
+            same &= torch.equal(again[0], k1[0]) and torch.equal(
+                again[2], k1[2])
+            # fire_move from the plain reduction's scalars.
+            xs = [x.clone() for _ in range(3)]
+            vs = [v.clone() for _ in range(3)]
+            imgs = [box["images"].clone() for _ in range(3)] if rows else [
+                None] * 3
+            extra = dict(cell=box["cell"], cell_inv=box["cell_inv"]) \
+                if rows else {}
+            fu.fire_move_plain(xs[0], vs[0], f, p[0], p[1], hyper.dmax, rows,
+                               imgs[0], *(extra.values()), overflow=over)
+            for i in (1, 2):
+                fu.fire_move(xs[i], vs[i], f, p[0], p[1], hyper.dmax,
+                             rows=rows, images=imgs[i], overflow=over,
+                             **extra)
+            errs["move"] = max(rel_err(xs[1], xs[0]), rel_err(vs[1], vs[0]))
+            same &= torch.equal(xs[1], xs[2]) and torch.equal(vs[1], vs[2])
+            if rows:
+                same &= torch.equal(imgs[1], imgs[0]) and torch.equal(
+                    imgs[1], imgs[2])
+            # fire_test, in one pass and split.
+            tp = copies(p)
+            fu.fire_test_plain(f, tp[0], tp[1], tp[2][fu.RED:], 17.0, tp[4],
+                               overflow=over)
+            for label, modes in (("test", (fu.ONE_PASS,)),
+                                 ("test_ring", ring)):
+                tk, tk2 = copies(p), copies(p)
+                for t in (tk, tk2):
+                    for mode in modes:
+                        fu.fire_test(f, t[0], t[1], t[2][fu.RED:], t[3], 17.0,
+                                     t[4], overflow=over, mode=mode)
+                errs[label] = rel_each(tk[0], tp[0])
+                same &= (torch.equal(tk[1], tp[1])
+                         and torch.equal(tk[4], tp[4])
+                         and torch.equal(tk[0], tk2[0])
+                         and torch.equal(tk[1], tk2[1]))
+            errors[key] = errs
+            if not same or max(errs.values()) > tol:
+                failures.append(f"fire kernels {key}: errors {errs}, flags, "
+                                f"counters and repeats equal {same}")
+    log(json.dumps({"fire_kernel_errors": errors}))
+    # Times at the bench_fire slots and the particle rows, float32.
+    floor = launch_floor_ms()
+    for layout, shape in (("slots", slots_shape), ("rows", rows_shape)):
+        rows = layout == "rows"
+        (f, v, x), box, (scal, ints, red, work, flags), _ = inputs(
+            shape, torch.float32, rows)
+        extra = dict(box) if rows else {}
+        plain_box = (box["images"], box["cell"], box["cell_inv"]) \
+            if rows else ()
+        calls = {
+            "fire_reduce": (
+                lambda: fu.fire_reduce(v, f, scal, ints, red[:fu.RED], work,
+                                       hyper),
+                lambda: fu.fire_reduce_plain(v, f, scal, ints, red[:fu.RED],
+                                             hyper)),
+            "fire_move": (
+                lambda: fu.fire_move(x, v, f, scal, ints, hyper.dmax,
+                                     rows=rows, **extra),
+                lambda: fu.fire_move_plain(x, v, f, scal, ints, hyper.dmax,
+                                           rows, *plain_box)),
+            "fire_test": (
+                lambda: fu.fire_test(f, scal, ints, red[fu.RED:], work, 17.0,
+                                     flags),
+                lambda: fu.fire_test_plain(f, scal, ints, red[fu.RED:], 17.0,
+                                           flags)),
+        }
+        for name, (kernel, plain) in calls.items():
+            b, by = fire_bound(name, shape, torch.float32,
+                               images=rows and name == "fire_move")
+            rec = {"max_abs_err": max(
+                       max(e.values()) for k, e in errors.items()
+                       if k.startswith(f"{layout}_float32_")),
+                   "ms": many_ms(kernel), "plain_ms": many_ms(plain),
+                   "plain_timing": "a graph of the composition's calls, as "
+                                   "ms",
+                   "bound_ms": b, "bound_by": by,
+                   "bound_meetable_ms": max(b, floor),
+                   "launch_floor_ms": floor, "library_ms": None,
+                   "library_call": "none, no single PyTorch call",
+                   "shape": list(shape), "dtype": "float32"}
+            results[f"{name}_{layout}"] = rec
+            log(json.dumps({"fire_kernel": name, "layout": layout, **rec}))
+    # The captured segment's loop test, against its plain version.
+    from mdtpu_torch.ops import philox_draws as draws
+    counter = torch.tensor(599, device="cuda")
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    for end in (598, 599, 600):
+        end = torch.tensor(end, device="cuda")
+        draws.step_below(counter, end, flag)
+        if bool(flag) != bool(draws.step_below_plain(counter, end)):
+            failures.append(f"step_below at end {int(end)}")
+    b = 17 / HBM_BYTES_PER_S * 1e3
+    results["step_below"] = {
+        "max_abs_err": 0.0, "ms": many_ms(
+            lambda: draws.step_below(counter, end, flag)),
+        "plain_ms": many_ms(lambda: flag.copy_(draws.step_below_plain(
+            counter, end))),
+        "plain_timing": "a graph of the composition's calls, as ms",
+        "bound_ms": b, "bound_by": "bytes", "bound_meetable_ms": floor,
+        "launch_floor_ms": floor, "library_ms": None,
+        "library_call": "none, no single PyTorch call",
+        "covers": "the while_loop's cond of mdtpu/integrate/slot_step.py:"
+                  "642-690 (XLA)"}
+    log(json.dumps({"step_below": results["step_below"]}))
+    return results, failures
+
+
+def _fire_start(mt, system):
+    """A FIRE phase's start at 65,536, f32: bench_fire.py's jittered
+    lattice (LJ r_c 2.5, rho 0.8) or the packer's uniform draw (the overlap
+    potential, tol 1, rho 0.8); ``(state, params)``."""
+    from mdtpu_torch.potentials.overlap import OverlapPotential
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                lattice_fluid_state)
+    from mdtpu_torch.sim.pack import uniform_fractions
+    if system == "lattice":
+        state = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                    cutoff=2.5, jitter=0.05, device="cuda")
+        return state, mt.Parameters(density=0.8, n_particles=N_BENCH,
+                                    dt=0.002,
+                                    potential=mt.LennardJones(r_cut=2.5))
+    length = (N_BENCH / PACK_DENSITY) ** (1 / 3)
+    cell = torch.eye(3, dtype=torch.float32, device="cuda") * length
+    frac = uniform_fractions(0, (N_BENCH, 3), torch.float32, "cuda")
+    state = build_state_from_arrays(frac * length, torch.ones(N_BENCH), cell,
+                                    0, dtype=torch.float32, cutoff=1.0,
+                                    device="cuda")
+    pot = OverlapPotential(tol=1.0)
+    return state, mt.Parameters(density=PACK_DENSITY, n_particles=N_BENCH,
+                                dt=0.0, potential=pot)
+
+
+def fire_graph_paths(mt):
+    """FIRE captured (one graph launch a minimization, the default on the
+    card) against FIRE eager (``graph=False``, the flags read on the host
+    each iteration) from one start, at 65,536: ``bench_fire.py``'s system
+    in slots, 20 then 200 iterations at tol 0 (the second call replays the
+    first's graph); the packer's start in slots (the overlap potential,
+    converging at tol 1e-10, dt_max 0.15); and particle-order FIRE on
+    ``PlaneEngine`` and on the list (200 iterations). Positions,
+    velocities (FIRE's own), energy, n_steps, converged and the rebuild
+    steps bit for bit. A census of each captured minimization: graph
+    launches and host reads inside it (``torch.profiler``: one launch, the
+    one read of the result at its end), the WHILE body's nodes, rebuilds
+    and iterations/s both ways."""
+    from mdtpu_torch.integrate import slot_step as slots
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.ops.experimental import PlaneEngine
+
+    failures, rec = [], {}
+    for name, (kind, system, calls) in FIRE_SYSTEMS.items():
+        start, params = _fire_start(mt, system)
+        pot, cutoff = params.potential, (1.0 if system == "pack" else 2.5)
+        if kind == "slots":
+            engine = mt.select_engine(pot, cutoff, start, workload="minimize")
+        elif kind == "plane":
+            engine = PlaneEngine.create(pot, cutoff, 0.3, start.unitcell,
+                                        N_BENCH)
+        else:
+            engine = mt.select_engine(pot, cutoff, start, prefer="neighbor")
+        hyper = dict(dt_max=0.15) if system == "pack" else {}
+        if kind == "slots":
+            start, engine = slots.slotify_grown(start, engine)
+        else:
+            # The engine state built outside the timed and profiled calls.
+            start = start.replace(nbrs=engine.allocate(
+                start.positions, start.diameters, start.unitcell,
+                start.unitcell_inv))
+        def minimize(graph, max_steps, tol):
+            """One minimization from the start: ``(state, converged,
+            n_steps, overflow, its DeviceFire)``."""
+            if kind == "slots":
+                run = fire_mod.make_slot_fire(engine, max_steps=max_steps,
+                                              tol=tol, graph=graph, **hyper)
+                st, _, conv, n, ovf = run(start)
+                return st, conv, n, ovf, run.fire
+            run = fire_mod.make_row_fire(engine, max_steps=max_steps,
+                                         tol=tol, graph=graph)
+            st, _, conv, n = run(start)
+            return st, conv, n, False, run.fire
+
+        runs = {}
+        for route, graph in (("eager", False), ("graph", None)):
+            outs = []
+            for max_steps, tol in calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, conv, n, ovf, fire = minimize(graph, max_steps, tol)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                velocities = (st.velocities if kind == "slots"
+                              else fire.bufs[1].v).clone()
+                outs.append({"state": st, "v": velocities, "n": n,
+                             "converged": conv, "overflow": ovf,
+                             "rebuilds": fire.rebuild_steps(),
+                             "seconds": seconds, "fire": fire})
+            runs[route] = outs
+        rec[name] = {"calls": []}
+        for e, g, (max_steps, tol) in zip(runs["eager"], runs["graph"],
+                                          calls):
+            same = {f: torch.equal(getattr(e["state"], f),
+                                   getattr(g["state"], f))
+                    for f in ("positions", "forces", "energy", "virial")}
+            same["velocities"] = torch.equal(e["v"], g["v"])
+            if not (all(same.values()) and e["n"] == g["n"]
+                    and e["converged"] == g["converged"]
+                    and e["rebuilds"] == g["rebuilds"]):
+                failures.append(f"fire graph {name} ({max_steps}): the "
+                                f"routes differ: {same}, n {e['n']} vs "
+                                f"{g['n']}, rebuilds {len(e['rebuilds'])} "
+                                f"vs {len(g['rebuilds'])}")
+            if g["fire"].captured is None or e["fire"].graph is not False:
+                failures.append(f"fire graph {name}: a run took the other "
+                                f"route")
+            if not (tol > 0 and g["converged"] or g["n"] == max_steps):
+                failures.append(f"fire graph {name}: {g['n']} iterations, "
+                                f"converged {g['converged']}")
+            if g["overflow"] or not g["rebuilds"]:
+                failures.append(f"fire graph {name}: overflow "
+                                f"{g['overflow']}, rebuilds {g['rebuilds']}")
+            rec[name]["calls"].append({
+                "max_steps": max_steps, "tol": tol, "n_steps": g["n"],
+                "converged": g["converged"], "rebuilds": len(g["rebuilds"]),
+                "rebuild_steps": g["rebuilds"][:64],
+                "iterations_per_s_graph": g["n"] / g["seconds"],
+                "iterations_per_s_eager": e["n"] / e["seconds"],
+                "seconds_graph": g["seconds"],
+                "seconds_eager": e["seconds"]})
+        # The census of a captured minimization: one more call, profiled.
+        fire = runs["graph"][-1]["fire"]
+        max_steps, tol = calls[-1]
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            minimize(None, max_steps, tol)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+
+        def count(*names):
+            return sum(e.count for e in avgs if e.key in names)
+
+        census = {
+            "graph_launches": count("cudaGraphLaunch"),
+            "host_reads": count("cudaStreamSynchronize",
+                                "cudaEventSynchronize"),
+            "kernel_launches": count("cudaLaunchKernel",
+                                     "cudaLaunchKernelExC",
+                                     "cuLaunchKernel", "cuLaunchKernelEx"),
+            "pass_nodes": {k: fire.census["pass"][k] for k in (
+                "nodes", "kernels", "copies", "memsets", "conditionals")},
+            "graph_nodes": {k: fire.census["graph"][k] for k in (
+                "nodes", "kernels", "copies", "memsets", "conditionals")},
+            "rebuilds": len(fire.rebuild_steps())}
+        rec[name]["census"] = census
+        # One graph launch, the one read of the result (no read inside),
+        # the loop one WHILE node whose body holds the rebuild's IF node
+        # (slots: the pass's trailing rebin; particle order: the engine's).
+        if (census["graph_launches"] != 1 or census["host_reads"] != 1
+                or census["pass_nodes"]["conditionals"] != 1
+                or census["graph_nodes"]["conditionals"] < 1):
+            failures.append(f"fire graph {name}: census {census}")
+        log(json.dumps({"fire_graph_path": name, **rec[name]}))
+    return rec, failures
+
+
 def reset_counts():
     """Every kernel wrapper's launch counts and the slot step's and the
     particle advance's step counts to 0."""
@@ -4591,6 +5036,7 @@ def reset_counts():
     from mdtpu_torch.integrate import step as step_mod
     from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.minimize import fire_update as fu
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
@@ -4601,6 +5047,7 @@ def reset_counts():
     counters.settle()
     vf.velocity_finish.launches = 0
     vu.reset_launches()
+    fu.reset_launches()
     cs.reset_launches()
     cp.reset_launches()
     draws.reset_launches()
@@ -4617,6 +5064,7 @@ def launch_counts():
     first: one host read)."""
     from mdtpu_torch.integrate import velocity_finish as vf
     from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.minimize import fire_update as fu
     from mdtpu_torch.ops import cell_pairs as cp
     from mdtpu_torch.ops import cell_sweep as cs
     from mdtpu_torch.ops import neighbor_list as nl
@@ -4653,7 +5101,11 @@ def launch_counts():
         "brownian_update": vu.brownian_update.launches,
         "kick_drift_wrap": vu.kick_drift_wrap.launches,
         "brownian_rows": vu.brownian_rows.launches,
-        "rebuild_flag_rows": draws.rebuild_flag_rows.launches}
+        "rebuild_flag_rows": draws.rebuild_flag_rows.launches,
+        "step_below": draws.step_below.launches,
+        "fire_reduce": fu.fire_reduce.launches,
+        "fire_move": fu.fire_move.launches,
+        "fire_test": fu.fire_test.launches}
 
 
 def own_launches(n):
@@ -4689,7 +5141,9 @@ def own_launches(n):
         "brownian_update": n["brownian_update"],
         "kick_drift_wrap": n["kick_drift_wrap"],
         "brownian_rows": n["brownian_rows"],
-        "rebuild_flag_rows": n["rebuild_flag_rows"]}
+        "rebuild_flag_rows": n["rebuild_flag_rows"],
+        "step_below": n["step_below"], "fire_reduce": n["fire_reduce"],
+        "fire_move": n["fire_move"], "fire_test": n["fire_test"]}
 
 
 def run_paths(mt, workdir):
@@ -4921,6 +5375,30 @@ def run_paths(mt, workdir):
                             f"steps captured, not {want}")
     if fire["launches"]["cell_sweep_lean"] != N_FIRE_ITERS + N_FIRE_DESCENT:
         failures.append(f"fire: launches {fire['launches']}")
+    # FIRE's update runs through its three kernels, one launch each an
+    # iteration (the test once more at each minimization's entry), and its
+    # slots' drift test once an iteration; the sharded FIRE launches the
+    # reduction and the test three ways apart (the ring's all-reduces
+    # between), the user path (config 4, eager) as the slot FIRE does. No
+    # torch composition of the update is left to count.
+    iters = N_FIRE_ITERS + N_FIRE_DESCENT
+    n = fire["launches"]
+    if (n["fire_reduce"] != iters or n["fire_move"] != iters
+            or n["fire_test"] != iters + 2 or n["rebuild_flag"] != iters):
+        failures.append(f"fire: FIRE kernel launches {n}")
+    n = pack["launches"]
+    if (n["fire_reduce"] < 1 or n["fire_move"] != n["fire_reduce"]
+            or n["fire_test"] <= n["fire_reduce"]):
+        failures.append(f"pack: FIRE kernel launches {n}")
+    n = sharded_fire["launches"]
+    if (n["fire_reduce"] != 3 * N_FIRE_DESCENT
+            or n["fire_move"] != N_FIRE_DESCENT
+            or n["fire_test"] != 3 * (N_FIRE_DESCENT + 1)):
+        failures.append(f"sharded fire: FIRE kernel launches {n}")
+    n = user["launches"]
+    if (n["fire_reduce"] < user["fire_iterations"]
+            or n["fire_move"] != n["fire_reduce"]):
+        failures.append(f"user: FIRE kernel launches {n}")
     if pack["launches"]["cell_sweep_lean"] < 1:
         failures.append(f"pack: launches {pack['launches']}")
     return {"b1": b1, "b2": b2, "brownian": bd, "brownian_slot": bds,
@@ -5005,6 +5483,8 @@ def main():
     failures += brownian_failures
     particle_results, particle_failures = particle_check(mt)
     failures += particle_failures
+    fire_results, fire_failures = fire_check(mt)
+    failures += fire_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         paths, path_failures = run_paths(mt, workdir)
@@ -5017,6 +5497,10 @@ def main():
         particle_rec, particle_path_failures = particle_paths(mt, workdir)
         failures += particle_path_failures
         log(f"particle-order phase: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        fire_rec, fire_graph_failures = fire_graph_paths(mt)
+        failures += fire_graph_failures
+        log(f"fire graph phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -5321,10 +5805,43 @@ def main():
             kname, DRAWS_SOURCE if kname == "rebuild_flag_rows"
             else VERLET_SOURCE, PARTICLE_REPLACES[kname],
             by_path[path][kname], main_rec, extra))
+    # FIRE's update (XLA in the JAX package's while_loop, no
+    # pl.pallas_call): the bench_fire slots at f32, the particle rows
+    # beside, the launches on the fire path and the other FIRE paths, the
+    # census of each captured minimization.
+    for kname in ("fire_reduce", "fire_move", "fire_test"):
+        main_rec = fire_results[f"{kname}_slots"]
+        extra = {k: v for k, v in main_rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        extra.update(
+            covers=FIRE_COVERS[kname], kernel="scaled_reduce_kernel"
+            if kname != "fire_move" else "fire_move_kernel",
+            rows={k: fire_results[f"{kname}_rows"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "shape")},
+            launches_pack=by_path["pack"][kname],
+            launches_sharded_fire=by_path["sharded_fire"][kname],
+            launches_user=by_path["user"][kname],
+            minimizations={k: r["census"] for k, r in fire_rec.items()})
+        kernels["kernels"].append(entry(kname, FIRE_SOURCE,
+                                        FIRE_REPLACES[kname],
+                                        by_path["fire"][kname], main_rec,
+                                        extra))
+    # The captured segment's loop test (the while_loop's cond, XLA): its
+    # launches on the B1 path (one a step and one at each segment's start).
+    rec = fire_results["step_below"]
+    kernels["kernels"].append(entry(
+        "step_below", DRAWS_SOURCE, "mdtpu/integrate/slot_step.py:642",
+        by_path["b1"]["step_below"], rec,
+        {k: v for k, v in rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}))
     log(json.dumps({"particle_segment_profile": {
         k: {route: {m: p[m] for m in (
             "ms_per_step_host_clock", "device_busy_ms_per_step",
-            "device_idle_share_timed", "kernel_launches_per_step",
+            "device_idle_share_timed", "device_span_ms_per_step",
+            "device_idle_share_outside_span", "kernel_launches_per_step",
             "graph_launches_per_step", "host_syncs_per_step")}
             for route, p in r["profiles"].items()}
         for k, r in particle_rec["segment_profile"].items()},

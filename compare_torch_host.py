@@ -29,12 +29,19 @@ list) and the Brownian paths on ``PlaneEngine`` and in slots of its
 Brownian slot step, and the ``b1`` and Brownian-in-slots paths alone (~6
 min); ``--only particle``: the particle-order steps (cell grid,
 ``PlaneEngine``, list, Brownian on ``PlaneEngine``; captured and eager)
-and the ``b2``, ``nl`` and Brownian paths alone. The host's clock moves
+and the ``b2``, ``nl`` and Brownian paths alone; ``--only fire``: the
+captured slot step (NVT and NVE), ``chip_smoke.py``'s FIRE path (20 then
+200 iterations on ``bench_fire.py``'s system, its iterations/s) and its
+packing path (65,536 at rho 0.8: seconds and FIRE's iterations). The
+host's clock moves
 with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
-ms, idle share, launches, host reads and the kernels and memsets the device
-ran per step (the NVE segment's under ``nve``), the velocity finish's,
+ms, idle share, the device's span by CUDA events, launches, host reads and
+the kernels and memsets the device ran per step (null where a captured
+segment loops inside a WHILE node, which the profiler does not see: then
+the kernels by the step graphs' census; the NVE segment's under ``nve``),
+the velocity finish's,
 the noise's and the Brownian update's device time in the step and the gap
 before each, how the small kernels launched, each captured step
 variant's nodes, copies and programmatic edges (lean, and the segment's
@@ -52,8 +59,11 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_KEYS = ("ms_per_step_host_clock", "device_busy_ms_per_step",
                 "device_idle_share_profiled", "device_idle_share_timed",
+                "device_span_ms_per_step", "device_idle_share_outside_span",
+                "device_seen_by_profiler",
                 "kernel_launches_per_step", "host_syncs_per_step",
                 "graph_launches_per_step", "device_kernels_per_step",
+                "device_kernels_per_step_census",
                 "device_memsets_per_step", "device_copies_per_step")
 GAP_KEYS = tuple(f"{k}{s}" for k in ("velocity_finish", "uniform_noise",
                                       "brownian_update")
@@ -79,10 +89,11 @@ ENGINES = {"cellgrid": ("--engine", "cellgrid"),
 
 ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
                    "slot_brownian_eager"), ("b1", "brownian_slot")),
+        "fire": (("slot",), ("fire", "pack")),
         "particle": (("cellgrid", "cellgrid_eager", "plane", "plane_eager",
                       "neighbor", "neighbor_eager", "plane_brownian",
                       "plane_brownian_eager"), ("b2", "nl", "brownian"))}
-PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot")
+PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot", "fire", "pack")
 
 
 def paths_worker(tree, only=PATHS):
@@ -110,12 +121,20 @@ def paths_worker(tree, only=PATHS):
                     True)),
                 ("brownian", lambda: chip_smoke.brownian_path(mt, workdir)),
                 ("brownian_slot", lambda: chip_smoke.brownian_path(
-                    mt, workdir, slots=True))):
+                    mt, workdir, slots=True)),
+                ("fire", lambda: chip_smoke.fire_path(mt)),
+                ("pack", lambda: chip_smoke.pack_path(mt, workdir))):
             if label not in only:
                 continue
             rec, more = run()
             failures += more
-            out[f"{label}_steps_per_s"] = rec["steps_per_s"]
+            if label == "fire":
+                out["fire_iterations_per_s"] = rec["iterations_per_s"]
+            elif label == "pack":
+                out["pack_seconds"] = rec["seconds"]
+                out["pack_fire_iterations"] = rec["fire_iterations"]
+            else:
+                out[f"{label}_steps_per_s"] = rec["steps_per_s"]
     if failures:
         raise SystemExit(f"paths failed in {tree}: {failures}")
     print(json.dumps(out))
@@ -153,7 +172,9 @@ def main():
     parser.add_argument("--only", choices=sorted(ONLY),
                         help="slot: the slot steps and the b1 and Brownian "
                         "slot paths alone; particle: the particle-order "
-                        "steps and the b2, list and Brownian paths alone")
+                        "steps and the b2, list and Brownian paths alone; "
+                        "fire: the captured slot step, FIRE's iterations/s "
+                        "and the packing's seconds")
     args = parser.parse_args()
     if args.paths_worker:
         return paths_worker(args.paths_worker, args.paths.split(","))

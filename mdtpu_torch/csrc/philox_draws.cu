@@ -137,6 +137,13 @@
 //     first, so the rebuild test captured next can set it; the caller then
 //     adds the node, captures the body on a second stream into the node's
 //     child graph and ends that capture. The decision stays on the device.
+//     graph_while_begin / _end: the same for a WHILE node (the JAX
+//     package's lax.while_loop: a segment of steps, FIRE's minimization),
+//     whose body may hold an IF node of its own (nested conditional nodes,
+//     CUDA 12.4+). step_below: a captured segment's loop test, the step
+//     counter below the segment's end, setting the WHILE node's handle
+//     (one thread; it replaces the while_loop's cond of
+//     mdtpu/integrate/slot_step.py:642-690, XLA).
 //     capture_census counts the nodes of the graph being captured, by type
 //     and for this file's kernels, and its programmatic edges.
 //
@@ -712,6 +719,18 @@ __global__ void empty_kernel() {
   if (WAIT) wait_for_dependencies();
 }
 
+// The loop test of a captured segment: whether the step counter is below
+// the segment's end, into the flag byte and, inside a capture, the WHILE
+// node's handle (one thread: two loads and a store).
+__global__ void step_below_kernel(const int64_t* counter, const int64_t* end,
+                                  bool* flag,
+                                  cudaGraphConditionalHandle handle,
+                                  int set_handle) {
+  const bool below = *counter < *end;
+  *flag = below;
+  if (set_handle) cudaGraphSetConditional(handle, below ? 1u : 0u);
+}
+
 int grid_for(int64_t items, int cap = kMaxBlocks) {
   const int64_t blocks = (items + kThreads - 1) / kThreads;
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
@@ -913,6 +932,33 @@ int capturing_graph(cudaStream_t s, cudaGraph_t* graph,
   return status == cudaStreamCaptureStatusActive ? 0 : kErrNotCapturing;
 }
 
+// Adds a conditional node of type over the capture's current dependencies,
+// makes it the capture's only dependency and starts body_stream capturing
+// into its body graph.
+int conditional_begin(cudaStream_t s, unsigned long long handle,
+                      cudaStream_t body_stream,
+                      cudaGraphConditionalNodeType type) {
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  const int err = capturing_graph(s, &graph, &deps, &n_deps);
+  if (err) return err;
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = static_cast<cudaGraphConditionalHandle>(handle);
+  params.conditional.type = type;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  cudaError_t rc = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
+  if (rc) return (int)rc;
+  rc = cudaStreamUpdateCaptureDependencies(s, &node, 1,
+                                           cudaStreamSetCaptureDependencies);
+  if (rc) return (int)rc;
+  return (int)cudaStreamBeginCaptureToGraph(
+      body_stream, params.conditional.phGraph_out[0], nullptr, nullptr, 0,
+      cudaStreamCaptureModeRelaxed);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1068,32 +1114,42 @@ int mdtpu_graph_if_handle(void* stream, unsigned long long* handle) {
 // mdtpu_graph_if_end.
 int mdtpu_graph_if_begin(void* stream, unsigned long long handle,
                          void* body_stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaGraph_t graph;
-  const cudaGraphNode_t* deps;
-  size_t n_deps;
-  const int err = capturing_graph(s, &graph, &deps, &n_deps);
-  if (err) return err;
-  cudaGraphNodeParams params = {};
-  params.type = cudaGraphNodeTypeConditional;
-  params.conditional.handle = static_cast<cudaGraphConditionalHandle>(handle);
-  params.conditional.type = cudaGraphCondTypeIf;
-  params.conditional.size = 1;
-  cudaGraphNode_t node;
-  cudaError_t rc = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
-  if (rc) return (int)rc;
-  rc = cudaStreamUpdateCaptureDependencies(s, &node, 1,
-                                           cudaStreamSetCaptureDependencies);
-  if (rc) return (int)rc;
-  return (int)cudaStreamBeginCaptureToGraph(
-      static_cast<cudaStream_t>(body_stream), params.conditional.phGraph_out[0],
-      nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
+  return conditional_begin(static_cast<cudaStream_t>(stream), handle,
+                           static_cast<cudaStream_t>(body_stream),
+                           cudaGraphCondTypeIf);
 }
 
 int mdtpu_graph_if_end(void* body_stream) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream),
                                    &body);
+}
+
+// The same for a WHILE node: handle from mdtpu_graph_if_handle, set by a
+// kernel captured before the node (the first entry) and by the body's last
+// kernel (each further pass). Inside the body, a nested IF node takes a
+// handle of the body's own graph (mdtpu_graph_if_handle on body_stream).
+int mdtpu_graph_while_begin(void* stream, unsigned long long handle,
+                            void* body_stream) {
+  return conditional_begin(static_cast<cudaStream_t>(stream), handle,
+                           static_cast<cudaStream_t>(body_stream),
+                           cudaGraphCondTypeWhile);
+}
+
+int mdtpu_graph_while_end(void* body_stream) {
+  return mdtpu_graph_if_end(body_stream);
+}
+
+// counter, end: one int64 each on the device; flag: one bool on the device
+// (*counter < *end), and the handle set from it where set_handle is 1.
+int mdtpu_step_below(const int64_t* counter, const int64_t* end, bool* flag,
+                     unsigned long long handle, int set_handle,
+                     void* stream) {
+  if (!counter || !end || !flag) return kErrArgs;
+  step_below_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      counter, end, flag, static_cast<cudaGraphConditionalHandle>(handle),
+      set_handle);
+  return (int)cudaGetLastError();
 }
 
 // stream: capturing. out[kCensusSize]: the top-level nodes of the graph

@@ -9,14 +9,18 @@ or ``fori_loop`` over its step, the rebuild a ``lax.cond``). Here
 engine state's, the step as a 0-d int64 counter) and runs each step on
 them in place: NVT's target comes from a device table that the host fills
 once a segment, and the rebuild runs through :func:`device_if`, the drift
-test's kernel setting the handle of a conditional node under capture. A
-subclass says what its test, its rebuild and its step are
+test's kernel setting the handle of a conditional node under capture; the
+captured segment is one graph launch, a WHILE node (:func:`device_while`)
+looping the step while the counter is below the segment's end, as the JAX
+package's ``while_loop`` does. A subclass says what its test, its rebuild
+and its step are
 (:class:`mdtpu_torch.integrate.slot_step.SlotAdvance`,
 :class:`mdtpu_torch.integrate.step.ParticleAdvance`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -51,6 +55,17 @@ def nbrs_names(nbrs):
                  if isinstance(getattr(nbrs, f.name), torch.Tensor))
 
 
+def layout(state: SimulationState):
+    """What buffers made for ``state`` (and graphs captured on them) fit:
+    the seed, nf, cutoff and each tensor's shape, dtype and device."""
+    nbrs = state.nbrs
+    return (state.seed, state.nf, state.cutoff,
+            tuple((t.shape, t.dtype, t.device) for t in
+                  [getattr(state, n) for n in state_names(state)
+                   if n != "step"]
+                  + [getattr(nbrs, n) for n in nbrs_names(nbrs)]))
+
+
 def copy_into(dst: SimulationState, src: SimulationState, skip=()):
     """Write ``src``'s tensors into ``dst``'s (the buffers), in place;
     a tensor that is the buffer itself is left alone."""
@@ -78,21 +93,135 @@ def clone(state: SimulationState, step=None) -> SimulationState:
                             for n in state_names(state) if n != "step"})
 
 
-def device_if(flag, test, body, pool=None):
+def capturing(device) -> bool:
+    """Whether the current stream of ``device`` is capturing a CUDA graph
+    (never on the CPU)."""
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def device_if(flag, test, body, pools=None):
     """Run ``body()`` where ``test(handle)`` sets the 0-d bool tensor
     ``flag``: an advance's rebuild decision. Under a CUDA-graph capture the
     test is captured with an IF node's handle, which its kernel sets, and
-    ``body`` into that node (its allocations from ``pool``, a
-    ``torch.cuda.MemPool`` kept with the graph): the card decides at every
-    replay. Eagerly ``test(None)`` runs and the flag is read on the host,
-    the segment's one host read a step (free on the CPU)."""
-    if flag.is_cuda and torch.cuda.is_current_stream_capturing():
-        with philox_draws.graph_if(test, flag.device, pool):
+    ``body`` into that node (its allocations from a ``torch.cuda.MemPool``
+    appended to ``pools``, a list kept with the graph): the card decides at
+    every replay. Eagerly ``test(None)`` runs and the flag is read on the
+    host, the segment's one host read a step (free on the CPU)."""
+    if capturing(flag.device):
+        with philox_draws.graph_if(test, flag.device, pools):
             body()
         return
     test(None)
     if bool(flag):
         body()
+
+
+def device_while(flag, test, body, pools=None):
+    """Run ``body(handle)`` again and again while the 0-d bool tensor
+    ``flag`` is set: ``test(handle)`` sets it for the first entry and
+    ``body``'s last kernel on every pass (the JAX package's
+    ``lax.while_loop``). Under a CUDA-graph capture ``test`` is captured
+    with a WHILE node's handle and ``body`` into the node (allocations as
+    :func:`device_if`'s), and both kernels set the handle: the loop runs on
+    the card, no host read. Eagerly ``test(None)`` runs, then ``body(None)``
+    while the flag, read on the host after each (free on the CPU), is set;
+    a body that returns a bool (it read the flag itself) is taken at its
+    word."""
+    if capturing(flag.device):
+        with philox_draws.graph_while(test, flag.device, pools) as handle:
+            body(handle)
+        return
+    test(None)
+    going = bool(flag)
+    while going:
+        going = body(None)
+        if going is None:
+            going = bool(flag)
+
+
+class LoopCounts:
+    """The launch counts a replay of a captured loop adds
+    (:mod:`mdtpu_torch.utils.counters`): a launch recorded into the WHILE
+    node's body runs at each pass, one in an IF node's body (a rebuild)
+    only where the device takes it. During the capture :meth:`loop_body`
+    and :meth:`if_body` note what the body and an IF body added (every IF
+    body of one graph adds the same); :meth:`close` splits the capture's
+    counts into ``once``, ``per_pass`` (its IF bodies apart) and
+    ``per_if``; :meth:`add` adds a replay's."""
+
+    def __init__(self):
+        self.once, self.per_pass, self.per_if = {}, {}, {}
+        self._ifs = self._pass_ifs = 0
+
+    @contextlib.contextmanager
+    def loop_body(self):
+        before, ifs = counters.snapshot(), self._ifs
+        yield
+        self.per_pass = counters.difference(counters.snapshot(), before)
+        self._pass_ifs = self._ifs - ifs
+
+    @contextlib.contextmanager
+    def if_body(self):
+        before = counters.snapshot()
+        yield
+        self.per_if = counters.difference(counters.snapshot(), before)
+        self._ifs += 1
+
+    def close(self, total):
+        """Split ``total``, the capture's counts."""
+        for k, v in self.per_if.items():
+            self.per_pass[k] = self.per_pass.get(k, 0) - v * self._pass_ifs
+        self.once = dict(total)
+        for k in set(self.per_pass) | set(self.per_if):
+            self.once[k] = (self.once.get(k, 0) - self.per_pass.get(k, 0)
+                            - self.per_if.get(k, 0) * self._ifs)
+        self.once, self.per_pass = ({k: v for k, v in d.items() if v}
+                                    for d in (self.once, self.per_pass))
+
+    def add(self, passes, ifs):
+        """The counts of a replay that ran ``passes`` passes and took
+        ``ifs`` IF bodies: a host int, or a device tally's ``(first,
+        last)`` (:func:`counters.add_later`, no host read)."""
+        counters.add(self.once)
+        counters.add(self.per_pass, passes)
+        if not self.per_if:
+            return
+        if isinstance(ifs, tuple):
+            counters.add_later(self.per_if, *ifs)
+        else:
+            counters.add(self.per_if, ifs)
+
+
+def noting(counts, part):
+    """``counts``' :meth:`LoopCounts.loop_body` or ``if_body`` (``part``:
+    ``"loop"`` or ``"if"``) during a capture, else nothing."""
+    if counts is None:
+        return contextlib.nullcontext()
+    return counts.loop_body() if part == "loop" else counts.if_body()
+
+
+def capture(device, warm, program):
+    """``(graph, pools, counts)``: ``warm()`` run on a side stream first
+    (libraries built and loaded, plans made, outside any capture), then
+    ``program(pools, counts)`` captured into a CUDA graph on ``device``,
+    its conditional bodies' memory pools appended to ``pools`` (kept with
+    the graph) and its loop's counts noted in ``counts``
+    (:class:`LoopCounts`); the counters put back as they were. The loops on
+    the device share it: an advance's segment, FIRE's minimization."""
+    before = counters.snapshot()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph, pools, counts = torch.cuda.CUDAGraph(), [], LoopCounts()
+    start = counters.snapshot()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        program(pools, counts)
+    counts.close(counters.difference(counters.snapshot(), start))
+    counters.restore(before)
+    return graph, pools, counts
 
 
 class DeviceAdvance:
@@ -110,9 +239,11 @@ class DeviceAdvance:
     of a segment.
 
     ``graph``: on the card each step variant is captured once into a CUDA
-    graph with the rebuild in a conditional node, and a segment of ``k``
-    steps is ``k`` graph launches and no host read; ``census[name]`` holds
-    each variant's nodes, read from the graph at its capture
+    graph whose WHILE node loops the step (the rebuild in an IF node nested
+    in its body) while the step counter is below the segment's end, and a
+    segment is one graph launch a variant and no host read; ``census[name]``
+    holds the nodes of one step, read from the WHILE node's body at its
+    capture
     (:func:`philox_draws.capture_census`, and the programmatic edges into
     the Brownian update, :func:`verlet_update.capture_census`). Eagerly the
     same code runs step by step, the flag read on the host. The launch
@@ -126,7 +257,7 @@ class DeviceAdvance:
                          else None)
         self.bufs = self.table = None
         self.graphs, self.census = {}, {}
-        self._pool = None
+        self._pools = self._counts = None
 
     # -- what a subclass gives -------------------------------------------
 
@@ -141,19 +272,10 @@ class DeviceAdvance:
 
     # -- buffers and segment inputs --------------------------------------
 
-    def _layout(self, state):
-        nbrs = state.nbrs
-        return (state.seed, state.nf, state.cutoff,
-                tuple((t.shape, t.dtype, t.device) for t in
-                      [getattr(state, n) for n in state_names(state)
-                       if n != "step"]
-                      + [getattr(nbrs, n) for n in nbrs_names(nbrs)]))
-
     def _load(self, state):
         """Put ``state`` into the buffers (made anew, and the graphs
         dropped, where its layout, seed or nf changed)."""
-        if self.bufs is None or self._layout(self.bufs) != self._layout(
-                state):
+        if self.bufs is None or layout(self.bufs) != layout(state):
             device = state.device
             self.graphs = {}
             self.bufs = clone(state, torch.full(
@@ -163,10 +285,13 @@ class DeviceAdvance:
             self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
             self.rebuilt_at = torch.zeros(REBUILD_LOG, dtype=torch.int64,
                                           device=device)
+            self.end = torch.zeros((), dtype=torch.int64, device=device)
+            self.going = torch.zeros((), dtype=torch.bool, device=device)
         else:
             copy_into(self.bufs, state, skip=("step",))
             self.bufs.step.fill_(state.step)
         self.base.fill_(state.step)
+        self._at = state.step
 
     def _fill_table(self, base, k):
         """NVT's ``ktemp(step + 1)`` for the segment's steps, evaluated on
@@ -194,37 +319,39 @@ class DeviceAdvance:
     # -- one step on the buffers -----------------------------------------
 
     def _rebuild(self):
-        before = counters.snapshot()
-        b = self.bufs
-        copy_into(b, self._rebuilt(b))
-        slot = self.rebuilds.clamp(max=REBUILD_LOG - 1).reshape(1)
-        self.rebuilt_at.index_copy_(0, slot, b.step.reshape(1))
-        self.rebuilds.add_(1)
-        # The launches a rebuild counts (under capture: those of the IF
-        # node's body).
-        self._rebuild_counts = counters.difference(counters.snapshot(),
-                                                   before)
+        with noting(self._counts, "if"):
+            b = self.bufs
+            copy_into(b, self._rebuilt(b))
+            slot = self.rebuilds.clamp(max=REBUILD_LOG - 1).reshape(1)
+            self.rebuilt_at.index_copy_(0, slot, b.step.reshape(1))
+            self.rebuilds.add_(1)
 
     def _refresh(self):
         """The drift test and, where it is set, the rebuild, on the
         buffers."""
         device_if(self.flag,
                   lambda handle: self._test(self.bufs, self.flag, handle),
-                  self._rebuild, self._pool)
+                  self._rebuild, self._pools)
 
     def _one(self, step_fn):
         self._step(self.bufs, step_fn, self._refresh)
 
     # -- graphs ----------------------------------------------------------
 
+    def _loop_test(self, handle):
+        """The segment's loop test: the step counter below the segment's
+        end, into ``going`` and the WHILE node's handle."""
+        philox_draws.step_below(self.bufs.step, self.end, self.going, handle)
+
     def _captured(self, name, step_fn):
-        """``(graph, counts)`` of one step variant: captured on first use
-        after a warm-up of the step and the rebuild on copies of the
-        buffers (libraries built, plans made), the counters put back, and
-        the counts one replay adds."""
+        """``(graph, counts, pools)`` of one step variant: a segment of it
+        captured on first use, a WHILE node looping the step while the step
+        counter is below :attr:`end` (the rebuild's IF node nested in its
+        body), after a warm-up of the step, the rebuild and the loop test on
+        copies of the buffers (libraries built, plans made); ``counts``:
+        its :class:`LoopCounts`."""
         if name in self.graphs:
             return self.graphs[name]
-        before = counters.snapshot()
         b = clone(self.bufs, self.bufs.step.clone())
         flag = torch.empty_like(self.flag)
 
@@ -232,47 +359,49 @@ class DeviceAdvance:
             self._test(b, flag, None)
             copy_into(b, self._rebuilt(b))
 
-        side = torch.cuda.Stream(b.device)
-        side.wait_stream(torch.cuda.current_stream(b.device))
-        with torch.cuda.stream(side):
+        def warm_step():
             self._step(b, step_fn, warm)
-        torch.cuda.current_stream(b.device).wait_stream(side)
-        del b
-        warm_counts = counters.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        pool = self._pool = torch.cuda.MemPool()
-        self._rebuild_counts = {}
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            philox_draws.step_below(b.step, self.end.clone(), flag)
+
+        def body(handle):
+            with noting(self._counts, "loop"):
                 self._one(step_fn)
+                # The census of one step: the WHILE node's body so far.
                 self.census[name] = {
                     **philox_draws.capture_census(self.bufs.device),
                     **verlet_update.capture_census(self.bufs.device)}
+                self._loop_test(handle)
+
+        def program(pools, counts):
+            self._pools, self._counts = pools, counts
+            device_while(self.going, self._loop_test, body, pools)
+
+        try:
+            self.graphs[name] = capture(self.bufs.device, warm_step,
+                                        program)
         finally:
-            self._pool = None
-        # A replay adds the step's counts; the IF node's body's come in by
-        # the rebuilds the device tallied (counters.add_later).
-        body = self._rebuild_counts
-        delta = {k: v - body.get(k, 0) for k, v in counters.difference(
-            counters.snapshot(), warm_counts).items() if v != body.get(k, 0)}
-        counters.restore(before)
-        self.graphs[name] = (graph, delta, body, pool)
+            self._pools = self._counts = None
         return self.graphs[name]
 
     def _run(self, name, step_fn, times):
+        """``times`` steps of ``step_fn`` from the buffers: eagerly step by
+        step; on the card one launch of the variant's graph, its WHILE
+        node running the steps up to the segment's end (the rebuilds' counts
+        from the device's tally)."""
         if times <= 0:
             return
         if not self.graph:
             for _ in range(times):
                 self._one(step_fn)
+            self._at += times
             return
-        graph, delta, body, _ = self._captured(name, step_fn)
-        first = self.rebuilds.clone() if body else None
-        for _ in range(times):
-            graph.replay()
-        counters.add(delta, times)
-        if body:
-            counters.add_later(body, first, self.rebuilds.clone())
+        graph, _, counts = self._captured(name, step_fn)
+        first = self.rebuilds.clone() if counts.per_if else None
+        self.end.fill_(self._at + times)
+        graph.replay()
+        self._at += times
+        counts.add(times, 0 if first is None else (first,
+                                                   self.rebuilds.clone()))
 
     def _resolve_graph(self, state, eager_only):
         """Settle ``graph=None`` for ``state``: captured on the card unless

@@ -10,33 +10,62 @@ whether or not it converged.
 A cell-grid engine runs FIRE in the slot layout (:func:`make_slot_fire`, as
 the dynamics' slot loop: no scatter or gather per force evaluation, the wrap
 deferred to rebuilds, the lean sweep inside the loop and one full sweep at
-exit); other engines run it in particle order (:func:`_fire_once`). The
-iteration's scalars (dt, alpha, the steps since the power turned negative)
-stay on the device; each iteration reads one stack of flags on the host
-(the force test, and in slots the rebuild and overflow flags).
+exit); other engines run it in particle order (:func:`_fire_once`). As the
+JAX package runs the whole minimization as one device program, so here
+(:class:`DeviceFire`): FIRE's scalars, the step, the force test, the rebin
+decision and the sticky overflow flag live in device buffers, an iteration
+is the kernels of :mod:`mdtpu_torch.minimize.fire_update` around the sweep,
+and on the card the whole minimization is one CUDA graph launch, a WHILE
+node looping the iteration with the rebuild in an IF node nested in it; the
+result costs one host read at the end. The graph is captured once for each
+engine, layout and set of hyper-parameters (``max_steps`` and ``tol`` are
+device values) and reused across calls; a grown-capacity retry, whose
+engine serves one run, runs eagerly and is not kept. On the CPU, with
+``graph=False``
+and for a potential without a kernel functor (a user's evaluation may do
+host work) the same code runs eagerly, reading the loop's flags on the host
+once an iteration (particle order: once more where the engine tests for a
+rebuild). The sharded FIRE runs the same kernels eagerly, split where the
+JAX package has ``pmax``/``psum``, with the ring's all-reduces between.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import collections
+import dataclasses
 
 import torch
 
-from mdtpu_torch.core.box import wrap_positions
 from mdtpu_torch.core.types import Parameters, SimulationState
 from mdtpu_torch.integrate import slot_step as slots
-from mdtpu_torch.integrate.step import engine_forces
+from mdtpu_torch.integrate.device_advance import (REBUILD_LOG, capture,
+                                                  capturing, clone, copy_into,
+                                                  device_if, device_while,
+                                                  layout, noting)
+from mdtpu_torch.minimize import fire_update as fu
+from mdtpu_torch.ops import philox_draws
+from mdtpu_torch.ops.cell_sweep import kernel_params
+from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.device import resolve_device
+
+# Minimizations kept captured (engine, layout, hyper-parameters), the last
+# used kept longest; a grown-capacity retry's is not kept.
+CACHE_SIZE = 4
+_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 
 
 def fire_minimize(state: SimulationState, params: Parameters, engine, *,
                   max_steps: int = 10000, tol: float = 1e-6,
                   dt_initial: float = 0.01, dt_max: float = 0.1,
                   alpha0: float = 0.1, f_inc: float = 1.2, f_dec: float = 0.2,
-                  n_min: int = 5, dmax: float = 0.1, device=None):
+                  n_min: int = 5, dmax: float = 0.1, device=None,
+                  graph=None):
     """Minimize the potential energy of ``state``. Returns ``(new_state,
     energy, converged, n_steps)``. ``device``: where it runs, ``"cuda"`` by
     default (raises without a card unless the caller passes ``"cpu"``).
+    ``graph``: None runs each minimization as one CUDA graph launch on the
+    card and eagerly on the CPU and for a potential without a kernel
+    functor; False eagerly on the card too; True asks for the graph.
 
     Engine capacity overflow would truncate forces and let the force test
     converge on a configuration that still has contacts: the run is retried
@@ -46,13 +75,14 @@ def fire_minimize(state: SimulationState, params: Parameters, engine, *,
     state = state_to(state, resolve_device(device))
     hyper = dict(max_steps=max_steps, tol=tol, dt_initial=dt_initial,
                  dt_max=dt_max, alpha0=alpha0, f_inc=f_inc, f_dec=f_dec,
-                 n_min=n_min, dmax=dmax)
+                 n_min=n_min, dmax=dmax, graph=graph)
     if getattr(engine, "runs_in_slots", False):
         return _fire_slots_with_retries(state, params, engine, **hyper)
     caller_engine = engine
     grew = False
     for _ in range(slots.MAX_GROWS):
-        out = _fire_once(state, params, engine, **hyper)
+        out = make_row_fire(engine, **(_retried(hyper) if grew else hyper))(
+            state)
         new_state = out[0]
         over = getattr(new_state.nbrs, "overflow", None)
         grow = getattr(engine, "with_grown_capacity", None)
@@ -72,120 +102,404 @@ def fire_minimize(state: SimulationState, params: Parameters, engine, *,
         "minimization: forces would be silently truncated")
 
 
-def _safe_norm(a, dim=None, keepdim=False):
-    """The Euclidean norm scaled by max |a| first, so that no intermediate
-    squares a raw value (the forces of an overlapping start can be ~1e25)."""
-    if dim is None:
-        m = torch.max(torch.abs(a))
-        m_safe = torch.where(m > 0, m, torch.ones_like(m))
-        return torch.sqrt(torch.sum((a / m_safe) ** 2)) * m
-    m = torch.amax(torch.abs(a), dim=dim, keepdim=True)
-    m_safe = torch.where(m > 0, m, torch.ones_like(m))
-    r = torch.sqrt(torch.sum((a / m_safe) ** 2, dim=dim, keepdim=True)) * m
-    return r if keepdim else r.squeeze(dim)
+def _retried(hyper):
+    """A grown-capacity retry's settings: its run is not cached (its engine
+    serves this one run) and, unless the caller asked for the graph, eager
+    (no capture for one replay)."""
+    graph = hyper["graph"]
+    return dict(hyper, graph=False if graph is None else graph, cached=False)
 
 
-class _Scalars(NamedTuple):
-    """FIRE's adaptive scalars, 0-d tensors on the device."""
+class DeviceFire:
+    """FIRE's whole minimization on buffers on one device, as the JAX
+    package runs it as one device program.
 
-    dt: torch.Tensor
-    alpha: torch.Tensor
-    steps_since_neg: torch.Tensor
+    The state is copied into buffers (:func:`~mdtpu_torch.integrate.
+    device_advance.clone`), FIRE's scalars and counters into the buffers of
+    :func:`fire_update.buffers`, and :meth:`_program` runs the
+    minimization on them: the entry sweep and test, a loop
+    (:func:`~mdtpu_torch.integrate.device_advance.device_while`) of
+    :func:`fire_update.fire_reduce`, :func:`fire_update.fire_move`, the
+    sweep and :func:`fire_update.fire_test`, the rebuild inside
+    :func:`~mdtpu_torch.integrate.device_advance.device_if`. ``graph``
+    (settled as :meth:`DeviceAdvance._resolve_graph
+    <mdtpu_torch.integrate.device_advance.DeviceAdvance._resolve_graph>`
+    settles it): on the card the program is captured once into a CUDA graph
+    (after a warm-up of it on copies of the buffers) and each call is one
+    replay and one host read of the counters; eagerly it runs as written,
+    the loop's flags read on the host. ``census`` holds the captured
+    graph's top-level nodes (``"graph"``) and the WHILE node's body
+    (``"pass"``). A subclass gives the layout: :meth:`_program` and
+    :meth:`_rebuilt`."""
+
+    def __init__(self, engine, hyper: fu.FireHyper, graph):
+        self.engine, self.hyper, self.graph = engine, hyper, graph
+        self.bufs = None
+        self.captured = None
+        self.census = {}
+        self._counts = None
+
+    # -- what a subclass gives -------------------------------------------
+
+    def _program(self, b, x, warm=False):
+        raise NotImplementedError
+
+    def _rebuilt(self, b):
+        raise NotImplementedError
+
+    def _eager_only(self, state):
+        raise NotImplementedError
+
+    # -- buffers ---------------------------------------------------------
+
+    def _load(self, state):
+        """Put ``state`` into the buffers (made anew, and the graph dropped,
+        where its layout changed)."""
+        if self.bufs is None or layout(self.bufs[0]) != layout(state):
+            b = clone(state)
+            n = b.forces.numel()
+            scal, ints, red, work, flags = fu.buffers(b.dtype, b.device, n)
+            self.bufs = (b, _Scratch(
+                scal=scal, ints=ints, red=red, work=work, flags=flags,
+                drift=torch.zeros((), dtype=torch.bool, device=b.device),
+                v=torch.zeros_like(b.positions),
+                rebuilt_at=torch.zeros(REBUILD_LOG, dtype=torch.int64,
+                                       device=b.device),
+                sqrt_ndof=float(self._ndof(state)) ** 0.5, pools=None))
+            self.captured = None
+        else:
+            copy_into(self.bufs[0], state)
+
+    def _ndof(self, state):
+        return state.nf
+
+    def _inputs(self, x, max_steps, tol):
+        """FIRE's starting scalars and the call's ``max_steps`` and ``tol``,
+        copied into the buffers ahead of the program (on the card from
+        pinned memory, without a synchronisation; the last run's copies
+        ended before its result was read)."""
+        h = self.hyper
+        pinned = x.scal.is_cuda
+        scal = torch.zeros(fu.SCAL, dtype=x.scal.dtype, pin_memory=pinned)
+        scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = h.dt_initial, h.alpha0, tol
+        ints = torch.zeros(fu.INTS, dtype=torch.int64, pin_memory=pinned)
+        ints[fu.MAX_STEPS] = max_steps
+        x.scal.copy_(scal, non_blocking=pinned)
+        x.ints.copy_(ints, non_blocking=pinned)
+        # The host tensors live until the copies ran.
+        x.staged = (scal, ints)
+
+    def _rebuild(self, b, x):
+        """The rebuild on the buffers, its step logged and counted (under
+        capture, its launch counts noted)."""
+        with noting(self._counts, "if"):
+            copy_into(b, self._rebuilt(b))
+            n = x.ints[fu.REBINS:fu.REBINS + 1]
+            x.rebuilt_at.index_copy_(0, n.clamp(max=REBUILD_LOG - 1),
+                                     x.ints[fu.STEP:fu.STEP + 1])
+            n.add_(1)
+
+    def _pass(self, fn):
+        """``fn``, the loop's body, with its launch counts and, under
+        capture, the census of the WHILE node's body noted."""
+        def body(handle):
+            with noting(self._counts, "loop"):
+                going = fn(handle)
+                if capturing(self.bufs[0].device):
+                    self.census["pass"] = philox_draws.capture_census(
+                        self.bufs[0].device)
+            return going
+        return body
+
+    # -- the loop's parts ------------------------------------------------
+
+    def _reduce(self, v, b, x, overflow):
+        fu.fire_reduce(v, b.forces, x.scal, x.ints, x.red[:fu.RED], x.work,
+                       self.hyper, overflow)
+
+    def _test(self, b, x, handle, entry, overflow=None, drift=None,
+              then=None):
+        """The force test into the flags (and under capture ``handle``, the
+        WHILE node's, and ``then``, an IF node's)."""
+        fu.fire_test(b.forces, x.scal, x.ints, x.red[fu.RED:], x.work,
+                     x.sqrt_ndof, x.flags, overflow=overflow, drift=drift,
+                     entry=entry, handle=handle, handle_then=then)
+
+    # -- capture and run -------------------------------------------------
+
+    def _capture(self):
+        """The program captured into a CUDA graph, after a warm-up of it on
+        copies of the buffers (libraries built, plans made; one pass, a
+        rebuild at each test): ``captured`` is ``(graph, pools, counts)``,
+        ``counts`` the :class:`~mdtpu_torch.integrate.device_advance.
+        LoopCounts` a replay adds by its passes and rebuilds."""
+        b, x = self.bufs
+        wb = clone(b)
+        wx = dataclasses.replace(x, **{
+            k: getattr(x, k).clone() for k in ("scal", "ints", "red", "work",
+                                               "flags", "drift", "v",
+                                               "rebuilt_at")})
+
+        def program(pools, counts):
+            x.pools, self._counts = pools, counts
+            self._program(b, x)
+            self.census["graph"] = philox_draws.capture_census(b.device)
+
+        try:
+            self.captured = capture(b.device, lambda: self._program(
+                wb, wx, warm=True), program)
+        finally:
+            x.pools = self._counts = None
+
+    def run(self, state: SimulationState, max_steps, tol):
+        """The minimization from ``state``: ``(buffers' state, f_rms (0-d),
+        converged, n_steps, overflow, rebuilds)`` (host values but f_rms);
+        one host read of the counters at the end."""
+        capturable = (state.device.type == "cuda"
+                      and not self._eager_only(state))
+        graph = capturable if self.graph is None else self.graph
+        if graph and not capturable:
+            raise ValueError("graph=True takes a CUDA state and a potential "
+                             "with a kernel functor")
+        self._load(state)
+        b, x = self.bufs
+        self._inputs(x, max_steps, tol)
+        if graph:
+            if self.captured is None:
+                self._capture()
+            self.captured[0].replay()
+        else:
+            self._program(b, x)
+        ints = x.ints.tolist()
+        if graph:
+            self.captured[2].add(ints[fu.PASSES], ints[fu.REBINS])
+        return (b, x.scal[fu.FRMS].clone(), bool(ints[fu.CONVERGED]),
+                ints[fu.STEP], bool(ints[fu.OVERFLOW]), ints[fu.REBINS])
+
+    def rebuild_steps(self):
+        """The steps after which the last run rebuilt (a host read)."""
+        x = self.bufs[1]
+        n = int(x.ints[fu.REBINS])
+        return x.rebuilt_at[:min(n, REBUILD_LOG)].tolist()
 
 
-def _identity(x):
-    return x
+@dataclasses.dataclass
+class _Scratch:
+    """FIRE's device buffers beside the state's (see
+    :mod:`mdtpu_torch.minimize.fire_update`); ``v``: FIRE's own velocity in
+    particle order; ``drift``: the drift test's flag; ``pools``: the
+    conditional bodies' memory pools during a capture."""
+
+    scal: torch.Tensor
+    ints: torch.Tensor
+    red: torch.Tensor
+    work: torch.Tensor
+    flags: torch.Tensor
+    drift: torch.Tensor
+    v: torch.Tensor
+    rebuilt_at: torch.Tensor
+    sqrt_ndof: float
+    pools: object
+    staged: object = None
 
 
-def _fire_update(v, forces, sc: _Scalars, *, alpha0, f_inc, f_dec, n_min,
-                 dt_initial, dt_max, dmax, disp_dim, gmax=_identity,
-                 gsum=_identity):
-    """One FIRE update on the device, shared by both layouts: the inertia
-    mix, the dt / alpha adaptation and the capped displacement. ``v`` is the
-    velocity after the kick; ``disp_dim`` the axis of a particle's
-    components (-1 in particle order, 0 in slots). ``gmax`` and ``gsum``
-    take a rank's maximum and sum to the global ones (a shard ring's
-    all-reduces). Returns ``(v, disp, scalars)``."""
-    vmax = gmax(torch.max(torch.abs(v)))
-    fmax = gmax(torch.max(torch.abs(forces)))
-    vmax_s = torch.where(vmax > 0, vmax, torch.ones_like(vmax))
-    fmax_s = torch.where(fmax > 0, fmax, torch.ones_like(fmax))
-    # Only the sign of P = sum(v . F) matters: computed on max-normalised
-    # copies.
-    power = gsum(torch.sum((v / vmax_s) * (forces / fmax_s)))
-    vn = torch.sqrt(gsum(torch.sum((v / vmax_s) ** 2)))
-    fn = torch.sqrt(gsum(torch.sum((forces / fmax_s) ** 2)))
-    do_mix = (vmax > 0) & (fmax > 0)
-    scale = sc.alpha * (vmax_s / fmax_s) * (
-        vn / torch.where(fn > 0, fn, torch.ones_like(fn)))
-    v = torch.where(do_mix, (1.0 - sc.alpha) * v + scale * forces, v)
+class SlotFire(DeviceFire):
+    """FIRE over a slot-layout state (``velocities`` carry FIRE's own
+    velocity; vacant slots hold zeros and never move, so every reduction is
+    exact), as the JAX package's ``make_slot_fire`` nests it: a rebin on
+    entry (where the loop runs), then iterations, each followed by a rebin
+    where the drift test fired and the loop goes on; an overflow after a
+    rebin ends the loop before any further step (the kernels leave the
+    state alone and the test counts no step). Inside the loop the sweep is
+    lean; one full sweep at exit refreshes energy and virial."""
 
-    positive = power > 0
-    ssn_pos = sc.steps_since_neg + 1
-    grow = ssn_pos > n_min
-    dt_pos = torch.where(grow, torch.clamp(sc.dt * f_inc, max=dt_max), sc.dt)
-    alpha_pos = torch.where(grow, sc.alpha * 0.99, sc.alpha)
-    dt_neg = torch.clamp(sc.dt * f_dec, min=dt_initial)
-    dt = torch.where(positive, dt_pos, dt_neg)
-    alpha = torch.where(positive, alpha_pos,
-                        torch.full_like(sc.alpha, alpha0))
-    ssn = torch.where(positive, ssn_pos, torch.zeros_like(ssn_pos))
-    v = torch.where(positive, v, torch.zeros_like(v))
+    def _eager_only(self, state):
+        return self.engine.uses_pair_list
 
-    # LAMMPS-style per-particle displacement cap, so steep potentials (or
-    # overlapping float32 starts) cannot explode the step.
-    disp = dt * v
-    dnorm = _safe_norm(disp, dim=disp_dim, keepdim=True)
-    dnorm = torch.where(torch.isfinite(dnorm), dnorm,
-                        torch.full_like(dnorm, float("inf")))
-    cap = torch.clamp(dmax / torch.clamp(dnorm, min=1e-30), max=1.0)
-    disp = torch.where(torch.isfinite(disp), disp * cap,
-                       torch.zeros_like(disp))
-    return v, disp, _Scalars(dt, alpha, ssn)
+    def _rebuilt(self, b):
+        return slots._engine_rebin(b, self.engine)
+
+    def _sweep(self, b, observables):
+        slots._sweep_in(self.engine, b.positions, b.diameters, b.unitcell,
+                        b.unitcell_inv, b.nbrs, observables, out=b.forces,
+                        scalars_out=(b.energy, b.virial) if observables
+                        else None)
+
+    def _program(self, b, x, warm=False):
+        ovf = b.nbrs.overflow
+        b.velocities.zero_()
+        if b.vel_comp is not None:
+            b.vel_comp.zero_()
+        self._sweep(b, True)
+
+        def tested(handle, entry):
+            """The test, then the rebin where the loop goes on and (past the
+            entry) the drift test fired (the warm-up rebins at each).
+            Eagerly one host read of both flags; returns whether the loop
+            goes on."""
+            drift = None if entry else x.drift
+            if handle is not None:
+                device_if(x.flags[1], lambda then: self._test(
+                    b, x, handle, entry, ovf, drift, then),
+                    lambda: self._rebuild(b, x), x.pools)
+                return None
+            self._test(b, x, None, entry, ovf, drift)
+            going, then = x.flags.tolist()
+            if then or warm:
+                self._rebuild(b, x)
+            return going and not warm
+
+        def body(handle):
+            self._reduce(b.velocities, b, x, ovf)
+            fu.fire_move(b.positions, b.velocities, b.forces, x.scal, x.ints,
+                         self.hyper.dmax, rows=False, overflow=ovf)
+            self._sweep(b, False)
+            philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                      self.engine.skin, out=x.drift)
+            return tested(handle, entry=False)
+
+        body = self._pass(body)
+        if warm:
+            tested(None, True)
+            body(None)
+        else:
+            device_while(x.flags[0], lambda handle: tested(handle, True),
+                         body, x.pools)
+        self._sweep(b, True)
 
 
-def _initial_scalars(dtype, device, dt_initial, alpha0):
-    return _Scalars(torch.full((), dt_initial, dtype=dtype, device=device),
-                    torch.full((), alpha0, dtype=dtype, device=device),
-                    torch.zeros((), dtype=torch.int64, device=device))
+class RowFire(DeviceFire):
+    """FIRE over ``(N, d)`` particle rows (``_fire_once``: the naive engine,
+    the neighbour list, ``PlaneEngine``), as the JAX package's one
+    ``while_loop``: each force evaluation tests for a rebuild first (the
+    engine's ``needs_rebuild`` setting an IF node's handle, ``allocate``
+    inside it; the naive engine's static ``False`` makes no test); the move
+    wraps into the box. The caller's velocities are left alone: FIRE's own
+    is a buffer of its own."""
+
+    def __init__(self, engine, hyper, graph):
+        super().__init__(engine, hyper, graph)
+        self._untested = None
+
+    def _ndof(self, state):
+        return state.dimension * (state.n_particles - 1.0)
+
+    def _eager_only(self, state):
+        return kernel_params(self.engine.potential) is None
+
+    def _load(self, state):
+        if self._untested is None:
+            before = counters.snapshot()
+            self._untested = self.engine.needs_rebuild(
+                state.positions, state.nbrs, state.unitcell,
+                state.unitcell_inv) is False
+            counters.restore(before)
+        super()._load(state)
+
+    def _rebuilt(self, b):
+        fresh = self.engine.allocate(b.positions, b.diameters, b.unitcell,
+                                     b.unitcell_inv)
+        return b.replace(nbrs=dataclasses.replace(
+            fresh, overflow=fresh.overflow | b.nbrs.overflow))
+
+    def _forces(self, b, x, warm):
+        """The engine's drift test and rebuild (the warm-up rebuilds each
+        time), then its forces, energy and virial into the buffers."""
+        if warm and not self._untested:
+            self._rebuild(b, x)
+        elif not self._untested:
+            device_if(x.drift, lambda handle: self.engine.needs_rebuild(
+                b.positions, b.nbrs, b.unitcell, b.unitcell_inv,
+                out=x.drift, handle=handle),
+                lambda: self._rebuild(b, x), x.pools)
+        e, w, f, _ = self.engine.compute(b.positions, b.diameters, b.unitcell,
+                                         b.unitcell_inv, b.nbrs)
+        copy_into(b, b.replace(forces=f, energy=e, virial=w))
+
+    def _program(self, b, x, warm=False):
+        x.v.zero_()
+        self._forces(b, x, warm)
+
+        def test(handle, entry):
+            self._test(b, x, handle, entry)
+            return None if handle is not None else (
+                bool(x.flags[0]) and not warm)
+
+        def body(handle):
+            self._reduce(x.v, b, x, None)
+            fu.fire_move(b.positions, x.v, b.forces, x.scal, x.ints,
+                         self.hyper.dmax, rows=True, images=b.images,
+                         cell=b.unitcell, cell_inv=b.unitcell_inv)
+            self._forces(b, x, warm)
+            return test(handle, entry=False)
+
+        body = self._pass(body)
+        if warm:
+            test(None, True)
+            body(None)
+        else:
+            device_while(x.flags[0], lambda handle: test(handle, True), body,
+                         x.pools)
+
+
+def _device_fire(kind, engine, hyper, graph, cached):
+    """The :class:`DeviceFire` of ``kind`` (:class:`SlotFire` or
+    :class:`RowFire`) for ``engine`` and ``hyper``: where ``cached``, the
+    one kept for ``engine`` (by value, as the JAX package caches its
+    program; by identity where the engine does not hash), ``hyper`` and
+    ``graph``, made on first use (at most :data:`CACHE_SIZE` are kept);
+    else one of its own."""
+    make = SlotFire if kind == "slots" else RowFire
+    if not cached:
+        return make(engine, hyper, graph)
+    try:
+        key = (kind, engine, hyper, graph)
+        fire = _CACHE.get(key)
+    except (TypeError, RuntimeError):
+        key = (kind, id(engine), hyper, graph)
+        fire = _CACHE.get(key)
+    if fire is None:
+        fire = _CACHE[key] = make(engine, hyper, graph)
+    _CACHE.move_to_end(key)
+    while len(_CACHE) > CACHE_SIZE:
+        _CACHE.popitem(last=False)
+    return fire
+
+
+def make_row_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
+                  dt_max=0.1, alpha0=0.1, f_inc=1.2, f_dec=0.2, n_min=5,
+                  dmax=0.1, graph=None, cached=True):
+    """``run(state) -> (state, energy, converged, n_steps)``: the whole
+    minimization in particle order (:class:`RowFire`; on the card one graph
+    launch), the state's velocities the caller's; ``run.fire`` the
+    :class:`RowFire`, kept for the next call of the same engine and
+    hyper-parameters unless ``cached`` is False."""
+    hyper = fu.FireHyper(dt_initial=dt_initial, dt_max=dt_max, alpha0=alpha0,
+                         f_inc=f_inc, f_dec=f_dec, n_min=n_min, dmax=dmax)
+    fire = _device_fire("rows", engine, hyper, graph, cached)
+
+    def run(state):
+        if state.nbrs is None:
+            state = state.replace(nbrs=engine.allocate(
+                state.positions, state.diameters, state.unitcell,
+                state.unitcell_inv))
+        b, _, converged, n_steps, _, _ = fire.run(state, max_steps, tol)
+        out = clone(b, state.step).replace(velocities=state.velocities)
+        return out, out.energy, converged, n_steps
+
+    run.fire = fire
+    return run
 
 
 def _fire_once(state: SimulationState, params: Parameters, engine, *,
                max_steps, tol, dt_initial, dt_max, alpha0, f_inc, f_dec,
-               n_min, dmax):
-    """FIRE in particle order (the loop of ``NaivePairEngine``); each
-    iteration reads the force test on the host."""
-    n, dim = state.n_particles, state.dimension
-    ndof = float(dim * (n - 1.0))
-    cell, cell_inv = state.unitcell, state.unitcell_inv
-    diameters = state.diameters
-    nbrs = state.nbrs
-    if nbrs is None:
-        nbrs = engine.allocate(state.positions, diameters, cell, cell_inv)
-
-    energy, virial, forces, nbrs = engine_forces(
-        engine, state.positions, diameters, cell, cell_inv, nbrs)
-    f_rms = _safe_norm(forces) / ndof ** 0.5
-    positions, images = state.positions, state.images
-    v = torch.zeros_like(positions)
-    sc = _initial_scalars(state.dtype, state.device, dt_initial, alpha0)
-    step = 0
-    while step < max_steps and bool(f_rms >= tol):
-        v, disp, sc = _fire_update(
-            v + sc.dt * forces, forces, sc, alpha0=alpha0, f_inc=f_inc,
-            f_dec=f_dec, n_min=n_min, dt_initial=dt_initial, dt_max=dt_max,
-            dmax=dmax, disp_dim=-1)
-        positions, images = wrap_positions(positions + disp, images, cell,
-                                           cell_inv)
-        energy, virial, forces, nbrs = engine_forces(
-            engine, positions, diameters, cell, cell_inv, nbrs)
-        f_rms = _safe_norm(forces) / ndof ** 0.5
-        step += 1
-
-    new_state = state.replace(positions=positions, images=images,
-                              forces=forces, energy=energy, virial=virial,
-                              nbrs=nbrs)
-    return new_state, energy, bool(f_rms < tol), step
+               n_min, dmax, graph=None):
+    """FIRE in particle order (:func:`make_row_fire`). Returns ``(state,
+    energy, converged, n_steps)``, the state's velocities the caller's."""
+    return make_row_fire(engine, max_steps=max_steps, tol=tol,
+                         dt_initial=dt_initial, dt_max=dt_max, alpha0=alpha0,
+                         f_inc=f_inc, f_dec=f_dec, n_min=n_min, dmax=dmax,
+                         graph=graph)(state)
 
 
 # --------------------------------------------------------------- slot space
@@ -193,70 +507,94 @@ def _fire_once(state: SimulationState, params: Parameters, engine, *,
 
 def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
                    dt_max=0.1, alpha0=0.1, f_inc=1.2, f_dec=0.2, n_min=5,
-                   dmax=0.1, ring=None):
+                   dmax=0.1, ring=None, graph=None, cached=True):
     """``run(slot_state) -> (slot_state, f_rms, converged, n_steps,
     overflow)``: the whole minimization over a slot-layout state, whose
-    ``velocities`` carry FIRE's own velocity (vacant slots hold zeros and
-    never move, so every reduction is exact).
-
-    Each iteration reads ``[f_rms >= tol, rebuild, overflow]`` in one host
-    read. A rebuild (unconditional on entry, then whenever a particle
-    drifted past skin/2) reads its overflow flag once more. Forces inside
-    the loop come from the lean sweep; one full sweep at exit refreshes
-    energy and virial. ``overflow`` is sticky: a True run must be retried
-    from the original state at a grown capacity (an overflowed rebin drops
-    rows).
+    ``velocities`` carry FIRE's own velocity (:class:`SlotFire`; on the
+    card one graph launch; ``run.fire`` the :class:`SlotFire`, kept for the
+    next call of the same engine and hyper-parameters unless ``cached`` is
+    False). ``overflow`` is sticky: a True run must be retried from the
+    original state at a grown capacity (an overflowed rebin drops rows).
 
     ``ring``: the shard ring of a sharded state (the engine a
     :class:`mdtpu_torch.parallel.HaloSlotEngine`, whose rebuild migrates
-    rows): the RMS force, the power and the norms are summed over it, the
-    maxima taken over it, and every flag read on the host is the ring's,
-    so all ranks run the same iterations."""
-    gsum = _identity if ring is None else ring.sum
-    gmax = _identity if ring is None else ring.max
-    update = dict(alpha0=alpha0, f_inc=f_inc, f_dec=f_dec, n_min=n_min,
-                  dt_initial=dt_initial, dt_max=dt_max, dmax=dmax,
-                  disp_dim=0, gmax=gmax, gsum=gsum)
+    rows): :func:`_sharded_slot_fire`, eager."""
+    hyper = fu.FireHyper(dt_initial=dt_initial, dt_max=dt_max, alpha0=alpha0,
+                         f_inc=f_inc, f_dec=f_dec, n_min=n_min, dmax=dmax)
+    if ring is not None:
+        return _sharded_slot_fire(engine, ring, hyper, max_steps, tol)
+    fire = _device_fire("slots", engine, hyper, graph, cached)
 
-    def f_rms_of(forces, ndof):
-        m = gmax(torch.max(torch.abs(forces)))
-        m_safe = torch.where(m > 0, m, torch.ones_like(m))
-        norm = torch.sqrt(gsum(torch.sum((forces / m_safe) ** 2))) * m
-        return norm / ndof ** 0.5
+    def run(state):
+        b, f_rms, converged, n_steps, ovf, _ = fire.run(state, max_steps, tol)
+        return clone(b, state.step), f_rms, converged, n_steps, ovf
+
+    run.fire = fire
+    return run
+
+
+def _sharded_slot_fire(engine, ring, hyper: fu.FireHyper, max_steps, tol):
+    """The slot FIRE over a shard ring, eagerly with one host read an
+    iteration (the JAX package's nesting, every flag the ring's): the
+    kernels of :mod:`fire_update` split where the JAX package has ``pmax``
+    and ``psum``, the ring's all-reduces of ``red`` between the launches."""
+
+    def reduce_over_ring(run, red):
+        run(fu.MAXIMA)
+        red[:2].copy_(ring.max(red[:2]))
+        run(fu.SUMS)
+        red[2:fu.RED].copy_(ring.sum(red[2:fu.RED]))
+        run(fu.TAIL)
 
     def flags(*values):
         local = torch.stack([torch.as_tensor(v, device=values[0].device)
                              for v in values])
-        return (local if ring is None else ring.any(local)).tolist()
+        return ring.any(local).tolist()
 
     def run(state):
-        ndof = float(state.nf)
+        sqrt_ndof = float(state.nf) ** 0.5
+        scal, ints, red, work, flag = fu.buffers(
+            state.dtype, state.device, state.forces.numel())
+        red_u, red_t = red[:fu.RED], red[fu.RED:]
+        scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = (
+            hyper.dt_initial, hyper.alpha0, tol)
+        ints[fu.MAX_STEPS] = max_steps
+
+        def test(forces, entry):
+            reduce_over_ring(lambda mode: fu.fire_test(
+                forces, scal, ints, red_t, work, sqrt_ndof, flag,
+                entry=entry, mode=mode), red_t)
+
         state = state.replace(velocities=torch.zeros_like(state.velocities),
                               vel_comp=torch.zeros_like(state.vel_comp))
         state = slots.slot_forces(state, engine)
-        f_rms = f_rms_of(state.forces, ndof)
-        sc = _initial_scalars(state.dtype, state.device, dt_initial, alpha0)
+        test(state.forces, True)
         step = 0
-        going, ovf = flags(f_rms >= tol, state.nbrs.overflow)
+        going, ovf = flags(flag[0], state.nbrs.overflow)
         while step < max_steps and going and not ovf:
             state = slots._engine_rebin(state, engine)
             ovf, = flags(state.nbrs.overflow)
             rebuild = False
             while step < max_steps and going and not rebuild and not ovf:
-                v, disp, sc = _fire_update(
-                    state.velocities + sc.dt * state.forces, state.forces,
-                    sc, **update)
+                x = state.positions.clone()
+                v = state.velocities.clone()
+                reduce_over_ring(lambda mode: fu.fire_reduce(
+                    v, state.forces, scal, ints, red_u, work, hyper,
+                    mode=mode), red_u)
+                fu.fire_move(x, v, state.forces, scal, ints, hyper.dmax,
+                             rows=False)
                 # The wrap is deferred to the rebin, as in the dynamics.
                 state = slots.slot_forces(
-                    state.replace(positions=state.positions + disp,
-                                  velocities=v), engine, observables=False)
-                f_rms = f_rms_of(state.forces, ndof)
+                    state.replace(positions=x, velocities=v), engine,
+                    observables=False)
+                test(state.forces, False)
                 step += 1
                 going, rebuild, ovf = flags(
-                    f_rms >= tol, slots.slot_needs_rebin(state, engine),
+                    flag[0], slots.slot_needs_rebin(state, engine),
                     state.nbrs.overflow)
         state = slots.slot_forces(state, engine)
-        return state, f_rms, bool(f_rms < tol) and not ovf, step, ovf
+        converged = bool(ints[fu.CONVERGED]) and not ovf
+        return state, scal[fu.FRMS].clone(), converged, step, ovf
 
     return run
 
@@ -275,10 +613,10 @@ def _fire_slots_with_retries(state, params, engine, **hyper):
     at a grown capacity."""
     velocities0 = state.velocities
     start = state.replace(nbrs=None)
-    for _ in range(slots.MAX_GROWS):
+    for attempt in range(slots.MAX_GROWS):
         slot_state, engine = slots.slotify_grown(start, engine)
         slot_state, _, converged, n_steps, ovf = fire_minimize_slots(
-            slot_state, engine, **hyper)
+            slot_state, engine, **(_retried(hyper) if attempt else hyper))
         if not ovf:
             out = slots.unslotify_state(slot_state)
             out = out.replace(velocities=velocities0)
@@ -300,11 +638,15 @@ def fire_minimize_sharded(state: SimulationState, params: Parameters,
     slab with the ring's reductions. Returns ``(state, energy, converged,
     n_steps)`` in particle order on every rank, with the caller's
     velocities; on a capacity or migration overflow the run is retried from
-    the start on a grown engine."""
+    the start on a grown engine. It runs eagerly (one host read an
+    iteration): ``graph=True`` raises."""
     from mdtpu_torch.core.types import state_to
     from mdtpu_torch.parallel.driver import build_grown, sharded_engine
     from mdtpu_torch.parallel.halo_slot import unshard_slot_state
 
+    if hyper.pop("graph", None):
+        raise ValueError("fire_minimize_sharded runs eagerly: its graph "
+                         "needs the ring's collectives inside a capture")
     engine = sharded_engine(state, params.potential, engine, group, device)
     ring = engine.ring
     start = state_to(state.replace(nbrs=None, ids=None), ring.device)

@@ -22,7 +22,10 @@ the minimum image, :func:`rebuild_flag_rows`
 (``rebuild_flag_rows.launches``; the engines' ``needs_rebuild``);
 :func:`graph_if` opens an IF node in the graph
 being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
-``begin_capture_to_if_node``, whose handle the rebuild test sets;
+``begin_capture_to_if_node``, whose handle the rebuild test sets, and
+:func:`graph_while` a WHILE node (a captured segment's loop, whose test
+:func:`step_below` sets its handle: ``step_below.launches``; FIRE's
+minimization);
 :func:`capture_census` counts the nodes of the graph being captured and
 its programmatic edges; :func:`empty` launches a kernel that does nothing
 (the launch floor). The noise and the velocity finish launch as
@@ -77,6 +80,9 @@ _SIGNATURES = (
     ("mdtpu_graph_if_handle", (_P, _P)),
     ("mdtpu_graph_if_begin", (_P, _Q, _P)),
     ("mdtpu_graph_if_end", (_P,)),
+    ("mdtpu_graph_while_begin", (_P, _Q, _P)),
+    ("mdtpu_graph_while_end", (_P,)),
+    ("mdtpu_step_below", (_P, _P, _P, _Q, _I, _P)),
     ("mdtpu_capture_census", (_P, ctypes.c_char_p, _P)),
 )
 CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
@@ -461,6 +467,34 @@ def rebuild_flag_rows(positions, ref_positions, skin, *, cell=None,
     return out
 
 
+def step_below_plain(counter, end):
+    """Whether the step ``counter`` is below ``end`` (0-d int64 tensors), a
+    0-d bool tensor."""
+    return counter < end
+
+
+def step_below(counter, end, out, handle=None):
+    """:func:`step_below_plain` into ``out`` (a 0-d bool tensor): a captured
+    segment's loop test. CUDA tensors launch the kernel (one thread; adds
+    one to ``step_below.launches``), which also sets ``handle``, a WHILE
+    node's handle from :func:`graph_while`, inside the graph being
+    captured; CPU tensors take the plain version."""
+    if counter.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("a graph's handle takes CUDA tensors")
+        return out.copy_(step_below_plain(counter, end))
+    if (counter.dtype != torch.int64 or end.dtype != torch.int64
+            or out.dtype != torch.bool or end.device != counter.device
+            or out.device != counter.device):
+        raise ValueError("step_below takes int64 counters and a bool flag on "
+                         "one device")
+    launch("mdtpu_step_below", None,
+           (counter.data_ptr(), end.data_ptr(), out.data_ptr(), handle or 0,
+            int(handle is not None)), "step_below", counter.device)
+    step_below.launches += 1
+    return out
+
+
 def empty(device="cuda", programmatic=False):
     """Launch a kernel that does nothing on ``device``'s current stream:
     its time in a graph of many launches is the card's launch floor.
@@ -470,11 +504,12 @@ def empty(device="cuda", programmatic=False):
            "empty", torch.device(device))
 
 
-WRAPPERS = (bussi_draw, uniform_noise, rebuild_flag, rebuild_flag_rows)
+WRAPPERS = (bussi_draw, uniform_noise, rebuild_flag, rebuild_flag_rows,
+            step_below)
 
 
 def reset_launches():
-    """Set the four wrappers' launch counts to 0."""
+    """Set the wrappers' launch counts to 0."""
     for wrapper in WRAPPERS:
         wrapper.launches = 0
 
@@ -486,41 +521,70 @@ for _wrapper in WRAPPERS:
 
 # ------------------------------------------------- the conditional node
 
-_BODY_STREAMS = {}
+_BODY_STREAMS = {}    # (device, depth): the stream a body is captured on
+_depth = 0            # conditional bodies being captured, one inside another
 
 
 @contextlib.contextmanager
-def graph_if(test, device, pool):
+def _conditional(kind, test, device, pools):
+    """The node ``kind`` ("if" or "while") after ``test(handle)``; yields the
+    handle while its body is captured, its allocations from a new
+    ``torch.cuda.MemPool`` appended to ``pools`` (a body nested in another
+    needs a pool of its own: torch refuses to record to one pool twice)."""
+    global _depth
+    lib = _library()
+    parent = torch.cuda.current_stream(device)
+    body = _BODY_STREAMS.get((device, _depth))
+    if body is None:
+        body = _BODY_STREAMS[(device, _depth)] = torch.cuda.Stream(device)
+    handle = ctypes.c_ulonglong()
+    what = f"graph_{kind}"
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_handle(
+            parent.cuda_stream, ctypes.byref(handle)), what)
+    test(handle.value)
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, getattr(lib, f"mdtpu_graph_{kind}_begin")(
+            parent.cuda_stream, handle.value, body.cuda_stream), what)
+    pool = torch.cuda.MemPool()
+    pools.append(pool)
+    _depth += 1
+    try:
+        with torch.cuda.stream(body), torch.cuda.use_mem_pool(pool, device):
+            yield handle.value
+    finally:
+        _depth -= 1
+        with torch.cuda.device(device):
+            _cuda_build.check(lib, NAME, getattr(
+                lib, f"mdtpu_graph_{kind}_end")(body.cuda_stream), what)
+
+
+def graph_if(test, device, pools):
     """Inside a CUDA-graph capture on ``device``'s current stream: what the
     body of this context enqueues runs at each replay only where the test
     set the IF node's handle at that point of the replay (the decision is
     made on the device). ``test(handle)`` launches the kernel that sets
     ``handle``, captured just before the node (:func:`rebuild_flag`). The
     body is captured on a stream of its own, and its allocations come from
-    ``pool``, a ``torch.cuda.MemPool`` of its own (the graph's pool routes
-    only the capturing stream's allocations; the caller keeps ``pool`` as
-    long as the graph). Raises where the stream is not capturing or the
+    a ``torch.cuda.MemPool`` of its own, appended to the list ``pools``
+    (the graph's pool routes only the capturing stream's allocations; the
+    caller keeps ``pools`` as long as the graph). Inside the body of
+    :func:`graph_while` the IF node is nested in the WHILE node. Raises
+    where the stream is not capturing or the runtime refuses the node."""
+    return _conditional("if", test, device, pools)
+
+
+def graph_while(test, device, pools):
+    """Inside a CUDA-graph capture on ``device``'s current stream: what the
+    body of this context enqueues runs again and again at each replay while
+    the WHILE node's handle is set (CUDA 12.4+ for an IF node nested in
+    the body). ``test(handle)`` launches the kernel that sets ``handle``
+    for the first entry, captured just before the node; the context yields
+    the handle, and the body's last kernel must set it again on every pass
+    (:func:`step_below`). The body's stream and allocations as
+    :func:`graph_if`'s. Raises where the stream is not capturing or the
     runtime refuses the node."""
-    lib = _library()
-    parent = torch.cuda.current_stream(device)
-    body = _BODY_STREAMS.get(device)
-    if body is None:
-        body = _BODY_STREAMS[device] = torch.cuda.Stream(device)
-    handle = ctypes.c_ulonglong()
-    with torch.cuda.device(device):
-        _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_handle(
-            parent.cuda_stream, ctypes.byref(handle)), "graph_if")
-    test(handle.value)
-    with torch.cuda.device(device):
-        _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_begin(
-            parent.cuda_stream, handle.value, body.cuda_stream), "graph_if")
-    try:
-        with torch.cuda.stream(body), torch.cuda.use_mem_pool(pool, device):
-            yield
-    finally:
-        with torch.cuda.device(device):
-            _cuda_build.check(lib, NAME, lib.mdtpu_graph_if_end(
-                body.cuda_stream), "graph_if")
+    return _conditional("while", test, device, pools)
 
 
 def capture_census(device):

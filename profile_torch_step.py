@@ -42,8 +42,19 @@ per step (stream and event synchronisations: each read of a tensor on the
 host is one; the window's own closing ``torch.cuda.synchronize`` is counted
 apart), the kernels, memsets and copies the device ran per step (under
 graph replay, the step graph's nodes of those kinds), the host's own time
-to issue a window's steps, and the kernels that take the most device
-time; for ``sharded`` a second line with
+to issue a window's steps, the device's span of the timed window by CUDA
+events (from its first work to its last, the gaps inside included), and
+the kernels that take the most device time. Where a captured segment
+loops its step inside a WHILE node (``route`` ``graph`` in a package
+with ``philox_draws.graph_while``), ``torch.profiler`` does not see the
+kernels inside the node: the device busy time, the idle shares, the
+kernels, memsets and copies and the top kernels are then null, and the
+kernels a step runs come from the step graphs' census instead
+(``device_kernels_per_step_census``: each variant's WHILE-body kernel
+nodes times the steps it runs in a segment, and the loop test; the
+rebuilds' IF bodies not counted); ``device_idle_share_outside_span``,
+one less the span over the wall time, is then the least the idle share
+can be. For ``sharded`` a second line with
 the host ms of the step's own parts alone (the rebuild flag's all-reduce
 and read, a scalar all-reduce, the ghost exchange and assembly).
 ``--brownian`` (with ``slot`` or ``plane``, the latter compensated as
@@ -131,6 +142,7 @@ def profile(args, programmatic):
     import mdtpu_torch as mt
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.integrate import step as step_mod
+    from mdtpu_torch.ops import philox_draws
     from mdtpu_torch.ops.experimental import PlaneEngine
     from mdtpu_torch.sim.initialization import lattice_fluid_state
 
@@ -211,21 +223,27 @@ def profile(args, programmatic):
                                    compensated, args.eager)
         run, totals = slot_run(advance)
 
-    state, metrics = measure(run, state)
+    def looped(adv):
+        """Whether ``adv``'s segments ran inside a WHILE node (known once
+        it ran: ``graph=None`` settles at the first call)."""
+        return lambda: (hasattr(philox_draws, "graph_while")
+                        and bool(getattr(adv, "graph", False)))
+
+    state, metrics = measure(run, state, looped=looped(advance))
     extra = {}
     if args.engine != "sharded":
         rebuilds = window_rebuilds(totals)
-        metrics["step_graph_nodes"] = getattr(advance, "census", None)
+        with_census(metrics, advance)
         if (args.engine == "slot" and args.potential == "lj"
                 and not args.brownian):
             nve = slot_step.make_slot_advance(
                 params, mt.NVE(), engine, hilo=True,
                 graph=False if args.eager else None)
             run, totals = slot_run(nve)
-            _, extra["nve"] = measure(run, state)
+            _, extra["nve"] = measure(run, state, looped=looped(nve))
             extra["nve"]["rebuilds_timed_profiled"] = window_rebuilds(
                 totals)[1:]
-            extra["nve"]["step_graph_nodes"] = getattr(nve, "census", None)
+            with_census(extra["nve"], nve)
     print(json.dumps({
         "card": card, "engine": args.engine, "potential": args.potential,
         "ensemble": type(ensemble).__name__,
@@ -280,28 +298,56 @@ def slot_run(advance):
     return run, totals
 
 
+# The steps each step variant runs in a captured segment of k steps.
+VARIANT_STEPS = {"lean": lambda k: k - 1, "last": lambda k: 1,
+                 "full": lambda k: k, "step": lambda k: k}
+
+
+def with_census(metrics, advance):
+    """``metrics`` with the advance's step graphs' nodes and, where the
+    profiler could not see the kernels (a looped segment), the kernels a
+    step runs by the census, over the profiled window's one segment."""
+    census = getattr(advance, "census", None)
+    metrics["step_graph_nodes"] = census
+    if census and metrics["device_kernels_per_step"] is None:
+        k = metrics["profiled_steps"]
+        kernels = sum(nodes["kernels"] * VARIANT_STEPS[name](k)
+                      for name, nodes in census.items())
+        # The loop test: once a pass and once at each variant's entry.
+        metrics["device_kernels_per_step_census"] = (
+            kernels + k + len(census)) / k
+
+
 def window_rebuilds(totals):
     """Rebuilds in each window from the counts after each."""
     totals = [int(t) for t in totals]
     return [0] + [b - a for a, b in zip(totals, totals[1:])]
 
 
-def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
+def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS,
+            looped=lambda: False):
     """``(state, metrics)`` of ``run(state, k)`` (k steps, one segment):
     after a warm-up of 20, the host clock over ``n_timed`` steps, with the
     time the host takes to issue them (before the closing synchronize)
-    apart; then ``torch.profiler`` over
+    apart, and the device's span of them by CUDA events; then
+    ``torch.profiler`` over
     ``n_profiled`` steps: device busy time and idle share, launches of
     kernels and of CUDA graphs, host synchronisations (each read of a
     tensor on the host is one), copy calls, and the kernels that take the
-    most device time, each a step."""
+    most device time, each a step. ``looped()``: whether the segment looped
+    inside a WHILE node, whose kernels the profiler does not see: what it
+    would read from them is then null."""
     state = run(state, 20)
     torch.cuda.synchronize()
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t_start = time.perf_counter()
+    first.record()
     state = run(state, n_timed)
+    last.record()
     issue_ms = (time.perf_counter() - t_start) / n_timed * 1e3
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t_start) / n_timed * 1e3
+    span_ms = first.elapsed_time(last) / n_timed
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -336,10 +382,22 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
     dev_memset = sum(e.count for e in kernels if e.key.startswith("Memset"))
     dev_memcpy = sum(e.count for e in kernels if e.key.startswith("Memcpy"))
     dev_kernels = sum(e.count for e in kernels) - dev_memset - dev_memcpy
+    unseen = {}
+    looped = looped()
+    if looped:
+        unseen = dict.fromkeys((
+            "device_busy_ms_per_step", "device_idle_share_profiled",
+            "device_idle_share_timed", "device_kernels_per_step",
+            "device_memsets_per_step", "device_copies_per_step",
+            "top_device_kernels"))
+        gaps = {}
     return state, {
         "ms_per_step_host_clock": ms_per_step,
         "steps_per_s": 1e3 / ms_per_step,
         "issue_ms_per_step": issue_ms,
+        "device_span_ms_per_step": span_ms,
+        "device_idle_share_outside_span": 1.0 - span_ms / ms_per_step,
+        "device_seen_by_profiler": not looped,
         "profiled_steps": n_profiled,
         "profiled_wall_ms_per_step": wall_ms / n_profiled,
         "device_busy_ms_per_step": busy_ms / n_profiled,
@@ -359,6 +417,7 @@ def measure(run, state, n_timed=200, n_profiled=PROFILED_STEPS):
         "top_device_kernels": [
             {"name": e.key[:90], "calls_per_step": e.count / n_profiled,
              "ms_per_step": dev_us(e) / 1e3 / n_profiled} for e in top],
+        **unseen,
     }
 
 

@@ -1919,7 +1919,13 @@ def _assert_routes_equal(out, n_steps):
         assert torch.equal(getattr(sg, name), getattr(se, name)), name
     assert torch.equal(rows_g, rows_e)
     assert reb_g == reb_e and len(reb_e) >= 1
-    assert n_g == n_e
+    # The captured segments' loop test: once a step and once at each graph
+    # launch (a step variant's WHILE node), which the eager route does not
+    # launch; every other count the eager route's.
+    loop = dict(n_g).pop(("step_below", "launches"), 0)
+    assert n_steps < loop <= 3 * n_steps
+    assert {k: v for k, v in n_g.items()
+            if k != ("step_below", "launches")} == n_e
     assert n_e[("make_slot_step", "steps")] == n_steps
     assert n_e[("rebuild_flag", "launches")] >= n_steps
     # An MD step finishes through velocity_finish and draws in it; a
@@ -3113,7 +3119,7 @@ PARTICLE_CASES = ("plane_nvt", "plane_nve_hilo", "neighbor_nvt",
 
 @pytest.mark.parametrize("case", PARTICLE_CASES)
 def test_captured_particle_advance_equals_eager(cuda, case):
-    """The particle-order advance captured (one graph launch a step) and
+    """The particle-order advance captured (one graph launch a segment) and
     eager (the flag read on the host), 50 steps in segments with at least
     one rebuild: positions, velocities, forces, images, energy, virial,
     every segment's numbers and the rebuild steps bit for bit; the
@@ -3182,3 +3188,182 @@ def test_captured_steps_keep_the_reference_of_the_last_build(cuda):
             assert not torch.equal(b.positions, pos)
             return
     pytest.fail("every step rebuilt")
+
+
+@pytest.mark.parametrize("case", ["positive", "negative", "grow", "rest",
+                                  "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("layout", ["slots", "rows"])
+def test_fire_kernels_match_their_plain_versions(cuda, dtype, layout, case):
+    """FIRE's three kernels (``minimize/fire_update.py``) on one set of
+    buffers against their plain versions, at the bench_fire shapes (the
+    slots' grid has a ragged last block), in every branch: the power
+    positive, negative, positive past n_min with ~1e25 forces (the one-pass
+    rescaling) and dt clamped at dt_max, at rest (v = F = 0), and with the
+    overflow flag set. ``fire_reduce`` in one pass and split as the shard
+    ring launches it (every scalar to rel 1e-12 at f64, 2e-6 at f32;
+    do_mix, positive and the counters equal), ``fire_move`` (positions,
+    velocities, and in rows the images after the wrap), ``fire_test`` in
+    one pass and split (f_rms, the step and the flags), each twice bit for
+    bit."""
+    from mdtpu_torch.minimize import fire_update as fu
+    tol = 1e-12 if dtype == torch.float64 else 2e-6
+    shape = (3, 124875) if layout == "slots" else (65536, 3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    f = torch.randn(shape, device=cuda, generator=g) * 30
+    v = torch.randn(shape, device=cuda, generator=g)
+    x = (torch.rand(shape, device=cuda, generator=g) * 20).to(dtype)
+    if case == "grow":
+        f = f * (1e25 / 30)
+    v = -v - 0.05 * f if case == "negative" else v + 0.01 * f
+    if case == "rest":
+        v, f = torch.zeros_like(v), torch.zeros_like(f)
+    f, v = f.to(dtype), v.to(dtype)
+    box = {}
+    if layout == "rows":
+        cell = torch.eye(3, dtype=dtype, device=cuda) * 20.1
+        box = dict(images=torch.zeros(shape, dtype=torch.int64, device=cuda),
+                   cell=cell, cell_inv=torch.linalg.inv(cell))
+    over = torch.tensor(case == "overflow", device=cuda)
+    hyper = fu.FireHyper()
+    bufs = fu.buffers(dtype, cuda, f.numel())
+    bufs[0][fu.DT] = 0.09 if case == "grow" else 0.03
+    bufs[0][fu.ALPHA], bufs[0][fu.TOL] = 0.07, 1e-3
+    bufs[1][fu.SSN], bufs[1][fu.MAX_STEPS] = (7 if case == "grow" else 2), 10
+    ring = (fu.MAXIMA, fu.SUMS, fu.TAIL)
+
+    def copies(of):
+        return [t.clone() for t in of]
+
+    def close(a, b):
+        a, b = a.double(), b.double()
+        return bool(((a - b).abs() <= tol * b.abs()).all())
+
+    plain = copies(bufs)
+    fu.fire_reduce_plain(v, f, plain[0], plain[1], plain[2][:fu.RED], hyper,
+                         over)
+    if case == "grow":
+        assert float(plain[0][fu.DT]) == pytest.approx(hyper.dt_max)
+    for modes in ((fu.ONE_PASS,), ring):
+        runs = [copies(bufs), copies(bufs)]
+        for k in runs:
+            for mode in modes:
+                fu.fire_reduce(v, f, k[0], k[1], k[2][:fu.RED], k[3], hyper,
+                               over, mode=mode)
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert close(runs[0][0], plain[0]) and close(runs[0][2], plain[2])
+        assert torch.equal(runs[0][1], plain[1])
+    outs = []
+    for move in (fu.fire_move, fu.fire_move, fu.fire_move_plain):
+        xs, vs = x.clone(), v.clone()
+        b = {k: (t.clone() if k == "images" else t) for k, t in box.items()}
+        if move is fu.fire_move_plain:
+            move(xs, vs, f, plain[0], plain[1], hyper.dmax,
+                 layout == "rows", *b.values(), overflow=over)
+        else:
+            move(xs, vs, f, plain[0], plain[1], hyper.dmax,
+                 rows=layout == "rows", overflow=over, **b)
+        outs.append((xs, vs, b.get("images")))
+    for a, b in zip(outs[0], outs[1]):
+        assert a is None or torch.equal(a, b)
+    for a, b in zip(outs[0][:2], outs[2][:2]):
+        assert bool(((a - b).abs() <= tol * b.abs().max()).all())
+    if layout == "rows":
+        assert torch.equal(outs[0][2], outs[2][2])
+    tested = copies(plain)
+    fu.fire_test_plain(f, tested[0], tested[1], tested[2][fu.RED:], 17.0,
+                       tested[4], overflow=over)
+    for modes in ((fu.ONE_PASS,), ring):
+        runs = [copies(plain), copies(plain)]
+        for k in runs:
+            for mode in modes:
+                fu.fire_test(f, k[0], k[1], k[2][fu.RED:], k[3], 17.0, k[4],
+                             overflow=over, mode=mode)
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert close(runs[0][0], tested[0])
+        assert torch.equal(runs[0][1], tested[1])
+        assert torch.equal(runs[0][4], tested[4])
+
+
+@pytest.mark.parametrize("kind", ["slots", "list"])
+def test_captured_fire_equals_eager(cuda, kind):
+    """FIRE as one CUDA-graph launch a minimization against FIRE eager
+    (``graph=False``) from one start (4096 LJ on the bench's jittered
+    lattice, f32): positions, FIRE's velocities, forces, energy, n_steps
+    and the rebuild steps bit for bit, for 15 and then 60 iterations (the
+    second call replays the first's graph), with rebuilds; in slots a
+    captured pass holds the nested IF node and no copy."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.minimize import fire as fire_mod
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                                jitter=JITTER, device=cuda)
+    if kind == "slots":
+        eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+        start = slot_step.slotify(state, eng)
+    else:
+        eng = mdtpu_torch.select_engine(pot, 2.5, state, prefer="neighbor")
+        start = state.replace(nbrs=eng.allocate(
+            state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv))
+    out = {}
+    for graph in (False, None):
+        runs = []
+        for max_steps in (15, 60):
+            if kind == "slots":
+                run = fire_mod.make_slot_fire(eng, max_steps=max_steps,
+                                              tol=0.0, graph=graph)
+                st, _, _, steps, ovf = run(start)
+                fire, v = run.fire, st.velocities
+            else:
+                run = fire_mod.make_row_fire(eng, max_steps=max_steps,
+                                             tol=0.0, graph=graph)
+                st, _, _, steps = run(start)
+                fire, v, ovf = run.fire, run.fire.bufs[1].v, False
+            assert steps == max_steps and not ovf
+            runs.append((st, v.clone(), fire.rebuild_steps()))
+        out[graph] = (runs, fire)
+    for (se, ve, re), (sg, vg, rg) in zip(out[False][0], out[None][0]):
+        for name in ("positions", "forces", "energy", "virial"):
+            assert torch.equal(getattr(se, name), getattr(sg, name)), name
+        assert torch.equal(ve, vg) and re == rg
+    assert len(out[None][0][-1][2]) >= 2
+    fire = out[None][1]
+    assert fire.captured is not None and out[False][1].captured is None
+    assert fire.census["pass"]["conditionals"] == 1
+    assert fire.census["pass"]["memsets"] == 0
+    if kind == "slots":
+        assert fire.census["pass"]["copies"] == 0
+
+
+def test_captured_segment_is_one_launch_a_variant(cuda):
+    """A captured slot segment is one graph launch a step variant (the
+    WHILE node loops the steps), whatever its length, and the loop test
+    launches once a step and once a segment variant."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.ops import philox_draws as draws
+    from mdtpu_torch.utils import counters
+    n = 4096
+    pot = LennardJones(r_cut=2.5)
+    params = mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                                jitter=JITTER, device=cuda)
+    eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+    slots = slot_step.slot_forces(slot_step.slotify(state, eng), eng)
+    advance = slot_step.make_slot_advance(params, mdtpu_torch.NVT(1.0, 0.4),
+                                          eng)
+    s = advance(slots, 3)
+    replays = []
+    for name, (graph, *_rest) in advance.graphs.items():
+        real = graph.replay
+        graph.replay = (lambda real=real, name=name:
+                        replays.append(name) or real())
+    counters.settle()
+    before = draws.step_below.launches
+    s = advance(s, 40)
+    counters.settle()
+    assert replays == ["lean", "last"]
+    assert draws.step_below.launches - before == 40 + 2
+    assert s.step == 43
