@@ -313,13 +313,20 @@
    captured routes above are held to the eager ones, the segment
    profiles to one graph launch a variant (two in slots: the lean steps
    and the full last step; one in particle order) and no host read.
-   FIRE phase: FIRE's kernels (``fire_reduce`` in one pass and in two
-   launches, ``fire_move``, ``fire_test``; ``csrc/fire_update.cu``)
-   against their plain versions at f32 and f64, in slots (3, 124,875) and
-   in particle rows (65,536, 3), to rel 1e-12 / 2e-6, flags and counters
-   equal, each twice bit for bit, timed by a graph of ``MANY_CALLS``
-   calls beside the launch floor; ``step_below`` against its plain
-   version. FIRE graph phase: FIRE captured (one graph launch a
+   FIRE phase: FIRE's kernels (``fire_reduce`` and ``fire_test`` in one
+   pass and in the shard ring's split, ``fire_move``;
+   ``csrc/fire_update.cu``) against their plain versions at f32 and f64,
+   in slots (3, 124,875) and in particle rows (65,536, 3), to rel 1e-12 /
+   2e-6, flags and counters equal, each twice bit for bit; the two
+   reductions also at the edges of their grid (1, 3, one block's count
+   and its neighbours, an odd count, one wave's count and past it) on
+   aligned views, views whose data_ptr is not 16-byte aligned and views
+   of v and F misaligned apart; each timed at f32 and f64 by a graph of
+   ``MANY_CALLS`` calls (logged beside the earlier design's times), the
+   launch floor, the bound and ``torch.linalg.vector_norm`` of F (a
+   yardstick over the same bytes), and split into phases by a stamped
+   copy of the source (``probe_torch_fire.py``); ``step_below`` against
+   its plain version. FIRE graph phase: FIRE captured (one graph launch a
    minimization) against FIRE eager from one start at 65,536:
    ``bench_fire.py``'s system in slots (20, then 200 iterations at tol 0,
    one capture), the packer's start (converging at tol 1e-10),
@@ -345,11 +352,13 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -4661,6 +4670,25 @@ FIRE_SYSTEMS = {
 }
 
 
+# The two reductions' times in their earlier design (a plain launch,
+# blocks of 2,048 values, two block reductions, the tail on one thread from
+# device memory; a graph of 100 in-place calls, f32, on an H100 80GB HBM3
+# at 700 W), logged beside this tree's in the FIRE phase's lines; not in
+# the kernels line, which holds only what this run measured.
+FIRE_EARLIER_MS = {("fire_reduce", "slots"): 0.00758,
+                   ("fire_reduce", "rows"): 0.00536,
+                   ("fire_test", "slots"): 0.00827,
+                   ("fire_test", "rows"): 0.00567}
+# The programmatic edges a FIRE census reads (the graph's, and those into
+# the two reductions).
+FIRE_EDGES = ("programmatic_edges", "programmatic_into_fire_reduce",
+              "programmatic_into_fire_test", "edges_error",
+              "fire_edges_error")
+# Views of v and F for the edge checks: offsets in values into a larger
+# tensor (both misaligned alike: a scalar head; apart: scalar loads).
+FIRE_ALIGNS = {"aligned": (0, 0), "head": (1, 1), "apart": (1, 2)}
+
+
 def fire_bound(name, shape, dtype, images=False):
     """The least time of one call of FIRE kernel ``name`` on values of
     ``shape`` in ``dtype``: its arrays read and written once (the images
@@ -4673,7 +4701,77 @@ def fire_bound(name, shape, dtype, images=False):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def fire_check(mt):
+def fire_edge_check(fu, hyper, ring, copies, rel_each):
+    """The two reductions at the grid's edges (``fire_update.edge_counts``),
+    f32 and f64, in every case of :data:`FIRE_CASES` and on every view of
+    :data:`FIRE_ALIGNS`: one pass and the ring's split against the plain
+    versions (rel 1e-12 / 2e-6; counters and flags equal), each twice bit
+    for bit. Returns ``(record, failures)``."""
+    failures, worst = [], {}
+    for dtype in (torch.float32, torch.float64):
+        tol, tag = FIRE_TOL[dtype], str(dtype)[6:]
+        for n, align, case in itertools.product(
+                fu.edge_counts(dtype), FIRE_ALIGNS, FIRE_CASES):
+            g = torch.Generator(device="cuda").manual_seed(n)
+            f = torch.randn(n + 2, device="cuda", generator=g) * 30.0
+            v = torch.randn(n + 2, device="cuda", generator=g)
+            if case == "grow":
+                f = f * (1e25 / 30.0)
+            v = -v - 0.05 * f if case == "negative" else v + 0.01 * f
+            if case == "rest":
+                v, f = torch.zeros_like(v), torch.zeros_like(f)
+            of, ov = FIRE_ALIGNS[align]
+            f, v = f.to(dtype)[of:of + n], v.to(dtype)[ov:ov + n]
+            bufs = fu.buffers(dtype, "cuda", n)
+            bufs[0][fu.DT] = 0.09 if case == "grow" else 0.03
+            bufs[0][fu.ALPHA], bufs[0][fu.TOL] = 0.07, 1e-3
+            bufs[1][fu.SSN] = 7 if case == "grow" else 2
+            bufs[1][fu.MAX_STEPS] = 10
+            over = torch.tensor(case == "overflow", device="cuda")
+            p = copies(bufs)
+            fu.fire_reduce_plain(v, f, p[0], p[1], p[2][:fu.RED], hyper,
+                                 over)
+            errs, same = {}, True
+            for label, modes in (("reduce", (fu.ONE_PASS,)),
+                                 ("reduce_ring", ring)):
+                k, k2 = copies(bufs), copies(bufs)
+                for t in (k, k2):
+                    for mode in modes:
+                        fu.fire_reduce(v, f, t[0], t[1], t[2][:fu.RED], t[3],
+                                       hyper, over, mode=mode)
+                errs[label] = max(rel_each(k[0], p[0]),
+                                  rel_each(k[2][:fu.RED], p[2][:fu.RED]))
+                same &= (torch.equal(k[1], p[1]) and torch.equal(k[0], k2[0])
+                         and torch.equal(k[1], k2[1])
+                         and torch.equal(k[2], k2[2]))
+            tp = copies(p)
+            fu.fire_test_plain(f, tp[0], tp[1], tp[2][fu.RED:], 17.0, tp[4],
+                               overflow=over)
+            for label, modes in (("test", (fu.ONE_PASS,)),
+                                 ("test_ring", ring)):
+                k, k2 = copies(p), copies(p)
+                for t in (k, k2):
+                    for mode in modes:
+                        fu.fire_test(f, t[0], t[1], t[2][fu.RED:], t[3], 17.0,
+                                     t[4], overflow=over, mode=mode)
+                errs[label] = rel_each(k[0], tp[0])
+                same &= (torch.equal(k[1], tp[1]) and torch.equal(k[4], tp[4])
+                         and torch.equal(k[0], k2[0])
+                         and torch.equal(k[1], k2[1]))
+            worst[tag] = max(worst.get(tag, 0.0), max(errs.values()))
+            if not same or max(errs.values()) > tol:
+                failures.append(f"fire edges {tag} n {n} {align} {case}: "
+                                f"errors {errs}, counters, flags and repeats "
+                                f"equal {same}")
+    rec = {"counts": {str(d)[6:]: list(fu.edge_counts(d))
+                      for d in (torch.float32, torch.float64)},
+           "views": list(FIRE_ALIGNS), "cases": list(FIRE_CASES),
+           "max_rel_err": worst, "failures": len(failures)}
+    log(json.dumps({"fire_edges": rec}))
+    return rec, failures
+
+
+def fire_check(mt, probe_lib=None):
     """FIRE's three kernels (``minimize/fire_update.py``) against their
     plain versions on the card, at f32 and f64, in slots (the bench_fire
     cell grid's (3, 124,875)) and in particle rows ((65,536, 3), with the
@@ -4686,9 +4784,15 @@ def fire_check(mt):
     velocities to the same relative tolerance of their largest value, the
     images equal), ``fire_test`` in one pass and split (f_rms to the same,
     the step, the flags and converged equal); each kernel twice on the
-    same inputs bit for bit. Each timed by :func:`many_ms` (a graph of
-    ``MANY_CALLS`` in-place calls, the positive case), its plain version
-    the same way, beside the launch floor and its bound."""
+    same inputs bit for bit. The two reductions also at each count of
+    ``fire_update.edge_counts``, in every case, on each view of
+    :data:`FIRE_ALIGNS`, one pass and split, the same way. Each timed by
+    :func:`many_ms` (a graph of ``MANY_CALLS`` in-place calls, the
+    positive case) at f32 and f64, its plain version the same way, beside
+    the launch floor, its bound and ``vector_norm`` of F, and logged
+    beside the earlier design's times (:data:`FIRE_EARLIER_MS`);
+    ``probe_lib`` (a future of ``probe_torch_fire.build_stamped``): the
+    reductions' phases at f32 from its stamped copy."""
     from mdtpu_torch.minimize import fire_update as fu
     hyper = fu.FireHyper()
     slots_shape = (3, BENCH_GEOMETRY[1] * math.prod(BENCH_GEOMETRY[0]))
@@ -4804,12 +4908,17 @@ def fire_check(mt):
                 failures.append(f"fire kernels {key}: errors {errs}, flags, "
                                 f"counters and repeats equal {same}")
     log(json.dumps({"fire_kernel_errors": errors}))
-    # Times at the bench_fire slots and the particle rows, float32.
+    edges, edge_failures = fire_edge_check(fu, hyper, ring, copies,
+                                           rel_each)
+    failures += edge_failures
+    # Times at the bench_fire slots and the particle rows, f32 and f64.
     floor = launch_floor_ms()
-    for layout, shape in (("slots", slots_shape), ("rows", rows_shape)):
+    for (layout, shape), dtype in itertools.product(
+            (("slots", slots_shape), ("rows", rows_shape)),
+            (torch.float32, torch.float64)):
         rows = layout == "rows"
         (f, v, x), box, (scal, ints, red, work, flags), _ = inputs(
-            shape, torch.float32, rows)
+            shape, dtype, rows)
         extra = dict(box) if rows else {}
         plain_box = (box["images"], box["cell"], box["cell_inv"]) \
             if rows else ()
@@ -4830,12 +4939,13 @@ def fire_check(mt):
                 lambda: fu.fire_test_plain(f, scal, ints, red[fu.RED:], 17.0,
                                            flags)),
         }
+        tag = str(dtype)[6:]
         for name, (kernel, plain) in calls.items():
-            b, by = fire_bound(name, shape, torch.float32,
+            b, by = fire_bound(name, shape, dtype,
                                images=rows and name == "fire_move")
             rec = {"max_abs_err": max(
                        max(e.values()) for k, e in errors.items()
-                       if k.startswith(f"{layout}_float32_")),
+                       if k.startswith(f"{layout}_{tag}_")),
                    "ms": many_ms(kernel), "plain_ms": many_ms(plain),
                    "plain_timing": "a graph of the composition's calls, as "
                                    "ms",
@@ -4843,9 +4953,27 @@ def fire_check(mt):
                    "bound_meetable_ms": max(b, floor),
                    "launch_floor_ms": floor, "library_ms": None,
                    "library_call": "none, no single PyTorch call",
-                   "shape": list(shape), "dtype": "float32"}
-            results[f"{name}_{layout}"] = rec
-            log(json.dumps({"fire_kernel": name, "layout": layout, **rec}))
+                   "shape": list(shape), "dtype": tag}
+            if name != "fire_move":
+                rec["yardstick_vector_norm_ms"] = many_ms(
+                    lambda: torch.linalg.vector_norm(f))
+                if probe_lib is not None and dtype == torch.float32:
+                    import probe_torch_fire
+                    rec["phases"] = probe_torch_fire.case_split(
+                        probe_lib.result(), name, shape, dtype)
+                    if name == "fire_test" and not rows:
+                        rec["phases_before_if_node"] = \
+                            probe_torch_fire.case_split(
+                                probe_lib.result(), name, shape, dtype,
+                                with_if=True)
+            key = f"{name}_{layout}" + ("" if dtype == torch.float32
+                                        else f"_{tag}")
+            results[key] = rec
+            earlier = FIRE_EARLIER_MS.get((name, layout)) \
+                if dtype == torch.float32 else None
+            log(json.dumps({"fire_kernel": name, "layout": layout, **rec,
+                            "earlier_design_ms": earlier}))
+    results["edges"] = edges
     # The captured segment's loop test, against its plain version.
     from mdtpu_torch.ops import philox_draws as draws
     counter = torch.tensor(599, device="cuda")
@@ -5013,9 +5141,11 @@ def fire_graph_paths(mt):
                                      "cudaLaunchKernelExC",
                                      "cuLaunchKernel", "cuLaunchKernelEx"),
             "pass_nodes": {k: fire.census["pass"][k] for k in (
-                "nodes", "kernels", "copies", "memsets", "conditionals")},
+                "nodes", "kernels", "copies", "memsets", "conditionals",
+                *FIRE_EDGES)},
             "graph_nodes": {k: fire.census["graph"][k] for k in (
-                "nodes", "kernels", "copies", "memsets", "conditionals")},
+                "nodes", "kernels", "copies", "memsets", "conditionals",
+                *FIRE_EDGES)},
             "rebuilds": len(fire.rebuild_steps())}
         rec[name]["census"] = census
         # One graph launch, the one read of the result (no read inside),
@@ -5450,13 +5580,35 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import mdtpu_torch as mt
+    try:
+        import mdtpu_torch as mt
+    except ImportError as err:
+        # A copy of this script without the repository beside it.
+        print(f"chip_smoke: the package mdtpu_torch is not beside this "
+              f"script ({err})", file=sys.stderr)
+        return 1
     from mdtpu_torch.ops import _cuda_build
 
     log(nvidia_smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
+    # The stamped copy of FIRE's reductions (probe_torch_fire.py) builds
+    # beside the package's sources.
+    import probe_torch_fire
+    probe_dir = tempfile.mkdtemp(prefix="fire_probe_")
+    probe_pool = ThreadPoolExecutor(max_workers=1)
+    probe_lib = probe_pool.submit(probe_torch_fire.build_stamped, probe_dir)
+    try:
+        return run_phases(mt, _cuda_build, t, probe_lib)
+    finally:
+        probe_pool.shutdown(wait=True)
+        shutil.rmtree(probe_dir, ignore_errors=True)
+
+
+def run_phases(mt, _cuda_build, t, probe_lib):
+    """Every phase after the build (started at ``t``) and the result lines;
+    the process's exit code."""
     _cuda_build.build_all(SOURCES)
     log(f"built {', '.join(_cuda_build.source(s).name for s in SOURCES)} "
         f"in {time.perf_counter() - t:.1f} s")
@@ -5483,7 +5635,7 @@ def main():
     failures += brownian_failures
     particle_results, particle_failures = particle_check(mt)
     failures += particle_failures
-    fire_results, fire_failures = fire_check(mt)
+    fire_results, fire_failures = fire_check(mt, probe_lib)
     failures += fire_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
@@ -5814,16 +5966,25 @@ def main():
         extra = {k: v for k, v in main_rec.items() if k not in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "shape", "yardstick_vector_norm_ms",
+                "phases")
         extra.update(
             covers=FIRE_COVERS[kname], kernel="scaled_reduce_kernel"
             if kname != "fire_move" else "fire_move_kernel",
-            rows={k: fire_results[f"{kname}_rows"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "shape")},
+            rows={k: fire_results[f"{kname}_rows"][k] for k in keys
+                  if k in fire_results[f"{kname}_rows"]},
+            f64={layout: {k: fire_results[f"{kname}_{layout}_float64"][k]
+                          for k in keys
+                          if k in fire_results[f"{kname}_{layout}_float64"]}
+                 for layout in ("slots", "rows")},
             launches_pack=by_path["pack"][kname],
             launches_sharded_fire=by_path["sharded_fire"][kname],
             launches_user=by_path["user"][kname],
             minimizations={k: r["census"] for k, r in fire_rec.items()})
+        if kname != "fire_move":
+            extra["edges"] = fire_results["edges"]
+            extra["launch"] = "a programmatic dependent (cudaLaunchKernelEx)"
         kernels["kernels"].append(entry(kname, FIRE_SOURCE,
                                         FIRE_REPLACES[kname],
                                         by_path["fire"][kname], main_rec,

@@ -32,8 +32,10 @@ min); ``--only particle``: the particle-order steps (cell grid,
 and the ``b2``, ``nl`` and Brownian paths alone; ``--only fire``: the
 captured slot step (NVT and NVE), ``chip_smoke.py``'s FIRE path (20 then
 200 iterations on ``bench_fire.py``'s system, its iterations/s) and its
-packing path (65,536 at rho 0.8: seconds and FIRE's iterations). The
-host's clock moves
+packing path (65,536 at rho 0.8: seconds and FIRE's iterations), each
+CUDA graph replay of those two paths timed on the device by CUDA events
+around it (the same instrument in both trees: ``CUDAGraph.replay``
+wrapped in the worker). The host's clock moves
 with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
@@ -50,6 +52,7 @@ limit.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -94,6 +97,34 @@ ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
                       "neighbor", "neighbor_eager", "plane_brownian",
                       "plane_brownian_eager"), ("b2", "nl", "brownian"))}
 PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot", "fire", "pack")
+# The paths whose CUDA graph replays are timed by events.
+REPLAY_TIMED = ("fire", "pack")
+
+
+@contextlib.contextmanager
+def replay_spans():
+    """Within the block, each ``torch.cuda.CUDAGraph.replay`` is timed on
+    the device by a CUDA event recorded just before it and one just after
+    it on the current stream; yields a list that, after the block, holds
+    each replay's span in ms."""
+    import torch
+    replay, pairs, spans = torch.cuda.CUDAGraph.replay, [], []
+
+    def timed(graph, *args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = replay(graph, *args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    torch.cuda.CUDAGraph.replay = timed
+    try:
+        yield spans
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        torch.cuda.synchronize()
+        spans.extend(s.elapsed_time(e) for s, e in pairs)
 
 
 def paths_worker(tree, only=PATHS):
@@ -126,13 +157,22 @@ def paths_worker(tree, only=PATHS):
                 ("pack", lambda: chip_smoke.pack_path(mt, workdir))):
             if label not in only:
                 continue
-            rec, more = run()
+            with (replay_spans() if label in REPLAY_TIMED
+                  else contextlib.nullcontext([])) as spans:
+                rec, more = run()
             failures += more
             if label == "fire":
                 out["fire_iterations_per_s"] = rec["iterations_per_s"]
+                # The timed run is the last replay.
+                out["fire_replay_ms"] = spans
+                out["fire_replay_ms_per_iteration"] = (
+                    spans[-1] / rec["iterations"] if spans else None)
             elif label == "pack":
                 out["pack_seconds"] = rec["seconds"]
                 out["pack_fire_iterations"] = rec["fire_iterations"]
+                out["pack_replay_ms"] = spans
+                out["pack_replay_ms_per_iteration"] = (
+                    sum(spans) / rec["fire_iterations"] if spans else None)
             else:
                 out[f"{label}_steps_per_s"] = rec["steps_per_s"]
     if failures:

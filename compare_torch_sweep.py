@@ -94,6 +94,19 @@ dependents (it has ``philox_draws.plain_launch``), each is also timed in
 plain stream order (`` plain launch``). It first prints which
 trees were compared (the parent's directory and each tree's last line of
 ``CHANGES.md``), last the card's name and power limit.
+
+``--only fire`` compares FIRE's two reductions alone, timed the same way
+(a graph of 100 in-place calls): ``fire_reduce`` (one pass) and
+``fire_test`` at bench_fire's slots (3, 124,875) and particle rows
+(65,536, 3), f32 and f64, on one set of inputs (forces ~30, velocities
+along them, dt 0.03, alpha 0.07, tol 1e-3, the loop going on), each
+tree's buffers from its own ``fire_update.buffers``; each line gives
+the values (red and scal after one call; the trees may sum in other
+orders, so their largest relative difference beside bit equality), the
+kernels a call, both trees' times and the bound (v and F, or F, read
+once at 3.35 TB/s). Beside them, as a yardstick over the same bytes
+(not the same function), ``torch.linalg.vector_norm`` of F, and the
+launch floor.
 """
 
 import argparse
@@ -319,6 +332,67 @@ def make_reduce_inputs(path):
                        "capacity": eng.pair_list_capacity,
                        "inputs": eng.slot_inputs(pos, cell, cinv, nb)}
     torch.save(reduce_cases(cases, user), path)
+
+
+FIRE_SHAPES = {"slots": (3, 124875), "rows": (65536, 3)}
+
+
+def make_fire_inputs(path):
+    """FIRE's reductions' inputs at bench_fire's slots and particle rows
+    (f64; each tree rounds them to its dtype): forces ~30 and velocities
+    along them."""
+    g = torch.Generator().manual_seed(21)
+    cases = {}
+    for layout, shape in FIRE_SHAPES.items():
+        f = torch.randn(shape, generator=g, dtype=torch.float64) * 30
+        v = torch.randn(shape, generator=g, dtype=torch.float64) + 0.01 * f
+        cases[f"fire {layout}"] = {"kind": "fire", "inputs": [f, v]}
+    torch.save(cases, path)
+
+
+def fire_runs(name, case):
+    """``fire_reduce`` and ``fire_test`` as this tree has them on the
+    case's inputs, f32 and f64, a graph of 100 in-place calls each, their
+    values after one call, the bound; ``vector_norm`` of F the same way;
+    the launch floor."""
+    from mdtpu_torch.minimize import fire_update as fu
+    from mdtpu_torch.ops import philox_draws as draws
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        f, v = (t.to(device="cuda", dtype=dtype) for t in case["inputs"])
+        size = f.element_size()
+        tag = "" if dtype == torch.float32 else " f64"
+
+        def buffers():
+            scal, ints, red, work, flags = fu.buffers(dtype, "cuda",
+                                                      f.numel())
+            scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = 0.03, 0.07, 1e-3
+            ints[fu.MAX_STEPS] = 1 << 60
+            return scal, ints, red, work, flags
+
+        hyper = fu.FireHyper()
+        calls = {
+            "fire_reduce": (2, lambda b: fu.fire_reduce(
+                v, f, b[0], b[1], b[2][:fu.RED], b[3], hyper)),
+            "fire_test": (1, lambda b: fu.fire_test(
+                f, b[0], b[1], b[2][fu.RED:], b[3], 17.0, b[4]))}
+        for kernel, (arrays, call) in calls.items():
+            b = buffers()
+            call(b)
+            values = torch.cat([b[2].double(), b[0].double()]).cpu()
+            b = buffers()
+            out[f"{name} {kernel}{tag}"] = {
+                "values": values, "ms": many_ms(lambda: call(b)),
+                "bound_ms": arrays * f.numel() * size / 3.35e12 * 1e3,
+                **kernels_of(lambda: call(b))}
+        norm = torch.linalg.vector_norm(f).reshape(1).double().cpu()
+        out[f"{name} vector_norm{tag}"] = {
+            "values": norm, "ms": many_ms(lambda: torch.linalg.vector_norm(f)),
+            "bound_ms": f.numel() * size / 3.35e12 * 1e3,
+            **kernels_of(lambda: torch.linalg.vector_norm(f))}
+    if hasattr(draws, "empty"):
+        out["launch_floor"] = {"ms": many_ms(lambda: draws.empty("cuda"))}
+    return out
 
 
 def make_draw_inputs(path):
@@ -648,6 +722,9 @@ def worker(tree, inputs_path, out_path):
         if case["kind"] == "draws":
             out.update(draw_runs(name, case))
             continue
+        if case["kind"] == "fire":
+            out.update(fire_runs(name, case))
+            continue
         if case["kind"] in ("list", "list_hilo"):
             out.update(list_runs(name, case, pots["user"], pair_list,
                                  pair_sweep))
@@ -668,7 +745,7 @@ def worker(tree, inputs_path, out_path):
             out[f"{name} {kernel}"] = {
                 "energy": energy.cpu(), "virial": virial.cpu(),
                 "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
-    if all(c["kind"] in ("draws", "slot", "reduce")
+    if all(c["kind"] in ("draws", "slot", "reduce", "fire")
            for c in cases.values()):
         torch.save(out, out_path)
         return
@@ -835,10 +912,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="directory of the other tree")
     parser.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
-    parser.add_argument("--only", choices=("draws", "slot", "reduce"),
+    parser.add_argument("--only", choices=("draws", "slot", "reduce",
+                                           "fire"),
                         help="compare the slot step's small kernels alone, "
-                        "the slot advance's bits alone, or the list's "
-                        "reduction alone")
+                        "the slot advance's bits alone, the list's "
+                        "reduction alone, or FIRE's two reductions alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_torch_sweep: no CUDA device")
@@ -850,7 +928,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
         {"draws": make_draw_inputs, "slot": make_slot_inputs,
-         "reduce": make_reduce_inputs}.get(args.only, make_inputs)(inputs)
+         "reduce": make_reduce_inputs, "fire": make_fire_inputs}.get(
+             args.only, make_inputs)(inputs)
         runs = []
         for i, tree in enumerate((args.parent, HERE, HERE, args.parent)):
             out = os.path.join(tmp, f"out{i}.pt")
@@ -918,6 +997,8 @@ def main():
             print(json.dumps({
                 "case": name,
                 "values_equal": same_bits(p["values"], c["values"]),
+                "values_max_rel_diff": rel_diff(c["values"], p["values"]),
+                **({"bound_ms": c["bound_ms"]} if "bound_ms" in c else {}),
                 **({"parent_values": p["values"].tolist(),
                     "change_values": c["values"].tolist()}
                    if p["values"].numel() <= 8 else {}),

@@ -129,8 +129,8 @@ class DeviceFire:
     replay and one host read of the counters; eagerly it runs as written,
     the loop's flags read on the host. ``census`` holds the captured
     graph's top-level nodes (``"graph"``) and the WHILE node's body
-    (``"pass"``). A subclass gives the layout: :meth:`_program` and
-    :meth:`_rebuilt`."""
+    (``"pass"``), with the programmatic edges into FIRE's reductions. A
+    subclass gives the layout: :meth:`_program` and :meth:`_rebuilt`."""
 
     def __init__(self, engine, hyper: fu.FireHyper, graph):
         self.engine, self.hyper, self.graph = engine, hyper, graph
@@ -206,8 +206,7 @@ class DeviceFire:
             with noting(self._counts, "loop"):
                 going = fn(handle)
                 if capturing(self.bufs[0].device):
-                    self.census["pass"] = philox_draws.capture_census(
-                        self.bufs[0].device)
+                    self.census["pass"] = _census(self.bufs[0].device)
             return going
         return body
 
@@ -243,7 +242,7 @@ class DeviceFire:
         def program(pools, counts):
             x.pools, self._counts = pools, counts
             self._program(b, x)
-            self.census["graph"] = philox_draws.capture_census(b.device)
+            self.census["graph"] = _census(b.device)
 
         try:
             self.captured = capture(b.device, lambda: self._program(
@@ -281,6 +280,14 @@ class DeviceFire:
         x = self.bufs[1]
         n = int(x.ints[fu.REBINS])
         return x.rebuilt_at[:min(n, REBUILD_LOG)].tolist()
+
+
+def _census(device):
+    """The graph being captured: its nodes (``philox_draws.capture_census``)
+    and the programmatic edges into FIRE's reductions
+    (``fire_update.capture_census``)."""
+    return {**philox_draws.capture_census(device),
+            **fu.capture_census(device)}
 
 
 @dataclasses.dataclass

@@ -22,8 +22,16 @@ max_steps, do_mix, positive, the loop's passes, converged, the overflow
 the test saw, the rebins the caller counts), ``red``
 (:data:`RED` values: the maxima and the sums, one for the update and one
 for the test, which a shard ring all-reduces between the split launches),
-``work`` (the blocks' partials, :func:`work_len`) and ``flags`` (two
-bools: the predicate, and the predicate with the drift test's flag).
+``work`` (the reductions' ticket and the blocks' partials, as many values
+as the kernels' library asks for, :func:`reduce_grid`; zeros at first) and
+``flags`` (two bools: the predicate, and the predicate with the drift
+test's flag).
+
+The two reductions launch as programmatic dependents of the kernel before
+them (Hopper's programmatic dependent launch): each may read its own
+scalars in ``scal`` and ``ints`` before that kernel has ended, so the
+kernel just before one of them must not write those (see
+``csrc/fire_update.cu``; FIRE's own kernels never do).
 
 Beside each kernel, its plain PyTorch version (the port's former torch
 composition, on the same buffers): CUDA tensors launch the kernel, CPU
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import typing
 
 import torch
 
@@ -52,9 +61,6 @@ MAX_A, MAX_B, SUM_AB, SUM_AA, SUM_BB = range(RED)
 # Mode bits of fire_reduce and fire_test: the maxima, the sums, the tail.
 MAXIMA, SUMS, TAIL = 1, 2, 4
 ONE_PASS = MAXIMA | SUMS | TAIL
-# The kernels' kPerBlock (values a block of the reductions takes) and
-# kPartials (a block's partials in work).
-PER_BLOCK, PARTIALS = 256 * 8, 5
 
 _P, _I, _L, _D, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_double, ctypes.c_ulonglong)
@@ -66,7 +72,9 @@ _SIGNATURES = tuple(
                                  _D, _P, _P)) for s in ("f32", "f64")]
     + [(f"mdtpu_fire_test_{s}", (_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _D,
                                  _I, _I, _Q, _Q, _I, _I, _P)) for s in
-       ("f32", "f64")])
+       ("f32", "f64")]
+    + [("mdtpu_fire_grid", (_L, _I, ctypes.POINTER(_L)), _L),
+       ("mdtpu_fire_update_census", (_P, ctypes.POINTER(_L)))])
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -83,19 +91,56 @@ class FireHyper:
     dmax: float = 0.1
 
 
-def work_len(n: int) -> int:
-    """The values of ``work`` a reduction over ``n`` values needs."""
-    return PARTIALS * max(1, -(-n // PER_BLOCK))
+class Grid(typing.NamedTuple):
+    """A reduction's grid as the kernels' library sizes it: the values of
+    ``work`` it needs, its blocks, the values of one 16-byte vector, the
+    most values one block takes before the grid grows, and the most whose
+    threads load all theirs at once (one wave)."""
+
+    work: int
+    blocks: int
+    vector: int
+    block_values: int
+    wave_values: int
+
+
+def reduce_grid(n: int, dtype) -> Grid:
+    """The grid of a reduction over ``n`` values of ``dtype`` (float32 or
+    float64), read from the kernels' library (built at first use): by the
+    count alone, not by the card."""
+    lib = _cuda_build.load(NAME, _SIGNATURES)
+    out = (ctypes.c_longlong * 4)()
+    work = lib.mdtpu_fire_grid(
+        n, torch.empty((), dtype=dtype).element_size(), out)
+    if work < 0:
+        raise ValueError(f"the reductions take float32 or float64, not "
+                         f"{dtype}")
+    return Grid(work, *out)
+
+
+def edge_counts(dtype) -> tuple:
+    """The counts at the edges of the reductions' grid: 1, 3, one block's
+    count and its neighbours, the first count of two blocks, an odd count,
+    one wave's count, one more value (a tail value) and one more vector (a
+    second batch)."""
+    g = reduce_grid(1, dtype)
+    one, wave = g.block_values, g.wave_values
+    return (1, 3, one - 1, one, one + 1, one + g.vector, 9999, wave,
+            wave + 1, wave + g.vector)
 
 
 def buffers(dtype, device, n_values: int):
     """``(scal, ints, red, work, flags)``: one FIRE run's buffers for
     reductions over ``n_values`` values (``red`` holds the update's and the
-    test's, :data:`RED` each)."""
+    test's, :data:`RED` each). ``work`` is sized by the kernels' library
+    on the card and holds one value elsewhere: the plain versions do not
+    read it."""
+    device = torch.device(device)
+    work = reduce_grid(n_values, dtype).work if device.type == "cuda" else 1
     return (torch.zeros(SCAL, dtype=dtype, device=device),
             torch.zeros(INTS, dtype=torch.int64, device=device),
             torch.zeros(2 * RED, dtype=dtype, device=device),
-            torch.zeros(work_len(n_values), dtype=dtype, device=device),
+            torch.zeros(work, dtype=dtype, device=device),
             torch.zeros(2, dtype=torch.bool, device=device))
 
 
@@ -107,22 +152,37 @@ def _launch(fn, dtype, args, what, device):
     _cuda_build.check(lib, NAME, rc, what)
 
 
-def _check(what, values, *state):
-    """The kernels' preconditions: CUDA, one dtype (float32 or float64), one
-    device, contiguous."""
+def _check(what, values, scal, ints, same=(), flags=(), others=()):
+    """The kernels' preconditions: float32 or float64 ``values``, and
+    ``scal``, ``ints``, ``same`` (tensors of the values' dtype), ``flags``
+    (bool tensors) and ``others`` (None where not given) contiguous on the
+    values' device."""
     dtype, device = values.dtype, values.device
     if dtype not in _SUFFIX:
         raise ValueError(f"{what} takes float32 or float64, not {dtype}")
-    for t in state:
+    for t in (values, scal, ints, *same, *flags, *others):
         if t is None:
             continue
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors on one device")
-    scal, ints = state[:2]
+    if any(t is not None and t.dtype != dtype for t in same):
+        raise ValueError(f"{what}: every float tensor of dtype {dtype}")
+    if any(t is not None and t.dtype != torch.bool for t in flags):
+        raise ValueError(f"{what}: the flags are bool tensors")
     if (scal.dtype != dtype or scal.numel() != SCAL
             or ints.dtype != torch.int64 or ints.numel() != INTS):
         raise ValueError(f"{what}: scal ({SCAL} values of the state's dtype) "
                          f"and ints ({INTS} int64) expected")
+
+
+def _check_reduction(what, red, mode):
+    """The reductions' mode and ``red`` (the library refuses a ``work``
+    shorter than :func:`reduce_grid`'s)."""
+    if mode not in (ONE_PASS, MAXIMA, SUMS, TAIL):
+        raise ValueError(f"{what}: mode {mode} is not one pass, MAXIMA, "
+                         "SUMS or TAIL")
+    if red.numel() < RED:
+        raise ValueError(f"{what}: red of {RED} values")
 
 
 def _ptr(t):
@@ -209,10 +269,10 @@ def fire_reduce(v, forces, scal, ints, red, work, hyper: FireHyper,
     if forces.device.type == "cpu":
         return fire_reduce_plain(v, forces, scal, ints, red, hyper, overflow,
                                  mode)
-    _check("fire_reduce", forces, scal, ints, v, red, work, overflow)
-    if v.shape != forces.shape or red.numel() < RED:
-        raise ValueError("fire_reduce: v and forces of one shape, red of "
-                         f"{RED} values")
+    _check("fire_reduce", forces, scal, ints, (v, red, work), (overflow,))
+    if v.shape != forces.shape:
+        raise ValueError("fire_reduce: v and forces of one shape")
+    _check_reduction("fire_reduce", red, mode)
     _launch("mdtpu_fire_reduce", forces.dtype,
             (v.data_ptr(), forces.data_ptr(), forces.numel(),
              scal.data_ptr(), ints.data_ptr(), red.data_ptr(),
@@ -278,7 +338,8 @@ def fire_move(positions, v, forces, scal, ints, dmax, *, rows,
     if forces.device.type == "cpu":
         return fire_move_plain(positions, v, forces, scal, ints, dmax, rows,
                                images, cell, cell_inv, overflow)
-    _check("fire_move", forces, scal, ints, positions, v, images, overflow)
+    _check("fire_move", forces, scal, ints, (positions, v), (overflow,),
+           (images,))
     if (positions.shape != forces.shape or v.shape != forces.shape
             or forces.dim() != 2):
         raise ValueError("fire_move: positions, v and forces of one 2-d "
@@ -354,9 +415,11 @@ def fire_test(forces, scal, ints, red, work, sqrt_ndof, flags, *,
             raise ValueError("a graph's handle takes CUDA tensors")
         return fire_test_plain(forces, scal, ints, red, sqrt_ndof, flags,
                                overflow, drift, entry, mode)
-    _check("fire_test", forces, scal, ints, red, work, flags, overflow, drift)
-    if flags.dtype != torch.bool or flags.numel() < 2 or red.numel() < RED:
-        raise ValueError(f"fire_test: two bool flags, red of {RED} values")
+    _check("fire_test", forces, scal, ints, (red, work),
+           (flags, overflow, drift))
+    if flags.numel() < 2:
+        raise ValueError("fire_test: two bool flags")
+    _check_reduction("fire_test", red, mode)
     _launch("mdtpu_fire_test", forces.dtype,
             (forces.data_ptr(), forces.numel(), scal.data_ptr(),
              ints.data_ptr(), red.data_ptr(), work.data_ptr(), work.numel(),
@@ -365,6 +428,25 @@ def fire_test(forces, scal, ints, red, work, sqrt_ndof, flags, *,
              handle_then or 0, int(handle is not None),
              int(handle_then is not None)), "fire_test", forces.device)
     fire_test.launches += 1
+
+
+# The census of a capture (:func:`capture_census`).
+CENSUS = ("programmatic_into_fire_reduce", "programmatic_into_fire_test",
+          "fire_edges_error")
+
+
+def capture_census(device):
+    """The programmatic edges of the graph being captured on ``device``'s
+    current stream that enter a ``fire_reduce`` and a ``fire_test`` node,
+    and the error code of the edges' read (where not 0, both counts are
+    -1), by :data:`CENSUS`. Raises where the stream is not capturing."""
+    lib = _cuda_build.load(NAME, _SIGNATURES)
+    out = (ctypes.c_longlong * len(CENSUS))()
+    with torch.cuda.device(device):
+        _cuda_build.check(lib, NAME, lib.mdtpu_fire_update_census(
+            torch.cuda.current_stream(device).cuda_stream, out),
+            "fire_update_census")
+    return dict(zip(CENSUS, out))
 
 
 WRAPPERS = (fire_reduce, fire_move, fire_test)

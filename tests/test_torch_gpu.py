@@ -3286,6 +3286,118 @@ def test_fire_kernels_match_their_plain_versions(cuda, dtype, layout, case):
         assert torch.equal(runs[0][4], tested[4])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fire_reduction_grid_follows_the_count(cuda, dtype):
+    """The reductions' grid as the kernels' library sizes it
+    (``fire_update.reduce_grid``): one block up to one block's count, two
+    past it, at most the wave's blocks past the wave's count, never fewer
+    blocks for more values; ``work`` holds the ticket and five partials a
+    block, ``buffers`` sizes it so, and a launch on a shorter ``work``
+    raises."""
+    from mdtpu_torch.minimize import fire_update as fu
+    g = fu.reduce_grid(1, dtype)
+    assert g.vector == 16 // torch.empty((), dtype=dtype).element_size()
+    one, wave = g.block_values, g.wave_values
+    edges = fu.edge_counts(dtype)
+    assert edges[:7] == (1, 3, one - 1, one, one + 1, one + g.vector, 9999)
+    assert edges[7:] == (wave, wave + 1, wave + g.vector)
+    blocks = [fu.reduce_grid(n, dtype).blocks for n in edges]
+    most = fu.reduce_grid(10 * wave, dtype).blocks
+    assert blocks[:5] == [1] * 5 and blocks[5] == 2
+    assert 2 < blocks[6] < most and blocks[7:] == [most] * 3
+    assert wave % (most * g.vector) == 0
+    prev = 0
+    for n in range(0, 40 * one, one // 3):
+        r = fu.reduce_grid(n, dtype)
+        assert prev <= r.blocks <= most and r.blocks >= 1
+        assert r.work == 1 + 5 * r.blocks
+        prev = r.blocks
+    n = 3 * one + 5
+    scal, ints, red, work, flags = fu.buffers(dtype, cuda, n)
+    assert work.numel() == fu.reduce_grid(n, dtype).work and not work.any()
+    f = torch.ones(n, dtype=dtype, device=cuda)
+    fu.fire_test(f, scal, ints, red[fu.RED:], work, 1.0, flags)
+    with pytest.raises(RuntimeError):
+        fu.fire_test(f, scal, ints, red[fu.RED:], work[:-1], 1.0, flags)
+    with pytest.raises(RuntimeError):
+        fu.fire_reduce(f, f, scal, ints, red[:fu.RED], work[:-1],
+                       fu.FireHyper())
+
+
+@pytest.mark.parametrize("align", ["aligned", "head", "apart"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fire_reductions_match_their_plain_versions_at_the_grid_edges(
+        cuda, dtype, align):
+    """``fire_reduce`` and ``fire_test`` beside
+    :func:`test_fire_kernels_match_their_plain_versions`, at the edges of
+    their grid (1, 3, one block's count and its neighbours, an odd count,
+    one wave's count and past it), on views of v and F at an offset of
+    one value (a data_ptr not 16-byte aligned: a scalar head), of one and
+    two values (misaligned apart: scalar loads) or none, in every case:
+    one pass and split against the plain versions (rel 1e-12 at f64, 2e-6
+    at f32; counters and flags equal), each twice bit for bit."""
+    from mdtpu_torch.minimize import fire_update as fu
+    tol = 1e-12 if dtype == torch.float64 else 2e-6
+    of, ov = {"aligned": (0, 0), "head": (1, 1), "apart": (1, 2)}[align]
+    hyper = fu.FireHyper()
+    ring = (fu.MAXIMA, fu.SUMS, fu.TAIL)
+
+    def copies(of_):
+        return [t.clone() for t in of_]
+
+    def close(a, b):
+        a, b = a.double(), b.double()
+        return bool(((a - b).abs() <= tol * b.abs()).all())
+
+    for n in fu.edge_counts(dtype):
+        for case in ("positive", "negative", "grow", "rest", "overflow"):
+            g = torch.Generator(device=cuda).manual_seed(n)
+            f = torch.randn(n + 2, device=cuda, generator=g) * 30
+            v = torch.randn(n + 2, device=cuda, generator=g)
+            if case == "grow":
+                f = f * (1e25 / 30)
+            v = -v - 0.05 * f if case == "negative" else v + 0.01 * f
+            if case == "rest":
+                v, f = torch.zeros_like(v), torch.zeros_like(f)
+            f, v = f.to(dtype)[of:of + n], v.to(dtype)[ov:ov + n]
+            assert (f.data_ptr() % 16 == 0) == (of == 0)
+            over = torch.tensor(case == "overflow", device=cuda)
+            bufs = fu.buffers(dtype, cuda, n)
+            bufs[0][fu.DT] = 0.09 if case == "grow" else 0.03
+            bufs[0][fu.ALPHA], bufs[0][fu.TOL] = 0.07, 1e-3
+            bufs[1][fu.SSN] = 7 if case == "grow" else 2
+            bufs[1][fu.MAX_STEPS] = 10
+            plain = copies(bufs)
+            fu.fire_reduce_plain(v, f, plain[0], plain[1], plain[2][:fu.RED],
+                                 hyper, over)
+            for modes in ((fu.ONE_PASS,), ring):
+                runs = [copies(bufs), copies(bufs)]
+                for k in runs:
+                    for mode in modes:
+                        fu.fire_reduce(v, f, k[0], k[1], k[2][:fu.RED], k[3],
+                                       hyper, over, mode=mode)
+                assert torch.equal(runs[0][0], runs[1][0])
+                assert torch.equal(runs[0][2], runs[1][2])
+                assert close(runs[0][0], plain[0]), (n, case)
+                assert close(runs[0][2], plain[2]), (n, case)
+                assert torch.equal(runs[0][1], plain[1])
+            tested = copies(plain)
+            fu.fire_test_plain(f, tested[0], tested[1], tested[2][fu.RED:],
+                               17.0, tested[4], overflow=over)
+            for modes in ((fu.ONE_PASS,), ring):
+                runs = [copies(plain), copies(plain)]
+                for k in runs:
+                    for mode in modes:
+                        fu.fire_test(f, k[0], k[1], k[2][fu.RED:], k[3], 17.0,
+                                     k[4], overflow=over, mode=mode)
+                assert torch.equal(runs[0][0], runs[1][0])
+                assert close(runs[0][0], tested[0]), (n, case)
+                assert torch.equal(runs[0][1], tested[1])
+                assert torch.equal(runs[0][4], tested[4])
+
+
 @pytest.mark.parametrize("kind", ["slots", "list"])
 def test_captured_fire_equals_eager(cuda, kind):
     """FIRE as one CUDA-graph launch a minimization against FIRE eager
