@@ -161,10 +161,16 @@
    word, into new tensors and in place), in the tilted box and the 2D
    start; the Brownian move on the Brownian start (f32, f64, a device
    counter and a host step); the drift test by the cell (cubic, tilted)
-   and by the box lengths on displacements of 0.98-1.02 skin/2, a row at
-   a time and all at once; each timed by a graph of 100 in-place calls
+   and by the box lengths (the cell's diagonal, a view) on displacements
+   of 0.98-1.02 skin/2, a row at a time and all at once; the drift test
+   and the Brownian move also at the edges of their grid
+   (``philox_draws.rows_edge_counts``, d 2 and 3, f32 and f64, aligned
+   and misaligned rows, the only hit at the first, the last and the last
+   Philox period's first row); each timed by a graph of 100 in-place calls
    beside its plain version timed the same way, the launch floor and its
-   bound.
+   bound; the drift test and the Brownian move also split into phases by
+   a stamped copy of their sources (``probe_torch_rows.py``), with their
+   earlier design's times on their log lines only.
 4. Paths, each with the kernels' launch counts set to 0 just before it and
    read just after:
    * B1: ``run_simulation`` at the bench configuration, 600 NVT (Bussi) then
@@ -4047,6 +4053,127 @@ PARTICLE_COVERS = {
 # and an add: 15 (cell), 7 (lengths).
 OPS_KDW_VALUE, OPS_BROWNIAN_ROW_VALUE = 28, 25
 OPS_FLAG_ROW_VALUE = {"cell": 15, "lengths": 7}
+# The drift test's and the Brownian move's times in their earlier design (a
+# particle a thread, 256 blocks of 256 at 65,536, plain stream order, the
+# ticket of atomicOr, atomicAdd and two fences; a graph of 100 in-place
+# calls, f32 unless named, on an H100 80GB HBM3 at 700 W), logged beside
+# this tree's in the particle phase's lines; not in the kernels line,
+# which holds only what this run measured.
+PARTICLE_EARLIER_MS = {"rebuild_flag_rows_cell": 0.00330,
+                       "rebuild_flag_rows_cell_tilted": 0.00331,
+                       "rebuild_flag_rows_lengths": 0.00334,
+                       "brownian_rows": 0.00467,
+                       "brownian_rows_f64": 0.00530}
+
+
+def _rows_view(rows, offset):
+    """``rows`` copied into a flat buffer of their dtype at ``offset``
+    values: a view whose data_ptr is 16-byte aligned only where the
+    offset's bytes are a multiple of 16."""
+    n, d = rows.shape
+    buf = torch.empty(n * d + offset, dtype=rows.dtype, device=rows.device)
+    view = buf[offset:].view(n, d)
+    view.copy_(rows)
+    return view
+
+
+def rows_edge_check(draws, vu):
+    """The drift test and the Brownian move at the edges of their grid
+    (``philox_draws.rows_edge_counts``: 1, 3, one Philox period and its
+    neighbours, an odd count, one block's count and its neighbours, one
+    wave's and past it), d = 2 and 3, f32 and f64, on rows 16-byte aligned
+    and at an offset of one value (positions) and two (references): the
+    drift test by the cell and by the box lengths (the cell's diagonal, a
+    view) with no particle past skin/2 and with only the first row, the
+    last row or the last Philox period's first row past it, its flag against the
+    plain version's, twice alike; the Brownian move compensated and not,
+    into new tensors and in place, bit for bit its plain version and twice
+    alike. ``(flags_ok, moves_ok, record)``."""
+    import types
+    flags_ok = moves_ok = True
+    cases = 0
+    for d in (2, 3):
+        for dtype in (torch.float32, torch.float64):
+            side = 12.0
+            cell = torch.eye(d, dtype=dtype, device="cuda") * side
+            if d == 3:
+                cell[0, 1], cell[0, 2], cell[1, 2] = side / 8, side / 12, \
+                    side / 6
+            boxes = (dict(cell=cell, cell_inv=torch.linalg.inv(cell)),
+                     dict(lengths=torch.diagonal(
+                         torch.eye(d, dtype=dtype, device="cuda") * side)))
+            coeffs = vu.brownian_coefficients(1e-3, 1.3, dtype)
+            w = torch.tensor(-1234.5, dtype=dtype, device="cuda")
+            for n in draws.rows_edge_counts(d, dtype):
+                g = torch.Generator(device="cuda").manual_seed(n)
+                ref = torch.rand((n, d), device="cuda", generator=g,
+                                 dtype=torch.float64) * side
+                disp = (torch.rand((n, d), device="cuda", generator=g,
+                                   dtype=torch.float64) - 0.5) * 0.1
+                period = draws.rows_grid(n, d, dtype).period
+                for op, orf in ((0, 0), (1, 2)):
+                    for hit in (None, 0, n - 1, (n - 1) // period * period):
+                        moved = disp.clone()
+                        if hit is not None:
+                            moved[hit] = 0.2
+                        r = _rows_view(ref.to(dtype), orf)
+                        p = _rows_view((ref + moved).to(dtype), op)
+                        for box in boxes:
+                            plain = (box.get("cell"), box.get("cell_inv"),
+                                     box.get("lengths"))
+                            a = draws.rebuild_flag_rows(p, r, 0.3, **box)
+                            again = draws.rebuild_flag_rows(p, r, 0.3, **box)
+                            b = draws.rebuild_flag_rows_plain(p, r, 0.3,
+                                                              *plain)
+                            flags_ok &= (bool(a) == bool(b) == bool(again)
+                                         == (hit is not None))
+                            cases += 1
+                f = torch.randn((n, d), device="cuda", generator=g,
+                                dtype=torch.float64).to(dtype) * 30
+                x = (ref + disp * 20).to(dtype)
+                xc = (torch.randn((n, d), device="cuda", generator=g)
+                      * 1e-7).to(dtype)
+                img = torch.randint(-3, 4, (n, d), device="cuda",
+                                    generator=g)
+                for off in (0, 1):
+                    def state_of(off=off):
+                        return types.SimpleNamespace(
+                            positions=_rows_view(x, off),
+                            pos_comp=_rows_view(xc, off),
+                            images=_rows_view(img, off), unitcell=cell,
+                            unitcell_inv=torch.linalg.inv(cell), seed=3,
+                            step=torch.tensor(2 ** 33 + 10, device="cuda"),
+                            dtype=dtype, device=x.device,
+                            virial_accum=torch.tensor(2.5, dtype=dtype,
+                                                      device="cuda"),
+                            nprom=torch.tensor(4, device="cuda"),
+                            temperature=torch.tensor(0.0, dtype=dtype,
+                                                     device="cuda"))
+                    fv = _rows_view(f, off)
+                    for comp in (True, False):
+                        st = state_of()
+                        want = vu.brownian_rows_plain(fv, w, st, *coeffs,
+                                                      comp)
+                        got = vu.brownian_rows(fv, w, st, *coeffs, comp)
+                        again = vu.brownian_rows(fv, w, st, *coeffs, comp)
+                        moves_ok &= all(
+                            torch.equal(a, b) and torch.equal(a, c)
+                            for a, b, c in zip(got[:3] + got[4:], want,
+                                               again[:3] + again[4:]))
+                        st = state_of()
+                        vu.brownian_rows(fv, w, st, *coeffs, comp,
+                                         in_place=True)
+                        mine = (st.positions, st.pos_comp, st.images,
+                                st.virial_accum, st.nprom, st.temperature)
+                        moves_ok &= all(torch.equal(a, b) for i, (a, b) in
+                                        enumerate(zip(mine, want))
+                                        if comp or i != 1)
+                        moves_ok &= int(st.step) == 2 ** 33 + 11
+                        cases += 1
+    return flags_ok, moves_ok, {
+        "cases": cases, "flags_equal": flags_ok, "moves_equal": moves_ok,
+        "counts": {f"{d}d_{str(t)[6:]}": list(draws.rows_edge_counts(d, t))
+                   for d in (2, 3) for t in (torch.float32, torch.float64)}}
 
 
 def _particle_rows(state, dtype):
@@ -4067,7 +4194,7 @@ def _particle_rows(state, dtype):
                state.unitcell_inv.to(dtype)])
 
 
-def particle_check(mt):
+def particle_check(mt, rows_probe=None):
     """The particle-order step's kernels (``verlet_update.kick_drift_wrap``
     and ``brownian_rows``, ``philox_draws.rebuild_flag_rows``) on the card
     at 65,536 particles against their plain versions on the card's
@@ -4077,10 +4204,15 @@ def particle_check(mt):
     2D start (f32); the Brownian move on the Brownian path's start (f32,
     f64; a device counter and a host step); the drift test by the cell
     (cubic, tilted) and by the box lengths on displacements around skin/2,
-    a row at a time and all at once. Each timed by :func:`many_ms` (a
-    graph of ``MANY_CALLS`` in-place calls) beside its plain version timed
-    the same way, the launch floor, and its bound from this run's inputs
-    (the bytes it must move, or its operations)."""
+    a row at a time and all at once; both at the edges of their grid
+    (:func:`rows_edge_check`). Each timed by :func:`many_ms` (a graph of
+    ``MANY_CALLS`` in-place calls) beside its plain version timed the same
+    way, the launch floor (also as a programmatic dependent), and its bound
+    from this run's inputs (the bytes it must move, or its operations);
+    the drift test and the Brownian move also with the phase split of a
+    stamped copy of their source (``rows_probe``: a future of
+    ``probe_torch_rows.build_stamped``) and their earlier design's times
+    (``PARTICLE_EARLIER_MS``) on their log lines."""
     import types
 
     from mdtpu_torch.integrate import verlet_update as vu
@@ -4154,7 +4286,7 @@ def particle_check(mt):
         ratio = 0.98 + 0.04 * torch.rand((ref.shape[0], 1), device="cuda",
                                          generator=g)
         pos = ref + u * ratio * 0.5 * skin
-        box = (dict(lengths=torch.diagonal(st.unitcell).contiguous())
+        box = (dict(lengths=torch.diagonal(st.unitcell))
                if name == "lengths" else
                dict(cell=st.unitcell, cell_inv=st.unitcell_inv))
         plain_box = (box.get("cell"), box.get("cell_inv"), box.get("lengths"))
@@ -4173,10 +4305,18 @@ def particle_check(mt):
             b = draws.rebuild_flag_rows_plain(rows, ref, skin, *plain_box)
             flag_same &= bool(a) == bool(b) == bool(again) == want
         forms[name] = (inside, ref, box, plain_box)
+    edge_flags, edge_moves, edges = rows_edge_check(draws, vu)
+    flag_same &= edge_flags
+    b_same &= edge_moves
+    log(json.dumps({"particle_rows_edges": edges}))
+    if not edge_moves:
+        failures.append("brownian_rows differs from its plain version at "
+                        "the edges of its grid")
     if not flag_same:
         failures.append("rebuild_flag_rows differs from its plain version")
 
     floor = launch_floor_ms()
+    floor_pdl = launch_floor_ms(True)
     n = N_BENCH * 3
 
     def entry(kernel, plain, nbytes, ops, dtype, extra):
@@ -4187,6 +4327,7 @@ def particle_check(mt):
                 "bound_ms": b, "bound_by": "bytes" if b == b_bytes
                 else "operations", "bound_bytes": nbytes,
                 "bound_meetable_ms": max(b, floor), "launch_floor_ms": floor,
+                "launch_floor_programmatic_ms": floor_pdl,
                 "library_ms": None,
                 "library_call": "none, no single PyTorch call", **extra}
 
@@ -4224,6 +4365,9 @@ def particle_check(mt):
         blocks = sum(-(-(3 * i + 3) // per) - (3 * i) // per
                      for i in range(per))       # a period of `per` rows
         key = "brownian_rows" + ("" if dtype == torch.float32 else "_f64")
+        phases = ({"phases": _rows_phases(rows_probe, "brownian_rows",
+                                          dtype)}
+                  if rows_probe is not None else {})
         results[key] = entry(
             lambda: vu.brownian_rows(f, w, st, *coeffs, True, in_place=True),
             lambda: vu.brownian_rows_plain(f, w, st, *coeffs, True),
@@ -4234,22 +4378,48 @@ def particle_check(mt):
              "philox_blocks": N_BENCH // per * blocks,
              "plain_timing": "a graph of the composition's calls (the "
                              "noise kernel and the torch operations), "
-                             "as ms"})
+                             "as ms", **phases})
+    cube = forms["cell"]
+    forms["cell_f64"] = (cube[0].double(), cube[1].double(),
+                         {k: v.double() for k, v in cube[2].items()},
+                         tuple(t.double() for t in cube[3][:2]) + (None,))
+    out_mask = torch.zeros(N_BENCH, dtype=torch.bool, device="cuda")
     for name, (inside, ref, box, plain_box) in forms.items():
         out = torch.empty((), dtype=torch.bool, device="cuda")
         kind = "lengths" if name == "lengths" else "cell"
+        dtype = inside.dtype
+        extra = {"shape": [N_BENCH, 3], "dtype": str(dtype)[6:],
+                 "form": name.removesuffix("_f64"),
+                 "yardstick_torch_any_ms": many_ms(
+                     lambda: torch.any(out_mask)),
+                 "yardstick": "torch.any of a (65,536,) bool mask: the "
+                              "same rows, not the same function"}
+        if rows_probe is not None and name in ("cell", "cell_f64",
+                                               "lengths"):
+            extra["phases"] = _rows_phases(rows_probe, "rebuild_rows",
+                                           dtype, kind)
+        size = inside.element_size()
         results[f"rebuild_flag_rows_{name}"] = entry(
             lambda: draws.rebuild_flag_rows(inside, ref, skin, out=out,
                                             **box),
             lambda: draws.rebuild_flag_rows_plain(inside, ref, skin,
                                                   *plain_box),
-            2 * 4 * n, OPS_FLAG_ROW_VALUE[kind] * n, torch.float32,
-            {"shape": [N_BENCH, 3], "dtype": "float32", "form": name})
+            2 * size * n, OPS_FLAG_ROW_VALUE[kind] * n, dtype, extra)
     for key, rec in results.items():
         base = next(k for k in ok if key.startswith(k))
         rec["max_abs_err"] = 0.0 if ok[base] else float("inf")
-        log(json.dumps({"particle_kernel": key, **rec}))
+        log(json.dumps({"particle_kernel": key, **rec,
+                        "earlier_design_ms": PARTICLE_EARLIER_MS.get(key)}))
     return results, failures
+
+
+def _rows_phases(rows_probe, kernel, dtype, form="cell"):
+    """The probe's phase split of ``kernel`` at 65,536 rows of ``dtype``
+    (``probe_torch_rows.case_split`` on the stamped libraries that
+    ``rows_probe``, a future, holds)."""
+    import probe_torch_rows
+    return probe_torch_rows.case_split(rows_probe.result(), kernel, dtype,
+                                       form)
 
 
 PARTICLE_ROUTES = {
@@ -5593,20 +5763,25 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    # The stamped copy of FIRE's reductions (probe_torch_fire.py) builds
-    # beside the package's sources.
+    # The stamped copies of FIRE's reductions (probe_torch_fire.py) and of
+    # the particle rows' drift test and Brownian move (probe_torch_rows.py)
+    # build beside the package's sources.
     import probe_torch_fire
+    import probe_torch_rows
     probe_dir = tempfile.mkdtemp(prefix="fire_probe_")
-    probe_pool = ThreadPoolExecutor(max_workers=1)
+    rows_dir = tempfile.mkdtemp(prefix="rows_probe_")
+    probe_pool = ThreadPoolExecutor(max_workers=2)
     probe_lib = probe_pool.submit(probe_torch_fire.build_stamped, probe_dir)
+    rows_probe = probe_pool.submit(probe_torch_rows.build_stamped, rows_dir)
     try:
-        return run_phases(mt, _cuda_build, t, probe_lib)
+        return run_phases(mt, _cuda_build, t, probe_lib, rows_probe)
     finally:
         probe_pool.shutdown(wait=True)
         shutil.rmtree(probe_dir, ignore_errors=True)
+        shutil.rmtree(rows_dir, ignore_errors=True)
 
 
-def run_phases(mt, _cuda_build, t, probe_lib):
+def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
     """Every phase after the build (started at ``t``) and the result lines;
     the process's exit code."""
     _cuda_build.build_all(SOURCES)
@@ -5633,7 +5808,7 @@ def run_phases(mt, _cuda_build, t, probe_lib):
     failures += verlet_failures
     brownian_results, brownian_failures = brownian_update_check(mt)
     failures += brownian_failures
-    particle_results, particle_failures = particle_check(mt)
+    particle_results, particle_failures = particle_check(mt, rows_probe)
     failures += particle_failures
     fire_results, fire_failures = fire_check(mt, probe_lib)
     failures += fire_failures

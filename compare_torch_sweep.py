@@ -107,6 +107,28 @@ kernels a call, both trees' times and the bound (v and F, or F, read
 once at 3.35 TB/s). Beside them, as a yardstick over the same bytes
 (not the same function), ``torch.linalg.vector_norm`` of F, and the
 launch floor.
+
+``--only rows`` compares the particle rows' drift test and Brownian move
+alone (``rebuild_flag_rows``, ``brownian_rows``) at 65,536 rows, f32 and
+f64, each timed by a graph of 100 in-place calls: the drift test by the
+cell in the cubic and the tilted box, by the box lengths (the cell's
+diagonal, a view) and in 2D (by the cell), on references with every
+particle within skin/2 (0.3) and, for its value, also with one past it;
+the Brownian move compensated and not, in place on a device step counter
+(its values after one call from the same start: positions, compensation,
+images, the virial's sample, the temperature, the step). Each line gives
+whether the values are equal, both trees' times and the bound (the bytes
+each must move at 3.35 TB/s). Beside them the launch floor (also as a
+programmatic dependent where the tree has it), this tree's kernels in
+plain stream order where it launches them as programmatic dependents, and,
+as a yardstick over the same rows (not the same function), ``torch.any``
+of a (65,536,) bool mask. Then the particle-order advance of the two trees
+held to each other as ``--only slot`` holds the slot advance (the same
+lines), on its default route (captured on the card): ``PlaneEngine`` (150
+NVT steps uncompensated, then 100 NVE on the hi/lo sweep), the neighbour
+list (150 NVT, 100 NVE) and Brownian on ``PlaneEngine`` (150 steps at dt
+1e-5), from the bench's lattice and the Brownian system (65,536, f32),
+each leg in segments of one step (25) then of 25.
 """
 
 import argparse
@@ -335,6 +357,197 @@ def make_reduce_inputs(path):
 
 
 FIRE_SHAPES = {"slots": (3, 124875), "rows": (65536, 3)}
+ROWS_FORMS = ("cell", "tilted", "lengths", "2d")
+
+
+def make_rows_inputs(path):
+    """The particle rows' inputs at 65,536 (f64; each tree rounds them to
+    its dtype): for each drift-test form a box of side 43.7 (the bench's;
+    the tilted one [[L, L/8, L/12], [0, L, L/6], [0, 0, L]], 2D a square),
+    references in it and positions within 0.05 of them per axis; for the
+    Brownian move positions, forces ~30, compensation ~1e-7 and images in
+    the cubic box."""
+    g = torch.Generator().manual_seed(22)
+    n, side = 65536, (65536 / 0.8) ** (1.0 / 3.0)
+    cases = {}
+    for form in ROWS_FORMS:
+        d = 2 if form == "2d" else 3
+        cell = torch.eye(d, dtype=torch.float64) * side
+        if form == "tilted":
+            cell = torch.tensor([[side, side / 8, side / 12],
+                                 [0.0, side, side / 6], [0.0, 0.0, side]],
+                                dtype=torch.float64)
+        frac = torch.rand((n, d), generator=g, dtype=torch.float64)
+        ref = frac @ cell.T
+        pos = ref + (torch.rand((n, d), generator=g, dtype=torch.float64)
+                     - 0.5) * 0.1
+        cases[f"rows {form}"] = {"kind": "rows", "form": form,
+                                 "inputs": [ref, pos, cell]}
+    cell = torch.eye(3, dtype=torch.float64) * side
+    x = torch.rand((n, 3), generator=g, dtype=torch.float64) * side
+    f = torch.randn((n, 3), generator=g, dtype=torch.float64) * 30
+    xc = torch.randn((n, 3), generator=g, dtype=torch.float64) * 1e-7
+    images = torch.randint(-3, 4, (n, 3), generator=g)
+    cases["rows brownian"] = {"kind": "rows", "form": "brownian",
+                              "inputs": [x, f, xc, images, cell]}
+    starts = os.path.join(os.path.dirname(path), "starts.pt")
+    make_slot_inputs(starts)
+    slot = torch.load(starts, weights_only=False)
+    for route, start in PARTICLE_ROUTES.items():
+        cases[f"particle {route}"] = {**slot[start], "kind": "particle",
+                                      "route": route}
+    torch.save(cases, path)
+
+
+# Particle-order routes: the start (a slot case's), then (ensemble, steps,
+# compensated, hi/lo) legs.
+PARTICLE_ROUTES = {"b2": "bench", "nl": "bench", "brownian": "brownian"}
+PARTICLE_LEGS = {"b2": (("nvt", 150, False, False), ("nve", 100, True, True)),
+                 "nl": (("nvt", 150, True, False), ("nve", 100, True, False)),
+                 "brownian": (("brownian", 150, True, False),)}
+
+
+def particle_runs(name, case):
+    """The particle-order advance of the tree on one route, as
+    :func:`slot_runs` records the slot advance."""
+    import time
+
+    import mdtpu_torch as mt
+    from mdtpu_torch.integrate import step as tstep
+    from mdtpu_torch.ops.experimental import PlaneEngine
+    from mdtpu_torch.sim.initialization import build_state_from_arrays
+
+    route = case["route"]
+    brownian = route == "brownian"
+    cutoff = 1.5 if brownian else 2.5
+    pot = mt.PseudoHS() if brownian else mt.LennardJones(r_cut=2.5)
+    state = build_state_from_arrays(
+        case["positions"].cuda(), torch.ones(N), case["cell"], 1,
+        dtype=torch.float32, cutoff=cutoff, device="cuda")
+    if not brownian:
+        state = state.replace(velocities=case["velocities"].cuda())
+    eng = (mt.select_engine(pot, cutoff, state, prefer="neighbor")
+           if route == "nl" else
+           PlaneEngine.create(pot, cutoff, 0.3, state.unitcell, N))
+    params = mt.Parameters(*((0.5, N, 1e-5) if brownian
+                             else (0.8, N, 0.002)), pot)
+    ensembles = {"nvt": mt.NVT(1.0, 0.4), "nve": mt.NVE(),
+                 "brownian": mt.Brownian(1.0)}
+    s, rows, words, rebuilds = state, [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ens, steps, comp, hilo in PARTICLE_LEGS[route]:
+        advance = tstep.make_particle_advance(params, ensembles[ens], eng,
+                                              comp, hilo=hilo)
+        for k in [1] * 25 + [25] * ((steps - 25) // 25):
+            s = advance(s, k)
+            rows.append([float(s.energy), float(s.virial),
+                         float(s.temperature), int(s.step),
+                         float(s.virial_accum), int(s.nprom)])
+            words.append([_words(getattr(s, f)) for f in SLOT_FIELDS])
+        rebuilds.append(advance.rebuild_steps())
+    torch.cuda.synchronize()
+    return {f"{name} particle_advance": {
+        "rows": rows, "words": words, "rebuilds": rebuilds,
+        "arrays": {f: getattr(s, f).cpu() for f in SLOT_FIELDS},
+        "seconds": time.perf_counter() - t0}}
+
+
+def rows_runs(name, case):
+    """``rebuild_flag_rows`` (a drift-test form) or ``brownian_rows`` as
+    this tree has them on the case's inputs, f32 and f64: values after one
+    call, a graph of 100 in-place calls each (also in plain stream order
+    where the tree launches them as programmatic dependents), the bound;
+    beside the drift test ``torch.any`` of a bool mask over the rows; the
+    launch floor."""
+    import types
+
+    from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.ops import philox_draws as draws
+    ways = ([("", contextlib.nullcontext)] if not hasattr(draws, "rows_grid")
+            else [("", contextlib.nullcontext),
+                  (" plain launch", draws.plain_launch)])
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "" if dtype == torch.float32 else " f64"
+        size = torch.empty((), dtype=dtype).element_size()
+        if case["form"] != "brownian":
+            ref, pos, cell = (t.to(device="cuda", dtype=dtype)
+                              for t in case["inputs"])
+            n, d = ref.shape
+            box = (dict(lengths=torch.diagonal(cell))
+                   if case["form"] == "lengths" else
+                   dict(cell=cell,
+                        cell_inv=torch.linalg.inv(cell).contiguous()))
+            moved = pos.clone()
+            moved[n // 3] += 0.2
+
+            def values(box=box, moved=moved):
+                return torch.stack([draws.rebuild_flag_rows(
+                    p, ref, 0.3, **box) for p in (pos, moved)]).double().cpu()
+            flag = torch.empty((), dtype=torch.bool, device="cuda")
+
+            def call():
+                draws.rebuild_flag_rows(pos, ref, 0.3, out=flag, **box)
+            bound = 2 * n * d * size / 3.35e12 * 1e3
+            mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+            out[f"{name} torch_any{tag}"] = {
+                "values": torch.any(mask).reshape(1).double().cpu(),
+                "ms": many_ms(lambda: torch.any(mask)),
+                "bound_ms": n / 3.35e12 * 1e3,
+                **kernels_of(lambda: torch.any(mask))}
+            kernels = {f"{name} rebuild_flag_rows{tag}": (call, values,
+                                                          bound)}
+        else:
+            x, f, xc, images, cell = case["inputs"]
+            x, f, xc, cell = (t.to(device="cuda", dtype=dtype)
+                              for t in (x, f, xc, cell))
+            images = images.cuda()
+            n, d = x.shape
+            cell_inv = torch.linalg.inv(cell).contiguous()
+            coeffs = vu.brownian_coefficients(1e-5, 1.0, dtype)
+            w = torch.tensor(-1234.5, dtype=dtype, device="cuda")
+            kernels = {}
+            for comp in (True, False):
+                def state():
+                    return types.SimpleNamespace(
+                        positions=x.clone(), pos_comp=xc.clone(),
+                        images=images.clone(), unitcell=cell,
+                        unitcell_inv=cell_inv, seed=3,
+                        step=torch.tensor(123450, device="cuda"),
+                        dtype=dtype, device=x.device,
+                        virial_accum=torch.tensor(2.5, dtype=dtype,
+                                                  device="cuda"),
+                        nprom=torch.tensor(4, device="cuda"),
+                        temperature=torch.tensor(0.0, dtype=dtype,
+                                                 device="cuda"))
+                def values(state=state, comp=comp):
+                    st = state()
+                    vu.brownian_rows(f, w, st, *coeffs, comp, in_place=True)
+                    return torch.cat([t.double().reshape(-1).cpu() for t in (
+                        st.positions, st.pos_comp, st.images,
+                        st.virial_accum, st.nprom, st.temperature, st.step)])
+                timed = state()
+                arrays = 5 if comp else 3
+                kernels[f"{name} brownian_rows"
+                        f"{'' if comp else ' uncompensated'}{tag}"] = (
+                    (lambda st=timed, comp=comp: vu.brownian_rows(
+                        f, w, st, *coeffs, comp, in_place=True)),
+                    values, (arrays * size + 16) * n * d / 3.35e12 * 1e3)
+        for key, (call, values, bound) in kernels.items():
+            for suffix, way in ways:
+                with way():
+                    call()
+                    out[key + suffix] = {"values": values(),
+                                         "ms": many_ms(call),
+                                         "bound_ms": bound,
+                                         **kernels_of(call)}
+    if hasattr(draws, "empty"):
+        out["launch_floor"] = {"ms": many_ms(lambda: draws.empty("cuda"))}
+        if "programmatic" in inspect.signature(draws.empty).parameters:
+            out["launch_floor programmatic"] = {"ms": many_ms(
+                lambda: draws.empty("cuda", True))}
+    return out
 
 
 def make_fire_inputs(path):
@@ -725,6 +938,12 @@ def worker(tree, inputs_path, out_path):
         if case["kind"] == "fire":
             out.update(fire_runs(name, case))
             continue
+        if case["kind"] == "rows":
+            out.update(rows_runs(name, case))
+            continue
+        if case["kind"] == "particle":
+            out.update(particle_runs(name, case))
+            continue
         if case["kind"] in ("list", "list_hilo"):
             out.update(list_runs(name, case, pots["user"], pair_list,
                                  pair_sweep))
@@ -745,8 +964,8 @@ def worker(tree, inputs_path, out_path):
             out[f"{name} {kernel}"] = {
                 "energy": energy.cpu(), "virial": virial.cpu(),
                 "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
-    if all(c["kind"] in ("draws", "slot", "reduce", "fire")
-           for c in cases.values()):
+    if all(c["kind"] in ("draws", "slot", "reduce", "fire", "rows",
+                         "particle") for c in cases.values()):
         torch.save(out, out_path)
         return
     w = probe.random_input(0, device="cuda")
@@ -913,10 +1132,12 @@ def main():
     parser.add_argument("--parent", help="directory of the other tree")
     parser.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     parser.add_argument("--only", choices=("draws", "slot", "reduce",
-                                           "fire"),
+                                           "fire", "rows"),
                         help="compare the slot step's small kernels alone, "
                         "the slot advance's bits alone, the list's "
-                        "reduction alone, or FIRE's two reductions alone")
+                        "reduction alone, FIRE's two reductions alone, or "
+                        "the particle rows' drift test and Brownian move "
+                        "alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_torch_sweep: no CUDA device")
@@ -928,7 +1149,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
         {"draws": make_draw_inputs, "slot": make_slot_inputs,
-         "reduce": make_reduce_inputs, "fire": make_fire_inputs}.get(
+         "reduce": make_reduce_inputs, "fire": make_fire_inputs,
+         "rows": make_rows_inputs}.get(
              args.only, make_inputs)(inputs)
         runs = []
         for i, tree in enumerate((args.parent, HERE, HERE, args.parent)):

@@ -122,11 +122,18 @@
 //     mdtpu/ops/neighbor_list.py needs_rebuild): the displacement of each
 //     (N, d) particle row from its reference, minimum-imaged by the cell
 //     matrix (the cell grid, PlaneEngine) or by the box lengths (the
-//     list), d2 in component order, flag = any(d2 > thr); a thread a
-//     particle, the block's OR, the ticket, the flag byte and the IF
-//     node's handle as rebuild_flag. Bound: the two (N, d) reads (1.6 MB
-//     at the bench's 65,536 float32 particles, 0.47 us), below the launch
-//     floor.
+//     list; read at a stride, so the cell's diagonal needs no copy), d2 in
+//     component order, flag = any(d2 > thr). Bound: the two (N, d) reads
+//     (1.6 MB at the bench's 65,536 float32 particles, 0.47 us), below the
+//     launch floor, so what bounds it is latency. The design: a particle a
+//     thread on a grid fixed by the count (particle_rows.cuh: 256 a
+//     block, one wave); a programmatic dependent of the kernel before it
+//     (the kick-drift-wrap or FIRE's move, which write the positions):
+//     ref is loaded before griddepcontrol.wait, the positions and the box
+//     after it; the block's OR, then one relaxed fetch_add a block that
+//     carries its count and its hit in one word, the last block writing
+//     the flag byte, putting the word back and setting the IF node's
+//     handle.
 //   * philox_words: the generator's words for given counters and keys,
 //     for the known-answer checks on the card. empty: a kernel that does
 //     nothing (launched as a programmatic dependent, it only waits), whose
@@ -157,6 +164,7 @@
 
 #include <vector>
 
+#include "particle_rows.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -416,41 +424,41 @@ __global__ void __launch_bounds__(kThreads)
   if (set_handle) cudaGraphSetConditional(handle, hit ? 1u : 0u);
 }
 
-// The drift test of (n, D) particle rows, a particle a thread
-// (grid-stride): dr = pos - ref, minimum-imaged, d2 = sum_k dr_k^2 in
-// component order, flag = any(d2 > thr). CELL: by the cell matrix, as
-// core/box.py minimum_image (frac_k = sum_j dr_j ci[k][j], frac -= rint(frac),
-// dr_k = sum_j frac_j c[k][j], j ascending, each product rounded), the cell
-// grid's and PlaneEngine's; else by the box lengths L (m: unused), dr_k -=
-// L_k rint(dr_k / L_k) with a true division, the neighbour list's. The
-// block's OR, the ticket, the flag and the handle as rebuild_flag_kernel.
-__device__ unsigned int g_rows_any = 0;
-__device__ unsigned int g_rows_ticket = 0;
-
+// The box of the drift test of particle rows: CELL, the cell matrix c and
+// its inverse ci (row-major, (D, D)); else the box lengths, len[k] at
+// lengths[k * stride] (the cell's diagonal at stride D + 1 is a view the
+// caller need not copy).
 template <typename T, int D, bool CELL>
-__global__ void __launch_bounds__(kThreads)
-    rebuild_rows_kernel(const T* __restrict__ pos, const T* __restrict__ ref,
-                        const T* __restrict__ m, const T* __restrict__ mi,
-                        int64_t n, T thr, bool* flag,
-                        cudaGraphConditionalHandle handle, int set_handle) {
-  T c[D][D], ci[D][D];
+struct RowsBox {
+  T c[D][D], ci[D][D], len[D];
+  __device__ __forceinline__ void load(const T* m, const T* mi,
+                                       int64_t stride) {
 #pragma unroll
-  for (int k = 0; k < D; ++k)
+    for (int k = 0; k < D; ++k) {
+      if (CELL) {
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      c[k][j] = CELL ? m[k * D + j] : T(0);
-      ci[k][j] = CELL ? mi[k * D + j] : T(0);
+        for (int j = 0; j < D; ++j) {
+          c[k][j] = m[k * D + j];
+          ci[k][j] = mi[k * D + j];
+        }
+      } else {
+        len[k] = mi[k * stride];
+      }
     }
-  T len[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) len[k] = CELL ? T(0) : mi[k];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  bool any = false;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+  }
+
+  // Whether the displacement x - r of one particle (D values each),
+  // minimum-imaged, is longer than thr: d2 = sum_k dr_k^2 in component
+  // order. CELL: as core/box.py minimum_image (frac_k = sum_j dr_j
+  // ci[k][j], frac -= rint(frac), dr_k = sum_j frac_j c[k][j], j
+  // ascending, each product rounded), the cell grid's and PlaneEngine's;
+  // else dr_k -= L_k rint(dr_k / L_k) with a true division, the neighbour
+  // list's.
+  __device__ __forceinline__ bool drifted(const T* x, const T* r,
+                                          T thr) const {
     T dr[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) dr[k] = pos[i * D + k] - ref[i * D + k];
+    for (int k = 0; k < D; ++k) dr[k] = x[k] - r[k];
     if (CELL) {
       T frac[D];
 #pragma unroll
@@ -475,18 +483,58 @@ __global__ void __launch_bounds__(kThreads)
     T d2 = dr[0] * dr[0];
 #pragma unroll
     for (int k = 1; k < D; ++k) d2 = d2 + dr[k] * dr[k];
-    any = any || d2 > thr;
+    return d2 > thr;
+  }
+};
+
+// Blocks done with the particle rows' drift test (the low 16 bits) and
+// those of them that found a particle past the threshold (the high 16
+// bits), on this card (0 between launches).
+__device__ unsigned int g_rows_word = 0;
+
+// The drift test of (n, D) particle rows, flag = any(d2 > thr) over the
+// particles (RowsBox::drifted), a particle a thread (particle_rows.cuh).
+// A programmatic dependent: a thread's first reference row is loaded
+// before griddepcontrol.wait, its positions and the box after it (see the
+// note at the launch). The block's OR (__syncthreads_or), then one relaxed
+// fetch_add a block that carries both its count and its hit: the block
+// that takes the last count knows the answer from the sum, writes the flag
+// byte, puts the word back to 0 and, inside a captured step, sets the IF
+// node's handle. A grid of one block takes no word.
+template <typename T, int D, bool CELL>
+__global__ void __launch_bounds__(mdtpu::rows::kRowsThreads)
+    rebuild_rows_kernel(const T* __restrict__ pos, const T* __restrict__ ref,
+                        const T* __restrict__ m, const T* __restrict__ mi,
+                        int64_t len_stride, int64_t n, T thr, bool* flag,
+                        cudaGraphConditionalHandle handle, int set_handle) {
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  T r[D] = {};
+  if (i < n) mdtpu::rows::load_row<T, D>(ref, i, r);
+  wait_for_dependencies();
+  RowsBox<T, D, CELL> box;
+  box.load(m, mi, len_stride);
+  bool any = false;
+  for (bool first = true; i < n; i += threads, first = false) {
+    T x[D];
+    if (!first) mdtpu::rows::load_row<T, D>(ref, i, r);
+    mdtpu::rows::load_row<T, D>(pos, i, x);
+    any = box.drifted(x, r, thr) || any;
   }
   any = __syncthreads_or(any);
   if (threadIdx.x != 0) return;
-  if (any) atomicOr(&g_rows_any, 1u);
-  __threadfence();  // the OR is visible before the ticket
-  if (atomicAdd(&g_rows_ticket, 1u) != gridDim.x - 1) return;
-  __threadfence();
-  const bool hit = atomicExch(&g_rows_any, 0u) != 0u;
-  g_rows_ticket = 0;
-  *flag = hit;
-  if (set_handle) cudaGraphSetConditional(handle, hit ? 1u : 0u);
+  if (gridDim.x > 1) {
+    // The word hands over nothing but itself, so relaxed order suffices;
+    // the next launch's fetch_add comes after this grid has ended.
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> word(g_rows_word);
+    const unsigned mine = 1u + (any ? 1u << 16 : 0u);
+    const unsigned before = word.fetch_add(mine, cuda::memory_order_relaxed);
+    if ((before & 0xFFFFu) != gridDim.x - 1) return;
+    any = (before + mine) >> 16 != 0u;
+    word.store(0u, cuda::memory_order_relaxed);
+  }
+  *flag = any;
+  if (set_handle) cudaGraphSetConditional(handle, any ? 1u : 0u);
 }
 
 // --------------------------------------------------------- velocity finish
@@ -817,38 +865,51 @@ int rebuild_flag(const T* pos, const T* ref, int dim, long long n,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_rebuild_rows(bool cell, int grid, cudaStream_t s, const T* pos,
-                        const T* ref, const T* m, const T* mi, int64_t n,
+template <typename T, int D, bool CELL>
+int launch_rebuild_rows(cudaStream_t s, bool pdl, const T* pos, const T* ref,
+                        const T* m, const T* mi, int64_t stride, int64_t n,
                         T thr, bool* flag, cudaGraphConditionalHandle h,
                         int set_handle) {
-  if (cell)
-    rebuild_rows_kernel<T, D, true><<<grid, kThreads, 0, s>>>(
-        pos, ref, m, mi, n, thr, flag, h, set_handle);
-  else
-    rebuild_rows_kernel<T, D, false><<<grid, kThreads, 0, s>>>(
-        pos, ref, m, mi, n, thr, flag, h, set_handle);
-  return (int)cudaGetLastError();
+  return launch_ex(rebuild_rows_kernel<T, D, CELL>,
+                   dim3(mdtpu::rows::rows_grid(n)),
+                   dim3(mdtpu::rows::kRowsThreads), s, pdl, pos, ref, m, mi,
+                   stride, n, thr, flag, h, set_handle);
 }
 
+// The drift test of particle rows, launched as a programmatic dependent
+// of the kernel before it where options say so. Before
+// griddepcontrol.wait it loads ref alone, which only a rebuild writes (an
+// earlier step's IF node, never the kernel just before): the positions
+// are the kick-drift-wrap's or FIRE's move's output, written just before
+// the test, and the box may be too (a step with force_dtype casts the cell
+// just before it), so both come after the wait.
 template <typename T>
 int rebuild_rows(const T* pos, const T* ref, const T* m, const T* mi,
-                 int dim, long long n, double thr, bool* flag,
-                 unsigned long long handle, int set_handle, void* stream) {
+                 long long len_stride, int dim, long long n, double thr,
+                 bool* flag, unsigned long long handle, int set_handle,
+                 int options, void* stream) {
   const bool cell = m != nullptr;
-  if (!pos || !ref || !mi || !flag || dim < 2 || dim > 3 || n < 0)
+  if (!pos || !ref || !mi || !flag || dim < 2 || dim > 3 || n < 0 ||
+      (!cell && len_stride < 1) ||
+      reinterpret_cast<uintptr_t>(pos) % sizeof(T) ||
+      reinterpret_cast<uintptr_t>(ref) % sizeof(T))
     return kErrArgs;
-  const int grid = grid_for(n, kTestMaxBlocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pdl = (options & kProgrammatic) != 0;
   const cudaGraphConditionalHandle h =
       static_cast<cudaGraphConditionalHandle>(handle);
   const T t = static_cast<T>(thr);
-  return dim == 2 ? launch_rebuild_rows<T, 2>(cell, grid, s, pos, ref, m, mi,
-                                              (int64_t)n, t, flag, h,
-                                              set_handle)
-                  : launch_rebuild_rows<T, 3>(cell, grid, s, pos, ref, m, mi,
-                                              (int64_t)n, t, flag, h,
-                                              set_handle);
+  const int64_t st = len_stride;
+  if (dim == 2)
+    return cell ? launch_rebuild_rows<T, 2, true>(s, pdl, pos, ref, m, mi, st,
+                                                  n, t, flag, h, set_handle)
+                : launch_rebuild_rows<T, 2, false>(s, pdl, pos, ref, m, mi,
+                                                   st, n, t, flag, h,
+                                                   set_handle);
+  return cell ? launch_rebuild_rows<T, 3, true>(s, pdl, pos, ref, m, mi, st, n,
+                                                t, flag, h, set_handle)
+              : launch_rebuild_rows<T, 3, false>(s, pdl, pos, ref, m, mi, st,
+                                                 n, t, flag, h, set_handle);
 }
 
 template <typename T, bool NVT, bool SUM>
@@ -899,7 +960,7 @@ int velocity_finish(const T* v, long long n, const T* kinetic,
                                         base, numer, term1, nf, key, out);
 }
 
-constexpr int kCensusSize = 14;
+constexpr int kCensusSize = 15;
 
 // Whether func is one of this file's velocity finish (noise) kernels.
 template <typename T>
@@ -919,6 +980,18 @@ bool finish_kernel(const void* func) {
 template <typename T>
 bool noise_kernel(const void* func) {
   return func == (const void*)uniform_noise_kernel<T>;
+}
+
+// Whether func is one of this file's particle-row drift tests.
+template <typename T>
+bool rows_kernel(const void* func) {
+  const void* kernels[] = {(const void*)rebuild_rows_kernel<T, 2, true>,
+                           (const void*)rebuild_rows_kernel<T, 2, false>,
+                           (const void*)rebuild_rows_kernel<T, 3, true>,
+                           (const void*)rebuild_rows_kernel<T, 3, false>};
+  for (const void* k : kernels)
+    if (k == func) return true;
+  return false;
 }
 
 // The graph being captured on s and its current dependencies; 0, a CUDA
@@ -1013,25 +1086,49 @@ int mdtpu_rebuild_flag_f64(const double* pos, const double* ref, int dim,
                               set_handle, stream);
 }
 
-// pos, ref: (n, dim) row-major on the device, dim 2 or 3; m: the
-// (dim, dim) cell and mi its inverse, row-major (the minimum image by the
-// cell), or m null and mi the (dim,) box lengths; flag, handle and
-// set_handle as mdtpu_rebuild_flag_f32's.
+// pos, ref: (n, dim) row-major on the device, dim 2 or 3, each at any
+// address of its dtype; m:
+// the (dim, dim) cell and mi its inverse, row-major (the minimum image by
+// the cell), or m null and mi the box lengths, length k at mi[k *
+// len_stride]; flag, handle and set_handle as mdtpu_rebuild_flag_f32's;
+// options: kProgrammatic or 0. The kernel just before must not write ref.
 int mdtpu_rebuild_rows_f32(const float* pos, const float* ref, const float* m,
-                           const float* mi, int dim, long long n, double thr,
-                           bool* flag, unsigned long long handle,
-                           int set_handle, void* stream) {
-  return rebuild_rows<float>(pos, ref, m, mi, dim, n, thr, flag, handle,
-                             set_handle, stream);
+                           const float* mi, long long len_stride, int dim,
+                           long long n, double thr, bool* flag,
+                           unsigned long long handle, int set_handle,
+                           int options, void* stream) {
+  return rebuild_rows<float>(pos, ref, m, mi, len_stride, dim, n, thr, flag,
+                             handle, set_handle, options, stream);
 }
 
 int mdtpu_rebuild_rows_f64(const double* pos, const double* ref,
-                           const double* m, const double* mi, int dim,
-                           long long n, double thr, bool* flag,
-                           unsigned long long handle, int set_handle,
-                           void* stream) {
-  return rebuild_rows<double>(pos, ref, m, mi, dim, n, thr, flag, handle,
-                              set_handle, stream);
+                           const double* m, const double* mi,
+                           long long len_stride, int dim, long long n,
+                           double thr, bool* flag, unsigned long long handle,
+                           int set_handle, int options, void* stream) {
+  return rebuild_rows<double>(pos, ref, m, mi, len_stride, dim, n, thr, flag,
+                              handle, set_handle, options, stream);
+}
+
+// The grid of the particle-order kernels over n particle rows
+// (particle_rows.cuh, shared by this library's drift test and the Verlet
+// library's Brownian move): out[0] its blocks, out[1] the threads of a
+// block, out[2] the most blocks, out[3] the fewest particles whose dim
+// values of itemsize bytes (4 or 8) fill whole Philox blocks. Returns 0;
+// -1 for another itemsize or dim.
+long long mdtpu_rows_grid(long long n, int dim, int itemsize,
+                          long long* out) {
+  if ((itemsize != 4 && itemsize != 8) || (dim != 2 && dim != 3) || n < 0)
+    return -1;
+  using mdtpu::rows::philox_period;
+  out[0] = mdtpu::rows::rows_grid(n);
+  out[1] = mdtpu::rows::kRowsThreads;
+  out[2] = mdtpu::rows::kRowsMaxBlocks;
+  out[3] = itemsize == 4 ? (dim == 2 ? philox_period<float, 2>()
+                                     : philox_period<float, 3>())
+                         : (dim == 2 ? philox_period<double, 2>()
+                                     : philox_period<double, 3>());
+  return 0;
 }
 
 // v: n velocities on the device (the kinetic sum in the kernel), or null
@@ -1158,7 +1255,8 @@ int mdtpu_step_below(const int64_t* counter, const int64_t* end, bool* flag,
 // kernel nodes that depend on nothing; the nodes whose type could not be
 // read; the error code of the Graphviz dump; the programmatic edges, and
 // how many of them enter this file's velocity finish and its noise; the
-// error code of the edges' read (where not 0 the edge counts are -1).
+// error code of the edges' read (where not 0 the edge counts are -1); the
+// programmatic edges into its particle-row drift test.
 // Types come from the driver (this library's runtime does not name a
 // conditional node's type), edges and their data from the runtime
 // (cudaGraphGetEdges_v2: the first version refuses a graph whose edges
@@ -1221,7 +1319,7 @@ int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
   }
   if (rc) {
     cudaGetLastError();
-    out[6] = out[7] = out[10] = out[11] = out[12] = -1;
+    out[6] = out[7] = out[10] = out[11] = out[12] = out[14] = -1;
     out[13] = (long long)rc;
   } else {
     auto index = [&](cudaGraphNode_t x) {
@@ -1242,6 +1340,9 @@ int mdtpu_capture_census(void* stream, const char* dot_path, long long* out) {
         } else if (noise_kernel<float>(p.func) ||
                    noise_kernel<double>(p.func)) {
           ++out[12];
+        } else if (rows_kernel<float>(p.func) ||
+                   rows_kernel<double>(p.func)) {
+          ++out[14];
         }
       }
       if (t < 0 || kind[t] != CU_GRAPH_NODE_TYPE_CONDITIONAL) continue;

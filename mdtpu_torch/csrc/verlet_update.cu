@@ -99,21 +99,28 @@
 //     cell, tilted included, read from the device. The kick after the
 //     sweep and NVT's rescale are the slot chain's kick and rescale, which
 //     take any contiguous shape.
-//   * brownian_rows_kernel: the Brownian move of a particle, its noise
-//     drawn inside with the bits of uniform_noise_kernel for element e = i
-//     d + k of the row-major (N, d) array (at d = 3 a particle's values
-//     straddle one or two Philox blocks; both are drawn where they do),
-//     dx = f drift + xi sigma through the Kahan add, the wrap as above, and
-//     the step's scalars written by the last block, as
-//     brownian_update_kernel writes them.
+//   * brownian_rows_kernel: the Brownian move, its noise drawn inside
+//     with the bits of uniform_noise_kernel for element e = i d + k of the
+//     row-major (N, d) array, dx = f drift + xi sigma through the Kahan
+//     add, the wrap as above, and the step's scalars written by the last
+//     block, as brownian_update_kernel writes them. A particle a thread on
+//     a grid fixed by the count (particle_rows.cuh); a block's tile of 256
+//     particles is whole Philox blocks, each drawn once into shared
+//     memory; it launches as a programmatic dependent of the pair sweep: the step,
+//     the cell, x, xc and the images are loaded and the noise drawn before
+//     griddepcontrol.wait, the forces after it; a warp more a block takes
+//     the ticket and writes the step's scalars off the particles' path.
 // Each rounds every operation as the torch composition does (-fmad=false),
 // so each gives its bits. Bound: bytes, each array read and written once:
 // kick_drift_wrap reads f, v, vc, x, xc and images and writes v, vc, x, xc
 // and images (10.2 MB at the bench's 65,536 float32 particles, 3.0 us at
 // 3.35 TB/s; with lo 11.0 MB, 3.3 us); brownian_rows reads f, x, xc and
-// images and writes x, xc and images (7.1 MB, 2.1 us). Both launch in
-// plain stream order; a thread's loads of a row are three neighbouring
-// values, so a warp's loads of an array cover one contiguous run.
+// images and writes x, xc and images (7.1 MB, 2.1 us). kick_drift_wrap
+// launches in plain stream order, a thread a particle (a warp's loads of
+// an array cover one contiguous run). It does not trigger its dependents
+// early (griddepcontrol.launch_dependents after its loads, so that the
+// drift test after it would start sooner): measured, the captured steps
+// got no faster (PERF.md §6).
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +128,7 @@
 
 #include <vector>
 
+#include "particle_rows.cuh"
 #include "periodic_wrap.cuh"
 #include "philox.cuh"
 
@@ -505,11 +513,7 @@ int brownian_update(int compensated, long long n, long long slots, const T* f,
 
 // ------------------------------------------------ particle rows (N, D)
 
-template <typename T, int D>
-__device__ __forceinline__ void load_row(const T* p, int64_t i, T (&r)[D]) {
-#pragma unroll
-  for (int k = 0; k < D; ++k) r[k] = p[i * D + k];
-}
+using mdtpu::rows::load_row;
 
 template <typename T, int D>
 __device__ __forceinline__ void store_row(T* p, int64_t i, const T (&r)[D]) {
@@ -654,65 +658,88 @@ struct BrownianRowsArgs {
 // card (0 between launches).
 __device__ unsigned int g_brownian_rows_ticket = 0;
 
-// The Brownian move of n particles, a thread each (grid-stride): value e
-// = i D + k of the row-major (n, D) positions takes xi, the noise kernel's
-// element e (Philox block e / P, P = 4 float32 or 2 float64 values a
-// block; a particle's D values straddle one or two blocks), then x, xc <-
-// kahan(x, xc, f drift + xi sigma) (plain where not COMP) and the wrap.
-// The last block to finish writes the step's scalars, as
-// brownian_update_kernel does.
+// Threads of a Brownian move's block: a particle each (particle_rows.cuh),
+// and one warp more, whose first thread takes the block's ticket and, in
+// the last block, writes the step's scalars while the particles move.
+constexpr int kBrownianRowsThreads = mdtpu::rows::kRowsThreads + 32;
+
+// The Brownian move of n particles of (n, D) rows, a particle a thread,
+// a tile of kRowsThreads particles a block: value e = i D + k of the
+// row-major positions takes xi, the noise kernel's element e. The tile's
+// D kRowsThreads values are whole Philox blocks (block b holds elements b P
+// .. b P + P - 1), each drawn once into shared memory, block t0 D / P + j
+// by thread j mod blockDim.x. Then x, xc <- kahan(x, xc, f
+// drift + xi sigma) (plain where not COMP) and the wrap. A programmatic
+// dependent of the kernel before it (the pair sweep, which writes the
+// forces and the virial): the step, the cell, x, xc and the images are
+// loaded and the noise drawn before griddepcontrol.wait, the forces and
+// the virial after it, every store after it. The ticket (the block's
+// last thread, after the wait: every thread of the block read the step
+// before the barrier ahead of it) is off the particles' path; the last
+// block to take it writes the step's scalars, as brownian_update_kernel
+// does.
 template <typename T, int D, bool COMP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBrownianRowsThreads)
     brownian_rows_kernel(BrownianRowsArgs<T> a, int64_t n, T drift, T sigma,
                          T ktemp, uint2 key, uint32_t stream) {
+  constexpr int kTile = mdtpu::rows::kRowsThreads;
   constexpr int P = int(16 / sizeof(T));
+  constexpr int kBlocks = kTile * D / P;  // Philox blocks a tile
+  static_assert(kTile * D % P == 0, "a tile is whole Philox blocks");
+  __shared__ __align__(16) T noise[kTile * D];
+  const int64_t nv = n * D;
+  const bool mover = threadIdx.x < kTile;
   T c[D][D], ci[D][D];
   load_cell<T, D>(a.cell, a.cell_inv, c, ci);
   const int64_t s = a.step_in ? *a.step_in : a.step_value;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t e0 = i * D;
-    const int64_t b0 = e0 / P, b1 = (e0 + D - 1) / P;
-    T w0[P], w1[P] = {};
-    mdtpu::philox::noise_values(
-        mdtpu::philox::philox4x32_10(
-            mdtpu::philox::counter((uint32_t)b0, s, stream), key),
-        w0);
-    if (b1 != b0)
+  const int64_t stride = (int64_t)gridDim.x * kTile;
+  bool waited = false;
+  // rows_grid gives every block a tile where n > 0.
+  for (int64_t t0 = (int64_t)blockIdx.x * kTile; t0 < n; t0 += stride) {
+    for (int j = threadIdx.x; j < kBlocks; j += kBrownianRowsThreads) {
+      const int64_t b = t0 * D / P + j;
+      if (b * P >= nv) break;
+      T w[P];
       mdtpu::philox::noise_values(
           mdtpu::philox::philox4x32_10(
-              mdtpu::philox::counter((uint32_t)b1, s, stream), key),
-          w1);
-    T f[D], x[D], xc[D];
-    int64_t img[D];
-    load_row<T, D>(a.f, i, f);
-    load_row<T, D>(a.x, i, x);
-    load_row<int64_t, D>(a.img, i, img);
-    if (COMP) load_row<T, D>(a.xc, i, xc);
+              mdtpu::philox::counter((uint32_t)b, s, stream), key),
+          w);
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const int64_t w = e0 + k - b0 * P;
-      T xi = w0[0];
-#pragma unroll
-      for (int q = 1; q < P; ++q) xi = w == q ? w0[q] : xi;
-#pragma unroll
-      for (int q = 0; q < P; ++q) xi = w == P + q ? w1[q] : xi;
-      const T dx = f[k] * drift + xi * sigma;
-      if (COMP)
-        kahan(x[k], xc[k], dx);
-      else
-        x[k] = x[k] + dx;
+      for (int q = 0; q < P; ++q) noise[j * P + q] = w[q];
     }
-    wrap<T, D, COMP>(x, xc, img, c, ci);
-    store_row<T, D>(a.x_out, i, x);
-    store_row<int64_t, D>(a.img_out, i, img);
-    if (COMP) store_row<T, D>(a.xc_out, i, xc);
+    const int64_t i = t0 + threadIdx.x;
+    const bool mine = mover && i < n;
+    T x[D], xc[D] = {}, f[D];
+    int64_t img[D];
+    if (mine) {
+      load_row<T, D>(a.x, i, x);
+      if (COMP) load_row<T, D>(a.xc, i, xc);
+      load_row<int64_t, D>(a.img, i, img);
+    }
+    __syncthreads();  // the tile's noise; every thread has read the step
+    if (!waited) {
+      wait_for_dependencies();
+      waited = true;
+    }
+    if (mine) {
+      load_row<T, D>(a.f, i, f);
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const T dx = f[k] * drift + noise[threadIdx.x * D + k] * sigma;
+        if (COMP)
+          kahan(x[k], xc[k], dx);
+        else
+          x[k] = x[k] + dx;
+      }
+      wrap<T, D, COMP>(x, xc, img, c, ci);
+      store_row<T, D>(a.x_out, i, x);
+      if (COMP) store_row<T, D>(a.xc_out, i, xc);
+      store_row<int64_t, D>(a.img_out, i, img);
+    }
+    if (t0 + stride < n) __syncthreads();  // before the next tile's draws
   }
-  // Every thread of the block has read the step; the last block to say so
-  // writes the step's scalars.
-  __syncthreads();
-  if (threadIdx.x != 0) return;
+  if (!waited) wait_for_dependencies();
+  if (threadIdx.x != kBrownianRowsThreads - 1) return;
   cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(
       g_brownian_rows_ticket);
   if (ticket.fetch_add(1u, cuda::memory_order_acq_rel) != gridDim.x - 1)
@@ -726,19 +753,14 @@ __global__ void __launch_bounds__(kThreads)
   ticket.store(0u, cuda::memory_order_relaxed);
 }
 
-template <typename T, int D>
-int launch_brownian_rows(const BrownianRowsArgs<T>& a, bool comp, int64_t n,
-                         T drift, T sigma, T ktemp, uint2 key,
-                         uint32_t stream_word, cudaStream_t s) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  if (comp)
-    brownian_rows_kernel<T, D, true><<<(int)blocks, kThreads, 0, s>>>(
-        a, n, drift, sigma, ktemp, key, stream_word);
-  else
-    brownian_rows_kernel<T, D, false><<<(int)blocks, kThreads, 0, s>>>(
-        a, n, drift, sigma, ktemp, key, stream_word);
-  return (int)cudaGetLastError();
+template <typename T, int D, bool COMP>
+int launch_brownian_rows(const BrownianRowsArgs<T>& a, int64_t n, T drift,
+                         T sigma, T ktemp, uint2 key, uint32_t stream_word,
+                         bool pdl, cudaStream_t s) {
+  return launch_ex(brownian_rows_kernel<T, D, COMP>,
+                   dim3(mdtpu::rows::rows_grid(n)),
+                   dim3(kBrownianRowsThreads), s, pdl, a, n, drift, sigma,
+                   ktemp, key, stream_word);
 }
 
 template <typename T>
@@ -750,11 +772,12 @@ int brownian_rows(int compensated, int dim, long long n, const T* f,
                   T* temperature, const int64_t* step_in, int64_t* step_out,
                   long long step_value, double drift, double sigma,
                   double ktemp, unsigned k0, unsigned k1,
-                  unsigned stream_word, void* stream) {
+                  unsigned stream_word, int options, void* stream) {
   const bool comp = compensated != 0;
   constexpr long long P = 16 / sizeof(T);
+  // Every group's Philox blocks (a partial group's too) below 2^32.
   const bool ok = n >= 0 && (dim == 2 || dim == 3) &&
-                  (n * dim + P - 1) / P <= 0xFFFFFFFFLL && f && x && img &&
+                  (n * dim + P * dim) / P <= 0xFFFFFFFFLL && f && x && img &&
                   cell && cell_inv && virial && accum && nprom && x_out &&
                   img_out && accum_out && nprom_out && temperature &&
                   (!comp || (xc && xc_out)) && (!step_out || step_in);
@@ -767,11 +790,29 @@ int brownian_rows(int compensated, int dim, long long n, const T* f,
   const T dr = static_cast<T>(drift), sg = static_cast<T>(sigma),
           kt = static_cast<T>(ktemp);
   const uint2 key = make_uint2(k0, k1);
+  const bool pdl = (options & kProgrammatic) != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_brownian_rows<T, 2>(a, comp, n, dr, sg, kt, key,
-                                               stream_word, s)
-                  : launch_brownian_rows<T, 3>(a, comp, n, dr, sg, kt, key,
-                                               stream_word, s);
+  if (dim == 2)
+    return comp ? launch_brownian_rows<T, 2, true>(a, n, dr, sg, kt, key,
+                                                   stream_word, pdl, s)
+                : launch_brownian_rows<T, 2, false>(a, n, dr, sg, kt, key,
+                                                    stream_word, pdl, s);
+  return comp ? launch_brownian_rows<T, 3, true>(a, n, dr, sg, kt, key,
+                                                 stream_word, pdl, s)
+              : launch_brownian_rows<T, 3, false>(a, n, dr, sg, kt, key,
+                                                  stream_word, pdl, s);
+}
+
+// Whether func is one of this file's particle-row Brownian moves.
+template <typename T>
+bool brownian_rows_kernel_of(const void* func) {
+  const void* kernels[] = {(const void*)brownian_rows_kernel<T, 2, true>,
+                           (const void*)brownian_rows_kernel<T, 2, false>,
+                           (const void*)brownian_rows_kernel<T, 3, true>,
+                           (const void*)brownian_rows_kernel<T, 3, false>};
+  for (const void* k : kernels)
+    if (k == func) return true;
+  return false;
 }
 
 // Whether func is one of this file's Brownian update kernels.
@@ -866,10 +907,11 @@ int mdtpu_brownian_update_f64(
 
 // The programmatic edges of the graph being captured on stream that enter
 // a Brownian update node, into out[0], and the error code of the edges'
-// read into out[1] (out[0] -1 where it is not 0). Only this library's
-// runtime knows its kernels' addresses, so the count is made here.
+// read into out[1] (out[0] and out[2] -1 where it is not 0); those into a
+// particle-row Brownian move into out[2]. Only this library's runtime
+// knows its kernels' addresses, so the count is made here.
 int mdtpu_verlet_update_census(void* stream, long long* out) {
-  out[0] = out[1] = 0;
+  out[0] = out[1] = out[2] = 0;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t rc = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream),
@@ -889,7 +931,7 @@ int mdtpu_verlet_update_census(void* stream, long long* out) {
   }
   if (rc) {
     cudaGetLastError();
-    out[0] = -1;
+    out[0] = out[2] = -1;
     out[1] = (long long)rc;
     return 0;
   }
@@ -900,6 +942,9 @@ int mdtpu_verlet_update_census(void* stream, long long* out) {
       cudaGetLastError();
     else if (brownian_kernel(p.func))
       ++out[0];
+    else if (brownian_rows_kernel_of<float>(p.func) ||
+             brownian_rows_kernel_of<double>(p.func))
+      ++out[2];
   }
   return 0;
 }
@@ -945,7 +990,9 @@ int mdtpu_kick_drift_wrap_f64(int compensated, int dim, long long n,
 // temperature (kT). step_in: an int64 on the device, or null and
 // step_value the step; step_out: step + 1 (may be step_in), or null.
 // drift, sigma, ktemp: rounded to T already; k0, k1 the seed's key words;
-// stream_word the noise's counter word.
+// stream_word the noise's counter word; options: kProgrammatic or 0 (the
+// kernel just before must not write the step, the cell, the positions,
+// their compensation or the images).
 int mdtpu_brownian_rows_f32(
     int compensated, int dim, long long n, const float* f, const float* x,
     const float* xc, const int64_t* img, const float* cell,
@@ -954,12 +1001,12 @@ int mdtpu_brownian_rows_f32(
     float* accum_out, int64_t* nprom_out, float* temperature,
     const int64_t* step_in, int64_t* step_out, long long step_value,
     double drift, double sigma, double ktemp, unsigned k0, unsigned k1,
-    unsigned stream_word, void* stream) {
+    unsigned stream_word, int options, void* stream) {
   return brownian_rows<float>(compensated, dim, n, f, x, xc, img, cell,
                               cell_inv, virial, accum, nprom, x_out, xc_out,
                               img_out, accum_out, nprom_out, temperature,
                               step_in, step_out, step_value, drift, sigma,
-                              ktemp, k0, k1, stream_word, stream);
+                              ktemp, k0, k1, stream_word, options, stream);
 }
 
 int mdtpu_brownian_rows_f64(
@@ -970,12 +1017,12 @@ int mdtpu_brownian_rows_f64(
     double* accum_out, int64_t* nprom_out, double* temperature,
     const int64_t* step_in, int64_t* step_out, long long step_value,
     double drift, double sigma, double ktemp, unsigned k0, unsigned k1,
-    unsigned stream_word, void* stream) {
+    unsigned stream_word, int options, void* stream) {
   return brownian_rows<double>(compensated, dim, n, f, x, xc, img, cell,
                                cell_inv, virial, accum, nprom, x_out, xc_out,
                                img_out, accum_out, nprom_out, temperature,
                                step_in, step_out, step_value, drift, sigma,
-                               ktemp, k0, k1, stream_word, stream);
+                               ktemp, k0, k1, stream_word, options, stream);
 }
 
 const char* mdtpu_verlet_update_error_string(int code) {

@@ -73,7 +73,7 @@ _BROWNIAN_ARGS = (_I, _L, _L) + (_P,) * 14 + (_L, _D, _D, _D, _U, _U, _U,
                                              _I, _P)
 _ROWS_ARGS = (_I, _I, _L) + (_P,) * 14 + (_D, _D, _P)
 _BROWNIAN_ROWS_ARGS = (_I, _I, _L) + (_P,) * 17 + (_L, _D, _D, _D, _U, _U,
-                                                   _U, _P)
+                                                   _U, _I, _P)
 _SIGNATURES = (("mdtpu_verlet_update_f32", _ARGS),
                ("mdtpu_verlet_update_f64", _ARGS),
                ("mdtpu_brownian_update_f32", _BROWNIAN_ARGS),
@@ -502,8 +502,12 @@ def brownian_rows(forces, virial, state, drift, sigma, ktemp, compensated,
 
     On the card one launch (``brownian_rows.launches``) that draws the
     noise inside, bit for bit :func:`mdtpu_torch.ops.philox_draws.
-    uniform_noise`'s, in plain stream order. On the CPU the plain
-    version."""
+    uniform_noise`'s, as a programmatic dependent of the kernel before it,
+    which must not write the step, the cell, the positions, their
+    compensation or the images
+    (:func:`~mdtpu_torch.ops.philox_draws.launch_options`: the pair sweep
+    writes the forces and the virial, read after the wait). On the CPU the
+    plain version."""
     step = state.step
     counter = isinstance(step, torch.Tensor)
     if in_place and not counter:
@@ -558,7 +562,8 @@ def brownian_rows(forces, virial, state, drift, sigma, ktemp, compensated,
                 step.data_ptr() if counter else None,
                 None if step_out is None else step_out.data_ptr(),
                 0 if counter else int(step), float(drift), float(sigma),
-                float(ktemp), k0, k1, philox_draws.noise_stream(), stream)
+                float(ktemp), k0, k1, philox_draws.noise_stream(),
+                philox_draws.launch_options(), stream)
     _cuda_build.check(lib, NAME, rc, "brownian_rows")
     brownian_rows.launches += 1
     return (*outs[:3], step_out if counter else step + 1, *outs[3:])
@@ -566,18 +571,20 @@ def brownian_rows(forces, virial, state, drift, sigma, ktemp, compensated,
 
 def capture_census(device):
     """``{"programmatic_into_brownian_update": n, "brownian_edges_error":
-    rc}``: the programmatic edges of the graph being captured on
-    ``device``'s current stream that enter a Brownian update node (-1 where
-    the edges could not be read, ``rc`` the error). Raises where the stream
-    is not capturing."""
+    rc, "programmatic_into_brownian_rows": m}``: the programmatic edges of
+    the graph being captured on ``device``'s current stream that enter a
+    Brownian slot update node and a particle-row Brownian move node (-1
+    where the edges could not be read, ``rc`` the error). Raises where the
+    stream is not capturing."""
     lib = _library()
-    out = (ctypes.c_longlong * 2)()
+    out = (ctypes.c_longlong * 3)()
     with torch.cuda.device(device):
         _cuda_build.check(lib, NAME, lib.mdtpu_verlet_update_census(
             torch.cuda.current_stream(device).cuda_stream, out),
             "verlet_update_census")
     return {"programmatic_into_brownian_update": out[0],
-            "brownian_edges_error": out[1]}
+            "brownian_edges_error": out[1],
+            "programmatic_into_brownian_rows": out[2]}
 
 
 WRAPPERS = (kick_drift, kick, rescale, brownian_update, kick_drift_wrap,

@@ -19,7 +19,8 @@ velocity_finish` instead, the same library's kernel),
 :func:`uniform_noise` (``uniform_noise.launches``), :func:`rebuild_flag`
 (``rebuild_flag.launches``) and its form for ``(N, d)`` particle rows with
 the minimum image, :func:`rebuild_flag_rows`
-(``rebuild_flag_rows.launches``; the engines' ``needs_rebuild``);
+(``rebuild_flag_rows.launches``; the engines' ``needs_rebuild``; its grid,
+shared with the particle rows' Brownian move, :func:`rows_grid`);
 :func:`graph_if` opens an IF node in the graph
 being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
 ``begin_capture_to_if_node``, whose handle the rebuild test sets, and
@@ -28,9 +29,10 @@ being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
 minimization);
 :func:`capture_census` counts the nodes of the graph being captured and
 its programmatic edges; :func:`empty` launches a kernel that does nothing
-(the launch floor). The noise and the velocity finish launch as
-programmatic dependents (:func:`launch_options`): under capture each takes
-a programmatic edge from the kernel node before it.
+(the launch floor). The noise, the velocity finish and the particle
+rows' drift test launch as programmatic dependents
+(:func:`launch_options`): under capture each takes a programmatic edge
+from the kernel node before it.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import math
 import os
 import re
 import tempfile
+import typing
 
 import torch
 
@@ -69,8 +72,11 @@ _SIGNATURES = (
     ("mdtpu_uniform_noise_f64", (_P, _L, _U, _U, _U, _L, _P, _I, _P)),
     ("mdtpu_rebuild_flag_f32", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
     ("mdtpu_rebuild_flag_f64", (_P, _P, _I, _L, _D, _P, _Q, _I, _P)),
-    ("mdtpu_rebuild_rows_f32", (_P, _P, _P, _P, _I, _L, _D, _P, _Q, _I, _P)),
-    ("mdtpu_rebuild_rows_f64", (_P, _P, _P, _P, _I, _L, _D, _P, _Q, _I, _P)),
+    ("mdtpu_rebuild_rows_f32", (_P, _P, _P, _P, _L, _I, _L, _D, _P, _Q, _I,
+                                _I, _P)),
+    ("mdtpu_rebuild_rows_f64", (_P, _P, _P, _P, _L, _I, _L, _D, _P, _Q, _I,
+                                _I, _P)),
+    ("mdtpu_rows_grid", (_L, _I, _I, ctypes.POINTER(_L)), _L),
     ("mdtpu_velocity_finish_f32", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
                                    _U, _U, _I, _I, _P, _P)),
     ("mdtpu_velocity_finish_f64", (_P, _L, _P, _P, _L, _P, _P, _D, _D, _D,
@@ -88,7 +94,8 @@ _SIGNATURES = (
 CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
           "if_dependencies", "if_root_kernels", "unreadable", "dot_error",
           "programmatic_edges", "programmatic_into_velocity_finish",
-          "programmatic_into_uniform_noise", "edges_error")
+          "programmatic_into_uniform_noise", "edges_error",
+          "programmatic_into_rebuild_rows")
 # Kernels the census names, by the text of their names in the graph's dump.
 NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
                  "velocity_finish": "velocity_finish_kernel",
@@ -122,25 +129,29 @@ def launch(fn_name, dtype, args, what, device):
 
 
 def launch_options() -> int:
-    """The options word of a launch of the velocity finish or the noise:
-    as a programmatic dependent of the kernel before it on the stream
-    (Hopper's programmatic dependent launch; a runtime that refuses the
-    attribute raises, nothing is retried without it), or in plain stream
-    order inside :func:`plain_launch`.
+    """The options word of a launch of the velocity finish, the noise, the
+    Brownian updates and the particle rows' drift test: as a programmatic
+    dependent of the kernel before it on the stream (Hopper's programmatic
+    dependent launch; a runtime that refuses the attribute raises, nothing
+    is retried without it), or in plain stream order inside
+    :func:`plain_launch`.
 
-    The rule a caller keeps: such a kernel may read its step tensor before
-    it waits for the kernel before it. The noise and the finish given the
-    kinetic energy do (the finish that sums reads it after the wait), so
-    the kernel launched just before either must not write that step
-    tensor. Every other input is read, and every output written, after
-    the wait."""
+    The rule a caller keeps: such a kernel may read some inputs before it
+    waits for the kernel before it, so that kernel must not write them.
+    The noise and the finish given the kinetic energy read their step
+    tensor (the finish that sums reads it after the wait); the drift test
+    of particle rows its reference positions; the Brownian updates the
+    step, the positions, their compensation and the images (the slot
+    update the occupancy, the rows' move the cell). Every other input is
+    read, and every output written, after the wait."""
     return 0 if _plain_order else _OPT_PROGRAMMATIC
 
 
 @contextlib.contextmanager
 def plain_launch():
-    """For measurements: the velocity finish and the noise launched, or
-    captured, inside this context go in plain stream order."""
+    """For measurements: the kernels that take :func:`launch_options`
+    launched, or captured, inside this context go in plain stream
+    order."""
     global _plain_order
     saved, _plain_order = _plain_order, True
     try:
@@ -420,14 +431,56 @@ def rebuild_flag_rows_plain(positions, ref_positions, skin, cell=None,
     return torch.any(d2 > rounded(half_skin * half_skin, d2.dtype))
 
 
+class RowsGrid(typing.NamedTuple):
+    """The particle-order kernels' grid over ``n`` particle rows
+    (``csrc/particle_rows.cuh``, read from the library): its blocks, a
+    block's threads (a particle each, a tile a block), the most blocks (a
+    thread takes a particle of each later tile beyond them), and the
+    fewest particles whose values fill whole Philox blocks."""
+
+    blocks: int
+    threads: int
+    max_blocks: int
+    period: int
+
+
+def rows_grid(n: int, d: int, dtype) -> RowsGrid:
+    """The grid of the drift test and the Brownian move over ``n`` rows of
+    ``d`` values of ``dtype`` (float32 or float64), read from the kernels'
+    library (built at first use): by the count alone, not by the card."""
+    lib = _library()
+    out = (ctypes.c_longlong * 4)()
+    if lib.mdtpu_rows_grid(n, d, torch.empty((), dtype=dtype).element_size(),
+                           out) < 0:
+        raise ValueError(f"the particle rows take float32 or float64 and d "
+                         f"2 or 3, not {dtype} and {d}")
+    return RowsGrid(*out)
+
+
+def rows_edge_counts(d: int, dtype) -> tuple:
+    """The counts at the edges of the particle rows' grid: 1, 3, the
+    particles of one Philox period and its neighbours, an odd count, one
+    block's particles and its neighbours, one wave's and one more, and a
+    thread's second tile."""
+    g = rows_grid(1, d, dtype)
+    block = g.threads
+    wave = block * g.max_blocks
+    return tuple(sorted({1, 3, g.period - 1, g.period, g.period + 1, 4097,
+                         block - 1, block, block + 1, wave, wave + 1,
+                         wave + block + 5} - {0}))
+
+
 def rebuild_flag_rows(positions, ref_positions, skin, *, cell=None,
                       cell_inv=None, lengths=None, out=None, handle=None):
     """:func:`rebuild_flag_rows_plain` of ``(N, d)`` particle rows (give
-    ``cell`` and ``cell_inv``, or ``lengths``), written into ``out`` (a 0-d
-    bool tensor) where given. CUDA tensors launch the kernel (one launch,
-    no memset; adds one to ``rebuild_flag_rows.launches``), which also sets
+    ``cell`` and ``cell_inv``, or ``lengths``, a ``(d,)`` view of any
+    stride such as the cell's diagonal), written into ``out`` (a 0-d bool
+    tensor) where given. CUDA tensors launch the kernel (one launch, no
+    memset, no copy of the box; adds one to ``rebuild_flag_rows.launches``)
+    as a programmatic dependent of the kernel before it, which must not
+    write ``ref_positions`` (:func:`launch_options`); it also sets
     ``handle``, an IF node's handle from :func:`graph_if`, inside the graph
-    being captured; CPU tensors take the plain version."""
+    being captured. CPU tensors take the plain version."""
     if (positions.shape != ref_positions.shape or positions.dim() != 2
             or positions.shape[1] not in (2, 3)):
         raise ValueError("positions and ref_positions must be one (N, d) "
@@ -444,24 +497,31 @@ def rebuild_flag_rows(positions, ref_positions, skin, *, cell=None,
     d = positions.shape[1]
     boxes = (cell, cell_inv) if lengths is None else (lengths,)
     shapes = ((d, d), (d, d)) if lengths is None else ((d,),)
-    if (positions.device.type != "cuda" or ref_positions.dtype
-            != positions.dtype or not positions.is_contiguous()
+    if (ref_positions.dtype != positions.dtype
+            or ref_positions.device != positions.device
+            or not positions.is_contiguous()
             or not ref_positions.is_contiguous()
             or any(t.shape != shape or t.dtype != positions.dtype
                    or t.device != positions.device
                    for t, shape in zip(boxes, shapes))):
-        raise ValueError("rebuild_flag_rows takes contiguous CUDA tensors "
-                         "of one dtype and device, the box (d, d) or (d,)")
-    boxes = tuple(t.contiguous() for t in boxes)
+        raise ValueError("rebuild_flag_rows takes contiguous rows of one "
+                         "dtype and device, the box (d, d) or (d,)")
+    if positions.device.type != "cuda":
+        raise ValueError(f"rebuild_flag_rows takes CPU or CUDA tensors, not "
+                         f"{positions.device}")
+    if lengths is None:
+        m, mi, stride = cell.contiguous(), cell_inv.contiguous(), 1
+    else:
+        mi = lengths if lengths.stride(0) >= 1 else lengths.contiguous()
+        m, stride = None, mi.stride(0)
     if out is None:
         out = torch.empty((), dtype=torch.bool, device=positions.device)
     half_skin = 0.5 * skin
-    m, mi = boxes if lengths is None else (None, boxes[0])
     launch("mdtpu_rebuild_rows", positions.dtype,
            (positions.data_ptr(), ref_positions.data_ptr(),
-            None if m is None else m.data_ptr(), mi.data_ptr(), d,
+            None if m is None else m.data_ptr(), mi.data_ptr(), stride, d,
             positions.shape[0], half_skin * half_skin, out.data_ptr(),
-            handle or 0, int(handle is not None)),
+            handle or 0, int(handle is not None), launch_options()),
            "rebuild_flag_rows", positions.device)
     rebuild_flag_rows.launches += 1
     return out

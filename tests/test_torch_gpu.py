@@ -69,7 +69,12 @@ the hi/lo sweep. B1's energy and virial summed in its last block: against
 tilted 2D box; f64, f32, hi/lo), two launches alike, and a captured full
 sweep writing its NaN-filled scalars. The list's reduction,
 staged and walked, against its plain version in list order on config 4's
-list and a 3D list (forces bit for bit, a captured call replayed).
+list and a 3D list (forces bit for bit, a captured call replayed). The
+particle rows' drift test and Brownian move at the edges of their grid
+(``philox_draws.rows_edge_counts``; d 2 and 3, f64 and f32, rows at an
+offset of one or two values, the only hit at the first row, the last row
+and the last Philox period's first row): the flag as the plain version's,
+the move bit for bit, each twice alike.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. On a machine with a card (the JAX package need not be
@@ -3065,6 +3070,148 @@ def test_rebuild_flag_rows_matches_plain(cuda, dtype, form):
                                           box.get("lengths"))
         assert bool(a) == bool(b)
     assert bool(draws.rebuild_flag_rows(moved, ref, skin, **box))
+
+
+def _rows_view(rows, offset):
+    """``rows`` copied into a flat buffer of their dtype at ``offset``
+    values: a view whose data_ptr is 16-byte aligned only where the
+    offset's bytes are a multiple of 16."""
+    n, d = rows.shape
+    buf = torch.empty(n * d + offset, dtype=rows.dtype, device=rows.device)
+    view = buf[offset:].view(n, d)
+    view.copy_(rows)
+    assert (view.data_ptr() % 16 == 0) == (
+        offset * rows.element_size() % 16 == 0)
+    return view
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rows_grid_follows_the_count(cuda, dtype, d):
+    """The particle-order kernels' grid as their library sizes it
+    (``philox_draws.rows_grid``): a particle a thread, one block up to one
+    block's particles and two past it, never more than the most blocks
+    (one wave), never fewer blocks for more rows; the Philox period is the
+    fewest particles whose values fill whole 16-byte blocks."""
+    from mdtpu_torch.ops import philox_draws as draws
+    vector = 16 // torch.empty((), dtype=dtype).element_size()
+    g = draws.rows_grid(1, d, dtype)
+    assert g.period == {(4, 3): 4, (2, 3): 2, (4, 2): 2,
+                        (2, 2): 1}[(vector, d)]
+    assert g.blocks == 1 and g.threads % 32 == 0
+    block, wave = g.threads, g.threads * g.max_blocks
+    edges = draws.rows_edge_counts(d, dtype)
+    assert {1, 3, g.period + 1, block - 1, block + 1, wave + 1} <= set(
+        edges)
+    assert draws.rows_grid(block, d, dtype).blocks == 1
+    assert draws.rows_grid(block + 1, d, dtype).blocks == 2
+    assert draws.rows_grid(wave, d, dtype).blocks == g.max_blocks
+    assert draws.rows_grid(10 * wave, d, dtype).blocks == g.max_blocks
+    prev = 1
+    for n in sorted(edges + (0, 7 * block + 3)):
+        r = draws.rows_grid(n, d, dtype)
+        assert prev <= r.blocks == max(1, min(r.max_blocks, -(-n // block)))
+        prev = r.blocks
+
+
+@pytest.mark.parametrize("align", ["aligned", "head", "apart"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rebuild_flag_rows_at_the_grid_edges(cuda, dtype, d, align):
+    """The particle rows' drift test beside
+    :func:`test_rebuild_flag_rows_matches_plain`, at the edges of its grid
+    (``rows_edge_counts``: 1, 3, one Philox period's particles and its
+    neighbours, an odd count, one block's and its neighbours, one wave's
+    and past it), on rows at an offset of one value (a data_ptr not
+    16-byte aligned), of one and two values (positions and references at
+    different alignments) or none: with no particle past skin/2 and with only
+    the first row, the last row or the first row of the last Philox period
+    past it, by the cell (tilted in 3D) and by the box lengths (the cell's
+    diagonal, a view at stride d + 1): the flag equals the plain
+    version's, twice alike."""
+    from mdtpu_torch.ops import philox_draws as draws
+    op, orf = {"aligned": (0, 0), "head": (1, 1), "apart": (1, 2)}[align]
+    skin = 0.3
+    cell = torch.as_tensor(_particle_cell("tilted" if d == 3 else "2d",
+                                          12.0), dtype=dtype).to(cuda)
+    cube = torch.eye(d, dtype=dtype, device=cuda) * 12.0
+    boxes = (dict(cell=cell, cell_inv=torch.linalg.inv(cell)),
+             dict(lengths=torch.diagonal(cube)))
+    for n in draws.rows_edge_counts(d, dtype):
+        g = torch.Generator(device=cuda).manual_seed(n)
+        ref = torch.rand((n, d), device=cuda, generator=g,
+                         dtype=torch.float64) * 12.0
+        disp = (torch.rand((n, d), device=cuda, generator=g,
+                           dtype=torch.float64) - 0.5) * 0.1
+        period = draws.rows_grid(n, d, dtype).period
+        last = (n - 1) // period * period
+        for hit in (None, 0, n - 1, last):
+            moved = disp.clone()
+            if hit is not None:
+                moved[hit] = 0.2
+            r = _rows_view(ref.to(dtype), orf)
+            p = _rows_view((ref + moved).to(dtype), op)
+            for box in boxes:
+                plain_box = (box.get("cell"), box.get("cell_inv"),
+                             box.get("lengths"))
+                a = draws.rebuild_flag_rows(p, r, skin, **box)
+                again = draws.rebuild_flag_rows(p, r, skin, **box)
+                b = draws.rebuild_flag_rows_plain(p, r, skin, *plain_box)
+                assert bool(a) == bool(b) == bool(again) == (
+                    hit is not None), (n, hit, list(box))
+
+
+@pytest.mark.parametrize("align", ["aligned", "head"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_brownian_rows_at_the_grid_edges(cuda, dtype, d, align):
+    """The particle rows' Brownian move beside
+    :func:`test_brownian_rows_matches_plain_bit_for_bit`, at the edges of
+    its grid (``rows_edge_counts``), on forces, positions, compensation
+    and images at an offset of one value (data_ptrs not 16-byte aligned)
+    or none, compensated and not, into new
+    tensors and in place: bit for bit the plain version, twice alike."""
+    import types
+
+    from mdtpu_torch.integrate import verlet_update as vu
+    from mdtpu_torch.ops import philox_draws as draws
+    off = 0 if align == "aligned" else 1
+    coeffs = vu.brownian_coefficients(1e-3, 1.3, dtype)
+    w = torch.tensor(-1234.5, dtype=dtype, device=cuda)
+    for n in draws.rows_edge_counts(d, dtype):
+        (f, _, _, x, xc), images, c, ci = _particle_rows(
+            "tilted" if d == 3 else "2d", dtype, cuda, n=n, seed=n)
+
+        def state_of(step):
+            return types.SimpleNamespace(
+                positions=_rows_view(x, off), pos_comp=_rows_view(xc, off),
+                images=_rows_view(images, off), unitcell=c,
+                unitcell_inv=ci, seed=3, step=step, dtype=dtype,
+                device=x.device,
+                virial_accum=torch.tensor(2.5, dtype=dtype, device=cuda),
+                nprom=torch.tensor(4, device=cuda),
+                temperature=torch.tensor(0.0, dtype=dtype, device=cuda))
+
+        fv = _rows_view(f, off)
+        for comp in (True, False):
+            st = state_of(torch.tensor(2 ** 33 + 10, device=cuda))
+            want = vu.brownian_rows_plain(fv, w, st, *coeffs, comp)
+            got = vu.brownian_rows(fv, w, st, *coeffs, comp)
+            again = vu.brownian_rows(fv, w, st, *coeffs, comp)
+            for a, b, r in zip(got[:3] + got[4:], want,
+                               again[:3] + again[4:]):
+                assert torch.equal(a, b) and torch.equal(a, r), (n, comp)
+            st = state_of(torch.tensor(2 ** 33 + 10, device=cuda))
+            vu.brownian_rows(fv, w, st, *coeffs, comp, in_place=True)
+            mine = (st.positions, st.pos_comp, st.images, st.virial_accum,
+                    st.nprom, st.temperature)
+            for i, (a, b) in enumerate(zip(mine, want)):
+                if comp or i != 1:
+                    assert torch.equal(a, b), (n, comp, i)
+            assert int(st.step) == 2 ** 33 + 11
 
 
 def _particle_case(name, device):
