@@ -215,8 +215,9 @@
    * sharded: a one-rank NCCL group formed here (a file store in the work
      directory; a failure to form it fails the run), then the bench's 600
      NVT + 500 NVE steps through ``run_simulation_sharded`` (every sweep a
-     slab launch, NVE on hi/lo), its first thermo rows against the B1
-     path's within 1e-4; then ``fire_minimize_sharded`` on
+     slab launch, NVE on hi/lo; captured, each segment one graph launch a
+     step variant), its first thermo rows against the B1 path's within
+     1e-4; then ``fire_minimize_sharded`` (one graph launch) on
      ``bench_fire.py``'s system, 20 iterations, below the start's energy;
      then BASELINE config 4 at 65,536 (the user potential, every sweep the
      pair list's slab launch): ``fire_minimize_sharded`` from the user
@@ -344,6 +345,20 @@
    in it; the rebuilds), or the run fails. FIRE's kernels must carry the
    FIRE, packing, sharded FIRE and user paths' updates (one launch each
    an iteration; the sharded FIRE's reduction and test split three ways).
+   Sharded graph phase, on a one-rank NCCL group of its own: the bench
+   (600 NVT + 500 NVE) through ``run_simulation_sharded`` from one start
+   on the eager sharded advance (``graph=False``) and the captured one
+   (the default on the card: each segment one graph launch a step
+   variant, the ring's all-reduces captured inside): positions,
+   velocities, images, forces, every thermo row and the rebuild steps bit
+   for bit; each captured step's nodes (the lean step: the drift test,
+   ``rebuild_vote`` and one IF node; the full last step's rebuild inline);
+   one NVT segment of each route profiled in turns (two graph launches a
+   captured segment, no host read inside); the sharded FIRE (200
+   iterations on ``bench_fire.py``'s system) eager against captured, bit
+   for bit with equal rebuild steps, and its census (one graph launch,
+   one read of the result), or the run fails. ``rebuild_vote`` against
+   its plain version in the FIRE phase, beside ``step_below``.
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -413,6 +428,8 @@ OPS_POTENTIAL_PAIR_LEAN = {"LennardJones": 14, "PseudoHS": 22,
                            "OverlapPotential": 12}
 N_FIRE_ITERS = 200
 N_FIRE_DESCENT = 20
+# Iterations of the sharded FIRE held captured against eager.
+N_FIRE_GRAPH = 200
 PACK_DENSITY = 0.8
 # Operations per candidate pair of the probe (csrc/plane_probe.cu): distance
 # 8, compare 1, the block (full: divide, powers, u and f, 11; nodiv: 2),
@@ -2833,12 +2850,12 @@ def resume_path(mt, workdir):
     return rec, failures
 
 
-def nccl_group(workdir):
-    """A one-rank NCCL group over a file store in ``workdir``, its
+def nccl_group(workdir, name="nccl_store"):
+    """A one-rank NCCL group over a file store ``name`` in ``workdir``, its
     communicator formed now (one all-reduce): a failure to form it is the
     run's failure."""
     import torch.distributed as dist
-    store = os.path.join(workdir, "nccl_store")
+    store = os.path.join(workdir, name)
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             world_size=1, rank=0,
                             device_id=torch.device("cuda", 0))
@@ -4607,14 +4624,18 @@ def _recording_advance(graph, owner=None, name="make_slot_advance"):
     return real, make, made
 
 
-def routes_run(graph, fn, census=None):
+def routes_run(graph, fn, census=None, owner=None,
+               name="make_slot_advance"):
     """``fn()`` with every slot advance the driver makes on route
     ``graph`` (False: eager; None: captured); returns ``(fn's result, the
     rebuild steps of its advances, seconds)``. ``census``: a list to which
-    each captured advance's step graphs' nodes are added."""
-    from mdtpu_torch.integrate import slot_step
-    real, make, made = _recording_advance(graph)
-    slot_step.make_slot_advance = make
+    each captured advance's step graphs' nodes are added. ``owner.name``:
+    the maker the driver calls (``slot_step.make_slot_advance`` by
+    default)."""
+    if owner is None:
+        from mdtpu_torch.integrate import slot_step as owner
+    real, make, made = _recording_advance(graph, owner, name)
+    setattr(owner, name, make)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4622,7 +4643,7 @@ def routes_run(graph, fn, census=None):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        slot_step.make_slot_advance = real
+        setattr(owner, name, real)
     if any(a.graph is not bool(graph is None) for a in made):
         raise RuntimeError("an advance took the other route")
     if census is not None:
@@ -4791,6 +4812,182 @@ def graph_paths(mt, workdir):
                             f"nodes, {last['copies']} copies")
         rec["segment_profile"][ens_name] = {"profiles": profiles,
                                             "nodes": census}
+    return rec, failures
+
+
+def sharded_graph_paths(mt, workdir):
+    """On a one-rank NCCL group of its own: the bench (600 NVT + 500 NVE
+    on hi/lo) through ``run_simulation_sharded`` from one start on the
+    eager sharded advance (``graph=False``, one host read a lean step) and
+    the captured one (the default): positions, velocities, images, forces,
+    every thermo row and the rebuild steps bit for bit, steps/s of both;
+    each captured step variant's nodes (the lean step: the drift test, the
+    vote's kernel and one IF node holding the rebuild; the full last step
+    its rebuild inline, no IF node); one NVT segment of the sharded advance
+    profiled on each route in turns (eager, graph, graph, eager) through
+    ``profile_torch_step.measure``: host ms, the device's span by CUDA
+    events, graph launches and host reads a step (captured: two graph
+    launches a segment, none of them read). Then the sharded FIRE
+    (``make_slot_fire(..., ring=)``) on ``bench_fire.py``'s system, 200
+    iterations at tol 0, eager and captured from one start: positions,
+    FIRE's velocities, forces, energy, virial, n_steps and the rebuild
+    steps bit for bit, iterations/s both ways, and the census of a captured
+    minimization (one graph launch, the one read of its result, the WHILE
+    body's nodes, one IF node in it)."""
+    import mdtpu_torch.parallel.driver as driver_mod
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.parallel.driver import build_grown, sharded_engine
+    from mdtpu_torch.parallel.halo_slot import make_sharded_slot_advance
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    from profile_torch_step import measure
+
+    lj = mt.LennardJones(r_cut=2.5)
+    bench = mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
+                          potential=lj)
+    failures, rec = [], {}
+
+    def legs(label):
+        def run():
+            out = os.path.join(workdir, label)
+            mid = mt.run_simulation_sharded(
+                lattice_start(), bench, mt.NVT(1.0, 0.4), NVT_STEPS,
+                THERMO_EVERY, os.path.join(out, "nvt"),
+                traj_frequency=TRAJ_EVERY)
+            end = mt.run_simulation_sharded(
+                mid, bench, mt.NVE(), NVE_STEPS, THERMO_EVERY,
+                os.path.join(out, "nve"), traj_frequency=TRAJ_EVERY)
+            return end, [os.path.join(out, d) for d in ("nvt", "nve")]
+        return run
+
+    dist = nccl_group(workdir, "nccl_store_graph")
+    try:
+        runs, census = {}, []
+        for route, graph in (("eager", False), ("graph", None)):
+            (end, dirs), rebuilds, seconds = routes_run(
+                graph, legs(f"sharded_graph_{route}"),
+                census if graph is None else None, owner=driver_mod,
+                name="make_sharded_slot_advance")
+            thermo = []
+            for d in dirs:
+                with open(os.path.join(d, "thermo.txt")) as f:
+                    thermo.append(f.read())
+            runs[route] = (end, thermo, rebuilds,
+                           (NVT_STEPS + NVE_STEPS) / seconds)
+        (e_end, e_rows, e_reb, e_rate), (g_end, g_rows, g_reb, g_rate) = (
+            runs["eager"], runs["graph"])
+        same = {f: torch.equal(getattr(e_end, f), getattr(g_end, f))
+                for f in ("positions", "velocities", "images", "forces")}
+        if not (all(same.values()) and e_rows == g_rows and e_reb == g_reb
+                and e_end.step == g_end.step == NVT_STEPS + NVE_STEPS):
+            failures.append(f"sharded graph: the routes differ: {same}, "
+                            f"rows equal {e_rows == g_rows}, rebuilds "
+                            f"{len(e_reb)} vs {len(g_reb)}")
+        if len(e_reb) <= 4:
+            failures.append(f"sharded graph: rebuilds {e_reb}")
+        keys = ("nodes", "kernels", "copies", "memsets", "conditionals",
+                "rebuild_flag", "rebuild_vote", "velocity_finish",
+                "verlet_update")
+        nodes = [{v: {k: n[k] for k in keys} for v, n in c.items()}
+                 for c in census]
+        # The lean step tests, votes and rebuilds in an IF node; the full
+        # last step rebuilds without a test. (Its one memset is torch's,
+        # for the kinetic energy's sum before the ring's all-reduce.)
+        if not census or any(
+                (c["lean"]["rebuild_flag"], c["lean"]["rebuild_vote"],
+                 c["lean"]["conditionals"], c["last"]["rebuild_flag"],
+                 c["last"]["rebuild_vote"], c["last"]["conditionals"])
+                != (1, 1, 1, 0, 0, 0) for c in nodes):
+            failures.append(f"sharded graph: step nodes {nodes}")
+        rec["bench"] = {"steps": NVT_STEPS + NVE_STEPS,
+                        "rebuilds": len(g_reb), "steps_per_s_eager": e_rate,
+                        "steps_per_s_graph": g_rate, "step_nodes": nodes}
+        rec["census"] = nodes[0] if nodes else {}
+        log(json.dumps({"sharded_graph_path": "bench", **rec["bench"]}))
+
+        # One NVT segment on each route, in turns, from the bench's start
+        # in the sharded layout.
+        start = lattice_start()
+        engine = sharded_engine(start, lj, None, None, None)
+        sh, engine = build_grown(start, engine)
+        profiles = {"eager": [], "graph": []}
+        for route in ("eager", "graph", "graph", "eager"):
+            advance = make_sharded_slot_advance(
+                bench, mt.NVT(1.0, 0.4), engine,
+                graph=False if route == "eager" else None)
+            _, metrics = measure(advance, sh,
+                                 looped=lambda: bool(advance.graph))
+            metrics.pop("top_device_kernels")
+            profiles[route].append(metrics)
+        log(json.dumps({"sharded_segment_profile": profiles}))
+        if any(m["host_syncs_per_step"] or round(
+                m["graph_launches_per_step"] * m["profiled_steps"]) != 2
+               for m in profiles["graph"]):
+            failures.append(f"sharded graph: host reads or graph launches "
+                            f"inside a captured segment "
+                            f"{profiles['graph']}")
+        rec["segment_profile"] = profiles
+
+        # The sharded FIRE, eager and captured, from one start.
+        fstart = lattice_fluid_state(N_BENCH, 0.8, 1.0, dtype=torch.float32,
+                                     cutoff=2.5, jitter=0.05, device="cuda")
+        fengine = sharded_engine(fstart, lj, None, None, None)
+        fsh, fengine = build_grown(fstart, fengine)
+        fire_runs = {}
+        for route, graph in (("eager", False), ("graph", None)):
+            run = fire_mod.make_slot_fire(
+                fengine, ring=fengine.ring, max_steps=N_FIRE_GRAPH, tol=0.0,
+                graph=graph, cached=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _, conv, n, ovf = run(fsh)
+            torch.cuda.synchronize()
+            fire_runs[route] = (st, n, ovf, run.fire.rebuild_steps(),
+                                time.perf_counter() - t0, run)
+        (e_st, e_n, e_ovf, e_rb, e_s, _), (g_st, g_n, g_ovf, g_rb, g_s,
+                                           g_run) = (fire_runs["eager"],
+                                                     fire_runs["graph"])
+        same = {f: torch.equal(getattr(e_st, f), getattr(g_st, f))
+                for f in ("positions", "velocities", "forces", "energy",
+                          "virial")}
+        if not (all(same.values()) and e_n == g_n == N_FIRE_GRAPH
+                and e_rb == g_rb and len(g_rb) > 1 and not g_ovf
+                and g_run.fire.captured is not None):
+            failures.append(f"sharded fire graph: the routes differ: "
+                            f"{same}, n {e_n} vs {g_n}, rebuilds "
+                            f"{len(e_rb)} vs {len(g_rb)}, overflow {g_ovf}")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            g_run(fsh)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+
+        def count(*names):
+            return sum(e.count for e in avgs if e.key in names)
+
+        fire = g_run.fire
+        fire_census = {
+            "graph_launches": count("cudaGraphLaunch"),
+            "host_reads": count("cudaStreamSynchronize",
+                                "cudaEventSynchronize"),
+            "pass_nodes": {k: fire.census["pass"][k] for k in (
+                "nodes", "kernels", "copies", "memsets", "conditionals",
+                *FIRE_EDGES)},
+            "graph_nodes": {k: fire.census["graph"][k] for k in (
+                "nodes", "kernels", "copies", "memsets", "conditionals")},
+            "rebuilds": len(fire.rebuild_steps())}
+        if (fire_census["graph_launches"] != 1
+                or fire_census["host_reads"] != 1
+                or fire_census["pass_nodes"]["conditionals"] != 1):
+            failures.append(f"sharded fire graph: census {fire_census}")
+        rec["fire"] = {"iterations": g_n, "rebuilds": len(g_rb),
+                       "rebuild_steps": g_rb[:64],
+                       "iterations_per_s_graph": g_n / g_s,
+                       "iterations_per_s_eager": e_n / e_s,
+                       "census": fire_census}
+        log(json.dumps({"sharded_fire_graph_path": rec["fire"]}))
+    finally:
+        dist.destroy_process_group()
     return rec, failures
 
 
@@ -5166,6 +5363,31 @@ def fire_check(mt, probe_lib=None):
         "covers": "the while_loop's cond of mdtpu/integrate/slot_step.py:"
                   "642-690 (XLA)"}
     log(json.dumps({"step_below": results["step_below"]}))
+    # A sharded segment's rebuild decision from the ring's vote, against
+    # its plain version: each vote, the counter at the segment's first step
+    # or past it.
+    votes = torch.zeros((), dtype=torch.int32, device="cuda")
+    first = torch.tensor(599, device="cuda")
+    for vote, at in ((0, 599), (0, 600), (1, 600), (3, 599)):
+        votes.fill_(vote)
+        counter.fill_(at)
+        draws.rebuild_vote(votes, counter, first, flag)
+        if bool(flag) != bool(draws.rebuild_vote_plain(votes, counter,
+                                                       first)):
+            failures.append(f"rebuild_vote at vote {vote}, step {at}")
+    results["rebuild_vote"] = {
+        "max_abs_err": 0.0, "ms": many_ms(
+            lambda: draws.rebuild_vote(votes, counter, first, flag)),
+        "plain_ms": many_ms(lambda: flag.copy_(draws.rebuild_vote_plain(
+            votes, counter, first))),
+        "plain_timing": "a graph of the composition's calls, as ms",
+        # The vote (4 bytes) and two counters read, the flag written.
+        "bound_ms": 21 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_meetable_ms": floor, "launch_floor_ms": floor,
+        "library_ms": None, "library_call": "none, no single PyTorch call",
+        "covers": "the psum'd rebin decision of mdtpu/integrate/"
+                  "slot_step.py:648-677 under shard_map (XLA)"}
+    log(json.dumps({"rebuild_vote": results["rebuild_vote"]}))
     return results, failures
 
 
@@ -5403,6 +5625,7 @@ def launch_counts():
         "brownian_rows": vu.brownian_rows.launches,
         "rebuild_flag_rows": draws.rebuild_flag_rows.launches,
         "step_below": draws.step_below.launches,
+        "rebuild_vote": draws.rebuild_vote.launches,
         "fire_reduce": fu.fire_reduce.launches,
         "fire_move": fu.fire_move.launches,
         "fire_test": fu.fire_test.launches}
@@ -5442,7 +5665,8 @@ def own_launches(n):
         "kick_drift_wrap": n["kick_drift_wrap"],
         "brownian_rows": n["brownian_rows"],
         "rebuild_flag_rows": n["rebuild_flag_rows"],
-        "step_below": n["step_below"], "fire_reduce": n["fire_reduce"],
+        "step_below": n["step_below"], "rebuild_vote": n["rebuild_vote"],
+        "fire_reduce": n["fire_reduce"],
         "fire_move": n["fire_move"], "fire_test": n["fire_test"]}
 
 
@@ -5828,6 +6052,11 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
         fire_rec, fire_graph_failures = fire_graph_paths(mt)
         failures += fire_graph_failures
         log(f"fire graph phase: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        sharded_rec, sharded_graph_failures = sharded_graph_paths(mt,
+                                                                  workdir)
+        failures += sharded_graph_failures
+        log(f"sharded graph phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -6173,6 +6402,17 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
         {k: v for k, v in rec.items() if k not in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}))
+    # The sharded segment's rebuild decision (the psum'd flag's rebin,
+    # XLA): its launches on the sharded path (one a lean step).
+    rec = fire_results["rebuild_vote"]
+    kernels["kernels"].append(entry(
+        "rebuild_vote", DRAWS_SOURCE, "mdtpu/integrate/slot_step.py:652",
+        by_path["sharded"]["rebuild_vote"], rec,
+        {**{k: v for k, v in rec.items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+         "nodes_in_captured_sharded_step": sharded_rec["census"]["lean"][
+             "rebuild_vote"]}))
     log(json.dumps({"particle_segment_profile": {
         k: {route: {m: p[m] for m in (
             "ms_per_step_host_clock", "device_busy_ms_per_step",

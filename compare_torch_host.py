@@ -35,7 +35,15 @@ captured slot step (NVT and NVE), ``chip_smoke.py``'s FIRE path (20 then
 packing path (65,536 at rho 0.8: seconds and FIRE's iterations), each
 CUDA graph replay of those two paths timed on the device by CUDA events
 around it (the same instrument in both trees: ``CUDAGraph.replay``
-wrapped in the worker). The host's clock moves
+wrapped in the worker); ``--only sharded``: the sharded step (``--engine
+sharded`` on a one-rank NCCL group; captured and, ``--eager``, launched
+step by step; a tree whose sharded advance is a host loop steps that loop
+both times), then the ``b1`` path (whose first thermo rows the sharded
+path is held to), ``chip_smoke.py``'s sharded path (600 NVT + 500 NVE
+through ``run_simulation_sharded``, its steps/s) and its sharded FIRE
+path (20 iterations through ``fire_minimize_sharded``, its iterations/s
+and each replay's span by events), both on a one-rank NCCL group formed
+in the worker (~5 min). The host's clock moves
 with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
@@ -87,7 +95,9 @@ ENGINES = {"cellgrid": ("--engine", "cellgrid"),
            "slot_brownian_eager": ("--engine", "slot", "--brownian",
                                    "--eager"),
            "slot_brownian_plain_launch": ("--engine", "slot", "--brownian",
-                                          "--plain-launch")}
+                                          "--plain-launch"),
+           "sharded": ("--engine", "sharded"),
+           "sharded_eager": ("--engine", "sharded", "--eager")}
 
 
 ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
@@ -95,10 +105,15 @@ ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
         "fire": (("slot",), ("fire", "pack")),
         "particle": (("cellgrid", "cellgrid_eager", "plane", "plane_eager",
                       "neighbor", "neighbor_eager", "plane_brownian",
-                      "plane_brownian_eager"), ("b2", "nl", "brownian"))}
-PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot", "fire", "pack")
+                      "plane_brownian_eager"), ("b2", "nl", "brownian")),
+        "sharded": (("sharded", "sharded_eager"),
+                    ("b1", "sharded", "sharded_fire"))}
+PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot", "fire", "pack",
+         "sharded", "sharded_fire")
 # The paths whose CUDA graph replays are timed by events.
-REPLAY_TIMED = ("fire", "pack")
+REPLAY_TIMED = ("fire", "pack", "sharded_fire")
+# The paths that run on a one-rank NCCL group.
+SHARDED = ("sharded", "sharded_fire")
 
 
 @contextlib.contextmanager
@@ -128,15 +143,16 @@ def replay_spans():
 
 
 def paths_worker(tree, only=PATHS):
-    """Run the tree's ``b1``, ``b2`` and Brownian paths (those of
-    ``only``); print their steps/s."""
+    """Run the tree's paths of ``only`` (the sharded ones after ``b1``, on
+    a one-rank NCCL group); print their steps/s or iterations/s."""
     sys.path.insert(0, tree)
     import chip_smoke
     import mdtpu_torch as mt
     from mdtpu_torch.ops.experimental import PlaneEngine
 
-    out, failures = {}, []
-    with tempfile.TemporaryDirectory() as workdir:
+    out, failures, recs, group = {}, [], {}, []
+    with tempfile.TemporaryDirectory() as workdir, \
+            contextlib.ExitStack() as stack:
         for label, run in (
                 ("b1", lambda: chip_smoke.md_path(
                     mt, workdir, "b1", lambda st, pot: None, True)),
@@ -154,18 +170,25 @@ def paths_worker(tree, only=PATHS):
                 ("brownian_slot", lambda: chip_smoke.brownian_path(
                     mt, workdir, slots=True)),
                 ("fire", lambda: chip_smoke.fire_path(mt)),
-                ("pack", lambda: chip_smoke.pack_path(mt, workdir))):
+                ("pack", lambda: chip_smoke.pack_path(mt, workdir)),
+                ("sharded", lambda: chip_smoke.sharded_path(
+                    mt, workdir, recs["b1"]["thermo_nvt"])),
+                ("sharded_fire", lambda: chip_smoke.sharded_fire_path(mt))):
             if label not in only:
                 continue
+            if label in SHARDED and not group:
+                group.append(chip_smoke.nccl_group(workdir))
+                stack.callback(group[0].destroy_process_group)
             with (replay_spans() if label in REPLAY_TIMED
                   else contextlib.nullcontext([])) as spans:
                 rec, more = run()
+            recs[label] = rec
             failures += more
-            if label == "fire":
-                out["fire_iterations_per_s"] = rec["iterations_per_s"]
+            if label in ("fire", "sharded_fire"):
+                out[f"{label}_iterations_per_s"] = rec["iterations_per_s"]
                 # The timed run is the last replay.
-                out["fire_replay_ms"] = spans
-                out["fire_replay_ms_per_iteration"] = (
+                out[f"{label}_replay_ms"] = spans
+                out[f"{label}_replay_ms_per_iteration"] = (
                     spans[-1] / rec["iterations"] if spans else None)
             elif label == "pack":
                 out["pack_seconds"] = rec["seconds"]
@@ -186,7 +209,8 @@ def step_record(prof, launch=None):
     kernels launched (``launch``: the run's, for a segment's profile), and
     where the step was captured, the nodes and programmatic edges of its
     lean step's graph."""
-    rec = {k: prof[k] for k in PROFILE_KEYS + GAP_KEYS if k in prof}
+    rec = {k: prof[k] for k in PROFILE_KEYS + GAP_KEYS + ("sharded_parts",)
+           if k in prof}
     rec["launch"] = launch or prof.get("launch", "plain")
     for variant, nodes in (prof.get("step_graph_nodes") or {}).items():
         rec[f"{variant}_step_nodes"] = nodes["nodes"]
@@ -214,7 +238,9 @@ def main():
                         "slot paths alone; particle: the particle-order "
                         "steps and the b2, list and Brownian paths alone; "
                         "fire: the captured slot step, FIRE's iterations/s "
-                        "and the packing's seconds")
+                        "and the packing's seconds; sharded: the sharded "
+                        "step, the b1 and sharded paths and the sharded "
+                        "FIRE")
     args = parser.parse_args()
     if args.paths_worker:
         return paths_worker(args.paths_worker, args.paths.split(","))

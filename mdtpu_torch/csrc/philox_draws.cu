@@ -150,7 +150,13 @@
 //     CUDA 12.4+). step_below: a captured segment's loop test, the step
 //     counter below the segment's end, setting the WHILE node's handle
 //     (one thread; it replaces the while_loop's cond of
-//     mdtpu/integrate/slot_step.py:642-690, XLA).
+//     mdtpu/integrate/slot_step.py:642-690, XLA). rebuild_vote: a sharded
+//     segment's rebuild decision (the outer loop's rebin of
+//     mdtpu/integrate/slot_step.py:648-677 under shard_map, where the
+//     inner while_loop exits on a psum'd drift flag), from the ring's
+//     all-reduced vote of the ranks' drift flags or the step counter at the
+//     segment's first step, into a flag byte and an IF node's handle (one
+//     thread: three loads and a store; bound by the launch, as step_below).
 //     capture_census counts the nodes of the graph being captured, by type
 //     and for this file's kernels, and its programmatic edges.
 //
@@ -779,6 +785,19 @@ __global__ void step_below_kernel(const int64_t* counter, const int64_t* end,
   if (set_handle) cudaGraphSetConditional(handle, below ? 1u : 0u);
 }
 
+// A sharded segment's rebuild decision: any rank's drift flag (votes, the
+// ring's all-reduced maximum of the ranks' flags; the same on every rank)
+// or the segment's first step (the counter at first), into the flag byte
+// and, inside a capture, the IF node's handle (one thread).
+__global__ void rebuild_vote_kernel(const int* votes, const int64_t* counter,
+                                    const int64_t* first, bool* flag,
+                                    cudaGraphConditionalHandle handle,
+                                    int set_handle) {
+  const bool go = *votes != 0 || *counter == *first;
+  *flag = go;
+  if (set_handle) cudaGraphSetConditional(handle, go ? 1u : 0u);
+}
+
 int grid_for(int64_t items, int cap = kMaxBlocks) {
   const int64_t blocks = (items + kThreads - 1) / kThreads;
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
@@ -1246,6 +1265,21 @@ int mdtpu_step_below(const int64_t* counter, const int64_t* end, bool* flag,
   step_below_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       counter, end, flag, static_cast<cudaGraphConditionalHandle>(handle),
       set_handle);
+  return (int)cudaGetLastError();
+}
+
+// votes: one int on the device (the ring's maximum of the ranks' drift
+// flags); counter, first: one int64 each; flag: one bool, set where votes
+// is not 0 or counter equals first, and the handle from it where
+// set_handle is 1.
+int mdtpu_rebuild_vote(const int* votes, const int64_t* counter,
+                       const int64_t* first, bool* flag,
+                       unsigned long long handle, int set_handle,
+                       void* stream) {
+  if (!votes || !counter || !first || !flag) return kErrArgs;
+  rebuild_vote_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      votes, counter, first, flag,
+      static_cast<cudaGraphConditionalHandle>(handle), set_handle);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -217,8 +218,19 @@ def capture(device, warm, program):
     torch.cuda.current_stream(device).wait_stream(side)
     graph, pools, counts = torch.cuda.CUDAGraph(), [], LoopCounts()
     start = counters.snapshot()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        program(pools, counts)
+    # A collection during the capture could free an earlier graph or pool
+    # kept alive by a reference cycle, which the runtime refuses while a
+    # stream captures: collect first, and hold the collector off until the
+    # capture ends.
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            program(pools, counts)
+    finally:
+        if collecting:
+            gc.enable()
     counts.close(counters.difference(counters.snapshot(), start))
     counters.restore(before)
     return graph, pools, counts

@@ -354,13 +354,6 @@ def _engine_rebin(state, engine):
     return fn(state) if fn is not None else _rebin(state, engine)
 
 
-def _engine_needs_rebin(state, engine, ring=None):
-    """:func:`slot_needs_rebin`, on a shard ring true where any rank's is:
-    every rank then takes the same branch."""
-    local = slot_needs_rebin(state, engine)
-    return local if ring is None else ring.any(local)
-
-
 def make_slot_step(params: Parameters, ensemble, engine: CellGridEngine,
                    compensated: bool = True, observables: bool = True,
                    hilo: bool = False, force_dtype=None, ring=None,
@@ -508,9 +501,9 @@ class SlotAdvance(DeviceAdvance):
     step's sweep and update, write straight into them, ``make_slot_step(...,
     in_place=True)``, so a step copies nothing): the drift test
     (:func:`philox_draws.rebuild_flag`) and a rebuild where it is set
-    (:func:`device_if` around :func:`_rebin`), then the step (NVT's target
-    from the device table, read at the counter by the velocity finish's
-    kernel).
+    (:func:`device_if` around :func:`_engine_rebin`), then the step (NVT's
+    target from the device table, read at the counter by the velocity
+    finish's kernel).
 
     ``graph``: on the card each step variant (lean, and the segment's full
     last step) is captured once into a CUDA graph; ``census[name]`` holds
@@ -527,7 +520,7 @@ class SlotAdvance(DeviceAdvance):
                                   self.engine.skin, out=flag, handle=handle)
 
     def _rebuilt(self, b):
-        return _rebin(b, self.engine)
+        return _engine_rebin(b, self.engine)
 
     def _step(self, b, step_fn, refresh):
         refresh()
@@ -549,6 +542,50 @@ class SlotAdvance(DeviceAdvance):
         return clone(b, base + k)
 
 
+class ShardedSlotAdvance(SlotAdvance):
+    """:class:`SlotAdvance` over a shard ring (the engine a
+    :class:`mdtpu_torch.parallel.HaloSlotEngine`, whose rebuild migrates
+    rows between ranks), as the JAX package runs ``make_slot_advance``
+    under one ``shard_map``: a rebuild (with its migration) at the
+    segment's start, after every lean step that any rank flagged, and
+    before the segment's full last step.
+
+    Each lean step's test is the drift test's flag, the ring's all-reduced
+    maximum of it (``ShardRing.max_``) and :func:`philox_draws.
+    rebuild_vote`, which sets the rebuild's flag (and under capture the IF
+    node's handle) from the vote or the segment's first step; the full last
+    step rebuilds without a test. Only the ring's values decide a branch,
+    so every rank replays the same collectives in the same order. On the
+    card each segment variant is one graph launch, the ring's all-reduces
+    captured in the WHILE node's body; eagerly one host read a lean
+    step."""
+
+    def __init__(self, step, last_step, engine, ensemble, lean, graph):
+        super().__init__(step, last_step, engine, ensemble, lean, graph)
+        self.ring = engine.ring
+        self.votes = None
+
+    def _load(self, state):
+        super()._load(state)
+        if self.votes is None or self.votes.device != state.device:
+            self.votes = torch.zeros((), dtype=torch.int32,
+                                     device=state.device)
+
+    def _test(self, b, flag, handle):
+        philox_draws.rebuild_flag(b.positions, b.nbrs.ref_positions,
+                                  self.engine.skin, out=flag)
+        self.votes.copy_(flag)
+        self.ring.max_(self.votes)
+        philox_draws.rebuild_vote(self.votes, b.step, self.base, flag,
+                                  handle)
+
+    def _one(self, step_fn):
+        if self.lean and step_fn is self.last_fn:
+            self._step(self.bufs, step_fn, self._rebuild)
+        else:
+            super()._one(step_fn)
+
+
 def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
                       compensated: bool = True, lean: bool = True,
                       hilo: bool = False, force_dtype=None, ring=None,
@@ -564,51 +601,25 @@ def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
     On one device this is a :class:`SlotAdvance`: the step counter, NVT's
     target temperature, every draw and the rebuild decision on the device.
     ``graph``: None captures the steps into CUDA graphs on the card (one
-    graph launch a step, no host read inside a segment) and runs them
-    eagerly on the CPU and for a potential without a kernel functor (the
-    pair list's route: a user's ``evaluate_r2`` may do host work); False
-    runs eagerly on the card too (the flag read on the host once a step);
-    True asks for the graphs.
+    graph launch a segment variant, no host read inside a segment) and runs
+    them eagerly on the CPU and for a potential without a kernel functor
+    (the pair list's route: a user's ``evaluate_r2`` may do host work);
+    False runs eagerly on the card too (the flag read on the host once a
+    step); True asks for the graphs.
 
     An engine whose rebuild moves rows between ranks
     (``rebin_unconditional``, the sharded
     :class:`mdtpu_torch.parallel.HaloSlotEngine`) takes the JAX package's
-    schedule for it, eagerly with a host step: a rebuild at the start of
-    the segment, after every step that any rank flagged, and before the
-    segment's last step, so the slot order and sums follow the reference's.
-    ``ring``: the shard ring (:func:`make_slot_step`); every flag read on
-    the host is then the ring's."""
-    # The one-device advance's steps write into its buffers; the sharded
-    # schedule's states alias their positions and references after a
-    # rebin, so its steps return new tensors.
-    in_place = not getattr(engine, "rebin_unconditional", False)
+    schedule for it (:class:`ShardedSlotAdvance`), so the slot order and
+    sums follow the reference's. ``ring``: the shard ring
+    (:func:`make_slot_step`)."""
     step = make_slot_step(params, ensemble, engine, compensated=compensated,
                           observables=not lean, hilo=hilo,
-                          force_dtype=force_dtype, ring=ring,
-                          in_place=in_place)
+                          force_dtype=force_dtype, ring=ring, in_place=True)
     last_step = make_slot_step(params, ensemble, engine,
                                compensated=compensated, hilo=hilo,
                                force_dtype=force_dtype, ring=ring,
-                               in_place=in_place)
-
-    if in_place:
-        return SlotAdvance(step, last_step, engine, ensemble, lean, graph)
-
-    def needs(state):
-        return bool(_engine_needs_rebin(state, engine, ring))
-
-    def advance_sharded(state: SimulationState, k: int):
-        n_lean = k - 1 if lean else k
-        i = 0
-        while i < n_lean:
-            state = _engine_rebin(state, engine)
-            while True:
-                state = step(state)
-                i += 1
-                if i >= n_lean or needs(state):
-                    break
-        if lean and k > 0:
-            state = last_step(_engine_rebin(state, engine))
-        return state
-
-    return advance_sharded
+                               in_place=True)
+    sharded = getattr(engine, "rebin_unconditional", False)
+    return (ShardedSlotAdvance if sharded else SlotAdvance)(
+        step, last_step, engine, ensemble, lean, graph)

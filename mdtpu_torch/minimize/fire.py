@@ -25,8 +25,9 @@ engine serves one run, runs eagerly and is not kept. On the CPU, with
 and for a potential without a kernel functor (a user's evaluation may do
 host work) the same code runs eagerly, reading the loop's flags on the host
 once an iteration (particle order: once more where the engine tests for a
-rebuild). The sharded FIRE runs the same kernels eagerly, split where the
-JAX package has ``pmax``/``psum``, with the ring's all-reduces between.
+rebuild). The sharded FIRE is the same program over a shard ring, its
+reductions and test split where the JAX package has ``pmax``/``psum``,
+the ring's all-reduces between, captured like the rest on the card.
 """
 
 from __future__ import annotations
@@ -318,7 +319,22 @@ class SlotFire(DeviceFire):
     where the drift test fired and the loop goes on; an overflow after a
     rebin ends the loop before any further step (the kernels leave the
     state alone and the test counts no step). Inside the loop the sweep is
-    lean; one full sweep at exit refreshes energy and virial."""
+    lean; one full sweep at exit refreshes energy and virial; a sweep's
+    overflow (the pair list's) joins the state's flag.
+
+    ``ring``: the shard ring of a sharded state (the engine a
+    :class:`mdtpu_torch.parallel.HaloSlotEngine`), as the JAX package runs
+    ``make_slot_fire`` under one ``shard_map``: the reduction and the test
+    each run as their maxima, the ring's maximum, their sums, the ring's
+    sum and their tail (:data:`fire_update.MAXIMA`, ``SUMS``, ``TAIL``).
+    The state's overflow flag rides in both maxima's all-reduces and the
+    drift test's flag in the test's, so the kernels, the loop and the
+    rebuild's IF node read the ring's flags and every rank replays the
+    same collectives: two all-reduces a reduction, two a test."""
+
+    def __init__(self, engine, hyper, graph, ring=None):
+        super().__init__(engine, hyper, graph)
+        self.ring = ring
 
     def _eager_only(self, state):
         return self.engine.uses_pair_list
@@ -327,10 +343,39 @@ class SlotFire(DeviceFire):
         return slots._engine_rebin(b, self.engine)
 
     def _sweep(self, b, observables):
-        slots._sweep_in(self.engine, b.positions, b.diameters, b.unitcell,
-                        b.unitcell_inv, b.nbrs, observables, out=b.forces,
-                        scalars_out=(b.energy, b.virial) if observables
-                        else None)
+        nbrs = slots._sweep_in(
+            self.engine, b.positions, b.diameters, b.unitcell,
+            b.unitcell_inv, b.nbrs, observables, out=b.forces,
+            scalars_out=(b.energy, b.virial) if observables else None)[3]
+        if nbrs.overflow is not b.nbrs.overflow:
+            b.nbrs.overflow.copy_(nbrs.overflow)
+
+    def _reduce(self, v, b, x, overflow):
+        if self.ring is None:
+            return super()._reduce(v, b, x, overflow)
+        red = x.red[:fu.RED]
+        args = (v, b.forces, x.scal, x.ints, red, x.work, self.hyper)
+        fu.fire_reduce(*args, mode=fu.MAXIMA)
+        # The overflow flag rides in the sums' first value, which the sums
+        # then write.
+        _vote(self.ring, red, {fu.SUM_AB: overflow})
+        fu.fire_reduce(*args, overflow, mode=fu.SUMS)
+        self.ring.sum_(red[fu.SUM_AB:])
+        fu.fire_reduce(*args, overflow, mode=fu.TAIL)
+
+    def _test(self, b, x, handle, entry, overflow=None, drift=None,
+              then=None):
+        if self.ring is None:
+            return super()._test(b, x, handle, entry, overflow, drift, then)
+        red = x.red[fu.RED:]
+        args = (b.forces, x.scal, x.ints, red, x.work, x.sqrt_ndof, x.flags)
+        fu.fire_test(*args, mode=fu.MAXIMA)
+        # The flags ride in two values the test does not use.
+        _vote(self.ring, red, {fu.SUM_AB: overflow, fu.MAX_A: drift})
+        fu.fire_test(*args, overflow=overflow, mode=fu.SUMS)
+        self.ring.sum_(red[fu.SUM_BB:])
+        fu.fire_test(*args, overflow=overflow, drift=drift, entry=entry,
+                     mode=fu.TAIL, handle=handle, handle_then=then)
 
     def _program(self, b, x, warm=False):
         ovf = b.nbrs.overflow
@@ -373,6 +418,19 @@ class SlotFire(DeviceFire):
             device_while(x.flags[0], lambda handle: tested(handle, True),
                          body, x.pools)
         self._sweep(b, True)
+
+
+def _vote(ring, red, flags):
+    """The ring's maximum of ``red[:3]``, with each 0-d bool flag of
+    ``flags`` (by its place in ``red``; None: none there) put in first and
+    set after from the ring's value: true where any rank's is."""
+    for i, flag in flags.items():
+        if flag is not None:
+            red[i].copy_(flag)
+    ring.max_(red[:fu.SUM_AB + 1])
+    for i, flag in flags.items():
+        if flag is not None:
+            torch.gt(red[i], 0, out=flag)
 
 
 class RowFire(DeviceFire):
@@ -449,24 +507,28 @@ class RowFire(DeviceFire):
                          x.pools)
 
 
-def _device_fire(kind, engine, hyper, graph, cached):
-    """The :class:`DeviceFire` of ``kind`` (:class:`SlotFire` or
-    :class:`RowFire`) for ``engine`` and ``hyper``: where ``cached``, the
-    one kept for ``engine`` (by value, as the JAX package caches its
-    program; by identity where the engine does not hash), ``hyper`` and
-    ``graph``, made on first use (at most :data:`CACHE_SIZE` are kept);
-    else one of its own."""
-    make = SlotFire if kind == "slots" else RowFire
+def _device_fire(kind, engine, hyper, graph, cached, ring=None):
+    """The :class:`DeviceFire` of ``kind`` (:class:`SlotFire`, over
+    ``ring`` where given, or :class:`RowFire`) for ``engine`` and
+    ``hyper``: where ``cached``, the one kept for ``engine`` (by value, as
+    the JAX package caches its program; by identity where the engine does
+    not hash), ``hyper``, ``graph`` and the ring (by identity), made on
+    first use (at most :data:`CACHE_SIZE` are kept); else one of its
+    own."""
+    def make():
+        return (SlotFire(engine, hyper, graph, ring) if kind == "slots"
+                else RowFire(engine, hyper, graph))
+
     if not cached:
-        return make(engine, hyper, graph)
+        return make()
     try:
-        key = (kind, engine, hyper, graph)
+        key = (kind, engine, hyper, graph, ring)
         fire = _CACHE.get(key)
     except (TypeError, RuntimeError):
-        key = (kind, id(engine), hyper, graph)
+        key = (kind, id(engine), hyper, graph, ring)
         fire = _CACHE.get(key)
     if fire is None:
-        fire = _CACHE[key] = make(engine, hyper, graph)
+        fire = _CACHE[key] = make()
     _CACHE.move_to_end(key)
     while len(_CACHE) > CACHE_SIZE:
         _CACHE.popitem(last=False)
@@ -525,84 +587,17 @@ def make_slot_fire(engine, *, max_steps=10000, tol=1e-6, dt_initial=0.01,
 
     ``ring``: the shard ring of a sharded state (the engine a
     :class:`mdtpu_torch.parallel.HaloSlotEngine`, whose rebuild migrates
-    rows): :func:`_sharded_slot_fire`, eager."""
+    rows), the :class:`SlotFire` over it: on the card one graph launch
+    too, the ring's all-reduces inside."""
     hyper = fu.FireHyper(dt_initial=dt_initial, dt_max=dt_max, alpha0=alpha0,
                          f_inc=f_inc, f_dec=f_dec, n_min=n_min, dmax=dmax)
-    if ring is not None:
-        return _sharded_slot_fire(engine, ring, hyper, max_steps, tol)
-    fire = _device_fire("slots", engine, hyper, graph, cached)
+    fire = _device_fire("slots", engine, hyper, graph, cached, ring)
 
     def run(state):
         b, f_rms, converged, n_steps, ovf, _ = fire.run(state, max_steps, tol)
         return clone(b, state.step), f_rms, converged, n_steps, ovf
 
     run.fire = fire
-    return run
-
-
-def _sharded_slot_fire(engine, ring, hyper: fu.FireHyper, max_steps, tol):
-    """The slot FIRE over a shard ring, eagerly with one host read an
-    iteration (the JAX package's nesting, every flag the ring's): the
-    kernels of :mod:`fire_update` split where the JAX package has ``pmax``
-    and ``psum``, the ring's all-reduces of ``red`` between the launches."""
-
-    def reduce_over_ring(run, red):
-        run(fu.MAXIMA)
-        red[:2].copy_(ring.max(red[:2]))
-        run(fu.SUMS)
-        red[2:fu.RED].copy_(ring.sum(red[2:fu.RED]))
-        run(fu.TAIL)
-
-    def flags(*values):
-        local = torch.stack([torch.as_tensor(v, device=values[0].device)
-                             for v in values])
-        return ring.any(local).tolist()
-
-    def run(state):
-        sqrt_ndof = float(state.nf) ** 0.5
-        scal, ints, red, work, flag = fu.buffers(
-            state.dtype, state.device, state.forces.numel())
-        red_u, red_t = red[:fu.RED], red[fu.RED:]
-        scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = (
-            hyper.dt_initial, hyper.alpha0, tol)
-        ints[fu.MAX_STEPS] = max_steps
-
-        def test(forces, entry):
-            reduce_over_ring(lambda mode: fu.fire_test(
-                forces, scal, ints, red_t, work, sqrt_ndof, flag,
-                entry=entry, mode=mode), red_t)
-
-        state = state.replace(velocities=torch.zeros_like(state.velocities),
-                              vel_comp=torch.zeros_like(state.vel_comp))
-        state = slots.slot_forces(state, engine)
-        test(state.forces, True)
-        step = 0
-        going, ovf = flags(flag[0], state.nbrs.overflow)
-        while step < max_steps and going and not ovf:
-            state = slots._engine_rebin(state, engine)
-            ovf, = flags(state.nbrs.overflow)
-            rebuild = False
-            while step < max_steps and going and not rebuild and not ovf:
-                x = state.positions.clone()
-                v = state.velocities.clone()
-                reduce_over_ring(lambda mode: fu.fire_reduce(
-                    v, state.forces, scal, ints, red_u, work, hyper,
-                    mode=mode), red_u)
-                fu.fire_move(x, v, state.forces, scal, ints, hyper.dmax,
-                             rows=False)
-                # The wrap is deferred to the rebin, as in the dynamics.
-                state = slots.slot_forces(
-                    state.replace(positions=x, velocities=v), engine,
-                    observables=False)
-                test(state.forces, False)
-                step += 1
-                going, rebuild, ovf = flags(
-                    flag[0], slots.slot_needs_rebin(state, engine),
-                    state.nbrs.overflow)
-        state = slots.slot_forces(state, engine)
-        converged = bool(ints[fu.CONVERGED]) and not ovf
-        return state, scal[fu.FRMS].clone(), converged, step, ovf
-
     return run
 
 
@@ -645,23 +640,23 @@ def fire_minimize_sharded(state: SimulationState, params: Parameters,
     slab with the ring's reductions. Returns ``(state, energy, converged,
     n_steps)`` in particle order on every rank, with the caller's
     velocities; on a capacity or migration overflow the run is retried from
-    the start on a grown engine. It runs eagerly (one host read an
-    iteration): ``graph=True`` raises."""
+    the start on a grown engine. ``graph`` as in :func:`fire_minimize`: on
+    the card each minimization is one CUDA graph launch, the ring's
+    all-reduces captured inside (True raises on the CPU and for a potential
+    without a kernel functor)."""
     from mdtpu_torch.core.types import state_to
     from mdtpu_torch.parallel.driver import build_grown, sharded_engine
     from mdtpu_torch.parallel.halo_slot import unshard_slot_state
 
-    if hyper.pop("graph", None):
-        raise ValueError("fire_minimize_sharded runs eagerly: its graph "
-                         "needs the ring's collectives inside a capture")
+    hyper.setdefault("graph", None)
     engine = sharded_engine(state, params.potential, engine, group, device)
     ring = engine.ring
     start = state_to(state.replace(nbrs=None, ids=None), ring.device)
     velocities0 = start.velocities
-    for _ in range(slots.MAX_GROWS):
+    for attempt in range(slots.MAX_GROWS):
         sh, engine = build_grown(start, engine)
         sh, _, converged, n_steps, ovf = make_slot_fire(
-            engine, ring=ring, **hyper)(sh)
+            engine, ring=ring, **(_retried(hyper) if attempt else hyper))(sh)
         if not ovf:
             out = unshard_slot_state(sh, ring).replace(velocities=velocities0)
             return out, out.energy, converged, n_steps

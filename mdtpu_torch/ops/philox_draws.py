@@ -26,7 +26,8 @@ being captured (CUDA 12.4+), for torch versions whose ``CUDAGraph`` lacks
 ``begin_capture_to_if_node``, whose handle the rebuild test sets, and
 :func:`graph_while` a WHILE node (a captured segment's loop, whose test
 :func:`step_below` sets its handle: ``step_below.launches``; FIRE's
-minimization);
+minimization), and a sharded segment's rebuild decision from the ring's
+vote, :func:`rebuild_vote` (``rebuild_vote.launches``);
 :func:`capture_census` counts the nodes of the graph being captured and
 its programmatic edges; :func:`empty` launches a kernel that does nothing
 (the launch floor). The noise, the velocity finish and the particle
@@ -89,6 +90,7 @@ _SIGNATURES = (
     ("mdtpu_graph_while_begin", (_P, _Q, _P)),
     ("mdtpu_graph_while_end", (_P,)),
     ("mdtpu_step_below", (_P, _P, _P, _Q, _I, _P)),
+    ("mdtpu_rebuild_vote", (_P, _P, _P, _P, _Q, _I, _P)),
     ("mdtpu_capture_census", (_P, ctypes.c_char_p, _P)),
 )
 CENSUS = ("nodes", "kernels", "copies", "memsets", "conditionals", "others",
@@ -105,7 +107,8 @@ NAMED_KERNELS = {"rebuild_flag": "rebuild_flag_kernel",
                  "bussi_draw": "bussi_draw_kernel",
                  "rebuild_rows": "rebuild_rows_kernel",
                  "kick_drift_wrap": "kick_drift_wrap_kernel",
-                 "brownian_rows": "brownian_rows_kernel"}
+                 "brownian_rows": "brownian_rows_kernel",
+                 "rebuild_vote": "rebuild_vote_kernel"}
 _OPT_PROGRAMMATIC = 1
 _plain_order = False      # True only inside plain_launch()
 _DOT_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
@@ -555,6 +558,40 @@ def step_below(counter, end, out, handle=None):
     return out
 
 
+def rebuild_vote_plain(votes, counter, first):
+    """Whether a sharded segment rebuilds before this step: any rank's
+    drift flag (``votes``, the ring's maximum of the ranks' flags as a 0-d
+    int32 tensor) or the step ``counter`` at the segment's ``first`` step
+    (0-d int64 tensors); a 0-d bool tensor."""
+    return (votes != 0) | (counter == first)
+
+
+def rebuild_vote(votes, counter, first, out, handle=None):
+    """:func:`rebuild_vote_plain` into ``out`` (a 0-d bool tensor): the
+    rebuild decision of a sharded segment's step, which every rank of the
+    ring takes alike (the JAX package's outer loop rebins at a segment's
+    start and where the psum'd drift test ended the inner loop). CUDA
+    tensors launch the kernel (one thread; adds one to
+    ``rebuild_vote.launches``), which also sets ``handle``, an IF node's
+    handle from :func:`graph_if`, inside the graph being captured; CPU
+    tensors take the plain version."""
+    if counter.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("a graph's handle takes CUDA tensors")
+        return out.copy_(rebuild_vote_plain(votes, counter, first))
+    if (votes.dtype != torch.int32 or counter.dtype != torch.int64
+            or first.dtype != torch.int64 or out.dtype != torch.bool
+            or any(t.device != counter.device for t in (votes, first, out))):
+        raise ValueError("rebuild_vote takes an int32 vote, int64 counters "
+                         "and a bool flag on one device")
+    launch("mdtpu_rebuild_vote", None,
+           (votes.data_ptr(), counter.data_ptr(), first.data_ptr(),
+            out.data_ptr(), handle or 0, int(handle is not None)),
+           "rebuild_vote", counter.device)
+    rebuild_vote.launches += 1
+    return out
+
+
 def empty(device="cuda", programmatic=False):
     """Launch a kernel that does nothing on ``device``'s current stream:
     its time in a graph of many launches is the card's launch floor.
@@ -565,7 +602,7 @@ def empty(device="cuda", programmatic=False):
 
 
 WRAPPERS = (bussi_draw, uniform_noise, rebuild_flag, rebuild_flag_rows,
-            step_below)
+            step_below, rebuild_vote)
 
 
 def reset_launches():

@@ -10,7 +10,10 @@ rebuild, and the event loop is the single-device driver's
 an overflow of a cell or of a migration buffer, and the same files. Rank 0
 opens and writes every file; every rank takes part in the gathers that
 frames and checkpoints need. Particle identity rides the ``ids`` rows, so
-frames come out in the original particle order.
+frames come out in the original particle order. A segment is the sharded
+advance (``make_sharded_slot_advance``): on the card one CUDA graph launch
+a step variant, the ring's all-reduces captured inside, and the segment's
+health its one host read.
 """
 
 from __future__ import annotations

@@ -330,7 +330,8 @@ class HaloSlotEngine:
                 (self.plane_cells, self.local_cells))
 
     def compute_slots(self, positions, diameters, cell, cell_inv, nbrs,
-                      observables=True, pos_lo=None, out=None):
+                      observables=True, pos_lo=None, out=None,
+                      scalars_out=None):
         """``(energy, virial, forces, nbrs)`` of this rank's slab: the ghost
         exchange (:meth:`slab_inputs`) and B1's launch over the interior
         cells of the ghost-extended grid, or for a potential without a
@@ -338,11 +339,14 @@ class HaloSlotEngine:
         list's reduction (its overflow joins ``nbrs.overflow``). Energy and
         virial are summed over the ring on full steps (``observables``);
         lean steps return zeros. ``pos_lo``: the lo words, for the hi/lo
-        sweep. ``out``: a tensor the forces are copied into. ``cell_inv``
-        is unused; it keeps the single-device signature."""
+        sweep. ``out``: a tensor the forces go into (B1 writes them there on
+        the card); ``scalars_out``: the ``(energy, virial)`` 0-d tensors the
+        ring's sums are copied into, on a full sweep. ``cell_inv`` is
+        unused; it keeps the single-device signature."""
         cell = cell.contiguous()
         pos, lo, diam, counts, grid, interior = self.slab_inputs(
             positions, diameters, nbrs.counts, cell, pos_lo)
+        into = {"out": out} if positions.is_cuda else {}
         if self.uses_pair_list:
             energy, virial, forces, over = pair_sweep(
                 pos, diam, counts, cell, grid, self.cutoff, self.potential,
@@ -352,15 +356,18 @@ class HaloSlotEngine:
         elif lo is not None:
             energy, virial, forces = cell_sweep_hilo(
                 pos, lo, diam, counts, cell, grid, self.cutoff,
-                self.potential, observables, interior=interior)
+                self.potential, observables, interior=interior, **into)
         else:
             energy, virial, forces = cell_sweep(
                 pos, diam, counts, cell, grid, self.cutoff, self.potential,
-                observables, interior=interior)
+                observables, interior=interior, **into)
         if observables:
-            energy, virial = self.ring.sum(
+            energy, virial = self.ring.sum_(
                 torch.stack([energy, virial])).unbind()
-        if out is not None:
+            if scalars_out is not None:
+                energy, virial = (d.copy_(t) for d, t in
+                                  zip(scalars_out, (energy, virial)))
+        if out is not None and forces is not out:
             forces = out.copy_(forces)
         return energy, virial, forces, nbrs
 
@@ -418,15 +425,18 @@ def build_sharded_slot_state(state: SimulationState,
 
 def make_sharded_slot_advance(params, ensemble, engine: HaloSlotEngine,
                               compensated: bool = True, lean: bool = True,
-                              hilo: bool = False):
+                              hilo: bool = False, graph=None):
     """``advance(state, k)`` of a sharded slot state: the single-device
-    ``make_slot_advance`` on each rank's block, with the engine's ring:
+    ``make_slot_advance`` on each rank's block, with the engine's ring
+    (:class:`~mdtpu_torch.integrate.slot_step.ShardedSlotAdvance`):
     rebuilds (with their migration) on the JAX package's schedule, every
-    host decision read from an all-reduced flag, Bussi and temperature
-    reductions summed over the ring."""
+    decision the ring's, Bussi and temperature reductions summed over the
+    ring. ``graph`` as in ``make_slot_advance``: on the card each segment
+    variant is one CUDA graph launch, the ring's all-reduces captured
+    inside."""
     return slots.make_slot_advance(params, ensemble, engine,
                                    compensated=compensated, lean=lean,
-                                   hilo=hilo, ring=engine.ring)
+                                   hilo=hilo, ring=engine.ring, graph=graph)
 
 
 _SLOT_FIELDS = ("positions", "velocities", "forces", "images", "diameters",

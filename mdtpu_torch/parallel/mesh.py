@@ -83,13 +83,15 @@ class ShardRing:
     def right(self) -> int:
         return (self.rank + 1) % self.size
 
-    def _all_reduce(self, t, op):
+    def _all_reduce(self, t, op, in_place=False):
         # A group of one still reduces through its backend (NCCL on one
-        # card is the path measured there); only the ring without a group
-        # has nothing to do.
+        # card is the path measured there; it adds no node to a captured
+        # graph); only the ring without a group has nothing to do. Under a
+        # CUDA-graph capture the copy comes from the capture's pool (a
+        # conditional body's own, where the body is being captured).
         if self.group is None:
             return t
-        out = t.clone()
+        out = t if in_place else t.clone()
         _dist().all_reduce(out, op=op, group=self.group)
         return out
 
@@ -101,6 +103,14 @@ class ShardRing:
         """The largest ``t`` over the ranks (``pmax``)."""
         return self._all_reduce(t, _dist().ReduceOp.MAX)
 
+    def sum_(self, t):
+        """:meth:`sum` into ``t`` (contiguous) itself."""
+        return self._all_reduce(t, _dist().ReduceOp.SUM, in_place=True)
+
+    def max_(self, t):
+        """:meth:`max` into ``t`` (contiguous) itself."""
+        return self._all_reduce(t, _dist().ReduceOp.MAX, in_place=True)
+
     def any(self, flag):
         """True (a 0-d bool tensor) where any rank's ``flag`` is true."""
         return self.max(flag.to(torch.int32)) > 0
@@ -111,7 +121,10 @@ class ShardRing:
         right one; returns ``(from_left, from_right)``, lists of tensors of
         the shapes and dtypes sent (every rank sends the same shapes). The
         ``ppermute`` pair of the JAX package's halo and migration, in one
-        ``batch_isend_irecv``."""
+        ``batch_isend_irecv``. A ring of one copies on the device, which a
+        CUDA graph captures like any kernel; an exchange between two or
+        more ranks under a capture is not verified (it needs a second
+        card)."""
         if self.size == 1:
             # The ring's only rank is its own neighbour on both sides.
             def copy(t):

@@ -33,9 +33,15 @@ NVE segment from the NVT end (on the hi/lo sweep, as ``run_simulation``
 takes float32 NVE; its numbers under ``"nve"``), each captured route with
 the nodes of its step graphs (``SlotAdvance.census``); ``--engine sharded``
 steps the same through ``HaloSlotEngine`` on a one-rank NCCL group (a file
-store in a temporary directory): the slab's ghost exchange and launch, the
-all-reduced flags and sums, a rebuild (with its migration) at the start of
-each window and before its last step. Prints one JSON line: ms per step,
+store in a temporary directory), as ``run_simulation_sharded`` does
+(``make_sharded_slot_advance``: the slab's ghost exchange and launch, the
+all-reduced flags and sums, a rebuild, with its migration, at the start of
+each window, after every step the ring's vote flagged and before its last
+step; captured, each segment one graph launch a step variant, the ring's
+all-reduces inside, or with ``--eager`` launched step by step, the vote
+read on the host every lean step; the nodes of its step graphs under
+``step_graph_nodes``; a tree whose sharded advance is a host loop steps
+that loop, its rebuilds counted at each call). Prints one JSON line: ms per step,
 device busy time per step and the device's idle share over the profiled
 window, CUDA kernel launches, CUDA-graph launches and host synchronisations
 per step (stream and event synchronisations: each read of a tensor on the
@@ -54,9 +60,9 @@ kernels a step runs come from the step graphs' census instead
 nodes times the steps it runs in a segment, and the loop test; the
 rebuilds' IF bodies not counted); ``device_idle_share_outside_span``,
 one less the span over the wall time, is then the least the idle share
-can be. For ``sharded`` a second line with
-the host ms of the step's own parts alone (the rebuild flag's all-reduce
-and read, a scalar all-reduce, the ghost exchange and assembly).
+can be. For ``sharded`` also the host ms of the step's own parts alone
+(``sharded_parts``: the rebuild flag's all-reduce and read, a scalar
+all-reduce, the ghost exchange and assembly).
 ``--brownian`` (with ``slot`` or ``plane``, the latter compensated as
 ``chip_smoke.py``'s Brownian path runs it) steps ``chip_smoke.py``'s
 Brownian system instead (65,536 pseudo-hard spheres at rho 0.5, f32,
@@ -82,6 +88,7 @@ the step).
 
 import argparse
 import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -111,8 +118,6 @@ def main():
                         help="launch the small kernels in plain stream "
                              "order")
     args = parser.parse_args()
-    if args.eager and args.engine == "sharded":
-        parser.error("--eager takes the one-device engines")
     if args.potential == "user" and args.engine not in ("slot", "sharded"):
         parser.error("--potential user takes --engine slot or sharded")
     if args.brownian and (args.engine not in ("slot", "plane")
@@ -183,7 +188,6 @@ def profile(args, programmatic):
         with tempfile.TemporaryDirectory() as d:
             state = mt.run_simulation(state, params, ensemble, 300, 300, d,
                                       engine=engine, compensated=compensated)
-    rebuilds = []
     if args.engine == "sharded":
         import torch.distributed as dist
         from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
@@ -197,18 +201,16 @@ def profile(args, programmatic):
                                        state.unitcell, N, ShardRing(),
                                        diameters=state.diameters)
         state = build_sharded_slot_state(state.replace(nbrs=None), engine)
-        advance = make_sharded_slot_advance(params, ensemble, engine)
-        engine_rebin = slot_step._engine_rebin
-
-        def counted_engine_rebin(s, e):
-            rebuilds[-1] += 1
-            return engine_rebin(s, e)
-
-        slot_step._engine_rebin = counted_engine_rebin
-
-        def run(s, k):
-            rebuilds.append(0)
-            return advance(s, k)
+        if "graph" in inspect.signature(
+                make_sharded_slot_advance).parameters:
+            advance = make_sharded_slot_advance(
+                params, ensemble, engine,
+                graph=False if args.eager else None)
+            run, totals = slot_run(advance)
+        else:
+            # A tree whose sharded advance is a host loop (always eager).
+            advance = make_sharded_slot_advance(params, ensemble, engine)
+            run, totals = host_loop_run(slot_step, advance)
     elif args.engine == "slot":
         state = slot_step.slot_forces(slot_step.slotify(state, engine),
                                       engine)
@@ -231,36 +233,35 @@ def profile(args, programmatic):
 
     state, metrics = measure(run, state, looped=looped(advance))
     extra = {}
-    if args.engine != "sharded":
-        rebuilds = window_rebuilds(totals)
-        with_census(metrics, advance)
-        if (args.engine == "slot" and args.potential == "lj"
-                and not args.brownian):
-            nve = slot_step.make_slot_advance(
-                params, mt.NVE(), engine, hilo=True,
-                graph=False if args.eager else None)
-            run, totals = slot_run(nve)
-            _, extra["nve"] = measure(run, state, looped=looped(nve))
-            extra["nve"]["rebuilds_timed_profiled"] = window_rebuilds(
-                totals)[1:]
-            with_census(extra["nve"], nve)
+    rebuilds = window_rebuilds(totals)
+    with_census(metrics, advance)
+    if (args.engine == "slot" and args.potential == "lj"
+            and not args.brownian):
+        nve = slot_step.make_slot_advance(
+            params, mt.NVE(), engine, hilo=True,
+            graph=False if args.eager else None)
+        run, totals = slot_run(nve)
+        _, extra["nve"] = measure(run, state, looped=looped(nve))
+        extra["nve"]["rebuilds_timed_profiled"] = window_rebuilds(
+            totals)[1:]
+        with_census(extra["nve"], nve)
     print(json.dumps({
         "card": card, "engine": args.engine, "potential": args.potential,
         "ensemble": type(ensemble).__name__,
         "launch": "programmatic" if programmatic else "plain",
         "route": ("eager" if args.eager or not getattr(advance, "graph",
                                                         False)
-                  else "graph") if args.engine != "sharded" else "eager",
+                  else "graph"),
         "compensated": compensated,
         "n": N, "grid": list(engine.grid),
         "capacity": engine.cell_capacity, **metrics,
         # Slot layouts: rebuilds in the timed and in the profiled window.
         "rebuilds_timed_profiled": rebuilds[1:], **extra,
         "package": os.path.dirname(os.path.abspath(mt.__file__)),
+        **({"sharded_parts": sharded_parts(engine, state)}
+           if args.engine == "sharded" else {}),
     }))
     if args.engine == "sharded":
-        print(json.dumps({"card": card, "engine": "sharded",
-                          **sharded_parts(engine, state)}))
         torch.distributed.destroy_process_group()
 
 
@@ -283,6 +284,27 @@ def particle_advance(step_mod, params, ensemble, engine, compensated,
 
     loop.rebuilds = torch.zeros((), dtype=torch.int64)
     return loop
+
+
+def host_loop_run(slot_step, advance):
+    """``(run, totals)`` for an advance that is a host loop: each call's
+    rebuilds counted at ``slot_step._engine_rebin``, their running total
+    appended to ``totals`` after each segment."""
+    totals, count = [], [0]
+    engine_rebin = slot_step._engine_rebin
+
+    def counted(s, e):
+        count[0] += 1
+        return engine_rebin(s, e)
+
+    slot_step._engine_rebin = counted
+
+    def run(s, k):
+        s = advance(s, k)
+        totals.append(count[0])
+        return s
+
+    return run, totals
 
 
 def slot_run(advance):
@@ -453,9 +475,9 @@ def kernel_gaps(prof, names):
 def sharded_parts(engine, state, reps=200):
     """Host ms of the sharded step's own parts, each alone and synced: one
     rebuild-flag decision (``any`` over the ring and its host read, as the
-    advance makes it every step), one all-reduce of a scalar sum (the
-    kinetic energy of an NVT step) and the slab's ghost exchange and
-    assembly (``slab_inputs``)."""
+    eager advance reads its vote every lean step), one all-reduce of a
+    scalar sum (the kinetic energy of an NVT step) and the slab's ghost
+    exchange and assembly (``slab_inputs``)."""
     ring = engine.ring
     flag = torch.zeros((), dtype=torch.bool, device=ring.device)
     value = torch.ones((), dtype=state.dtype, device=ring.device)

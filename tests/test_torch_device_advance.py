@@ -171,3 +171,70 @@ def test_graph_option_checks():
     eager = slot_step.make_slot_advance(params, ensemble, eng)
     eager(slots, 2)
     assert eager.graph is False
+
+
+def test_sharded_segment_reads_only_the_ring_vote(monkeypatch):
+    """The sharded advance on a ring of one (``ShardedSlotAdvance``) keeps
+    its segment on the device too: the one host read is ``device_if``'s of
+    the ring's vote, once a lean step (the full last step rebuilds without
+    a test); its steps write the buffers in place; a rebuild at the
+    segment's start and before its last step."""
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.driver import build_grown
+    from mdtpu_torch.parallel.halo_slot import make_sharded_slot_advance
+    ensemble = mt.NVT(1.2, 0.4)
+    state = lattice_fluid_state(N, 0.8, 1.2, dtype=torch.float64, cutoff=2.5,
+                                jitter=0.05, device="cpu")
+    pot = mt.LennardJones(r_cut=2.5)
+    eng = HaloSlotEngine.create(pot, 2.5, state.unitcell, N,
+                                ShardRing(device="cpu"))
+    sh, eng = build_grown(state, eng)
+    advance = make_sharded_slot_advance(mt.Parameters(0.8, N, 0.004, pot),
+                                        ensemble, eng)
+    assert isinstance(advance, slot_step.ShardedSlotAdvance)
+    k = 12
+    allowed, reads = [], []
+    with monkeypatch.context() as m:
+        def read_guard(name, original):
+            def read(self, *args, **kwargs):
+                if (name == "__bool__" and sys._getframe(1).f_code
+                        is slot_step.device_if.__code__):
+                    allowed.append(1)
+                    return original(self, *args, **kwargs)
+                reads.append(name)
+                raise AssertionError(f"host read Tensor.{name}")
+            return read
+
+        for name in READS:
+            m.setattr(torch.Tensor, name,
+                      read_guard(name, getattr(torch.Tensor, name)))
+        out = advance(sh, k)
+    assert reads == [] and len(allowed) == k - 1
+    assert out.step == sh.step + k
+    steps = advance.rebuild_steps()
+    assert steps[0] == sh.step and steps[-1] == sh.step + k - 1
+    b = advance.bufs
+    for fn in (advance.step_fn, advance.last_fn):
+        stepped = fn(b, advance._target())
+        for name in slot_step._STATE_TENSORS:
+            assert getattr(stepped, name) is getattr(b, name), name
+        for name in slot_step._NBRS_TENSORS:
+            assert getattr(stepped.nbrs, name) is getattr(b.nbrs, name), name
+
+
+def test_rebuild_vote_plain_and_its_wrapper():
+    """``rebuild_vote``'s plain version: true where the ring's vote is not 0
+    or the counter is at the segment's first step; the wrapper writes it
+    into its flag on the CPU and refuses a graph's handle there."""
+    from mdtpu_torch.ops import philox_draws as draws
+    i64 = dict(dtype=torch.int64)
+    out = torch.zeros((), dtype=torch.bool)
+    for vote, counter, first in ((0, 5, 3), (1, 5, 3), (0, 3, 3), (2, 3, 3),
+                                 (0, 4, 5)):
+        want = vote != 0 or counter == first
+        args = (torch.tensor(vote, dtype=torch.int32),
+                torch.tensor(counter, **i64), torch.tensor(first, **i64))
+        assert bool(draws.rebuild_vote_plain(*args)) == want
+        assert draws.rebuild_vote(*args, out) is out and bool(out) == want
+    with pytest.raises(ValueError, match="handle"):
+        draws.rebuild_vote(*args, out, handle=1)

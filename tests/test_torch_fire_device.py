@@ -26,8 +26,8 @@ the CPU, f64, N <= 500:
   * ``device_while``'s eager loop: the body runs exactly while the
     predicate holds, never after it turned false; ``LoopCounts``, which
     brings a captured loop's launches back into the counters.
-Also: a grown-capacity retry is not cached, and the sharded FIRE refuses
-``graph=True``."""
+Also: a grown-capacity retry is not cached, and the sharded FIRE on CPU
+tensors refuses ``graph=True``."""
 
 import collections
 import dataclasses
@@ -211,8 +211,16 @@ def test_overflow_after_a_rebin_retries_as_jax_does(systems, monkeypatch):
 
 
 def test_sharded_fire_refuses_the_graph():
-    with pytest.raises(ValueError, match="eagerly"):
-        fire_mod.fire_minimize_sharded(None, None, graph=True)
+    """On a ring of CPU tensors the sharded FIRE runs eagerly: asking for
+    its CUDA graph (``graph=True``) raises."""
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    state = lattice_fluid_state(1000, 0.8, 1.0, dtype=torch.float64,
+                                cutoff=2.5, jitter=0.05, device="cpu")
+    params = mdtpu_torch.Parameters(0.8, 1000, 0.002,
+                                    LennardJones(r_cut=2.5))
+    with pytest.raises(ValueError, match="graph=True takes a CUDA state"):
+        fire_mod.fire_minimize_sharded(state, params, graph=True,
+                                       device="cpu", max_steps=5)
 
 
 def _host_loop(start, engine, max_steps, tol, hyper):

@@ -3626,3 +3626,96 @@ def test_captured_segment_is_one_launch_a_variant(cuda):
     assert replays == ["lean", "last"]
     assert draws.step_below.launches - before == 40 + 2
     assert s.step == 43
+
+
+# --------------------------------------------------------------------------
+# The sharded route's loops on the device (a ring of one on the card).
+
+
+def test_rebuild_vote_matches_its_plain_version(cuda):
+    """The sharded segment's rebuild decision: the flag of every vote and
+    counter its plain version's, one launch a call."""
+    from mdtpu_torch.ops import philox_draws as draws
+    votes = torch.zeros((), dtype=torch.int32, device=cuda)
+    counter = torch.zeros((), dtype=torch.int64, device=cuda)
+    first = torch.full((), 7, dtype=torch.int64, device=cuda)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    before = draws.rebuild_vote.launches
+    cases = [(0, 7), (0, 8), (1, 8), (5, 7), (-1, 6)]
+    for vote, at in cases:
+        votes.fill_(vote)
+        counter.fill_(at)
+        draws.rebuild_vote(votes, counter, first, flag)
+        assert bool(flag) == bool(draws.rebuild_vote_plain(votes, counter,
+                                                           first))
+    assert draws.rebuild_vote.launches - before == len(cases)
+    with pytest.raises(ValueError, match="int32 vote"):
+        draws.rebuild_vote(votes.long(), counter, first, flag)
+
+
+def _sharded_start(cuda, n=4096):
+    from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
+    from mdtpu_torch.parallel.driver import build_grown
+    pot = LennardJones(r_cut=2.5)
+    state = lattice_fluid_state(n, 0.8, 1.0, dtype=torch.float32, cutoff=2.5,
+                                jitter=JITTER, device=cuda)
+    eng = HaloSlotEngine.create(pot, 2.5, state.unitcell, n,
+                                ShardRing(device=cuda))
+    sh, eng = build_grown(state, eng)
+    return sh, eng, mdtpu_torch.Parameters(0.8, n, 0.002, pot)
+
+
+def test_sharded_advance_captured_matches_eager(cuda):
+    """The sharded advance on a ring of one: captured (one graph launch a
+    step variant) against eager from one start over two segments, every
+    tensor and the rebuild steps bit for bit; the lean step's graph tests,
+    votes and rebuilds in one IF node, the last step's rebuilds with no
+    IF node."""
+    from mdtpu_torch.parallel.halo_slot import make_sharded_slot_advance
+    sh, eng, params = _sharded_start(cuda)
+    out = {}
+    for graph in (False, None):
+        advance = make_sharded_slot_advance(params, mdtpu_torch.NVT(1.0, 0.4),
+                                            eng, graph=graph)
+        s = advance(advance(sh, 13), 40)
+        out[graph] = (s, advance.rebuild_steps(), advance)
+    (e, e_reb, eager), (g, g_reb, captured) = out[False], out[None]
+    assert eager.graph is False and captured.graph is True
+    assert g.step == e.step == sh.step + 53
+    for name in ("positions", "velocities", "forces", "energy", "virial",
+                 "temperature"):
+        assert torch.equal(getattr(g, name), getattr(e, name)), name
+    assert g_reb == e_reb and len(g_reb) > 4
+    lean, last = captured.census["lean"], captured.census["last"]
+    assert (lean["rebuild_flag"], lean["rebuild_vote"],
+            lean["conditionals"], lean["memsets"]) == (1, 1, 1, 0)
+    assert (last["rebuild_flag"], last["rebuild_vote"],
+            last["conditionals"]) == (0, 0, 0)
+    replays = []
+    for name, (graph, *_rest) in captured.graphs.items():
+        real = graph.replay
+        graph.replay = (lambda real=real, name=name:
+                        replays.append(name) or real())
+    captured(g, 20)
+    assert replays == ["lean", "last"]
+
+
+def test_sharded_fire_captured_matches_eager(cuda):
+    """The sharded FIRE on a ring of one: one graph launch a minimization
+    against the eager run from one start, state and rebuild steps bit for
+    bit."""
+    from mdtpu_torch.minimize.fire import make_slot_fire
+    sh, eng, _ = _sharded_start(cuda)
+    out = {}
+    for graph in (False, None):
+        run = make_slot_fire(eng, ring=eng.ring, max_steps=60, tol=0.0,
+                             graph=graph, cached=False)
+        st, _, _, n, ovf = run(sh)
+        out[graph] = (st, n, ovf, run.fire)
+    (e, e_n, e_ovf, eager), (g, g_n, g_ovf, captured) = out[False], out[None]
+    assert captured.captured is not None and eager.captured is None
+    assert e_n == g_n == 60 and not e_ovf and not g_ovf
+    for name in ("positions", "velocities", "forces", "energy", "virial"):
+        assert torch.equal(getattr(g, name), getattr(e, name)), name
+    assert captured.rebuild_steps() == eager.rebuild_steps()
+    assert captured.census["pass"]["conditionals"] == 1

@@ -14,6 +14,11 @@ geometry (N = 1,200 Lennard-Jones at rho 0.4, r_c 1.5, 8^3 cells in 3D):
     against JAX's ``make_sharded_slot_advance`` and the port's
     single-device ``make_slot_advance``; the NVT children replay JAX's
     Bussi draws at the ``bussi_noise`` seam;
+  * NVT segments of 13 and 17 lean steps and 10 full ones: the sharded
+    advance's rebuild steps (its device log) and positions equal to a host
+    loop of the JAX package's nesting of ``make_slot_advance`` on the
+    port's steps (a rebin at the segment's start, after every step any
+    rank flagged, before the full last step);
   * a migration buffer of one column raises the overflow flag and loses no
     particle (JAX ``test_halo_slot_migration_capacity_overflow_flags``);
   * a user potential (``examples/03_polydisperse_2d.py``'s non-additive
@@ -244,6 +249,74 @@ def advance_case(ring, name, draws, steps=STEPS):
             "ids_before": ids0, "ids_after": sh.ids[sh.nbrs.occupied].numpy()}
 
 
+def jax_nesting(sh, params, ens, eng, ring, k, lean=True):
+    """The JAX package's nesting of ``make_slot_advance`` under
+    ``shard_map`` (``mdtpu/integrate/slot_step.py:640-690``), step by step
+    on the host with the port's steps: a rebin at each outer pass and
+    before the full last step, the inner loop ending on the ring's drift
+    flag. Returns the state after ``k`` steps and the steps at which it
+    rebinned."""
+    step = slots.make_slot_step(params, ens, eng, observables=not lean,
+                                ring=ring)
+    last = slots.make_slot_step(params, ens, eng, ring=ring)
+    rebins, i, n_lean = [], 0, k - 1 if lean else k
+    while i < n_lean:
+        rebins.append(sh.step)
+        sh = slots._engine_rebin(sh, eng)
+        while True:
+            sh = step(sh)
+            i += 1
+            if i >= n_lean or bool(ring.any(slots.slot_needs_rebin(sh,
+                                                                   eng))):
+                break
+    if lean:
+        rebins.append(sh.step)
+        sh = last(slots._engine_rebin(sh, eng))
+    return sh, rebins
+
+
+# The schedule case's segments: (steps, lean).
+SCHEDULE = ((13, True), (17, True), (10, False))
+
+
+def schedule_case(ring, draws):
+    """NVT segments of :data:`SCHEDULE` through the sharded advance (one
+    advance each for lean and full segments) and through
+    :func:`jax_nesting` from the same start (both replaying ``draws``): each
+    one's rebuild steps and final particle-order positions."""
+    pos, vel, cell = fluid_arrays()
+    eng = port_engine(ring, cell)
+    params = mt.Parameters(RHO, N, DT, eng.potential)
+    ens = mt.NVT(0.75, 0.2)
+    advances = {lean: make_sharded_slot_advance(params, ens, eng, lean=lean)
+                for lean in (True, False)}
+    saved = tthermo.bussi_noise
+    tthermo.bussi_noise = replaying(draws)
+    try:
+        out = {}
+        for route in ("advance", "host"):
+            sh = build_sharded_slot_state(port_state(pos, vel, cell), eng)
+            rebins = []
+            for k, lean in SCHEDULE:
+                if route == "advance":
+                    sh = advances[lean](sh, k)
+                else:
+                    sh, more = jax_nesting(sh, params, ens, eng, ring, k,
+                                           lean)
+                    rebins += more
+            if route == "advance":
+                # Each advance logs every rebuild of its life; the lean
+                # segments come first.
+                rebins = (advances[True].rebuild_steps()
+                          + advances[False].rebuild_steps())
+            out[route] = {"rebins": rebins, "step": sh.step,
+                          "positions": unshard_slot_state(sh, ring)
+                          .positions.numpy()}
+    finally:
+        tthermo.bussi_noise = saved
+    return out
+
+
 def overflow_case(ring, steps=20):
     """NVT with a migration buffer of one column: the ring's overflow flag
     and the particles still present."""
@@ -317,6 +390,7 @@ def run_cases(ring, draws, user_draws):
     for name in ADVANCES:
         out[("advance", name)] = advance_case(ring, name, draws)
     out["overflow"] = overflow_case(ring)
+    out["schedule"] = schedule_case(ring, draws)
     for name in USER_SWEEPS:
         out[("sweep", name)] = user_sweep_case(ring, name)
     out[("advance", "user")] = user_advance_case(ring, user_draws)
@@ -709,6 +783,27 @@ def test_advance_matches_jax_and_the_single_device_advance(runs, name, ring):
         np.testing.assert_allclose(got["energy"], ref["energy"], rtol=1e-10)
     jax_t = runs["jax"][("advance", name)]["temperature"]
     np.testing.assert_allclose(got["temperature"], jax_t, rtol=1e-10)
+
+
+@pytest.mark.parametrize("ring", RINGS)
+def test_advance_rebuilds_where_the_jax_nesting_does(runs, ring):
+    """The sharded advance's rebuild steps (its device log) over lean and
+    full segments are those of a host loop of the JAX package's nesting,
+    and its positions that loop's, bit for bit (the same plain kernels in
+    the same order)."""
+    got = _ring_out(runs, ring)["schedule"]
+    adv, host = got["advance"], got["host"]
+    assert adv["step"] == host["step"] == sum(k for k, _ in SCHEDULE)
+    assert adv["rebins"] == host["rebins"]
+    # A rebuild at each segment's start and before each lean segment's
+    # last step, and more between.
+    starts = np.cumsum([0] + [k for k, _ in SCHEDULE])[:-1].tolist()
+    lasts = [a + k - 1 for a, (k, lean) in zip(starts, SCHEDULE) if lean]
+    assert set(starts) | set(lasts) < set(adv["rebins"])
+    np.testing.assert_array_equal(adv["positions"], host["positions"])
+    if ring == "two_ranks":
+        other = runs["ranks"][1]["schedule"]["advance"]
+        assert other["rebins"] == adv["rebins"]
 
 
 @pytest.mark.parametrize("name", ADVANCES)

@@ -16,6 +16,11 @@ geometry:
   * ``fire_minimize_sharded`` at 12 and 50 iterations on a dense LJ lattice
     (N = 1,200, rho 0.8, r_c 2.5): energy rel 1e-9, the caller's
     velocities returned unchanged;
+  * the sharded slot FIRE (30 iterations on the same lattice): its rebin
+    steps (its device log), steps and overflow equal to a host loop of the
+    JAX package's nesting of ``make_slot_fire`` on the plain versions of
+    FIRE's update, split with the ring's all-reduces between, and its
+    energy and positions that loop's bit for bit;
   * sharded Brownian dynamics of free particles held statistically (MSD
     against 2 d D t, as JAX ``test_sharded_brownian_msd_matches_diffusion``),
     each rank's draws those of the ``brownian_noise`` seam for ``(seed,
@@ -46,9 +51,14 @@ import torch
 import mdtpu_torch as mt
 from mdtpu_torch.integrate import step as tstep
 from mdtpu_torch.io.checkpoint import load_checkpoint
+from mdtpu_torch.integrate import slot_step as slots
 from mdtpu_torch.minimize import fire_minimize_sharded
+from mdtpu_torch.minimize import fire_update as fu
+from mdtpu_torch.minimize.fire import make_slot_fire
 from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
 from mdtpu_torch.parallel.geometry import sharded_geometry
+from mdtpu_torch.parallel.halo_slot import (build_sharded_slot_state,
+                                            unshard_slot_state)
 from mdtpu_torch.sim.initialization import build_state_from_arrays
 from tests.test_torch_halo_slot import (CUTOFF, DT, KEY_SEED, MIGRATION, N,
                                         RHO, USER_CUTOFF, USER_DT, USER_RHO,
@@ -60,6 +70,7 @@ STEPS, FREQ, CHECKPOINT = 40, 10, 20
 USER_FIRE_ITERS = 12
 RESUME_STEPS = 19
 FIRE_ITERS = (12, 50)
+FIRE_SCHEDULE_ITERS = 30
 FIRE_RHO, FIRE_CUTOFF = 0.8, 2.5
 BD_N, BD_L, BD_DT, BD_STEPS = 1200, 16.0, 0.02, 40
 RECOVER_STEPS = 20
@@ -157,6 +168,90 @@ def fire_case(ring, iterations):
     return out
 
 
+def fire_nesting(sh, eng, ring, max_steps):
+    """The JAX package's nesting of ``make_slot_fire`` under ``shard_map``
+    (``mdtpu/minimize/fire.py:386-423``; tol 0), iteration by iteration on
+    the host with the plain versions of FIRE's update split where it has
+    ``pmax`` and ``psum``, the ring's all-reduces between, every loop flag
+    the ring's: a rebin on entry, then one after each iteration whose drift
+    test fired on any rank. Returns ``(rebin steps, n_steps, overflow,
+    state)``."""
+    h = fu.FireHyper()
+    s = sh.replace(velocities=torch.zeros_like(sh.velocities),
+                   vel_comp=torch.zeros_like(sh.vel_comp))
+    s = slots.slot_forces(s, eng)
+    scal, ints, red, _, flags = fu.buffers(s.dtype, s.device, 1)
+    scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = h.dt_initial, h.alpha0, 0.0
+    ints[fu.MAX_STEPS] = max_steps
+    sqrt_ndof = float(s.nf) ** 0.5
+    red_u, red_t = red[:fu.RED], red[fu.RED:]
+
+    def split(run, part, maxima, sums):
+        run(fu.MAXIMA)
+        part[maxima].copy_(ring.max(part[maxima]))
+        run(fu.SUMS)
+        part[sums].copy_(ring.sum(part[sums]))
+        run(fu.TAIL)
+
+    def test(forces, entry):
+        split(lambda mode: fu.fire_test_plain(
+            forces, scal, ints, red_t, sqrt_ndof, flags, entry=entry,
+            mode=mode), red_t, slice(fu.MAX_B, fu.MAX_B + 1),
+            slice(fu.SUM_BB, None))
+
+    def flagged(t):
+        return bool(ring.any(t))
+
+    test(s.forces, True)
+    step, rebins, ovf = 0, [], flagged(s.nbrs.overflow)
+    while step < max_steps and not ovf:
+        rebins.append(step)
+        s = slots._engine_rebin(s, eng)
+        ovf = flagged(s.nbrs.overflow)
+        rebuild = False
+        while step < max_steps and not rebuild and not ovf:
+            x, v = s.positions.clone(), s.velocities.clone()
+            split(lambda mode: fu.fire_reduce_plain(
+                v, s.forces, scal, ints, red_u, h, mode=mode), red_u,
+                slice(fu.MAX_A, fu.MAX_B + 1), slice(fu.SUM_AB, None))
+            fu.fire_move_plain(x, v, s.forces, scal, ints, h.dmax,
+                               rows=False)
+            s = slots.slot_forces(s.replace(positions=x, velocities=v), eng,
+                                  observables=False)
+            test(s.forces, False)
+            step += 1
+            rebuild = flagged(slots.slot_needs_rebin(s, eng))
+            ovf = flagged(s.nbrs.overflow)
+    return rebins, step, ovf, slots.slot_forces(s, eng)
+
+
+def fire_schedule_case(ring, iterations=FIRE_SCHEDULE_ITERS):
+    """The sharded slot FIRE (``make_slot_fire(..., ring=)``, tol 0) and
+    :func:`fire_nesting` from one start: each one's rebin steps, steps,
+    overflow, energy and particle-order positions."""
+    pos, vel, cell = fire_arrays()
+    grid, cap, skin = fire_geometry(cell)
+    pot = mt.LennardJones(r_cut=FIRE_CUTOFF)
+    eng = HaloSlotEngine(potential=pot, cutoff=FIRE_CUTOFF, skin=skin,
+                         grid=grid, cell_capacity=cap,
+                         migration_capacity=MIGRATION, ring=ring)
+    st = build_state_from_arrays(pos, np.ones(N), cell, velocities=vel,
+                                 dtype=torch.float64, cutoff=FIRE_CUTOFF,
+                                 device="cpu")
+    run = make_slot_fire(eng, ring=ring, max_steps=iterations, tol=0.0,
+                         cached=False)
+    sh, _, _, n_steps, ovf = run(build_sharded_slot_state(st, eng))
+    rebins = run.fire.rebuild_steps()
+    host = fire_nesting(build_sharded_slot_state(st, eng), eng, ring,
+                        iterations)
+    return {route: {"rebins": r, "n_steps": n, "overflow": o,
+                    "energy": float(end.energy),
+                    "positions": unshard_slot_state(end, ring)
+                    .positions.numpy()}
+            for route, (r, n, o, end) in
+            (("device", (rebins, n_steps, ovf, sh)), ("host", host))}
+
+
 def brownian_case(ring, workdir):
     """Free Brownian particles (epsilon 0) through the sharded driver; the
     noise seam's calls recorded."""
@@ -177,8 +272,10 @@ def brownian_case(ring, workdir):
 
     def recorded(seed, step, shape, dtype, device, *rank):
         xi = seam(seed, step, shape, dtype, device, *rank)
-        calls.append((seed, step, tuple(shape), rank, xi if not calls
-                      else None))
+        # The step may be the advance's device counter, which the step
+        # then advances in place: keep its value at the call.
+        calls.append((seed, int(step), tuple(shape), rank,
+                      xi if not calls else None))
         return xi
 
     tstep.brownian_noise = recorded
@@ -253,6 +350,7 @@ def run_cases(ring, workdir):
     return {"driver": driver_case(ring, workdir),
             "recover": recover_case(ring, workdir),
             "fire": fire_case(ring, FIRE_ITERS),
+            "fire_schedule": fire_schedule_case(ring),
             "brownian": brownian_case(ring, workdir),
             "user_driver": user_driver_case(ring, workdir),
             "user_recover": user_recover_case(ring, workdir),
@@ -344,6 +442,7 @@ def runs(tmp_path_factory):
         ring = ShardRing(device="cpu")
         one = {"driver": driver_case(ring, one_dir),
                "fire": fire_case(ring, FIRE_ITERS[:1]),
+               "fire_schedule": fire_schedule_case(ring),
                "user_driver": user_driver_case(ring, one_dir),
                "user_fire": user_fire_case(ring)}
     finally:
@@ -435,6 +534,25 @@ def test_fire_minimize_sharded_matches_jax(runs, ring):
         assert rec["n_steps"] == ref["n_steps"] == its
         np.testing.assert_allclose(rec["energy"], ref["energy"], rtol=1e-9)
         assert rec["velocities_kept"] and not rec["converged"]
+
+
+@pytest.mark.parametrize("ring", RINGS)
+def test_fire_minimize_sharded_rebins_where_the_jax_nesting_does(runs, ring):
+    """The sharded FIRE's rebin steps (its device log), steps and overflow
+    are those of a host loop of the JAX package's nesting, and its energy
+    and positions that loop's, bit for bit (the same plain functions in the
+    same order)."""
+    got = _ring_out(runs, ring)["fire_schedule"]
+    dev, host = got["device"], got["host"]
+    assert (dev["rebins"], dev["n_steps"], dev["overflow"]) == (
+        host["rebins"], host["n_steps"], host["overflow"])
+    assert dev["n_steps"] == FIRE_SCHEDULE_ITERS and not dev["overflow"]
+    assert len(dev["rebins"]) >= 3 and dev["rebins"][0] == 0
+    assert dev["energy"] == host["energy"]
+    np.testing.assert_array_equal(dev["positions"], host["positions"])
+    if ring == "two_ranks":
+        assert runs["ranks"][1]["fire_schedule"]["device"]["rebins"] == \
+            dev["rebins"]
 
 
 def test_sharded_brownian_diffuses_with_per_rank_draws(runs):
