@@ -358,7 +358,24 @@
    iterations on ``bench_fire.py``'s system) eager against captured, bit
    for bit with equal rebuild steps, and its census (one graph launch,
    one read of the result), or the run fails. ``rebuild_vote`` against
-   its plain version in the FIRE phase, beside ``step_below``.
+   its plain version in the FIRE phase, beside ``step_below``. User
+   graph phase: BASELINE config 4 at 65,536 (f64, the pair list) on the
+   captured route (the default on the card for any potential: the user's
+   ``evaluate_r2`` recorded in the WHILE node's body) against
+   ``graph=False``: the user path's NVT (300 steps in 3 segments through
+   ``run_simulation``) from its minimized state, positions, velocities,
+   images, forces, energy, virial, every thermo row and the rebuild steps
+   bit for bit; an NVT and an NVE segment of the slot advance profiled in
+   turns (two graph launches a captured segment, no host read inside, the
+   two routes' end states bit for bit), each captured variant's nodes
+   and the capture's seconds; the slot FIRE (200 iterations at tol 0 from
+   the XYZ start) eager against captured, a second captured call a
+   replay of the first's graph, bit for bit, and its census; then on a
+   one-rank NCCL group of its own the same NVT through
+   ``run_simulation_sharded`` and the sharded FIRE; steps/s and
+   iterations/s both ways and the peak memory after each part, or the
+   run fails. The examples phase runs example 03's user potential
+   captured too (at its published 1200 on the naive engine, timed).
 6. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3265,14 +3282,13 @@ def examples_phase(mt, workdir):
             rec, fails = example_run(mt, name, size, workdir)
             runs.append(rec)
             failures += fails
-            # Particle-order steps (01, 02, 04 and 03's user potential at
-            # their published sizes, on the naive engine) run captured,
-            # one graph launch a step, but for the user potential's (no
-            # kernel functor: eager by design).
+            # Particle-order steps (01-04 at their published sizes, on the
+            # naive engine, 03's user potential too) run captured, one
+            # graph launch a segment.
             steps = ParticleAdvance.steps - before[0]
             graph = ParticleAdvance.graph_steps - before[1]
             rec["particle_steps"], rec["particle_graph_steps"] = steps, graph
-            want = 0 if name.startswith("03") else steps
+            want = steps
             if graph != want or (size == "published"
                                  and not name.startswith("05") and not steps):
                 failures.append(f"{name} {size}: {graph} of {steps} "
@@ -3294,7 +3310,16 @@ def examples_phase(mt, workdir):
                 if pair or engines != {"NaivePairEngine"}:
                     failures.append(f"{name} {size}: engines {engines}, "
                                     f"launches {n}")
+    # Example 03 as published (N = 1200, the naive engine, captured): its
+    # legs' seconds and rates.
+    ex03 = [{k: leg.get(k) for k in ("call", "engine", "s", "iterations",
+                                     "iterations_per_s", "steps",
+                                     "steps_per_s")}
+            for r in runs if r["example"] == "03_polydisperse_2d"
+            and r["size"] == "published" for leg in r["legs"]]
+    log(json.dumps({"example_03_published_captured": ex03}))
     return {"path": "examples", "s": time.perf_counter() - t,
+            "example_03_published": ex03,
             "runs": [{k: r[k] for k in ("example", "size", "s",
                                          "particle_steps",
                                          "particle_graph_steps")}
@@ -4991,6 +5016,232 @@ def sharded_graph_paths(mt, workdir):
     return rec, failures
 
 
+USER_GRAPH_KEYS = ("nodes", "kernels", "copies", "memsets", "conditionals",
+                   "rebuild_flag", "rebuild_vote", "velocity_finish",
+                   "verlet_update", "fire_reduce", "fire_test")
+
+
+def _nodes(census):
+    """The keys of USER_GRAPH_KEYS a census holds."""
+    return {k: census[k] for k in USER_GRAPH_KEYS if k in census}
+
+
+def _fire_census(run, start):
+    """One more run of ``run`` (a captured FIRE) from ``start`` under
+    ``torch.profiler``: its graph launches and host reads, and its
+    graph's and WHILE body's nodes."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(start)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+
+    def count(*names):
+        return sum(e.count for e in avgs if e.key in names)
+
+    fire = run.fire
+    return {"graph_launches": count("cudaGraphLaunch"),
+            "host_reads": count("cudaStreamSynchronize",
+                                "cudaEventSynchronize"),
+            "graph_nodes": _nodes(fire.census["graph"]),
+            "pass_nodes": _nodes(fire.census["pass"])}
+
+
+def _fire_both_ways(make, start, label, failures):
+    """FIRE eager (``graph=False``) and captured from ``start``: the state,
+    f_rms, iterations and rebuild steps bit for bit; iterations/s both
+    ways, the captured one's first call (the capture paid) and a second
+    (a replay, its result the first's), the capture's seconds, its
+    census and the peak memory after it."""
+    runs = {}
+    for route, graph in (("eager", False), ("graph", None), ("again", None)):
+        if route != "again":
+            run = make(graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, f_rms, _, n, ovf = run(start)
+        torch.cuda.synchronize()
+        runs[route] = (st, f_rms, n, ovf, run.fire.rebuild_steps(),
+                       time.perf_counter() - t0)
+    (e, ef, en, eo, er, es), (g, gf, gn, go, gr, gs) = (runs["eager"],
+                                                         runs["graph"])
+    a, af, an, _, ar, as_ = runs["again"]
+    fields = ("positions", "velocities", "forces", "energy", "virial")
+    same = {f: torch.equal(getattr(e, f), getattr(g, f))
+            and torch.equal(getattr(g, f), getattr(a, f)) for f in fields}
+    if not (all(same.values()) and torch.equal(ef, gf)
+            and torch.equal(gf, af) and en == gn == an == N_FIRE_GRAPH
+            and er == gr == ar and not eo and not go
+            and run.fire.captured is not None):
+        failures.append(f"{label}: the routes differ: {same}, n {en} vs "
+                        f"{gn} vs {an}, rebuilds {len(er)} vs {len(gr)} vs "
+                        f"{len(ar)}, overflow {eo} {go}")
+    census = _fire_census(run, start)
+    if census["graph_launches"] != 1 or census["host_reads"] != 1:
+        failures.append(f"{label}: census {census}")
+    return {"iterations": gn, "rebuilds": len(gr), "f_rms": float(gf),
+            "iterations_per_s_eager": en / es,
+            "iterations_per_s_graph_first_call": gn / gs,
+            "iterations_per_s_graph_replay": an / as_,
+            "capture_s": gs - as_, "census": census,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def user_graph_paths(mt, workdir, kept):
+    """BASELINE config 4 at 65,536 (f64, the pair list) on the captured
+    route against ``graph=False``, as the JAX package runs a user's
+    potential inside its jitted loops. ``kept``: the user path's NVT start
+    (its minimized state) and parameters. On one device: the user path's
+    NVT (USER_NVT_STEPS in 3 segments through ``run_simulation``) on both
+    routes, positions, velocities, images, forces, energy, virial, every
+    thermo row and the rebuild steps bit for bit, steps/s both ways; then
+    from the slotified start an NVT and an NVE segment of the slot advance
+    on each route in turns (eager, graph, graph, eager) through
+    ``profile_torch_step.measure``: host ms, the device's span by CUDA
+    events, graph launches and host reads a step (captured: two graph
+    launches a segment, no read), the two routes' end states bit for bit,
+    each captured variant's nodes, and the capture's seconds (a fresh
+    advance's first segment less its second); the slot FIRE from the XYZ
+    start (N_FIRE_GRAPH iterations at USER_DMAX, tol 0) eager against
+    captured (:func:`_fire_both_ways`). Then on a one-rank NCCL group of
+    its own the same NVT through ``run_simulation_sharded`` and the
+    sharded FIRE. Peak memory after each part, beside the card's name and
+    power limit."""
+    import mdtpu_torch.parallel.driver as driver_mod
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.parallel.driver import build_grown, sharded_engine
+    from profile_torch_step import measure
+
+    failures, rec = [], {"card": nvidia_smi_line()}
+    if "nvt_start" not in kept:
+        return rec, ["user graph: the user path left no NVT start"]
+    start, params = kept["nvt_start"], kept["params"]
+    torch.cuda.reset_peak_memory_stats()
+    nvt = mt.NVT(0.5, 0.01)
+
+    def legs(run_fn, label):
+        def run():
+            out = os.path.join(workdir, label)
+            end = run_fn(start, params, nvt, USER_NVT_STEPS, THERMO_EVERY,
+                         out, traj_frequency=USER_NVT_STEPS)
+            return end, out
+        return run
+
+    def both_routes(run_fn, label, owner=None, name="make_slot_advance"):
+        runs, census = {}, []
+        for route, graph in (("eager", False), ("graph", None)):
+            (end, out), rebuilds, seconds = routes_run(
+                graph, legs(run_fn, f"user_graph_{label}_{route}"),
+                census if graph is None else None, owner=owner, name=name)
+            with open(os.path.join(out, "thermo.txt")) as f:
+                rows = f.read()
+            runs[route] = (end, rows, rebuilds, USER_NVT_STEPS / seconds)
+        (e, e_rows, e_reb, e_rate), (g, g_rows, g_reb, g_rate) = (
+            runs["eager"], runs["graph"])
+        same = {f: torch.equal(getattr(e, f), getattr(g, f))
+                for f in ("positions", "velocities", "images", "forces",
+                          "energy", "virial")}
+        if not (all(same.values()) and e_rows == g_rows and e_reb == g_reb
+                and e.step == g.step == start.step + USER_NVT_STEPS):
+            failures.append(f"user graph {label}: the routes differ: "
+                            f"{same}, rows equal {e_rows == g_rows}, "
+                            f"rebuilds {len(e_reb)} vs {len(g_reb)}")
+        out = {"steps": USER_NVT_STEPS, "segments": 3,
+               "rebuilds": len(g_reb), "steps_per_s_eager": e_rate,
+               "steps_per_s_graph": g_rate,
+               "step_nodes": [{v: _nodes(n) for v, n in c.items()}
+                              for c in census],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        log(json.dumps({"user_graph_path": label, **out}))
+        return out
+
+    rec["nvt"] = both_routes(mt.run_simulation, "nvt")
+
+    # Segments of the slot advance, NVT then NVE, each route in turns.
+    eng = mt.select_engine(params.potential, CUTOFF_USER, start)
+    slots, eng = slot_step.slotify_grown(start.replace(nbrs=None), eng)
+    slots = slot_step.slot_forces(slots, eng)
+    rec["segments"] = {}
+    for ens_name, ensemble in (("nvt", nvt), ("nve", mt.NVE())):
+        profiles, ends, census = {"eager": [], "graph": []}, {}, None
+        for route in ("eager", "graph", "graph", "eager"):
+            advance = slot_step.make_slot_advance(
+                params, ensemble, eng,
+                graph=False if route == "eager" else None)
+            end, metrics = measure(advance, slots,
+                                   looped=lambda: bool(advance.graph))
+            metrics.pop("top_device_kernels")
+            profiles[route].append(metrics)
+            ends.setdefault(route, end)
+            if route == "graph":
+                census = {v: _nodes(n) for v, n in advance.census.items()}
+        same = {f: torch.equal(getattr(ends["eager"], f),
+                               getattr(ends["graph"], f))
+                for f in ("positions", "velocities", "forces", "energy",
+                          "virial")}
+        if not all(same.values()):
+            failures.append(f"user graph {ens_name} segments: the routes "
+                            f"differ: {same}")
+        if any(m["host_syncs_per_step"] or round(
+                m["graph_launches_per_step"] * m["profiled_steps"]) != 2
+               for m in profiles["graph"]):
+            failures.append(f"user graph {ens_name}: host reads or graph "
+                            f"launches inside a captured segment "
+                            f"{profiles['graph']}")
+        # The capture's seconds: a fresh advance's first segment (both
+        # variants captured) less its second.
+        advance = slot_step.make_slot_advance(params, ensemble, eng)
+        times, s = [], slots
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = advance(s, 3)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rec["segments"][ens_name] = {
+            "profiles": profiles, "nodes": census,
+            "capture_s": times[0] - times[1], "first_segment_s": times[0],
+            "second_segment_s": times[1],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        log(json.dumps({"user_graph_segments": ens_name,
+                        **rec["segments"][ens_name]}))
+    del slots, advance
+
+    # The slot FIRE from the XYZ start.
+    fstart, fparams = user_start(mt, os.path.join(workdir, "user_graph"))
+    feng = mt.select_engine(fparams.potential, CUTOFF_USER, fstart,
+                            workload="minimize")
+    fslots, feng = slot_step.slotify_grown(fstart, feng)
+    rec["fire"] = _fire_both_ways(
+        lambda graph: fire_mod.make_slot_fire(
+            feng, max_steps=N_FIRE_GRAPH, tol=0.0, dmax=USER_DMAX,
+            graph=graph, cached=False), fslots, "user graph fire", failures)
+    log(json.dumps({"user_graph_fire": rec["fire"]}))
+    del fslots
+
+    # The sharded route on a one-rank NCCL group of its own.
+    dist = nccl_group(workdir, "nccl_store_user_graph")
+    try:
+        rec["sharded_nvt"] = both_routes(
+            mt.run_simulation_sharded, "sharded_nvt", owner=driver_mod,
+            name="make_sharded_slot_advance")
+        sengine = sharded_engine(fstart, fparams.potential, None, None,
+                                 None)
+        ssh, sengine = build_grown(fstart.replace(nbrs=None), sengine)
+        rec["sharded_fire"] = _fire_both_ways(
+            lambda graph: fire_mod.make_slot_fire(
+                sengine, ring=sengine.ring, max_steps=N_FIRE_GRAPH, tol=0.0,
+                dmax=USER_DMAX, graph=graph, cached=False), ssh,
+            "user graph sharded fire", failures)
+        log(json.dumps({"user_graph_sharded_fire": rec["sharded_fire"]}))
+    finally:
+        dist.destroy_process_group()
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return rec, failures
+
+
 def lattice_start():
     """The bench's lattice start (jitter 0.01, f32) on the card."""
     from mdtpu_torch.sim.initialization import lattice_fluid_state
@@ -5670,7 +5921,10 @@ def own_launches(n):
         "fire_move": n["fire_move"], "fire_test": n["fire_test"]}
 
 
-def run_paths(mt, workdir):
+def run_paths(mt, workdir, kept=None):
+    """Every path, each with the counts set to 0 just before it; ``kept``
+    receives the user path's NVT start and parameters (the user graph
+    phase's)."""
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.integrate import step as step_mod
     from mdtpu_torch.io import native_writer
@@ -5709,7 +5963,7 @@ def run_paths(mt, workdir):
         mt, workdir, "b1_tilted", state_tilted(mt, torch.float32),
         mt.Parameters(density=0.8, n_particles=N_BENCH, dt=0.002,
                       potential=lj), mt.NVT(1.0, 0.4)))
-    kept = {}
+    kept = {} if kept is None else kept
     user, f9 = counted(lambda: user_path(mt, workdir, kept))
     resume, f10 = counted(lambda: resume_path(mt, workdir))
     nlp, f11 = counted(lambda: md_path(
@@ -5903,7 +6157,7 @@ def run_paths(mt, workdir):
     # iteration (the test once more at each minimization's entry), and its
     # slots' drift test once an iteration; the sharded FIRE launches the
     # reduction and the test three ways apart (the ring's all-reduces
-    # between), the user path (config 4, eager) as the slot FIRE does. No
+    # between), the user path (config 4, captured) as the slot FIRE does. No
     # torch composition of the update is left to count.
     iters = N_FIRE_ITERS + N_FIRE_DESCENT
     n = fire["launches"]
@@ -6038,7 +6292,8 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
     failures += fire_failures
     log(f"kernel and probe phases: {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
-        paths, path_failures = run_paths(mt, workdir)
+        user_kept = {}
+        paths, path_failures = run_paths(mt, workdir, user_kept)
         failures += path_failures
         t = time.perf_counter()
         graph_rec, graph_failures = graph_paths(mt, workdir)
@@ -6057,6 +6312,12 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
                                                                   workdir)
         failures += sharded_graph_failures
         log(f"sharded graph phase: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        user_graph_rec, user_graph_failures = user_graph_paths(
+            mt, workdir, user_kept)
+        failures += user_graph_failures
+        del user_kept
+        log(f"user graph phase: {time.perf_counter() - t:.1f} s")
 
     def entry(name, source, replaces, launches, rec, extra=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -6427,6 +6688,11 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
                     "graph_step_nodes": {
                         e: r["nodes"] for e, r in
                         graph_rec["segment_profile"].items()}}))
+    log(json.dumps({"user_graph": {
+        k: v for k, v in user_graph_rec.items() if k != "segments"},
+        "user_graph_segments": {
+            e: {k: r[k] for k in ("nodes", "capture_s", "peak_memory_bytes")}
+            for e, r in user_graph_rec.get("segments", {}).items()}}))
     log(json.dumps({"compute_slots_ms": {
         f"{k}_{case}_{tag}": r["ms"] for (k, case, tag), r in
         slab_results.items() if k.endswith("compute_slots")}}))

@@ -43,7 +43,14 @@ path is held to), ``chip_smoke.py``'s sharded path (600 NVT + 500 NVE
 through ``run_simulation_sharded``, its steps/s) and its sharded FIRE
 path (20 iterations through ``fire_minimize_sharded``, its iterations/s
 and each replay's span by events), both on a one-rank NCCL group formed
-in the worker (~5 min). The host's clock moves
+in the worker (~5 min); ``--only user``: BASELINE config 4's step in slots
+and sharded (``--potential user``: the pair list; captured and, ``--eager``,
+launched step by step; a tree whose user routes are eager runs them eagerly
+both times), then ``chip_smoke.py``'s user path (``minimize``'s 1000 FIRE
+iterations and 300 NVT steps at 65,536, their iterations/s, steps/s and
+seconds, a capture included where the tree captures) and its sharded user
+path (``fire_minimize_sharded`` and ``run_simulation_sharded`` of the same,
+on a one-rank NCCL group). The host's clock moves
 with the machine and with what
 else runs on it, so two trees are compared only within one such call.
 Prints one JSON line per tree and run: each profile's host ms, device busy
@@ -97,7 +104,13 @@ ENGINES = {"cellgrid": ("--engine", "cellgrid"),
            "slot_brownian_plain_launch": ("--engine", "slot", "--brownian",
                                           "--plain-launch"),
            "sharded": ("--engine", "sharded"),
-           "sharded_eager": ("--engine", "sharded", "--eager")}
+           "sharded_eager": ("--engine", "sharded", "--eager"),
+           "slot_user": ("--engine", "slot", "--potential", "user"),
+           "slot_user_eager": ("--engine", "slot", "--potential", "user",
+                               "--eager"),
+           "sharded_user": ("--engine", "sharded", "--potential", "user"),
+           "sharded_user_eager": ("--engine", "sharded", "--potential",
+                                  "user", "--eager")}
 
 
 ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
@@ -107,13 +120,15 @@ ONLY = {"slot": (("slot", "slot_eager", "slot_brownian",
                       "neighbor", "neighbor_eager", "plane_brownian",
                       "plane_brownian_eager"), ("b2", "nl", "brownian")),
         "sharded": (("sharded", "sharded_eager"),
-                    ("b1", "sharded", "sharded_fire"))}
+                    ("b1", "sharded", "sharded_fire")),
+        "user": (("slot_user", "slot_user_eager", "sharded_user",
+                  "sharded_user_eager"), ("user", "sharded_user"))}
 PATHS = ("b1", "b2", "nl", "brownian", "brownian_slot", "fire", "pack",
-         "sharded", "sharded_fire")
+         "sharded", "sharded_fire", "user", "sharded_user")
 # The paths whose CUDA graph replays are timed by events.
 REPLAY_TIMED = ("fire", "pack", "sharded_fire")
 # The paths that run on a one-rank NCCL group.
-SHARDED = ("sharded", "sharded_fire")
+SHARDED = ("sharded", "sharded_fire", "sharded_user")
 
 
 @contextlib.contextmanager
@@ -150,7 +165,7 @@ def paths_worker(tree, only=PATHS):
     import mdtpu_torch as mt
     from mdtpu_torch.ops.experimental import PlaneEngine
 
-    out, failures, recs, group = {}, [], {}, []
+    out, failures, recs, group, kept = {}, [], {}, [], {}
     with tempfile.TemporaryDirectory() as workdir, \
             contextlib.ExitStack() as stack:
         for label, run in (
@@ -173,7 +188,10 @@ def paths_worker(tree, only=PATHS):
                 ("pack", lambda: chip_smoke.pack_path(mt, workdir)),
                 ("sharded", lambda: chip_smoke.sharded_path(
                     mt, workdir, recs["b1"]["thermo_nvt"])),
-                ("sharded_fire", lambda: chip_smoke.sharded_fire_path(mt))):
+                ("sharded_fire", lambda: chip_smoke.sharded_fire_path(mt)),
+                ("user", lambda: chip_smoke.user_path(mt, workdir, kept)),
+                ("sharded_user", lambda: chip_smoke.sharded_user_path(
+                    mt, workdir, kept))):
             if label not in only:
                 continue
             if label in SHARDED and not group:
@@ -190,6 +208,10 @@ def paths_worker(tree, only=PATHS):
                 out[f"{label}_replay_ms"] = spans
                 out[f"{label}_replay_ms_per_iteration"] = (
                     spans[-1] / rec["iterations"] if spans else None)
+            elif label in ("user", "sharded_user"):
+                for k in ("iterations_per_s", "steps_per_s", "fire_s",
+                          "nvt_s", "fire_iterations"):
+                    out[f"{label}_{k}"] = rec[k]
             elif label == "pack":
                 out["pack_seconds"] = rec["seconds"]
                 out["pack_fire_iterations"] = rec["fire_iterations"]
@@ -240,7 +262,8 @@ def main():
                         "fire: the captured slot step, FIRE's iterations/s "
                         "and the packing's seconds; sharded: the sharded "
                         "step, the b1 and sharded paths and the sharded "
-                        "FIRE")
+                        "FIRE; user: config 4's step in slots and sharded "
+                        "and its single-device and sharded paths")
     args = parser.parse_args()
     if args.paths_worker:
         return paths_worker(args.paths_worker, args.paths.split(","))

@@ -9,7 +9,13 @@ is drawn with the same numpy generator, so both start from the same bytes.
 ``main(device="cpu")`` runs it on the CPU (the kernels' plain versions).
 No kernel has a functor for a user's potential: on the cell grid (N above
 2048) it runs on the pair list, its ``evaluate`` in torch on the listed
-pairs (see ``mdtpu_torch/potentials/base.py``)."""
+pairs, and at the published N on the naive engine's tiles (see
+``mdtpu_torch/potentials/base.py``). On the card ``minimize`` and each
+segment of ``run_simulation`` are captured into CUDA graphs, the
+potential's torch operations inside them, as the JAX package traces this
+``evaluate`` into its jitted loops: so it keeps the capture contract that
+file states (no read back to the host, no tensor made from host data, no
+Python branch on a value)."""
 
 import dataclasses
 import os
@@ -35,7 +41,9 @@ class NonAdditivePHS(Potential):
     Written to the port's potential contract: torch operations that
     broadcast over tensors of r, sigma_i and sigma_j, scalars as Python
     numbers rounded to the working dtype (no tensor made per call, no read
-    back to the host), exact zeros beyond the cutoff."""
+    back to the host, no branch on a value: on the card it runs inside a
+    CUDA graph, captured once and replayed every step), exact zeros beyond
+    the cutoff."""
 
     lam: int = 12
 

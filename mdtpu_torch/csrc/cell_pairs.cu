@@ -742,7 +742,8 @@ __global__ void __launch_bounds__(kReduceThreads,
                        int64_t n_slots, const T* __restrict__ u,
                        const T* __restrict__ f, const T* __restrict__ disp,
                        const T* __restrict__ r2, T* __restrict__ force,
-                       T* e_part, T* w_part, T* __restrict__ ew) {
+                       T* e_part, T* w_part, T* __restrict__ e_out,
+                       T* __restrict__ w_out) {
   __shared__ T warp_e[32], warp_w[32];
   __shared__ bool last;
   const int64_t s = (int64_t)blockIdx.x * kReduceThreads + threadIdx.x;
@@ -793,8 +794,8 @@ __global__ void __launch_bounds__(kReduceThreads,
   }
   block_sum2(e, w, warp_e, warp_w);
   if (threadIdx.x == 0) {
-    ew[0] = T(0.5) * e;
-    ew[1] = T(0.5) * w;
+    *e_out = T(0.5) * e;
+    *w_out = T(0.5) * w;
     g_reduce_ticket = 0;
   }
 }
@@ -875,14 +876,14 @@ template <typename T, bool STAGED>
 int reduce(const int64_t* seg_start, const int* seg_count,
            long long capacity, long long n_slots, int dim, const T* u,
            const T* f, const T* disp, const T* r2, T* force, T* e_part,
-           T* w_part, T* ew, void* stream_ptr) {
+           T* w_part, T* e_out, T* w_out, void* stream_ptr) {
   if (dim != 2 && dim != 3) return kErrGrid;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int blocks = (int)((n_slots + kReduceThreads - 1) / kReduceThreads);
   auto launch = [&](auto kernel) {
     kernel<<<blocks, kReduceThreads, 0, stream>>>(
         seg_start, seg_count, (int64_t)capacity, (int64_t)n_slots, u, f,
-        disp, r2, force, e_part, w_part, ew);
+        disp, r2, force, e_part, w_part, e_out, w_out);
     return (int)cudaGetLastError();
   };
   if (dim == 2)
@@ -896,13 +897,13 @@ template <typename T>
 int reduce_by(int staged, const int64_t* seg_start, const int* seg_count,
               long long capacity, long long n_slots, int dim, const T* u,
               const T* f, const T* disp, const T* r2, T* force, T* e_part,
-              T* w_part, T* ew, void* stream) {
+              T* w_part, T* e_out, T* w_out, void* stream) {
   return staged ? reduce<T, true>(seg_start, seg_count, capacity, n_slots,
                                   dim, u, f, disp, r2, force, e_part, w_part,
-                                  ew, stream)
+                                  e_out, w_out, stream)
                 : reduce<T, false>(seg_start, seg_count, capacity, n_slots,
                                    dim, u, f, disp, r2, force, e_part, w_part,
-                                   ew, stream);
+                                   e_out, w_out, stream);
 }
 
 }  // namespace
@@ -967,20 +968,21 @@ int mdtpu_cell_pairs_hilo_f32(
       sig_j_out, list_len, out_len, smem_bytes, threads, fill, stream);
 }
 
-// u = null: the lean reduction (forces only; e_part, w_part and ew
-// unused). Otherwise e_part and w_part hold one partial per block of
-// kReduceThreads slots, and ew (2,) receives 0.5 sum u and 0.5 sum f r^2.
+// u = null: the lean reduction (forces only; e_part, w_part, e_out and
+// w_out unused). Otherwise e_part and w_part hold one partial per block of
+// kReduceThreads slots, and e_out and w_out receive 0.5 sum u and 0.5 sum
+// f r^2 (the caller's energy and virial).
 // staged: each block's run of the list through shared memory (lists of
 // long segments), else each thread walks its segment.
 int mdtpu_pair_reduce_f32(const int64_t* seg_start, const int* seg_count,
                           long long capacity, long long n_slots, int dim,
                           const float* u, const float* f, const float* disp,
                           const float* r2, float* force, float* e_part,
-                          float* w_part, float* ew, int staged,
-                          void* stream) {
+                          float* w_part, float* e_out, float* w_out,
+                          int staged, void* stream) {
   return reduce_by<float>(staged, seg_start, seg_count, capacity, n_slots,
-                          dim, u, f, disp, r2, force, e_part, w_part, ew,
-                          stream);
+                          dim, u, f, disp, r2, force, e_part, w_part, e_out,
+                          w_out, stream);
 }
 
 int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
@@ -988,10 +990,11 @@ int mdtpu_pair_reduce_f64(const int64_t* seg_start, const int* seg_count,
                           const double* u, const double* f,
                           const double* disp, const double* r2,
                           double* force, double* e_part, double* w_part,
-                          double* ew, int staged, void* stream) {
+                          double* e_out, double* w_out, int staged,
+                          void* stream) {
   return reduce_by<double>(staged, seg_start, seg_count, capacity, n_slots,
-                           dim, u, f, disp, r2, force, e_part, w_part, ew,
-                           stream);
+                           dim, u, f, disp, r2, force, e_part, w_part, e_out,
+                           w_out, stream);
 }
 
 const char* mdtpu_cell_pairs_error_string(int code) {

@@ -30,6 +30,8 @@ from mdtpu_torch.core.types import NVT, SimulationState
 from mdtpu_torch.integrate import verlet_update
 from mdtpu_torch.integrate.velocity_finish import TargetTable, finish_buffer
 from mdtpu_torch.ops import philox_draws
+from mdtpu_torch.potentials.base import (CaptureContractError,
+                                         abandon_capture, checking_contract)
 from mdtpu_torch.utils import counters
 
 # The tensors of a state that a step or a rebuild may replace (those that
@@ -92,6 +94,21 @@ def clone(state: SimulationState, step=None) -> SimulationState:
                                 if n == "temperature"
                                 else getattr(state, n).clone())
                             for n in state_names(state) if n != "step"})
+
+
+def settle_graph(graph, device) -> bool:
+    """Whether a loop on ``device`` runs captured: ``graph=None`` captures
+    on the card and runs eagerly on the CPU, whatever the potential (a
+    user's runs captured too: the capture contract of
+    :mod:`mdtpu_torch.potentials.base`); False runs eagerly; True raises on
+    the CPU. The one rule of the advances' segments and FIRE's
+    minimization."""
+    cuda = torch.device(device).type == "cuda"
+    if graph is None:
+        return cuda
+    if graph and not cuda:
+        raise ValueError("graph=True takes a CUDA state")
+    return bool(graph)
 
 
 def capturing(device) -> bool:
@@ -213,11 +230,19 @@ def capture(device, warm, program):
     before = counters.snapshot()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        warm()
+    # The warm-up runs each potential under the capture contract's guard
+    # and in a trial capture of its own: a potential that breaks the
+    # contract raises before the loop's capture begins.
+    try:
+        with torch.cuda.stream(side), checking_contract():
+            warm()
+    except Exception:
+        counters.restore(before)
+        raise
     torch.cuda.current_stream(device).wait_stream(side)
     graph, pools, counts = torch.cuda.CUDAGraph(), [], LoopCounts()
     start = counters.snapshot()
+    stream = torch.cuda.current_stream(device)
     # A collection during the capture could free an earlier graph or pool
     # kept alive by a reference cycle, which the runtime refuses while a
     # stream captures: collect first, and hold the collector off until the
@@ -228,12 +253,33 @@ def capture(device, warm, program):
     try:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             program(pools, counts)
+    except Exception as exc:
+        abandon_capture(graph, stream)
+        counters.restore(before)
+        named = contract_error(exc)
+        if named is None or named is exc:
+            raise
+        raise CaptureContractError(str(named)) from exc
     finally:
         if collecting:
             gc.enable()
     counts.close(counters.difference(counters.snapshot(), start))
     counters.restore(before)
     return graph, pools, counts
+
+
+def contract_error(exc):
+    """The :class:`~mdtpu_torch.potentials.base.CaptureContractError` in
+    the chain of ``exc`` (a failed capture raises again on its way out, so
+    the potential's error may sit in the context of a later one), or
+    None."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if isinstance(exc, CaptureContractError):
+            return exc
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return None
 
 
 class DeviceAdvance:
@@ -415,16 +461,9 @@ class DeviceAdvance:
         counts.add(times, 0 if first is None else (first,
                                                    self.rebuilds.clone()))
 
-    def _resolve_graph(self, state, eager_only):
-        """Settle ``graph=None`` for ``state``: captured on the card unless
-        ``eager_only`` (a potential without a kernel functor: a user's
-        evaluation may do host work); ``graph=True`` raises where it cannot
-        be had."""
-        if self.graph is None:
-            self.graph = state.device.type == "cuda" and not eager_only
-        elif self.graph and (state.device.type != "cuda" or eager_only):
-            raise ValueError("graph=True takes a CUDA state and a potential "
-                             "with a kernel functor")
+    def _resolve_graph(self, state):
+        """Settle ``graph`` for ``state`` (:func:`settle_graph`)."""
+        self.graph = settle_graph(self.graph, state.device)
 
     def rebuild_steps(self):
         """The steps in which this advance rebuilt, in order (the first

@@ -529,7 +529,7 @@ class SlotAdvance(DeviceAdvance):
     def __call__(self, state: SimulationState, k: int) -> SimulationState:
         if k <= 0:
             return state
-        self._resolve_graph(state, self.engine.uses_pair_list)
+        self._resolve_graph(state)
         base = state.step
         self._load(state)
         self._fill_table(base, k)
@@ -601,11 +601,12 @@ def make_slot_advance(params: Parameters, ensemble, engine: CellGridEngine,
     On one device this is a :class:`SlotAdvance`: the step counter, NVT's
     target temperature, every draw and the rebuild decision on the device.
     ``graph``: None captures the steps into CUDA graphs on the card (one
-    graph launch a segment variant, no host read inside a segment) and runs
-    them eagerly on the CPU and for a potential without a kernel functor
-    (the pair list's route: a user's ``evaluate_r2`` may do host work);
-    False runs eagerly on the card too (the flag read on the host once a
-    step); True asks for the graphs.
+    graph launch a segment variant, no host read inside a segment), a
+    potential without a kernel functor too (the pair list's route, the
+    user's ``evaluate_r2`` captured in the WHILE node's body under the
+    capture contract of :mod:`mdtpu_torch.potentials.base`), and runs them
+    eagerly on the CPU; False runs eagerly on the card too (the flag read on
+    the host once a step); True asks for the graphs (raises on the CPU).
 
     An engine whose rebuild moves rows between ranks
     (``rebin_unconditional``, the sharded

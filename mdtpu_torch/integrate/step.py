@@ -31,7 +31,6 @@ from mdtpu_torch.integrate.device_advance import (DeviceAdvance, clone,
 from mdtpu_torch.integrate.velocity_finish import (finish_pair,
                                                    velocity_finish)
 from mdtpu_torch.ops import philox_draws
-from mdtpu_torch.ops.cell_sweep import kernel_params
 from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.math import kahan_add
 
@@ -386,8 +385,7 @@ class ParticleAdvance(DeviceAdvance):
             state, k = self.first_fn(state), k - 1
             if k == 0:
                 return state
-        self._resolve_graph(state,
-                            kernel_params(self.engine.potential) is None)
+        self._resolve_graph(state)
         if self.bufs is None:
             self._untested = self._never_rebuilds(state)
         base = state.step
@@ -405,13 +403,15 @@ def make_particle_advance(params: Parameters, ensemble, engine,
     engine that does not run in slots (``PlaneEngine``, the neighbour
     list, the naive engine) and of any run with ``compensated=False``.
 
-    ``graph``: None captures each step into a CUDA graph on the card (one
-    graph launch a step, no host read inside a segment) and runs eagerly
-    on the CPU and for a potential without a kernel functor (a user's
-    ``evaluate_r2`` may do host work); False runs eagerly on the card too
-    (the rebuild flag read on the host once a step); True asks for the
-    graphs. The steps, the rebuild steps and the bits are those of
-    :func:`make_step` in a loop."""
+    ``graph``: None captures the segment into a CUDA graph on the card (one
+    graph launch a segment, no host read inside it), a potential without a
+    kernel functor too (its ``evaluate_r2`` on the naive engine's or the
+    neighbour list's tiles captured, under the capture contract of
+    :mod:`mdtpu_torch.potentials.base`), and runs eagerly on the CPU;
+    False runs eagerly on the card too (the rebuild flag read on the host
+    once a step); True asks for the graphs (raises on the CPU). The steps,
+    the rebuild steps and the bits are those of :func:`make_step` in a
+    loop."""
     step = make_step(params, ensemble, engine, compensated, hilo=hilo,
                      in_place=True)
     first = make_step(params, ensemble, engine, compensated, hilo=hilo)

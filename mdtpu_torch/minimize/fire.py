@@ -20,14 +20,15 @@ node looping the iteration with the rebuild in an IF node nested in it; the
 result costs one host read at the end. The graph is captured once for each
 engine, layout and set of hyper-parameters (``max_steps`` and ``tol`` are
 device values) and reused across calls; a grown-capacity retry, whose
-engine serves one run, runs eagerly and is not kept. On the CPU, with
-``graph=False``
-and for a potential without a kernel functor (a user's evaluation may do
-host work) the same code runs eagerly, reading the loop's flags on the host
-once an iteration (particle order: once more where the engine tests for a
-rebuild). The sharded FIRE is the same program over a shard ring, its
-reductions and test split where the JAX package has ``pmax``/``psum``,
-the ring's all-reduces between, captured like the rest on the card.
+engine serves one run, runs eagerly and is not kept. A potential without a
+kernel functor is captured too, its ``evaluate_r2`` in the WHILE node's
+body (the capture contract of :mod:`mdtpu_torch.potentials.base`). On the
+CPU and with ``graph=False`` the same code runs eagerly, reading the
+loop's flags on the host once an iteration (particle order: once more
+where the engine tests for a rebuild). The sharded FIRE is the same
+program over a shard ring, its reductions and test split where the JAX
+package has ``pmax``/``psum``, the ring's all-reduces between, captured
+like the rest on the card.
 """
 
 from __future__ import annotations
@@ -42,10 +43,10 @@ from mdtpu_torch.integrate import slot_step as slots
 from mdtpu_torch.integrate.device_advance import (REBUILD_LOG, capture,
                                                   capturing, clone, copy_into,
                                                   device_if, device_while,
-                                                  layout, noting)
+                                                  layout, noting,
+                                                  settle_graph)
 from mdtpu_torch.minimize import fire_update as fu
 from mdtpu_torch.ops import philox_draws
-from mdtpu_torch.ops.cell_sweep import kernel_params
 from mdtpu_torch.utils import counters
 from mdtpu_torch.utils.device import resolve_device
 
@@ -65,8 +66,8 @@ def fire_minimize(state: SimulationState, params: Parameters, engine, *,
     energy, converged, n_steps)``. ``device``: where it runs, ``"cuda"`` by
     default (raises without a card unless the caller passes ``"cpu"``).
     ``graph``: None runs each minimization as one CUDA graph launch on the
-    card and eagerly on the CPU and for a potential without a kernel
-    functor; False eagerly on the card too; True asks for the graph.
+    card (any potential) and eagerly on the CPU; False eagerly on the card
+    too; True asks for the graph (raises on the CPU).
 
     Engine capacity overflow would truncate forces and let the force test
     converge on a configuration that still has contacts: the run is retried
@@ -123,10 +124,10 @@ class DeviceFire:
     :func:`fire_update.fire_reduce`, :func:`fire_update.fire_move`, the
     sweep and :func:`fire_update.fire_test`, the rebuild inside
     :func:`~mdtpu_torch.integrate.device_advance.device_if`. ``graph``
-    (settled as :meth:`DeviceAdvance._resolve_graph
-    <mdtpu_torch.integrate.device_advance.DeviceAdvance._resolve_graph>`
-    settles it): on the card the program is captured once into a CUDA graph
-    (after a warm-up of it on copies of the buffers) and each call is one
+    (settled by :func:`~mdtpu_torch.integrate.device_advance.
+    settle_graph`, as the advances settle it): on the card the program is
+    captured once into a CUDA graph (after a warm-up of it on copies of the
+    buffers) and each call is one
     replay and one host read of the counters; eagerly it runs as written,
     the loop's flags read on the host. ``census`` holds the captured
     graph's top-level nodes (``"graph"``) and the WHILE node's body
@@ -146,9 +147,6 @@ class DeviceFire:
         raise NotImplementedError
 
     def _rebuilt(self, b):
-        raise NotImplementedError
-
-    def _eager_only(self, state):
         raise NotImplementedError
 
     # -- buffers ---------------------------------------------------------
@@ -255,12 +253,7 @@ class DeviceFire:
         """The minimization from ``state``: ``(buffers' state, f_rms (0-d),
         converged, n_steps, overflow, rebuilds)`` (host values but f_rms);
         one host read of the counters at the end."""
-        capturable = (state.device.type == "cuda"
-                      and not self._eager_only(state))
-        graph = capturable if self.graph is None else self.graph
-        if graph and not capturable:
-            raise ValueError("graph=True takes a CUDA state and a potential "
-                             "with a kernel functor")
+        graph = self._settle(state)
         self._load(state)
         b, x = self.bufs
         self._inputs(x, max_steps, tol)
@@ -275,6 +268,11 @@ class DeviceFire:
             self.captured[2].add(ints[fu.PASSES], ints[fu.REBINS])
         return (b, x.scal[fu.FRMS].clone(), bool(ints[fu.CONVERGED]),
                 ints[fu.STEP], bool(ints[fu.OVERFLOW]), ints[fu.REBINS])
+
+    def _settle(self, state):
+        """Whether a run from ``state`` is captured
+        (:func:`~mdtpu_torch.integrate.device_advance.settle_graph`)."""
+        return settle_graph(self.graph, state.device)
 
     def rebuild_steps(self):
         """The steps after which the last run rebuilt (a host read)."""
@@ -335,9 +333,6 @@ class SlotFire(DeviceFire):
     def __init__(self, engine, hyper, graph, ring=None):
         super().__init__(engine, hyper, graph)
         self.ring = ring
-
-    def _eager_only(self, state):
-        return self.engine.uses_pair_list
 
     def _rebuilt(self, b):
         return slots._engine_rebin(b, self.engine)
@@ -448,9 +443,6 @@ class RowFire(DeviceFire):
 
     def _ndof(self, state):
         return state.dimension * (state.n_particles - 1.0)
-
-    def _eager_only(self, state):
-        return kernel_params(self.engine.potential) is None
 
     def _load(self, state):
         if self._untested is None:
@@ -642,8 +634,8 @@ def fire_minimize_sharded(state: SimulationState, params: Parameters,
     velocities; on a capacity or migration overflow the run is retried from
     the start on a grown engine. ``graph`` as in :func:`fire_minimize`: on
     the card each minimization is one CUDA graph launch, the ring's
-    all-reduces captured inside (True raises on the CPU and for a potential
-    without a kernel functor)."""
+    all-reduces captured inside, for any potential (True raises on the
+    CPU)."""
     from mdtpu_torch.core.types import state_to
     from mdtpu_torch.parallel.driver import build_grown, sharded_engine
     from mdtpu_torch.parallel.halo_slot import unshard_slot_state

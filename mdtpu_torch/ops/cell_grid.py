@@ -252,12 +252,15 @@ class CellGridEngine:
                           self.cutoff, self.potential)
 
     def _pair_sweep(self, slot_pos, slot_diam, counts, cell, nbrs,
-                    observables=True, slot_lo=None):
-        """The pair-list route; its overflow joins the engine state's."""
+                    observables=True, slot_lo=None, out=None,
+                    scalars_out=None):
+        """The pair-list route (its reduction writing the forces into
+        ``out`` and a full sweep's energy and virial into ``scalars_out``
+        where given); its overflow joins the engine state's."""
         energy, virial, force, over = pair_sweep(
             slot_pos, slot_diam, counts, cell, self.grid, self.cutoff,
             self.potential, self.pair_list_capacity, observables, slot_lo,
-            workspace=self.pair_workspace)
+            workspace=self.pair_workspace, out=out, scalars_out=scalars_out)
         return energy, virial, force, dataclasses.replace(
             nbrs, overflow=nbrs.overflow | over)
 
@@ -269,11 +272,12 @@ class CellGridEngine:
         within skin/2 of their home cells (deferred wrap), so the sweep runs
         on them as they are: no scatter, no gather, no minimum image. Forces
         come back in slot order, written into ``out`` where given (the
-        sweep kernels write them there; a plain sweep's are copied in), and
-        on a full sweep energy and virial into ``scalars_out``, a pair of
-        0-d tensors, where given (B1 sums them in its last block on the
-        card; the pair list's are copied in). ``observables=False`` runs the
-        lean sweep (energy and virial zero). ``pos_lo``: the positions' lo
+        sweep kernels and the pair list's reduction write them there; a
+        plain sweep's are copied in), and on a full sweep energy and virial
+        into ``scalars_out``, a pair of 0-d tensors, where given (B1 and
+        the reduction sum them in their last block on the card).
+        ``observables=False`` runs the lean sweep (energy and virial
+        zero). ``pos_lo``: the positions' lo
         words for the hi/lo sweep, taken as given (deferred wrap keeps the
         image at 0 between rebuilds, so there is no image shift to fold
         in). ``cell_inv`` is unused; it keeps the JAX package's
@@ -282,7 +286,7 @@ class CellGridEngine:
         if self.uses_pair_list:
             energy, virial, forces, nbrs = self._pair_sweep(
                 positions, diameters, nbrs.counts, cell, nbrs, observables,
-                pos_lo)
+                pos_lo, out, scalars_out)
         else:
             # The kernels write into ``out`` and ``scalars_out``; a plain
             # sweep's new results are copied in below.

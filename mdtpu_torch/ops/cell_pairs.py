@@ -41,7 +41,10 @@ versions :func:`pair_list_plain` and :func:`pair_reduce_plain`, which give
 the same list in the same order. Each wrapper adds one to its ``launches``
 where it launches its kernels (the list's count and fill passes count as
 one launch of the list; a launch over a run of cells also to
-``pair_list.slab_launches``).
+``pair_list.slab_launches``); the counters are registered with
+:mod:`mdtpu_torch.utils.counters`, so they stay true under CUDA-graph
+replay (on the card a segment or a minimization of a user potential is
+captured, its list and reduction in the WHILE node's body).
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from mdtpu_torch.ops.cell_sweep import (MAX_CAPACITY, MAX_SHARED_BYTES,
                                         PairTiles, as_cell, check_cuda,
                                         check_inputs, check_interior,
                                         lean_zero, stencil_cells)
+from mdtpu_torch.potentials.base import potential_values
+from mdtpu_torch.utils import counters
 
 NAME = "cell_pairs"
 REDUCE_THREADS = 256      # threads of a reduction block
@@ -99,8 +104,8 @@ _LIST_ARGS = ((_P,) * 4 + (_I,) * 8 + (_D,) + (_P,) * 6 + (_L,) + (_P,) * 5
               + (_I,) * 5 + (_P,))
 # Per-slot starts and counts, the capacity and slot count, the dimension,
 # u (or null), f, the displacements and r^2, the force, the energy and
-# virial partials, energy and virial (2,), staged or not, the stream.
-_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 8 + (_I, _P)
+# virial partials, energy, virial, staged or not, the stream.
+_REDUCE_ARGS = (_P,) * 2 + (_L,) * 2 + (_I,) + (_P,) * 9 + (_I, _P)
 _SIGNATURES = (("mdtpu_cell_pairs_f32", _LIST_ARGS),
                ("mdtpu_cell_pairs_f64", _LIST_ARGS),
                ("mdtpu_cell_pairs_hilo_f32", (_P,) + _LIST_ARGS),
@@ -410,48 +415,70 @@ def pair_list_plain(slot_pos, slot_diam, counts, box, grid, cutoff,
                     **buf)
 
 
-def pair_reduce(plist, f_over_r, u=None):
+def pair_reduce(plist, f_over_r, u=None, out=None, scalars_out=None):
     """``(energy, virial, slot_forces)`` from the list and the potential's
     values on it: per slot the sum of ``f_over_r * disp`` over its segment
     in list order, ``0.5 sum u`` and ``0.5 sum f_over_r r2`` (``u=None``: a
     lean reduction, energy and virial one zero made once,
-    :func:`~mdtpu_torch.ops.cell_sweep.lean_zero`). CUDA tensors launch the
-    kernel (or raise), one launch a call: energy and virial are views of
-    the kernel's own ``(2,)`` output; a list of long segments takes its
-    staged variant (:func:`staged_reduce`), with the same bits. CPU tensors
-    take :func:`pair_reduce_plain`. Each launch adds one to
-    ``pair_reduce.launches``, a lean one also to
+    :func:`~mdtpu_torch.ops.cell_sweep.lean_zero`). ``out``: the ``(d,
+    n_slots)`` tensor the forces go into; ``scalars_out``: the ``(energy,
+    virial)`` 0-d tensors a full reduction writes (new ones where None), as
+    B1 writes the caller's. CUDA tensors launch the kernel (or raise), one
+    launch a call, which writes them there; a list of long segments takes
+    its staged variant (:func:`staged_reduce`), with the same bits. CPU
+    tensors take :func:`pair_reduce_plain`, its results copied in. Each
+    launch adds one to ``pair_reduce.launches``, a lean one also to
     ``pair_reduce.lean_launches``. The full kernel finds its last block
     with one counter per card, so two full reductions must not run at once
     on two streams of one card."""
-    if plist.r2.device.type == "cpu":
-        return pair_reduce_plain(plist, f_over_r, u)
     dim, capacity = plist.disp.shape
     n_slots = plist.count.shape[0]
+    dtype, device = plist.r2.dtype, plist.r2.device
+    if out is not None and (tuple(out.shape) != (dim, n_slots)
+                            or out.dtype != dtype or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({dim}, {n_slots}) "
+                         f"tensor of the list's dtype and device")
+    if scalars_out is not None and (u is None or any(
+            t.dim() != 0 or t.dtype != dtype or t.device != device
+            for t in scalars_out)):
+        raise ValueError("scalars_out takes a full reduction's energy and "
+                         "virial: two 0-d tensors of the list's dtype and "
+                         "device")
+    if device.type == "cpu":
+        energy, virial, force = pair_reduce_plain(plist, f_over_r, u)
+        if scalars_out is not None:
+            energy, virial = (d.copy_(t) for d, t in
+                              zip(scalars_out, (energy, virial)))
+        return energy, virial, force if out is None else out.copy_(force)
     tensors = (plist.disp, plist.r2, f_over_r) + (() if u is None else (u,))
-    _, dtype = check_cuda(tensors, (torch.float32, torch.float64))
+    check_cuda(tensors, (torch.float32, torch.float64))
     if f_over_r.shape != plist.r2.shape or (u is not None
                                             and u.shape != plist.r2.shape):
         raise ValueError("the potential's values must be (capacity,)")
     lib = _library()
     fn = (lib.mdtpu_pair_reduce_f32 if dtype == torch.float32
           else lib.mdtpu_pair_reduce_f64)
-    device = plist.r2.device
-    force = torch.empty((dim, n_slots), dtype=dtype, device=device)
+    force = (torch.empty((dim, n_slots), dtype=dtype, device=device)
+             if out is None else out)
     blocks = -(-n_slots // REDUCE_THREADS)
-    # The partials (energy's, then the virial's, one a block), then energy
-    # and virial: one allocation, no launch.
-    out = (torch.empty(2 * blocks + 2, dtype=dtype, device=device)
-           if u is not None else None)
+    if u is not None:
+        # The partials (energy's, then the virial's, one a block), then
+        # energy and virial where the caller gives none: one allocation,
+        # no launch.
+        part = torch.empty(2 * blocks + (2 if scalars_out is None else 0),
+                           dtype=dtype, device=device)
+        if scalars_out is None:
+            scalars_out = (part[2 * blocks], part[2 * blocks + 1])
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(plist.start.data_ptr(), plist.count.data_ptr(),
                 int(capacity), int(n_slots), dim,
                 None if u is None else u.data_ptr(), f_over_r.data_ptr(),
                 plist.disp.data_ptr(), plist.r2.data_ptr(), force.data_ptr(),
-                *((None, None, None) if out is None else
-                  (out.data_ptr(), out[blocks:].data_ptr(),
-                   out[2 * blocks:].data_ptr())),
+                *((None,) * 4 if u is None else
+                  (part.data_ptr(), part[blocks:].data_ptr(),
+                   scalars_out[0].data_ptr(), scalars_out[1].data_ptr())),
                 int(staged_reduce(capacity, n_slots)), stream)
     _cuda_build.check(lib, NAME, rc, "pair_reduce")
     pair_reduce.launches += 1
@@ -459,7 +486,7 @@ def pair_reduce(plist, f_over_r, u=None):
         pair_reduce.lean_launches += 1
         zero = lean_zero(dtype, device)
         return zero, zero, force
-    return out[2 * blocks], out[2 * blocks + 1], force
+    return scalars_out[0], scalars_out[1], force
 
 
 def staged_reduce(capacity, n_slots):
@@ -491,24 +518,26 @@ def pair_reduce_plain(plist, f_over_r, u=None):
 
 def pair_sweep(slot_pos, slot_diam, counts, box, grid, cutoff, potential,
                capacity, observables=True, slot_lo=None, interior=None,
-               workspace=None):
+               workspace=None, out=None, scalars_out=None):
     """The pair sweep of any potential through the list: :func:`pair_list`,
     the potential's ``evaluate_r2`` (``force_r2`` when ``observables`` is
-    False) on every entry, :func:`pair_reduce`. Returns ``(energy, virial,
+    False) on every entry (:func:`~mdtpu_torch.potentials.base.
+    potential_values`), :func:`pair_reduce`. Returns ``(energy, virial,
     slot_forces, overflow)``; ``overflow`` (a 0-d bool tensor, not read
     here) says the list outgrew ``capacity`` and the forces are short.
     ``interior`` and ``workspace`` as in :func:`pair_list`: over a run of
     cells the forces are those of its slots and energy and virial its
-    half-sums."""
+    half-sums. ``out`` and ``scalars_out`` as in :func:`pair_reduce`."""
     plist = pair_list(slot_pos, slot_diam, counts, box, grid, cutoff,
                       capacity, slot_lo, interior, workspace)
     if observables:
-        u, f_over_r = potential.evaluate_r2(plist.r2, plist.sigma_i,
-                                            plist.sigma_j)
+        u, f_over_r = potential_values(potential, "evaluate_r2", plist.r2,
+                                       plist.sigma_i, plist.sigma_j)
     else:
-        u, f_over_r = None, potential.force_r2(plist.r2, plist.sigma_i,
-                                               plist.sigma_j)
-    energy, virial, force = pair_reduce(plist, f_over_r, u)
+        u, f_over_r = None, potential_values(potential, "force_r2",
+                                             plist.r2, plist.sigma_i,
+                                             plist.sigma_j)
+    energy, virial, force = pair_reduce(plist, f_over_r, u, out, scalars_out)
     return energy, virial, force, plist.overflow
 
 
@@ -529,3 +558,8 @@ def reset_launches():
 
 
 reset_launches()
+# A captured step or minimization of a potential without a kernel functor
+# launches both (the list inside a rebuild too, where the sharded engine's
+# full step rebuilds inline).
+counters.register(pair_list, "launches", "slab_launches")
+counters.register(pair_reduce, "launches", "lean_launches")

@@ -18,6 +18,8 @@ from typing import Any
 
 import torch
 
+from mdtpu_torch.potentials.base import potential_values
+
 
 def _minimum_image_components(d_comps, cell, cell_inv):
     """Minimum-image per-component displacement arrays (any cell)."""
@@ -47,8 +49,8 @@ class NaivePairEngine:
         mask = (~eye) & (r2 < float(self.cutoff) ** 2)
 
         r2_safe = torch.where(mask, r2, torch.ones_like(r2))
-        u, f_over_r = self.potential.evaluate_r2(
-            r2_safe, diameters[:, None], diameters[None, :])
+        u, f_over_r = potential_values(self.potential, "evaluate_r2", r2_safe,
+                                       diameters[:, None], diameters[None, :])
         u = torch.where(mask, u, torch.zeros_like(u))
         f_over_r = torch.where(mask, f_over_r, torch.zeros_like(f_over_r))
 

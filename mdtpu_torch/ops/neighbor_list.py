@@ -58,7 +58,8 @@ from mdtpu_torch.ops.cell_grid import cell_ids, grid_for_box
 from mdtpu_torch.ops.cell_sweep import (check_cuda, functor_params,
                                         kernel_params)
 from mdtpu_torch.ops.philox_draws import rebuild_flag_rows
-from mdtpu_torch.potentials.base import check_engine_cutoff, rounded
+from mdtpu_torch.potentials.base import (check_engine_cutoff,
+                                         potential_values, rounded)
 from mdtpu_torch.utils import counters
 
 NAME = "neighbor_list"
@@ -345,8 +346,8 @@ def nl_forces_plain(positions, diameters, idx, count, lengths, cutoff,
     c = rounded(cutoff, dtype)
     mask = valid & (r2 < rounded(c * c, dtype))
     r2_safe = torch.where(mask, r2, torch.ones_like(r2))
-    u, f_over_r = potential.evaluate_r2(r2_safe, diameters[:, None],
-                                        diameters[idx_safe])
+    u, f_over_r = potential_values(potential, "evaluate_r2", r2_safe,
+                                   diameters[:, None], diameters[idx_safe])
     u = torch.where(mask, u, torch.zeros_like(u))
     f_over_r = torch.where(mask, f_over_r, torch.zeros_like(f_over_r))
     energy = 0.5 * torch.sum(u)

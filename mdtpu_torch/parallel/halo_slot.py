@@ -339,10 +339,11 @@ class HaloSlotEngine:
         list's reduction (its overflow joins ``nbrs.overflow``). Energy and
         virial are summed over the ring on full steps (``observables``);
         lean steps return zeros. ``pos_lo``: the lo words, for the hi/lo
-        sweep. ``out``: a tensor the forces go into (B1 writes them there on
-        the card); ``scalars_out``: the ``(energy, virial)`` 0-d tensors the
-        ring's sums are copied into, on a full sweep. ``cell_inv`` is
-        unused; it keeps the single-device signature."""
+        sweep. ``out``: a tensor the forces go into (B1 and the list's
+        reduction write them there on the card); ``scalars_out``: the
+        ``(energy, virial)`` 0-d tensors the ring's sums are copied into,
+        on a full sweep. ``cell_inv`` is unused; it keeps the single-device
+        signature."""
         cell = cell.contiguous()
         pos, lo, diam, counts, grid, interior = self.slab_inputs(
             positions, diameters, nbrs.counts, cell, pos_lo)
@@ -351,7 +352,7 @@ class HaloSlotEngine:
             energy, virial, forces, over = pair_sweep(
                 pos, diam, counts, cell, grid, self.cutoff, self.potential,
                 self.pair_list_capacity, observables, lo, interior=interior,
-                workspace=self.pair_workspace)
+                workspace=self.pair_workspace, out=out)
             nbrs = dataclasses.replace(nbrs, overflow=nbrs.overflow | over)
         elif lo is not None:
             energy, virial, forces = cell_sweep_hilo(

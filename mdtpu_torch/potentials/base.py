@@ -31,6 +31,30 @@ their dtype and on their device; it must keep the cutoff contract above
 (exact zeros beyond its range, including on padding entries at r^2 = the
 engine cutoff squared) and must not read values back to the host.
 
+CAPTURE CONTRACT. On the card a potential runs inside a CUDA graph, as the
+JAX package traces a user's ``evaluate`` into its jitted loops: a segment
+of steps and a whole FIRE minimization are each one graph launch, and the
+potential's torch operations are recorded once, at the capture, and
+replayed at every step (the pair list, the naive engine's tiles, the
+neighbour list's tiles). So a potential on the card may use only torch
+operations on the tensors it is given, with Python numbers for its
+parameters; it must not read a value back to the host (``.item()``,
+``float(t)``, ``bool(t)``, ``.tolist()``, ``.cpu()``), make a tensor from
+host data per call (``torch.tensor(...)``, ``torch.as_tensor(...)``), call
+an operation whose output size depends on the values (``nonzero``, boolean
+indexing, ``unique``), or branch in Python on a tensor's value. A potential
+whose ``evaluate`` did one of these ran before its routes were captured and
+now raises :class:`CaptureContractError`, as a traced ``if`` on a value
+raises in the JAX package. Before each capture the engines run the
+potential once with torch's synchronisation check set to refuse
+(:func:`potential_values`), then once more captured alone into a graph
+that is dropped, which catches what that check cannot see (a device-wide
+synchronisation); a failure inside a capture raises the same error.
+``tests/test_torch_capture_contract.py`` checks potentials against the
+contract on the CPU (a ``TorchDispatchMode`` refusing those operators).
+``graph=False`` on ``make_slot_advance``, ``make_particle_advance`` or
+``fire_minimize`` runs the eager route, which keeps no such rule.
+
 Scalar parameters are rounded to the working dtype before use
 (:func:`rounded`), as the JAX package casts them with ``jnp.asarray(x,
 dtype)``; they then enter tensor arithmetic as Python scalars, which PyTorch
@@ -39,6 +63,8 @@ applies in the tensor's dtype without a host-to-device copy.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 
 import numpy as np
@@ -83,6 +109,126 @@ class Potential:
 
     def pressure_lrc(self, n_particles, volume):
         return 0.0
+
+
+class CaptureContractError(RuntimeError):
+    """A potential broke the capture contract (see the module docstring)
+    where the card runs it inside a CUDA graph."""
+
+
+_checking = False
+
+
+@contextlib.contextmanager
+def checking_contract():
+    """Within: :func:`potential_values` checks each potential it runs on
+    the card against the capture contract (the warm-up before a
+    capture)."""
+    global _checking
+    saved, _checking = _checking, True
+    try:
+        yield
+    finally:
+        _checking = saved
+
+
+def contract_message(potential, method, what):
+    """The message of a :class:`CaptureContractError`."""
+    return (f"{type(potential).__name__}.{method} broke the capture "
+            f"contract ({what}): on the card a potential runs inside a "
+            f"CUDA graph, so it may use only torch operations on the "
+            f"tensors it is given, read no value back to the host, make no "
+            f"tensor from host data and branch in Python on no tensor's "
+            f"value (mdtpu_torch/potentials/base.py). graph=False on "
+            f"make_slot_advance, make_particle_advance or fire_minimize "
+            f"runs the eager route")
+
+
+def _without_syncs(potential, method, fn, *args):
+    """``fn(*args)`` on the card with torch's synchronisation check set to
+    refuse (``torch.cuda.set_sync_debug_mode("error")``): a read back to the
+    host, a copy of host data to the card, ``nonzero``, a boolean mask or
+    ``unique`` raises :class:`CaptureContractError` before any capture,
+    with the process unharmed. (A ``TorchDispatchMode`` refusing these
+    operators by name, as ``tests/test_torch_capture_contract.py`` checks
+    potentials on the CPU, took ~14 s to import torch's tracing stack at
+    its first use on the card.)"""
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        raise CaptureContractError(contract_message(
+            potential, method, f"{type(exc).__name__}: {exc}")) from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+
+
+def _trial_capture(potential, method, fn, *args):
+    """``fn(*args)`` captured alone into a CUDA graph that is then dropped:
+    what :func:`_without_syncs` cannot see (a device-wide synchronisation,
+    another call the runtime refuses while a stream captures) fails here,
+    in a plain graph, and not inside a loop's conditional bodies, where
+    ending the failed capture crashed the process (measured on the card,
+    torch 2.11). A failure raises :class:`CaptureContractError`; the
+    process may not capture again after it (a later garbage collection
+    aborted it on the card)."""
+    stream = torch.cuda.current_stream(args[0].device)
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn(*args)
+    except Exception as exc:
+        abandon_capture(graph, stream)
+        raise CaptureContractError(contract_message(
+            potential, method, f"{type(exc).__name__}: {exc}")) from exc
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def abandon_capture(graph, stream):
+    """After a CUDA-graph capture that raised: ``stream`` current again (the
+    capture's context does not restore it where ending the capture raised)
+    and ``graph``'s memory pool no longer the target of allocations (its
+    end is skipped then too; a pool already ended is left alone)."""
+    torch.cuda.set_stream(stream)
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if end is None:
+        return
+    try:
+        end(stream.device.index, graph.pool())
+    except RuntimeError:
+        pass
+
+
+def potential_values(potential, method, r2, sigma_i, sigma_j):
+    """``potential.<method>(r2, sigma_i, sigma_j)`` (``evaluate_r2`` or
+    ``force_r2``) as the engines call a potential in torch. Under
+    :func:`checking_contract` (the warm-up before a capture, on the card)
+    with the synchronisation check refusing (:func:`_without_syncs`), then
+    once more in a trial capture of its own (:func:`_trial_capture`); under
+    a CUDA-graph capture a failure inside it raises
+    :class:`CaptureContractError`. The error names the potential's type and
+    the contract."""
+    fn = getattr(potential, method)
+    if _checking and r2.is_cuda:
+        values = _without_syncs(potential, method, fn, r2, sigma_i, sigma_j)
+        _trial_capture(potential, method, fn, r2, sigma_i, sigma_j)
+        return values
+    if not (r2.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return fn(r2, sigma_i, sigma_j)
+    try:
+        return fn(r2, sigma_i, sigma_j)
+    except CaptureContractError:
+        raise
+    except Exception as exc:
+        raise CaptureContractError(contract_message(
+            potential, method, f"{type(exc).__name__}: {exc}")) from exc
 
 
 def check_engine_cutoff(potential, cutoff, max_sigma=1.0):

@@ -71,7 +71,12 @@ segment.
 ``--potential user`` (with ``slot`` or ``sharded``) takes BASELINE config 4
 instead, as ``chip_smoke.py`` builds it (2D, N = 65,536, rho 0.9, diameters
 U(0.8, 1.2), a user potential without a kernel functor, so every sweep is
-the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice. ``--tree
+the pair list, f64, NVT(0.5, 0.01), dt 1e-4) on its lattice: captured like
+every other route (the user's ``evaluate_r2`` in the WHILE node's body),
+``--eager`` launched step by step; with ``slot`` an NVE segment follows
+(f64, no hi/lo). The JSON line gives the card's peak memory allocated
+(``peak_memory_bytes``: the captured variants keep the potential's
+temporaries at the list's capacity in their pools). ``--tree
 DIR`` profiles the package of another checkout (``compare_torch_host.py``
 times two trees with this one script). ``--plain-launch`` launches the
 velocity finish and the Brownian noise in plain stream order, where the
@@ -235,10 +240,9 @@ def profile(args, programmatic):
     extra = {}
     rebuilds = window_rebuilds(totals)
     with_census(metrics, advance)
-    if (args.engine == "slot" and args.potential == "lj"
-            and not args.brownian):
+    if args.engine == "slot" and not args.brownian:
         nve = slot_step.make_slot_advance(
-            params, mt.NVE(), engine, hilo=True,
+            params, mt.NVE(), engine, hilo=args.potential == "lj",
             graph=False if args.eager else None)
         run, totals = slot_run(nve)
         _, extra["nve"] = measure(run, state, looped=looped(nve))
@@ -257,6 +261,7 @@ def profile(args, programmatic):
         "capacity": engine.cell_capacity, **metrics,
         # Slot layouts: rebuilds in the timed and in the profiled window.
         "rebuilds_timed_profiled": rebuilds[1:], **extra,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "package": os.path.dirname(os.path.abspath(mt.__file__)),
         **({"sharded_parts": sharded_parts(engine, state)}
            if args.engine == "sharded" else {}),

@@ -1038,7 +1038,11 @@ def test_pair_reduce_full_is_one_launch(cuda, kind):
 def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
     """A 2D polydisperse run with a user potential (the pair-list route in
     the slot layout, f64, NVE) on the card and on the CPU from one state:
-    energy, temperature and virial after every segment to rel 1e-10."""
+    energy, temperature and virial after every segment to rel 1e-10. On
+    the card the default route is captured (one graph launch a segment
+    variant, the potential in the WHILE node's body) and equals the eager
+    route (``graph=False``) bit for bit: every segment's numbers, the
+    final arrays and the rebuild steps."""
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.sim.initialization import (build_state_from_arrays,
                                                 lattice_positions)
@@ -1050,8 +1054,8 @@ def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
     params = mdtpu_torch.Parameters(rho, n, 1e-3, pot)
     diam = 0.8 + 0.4 * torch.rand(n, generator=torch.Generator()
                                   .manual_seed(1), dtype=torch.float64)
-    runs = {}
-    for device in ("cpu", cuda):
+    runs, ends = {}, {}
+    for device, graph in (("cpu", None), (cuda, None), (cuda, False)):
         pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.02,
                                 seed=3, device=device)
         state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
@@ -1060,15 +1064,25 @@ def test_user_potential_run_on_the_card_matches_the_cpu(cuda):
         assert eng.uses_pair_list and len(eng.grid) == 2
         slots, eng = slot_step.slotify_grown(state, eng)
         slots = slot_step.slot_forces(slots, eng)
-        advance = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng)
+        advance = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng,
+                                              graph=graph)
         rows = []
         for k in (1, 7, 7, 7):
             slots = advance(slots, k)
             rows.append([float(slots.energy), float(slots.temperature),
                          float(slots.virial)])
         assert not bool(slots.nbrs.overflow)
-        runs[str(device)] = rows
-    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-10)
+        assert advance.graph is (str(device) != "cpu" and graph is None)
+        key = f"{device}_{graph}"
+        runs[key] = rows
+        ends[key] = (slots, advance.rebuild_steps())
+    np.testing.assert_allclose(runs[f"{cuda}_None"], runs["cpu_None"],
+                               rtol=1e-10)
+    assert runs[f"{cuda}_None"] == runs[f"{cuda}_False"]
+    (g, g_reb), (e, e_reb) = ends[f"{cuda}_None"], ends[f"{cuda}_False"]
+    assert g_reb == e_reb
+    for name in ("positions", "velocities", "forces", "energy", "virial"):
+        assert torch.equal(getattr(g, name), getattr(e, name)), name
 
 
 # --------------------------------------------------------------------------
@@ -1761,16 +1775,22 @@ def test_pair_list_workspace_pads_only_what_is_stale(cuda):
     same(kept, fresh)
 
 
-def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                      monkeypatch):
     """run_simulation_sharded with a user potential (the pair list's slab
     launch) on a ring of one at N = 4096, 2D f64 (config 4's density and
     diameters), two NVE legs, on the card and on the CPU from one state:
     thermo rows to rel 1e-9 (one flip of the last printed digit), positions
-    to 1e-9; every step's list is a slab launch on the card."""
+    to 1e-9; every step's list is a slab launch on the card (the launches
+    counted under graph replay). On the card the default route is captured
+    and equals the eager sharded advance (``graph=False``) bit for bit:
+    every row, the final arrays and the rebuild steps."""
+    import mdtpu_torch.parallel.driver as driver_mod
     from mdtpu_torch.parallel import HaloSlotEngine, ShardRing
     from mdtpu_torch.sim.initialization import (build_state_from_arrays,
                                                 initialize_velocities,
                                                 lattice_positions)
+    from mdtpu_torch.utils import counters
 
     n, rho = 4096, 0.9
     pot = NonAdditivePHS()
@@ -1781,8 +1801,16 @@ def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path):
                                   .manual_seed(6), dtype=torch.float64)
     vel = initialize_velocities(0.5, 7, n, 2, dtype=torch.float64,
                                 device="cpu")
+    real = driver_mod.make_sharded_slot_advance
     out = {}
-    for device in ("cpu", cuda):
+    for device, graph in (("cpu", None), (cuda, None), (cuda, False)):
+        made = []
+
+        def make(*args, graph=graph, **kwargs):
+            made.append(real(*args, graph=graph, **kwargs))
+            return made[-1]
+
+        monkeypatch.setattr(driver_mod, "make_sharded_slot_advance", make)
         pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.05,
                                 seed=4, device=device)
         state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
@@ -1790,24 +1818,35 @@ def test_sharded_user_run_on_the_card_matches_the_cpu(cuda, tmp_path):
         state = state.replace(velocities=vel.to(device))
         eng = HaloSlotEngine.create(pot, 1.8, cell, n,
                                     ShardRing(device=device), diameters=diam)
+        key = f"{device}_{graph}"
+        counters.settle()
         pairs_mod.reset_launches()
         mid = mdtpu_torch.run_simulation_sharded(
             state, params, mdtpu_torch.NVE(), 30, 10,
-            str(tmp_path / f"{device}_a"), engine=eng, device=device)
+            str(tmp_path / f"{key}_a"), engine=eng, device=device)
         end = mdtpu_torch.run_simulation_sharded(
             mid, params, mdtpu_torch.NVE(), 30, 10,
-            str(tmp_path / f"{device}_b"), engine=eng, device=device)
+            str(tmp_path / f"{key}_b"), engine=eng, device=device)
+        counters.settle()
         launches = pairs_mod.pair_list.slab_launches
-        rows = np.concatenate([np.loadtxt(tmp_path / f"{device}_{leg}"
+        rows = np.concatenate([np.loadtxt(tmp_path / f"{key}_{leg}"
                                           / "thermo.txt")
                                for leg in ("a", "b")])
-        out[str(device)] = (rows, end.positions.cpu().numpy(), launches)
-    (rows_c, pos_c, _), (rows_g, pos_g, launches) = (out["cpu"],
-                                                      out[str(cuda)])
-    assert launches >= 60
+        assert all(a.graph is (str(device) != "cpu" and graph is None)
+                   for a in made)
+        out[key] = (rows, end, launches,
+                    [s for a in made for s in a.rebuild_steps()])
+    (rows_c, end_c, _, _), (rows_g, end_g, launches, reb_g) = (
+        out["cpu_None"], out[f"{cuda}_None"])
+    rows_e, end_e, launches_e, reb_e = out[f"{cuda}_False"]
+    assert launches >= 60 and launches == launches_e
     assert np.all(np.abs(rows_g - rows_c)
                   <= np.maximum(1e-9 * np.abs(rows_c), 1.000001e-6))
-    np.testing.assert_allclose(pos_g, pos_c, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(end_g.positions.cpu().numpy(),
+                               end_c.positions.numpy(), rtol=0, atol=1e-9)
+    assert np.array_equal(rows_g, rows_e) and reb_g == reb_e
+    for name in ("positions", "velocities", "forces", "images"):
+        assert torch.equal(getattr(end_g, name), getattr(end_e, name)), name
 
 
 # --------------------------------------------------------------------------
@@ -3719,3 +3758,267 @@ def test_sharded_fire_captured_matches_eager(cuda):
         assert torch.equal(getattr(g, name), getattr(e, name)), name
     assert captured.rebuild_steps() == eager.rebuild_steps()
     assert captured.census["pass"]["conditionals"] == 1
+
+
+# --------------------------------------------------------------------------
+# A user potential's routes captured: config 4's potential (the pair list in
+# slots, the naive engine, the neighbour list's tiles), captured against
+# graph=False bit for bit; a potential that breaks the capture contract.
+
+
+def _user_start(device, n, seed=9):
+    """Config 4's density and diameters (rho 0.9, U(0.8, 1.2), f64) on a
+    2D lattice jittered by 0.05, velocities at T = 0.5."""
+    from mdtpu_torch.sim.initialization import (build_state_from_arrays,
+                                                initialize_velocities,
+                                                lattice_positions)
+    L = (n / 0.9) ** 0.5
+    cell = torch.eye(2, dtype=torch.float64) * L
+    diam = 0.8 + 0.4 * torch.rand(n, generator=torch.Generator()
+                                  .manual_seed(seed), dtype=torch.float64)
+    pos = lattice_positions(n, cell, 2, dtype=torch.float64, jitter=0.05,
+                            seed=seed, device=device)
+    state = build_state_from_arrays(pos, diam, cell, dtype=torch.float64,
+                                    cutoff=1.8, device=device)
+    return state.replace(velocities=initialize_velocities(
+        0.5, seed, n, 2, dtype=torch.float64, device=device))
+
+
+def test_captured_user_slot_advance_is_one_launch_a_variant(cuda):
+    """Config 4's NVT in slots (the pair list, lean and full steps):
+    captured against eager over three segments, every array and the
+    rebuild steps bit for bit; a captured segment is one replay a step
+    variant; the list's and the reduction's launches are counted at every
+    replay as eagerly (one list and one reduction a step, the full ones
+    at the segments' last steps)."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.utils import counters
+    n = 4096
+    params = mdtpu_torch.Parameters(0.9, n, 1e-3, NonAdditivePHS())
+    state = _user_start(cuda, n)
+    eng = CellGridEngine.create(params.potential, 1.8, 0.1, state.unitcell,
+                                n)
+    slots, eng = slot_step.slotify_grown(state, eng)
+    slots = slot_step.slot_forces(slots, eng)
+    out = {}
+    for graph in (False, None):
+        advance = slot_step.make_slot_advance(
+            params, mdtpu_torch.NVT(0.5, 0.01), eng, graph=graph)
+        counters.settle()
+        pairs_mod.reset_launches()
+        s = advance(advance(advance(slots, 1), 19), 20)
+        counters.settle()
+        launches = (pairs_mod.pair_list.launches,
+                    pairs_mod.pair_reduce.launches,
+                    pairs_mod.pair_reduce.lean_launches)
+        out[graph] = (s, advance.rebuild_steps(), launches, advance)
+    (e, e_reb, e_n, _), (g, g_reb, g_n, captured) = out[False], out[None]
+    assert captured.graph is True and g.step == e.step == slots.step + 40
+    for name in ("positions", "velocities", "forces", "energy", "virial",
+                 "temperature"):
+        assert torch.equal(getattr(g, name), getattr(e, name)), name
+    assert g_reb == e_reb and len(g_reb) >= 1
+    assert g_n == e_n == (40, 40, 37)
+    lean = captured.census["lean"]
+    assert (lean["rebuild_flag"], lean["conditionals"]) == (1, 1), lean
+    replays = []
+    for name, (graph, *_rest) in captured.graphs.items():
+        real = graph.replay
+        graph.replay = (lambda real=real, name=name:
+                        replays.append(name) or real())
+    captured(g, 25)
+    assert replays == ["lean", "last"]
+
+
+@pytest.mark.parametrize("kind", ["slots", "naive", "neighbor"])
+def test_captured_user_fire_equals_eager(cuda, kind):
+    """FIRE with config 4's potential, one graph launch a minimization,
+    against ``graph=False`` from one start, 60 iterations at tol 0: the
+    slot FIRE on the pair list (4096), the row FIRE on the naive engine
+    (example 03's published 1200) and on the neighbour list (4096, its
+    tiles in torch): positions, FIRE's velocities, forces, energy, the
+    iterations and the rebuild steps bit for bit."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.ops.naive import NaivePairEngine
+    pot = NonAdditivePHS()
+    n = 1200 if kind == "naive" else 4096
+    state = _user_start(cuda, n)
+    if kind == "slots":
+        eng = CellGridEngine.create(pot, 1.8, 0.3, state.unitcell, n)
+        start, eng = slot_step.slotify_grown(state, eng)
+    else:
+        eng = (NaivePairEngine(pot, 1.8) if kind == "naive" else
+               mdtpu_torch.NeighborListEngine.create(pot, 1.8, 0.3,
+                                                     state.unitcell, n))
+        start = state.replace(nbrs=eng.allocate(
+            state.positions, state.diameters, state.unitcell,
+            state.unitcell_inv))
+    out = {}
+    for graph in (False, None):
+        if kind == "slots":
+            run = fire_mod.make_slot_fire(eng, max_steps=60, tol=0.0,
+                                          dmax=0.01, graph=graph,
+                                          cached=False)
+            st, _, _, steps, ovf = run(start)
+            v = st.velocities
+        else:
+            run = fire_mod.make_row_fire(eng, max_steps=60, tol=0.0,
+                                         dmax=0.01, graph=graph,
+                                         cached=False)
+            st, _, _, steps = run(start)
+            v, ovf = run.fire.bufs[1].v, False
+        assert steps == 60 and not ovf
+        out[graph] = (st, v.clone(), run.fire.rebuild_steps(), run.fire)
+    (se, ve, re, eager), (sg, vg, rg, fire) = out[False], out[None]
+    for name in ("positions", "forces", "energy", "virial"):
+        assert torch.equal(getattr(se, name), getattr(sg, name)), name
+    assert torch.equal(ve, vg) and re == rg
+    assert fire.captured is not None and eager.captured is None
+    if kind != "naive":
+        assert fire.census["pass"]["conditionals"] == 1
+
+
+@pytest.mark.parametrize("case", ["naive_1200", "neighbor"])
+def test_captured_user_particle_advance_equals_eager(cuda, case):
+    """Particle order with config 4's potential: the naive engine at
+    example 03's published 1200 (no drift test) and the neighbour list at
+    4096 (K1 at rebuilds, in the IF node), NVT in segments, captured
+    against eager: every segment's numbers, the final arrays and the
+    rebuild steps bit for bit."""
+    from mdtpu_torch.integrate import step as tstep
+    from mdtpu_torch.ops.naive import NaivePairEngine
+    pot = NonAdditivePHS()
+    n = 1200 if case == "naive_1200" else 4096
+    st = _user_start(cuda, n)
+    params = mdtpu_torch.Parameters(0.9, n, 2e-3, pot)
+    eng = (NaivePairEngine(pot, 1.8) if case == "naive_1200" else
+           mdtpu_torch.NeighborListEngine.create(pot, 1.8, 0.1,
+                                                 st.unitcell, n))
+    assert getattr(eng, "uses_kernel", False) is False
+    nbrs = eng.allocate(st.positions, st.diameters, st.unitcell,
+                        st.unitcell_inv)
+    e, w, f, nbrs = eng.compute(st.positions, st.diameters, st.unitcell,
+                                st.unitcell_inv, nbrs)
+    st = st.replace(forces=f, energy=e, virial=w, nbrs=nbrs)
+    out = {}
+    for graph in (False, None):
+        advance = tstep.make_particle_advance(
+            params, mdtpu_torch.NVT(0.5, 0.01), eng, graph=graph)
+        s, rows = st, []
+        for k in (1, 9, 25, 15):
+            s = advance(s, k)
+            rows.append(torch.stack([s.energy, s.virial,
+                                     s.temperature]).cpu())
+        assert advance.graph is (graph is None)
+        out[graph] = (s, torch.stack(rows), advance.rebuild_steps())
+    (se, re, be), (sg, rg, bg) = out[False], out[None]
+    assert torch.equal(re, rg) and be == bg
+    if case == "neighbor":
+        assert len(be) >= 1
+    for name in ("positions", "velocities", "forces", "images"):
+        assert torch.equal(getattr(se, name), getattr(sg, name)), name
+
+
+class _ReadsTheHost(mdtpu_torch.Potential):
+    """Config 4's potential, scaled by a value read back to the host: it
+    runs eagerly and breaks the capture contract."""
+
+    def evaluate(self, r, sigma_i, sigma_j):
+        u, f = NonAdditivePHS().evaluate(r, sigma_i, sigma_j)
+        scale = 1.0 + 0.0 * r.min().item()
+        return u * scale, f * scale
+
+
+class _SyncsTheCard(mdtpu_torch.Potential):
+    """Config 4's potential that waits for the card in each call: no tensor
+    operation the contract's guard sees, but the capture refuses it."""
+
+    def evaluate(self, r, sigma_i, sigma_j):
+        torch.cuda.synchronize()
+        return NonAdditivePHS().evaluate(r, sigma_i, sigma_j)
+
+
+def _breaking_case(name):
+    """Config 4's slots at 4096 advanced under ``graph=None`` with the
+    potential ``name`` (a class of this module) that breaks the capture
+    contract: what happened, as a dict (the error's type and message,
+    whether the state and the advance's buffers are as they were, whether
+    a graph was kept, and where the eager route with the same potential
+    ended)."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.potentials.base import CaptureContractError
+    n = 4096
+    params = mdtpu_torch.Parameters(0.9, n, 1e-3, globals()[name]())
+    state = _user_start(torch.device("cuda"), n)
+    eng = CellGridEngine.create(params.potential, 1.8, 0.3, state.unitcell,
+                                n)
+    slots, eng = slot_step.slotify_grown(state, eng)
+    slots = slot_step.slot_forces(slots, eng)
+    before = {k: getattr(slots, k).clone() for k in ("positions",
+                                                     "velocities", "forces")}
+    advance = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng)
+    out = {"raised": None}
+    try:
+        advance(slots, 5)
+    except CaptureContractError as exc:
+        out.update(raised=type(exc).__name__, message=str(exc),
+                   runtime_error=isinstance(exc, RuntimeError))
+    out["kept"] = (all(torch.equal(getattr(slots, k), t)
+                       for k, t in before.items())
+                   and int(advance.bufs.step) == slots.step)
+    out["graphs"] = len(advance.graphs)
+    eager = slot_step.make_slot_advance(params, mdtpu_torch.NVE(), eng,
+                                        graph=False)
+    out["eager_step"] = eager(slots, 5).step - slots.step
+    out["eng"], out["slots"] = eng, slots
+    return out
+
+
+@pytest.mark.parametrize("pot", ["_ReadsTheHost", "_SyncsTheCard"])
+def test_a_potential_that_breaks_the_capture_contract_raises(cuda, pot):
+    """Under ``graph=None`` a user potential that reads the host raises the
+    named ``RuntimeError`` (its type, the contract, the eager route) and
+    takes no step: the caller's state and the advance's buffers stay as
+    they were, no graph is kept; ``graph=False`` runs the same potential
+    eagerly. ``.item()`` is refused by torch's synchronisation check in
+    the warm-up, and the card captures again after it; a device-wide
+    synchronisation only by the trial capture of the potential alone,
+    which may leave the process unable to capture (a later garbage
+    collection aborted it), so that case runs in a process of its own."""
+    if pot == "_ReadsTheHost":
+        out = _breaking_case(pot)
+    else:
+        import json
+        import subprocess
+        import sys
+        # This file by its directory: a package named ``tests`` elsewhere
+        # on the path would shadow this one.
+        code = ("import json, os, sys\n"
+                "sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "
+                "'tests')]\n"
+                "from test_torch_gpu import _breaking_case\n"
+                f"out = _breaking_case({pot!r})\n"
+                "del out['eng'], out['slots']\n"
+                "print(json.dumps(out), flush=True)\n"
+                "os._exit(0)\n")
+        done = subprocess.run([sys.executable, "-c", code],
+                              cwd=os.path.dirname(os.path.dirname(
+                                  os.path.abspath(__file__))),
+                              capture_output=True, text=True, timeout=600)
+        assert done.returncode == 0, done.stderr[-3000:]
+        out = json.loads(done.stdout.strip().splitlines()[-1])
+    assert out["raised"] == "CaptureContractError" and out["runtime_error"]
+    assert out["message"].startswith(f"{pot}.")
+    assert "potentials/base.py" in out["message"]
+    assert "graph=False" in out["message"]
+    assert out["kept"] and out["graphs"] == 0 and out["eager_step"] == 5
+    if pot == "_ReadsTheHost":
+        from mdtpu_torch.integrate import slot_step
+        # The engine holds the potential the sweep calls.
+        good = slot_step.make_slot_advance(
+            mdtpu_torch.Parameters(0.9, 4096, 1e-3, NonAdditivePHS()),
+            mdtpu_torch.NVE(), dataclasses.replace(
+                out["eng"], potential=NonAdditivePHS()))
+        s = good(out["slots"], 5)
+        assert s.step == out["slots"].step + 5 and good.graph is True

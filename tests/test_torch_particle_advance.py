@@ -41,7 +41,10 @@ kernels' wrappers take their plain versions:
     (``device_if``); the steps write the buffers in place; after a rebuild
     the buffers' reference positions are a tensor of their own that holds
     the build's positions; a state without engine state takes its first
-    step with its first build; the graph option's checks.
+    step with its first build; the graph option's checks: ``graph=None``
+    settles by the device alone (captured on a CUDA device, eager on the
+    CPU), a user potential's loops too, for the slot, sharded and
+    particle-order advances and both FIREs.
 
 The kernels themselves are held to these plain versions on the card
 (``tests/test_torch_gpu.py``)."""
@@ -667,9 +670,79 @@ def test_first_build_and_graph_options():
     with pytest.raises(ValueError, match="graph=True"):
         tstep.make_particle_advance(params, ens, eng, comp, graph=True)(st, 2)
 
-    # A potential without a kernel functor stays eager on the card.
-    advance._resolve_graph(st, True)
+    # graph=None settles by the device alone: eager for a CPU state,
+    # whatever the potential (test_graph_none_settles_by_the_device).
     assert advance.graph is False
+    unsettled = tstep.make_particle_advance(params, ens, eng, comp)
+    unsettled._resolve_graph(st)
+    assert unsettled.graph is False
+
+
+def _loop_of(kind, potential, graph):
+    """``settle(state) -> bool`` of a loop of ``kind`` made with ``graph``
+    over ``potential`` (a 2D box of 400 disks at rho 0.9): the slot
+    advance, the sharded one (a ring of one), the particle-order advance
+    (the naive engine), the slot FIRE or the row FIRE; the advances keep
+    the settled value in ``graph``, FIRE settles at each run."""
+    from mdtpu_torch.integrate import slot_step
+    from mdtpu_torch.minimize import fire
+    from mdtpu_torch.minimize import fire_update as fu
+    from mdtpu_torch.parallel.halo_slot import (HaloSlotEngine,
+                                                make_sharded_slot_advance)
+    from mdtpu_torch.parallel.mesh import ShardRing
+
+    cell = np.eye(2) * (400 / 0.9) ** 0.5
+    params = mt.Parameters(0.9, 400, 1e-4, potential)
+    nvt = mt.NVT(0.5, 0.01)
+    hyper = fu.FireHyper(dt_initial=0.01, dt_max=0.1, alpha0=0.1,
+                         f_inc=1.2, f_dec=0.2, n_min=5, dmax=0.1)
+    if kind in ("slot", "slot_fire"):
+        eng = CellGridEngine.create(potential, 1.8, 0.3, cell, 400)
+        if kind == "slot_fire":
+            loop = fire.SlotFire(eng, hyper, graph)
+            return loop._settle
+        loop = slot_step.make_slot_advance(params, nvt, eng, graph=graph)
+        assert type(loop) is slot_step.SlotAdvance
+    elif kind == "sharded_slot":
+        eng = HaloSlotEngine.create(potential, 1.8, cell, 400,
+                                    ShardRing(None, "cpu"))
+        loop = make_sharded_slot_advance(params, nvt, eng, graph=graph)
+        assert type(loop) is slot_step.ShardedSlotAdvance
+    elif kind == "row_fire":
+        return fire.RowFire(NaivePairEngine(potential, 1.8), hyper,
+                            graph)._settle
+    else:
+        loop = tstep.make_particle_advance(
+            params, nvt, NaivePairEngine(potential, 1.8), graph=graph)
+
+    def settle(state):
+        loop._resolve_graph(state)
+        return loop.graph
+
+    return settle
+
+
+@pytest.mark.parametrize("potential", ["user", "functor"])
+@pytest.mark.parametrize("kind", ["slot", "sharded_slot", "particle",
+                                  "slot_fire", "row_fire"])
+def test_graph_none_settles_by_the_device(kind, potential):
+    """``graph=None`` settles captured for a state on a CUDA device and
+    eager for one on the CPU, a user potential (examples/03's) or one with
+    a kernel functor alike (a stand-in object with a CUDA device needs no
+    card); ``graph=False`` stays eager; ``graph=True`` raises on a CPU
+    state. Every loop settles by ``device_advance.settle_graph``."""
+    from tests.test_torch_gpu import NonAdditivePHS
+
+    pot = (NonAdditivePHS() if potential == "user"
+           else mt.PseudoHS())
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    assert _loop_of(kind, pot, None)(card) is True
+    assert _loop_of(kind, pot, None)(cpu) is False
+    assert _loop_of(kind, pot, False)(card) is False
+    assert _loop_of(kind, pot, True)(card) is True
+    with pytest.raises(ValueError, match="graph=True takes a CUDA state"):
+        _loop_of(kind, pot, True)(cpu)
 
 
 def test_counts_of_a_taken_branch_come_in_at_settle():
