@@ -119,7 +119,9 @@
    shapes: Philox-4x32-10's three known answers and 65,536 random counters
    word for word; ``bussi_draw`` at the bench's nf - 1 (f64 r1 and r2 to
    rel 1e-12, the card's libm not being the CPU's; f32 to one rounding of
-   that), ``uniform_noise`` on the bench's and the Brownian path's slots
+   that; bit for bit its plain version run on the card; timed, f32 and
+   f64),
+   ``uniform_noise`` on the bench's and the Brownian path's slots
    (f32 and f64, two ranks) bit for bit, ``rebuild_flag`` on the same two
    shapes (rows 1 and 2 start off 16-byte alignment) with every slot below
    skin/2 and with one slot one ulp of the threshold short of it or past
@@ -324,13 +326,17 @@
    pass and in the shard ring's split, ``fire_move``;
    ``csrc/fire_update.cu``) against their plain versions at f32 and f64,
    in slots (3, 124,875) and in particle rows (65,536, 3), to rel 1e-12 /
-   2e-6, flags and counters equal, each twice bit for bit; the two
+   2e-6 (the move bit for bit, also launched as a programmatic dependent
+   of a reduction), flags and counters equal, each twice bit for bit; the
+   two
    reductions also at the edges of their grid (1, 3, one block's count
    and its neighbours, an odd count, one wave's count and past it) on
    aligned views, views whose data_ptr is not 16-byte aligned and views
    of v and F misaligned apart; each timed at f32 and f64 by a graph of
-   ``MANY_CALLS`` calls (logged beside the earlier design's times), the
-   launch floor, the bound and ``torch.linalg.vector_norm`` of F (a
+   ``MANY_CALLS`` calls (logged beside the earlier design's times; the
+   move also after ``fire_reduce`` and over copies of its arrays that
+   the L2 cannot hold, ``hbm_ms``),
+   the launch floor, the bound and ``torch.linalg.vector_norm`` of F (a
    yardstick over the same bytes), and split into phases by a stamped
    copy of the source (``probe_torch_fire.py``); ``step_below`` against
    its plain version. FIRE graph phase: FIRE captured (one graph launch a
@@ -417,6 +423,7 @@ PROBE_SPECS = ("full", "full_static", "nodiv", "reduce_only", "full:5",
 # 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor
 # cores.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per pair, by hand count of csrc/cell_sweep.cu and
 # csrc/pair_potentials.cuh (a multiply-add counts 2): the distance and the
@@ -3743,12 +3750,15 @@ def draws_check(mt):
             got = draws.bussi_draw(0, step, dof, dtype)
             again = draws.bussi_draw(0, step, dof, dtype)
             want = draws.bussi_draw(0, torch.tensor(s), dof, dtype)
+            # Bit for bit the plain version run on the card.
+            on_card = torch.stack(draws.bussi_draw_plain(0, step, dof)).to(
+                dtype)
             err = (got.cpu().double() - want.double()).abs()
             errs.append(float(err.max()))
-            if (not torch.equal(got, again)
+            if (not torch.equal(got, again) or not torch.equal(got, on_card)
                     or bool((err > rtol * want.double().abs()).any())):
                 failures.append(f"bussi_draw {dtype} step {s}: {got} vs "
-                                f"{want}")
+                                f"{want} (CPU), {on_card} (card)")
     step = torch.tensor(steps[2], device="cuda")
     # This run's work: the attempts the gamma draw took at that step.
     r1, r2 = draws.bussi_draw_plain(0, torch.tensor(steps[2]), dof)
@@ -3757,12 +3767,17 @@ def draws_check(mt):
         OPS_BOX_MULLER + attempts * OPS_GAMMA_TEST
     b = max(16 / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float64]) * 1e3
     alpha = torch.full((), 0.5 * dof, dtype=torch.float32, device="cuda")
+    # f32 out, and f64.
+    bussi_ms = {dtype: many_ms(
+        lambda dtype=dtype: draws.bussi_draw(0, step, dof, dtype))
+        for dtype in (torch.float32, torch.float64)}
     results["bussi_draw"] = {
         "max_abs_err": max(errs), "attempts": attempts,
-        "ms": many_ms(lambda: draws.bussi_draw(0, step, dof, torch.float32)),
+        "ms": bussi_ms[torch.float32], "f64_ms": bussi_ms[torch.float64],
+        "launch_floor_ms": floor, "launch_floor_programmatic_ms": floor_pdl,
         "plain_ms": call_ms(lambda: draws.bussi_draw_plain(0, step, dof)),
         "bound_ms": b, "bound_by": "bytes" if b == 16 / HBM_BYTES_PER_S
-        * 1e3 else "operations", "bound_meetable_ms": max(b, floor),
+        * 1e3 else "operations", "bound_meetable_ms": max(b, floor_pdl),
         "library_ms": many_ms(lambda: (
             torch._standard_gamma(alpha), torch.randn((), device="cuda"))),
         "library_call": "torch._standard_gamma + torch.randn",
@@ -5003,7 +5018,9 @@ def sharded_graph_paths(mt, workdir):
             "rebuilds": len(fire.rebuild_steps())}
         if (fire_census["graph_launches"] != 1
                 or fire_census["host_reads"] != 1
-                or fire_census["pass_nodes"]["conditionals"] != 1):
+                or fire_census["pass_nodes"]["conditionals"] != 1
+                or fire_census["pass_nodes"][
+                    "programmatic_into_fire_move"] < 1):
             failures.append(f"sharded fire graph: census {fire_census}")
         rec["fire"] = {"iterations": g_n, "rebuilds": len(g_rb),
                        "rebuild_steps": g_rb[:64],
@@ -5300,8 +5317,8 @@ FIRE_EARLIER_MS = {("fire_reduce", "slots"): 0.00758,
 # The programmatic edges a FIRE census reads (the graph's, and those into
 # the two reductions).
 FIRE_EDGES = ("programmatic_edges", "programmatic_into_fire_reduce",
-              "programmatic_into_fire_test", "edges_error",
-              "fire_edges_error")
+              "programmatic_into_fire_test", "programmatic_into_fire_move",
+              "edges_error", "fire_edges_error")
 # Views of v and F for the edge checks: offsets in values into a larger
 # tensor (both misaligned alike: a scalar head; apart: scalar loads).
 FIRE_ALIGNS = {"aligned": (0, 0), "head": (1, 1), "apart": (1, 2)}
@@ -5317,6 +5334,38 @@ def fire_bound(name, shape, dtype, images=False):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_FIRE_VALUE[name] * n / PEAK_OPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def move_hbm_ms(fu, hyper, arrays, box, scal, ints, rows, replays=20,
+                rounds=5):
+    """Device ms of one ``fire_move`` whose arrays come from memory, not
+    the L2: a CUDA graph of one call on each of enough copies of its
+    arrays (F, v, x; rows also the images) to hold twice the L2 (50 MB on
+    the H100), in turn, replayed ``replays`` times between two CUDA
+    events and divided by the calls; the median of ``rounds``. Returns
+    ``(ms, copies)``."""
+    f, v, x = arrays
+    per_copy = sum(t.numel() * t.element_size() for t in arrays) + (
+        box["images"].numel() * 8 if rows else 0)
+    sets = max(2, math.ceil(2 * L2_BYTES / per_copy))
+    copies = [[t.clone() for t in arrays]
+              + [box["images"].clone() if rows else None]
+              for _ in range(sets)]
+    extra = dict(cell=box["cell"], cell_inv=box["cell_inv"]) if rows else {}
+
+    def call(c):
+        fu.fire_move(c[2], c[1], c[0], scal, ints, hyper.dmax, rows=rows,
+                     images=c[3], **extra)
+    for c in copies:
+        call(c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in copies:
+            call(c)
+    ms = statistics.median(cuda_time_ms(graph.replay, replays, 2) / sets
+                           for _ in range(rounds))
+    return ms, sets
 
 
 def fire_edge_check(fu, hyper, ring, copies, rel_each):
@@ -5398,20 +5447,23 @@ def fire_check(mt, probe_lib=None):
     set of FIRE buffers, ``fire_reduce`` in one pass and split as the shard
     ring launches it (every scalar and the reductions to rel 1e-12 at f64,
     2e-6 at f32, do_mix, positive and the step counters equal),
-    ``fire_move`` on the plain reduction's scalars (positions and
-    velocities to the same relative tolerance of their largest value, the
-    images equal), ``fire_test`` in one pass and split (f_rms to the same,
+    ``fire_move`` on the plain reduction's scalars (positions, velocities
+    and images bit for bit, launched plain and as a programmatic dependent
+    of a reduction), ``fire_test`` in one pass and split (f_rms to the same,
     the step, the flags and converged equal); each kernel twice on the
     same inputs bit for bit. The two reductions also at each count of
     ``fire_update.edge_counts``, in every case, on each view of
     :data:`FIRE_ALIGNS`, one pass and split, the same way. Each timed by
     :func:`many_ms` (a graph of ``MANY_CALLS`` in-place calls, the
     positive case) at f32 and f64, its plain version the same way, beside
-    the launch floor, its bound and ``vector_norm`` of F, and logged
-    beside the earlier design's times (:data:`FIRE_EARLIER_MS`);
+    the launch floor, its bound and ``vector_norm`` of F (the move: as a
+    programmatic dependent, the package's launch, and in plain stream
+    order, alone and after ``fire_reduce``), and logged beside the earlier
+    design's times (:data:`FIRE_EARLIER_MS`);
     ``probe_lib`` (a future of ``probe_torch_fire.build_stamped``): the
     reductions' phases at f32 from its stamped copy."""
     from mdtpu_torch.minimize import fire_update as fu
+    from mdtpu_torch.ops import philox_draws as draws
     hyper = fu.FireHyper()
     slots_shape = (3, BENCH_GEOMETRY[1] * math.prod(BENCH_GEOMETRY[0]))
     rows_shape = (N_BENCH, 3)
@@ -5438,8 +5490,10 @@ def fire_check(mt, probe_lib=None):
         scal[fu.DT] = 0.09 if case == "grow" else 0.03
         scal[fu.ALPHA], scal[fu.TOL] = 0.07, 1e-3
         ints[fu.SSN], ints[fu.MAX_STEPS] = (7 if case == "grow" else 2), 10
+        # The box contiguous, as the FIRE loops hand it over.
         box = dict(images=img, cell=cell,
-                   cell_inv=torch.linalg.inv(cell)) if rows else {}
+                   cell_inv=torch.linalg.inv(cell).contiguous()) \
+            if rows else {}
         over = torch.tensor(case == "overflow", device="cuda")
         return ([t.to(dtype) for t in (f, v, x)], box,
                 (scal, ints, red, work, flags), over)
@@ -5497,14 +5551,19 @@ def fire_check(mt, probe_lib=None):
             fu.fire_move_plain(xs[0], vs[0], f, p[0], p[1], hyper.dmax, rows,
                                imgs[0], *(extra.values()), overflow=over)
             for i in (1, 2):
+                if i == 2:
+                    # As the FIRE loops launch it: a programmatic dependent
+                    # of a reduction (its own buffers) over the same v, F.
+                    r = copies(bufs)
+                    fu.fire_reduce(vs[i], f, r[0], r[1], r[2][:fu.RED], r[3],
+                                   hyper, over)
                 fu.fire_move(xs[i], vs[i], f, p[0], p[1], hyper.dmax,
                              rows=rows, images=imgs[i], overflow=over,
                              **extra)
             errs["move"] = max(rel_err(xs[1], xs[0]), rel_err(vs[1], vs[0]))
-            same &= torch.equal(xs[1], xs[2]) and torch.equal(vs[1], vs[2])
-            if rows:
-                same &= torch.equal(imgs[1], imgs[0]) and torch.equal(
-                    imgs[1], imgs[2])
+            # The move is held to its plain version bit for bit.
+            same &= all(torch.equal(a[1], a[0]) and torch.equal(a[2], a[0])
+                        for a in (xs, vs) + ((imgs,) if rows else ()))
             # fire_test, in one pass and split.
             tp = copies(p)
             fu.fire_test_plain(f, tp[0], tp[1], tp[2][fu.RED:], 17.0, tp[4],
@@ -5572,7 +5631,17 @@ def fire_check(mt, probe_lib=None):
                    "launch_floor_ms": floor, "library_ms": None,
                    "library_call": "none, no single PyTorch call",
                    "shape": list(shape), "dtype": tag}
-            if name != "fire_move":
+            if name == "fire_move":
+                # After fire_reduce, as the FIRE loops launch it; and over
+                # buffers the L2 cannot hold (the in-place calls' 4-15 MB
+                # stay in it), as its bytes bound assumes.
+                def pair():
+                    calls["fire_reduce"][0]()
+                    kernel()
+                rec["after_reduce_ms"] = many_ms(pair)
+                rec["hbm_ms"], rec["hbm_sets"] = move_hbm_ms(
+                    fu, hyper, (f, v, x), box, scal, ints, rows)
+            else:
                 rec["yardstick_vector_norm_ms"] = many_ms(
                     lambda: torch.linalg.vector_norm(f))
                 if probe_lib is not None and dtype == torch.float32:
@@ -5593,7 +5662,6 @@ def fire_check(mt, probe_lib=None):
                             "earlier_design_ms": earlier}))
     results["edges"] = edges
     # The captured segment's loop test, against its plain version.
-    from mdtpu_torch.ops import philox_draws as draws
     counter = torch.tensor(599, device="cuda")
     flag = torch.zeros((), dtype=torch.bool, device="cuda")
     for end in (598, 599, 600):
@@ -5796,7 +5864,8 @@ def fire_graph_paths(mt):
         # (slots: the pass's trailing rebin; particle order: the engine's).
         if (census["graph_launches"] != 1 or census["host_reads"] != 1
                 or census["pass_nodes"]["conditionals"] != 1
-                or census["graph_nodes"]["conditionals"] < 1):
+                or census["graph_nodes"]["conditionals"] < 1
+                or census["pass_nodes"]["programmatic_into_fire_move"] < 1):
             failures.append(f"fire graph {name}: census {census}")
         log(json.dumps({"fire_graph_path": name, **rec[name]}))
     return rec, failures
@@ -6632,11 +6701,12 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "shape", "yardstick_vector_norm_ms",
-                "phases")
+                "shape", "yardstick_vector_norm_ms", "after_reduce_ms",
+                "hbm_ms", "hbm_sets", "phases")
         extra.update(
             covers=FIRE_COVERS[kname], kernel="scaled_reduce_kernel"
-            if kname != "fire_move" else "fire_move_kernel",
+            if kname != "fire_move" else "fire_move_slots_kernel, "
+            "fire_move_rows_kernel",
             rows={k: fire_results[f"{kname}_rows"][k] for k in keys
                   if k in fire_results[f"{kname}_rows"]},
             f64={layout: {k: fire_results[f"{kname}_{layout}_float64"][k]
@@ -6649,7 +6719,7 @@ def run_phases(mt, _cuda_build, t, probe_lib, rows_probe):
             minimizations={k: r["census"] for k, r in fire_rec.items()})
         if kname != "fire_move":
             extra["edges"] = fire_results["edges"]
-            extra["launch"] = "a programmatic dependent (cudaLaunchKernelEx)"
+        extra["launch"] = "a programmatic dependent (cudaLaunchKernelEx)"
         kernels["kernels"].append(entry(kname, FIRE_SOURCE,
                                         FIRE_REPLACES[kname],
                                         by_path["fire"][kname], main_rec,

@@ -78,7 +78,8 @@ lists (~2 min).
 ``--only draws`` compares the slot step's small kernels alone, each timed
 by a CUDA graph of 100 calls back to back (replayed 20 times, over the
 calls; the median of 5 rounds), where a graph of one call would time the
-host's replay: ``bussi_draw`` (f32, the bench's nf - 1), ``uniform_noise``
+host's replay: ``bussi_draw`` (f32 and f64, the bench's nf - 1),
+``uniform_noise``
 on the bench's slots (3, 124,875) and the Brownian slot path's (3,
 263,424), f32 and f64, ``rebuild_flag`` on the bench's slots f32,
 ``velocity_finish`` called directly on those slots (NVT summing with the
@@ -95,18 +96,27 @@ plain stream order (`` plain launch``). It first prints which
 trees were compared (the parent's directory and each tree's last line of
 ``CHANGES.md``), last the card's name and power limit.
 
-``--only fire`` compares FIRE's two reductions alone, timed the same way
-(a graph of 100 in-place calls): ``fire_reduce`` (one pass) and
-``fire_test`` at bench_fire's slots (3, 124,875) and particle rows
-(65,536, 3), f32 and f64, on one set of inputs (forces ~30, velocities
-along them, dt 0.03, alpha 0.07, tol 1e-3, the loop going on), each
-tree's buffers from its own ``fire_update.buffers``; each line gives
-the values (red and scal after one call; the trees may sum in other
-orders, so their largest relative difference beside bit equality), the
-kernels a call, both trees' times and the bound (v and F, or F, read
-once at 3.35 TB/s). Beside them, as a yardstick over the same bytes
-(not the same function), ``torch.linalg.vector_norm`` of F, and the
-launch floor.
+``--only fire`` compares FIRE's kernels alone, timed the same way (a
+graph of 100 in-place calls): ``fire_reduce`` (one pass), ``fire_test``
+and ``fire_move`` at bench_fire's slots (3, 124,875) and particle rows
+(65,536, 3, with the wrap in a cubic box of 40.3), f32 and f64, on one
+set of inputs (forces ~30, velocities along them, positions in [0, 40),
+dt 0.03, alpha 0.07, tol 1e-3, the loop going on), each tree's buffers
+from its own ``fire_update.buffers``; each line gives the values (red and
+scal after one call, the trees may sum in other orders, so their largest
+relative difference beside bit equality; the move's positions,
+velocities and images after one reduction and one move), the kernels a
+call, both trees' times and the bound (the arrays read and written once
+at 3.35 TB/s). The move also in turn with the reduction, a graph of 100
+pairs as the FIRE loops run them, each tree's way of launching. Beside
+them, as a yardstick over the same bytes (not the same
+function), ``torch.linalg.vector_norm`` of F, and the launch floor. Then
+FIRE's whole minimization in each tree (captured on the card) from
+``bench_fire.py``'s system (65,536 f32): in slots, on ``PlaneEngine`` and
+on the list (200 iterations at tol 0), sharded on a one-rank NCCL group,
+and the packer (``initialize_state`` at rho 0.8): whether the positions
+(bit for bit), the energy, the iterations and the rebuild steps are
+equal across the trees and runs, and each run's seconds.
 
 ``--only rows`` compares the particle rows' drift test and Brownian move
 alone (``rebuild_flag_rows``, ``brownian_rows``) at 65,536 rows, f32 and
@@ -551,30 +561,45 @@ def rows_runs(name, case):
 
 
 def make_fire_inputs(path):
-    """FIRE's reductions' inputs at bench_fire's slots and particle rows
-    (f64; each tree rounds them to its dtype): forces ~30 and velocities
-    along them."""
+    """FIRE's kernels' inputs at bench_fire's slots and particle rows
+    (f64; each tree rounds them to its dtype): forces ~30, velocities
+    along them, and positions in [0, 40) (rows: in a cubic box of
+    40.3)."""
     g = torch.Generator().manual_seed(21)
     cases = {}
     for layout, shape in FIRE_SHAPES.items():
         f = torch.randn(shape, generator=g, dtype=torch.float64) * 30
         v = torch.randn(shape, generator=g, dtype=torch.float64) + 0.01 * f
-        cases[f"fire {layout}"] = {"kind": "fire", "inputs": [f, v]}
+        x = torch.rand(shape, generator=g, dtype=torch.float64) * 40.0
+        cases[f"fire {layout}"] = {"kind": "fire", "inputs": [f, v, x],
+                                   "rows": layout == "rows"}
+    cases["minimize"] = {"kind": "fire_min"}
     torch.save(cases, path)
 
 
 def fire_runs(name, case):
-    """``fire_reduce`` and ``fire_test`` as this tree has them on the
-    case's inputs, f32 and f64, a graph of 100 in-place calls each, their
-    values after one call, the bound; ``vector_norm`` of F the same way;
-    the launch floor."""
+    """``fire_reduce``, ``fire_test`` and ``fire_move`` as this tree has
+    them on the case's inputs, f32 and f64, a graph of 100 in-place calls
+    each, their values after one call (the move's after one reduction,
+    from its scalars), the bound; the reduction and the move in turn, a
+    graph of 100 pairs (the FIRE loops' order); ``vector_norm`` of F the
+    same way; the launch floor."""
     from mdtpu_torch.minimize import fire_update as fu
     from mdtpu_torch.ops import philox_draws as draws
     out = {}
+    rows = case["rows"]
     for dtype in (torch.float32, torch.float64):
-        f, v = (t.to(device="cuda", dtype=dtype) for t in case["inputs"])
+        f, v, x = (t.to(device="cuda", dtype=dtype) for t in case["inputs"])
         size = f.element_size()
         tag = "" if dtype == torch.float32 else " f64"
+        box = {}
+        if rows:
+            # Contiguous, as the FIRE loops hand the box over (a box the
+            # wrapper had to copy would add a kernel to each call).
+            cell = torch.eye(3, dtype=dtype, device="cuda") * 40.3
+            box = dict(cell=cell,
+                       cell_inv=torch.linalg.inv(cell).contiguous())
+        img = torch.zeros(f.shape, dtype=torch.int64, device="cuda")
 
         def buffers():
             scal, ints, red, work, flags = fu.buffers(dtype, "cuda",
@@ -598,6 +623,33 @@ def fire_runs(name, case):
                 "values": values, "ms": many_ms(lambda: call(b)),
                 "bound_ms": arrays * f.numel() * size / 3.35e12 * 1e3,
                 **kernels_of(lambda: call(b))}
+
+        def move(b, xs, vs, imgs):
+            kw = dict(box, images=imgs) if rows else {}
+            fu.fire_move(xs, vs, f, b[0], b[1], hyper.dmax, rows=rows, **kw)
+
+        # The move from one reduction's scalars: x, v (and images) after it.
+        b = buffers()
+        calls["fire_reduce"][1](b)
+        xs, vs, imgs = x.clone(), v.clone(), img.clone()
+        move(b, xs, vs, imgs)
+        values = torch.cat([xs.double().flatten(), vs.double().flatten()]
+                           + ([imgs.double().flatten()] if rows else [])).cpu()
+        move_bytes = (5 * size + (16 if rows else 0)) * f.numel()
+        xs, vs, imgs = x.clone(), v.clone(), img.clone()
+        out[f"{name} fire_move{tag}"] = {
+            "values": values, "ms": many_ms(lambda: move(b, xs, vs, imgs)),
+            "bound_ms": move_bytes / 3.35e12 * 1e3,
+            **kernels_of(lambda: move(b, xs, vs, imgs))}
+
+        def pair(b):
+            calls["fire_reduce"][1](b)
+            move(b, xs, vs, imgs)
+        b = buffers()
+        out[f"{name} fire_reduce+fire_move{tag}"] = {
+            "values": values, "ms": many_ms(lambda: pair(b)),
+            "bound_ms": (move_bytes + 2 * size * f.numel()) / 3.35e12 * 1e3,
+            **kernels_of(lambda: pair(b))}
         norm = torch.linalg.vector_norm(f).reshape(1).double().cpu()
         out[f"{name} vector_norm{tag}"] = {
             "values": norm, "ms": many_ms(lambda: torch.linalg.vector_norm(f)),
@@ -605,6 +657,88 @@ def fire_runs(name, case):
             **kernels_of(lambda: torch.linalg.vector_norm(f))}
     if hasattr(draws, "empty"):
         out["launch_floor"] = {"ms": many_ms(lambda: draws.empty("cuda"))}
+    return out
+
+
+# The minimizations each tree runs (the bench_fire system, 65,536 f32): by
+# the engine (the cell grid in slots, PlaneEngine, the list, the sharded
+# engine) and the packer; and the iterations at tol 0.
+FIRE_MINIMIZATIONS = ("slots", "plane", "list", "sharded", "pack")
+FIRE_MIN_ITERS = 200
+
+
+def fire_min_runs(name, case):
+    """FIRE's whole minimization as the tree runs it (captured on the
+    card): ``bench_fire.py``'s system (the bench's lattice jittered by
+    0.05, 65,536 LJ f32) through ``fire_minimize`` on the cell grid in
+    slots, on ``PlaneEngine`` and on the list in particle order, 200
+    iterations at tol 0, through ``fire_minimize_sharded`` on a one-rank
+    NCCL group, and the packer (``initialize_state`` at 65,536, rho 0.8,
+    seed 0): each run's positions, energy, iterations and the iterations
+    after which it rebuilt (the last minimization's)."""
+    import tempfile as _tempfile
+    import time
+
+    import torch.distributed as dist
+
+    import mdtpu_torch as mt
+    from mdtpu_torch.minimize import fire as fire_mod
+    from mdtpu_torch.ops.experimental import PlaneEngine
+    from mdtpu_torch.sim.initialization import lattice_fluid_state
+    out = {}
+    params = mt.Parameters(density=0.8, n_particles=N, dt=0.002,
+                           potential=mt.LennardJones(r_cut=2.5))
+    with _tempfile.TemporaryDirectory() as work:
+        for kind in FIRE_MINIMIZATIONS:
+            state = lattice_fluid_state(N, 0.8, 1.0, dtype=torch.float32,
+                                        cutoff=2.5, jitter=0.05,
+                                        device="cuda")
+            runs = []
+            record = fire_mod.fire_minimize
+
+            def recorded(*args, **kwargs):
+                result = record(*args, **kwargs)
+                runs.append(result[3])
+                return result
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "pack":
+                fire_mod.fire_minimize = recorded
+                try:
+                    end = mt.initialize_state(
+                        params, os.path.join(work, "pack"), seed=0,
+                        cutoff=2.5, device="cuda")
+                finally:
+                    fire_mod.fire_minimize = record
+                energy, n = end.energy, runs
+            elif kind == "sharded":
+                from mdtpu_torch.minimize import fire_minimize_sharded
+                dist.init_process_group(
+                    "nccl", init_method="file://" + os.path.join(
+                        work, "store"), world_size=1, rank=0,
+                    device_id=torch.device("cuda", 0))
+                end, energy, _, n = fire_minimize_sharded(
+                    state, params, max_steps=FIRE_MIN_ITERS, tol=0.0)
+            else:
+                engine = {"slots": lambda: mt.select_engine(
+                              params.potential, 2.5, state),
+                          "plane": lambda: PlaneEngine.create(
+                              params.potential, 2.5, 0.3, state.unitcell, N),
+                          "list": lambda: mt.select_engine(
+                              params.potential, 2.5, state,
+                              prefer="neighbor")}[kind]()
+                end, energy, _, n = mt.fire_minimize(
+                    state, params, engine, max_steps=FIRE_MIN_ITERS, tol=0.0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            fire = next(reversed(fire_mod._CACHE.values()), None)
+            out[f"{name} {kind}"] = {
+                "positions": end.positions.cpu(),
+                "energy": float(energy), "iterations": n,
+                "rebuilds": fire.rebuild_steps() if fire else None,
+                "seconds": seconds}
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return out
 
 
@@ -747,9 +881,11 @@ def draw_runs(name, case):
                 out[f"{name} {kernel}{label}"] = {
                     "values": values, "ms": many_ms(fn), **kernels_of(fn)}
 
-    record("bussi_draw",
-           lambda: draws.bussi_draw(0, step, dof, torch.float32),
-           lambda: draws.bussi_draw(0, step, dof, torch.float32).cpu())
+    for dname, dtype in (("", torch.float32), (" f64", torch.float64)):
+        record(f"bussi_draw{dname}",
+               lambda dtype=dtype: draws.bussi_draw(0, step, dof, dtype),
+               lambda dtype=dtype: draws.bussi_draw(0, step, dof,
+                                                    dtype).cpu())
     for sname, shp in (("", shape), (" brownian_slot", BROWNIAN_SLOTS)):
         for dname, dtype in (("", torch.float32), (" f64", torch.float64)):
             record(f"uniform_noise{sname}{dname}",
@@ -938,6 +1074,9 @@ def worker(tree, inputs_path, out_path):
         if case["kind"] == "fire":
             out.update(fire_runs(name, case))
             continue
+        if case["kind"] == "fire_min":
+            out.update(fire_min_runs(name, case))
+            continue
         if case["kind"] == "rows":
             out.update(rows_runs(name, case))
             continue
@@ -964,8 +1103,8 @@ def worker(tree, inputs_path, out_path):
             out[f"{name} {kernel}"] = {
                 "energy": energy.cpu(), "virial": virial.cpu(),
                 "force": force.cpu(), "ms": replay_ms(lambda: fn(*args))}
-    if all(c["kind"] in ("draws", "slot", "reduce", "fire", "rows",
-                         "particle") for c in cases.values()):
+    if all(c["kind"] in ("draws", "slot", "reduce", "fire", "fire_min",
+                         "rows", "particle") for c in cases.values()):
         torch.save(out, out_path)
         return
     w = probe.random_input(0, device="cuda")
@@ -1135,7 +1274,7 @@ def main():
                                            "fire", "rows"),
                         help="compare the slot step's small kernels alone, "
                         "the slot advance's bits alone, the list's "
-                        "reduction alone, FIRE's two reductions alone, or "
+                        "reduction alone, FIRE's three kernels alone, or "
                         "the particle rows' drift test and Brownian move "
                         "alone")
     args = parser.parse_args()
@@ -1179,6 +1318,20 @@ def main():
         if name.startswith("launch_floor") or name not in runs[1]:
             continue
         p, c = parent[0][name], change[0][name]
+        if "positions" in p:
+            equal = {
+                "positions": all(same_bits(r[name]["positions"],
+                                           p["positions"]) for r in runs),
+                **{k: all(r[name][k] == p[k] for r in runs)
+                   for k in ("energy", "iterations", "rebuilds")}}
+            print(json.dumps({
+                "case": name, "equal": all(equal.values()), **equal,
+                "energy": c["energy"], "iterations": c["iterations"],
+                "rebuild_steps": c["rebuilds"],
+                "parent_seconds": [r[name]["seconds"] for r in parent],
+                "change_seconds": [r[name]["seconds"] for r in change]}),
+                flush=True)
+            continue
         if "rows" in p:
             exact = [i for i in range(len(p["rows"][0]))
                      if i not in SLOT_SUM_COLUMNS]

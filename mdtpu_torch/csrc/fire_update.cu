@@ -29,7 +29,8 @@
 //     place; in particle rows also the periodic wrap with the images
 //     (periodic_wrap.cuh, shared with verlet_update.cu's
 //     kick_drift_wrap_kernel). Slots are component-major (d, S) and keep
-//     the wrap for the rebin, as the JAX package's slot FIRE does.
+//     the wrap for the rebin, as the JAX package's slot FIRE does. A
+//     programmatic dependent of the kernel before it (see below).
 //   * fire_test, after the sweep: f_rms = |F / fm_s| fm / sqrt(ndof)
 //     (fire.py:299-302), step += 1 (not at the entry test), and the loop's
 //     predicate step < max_steps & f_rms >= tol & ~overflow into a flag
@@ -83,11 +84,40 @@
 //     read before the wait, the drift flag after it); the tail writes each
 //     output once and reads back nothing it stored.
 //
+// The move has no sum: it is bound by its bytes (x, v and F read, x and v
+// written; rows also read and write the int64 images), and its first
+// design put two round trips to memory in front of them (the overflow
+// flag, then the scalars, before any load of x, v or F) and launched in
+// plain stream order. Its design (fire_move_slots_kernel,
+// fire_move_rows_kernel; probe_torch_move.py measures each choice against
+// the others, PERF.md section 6):
+//
+//   * It launches as a programmatic dependent of the kernel before it
+//     (fire_reduce in the FIRE loops) and reads nothing before
+//     griddepcontrol.wait, so any kernel may come before it. Loading x, v
+//     and F (rows: the images and the box, in shared memory or in each
+//     thread's registers) before the wait and the scalars after it was
+//     measured and lost: the wait (SASS ACQBULK) holds a thread until its
+//     own loads have landed, so the scalars' round trip followed the
+//     data's instead of joining it.
+//   * Slots: a slot a thread, one block each kThreads slots, a warp's
+//     loads of a component one contiguous run; after the wait x, v, F, the
+//     flag and the scalars are loaded together, one round trip. A thread
+//     taking 16 bytes of each component row (where aligned) lost.
+//   * Rows: a particle a thread on particle_rows.cuh's grid, fixed by the
+//     count; the flag, the box (each thread its own copy) and the
+//     scalars, then F, v and x, the step, the images after it, as the
+//     first design ordered them (x loaded after the step was slower in
+//     float32).
+//   * The arithmetic of the first design, operation for operation: the
+//     same bits.
+//
 // Sums. Every sum runs in a fixed order (a thread's values in index order,
 // then fixed butterflies and a fixed order of partials), and there are no
 // float atomics, so an eager run and a captured one give the same bits. The
-// kernels are not held to the plain versions' bits (torch sums in another
-// order), only within tolerance.
+// reductions are not held to the plain versions' bits (torch sums in
+// another order), only within tolerance; the move is held to them bit for
+// bit.
 //
 // Overflow. Where the slot state's sticky overflow flag is set (a rebin
 // dropped rows), the three kernels leave everything as it is and the test
@@ -103,6 +133,7 @@
 
 #include <vector>
 
+#include "particle_rows.cuh"
 #include "periodic_wrap.cuh"
 
 namespace {
@@ -111,7 +142,6 @@ constexpr int kErrArgs = -1;
 constexpr int kErrNotCapturing = -2;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMoveMaxBlocks = 4096;
 constexpr int kMaxBlocks = 128;     // the reductions' grid at most
 constexpr int kMinVectors = 2;      // vectors of each array a thread at least
 constexpr int kBatch = 8;           // vectors a thread loads before adding
@@ -658,69 +688,138 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The move of n particles, a thread each (grid-stride): component k of
-// particle p at k * stride + p (slots, stride S) or p * D + k (rows,
-// stride 0). WRAP (rows): the periodic wrap and the images after it.
-template <typename T, int D, bool WRAP>
+// The scalars of a move: the kick's dt, the step's dt, the mix's two
+// coefficients, do_mix and positive (fire_reduce's tail wrote them).
+template <typename T>
+struct MoveScalars {
+  T dt_kick, dt, mix_v, mix_f;
+  bool do_mix, positive;
+  __device__ __forceinline__ MoveScalars(const T* scal, const int64_t* ints)
+      : dt_kick(scal[kDtKick]),
+        dt(scal[kDt]),
+        mix_v(scal[kMixV]),
+        mix_f(scal[kMixF]),
+        do_mix(ints[kDoMix] != 0),
+        positive(ints[kPositive] != 0) {}
+};
+
+// One particle's step (fire.py:355-366): v' = v + dt_kick F into v, the
+// mix where do_mix, zero where the power was not positive, disp = dt v',
+// the max-scaled norm and the dmax cap; returns the cap, by which the
+// caller moves x (move_by). In the order of the torch composition, each
+// operation rounded alone (-fmad=false): its bits.
+template <typename T, int D>
+__device__ __forceinline__ T capped_step(T (&v)[D], const T (&f)[D],
+                                         const MoveScalars<T>& s, T dmax,
+                                         T (&disp)[D]) {
+  T m = T(0);
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    T w = v[k] + s.dt_kick * f[k];
+    if (s.do_mix) w = s.mix_v * w + s.mix_f * f[k];
+    if (!s.positive) w = T(0);
+    v[k] = w;
+    disp[k] = s.dt * w;
+    m = nan_max(m, fabs(disp[k]));
+  }
+  const T ms = positive_or_one(m);
+  T ss = T(0);
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const T q = disp[k] / ms;
+    ss = ss + q * q;
+  }
+  T dnorm = sqrt(ss) * m;
+  if (!isfinite(dnorm)) dnorm = T(INFINITY);
+  // torch: dmax / t is reciprocal(t) * dmax; clamp(max=1).
+  const T floor_norm = T(1e-30);
+  const T r = T(1) / (dnorm < floor_norm ? floor_norm : dnorm);
+  const T cap = r * dmax;
+  return cap > T(1) ? T(1) : cap;
+}
+
+// x += the capped displacement, a non-finite component dropped.
+template <typename T, int D>
+__device__ __forceinline__ void move_by(T (&x)[D], const T (&disp)[D],
+                                        T cap) {
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    x[k] = x[k] + (isfinite(disp[k]) ? disp[k] * cap : T(0));
+}
+
+// The move of n slots, component k of slot p at k stride + p
+// (component-major (D, S), stride S >= n): a slot a thread, kThreads a
+// block, one block each kThreads slots. It waits first, then loads x, v,
+// F, the overflow flag, the scalars and ints together (one round trip),
+// and stores nothing where the flag is set.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    fire_move_kernel(T* x, T* v, const T* __restrict__ f, int64_t n,
-                     int64_t stride, int64_t* images, const T* cell,
-                     const T* cell_inv, const T* scal, const int64_t* ints,
-                     T dmax, const bool* overflow) {
+    fire_move_slots_kernel(T* x, T* v, const T* __restrict__ f, int64_t n,
+                           int64_t stride, const T* scal,
+                           const int64_t* ints, T dmax,
+                           const bool* overflow) {
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  wait_for_dependencies();
+  T xk[D], vk[D], fk[D], disp[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    xk[k] = x[k * stride + p];
+    vk[k] = v[k * stride + p];
+    fk[k] = f[k * stride + p];
+  }
+  const bool ovf = overflow != nullptr && *overflow;
+  const MoveScalars<T> s(scal, ints);
+  if (ovf) return;
+  move_by<T, D>(xk, disp, capped_step<T, D>(vk, fk, s, dmax, disp));
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    x[k * stride + p] = xk[k];
+    v[k * stride + p] = vk[k];
+  }
+}
+
+// The move of n particle rows (row-major (n, D)), WRAP with the periodic
+// wrap and the images: a particle a thread on particle_rows.cuh's grid
+// (kRowsThreads a block, rows_grid(n) blocks, a thread taking a particle
+// of each later tile beyond one wave), as the particle rows' other
+// kernels. It waits first, then reads the overflow flag, the box (each
+// thread its own copy) and the scalars, then a particle's F, v and x, its
+// step and move, then its images and the wrap, in the first design's
+// order.
+template <typename T, int D, bool WRAP>
+__global__ void __launch_bounds__(mdtpu::rows::kRowsThreads)
+    fire_move_rows_kernel(T* x, T* v, const T* __restrict__ f, int64_t n,
+                          int64_t* images, const T* cell, const T* cell_inv,
+                          const T* scal, const int64_t* ints, T dmax,
+                          const bool* overflow) {
+  using mdtpu::rows::kRowsThreads;
+  using mdtpu::rows::load_row;
+  wait_for_dependencies();
   if (overflow != nullptr && *overflow) return;
-  T c[D][D], ci[D][D];
-  if (WRAP) mdtpu::box::load_cell<T, D>(cell, cell_inv, c, ci);
-  const T dt_kick = scal[kDtKick], dt = scal[kDt];
-  const T mix_v = scal[kMixV], mix_f = scal[kMixF];
-  const bool do_mix = ints[kDoMix] != 0, positive = ints[kPositive] != 0;
-  const T inf = T(INFINITY);
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    T xk[D], vk[D], disp[D];
-    T m = T(0);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const int64_t e = stride ? k * stride + p : p * D + k;
-      const T fk = f[e];
-      T w = v[e] + dt_kick * fk;
-      if (do_mix) w = mix_v * w + mix_f * fk;
-      if (!positive) w = T(0);
-      vk[k] = w;
-      xk[k] = x[e];
-      disp[k] = dt * w;
-      m = nan_max(m, fabs(disp[k]));
-    }
-    const T ms = positive_or_one(m);
-    T ss = T(0);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const T q = disp[k] / ms;
-      ss = ss + q * q;
-    }
-    T dnorm = sqrt(ss) * m;
-    if (!isfinite(dnorm)) dnorm = inf;
-    // torch: dmax / t is reciprocal(t) * dmax; clamp(max=1).
-    const T floor_norm = T(1e-30);
-    const T r = T(1) / (dnorm < floor_norm ? floor_norm : dnorm);
-    T cap = r * dmax;
-    cap = cap > T(1) ? T(1) : cap;
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      xk[k] = xk[k] + (isfinite(disp[k]) ? disp[k] * cap : T(0));
-    if (WRAP) {
+  T c[D][D] = {}, ci[D][D] = {};
+  if constexpr (WRAP) mdtpu::box::load_cell<T, D>(cell, cell_inv, c, ci);
+  const MoveScalars<T> s(scal, ints);
+  const int64_t stride = (int64_t)gridDim.x * kRowsThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kRowsThreads + threadIdx.x; i < n;
+       i += stride) {
+    T xk[D], vk[D], fk[D], disp[D];
+    load_row<T, D>(f, i, fk);
+    load_row<T, D>(v, i, vk);
+    load_row<T, D>(x, i, xk);
+    move_by<T, D>(xk, disp, capped_step<T, D>(vk, fk, s, dmax, disp));
+    if constexpr (WRAP) {
       T unused[D];
       int64_t img[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) img[k] = images[p * D + k];
+      load_row<int64_t, D>(images, i, img);
       mdtpu::box::wrap<T, D, false>(xk, unused, img, c, ci);
 #pragma unroll
-      for (int k = 0; k < D; ++k) images[p * D + k] = img[k];
+      for (int k = 0; k < D; ++k) images[i * D + k] = img[k];
     }
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const int64_t e = stride ? k * stride + p : p * D + k;
-      x[e] = xk[k];
-      v[e] = vk[k];
+      x[i * D + k] = xk[k];
+      v[i * D + k] = vk[k];
     }
   }
 }
@@ -756,17 +855,18 @@ bool plan_span(const T* v, const T* f, int64_t n, Span& span) {
   return vec;
 }
 
-// A launch on s with cudaLaunchAttributeProgrammaticStreamSerialization: a
-// programmatic dependent of the kernel before it on the stream.
+// A launch of grid blocks of block threads on s with
+// cudaLaunchAttributeProgrammaticStreamSerialization: a programmatic
+// dependent of the kernel before it on the stream.
 template <typename... Params, typename... Args>
-int launch_ex(void (*kernel)(Params...), int grid, cudaStream_t s,
+int launch_ex(void (*kernel)(Params...), int grid, int block, cudaStream_t s,
               Args... args) {
   cudaLaunchAttribute attr = {};
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3((unsigned)block);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
   cfg.attrs = &attr;
@@ -814,8 +914,8 @@ int launch_reduce(int mode, const T* v, const T* f, int64_t n, T* red,
   const bool vec = data ? plan_span<T>(TWO ? v : nullptr, f, n, span) : true;
   const ReduceKernel<T, TWO> kernel = kernel_of<T, TWO>(mode, vec);
   if (!kernel) return kErrArgs;
-  return launch_ex(kernel, data ? reduce_grid<T>(n) : 1, s, v, f, span, red,
-                   work, scal, ints, overflow, h, sqrt_ndof, t);
+  return launch_ex(kernel, data ? reduce_grid<T>(n) : 1, kThreads, s, v, f,
+                   span, red, work, scal, ints, overflow, h, sqrt_ndof, t);
 }
 
 template <typename T>
@@ -862,22 +962,28 @@ bool reduce_kernel(const void* func) {
   return false;
 }
 
+// The slots' grid: one block each kThreads slots.
+int slots_grid(int64_t n) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return (int)(blocks < 1 ? 1 : blocks);
+}
+
 template <typename T, int D>
-int launch_move(bool wrap, T* x, T* v, const T* f, int64_t n, int64_t stride,
-                int64_t* images, const T* cell, const T* cell_inv,
-                const T* scal, const int64_t* ints, T dmax,
-                const bool* overflow, cudaStream_t s) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > kMoveMaxBlocks ? kMoveMaxBlocks : blocks);
+int launch_move(bool rows, bool wrap, T* x, T* v, const T* f, int64_t n,
+                int64_t stride, int64_t* images, const T* cell,
+                const T* cell_inv, const T* scal, const int64_t* ints,
+                T dmax, const bool* overflow, cudaStream_t s) {
+  if (!rows)
+    return launch_ex(fire_move_slots_kernel<T, D>, slots_grid(n), kThreads,
+                     s, x, v, f, n, stride, scal, ints, dmax, overflow);
+  const int grid = mdtpu::rows::rows_grid(n);
+  constexpr int block = mdtpu::rows::kRowsThreads;
   if (wrap)
-    fire_move_kernel<T, D, true><<<(int)blocks, kThreads, 0, s>>>(
-        x, v, f, n, stride, images, cell, cell_inv, scal, ints, dmax,
-        overflow);
-  else
-    fire_move_kernel<T, D, false><<<(int)blocks, kThreads, 0, s>>>(
-        x, v, f, n, stride, images, cell, cell_inv, scal, ints, dmax,
-        overflow);
-  return (int)cudaGetLastError();
+    return launch_ex(fire_move_rows_kernel<T, D, true>, grid, block, s, x,
+                     v, f, n, images, cell, cell_inv, scal, ints, dmax,
+                     overflow);
+  return launch_ex(fire_move_rows_kernel<T, D, false>, grid, block, s, x, v,
+                   f, n, images, cell, cell_inv, scal, ints, dmax, overflow);
 }
 
 template <typename T>
@@ -885,18 +991,37 @@ int fire_move(T* x, T* v, const T* f, int dim, long long n, long long stride,
               int64_t* images, const T* cell, const T* cell_inv,
               const T* scal, const int64_t* ints, double dmax,
               const bool* overflow, void* stream) {
-  const bool wrap = images != nullptr;
+  const bool wrap = images != nullptr, rows = stride == 0;
   if (!x || !v || !f || !scal || !ints || n < 0 || stride < 0 ||
-      (dim != 2 && dim != 3) || (wrap && (stride || !cell || !cell_inv)) ||
-      (stride && stride < n))
+      (dim != 2 && dim != 3) || (wrap && (!rows || !cell || !cell_inv)) ||
+      (!rows && stride < n))
     return kErrArgs;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_move<T, 2>(wrap, x, v, f, n, stride, images, cell,
-                                      cell_inv, scal, ints, (T)dmax,
+  return dim == 2 ? launch_move<T, 2>(rows, wrap, x, v, f, n, stride, images,
+                                      cell, cell_inv, scal, ints, (T)dmax,
                                       overflow, s)
-                  : launch_move<T, 3>(wrap, x, v, f, n, stride, images, cell,
-                                      cell_inv, scal, ints, (T)dmax,
+                  : launch_move<T, 3>(rows, wrap, x, v, f, n, stride, images,
+                                      cell, cell_inv, scal, ints, (T)dmax,
                                       overflow, s);
+}
+
+// Whether func is one of the move's kernels.
+template <typename T>
+bool move_kernel_of(const void* func) {
+  const void* kernels[] = {
+      (const void*)fire_move_slots_kernel<T, 2>,
+      (const void*)fire_move_slots_kernel<T, 3>,
+      (const void*)fire_move_rows_kernel<T, 2, true>,
+      (const void*)fire_move_rows_kernel<T, 2, false>,
+      (const void*)fire_move_rows_kernel<T, 3, true>,
+      (const void*)fire_move_rows_kernel<T, 3, false>};
+  for (const void* k : kernels)
+    if (func == k) return true;
+  return false;
+}
+
+bool move_kernel(const void* func) {
+  return move_kernel_of<float>(func) || move_kernel_of<double>(func);
 }
 
 }  // namespace
@@ -936,7 +1061,8 @@ int mdtpu_fire_reduce_f64(const double* v, const double* f, long long n,
 // S >= n: component k of slot p at k S + p) or rows (stride 0: p dim + k);
 // images (rows only, or null): (n, dim) int64, wrapped into with the cell
 // and its inverse (row-major (dim, dim)); scal, ints, overflow as
-// mdtpu_fire_reduce_f32's.
+// mdtpu_fire_reduce_f32's. Launched as a programmatic dependent of the
+// kernel before it (it reads nothing before the wait).
 int mdtpu_fire_move_f32(float* x, float* v, const float* f, int dim,
                         long long n, long long stride, int64_t* images,
                         const float* cell, const float* cell_inv,
@@ -1000,12 +1126,13 @@ long long mdtpu_fire_grid(long long n, int itemsize, long long* out) {
 }
 
 // The programmatic edges of the graph being captured on stream that enter
-// a fire_reduce node (out[0]) and a fire_test node (out[1]), and the error
-// code of the edges' read (out[2]; where not 0, out[0] and out[1] are -1).
+// a fire_reduce node (out[0]), a fire_test node (out[1]) and a fire_move
+// node (out[3]), and the error code of the edges' read (out[2]; where not
+// 0, out[0], out[1] and out[3] are -1).
 // Only this library's runtime knows its kernels' addresses, so the count
 // is made here.
 int mdtpu_fire_update_census(void* stream, long long* out) {
-  out[0] = out[1] = out[2] = 0;
+  out[0] = out[1] = out[2] = out[3] = 0;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t rc = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream),
@@ -1025,7 +1152,7 @@ int mdtpu_fire_update_census(void* stream, long long* out) {
   }
   if (rc) {
     cudaGetLastError();
-    out[0] = out[1] = -1;
+    out[0] = out[1] = out[3] = -1;
     out[2] = (long long)rc;
     return 0;
   }
@@ -1038,6 +1165,8 @@ int mdtpu_fire_update_census(void* stream, long long* out) {
       ++out[0];
     } else if (reduce_kernel<false>(p.func)) {
       ++out[1];
+    } else if (move_kernel(p.func)) {
+      ++out[3];
     }
   }
   return 0;

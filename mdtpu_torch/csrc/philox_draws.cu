@@ -70,18 +70,27 @@
 //         store, fence or reload.
 //     Measured and dropped: the partials combined through clusters of 8
 //     blocks in distributed shared memory, one ticket a cluster (slower).
-//   * bussi_draw: the same draws by one thread in sequence (r1 by
-//     Box-Muller, cos branch, from block 0; the gamma variate by Marsaglia
-//     and Tsang (2000), attempt t taking its normal from block 1 + 2t and
-//     its acceptance uniform from words 0-1 of block 2 + 2t; for a < 1 the
+//   * bussi_draw: the same draws, by the same two warps
+//     (bussi_draws_two_warps, one algorithm for the draw): r1 by
+//     Box-Muller, cos branch, from block 0 (warp 1); the gamma variate by
+//     Marsaglia and Tsang (2000), attempt t on lane t of warp 0 taking its
+//     normal from block 1 + 2t and its acceptance uniform from words 0-1
+//     of block 2 + 2t, the first accepting lane by a ballot (an attempt
+//     depends on nothing but its own blocks, so that is the first
+//     accepting attempt of a loop over them in order); for a < 1 the
 //     variate of a + 1 times u^(1/a), u from words 2-3 of the accepting
-//     block; at most kGammaAttempts attempts, none accepting leaving d).
-//     Ports thermostat.py:43-50 sum_noises and :59-61 (XLA's
-//     jax.random.normal and jax.random.gamma). No step launches it since
-//     velocity_finish draws in the step; thermostat.bussi_noise does, and
-//     the card's checks hold velocity_finish against the composition fed
-//     with its draws. Counter (block, step lo, step hi, 0), key the seed's
-//     two words.
+//     block; kGammaAttempts attempts, none accepting leaving d; r2 = 0
+//     where dof <= 0. Ports thermostat.py:43-50 sum_noises and :59-61
+//     (XLA's jax.random.normal and jax.random.gamma). No step launches it
+//     since velocity_finish draws in the step; thermostat.bussi_noise
+//     does, and the card's checks hold velocity_finish against the
+//     composition fed with its draws. Counter (block, step lo, step hi,
+//     0), key the seed's two words. Bound: its float64 chain (a Philox
+//     block, a Box-Muller and a gamma test, each lane's in parallel), far
+//     below the launch; it launches as a programmatic dependent that reads
+//     nothing before griddepcontrol.wait (the step after it), so only its
+//     launch overlaps the kernel before it. Its first design, one thread
+//     running the attempts in series, took 3.2x the launch floor.
 //   * uniform_noise ports mdtpu/integrate/step.py:110-119 brownian_noise
 //     (XLA's jax.random.uniform): the (d, S) variance-matched uniforms
 //     (2u - 1) sqrt(3), element e of the flattened array from block
@@ -227,30 +236,6 @@ __device__ bool gamma_attempt(int t, int64_t s, uint2 key,
   g = p.d * v;
   ub = 1.0 - u53(w.z, w.w);
   return v > 0.0 && log(u) < 0.5 * x * x + p.d - p.d * v + p.d * log(v);
-}
-
-template <typename T>
-__global__ void bussi_draw_kernel(const int64_t* step, uint2 key, double dof,
-                                  T* out) {
-  const int64_t s = *step;
-  const double r1 = box_muller(philox4x32_10(counter(0, s, 0), key));
-  double r2 = 0.0;
-  if (dof > 0.0) {
-    const GammaSetup p(dof);
-    double g = p.d, ub = 1.0;
-    for (int t = 0; t < kGammaAttempts; ++t) {
-      double gt, ubt;
-      if (gamma_attempt(t, s, key, p, gt, ubt)) {
-        g = gt;
-        ub = ubt;
-        break;
-      }
-    }
-    if (p.boost) g = g * pow(ub, 1.0 / p.a);
-    r2 = 2.0 * g;
-  }
-  out[0] = static_cast<T>(r1);
-  out[1] = static_cast<T>(r2);
 }
 
 // Waits until the grids this one depends on programmatically have ended
@@ -604,6 +589,23 @@ __device__ void bussi_draws_two_warps(int64_t s, uint2 key, double dof,
   if (lane == 0) drawn[1] = r2;
 }
 
+// Bussi's (r1, r2) of one step into out (two T): 64 threads, the draws of
+// bussi_draws_two_warps (the velocity finish's: one algorithm for the
+// draw). A programmatic dependent of the kernel before it that reads
+// nothing before griddepcontrol.wait: the step and the draws after it.
+template <typename T>
+__global__ void __launch_bounds__(kDrawThreads)
+    bussi_draw_kernel(const int64_t* step, uint2 key, double dof, T* out) {
+  __shared__ double drawn[2];
+  wait_for_dependencies();
+  bussi_draws_two_warps(*step, key, dof, drawn);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    out[0] = static_cast<T>(drawn[0]);
+    out[1] = static_cast<T>(drawn[1]);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T sqrt_t(T x);
 template <>
@@ -840,9 +842,9 @@ template <typename T>
 int bussi_draw(const int64_t* step, unsigned k0, unsigned k1, double dof,
                T* out, void* stream) {
   if (!step || !out) return kErrArgs;
-  bussi_draw_kernel<T><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      step, make_uint2(k0, k1), dof, out);
-  return (int)cudaGetLastError();
+  return launch_ex(bussi_draw_kernel<T>, dim3(1), dim3(kDrawThreads),
+                   static_cast<cudaStream_t>(stream), true, step,
+                   make_uint2(k0, k1), dof, out);
 }
 
 template <typename T>
@@ -1056,7 +1058,9 @@ int conditional_begin(cudaStream_t s, unsigned long long handle,
 extern "C" {
 
 // step: one int64 on the device; k0, k1: the seed's low and high words;
-// dof = nf - 1; out: (2,) on the device, r1 then r2.
+// dof = nf - 1; out: (2,) on the device, r1 then r2. Launched as a
+// programmatic dependent of the kernel before it (it reads the step after
+// the wait).
 int mdtpu_bussi_draw_f32(const int64_t* step, unsigned k0, unsigned k1,
                          double dof, float* out, void* stream) {
   return bussi_draw<float>(step, k0, k1, dof, out, stream);

@@ -31,7 +31,9 @@ The two reductions launch as programmatic dependents of the kernel before
 them (Hopper's programmatic dependent launch): each may read its own
 scalars in ``scal`` and ``ints`` before that kernel has ended, so the
 kernel just before one of them must not write those (see
-``csrc/fire_update.cu``; FIRE's own kernels never do).
+``csrc/fire_update.cu``; FIRE's own kernels never do). The move launches
+as one too, and reads nothing before that kernel has ended, so any kernel
+may come before it.
 
 Beside each kernel, its plain PyTorch version (the port's former torch
 composition, on the same buffers): CUDA tensors launch the kernel, CPU
@@ -285,17 +287,20 @@ def fire_reduce(v, forces, scal, ints, red, work, hyper: FireHyper,
 # ------------------------------------------------------------ fire_move
 
 
-def _safe_norm(a, dim=None, keepdim=False):
-    """The Euclidean norm scaled by max |a| first, so that no intermediate
-    squares a raw value (the forces of an overlapping start can be ~1e25)."""
-    if dim is None:
-        m = torch.max(torch.abs(a))
-        m_safe = torch.where(m > 0, m, torch.ones_like(m))
-        return torch.sqrt(torch.sum((a / m_safe) ** 2)) * m
+def _particle_norm(a, dim):
+    """Each particle's Euclidean norm over its ``dim`` components, scaled by
+    their max |a| first, so that no intermediate squares a raw value (the
+    forces of an overlapping start can be ~1e25); the squares added in
+    component order, as the kernel adds them (torch's sum over a short
+    row adds in another order on the card). Keeps ``dim``."""
     m = torch.amax(torch.abs(a), dim=dim, keepdim=True)
     m_safe = torch.where(m > 0, m, torch.ones_like(m))
-    r = torch.sqrt(torch.sum((a / m_safe) ** 2, dim=dim, keepdim=True)) * m
-    return r if keepdim else r.squeeze(dim)
+    q = (a / m_safe) ** 2
+    parts = q.unbind(dim)
+    ss = parts[0]
+    for part in parts[1:]:
+        ss = ss + part
+    return torch.sqrt(ss.unsqueeze(dim)) * m
 
 
 def fire_move_plain(positions, v, forces, scal, ints, dmax, rows,
@@ -311,7 +316,7 @@ def fire_move_plain(positions, v, forces, scal, ints, dmax, rows,
     # LAMMPS-style per-particle displacement cap, so steep potentials (or
     # overlapping float32 starts) cannot explode the step.
     disp = scal[DT] * w
-    dnorm = _safe_norm(disp, dim=-1 if rows else 0, keepdim=True)
+    dnorm = _particle_norm(disp, -1 if rows else 0)
     dnorm = torch.where(torch.isfinite(dnorm), dnorm,
                         torch.full_like(dnorm, float("inf")))
     cap = torch.clamp(dmax / torch.clamp(dnorm, min=1e-30), max=1.0)
@@ -332,8 +337,10 @@ def fire_move(positions, v, forces, scal, ints, dmax, *, rows,
     displacement, ``positions += disp`` and ``v`` the new velocity, in
     place. ``rows``: ``(N, d)`` particle rows (with ``images``, the cell
     and its inverse: the periodic wrap), else component-major ``(d, S)``
-    slots (the wrap deferred to the rebin). CUDA tensors launch the kernel
-    (adds one to ``fire_move.launches``), CPU tensors take
+    slots (the wrap deferred to the rebin); d is 2 or 3. CUDA tensors
+    launch the kernel (adds one to ``fire_move.launches``) as a
+    programmatic dependent of the kernel before it on the stream (it
+    reads nothing before that kernel has ended); CPU tensors take
     :func:`fire_move_plain`."""
     if forces.device.type == "cpu":
         return fire_move_plain(positions, v, forces, scal, ints, dmax, rows,
@@ -346,6 +353,8 @@ def fire_move(positions, v, forces, scal, ints, dmax, *, rows,
                          "shape")
     dim = forces.shape[1] if rows else forces.shape[0]
     n = forces.shape[0] if rows else forces.shape[1]
+    if dim not in (2, 3):
+        raise ValueError(f"fire_move takes d = 2 or 3, not {dim}")
     box = (None, None)
     if images is not None:
         if (not rows or images.shape != forces.shape
@@ -432,14 +441,15 @@ def fire_test(forces, scal, ints, red, work, sqrt_ndof, flags, *,
 
 # The census of a capture (:func:`capture_census`).
 CENSUS = ("programmatic_into_fire_reduce", "programmatic_into_fire_test",
-          "fire_edges_error")
+          "fire_edges_error", "programmatic_into_fire_move")
 
 
 def capture_census(device):
     """The programmatic edges of the graph being captured on ``device``'s
-    current stream that enter a ``fire_reduce`` and a ``fire_test`` node,
-    and the error code of the edges' read (where not 0, both counts are
-    -1), by :data:`CENSUS`. Raises where the stream is not capturing."""
+    current stream that enter a ``fire_reduce``, a ``fire_test`` and a
+    ``fire_move`` node, and the error code of the edges' read (where not
+    0, the counts are -1), by :data:`CENSUS`. Raises where the stream is
+    not capturing."""
     lib = _cuda_build.load(NAME, _SIGNATURES)
     out = (ctypes.c_longlong * len(CENSUS))()
     with torch.cuda.device(device):

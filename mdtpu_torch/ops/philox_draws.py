@@ -32,8 +32,8 @@ vote, :func:`rebuild_vote` (``rebuild_vote.launches``);
 its programmatic edges; :func:`empty` launches a kernel that does nothing
 (the launch floor). The noise, the velocity finish and the particle
 rows' drift test launch as programmatic dependents
-(:func:`launch_options`): under capture each takes a programmatic edge
-from the kernel node before it.
+(:func:`launch_options`), Bussi's draw always as one: under capture each
+takes a programmatic edge from the kernel node before it.
 """
 
 from __future__ import annotations
@@ -284,8 +284,11 @@ def bussi_draw_plain(seed: int, step, dof: float):
 def bussi_draw(seed: int, step, dof: float, dtype):
     """Bussi's ``(r1, r2)`` of one step as a ``(2,)`` tensor of ``dtype``
     on the step's device (``step`` a 0-d int64 tensor). A CUDA step
-    launches the kernel (one thread; adds one to ``bussi_draw.launches``);
-    a CPU step takes :func:`bussi_draw_plain`."""
+    launches the kernel (two warps, the velocity finish's draws; adds one
+    to ``bussi_draw.launches``) as a programmatic dependent of the kernel
+    before it (it reads the step after that kernel has ended, so any
+    kernel may come before it); a CPU step takes
+    :func:`bussi_draw_plain`."""
     _check_dtype(dtype)
     step = step_tensor(step, None)
     if step.device.type == "cpu":

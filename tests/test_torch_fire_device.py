@@ -21,8 +21,10 @@ the CPU, f64, N <= 500:
     and stopped at ``max_steps``;
   * each plain function of ``fire_update`` (the reduction and its tail,
     the move in slots and in rows with the wrap, the test) against the JAX
-    package's expressions, at f32 and f64, split as the sharded FIRE splits
-    them and in one call alike;
+    package's expressions, at f32 and f64, in 3D and 2D, split as the
+    sharded FIRE splits them and in one call alike, in every branch (the
+    power positive, not positive, past n_min with ~1e25 forces,
+    displacements past dmax, non-finite forces, the overflow flag set);
   * ``device_while``'s eager loop: the body runs exactly while the
     predicate holds, never after it turned false; ``LoopCounts``, which
     brings a captured loop's launches back into the counters.
@@ -356,7 +358,7 @@ def _jax_update(v, f, dt, alpha, ssn, hyper, axis):
     do_mix = (vmax > 0) & (fmax > 0)
     scale = alpha * (vmax_s / fmax_s) * (vn / jnp.where(fn > 0, fn,
                                                         jnp.ones_like(fn)))
-    v = jnp.where(do_mix, (1.0 - alpha) * v + scale * f, v)
+    mix_v = 1.0 - alpha
     positive = power > 0
     ssn_pos = ssn + 1
     grow = ssn_pos > h["n_min"]
@@ -366,6 +368,15 @@ def _jax_update(v, f, dt, alpha, ssn, hyper, axis):
     dt = jnp.where(positive, dt_pos, dt_neg)
     alpha = jnp.where(positive, alpha_pos, jnp.asarray(h["alpha0"], v.dtype))
     ssn = jnp.where(positive, ssn_pos, 0)
+    v, disp = _jax_move(v, f, mix_v, scale, do_mix, positive, dt, h["dmax"],
+                        axis)
+    return v, disp, dt, alpha, ssn
+
+
+def _jax_move(v, f, mix_v, mix_f, do_mix, positive, dt, dmax, axis):
+    """The move of fire_step (fire.py:355-366) from the kicked ``v``: the
+    mix, the zeroing, the capped displacement: ``(v, disp)``."""
+    v = jnp.where(do_mix, mix_v * v + mix_f * f, v)
     v = jnp.where(positive, v, jnp.zeros_like(v))
     disp = dt * v
     m = jnp.max(jnp.abs(disp), axis=axis, keepdims=True)
@@ -374,9 +385,9 @@ def _jax_update(v, f, dt, alpha, ssn, hyper, axis):
                              keepdims=True)) * m
     dnorm = jnp.where(jnp.isfinite(dnorm), dnorm, jnp.full_like(dnorm,
                                                                 jnp.inf))
-    cap = jnp.minimum(1.0, h["dmax"] / jnp.maximum(dnorm, 1e-30))
+    cap = jnp.minimum(1.0, dmax / jnp.maximum(dnorm, 1e-30))
     disp = jnp.where(jnp.isfinite(disp), disp * cap, jnp.zeros_like(disp))
-    return v, disp, dt, alpha, ssn
+    return v, disp
 
 
 def _jax_f_rms(f, ndof):
@@ -385,12 +396,15 @@ def _jax_f_rms(f, ndof):
     return jnp.sqrt(jnp.sum((f / fm_s) ** 2)) * fm_s / jnp.sqrt(ndof)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("case", ["positive", "negative", "grow", "rest"])
-@pytest.mark.parametrize("layout", ["slots", "rows"])
-def test_plain_update_matches_the_jax_expressions(dtype, case, layout):
+# The plain update's layouts: (dimension, particle rows).
+UPDATE_LAYOUTS = {"slots": (3, False), "rows": (3, True),
+                  "slots_2d": (2, False), "rows_2d": (2, True)}
+
+
+def _update_inputs(case, shape, rows):
+    """``(f, v, x)`` of a case of :func:`test_plain_update_matches_the_jax_
+    expressions`, made with numpy from one seed."""
     rng = np.random.default_rng(11)
-    shape = (3, 500) if layout == "slots" else (500, 3)
     # Forces of an overlapping start (~1e25) never square a raw value.
     f = rng.normal(size=shape) * (1e25 if case == "grow" else 1.0)
     v = rng.normal(size=shape) * 0.3 + 0.05 * f / np.abs(f).max()
@@ -398,44 +412,88 @@ def test_plain_update_matches_the_jax_expressions(dtype, case, layout):
         v = -v - 0.2 * f / np.abs(f).max()
     if case == "rest":
         v, f = np.zeros(shape), np.zeros(shape)
+    if case == "past_dmax":
+        # dt v' of ~0.15 a component: most particles past dmax, some not.
+        v = v * 16.0
+    if case == "nonfinite":
+        # An infinite force and a NaN force, each on a particle of its own.
+        idx = ((0, 3), (1, 7)) if not rows else ((3, 0), (7, 1))
+        f[idx[0]], f[idx[1]] = np.inf, np.nan
     x = rng.uniform(0, 9.0, size=shape)
+    return f, v, x
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["positive", "negative", "grow", "rest",
+                                  "overflow", "nonfinite", "past_dmax"])
+@pytest.mark.parametrize("layout", list(UPDATE_LAYOUTS))
+def test_plain_update_matches_the_jax_expressions(dtype, case, layout):
+    """The reduction, the move and the test, plain, against the JAX
+    package's expressions (rel 1e-12 at f64, 2e-6 at f32), in slots and in
+    rows with the wrap, in 3D and 2D: the power positive, not positive
+    (negative, and zero at rest), positive past n_min with ~1e25 forces,
+    displacements past dmax, non-finite forces, and the overflow flag set
+    (the JAX package's loop does not run: nothing changes). With
+    non-finite forces the power is NaN and the move zeroes every velocity,
+    so the move is also held alone, at a positive power with the mix on,
+    to the JAX move: there its non-finite displacements are the ones the
+    guards drop."""
+    dim, rows = UPDATE_LAYOUTS[layout]
+    n = 500
+    shape = (n, dim) if rows else (dim, n)
+    axis = -1 if rows else 0
+    f, v, x = _update_inputs(case, shape, rows)
     # grow: past n_min, and dt * f_inc clamped at dt_max.
     ssn, dt, alpha = ((7, 0.09, 0.07) if case == "grow" else (2, 0.03, 0.07))
+    ndof = dim * (n - 1.0)
     jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
-    # float64 is on for JAX in these tests (tests/conftest.py).
-    jv, jdisp, jdt, jalpha, jssn = _jax_update(
-        jnp.asarray(v, jt), jnp.asarray(f, jt), jnp.asarray(dt, jt),
-        jnp.asarray(alpha, jt), jnp.asarray(ssn), HYPER,
-        0 if layout == "slots" else -1)
-    jx = jnp.asarray(x, jt) + jdisp
-    cell = np.eye(3) * 9.0
-    if layout == "rows":
-        jx, jimg = j_wrap_positions(jx, jnp.zeros(shape, jnp.int32),
-                                    jnp.asarray(cell, jt),
-                                    jnp.asarray(np.linalg.inv(cell), jt))
-    jrms = _jax_f_rms(jnp.asarray(f, jt), 3 * 499.0)
-    jv, jx, jdt, jalpha, jrms = (np.asarray(a) for a in
-                                 (jv, jx, jdt, jalpha, jrms))
+    cell = np.eye(dim) * 9.0
+    jcell = (jnp.asarray(cell, jt), jnp.asarray(np.linalg.inv(cell), jt))
+
+    def wrapped(jx):
+        if not rows:
+            return jx, None
+        return j_wrap_positions(jx, jnp.zeros(shape, jnp.int32), *jcell)
+
+    overflow = case == "overflow"
+    if overflow:
+        jv, jx, jdt, jalpha, jssn = (np.asarray(v, dtype), np.asarray(
+            x, dtype), dt, alpha, ssn)
+        jimg, jrms = np.zeros(shape, np.int64), 0.0
+    else:
+        # float64 is on for JAX in these tests (tests/conftest.py).
+        jv, jdisp, jdt, jalpha, jssn = _jax_update(
+            jnp.asarray(v, jt), jnp.asarray(f, jt), jnp.asarray(dt, jt),
+            jnp.asarray(alpha, jt), jnp.asarray(ssn), HYPER, axis)
+        jx, jimg = wrapped(jnp.asarray(x, jt) + jdisp)
+        jrms = _jax_f_rms(jnp.asarray(f, jt), ndof)
+        jv, jx, jdt, jalpha, jrms = (np.asarray(a) for a in
+                                     (jv, jx, jdt, jalpha, jrms))
+        if case == "past_dmax":
+            norms = np.linalg.norm(np.asarray(jdisp, np.float64), axis=axis)
+            assert (norms < 0.0999).any()
+            np.testing.assert_allclose(norms.max(), HYPER["dmax"],
+                                       rtol=1e-5)
     rtol = 1e-12 if dtype == "float64" else 2e-6
     hyper = fu.FireHyper(**HYPER)
+    c = torch.tensor(cell, dtype=tt)
+    box = (torch.linalg.inv(c),)
     for modes in ((fu.ONE_PASS,), (fu.MAXIMA, fu.SUMS, fu.TAIL)):
         scal, ints, red, _, flags = fu.buffers(tt, "cpu", 1)
         scal[fu.DT], scal[fu.ALPHA], scal[fu.TOL] = dt, alpha, 1e-3
         ints[fu.SSN], ints[fu.MAX_STEPS] = ssn, 10
         tv, tf = torch.tensor(v, dtype=tt), torch.tensor(f, dtype=tt)
         tx = torch.tensor(x, dtype=tt)
+        over = torch.tensor(overflow)
         for mode in modes:
             fu.fire_reduce_plain(tv, tf, scal, ints, red[:fu.RED], hyper,
-                                 mode=mode)
+                                 over, mode=mode)
         img = torch.zeros(shape, dtype=torch.int64)
-        c = torch.tensor(cell, dtype=tt)
-        fu.fire_move_plain(tx, tv, tf, scal, ints, hyper.dmax,
-                           layout == "rows",
-                           *((img, c, torch.linalg.inv(c))
-                             if layout == "rows" else ()))
+        fu.fire_move_plain(tx, tv, tf, scal, ints, hyper.dmax, rows,
+                           *((img, c, *box) if rows else ()), overflow=over)
         for mode in modes:
-            fu.fire_test_plain(tf, scal, ints, red[fu.RED:],
-                               (3 * 499.0) ** 0.5, flags, mode=mode)
+            fu.fire_test_plain(tf, scal, ints, red[fu.RED:], ndof ** 0.5,
+                               flags, overflow=over, mode=mode)
         np.testing.assert_allclose(tv.numpy(), jv, rtol=rtol,
                                    atol=rtol * np.abs(jv).max())
         np.testing.assert_allclose(tx.numpy(), jx, rtol=rtol, atol=rtol * 9)
@@ -445,12 +503,42 @@ def test_plain_update_matches_the_jax_expressions(dtype, case, layout):
         np.testing.assert_allclose(float(scal[fu.FRMS]), float(jrms),
                                    rtol=rtol)
         assert int(ints[fu.SSN]) == int(jssn)
-        assert int(ints[fu.STEP]) == 1 and int(ints[fu.PASSES]) == 1
-        assert int(ints[fu.POSITIVE]) == (case in ("positive", "grow"))
-        assert int(ints[fu.DO_MIX]) == (case != "rest")
-        if layout == "rows":
+        assert int(ints[fu.STEP]) == int(not overflow)
+        assert int(ints[fu.PASSES]) == 1
+        assert int(ints[fu.POSITIVE]) == (case in ("positive", "grow",
+                                                   "past_dmax"))
+        assert int(ints[fu.DO_MIX]) == (case not in ("rest", "overflow",
+                                                     "nonfinite"))
+        if rows:
             assert torch.equal(img, torch.as_tensor(np.array(jimg),
                                                     dtype=torch.int64))
+    if case != "nonfinite":
+        return
+    # The move alone at a positive power, mixing, on the non-finite forces.
+    dt_kick, mix_v, mix_f = 0.03, 0.93, 0.4
+    jv, jdisp = _jax_move(jnp.asarray(v, jt) + dt_kick * jnp.asarray(f, jt),
+                          jnp.asarray(f, jt), mix_v, mix_f, True, True, dt,
+                          HYPER["dmax"], axis)
+    jx, jimg = wrapped(jnp.asarray(x, jt) + jdisp)
+    scal, ints, _, _, _ = fu.buffers(tt, "cpu", 1)
+    scal[fu.DT_KICK], scal[fu.DT] = dt_kick, dt
+    scal[fu.MIX_V], scal[fu.MIX_F] = mix_v, mix_f
+    ints[fu.DO_MIX], ints[fu.POSITIVE] = 1, 1
+    tv, tf = torch.tensor(v, dtype=tt), torch.tensor(f, dtype=tt)
+    tx, img = torch.tensor(x, dtype=tt), torch.zeros(shape, dtype=torch.int64)
+    fu.fire_move_plain(tx, tv, tf, scal, ints, HYPER["dmax"], rows,
+                       *((img, c, *box) if rows else ()))
+    assert not np.isfinite(np.asarray(jv)).all()
+    finite = np.isfinite(np.asarray(jv))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=rtol,
+                               atol=rtol * np.abs(np.asarray(jv)[finite])
+                               .max())
+    assert np.isfinite(tx.numpy()).all()
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=rtol,
+                               atol=rtol * 9)
+    if rows:
+        assert torch.equal(img, torch.as_tensor(np.array(jimg),
+                                                dtype=torch.int64))
 
 
 def test_plain_test_counts_the_step_and_sets_the_flags():

@@ -1,12 +1,14 @@
 """FIRE's two reductions (``fire_reduce``, ``fire_test`` in
-``mdtpu_torch/csrc/fire_update.cu``) on the CPU, where no kernel runs:
+``mdtpu_torch/csrc/fire_update.cu``) and its move (``fire_move``) on the
+CPU, where no kernel runs:
 
   * the buffers ``buffers`` makes on the CPU (``work`` one value: the
     plain versions do not read it; the kernels' library sizes it on the
     card);
   * the wrappers' argument checks (dtype, device, contiguity, ``red``'s
-    length, the mode), on tensors of the ``meta`` device, which reach the
-    checks and no kernel.
+    length, the mode; the move's shape, dimension, images and box), on
+    tensors of the ``meta`` device, which reach the checks and no
+    kernel.
 The card holds the kernels themselves to the plain versions at the edges
 of their grid, and the grid the library sizes (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``)."""
@@ -90,6 +92,67 @@ def test_fire_test_refuses_what_its_kernel_does_not_take(wrong):
         ints = torch.empty(ints.shape, dtype=ints.dtype)
     with pytest.raises(ValueError):
         _test(f, scal, ints, red, work, flags, **kw)
+
+
+def _move(x, v, f, scal, ints, **kw):
+    fu.fire_move(x, v, f, scal, ints, 0.1, **kw)
+
+
+@pytest.mark.parametrize("wrong", ["int_forces", "v_dtype", "x_shape",
+                                   "one_dim", "strided", "device",
+                                   "overflow_dtype", "scal_short",
+                                   "rows_four", "slots_one", "images_slots",
+                                   "images_dtype", "images_shape",
+                                   "cell_shape", "cell_device"])
+def test_fire_move_refuses_what_its_kernel_does_not_take(wrong):
+    """The move's wrapper refuses, before any launch, what its kernels do
+    not take: float32 or float64 of one dtype, one 2-d shape, contiguous
+    on one device, d 2 or 3 (slots (d, S), rows (N, d)), a bool overflow
+    flag, and the wrap on rows alone with int64 images of their shape and
+    a (d, d) box on their device."""
+    rows = not wrong.startswith(("slots", "images_slots"))
+    shape = (700, 3) if rows else (3, 700)
+    f, v, x = (torch.empty(shape, device="meta") for _ in range(3))
+    scal, ints, _, _, _ = _meta_buffers(torch.float32, 2100)
+    box = dict(images=torch.empty(shape, dtype=torch.int64, device="meta"),
+               cell=torch.empty(3, 3, device="meta"),
+               cell_inv=torch.empty(3, 3, device="meta"))
+    kw = dict(rows=rows, **(box if rows else {}))
+    if wrong == "int_forces":
+        f = f.to(torch.int32)
+    elif wrong == "v_dtype":
+        v = v.double()
+    elif wrong == "x_shape":
+        x = torch.empty(699, 3, device="meta")
+    elif wrong == "one_dim":
+        f, v, x = (t.reshape(-1) for t in (f, v, x))
+        kw = dict(rows=True)
+    elif wrong == "strided":
+        f, v, x = (torch.empty(3, 700, device="meta").t() for _ in range(3))
+    elif wrong == "device":
+        ints = torch.empty(ints.shape, dtype=ints.dtype)
+    elif wrong == "overflow_dtype":
+        kw["overflow"] = torch.empty((), dtype=torch.int64, device="meta")
+    elif wrong == "scal_short":
+        scal = scal[:fu.SCAL - 1]
+    elif wrong == "rows_four":
+        f, v, x = (torch.empty(700, 4, device="meta") for _ in range(3))
+        kw = dict(rows=True)
+    elif wrong == "slots_one":
+        f, v, x = (torch.empty(1, 700, device="meta") for _ in range(3))
+    elif wrong == "images_slots":
+        kw.update(box)
+        kw["images"] = torch.empty(shape, dtype=torch.int64, device="meta")
+    elif wrong == "images_dtype":
+        kw["images"] = kw["images"].to(torch.int32)
+    elif wrong == "images_shape":
+        kw["images"] = torch.empty(699, 3, dtype=torch.int64, device="meta")
+    elif wrong == "cell_shape":
+        kw["cell"] = torch.empty(2, 2, device="meta")
+    elif wrong == "cell_device":
+        kw["cell_inv"] = torch.empty(3, 3)
+    with pytest.raises(ValueError):
+        _move(x, v, f, scal, ints, **kw)
 
 
 @pytest.mark.parametrize("name", DTYPES)

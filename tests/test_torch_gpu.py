@@ -1900,6 +1900,40 @@ def test_bussi_draw_matches_plain(cuda, dof, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
+@pytest.mark.parametrize("dof", [0.0, -3.0, 0.3, 1.5, 3.0, 196604.0,
+                                 float("inf")])
+def test_bussi_draw_matches_its_plain_version_on_the_card(cuda, dof, dtype):
+    """Bussi's draw bit for bit its plain version run on the card (the
+    same operations by torch's CUDA kernels) over 200 steps and at a step
+    past 2^32: r2 = 0 where dof <= 0, the boost where a < 1 (dof 0.3 and
+    1.5: exponents 1/a of 6.67 and 1.33, which torch's pow takes as pow),
+    the first accepting attempt (a rejected first one at some of the
+    steps), and an infinite dof on which no attempt accepts. Each draw is
+    a programmatic dependent of a kernel that writes its step just before
+    it (the draw reads the step after the wait): the same bits as a draw
+    launched after a synchronize."""
+    from mdtpu_torch.ops import philox_draws as draws
+    steps = list(range(200)) + [2 ** 33 + 5]
+    step = torch.zeros((), dtype=torch.int64, device=cuda)
+    got, settled = [], []
+    for s in steps:
+        step.fill_(s)
+        got.append(draws.bussi_draw(7, step, dof, dtype))
+        torch.cuda.synchronize()
+        settled.append(draws.bussi_draw(7, step, dof, dtype))
+    got, settled = torch.stack(got), torch.stack(settled)
+    r1, r2 = draws.bussi_draw_plain(7, torch.tensor(steps, device=cuda), dof)
+    want = torch.stack([r1, r2], 1).to(dtype)
+    assert torch.equal(got, settled)
+    assert torch.equal(got, want), (got - want).abs().max()
+    if not dof > 0:
+        assert not got[:, 1].any()
+    if dof == float("inf"):
+        assert torch.isinf(got[:, 1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
 @pytest.mark.parametrize("shape", [(3, 124875), (2, 7), (3, 1)])
 def test_uniform_noise_matches_plain_bit_for_bit(cuda, shape, dtype):
     from mdtpu_torch.ops import philox_draws as draws
@@ -3584,14 +3618,184 @@ def test_fire_reductions_match_their_plain_versions_at_the_grid_edges(
                 assert torch.equal(runs[0][4], tested[4])
 
 
-@pytest.mark.parametrize("kind", ["slots", "list"])
+# The move's cases: (dimension, particle rows) by layout, and counts at the
+# edges of its grid (one block, past it; rows: past one wave of 512 blocks)
+# beside the bench_fire shapes.
+MOVE_LAYOUTS = {"slots": (3, False), "rows": (3, True),
+                "slots_2d": (2, False), "rows_2d": (2, True)}
+MOVE_COUNTS = {False: (124875, 1, 255, 257), True: (65536, 1, 257, 131073)}
+
+
+def _move_inputs(cuda, case, dim, rows, n, dtype):
+    """``(x, v, f, scal, ints, box, overflow)`` for one move, the scalars
+    set by hand: positive with the mix (also with non-finite forces, whose
+    displacements the guards drop), not positive, a step whose
+    displacements pass dmax, and the overflow flag set."""
+    from mdtpu_torch.minimize import fire_update as fu
+    shape = (n, dim) if rows else (dim, n)
+    g = torch.Generator(device=cuda).manual_seed(n + dim)
+    f = torch.randn(shape, device=cuda, generator=g, dtype=torch.float64)
+    v = torch.randn(shape, device=cuda, generator=g, dtype=torch.float64)
+    x = torch.rand(shape, device=cuda, generator=g, dtype=torch.float64)
+    if case == "past_dmax":
+        v = v * 16
+    if case == "nonfinite":
+        flat = f.view(-1)
+        flat[::7] = float("inf")
+        flat[3::11] = float("nan")
+        flat[5::13] = -float("inf")
+    f, v, x = (t.to(dtype) for t in (f * 30, v, x * 20.0))
+    scal, ints, _, _, _ = fu.buffers(dtype, cuda, f.numel())
+    scal[fu.DT_KICK], scal[fu.DT] = 0.03, 0.036
+    scal[fu.MIX_V], scal[fu.MIX_F] = 0.93, 0.0021
+    ints[fu.DO_MIX] = int(case != "negative")
+    ints[fu.POSITIVE] = int(case != "negative")
+    box = {}
+    if rows:
+        cell = torch.eye(dim, dtype=dtype, device=cuda) * 20.1
+        cell[0, 1] = 2.5 if dim == 3 else 0.0
+        box = dict(images=torch.randint(-3, 3, shape, device=cuda,
+                                        generator=g),
+                   cell=cell, cell_inv=torch.linalg.inv(cell))
+    over = torch.tensor(case == "overflow", device=cuda)
+    return x, v, f, scal, ints, box, over
+
+
+@pytest.mark.parametrize("case", ["positive", "negative", "past_dmax",
+                                  "nonfinite", "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("layout", list(MOVE_LAYOUTS))
+def test_fire_move_matches_its_plain_version_bit_for_bit(cuda, layout,
+                                                         dtype, case):
+    """``fire_move`` bit for bit its plain version on the card (positions,
+    velocities, and in rows the images after the wrap in a tilted box), in
+    slots and rows, 3D and 2D, at the bench_fire shapes and the edges of
+    its grids, in every branch: positive with the mix, not positive,
+    displacements past dmax, non-finite forces, the overflow flag set
+    (nothing written). Launched twice after a kernel that does not touch
+    its inputs, and as a programmatic dependent of a ``fire_reduce`` over
+    the same v and F into buffers of its own: every launch the same
+    bits."""
+    from mdtpu_torch.minimize import fire_update as fu
+    dim, rows = MOVE_LAYOUTS[layout]
+    for n in MOVE_COUNTS[rows]:
+        x, v, f, scal, ints, box, over = _move_inputs(cuda, case, dim, rows,
+                                                      n, dtype)
+        images = box.pop("images", None)
+        outs = []
+        for way in ("plain", "kernel", "kernel", "after_reduce"):
+            xs, vs = x.clone(), v.clone()
+            img = None if images is None else images.clone()
+            if way == "plain":
+                fu.fire_move_plain(xs, vs, f, scal, ints, 0.1, rows, img,
+                                   *box.values(), overflow=over)
+            else:
+                if way == "after_reduce":
+                    rs, ri, red, work, _ = fu.buffers(dtype, cuda,
+                                                      f.numel())
+                    fu.fire_reduce(vs, f, rs, ri, red[:fu.RED], work,
+                                   fu.FireHyper())
+                fu.fire_move(xs, vs, f, scal, ints, 0.1, rows=rows,
+                             images=img, overflow=over, **box)
+            outs.append((xs, vs, img))
+        torch.cuda.synchronize()
+        if case == "overflow":
+            assert torch.equal(outs[1][0], x) and torch.equal(outs[1][1], v)
+        for out in outs[1:]:
+            for got, want in zip(out, outs[0]):
+                if want is not None:
+                    assert got.dtype == want.dtype
+                    assert torch.equal(torch.nan_to_num(got),
+                                       torch.nan_to_num(want)), (n, way)
+                    assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.parametrize("captured", [False, True],
+                         ids=["eager", "captured"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("layout", list(MOVE_LAYOUTS))
+def test_fire_move_reads_the_scalars_a_reduction_just_wrote(
+        cuda, layout, dtype, captured):
+    """The FIRE loops' order: ``fire_reduce`` in one pass writes the very
+    ``scal`` and ``ints`` the move then reads (its kick's dt, dt, the mix,
+    do_mix, positive), and the move is launched at once as its
+    programmatic dependent, eager or replayed from a CUDA graph, ten
+    times from one start. Positions, velocities and images equal, bit
+    for bit, those of the same reduction, a synchronize, then the move.
+    The scalars before the reduction (zero: no mix, not positive) give
+    other positions and velocities, so a move that read them before its
+    wait would differ."""
+    from mdtpu_torch.minimize import fire_update as fu
+    dim, rows = MOVE_LAYOUTS[layout]
+    n = MOVE_COUNTS[rows][0]
+    x, v, f, _, _, box, _ = _move_inputs(cuda, "positive", dim, rows, n,
+                                         dtype)
+    v = v + 0.05 * f          # the power positive: the reduction mixes
+    images = box.pop("images", None)
+    hyper = fu.FireHyper()
+    start = fu.buffers(dtype, cuda, f.numel())[:4]
+    start[0][fu.DT], start[0][fu.ALPHA] = 0.02, 0.1
+    start[1][fu.SSN] = 6
+    first = start + (x, v, images)
+    state = [None if t is None else t.clone() for t in first]
+
+    def reset():
+        for t, t0 in zip(state, first):
+            if t is not None:
+                t.copy_(t0)
+
+    def pair(settle=False):
+        scal, ints, red, work, xs, vs, img = state
+        fu.fire_reduce(vs, f, scal, ints, red[:fu.RED], work, hyper)
+        if settle:
+            torch.cuda.synchronize()
+        fu.fire_move(xs, vs, f, scal, ints, hyper.dmax, rows=rows,
+                     images=img, **box)
+
+    def outputs():
+        return [None if t is None else t.clone() for t in state[4:]]
+
+    reset()
+    pair(settle=True)
+    want = outputs()
+    assert not torch.equal(want[0], x)
+    stale = [None if t is None else t.clone() for t in (x, v, images)]
+    fu.fire_move(stale[0], stale[1], f, start[0].clone(), start[1].clone(),
+                 hyper.dmax, rows=rows, images=stale[2], **box)
+    assert not torch.equal(stale[0], want[0])
+    assert not torch.equal(stale[1], want[1])
+    graph = None
+    if captured:
+        reset()
+        pair()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            pair()
+    for _ in range(10):
+        reset()
+        if graph is None:
+            pair()
+        else:
+            graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outputs(), want):
+            if w is not None:
+                assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("kind", ["slots", "list", "plane"])
 def test_captured_fire_equals_eager(cuda, kind):
     """FIRE as one CUDA-graph launch a minimization against FIRE eager
     (``graph=False``) from one start (4096 LJ on the bench's jittered
     lattice, f32): positions, FIRE's velocities, forces, energy, n_steps
     and the rebuild steps bit for bit, for 15 and then 60 iterations (the
     second call replays the first's graph), with rebuilds; in slots a
-    captured pass holds the nested IF node and no copy."""
+    captured pass holds the nested IF node and no copy; every captured
+    pass takes a programmatic edge into the move (slots, particle order on
+    the list and on ``PlaneEngine``)."""
     from mdtpu_torch.integrate import slot_step
     from mdtpu_torch.minimize import fire as fire_mod
     n = 4096
@@ -3602,7 +3806,9 @@ def test_captured_fire_equals_eager(cuda, kind):
         eng = CellGridEngine.create(pot, 2.5, 0.3, state.unitcell, n)
         start = slot_step.slotify(state, eng)
     else:
-        eng = mdtpu_torch.select_engine(pot, 2.5, state, prefer="neighbor")
+        eng = (PlaneEngine.create(pot, 2.5, 0.3, state.unitcell, n)
+               if kind == "plane" else
+               mdtpu_torch.select_engine(pot, 2.5, state, prefer="neighbor"))
         start = state.replace(nbrs=eng.allocate(
             state.positions, state.diameters, state.unitcell,
             state.unitcell_inv))
@@ -3632,6 +3838,8 @@ def test_captured_fire_equals_eager(cuda, kind):
     assert fire.captured is not None and out[False][1].captured is None
     assert fire.census["pass"]["conditionals"] == 1
     assert fire.census["pass"]["memsets"] == 0
+    assert fire.census["pass"]["programmatic_into_fire_move"] >= 1
+    assert fire.census["pass"]["fire_edges_error"] == 0
     if kind == "slots":
         assert fire.census["pass"]["copies"] == 0
 
@@ -3758,6 +3966,7 @@ def test_sharded_fire_captured_matches_eager(cuda):
         assert torch.equal(getattr(g, name), getattr(e, name)), name
     assert captured.rebuild_steps() == eager.rebuild_steps()
     assert captured.census["pass"]["conditionals"] == 1
+    assert captured.census["pass"]["programmatic_into_fire_move"] >= 1
 
 
 # --------------------------------------------------------------------------

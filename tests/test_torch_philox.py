@@ -1,6 +1,7 @@
 """The slot step's draws on the CPU: Philox-4x32-10's known answers, the
 plain Bussi draw's moments (r1 ~ N(0, 1); r2 chi-squared with nf - 1
-degrees of freedom, as the JAX package's 2 Gamma((nf - 1)/2)), the plain
+degrees of freedom, as the JAX package's 2 Gamma((nf - 1)/2)) and its
+branches against its attempts made one after another, the plain
 Brownian noise (on [-sqrt 3, sqrt 3], unit variance), draws that repeat for
 one (seed, step) and differ across steps, seeds and ranks, the plain
 rebuild flag against numpy, and the launch counters' arithmetic. The
@@ -78,6 +79,89 @@ def test_bussi_draw_moments(dof):
 def test_bussi_draw_without_freedom_is_zero():
     r1, r2 = draws.bussi_draw_plain(3, torch.arange(10), 0.0)
     assert torch.all(r2 == 0) and torch.all(torch.isfinite(r1))
+
+
+def _bussi_in_order(seed, step, dof, attempts=draws.GAMMA_ATTEMPTS):
+    """Bussi's ``(r1, r2)`` of one step in Python floats, the gamma
+    attempts tried one after another and the first accepting one taken
+    (Marsaglia and Tsang; the counters of ``csrc/philox_draws.cu``), and
+    that attempt's index (None where none accepted or none was made)."""
+    key = draws.seed_key(seed)
+
+    def words(block):
+        return _philox_numpy((block, step & 0xFFFFFFFF, step >> 32, 0), key)
+
+    def u53(a, b):
+        return ((a >> 5) * 2 ** 26 + (b >> 6)) * 2.0 ** -53
+
+    def normal(w):
+        return math.sqrt(-2.0 * math.log(1.0 - u53(w[0], w[1]))) * math.cos(
+            draws.TWO_PI * u53(w[2], w[3]))
+
+    r1 = normal(words(0))
+    if not dof > 0.0:
+        return r1, 0.0, None
+    a = 0.5 * dof
+    boost = a < 1.0
+    d = (a + 1.0 if boost else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    g, ub, at = d, 1.0, None
+    for t in range(attempts):
+        x = normal(words(1 + 2 * t))
+        w = words(2 + 2 * t)
+        cx = 1.0 + c * x
+        v = cx * cx * cx
+        u = 1.0 - u53(w[0], w[1])
+        if v > 0.0 and math.log(u) < (0.5 * x * x + d - d * v
+                                      + d * math.log(v)):
+            g, ub, at = d * v, 1.0 - u53(w[2], w[3]), t
+            break
+    if boost:
+        g = g * ub ** (1.0 / a)
+    return r1, 2.0 * g, at
+
+
+# Bussi's branches: (dofs, gamma attempts).
+BUSSI_BRANCHES = {"no_freedom": ((0.0, -3.0, math.nan), None),
+                  "boost": ((1.5, 0.3), None),
+                  "gamma": ((3.0, 196604.0), None),
+                  "none_accepts": ((1.5, 3.0), 1),
+                  "none_can_accept": ((math.inf,), None)}
+
+
+@pytest.mark.parametrize("branch", list(BUSSI_BRANCHES))
+def test_bussi_draw_plain_takes_the_first_accepting_attempt(branch,
+                                                            monkeypatch):
+    """``bussi_draw_plain`` (all attempts at once, the first accepting one
+    taken by ``argmax``) against the attempts made one after another in
+    Python floats, over 400 steps, to rel 1e-12 (the libm's last bits):
+    r2 = 0 where dof <= 0 (or NaN); the boost u^(1/a) where a < 1; the
+    first accepting attempt, at some steps past the first one; a step on
+    which no attempt accepts (with the attempts cut to one: r2 = 2 d), and
+    a dof on which none can (infinite: r2 infinite)."""
+    dofs, attempts = BUSSI_BRANCHES[branch]
+    if attempts is not None:
+        monkeypatch.setattr(draws, "GAMMA_ATTEMPTS", attempts)
+    steps = list(range(400))
+    for dof in dofs:
+        r1, r2 = draws.bussi_draw_plain(7, torch.tensor(steps), dof)
+        want = [_bussi_in_order(7, s, dof, draws.GAMMA_ATTEMPTS)
+                for s in steps]
+        np.testing.assert_allclose(r1.numpy(), [w[0] for w in want],
+                                   rtol=1e-12, atol=0)
+        np.testing.assert_allclose(r2.numpy(), [w[1] for w in want],
+                                   rtol=1e-12, atol=0)
+        taken = [w[2] for w in want]
+        if branch == "no_freedom":
+            assert torch.all(r2 == 0)
+        elif branch == "none_can_accept":
+            assert torch.all(torch.isinf(r2)) and taken == [None] * 400
+        elif branch == "none_accepts":
+            assert None in taken and 0 in taken
+        else:
+            assert all(t is not None for t in taken)
+            if dof < 10:
+                assert max(taken) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
